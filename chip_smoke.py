@@ -1,0 +1,425 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``rl8_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
+``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. Phases, each
+printing one JSON line; any failed check raises and exits non-zero:
+
+1. build: compile the kernels from ``rl8_tpu_torch/csrc`` and time it;
+   print the card's name and power limit.
+2. kernels: every kernel of the main path against its plain PyTorch
+   version on the card at the main path's shapes (act at obs [8192, 1]
+   with twin 256-wide torsos, and at A=2, n=3; GAE at [32, 8192], at a
+   ragged B=1000 and at T=512), each timed beside its plain version.
+3. main path: ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)``
+   at the defaults (8192 envs, horizon 32), one warm-up and five timed
+   ``collect()`` calls and the advantage stage, with the kernels' launch
+   counters read around it; then a small configuration run on the card
+   and on the CPU (the plain versions) from the same seed, compared.
+4. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
+   line last.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+#: Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+#: f32 outside the tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+#: Tolerances, f32 on both sides. The kernel sums each dot product in
+#: another order than cuBLAS/ATen and contracts multiply-adds into FMAs,
+#: so values and log-probs differ by a few ulps of the largest partial
+#: sums (activations reach ~1e2 with observations of magnitude 1e2).
+ACT_RTOL, ACT_ATOL = 1e-4, 1e-4
+#: Rows whose top-2 scores are closer than this may legitimately flip.
+TIE_GAP = 1e-5
+GAE_RTOL, GAE_ATOL = 1e-5, 1e-4
+#: Frequency test: draws per row, and the allowed deviation in standard
+#: deviations of a sum of independent Bernoulli counts.
+FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    if not (repo / "rl8_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout holding rl8_tpu_torch/", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+    # ---------------------------------------------------------------- build
+    from rl8_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load()
+    ptxas = (lib_path.parent / "ptxas.log").read_text().splitlines()
+    emit({
+        "phase": "build",
+        "seconds": time.perf_counter() - t0,
+        "library": lib_path.name,
+        "card": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "ptxas": [ln.strip() for ln in ptxas if "registers" in ln or "spill" in ln],
+    })
+
+    kernels = {
+        "act": {
+            "name": "discrete_act",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/act.cu",
+            "replaces": "rl8_tpu/ops/fused_act.py:44 _discrete_act_kernel",
+            "library_ms": None,
+        },
+        "gae": {
+            "name": "gae",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/gae.cu",
+            "replaces": "rl8_tpu/ops/gae.py:46 _gae_kernel",
+            "library_ms": None,
+        },
+    }
+    check_act(torch, dev, kernels["act"])
+    check_gae(torch, dev, kernels["gae"])
+    run_main_path(torch, dev, kernels)
+    check_small_against_cpu(torch, dev)
+
+    emit({"kernels": list(kernels.values())})
+    print(card, flush=True)
+    emit({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    })
+    return 0
+
+
+def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """``(device ms, host ms)`` per call of ``fn`` over ``iters`` calls.
+
+    The host first times how long it takes to issue the calls, then
+    queues them again behind a device-side sleep longer than that, so
+    the CUDA events bracket device work only and not the host's issue
+    rate (which bounds back-to-back launches of small kernels)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))  # cycles; the SM clock is <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+
+
+def make_model(torch, action_spec, seed: int):
+    """A default discrete model as the main path initializes it, with the
+    logits head re-drawn at lecun scale so that the action probabilities
+    are far from uniform and the sampling checks see real distributions."""
+    from rl8_tpu_torch.models import DefaultDiscreteModel, lecun_normal_
+    from rl8_tpu_torch.specs import Unbounded
+
+    model = DefaultDiscreteModel(Unbounded(1), action_spec)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        lecun_normal_(model.feature_head.weight, gen)
+    return model.cuda()
+
+
+def check_act(torch, dev, record: dict) -> None:
+    from rl8_tpu_torch.distributions import Categorical
+    from rl8_tpu_torch.ops import act_plain, fused_act, pack_act_params
+    from rl8_tpu_torch.ops.distmath import log_softmax_rows, philox_uniform
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+    from rl8_tpu_torch.specs import Discrete
+
+    B = 8192
+    gen = torch.Generator(device=dev).manual_seed(1)
+    obs = (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0) * 100.0
+    for A, n in ((1, 2), (2, 3)):
+        params = pack_act_params(make_model(torch, Discrete(n, shape=(A,)), seed=A * 10 + n))
+        (logits,), _ = forward_chains(obs, params.chains(), params.activation)
+        z = torch.cat([log_softmax_rows(logits[:, a * n : (a + 1) * n]) for a in range(A)], 1)
+        zg = z.view(B, A, n)
+
+        def near_tie(scores):
+            top2 = scores.topk(2, dim=-1).values
+            return ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
+
+        # Deterministic: argmax actions, log-probs and values.
+        key = (12345, 678)
+        ka, kl, kv = fused_act(params, obs, key, deterministic=True)
+        pa, pl, pv = act_plain(params, obs, key, deterministic=True)
+        torch.cuda.synchronize()
+        keep = ~near_tie(zg)
+        check(bool((ka == pa).all(dim=1)[keep].all()), f"deterministic actions A={A} n={n}")
+        check(torch.allclose(kl, pl, rtol=ACT_RTOL, atol=ACT_ATOL), f"deterministic logp A={A} n={n}")
+        check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"values A={A} n={n}")
+        det_err = max(float((kl - pl).abs().max()), float((kv - pv).abs().max()))
+
+        # Stochastic: the plain version replays the kernel's Philox draws.
+        ka, kl, _ = fused_act(params, obs, key, deterministic=False)
+        pa, pl, _ = act_plain(params, obs, key, deterministic=False)
+        u = philox_uniform(*key, B, A, n, dev).view(B, A, n)
+        keep = ~near_tie(zg - torch.log(-torch.log(u)))
+        check(bool((ka == pa).all(dim=1)[keep].all()), f"stochastic actions A={A} n={n}")
+        ref_logp = Categorical({"logits": logits.view(B, A, n)}).logp(ka)
+        check(torch.allclose(kl, ref_logp, rtol=ACT_RTOL, atol=ACT_ATOL),
+              f"stochastic logp vs Categorical.logp A={A} n={n}")
+        sto_err = float((kl - ref_logp).abs().max())
+
+        # Frequencies of FREQ_DRAWS draws per row against softmax probs,
+        # per category, overall and within ten bins of probability.
+        probs = zg.exp()
+        counts = torch.zeros_like(probs)
+        cats = torch.arange(n, device=dev)
+        for d in range(FREQ_DRAWS):
+            a_d, _, _ = fused_act(params, obs, (99, d), deterministic=False)
+            counts += (a_d.long()[..., None] == cats).float()
+        freq_worst = 0.0
+        for a in range(A):
+            for c in range(n):
+                p = probs[:, a, c].double()
+                hits = counts[:, a, c].double()
+                bins = torch.clamp((p * 10).long(), max=9)
+                for b in [None, *range(10)]:
+                    sel = slice(None) if b is None else bins == b
+                    expected = FREQ_DRAWS * p[sel].sum()
+                    sigma = math.sqrt(FREQ_DRAWS * float((p[sel] * (1 - p[sel])).sum()))
+                    dev_sigmas = abs(float(hits[sel].sum() - expected)) / max(sigma, 1e-12)
+                    if sigma > 0:
+                        freq_worst = max(freq_worst, dev_sigmas)
+                        check(dev_sigmas <= FREQ_SIGMAS,
+                              f"frequency A={A} n={n} group {a} cat {c} bin {b}: {dev_sigmas:.2f} sigma")
+        emit({
+            "phase": "kernel_check", "kernel": "discrete_act", "A": A, "n": n, "B": B,
+            "det_max_abs_err": det_err, "stochastic_logp_max_abs_err": sto_err,
+            "frequency_worst_sigmas": freq_worst, "rtol": ACT_RTOL, "atol": ACT_ATOL,
+        })
+        if (A, n) == (1, 2):
+            record["max_abs_err"] = max(det_err, sto_err)
+
+    # Timing at the main path's shapes: B=8192, twin 256-wide torsos, A=1, n=2.
+    params = pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
+    H = params.hiddens
+    macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+    flops = 2 * B * (2 * macs_chain + H[-1] * (params.n_logits + 1))
+    bytes_moved = 4 * (obs.numel() + params.flat.numel() + B * (params.action_dim + 2))
+    record["ms"], host_ms = time_ms(torch, lambda: fused_act(params, obs, (1, 2)))
+    record["plain_ms"], plain_host_ms = time_ms(
+        torch, lambda: act_plain(params, obs, (1, 2), deterministic=False), iters=20
+    )
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    emit({"phase": "kernel_time", "kernel": "discrete_act", "B": B, "flops": flops,
+          "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def check_gae(torch, dev, record: dict) -> None:
+    from rl8_tpu_torch.ops import fused_gae, gae_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kw = {"gamma": 0.95, "gae_lambda": 0.95}
+    for T, B in ((32, 8192), (32, 1000), (512, 8192)):
+        rewards = torch.randn((T, B, 1), generator=gen, device=dev)
+        values = torch.randn((T + 1, B, 1), generator=gen, device=dev)
+        scale = torch.tensor(3.7, device=dev)
+        ka, kr = fused_gae(rewards, values, scale, **kw)
+        pa, pr = gae_plain(rewards, values, scale, **kw)
+        torch.cuda.synchronize()
+        err = max(float((ka - pa).abs().max()), float((kr - pr).abs().max()))
+        check(torch.allclose(ka, pa, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE advantages T={T} B={B}")
+        check(torch.allclose(kr, pr, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE returns T={T} B={B}")
+        emit({"phase": "kernel_check", "kernel": "gae", "T": T, "B": B, "max_abs_err": err,
+              "rtol": GAE_RTOL, "atol": GAE_ATOL})
+        if (T, B) == (32, 8192):
+            record["max_abs_err"] = err
+            bytes_moved = 4 * ((4 * T + 1) * B + 1)
+            flops = 6 * T * B
+            record["ms"], host_ms = time_ms(
+                torch, lambda: fused_gae(rewards, values, scale, **kw), iters=200
+            )
+            record["plain_ms"], plain_host_ms = time_ms(
+                torch, lambda: gae_plain(rewards, values, scale, **kw)
+            )
+            record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+            record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+            emit({"phase": "kernel_time", "kernel": "gae", "T": T, "B": B, "flops": flops,
+                  "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+                  **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def run_main_path(torch, dev, kernels: dict) -> None:
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.nn import generalized_advantage_estimate
+    from rl8_tpu_torch.ops import fused_act, fused_gae
+
+    t0 = time.perf_counter()
+    algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    build_s = time.perf_counter() - t0
+    h = algo.hparams
+    fused_act.launches = 0
+    fused_gae.launches = 0
+    algo.collect()  # warm-up
+    collect_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = algo.collect()
+        collect_ms.append((time.perf_counter() - t) * 1e3)
+    advantages, returns = algo._advantages()
+    torch.cuda.synchronize()
+    act_launches, gae_launches = fused_act.launches, fused_gae.launches
+    kernels["act"]["launches"] = act_launches
+    kernels["gae"]["launches"] = gae_launches
+    check(act_launches == 6 * h.horizon, f"act launches {act_launches} != 6 collects x {h.horizon}")
+    check(gae_launches == 1, f"GAE launches {gae_launches} != 1 advantage call")
+
+    buffer = algo.state.buffer
+    T, B = h.horizon, h.num_envs
+    shapes = {
+        DataKeys.OBS: (T + 1, B, 1), DataKeys.ACTIONS: (T, B, 1), DataKeys.LOGP: (T, B, 1),
+        DataKeys.VALUES: (T + 1, B, 1), DataKeys.REWARDS: (T, B, 1),
+        DataKeys.REVERSED_DISCOUNTED_RETURNS: (T + 1, B, 1),
+    }
+    for key, shape in shapes.items():
+        check(tuple(buffer[key].shape) == shape, f"buffer {key} shape {tuple(buffer[key].shape)}")
+        check(bool(torch.isfinite(buffer[key].float()).all()), f"buffer {key} finite")
+    check(bool(((buffer[DataKeys.ACTIONS] >= 0) & (buffer[DataKeys.ACTIONS] < 2)).all()), "actions in range")
+    check(all(math.isfinite(v) for v in stats.values()), "collect stats finite")
+    for name, x in (("advantages", advantages), ("returns", returns)):
+        check(tuple(x.shape) == (T, B, 1) and bool(torch.isfinite(x).all()), f"{name} shape/finite")
+    ref_adv, ref_ret = generalized_advantage_estimate(
+        buffer[DataKeys.REWARDS], buffer[DataKeys.VALUES], gamma=h.gamma,
+        gae_lambda=h.gae_lambda, reward_scale=algo.state.reward_scale,
+    )
+    check(torch.allclose(advantages, ref_adv, rtol=GAE_RTOL, atol=GAE_ATOL), "advantages vs reference")
+    check(torch.allclose(returns, ref_ret, rtol=GAE_RTOL, atol=GAE_ATOL * 10), "returns vs reference")
+    ms = sorted(collect_ms)[len(collect_ms) // 2]
+    emit({
+        "phase": "main_path", "num_envs": B, "horizon": T, "hiddens": list(algo.policy.model.hiddens),
+        "build_s": build_s, "collect_ms": collect_ms, "collect_ms_median": ms,
+        "transitions_per_s": B * T / (ms / 1e3), "act_launches": act_launches,
+        "gae_launches": gae_launches, "reward_scale": float(algo.state.reward_scale),
+        "returns_mean": stats["returns/mean"],
+    })
+    profile_collect(torch, algo)
+
+
+def profile_collect(torch, algo) -> None:
+    """Device time by kernel over one ``collect()`` plus the advantage
+    stage, from ``torch.profiler``; the busy share is the summed device
+    time over the host wall time of the profiled window (the profiler's
+    own host overhead lengthens that window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        algo.collect()
+        algo._advantages()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if getattr(e, "self_device_time_total", 0) > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    emit({
+        "phase": "profile", "window": "collect + advantages", "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+        "top": [{"name": name[:80], "ms": ms, "count": count} for name, ms, count in rows[:10]],
+    })
+
+
+def check_small_against_cpu(torch, dev) -> None:
+    """The same small configuration on the card and on the CPU (the
+    kernels' plain versions), from one seed and the same start positions:
+    two stochastic collects (the second carrying over) and the advantage
+    stage must agree."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    class FixedStartEnv(DiscreteDummyEnv):
+        def reset(self, generator, *, state=None, config=None):
+            pos = torch.linspace(-50.0, 50.0, self.num_envs).view(-1, 1).to(self.device)
+            return {"position": pos, "bounds": torch.tensor(50.0, device=self.device)}, pos
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        algo = AlgorithmConfig(
+            num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7,
+            model_config={"hiddens": (32, 32)}, device=device,
+        ).build(FixedStartEnv)
+        stats = [algo.collect(), algo.collect()]
+        adv, ret = algo._advantages()
+        runs[device] = (stats, {k: v.cpu() for k, v in algo.state.buffer.items()}, adv.cpu(), ret.cpu(),
+                        algo.state.reward_scale.cpu())
+    (s_g, b_g, a_g, r_g, sc_g), (s_c, b_c, a_c, r_c, sc_c) = runs["cuda"], runs["cpu"]
+    for key in (DataKeys.OBS, DataKeys.ACTIONS):
+        check(torch.equal(b_g[key], b_c[key]), f"small run {key} equal on card and CPU")
+    for key in (DataKeys.LOGP, DataKeys.VALUES, DataKeys.REWARDS, DataKeys.REVERSED_DISCOUNTED_RETURNS):
+        check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small run {key}")
+    check(torch.allclose(sc_g, sc_c, rtol=1e-5), "small run reward scale")
+    check(torch.allclose(a_g, a_c, rtol=1e-4, atol=1e-4), "small run advantages")
+    check(torch.allclose(r_g, r_c, rtol=1e-4, atol=1e-4), "small run returns")
+    for sg, sc in zip(s_g, s_c):
+        for k in sg:
+            if k.startswith(("returns/", "rewards/")):
+                check(math.isclose(sg[k], sc[k], rel_tol=1e-4, abs_tol=1e-4), f"small run stat {k}")
+    emit({"phase": "small_vs_cpu", "num_envs": 64, "horizon": 8, "collects": 2,
+          "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
+          "advantages_max_abs_err": float((a_g - a_c).abs().max())})
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""Models (counterpart of ``rl8_tpu/models``)."""
+
+from ._base import GenericModelBase
+from ._feedforward import (
+    DefaultDiscreteModel,
+    GenericModel,
+    Model,
+    ModelFactory,
+    lecun_normal_,
+    small_uniform_,
+)
+from .convert import load_jax_params
+
+__all__ = [
+    "DefaultDiscreteModel",
+    "GenericModel",
+    "GenericModelBase",
+    "Model",
+    "ModelFactory",
+    "lecun_normal_",
+    "load_jax_params",
+    "small_uniform_",
+]

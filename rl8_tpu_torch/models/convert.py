@@ -1,0 +1,54 @@
+"""Carry weights across from the JAX package.
+
+:func:`load_jax_params` copies a flax parameter tree of
+``rl8_tpu.models.DefaultDiscreteModel`` (as nested dicts of numpy
+arrays, e.g. ``jax.device_get(params)``) into this package's
+:class:`~rl8_tpu_torch.models.DefaultDiscreteModel`. A flax ``kernel``
+is ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, so kernels are
+transposed on the way in.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from ._feedforward import DefaultDiscreteModel
+
+__all__ = ["load_jax_params"]
+
+
+def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
+    kernel = np.asarray(dense["kernel"], dtype=np.float32)
+    if kernel.T.shape != tuple(layer.weight.shape):
+        raise ValueError(
+            f"Kernel of shape {kernel.shape} does not fit a weight of shape"
+            f" {tuple(layer.weight.shape)} (transposed)."
+        )
+    layer.weight.copy_(torch.tensor(kernel.T))
+    if layer.bias is not None:
+        layer.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
+
+
+def load_jax_params(model: DefaultDiscreteModel, params: Mapping[str, Any], /) -> DefaultDiscreteModel:
+    """Load a flax param tree (``feature_model/Dense_i``,
+    ``feature_head``, ``vf_model/Dense_i``, ``vf_head``) into ``model``
+    in place and return it."""
+    if not isinstance(model, DefaultDiscreteModel):
+        raise TypeError(f"No flax layout is known for {type(model).__name__}.")
+    with torch.no_grad():
+        for torso_name, head_name in (("feature_model", "feature_head"), ("vf_model", "vf_head")):
+            torso = getattr(model, torso_name)
+            dense = params[torso_name]
+            if len(dense) != len(torso.layers):
+                raise ValueError(
+                    f"{torso_name} has {len(dense)} flax layers but the model"
+                    f" has {len(torso.layers)}."
+                )
+            for i, layer in enumerate(torso.layers):
+                _copy_dense(layer, dense[f"Dense_{i}"])
+            _copy_dense(getattr(model, head_name), params[head_name])
+    return model

@@ -1,0 +1,12 @@
+"""Top-level NN extensions (counterpart of ``rl8_tpu/nn``)."""
+
+from .functional import generalized_advantage_estimate
+from .modules import ACTIVATIONS, MLP, get_activation, squared_relu
+
+__all__ = [
+    "ACTIVATIONS",
+    "MLP",
+    "generalized_advantage_estimate",
+    "get_activation",
+    "squared_relu",
+]

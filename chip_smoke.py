@@ -11,13 +11,21 @@ printing one JSON line; any failed check raises and exits non-zero:
 2. kernels: every kernel of the main path against its plain PyTorch
    version on the card at the main path's shapes (act at obs [8192, 1]
    with twin 256-wide torsos, and at A=2, n=3; GAE at [32, 8192], at a
-   ragged B=1000 and at T=512), each timed beside its plain version.
+   ragged B=1000 and at T=512; the PPO update at 262,144 rows, at a
+   ragged 1,000 rows with entropy, dual clip and accumulation, and at
+   ragged weight tiles), each timed beside its plain version.
 3. main path: ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)``
-   at the defaults (8192 envs, horizon 32), one warm-up and five timed
-   ``collect()`` calls and the advantage stage, with the kernels' launch
-   counters read around it; then a small configuration run on the card
-   and on the CPU (the plain versions) from the same seed, compared.
-4. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
+   at the defaults (8192 envs, horizon 32, twin 256-wide torsos, a
+   whole-buffer minibatch, 4 epochs): first the rollout (one warm-up and
+   five timed ``collect()`` calls and the advantage stage), then the
+   training loop (one warm-up and five timed ``collect()`` + ``step()``
+   iterations), each with the kernels' launch counters set to 0 just
+   before and read just after, and a profiler breakdown of each.
+4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
+   iterations) on the card must learn the optimal greedy policy.
+5. a small configuration run on the card and on the CPU (the plain
+   versions) from the same seed, two collects and one step, compared.
+6. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
 
@@ -43,6 +51,14 @@ ACT_RTOL, ACT_ATOL = 1e-4, 1e-4
 #: Rows whose top-2 scores are closer than this may legitimately flip.
 TIE_GAP = 1e-5
 GAE_RTOL, GAE_ATOL = 1e-5, 1e-4
+#: Update kernel vs its plain version: each gradient tensor by a
+#: norm-relative error, ||k - p|| <= 1e-4 ||p|| + 1e-6, because both sum
+#: f32 products over up to 262,144 rows, in another order (row blocks,
+#: split-K groups and a fixed-order final sum against cuBLAS/ATen
+#: reductions); the losses (means) to rtol 1e-5 with atol 1e-6 for the
+#: near-zero policy mean of zero-mean advantages.
+PPO_GRAD_RTOL, PPO_GRAD_ATOL = 1e-4, 1e-6
+PPO_STAT_RTOL, PPO_STAT_ATOL = 1e-5, 1e-6
 #: Frequency test: draws per row, and the allowed deviation in standard
 #: deviations of a sum of independent Bernoulli counts.
 FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
@@ -109,10 +125,20 @@ def main() -> int:
             "replaces": "rl8_tpu/ops/gae.py:46 _gae_kernel",
             "library_ms": None,
         },
+        "ppo": {
+            "name": "ppo_update",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/ppo.cu",
+            "replaces": "rl8_tpu/ops/fused_ppo.py:144 _discrete_kernel",
+            "library_ms": None,
+        },
     }
     check_act(torch, dev, kernels["act"])
     check_gae(torch, dev, kernels["gae"])
-    run_main_path(torch, dev, kernels)
+    check_ppo(torch, dev, kernels["ppo"])
+    run_main_path(torch, dev)
+    run_update_path(torch, dev, kernels)
+    check_learning(torch, dev)
     check_small_against_cpu(torch, dev)
 
     emit({"kernels": list(kernels.values())})
@@ -154,14 +180,14 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, 1e3 * host_s / iters
 
 
-def make_model(torch, action_spec, seed: int):
+def make_model(torch, action_spec, seed: int, obs_dim: int = 1, **model_config):
     """A default discrete model as the main path initializes it, with the
     logits head re-drawn at lecun scale so that the action probabilities
     are far from uniform and the sampling checks see real distributions."""
     from rl8_tpu_torch.models import DefaultDiscreteModel, lecun_normal_
     from rl8_tpu_torch.specs import Unbounded
 
-    model = DefaultDiscreteModel(Unbounded(1), action_spec)
+    model = DefaultDiscreteModel(Unbounded(obs_dim), action_spec, **model_config)
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters(gen)
     with torch.no_grad():
@@ -181,7 +207,7 @@ def check_act(torch, dev, record: dict) -> None:
     obs = (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0) * 100.0
     for A, n in ((1, 2), (2, 3)):
         params = pack_act_params(make_model(torch, Discrete(n, shape=(A,)), seed=A * 10 + n))
-        (logits,), _ = forward_chains(obs, params.chains(), params.activation)
+        ((logits,), _), _ = forward_chains(obs, params.chains(), params.activation)
         z = torch.cat([log_softmax_rows(logits[:, a * n : (a + 1) * n]) for a in range(A)], 1)
         zg = z.view(B, A, n)
 
@@ -293,7 +319,111 @@ def check_gae(torch, dev, record: dict) -> None:
                   **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
 
 
-def run_main_path(torch, dev, kernels: dict) -> None:
+def ppo_inputs(torch, dev, model, N: int, seed: int):
+    """A packed training minibatch of N rows for ``model``: observations,
+    random actions, old log-probs near the model's own (ratios around 1,
+    clipped on both sides), standard-normal advantages, and returns
+    around the model's values (both smooth-L1 branches and the clip)."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Categorical
+    from rl8_tpu_torch.ops import pack_act_params, pack_rows
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = pack_act_params(model)
+    A, n = params.action_dim, params.n
+    obs = 20.0 * torch.randn((N, params.d_in), generator=gen, device=dev)
+    ((logits,), (values,)), _ = forward_chains(obs, params.chains(), params.activation)
+    actions = torch.randint(0, n, (N, A), generator=gen, device=dev, dtype=torch.int32)
+    logp = Categorical({"logits": logits.view(N, A, n)}).logp(actions)
+    logp = logp + 0.1 * torch.randn((N, 1), generator=gen, device=dev)
+    packed, unpack = pack_rows({
+        DataKeys.ACTIONS: actions,
+        DataKeys.LOGP: logp,
+        DataKeys.ADVANTAGES: torch.randn((N, 1), generator=gen, device=dev),
+        DataKeys.RETURNS: values + 2.0 * torch.randn((N, 1), generator=gen, device=dev),
+        DataKeys.VIEWS: {DataKeys.OBS: obs},
+    })
+    return params, packed, unpack
+
+
+def check_ppo(torch, dev, record: dict) -> None:
+    """The update kernel against its plain version on the card: (a) the
+    main path's shapes, (b) a ragged N with A=2, n=3, entropy, dual clip
+    and accumulation, (c) ragged weight tiles (100- and 72-wide tanh
+    layers) over three row groups. Two launches must be bit-identical."""
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo_grads, ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_act import ActParams
+    from rl8_tpu_torch.specs import Discrete
+
+    configs = {
+        "a": dict(N=8192 * 32, spec=Discrete(2, shape=(1,)), model={}, obs_dim=1, ec=0.0,
+                  loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)),
+        "b": dict(N=1000, spec=Discrete(3, shape=(2,)), model={"hiddens": (64, 32)}, obs_dim=3,
+                  ec=0.013, loss=dict(vf_clip_param=1.5, vf_coeff=0.9, dual_clip_param=3.0, accum=3)),
+        "c": dict(N=9001, spec=Discrete(2, shape=(3,)),
+                  model={"hiddens": (100, 72), "activation_fn": "tanh"}, obs_dim=5, ec=0.02,
+                  loss=dict(vf_clip_param=2.0, vf_coeff=0.5, dual_clip_param=None, accum=2)),
+    }
+    for name, c in configs.items():
+        model = make_model(torch, c["spec"], seed=40 + ord(name), obs_dim=c["obs_dim"], **c["model"])
+        params, packed, unpack = ppo_inputs(torch, dev, model, c["N"], seed=ord(name))
+        cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0, **c["loss"])
+        ec = torch.tensor(c["ec"], device=dev)
+        k_losses, k_kl, k_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
+        k2_losses, k2_kl, k2_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
+        p_losses, p_kl, p_grads = ppo_grads_plain(params, packed, unpack, ec, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(k_grads, k2_grads) and torch.equal(k_kl, k2_kl)
+              and all(torch.equal(k_losses[key], k2_losses[key]) for key in k_losses),
+              f"ppo ({name}): two launches bit-identical")
+        worst_grad = 0.0
+        for kc, pc in zip(ActParams(**{**params.__dict__, "flat": k_grads}).chains(),
+                          ActParams(**{**params.__dict__, "flat": p_grads}).chains()):
+            for kt, pt in zip([t for pair in (*kc[0], *kc[1]) for t in pair],
+                              [t for pair in (*pc[0], *pc[1]) for t in pair]):
+                err, ref = float((kt - pt).norm()), float(pt.norm())
+                worst_grad = max(worst_grad, err / max(ref, 1e-30))
+                check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+                      f"ppo ({name}): gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
+        stat_err = 0.0
+        for key, kv, pv in [(k, k_losses[k], p_losses[k]) for k in p_losses] + [("kl", k_kl, p_kl)]:
+            kv, pv = float(kv), float(pv)
+            stat_err = max(stat_err, abs(kv - pv))
+            check(abs(kv - pv) <= PPO_STAT_RTOL * abs(pv) + PPO_STAT_ATOL,
+                  f"ppo ({name}): {key} {kv!r} vs plain {pv!r}")
+        emit({"phase": "kernel_check", "kernel": "ppo_update", "config": name, "N": c["N"],
+              "hiddens": list(params.hiddens), "A": params.action_dim, "n": params.n,
+              "activation": params.activation, "entropy_coeff": c["ec"], **c["loss"],
+              "worst_grad_norm_rel_err": worst_grad, "loss_max_abs_err": stat_err,
+              "bit_identical": True, "losses": {k: float(v) for k, v in k_losses.items()},
+              "kl": float(k_kl)})
+        if name == "a":
+            record["max_abs_err"] = max(stat_err, float((k_grads - p_grads).abs().max()))
+            N, H, d_in = c["N"], params.hiddens, params.d_in
+            dense = d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+            heads = H[-1] * (params.n_logits + 1)
+            fwd_macs = 2 * dense + heads
+            bwd_macs = fwd_macs + 2 * (dense - d_in * H[0]) + heads  # every dW, dh past layer 1
+            flops = 2 * N * (fwd_macs + bwd_macs)
+            n_params = params.flat.numel()
+            bytes_moved = 4 * (packed.numel() + 2 * n_params + 4 + 1)
+            record["ms"], host_ms = time_ms(
+                torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
+            )
+            record["plain_ms"], plain_host_ms = time_ms(
+                torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
+            )
+            record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+            record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+            record["host_ms"] = host_ms
+            emit({"phase": "kernel_time", "kernel": "ppo_update", "N": N, "flops": flops,
+                  "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+                  **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def run_main_path(torch, dev) -> None:
+    """The rollout path: collects and the advantage stage."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.env import DiscreteDummyEnv
@@ -316,8 +446,6 @@ def run_main_path(torch, dev, kernels: dict) -> None:
     advantages, returns = algo._advantages()
     torch.cuda.synchronize()
     act_launches, gae_launches = fused_act.launches, fused_gae.launches
-    kernels["act"]["launches"] = act_launches
-    kernels["gae"]["launches"] = gae_launches
     check(act_launches == 6 * h.horizon, f"act launches {act_launches} != 6 collects x {h.horizon}")
     check(gae_launches == 1, f"GAE launches {gae_launches} != 1 advantage call")
 
@@ -349,21 +477,80 @@ def run_main_path(torch, dev, kernels: dict) -> None:
         "gae_launches": gae_launches, "reward_scale": float(algo.state.reward_scale),
         "returns_mean": stats["returns/mean"],
     })
-    profile_collect(torch, algo)
+
+    def rollout():
+        algo.collect()
+        algo._advantages()
+
+    profile_window(torch, "collect + advantages", rollout)
 
 
-def profile_collect(torch, algo) -> None:
-    """Device time by kernel over one ``collect()`` plus the advantage
-    stage, from ``torch.profiler``; the busy share is the summed device
-    time over the host wall time of the profiled window (the profiler's
-    own host overhead lengthens that window)."""
+def run_update_path(torch, dev, kernels: dict) -> None:
+    """The main path with the update: collect() + step() at the defaults,
+    one warm-up and five timed iterations; every kernel of the path must
+    have launched (act 32, GAE 1, update 4 per iteration)."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads
+
+    algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    h = algo.hparams
+    n_params = sum(p.numel() for p in algo.policy.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_act.launches = fused_gae.launches = fused_ppo_grads.launches = 0
+    collect_ms, step_ms, steps = [], [], []
+    for i in range(6):  # the first is the warm-up
+        t = time.perf_counter()
+        algo.collect()  # ends in its one host fetch
+        t_mid = time.perf_counter()
+        steps.append(algo.step())  # ends in its one host fetch
+        t_end = time.perf_counter()
+        if i:
+            collect_ms.append((t_mid - t) * 1e3)
+            step_ms.append((t_end - t_mid) * 1e3)
+    launches = {"act": fused_act.launches, "gae": fused_gae.launches, "ppo": fused_ppo_grads.launches}
+    for key, count in launches.items():
+        kernels[key]["launches"] = count
+    iters = 6
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check(launches["act"] == iters * h.horizon, f"act launches {launches['act']} != {iters} x {h.horizon}")
+    check(launches["gae"] == iters, f"GAE launches {launches['gae']} != {iters} steps")
+    check(launches["ppo"] == iters * per_step, f"update launches {launches['ppo']} != {iters} x {per_step}")
+    for stats in steps:
+        check(all(math.isfinite(v) for v in stats.values()), f"step stats finite: {stats}")
+    for name, param in algo.policy.model.named_parameters():
+        check(bool(torch.isfinite(param).all()), f"parameter {name} finite")
+    check(tuple(algo.policy.model.feature_model.layers[1].weight.shape) == (256, 256), "torso width")
+    check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
+          "the buffer is spent and Adam counted every update")
+    med_collect = sorted(collect_ms)[len(collect_ms) // 2]
+    med_step = sorted(step_ms)[len(step_ms) // 2]
+    emit({
+        "phase": "main_path_update", "num_envs": h.num_envs, "horizon": h.horizon,
+        "hiddens": list(algo.policy.model.hiddens), "num_sgd_iters": h.num_sgd_iters,
+        "num_minibatches": h.num_minibatches, "parameters": n_params,
+        "collect_ms": collect_ms, "step_ms": step_ms,
+        "collect_ms_median": med_collect, "step_ms_median": med_step,
+        "transitions_per_s_with_update": h.num_envs * h.horizon / ((med_collect + med_step) / 1e3),
+        "launches": launches, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "last_step": steps[-1],
+    })
+    algo.collect()
+    profile_window(torch, "step", algo.step)
+
+
+def profile_window(torch, window: str, fn) -> None:
+    """Device time by kernel over one call of ``fn``, from
+    ``torch.profiler``; the busy share is the summed device time over the
+    host wall time of the profiled window (the profiler's own host
+    overhead lengthens that window)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        algo.collect()
-        algo._advantages()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = [
@@ -374,27 +561,50 @@ def profile_collect(torch, algo) -> None:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     emit({
-        "phase": "profile", "window": "collect + advantages", "wall_ms": wall_ms,
+        "phase": "profile", "window": window, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "top": [{"name": name[:80], "ms": ms, "count": count} for name, ms, count in rows[:10]],
     })
 
 
-def check_small_against_cpu(torch, dev) -> None:
-    """The same small configuration on the card and on the CPU (the
-    kernels' plain versions), from one seed and the same start positions:
-    two stochastic collects (the second carrying over) and the advantage
-    stage must agree."""
+def check_learning(torch, dev) -> None:
+    """The verify recipe's learning drive on the card: 256 envs, horizon
+    16, seed 1, 30 collect+step iterations with bounds 10; the greedy
+    policy must move every position toward the origin."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    t = time.perf_counter()
+    algo = AlgorithmConfig(num_envs=256, horizon=16, seed=1, device="cuda").build(DiscreteDummyEnv)
+    for _ in range(30):
+        collect_stats = algo.collect(env_config={"bounds": 10.0})
+        algo.step()
+    obs = torch.tensor([[[5.0]], [[-5.0]], [[2.0]], [[-2.0]]], device=dev)
+    out = algo.policy.sample({DataKeys.OBS: obs}, kind="last", deterministic=True)
+    actions = out[DataKeys.ACTIONS].ravel().tolist()
+    check(actions == [0, 1, 0, 1], f"the policy did not learn: greedy actions {actions}")
+    emit({"phase": "learning", "iterations": 30, "greedy_actions": actions,
+          "final_returns_mean": collect_stats["returns/mean"], "seconds": time.perf_counter() - t})
+
+
+def check_small_against_cpu(torch, dev) -> None:
+    """The same small configuration on the card and on the CPU (the
+    kernels' plain versions), from one seed and the same start positions:
+    two stochastic collects (the second carrying over), the advantage
+    stage and one step (whole-buffer minibatch, so no shuffle) must
+    agree."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops.fused_mlp import default_chains, flatten_chains
 
     class FixedStartEnv(DiscreteDummyEnv):
         def reset(self, generator, *, state=None, config=None):
             pos = torch.linspace(-50.0, 50.0, self.num_envs).view(-1, 1).to(self.device)
             return {"position": pos, "bounds": torch.tensor(50.0, device=self.device)}, pos
 
-    runs = {}
+    runs, steps = {}, {}
     for device in ("cuda", "cpu"):
         algo = AlgorithmConfig(
             num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7,
@@ -404,6 +614,8 @@ def check_small_against_cpu(torch, dev) -> None:
         adv, ret = algo._advantages()
         runs[device] = (stats, {k: v.cpu() for k, v in algo.state.buffer.items()}, adv.cpu(), ret.cpu(),
                         algo.state.reward_scale.cpu())
+        start = flatten_chains(default_chains(algo.policy.model)).cpu()
+        steps[device] = (algo.step(), flatten_chains(default_chains(algo.policy.model)).cpu() - start)
     (s_g, b_g, a_g, r_g, sc_g), (s_c, b_c, a_c, r_c, sc_c) = runs["cuda"], runs["cpu"]
     for key in (DataKeys.OBS, DataKeys.ACTIONS):
         check(torch.equal(b_g[key], b_c[key]), f"small run {key} equal on card and CPU")
@@ -416,9 +628,20 @@ def check_small_against_cpu(torch, dev) -> None:
         for k in sg:
             if k.startswith(("returns/", "rewards/")):
                 check(math.isclose(sg[k], sc[k], rel_tol=1e-4, abs_tol=1e-4), f"small run stat {k}")
-    emit({"phase": "small_vs_cpu", "num_envs": 64, "horizon": 8, "collects": 2,
+    # The step: f32 on both sides with other summation orders (the
+    # kernel's blocked sums against ATen's), ~1e-6 relative in the
+    # gradients; Adam divides each gradient by its own magnitude, so the
+    # parameters are held by a norm-relative error of their change.
+    (st_g, d_g), (st_c, d_c) = steps["cuda"], steps["cpu"]
+    for k in ("losses/entropy", "losses/policy", "losses/vf", "losses/total", "monitors/kl_div"):
+        check(math.isclose(st_g[k], st_c[k], rel_tol=1e-4, abs_tol=1e-6), f"small run step {k}: {st_g[k]} vs {st_c[k]}")
+    delta_err = float((d_g - d_c).norm() / d_c.norm())
+    check(delta_err <= 1e-3, f"small run parameter change differs by {delta_err:.3g} of its norm")
+    emit({"phase": "small_vs_cpu", "num_envs": 64, "horizon": 8, "collects": 2, "steps": 1,
           "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
-          "advantages_max_abs_err": float((a_g - a_c).abs().max())})
+          "advantages_max_abs_err": float((a_g - a_c).abs().max()),
+          "step_loss_max_abs_err": max(abs(st_g[k] - st_c[k]) for k in st_c if k.startswith("losses/")),
+          "param_change_norm_rel_err": delta_err, "param_max_abs_err": float((d_g - d_c).abs().max())})
 
 
 if __name__ == "__main__":

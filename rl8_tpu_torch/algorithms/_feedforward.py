@@ -1,44 +1,72 @@
-"""Feedforward PPO algorithm: the rollout and the advantage stage.
+"""Feedforward PPO algorithm: the rollout, the advantage stage and the
+PPO update.
 
 PyTorch counterpart of ``rl8_tpu/algorithms/_feedforward.py``. The JAX
-package compiles ``collect`` into one ``lax.scan``; here it is a Python
-loop over the horizon whose every step is one launch of the act kernel
-(``ops/fused_act.py``), the env step, and the reversed-return update,
-with a single host fetch per collect (the stats). The advantage stage
-that starts a PPO update runs the GAE kernel (``ops/gae.py``). The
-update itself (minibatching, the fused PPO kernel and its backward, the
-optimizer and schedulers) is the next slice: :meth:`Algorithm.step`
-raises until then.
+package compiles ``collect`` and ``step`` into ``lax.scan``s; here they
+are Python loops that launch the port's kernels:
+
+- ``collect`` loops over the horizon, each step one launch of the act
+  kernel (``ops/fused_act.py``), the env step and the reversed-return
+  update, with a single host fetch per collect (the stats);
+- ``step`` runs the advantage stage through the GAE kernel
+  (``ops/gae.py``), packs the B-major training batch into one int32
+  matrix (``ops/packing.py``), and per epoch and minibatch launches the
+  PPO update kernel (``ops/fused_ppo.py``), then the clipped Adam update
+  (``utils/optim.py``). The KL early stop, the gradient accumulation and
+  the stat sums stay on the device (the update is gated with
+  ``torch.where``, as ``lax.cond`` gates it), so a step makes one host
+  fetch, for its stats.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
 from ..data import AlgorithmHparams, AlgorithmState, CollectStats, DataKeys, StepStats
-from ..distributions import Categorical
 from ..env import EnvFactory
-from ..models import DefaultDiscreteModel
-from ..ops import fused_act, fused_gae, pack_act_params
+from ..ops import (
+    PPOLossConfig,
+    block_shuffle,
+    fused_act,
+    fused_gae,
+    fused_ppo_grads,
+    pack_act_params,
+    pack_rows,
+    supports_fused_update,
+)
+from ..ops.fused_mlp import load_flat_params
 from ..parallel import gmax, gmean, gmin, gstd
 from ..policies import Policy
+from ..schedulers import EntropyScheduler, LRScheduler, ScheduleKind
 from ..specs import assert_nd_spec
 from ..utils import profile_ms
+from ..utils.optim import Adam, AdamState, adam_step
 from ._base import GenericAlgorithmBase
 
 __all__ = ["AlgorithmConfig", "Algorithm"]
+
+
+def _t2b(x: torch.Tensor) -> torch.Tensor:
+    """Time-major ``[T, B, ...]`` -> flat batch ``[B * T, ...]`` in B-major
+    order, so that row ``i`` is the same transition as in ``rl8_tpu``."""
+    return x.transpose(0, 1).reshape(-1, *x.shape[2:])
 
 
 @dataclass
 class AlgorithmConfig:
     """Config for building a feedforward PPO algorithm.
 
-    The fields of ``rl8_tpu.algorithms.AlgorithmConfig`` that the
-    rollout, the advantage stage and hyperparameter validation read,
-    plus ``device``. The model is the default model for the env's specs.
+    The fields of ``rl8_tpu.algorithms.AlgorithmConfig`` that this port
+    runs, plus ``device``. The model is the default model for the env's
+    specs; the optimizer is Adam after a global-norm clip, over one flat
+    parameter vector. ``optimizer_cls``, ``flatten_optimizer``,
+    ``enable_amp`` and ``mesh`` exist so that a JAX config carries over;
+    any value but the default raises ``NotImplementedError``.
     """
 
     #: Model kwargs unpacked into the default model at instantiation.
@@ -49,8 +77,23 @@ class AlgorithmConfig:
     horizons_per_env_reset: int = 1
     #: Number of parallelized environment instances.
     num_envs: int = 8192
+    #: ``None`` is Adam (``optax.adam`` in the JAX package); other
+    #: optimizers come in a later slice.
+    optimizer_cls: Any = None
+    #: Adam's kwargs: ``lr`` (or ``learning_rate``), ``b1``, ``b2``,
+    #: ``eps``, ``eps_root``; ``{"lr": 1e-3}`` by default.
+    optimizer_config: None | dict[str, Any] = None
     #: Accumulate gradients across minibatches before stepping.
     accumulate_grads: bool = False
+    #: bf16 mixed precision: not in this port yet.
+    enable_amp: bool = False
+    #: Optional LR schedule over environment transition counts.
+    lr_schedule: None | list[tuple[int, float]] = None
+    lr_schedule_kind: ScheduleKind = "step"
+    #: Entropy coefficient (ignored when a schedule is given).
+    entropy_coeff: float = 0.0
+    entropy_coeff_schedule: None | list[tuple[int, float]] = None
+    entropy_coeff_schedule_kind: ScheduleKind = "step"
     #: GAE lambda.
     gae_lambda: float = 0.95
     #: Discount factor.
@@ -79,8 +122,14 @@ class AlgorithmConfig:
     normalize_advantages: bool = True
     #: Normalize rewards by the std of reversed discounted returns.
     normalize_rewards: bool = True
-    #: Seed of every random stream (parameters, env resets, sampling).
+    #: Run the optimizer over one flat parameter vector (the only mode
+    #: of this port).
+    flatten_optimizer: bool = True
+    #: Seed of every random stream (parameters, env resets, sampling,
+    #: minibatch shuffles).
     seed: int = 0
+    #: Multi-device sharding: not in this port yet.
+    mesh: Any = None
     #: Device that holds the model, the env and the buffer. The default
     #: is the card; pass ``"cpu"`` to run the kernels' plain versions.
     device: str | torch.device = "cuda"
@@ -108,11 +157,27 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         ... ).build(DiscreteDummyEnv)
         >>> int(algo.collect()["env/steps"])
         16
+        >>> step_stats = algo.step()
+        >>> "losses/total" in step_stats
+        True
 
     """
 
     def __init__(self, env_cls: EnvFactory, /, config: None | AlgorithmConfig = None) -> None:
         config = config or AlgorithmConfig()
+        for unported, what in (
+            (config.optimizer_cls is not None, "optimizers other than Adam"),
+            (not config.flatten_optimizer, "flatten_optimizer=False"),
+            (config.enable_amp, "enable_amp"),
+        ):
+            if unported:
+                raise NotImplementedError(
+                    f"This port does not run {what} yet; it is a later slice (ROADMAP Queue 1)."
+                )
+        if config.mesh is not None:
+            raise NotImplementedError(
+                "Multi-device training is a later slice of the port (ROADMAP Queue 1, multi-device)."
+            )
         self.device = torch.device(config.device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -135,10 +200,12 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             model_config=dict(config.model_config or {}),
         )
         model = self.policy.model
-        if type(model) is not DefaultDiscreteModel or self.policy.distribution_cls is not Categorical:
+        if not supports_fused_update(model, self.policy.distribution_cls):
             raise NotImplementedError(
-                "This port runs the default discrete model with a Categorical"
-                " distribution; other models and distributions come later."
+                "This port runs the default discrete model (relu or tanh, biased"
+                " layers, at most 8 of them) with a Categorical distribution;"
+                " the continuous models and distributions are the next slice"
+                " (ROADMAP Queue 1)."
             )
         model.validate_view_requirements()
 
@@ -168,19 +235,50 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             vf_coeff=config.vf_coeff,
         ).validate()
 
+        optimizer_config = dict(config.optimizer_config or {"lr": 1e-3})
+        if "lr" in optimizer_config and "learning_rate" in optimizer_config:
+            raise ValueError(
+                "Pass only one of `lr`/`learning_rate` in"
+                " `optimizer_config`; both were provided."
+            )
+        lr0 = optimizer_config.pop("lr", None)
+        if lr0 is None:
+            lr0 = optimizer_config.pop("learning_rate", 1e-3)
+        unknown = set(optimizer_config) - {f.name for f in dataclasses.fields(Adam)}
+        if unknown:
+            raise NotImplementedError(
+                f"This port's Adam takes b1, b2, eps and eps_root; {sorted(unknown)}"
+                " come with other optimizers in a later slice (ROADMAP Queue 1)."
+            )
+        self.adam = Adam(**optimizer_config)
+        self.lr_scheduler = LRScheduler(lr0, schedule=config.lr_schedule, kind=config.lr_schedule_kind)
+        self.entropy_scheduler = EntropyScheduler(
+            config.entropy_coeff,
+            schedule=config.entropy_coeff_schedule,
+            kind=config.entropy_coeff_schedule_kind,
+        )
+        #: Whether the entropy bonus is statically absent (the kernel then
+        #: skips the entropy term entirely).
+        self._static_zero_entropy = (
+            config.entropy_coeff_schedule is None and config.entropy_coeff == 0.0
+        )
+
         # One host generator seeds the others and then draws the act
-        # kernel's per-step Philox keys; env resets draw on the device.
+        # kernel's per-step Philox keys; env resets and minibatch
+        # shuffles draw on the device.
         self._key_gen = torch.Generator().manual_seed(config.seed)
-        params_seed, env_seed = torch.randint(
-            0, 2**62, (2,), generator=self._key_gen
+        params_seed, env_seed, shuffle_seed = torch.randint(
+            0, 2**62, (3,), generator=self._key_gen
         ).tolist()
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
         self._env_gen = torch.Generator(device=self.device).manual_seed(env_seed)
+        self._shuffle_gen = torch.Generator(device=self.device).manual_seed(shuffle_seed)
         self.state = AlgorithmState(
             env_state=None,
             buffer=self._zero_buffer(),
             reward_scale=torch.tensor(1.0, device=self.device),
+            opt_state=AdamState.zeros_like(pack_act_params(model).flat),
         )
 
     # ------------------------------------------------------------------
@@ -287,7 +385,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             "rewards/mean": gmean(rewards),
             "rewards/std": gstd(rewards),
         }
-        self.state = AlgorithmState(
+        self.state = dataclasses.replace(
+            state,
             env_state=env_state,
             buffer=new_buffer,
             horizons=state.horizons + 1,
@@ -349,14 +448,154 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             advantages = (advantages - gmean(advantages)) / (gstd(advantages) + 1e-8)
         return advantages, returns
 
-    def step(self) -> StepStats:
-        """Update the policy using the collected buffer: not ported yet."""
-        raise NotImplementedError(
-            "Algorithm.step is the PPO update (packing, the fused PPO kernel"
-            " and its backward, the optimizer and schedulers), which is the"
-            " next slice of the port; this slice ports collect() and the"
-            " advantage stage."
+    @torch.no_grad()
+    def _step_impl(self, lr: float, entropy_coeff: float) -> torch.Tensor:
+        """One PPO update from the buffer (``rl8_tpu``'s ``_step_impl``).
+
+        Returns the step's window-averaged stats on the device, in the
+        order entropy, policy, vf, total, kl."""
+        h = self.hparams
+        N = h.num_envs * h.horizon
+        M = h.num_minibatches
+        mb_rows = N // M
+        accum = M if h.accumulate_grads else 1
+        model = self.policy.model
+        buffer = self.state.buffer
+        dev = self.device
+
+        advantages, returns = self._advantages()
+        views = model.apply_view_requirements(
+            {DataKeys.OBS: buffer[DataKeys.OBS][: h.horizon].transpose(0, 1)}, kind="all"
         )
+        packed, unpack = pack_rows(
+            {
+                DataKeys.ACTIONS: _t2b(buffer[DataKeys.ACTIONS]),
+                DataKeys.LOGP: _t2b(buffer[DataKeys.LOGP]),
+                DataKeys.ADVANTAGES: _t2b(advantages),
+                DataKeys.RETURNS: _t2b(returns),
+                DataKeys.VIEWS: views,
+            }
+        )
+        cfg = PPOLossConfig(
+            clip_param=h.clip_param,
+            vf_clip_param=h.vf_clip_param,
+            vf_coeff=h.vf_coeff,
+            dual_clip_param=h.dual_clip_param,
+            n_rows=mb_rows,
+            accum=accum,
+            use_entropy=not self._static_zero_entropy,
+        )
+        ec = torch.full((), entropy_coeff, dtype=torch.float32, device=dev)
+        # The update's working copy of the parameters, in kernel order.
+        params = pack_act_params(model)
+        flat = params.flat
+        opt_state = self.state.opt_state
+        # Device-side carry: the gradient and stat sums of the current
+        # accumulation window (entropy, policy, vf, total, kl), their
+        # totals over windows, the window count, and the KL stop flag.
+        grad_acc = torch.zeros_like(flat)
+        window = torch.zeros(5, device=dev)
+        totals = torch.zeros(5, device=dev)
+        n_windows = torch.zeros((), device=dev)
+        stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        never = torch.zeros((), dtype=torch.bool, device=dev)
+        shuffle = h.shuffle_minibatches and M > 1 and accum == 1
+        blk = math.gcd(h.effective_shuffle_block, mb_rows)
+        for _ in range(h.num_sgd_iters):
+            epoch = block_shuffle(packed, self._shuffle_gen, blk) if shuffle else packed
+            for i in range(M):
+                losses, kl, grads = fused_ppo_grads(
+                    dataclasses.replace(params, flat=flat),
+                    epoch[i * mb_rows : (i + 1) * mb_rows],
+                    unpack,
+                    ec,
+                    cfg,
+                )
+                # Minibatches after a KL early stop change nothing; the
+                # one that triggers it still counts in the stats.
+                active = ~stopped
+                trigger = kl > 1.5 * h.target_kl_div if h.target_kl_div is not None else never
+                window = window + torch.stack(
+                    [losses["entropy"], losses["policy"], losses["vf"], losses["total"], kl]
+                ) / accum
+                grad_acc = grad_acc + grads
+                if (i + 1) % accum == 0:
+                    flat, opt_state = adam_step(
+                        flat, grad_acc, opt_state, lr=lr, max_grad_norm=h.max_grad_norm,
+                        adam=self.adam, apply=active & ~trigger,
+                    )
+                    totals = torch.where(active, totals + window, totals)
+                    n_windows = torch.where(active, n_windows + 1.0, n_windows)
+                    grad_acc = torch.zeros_like(grad_acc)
+                    window = torch.zeros_like(window)
+                stopped = stopped | trigger
+
+        load_flat_params(model, flat)
+        # Reset the buffer, keeping the final observation.
+        new_buffer = {key: torch.zeros_like(value) for key, value in buffer.items()}
+        new_buffer[DataKeys.OBS][-1] = buffer[DataKeys.OBS][-1]
+        self.state = dataclasses.replace(
+            self.state, buffer=new_buffer, buffered=False, opt_state=opt_state
+        )
+        return totals / torch.clamp_min(n_windows, 1.0)
+
+    def step(self) -> StepStats:
+        """Update the policy using the collected buffer: the advantage
+        stage, then ``num_sgd_iters`` epochs of minibatch PPO updates.
+
+        Returns:
+            Loss/coefficient/KL stats for the step.
+
+        """
+        if not self.state.buffered:
+            raise RuntimeError(
+                f"{self.__class__.__name__} has no buffered rollout to train"
+                " on — every `step` must be preceded by a `collect`."
+            )
+        with profile_ms() as step_timer:
+            entropy_coeff = 0.0 if self._static_zero_entropy else self.entropy_scheduler.coeff
+            stats = self._step_impl(self.lr_scheduler.coeff, entropy_coeff)
+            # The one host fetch of the update; it waits for the device.
+            ent, pol, vf, total, kl = stats.tolist()
+            count = self.hparams.num_envs * self.state.horizons
+            self.lr_scheduler.step(count)
+            self.entropy_scheduler.step(count)
+        return {
+            "coefficients/entropy": float(entropy_coeff),
+            "coefficients/vf": self.hparams.vf_coeff,
+            "losses/entropy": ent,
+            "losses/policy": pol,
+            "losses/vf": vf,
+            "losses/total": total,
+            "monitors/kl_div": kl,
+            "profiling/step_ms": step_timer(),
+        }
+
+    def train_steps(
+        self,
+        num_steps: int,
+        /,
+        *,
+        env_config: None | dict[str, Any] = None,
+    ) -> list[dict[str, float]]:
+        """Run ``num_steps`` collect+step iterations and return each
+        iteration's stats (collect and step stats together, with
+        ``profiling/train_ms`` the mean wall time of an iteration), as
+        ``rl8_tpu``'s ``train_steps`` does; the scheduler cadence is
+        :meth:`step`'s."""
+        if num_steps <= 0:
+            raise ValueError("`num_steps` must be > 0.")
+        records: list[dict[str, float]] = []
+        with profile_ms() as timer:
+            for _ in range(num_steps):
+                record: dict[str, Any] = dict(self.collect(env_config=env_config))
+                record.update(self.step())
+                records.append(record)
+        elapsed_ms = timer()
+        for record in records:
+            del record["profiling/collect_ms"], record["profiling/step_ms"]
+            record["profiling/train_ms"] = elapsed_ms / num_steps
+        return records
 
     # ------------------------------------------------------------------
     # validation

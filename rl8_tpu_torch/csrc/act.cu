@@ -44,9 +44,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mlp.cuh"
+
 namespace {
 
-constexpr int kRows = 16;
+using rl8::dense_layer;
+using rl8::kRows;
+using rl8::narrow_head;
+
 constexpr int kThreads = 256;
 constexpr int kMaxLayers = 8;
 
@@ -59,10 +64,6 @@ struct ActDims {
   int max_hidden;
   int hidden[kMaxLayers];
 };
-
-__device__ __forceinline__ float activate(float x, int act) {
-  return act == 0 ? fmaxf(x, 0.0f) : tanhf(x);
-}
 
 __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint32_t c2,
                                                  uint32_t c3, uint32_t k0, uint32_t k1) {
@@ -80,63 +81,6 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint3
     k1 += 0xBB67AE85u;
   }
   return c0;
-}
-
-// out[r, j] = act(sum_k in[r, k] * W[k, j] + b[j]) for all kRows rows,
-// summed in order of k. Where in_w is a multiple of 4, activations are
-// read four k at a time (one 16-byte broadcast load feeds four FMAs), so
-// shared-memory loads no longer pace the FMAs one for one.
-__device__ void dense_layer(const float* in, int in_w, const float* __restrict__ W,
-                            const float* __restrict__ b, float* out, int out_w, int act) {
-  for (int j = threadIdx.x; j < out_w; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-    int k = 0;
-    if ((in_w & 3) == 0) {
-      for (; k < in_w; k += 4) {
-        const float w0 = __ldg(W + (size_t)k * out_w + j);
-        const float w1 = __ldg(W + (size_t)(k + 1) * out_w + j);
-        const float w2 = __ldg(W + (size_t)(k + 2) * out_w + j);
-        const float w3 = __ldg(W + (size_t)(k + 3) * out_w + j);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 h = *reinterpret_cast<const float4*>(in + r * in_w + k);
-          acc[r] = fmaf(h.x, w0, acc[r]);
-          acc[r] = fmaf(h.y, w1, acc[r]);
-          acc[r] = fmaf(h.z, w2, acc[r]);
-          acc[r] = fmaf(h.w, w3, acc[r]);
-        }
-      }
-    }
-    for (; k < in_w; ++k) {
-      const float w = __ldg(W + (size_t)k * out_w + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[r * in_w + k], w, acc[r]);
-    }
-    const float bj = __ldg(b + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) out[r * out_w + j] = activate(acc[r] + bj, act);
-  }
-}
-
-// out[r * stride + col0 + o] = sum_k in[r, k] * W[k, o] + b[o]: one warp per
-// (row, output) pair, lanes striding over k, then a shuffle reduction.
-__device__ void narrow_head(const float* in, int in_w, const float* __restrict__ W,
-                            const float* __restrict__ b, int n_out, float* out, int stride,
-                            int col0) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int p = warp; p < kRows * n_out; p += n_warps) {
-    const int r = p / n_out;
-    const int o = p % n_out;
-    float s = 0.0f;
-    for (int k = lane; k < in_w; k += 32) s = fmaf(in[r * in_w + k], __ldg(W + k * n_out + o), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) out[r * stride + col0 + o] = s + __ldg(b + o);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -169,14 +113,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int l = 0; l < d.n_layers; ++l) {
       const int out_w = d.hidden[l];
       float* dst = (l & 1) ? h1 : h0;
-      dense_layer(cur, cur_w, p, p + cur_w * out_w, dst, out_w, d.act);
+      dense_layer<kRows>(cur, cur_w, p, p + cur_w * out_w, dst, out_w, d.act);
       p += cur_w * out_w + out_w;
       __syncthreads();
       cur = dst;
       cur_w = out_w;
     }
     const int n_out = chain == 0 ? d.n_logits : 1;
-    narrow_head(cur, cur_w, p, p + cur_w * n_out, n_out, heads, head_stride,
+    narrow_head<kRows>(cur, cur_w, p, p + cur_w * n_out, n_out, heads, head_stride,
                 chain == 0 ? 0 : d.n_logits);
     p += cur_w * n_out + n_out;
     __syncthreads();

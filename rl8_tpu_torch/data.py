@@ -156,6 +156,9 @@ class AlgorithmState:
     #: 0-d f32 tensor on the device: the std of the reversed discounted
     #: returns that scales rewards in the advantage stage.
     reward_scale: torch.Tensor = field(default_factory=lambda: torch.tensor(1.0))
+    #: The optimizer's state over the flat parameter vector (Adam's
+    #: moments and step count, on the device); ``None`` until built.
+    opt_state: Any = None
 
 
 CollectStats = TypedDict(

@@ -41,7 +41,9 @@ class Env(ABC):
             simulated in lockstep by this one object.
         horizon: Number of steps the environment expects to take before
             being reset. ``None`` suggests the environment may never reset.
-        device: Device holding the environment's tensors.
+        device: Device holding the environment's tensors: the card by
+            default, as ``AlgorithmConfig.device``; pass ``"cpu"`` for
+            the CPU.
 
     """
 
@@ -67,7 +69,7 @@ class Env(ABC):
     device: torch.device
 
     def __init__(
-        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cpu"
+        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cuda"
     ) -> None:
         if hasattr(self, "max_horizon") and horizon is not None:
             if not (horizon <= self.max_horizon):
@@ -122,7 +124,7 @@ class EnvFactory(Protocol):
     max_num_envs: ClassVar[int]
 
     def __call__(
-        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cpu"
+        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cuda"
     ) -> Env:
         ...
 
@@ -142,7 +144,7 @@ class DummyEnv(GenericEnv):
     default_bounds: float = 100.0
 
     def __init__(
-        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cpu"
+        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cuda"
     ) -> None:
         super().__init__(num_envs, horizon, device=device)
         self.observation_spec = Unbounded(1)
@@ -172,7 +174,7 @@ class ContinuousDummyEnv(DummyEnv):
     """Continuous dummy env: the action moves the state by any magnitude."""
 
     def __init__(
-        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cpu"
+        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cuda"
     ) -> None:
         super().__init__(num_envs, horizon, device=device)
         self.action_spec = Unbounded(1)
@@ -188,7 +190,7 @@ class DiscreteDummyEnv(DummyEnv):
     Examples:
         >>> import torch
         >>> from rl8_tpu_torch.env import DiscreteDummyEnv
-        >>> env = DiscreteDummyEnv(2)
+        >>> env = DiscreteDummyEnv(2, device="cpu")
         >>> state, obs = env.reset(torch.Generator().manual_seed(0))
         >>> tuple(obs.shape)
         (2, 1)
@@ -199,7 +201,7 @@ class DiscreteDummyEnv(DummyEnv):
     """
 
     def __init__(
-        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cpu"
+        self, num_envs: int, /, horizon: None | int = None, *, device: Any = "cuda"
     ) -> None:
         super().__init__(num_envs, horizon, device=device)
         self.action_spec = Discrete(2, shape=(1,))

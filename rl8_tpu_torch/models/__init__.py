@@ -9,7 +9,7 @@ from ._feedforward import (
     lecun_normal_,
     small_uniform_,
 )
-from .convert import load_jax_params
+from .convert import load_jax_params, to_jax_params
 
 __all__ = [
     "DefaultDiscreteModel",
@@ -20,4 +20,5 @@ __all__ = [
     "lecun_normal_",
     "load_jax_params",
     "small_uniform_",
+    "to_jax_params",
 ]

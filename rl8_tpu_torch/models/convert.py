@@ -1,11 +1,12 @@
-"""Carry weights across from the JAX package.
+"""Carry weights across to and from the JAX package.
 
 :func:`load_jax_params` copies a flax parameter tree of
 ``rl8_tpu.models.DefaultDiscreteModel`` (as nested dicts of numpy
 arrays, e.g. ``jax.device_get(params)``) into this package's
-:class:`~rl8_tpu_torch.models.DefaultDiscreteModel`. A flax ``kernel``
-is ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, so kernels are
-transposed on the way in.
+:class:`~rl8_tpu_torch.models.DefaultDiscreteModel`;
+:func:`to_jax_params` is its inverse. A flax ``kernel`` is ``[in, out]``;
+``nn.Linear.weight`` is ``[out, in]``, so kernels are transposed on the
+way across.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from torch import nn
 
 from ._feedforward import DefaultDiscreteModel
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "to_jax_params"]
+
+_CHAINS = (("feature_model", "feature_head"), ("vf_model", "vf_head"))
 
 
 def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
@@ -40,7 +43,7 @@ def load_jax_params(model: DefaultDiscreteModel, params: Mapping[str, Any], /) -
     if not isinstance(model, DefaultDiscreteModel):
         raise TypeError(f"No flax layout is known for {type(model).__name__}.")
     with torch.no_grad():
-        for torso_name, head_name in (("feature_model", "feature_head"), ("vf_model", "vf_head")):
+        for torso_name, head_name in _CHAINS:
             torso = getattr(model, torso_name)
             dense = params[torso_name]
             if len(dense) != len(torso.layers):
@@ -52,3 +55,33 @@ def load_jax_params(model: DefaultDiscreteModel, params: Mapping[str, Any], /) -
                 _copy_dense(layer, dense[f"Dense_{i}"])
             _copy_dense(getattr(model, head_name), params[head_name])
     return model
+
+
+def _dense(layer: nn.Linear) -> dict[str, np.ndarray]:
+    return {
+        "kernel": layer.weight.detach().t().cpu().numpy().copy(),
+        "bias": layer.bias.detach().cpu().numpy().copy(),
+    }
+
+
+def to_jax_params(model: DefaultDiscreteModel, /) -> dict[str, Any]:
+    """The inverse of :func:`load_jax_params`: ``model``'s parameters as
+    the flax tree of ``rl8_tpu.models.DefaultDiscreteModel``, nested dicts
+    of f32 numpy arrays (host copies).
+
+    Examples:
+        >>> from rl8_tpu_torch.models import DefaultDiscreteModel, to_jax_params
+        >>> from rl8_tpu_torch.specs import Discrete, Unbounded
+        >>> tree = to_jax_params(DefaultDiscreteModel(Unbounded(3), Discrete(2), hiddens=(8,)))
+        >>> sorted(tree), tree["feature_model"]["Dense_0"]["kernel"].shape
+        (['feature_head', 'feature_model', 'vf_head', 'vf_model'], (3, 8))
+
+    """
+    if not isinstance(model, DefaultDiscreteModel):
+        raise TypeError(f"No flax layout is known for {type(model).__name__}.")
+    tree: dict[str, Any] = {}
+    for torso_name, head_name in _CHAINS:
+        torso = getattr(model, torso_name)
+        tree[torso_name] = {f"Dense_{i}": _dense(layer) for i, layer in enumerate(torso.layers)}
+        tree[head_name] = _dense(getattr(model, head_name))
+    return tree

@@ -1,11 +1,28 @@
 """Hand-written CUDA kernels for the hot ops, each beside its plain
-PyTorch version (counterpart of ``rl8_tpu/ops``).
+PyTorch version (counterpart of ``rl8_tpu/ops``), and the row packing
+that feeds the update kernel.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise. The kernels are built from ``csrc/`` at first use.
 """
 
 from .fused_act import ActParams, act_plain, fused_act, pack_act_params
+from .fused_ppo import PPOLossConfig, fused_ppo_grads, ppo_grads_plain, supports_fused_update
 from .gae import fused_gae, gae_plain
+from .packing import RowUnpacker, block_shuffle, pack_rows
 
-__all__ = ["ActParams", "act_plain", "fused_act", "fused_gae", "gae_plain", "pack_act_params"]
+__all__ = [
+    "ActParams",
+    "PPOLossConfig",
+    "RowUnpacker",
+    "act_plain",
+    "block_shuffle",
+    "fused_act",
+    "fused_gae",
+    "fused_ppo_grads",
+    "gae_plain",
+    "pack_act_params",
+    "pack_rows",
+    "ppo_grads_plain",
+    "supports_fused_update",
+]

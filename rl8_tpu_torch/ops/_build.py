@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` (one
 library with a plain C interface, which :func:`load` opens with
 ``ctypes``. The build happens at first use, from the sources in the
 checkout, into ``build/kernels/`` at the repository root; the library's
-name carries a hash of the sources and flags, so an edited source is
-never served by a stale build. Nothing here runs at import.
+name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited file is never served by a
+stale build. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def build() -> Path:
     ``ptxas.log`` beside the library."""
     sources = _sources()
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted([*sources, *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_FLAGS).encode())
@@ -106,6 +107,16 @@ def load() -> ctypes.CDLL:
         lib.rl8_discrete_act.restype = i32
         lib.rl8_gae.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
         lib.rl8_gae.restype = i32
+        lib.rl8_ppo_workspace.argtypes = [i32, i32, i32, ptr, i32]  # N, d_in, n_layers, hidden, n_logits
+        lib.rl8_ppo_workspace.restype = ctypes.c_longlong
+        lib.rl8_ppo_grads.argtypes = [
+            ptr, i32, i32, ptr,  # packed, N, D, column starts (host int[5])
+            ptr, ptr, ptr, ptr, ptr,  # entropy coeff, params, grads, stats, workspace
+            i32, i32, ptr, i32, i32, i32,  # d_in, n_layers, hidden (host int array), n_logits, n_cat, act
+            f32, f32, f32, f32, f32, f32, i32,  # clip lo/hi, dual, vf clip, vf scale, scale, use_entropy
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_ppo_grads.restype = i32
         lib.rl8_cuda_error_string.argtypes = [i32]
         lib.rl8_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

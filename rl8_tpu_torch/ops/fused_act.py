@@ -113,7 +113,7 @@ def act_plain(
         ``(actions [B, A] int32, logp [B, 1], values [B, 1])``.
 
     """
-    (logits,), (values,) = forward_chains(obs, params.chains(), params.activation)
+    ((logits,), (values,)), _ = forward_chains(obs, params.chains(), params.activation)
     if not deterministic and noise is None:
         noise = philox_uniform(*key, obs.shape[0], params.action_dim, params.n, obs.device)
     actions, logp = sample_discrete_actions(logits, params.n, deterministic, noise)

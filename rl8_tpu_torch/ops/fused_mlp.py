@@ -1,12 +1,13 @@
-"""Twin-chain MLP layout and its plain forward.
+"""Twin-chain MLP layout, its plain forward and its plain backward.
 
-PyTorch counterpart of the forward part of ``rl8_tpu/ops/fused_mlp.py``
-(``_default_chains``, ``_flatten_params``, ``_forward_block``): the ONE
-definition of which submodules of the default model the act kernel
-reads and in what order. A chain is ``(layers, heads)``, each layer and
-head a ``(W [in, out], b [out])`` pair; every layer is followed by the
-activation (the MLP's inner activations plus the model's trailing one),
-heads are linear.
+PyTorch counterpart of ``rl8_tpu/ops/fused_mlp.py``'s
+``_default_chains``, ``_flatten_params``, ``_forward_block`` and
+``_chains_backward`` (without LayerNorm, which the default model does
+not have): the ONE definition of which submodules of the default model
+the act and update kernels read and in what order. A chain is
+``(layers, heads)``, each layer and head a ``(W [in, out], b [out])``
+pair; every layer is followed by the activation (the MLP's inner
+activations plus the model's trailing one), heads are linear.
 """
 
 from __future__ import annotations
@@ -15,11 +16,24 @@ from typing import Any, Sequence
 
 import torch
 
-__all__ = ["ACT_FNS", "default_chains", "flatten_chains", "forward_chains"]
+__all__ = [
+    "ACT_FNS",
+    "chains_backward_plain",
+    "default_chains",
+    "flatten_chains",
+    "forward_chains",
+    "load_flat_params",
+]
 
-#: Activations the act kernel implements, by name (its ``act`` code is
+#: Activations the kernels implement, by name (their ``act`` code is
 #: the position in this dict).
 ACT_FNS = {"relu": torch.relu, "tanh": torch.tanh}
+#: Each activation's derivative from its *output* (what the backward
+#: keeps), as ``fused_mlp._ACT_GRAD_FROM_OUT`` computes it.
+_ACT_GRAD_FROM_OUT = {
+    "relu": lambda h: (h > 0.0).to(h.dtype),
+    "tanh": lambda h: 1.0 - h * h,
+}
 
 Chain = tuple[tuple[tuple[torch.Tensor, torch.Tensor], ...], tuple[tuple[torch.Tensor, torch.Tensor], ...]]
 
@@ -36,6 +50,14 @@ def _pair(linear: Any) -> tuple[torch.Tensor, torch.Tensor]:
     return linear.weight.detach().t(), linear.bias.detach()
 
 
+def _linears(model: Any) -> list[tuple[Any, ...]]:
+    """Per chain, the ``nn.Linear`` modules in kernel order."""
+    return [
+        (*getattr(model, torso).layers, *(getattr(model, head) for head in heads))
+        for torso, heads in _DISCRETE_CHAIN_NAMES
+    ]
+
+
 def default_chains(model: Any) -> tuple[Chain, ...]:
     """``(layers, heads)`` chains of a ``DefaultDiscreteModel``, with
     weights as ``[in, out]`` views of the ``nn.Linear`` weights."""
@@ -46,6 +68,23 @@ def default_chains(model: Any) -> tuple[Chain, ...]:
         )
         for torso, heads in _DISCRETE_CHAIN_NAMES
     )
+
+
+def load_flat_params(model: Any, flat: torch.Tensor) -> None:
+    """Write a flat vector in :func:`flatten_chains` order back into a
+    ``DefaultDiscreteModel``'s ``nn.Linear`` weights and biases, in
+    place: the inverse of ``flatten_chains(default_chains(model))``."""
+    off = 0
+    with torch.no_grad():
+        for linears in _linears(model):
+            for linear in linears:
+                n_out, n_in = linear.weight.shape
+                linear.weight.copy_(flat[off : off + n_in * n_out].view(n_in, n_out).t())
+                off += n_in * n_out
+                linear.bias.copy_(flat[off : off + n_out])
+                off += n_out
+    if off != flat.numel():
+        raise ValueError(f"The flat vector has {flat.numel()} values; the model takes {off}.")
 
 
 def flatten_chains(chains: Sequence[Chain]) -> torch.Tensor:
@@ -60,14 +99,54 @@ def flatten_chains(chains: Sequence[Chain]) -> torch.Tensor:
     return torch.cat(parts).to(torch.float32).contiguous()
 
 
-def forward_chains(x: torch.Tensor, chains: Sequence[Chain], activation: str) -> list[list[torch.Tensor]]:
-    """Plain forward of every chain on the shared input ``x [N, d]``;
-    returns each chain's head outputs."""
+def forward_chains(
+    x: torch.Tensor, chains: Sequence[Chain], activation: str
+) -> tuple[list[list[torch.Tensor]], list[list[torch.Tensor]]]:
+    """Plain forward of every chain on the shared input ``x [N, d]``.
+
+    Returns ``(outs, hs)``: each chain's head outputs, and each chain's
+    activation stack ``[x, h_1, ..., h_L]`` that
+    :func:`chains_backward_plain` reads."""
     act = ACT_FNS[activation]
-    outs = []
+    outs, all_hs = [], []
     for layers, heads in chains:
-        h = x
+        hs = [x]
         for w, b in layers:
-            h = act(h @ w + b)
-        outs.append([h @ w + b for w, b in heads])
-    return outs
+            hs.append(act(hs[-1] @ w + b))
+        outs.append([hs[-1] @ w + b for w, b in heads])
+        all_hs.append(hs)
+    return outs, all_hs
+
+
+def chains_backward_plain(
+    chains: Sequence[Chain],
+    activation: str,
+    hs: Sequence[Sequence[torch.Tensor]],
+    douts: Sequence[Sequence[torch.Tensor]],
+) -> tuple[Chain, ...]:
+    """Plain backward of the chains from their heads' cotangents.
+
+    ``hs`` are the activation stacks from :func:`forward_chains` and
+    ``douts[c][j]`` the cotangent of chain ``c``'s head ``j``
+    ``[N, d_out]``. Returns the parameter gradients with the structure of
+    ``chains`` (so :func:`flatten_chains` lays them out as the kernels
+    do): ``dW = h_in^T @ dpre`` and ``db = sum(dpre)`` over rows, where
+    ``dpre = dh * act'(h_out)`` is taken from each layer's output. The
+    input's cotangent is not formed."""
+    act_grad = _ACT_GRAD_FROM_OUT[activation]
+    grads = []
+    for (layers, heads), h, chain_douts in zip(chains, hs, douts):
+        dheads = []
+        dh = None
+        for (w, _), dout in zip(heads, chain_douts):
+            dheads.append((h[-1].t() @ dout, dout.sum(dim=0)))
+            contrib = dout @ w.t()
+            dh = contrib if dh is None else dh + contrib
+        dlayers: list[tuple[torch.Tensor, torch.Tensor]] = []
+        for layer in range(len(layers) - 1, -1, -1):
+            dpre = dh * act_grad(h[layer + 1])
+            dlayers.insert(0, (h[layer].t() @ dpre, dpre.sum(dim=0)))
+            if layer > 0:
+                dh = dpre @ layers[layer][0].t()
+        grads.append((tuple(dlayers), tuple(dheads)))
+    return tuple(grads)

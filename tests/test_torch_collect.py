@@ -117,5 +117,10 @@ def test_reset_cadence_and_step_slice() -> None:
     third = algo.collect()  # horizons_per_env_reset=2: a reset again
     assert third["env/resets"] == NUM_ENVS
     assert algo.state.horizons == 3 and algo.state.buffered
-    with pytest.raises(NotImplementedError, match="next slice"):
+    final_obs = algo.state.buffer[DataKeys.OBS][-1].clone()
+    stats = algo.step()  # the update slice: step() runs and clears `buffered`
+    assert not algo.state.buffered
+    assert all(np.isfinite(v) for v in stats.values())
+    assert torch.equal(algo.state.buffer[DataKeys.OBS][-1], final_obs)
+    with pytest.raises(RuntimeError, match="preceded by a `collect`"):
         algo.step()

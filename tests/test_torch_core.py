@@ -136,7 +136,7 @@ def test_discrete_dummy_env_step_matches() -> None:
     pos = rng.uniform(-10, 10, size=(16, 1)).astype(np.float32)
     jstate = {"position": jnp.asarray(pos), "bounds": jnp.asarray(10.0)}
     tstate = {"position": torch.from_numpy(pos), "bounds": torch.tensor(10.0)}
-    jdummy, tdummy = jenv.DiscreteDummyEnv(16), tenv.DiscreteDummyEnv(16)
+    jdummy, tdummy = jenv.DiscreteDummyEnv(16), tenv.DiscreteDummyEnv(16, device="cpu")
     assert tdummy.action_spec.n == jdummy.action_spec.n
     for _ in range(3):
         actions = rng.integers(0, 2, size=(16, 1)).astype(np.int32)
@@ -147,13 +147,13 @@ def test_discrete_dummy_env_step_matches() -> None:
 
 
 def test_dummy_env_reset_bounds() -> None:
-    env = tenv.DiscreteDummyEnv(1000)
+    env = tenv.DiscreteDummyEnv(1000, device="cpu")
     gen = torch.Generator().manual_seed(0)
     state, obs = env.reset(gen, config={"bounds": 3.0})
     assert obs.shape == (1000, 1) and float(obs.abs().max()) <= 3.0
     state, obs = env.reset(gen, state=state)  # bounds persist
     assert float(obs.abs().max()) <= 3.0 and float(state["bounds"]) == 3.0
-    cont = tenv.ContinuousDummyEnv(2)
+    cont = tenv.ContinuousDummyEnv(2, device="cpu")
     _, obs, rew = cont.step({"position": torch.zeros(2, 1), "bounds": torch.tensor(1.0)}, torch.ones(2, 1))
     assert obs.tolist() == [[1.0], [1.0]] and rew.tolist() == [[-1.0], [-1.0]]
 

@@ -8,23 +8,33 @@ printing one JSON line; any failed check raises and exits non-zero:
 
 1. build: compile the kernels from ``rl8_tpu_torch/csrc`` and time it;
    print the card's name and power limit.
-2. kernels: every kernel of the main path against its plain PyTorch
-   version on the card at the main path's shapes (act at obs [8192, 1]
-   with twin 256-wide torsos, and at A=2, n=3; GAE at [32, 8192], at a
-   ragged B=1000 and at T=512; the PPO update at 262,144 rows, at a
-   ragged 1,000 rows with entropy, dual clip and accumulation, and at
-   ragged weight tiles), each timed beside its plain version.
-3. main path: ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)``
-   at the defaults (8192 envs, horizon 32, twin 256-wide torsos, a
-   whole-buffer minibatch, 4 epochs): first the rollout (one warm-up and
-   five timed ``collect()`` calls and the advantage stage), then the
-   training loop (one warm-up and five timed ``collect()`` + ``step()``
-   iterations), each with the kernels' launch counters set to 0 just
-   before and read just after, and a profiler breakdown of each.
+2. kernels: every kernel of the main paths against its plain PyTorch
+   version on the card at the main paths' shapes (discrete act at obs
+   [8192, 1] with twin 256-wide torsos, and at A=2, n=3; GAE at [32,
+   8192], at a ragged B=1000 and at T=512; the discrete PPO update at
+   262,144 rows, at a ragged 1,000 rows with entropy, dual clip and
+   accumulation, and at ragged weight tiles; the continuous act kernel
+   at obs [8192, 1] (Normal and squashed, stochastic draw for draw and
+   deterministic) and at a ragged B=1000, A=4 with tanh layers, plus a
+   moment check of its noise; the continuous update at 262,144 rows
+   (squashed), at a ragged 1,000 rows (Normal, entropy, dual clip,
+   accumulation), at ragged weight tiles and at rows that hit the +-100
+   clamp), each timed beside its plain version.
+3. main paths, each with the kernels' launch counters set to 0 just
+   before and read just after, and a profiler breakdown:
+   ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
+   defaults (8192 envs, horizon 32, twin 256-wide torsos, a whole-buffer
+   minibatch, 4 epochs), first the rollout (one warm-up and five timed
+   ``collect()`` calls and the advantage stage), then the training loop
+   (one warm-up and five timed ``collect()`` + ``step()`` iterations);
+   then the same training loop for ``ContinuousDummyEnv`` with
+   ``SquashedNormal`` (gamma 0.99, lambda 0.95, no entropy bonus).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
-   iterations) on the card must learn the optimal greedy policy.
-5. a small configuration run on the card and on the CPU (the plain
-   versions) from the same seed, two collects and one step, compared.
+   iterations) on the card must learn the optimal greedy policy, for the
+   discrete env and for the continuous one with ``SquashedNormal``.
+5. small configurations run on the card and on the CPU (the plain
+   versions) from the same seed, two collects and one step, compared:
+   the discrete one, and the continuous one with ``Normal``.
 6. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
@@ -62,6 +72,13 @@ PPO_STAT_RTOL, PPO_STAT_ATOL = 1e-5, 1e-6
 #: Frequency test: draws per row, and the allowed deviation in standard
 #: deviations of a sum of independent Bernoulli counts.
 FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
+#: Squashed log-probs against the plain version's own: a = tanh(x) rounds
+#: to f32 near 1, and the atanh that inverts it magnifies that rounding by
+#: 1 / (1 - a^2), so rows are compared directly only where every
+#: pre-squash |x| is below this (1 - a^2 > 0.07: a few ulps stay below the
+#: act tolerances). Every row is also held against the plain log-prob of
+#: the kernel's own actions, which does not go through that rounding.
+SQUASH_LIMIT = 2.0
 
 
 def emit(obj: dict) -> None:
@@ -132,14 +149,33 @@ def main() -> int:
             "replaces": "rl8_tpu/ops/fused_ppo.py:144 _discrete_kernel",
             "library_ms": None,
         },
+        "continuous_act": {
+            "name": "continuous_act",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/act.cu",
+            "replaces": "rl8_tpu/ops/fused_act.py:61 _continuous_act_kernel",
+            "library_ms": None,
+        },
+        "continuous_ppo": {
+            "name": "continuous_ppo_update",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/ppo.cu",
+            "replaces": "rl8_tpu/ops/fused_ppo.py:252 _continuous_kernel",
+            "library_ms": None,
+        },
     }
     check_act(torch, dev, kernels["act"])
     check_gae(torch, dev, kernels["gae"])
     check_ppo(torch, dev, kernels["ppo"])
+    check_continuous_act(torch, dev, kernels["continuous_act"])
+    check_continuous_ppo(torch, dev, kernels["continuous_ppo"])
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
+    run_update_path(torch, dev, kernels, continuous=True)
     check_learning(torch, dev)
+    check_learning_continuous(torch, dev)
     check_small_against_cpu(torch, dev)
+    check_small_against_cpu(torch, dev, continuous=True)
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -272,7 +308,7 @@ def check_act(torch, dev, record: dict) -> None:
     params = pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
     H = params.hiddens
     macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
-    flops = 2 * B * (2 * macs_chain + H[-1] * (params.n_logits + 1))
+    flops = 2 * B * (2 * macs_chain + H[-1] * (sum(params.policy_heads) + 1))
     bytes_moved = 4 * (obs.numel() + params.flat.numel() + B * (params.action_dim + 2))
     record["ms"], host_ms = time_ms(torch, lambda: fused_act(params, obs, (1, 2)))
     record["plain_ms"], plain_host_ms = time_ms(
@@ -352,8 +388,7 @@ def check_ppo(torch, dev, record: dict) -> None:
     main path's shapes, (b) a ragged N with A=2, n=3, entropy, dual clip
     and accumulation, (c) ragged weight tiles (100- and 72-wide tanh
     layers) over three row groups. Two launches must be bit-identical."""
-    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo_grads, ppo_grads_plain
-    from rl8_tpu_torch.ops.fused_act import ActParams
+    from rl8_tpu_torch.ops import PPOLossConfig
     from rl8_tpu_torch.specs import Discrete
 
     configs = {
@@ -370,56 +405,298 @@ def check_ppo(torch, dev, record: dict) -> None:
         params, packed, unpack = ppo_inputs(torch, dev, model, c["N"], seed=ord(name))
         cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0, **c["loss"])
         ec = torch.tensor(c["ec"], device=dev)
-        k_losses, k_kl, k_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
-        k2_losses, k2_kl, k2_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
-        p_losses, p_kl, p_grads = ppo_grads_plain(params, packed, unpack, ec, cfg)
-        torch.cuda.synchronize()
-        check(torch.equal(k_grads, k2_grads) and torch.equal(k_kl, k2_kl)
-              and all(torch.equal(k_losses[key], k2_losses[key]) for key in k_losses),
-              f"ppo ({name}): two launches bit-identical")
-        worst_grad = 0.0
-        for kc, pc in zip(ActParams(**{**params.__dict__, "flat": k_grads}).chains(),
-                          ActParams(**{**params.__dict__, "flat": p_grads}).chains()):
-            for kt, pt in zip([t for pair in (*kc[0], *kc[1]) for t in pair],
-                              [t for pair in (*pc[0], *pc[1]) for t in pair]):
-                err, ref = float((kt - pt).norm()), float(pt.norm())
-                worst_grad = max(worst_grad, err / max(ref, 1e-30))
-                check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
-                      f"ppo ({name}): gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
-        stat_err = 0.0
-        for key, kv, pv in [(k, k_losses[k], p_losses[k]) for k in p_losses] + [("kl", k_kl, p_kl)]:
-            kv, pv = float(kv), float(pv)
-            stat_err = max(stat_err, abs(kv - pv))
-            check(abs(kv - pv) <= PPO_STAT_RTOL * abs(pv) + PPO_STAT_ATOL,
-                  f"ppo ({name}): {key} {kv!r} vs plain {pv!r}")
+        result = compare_ppo(torch, f"ppo ({name})", params, packed, unpack, ec, cfg)
         emit({"phase": "kernel_check", "kernel": "ppo_update", "config": name, "N": c["N"],
               "hiddens": list(params.hiddens), "A": params.action_dim, "n": params.n,
               "activation": params.activation, "entropy_coeff": c["ec"], **c["loss"],
-              "worst_grad_norm_rel_err": worst_grad, "loss_max_abs_err": stat_err,
-              "bit_identical": True, "losses": {k: float(v) for k, v in k_losses.items()},
-              "kl": float(k_kl)})
+              **result["summary"]})
         if name == "a":
-            record["max_abs_err"] = max(stat_err, float((k_grads - p_grads).abs().max()))
-            N, H, d_in = c["N"], params.hiddens, params.d_in
-            dense = d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
-            heads = H[-1] * (params.n_logits + 1)
-            fwd_macs = 2 * dense + heads
-            bwd_macs = fwd_macs + 2 * (dense - d_in * H[0]) + heads  # every dW, dh past layer 1
-            flops = 2 * N * (fwd_macs + bwd_macs)
-            n_params = params.flat.numel()
-            bytes_moved = 4 * (packed.numel() + 2 * n_params + 4 + 1)
-            record["ms"], host_ms = time_ms(
-                torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
-            )
-            record["plain_ms"], plain_host_ms = time_ms(
-                torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
-            )
-            record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-            record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
-            record["host_ms"] = host_ms
-            emit({"phase": "kernel_time", "kernel": "ppo_update", "N": N, "flops": flops,
-                  "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-                  **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+            time_ppo(torch, "ppo_update", record, result, params, packed, unpack, ec, cfg)
+
+
+def compare_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
+    """The update kernel twice and its plain version once on one
+    minibatch: the launches must be bit-identical, each gradient tensor
+    within PPO_GRAD_* of the plain one by norm, the losses and KL within
+    PPO_STAT_*."""
+    from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_act import ActParams
+
+    k_losses, k_kl, k_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
+    k2_losses, k2_kl, k2_grads = fused_ppo_grads(params, packed, unpack, ec, cfg)
+    p_losses, p_kl, p_grads = ppo_grads_plain(params, packed, unpack, ec, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(k_grads, k2_grads) and torch.equal(k_kl, k2_kl)
+          and all(torch.equal(k_losses[key], k2_losses[key]) for key in k_losses),
+          f"{what}: two launches bit-identical")
+    worst_grad = 0.0
+    for kc, pc in zip(ActParams(**{**params.__dict__, "flat": k_grads}).chains(),
+                      ActParams(**{**params.__dict__, "flat": p_grads}).chains()):
+        for kt, pt in zip([t for pair in (*kc[0], *kc[1]) for t in pair],
+                          [t for pair in (*pc[0], *pc[1]) for t in pair]):
+            err, ref = float((kt - pt).norm()), float(pt.norm())
+            worst_grad = max(worst_grad, err / max(ref, 1e-30))
+            check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+                  f"{what}: gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
+    stat_err = 0.0
+    for key, kv, pv in [(k, k_losses[k], p_losses[k]) for k in p_losses] + [("kl", k_kl, p_kl)]:
+        kv, pv = float(kv), float(pv)
+        stat_err = max(stat_err, abs(kv - pv))
+        check(abs(kv - pv) <= PPO_STAT_RTOL * abs(pv) + PPO_STAT_ATOL, f"{what}: {key} {kv!r} vs plain {pv!r}")
+    return {
+        "max_abs_err": max(stat_err, float((k_grads - p_grads).abs().max())),
+        "summary": {"worst_grad_norm_rel_err": worst_grad, "loss_max_abs_err": stat_err,
+                    "bit_identical": True, "losses": {k: float(v) for k, v in k_losses.items()},
+                    "kl": float(k_kl)},
+    }
+
+
+def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unpack, ec, cfg) -> None:
+    """Time the update kernel beside its plain version on one minibatch,
+    with its f32 bound."""
+    from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
+
+    record["max_abs_err"] = result["max_abs_err"]
+    N, H, d_in = packed.shape[0], params.hiddens, params.d_in
+    dense = d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+    heads = H[-1] * (sum(params.policy_heads) + 1)
+    fwd_macs = 2 * dense + heads
+    bwd_macs = fwd_macs + 2 * (dense - d_in * H[0]) + heads  # every dW, dh past layer 1
+    flops = 2 * N * (fwd_macs + bwd_macs)
+    n_params = params.flat.numel()
+    bytes_moved = 4 * (packed.numel() + 2 * n_params + 4 + 1)
+    record["ms"], host_ms = time_ms(
+        torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
+    )
+    record["plain_ms"], plain_host_ms = time_ms(
+        torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
+    )
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    record["host_ms"] = host_ms
+    emit({"phase": "kernel_time", "kernel": kernel, "N": N, "flops": flops,
+          "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def make_continuous_model(torch, action_dim: int, seed: int, obs_dim: int = 1, mean_scale: float = 0.06,
+                          log_std_scale: float = 0.003, log_std_bias: float = 0.0, **model_config):
+    """A default continuous model as the main path initializes it, with the
+    mean and log-std head weights re-drawn uniform in +-mean_scale and
+    +-log_std_scale and the log-std bias set, so that the checks see means
+    from ~0 to tens (unsaturated, tanh-saturated and +-100-clamped rows)
+    and standard deviations away from 1."""
+    from rl8_tpu_torch.models import DefaultContinuousModel
+    from rl8_tpu_torch.specs import Unbounded
+
+    model = DefaultContinuousModel(Unbounded(obs_dim), Unbounded(action_dim), **model_config)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        model.action_mean.weight.uniform_(-mean_scale, mean_scale, generator=gen)
+        model.action_log_std.weight.uniform_(-log_std_scale, log_std_scale, generator=gen)
+        model.action_log_std.bias.fill_(log_std_bias)
+    return model.cuda()
+
+
+def clamped_rows(torch, actions, mean, log_std):
+    """Per row of squashed ``actions``: whether the +-100 clamp cuts any
+    dim's base log-prob (from the plain version's quantities)."""
+    from rl8_tpu_torch.ops.distmath import squashed_normal_logp
+
+    _, _, gate = squashed_normal_logp(actions, mean, log_std, torch.exp(-2.0 * log_std))
+    return (gate == 0).any(dim=1)
+
+
+def check_continuous_act(torch, dev, record: dict) -> None:
+    """The continuous act kernel against its plain version on the card:
+    Normal and squashed, deterministic and stochastic (the plain version
+    replays the kernel's Philox draws), at the main path's shapes (obs
+    [8192, 1] up to 100 in magnitude, twin 256-wide relu torsos, A=1) and
+    at a ragged B=1000 with obs dim 3, A=4 and 100/72-wide tanh layers.
+    Actions and values within ACT_*; log-probs within ACT_* of the plain
+    distribution's log-prob of the kernel's own actions on every row, and
+    of the plain version's own log-probs on every Normal row and every
+    squashed row below SQUASH_LIMIT. Then the moments of the noise."""
+    from rl8_tpu_torch.distributions import Normal, SquashedNormal
+    from rl8_tpu_torch.ops import act_plain, fused_act, pack_act_params
+    from rl8_tpu_torch.ops.distmath import SQUASH_EPS, philox_normal
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    configs = {
+        "main": dict(B=8192, A=1, obs_dim=1, obs_scale=100.0, model={}, heads={"mean_scale": 0.15, "log_std_bias": -2.0}),
+        "ragged": dict(B=1000, A=4, obs_dim=3, obs_scale=3.0,
+                       model={"hiddens": (100, 72), "activation_fn": "tanh"},
+                       heads={"mean_scale": 0.3, "log_std_scale": 0.3}),
+    }
+    key = (12345, 678)
+    for name, c in configs.items():
+        B, A = c["B"], c["A"]
+        obs = c["obs_scale"] * (2.0 * torch.rand((B, c["obs_dim"]), generator=gen, device=dev) - 1.0)
+        model = make_continuous_model(torch, A, seed=60 + A, obs_dim=c["obs_dim"], **c["heads"], **c["model"])
+        for kind in ("normal", "squashed"):
+            params = pack_act_params(model, squashed=kind == "squashed")
+            ((mean, pre), _), _ = forward_chains(obs, params.chains(), params.activation)
+            log_std = torch.tanh(pre)
+            dist = (SquashedNormal if kind == "squashed" else Normal)({"mean": mean, "log_std": log_std})
+            for det in (True, False):
+                what = f"continuous act {name} {kind} {'deterministic' if det else 'stochastic'}"
+                ka, kl, kv = fused_act(params, obs, key, deterministic=det)
+                pa, pl, pv = act_plain(params, obs, key, deterministic=det)
+                torch.cuda.synchronize()
+                check(ka.dtype == torch.float32 and tuple(ka.shape) == (B, A), f"{what}: actions [B, A] f32")
+                check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: actions")
+                check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: values")
+                own = dist.logp(ka)
+                check(torch.allclose(kl, own, rtol=ACT_RTOL, atol=ACT_ATOL),
+                      f"{what}: logp vs the plain log-prob of the kernel's actions")
+                x = mean if det else mean + torch.exp(log_std) * philox_normal(*key, B, A, dev)
+                regimes = {"mean_abs_max": float(mean.abs().max()),
+                           "log_std_range": [float(log_std.min()), float(log_std.max())]}
+                keep = torch.ones(B, dtype=torch.bool, device=dev)
+                if kind == "squashed":
+                    keep = (x.abs() < SQUASH_LIMIT).all(dim=1)
+                    clipped = (torch.tanh(x).abs() >= 1.0 - SQUASH_EPS).any(dim=1)
+                    clamped = clamped_rows(torch, torch.tanh(x), mean, log_std)
+                    regimes.update(rows_below_limit=int(keep.sum()), rows_clipped=int(clipped.sum()),
+                                   rows_clamped=int(clamped.sum()))
+                err = max(float((ka - pa).abs().max()), float((kv - pv).abs().max()),
+                          float((kl - own).abs().max()), float((kl[keep] - pl[keep]).abs().max()))
+                emit({"phase": "kernel_check", "kernel": "continuous_act", "config": name, "kind": kind,
+                      "deterministic": det, "B": B, "A": A, "hiddens": list(params.hiddens),
+                      "activation": params.activation, "max_abs_err": err, "rtol": ACT_RTOL,
+                      "atol": ACT_ATOL, **regimes})
+                check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp")
+                if kind == "squashed":
+                    check(int(keep.sum()) >= B // 50, f"{what}: too few rows below the squash limit")
+                    if name == "main" and det:
+                        check(int(clamped.sum()) > 0, f"{what}: no row reaches the +-100 clamp")
+                if name == "main":
+                    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+
+    # The noise's moments: Normal at the main shapes, FREQ_DRAWS keys; the
+    # standardized draws (a - mean) / std must have mean 0, variance 1 and
+    # 68.27% of them within one std, each within FREQ_SIGMAS sampling stds.
+    B = 8192
+    obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    params = pack_act_params(make_continuous_model(torch, 1, seed=61))
+    ((mean, pre), _), _ = forward_chains(obs, params.chains(), params.activation)
+    std = torch.exp(torch.tanh(pre))
+    z = torch.cat([(fused_act(params, obs, (99, d))[0] - mean) / std for d in range(FREQ_DRAWS)]).double()
+    n = z.numel()
+    p1 = math.erf(1 / math.sqrt(2))
+    moments = {
+        "mean": (float(z.mean()), 0.0, 1 / math.sqrt(n)),
+        "variance": (float(z.var()), 1.0, math.sqrt(2 / n)),
+        "within_1_std": (float((z.abs() < 1).double().mean()), p1, math.sqrt(p1 * (1 - p1) / n)),
+    }
+    worst = 0.0
+    for what, (got, want, sigma) in moments.items():
+        worst = max(worst, abs(got - want) / sigma)
+        check(abs(got - want) <= FREQ_SIGMAS * sigma, f"continuous act noise {what}: {got} vs {want}")
+    emit({"phase": "kernel_check", "kernel": "continuous_act", "noise_draws": n,
+          "moments": {k: v[0] for k, v in moments.items()}, "worst_sigmas": worst})
+
+    # Timing at the main path's shapes: B=8192, twin 256-wide relu torsos,
+    # A=1, squashed, stochastic.
+    params = pack_act_params(make_continuous_model(torch, 1, seed=62), squashed=True)
+    H = params.hiddens
+    macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+    flops = 2 * B * (2 * macs_chain + H[-1] * (sum(params.policy_heads) + 1))
+    bytes_moved = 4 * (obs.numel() + params.flat.numel() + B * (params.action_dim + 2))
+    record["ms"], host_ms = time_ms(torch, lambda: fused_act(params, obs, (1, 2)))
+    record["plain_ms"], plain_host_ms = time_ms(
+        torch, lambda: act_plain(params, obs, (1, 2), deterministic=False), iters=20
+    )
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    emit({"phase": "kernel_time", "kernel": "continuous_act", "B": B, "flops": flops,
+          "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def continuous_ppo_inputs(torch, dev, model, N: int, seed: int, squashed: bool, clip_share: float = 0.0):
+    """A packed continuous minibatch of N rows for ``model``: observations,
+    actions drawn from the model's own distribution (tanh-squashed when
+    squashed), old log-probs near the model's own, standard-normal
+    advantages, and returns around the model's values. A ``clip_share`` of
+    the rows get squashed actions of exactly +-1, whose base log-prob lies
+    below -100 where the mean is far from the clipped atanh in stds.
+    Returns the packed inputs and, per row, whether it hits the +-100
+    clamp (from the plain version's quantities)."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Normal, SquashedNormal
+    from rl8_tpu_torch.ops import pack_act_params, pack_rows
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = pack_act_params(model, squashed=squashed)
+    A = params.action_dim
+    obs = 20.0 * torch.randn((N, params.d_in), generator=gen, device=dev)
+    ((mean, pre), (values,)), _ = forward_chains(obs, params.chains(), params.activation)
+    log_std = torch.tanh(pre)
+    actions = mean + torch.exp(log_std) * torch.randn((N, A), generator=gen, device=dev)
+    clamped = torch.zeros(N, dtype=torch.bool, device=dev)
+    if squashed:
+        actions = torch.tanh(actions)
+        if clip_share:
+            sel = torch.rand((N, 1), generator=gen, device=dev) < clip_share
+            sign = torch.where(torch.rand((N, A), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+            actions = torch.where(sel, sign, actions)
+        clamped = clamped_rows(torch, actions, mean, log_std)
+    dist = (SquashedNormal if squashed else Normal)({"mean": mean, "log_std": log_std})
+    logp = dist.logp(actions) + 0.1 * torch.randn((N, 1), generator=gen, device=dev)
+    packed, unpack = pack_rows({
+        DataKeys.ACTIONS: actions,
+        DataKeys.LOGP: logp,
+        DataKeys.ADVANTAGES: torch.randn((N, 1), generator=gen, device=dev),
+        DataKeys.RETURNS: values + 2.0 * torch.randn((N, 1), generator=gen, device=dev),
+        DataKeys.VIEWS: {DataKeys.OBS: obs},
+    })
+    return params, packed, unpack, clamped
+
+
+def check_continuous_ppo(torch, dev, record: dict) -> None:
+    """The continuous update kernel against its plain version on the card
+    (compare_ppo's tolerances, bit-identical launches): (a) the main
+    path's shapes, squashed without entropy; (b) a ragged N with Normal,
+    A=3, entropy, dual clip and accumulation; (c) ragged weight tiles
+    (100- and 72-wide tanh layers), squashed; (d) squashed rows with
+    actions at +-1 and a small std, so that the +-100 clamp cuts their
+    gradients."""
+    from rl8_tpu_torch.ops import PPOLossConfig
+
+    configs = {
+        "a": dict(N=8192 * 32, A=1, model={}, obs_dim=1, heads={}, squashed=True, ec=0.0, clip_share=0.0,
+                  loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)),
+        "b": dict(N=1000, A=3, model={"hiddens": (64, 32)}, obs_dim=3, heads={}, squashed=False, ec=0.013,
+                  clip_share=0.0, loss=dict(vf_clip_param=1.5, vf_coeff=0.9, dual_clip_param=3.0, accum=3)),
+        "c": dict(N=9001, A=2, model={"hiddens": (100, 72), "activation_fn": "tanh"}, obs_dim=5,
+                  heads={"mean_scale": 1.0, "log_std_scale": 0.3}, squashed=True, ec=0.0, clip_share=0.0,
+                  loss=dict(vf_clip_param=2.0, vf_coeff=0.5, dual_clip_param=None, accum=2)),
+        "d": dict(N=4096, A=2, model={"hiddens": (64, 64)}, obs_dim=2,
+                  heads={"mean_scale": 0.001, "log_std_bias": -3.0}, squashed=True, ec=0.0, clip_share=0.3,
+                  loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)),
+    }
+    for name, c in configs.items():
+        model = make_continuous_model(torch, c["A"], seed=80 + ord(name), obs_dim=c["obs_dim"],
+                                      **c["heads"], **c["model"])
+        params, packed, unpack, clamped = continuous_ppo_inputs(
+            torch, dev, model, c["N"], seed=ord(name), squashed=c["squashed"], clip_share=c["clip_share"]
+        )
+        if c["clip_share"]:
+            check(int(clamped.sum()) >= c["N"] // 10, f"continuous ppo ({name}): too few rows hit the +-100 clamp")
+        cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0,
+                            squashed=c["squashed"], **c["loss"])
+        ec = torch.tensor(c["ec"], device=dev)
+        result = compare_ppo(torch, f"continuous ppo ({name})", params, packed, unpack, ec, cfg)
+        emit({"phase": "kernel_check", "kernel": "continuous_ppo_update", "config": name, "N": c["N"],
+              "hiddens": list(params.hiddens), "A": params.action_dim, "kind": params.kind,
+              "activation": params.activation, "entropy_coeff": c["ec"], **c["loss"],
+              "rows_clamped": int(clamped.sum()), **result["summary"]})
+        if name == "a":
+            time_ppo(torch, "continuous_ppo_update", record, result, params, packed, unpack, ec, cfg)
 
 
 def run_main_path(torch, dev) -> None:
@@ -485,20 +762,34 @@ def run_main_path(torch, dev) -> None:
     profile_window(torch, "collect + advantages", rollout)
 
 
-def run_update_path(torch, dev, kernels: dict) -> None:
-    """The main path with the update: collect() + step() at the defaults,
+def run_update_path(torch, dev, kernels: dict, continuous: bool = False) -> None:
+    """A main path with the update: collect() + step() at the defaults,
     one warm-up and five timed iterations; every kernel of the path must
-    have launched (act 32, GAE 1, update 4 per iteration)."""
+    have launched (act 32, GAE 1, update 4 per iteration). The discrete
+    path is ``DiscreteDummyEnv`` with ``Categorical``; the continuous one
+    the JAX package's second headline config, ``ContinuousDummyEnv`` with
+    ``SquashedNormal``, gamma 0.99, lambda 0.95 and no entropy bonus."""
     from rl8_tpu_torch import AlgorithmConfig
-    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import SquashedNormal
+    from rl8_tpu_torch.env import ContinuousDummyEnv, DiscreteDummyEnv
     from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads
 
-    algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    if continuous:
+        algo = AlgorithmConfig(device="cuda", distribution_cls=SquashedNormal, gamma=0.99, gae_lambda=0.95,
+                               entropy_coeff=0.0).build(ContinuousDummyEnv)
+        names, counters = ("continuous_act", "gae", "continuous_ppo"), "continuous_launches"
+    else:
+        algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+        names, counters = ("act", "gae", "ppo"), "launches"
+    wrappers = (fused_act, fused_gae, fused_ppo_grads)
     h = algo.hparams
     n_params = sum(p.numel() for p in algo.policy.model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_act.launches = fused_gae.launches = fused_ppo_grads.launches = 0
+    for fn in wrappers:
+        fn.launches = 0
+    fused_act.continuous_launches = fused_ppo_grads.continuous_launches = 0
     collect_ms, step_ms, steps = [], [], []
     for i in range(6):  # the first is the warm-up
         t = time.perf_counter()
@@ -509,25 +800,30 @@ def run_update_path(torch, dev, kernels: dict) -> None:
         if i:
             collect_ms.append((t_mid - t) * 1e3)
             step_ms.append((t_end - t_mid) * 1e3)
-    launches = {"act": fused_act.launches, "gae": fused_gae.launches, "ppo": fused_ppo_grads.launches}
+    act, gae, ppo = (getattr(fn, "launches" if fn is fused_gae else counters) for fn in wrappers)
+    other = (fused_act.launches + fused_ppo_grads.launches if continuous
+             else fused_act.continuous_launches + fused_ppo_grads.continuous_launches)
+    launches = dict(zip(names, (act, gae, ppo)))
     for key, count in launches.items():
         kernels[key]["launches"] = count
     iters = 6
     per_step = h.num_sgd_iters * h.num_minibatches
-    check(launches["act"] == iters * h.horizon, f"act launches {launches['act']} != {iters} x {h.horizon}")
-    check(launches["gae"] == iters, f"GAE launches {launches['gae']} != {iters} steps")
-    check(launches["ppo"] == iters * per_step, f"update launches {launches['ppo']} != {iters} x {per_step}")
+    check(act == iters * h.horizon, f"act launches {act} != {iters} x {h.horizon}")
+    check(gae == iters, f"GAE launches {gae} != {iters} steps")
+    check(ppo == iters * per_step, f"update launches {ppo} != {iters} x {per_step}")
+    check(other == 0, f"{other} launches of the other distribution family's kernels")
     for stats in steps:
         check(all(math.isfinite(v) for v in stats.values()), f"step stats finite: {stats}")
     for name, param in algo.policy.model.named_parameters():
         check(bool(torch.isfinite(param).all()), f"parameter {name} finite")
-    check(tuple(algo.policy.model.feature_model.layers[1].weight.shape) == (256, 256), "torso width")
+    check(tuple(algo.policy.model.vf_model.layers[1].weight.shape) == (256, 256), "torso width")
     check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
           "the buffer is spent and Adam counted every update")
     med_collect = sorted(collect_ms)[len(collect_ms) // 2]
     med_step = sorted(step_ms)[len(step_ms) // 2]
     emit({
-        "phase": "main_path_update", "num_envs": h.num_envs, "horizon": h.horizon,
+        "phase": "main_path_continuous" if continuous else "main_path_update",
+        "num_envs": h.num_envs, "horizon": h.horizon,
         "hiddens": list(algo.policy.model.hiddens), "num_sgd_iters": h.num_sgd_iters,
         "num_minibatches": h.num_minibatches, "parameters": n_params,
         "collect_ms": collect_ms, "step_ms": step_ms,
@@ -537,7 +833,12 @@ def run_update_path(torch, dev, kernels: dict) -> None:
         "last_step": steps[-1],
     })
     algo.collect()
-    profile_window(torch, "step", algo.step)
+    actions = algo.state.buffer[DataKeys.ACTIONS]
+    check(bool(torch.isfinite(actions).all()), "buffer actions finite")
+    if continuous:
+        check(actions.dtype == torch.float32 and bool((actions.abs() <= 1.0).all()),
+              "squashed actions are f32 in [-1, 1]")
+    profile_window(torch, "continuous step" if continuous else "step", algo.step)
 
 
 def profile_window(torch, window: str, fn) -> None:
@@ -588,18 +889,49 @@ def check_learning(torch, dev) -> None:
           "final_returns_mean": collect_stats["returns/mean"], "seconds": time.perf_counter() - t})
 
 
-def check_small_against_cpu(torch, dev) -> None:
+def check_learning_continuous(torch, dev) -> None:
+    """The learning drive for the continuous env with SquashedNormal: 256
+    envs, horizon 16, seed 1, 30 collect+step iterations with bounds 10
+    (on the CPU both rl8_tpu and the port reach it from the first
+    iteration on, for seeds 1-3); the greedy action must point toward the
+    origin at [5, -5, 2, -2], with magnitude above 0.5 at +-5 (both
+    packages reach above 0.79 there)."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import SquashedNormal
+    from rl8_tpu_torch.env import ContinuousDummyEnv
+
+    t = time.perf_counter()
+    algo = AlgorithmConfig(num_envs=256, horizon=16, seed=1, distribution_cls=SquashedNormal,
+                           device="cuda").build(ContinuousDummyEnv)
+    for _ in range(30):
+        collect_stats = algo.collect(env_config={"bounds": 10.0})
+        algo.step()
+    obs = torch.tensor([[[5.0]], [[-5.0]], [[2.0]], [[-2.0]]], device=dev)
+    out = algo.policy.sample({DataKeys.OBS: obs}, kind="last", deterministic=True)
+    actions = out[DataKeys.ACTIONS].ravel().tolist()
+    signs = [math.copysign(1.0, a) for a in actions]
+    check(signs == [-1.0, 1.0, -1.0, 1.0] and min(abs(actions[0]), abs(actions[1])) > 0.5,
+          f"the continuous policy did not learn: greedy actions {actions}")
+    emit({"phase": "learning_continuous", "iterations": 30, "greedy_actions": actions,
+          "final_returns_mean": collect_stats["returns/mean"], "seconds": time.perf_counter() - t})
+
+
+def check_small_against_cpu(torch, dev, continuous: bool = False) -> None:
     """The same small configuration on the card and on the CPU (the
     kernels' plain versions), from one seed and the same start positions:
     two stochastic collects (the second carrying over), the advantage
     stage and one step (whole-buffer minibatch, so no shuffle) must
-    agree."""
+    agree. The discrete run's observations and actions are equal; the
+    continuous run (Normal) draws the same noise on both, but its f32
+    actions move the positions, so both are held to the act tolerances."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
-    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.distributions import Normal
+    from rl8_tpu_torch.env import ContinuousDummyEnv, DiscreteDummyEnv
     from rl8_tpu_torch.ops.fused_mlp import default_chains, flatten_chains
 
-    class FixedStartEnv(DiscreteDummyEnv):
+    class FixedStartEnv(ContinuousDummyEnv if continuous else DiscreteDummyEnv):
         def reset(self, generator, *, state=None, config=None):
             pos = torch.linspace(-50.0, 50.0, self.num_envs).view(-1, 1).to(self.device)
             return {"position": pos, "bounds": torch.tensor(50.0, device=self.device)}, pos
@@ -609,6 +941,7 @@ def check_small_against_cpu(torch, dev) -> None:
         algo = AlgorithmConfig(
             num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7,
             model_config={"hiddens": (32, 32)}, device=device,
+            distribution_cls=Normal if continuous else None,
         ).build(FixedStartEnv)
         stats = [algo.collect(), algo.collect()]
         adv, ret = algo._advantages()
@@ -618,7 +951,10 @@ def check_small_against_cpu(torch, dev) -> None:
         steps[device] = (algo.step(), flatten_chains(default_chains(algo.policy.model)).cpu() - start)
     (s_g, b_g, a_g, r_g, sc_g), (s_c, b_c, a_c, r_c, sc_c) = runs["cuda"], runs["cpu"]
     for key in (DataKeys.OBS, DataKeys.ACTIONS):
-        check(torch.equal(b_g[key], b_c[key]), f"small run {key} equal on card and CPU")
+        if continuous:
+            check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small run {key}")
+        else:
+            check(torch.equal(b_g[key], b_c[key]), f"small run {key} equal on card and CPU")
     for key in (DataKeys.LOGP, DataKeys.VALUES, DataKeys.REWARDS, DataKeys.REVERSED_DISCOUNTED_RETURNS):
         check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small run {key}")
     check(torch.allclose(sc_g, sc_c, rtol=1e-5), "small run reward scale")
@@ -637,7 +973,8 @@ def check_small_against_cpu(torch, dev) -> None:
         check(math.isclose(st_g[k], st_c[k], rel_tol=1e-4, abs_tol=1e-6), f"small run step {k}: {st_g[k]} vs {st_c[k]}")
     delta_err = float((d_g - d_c).norm() / d_c.norm())
     check(delta_err <= 1e-3, f"small run parameter change differs by {delta_err:.3g} of its norm")
-    emit({"phase": "small_vs_cpu", "num_envs": 64, "horizon": 8, "collects": 2, "steps": 1,
+    emit({"phase": "small_continuous_vs_cpu" if continuous else "small_vs_cpu", "num_envs": 64,
+          "horizon": 8, "collects": 2, "steps": 1,
           "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
           "advantages_max_abs_err": float((a_g - a_c).abs().max()),
           "step_loss_max_abs_err": max(abs(st_g[k] - st_c[k]) for k in st_c if k.startswith("losses/")),

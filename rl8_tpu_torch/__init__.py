@@ -6,10 +6,12 @@ beside plain PyTorch versions: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. It imports neither JAX nor
 ``rl8_tpu``; the tests hold it against ``rl8_tpu`` on the CPU.
 
-Ported so far: feedforward PPO on the default discrete model, end to
-end: the rollout (``Algorithm.collect``) through the discrete act kernel,
-and the update (``Algorithm.step``) through the GAE kernel and the PPO
-update kernel, with clip-by-global-norm and Adam.
+Ported so far: feedforward PPO on the default models, end to end: the
+discrete one with ``Categorical`` and the continuous one with ``Normal``
+or ``SquashedNormal``. The rollout (``Algorithm.collect``) runs through
+the discrete or continuous act kernel, and the update
+(``Algorithm.step``) through the GAE kernel and the PPO update kernel,
+with clip-by-global-norm and Adam.
 """
 
 from .algorithms import Algorithm, AlgorithmConfig

@@ -6,8 +6,9 @@ package compiles ``collect`` and ``step`` into ``lax.scan``s; here they
 are Python loops that launch the port's kernels:
 
 - ``collect`` loops over the horizon, each step one launch of the act
-  kernel (``ops/fused_act.py``), the env step and the reversed-return
-  update, with a single host fetch per collect (the stats);
+  kernel of the policy's distribution (``ops/fused_act.py``), the env
+  step and the reversed-return update, with a single host fetch per
+  collect (the stats);
 - ``step`` runs the advantage stage through the GAE kernel
   (``ops/gae.py``), packs the B-major training batch into one int32
   matrix (``ops/packing.py``), and per epoch and minibatch launches the
@@ -28,6 +29,7 @@ from typing import Any
 import torch
 
 from ..data import AlgorithmHparams, AlgorithmState, CollectStats, DataKeys, StepStats
+from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..ops import (
     PPOLossConfig,
@@ -63,14 +65,21 @@ class AlgorithmConfig:
 
     The fields of ``rl8_tpu.algorithms.AlgorithmConfig`` that this port
     runs, plus ``device``. The model is the default model for the env's
-    specs; the optimizer is Adam after a global-norm clip, over one flat
-    parameter vector. ``optimizer_cls``, ``flatten_optimizer``,
-    ``enable_amp`` and ``mesh`` exist so that a JAX config carries over;
-    any value but the default raises ``NotImplementedError``.
+    specs, with ``Categorical`` for discrete actions and ``Normal`` or
+    ``SquashedNormal`` for continuous ones; the optimizer is Adam after a
+    global-norm clip, over one flat parameter vector. ``optimizer_cls``,
+    ``flatten_optimizer``, ``enable_amp`` and ``mesh`` exist so that a JAX
+    config carries over; any value but the default raises
+    ``NotImplementedError``.
     """
 
     #: Model kwargs unpacked into the default model at instantiation.
     model_config: None | dict[str, Any] = None
+    #: Action distribution class; inferred from the action spec
+    #: (``Categorical`` or ``Normal``) when omitted. ``SquashedNormal``
+    #: has no entropy, so it trains only with a zero entropy coefficient
+    #: and no schedule.
+    distribution_cls: None | type[Distribution] = None
     #: Number of transitions per :meth:`Algorithm.collect` call.
     horizon: int = 32
     #: Collects between env resets; negative = reset only once.
@@ -198,14 +207,27 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             self.env.observation_spec,
             self.env.action_spec,
             model_config=dict(config.model_config or {}),
+            distribution_cls=config.distribution_cls,
         )
         model = self.policy.model
-        if not supports_fused_update(model, self.policy.distribution_cls):
+        #: Whether the entropy bonus is statically absent (the kernel then
+        #: skips the entropy term entirely, and SquashedNormal, which has
+        #: no entropy, can train).
+        self._static_zero_entropy = (
+            config.entropy_coeff_schedule is None and config.entropy_coeff == 0.0
+        )
+        #: Whether the action distribution squashes through tanh (the
+        #: kernels' SquashedNormal variant).
+        self._squashed_dist = self.policy.distribution_cls is SquashedNormal
+        if not supports_fused_update(
+            model, self.policy.distribution_cls, zero_entropy=self._static_zero_entropy
+        ):
             raise NotImplementedError(
-                "This port runs the default discrete model (relu or tanh, biased"
-                " layers, at most 8 of them) with a Categorical distribution;"
-                " the continuous models and distributions are the next slice"
-                " (ROADMAP Queue 1)."
+                "This port runs the default models (relu or tanh, biased layers, at"
+                " most 8 of them): the discrete one with Categorical, the continuous"
+                " one with Normal, or with SquashedNormal when the entropy coefficient"
+                f" is 0 with no schedule; not {type(model).__name__} with"
+                f" {self.policy.distribution_cls.__name__} here."
             )
         model.validate_view_requirements()
 
@@ -257,12 +279,6 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             schedule=config.entropy_coeff_schedule,
             kind=config.entropy_coeff_schedule_kind,
         )
-        #: Whether the entropy bonus is statically absent (the kernel then
-        #: skips the entropy term entirely).
-        self._static_zero_entropy = (
-            config.entropy_coeff_schedule is None and config.entropy_coeff == 0.0
-        )
-
         # One host generator seeds the others and then draws the act
         # kernel's per-step Philox keys; env resets and minibatch
         # shuffles draw on the device.
@@ -278,12 +294,17 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             env_state=None,
             buffer=self._zero_buffer(),
             reward_scale=torch.tensor(1.0, device=self.device),
-            opt_state=AdamState.zeros_like(pack_act_params(model).flat),
+            opt_state=AdamState.zeros_like(self._pack_params().flat),
         )
 
     # ------------------------------------------------------------------
     # Buffer helpers
     # ------------------------------------------------------------------
+
+    def _pack_params(self):
+        """The model's current parameters packed for the kernels, with the
+        policy's distribution kind."""
+        return pack_act_params(self.policy.model, squashed=self._squashed_dist)
 
     def _zero_buffer(self, num_envs: None | int = None) -> dict[str, torch.Tensor]:
         """Time-major rollout buffer of zeros; ``num_envs`` overrides the
@@ -336,7 +357,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             )
 
         # The parameters are fixed for the whole rollout: pack them once.
-        params = pack_act_params(model)
+        params = self._pack_params()
         keys = torch.randint(0, 2**32, (T, 2), generator=self._key_gen).tolist()
         cols: dict[str, list[torch.Tensor]] = {
             DataKeys.OBS: [obs],
@@ -484,10 +505,11 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             n_rows=mb_rows,
             accum=accum,
             use_entropy=not self._static_zero_entropy,
+            squashed=self._squashed_dist,
         )
         ec = torch.full((), entropy_coeff, dtype=torch.float32, device=dev)
         # The update's working copy of the parameters, in kernel order.
-        params = pack_act_params(model)
+        params = self._pack_params()
         flat = params.flat
         opt_state = self.state.opt_state
         # Device-side carry: the gradient and stat sums of the current

@@ -1,7 +1,7 @@
-// Discrete act kernel: one rollout step of the default discrete model.
+// Act kernels: one rollout step of a default model, in one launch.
 //
-// Replaces rl8_tpu/ops/fused_act.py:_discrete_act_kernel (the Pallas TPU
-// kernel). For every row of obs [B, d_in] it computes, in one launch:
+// discrete_act_kernel replaces rl8_tpu/ops/fused_act.py:_discrete_act_kernel
+// (the Pallas TPU kernel). For every row of obs [B, d_in] it computes:
 //   - the twin-chain forward of DefaultDiscreteModel
 //     (fused_mlp._forward_block): each chain is h = act(h @ W + b) per
 //     hidden layer, then a linear head; the policy chain's head gives
@@ -12,10 +12,22 @@
 //     deterministic), one int32 action column per group;
 //   - the chosen log-probs summed over groups in group order, and the value.
 //
-// Bound on an H100 SXM: the forward is 2 * B * (d_in*H + H*H + H*(A*n+1))
+// continuous_act_kernel replaces fused_act.py:_continuous_act_kernel for
+// DefaultContinuousModel with Normal or SquashedNormal
+// (distmath.sample_continuous_actions): the same twin-chain forward, whose
+// policy chain has two heads (mean and pre-tanh log-std, A wide each), then
+// per row and action dim log_std = tanh(head), a Box-Muller normal draw,
+// a = mean + std * noise (mean when deterministic), a = tanh(a) when
+// squashed, the log-prob (of the squashed action through the clipped atanh
+// and the +-100 clamp when squashed; distmath.cuh), summed over dims in
+// order, and the value.
+//
+// Bound on an H100 SXM: the forward is 2 * B * (d_in*H + H*H + H*(heads+1))
 // FLOP for two hidden layers of width H, 2.17 GFLOP at B=8192, d_in=1,
-// H=256, against ~0.6 MB of parameters and I/O, so f32 CUDA-core FMAs
-// bound it: ~32 us at 67 TFLOP/s.
+// H=256 (2 logits, or a mean and a log-std of A = 1), against ~0.6 MB of
+// parameters and I/O, so f32 CUDA-core FMAs bound it: ~32 us at 67
+// TFLOP/s. The continuous epilogue adds ~20 transcendentals per row and
+// dim, under 1% of that.
 //
 // Design. A block of 256 threads owns kRows=16 rows and keeps their
 // activations in shared memory (two ping-pong buffers of [16, H]). The
@@ -35,15 +47,19 @@
 //
 // Random numbers: counter-based Philox4x32-10 keyed by the per-step
 // (seed, offset) that the wrapper draws from the algorithm's generator,
-// counted by (row, group, category, 0), so draws do not depend on the
-// block size. Word 0's top 23 bits scaled by 2^-23 and clamped to >= 1e-7
-// give the uniform (the TPU kernel's construction); the Gumbel term is
-// -log(-log(u)). ops/distmath.py:philox_uniform is the same generator in
-// PyTorch, so the plain version can replay a launch's draws exactly.
+// so draws do not depend on the block size. A categorical draw is word 0
+// at counter (row, group, category, 0); a normal draw is Box-Muller,
+// sqrt(-2 log u1) cos(2 pi u2), on words 0 and 1 at counter (row, dim, 0,
+// 1). A word's top 23 bits scaled by 2^-23 and clamped to >= 1e-7 give a
+// uniform (the TPU kernel's construction); the Gumbel term is
+// -log(-log(u)). ops/distmath.py:philox_uniform and philox_normal are the
+// same generator in PyTorch, so the plain version can replay a launch's
+// draws exactly.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "distmath.cuh"
 #include "mlp.cuh"
 
 namespace {
@@ -58,15 +74,15 @@ constexpr int kMaxLayers = 8;
 struct ActDims {
   int d_in;
   int n_layers;
-  int n_logits;
-  int n_cat;
   int act;  // 0: relu, 1: tanh
   int max_hidden;
   int hidden[kMaxLayers];
+  int n_heads;  // heads of the policy chain: 1 (logits) or 2 (mean, log-std)
+  int head_w;   // width of each: A * n logits, or A
 };
 
-__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint32_t c2,
-                                                 uint32_t c3, uint32_t k0, uint32_t k1) {
+__device__ __forceinline__ uint2 philox_words01(uint32_t c0, uint32_t c1, uint32_t c2,
+                                                uint32_t c3, uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
@@ -80,32 +96,32 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint3
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return c0;
+  return make_uint2(c0, c1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    discrete_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
-                        int* __restrict__ actions, float* __restrict__ logp,
-                        float* __restrict__ values, int B, ActDims d, uint32_t seed,
-                        uint32_t offset, int deterministic) {
-  extern __shared__ float smem[];
-  const int A = d.n_logits / d.n_cat;
-  const int head_stride = d.n_logits + 1;
-  float* xs = smem;                              // [kRows, d_in]
-  float* h0 = xs + kRows * d.d_in;               // [kRows, max_hidden]
-  float* h1 = h0 + kRows * d.max_hidden;         // [kRows, max_hidden]
-  float* heads = h1 + kRows * d.max_hidden;      // [kRows, n_logits + 1]
-  float* chosen = heads + kRows * head_stride;   // [kRows, A]
+__device__ __forceinline__ float to_uniform(uint32_t bits) {
+  return fmaxf(__uint2float_rn(bits >> 9) * 1.1920928955078125e-7f, 1e-7f);
+}
 
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, B - r0);
+// Shared memory of a block: xs [kRows, d_in], two ping-pong activation
+// buffers [kRows, max_hidden], and the heads [kRows, n_heads * head_w + 1]
+// (the policy heads, then the value).
+__device__ __forceinline__ int head_stride(const ActDims& d) { return d.n_heads * d.head_w + 1; }
+
+// Loads the block's rows of obs and runs both chains' forward: chain 0 is
+// the policy torso and its heads, chain 1 the value torso and value head;
+// params hold each layer's W [in, out] then b [out]. Returns the heads.
+__device__ float* twin_forward(const float* __restrict__ obs, const float* __restrict__ params,
+                               int r0, int nr, const ActDims& d, float* smem) {
+  float* xs = smem;
+  float* h0 = xs + kRows * d.d_in;
+  float* h1 = h0 + kRows * d.max_hidden;
+  float* heads = h1 + kRows * d.max_hidden;
+  const int stride = head_stride(d);
   for (int i = threadIdx.x; i < kRows * d.d_in; i += blockDim.x) {
     xs[i] = (i / d.d_in) < nr ? obs[(size_t)r0 * d.d_in + i] : 0.0f;
   }
   __syncthreads();
-
-  // Chain 0 is the policy torso + logits head, chain 1 the value torso +
-  // value head; params hold each layer's W [in, out] then b [out].
   const float* p = params;
   for (int chain = 0; chain < 2; ++chain) {
     const float* cur = xs;
@@ -119,32 +135,49 @@ __global__ void __launch_bounds__(kThreads)
       cur = dst;
       cur_w = out_w;
     }
-    const int n_out = chain == 0 ? d.n_logits : 1;
-    narrow_head<kRows>(cur, cur_w, p, p + cur_w * n_out, n_out, heads, head_stride,
-                chain == 0 ? 0 : d.n_logits);
-    p += cur_w * n_out + n_out;
+    const int n_heads = chain == 0 ? d.n_heads : 1;
+    const int n_out = chain == 0 ? d.head_w : 1;
+    for (int j = 0; j < n_heads; ++j) {
+      narrow_head<kRows>(cur, cur_w, p, p + cur_w * n_out, n_out, heads, stride,
+                         chain == 0 ? j * n_out : stride - 1);
+      p += cur_w * n_out + n_out;
+    }
     __syncthreads();
   }
+  return heads;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    discrete_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
+                        int* __restrict__ actions, float* __restrict__ logp,
+                        float* __restrict__ values, int B, ActDims d, int n_cat, uint32_t seed,
+                        uint32_t offset, int deterministic) {
+  extern __shared__ float smem[];
+  const int A = d.head_w / n_cat;
+  const int stride = head_stride(d);
+  const int r0 = blockIdx.x * kRows;
+  const int nr = min(kRows, B - r0);
+  const float* heads = twin_forward(obs, params, r0, nr, d, smem);
+  float* chosen = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);  // [kRows, A]
 
   for (int t = threadIdx.x; t < nr * A; t += blockDim.x) {
     const int r = t / A;
     const int a = t % A;
-    const float* z = heads + r * head_stride + a * d.n_cat;
+    const float* z = heads + r * stride + a * n_cat;
     float m = z[0];
-    for (int c = 1; c < d.n_cat; ++c) m = fmaxf(m, z[c]);
+    for (int c = 1; c < n_cat; ++c) m = fmaxf(m, z[c]);
     float s = 0.0f;
-    for (int c = 0; c < d.n_cat; ++c) s += expf(z[c] - m);
+    for (int c = 0; c < n_cat; ++c) s += expf(z[c] - m);
     const float lse = m + logf(s);
     int best = 0;
     float best_score = -INFINITY;
     float best_lp = z[0] - lse;
-    for (int c = 0; c < d.n_cat; ++c) {
+    for (int c = 0; c < n_cat; ++c) {
       const float lp = z[c] - lse;
       float score = lp;
       if (!deterministic) {
-        const uint32_t bits = philox_word0((uint32_t)(r0 + r), (uint32_t)a, (uint32_t)c, 0u,
-                                           seed, offset);
-        const float u = fmaxf(__uint2float_rn(bits >> 9) * 1.1920928955078125e-7f, 1e-7f);
+        const float u = to_uniform(philox_words01((uint32_t)(r0 + r), (uint32_t)a, (uint32_t)c,
+                                                  0u, seed, offset).x);
         score = lp - logf(-logf(u));
       }
       if (score > best_score) {  // strict: ties go to the first index
@@ -162,8 +195,95 @@ __global__ void __launch_bounds__(kThreads)
     float total = chosen[r * A];
     for (int a = 1; a < A; ++a) total += chosen[r * A + a];
     logp[r0 + r] = total;
-    values[r0 + r] = heads[r * head_stride + d.n_logits];
+    values[r0 + r] = heads[r * stride + stride - 1];
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    continuous_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
+                          float* __restrict__ actions, float* __restrict__ logp,
+                          float* __restrict__ values, int B, ActDims d, int squashed,
+                          uint32_t seed, uint32_t offset, int deterministic) {
+  extern __shared__ float smem[];
+  const int A = d.head_w;
+  const int stride = head_stride(d);
+  const int r0 = blockIdx.x * kRows;
+  const int nr = min(kRows, B - r0);
+  const float* heads = twin_forward(obs, params, r0, nr, d, smem);
+  // [kRows, 2A]: each dim's (clamped, when squashed) base log-prob, then
+  // its tanh log-det term.
+  float* parts = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);
+
+  for (int t = threadIdx.x; t < nr * A; t += blockDim.x) {
+    const int r = t / A;
+    const int a = t % A;
+    const float* z = heads + r * stride;
+    const float mean = z[a];
+    const float log_std = tanhf(z[A + a]);
+    const float sd = expf(log_std);
+    const float inv_var = expf(-2.0f * log_std);
+    float x = mean;
+    if (!deterministic) {
+      const uint2 w = philox_words01((uint32_t)(r0 + r), (uint32_t)a, 0u, 1u, seed, offset);
+      const float noise = sqrtf(-2.0f * logf(to_uniform(w.x))) * cosf(rl8::kTwoPi * to_uniform(w.y));
+      // Rounded as the plain version's two tensor ops round it.
+      x = __fadd_rn(mean, __fmul_rn(sd, noise));
+    }
+    float base, log_det = 0.0f;
+    if (squashed) {
+      x = tanhf(x);
+      const float c = rl8::squash_clip(x);
+      base = rl8::clamp100(rl8::normal_per_dim_logp(rl8::clipped_atanh(c) - mean, log_std, inv_var));
+      log_det = rl8::squash_log_det(c);
+    } else {
+      base = rl8::normal_per_dim_logp(x - mean, log_std, inv_var);
+    }
+    actions[(size_t)(r0 + r) * A + a] = x;
+    parts[r * 2 * A + a] = base;
+    parts[r * 2 * A + A + a] = log_det;
+  }
+  __syncthreads();
+
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    const float* pr = parts + r * 2 * A;
+    float total = pr[0];
+    for (int a = 1; a < A; ++a) total += pr[a];
+    if (squashed) {
+      float det = pr[A];
+      for (int a = 1; a < A; ++a) det += pr[A + a];
+      total -= det;
+    }
+    logp[r0 + r] = total;
+    values[r0 + r] = heads[r * stride + stride - 1];
+  }
+}
+
+// The dims of a launch, or false if the kernels do not take them.
+bool make_dims(int B, int d_in, int n_layers, const int* hidden, int act, int n_heads, int head_w,
+               ActDims* d) {
+  if (B <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || head_w <= 0 ||
+      (act != 0 && act != 1)) {
+    return false;
+  }
+  d->d_in = d_in;
+  d->n_layers = n_layers;
+  d->act = act;
+  d->n_heads = n_heads;
+  d->head_w = head_w;
+  d->max_hidden = 0;
+  for (int l = 0; l < kMaxLayers; ++l) {
+    d->hidden[l] = l < n_layers ? hidden[l] : 0;
+    if (l < n_layers && d->hidden[l] <= 0) return false;
+    if (d->hidden[l] > d->max_hidden) d->max_hidden = d->hidden[l];
+  }
+  return true;
+}
+
+// Floats of shared memory: xs, two activation buffers, the heads and
+// `extra` floats per row.
+size_t smem_bytes(const ActDims& d, int extra) {
+  return sizeof(float) * (size_t)kRows *
+         (d.d_in + 2 * d.max_hidden + d.n_heads * d.head_w + 1 + extra);
 }
 
 }  // namespace
@@ -173,30 +293,40 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
                                 int n_logits, int n_cat, int act, unsigned int seed,
                                 unsigned int offset, int deterministic, int device,
                                 void* stream) {
-  if (B <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || n_cat <= 0 ||
-      n_logits % n_cat != 0 || (act != 0 && act != 1)) {
+  ActDims d;
+  if (n_cat <= 0 || n_logits % n_cat != 0 ||
+      !make_dims(B, d_in, n_layers, hidden, act, 1, n_logits, &d)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  ActDims d;
-  d.d_in = d_in;
-  d.n_layers = n_layers;
-  d.n_logits = n_logits;
-  d.n_cat = n_cat;
-  d.act = act;
-  d.max_hidden = 0;
-  for (int l = 0; l < kMaxLayers; ++l) {
-    d.hidden[l] = l < n_layers ? hidden[l] : 0;
-    if (d.hidden[l] > d.max_hidden) d.max_hidden = d.hidden[l];
-  }
-  const size_t smem = sizeof(float) * (size_t)kRows *
-                      (d_in + 2 * d.max_hidden + (n_logits + 1) + n_logits / n_cat);
+  const size_t smem = smem_bytes(d, n_logits / n_cat);
   err = cudaFuncSetAttribute(discrete_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + kRows - 1) / kRows;
   discrete_act_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      obs, params, actions, logp, values, B, d, seed, offset, deterministic);
+      obs, params, actions, logp, values, B, d, n_cat, seed, offset, deterministic);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rl8_continuous_act(const float* obs, const float* params, float* actions,
+                                  float* logp, float* values, int B, int d_in, int n_layers,
+                                  const int* hidden, int action_dim, int act, int squashed,
+                                  unsigned int seed, unsigned int offset, int deterministic,
+                                  int device, void* stream) {
+  ActDims d;
+  if (!make_dims(B, d_in, n_layers, hidden, act, 2, action_dim, &d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(d, 2 * action_dim);
+  err = cudaFuncSetAttribute(continuous_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + kRows - 1) / kRows;
+  continuous_act_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      obs, params, actions, logp, values, B, d, squashed, seed, offset, deterministic);
   return (int)cudaGetLastError();
 }

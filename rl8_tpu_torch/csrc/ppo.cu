@@ -1,27 +1,38 @@
 // PPO update kernel: one packed minibatch -> the PPO losses and the gradient
 // of every parameter, with the backward derived by hand.
 //
-// Replaces rl8_tpu/ops/fused_ppo.py:_discrete_kernel (the Pallas TPU kernel,
-// with fused_mlp._forward_block and fused_mlp._chains_backward), for the
-// default discrete model and the Categorical distribution. Per row of the
-// packed int32 matrix [N, D] (actions, advantages, logp, returns, obs; the
-// float columns bitcast) it computes:
-//   - the twin-chain forward (policy torso + logits head, value torso +
+// Replaces the Pallas TPU kernels of rl8_tpu/ops/fused_ppo.py (with
+// fused_mlp._forward_block and fused_mlp._chains_backward):
+// _discrete_kernel for the default discrete model with Categorical, and
+// _continuous_kernel for the default continuous model with Normal or
+// (entropy off) SquashedNormal. Per row of the packed int32 matrix [N, D]
+// (actions, advantages, logp, returns, obs; the float columns bitcast) it
+// computes:
+//   - the twin-chain forward (policy torso + its heads, value torso +
 //     value head), f32 end to end with no tensor cores;
-//   - per categorical group the log-softmax z - (max + log(sum(exp(z - max))))
-//     (the act kernel's formula), the chosen action's logp and, with
-//     use_entropy, the entropy;
+//   - categorical: per group the log-softmax z - (max + log(sum(exp(z -
+//     max)))) (the act kernel's formula), the chosen action's logp and,
+//     with use_entropy, the entropy (policy_row);
+//   - continuous: from the mean and pre-tanh log-std heads, log_std =
+//     tanh(pre), the Normal logp of the f32 action columns or, squashed,
+//     that of their clipped atanh with the +-100 clamp (distmath.cuh, the
+//     act kernel's formulas), and the entropy sum(0.5 (1 + log 2 pi) +
+//     log_std) (continuous_row);
 //   - the dual-clipped surrogate and the clamped smooth-L1 value loss with
 //     fused_ppo._policy_grad_terms / _vf_grad_terms' boundary conventions
 //     (take1 = surr1 <= surr2, a strict in_clip interval, the dual-clip gate
 //     clip1 >= dual * adv, the strict sl1 < vf_clip);
-//   - dlogits = u_pol * (onehot - p) [+ ec * scale * p * (logp_all + H)] and
-//     dv, then backprop through both chains into every parameter gradient,
-//     scaled by scale = 1 / (n_rows * accum);
+//   - the heads' cotangents: dlogits = u_pol * (onehot - p) [+ ec * scale *
+//     p * (logp_all + H)], or dmean = u_pol * diff * inv_var * gate and
+//     dpre = (u_pol * (diff^2 * inv_var - 1) * gate [- ec * scale]) *
+//     (1 - log_std^2), where the gate is 0 where the +-100 clamp cuts
+//     (squashed only); and dv. Then backprop through both chains into
+//     every parameter gradient, scaled by scale = 1 / (n_rows * accum);
 //   - the four stat sums: policy, vf, entropy and kl.
 //
 // Bound on an H100 SXM at the main path (N = 262,144 rows, d_in = 1, twin
-// 256-wide torsos, 2 logits): the forward is 132,352 MACs per row and the
+// 256-wide torsos, 2 logits or a mean and a log-std of A = 1, the same
+// shapes): the forward is 132,352 MACs per row and the
 // backward 264,192 (dW and dh of both 256x256 layers, the heads, dW of the
 // first layers), 2.08e11 FLOP per launch, against ~6.3 MB of inputs and
 // outputs, so f32 CUDA-core FMAs bound it: 3.10 ms at 67 TFLOP/s.
@@ -47,9 +58,11 @@
 //   2. The weight products dW = h_in^T dpre and db = sum(dpre) over rows,
 //      split over up to 64 groups of rows: a 64x64-tiled kernel (4x4 outputs
 //      per thread) for wide layers, and a thread-per-output kernel for
-//      narrow ones (the obs dim is 1, the heads 2 and 1 wide), which the TPU
-//      ran as VPU loops. Both stage chunks of rows through shared memory.
-//      Each group writes its own partial gradient.
+//      narrow ones (the obs dim is 1, the heads 2 and 1 wide, or 1 each),
+//      which the TPU ran as VPU loops. Both stage chunks of rows through
+//      shared memory. Each group writes its own partial gradient. A chain's
+//      heads lie side by side in its cotangent scratch ([mean | pre] for
+//      the continuous policy) and each head is its own weight product.
 //   3. The partials are summed over groups, and the stats over row blocks,
 //      in a fixed order.
 // Rows past N exist in no buffer: the last row block masks them with
@@ -57,11 +70,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "distmath.cuh"
 #include "mlp.cuh"
 
 namespace {
 
 using rl8::dense_layer;
+using rl8::kCategorical;
+using rl8::kSquashed;
 using rl8::kIdentity;
 using rl8::kRelu;
 using rl8::kTanh;
@@ -77,15 +93,19 @@ constexpr int kNarrowSmem = 8192;  // narrow weight products: floats of a staged
 constexpr int kStageBatch = 8;     // narrow weight products: loads in flight per thread
 constexpr int kMaxGroups = 64;     // split of the rows for the weight products
 constexpr int kGroupRows = 4096;   // rows per group below the cap
-constexpr int kMaxJobs = 2 * (kMaxLayers + 1);
+constexpr int kMaxHeads = 2;       // heads of a chain
+constexpr int kMaxJobs = 2 * (kMaxLayers + kMaxHeads);
 
 struct Dims {
   long long N;
   int D, obs_col, act_col, logp_col, adv_col, ret_col;
-  int d_in, n_layers, n_logits, n_cat, act, max_hidden, sum_hidden;
+  int d_in, n_layers, kind, act_dim, n_cat, act, max_hidden, sum_hidden;
   int hidden[kMaxLayers];
   int prefix[kMaxLayers];              // sum of hidden[:l]
-  long long woff[2][kMaxLayers + 1];   // offset of each layer's W in params (index n_layers: head)
+  int n_heads[2], head_w[2];           // per chain: its heads, all head_w wide
+  int n_out[2];                        // per chain: n_heads * head_w
+  // Offset of each layer's W in params; index n_layers + j: head j's.
+  long long woff[2][kMaxLayers + kMaxHeads];
   long long wtoff[2][kMaxLayers];      // offset of W^T in the transposed copy (layers >= 1)
   long long region[2];                 // each chain's offset in the row scratch
   float clip_lo, clip_hi, dual, vf_clip, vf_scale, scale;
@@ -100,13 +120,24 @@ struct Layout {
   int groups, rows_per_group, row_blocks;
 };
 
-bool make_layout(int N, int d_in, int n_layers, const int* hidden, int n_logits, Layout* L) {
-  if (N <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || n_logits <= 0) return false;
+// The policy chain has one head of act_dim * n_cat logits (categorical)
+// or two of act_dim (mean, pre-tanh log-std); the value chain one of 1.
+bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int act_dim,
+                 int n_cat, Layout* L) {
+  if (N <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || act_dim <= 0 ||
+      kind < kCategorical || kind > kSquashed || (kind == kCategorical && n_cat < 2)) {
+    return false;
+  }
   Dims& d = L->d;
   d.N = N;
   d.d_in = d_in;
   d.n_layers = n_layers;
-  d.n_logits = n_logits;
+  d.kind = kind;
+  d.act_dim = act_dim;
+  d.n_cat = n_cat;
+  d.n_heads[0] = kind == kCategorical ? 1 : 2;
+  d.head_w[0] = kind == kCategorical ? act_dim * n_cat : act_dim;
+  d.n_heads[1] = d.head_w[1] = 1;
   d.max_hidden = 0;
   d.sum_hidden = 0;
   for (int l = 0; l < kMaxLayers; ++l) {
@@ -126,15 +157,17 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int n_logits,
       if (l > 0) wt += in * d.hidden[l];
       in = d.hidden[l];
     }
-    const long long n_out = c == 0 ? n_logits : 1;
-    d.woff[c][n_layers] = off;
-    off += in * n_out + n_out;
+    d.n_out[c] = d.n_heads[c] * d.head_w[c];
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      d.woff[c][n_layers + j] = off;
+      off += in * d.head_w[c] + d.head_w[c];
+    }
   }
   L->P = off;
   L->wt_floats = wt;
   d.region[0] = 0;
-  d.region[1] = (long long)N * (2 * d.sum_hidden + n_logits);
-  L->row_floats = d.region[1] + (long long)N * (2 * d.sum_hidden + 1);
+  d.region[1] = (long long)N * (2 * d.sum_hidden + d.n_out[0]);
+  L->row_floats = d.region[1] + (long long)N * (2 * d.sum_hidden + d.n_out[1]);
   int groups = (N + kGroupRows - 1) / kGroupRows;
   L->groups = groups < 1 ? 1 : (groups > kMaxGroups ? kMaxGroups : groups);
   L->rows_per_group = (N + L->groups - 1) / L->groups;
@@ -146,29 +179,9 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int n_logits,
 
 // ---------------------------------------------------------------- row pass
 
-// One row's policy terms: z holds its logits [A * n] and gets dlogits.
-// Writes the row's policy, entropy and kl elements to v[0], v[2], v[3].
-__device__ __forceinline__ void policy_row(const int* row, float* z, float* v, const Dims& d, float ec_scale) {
-  const int n = d.n_cat;
-  const int A = d.n_logits / n;
-  float new_logp = 0.0f, ent = 0.0f;
-  for (int a = 0; a < A; ++a) {
-    const float* zg = z + a * n;
-    float m = zg[0];
-    for (int c = 1; c < n; ++c) m = fmaxf(m, zg[c]);
-    float s = 0.0f;
-    for (int c = 0; c < n; ++c) s += expf(zg[c] - m);
-    const float lse = m + logf(s);
-    const int action = row[d.act_col + a];
-    float chosen = 0.0f, h = 0.0f;
-    for (int c = 0; c < n; ++c) {
-      const float lp = zg[c] - lse;
-      if (c == action) chosen = lp;
-      if (d.use_entropy) h -= expf(lp) * lp;
-    }
-    new_logp += chosen;
-    ent += h;
-  }
+// The dual-clipped surrogate of one row: writes its policy and kl elements
+// to v[0] and v[3] and returns u, the loss's cotangent on new_logp.
+__device__ __forceinline__ float surrogate(const int* row, float new_logp, float* v, const Dims& d) {
   const float old_logp = __int_as_float(row[d.logp_col]);
   const float adv = __int_as_float(row[d.adv_col]);
   const float lr = new_logp - old_logp;
@@ -187,7 +200,36 @@ __device__ __forceinline__ void policy_row(const int* row, float* z, float* v, c
       delem = clip1 >= dual_adv ? dclip1 : 0.0f;
     }
   }
-  const float u = -d.scale * delem * r;
+  v[0] = pol;
+  v[3] = (r - 1.0f) - lr;
+  return -d.scale * delem * r;
+}
+
+// One row's categorical policy terms: z holds its logits [A * n] and gets
+// dlogits. Writes the row's policy, entropy and kl elements to v[0], v[2],
+// v[3].
+__device__ __forceinline__ void policy_row(const int* row, float* z, float* v, const Dims& d, float ec_scale) {
+  const int n = d.n_cat;
+  const int A = d.act_dim;
+  float new_logp = 0.0f, ent = 0.0f;
+  for (int a = 0; a < A; ++a) {
+    const float* zg = z + a * n;
+    float m = zg[0];
+    for (int c = 1; c < n; ++c) m = fmaxf(m, zg[c]);
+    float s = 0.0f;
+    for (int c = 0; c < n; ++c) s += expf(zg[c] - m);
+    const float lse = m + logf(s);
+    const int action = row[d.act_col + a];
+    float chosen = 0.0f, h = 0.0f;
+    for (int c = 0; c < n; ++c) {
+      const float lp = zg[c] - lse;
+      if (c == action) chosen = lp;
+      if (d.use_entropy) h -= expf(lp) * lp;
+    }
+    new_logp += chosen;
+    ent += h;
+  }
+  const float u = surrogate(row, new_logp, v, d);
   // Second pass: dlogits in place, group by group.
   for (int a = 0; a < A; ++a) {
     float* zg = z + a * n;
@@ -212,9 +254,59 @@ __device__ __forceinline__ void policy_row(const int* row, float* z, float* v, c
       zg[c] = dz;
     }
   }
-  v[0] = pol;
   v[2] = ent;
-  v[3] = (r - 1.0f) - lr;
+}
+
+// One dim of a continuous row: log_std and inv_var from the pre-tanh head,
+// diff (x - mean, or through the clipped atanh when squashed), the base
+// log-prob, and the squashed action's log-det term.
+struct DimTerms {
+  float log_std, inv_var, diff, base, log_det;
+};
+
+__device__ __forceinline__ DimTerms dim_terms(float x, float mean, float pre, bool squashed) {
+  DimTerms t;
+  t.log_std = tanhf(pre);
+  t.inv_var = expf(-2.0f * t.log_std);
+  t.log_det = 0.0f;
+  if (squashed) {
+    const float c = rl8::squash_clip(x);
+    t.diff = rl8::clipped_atanh(c) - mean;
+    t.log_det = rl8::squash_log_det(c);
+  } else {
+    t.diff = x - mean;
+  }
+  t.base = rl8::normal_per_dim_logp(t.diff, t.log_std, t.inv_var);
+  return t;
+}
+
+// One row's continuous policy terms: z holds its [mean | pre-tanh log-std]
+// heads [2A] and gets their cotangents. Writes the row's policy, entropy and
+// kl elements to v[0], v[2], v[3].
+__device__ __forceinline__ void continuous_row(const int* row, float* z, float* v, const Dims& d,
+                                               float ec_scale) {
+  const int A = d.act_dim;
+  const bool squashed = d.kind == kSquashed;
+  float logp_sum = 0.0f, det_sum = 0.0f, ent = 0.0f;
+  for (int a = 0; a < A; ++a) {
+    const DimTerms t = dim_terms(__int_as_float(row[d.act_col + a]), z[a], z[A + a], squashed);
+    logp_sum += squashed ? rl8::clamp100(t.base) : t.base;
+    det_sum += t.log_det;
+    if (d.use_entropy) ent += rl8::kNormalEntropy + t.log_std;
+  }
+  const float u = surrogate(row, squashed ? logp_sum - det_sum : logp_sum, v, d);
+  for (int a = 0; a < A; ++a) {
+    const DimTerms t = dim_terms(__int_as_float(row[d.act_col + a]), z[a], z[A + a], squashed);
+    // d new_logp / d mean = diff inv_var; / d log_std = diff^2 inv_var - 1;
+    // the +-100 clamp cuts both where the base log-prob lies outside it.
+    const float gate = !squashed || (t.base > -100.0f && t.base < 100.0f) ? 1.0f : 0.0f;
+    const float dmean = u * (t.diff * t.inv_var) * gate;
+    float dlog_std = u * (t.diff * t.diff * t.inv_var - 1.0f) * gate;
+    if (d.use_entropy) dlog_std -= ec_scale;
+    z[a] = dmean;
+    z[A + a] = dlog_std * (1.0f - t.log_std * t.log_std);
+  }
+  v[2] = ent;
 }
 
 // One row's value terms: z[0] holds its value and gets dv; v[1] gets the
@@ -229,6 +321,13 @@ __device__ __forceinline__ void value_row(const int* row, float* z, float* v, co
   z[0] = (sl1 < d.vf_clip ? dsl1 : 0.0f) * d.vf_scale;
 }
 
+// The head weight of chain c for concatenated output column o and input k.
+__device__ __forceinline__ float head_weight(const float* params, const Dims& d, int c, int o, int k) {
+  const int w = d.head_w[c];
+  return __ldg(params + d.woff[c][d.n_layers + o / w] + (size_t)k * w + o % w);
+}
+
+template <bool kContinuous>
 __global__ void __launch_bounds__(kThreads)
     ppo_rows_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
                     const float* __restrict__ params, const float* __restrict__ wt,
@@ -238,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
   float* ga = xs + kRows * d.d_in;              // [kRows, max_hidden]: layer outputs, dh
   float* gb = ga + kRows * d.max_hidden;        // [kRows, max_hidden]
   float* head = gb + kRows * d.max_hidden;      // [kRows, n_out]: outputs, then cotangents
-  float* rowv = head + kRows * d.n_logits;      // [kRows, 4]: pol, vf, ent, kl
+  float* rowv = head + kRows * d.n_out[0];      // [kRows, 4]: pol, vf, ent, kl
 
   const long long r0 = (long long)blockIdx.x * kRows;
   const int nr = (int)min((long long)kRows, d.N - r0);
@@ -252,7 +351,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c = 0; c < 2; ++c) {
     float* region = scratch + d.region[c];
-    const int n_out = c == 0 ? d.n_logits : 1;
+    const int n_out = d.n_out[c];
     // Forward; every layer's output also goes to the scratch, where the
     // weight products and this block's backward read it.
     const float* cur = xs;
@@ -268,8 +367,11 @@ __global__ void __launch_bounds__(kThreads)
       cur = dst;
       cur_w = w;
     }
-    const float* Wh = params + d.woff[c][d.n_layers];
-    narrow_head<kRows>(cur, cur_w, Wh, Wh + (size_t)cur_w * n_out, n_out, head, n_out, 0);
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int w = d.head_w[c];
+      const float* Wh = params + d.woff[c][d.n_layers + j];
+      narrow_head<kRows>(cur, cur_w, Wh, Wh + (size_t)cur_w * w, w, head, n_out, j * w);
+    }
     __syncthreads();
     // Losses and head cotangents, a thread per row; rows past N get zeros.
     if (threadIdx.x < kRows) {
@@ -279,7 +381,11 @@ __global__ void __launch_bounds__(kThreads)
       if (r < nr) {
         const int* row = packed + (r0 + r) * d.D;
         if (c == 0) {
-          policy_row(row, z, v, d, ec_scale);
+          if constexpr (kContinuous) {
+            continuous_row(row, z, v, d, ec_scale);
+          } else {
+            policy_row(row, z, v, d, ec_scale);
+          }
         } else {
           value_row(row, z, v, d);
         }
@@ -295,15 +401,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     float* dout = region + (size_t)d.N * 2 * d.sum_hidden + (size_t)r0 * n_out;
     for (int i = threadIdx.x; i < nr * n_out; i += blockDim.x) dout[i] = head[i];
-    // dh_L = dout @ Wh^T: the head is narrow, so a loop over its outputs.
+    // dh_L = dout @ Wh^T over the chain's heads: they are narrow, so a loop
+    // over their outputs.
     float* dh = ga;
     for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
       float acc[kRows];
-      const float w0 = __ldg(Wh + (size_t)k * n_out);
+      const float w0 = head_weight(params, d, c, 0, k);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = head[r * n_out] * w0;
       for (int o = 1; o < n_out; ++o) {
-        const float w = __ldg(Wh + (size_t)k * n_out + o);
+        const float w = head_weight(params, d, c, o, k);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) acc[r] = fmaf(head[r * n_out + o], w, acc[r]);
       }
@@ -553,24 +660,26 @@ int grid_for(long long work) {
 }  // namespace
 
 // Floats of workspace that rl8_ppo_grads needs for these shapes, or -1.
-extern "C" long long rl8_ppo_workspace(int N, int d_in, int n_layers, const int* hidden,
-                                       int n_logits) {
+extern "C" long long rl8_ppo_workspace(int N, int d_in, int n_layers, const int* hidden, int kind,
+                                       int act_dim, int n_cat) {
   Layout L;
-  if (!make_layout(N, d_in, n_layers, hidden, n_logits, &L)) return -1;
+  if (!make_layout(N, d_in, n_layers, hidden, kind, act_dim, n_cat, &L)) return -1;
   return L.wt_floats + L.row_floats + L.part_floats + L.stat_floats;
 }
 
-// cols: obs, actions, logp, advantages, returns (first column of each).
-// grads [P] and stats [4] (policy, vf, entropy, kl sums) are outputs.
+// cols: obs, actions, logp, advantages, returns (first column of each);
+// the action columns are int32 for the categorical kind and f32 bit
+// patterns for the continuous ones. grads [P] and stats [4] (policy, vf,
+// entropy, kl sums) are outputs.
 extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, const float* ec,
                              const float* params, float* grads, float* stats, float* workspace,
-                             int d_in, int n_layers, const int* hidden, int n_logits, int n_cat,
-                             int act, float clip_lo, float clip_hi, float dual, float vf_clip,
-                             float vf_scale, float scale, int use_entropy, int device,
-                             void* stream) {
+                             int d_in, int n_layers, const int* hidden, int kind, int act_dim,
+                             int n_cat, int act, float clip_lo, float clip_hi, float dual,
+                             float vf_clip, float vf_scale, float scale, int use_entropy,
+                             int device, void* stream) {
   Layout L;
-  if (!make_layout(N, d_in, n_layers, hidden, n_logits, &L) || n_cat < 2 ||
-      n_logits % n_cat != 0 || (act != kRelu && act != kTanh)) {
+  if (!make_layout(N, d_in, n_layers, hidden, kind, act_dim, n_cat, &L) ||
+      (act != kRelu && act != kTanh) || (kind == kSquashed && use_entropy)) {
     return (int)cudaErrorInvalidValue;
   }
   Dims& d = L.d;
@@ -580,12 +689,11 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
   d.logp_col = cols[2];
   d.adv_col = cols[3];
   d.ret_col = cols[4];
-  if (d.obs_col < 0 || d.obs_col + d_in > D || d.act_col < 0 || d.act_col + n_logits / n_cat > D ||
+  if (d.obs_col < 0 || d.obs_col + d_in > D || d.act_col < 0 || d.act_col + act_dim > D ||
       d.logp_col < 0 || d.logp_col >= D || d.adv_col < 0 || d.adv_col >= D || d.ret_col < 0 ||
       d.ret_col >= D) {
     return (int)cudaErrorInvalidValue;
   }
-  d.n_cat = n_cat;
   d.act = act;
   d.clip_lo = clip_lo;
   d.clip_hi = clip_hi;
@@ -613,12 +721,12 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
   }
 
   const size_t smem = sizeof(float) * (size_t)kRows *
-                      (d_in + 2 * d.max_hidden + n_logits + 4);
-  err = cudaFuncSetAttribute(ppo_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                      (d_in + 2 * d.max_hidden + d.n_out[0] + 4);
+  const auto rows_kernel =
+      kind == kCategorical ? ppo_rows_kernel<false> : ppo_rows_kernel<true>;
+  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ppo_rows_kernel<<<L.row_blocks, kThreads, smem, s>>>(packed, ec, params, wt, rows, stat_part,
-                                                        d);
+  rows_kernel<<<L.row_blocks, kThreads, smem, s>>>(packed, ec, params, wt, rows, stat_part, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   Jobs tiled, narrow;
@@ -629,24 +737,27 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
   int tiles = 0;
   for (int c = 0; c < 2; ++c) {
     const float* region = rows + d.region[c];
-    for (int l = 0; l <= n_layers; ++l) {
+    // Jobs l < n_layers are the layers, then one per head.
+    for (int l = 0; l < n_layers + d.n_heads[c]; ++l) {
       Job jb;
-      const bool is_head = l == n_layers;
-      jb.K = l == 0 ? d_in : d.hidden[l - 1];
-      jb.J = is_head ? (c == 0 ? n_logits : 1) : d.hidden[l];
-      if (l == 0) {
+      const bool is_head = l >= n_layers;
+      const int in_l = is_head ? n_layers : l;  // the layer whose input this job reads
+      jb.K = in_l == 0 ? d_in : d.hidden[in_l - 1];
+      jb.J = is_head ? d.head_w[c] : d.hidden[l];
+      if (in_l == 0) {
         jb.a = reinterpret_cast<const float*>(packed) + d.obs_col;
         jb.lda = D;
       } else {
-        jb.a = region + (size_t)N * d.prefix[l - 1];
-        jb.lda = d.hidden[l - 1];
+        jb.a = region + (size_t)N * d.prefix[in_l - 1];
+        jb.lda = d.hidden[in_l - 1];
       }
       if (is_head) {
-        jb.b = region + (size_t)N * 2 * d.sum_hidden;
+        jb.b = region + (size_t)N * 2 * d.sum_hidden + (size_t)(l - n_layers) * d.head_w[c];
+        jb.ldb = d.n_out[c];
       } else {
         jb.b = region + (size_t)N * (d.sum_hidden + d.prefix[l]);
+        jb.ldb = jb.J;
       }
-      jb.ldb = jb.J;
       jb.off = d.woff[c][l];
       if ((long long)(jb.K + 1) * jb.J <= (long long)kThreads * kNarrowPer) {
         jb.tiles_j = jb.tile0 = 0;

@@ -2,6 +2,7 @@
 
 from ._base import GenericModelBase
 from ._feedforward import (
+    DefaultContinuousModel,
     DefaultDiscreteModel,
     GenericModel,
     Model,
@@ -12,6 +13,7 @@ from ._feedforward import (
 from .convert import load_jax_params, to_jax_params
 
 __all__ = [
+    "DefaultContinuousModel",
     "DefaultDiscreteModel",
     "GenericModel",
     "GenericModelBase",

@@ -24,6 +24,7 @@ __all__ = [
     "Model",
     "ModelFactory",
     "GenericModel",
+    "DefaultContinuousModel",
     "DefaultDiscreteModel",
     "lecun_normal_",
     "small_uniform_",
@@ -90,10 +91,9 @@ class Model(GenericModelBase):
         assert_1d_spec(action_spec)
         if isinstance(action_spec, Discrete):
             return DefaultDiscreteModel
-        raise TypeError(
-            f"Action spec {action_spec} has no default model support in this"
-            " port yet (the continuous model comes later)."
-        )
+        if isinstance(action_spec, Unbounded):
+            return DefaultContinuousModel
+        raise TypeError(f"Action spec {action_spec} has no default model support.")
 
     def _drop_sizes(self) -> dict[str, int]:
         drop_sizes = {key: vr.drop_size for key, vr in self.view_requirements.items()}
@@ -134,6 +134,75 @@ class ModelFactory(Protocol):
 class GenericModel(Model):
     """Generic model for constructing models from fixed observation and
     action specs."""
+
+
+class DefaultContinuousModel(GenericModel):
+    """Default model for 1D continuous observations and action spaces:
+    twin MLP torsos, small-init mean and log-std heads with the log-std
+    bounded by ``tanh``, and a value head.
+
+    Examples:
+        >>> import torch
+        >>> from rl8_tpu_torch.models import DefaultContinuousModel
+        >>> from rl8_tpu_torch.specs import Unbounded
+        >>> model = DefaultContinuousModel(Unbounded(3), Unbounded(2), hiddens=(8,))
+        >>> features, values = model({"obs": torch.zeros(5, 3)})
+        >>> tuple(features["mean"].shape), tuple(features["log_std"].shape), tuple(values.shape)
+        ((5, 2), (5, 2), (5, 1))
+
+    """
+
+    def __init__(
+        self,
+        observation_spec: Spec,
+        action_spec: Spec,
+        /,
+        *,
+        hiddens: Sequence[int] = (256, 256),
+        activation_fn: str = "relu",
+        bias: bool = True,
+    ) -> None:
+        super().__init__(observation_spec, action_spec)
+        if not isinstance(action_spec, Unbounded):
+            raise TypeError(f"{type(self).__name__} needs an Unbounded action spec.")
+        self.hiddens = tuple(hiddens)
+        self.activation_fn = activation_fn
+        self.bias = bias
+        d_in = observation_spec.shape[0]
+        action_dim = action_spec.shape[0]
+        self.latent_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.action_mean = nn.Linear(self.hiddens[-1], action_dim)
+        self.action_log_std = nn.Linear(self.hiddens[-1], action_dim)
+        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.vf_head = nn.Linear(self.hiddens[-1], 1)
+        self._act = get_activation(activation_fn)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for torso in (self.latent_model, self.vf_model):
+                for layer in torso.layers:
+                    lecun_normal_(layer.weight, generator)
+                    if layer.bias is not None:
+                        layer.bias.zero_()
+            for head, head_init in (
+                (self.action_mean, small_uniform_),
+                (self.action_log_std, small_uniform_),
+                (self.vf_head, lecun_normal_),
+            ):
+                head_init(head.weight, generator)
+                head.bias.zero_()
+
+    def forward(self, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        obs = batch[DataKeys.OBS]
+        if obs.dtype != torch.float32:
+            obs = obs.to(torch.float32)
+        latents = self._act(self.latent_model(obs))
+        features = {
+            "mean": self.action_mean(latents),
+            "log_std": torch.tanh(self.action_log_std(latents)),
+        }
+        values = self.vf_head(self._act(self.vf_model(obs)))
+        return features, values
 
 
 class DefaultDiscreteModel(GenericModel):

@@ -17,11 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ._feedforward import DefaultDiscreteModel
+from ..ops.fused_mlp import chain_names
+from ._feedforward import GenericModel
 
 __all__ = ["load_jax_params", "to_jax_params"]
-
-_CHAINS = (("feature_model", "feature_head"), ("vf_model", "vf_head"))
 
 
 def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
@@ -36,14 +35,15 @@ def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
         layer.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
 
 
-def load_jax_params(model: DefaultDiscreteModel, params: Mapping[str, Any], /) -> DefaultDiscreteModel:
-    """Load a flax param tree (``feature_model/Dense_i``,
-    ``feature_head``, ``vf_model/Dense_i``, ``vf_head``) into ``model``
-    in place and return it."""
-    if not isinstance(model, DefaultDiscreteModel):
-        raise TypeError(f"No flax layout is known for {type(model).__name__}.")
+def load_jax_params(model: GenericModel, params: Mapping[str, Any], /) -> GenericModel:
+    """Load a flax param tree into ``model`` in place and return it: for
+    the discrete model ``feature_model/Dense_i``, ``feature_head``,
+    ``vf_model/Dense_i``, ``vf_head``; for the continuous one
+    ``latent_model/Dense_i``, ``action_mean``, ``action_log_std``,
+    ``vf_model/Dense_i``, ``vf_head``."""
+    layout = chain_names(model)  # the flax tree's top-level keys, per chain
     with torch.no_grad():
-        for torso_name, head_name in _CHAINS:
+        for torso_name, head_names in layout:
             torso = getattr(model, torso_name)
             dense = params[torso_name]
             if len(dense) != len(torso.layers):
@@ -53,7 +53,8 @@ def load_jax_params(model: DefaultDiscreteModel, params: Mapping[str, Any], /) -
                 )
             for i, layer in enumerate(torso.layers):
                 _copy_dense(layer, dense[f"Dense_{i}"])
-            _copy_dense(getattr(model, head_name), params[head_name])
+            for head_name in head_names:
+                _copy_dense(getattr(model, head_name), params[head_name])
     return model
 
 
@@ -64,9 +65,9 @@ def _dense(layer: nn.Linear) -> dict[str, np.ndarray]:
     }
 
 
-def to_jax_params(model: DefaultDiscreteModel, /) -> dict[str, Any]:
+def to_jax_params(model: GenericModel, /) -> dict[str, Any]:
     """The inverse of :func:`load_jax_params`: ``model``'s parameters as
-    the flax tree of ``rl8_tpu.models.DefaultDiscreteModel``, nested dicts
+    the flax tree of the ``rl8_tpu`` model of the same name, nested dicts
     of f32 numpy arrays (host copies).
 
     Examples:
@@ -77,11 +78,10 @@ def to_jax_params(model: DefaultDiscreteModel, /) -> dict[str, Any]:
         (['feature_head', 'feature_model', 'vf_head', 'vf_model'], (3, 8))
 
     """
-    if not isinstance(model, DefaultDiscreteModel):
-        raise TypeError(f"No flax layout is known for {type(model).__name__}.")
     tree: dict[str, Any] = {}
-    for torso_name, head_name in _CHAINS:
+    for torso_name, head_names in chain_names(model):
         torso = getattr(model, torso_name)
         tree[torso_name] = {f"Dense_{i}": _dense(layer) for i, layer in enumerate(torso.layers)}
-        tree[head_name] = _dense(getattr(model, head_name))
+        for head_name in head_names:
+            tree[head_name] = _dense(getattr(model, head_name))
     return tree

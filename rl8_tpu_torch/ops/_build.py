@@ -105,14 +105,24 @@ def load() -> ctypes.CDLL:
             i32, ptr,  # device, stream
         ]
         lib.rl8_discrete_act.restype = i32
+        lib.rl8_continuous_act.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # obs, params, actions, logp, values
+            i32, i32, i32, ptr,  # B, d_in, n_layers, hidden (host int array)
+            i32, i32, i32,  # action_dim, act, squashed
+            u32, u32, i32,  # seed, offset, deterministic
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_continuous_act.restype = i32
         lib.rl8_gae.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
         lib.rl8_gae.restype = i32
-        lib.rl8_ppo_workspace.argtypes = [i32, i32, i32, ptr, i32]  # N, d_in, n_layers, hidden, n_logits
+        # N, d_in, n_layers, hidden, kind, action_dim, n_cat
+        lib.rl8_ppo_workspace.argtypes = [i32, i32, i32, ptr, i32, i32, i32]
         lib.rl8_ppo_workspace.restype = ctypes.c_longlong
         lib.rl8_ppo_grads.argtypes = [
             ptr, i32, i32, ptr,  # packed, N, D, column starts (host int[5])
             ptr, ptr, ptr, ptr, ptr,  # entropy coeff, params, grads, stats, workspace
-            i32, i32, ptr, i32, i32, i32,  # d_in, n_layers, hidden (host int array), n_logits, n_cat, act
+            i32, i32, ptr,  # d_in, n_layers, hidden (host int array)
+            i32, i32, i32, i32,  # kind, action_dim, n_cat, act
             f32, f32, f32, f32, f32, f32, i32,  # clip lo/hi, dual, vf clip, vf scale, scale, use_entropy
             i32, ptr,  # device, stream
         ]

@@ -1,16 +1,21 @@
-"""Distribution math shared by the act kernel and its plain version.
+"""Distribution math shared by the kernels and their plain versions.
 
-PyTorch counterpart of the discrete part of ``rl8_tpu/ops/distmath.py``.
-These are the plain versions of what ``csrc/act.cu`` computes in-kernel,
-written with the same formulas so the two agree to f32 rounding:
+PyTorch counterpart of ``rl8_tpu/ops/distmath.py``. These are the plain
+versions of what ``csrc/act.cu`` and ``csrc/ppo.cu`` compute in-kernel,
+written with the same formulas so the two agree to f32 rounding (the PPO
+ratio divides the update's log-prob by the one stored at act time):
 
 - :func:`log_softmax_rows` is ``z - (max + log(sum(exp(z - max))))``,
-  the one log-prob formula. The update (a later slice) divides by the
-  log-probs stored here, and ``Categorical.logp`` uses it too.
-- :func:`philox_uniform` is the counter-based Philox4x32-10 generator
-  the kernel runs, keyed by a per-step ``(seed, offset)`` and counted by
-  ``(row, group, category)``, so the draws do not depend on how the
-  kernel cuts rows into blocks and the plain version can replay them.
+  the one categorical log-prob formula; ``Categorical.logp`` uses it too.
+- :func:`normal_per_dim_logp` and :func:`squashed_normal_logp` are the
+  one diagonal-normal and tanh-squashed formulas; ``Normal.logp`` and
+  ``SquashedNormal.logp`` use them too.
+- :func:`philox_uniform` and :func:`philox_normal` are the counter-based
+  Philox4x32-10 generator the act kernel runs, keyed by a per-step
+  ``(seed, offset)``. A categorical draw is word 0 at counter ``(row,
+  group, category, 0)``; a normal draw is Box-Muller on words 0 and 1 at
+  counter ``(row, dim, 0, 1)``. Neither depends on how the kernel cuts
+  rows into blocks, so the plain version replays a launch draw for draw.
 """
 
 from __future__ import annotations
@@ -18,12 +23,24 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "LOG_2PI",
+    "SQUASH_EPS",
+    "TWO_PI",
     "log_softmax_rows",
+    "normal_per_dim_logp",
     "philox4x32",
+    "philox_normal",
     "philox_uniform",
     "sample_categorical_group",
+    "sample_continuous_actions",
     "sample_discrete_actions",
+    "squashed_normal_logp",
 ]
+
+LOG_2PI = 1.8378770664093453
+#: float32 machine epsilon: the atanh clamp margin of ``SquashedNormal``.
+SQUASH_EPS = 1.1920929e-07
+TWO_PI = 6.283185307179586
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -75,8 +92,30 @@ def philox_uniform(
     shape = (rows, groups, n)
     ctr = (r.expand(shape), g.expand(shape), c.expand(shape), torch.zeros(shape, dtype=torch.int64, device=device))
     bits = philox4x32(ctr, (seed, offset))[0]
-    u = (bits >> 9).to(torch.float32) * (2.0**-23)
-    return u.clamp_min(1e-7).reshape(rows, groups * n)
+    return _to_uniform(bits).reshape(rows, groups * n)
+
+
+def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """A 32-bit word's top 23 bits scaled by ``2^-23``, clamped to
+    ``>= 1e-7`` so that logs of it are finite."""
+    return ((bits >> 9).to(torch.float32) * (2.0**-23)).clamp_min(1e-7)
+
+
+def philox_normal(
+    seed: int, offset: int, rows: int, dim: int, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """The continuous act kernel's standard-normal noise ``[rows, dim]``:
+    Box-Muller ``sqrt(-2 log u1) cos(2 pi u2)`` on the uniforms of words
+    0 and 1 of Philox at counter ``(row, dim, 0, 1)`` and key ``(seed,
+    offset)`` (the last counter word keeps these draws apart from
+    :func:`philox_uniform`'s)."""
+    r = torch.arange(rows, dtype=torch.int64, device=device).view(-1, 1)
+    d = torch.arange(dim, dtype=torch.int64, device=device).view(1, -1)
+    shape = (rows, dim)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    w0, w1, _, _ = philox4x32((r.expand(shape), d.expand(shape), zero, zero + 1), (seed, offset))
+    u1, u2 = _to_uniform(w0), _to_uniform(w1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
 
 
 def log_softmax_rows(z: torch.Tensor) -> torch.Tensor:
@@ -119,3 +158,62 @@ def sample_discrete_actions(
         actions.append(act)
         total = chosen if total is None else total + chosen
     return torch.cat(actions, dim=1), total
+
+
+def normal_per_dim_logp(diff: torch.Tensor, log_std: torch.Tensor, inv_var: torch.Tensor) -> torch.Tensor:
+    """Per-dimension diagonal-normal log-prob, where ``diff = x - mean``
+    and ``inv_var = exp(-2 log_std)``."""
+    return -0.5 * diff * diff * inv_var - log_std - 0.5 * LOG_2PI
+
+
+def squashed_normal_logp(
+    actions: torch.Tensor, mean: torch.Tensor, log_std: torch.Tensor, inv_var: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``SquashedNormal`` log-prob of tanh-squashed ``actions``: invert
+    through an atanh of the actions clipped to ``1 - eps``, clamp each
+    dim's base log-prob to ±100, subtract the tanh log-det term.
+
+    Returns:
+        ``(logp [N, 1], diff, grad_gate)``: ``diff = atanh(a) - mean``, and
+        ``grad_gate`` is 1 where the ±100 clamp passes gradients (strictly
+        inside it) and 0 where the clamp cuts them.
+
+    """
+    clipped = torch.clamp(actions, -1.0 + SQUASH_EPS, 1.0 - SQUASH_EPS)
+    u = 0.5 * (torch.log1p(clipped) - torch.log1p(-clipped))
+    diff = u - mean
+    per_dim = normal_per_dim_logp(diff, log_std, inv_var)
+    grad_gate = ((per_dim > -100.0) & (per_dim < 100.0)).to(torch.float32)
+    logp = torch.clamp(per_dim, -100.0, 100.0).sum(dim=1, keepdim=True) - torch.log(
+        1.0 - clipped * clipped + SQUASH_EPS
+    ).sum(dim=1, keepdim=True)
+    return logp, diff, grad_gate
+
+
+def sample_continuous_actions(
+    mean: torch.Tensor,
+    pre_log_std: torch.Tensor,
+    deterministic: bool,
+    squashed: bool,
+    noise: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample diagonal-normal (optionally tanh-squashed) actions from the
+    raw heads ``[N, A]`` with standard-normal ``noise [N, A]``; returns
+    ``(actions [N, A], logp [N, 1])``. The log-std is ``tanh`` of its head
+    (the default continuous model's bound); when squashed, the log-prob
+    is that of the squashed action, as ``SquashedNormal.logp`` gives it."""
+    log_std = torch.tanh(pre_log_std)
+    std = torch.exp(log_std)
+    inv_var = torch.exp(-2.0 * log_std)
+    if deterministic:
+        actions = mean
+    else:
+        if noise is None:
+            raise ValueError("Stochastic sampling needs standard-normal `noise`.")
+        actions = mean + std * noise
+    if squashed:
+        actions = torch.tanh(actions)
+        logp, _, _ = squashed_normal_logp(actions, mean, log_std, inv_var)
+    else:
+        logp = normal_per_dim_logp(actions - mean, log_std, inv_var).sum(dim=1, keepdim=True)
+    return actions, logp

@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``rl8_tpu/ops/fused_mlp.py``'s
 ``_default_chains``, ``_flatten_params``, ``_forward_block`` and
-``_chains_backward`` (without LayerNorm, which the default model does
-not have): the ONE definition of which submodules of the default model
+``_chains_backward`` (without LayerNorm, which the default models do
+not have): the ONE definition of which submodules of each default model
 the act and update kernels read and in what order. A chain is
 ``(layers, heads)``, each layer and head a ``(W [in, out], b [out])``
 pair; every layer is followed by the activation (the MLP's inner
@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "ACT_FNS",
+    "chain_names",
     "chains_backward_plain",
     "default_chains",
     "flatten_chains",
@@ -37,11 +38,27 @@ _ACT_GRAD_FROM_OUT = {
 
 Chain = tuple[tuple[tuple[torch.Tensor, torch.Tensor], ...], tuple[tuple[torch.Tensor, torch.Tensor], ...]]
 
-#: Per-model (torso, heads) layout of ``DefaultDiscreteModel``.
+#: Per-model (torso, heads) layouts, which are also the flax trees'
+#: names (``models/convert.py``). Chain 0 is the policy, chain 1 the value.
 _DISCRETE_CHAIN_NAMES = (
     ("feature_model", ("feature_head",)),
     ("vf_model", ("vf_head",)),
 )
+_CONTINUOUS_CHAIN_NAMES = (
+    ("latent_model", ("action_mean", "action_log_std")),
+    ("vf_model", ("vf_head",)),
+)
+
+
+def chain_names(model: Any) -> tuple[tuple[str, tuple[str, ...]], ...]:
+    """``(torso, heads)`` submodule names of a default model, per chain."""
+    from ..models import DefaultContinuousModel, DefaultDiscreteModel
+
+    if isinstance(model, DefaultDiscreteModel):
+        return _DISCRETE_CHAIN_NAMES
+    if isinstance(model, DefaultContinuousModel):
+        return _CONTINUOUS_CHAIN_NAMES
+    raise TypeError(f"No chain layout is known for {type(model).__name__}.")
 
 
 def _pair(linear: Any) -> tuple[torch.Tensor, torch.Tensor]:
@@ -54,25 +71,25 @@ def _linears(model: Any) -> list[tuple[Any, ...]]:
     """Per chain, the ``nn.Linear`` modules in kernel order."""
     return [
         (*getattr(model, torso).layers, *(getattr(model, head) for head in heads))
-        for torso, heads in _DISCRETE_CHAIN_NAMES
+        for torso, heads in chain_names(model)
     ]
 
 
 def default_chains(model: Any) -> tuple[Chain, ...]:
-    """``(layers, heads)`` chains of a ``DefaultDiscreteModel``, with
-    weights as ``[in, out]`` views of the ``nn.Linear`` weights."""
+    """``(layers, heads)`` chains of a default model, with weights as
+    ``[in, out]`` views of the ``nn.Linear`` weights."""
     return tuple(
         (
             tuple(_pair(layer) for layer in getattr(model, torso).layers),
             tuple(_pair(getattr(model, head)) for head in heads),
         )
-        for torso, heads in _DISCRETE_CHAIN_NAMES
+        for torso, heads in chain_names(model)
     )
 
 
 def load_flat_params(model: Any, flat: torch.Tensor) -> None:
     """Write a flat vector in :func:`flatten_chains` order back into a
-    ``DefaultDiscreteModel``'s ``nn.Linear`` weights and biases, in
+    default model's ``nn.Linear`` weights and biases, in
     place: the inverse of ``flatten_chains(default_chains(model))``."""
     off = 0
     with torch.no_grad():

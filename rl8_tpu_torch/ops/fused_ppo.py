@@ -1,15 +1,18 @@
 """PPO update kernel: the losses and every parameter gradient of one
 packed minibatch in one call.
 
-PyTorch/CUDA counterpart of ``rl8_tpu/ops/fused_ppo.py`` for the default
-discrete model with ``Categorical`` (``_discrete_kernel``); the kernel is
-``csrc/ppo.cu``. The continuous variant comes with the continuous slice.
+PyTorch/CUDA counterpart of ``rl8_tpu/ops/fused_ppo.py``: the default
+discrete model with ``Categorical`` (``_discrete_kernel``) and the default
+continuous model with ``Normal`` or, without an entropy bonus,
+``SquashedNormal`` (``_continuous_kernel``). Both are ``csrc/ppo.cu``,
+one row pass per distribution over shared weight products.
 
 :func:`fused_ppo_grads` launches the kernel for CUDA tensors and raises
 if it cannot; for CPU tensors it runs :func:`ppo_grads_plain`, the
-kernel's arithmetic in plain PyTorch (forward, per-group log-softmax,
-:func:`_policy_grad_terms`, :func:`_vf_grad_terms`, the head cotangents
-and :func:`~rl8_tpu_torch.ops.fused_mlp.chains_backward_plain`), which is
+kernel's arithmetic in plain PyTorch (forward, the distribution's
+log-prob and entropy, :func:`_policy_grad_terms`, :func:`_vf_grad_terms`,
+the head cotangents and
+:func:`~rl8_tpu_torch.ops.fused_mlp.chains_backward_plain`), which is
 also what the kernel is held against.
 """
 
@@ -23,8 +26,8 @@ import torch
 
 from ..data import DataKeys
 from ._build import check, load
-from .distmath import log_softmax_rows
-from .fused_act import ActParams
+from .distmath import LOG_2PI, log_softmax_rows, normal_per_dim_logp, squashed_normal_logp
+from .fused_act import KINDS, ActParams
 from .fused_mlp import ACT_FNS, chains_backward_plain, flatten_chains, forward_chains
 from .packing import RowUnpacker
 
@@ -53,6 +56,10 @@ class PPOLossConfig:
     #: Gradient-accumulation divisor of the total loss.
     accum: int
     use_entropy: bool
+    #: Squash continuous actions through tanh (``SquashedNormal``): the
+    #: log-probs invert through the clamped atanh with the ±100 clamp.
+    #: Needs ``use_entropy=False``.
+    squashed: bool = False
 
 
 @dataclass(frozen=True)
@@ -82,20 +89,22 @@ class PackedColumns:
         )
 
 
-def supports_fused_update(model: Any, distribution_cls: Any) -> bool:
-    """Whether the update kernel can evaluate this model/distribution
-    pair: the default discrete model (relu or tanh, biased layers, at
-    most 8 of them) with ``Categorical``."""
-    from ..distributions import Categorical
-    from ..models import DefaultDiscreteModel
+def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
+    """Whether the kernels can evaluate this model/distribution pair: a
+    default model (relu or tanh, biased layers, at most 8 of them), the
+    discrete one with ``Categorical``, the continuous one with ``Normal``
+    or, only when the entropy bonus is statically zero (it has no
+    entropy), with ``SquashedNormal``."""
+    from ..distributions import Categorical, Normal, SquashedNormal
+    from ..models import DefaultContinuousModel, DefaultDiscreteModel
 
-    return (
-        type(model) is DefaultDiscreteModel
-        and distribution_cls is Categorical
-        and model.activation_fn in ACT_FNS
-        and bool(model.bias)
-        and len(model.hiddens) <= _MAX_LAYERS
-    )
+    if type(model) is DefaultDiscreteModel:
+        pair_ok = distribution_cls is Categorical
+    elif type(model) is DefaultContinuousModel:
+        pair_ok = distribution_cls is Normal or (distribution_cls is SquashedNormal and zero_entropy)
+    else:
+        return False
+    return pair_ok and model.activation_fn in ACT_FNS and bool(model.bias) and len(model.hiddens) <= _MAX_LAYERS
 
 
 def _policy_grad_terms(
@@ -179,6 +188,15 @@ def _check(
         )
     if cols.obs[1] - cols.obs[0] != params.d_in:
         raise ValueError(f"The packed obs has {cols.obs[1] - cols.obs[0]} columns, the model {params.d_in}.")
+    if params.kind not in KINDS:
+        raise ValueError(f"Unknown distribution kind {params.kind!r}; expected one of {KINDS}.")
+    if cfg.squashed != (params.kind == "squashed"):
+        raise ValueError(f"cfg.squashed is {cfg.squashed} but the params' kind is {params.kind!r}.")
+    if cfg.squashed and cfg.use_entropy:
+        raise ValueError(
+            "SquashedNormal has no defined entropy; the update kernel requires a statically-zero"
+            " entropy coefficient."
+        )
     if cols.actions[1] - cols.actions[0] != params.action_dim:
         raise ValueError(
             f"The packed actions have {cols.actions[1] - cols.actions[0]} columns, the model"
@@ -214,21 +232,38 @@ def ppo_grads_plain(
         return packed[:, lo:hi].contiguous().view(torch.float32)
 
     x = as_f32(*cols.obs)
-    actions = packed[:, cols.actions[0] : cols.actions[1]]
     old_logp = as_f32(cols.logp, cols.logp + 1)
     adv = as_f32(cols.advantages, cols.advantages + 1)
     ret = as_f32(cols.returns, cols.returns + 1)
 
     chains = params.chains()
-    ((logits,), (values,)), hs = forward_chains(x, chains, params.activation)
-    n = params.n
+    (policy_heads, (values,)), hs = forward_chains(x, chains, params.activation)
     scale = 1.0 / (cfg.n_rows * cfg.accum)
+    if params.continuous:
+        new_logp, ent_rows, dpolicy = _continuous_terms(as_f32(*cols.actions), *policy_heads, cfg)
+    else:
+        new_logp, ent_rows, dpolicy = _categorical_terms(
+            packed[:, cols.actions[0] : cols.actions[1]], policy_heads[0], params.n, cfg
+        )
+    pol_elem, u_pol, kl_elem = _policy_grad_terms(new_logp, old_logp, adv, cfg, scale)
+    vf_elem, dv = _vf_grad_terms(values, ret, cfg, scale)
+    dheads = dpolicy(u_pol, entropy_coeff * scale)
+    grads = flatten_chains(chains_backward_plain(chains, params.activation, hs, [dheads, [dv]]))
+    ent_total = ent_rows.sum() if ent_rows is not None else torch.zeros((), device=packed.device)
+    stats = torch.stack([pol_elem.sum(), vf_elem.sum(), ent_total, kl_elem.sum()])
+    losses, kl = _losses(stats, entropy_coeff, cfg)
+    return losses, kl, grads
 
+
+def _categorical_terms(actions: torch.Tensor, logits: torch.Tensor, n: int, cfg: PPOLossConfig):
+    """``Categorical``'s per-row ``new_logp``, entropy (or ``None``) and a
+    function from ``(u_pol, ec * scale)`` to the logits head's cotangent
+    (``_discrete_kernel``'s formulas)."""
     new_logp = None
     ent_rows = None
     groups = []
-    cats = torch.arange(n, device=packed.device)
-    for a in range(params.action_dim):
+    cats = torch.arange(n, device=logits.device)
+    for a in range(actions.shape[1]):
         logp_all = log_softmax_rows(logits[:, a * n : (a + 1) * n])
         p = torch.exp(logp_all)
         onehot = cats == actions[:, a : a + 1]
@@ -240,21 +275,50 @@ def ppo_grads_plain(
             ent_rows = h_a if ent_rows is None else ent_rows + h_a
         groups.append((p, logp_all, onehot, h_a))
 
-    pol_elem, u_pol, kl_elem = _policy_grad_terms(new_logp, old_logp, adv, cfg, scale)
-    vf_elem, dv = _vf_grad_terms(values, ret, cfg, scale)
-    dz = []
-    for p, logp_all, onehot, h_a in groups:
-        dz_a = u_pol * (onehot.to(torch.float32) - p)
+    def dheads(u_pol: torch.Tensor, ec_scale: torch.Tensor) -> list[torch.Tensor]:
+        dz = []
+        for p, logp_all, onehot, h_a in groups:
+            dz_a = u_pol * (onehot.to(torch.float32) - p)
+            if cfg.use_entropy:
+                # The total has ``- ec * mean(H)``; dH/dz = -p (logp + H).
+                dz_a = dz_a + ec_scale * p * (logp_all + h_a)
+            dz.append(dz_a)
+        return [torch.cat(dz, dim=1)]
+
+    return new_logp, ent_rows, dheads
+
+
+def _continuous_terms(
+    actions: torch.Tensor, mean: torch.Tensor, pre_log_std: torch.Tensor, cfg: PPOLossConfig
+):
+    """``Normal``'s (or, with ``cfg.squashed``, ``SquashedNormal``'s)
+    per-row ``new_logp``, entropy (or ``None``) and a function from
+    ``(u_pol, ec * scale)`` to the mean and pre-tanh log-std heads'
+    cotangents (``_continuous_kernel``'s formulas). With the squash, the
+    ±100 clamp also zeroes both cotangents where it cuts."""
+    log_std = torch.tanh(pre_log_std)
+    inv_var = torch.exp(-2.0 * log_std)
+    if cfg.squashed:
+        new_logp, diff, gate = squashed_normal_logp(actions, mean, log_std, inv_var)
+    else:
+        diff = actions - mean
+        gate = None
+        new_logp = normal_per_dim_logp(diff, log_std, inv_var).sum(dim=1, keepdim=True)
+    ent_rows = (0.5 * (1.0 + LOG_2PI) + log_std).sum(dim=1, keepdim=True) if cfg.use_entropy else None
+
+    def dheads(u_pol: torch.Tensor, ec_scale: torch.Tensor) -> list[torch.Tensor]:
+        # d new_logp / d mean = diff inv_var; / d log_std = diff^2 inv_var - 1.
+        dmean = u_pol * (diff * inv_var)
+        dlog_std = u_pol * (diff * diff * inv_var - 1.0)
+        if gate is not None:
+            dmean = dmean * gate
+            dlog_std = dlog_std * gate
         if cfg.use_entropy:
-            # The total has ``- ec * mean(H)``; dH/dz = -p (logp + H).
-            dz_a = dz_a + (entropy_coeff * scale) * p * (logp_all + h_a)
-        dz.append(dz_a)
-    dlogits = torch.cat(dz, dim=1)
-    grads = flatten_chains(chains_backward_plain(chains, params.activation, hs, [[dlogits], [dv]]))
-    ent_total = ent_rows.sum() if ent_rows is not None else torch.zeros((), device=packed.device)
-    stats = torch.stack([pol_elem.sum(), vf_elem.sum(), ent_total, kl_elem.sum()])
-    losses, kl = _losses(stats, entropy_coeff, cfg)
-    return losses, kl, grads
+            # H = sum(0.5 (1 + log 2 pi) + log_std); the total has -ec mean(H).
+            dlog_std = dlog_std - ec_scale
+        return [dmean, dlog_std * (1.0 - log_std * log_std)]
+
+    return new_logp, ent_rows, dheads
 
 
 def fused_ppo_grads(
@@ -269,15 +333,16 @@ def fused_ppo_grads(
     ["total"] / accum`` through the model (to f32 rounding).
 
     CUDA tensors launch ``csrc/ppo.cu`` (and count one launch in
-    ``fused_ppo_grads.launches``) or raise; CPU tensors run
-    :func:`ppo_grads_plain`.
+    ``fused_ppo_grads.launches`` for the categorical kind, in
+    ``fused_ppo_grads.continuous_launches`` for the others) or raise; CPU
+    tensors run :func:`ppo_grads_plain`.
 
     Args:
         params: The model's parameters in kernel order (``flat`` may be
             any f32 vector of that layout, e.g. the optimizer's copy).
         packed: ``[n_rows, D]`` int32 minibatch from
             :func:`~rl8_tpu_torch.ops.packing.pack_rows` over the flat
-            training batch.
+            training batch (continuous actions as f32 bit patterns).
         unpacker: The matching unpacker (for the column layout).
         entropy_coeff: 0-d f32 tensor on the device (read there, never
             fetched).
@@ -301,7 +366,10 @@ def fused_ppo_grads(
     lib = load()
     N, D = packed.shape
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
-    workspace = lib.rl8_ppo_workspace(N, params.d_in, len(params.hiddens), hidden, params.n_logits)
+    kind = KINDS.index(params.kind)
+    workspace = lib.rl8_ppo_workspace(
+        N, params.d_in, len(params.hiddens), hidden, kind, params.action_dim, params.n
+    )
     if workspace < 0:
         raise ValueError("The update kernel does not take these shapes.")
     dev = packed.device
@@ -313,16 +381,21 @@ def fused_ppo_grads(
     code = lib.rl8_ppo_grads(
         packed.data_ptr(), N, D, col_starts, entropy_coeff.data_ptr(), params.flat.data_ptr(),
         grads.data_ptr(), stats.data_ptr(), work.data_ptr(), params.d_in, len(params.hiddens),
-        hidden, params.n_logits, params.n, list(ACT_FNS).index(params.activation),
+        hidden, kind, params.action_dim, params.n, list(ACT_FNS).index(params.activation),
         1.0 - cfg.clip_param, 1.0 + cfg.clip_param, float(cfg.dual_clip_param or 0.0),
         cfg.vf_clip_param, cfg.vf_coeff * scale, scale, int(cfg.use_entropy),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     check(code, "The PPO update kernel")
-    fused_ppo_grads.launches += 1
+    if params.continuous:
+        fused_ppo_grads.continuous_launches += 1
+    else:
+        fused_ppo_grads.launches += 1
     losses, kl = _losses(stats, entropy_coeff, cfg)
     return losses, kl, grads
 
 
-#: Kernel launches so far (CUDA tensors only; the CPU path counts none).
+#: Kernel launches so far, per distribution family (CUDA tensors only;
+#: the CPU path counts none).
 fused_ppo_grads.launches = 0
+fused_ppo_grads.continuous_launches = 0

@@ -3,8 +3,11 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
-``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. Phases, each
-printing one JSON line; any failed check raises and exits non-zero:
+``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. (``python3
+chip_smoke.py --time-updates LABEL`` builds the kernels and times only
+the update kernels, for comparing two checkouts: see ``time_updates``.)
+Phases, each printing one JSON line; any failed check raises and exits
+non-zero:
 
 1. build: compile the kernels from ``rl8_tpu_torch/csrc`` and time it;
    print the card's name and power limit.
@@ -19,7 +22,13 @@ printing one JSON line; any failed check raises and exits non-zero:
    moment check of its noise; the continuous update at 262,144 rows
    (squashed), at a ragged 1,000 rows (Normal, entropy, dual clip,
    accumulation), at ragged weight tiles and at rows that hit the +-100
-   clamp), each timed beside its plain version.
+   clamp; the recurrent act kernel at obs [8192, 1] with one 256-wide
+   LSTM layer (all three kinds, draw for draw and deterministic, new
+   states included) and at a ragged B=1000 with two layers; the recurrent
+   update at 65,536 sequences of 4 steps (categorical and squashed), at a
+   ragged 1,000 sequences with two layers (entropy, dual clip,
+   accumulation) and at samples that hit the clamp, and its width limit),
+   each timed beside its plain version.
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -28,13 +37,22 @@ printing one JSON line; any failed check raises and exits non-zero:
    ``collect()`` calls and the advantage stage), then the training loop
    (one warm-up and five timed ``collect()`` + ``step()`` iterations);
    then the same training loop for ``ContinuousDummyEnv`` with
-   ``SquashedNormal`` (gamma 0.99, lambda 0.95, no entropy bonus).
+   ``SquashedNormal`` (gamma 0.99, lambda 0.95, no entropy bonus); then
+   ``RecurrentAlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at
+   its defaults (8192 envs, horizon 32, one 256-wide LSTM layer, seq_len
+   4, a whole-buffer minibatch of 65,536 sequences, 4 epochs), one
+   warm-up and five timed ``collect()`` + ``step()`` iterations, with the
+   rollout's log-probs and values held against the module's forward from
+   the stored states.
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
-   discrete env and for the continuous one with ``SquashedNormal``.
+   discrete env and for the continuous one with ``SquashedNormal``; the
+   recurrent drive (64 envs, horizon 16, seq_len 4, hidden 16, seed 1, 15
+   iterations) must raise the mean return.
 5. small configurations run on the card and on the CPU (the plain
    versions) from the same seed, two collects and one step, compared:
-   the discrete one, and the continuous one with ``Normal``.
+   the discrete one and the continuous one with ``Normal``, feedforward
+   and recurrent.
 6. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
@@ -126,6 +144,9 @@ def main() -> int:
         "cuda": torch.version.cuda,
         "ptxas": [ln.strip() for ln in ptxas if "registers" in ln or "spill" in ln],
     })
+    if sys.argv[1:2] == ["--time-updates"]:
+        time_updates(torch, dev, sys.argv[2] if len(sys.argv) > 2 else "", card)
+        return 0
 
     kernels = {
         "act": {
@@ -163,19 +184,38 @@ def main() -> int:
             "replaces": "rl8_tpu/ops/fused_ppo.py:252 _continuous_kernel",
             "library_ms": None,
         },
+        "rnn_act": {
+            "name": "rnn_act",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/rnn_act.cu",
+            "replaces": "rl8_tpu/ops/fused_rnn_act.py:32 _kernel",
+            "library_ms": None,
+        },
+        "rnn_ppo": {
+            "name": "rnn_ppo_update",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/rnn_ppo.cu",
+            "replaces": "rl8_tpu/ops/fused_rnn_ppo.py:194 _kernel",
+            "library_ms": None,
+        },
     }
     check_act(torch, dev, kernels["act"])
     check_gae(torch, dev, kernels["gae"])
     check_ppo(torch, dev, kernels["ppo"])
     check_continuous_act(torch, dev, kernels["continuous_act"])
     check_continuous_ppo(torch, dev, kernels["continuous_ppo"])
+    check_rnn_act(torch, dev, kernels["rnn_act"])
+    check_rnn_ppo(torch, dev, kernels["rnn_ppo"])
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
+    run_recurrent_path(torch, dev, kernels)
     check_learning(torch, dev)
     check_learning_continuous(torch, dev)
-    check_small_against_cpu(torch, dev)
-    check_small_against_cpu(torch, dev, continuous=True)
+    check_learning_recurrent(torch, dev)
+    for recurrent in (False, True):
+        check_small_against_cpu(torch, dev, recurrent=recurrent)
+        check_small_against_cpu(torch, dev, continuous=True, recurrent=recurrent)
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -699,6 +739,379 @@ def check_continuous_ppo(torch, dev, record: dict) -> None:
             time_ppo(torch, "continuous_ppo_update", record, result, params, packed, unpack, ec, cfg)
 
 
+def make_rnn_model(torch, kind: str, seed: int, obs_dim: int = 1, A: int = 1, n: int = 2, hidden_size: int = 256,
+                   num_layers: int = 1, head_scale: float = 0.3, log_std_bias: float = 0.0):
+    """A default recurrent model as the main path initializes it, with the
+    policy heads re-drawn uniform in +-head_scale (and the log-std bias
+    set), so that the checks see action probabilities far from uniform,
+    means away from 0 and standard deviations away from 1."""
+    from rl8_tpu_torch.models import DefaultContinuousRecurrentModel, DefaultDiscreteRecurrentModel
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    config = {"hidden_size": hidden_size, "num_layers": num_layers}
+    if kind == "categorical":
+        model = DefaultDiscreteRecurrentModel(Unbounded(obs_dim), Discrete(n, shape=(A,)), **config)
+        heads = (model.feature_head,)
+    else:
+        model = DefaultContinuousRecurrentModel(Unbounded(obs_dim), Unbounded(A), **config)
+        heads = (model.action_mean, model.action_log_std)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for head in heads:
+            head.weight.uniform_(-head_scale, head_scale, generator=gen)
+        if kind != "categorical":
+            model.action_log_std.bias.fill_(log_std_bias)
+    return model.cuda()
+
+
+def rnn_states(torch, dev, B: int, K: int, H: int, gen) -> dict:
+    """Recurrent states as a rollout carries them: h in (-1, 1), c of a few
+    units."""
+    from rl8_tpu_torch.data import DataKeys
+
+    return {
+        DataKeys.HIDDEN_STATES: 2.0 * torch.rand((B, K, H), generator=gen, device=dev) - 1.0,
+        DataKeys.CELL_STATES: 2.0 * torch.randn((B, K, H), generator=gen, device=dev),
+    }
+
+
+def rnn_heads_plain(torch, params, obs, states):
+    """The heads' outputs of one recurrent step in plain PyTorch."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.ops.fused_rnn_act import lstm_cell
+
+    x = obs
+    for l, (wi, wh, b) in enumerate(params.lstm()):
+        x = lstm_cell(x, states[DataKeys.HIDDEN_STATES][:, l], states[DataKeys.CELL_STATES][:, l], wi, wh, b)[0]
+    return [x @ w + b for w, b in params.heads()]
+
+
+def check_rnn_act(torch, dev, record: dict) -> None:
+    """The recurrent act kernel against its plain version on the card, for
+    the categorical, Normal and squashed kinds, deterministic and draw for
+    draw (the plain version replays the kernel's Philox draws): at the main
+    path's shapes (obs [8192, 1], one 256-wide LSTM layer, A = 1) and at a
+    ragged B = 1000 with obs dim 3, two 96-wide layers and A = 2 (n = 3).
+    The new states, values and continuous actions within ACT_*; discrete
+    actions equal except near ties; log-probs within ACT_* of the plain
+    distribution's log-prob of the kernel's own actions on every row, and of
+    the plain version's own where SQUASH_LIMIT allows (as for the
+    feedforward act kernels)."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
+    from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
+    from rl8_tpu_torch.ops.distmath import philox_normal, philox_uniform
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    configs = {
+        "main": dict(B=8192, obs_dim=1, A=1, n=2, H=256, K=1),
+        "ragged": dict(B=1000, obs_dim=3, A=2, n=3, H=96, K=2),
+    }
+    key = (24680, 1357)
+    for name, c in configs.items():
+        B, A, n, H, K = c["B"], c["A"], c["n"], c["H"], c["K"]
+        obs = 3.0 * (2.0 * torch.rand((B, c["obs_dim"]), generator=gen, device=dev) - 1.0)
+        states = rnn_states(torch, dev, B, K, H, gen)
+        for kind in ("categorical", "normal", "squashed"):
+            model = make_rnn_model(torch, kind, seed=90 + K, obs_dim=c["obs_dim"], A=A, n=n, hidden_size=H,
+                                   num_layers=K, log_std_bias=-1.0)
+            params = pack_rnn_params(model, squashed=kind == "squashed")
+            outs = rnn_heads_plain(torch, params, obs, states)
+            for det in (True, False):
+                what = f"rnn act {name} {kind} {'deterministic' if det else 'stochastic'}"
+                ka, kl, kv, ks = fused_rnn_act(params, obs, states, key, deterministic=det)
+                pa, pl, pv, ps = rnn_act_plain(params, obs, states, key, deterministic=det)
+                torch.cuda.synchronize()
+                for sk in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
+                    check(tuple(ks[sk].shape) == (B, K, H), f"{what}: {sk} shape")
+                    check(torch.allclose(ks[sk], ps[sk], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: {sk}")
+                check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: values")
+                keep = torch.ones(B, dtype=torch.bool, device=dev)
+                if kind == "categorical":
+                    logits = outs[0].view(B, A, n)
+                    dist = Categorical({"logits": logits})
+                    scores = logits.log_softmax(-1)
+                    if not det:
+                        scores = scores - torch.log(-torch.log(philox_uniform(*key, B, A, n, dev).view(B, A, n)))
+                    top2 = scores.topk(2, dim=-1).values
+                    ties = ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
+                    check(bool((ka == pa).all(dim=1)[~ties].all()), f"{what}: actions")
+                    err_a = 0.0
+                else:
+                    log_std = torch.tanh(outs[1])
+                    dist = (SquashedNormal if kind == "squashed" else Normal)({"mean": outs[0], "log_std": log_std})
+                    check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: actions")
+                    err_a = float((ka - pa).abs().max())
+                    if kind == "squashed":
+                        x = outs[0] if det else outs[0] + torch.exp(log_std) * philox_normal(*key, B, A, dev)
+                        keep = (x.abs() < SQUASH_LIMIT).all(dim=1)
+                own = dist.logp(ka)
+                check(torch.allclose(kl, own, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp vs the plain log-prob of the kernel's actions")
+                check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp")
+                err = max(err_a, float((kv - pv).abs().max()), float((kl - own).abs().max()),
+                          float((kl[keep] - pl[keep]).abs().max()),
+                          *(float((ks[sk] - ps[sk]).abs().max()) for sk in ks))
+                emit({"phase": "kernel_check", "kernel": "rnn_act", "config": name, "kind": kind,
+                      "deterministic": det, "B": B, "A": A, "n": n if kind == "categorical" else 0, "H": H,
+                      "K": K, "max_abs_err": err, "rows_compared_logp": int(keep.sum()),
+                      "rtol": ACT_RTOL, "atol": ACT_ATOL})
+                if name == "main":
+                    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+
+    # Timing at the main path's shapes: B = 8192, one 256-wide layer,
+    # categorical A = 1, n = 2, stochastic.
+    B, H = 8192, 256
+    obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    states = rnn_states(torch, dev, B, 1, H, gen)
+    params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=99))
+    flops = 2 * B * ((params.d_in + H) * 4 * H + H * sum(params.head_widths))
+    bytes_moved = 4 * (obs.numel() + 4 * B * H + params.flat.numel() + B * (params.action_dim + 2))
+    record["ms"], host_ms = time_ms(torch, lambda: fused_rnn_act(params, obs, states, (1, 2)))
+    record["plain_ms"], plain_host_ms = time_ms(
+        torch, lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False), iters=20
+    )
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    emit({"phase": "kernel_time", "kernel": "rnn_act", "B": B, "flops": flops, "bytes": bytes_moved,
+          "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def rnn_ppo_inputs(torch, dev, model, kind: str, N: int, L: int, seed: int, clip_share: float = 0.0):
+    """A packed minibatch of N sequences of L steps for ``model``:
+    observations, stored initial states, actions (random categories, or
+    drawn from the model's own distribution, tanh-squashed when squashed),
+    old log-probs near the model's own, standard-normal advantages, and
+    returns around the model's values. A ``clip_share`` of the squashed
+    samples get actions of exactly +-1, whose base log-prob lies below -100
+    where the std is small. Returns the packed inputs and the number of
+    samples that hit the +-100 clamp."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
+    from rl8_tpu_torch.ops import pack_rows
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, K, H, A = model.observation_spec.shape[0], model.num_layers, model.hidden_size, model.action_spec.shape[0]
+    obs = 3.0 * torch.randn((N, L, d), generator=gen, device=dev)
+    states = rnn_states(torch, dev, N, K, H, gen)
+    with torch.no_grad():
+        (features, values), _ = model({DataKeys.OBS: obs}, states)
+    clamped = 0
+    if kind == "categorical":
+        n = model.action_spec.n
+        actions = torch.randint(0, n, (N * L, A), generator=gen, device=dev, dtype=torch.int32)
+        dist = Categorical(features)
+    else:
+        mean, log_std = features["mean"], features["log_std"]
+        actions = mean + torch.exp(log_std) * torch.randn((N * L, A), generator=gen, device=dev)
+        dist = (SquashedNormal if kind == "squashed" else Normal)(features)
+        if kind == "squashed":
+            actions = torch.tanh(actions)
+            if clip_share:
+                sel = torch.rand((N * L, 1), generator=gen, device=dev) < clip_share
+                sign = torch.where(torch.rand((N * L, A), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+                actions = torch.where(sel, sign, actions)
+            clamped = int(clamped_rows(torch, actions, mean, log_std).sum())
+    logp = dist.logp(actions) + 0.1 * torch.randn((N * L, 1), generator=gen, device=dev)
+    packed, unpack = pack_rows({
+        DataKeys.ACTIONS: actions.view(N, L, A),
+        DataKeys.ADVANTAGES: torch.randn((N, L, 1), generator=gen, device=dev),
+        DataKeys.LOGP: logp.view(N, L, 1),
+        DataKeys.OBS: obs,
+        DataKeys.RETURNS: (values + 2.0 * torch.randn((N * L, 1), generator=gen, device=dev)).view(N, L, 1),
+        DataKeys.STATES: states,
+    })
+    return packed, unpack, clamped
+
+
+def check_rnn_ppo(torch, dev, record: dict) -> None:
+    """The recurrent update kernel against its plain version on the card
+    (compare_ppo's tolerances, two launches bit-identical): (a) the main
+    path's shapes, 65,536 sequences of L = 4 with one 256-wide layer,
+    categorical; (b) the same shapes squashed; (c) a ragged 1,000
+    sequences, two 64-wide layers, A = 2, n = 3, entropy, dual clip and
+    accumulation; (d) the same ragged shapes with Normal, entropy and dual
+    clip; (e) squashed samples with actions at +-1 and a small std, so that
+    the +-100 clamp cuts their gradients."""
+    from rl8_tpu_torch.ops import PPOLossConfig, pack_rnn_params
+
+    main_loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ragged_loss = dict(vf_clip_param=1.5, vf_coeff=0.9, dual_clip_param=3.0, accum=3)
+    configs = {
+        "a": dict(N=65536, kind="categorical", model={}, ec=0.0, loss=main_loss),
+        "b": dict(N=65536, kind="squashed", model={}, ec=0.0, loss=main_loss),
+        "c": dict(N=1000, kind="categorical", model=dict(obs_dim=3, A=2, n=3, hidden_size=64, num_layers=2),
+                  ec=0.013, loss=ragged_loss),
+        "d": dict(N=1000, kind="normal", model=dict(obs_dim=3, A=2, hidden_size=64, num_layers=2), ec=0.013,
+                  loss=ragged_loss),
+        "e": dict(N=2048, kind="squashed", model=dict(obs_dim=2, A=2, hidden_size=32, head_scale=0.001,
+                                                         log_std_bias=-3.0), ec=0.0, clip_share=0.3,
+                  loss=main_loss),
+    }
+    L = 4
+    for name, c in configs.items():
+        model = make_rnn_model(torch, c["kind"], seed=110 + ord(name), **c["model"])
+        params = pack_rnn_params(model, squashed=c["kind"] == "squashed")
+        packed, unpack, clamped = rnn_ppo_inputs(torch, dev, model, c["kind"], c["N"], L, seed=ord(name),
+                                                 clip_share=c.get("clip_share", 0.0))
+        if c.get("clip_share"):
+            check(clamped >= c["N"] * L // 10, f"rnn ppo ({name}): too few samples hit the +-100 clamp")
+        cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0,
+                            squashed=c["kind"] == "squashed", **c["loss"])
+        ec = torch.tensor(c["ec"], device=dev)
+        result = compare_rnn_ppo(torch, f"rnn ppo ({name})", params, packed, unpack, ec, cfg)
+        emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "config": name, "N": c["N"], "L": L,
+              "H": params.hidden, "K": params.num_layers, "A": params.action_dim, "kind": params.kind,
+              "entropy_coeff": c["ec"], **c["loss"], "samples_clamped": clamped, **result["summary"]})
+        if name == "a":
+            time_rnn_ppo(torch, record, result, params, packed, unpack, ec, cfg)
+
+    # The width limit is the kernel's own (its row pass must fit a block's
+    # shared memory): the main width passes, 1024 is refused by the query
+    # and by the wrapper.
+    from rl8_tpu_torch.ops import card_takes_rnn_update, fused_rnn_ppo_grads
+
+    main_model, wide_model = (make_rnn_model(torch, "categorical", seed=0, hidden_size=h) for h in (256, 1024))
+    wide = pack_rnn_params(wide_model)
+    check(card_takes_rnn_update(pack_rnn_params(main_model)), "rnn ppo: the kernel refuses the main width")
+    check(not card_takes_rnn_update(wide), "rnn ppo: the kernel takes a 1024-wide row pass")
+    packed, unpack, _ = rnn_ppo_inputs(torch, dev, wide_model, "categorical", 16, L, seed=0)
+    cfg = PPOLossConfig(clip_param=0.2, n_rows=16, use_entropy=False, **main_loss)
+    try:
+        fused_rnn_ppo_grads(wide, packed, unpack, torch.tensor(0.0, device=dev), cfg)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "rnn ppo: the wrapper launched a 1024-wide update")
+    emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "width_limit": {"256": True, "1024": False}})
+
+
+def compare_rnn_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
+    """The recurrent update kernel twice and its plain version once on one
+    minibatch: the launches must be bit-identical, each gradient tensor
+    within PPO_GRAD_* of the plain one by norm, the losses and KL within
+    PPO_STAT_*."""
+    from rl8_tpu_torch.ops import fused_rnn_ppo_grads, rnn_ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_rnn_act import RnnParams
+
+    k_losses, k_kl, k_grads = fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)
+    k2_losses, k2_kl, k2_grads = fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)
+    p_losses, p_kl, p_grads = rnn_ppo_grads_plain(params, packed, unpack, ec, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(k_grads, k2_grads) and torch.equal(k_kl, k2_kl)
+          and all(torch.equal(k_losses[key], k2_losses[key]) for key in k_losses),
+          f"{what}: two launches bit-identical")
+
+    def tensors(flat):
+        views = RnnParams(**{**params.__dict__, "flat": flat})
+        return [t for layer in views.lstm() for t in layer] + [t for head in views.heads() for t in head]
+
+    worst_grad = 0.0
+    for kt, pt in zip(tensors(k_grads), tensors(p_grads)):
+        err, ref = float((kt - pt).norm()), float(pt.norm())
+        worst_grad = max(worst_grad, err / max(ref, 1e-30))
+        check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+              f"{what}: gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
+    stat_err = 0.0
+    for key, kv, pv in [(k, k_losses[k], p_losses[k]) for k in p_losses] + [("kl", k_kl, p_kl)]:
+        kv, pv = float(kv), float(pv)
+        stat_err = max(stat_err, abs(kv - pv))
+        check(abs(kv - pv) <= PPO_STAT_RTOL * abs(pv) + PPO_STAT_ATOL, f"{what}: {key} {kv!r} vs plain {pv!r}")
+    return {
+        "max_abs_err": max(stat_err, float((k_grads - p_grads).abs().max())),
+        "summary": {"worst_grad_norm_rel_err": worst_grad, "loss_max_abs_err": stat_err,
+                    "bit_identical": True, "losses": {k: float(v) for k, v in k_losses.items()},
+                    "kl": float(k_kl)},
+    }
+
+
+def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, cfg) -> None:
+    """Time the recurrent update kernel beside its plain version on one
+    minibatch, with its f32 bound: per sample, the forward's gate products,
+    the backward's dx products below the top layer, the weight products
+    and the heads'; per sequence, the dh products of its L - 1 later steps
+    (the stored initial states take no gradient)."""
+    from rl8_tpu_torch.ops import fused_rnn_ppo_grads, rnn_ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_rnn_ppo import RnnPackedColumns
+
+    record["max_abs_err"] = result["max_abs_err"]
+    N, H, K, d_in = packed.shape[0], params.hidden, params.num_layers, params.d_in
+    L = RnnPackedColumns.from_unpacker(unpack).seq_len
+    G = 4 * H
+    step_macs = 0
+    for l in range(K):
+        d_l = d_in if l == 0 else H
+        step_macs += (d_l + H) * G          # forward gate products
+        step_macs += G * H if l > 0 else 0  # dx = dz Wi^T into the layer below
+        step_macs += (d_l + H + 1) * G      # dWi, dWh, db
+    head_out = sum(params.head_widths)
+    step_macs += 3 * (H + 1) * head_out     # heads forward, their dh and dW
+    seq_macs = L * step_macs + (L - 1) * K * G * H  # dh_t = dz Wh^T at steps t > 0
+    flops = 2 * N * seq_macs
+    bytes_moved = 4 * (packed.numel() + 2 * params.flat.numel() + 4 + 1)
+    record["ms"], host_ms = time_ms(
+        torch, lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
+    )
+    record["plain_ms"], plain_host_ms = time_ms(
+        torch, lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
+    )
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    record["host_ms"] = host_ms
+    emit({"phase": "kernel_time", "kernel": "rnn_ppo_update", "N": N, "L": L, "flops": flops,
+          "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+
+
+def time_updates(torch, dev, label: str, card: str) -> None:
+    """``--time-updates LABEL``: only the update kernels' device ms per
+    launch at the main paths' shapes (``time_ms``: the feedforward kernel,
+    262,144 rows, categorical and squashed; the recurrent one, 65,536
+    sequences of 4 steps, categorical) and the recurrent launch's device
+    time by kernel (``torch.profiler``), on one JSON line with LABEL and
+    the card. To compare two commits on one card, unpack one into a
+    directory that ``.gitignore`` lists (``git archive``) and run each
+    checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
+    one command."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rl8_tpu_torch import ops
+    from rl8_tpu_torch.specs import Discrete
+
+    out = {"phase": "time_updates", "label": label, "card": card}
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+
+    def device_ms(fn) -> float:
+        return time_ms(torch, fn, iters=10, warmup=2)[0]
+
+    N = 8192 * 32
+    model = make_model(torch, Discrete(2, shape=(1,)), seed=40 + ord("a"))
+    params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=ord("a"))
+    cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+    out["ppo_ms"] = device_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
+    model = make_continuous_model(torch, 1, seed=80 + ord("a"))
+    params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=ord("a"), squashed=True)
+    cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, squashed=True, **loss)
+    out["continuous_ppo_ms"] = device_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
+
+    N = 65536
+    model = make_rnn_model(torch, "categorical", seed=110 + ord("a"))
+    params = ops.pack_rnn_params(model)
+    packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, "categorical", N, 4, seed=ord("a"))
+    cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+    out["rnn_ppo_ms"] = device_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)
+        torch.cuda.synchronize()
+    out["rnn_ppo_split_ms"] = {
+        e.key: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0
+    }
+    emit(out)
+
+
 def run_main_path(torch, dev) -> None:
     """The rollout path: collects and the advantage stage."""
     from rl8_tpu_torch import AlgorithmConfig
@@ -762,6 +1175,37 @@ def run_main_path(torch, dev) -> None:
     profile_window(torch, "collect + advantages", rollout)
 
 
+def zero_counters() -> None:
+    """Set every kernel wrapper's launch counters to 0."""
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads
+
+    for fn in (fused_act, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads):
+        fn.launches = fn.continuous_launches = 0
+    fused_gae.launches = 0
+
+
+def time_iterations(torch, algo, iters: int = 6) -> tuple[list, list, list]:
+    """``iters`` collect() + step() iterations of ``algo`` with the
+    kernels' launch counters set to 0 first and the peak memory reset;
+    returns the host ms of each collect and step after the first (the
+    warm-up), each ending in its call's one host fetch, and every step's
+    stats."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    collect_ms, step_ms, steps = [], [], []
+    for i in range(iters):
+        t = time.perf_counter()
+        algo.collect()
+        t_mid = time.perf_counter()
+        steps.append(algo.step())
+        t_end = time.perf_counter()
+        if i:
+            collect_ms.append((t_mid - t) * 1e3)
+            step_ms.append((t_end - t_mid) * 1e3)
+    return collect_ms, step_ms, steps
+
+
 def run_update_path(torch, dev, kernels: dict, continuous: bool = False) -> None:
     """A main path with the update: collect() + step() at the defaults,
     one warm-up and five timed iterations; every kernel of the path must
@@ -785,28 +1229,14 @@ def run_update_path(torch, dev, kernels: dict, continuous: bool = False) -> None
     wrappers = (fused_act, fused_gae, fused_ppo_grads)
     h = algo.hparams
     n_params = sum(p.numel() for p in algo.policy.model.parameters())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
-        fn.launches = 0
-    fused_act.continuous_launches = fused_ppo_grads.continuous_launches = 0
-    collect_ms, step_ms, steps = [], [], []
-    for i in range(6):  # the first is the warm-up
-        t = time.perf_counter()
-        algo.collect()  # ends in its one host fetch
-        t_mid = time.perf_counter()
-        steps.append(algo.step())  # ends in its one host fetch
-        t_end = time.perf_counter()
-        if i:
-            collect_ms.append((t_mid - t) * 1e3)
-            step_ms.append((t_end - t_mid) * 1e3)
+    iters = 6
+    collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
     act, gae, ppo = (getattr(fn, "launches" if fn is fused_gae else counters) for fn in wrappers)
     other = (fused_act.launches + fused_ppo_grads.launches if continuous
              else fused_act.continuous_launches + fused_ppo_grads.continuous_launches)
     launches = dict(zip(names, (act, gae, ppo)))
     for key, count in launches.items():
         kernels[key]["launches"] = count
-    iters = 6
     per_step = h.num_sgd_iters * h.num_minibatches
     check(act == iters * h.horizon, f"act launches {act} != {iters} x {h.horizon}")
     check(gae == iters, f"GAE launches {gae} != {iters} steps")
@@ -839,6 +1269,84 @@ def run_update_path(torch, dev, kernels: dict, continuous: bool = False) -> None
         check(actions.dtype == torch.float32 and bool((actions.abs() <= 1.0).all()),
               "squashed actions are f32 in [-1, 1]")
     profile_window(torch, "continuous step" if continuous else "step", algo.step)
+
+
+def run_recurrent_path(torch, dev, kernels: dict) -> None:
+    """The recurrent main path: ``RecurrentAlgorithmConfig(device="cuda")
+    .build(DiscreteDummyEnv)`` at the JAX package's defaults, one warm-up
+    and five timed collect() + step() iterations; every kernel of the path
+    must have launched (recurrent act 32, GAE 1, recurrent update 4 per
+    iteration) and no other. Then one more collect, whose log-probs and
+    values are held against the module's plain forward from the stored
+    states, and a profiled collect and step."""
+    from rl8_tpu_torch import RecurrentAlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Categorical
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads
+
+    algo = RecurrentAlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    h = algo.hparams
+    model = algo.policy.model
+    n_params = sum(p.numel() for p in model.parameters())
+    iters = 6
+    collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
+    act, gae, ppo = fused_rnn_act.launches, fused_gae.launches, fused_rnn_ppo_grads.launches
+    other = (fused_rnn_act.continuous_launches + fused_rnn_ppo_grads.continuous_launches + fused_act.launches
+             + fused_act.continuous_launches + fused_ppo_grads.launches + fused_ppo_grads.continuous_launches)
+    kernels["rnn_act"]["launches"], kernels["rnn_ppo"]["launches"] = act, ppo
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check(act == iters * h.horizon, f"recurrent act launches {act} != {iters} x {h.horizon}")
+    check(gae == iters, f"GAE launches {gae} != {iters} steps")
+    check(ppo == iters * per_step, f"recurrent update launches {ppo} != {iters} x {per_step}")
+    check(other == 0, f"{other} launches of other kernels on the recurrent path")
+    for stats in steps:
+        check(all(math.isfinite(v) for v in stats.values()), f"step stats finite: {stats}")
+    for name, param in model.named_parameters():
+        check(bool(torch.isfinite(param).all()), f"parameter {name} finite")
+    check(tuple(model.lstm.wh[0].shape) == (256, 1024) and model.num_layers == 1, "LSTM width")
+    check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
+          "the buffer is spent and Adam counted every update")
+    check(algo.state.seqs == iters * h.horizon // h.seq_len, f"sequence counter {algo.state.seqs}")
+    med_collect = sorted(collect_ms)[len(collect_ms) // 2]
+    med_step = sorted(step_ms)[len(step_ms) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # The rollout against the module: per step, the plain forward from the
+    # stored input states gives the values and the log-probs of the
+    # stored actions, and the stored next states.
+    algo.collect()
+    buffer = algo.state.buffer
+    T, B = h.horizon, h.num_envs
+    states = buffer[DataKeys.STATES]
+    check(tuple(states[DataKeys.HIDDEN_STATES].shape) == (T + 1, B, 1, 256), "buffer states shape")
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(T):
+            step_states = {k: v[t] for k, v in states.items()}
+            (features, values), new_states = model({DataKeys.OBS: buffer[DataKeys.OBS][t][:, None]}, step_states)
+            logp = Categorical(features).logp(buffer[DataKeys.ACTIONS][t])
+            for what, got, want in (("values", buffer[DataKeys.VALUES][t], values),
+                                    ("logp", buffer[DataKeys.LOGP][t], logp)):
+                worst = max(worst, float((got - want).abs().max()))
+                check(torch.allclose(got, want, rtol=ACT_RTOL, atol=ACT_ATOL), f"recurrent rollout {what} at t={t}")
+            if (t + 1) % h.seq_len or ((t + 1) // h.seq_len + algo.state.seqs - T // h.seq_len) % h.seqs_per_state_reset:
+                for k, v in new_states.items():
+                    check(torch.allclose(states[k][t + 1], v, rtol=ACT_RTOL, atol=ACT_ATOL),
+                          f"recurrent rollout {k} at t={t + 1}")
+    emit({
+        "phase": "main_path_recurrent", "num_envs": B, "horizon": T, "seq_len": h.seq_len,
+        "hidden_size": model.hidden_size, "num_layers": model.num_layers,
+        "sequences_per_minibatch": B * T // h.seq_len // h.num_minibatches,
+        "num_sgd_iters": h.num_sgd_iters, "num_minibatches": h.num_minibatches, "parameters": n_params,
+        "collect_ms": collect_ms, "step_ms": step_ms, "collect_ms_median": med_collect,
+        "step_ms_median": med_step,
+        "transitions_per_s_with_update": B * T / ((med_collect + med_step) / 1e3),
+        "launches": {"rnn_act": act, "gae": gae, "rnn_ppo": ppo}, "peak_memory_gb": peak_gb,
+        "rollout_vs_module_max_abs_err": worst, "last_step": steps[-1],
+    })
+    profile_window(torch, "recurrent collect", algo.collect)
+    profile_window(torch, "recurrent step", algo.step)
 
 
 def profile_window(torch, window: str, fn) -> None:
@@ -917,18 +1425,41 @@ def check_learning_continuous(torch, dev) -> None:
           "final_returns_mean": collect_stats["returns/mean"], "seconds": time.perf_counter() - t})
 
 
-def check_small_against_cpu(torch, dev, continuous: bool = False) -> None:
+def check_learning_recurrent(torch, dev) -> None:
+    """The recurrent learning drive of the JAX package's tests on the card:
+    64 envs, horizon 16, seq_len 4, states reset every 4 sequences, one
+    16-wide LSTM layer, seed 1, 15 collect+step iterations with bounds 10;
+    the mean return of the last collect must exceed the first's."""
+    from rl8_tpu_torch import RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    t = time.perf_counter()
+    algo = RecurrentAlgorithmConfig(num_envs=64, horizon=16, seq_len=4, seqs_per_state_reset=4, seed=1,
+                                    model_config={"hidden_size": 16}, device="cuda").build(DiscreteDummyEnv)
+    returns = []
+    for _ in range(15):
+        returns.append(algo.collect(env_config={"bounds": 10.0})["returns/mean"])
+        algo.step()
+    check(returns[-1] > returns[0], f"the recurrent policy did not learn: mean returns {returns}")
+    emit({"phase": "learning_recurrent", "iterations": 15, "returns_mean": returns,
+          "seconds": time.perf_counter() - t})
+
+
+def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: bool = False) -> None:
     """The same small configuration on the card and on the CPU (the
     kernels' plain versions), from one seed and the same start positions:
     two stochastic collects (the second carrying over), the advantage
     stage and one step (whole-buffer minibatch, so no shuffle) must
     agree. The discrete run's observations and actions are equal; the
     continuous run (Normal) draws the same noise on both, but its f32
-    actions move the positions, so both are held to the act tolerances."""
-    from rl8_tpu_torch import AlgorithmConfig
+    actions move the positions, so both are held to the act tolerances.
+    The recurrent runs (one 32-wide LSTM layer, seq_len 4, states reset
+    every 2 sequences) also compare the stored states."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.distributions import Normal
     from rl8_tpu_torch.env import ContinuousDummyEnv, DiscreteDummyEnv
+    from rl8_tpu_torch.ops import pack_rnn_params
     from rl8_tpu_torch.ops.fused_mlp import default_chains, flatten_chains
 
     class FixedStartEnv(ContinuousDummyEnv if continuous else DiscreteDummyEnv):
@@ -936,20 +1467,33 @@ def check_small_against_cpu(torch, dev, continuous: bool = False) -> None:
             pos = torch.linspace(-50.0, 50.0, self.num_envs).view(-1, 1).to(self.device)
             return {"position": pos, "bounds": torch.tensor(50.0, device=self.device)}, pos
 
+    def flat_params(model):
+        if recurrent:
+            return pack_rnn_params(model).flat.cpu()
+        return flatten_chains(default_chains(model)).cpu()
+
     runs, steps = {}, {}
     for device in ("cuda", "cpu"):
-        algo = AlgorithmConfig(
-            num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7,
-            model_config={"hiddens": (32, 32)}, device=device,
-            distribution_cls=Normal if continuous else None,
-        ).build(FixedStartEnv)
+        common = dict(num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7, device=device,
+                      distribution_cls=Normal if continuous else None)
+        if recurrent:
+            config = RecurrentAlgorithmConfig(model_config={"hidden_size": 32}, seq_len=4, seqs_per_state_reset=2,
+                                              **common)
+        else:
+            config = AlgorithmConfig(model_config={"hiddens": (32, 32)}, **common)
+        algo = config.build(FixedStartEnv)
         stats = [algo.collect(), algo.collect()]
         adv, ret = algo._advantages()
-        runs[device] = (stats, {k: v.cpu() for k, v in algo.state.buffer.items()}, adv.cpu(), ret.cpu(),
-                        algo.state.reward_scale.cpu())
-        start = flatten_chains(default_chains(algo.policy.model)).cpu()
-        steps[device] = (algo.step(), flatten_chains(default_chains(algo.policy.model)).cpu() - start)
+        buffer = {k: v.cpu() for k, v in algo.state.buffer.items() if k != DataKeys.STATES}
+        if recurrent:
+            buffer.update({k: v.cpu() for k, v in algo.state.buffer[DataKeys.STATES].items()})
+        runs[device] = (stats, buffer, adv.cpu(), ret.cpu(), algo.state.reward_scale.cpu())
+        start = flat_params(algo.policy.model)
+        steps[device] = (algo.step(), flat_params(algo.policy.model) - start)
     (s_g, b_g, a_g, r_g, sc_g), (s_c, b_c, a_c, r_c, sc_c) = runs["cuda"], runs["cpu"]
+    if recurrent:
+        for key in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
+            check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small recurrent run {key}")
     for key in (DataKeys.OBS, DataKeys.ACTIONS):
         if continuous:
             check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small run {key}")
@@ -973,7 +1517,8 @@ def check_small_against_cpu(torch, dev, continuous: bool = False) -> None:
         check(math.isclose(st_g[k], st_c[k], rel_tol=1e-4, abs_tol=1e-6), f"small run step {k}: {st_g[k]} vs {st_c[k]}")
     delta_err = float((d_g - d_c).norm() / d_c.norm())
     check(delta_err <= 1e-3, f"small run parameter change differs by {delta_err:.3g} of its norm")
-    emit({"phase": "small_continuous_vs_cpu" if continuous else "small_vs_cpu", "num_envs": 64,
+    phase = "small_" + ("recurrent_" if recurrent else "") + ("continuous_" if continuous else "") + "vs_cpu"
+    emit({"phase": phase, "num_envs": 64,
           "horizon": 8, "collects": 2, "steps": 1,
           "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
           "advantages_max_abs_err": float((a_g - a_c).abs().max()),

@@ -6,15 +6,16 @@ beside plain PyTorch versions: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. It imports neither JAX nor
 ``rl8_tpu``; the tests hold it against ``rl8_tpu`` on the CPU.
 
-Ported so far: feedforward PPO on the default models, end to end: the
-discrete one with ``Categorical`` and the continuous one with ``Normal``
-or ``SquashedNormal``. The rollout (``Algorithm.collect``) runs through
-the discrete or continuous act kernel, and the update
-(``Algorithm.step``) through the GAE kernel and the PPO update kernel,
-with clip-by-global-norm and Adam.
+Ported so far: feedforward and recurrent PPO on the default models, end
+to end: the discrete ones with ``Categorical`` and the continuous ones
+with ``Normal`` or ``SquashedNormal``. The rollout (``collect``) runs
+through the act kernel of the model (feedforward, or the stacked-LSTM
+recurrent one), and the update (``step``) through the GAE kernel and the
+PPO update kernel of the model (feedforward, or the recurrent one with
+its backward through time), with clip-by-global-norm and Adam.
 """
 
-from .algorithms import Algorithm, AlgorithmConfig
+from .algorithms import Algorithm, AlgorithmConfig, RecurrentAlgorithm, RecurrentAlgorithmConfig
 from .env import Env
 
-__all__ = ["Algorithm", "AlgorithmConfig", "Env"]
+__all__ = ["Algorithm", "AlgorithmConfig", "Env", "RecurrentAlgorithm", "RecurrentAlgorithmConfig"]

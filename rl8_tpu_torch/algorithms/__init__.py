@@ -2,5 +2,12 @@
 
 from ._base import GenericAlgorithmBase
 from ._feedforward import Algorithm, AlgorithmConfig
+from ._recurrent import RecurrentAlgorithm, RecurrentAlgorithmConfig
 
-__all__ = ["Algorithm", "AlgorithmConfig", "GenericAlgorithmBase"]
+__all__ = [
+    "Algorithm",
+    "AlgorithmConfig",
+    "GenericAlgorithmBase",
+    "RecurrentAlgorithm",
+    "RecurrentAlgorithmConfig",
+]

@@ -22,32 +22,21 @@ are Python loops that launch the port's kernels:
 from __future__ import annotations
 
 import dataclasses
-import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-from ..data import AlgorithmHparams, AlgorithmState, CollectStats, DataKeys, StepStats
+from ..data import AlgorithmHparams, AlgorithmState, DataKeys
 from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
-from ..ops import (
-    PPOLossConfig,
-    block_shuffle,
-    fused_act,
-    fused_gae,
-    fused_ppo_grads,
-    pack_act_params,
-    pack_rows,
-    supports_fused_update,
-)
+from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
 from ..ops.fused_mlp import load_flat_params
 from ..parallel import gmax, gmean, gmin, gstd
 from ..policies import Policy
-from ..schedulers import EntropyScheduler, LRScheduler, ScheduleKind
+from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
-from ..utils import profile_ms
-from ..utils.optim import Adam, AdamState, adam_step
+from ..utils.optim import AdamState
 from ._base import GenericAlgorithmBase
 
 __all__ = ["AlgorithmConfig", "Algorithm"]
@@ -174,29 +163,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
 
     def __init__(self, env_cls: EnvFactory, /, config: None | AlgorithmConfig = None) -> None:
         config = config or AlgorithmConfig()
-        for unported, what in (
-            (config.optimizer_cls is not None, "optimizers other than Adam"),
-            (not config.flatten_optimizer, "flatten_optimizer=False"),
-            (config.enable_amp, "enable_amp"),
-        ):
-            if unported:
-                raise NotImplementedError(
-                    f"This port does not run {what} yet; it is a later slice (ROADMAP Queue 1)."
-                )
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "Multi-device training is a later slice of the port (ROADMAP Queue 1, multi-device)."
-            )
-        self.device = torch.device(config.device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "AlgorithmConfig.device is 'cuda' but CUDA is not available;"
-                    " pass device='cpu' to run the kernels' plain versions."
-                )
-            # Full-f32 products in the model forward (the bootstrap value),
-            # so they agree with the act kernel's f32 FMAs.
-            torch.backends.cuda.matmul.allow_tf32 = False
+        params_seed = self._init_common(config)
         num_envs = min(config.num_envs, getattr(env_cls, "max_num_envs", config.num_envs))
         horizon = min(config.horizon, getattr(env_cls, "max_horizon", 1_000_000))
         self.env = env_cls(num_envs, horizon, device=self.device)
@@ -210,12 +177,6 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             distribution_cls=config.distribution_cls,
         )
         model = self.policy.model
-        #: Whether the entropy bonus is statically absent (the kernel then
-        #: skips the entropy term entirely, and SquashedNormal, which has
-        #: no entropy, can train).
-        self._static_zero_entropy = (
-            config.entropy_coeff_schedule is None and config.entropy_coeff == 0.0
-        )
         #: Whether the action distribution squashes through tanh (the
         #: kernels' SquashedNormal variant).
         self._squashed_dist = self.policy.distribution_cls is SquashedNormal
@@ -232,64 +193,10 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         model.validate_view_requirements()
 
         self.hparams = AlgorithmHparams(
-            accumulate_grads=config.accumulate_grads,
-            clip_param=config.clip_param,
-            dual_clip_param=config.dual_clip_param,
-            enable_amp=False,
-            gae_lambda=config.gae_lambda,
-            gamma=config.gamma,
-            horizon=horizon,
-            horizons_per_env_reset=config.horizons_per_env_reset,
-            max_grad_norm=config.max_grad_norm,
-            normalize_advantages=config.normalize_advantages,
-            normalize_rewards=config.normalize_rewards,
-            num_envs=num_envs,
-            num_sgd_iters=config.num_sgd_iters,
-            sgd_minibatch_size=(
-                config.sgd_minibatch_size
-                if config.sgd_minibatch_size is not None
-                else num_envs * horizon
-            ),
-            shuffle_minibatches=config.shuffle_minibatches,
-            shuffle_block_rows=config.shuffle_block_rows,
-            target_kl_div=config.target_kl_div,
-            vf_clip_param=config.vf_clip_param,
-            vf_coeff=config.vf_coeff,
+            **self._hparams_fields(config, num_envs, horizon, rows=num_envs * horizon)
         ).validate()
-
-        optimizer_config = dict(config.optimizer_config or {"lr": 1e-3})
-        if "lr" in optimizer_config and "learning_rate" in optimizer_config:
-            raise ValueError(
-                "Pass only one of `lr`/`learning_rate` in"
-                " `optimizer_config`; both were provided."
-            )
-        lr0 = optimizer_config.pop("lr", None)
-        if lr0 is None:
-            lr0 = optimizer_config.pop("learning_rate", 1e-3)
-        unknown = set(optimizer_config) - {f.name for f in dataclasses.fields(Adam)}
-        if unknown:
-            raise NotImplementedError(
-                f"This port's Adam takes b1, b2, eps and eps_root; {sorted(unknown)}"
-                " come with other optimizers in a later slice (ROADMAP Queue 1)."
-            )
-        self.adam = Adam(**optimizer_config)
-        self.lr_scheduler = LRScheduler(lr0, schedule=config.lr_schedule, kind=config.lr_schedule_kind)
-        self.entropy_scheduler = EntropyScheduler(
-            config.entropy_coeff,
-            schedule=config.entropy_coeff_schedule,
-            kind=config.entropy_coeff_schedule_kind,
-        )
-        # One host generator seeds the others and then draws the act
-        # kernel's per-step Philox keys; env resets and minibatch
-        # shuffles draw on the device.
-        self._key_gen = torch.Generator().manual_seed(config.seed)
-        params_seed, env_seed, shuffle_seed = torch.randint(
-            0, 2**62, (3,), generator=self._key_gen
-        ).tolist()
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
-        self._env_gen = torch.Generator(device=self.device).manual_seed(env_seed)
-        self._shuffle_gen = torch.Generator(device=self.device).manual_seed(shuffle_seed)
         self.state = AlgorithmState(
             env_state=None,
             buffer=self._zero_buffer(),
@@ -416,58 +323,9 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         )
         return stats, reset_now
 
-    def collect(
-        self,
-        *,
-        env_config: None | dict[str, Any] = None,
-        deterministic: bool = False,
-    ) -> CollectStats:
-        """Collect environment transitions and policy samples in the buffer.
-
-        The environment is reset per ``horizons_per_env_reset``; otherwise
-        the last observation carries over.
-
-        Args:
-            env_config: Optional config for the env's reset (ignored when
-                no reset is scheduled).
-            deterministic: Sample deterministically (evaluation) vs
-                stochastically (learning).
-
-        Returns:
-            Summary statistics of the collected experiences.
-
-        """
-        with profile_ms() as collect_timer:
-            stats, was_reset = self._collect_impl(env_config, deterministic)
-            # The one host fetch of the rollout; it waits for the device.
-            values = torch.stack(list(stats.values())).tolist()
-        collect_stats: CollectStats = dict(zip(stats, values))  # type: ignore[assignment]
-        collect_stats["env/resets"] = self.hparams.num_envs * int(was_reset)
-        collect_stats["env/steps"] = self.hparams.num_envs * self.hparams.horizon
-        collect_stats["profiling/collect_ms"] = collect_timer()
-        return collect_stats
-
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
-
-    def _advantages(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The advantage stage that starts a PPO update: unnormalized
-        advantages and returns from the GAE kernel, then (optionally)
-        advantages standardized with the batch mean and ``ddof=1`` std.
-        Returns ``(advantages [T, B, 1], returns [T, B, 1])``."""
-        h = self.hparams
-        buffer = self.state.buffer
-        advantages, returns = fused_gae(
-            buffer[DataKeys.REWARDS],
-            buffer[DataKeys.VALUES],
-            self.state.reward_scale,
-            gamma=h.gamma,
-            gae_lambda=h.gae_lambda,
-        )
-        if h.normalize_advantages:
-            advantages = (advantages - gmean(advantages)) / (gstd(advantages) + 1e-8)
-        return advantages, returns
 
     @torch.no_grad()
     def _step_impl(self, lr: float, entropy_coeff: float) -> torch.Tensor:
@@ -476,13 +334,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         Returns the step's window-averaged stats on the device, in the
         order entropy, policy, vf, total, kl."""
         h = self.hparams
-        N = h.num_envs * h.horizon
-        M = h.num_minibatches
-        mb_rows = N // M
-        accum = M if h.accumulate_grads else 1
         model = self.policy.model
         buffer = self.state.buffer
-        dev = self.device
 
         advantages, returns = self._advantages()
         views = model.apply_view_requirements(
@@ -497,61 +350,16 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 DataKeys.VIEWS: views,
             }
         )
-        cfg = PPOLossConfig(
-            clip_param=h.clip_param,
-            vf_clip_param=h.vf_clip_param,
-            vf_coeff=h.vf_coeff,
-            dual_clip_param=h.dual_clip_param,
-            n_rows=mb_rows,
-            accum=accum,
-            use_entropy=not self._static_zero_entropy,
-            squashed=self._squashed_dist,
-        )
-        ec = torch.full((), entropy_coeff, dtype=torch.float32, device=dev)
+        cfg = self._loss_config(packed.shape[0] // h.num_minibatches)
+        ec = torch.full((), entropy_coeff, dtype=torch.float32, device=self.device)
         # The update's working copy of the parameters, in kernel order.
         params = self._pack_params()
-        flat = params.flat
-        opt_state = self.state.opt_state
-        # Device-side carry: the gradient and stat sums of the current
-        # accumulation window (entropy, policy, vf, total, kl), their
-        # totals over windows, the window count, and the KL stop flag.
-        grad_acc = torch.zeros_like(flat)
-        window = torch.zeros(5, device=dev)
-        totals = torch.zeros(5, device=dev)
-        n_windows = torch.zeros((), device=dev)
-        stopped = torch.zeros((), dtype=torch.bool, device=dev)
-        never = torch.zeros((), dtype=torch.bool, device=dev)
-        shuffle = h.shuffle_minibatches and M > 1 and accum == 1
-        blk = math.gcd(h.effective_shuffle_block, mb_rows)
-        for _ in range(h.num_sgd_iters):
-            epoch = block_shuffle(packed, self._shuffle_gen, blk) if shuffle else packed
-            for i in range(M):
-                losses, kl, grads = fused_ppo_grads(
-                    dataclasses.replace(params, flat=flat),
-                    epoch[i * mb_rows : (i + 1) * mb_rows],
-                    unpack,
-                    ec,
-                    cfg,
-                )
-                # Minibatches after a KL early stop change nothing; the
-                # one that triggers it still counts in the stats.
-                active = ~stopped
-                trigger = kl > 1.5 * h.target_kl_div if h.target_kl_div is not None else never
-                window = window + torch.stack(
-                    [losses["entropy"], losses["policy"], losses["vf"], losses["total"], kl]
-                ) / accum
-                grad_acc = grad_acc + grads
-                if (i + 1) % accum == 0:
-                    flat, opt_state = adam_step(
-                        flat, grad_acc, opt_state, lr=lr, max_grad_norm=h.max_grad_norm,
-                        adam=self.adam, apply=active & ~trigger,
-                    )
-                    totals = torch.where(active, totals + window, totals)
-                    n_windows = torch.where(active, n_windows + 1.0, n_windows)
-                    grad_acc = torch.zeros_like(grad_acc)
-                    window = torch.zeros_like(window)
-                stopped = stopped | trigger
-
+        flat, opt_state, stats = self._sgd_epochs(
+            packed,
+            lambda flat, mb: fused_ppo_grads(dataclasses.replace(params, flat=flat), mb, unpack, ec, cfg),
+            params.flat,
+            lr,
+        )
         load_flat_params(model, flat)
         # Reset the buffer, keeping the final observation.
         new_buffer = {key: torch.zeros_like(value) for key, value in buffer.items()}
@@ -559,65 +367,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         self.state = dataclasses.replace(
             self.state, buffer=new_buffer, buffered=False, opt_state=opt_state
         )
-        return totals / torch.clamp_min(n_windows, 1.0)
-
-    def step(self) -> StepStats:
-        """Update the policy using the collected buffer: the advantage
-        stage, then ``num_sgd_iters`` epochs of minibatch PPO updates.
-
-        Returns:
-            Loss/coefficient/KL stats for the step.
-
-        """
-        if not self.state.buffered:
-            raise RuntimeError(
-                f"{self.__class__.__name__} has no buffered rollout to train"
-                " on — every `step` must be preceded by a `collect`."
-            )
-        with profile_ms() as step_timer:
-            entropy_coeff = 0.0 if self._static_zero_entropy else self.entropy_scheduler.coeff
-            stats = self._step_impl(self.lr_scheduler.coeff, entropy_coeff)
-            # The one host fetch of the update; it waits for the device.
-            ent, pol, vf, total, kl = stats.tolist()
-            count = self.hparams.num_envs * self.state.horizons
-            self.lr_scheduler.step(count)
-            self.entropy_scheduler.step(count)
-        return {
-            "coefficients/entropy": float(entropy_coeff),
-            "coefficients/vf": self.hparams.vf_coeff,
-            "losses/entropy": ent,
-            "losses/policy": pol,
-            "losses/vf": vf,
-            "losses/total": total,
-            "monitors/kl_div": kl,
-            "profiling/step_ms": step_timer(),
-        }
-
-    def train_steps(
-        self,
-        num_steps: int,
-        /,
-        *,
-        env_config: None | dict[str, Any] = None,
-    ) -> list[dict[str, float]]:
-        """Run ``num_steps`` collect+step iterations and return each
-        iteration's stats (collect and step stats together, with
-        ``profiling/train_ms`` the mean wall time of an iteration), as
-        ``rl8_tpu``'s ``train_steps`` does; the scheduler cadence is
-        :meth:`step`'s."""
-        if num_steps <= 0:
-            raise ValueError("`num_steps` must be > 0.")
-        records: list[dict[str, float]] = []
-        with profile_ms() as timer:
-            for _ in range(num_steps):
-                record: dict[str, Any] = dict(self.collect(env_config=env_config))
-                record.update(self.step())
-                records.append(record)
-        elapsed_ms = timer()
-        for record in records:
-            del record["profiling/collect_ms"], record["profiling/step_ms"]
-            record["profiling/train_ms"] = elapsed_ms / num_steps
-        return records
+        return stats
 
     # ------------------------------------------------------------------
     # validation

@@ -45,22 +45,15 @@
 // Everything is f32 end to end (no tensor cores), so logp and values agree
 // with the plain PyTorch version to f32 rounding.
 //
-// Random numbers: counter-based Philox4x32-10 keyed by the per-step
-// (seed, offset) that the wrapper draws from the algorithm's generator,
-// so draws do not depend on the block size. A categorical draw is word 0
-// at counter (row, group, category, 0); a normal draw is Box-Muller,
-// sqrt(-2 log u1) cos(2 pi u2), on words 0 and 1 at counter (row, dim, 0,
-// 1). A word's top 23 bits scaled by 2^-23 and clamped to >= 1e-7 give a
-// uniform (the TPU kernel's construction); the Gumbel term is
-// -log(-log(u)). ops/distmath.py:philox_uniform and philox_normal are the
-// same generator in PyTorch, so the plain version can replay a launch's
-// draws exactly.
+// Sampling and its Philox random numbers are sample.cuh's, shared with
+// rnn_act.cu.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "distmath.cuh"
 #include "mlp.cuh"
+#include "sample.cuh"
 
 namespace {
 
@@ -80,28 +73,6 @@ struct ActDims {
   int n_heads;  // heads of the policy chain: 1 (logits) or 2 (mean, log-std)
   int head_w;   // width of each: A * n logits, or A
 };
-
-__device__ __forceinline__ uint2 philox_words01(uint32_t c0, uint32_t c1, uint32_t c2,
-                                                uint32_t c3, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint2(c0, c1);
-}
-
-__device__ __forceinline__ float to_uniform(uint32_t bits) {
-  return fmaxf(__uint2float_rn(bits >> 9) * 1.1920928955078125e-7f, 1e-7f);
-}
 
 // Shared memory of a block: xs [kRows, d_in], two ping-pong activation
 // buffers [kRows, max_hidden], and the heads [kRows, n_heads * head_w + 1]
@@ -159,44 +130,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nr = min(kRows, B - r0);
   const float* heads = twin_forward(obs, params, r0, nr, d, smem);
   float* chosen = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);  // [kRows, A]
-
-  for (int t = threadIdx.x; t < nr * A; t += blockDim.x) {
-    const int r = t / A;
-    const int a = t % A;
-    const float* z = heads + r * stride + a * n_cat;
-    float m = z[0];
-    for (int c = 1; c < n_cat; ++c) m = fmaxf(m, z[c]);
-    float s = 0.0f;
-    for (int c = 0; c < n_cat; ++c) s += expf(z[c] - m);
-    const float lse = m + logf(s);
-    int best = 0;
-    float best_score = -INFINITY;
-    float best_lp = z[0] - lse;
-    for (int c = 0; c < n_cat; ++c) {
-      const float lp = z[c] - lse;
-      float score = lp;
-      if (!deterministic) {
-        const float u = to_uniform(philox_words01((uint32_t)(r0 + r), (uint32_t)a, (uint32_t)c,
-                                                  0u, seed, offset).x);
-        score = lp - logf(-logf(u));
-      }
-      if (score > best_score) {  // strict: ties go to the first index
-        best_score = score;
-        best = c;
-        best_lp = lp;
-      }
-    }
-    actions[(size_t)(r0 + r) * A + a] = best;
-    chosen[r * A + a] = best_lp;
-  }
-  __syncthreads();
-
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-    float total = chosen[r * A];
-    for (int a = 1; a < A; ++a) total += chosen[r * A + a];
-    logp[r0 + r] = total;
-    values[r0 + r] = heads[r * stride + stride - 1];
-  }
+  rl8::categorical_epilogue(heads, stride, r0, nr, A, n_cat, seed, offset, deterministic, actions, logp,
+                            values, chosen);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -213,49 +148,8 @@ __global__ void __launch_bounds__(kThreads)
   // [kRows, 2A]: each dim's (clamped, when squashed) base log-prob, then
   // its tanh log-det term.
   float* parts = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);
-
-  for (int t = threadIdx.x; t < nr * A; t += blockDim.x) {
-    const int r = t / A;
-    const int a = t % A;
-    const float* z = heads + r * stride;
-    const float mean = z[a];
-    const float log_std = tanhf(z[A + a]);
-    const float sd = expf(log_std);
-    const float inv_var = expf(-2.0f * log_std);
-    float x = mean;
-    if (!deterministic) {
-      const uint2 w = philox_words01((uint32_t)(r0 + r), (uint32_t)a, 0u, 1u, seed, offset);
-      const float noise = sqrtf(-2.0f * logf(to_uniform(w.x))) * cosf(rl8::kTwoPi * to_uniform(w.y));
-      // Rounded as the plain version's two tensor ops round it.
-      x = __fadd_rn(mean, __fmul_rn(sd, noise));
-    }
-    float base, log_det = 0.0f;
-    if (squashed) {
-      x = tanhf(x);
-      const float c = rl8::squash_clip(x);
-      base = rl8::clamp100(rl8::normal_per_dim_logp(rl8::clipped_atanh(c) - mean, log_std, inv_var));
-      log_det = rl8::squash_log_det(c);
-    } else {
-      base = rl8::normal_per_dim_logp(x - mean, log_std, inv_var);
-    }
-    actions[(size_t)(r0 + r) * A + a] = x;
-    parts[r * 2 * A + a] = base;
-    parts[r * 2 * A + A + a] = log_det;
-  }
-  __syncthreads();
-
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-    const float* pr = parts + r * 2 * A;
-    float total = pr[0];
-    for (int a = 1; a < A; ++a) total += pr[a];
-    if (squashed) {
-      float det = pr[A];
-      for (int a = 1; a < A; ++a) det += pr[A + a];
-      total -= det;
-    }
-    logp[r0 + r] = total;
-    values[r0 + r] = heads[r * stride + stride - 1];
-  }
+  rl8::continuous_epilogue(heads, stride, r0, nr, A, squashed, seed, offset, deterministic, actions, logp,
+                           values, parts);
 }
 
 // The dims of a launch, or false if the kernels do not take them.

@@ -21,6 +21,8 @@ __all__ = [
     "AlgorithmHparams",
     "AlgorithmState",
     "CollectStats",
+    "RecurrentAlgorithmHparams",
+    "RecurrentAlgorithmState",
     "StepStats",
 ]
 
@@ -136,6 +138,58 @@ class AlgorithmHparams:
         return self
 
 
+@dataclass(frozen=True, kw_only=True)
+class RecurrentAlgorithmHparams(AlgorithmHparams):
+    """Recurrent PPO hyperparameters (the same constraint set as
+    ``rl8_tpu.data.RecurrentAlgorithmHparams``). A minibatch counts
+    sequences of ``seq_len`` steps.
+
+    Examples:
+        >>> from rl8_tpu_torch.data import RecurrentAlgorithmHparams
+        >>> kw = dict(accumulate_grads=False, clip_param=0.2, dual_clip_param=None, enable_amp=False,
+        ...           gae_lambda=0.95, gamma=0.95, horizon=32, horizons_per_env_reset=1, max_grad_norm=5.0,
+        ...           normalize_advantages=True, normalize_rewards=True, num_envs=8, num_sgd_iters=4,
+        ...           sgd_minibatch_size=16, shuffle_minibatches=True, target_kl_div=None, vf_clip_param=5.0,
+        ...           vf_coeff=1.0, seqs_per_state_reset=8)
+        >>> RecurrentAlgorithmHparams(seq_len=4, **kw).num_minibatches
+        4
+        >>> RecurrentAlgorithmHparams(seq_len=5, **kw)
+        Traceback (most recent call last):
+        ...
+        ValueError: `seq_len` must be a factor of `horizon`.
+
+    """
+
+    seq_len: int
+    seqs_per_state_reset: int
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if not (self.seq_len > 0):
+            raise ValueError("`seq_len` must be > 0.")
+        if self.horizon % self.seq_len:
+            raise ValueError("`seq_len` must be a factor of `horizon`.")
+        if self.seqs_per_state_reset == 0:
+            raise ValueError("`seqs_per_state_reset` must be nonzero.")
+        if (self.horizon * self.horizons_per_env_reset) % (self.seq_len * self.seqs_per_state_reset):
+            raise ValueError(
+                "`seq_len * seqs_per_state_reset` must be a factor of"
+                " `horizon * horizons_per_env_reset`."
+            )
+
+    @property
+    def num_minibatches(self) -> int:
+        return (self.num_envs * (self.horizon // self.seq_len)) // self.sgd_minibatch_size
+
+    def validate(self) -> "RecurrentAlgorithmHparams":
+        if (self.num_envs * (self.horizon // self.seq_len)) % self.sgd_minibatch_size:
+            raise ValueError(
+                "`sgd_minibatch_size` must be a factor of"
+                " `num_envs * (horizon // seq_len)`."
+            )
+        return self
+
+
 @dataclass
 class AlgorithmState:
     """Dynamic feedforward PPO state.
@@ -159,6 +213,16 @@ class AlgorithmState:
     #: The optimizer's state over the flat parameter vector (Adam's
     #: moments and step count, on the device); ``None`` until built.
     opt_state: Any = None
+
+
+@dataclass
+class RecurrentAlgorithmState(AlgorithmState):
+    """Recurrent PPO dynamic state: adds the sequence counter that drives
+    the recurrent states' reset cadence (a host int, since the rollout loop
+    runs on the host)."""
+
+    #: Number of recurrent sequences transitioned during training.
+    seqs: int = 0
 
 
 CollectStats = TypedDict(

@@ -1,12 +1,14 @@
 """Carry weights across to and from the JAX package.
 
-:func:`load_jax_params` copies a flax parameter tree of
-``rl8_tpu.models.DefaultDiscreteModel`` (as nested dicts of numpy
-arrays, e.g. ``jax.device_get(params)``) into this package's
-:class:`~rl8_tpu_torch.models.DefaultDiscreteModel`;
+:func:`load_jax_params` copies a flax parameter tree of one of
+``rl8_tpu``'s default models (as nested dicts of numpy arrays, e.g.
+``jax.device_get(params)``) into this package's model of the same name;
 :func:`to_jax_params` is its inverse. A flax ``kernel`` is ``[in, out]``;
 ``nn.Linear.weight`` is ``[out, in]``, so kernels are transposed on the
-way across.
+way across. The recurrent models' LSTM layers are flax
+``OptimizedLSTMCell``s, one kernel per gate (``ii``, ``if``, ``ig``, ``io``
+without bias, ``hi``, ``hf``, ``hg``, ``ho`` with one), which this package
+holds concatenated in i, f, g, o order.
 """
 
 from __future__ import annotations
@@ -18,9 +20,13 @@ import torch
 from torch import nn
 
 from ..ops.fused_mlp import chain_names
+from ..ops.fused_rnn_act import rnn_head_names
 from ._feedforward import GenericModel
+from ._recurrent import RecurrentModel
 
 __all__ = ["load_jax_params", "to_jax_params"]
+
+_GATES = ("i", "f", "g", "o")
 
 
 def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
@@ -35,12 +41,37 @@ def _copy_dense(layer: nn.Linear, dense: Mapping[str, Any]) -> None:
         layer.bias.copy_(torch.tensor(np.asarray(dense["bias"], dtype=np.float32)))
 
 
-def load_jax_params(model: GenericModel, params: Mapping[str, Any], /) -> GenericModel:
+def _load_lstm(model: RecurrentModel, params: Mapping[str, Any]) -> None:
+    lstm = params["lstm"]
+    if len(lstm) != model.num_layers:
+        raise ValueError(f"The flax tree has {len(lstm)} LSTM layers but the model has {model.num_layers}.")
+    for l in range(model.num_layers):
+        cell = lstm[f"lstm_{l}"]
+        for name, got in (
+            ("wi", np.concatenate([np.asarray(cell[f"i{g}"]["kernel"], np.float32) for g in _GATES], axis=1)),
+            ("wh", np.concatenate([np.asarray(cell[f"h{g}"]["kernel"], np.float32) for g in _GATES], axis=1)),
+            ("b", np.concatenate([np.asarray(cell[f"h{g}"]["bias"], np.float32) for g in _GATES])),
+        ):
+            param = getattr(model.lstm, name)[l]
+            if got.shape != tuple(param.shape):
+                raise ValueError(f"lstm_{l}'s {name} is {got.shape} in the flax tree, {tuple(param.shape)} here.")
+            param.copy_(torch.tensor(got))
+
+
+def load_jax_params(model: Any, params: Mapping[str, Any], /) -> Any:
     """Load a flax param tree into ``model`` in place and return it: for
     the discrete model ``feature_model/Dense_i``, ``feature_head``,
     ``vf_model/Dense_i``, ``vf_head``; for the continuous one
     ``latent_model/Dense_i``, ``action_mean``, ``action_log_std``,
-    ``vf_model/Dense_i``, ``vf_head``."""
+    ``vf_model/Dense_i``, ``vf_head``; for the recurrent ones
+    ``lstm/lstm_l`` and the heads ``feature_head``, ``vf_head`` or
+    ``action_mean``, ``action_log_std``, ``vf_model``."""
+    if isinstance(model, RecurrentModel):
+        with torch.no_grad():
+            _load_lstm(model, params)
+            for head_name in rnn_head_names(model):
+                _copy_dense(getattr(model, head_name), params[head_name])
+        return model
     layout = chain_names(model)  # the flax tree's top-level keys, per chain
     with torch.no_grad():
         for torso_name, head_names in layout:
@@ -65,7 +96,7 @@ def _dense(layer: nn.Linear) -> dict[str, np.ndarray]:
     }
 
 
-def to_jax_params(model: GenericModel, /) -> dict[str, Any]:
+def to_jax_params(model: GenericModel | RecurrentModel, /) -> dict[str, Any]:
     """The inverse of :func:`load_jax_params`: ``model``'s parameters as
     the flax tree of the ``rl8_tpu`` model of the same name, nested dicts
     of f32 numpy arrays (host copies).
@@ -79,6 +110,20 @@ def to_jax_params(model: GenericModel, /) -> dict[str, Any]:
 
     """
     tree: dict[str, Any] = {}
+    if isinstance(model, RecurrentModel):
+        H = model.hidden_size
+        tree["lstm"] = {}
+        for l in range(model.num_layers):
+            wi, wh, b = (getattr(model.lstm, name)[l].detach().cpu().numpy() for name in ("wi", "wh", "b"))
+            cell: dict[str, Any] = {}
+            for k, g in enumerate(_GATES):
+                cols = slice(k * H, (k + 1) * H)
+                cell[f"i{g}"] = {"kernel": wi[:, cols].copy()}
+                cell[f"h{g}"] = {"kernel": wh[:, cols].copy(), "bias": b[cols].copy()}
+            tree["lstm"][f"lstm_{l}"] = cell
+        for head_name in rnn_head_names(model):
+            tree[head_name] = _dense(getattr(model, head_name))
+        return tree
     for torso_name, head_names in chain_names(model):
         torso = getattr(model, torso_name)
         tree[torso_name] = {f"Dense_{i}": _dense(layer) for i, layer in enumerate(torso.layers)}

@@ -127,6 +127,27 @@ def load() -> ctypes.CDLL:
             i32, ptr,  # device, stream
         ]
         lib.rl8_ppo_grads.restype = i32
+        lib.rl8_rnn_act.argtypes = [
+            ptr, ptr, ptr, ptr,  # obs, h, c, params
+            ptr, ptr, ptr, ptr, ptr,  # actions, logp, values, new h, new c
+            i32, i32, i32, i32,  # B, d_in, H, K
+            i32, i32, i32,  # kind, action_dim, n_cat
+            u32, u32, i32,  # seed, offset, deterministic
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_rnn_act.restype = i32
+        # N, d_in, H, L, K, kind, action_dim, n_cat
+        lib.rl8_rnn_ppo_workspace.argtypes = [i32] * 8
+        lib.rl8_rnn_ppo_workspace.restype = ctypes.c_longlong
+        lib.rl8_rnn_ppo_grads.argtypes = [
+            ptr, i32, i32, ptr,  # packed, N, D, column starts (host int[7])
+            ptr, ptr, ptr, ptr, ptr,  # entropy coeff, params, grads, stats, workspace
+            i32, i32, i32, i32,  # d_in, H, L, K
+            i32, i32, i32,  # kind, action_dim, n_cat
+            f32, f32, f32, f32, f32, f32, i32,  # clip lo/hi, dual, vf clip, vf scale, scale, use_entropy
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_rnn_ppo_grads.restype = i32
         lib.rl8_cuda_error_string.argtypes = [i32]
         lib.rl8_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -160,11 +160,13 @@ def _vf_grad_terms(
 
 
 def _losses(
-    stats: torch.Tensor, entropy_coeff: torch.Tensor, cfg: PPOLossConfig
+    stats: torch.Tensor, entropy_coeff: torch.Tensor, cfg: PPOLossConfig, steps: int = 1
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """``(losses, kl)`` means from the four stat sums (policy, vf,
-    entropy, kl), as ``rl8_tpu``'s ``fused_ppo_grads`` forms them."""
-    n = float(cfg.n_rows)
+    entropy, kl) over ``n_rows * steps`` samples (``steps`` per recurrent
+    sequence), as ``rl8_tpu``'s ``fused_ppo_grads`` and
+    ``fused_rnn_ppo_grads`` form them."""
+    n = float(cfg.n_rows * steps)
     policy, vf, entropy, kl = (stats[i] / n for i in range(4))
     total = cfg.vf_coeff * vf - policy
     if cfg.use_entropy:

@@ -2,5 +2,6 @@
 
 from ._base import GenericPolicyBase
 from ._feedforward import Policy
+from ._recurrent import RecurrentPolicy
 
-__all__ = ["GenericPolicyBase", "Policy"]
+__all__ = ["GenericPolicyBase", "Policy", "RecurrentPolicy"]

@@ -193,8 +193,11 @@ def test_port_imports_no_jax(path: str) -> None:
         "rl8_tpu_torch.distributions",
         "rl8_tpu_torch.nn.functional",
         "rl8_tpu_torch.models._feedforward",
+        "rl8_tpu_torch.models._recurrent",
+        "rl8_tpu_torch.policies._recurrent",
         "rl8_tpu_torch.utils",
         "rl8_tpu_torch.algorithms._feedforward",
+        "rl8_tpu_torch.algorithms._recurrent",
     ],
 )
 def test_port_doctests(module_name: str) -> None:

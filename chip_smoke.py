@@ -27,8 +27,11 @@ non-zero:
    states included) and at a ragged B=1000 with two layers; the recurrent
    update at 65,536 sequences of 4 steps (categorical and squashed), at a
    ragged 1,000 sequences with two layers (entropy, dual clip,
-   accumulation) and at samples that hit the clamp, and its width limit),
-   each timed beside its plain version.
+   accumulation) and at samples that hit the clamp, and its width limit;
+   the chain forward and backward kernels at MischievousMule's chains
+   (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
+   (1,000 rows, d_in 1 and 64) and at zero-variance rows), each timed
+   beside its plain version.
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -43,7 +46,12 @@ non-zero:
    4, a whole-buffer minibatch of 65,536 sequences, 4 epochs), one
    warm-up and five timed ``collect()`` + ``step()`` iterations, with the
    rollout's log-probs and values held against the module's forward from
-   the stored states.
+   the stored states; then ``AlgorithmConfig(model_cls=MischievousMule,
+   fused_forward=True, num_envs=4096, horizon=32, sgd_minibatch_size=32768,
+   device="cuda").build(AlgoTrading)``, one warm-up and five timed
+   iterations (chain forward 49, backward 16, GAE 1 per iteration), its
+   rollout held against the module on its training views, and the same
+   with ``fused_forward=False`` (no chain launch).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
    discrete env and for the continuous one with ``SquashedNormal``; the
@@ -52,7 +60,7 @@ non-zero:
 5. small configurations run on the card and on the CPU (the plain
    versions) from the same seed, two collects and one step, compared:
    the discrete one and the continuous one with ``Normal``, feedforward
-   and recurrent.
+   and recurrent, and ``MischievousMule`` (deterministic collects).
 6. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
@@ -87,6 +95,10 @@ GAE_RTOL, GAE_ATOL = 1e-5, 1e-4
 #: near-zero policy mean of zero-mean advantages.
 PPO_GRAD_RTOL, PPO_GRAD_ATOL = 1e-4, 1e-6
 PPO_STAT_RTOL, PPO_STAT_ATOL = 1e-5, 1e-6
+#: Chain kernels vs their plain versions: head outputs and dx, f32 with
+#: other summation orders (and LayerNorm's E[z^2] - E[z]^2 cancelling in
+#: both); parameter gradients by PPO_GRAD_*'s norm-relative error.
+CHAIN_RTOL, CHAIN_ATOL = 1e-4, 1e-4
 #: Frequency test: draws per row, and the allowed deviation in standard
 #: deviations of a sum of independent Bernoulli counts.
 FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
@@ -198,6 +210,20 @@ def main() -> int:
             "replaces": "rl8_tpu/ops/fused_rnn_ppo.py:194 _kernel",
             "library_ms": None,
         },
+        "chains_fwd": {
+            "name": "chains_fwd",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/chains.cu",
+            "replaces": "rl8_tpu/ops/fused_mlp.py:306 _fwd_kernel",
+            "library_ms": None,
+        },
+        "chains_bwd": {
+            "name": "chains_bwd",
+            "route": "cuda",
+            "source": "rl8_tpu_torch/csrc/chains.cu",
+            "replaces": "rl8_tpu/ops/fused_mlp.py:410 _bwd_kernel",
+            "library_ms": None,
+        },
     }
     check_act(torch, dev, kernels["act"])
     check_gae(torch, dev, kernels["gae"])
@@ -206,16 +232,19 @@ def main() -> int:
     check_continuous_ppo(torch, dev, kernels["continuous_ppo"])
     check_rnn_act(torch, dev, kernels["rnn_act"])
     check_rnn_ppo(torch, dev, kernels["rnn_ppo"])
+    check_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
     run_recurrent_path(torch, dev, kernels)
+    run_custom_path(torch, dev, kernels)
     check_learning(torch, dev)
     check_learning_continuous(torch, dev)
     check_learning_recurrent(torch, dev)
     for recurrent in (False, True):
         check_small_against_cpu(torch, dev, recurrent=recurrent)
         check_small_against_cpu(torch, dev, continuous=True, recurrent=recurrent)
+    check_small_custom_against_cpu(torch, dev)
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -1064,13 +1093,213 @@ def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, 
           **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
 
 
+def make_mule(torch, seed: int, hiddens=(128, 128)):
+    """MischievousMule as the custom main path initializes it, on the CPU,
+    with the logits head re-drawn at lecun scale so that its greedy
+    actions are not near-ties."""
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.models import lecun_normal_
+
+    env = AlgoTrading(1, device="cpu")
+    model = MischievousMule(env.observation_spec, env.action_spec, hiddens=hiddens)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        lecun_normal_(model.feature_head.weight, gen)
+    return model
+
+
+def random_chains(torch, dev, seed: int, d_in: int, layout):
+    """Chains of ``layout`` (per chain: ``[(width, layer_norm), ...]`` and
+    the head widths) with lecun-scale weights, biases of 0.1, and
+    LayerNorm scales around 1 and biases around 0."""
+    gen = torch.Generator().manual_seed(seed)
+    chains = []
+    for layers, heads in layout:
+        k, built = d_in, []
+        for width, has_ln in layers:
+            layer = [torch.randn((k, width), generator=gen) / math.sqrt(k), 0.1 * torch.randn(width, generator=gen)]
+            if has_ln:
+                layer += [0.5 + torch.rand(width, generator=gen), 0.1 * torch.randn(width, generator=gen)]
+            built.append(tuple(t.to(dev) for t in layer))
+            k = width
+        head = [(torch.randn((k, w), generator=gen).to(dev) / math.sqrt(k), 0.1 * torch.randn(w, generator=gen).to(dev))
+                for w in heads]
+        chains.append((tuple(built), tuple(head)))
+    return tuple(chains)
+
+
+def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> dict:
+    """The chain kernels against their plain versions on ``x``: every head
+    output within CHAIN_RTOL/ATOL, then from random head cotangents the
+    backward twice (bit-identical) against ``chains_vjp_plain``: dx within
+    CHAIN_RTOL/ATOL and each parameter gradient within PPO_GRAD_* by norm,
+    all finite."""
+    from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains, unflatten_chains
+
+    structure = chain_structure(chains)
+    flat = flatten_chains(chains)
+    k_outs = fused_chains_fwd(x, flat, structure, activation)
+    p_outs = [o for chain in forward_chains(x, chains, activation)[0] for o in chain]
+    torch.cuda.synchronize()
+    fwd_err = 0.0
+    for i, (k, p) in enumerate(zip(k_outs, p_outs)):
+        check(bool(torch.isfinite(k).all()), f"{what}: head {i} output finite")
+        check(torch.allclose(k, p, rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: head {i} output")
+        fwd_err = max(fwd_err, float((k - p).abs().max()))
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    douts = [torch.randn(o.shape, generator=gen, device=x.device) for o in p_outs]
+    k_dx, k_dflat = fused_chains_bwd(x, flat, structure, activation, douts)
+    k2_dx, k2_dflat = fused_chains_bwd(x, flat, structure, activation, douts)
+    grouped, i = [], 0
+    for _, heads in structure[1]:
+        grouped.append(douts[i : i + len(heads)])
+        i += len(heads)
+    p_dx, p_dchains = chains_vjp_plain(x, chains, activation, grouped)
+    torch.cuda.synchronize()
+    check(torch.equal(k_dx, k2_dx) and torch.equal(k_dflat, k2_dflat), f"{what}: two backward launches bit-identical")
+    check(bool(torch.isfinite(k_dx).all() and torch.isfinite(k_dflat).all()), f"{what}: gradients finite")
+    check(torch.allclose(k_dx, p_dx, rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: dx")
+    worst_grad = 0.0
+    k_tensors = [t for layers, heads in unflatten_chains(k_dflat, structure) for ts in (*layers, *heads) for t in ts]
+    p_tensors = [t for layers, heads in p_dchains for ts in (*layers, *heads) for t in ts]
+    for kt, pt in zip(k_tensors, p_tensors):
+        err, ref = float((kt - pt).norm()), float(pt.norm())
+        worst_grad = max(worst_grad, err / max(ref, 1e-30))
+        check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+              f"{what}: gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
+    return {"fwd_max_abs_err": fwd_err, "dx_max_abs_err": float((k_dx - p_dx).abs().max()),
+            "worst_grad_norm_rel_err": worst_grad, "bit_identical": True,
+            "max_abs_err": max(fwd_err, float((k_dx - p_dx).abs().max()), float((k_dflat - flatten_chains(p_dchains)).abs().max()))}
+
+
+def chain_counts(structure, N: int) -> tuple[int, int, int, int]:
+    """``(fwd flops, fwd bytes, bwd flops, bwd bytes)`` of the chain kernels
+    on N rows: per row the dense products' multiply-adds (the backward
+    recomputes them and adds the dh and weight products, three times
+    theirs), LayerNorm's elementwise work left out; each input read once
+    and each output written once."""
+    d_in, shapes = structure
+    macs, n_params, n_out = 0, 0, 0
+    for layers, heads in shapes:
+        k = d_in
+        for width, has_ln in layers:
+            macs += k * width
+            n_params += k * width + width + (2 * width if has_ln else 0)
+            k = width
+        for width in heads:
+            macs += k * width
+            n_params += k * width + width
+            n_out += width
+    fwd_bytes = 4 * (N * d_in + n_params + N * n_out)
+    bwd_bytes = 4 * (2 * N * d_in + 2 * n_params + N * n_out)
+    return 2 * N * macs, fwd_bytes, 2 * N * 3 * macs, bwd_bytes
+
+
+def bound(flops: int, bytes_moved: int) -> tuple[float, str]:
+    ops_s, bytes_s = flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s > bytes_s else "bytes"
+
+
+def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
+    """The chain kernels against their plain versions on the card
+    (compare_chains): (a) MischievousMule's chains at the main path's
+    4,096 rollout rows and 32,768 minibatch rows; (b) a ragged 1,000 rows
+    of three tanh chains with mixed LayerNorm flags, 48 and 100 wide, two
+    heads (2 and 9 wide) on one chain, at d_in 1 and 64; (c) rows whose pre-LayerNorm
+    values are constant (zero variance). Then each kernel timed beside its
+    plain version at the main path's shapes, with its bound."""
+    from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+
+    mule = make_mule(torch, seed=5).to(dev)
+    mule_chains = default_chains(mule)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = {N: 0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)}
+    for N, x in xs.items():
+        result = compare_chains(torch, f"chains (a, N={N})", x, mule_chains, "relu", seed=N)
+        emit({"phase": "kernel_check", "kernel": "chains", "config": "a", "N": N, **result})
+        if N == 32768:
+            fwd_record["max_abs_err"] = result["fwd_max_abs_err"]
+            bwd_record["max_abs_err"] = result["max_abs_err"]
+    ragged = (
+        ([(48, True), (100, False), (48, True)], [2, 9]),
+        ([(100, False), (48, True), (100, True)], [1]),
+        ([(48, True), (48, False), (100, False)], [3]),
+    )
+    for d_in in (1, 64):
+        chains = random_chains(torch, dev, seed=d_in, d_in=d_in, layout=ragged)
+        x = 2.0 * torch.randn((1000, d_in), generator=gen, device=dev)
+        result = compare_chains(torch, f"chains (b, d_in={d_in})", x, chains, "tanh", seed=d_in)
+        emit({"phase": "kernel_check", "kernel": "chains", "config": "b", "N": 1000, "d_in": d_in, **result})
+    # (c): zero rows of x meet a constant first-layer bias, so those rows'
+    # pre-LayerNorm values are exactly 0.5: variance 0, s = 1000.
+    layers, heads = mule_chains[0]
+    w0, _, scale0, bias0 = layers[0]
+    const = ((((w0, torch.full_like(scale0, 0.5), scale0, bias0), *layers[1:]), heads), mule_chains[1])
+    x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
+    x[::3] = 0.0
+    result = compare_chains(torch, "chains (c, zero variance)", x, const, "relu", seed=7)
+    emit({"phase": "kernel_check", "kernel": "chains", "config": "c", "N": 1000, "zero_variance_rows": 334, **result})
+    # The size limit is the kernels' own: the main path's chains pass, a
+    # 4096-wide layer (whose rows do not fit a block's shared memory) is
+    # refused by the query and by the wrapper.
+    from rl8_tpu_torch.ops import card_takes_chains
+
+    wide = random_chains(torch, dev, seed=9, d_in=7, layout=(([(4096, True)], [3]),))
+    check(card_takes_chains(mule_chains), "chains: the kernels refuse the main path's chains")
+    check(not card_takes_chains(wide), "chains: the kernels take a 4096-wide layer")
+    try:
+        fused_chains_fwd(xs[4096][:16], flatten_chains(wide), chain_structure(wide), "relu")
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "chains: the wrapper launched a 4096-wide layer")
+    emit({"phase": "kernel_check", "kernel": "chains", "width_limit": {"128": True, "4096": False}})
+
+    structure = chain_structure(mule_chains)
+    flat = flatten_chains(mule_chains)
+    times = {}
+    for N, x in xs.items():
+        fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = chain_counts(structure, N)
+        ms, host_ms = time_ms(torch, lambda: fused_chains_fwd(x, flat, structure, "relu"), iters=50)
+        plain_ms, _ = time_ms(torch, lambda: forward_chains(x, mule_chains, "relu"), iters=20)
+        times[N] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound=bound(fwd_flops, fwd_bytes))
+        emit({"phase": "kernel_time", "kernel": "chains_fwd", "N": N, "flops": fwd_flops, "bytes": fwd_bytes,
+              "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": times[N]["bound"][0]})
+    t = times[32768]
+    fwd_record.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                      host_ms=t["host_ms"], rollout_ms=times[4096]["ms"], rollout_plain_ms=times[4096]["plain_ms"],
+                      rollout_bound_ms=times[4096]["bound"][0])
+    N, x = 32768, xs[32768]
+    _, _, bwd_flops, bwd_bytes = chain_counts(structure, N)
+    douts = [torch.randn((N, w), generator=gen, device=dev) for w in (3, 1)]
+    ms, host_ms = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=20, warmup=2)
+    plain_ms, _ = time_ms(torch, lambda: chains_vjp_plain(x, mule_chains, "relu", [douts[:1], douts[1:]]),
+                          iters=10, warmup=2)
+    bwd_record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound(bwd_flops, bwd_bytes)[0],
+                      bound_by=bound(bwd_flops, bwd_bytes)[1], host_ms=host_ms)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_chains_bwd(x, flat, structure, "relu", douts)
+        torch.cuda.synchronize()
+    split = {e.key[:60]: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0}
+    emit({"phase": "kernel_time", "kernel": "chains_bwd", "N": N, "flops": bwd_flops, "bytes": bwd_bytes,
+          "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bwd_record["bound_ms"],
+          "split_ms": split})
+
+
 def time_updates(torch, dev, label: str, card: str) -> None:
     """``--time-updates LABEL``: only the update kernels' device ms per
     launch at the main paths' shapes (``time_ms``: the feedforward kernel,
     262,144 rows, categorical and squashed; the recurrent one, 65,536
-    sequences of 4 steps, categorical) and the recurrent launch's device
-    time by kernel (``torch.profiler``), on one JSON line with LABEL and
-    the card. To compare two commits on one card, unpack one into a
+    sequences of 4 steps, categorical; the chain kernels at
+    MischievousMule's 32,768 minibatch rows, and the forward at 4,096) and
+    the recurrent and chain backward launches' device time by kernel
+    (``torch.profiler``), on one JSON line with LABEL and the card. To compare two commits on one card, unpack one into a
     directory that ``.gitignore`` lists (``git archive``) and run each
     checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
     one command."""
@@ -1108,6 +1337,24 @@ def time_updates(torch, dev, label: str, card: str) -> None:
         torch.cuda.synchronize()
     out["rnn_ppo_split_ms"] = {
         e.key: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0
+    }
+
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+
+    chains = default_chains(make_mule(torch, seed=5).to(dev))
+    structure, flat = chain_structure(chains), flatten_chains(chains)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = 0.5 * torch.randn((32768, 7), generator=gen, device=dev)
+    douts = [torch.randn((32768, w), generator=gen, device=dev) for w in (3, 1)]
+    out["chains_fwd_ms"] = device_ms(lambda: ops.fused_chains_fwd(x, flat, structure, "relu"))
+    out["chains_fwd_4096_ms"] = device_ms(lambda: ops.fused_chains_fwd(x[:4096], flat, structure, "relu"))
+    out["chains_bwd_ms"] = device_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.fused_chains_bwd(x, flat, structure, "relu", douts)
+        torch.cuda.synchronize()
+    out["chains_bwd_split_ms"] = {
+        e.key[:60]: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0
     }
     emit(out)
 
@@ -1177,11 +1424,20 @@ def run_main_path(torch, dev) -> None:
 
 def zero_counters() -> None:
     """Set every kernel wrapper's launch counters to 0."""
-    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads
+    from rl8_tpu_torch.ops import (
+        fused_act,
+        fused_chains_bwd,
+        fused_chains_fwd,
+        fused_gae,
+        fused_ppo_grads,
+        fused_rnn_act,
+        fused_rnn_ppo_grads,
+    )
 
     for fn in (fused_act, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads):
         fn.launches = fn.continuous_launches = 0
-    fused_gae.launches = 0
+    for fn in (fused_gae, fused_chains_fwd, fused_chains_bwd):
+        fn.launches = 0
 
 
 def time_iterations(torch, algo, iters: int = 6) -> tuple[list, list, list]:
@@ -1347,6 +1603,149 @@ def run_recurrent_path(torch, dev, kernels: dict) -> None:
     })
     profile_window(torch, "recurrent collect", algo.collect)
     profile_window(torch, "recurrent step", algo.step)
+
+
+def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibatch_size: int = 32768) -> None:
+    """The custom-model main path: ``AlgorithmConfig(model_cls=MischievousMule,
+    fused_forward=True, num_envs=4096, horizon=32, sgd_minibatch_size=32768,
+    device="cuda").build(AlgoTrading)`` (the JAX package's algotrading bench
+    shape at the model's defaults, in f32), one warm-up and five timed
+    collect() + step() iterations. Per iteration the chain forward must
+    launch 49 times (32 steps and the bootstrap value, 4 epochs x 4
+    minibatches), the backward 16, GAE once, and no act or update kernel.
+    Then one more collect, whose log-probs and values are held against the
+    module forward on the training views of its buffer (the rollout's view
+    windows must equal them), a profiled collect and step, and the same
+    timing with ``fused_forward=False`` (module forward, autograd on
+    cuBLAS), which must launch no chain kernel."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.algorithms._feedforward import _t2b
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.distributions import Categorical
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.ops import (
+        fused_act,
+        fused_chains_bwd,
+        fused_chains_fwd,
+        fused_gae,
+        fused_ppo_grads,
+        fused_rnn_act,
+        fused_rnn_ppo_grads,
+    )
+
+    iters = 6
+    phases = {}
+    for fused in (True, False):
+        algo = AlgorithmConfig(model_cls=MischievousMule, fused_forward=fused, num_envs=num_envs, horizon=32,
+                               sgd_minibatch_size=sgd_minibatch_size, device=dev).build(AlgoTrading)
+        h = algo.hparams
+        model = algo.policy.model
+        check(algo._fused_forward == fused, f"fused_forward={fused} but the algorithm's is {algo._fused_forward}")
+        check(model.hiddens == (128, 128) and h.num_minibatches == 4 and h.num_sgd_iters == 4, "custom path shape")
+        collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
+        fwd, bwd, gae = fused_chains_fwd.launches, fused_chains_bwd.launches, fused_gae.launches
+        other = sum(fn.launches + fn.continuous_launches
+                    for fn in (fused_act, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads))
+        per_step = h.num_sgd_iters * h.num_minibatches
+        want = (iters * (h.horizon + 1 + per_step), iters * per_step) if fused else (0, 0)
+        check((fwd, bwd) == want, f"chain launches (fwd, bwd) {(fwd, bwd)} != {want}")
+        check(gae == iters and other == 0, f"GAE launches {gae}, other kernels {other}")
+        for stats in steps:
+            check(all(math.isfinite(v) for v in stats.values()), f"step stats finite: {stats}")
+        for name, param in model.named_parameters():
+            check(bool(torch.isfinite(param).all()), f"parameter {name} finite")
+        check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
+              "the buffer is spent and Adam counted every update")
+        med_collect = sorted(collect_ms)[len(collect_ms) // 2]
+        med_step = sorted(step_ms)[len(step_ms) // 2]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if fused:
+            kernels["chains_fwd"]["launches"], kernels["chains_bwd"]["launches"] = fwd, bwd
+            # The rollout against the module on the buffer's training views.
+            algo.collect()
+            buffer = algo.state.buffer
+            with torch.no_grad():
+                features, values = model(algo._training_views(buffer[DataKeys.OBS]))
+                logp = Categorical(features).logp(_t2b(buffer[DataKeys.ACTIONS]))
+            worst = 0.0
+            for what, got, want_t in (("logp", _t2b(buffer[DataKeys.LOGP]), logp),
+                                      ("values", _t2b(buffer[DataKeys.VALUES][:-1]), values)):
+                worst = max(worst, float((got - want_t).abs().max()))
+                check(torch.allclose(got, want_t, rtol=ACT_RTOL, atol=ACT_ATOL), f"custom rollout {what} vs module")
+            masked = features["logits"] < -1e37
+            check(bool((masked == ~buffer[DataKeys.OBS]["action_mask"][:-1].transpose(0, 1).reshape(-1, 1, 3)).all()),
+                  "masked logits are exactly the masked actions")
+            profile_window(torch, "custom collect", algo.collect)
+            profile_window(torch, "custom step", algo.step)
+        phases[fused] = {
+            "collect_ms": collect_ms, "step_ms": step_ms, "collect_ms_median": med_collect,
+            "step_ms_median": med_step,
+            "transitions_per_s_with_update": h.num_envs * h.horizon / ((med_collect + med_step) / 1e3),
+            "launches": {"chains_fwd": fwd, "chains_bwd": bwd, "gae": gae}, "peak_memory_gb": peak_gb,
+            "last_step": steps[-1],
+        }
+        emit({"phase": "main_path_custom" if fused else "main_path_custom_module",
+              "model": "MischievousMule", "env": "AlgoTrading", "fused_forward": fused, "num_envs": h.num_envs,
+              "horizon": h.horizon, "hiddens": list(model.hiddens), "num_sgd_iters": h.num_sgd_iters,
+              "num_minibatches": h.num_minibatches, "parameters": sum(p.numel() for p in model.parameters()),
+              **({"rollout_vs_module_max_abs_err": worst} if fused else {}), **phases[fused]})
+        if not fused:
+            algo.collect()
+            profile_window(torch, "custom module step", algo.step)
+
+
+def check_small_custom_against_cpu(torch, dev) -> None:
+    """MischievousMule (16-wide torsos, fused_forward) on AlgoTrading, 64
+    envs, horizon 8, on the card and on the CPU (the kernels' plain
+    versions) from one seed and the same start states: two deterministic
+    collects (the second carrying over) and one whole-buffer step."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.models import lecun_normal_
+    from rl8_tpu_torch.views import tree_map
+
+    class FixedStart(AlgoTrading):
+        def reset(self, generator, *, state=None, config=None):
+            s, o = AlgoTrading(self.num_envs, self.horizon, device="cpu").reset(torch.Generator().manual_seed(5))
+            return tree_map(lambda t: t.to(self.device), s), tree_map(lambda t: t.to(self.device), o)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        algo = AlgorithmConfig(model_cls=MischievousMule, model_config={"hiddens": (16, 16)}, fused_forward=True,
+                               num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7,
+                               device=device).build(FixedStart)
+        with torch.no_grad():  # logits far from ties, the same on both
+            w = torch.empty_like(algo.policy.model.feature_head.weight, device="cpu")
+            lecun_normal_(w, torch.Generator().manual_seed(11))
+            algo.policy.model.feature_head.weight.copy_(w)
+        stats = [algo.collect(deterministic=True), algo.collect(deterministic=True)]
+        buffer = {k: tree_map(lambda t: t.cpu(), v) for k, v in algo.state.buffer.items()}
+        start = algo._flat_params().cpu()
+        runs[device] = (stats, buffer, algo.step(), algo._flat_params().cpu() - start)
+    (s_g, b_g, st_g, d_g), (s_c, b_c, st_c, d_c) = runs["cuda"], runs["cpu"]
+    check(torch.equal(b_g[DataKeys.ACTIONS], b_c[DataKeys.ACTIONS]), "small custom run actions equal")
+    for key in ("action_mask", "invested"):
+        check(torch.equal(b_g[DataKeys.OBS][key], b_c[DataKeys.OBS][key]), f"small custom run obs {key}")
+    for key in ("LOG_CHANGE(price)", "LOG_CHANGE(price, position)"):
+        check(torch.allclose(b_g[DataKeys.OBS][key], b_c[DataKeys.OBS][key], rtol=ACT_RTOL, atol=1e-6),
+              f"small custom run obs {key}")
+    for key in (DataKeys.LOGP, DataKeys.VALUES, DataKeys.REWARDS, DataKeys.REVERSED_DISCOUNTED_RETURNS):
+        check(torch.allclose(b_g[key], b_c[key], rtol=ACT_RTOL, atol=ACT_ATOL), f"small custom run {key}")
+    for sg, sc in zip(s_g, s_c):
+        for k in sg:
+            if k.startswith(("returns/", "rewards/")):
+                check(math.isclose(sg[k], sc[k], rel_tol=1e-4, abs_tol=1e-4), f"small custom run stat {k}")
+    for k in ("losses/entropy", "losses/policy", "losses/vf", "losses/total", "monitors/kl_div"):
+        check(math.isclose(st_g[k], st_c[k], rel_tol=1e-4, abs_tol=1e-6),
+              f"small custom run step {k}: {st_g[k]} vs {st_c[k]}")
+    delta_err = float((d_g - d_c).norm() / d_c.norm())
+    check(delta_err <= 1e-3, f"small custom run parameter change differs by {delta_err:.3g} of its norm")
+    emit({"phase": "small_custom_vs_cpu", "num_envs": 64, "horizon": 8, "collects": 2, "steps": 1,
+          "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
+          "values_max_abs_err": float((b_g[DataKeys.VALUES] - b_c[DataKeys.VALUES]).abs().max()),
+          "step_loss_max_abs_err": max(abs(st_g[k] - st_c[k]) for k in st_c if k.startswith("losses/")),
+          "param_change_norm_rel_err": delta_err})
 
 
 def profile_window(torch, window: str, fn) -> None:

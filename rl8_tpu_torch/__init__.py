@@ -12,7 +12,10 @@ with ``Normal`` or ``SquashedNormal``. The rollout (``collect``) runs
 through the act kernel of the model (feedforward, or the stacked-LSTM
 recurrent one), and the update (``step``) through the GAE kernel and the
 PPO update kernel of the model (feedforward, or the recurrent one with
-its backward through time), with clip-by-global-norm and Adam.
+its backward through time), with clip-by-global-norm and Adam. Custom
+feedforward models (``model``/``model_cls``; ``examples.algotrading``'s
+``MischievousMule``) run their forward, with ``fused_forward=True``,
+through the chain kernels, and their update through autograd.
 """
 
 from .algorithms import Algorithm, AlgorithmConfig, RecurrentAlgorithm, RecurrentAlgorithmConfig

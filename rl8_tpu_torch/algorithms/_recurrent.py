@@ -119,7 +119,8 @@ class RecurrentAlgorithmConfig:
     #: Run the optimizer over one flat parameter vector (the only mode of
     #: this port).
     flatten_optimizer: bool = True
-    #: The fused chain kernels of custom models: not in this port yet.
+    #: The chain kernels of custom recurrent models: a later slice (ROADMAP
+    #: Queue 1 #5); any value but the default raises.
     fused_forward: bool = False
     seed: int = 0
     #: Multi-device sharding: not in this port yet.
@@ -163,9 +164,9 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
             unported=(
                 (
                     config.model is not None or config.model_cls is not None,
-                    "custom recurrent models (`model`, `model_cls`; ROADMAP Queue 1, custom models)",
+                    "custom recurrent models (`model`, `model_cls`; ROADMAP Queue 1 #5)",
                 ),
-                (config.fused_forward, "fused_forward=True (ROADMAP Queue 1, custom models)"),
+                (config.fused_forward, "fused_forward=True on recurrent models (ROADMAP Queue 1 #5)"),
             ),
         )
         num_envs = min(config.num_envs, getattr(env_cls, "max_num_envs", config.num_envs))

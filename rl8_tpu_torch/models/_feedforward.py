@@ -119,6 +119,17 @@ class Model(GenericModelBase):
                 " in an ambiguous batch size."
             )
 
+    def fused_apply_spec(self) -> Any:
+        """Optional fused-kernel decomposition for custom MLP-style models
+        (see :class:`rl8_tpu_torch.ops.fused_mlp.FusedApplySpec`).
+
+        Return a ``FusedApplySpec`` to run this model's torso/head chains
+        through the chain kernels when ``fused_forward=True`` (input
+        assembly and output postprocessing stay in plain PyTorch,
+        differentiably). The default ``None`` keeps the module forward.
+        """
+        return None
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialize every parameter from ``generator``."""
         raise NotImplementedError

@@ -1,9 +1,12 @@
 """Carry weights across to and from the JAX package.
 
 :func:`load_jax_params` copies a flax parameter tree of one of
-``rl8_tpu``'s default models (as nested dicts of numpy arrays, e.g.
+``rl8_tpu``'s models (as nested dicts of numpy arrays, e.g.
 ``jax.device_get(params)``) into this package's model of the same name;
-:func:`to_jax_params` is its inverse. A flax ``kernel`` is ``[in, out]``;
+:func:`to_jax_params` is its inverse. A feedforward model's tree is its
+chains (``ops/fused_mlp.py:chain_names``: each torso's ``Dense_i`` and
+``LayerNorm_i``, each head) plus the leaves its ``extra_jax_params()``
+names (e.g. ``MischievousMule``'s ``invested_embedding/embedding``). A flax ``kernel`` is ``[in, out]``;
 ``nn.Linear.weight`` is ``[out, in]``, so kernels are transposed on the
 way across. The recurrent models' LSTM layers are flax
 ``OptimizedLSTMCell``s, one kernel per gate (``ii``, ``if``, ``ig``, ``io``
@@ -58,14 +61,21 @@ def _load_lstm(model: RecurrentModel, params: Mapping[str, Any]) -> None:
             param.copy_(torch.tensor(got))
 
 
+def _extra_params(model: Any) -> dict[tuple[str, ...], nn.Parameter]:
+    extra = getattr(model, "extra_jax_params", None)
+    return extra() if extra is not None else {}
+
+
 def load_jax_params(model: Any, params: Mapping[str, Any], /) -> Any:
     """Load a flax param tree into ``model`` in place and return it: for
     the discrete model ``feature_model/Dense_i``, ``feature_head``,
     ``vf_model/Dense_i``, ``vf_head``; for the continuous one
     ``latent_model/Dense_i``, ``action_mean``, ``action_log_std``,
-    ``vf_model/Dense_i``, ``vf_head``; for the recurrent ones
-    ``lstm/lstm_l`` and the heads ``feature_head``, ``vf_head`` or
-    ``action_mean``, ``action_log_std``, ``vf_model``."""
+    ``vf_model/Dense_i``, ``vf_head``; for a custom feedforward model its
+    chains (torsos with ``LayerNorm_i {scale, bias}`` where they have
+    them) and its extra leaves; for the recurrent ones ``lstm/lstm_l``
+    and the heads ``feature_head``, ``vf_head`` or ``action_mean``,
+    ``action_log_std``, ``vf_model``."""
     if isinstance(model, RecurrentModel):
         with torch.no_grad():
             _load_lstm(model, params)
@@ -76,17 +86,34 @@ def load_jax_params(model: Any, params: Mapping[str, Any], /) -> Any:
     with torch.no_grad():
         for torso_name, head_names in layout:
             torso = getattr(model, torso_name)
-            dense = params[torso_name]
-            if len(dense) != len(torso.layers):
+            sub = params[torso_name]
+            n_dense = sum(key.startswith("Dense_") for key in sub)
+            n_norm = sum(key.startswith("LayerNorm_") for key in sub)
+            if (n_dense, n_norm) != (len(torso.layers), len(torso.norms)):
                 raise ValueError(
-                    f"{torso_name} has {len(dense)} flax layers but the model"
-                    f" has {len(torso.layers)}."
+                    f"{torso_name} has {n_dense} flax Dense and {n_norm} LayerNorm layers but"
+                    f" the model has {len(torso.layers)} and {len(torso.norms)}."
                 )
             for i, layer in enumerate(torso.layers):
-                _copy_dense(layer, dense[f"Dense_{i}"])
+                _copy_dense(layer, sub[f"Dense_{i}"])
+            for i, norm in enumerate(torso.norms):
+                for name in ("scale", "bias"):
+                    _copy_leaf(getattr(norm, name), sub[f"LayerNorm_{i}"][name], f"{torso_name}/LayerNorm_{i}/{name}")
             for head_name in head_names:
                 _copy_dense(getattr(model, head_name), params[head_name])
+        for path, param in _extra_params(model).items():
+            leaf: Any = params
+            for key in path:
+                leaf = leaf[key]
+            _copy_leaf(param, leaf, "/".join(path))
     return model
+
+
+def _copy_leaf(param: torch.Tensor, value: Any, name: str) -> None:
+    value = np.asarray(value, dtype=np.float32)
+    if value.shape != tuple(param.shape):
+        raise ValueError(f"{name} is {value.shape} in the flax tree, {tuple(param.shape)} here.")
+    param.copy_(torch.tensor(value))
 
 
 def _dense(layer: nn.Linear) -> dict[str, np.ndarray]:
@@ -127,6 +154,15 @@ def to_jax_params(model: GenericModel | RecurrentModel, /) -> dict[str, Any]:
     for torso_name, head_names in chain_names(model):
         torso = getattr(model, torso_name)
         tree[torso_name] = {f"Dense_{i}": _dense(layer) for i, layer in enumerate(torso.layers)}
+        for i, norm in enumerate(torso.norms):
+            tree[torso_name][f"LayerNorm_{i}"] = {
+                name: getattr(norm, name).detach().cpu().numpy().copy() for name in ("scale", "bias")
+            }
         for head_name in head_names:
             tree[head_name] = _dense(getattr(model, head_name))
+    for path, param in _extra_params(model).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = param.detach().cpu().numpy().copy()
     return tree

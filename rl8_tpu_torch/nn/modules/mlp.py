@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``rl8_tpu/nn/modules/mlp.py`` with the same
 layout: an activation after every hidden linear layer except the last,
-which is a plain projection. ``layers[i]`` holds the flax ``Dense_i``.
+which is a plain projection, and with ``layer_norm`` flax's LayerNorm
+between each of those hidden layers and its activation. ``layers[i]``
+holds the flax ``Dense_i`` and ``norms[i]`` the flax ``LayerNorm_i``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from .activations import get_activation
+from .normalization import LayerNorm
 
 __all__ = ["MLP"]
 
@@ -25,6 +28,8 @@ class MLP(nn.Module):
         hiddens: Hidden (and output) layer dimensions.
         activation_fn: Activation following each hidden linear layer but
             the last.
+        layer_norm: Whether to apply layer norm after each hidden linear
+            layer but the last, before its activation.
         bias: Whether to include biases.
 
     """
@@ -35,6 +40,7 @@ class MLP(nn.Module):
         hiddens: Sequence[int],
         *,
         activation_fn: str = "relu",
+        layer_norm: bool = False,
         bias: bool = True,
     ) -> None:
         super().__init__()
@@ -42,10 +48,18 @@ class MLP(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(widths[i], widths[i + 1], bias=bias) for i in range(len(hiddens))
         )
+        self.norms = nn.ModuleList(LayerNorm(w) for w in hiddens[:-1]) if layer_norm else nn.ModuleList()
         self.activation_fn = activation_fn
         self._act = get_activation(activation_fn)
 
+    @property
+    def layer_norm(self) -> bool:
+        return len(self.norms) > 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers[:-1]:
-            x = self._act(layer(x))
+        for i, layer in enumerate(self.layers[:-1]):
+            x = layer(x)
+            if self.layer_norm:
+                x = self.norms[i](x)
+            x = self._act(x)
         return self.layers[-1](x)

@@ -148,6 +148,22 @@ def load() -> ctypes.CDLL:
             i32, ptr,  # device, stream
         ]
         lib.rl8_rnn_ppo_grads.restype = i32
+        i64 = ctypes.c_longlong
+        # N, d_in, spec (host int array), spec length, backward
+        lib.rl8_chains_workspace.argtypes = [i64, i32, ptr, i32, i32]
+        lib.rl8_chains_workspace.restype = i64
+        lib.rl8_chains_fwd.argtypes = [
+            ptr, ptr, ptr,  # x, params, head outputs (host pointer array)
+            i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_chains_fwd.restype = i32
+        lib.rl8_chains_bwd.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,  # x, params, head cotangents (host pointer array), dx, grads, workspace
+            i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act
+            i32, ptr,  # device, stream
+        ]
+        lib.rl8_chains_bwd.restype = i32
         lib.rl8_cuda_error_string.argtypes = [i32]
         lib.rl8_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

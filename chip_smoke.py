@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 ``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. (``python3
 chip_smoke.py --time-updates LABEL`` builds the kernels and times only
-the update kernels, for comparing two checkouts: see ``time_updates``.)
+the update kernels and their split by kernel, for comparing two
+checkouts: see ``time_updates``.)
 Phases, each printing one JSON line; any failed check raises and exits
 non-zero:
 
@@ -51,7 +52,11 @@ non-zero:
    device="cuda").build(AlgoTrading)``, one warm-up and five timed
    iterations (chain forward 49, backward 16, GAE 1 per iteration), its
    rollout held against the module on its training views, and the same
-   with ``fused_forward=False`` (no chain launch).
+   with ``fused_forward=False`` (no chain launch); between the squashed and
+   the recurrent paths, the routes ``rl8_tpu`` takes off the kernels at the
+   discrete cell's width, one collect and one step each: a ``gelu`` torso
+   (module rollout and autograd update, no act or update launch) and
+   ``fused_act=False`` (module rollout, 4 update launches).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
    discrete env and for the continuous one with ``SquashedNormal``; the
@@ -75,8 +80,13 @@ import time
 from pathlib import Path
 
 #: Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-#: f32 outside the tensor cores, and HBM3 bandwidth.
+#: f32 outside the tensor cores, dense TF32 on the tensor cores, and HBM3
+#: bandwidth. The update kernels' products run on the tensor cores in
+#: 3xTF32 (three TF32 products per f32 product), so their records carry a
+#: second bound, bound_tc_ms, at that rate.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 PEAK_BYTES_PER_S = 3.35e12
 
 #: Tolerances, f32 on both sides. The kernel sums each dot product in
@@ -236,6 +246,7 @@ def main() -> int:
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
+    run_repaired_routes(torch, dev)
     run_recurrent_path(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
     check_learning(torch, dev)
@@ -522,7 +533,7 @@ def compare_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
 
 def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unpack, ec, cfg) -> None:
     """Time the update kernel beside its plain version on one minibatch,
-    with its f32 bound."""
+    with its bounds (update_bounds)."""
     from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
 
     record["max_abs_err"] = result["max_abs_err"]
@@ -540,12 +551,21 @@ def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unp
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
     )
-    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    update_bounds(record, flops, bytes_moved)
     record["host_ms"] = host_ms
     emit({"phase": "kernel_time", "kernel": kernel, "N": N, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+
+
+def update_bounds(record: dict, flops: int, bytes_moved: int) -> None:
+    """An update kernel's bounds: f32 CUDA cores (bound_ms) and 3xTF32
+    tensor cores (bound_tc_ms), each the larger of its FLOP time and the
+    bytes' time."""
+    byte_s = bytes_moved / PEAK_BYTES_PER_S
+    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, byte_s)
+    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > byte_s else "bytes"
+    record["bound_tc_ms"] = 1e3 * max(TF32_PRODUCTS * flops / PEAK_TF32_FLOPS, byte_s)
 
 
 def make_continuous_model(torch, action_dim: int, seed: int, obs_dim: int = 1, mean_scale: float = 0.06,
@@ -1085,12 +1105,11 @@ def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, 
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
     )
-    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    update_bounds(record, flops, bytes_moved)
     record["host_ms"] = host_ms
     emit({"phase": "kernel_time", "kernel": "rnn_ppo_update", "N": N, "L": L, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
 
 
 def make_mule(torch, seed: int, hiddens=(128, 128)):
@@ -1298,8 +1317,9 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     262,144 rows, categorical and squashed; the recurrent one, 65,536
     sequences of 4 steps, categorical; the chain kernels at
     MischievousMule's 32,768 minibatch rows, and the forward at 4,096) and
-    the recurrent and chain backward launches' device time by kernel
-    (``torch.profiler``), on one JSON line with LABEL and the card. To compare two commits on one card, unpack one into a
+    the feedforward (both kinds), recurrent and chain backward launches'
+    device time by kernel (``torch.profiler``), on one JSON line with
+    LABEL and the card. To compare two commits on one card, unpack one into a
     directory that ``.gitignore`` lists (``git archive``) and run each
     checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
     one command."""
@@ -1315,15 +1335,25 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     def device_ms(fn) -> float:
         return time_ms(torch, fn, iters=10, warmup=2)[0]
 
+    def split_ms(fn, width: int = 80) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key[:width]: e.self_device_time_total / 1e3
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+
     N = 8192 * 32
     model = make_model(torch, Discrete(2, shape=(1,)), seed=40 + ord("a"))
     params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=ord("a"))
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
     out["ppo_ms"] = device_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
+    out["ppo_split_ms"] = split_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
     model = make_continuous_model(torch, 1, seed=80 + ord("a"))
     params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=ord("a"), squashed=True)
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, squashed=True, **loss)
     out["continuous_ppo_ms"] = device_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
+    out["continuous_ppo_split_ms"] = split_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
 
     N = 65536
     model = make_rnn_model(torch, "categorical", seed=110 + ord("a"))
@@ -1331,13 +1361,7 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, "categorical", N, 4, seed=ord("a"))
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
     out["rnn_ppo_ms"] = device_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)
-        torch.cuda.synchronize()
-    out["rnn_ppo_split_ms"] = {
-        e.key: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0
-    }
+    out["rnn_ppo_split_ms"] = split_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
 
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1349,13 +1373,7 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["chains_fwd_ms"] = device_ms(lambda: ops.fused_chains_fwd(x, flat, structure, "relu"))
     out["chains_fwd_4096_ms"] = device_ms(lambda: ops.fused_chains_fwd(x[:4096], flat, structure, "relu"))
     out["chains_bwd_ms"] = device_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.fused_chains_bwd(x, flat, structure, "relu", douts)
-        torch.cuda.synchronize()
-    out["chains_bwd_split_ms"] = {
-        e.key[:60]: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0
-    }
+    out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
     emit(out)
 
 
@@ -1525,6 +1543,47 @@ def run_update_path(torch, dev, kernels: dict, continuous: bool = False) -> None
         check(actions.dtype == torch.float32 and bool((actions.abs() <= 1.0).all()),
               "squashed actions are f32 in [-1, 1]")
     profile_window(torch, "continuous step" if continuous else "step", algo.step)
+
+
+def run_repaired_routes(torch, dev) -> None:
+    """The routes ``rl8_tpu`` takes for default models off the kernels, at
+    the discrete cell's width (``DiscreteDummyEnv``, 8192 envs, horizon 32,
+    twin 256-wide torsos, a whole-buffer minibatch, 4 epochs), one collect
+    and one step each with the launch counters set to 0 just before and
+    read just after: a ``gelu`` torso collects through the module rollout
+    and steps through autograd (no act or update launch); with
+    ``fused_act=False`` the module rollout feeds the update kernel (4
+    launches, no act launch)."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads
+
+    for name, kw in (("gelu", {"model_config": {"activation_fn": "gelu"}}), ("fused_act_off", {"fused_act": False})):
+        algo = AlgorithmConfig(device="cuda", **kw).build(DiscreteDummyEnv)
+        h = algo.hparams
+        per_step = h.num_sgd_iters * h.num_minibatches
+        fused = (algo._fused_act, algo._fused_update)
+        check(fused == ((False, False) if name == "gelu" else (False, True)), f"{name}: routes {fused}")
+        torch.cuda.synchronize()
+        zero_counters()
+        t = time.perf_counter()
+        collect = algo.collect()
+        t_mid = time.perf_counter()
+        stats = algo.step()
+        t_end = time.perf_counter()
+        launches = {"act": fused_act.launches + fused_act.continuous_launches, "gae": fused_gae.launches,
+                    "ppo": fused_ppo_grads.launches + fused_ppo_grads.continuous_launches}
+        want = {"act": 0, "gae": 1, "ppo": 0 if name == "gelu" else per_step}
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        check(all(math.isfinite(v) for v in (*collect.values(), *stats.values())), f"{name}: stats finite")
+        for pname, param in algo.policy.model.named_parameters():
+            check(bool(torch.isfinite(param).all()), f"{name}: parameter {pname} finite")
+        check(not algo.state.buffered and int(algo.state.opt_state.count) == per_step,
+              f"{name}: the buffer is spent and Adam counted every update")
+        emit({"phase": "main_path_repaired_route", "route": name, "num_envs": h.num_envs, "horizon": h.horizon,
+              "hiddens": list(algo.policy.model.hiddens), "activation": algo.policy.model.activation_fn,
+              "fused_act": fused[0], "fused_update": fused[1], "launches": launches,
+              "collect_ms": (t_mid - t) * 1e3, "step_ms": (t_end - t_mid) * 1e3, "step": stats})
 
 
 def run_recurrent_path(torch, dev, kernels: dict) -> None:

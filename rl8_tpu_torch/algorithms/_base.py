@@ -86,6 +86,7 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
             (config.optimizer_cls is not None, "optimizers other than Adam"),
             (not config.flatten_optimizer, "flatten_optimizer=False"),
             (config.enable_amp, "enable_amp"),
+            (config.exact_sharding, "exact_sharding, rl8_tpu's GSPMD mode of a mesh (ROADMAP Queue 1 #8)"),
             *unported,
         ):
             if flag:

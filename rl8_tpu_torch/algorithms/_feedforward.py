@@ -3,24 +3,28 @@ PPO update.
 
 PyTorch counterpart of ``rl8_tpu/algorithms/_feedforward.py``. The JAX
 package compiles ``collect`` and ``step`` into ``lax.scan``s; here they
-are Python loops that launch the port's kernels. Two routes, by model:
+are Python loops that launch the port's kernels. Two routes for the
+rollout and two for the update, chosen at build as ``rl8_tpu`` chooses
+them (``fused_act`` and ``fused_update``, each on where the kernels take
+the model: a default model with relu or tanh, biased layers, at most 8 of
+them, and its distribution):
 
-- The default models run the fused act and update kernels: ``collect``
-  loops over the horizon, each step one launch of the act kernel of the
-  policy's distribution (``ops/fused_act.py``), the env step and the
-  reversed-return update; ``step`` runs the advantage stage through the
-  GAE kernel (``ops/gae.py``), packs the B-major training batch into one
-  int32 matrix (``ops/packing.py``), and per epoch and minibatch launches
-  the PPO update kernel (``ops/fused_ppo.py``), then the clipped Adam
-  update (``utils/optim.py``).
-- Custom models (``model`` or ``model_cls``) run as ``rl8_tpu`` runs them
-  without the fused act and update kernels: each rollout step builds the
-  model's views from a carried window of observations, runs the model
-  (through the chain kernels, ``ops/fused_mlp.py``, with
-  ``fused_forward=True`` and a model that declares a ``FusedApplySpec``;
-  else its module forward) and samples its distribution; the update takes
-  the PPO loss's gradient with autograd, over the same packed minibatches,
-  SGD epochs and flat Adam.
+- The fused act kernel: ``collect`` loops over the horizon, each step one
+  launch of the act kernel of the policy's distribution
+  (``ops/fused_act.py``), the env step and the reversed-return update.
+- The module rollout (custom models, ``model`` or ``model_cls``, and
+  default models the kernels do not take or with ``fused_act=False``):
+  each rollout step builds the model's views from a carried window of
+  observations, runs the model (through the chain kernels,
+  ``ops/fused_mlp.py``, with ``fused_forward=True`` and a model that
+  declares a ``FusedApplySpec``; else its module forward) and samples its
+  distribution.
+- ``step`` runs the advantage stage through the GAE kernel
+  (``ops/gae.py``) and packs the B-major training batch into one int32
+  matrix (``ops/packing.py``); then, per epoch and minibatch, either one
+  launch of the PPO update kernel (``ops/fused_ppo.py``) or the PPO loss's
+  gradient by autograd through the model, then the clipped Adam update
+  (``utils/optim.py``) over one flat parameter vector.
 
 In both, the KL early stop, the gradient accumulation and the stat sums
 stay on the device (the update is gated with ``torch.where``, as
@@ -42,6 +46,7 @@ from ..env import EnvFactory
 from ..models import DefaultContinuousModel, DefaultDiscreteModel, Model, ModelFactory
 from ..nn import ppo_losses
 from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
+from ..ops.fused_ppo import supports_distribution
 from ..ops.fused_mlp import (
     card_takes_chains,
     chain_names,
@@ -105,8 +110,9 @@ class AlgorithmConfig:
     discrete actions and ``Normal`` or ``SquashedNormal`` for continuous
     ones; the optimizer is Adam after a global-norm clip, over one flat
     parameter vector. ``optimizer_cls``, ``flatten_optimizer``,
-    ``enable_amp`` and ``mesh`` exist so that a JAX config carries over;
-    any value but the default raises ``NotImplementedError``.
+    ``enable_amp``, ``mesh`` and ``exact_sharding`` exist so that a JAX
+    config carries over; any value but the default raises
+    ``NotImplementedError``.
     """
 
     #: Model instance to use (its architecture; its parameters are
@@ -186,11 +192,28 @@ class AlgorithmConfig:
     #: ``rl8_tpu``; on a CUDA device, chains wider than the card kernels
     #: take raise ``NotImplementedError`` at build.
     fused_forward: bool = False
+    #: Compute each PPO minibatch's losses and parameter gradients with
+    #: one launch of the update kernel (``ops/fused_ppo.py``: forward,
+    #: distribution log-probs and entropy, dual-clip surrogate and clamped
+    #: smooth-L1 value loss, hand-derived backward). Matches the autodiff
+    #: route to f32 rounding. Off for custom models and for default models
+    #: the kernels do not take (another activation than relu or tanh,
+    #: ``bias=False``, more than 8 layers), which take the autodiff route.
+    fused_update: bool = True
+    #: Sample rollout actions, log-probs and values with one launch of the
+    #: act kernel per step (``ops/fused_act.py``). Its Philox draws differ
+    #: from the module rollout's sampler at equal seeds while following
+    #: the same distributions. Off under the same conditions as
+    #: ``fused_update``.
+    fused_act: bool = True
     #: Seed of every random stream (parameters, env resets, sampling,
     #: minibatch shuffles).
     seed: int = 0
     #: Multi-device sharding: not in this port yet.
     mesh: Any = None
+    #: ``rl8_tpu``'s GSPMD sharding mode of a ``mesh``: not in this port
+    #: yet (ROADMAP Queue 1 #8).
+    exact_sharding: bool = False
     #: Device that holds the model, the env and the buffer. The default
     #: is the card; pass ``"cpu"`` to run the kernels' plain versions.
     device: str | torch.device = "cuda"
@@ -245,19 +268,22 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         #: Whether the action distribution squashes through tanh (the
         #: kernels' SquashedNormal variant).
         self._squashed_dist = self.policy.distribution_cls is SquashedNormal
-        #: Whether the rollout and the update run the default models' act
-        #: and update kernels (else the custom route).
-        self._default_route = type(model) in (DefaultDiscreteModel, DefaultContinuousModel)
-        if self._default_route and not supports_fused_update(
-            model, self.policy.distribution_cls, zero_entropy=self._static_zero_entropy
+        dist_cls, zero_entropy = self.policy.distribution_cls, self._static_zero_entropy
+        if type(model) in (DefaultDiscreteModel, DefaultContinuousModel) and not supports_distribution(
+            model, dist_cls, zero_entropy=zero_entropy
         ):
             raise NotImplementedError(
-                "This port runs the default models (relu or tanh, biased layers, at"
-                " most 8 of them): the discrete one with Categorical, the continuous"
-                " one with Normal, or with SquashedNormal when the entropy coefficient"
-                f" is 0 with no schedule; not {type(model).__name__} with"
-                f" {self.policy.distribution_cls.__name__} here."
+                "This port runs the default models: the discrete one with Categorical, the"
+                " continuous one with Normal, or with SquashedNormal when the entropy"
+                f" coefficient is 0 with no schedule; not {type(model).__name__} with"
+                f" {dist_cls.__name__} here."
             )
+        kernels_take = supports_fused_update(model, dist_cls, zero_entropy=zero_entropy)
+        #: Whether the update launches the update kernel (else autograd),
+        #: and the rollout the act kernel (else the module rollout):
+        #: ``rl8_tpu``'s gates, on the kernels' support of the model.
+        self._fused_update = config.fused_update and kernels_take
+        self._fused_act = config.fused_act and kernels_take
         model.validate_view_requirements()
         if model.drop_size:
             raise RuntimeError(
@@ -282,11 +308,10 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                     " chains of 1 to 8 layers and 1 to 4 heads, whose row passes must fit a block's"
                     " shared memory (the CPU takes any width)."
                 )
-        #: The custom route's parameters, in the order of the flat vector
-        #: the optimizer updates.
+        #: The autodiff route's parameters, in the order of its flat vector.
         self._params = list(model.parameters())
-        if not self._default_route:
-            #: Generator of the custom route's action samples.
+        if not self._fused_act:
+            #: Generator of the module rollout's action samples.
             self._sample_gen = torch.Generator(device=self.device).manual_seed(
                 int(torch.randint(0, 2**62, (1,), generator=self._key_gen))
             )
@@ -309,7 +334,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         module otherwise."""
         model = self.policy.model
         if self._fused_forward:
-            if self._default_route:
+            if type(model) in (DefaultDiscreteModel, DefaultContinuousModel):
                 return fused_default_apply(model, batch)
             return fused_custom_apply(model, batch)
         return model(batch)
@@ -320,17 +345,17 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         return pack_act_params(self.policy.model, squashed=self._squashed_dist)
 
     def _flat_params(self) -> torch.Tensor:
-        """The parameters as the flat vector the optimizer updates: the
-        kernels' order on the default route, ``model.parameters()``'s on
-        the custom one."""
-        if self._default_route:
+        """The parameters as the flat vector the optimizer updates (Adam's
+        state keeps its order): the kernels' order where the update kernel
+        runs, ``model.parameters()``'s on the autodiff route."""
+        if self._fused_update:
             return self._pack_params().flat
         return torch.cat([p.detach().reshape(-1) for p in self._params])
 
     def _load_flat(self, flat: torch.Tensor) -> None:
         """Write a flat vector of :meth:`_flat_params`'s layout into the
         model."""
-        if self._default_route:
+        if self._fused_update:
             load_flat_params(self.policy.model, flat)
             return
         off = 0
@@ -421,8 +446,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
     # collect
     # ------------------------------------------------------------------
 
-    def _default_rollout(self, deterministic: bool) -> tuple[Callable, Callable]:
-        """The default route's ``(act, bootstrap)``: one act-kernel launch
+    def _fused_rollout(self, deterministic: bool) -> tuple[Callable, Callable]:
+        """The fused act route's ``(act, bootstrap)``: one act-kernel launch
         per step, with the parameters packed once for the rollout."""
         params = self._pack_params()
         keys = torch.randint(0, 2**32, (self.hparams.horizon, 2), generator=self._key_gen).tolist()
@@ -437,8 +462,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
 
         return act, bootstrap
 
-    def _custom_rollout(self, deterministic: bool) -> tuple[Callable, Callable]:
-        """The custom route's ``(act, bootstrap)``: each pushes the newest
+    def _module_rollout(self, deterministic: bool) -> tuple[Callable, Callable]:
+        """The module rollout's ``(act, bootstrap)``: each pushes the newest
         observation into a window of the last ``S + 1`` observations of
         this horizon (``S`` the largest view shift; zeros, flagged as
         padding, before the horizon's first) and runs the model on its
@@ -494,7 +519,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 else torch.zeros((B, 1), device=self.device)
             )
 
-        act, bootstrap = (self._default_rollout if self._default_route else self._custom_rollout)(deterministic)
+        act, bootstrap = (self._fused_rollout if self._fused_act else self._module_rollout)(deterministic)
         cols: dict[str, list[Any]] = {
             DataKeys.OBS: [obs],
             DataKeys.ACTIONS: [],
@@ -555,8 +580,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
     # step
     # ------------------------------------------------------------------
 
-    def _custom_grads_fn(self, unpack: Any, entropy_coeff: float, accum: int) -> Callable:
-        """The custom route's ``grads_fn`` for ``_sgd_epochs``: the PPO
+    def _autodiff_grads_fn(self, unpack: Any, entropy_coeff: float, accum: int) -> Callable:
+        """The autodiff route's ``grads_fn`` for ``_sgd_epochs``: the PPO
         losses of a packed minibatch through :meth:`_apply_model` and the
         policy's distribution, their approximate KL, and the gradient of
         ``total / accum`` over the flat parameters, by autograd
@@ -606,7 +631,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 DataKeys.VIEWS: self._training_views(buffer[DataKeys.OBS]),
             }
         )
-        if self._default_route:
+        if self._fused_update:
             cfg = self._loss_config(packed.shape[0] // h.num_minibatches)
             ec = torch.full((), entropy_coeff, dtype=torch.float32, device=self.device)
             # The update's working copy of the parameters, in kernel order.
@@ -616,7 +641,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 return fused_ppo_grads(dataclasses.replace(params, flat=flat), mb, unpack, ec, cfg)
 
         else:
-            grads_fn = self._custom_grads_fn(unpack, entropy_coeff, h.num_minibatches if h.accumulate_grads else 1)
+            grads_fn = self._autodiff_grads_fn(unpack, entropy_coeff, h.num_minibatches if h.accumulate_grads else 1)
         flat, opt_state, stats = self._sgd_epochs(packed, grads_fn, self._flat_params(), lr)
         self._load_flat(flat)
         # Reset the buffer, keeping the final observation.

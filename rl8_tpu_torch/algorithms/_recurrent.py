@@ -61,10 +61,12 @@ class RecurrentAlgorithmConfig:
     ones. The model is the default recurrent model for the env's specs
     (a stacked LSTM), with ``Categorical`` for discrete actions and
     ``Normal`` or ``SquashedNormal`` for continuous ones. ``model``,
-    ``model_cls``, ``fused_forward``, ``optimizer_cls``,
-    ``flatten_optimizer``, ``enable_amp`` and ``mesh`` exist so that a JAX
-    config carries over; any value but the default raises
-    ``NotImplementedError``.
+    ``model_cls``, ``fused_update``, ``fused_act``, ``optimizer_cls``,
+    ``flatten_optimizer``, ``enable_amp``, ``mesh`` and ``exact_sharding``
+    exist so that a JAX config carries over; any value but the default
+    raises ``NotImplementedError``. ``fused_forward`` is accepted and, as
+    in ``rl8_tpu``, stays off for the default model (it declares no
+    ``FusedRecurrentApplySpec``).
     """
 
     #: A custom recurrent model instance: not in this port yet.
@@ -119,12 +121,25 @@ class RecurrentAlgorithmConfig:
     #: Run the optimizer over one flat parameter vector (the only mode of
     #: this port).
     flatten_optimizer: bool = True
-    #: The chain kernels of custom recurrent models: a later slice (ROADMAP
-    #: Queue 1 #5); any value but the default raises.
+    #: The chain kernels of custom recurrent models declaring a
+    #: ``FusedRecurrentApplySpec`` (custom recurrent models are a later
+    #: slice, ROADMAP Queue 1 #5); off for the default model.
     fused_forward: bool = False
+    #: Compute each minibatch's losses and parameter gradients with one
+    #: launch of the recurrent update kernel (``ops/fused_rnn_ppo.py``:
+    #: LSTM BPTT, heads and PPO losses). The port has no recurrent
+    #: autodiff route yet (ROADMAP Queue 1 #5): ``False`` raises.
+    fused_update: bool = True
+    #: Sample rollout actions, log-probs, values and states with one launch
+    #: of the recurrent act kernel per step (``ops/fused_rnn_act.py``).
+    #: ``False`` raises, as ``fused_update`` does.
+    fused_act: bool = True
     seed: int = 0
     #: Multi-device sharding: not in this port yet.
     mesh: Any = None
+    #: ``rl8_tpu``'s GSPMD sharding mode of a ``mesh``: not in this port
+    #: yet (ROADMAP Queue 1 #8).
+    exact_sharding: bool = False
     #: Device that holds the model, the env and the buffer. The default
     #: is the card; pass ``"cpu"`` to run the kernels' plain versions.
     device: str | torch.device = "cuda"
@@ -166,7 +181,11 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                     config.model is not None or config.model_cls is not None,
                     "custom recurrent models (`model`, `model_cls`; ROADMAP Queue 1 #5)",
                 ),
-                (config.fused_forward, "fused_forward=True on recurrent models (ROADMAP Queue 1 #5)"),
+                (
+                    not (config.fused_update and config.fused_act),
+                    "fused_update=False or fused_act=False on recurrent models: the recurrent"
+                    " autodiff route and module rollout (ROADMAP Queue 1 #5)",
+                ),
             ),
         )
         num_envs = min(config.num_envs, getattr(env_cls, "max_num_envs", config.num_envs))
@@ -191,6 +210,9 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                 " with Normal, or with SquashedNormal when the entropy coefficient is 0 with"
                 f" no schedule; not {type(model).__name__} with {self.policy.distribution_cls.__name__} here."
             )
+        #: The chain kernels for custom recurrent models: never on for the
+        #: default model, as in ``rl8_tpu``.
+        self._fused_forward = False
         self.hparams = RecurrentAlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * (horizon // max(config.seq_len, 1))),
             seq_len=config.seq_len,

@@ -49,8 +49,10 @@
 //   2. The weight products dW = h_in^T dpre, db = sum(dpre) and the heads'
 //      dW = h_{L-1}^T dout over all rows, and LayerNorm's dscale = sum(da *
 //      xhat) and dbias = sum(da) as bias-only column sums of scratch rows:
-//      wgrad.cuh's split-K jobs (64x64 tiles for wide products, a thread per
-//      output for narrow ones), each group of rows writing its own partial.
+//      wgrad.cuh's split-K jobs (128x128 tensor-core tiles for products 8 or
+//      more wide, the 7-wide input's dW and the heads included; a thread per
+//      column for the bias-only ones), each group of rows writing its own
+//      partial.
 //   3. sum_partials_kernel adds the partials in a fixed order.
 //   No float atomics: two launches give the same bits.
 #include <cuda_runtime.h>
@@ -446,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
 // Launches the weight products of jobs[0..n) in lists of at most
 // kMaxWgJobs, each group of rows writing its partial gradient.
 cudaError_t launch_jobs(const Job* jobs, int n, const Layout& L, float* partials, cudaStream_t s) {
-  Jobs tiled, narrow;
+  Jobs tiled, bias;
   auto reset = [&](Jobs* js) {
     js->n = 0;
     js->inner_rows = 1;
@@ -455,26 +457,25 @@ cudaError_t launch_jobs(const Job* jobs, int n, const Layout& L, float* partials
     js->P = L.P;
   };
   reset(&tiled);
-  reset(&narrow);
+  reset(&bias);
   int tiles = 0;
   cudaError_t err;
   auto flush = [&](bool force) -> cudaError_t {
     if (tiled.n > 0 && (force || tiled.n == rl8::kMaxWgJobs)) {
-      rl8::reduce_tiled_kernel<false><<<dim3(tiles, L.groups), rl8::kWgThreads, 0, s>>>(tiled, partials);
+      cudaError_t e = rl8::launch_tiled(tiled, tiles, L.groups, partials, s);
       reset(&tiled);
       tiles = 0;
-      cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
-    if (narrow.n > 0 && (force || narrow.n == rl8::kMaxWgJobs)) {
-      rl8::reduce_narrow_kernel<false><<<dim3(narrow.n, L.groups), rl8::kWgThreads, 0, s>>>(narrow, partials);
-      reset(&narrow);
-      return cudaGetLastError();
+    if (bias.n > 0 && (force || bias.n == rl8::kMaxWgJobs)) {
+      cudaError_t e = rl8::launch_bias(bias, L.groups, partials, s);
+      reset(&bias);
+      return e;
     }
     return cudaSuccess;
   };
   for (int q = 0; q < n; ++q) {
-    rl8::add_job(jobs[q], &tiled, &narrow, &tiles);
+    rl8::add_job(jobs[q], &tiled, &bias, &tiles);
     if ((err = flush(false)) != cudaSuccess) return err;
   }
   return flush(true);

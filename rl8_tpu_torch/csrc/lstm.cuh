@@ -19,14 +19,15 @@ namespace {  // each including source gets its own copy
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // acc[g][r] += sum_k in[r, k] * W[k, g H + j] over k in order, for the four
-// gates g. Where in_w is a multiple of 4, `in` (16-byte aligned) is read
-// four k at a time.
+// gates g; in's rows are ld_in apart (in_w when 0). Where in_w and ld_in
+// are multiples of 4, `in` (16-byte aligned) is read four k at a time.
 template <int R>
 __device__ __forceinline__ void gate_products(const float* in, int in_w, const float* __restrict__ W, int H,
-                                              int j, float (&acc)[4][R]) {
+                                              int j, float (&acc)[4][R], int ld_in = 0) {
+  if (ld_in == 0) ld_in = in_w;
   const size_t ld = 4 * (size_t)H;
   int k = 0;
-  if ((in_w & 3) == 0) {
+  if ((in_w & 3) == 0 && (ld_in & 3) == 0) {
     for (; k < in_w; k += 4) {
       float w[4][4];
 #pragma unroll
@@ -35,7 +36,7 @@ __device__ __forceinline__ void gate_products(const float* in, int in_w, const f
         for (int g = 0; g < 4; ++g) w[q][g] = __ldg(W + (k + q) * ld + g * H + j);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(in + r * in_w + k);
+        const float4 x = *reinterpret_cast<const float4*>(in + r * ld_in + k);
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           acc[g][r] = fmaf(x.x, w[0][g], acc[g][r]);
@@ -52,7 +53,7 @@ __device__ __forceinline__ void gate_products(const float* in, int in_w, const f
     for (int g = 0; g < 4; ++g) w[g] = __ldg(W + k * ld + g * H + j);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float x = in[r * in_w + k];
+      const float x = in[r * ld_in + k];
 #pragma unroll
       for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(x, w[g], acc[g][r]);
     }
@@ -60,19 +61,20 @@ __device__ __forceinline__ void gate_products(const float* in, int in_w, const f
 }
 
 // The pre-activations z = b + x Wi + h Wh of hidden unit j's four gates for
-// R rows of x [R, in_w] and h [R, H] (both in shared memory).
+// R rows of x [R, in_w] and h [R, H] (both in shared memory, rows ld_x and
+// ld_h apart, in_w and H when 0).
 template <int R>
 __device__ __forceinline__ void lstm_preact(const float* x, int in_w, const float* h, const float* __restrict__ Wi,
                                             const float* __restrict__ Wh, const float* __restrict__ b, int H,
-                                            int j, float (&z)[4][R]) {
+                                            int j, float (&z)[4][R], int ld_x = 0, int ld_h = 0) {
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
     const float bg = __ldg(b + g * H + j);
 #pragma unroll
     for (int r = 0; r < R; ++r) z[g][r] = bg;
   }
-  gate_products<R>(x, in_w, Wi, H, j, z);
-  gate_products<R>(h, H, Wh, H, j, z);
+  gate_products<R>(x, in_w, Wi, H, j, z, ld_x);
+  gate_products<R>(h, H, Wh, H, j, z, ld_h);
 }
 
 // The gate activations in place (sigmoid on i, f, o; tanh on g) of one row.

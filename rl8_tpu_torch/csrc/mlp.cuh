@@ -28,19 +28,23 @@ __device__ __forceinline__ float activate(float x, int act) {
 }
 
 // out[r, j] = act(sum_k in[r, k] * W[k, j] + b[j]) for all R rows, summed in
-// order of k; b may be null (no bias). Where in_w is a multiple of 4,
+// order of k; b may be null (no bias). in's rows are ld_in apart and out's
+// ld_out apart (in_w and out_w when 0). Where in_w is a multiple of 4,
 // activations are read four k at a time (one 16-byte broadcast load feeds
 // four FMAs), so shared-memory loads no longer pace the FMAs one for one.
 // `in` must then be 16-byte aligned.
 template <int R>
 __device__ void dense_layer(const float* in, int in_w, const float* __restrict__ W,
-                            const float* __restrict__ b, float* out, int out_w, int act) {
+                            const float* __restrict__ b, float* out, int out_w, int act, int ld_out = 0,
+                            int ld_in = 0) {
+  if (ld_out == 0) ld_out = out_w;
+  if (ld_in == 0) ld_in = in_w;
   for (int j = threadIdx.x; j < out_w; j += blockDim.x) {
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.0f;
     int k = 0;
-    if ((in_w & 3) == 0) {
+    if ((in_w & 3) == 0 && (ld_in & 3) == 0) {
       for (; k < in_w; k += 4) {
         const float w0 = __ldg(W + (size_t)k * out_w + j);
         const float w1 = __ldg(W + (size_t)(k + 1) * out_w + j);
@@ -48,7 +52,7 @@ __device__ void dense_layer(const float* in, int in_w, const float* __restrict__
         const float w3 = __ldg(W + (size_t)(k + 3) * out_w + j);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float4 h = *reinterpret_cast<const float4*>(in + r * in_w + k);
+          const float4 h = *reinterpret_cast<const float4*>(in + r * ld_in + k);
           acc[r] = fmaf(h.x, w0, acc[r]);
           acc[r] = fmaf(h.y, w1, acc[r]);
           acc[r] = fmaf(h.z, w2, acc[r]);
@@ -59,21 +63,22 @@ __device__ void dense_layer(const float* in, int in_w, const float* __restrict__
     for (; k < in_w; ++k) {
       const float w = __ldg(W + (size_t)k * out_w + j);
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(in[r * in_w + k], w, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(in[r * ld_in + k], w, acc[r]);
     }
     const float bj = b != nullptr ? __ldg(b + j) : 0.0f;
 #pragma unroll
-    for (int r = 0; r < R; ++r) out[r * out_w + j] = activate(acc[r] + bj, act);
+    for (int r = 0; r < R; ++r) out[r * ld_out + j] = activate(acc[r] + bj, act);
   }
 }
 
-// out[r * stride + col0 + o] = sum_k in[r, k] * W[k, o] + b[o] for all R rows:
-// one warp per (row, output) pair, lanes striding over k, then a shuffle
-// reduction.
+// out[r * stride + col0 + o] = sum_k in[r, k] * W[k, o] + b[o] for all R rows
+// (in's rows ld_in apart, in_w when 0): one warp per (row, output) pair,
+// lanes striding over k, then a shuffle reduction.
 template <int R>
 __device__ void narrow_head(const float* in, int in_w, const float* __restrict__ W,
                             const float* __restrict__ b, int n_out, float* out, int stride,
-                            int col0) {
+                            int col0, int ld_in = 0) {
+  if (ld_in == 0) ld_in = in_w;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_warps = blockDim.x / 32;
@@ -81,7 +86,7 @@ __device__ void narrow_head(const float* in, int in_w, const float* __restrict__
     const int r = p / n_out;
     const int o = p % n_out;
     float s = 0.0f;
-    for (int k = lane; k < in_w; k += 32) s = fmaf(in[r * in_w + k], __ldg(W + k * n_out + o), s);
+    for (int k = lane; k < in_w; k += 32) s = fmaf(in[r * ld_in + k], __ldg(W + k * n_out + o), s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) out[r * stride + col0 + o] = s + __ldg(b + o);

@@ -1,14 +1,17 @@
 // Weight gradients summed over rows, shared by the PPO update kernels
-// (ppo.cu, rnn_ppo.cu): C[K (+1), J] = [A | 1]^T B over every row, i.e. dW
-// [K, J] followed (when the job has a bias) by db [J], which is how W and b
-// lie in the flat parameter vector from offset `off`.
+// (ppo.cu, rnn_ppo.cu) and the chain backward (chains.cu): C[K (+1), J] =
+// [A | 1]^T B over every row, i.e. dW [K, J] followed (when the job has a
+// bias) by db [J], which is how W and b lie in the flat parameter vector
+// from offset `off`.
 //
 // The rows are split over up to kMaxGroups groups; each group writes its own
 // partial gradient and sum_partials_kernel adds them in a fixed order, so
-// there are no float atomics and two launches give the same bits. Wide jobs
-// go to reduce_tiled_kernel (64x64 output tiles, 4x4 outputs per thread),
-// narrow ones to reduce_narrow_kernel (a thread per output), both staging
-// chunks of rows through shared memory.
+// there are no float atomics and two launches give the same bits. Products
+// (any K and J: the first layer's K = d_in and the 1- and 2-wide heads
+// included) go to reduce_tiled_kernel, 128x128 output tiles on the tensor
+// cores (mma.cuh's 3xTF32) fed by a cp.async ring of row chunks; bias-only
+// jobs (K = 0: LayerNorm's column sums in chains.cu) to reduce_bias_kernel,
+// a thread per column on the CUDA cores.
 //
 // Row i of a job is (i / inner_rows, i % inner_rows): the feedforward
 // update's rows have inner_rows = 1; the recurrent update's rows are
@@ -17,16 +20,19 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace rl8 {
 namespace {  // each including source gets its own copy
 
 constexpr int kWgThreads = 256;
-constexpr int kTile = 64;          // tiled products: outputs per tile side
+constexpr int kTile = 128;         // tiled products: outputs per tile side
 constexpr int kChunk = 32;         // tiled products: rows per shared-memory stage
-constexpr int kNarrowPer = 16;     // narrow products: outputs per thread
-constexpr int kNarrowSmem = 8192;  // narrow products: floats of a staged row chunk
-constexpr int kStageBatch = 8;     // narrow products: loads in flight per thread
+constexpr int kStages = 3;         // tiled products: stages of the cp.async ring
+constexpr int kLd = kTile + 8;     // a staged row: 8 floats of padding make fragment loads conflict-free
+constexpr size_t kTiledSmem = sizeof(float) * kStages * 2 * kChunk * kLd;
 constexpr int kMaxGroups = 64;     // split of the rows
 constexpr int kGroupRows = 4096;   // rows per group below the cap
 constexpr int kMaxWgJobs = 24;
@@ -37,6 +43,7 @@ struct Job {
   long long a_outer, a_inner, b_outer, b_inner;  // strides of row (i / inner_rows, i % inner_rows)
   long long off;
   int K, J, bias, tiles_j, tile0;
+  int vec_a, vec_b;  // the operand's rows can be copied 16 bytes at a time
 };
 
 struct Jobs {
@@ -55,35 +62,32 @@ __host__ inline void split_rows(long long rows, int* groups, long long* rows_per
   *rows_per_group = (rows + g - 1) / g;
 }
 
+__host__ inline int aligned16(const float* p, long long outer, long long inner) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && outer % 4 == 0 && inner % 4 == 0;
+}
+
 // Adds `jb` to the tiled list.
 __host__ inline void add_tiled(Job jb, Jobs* tiled, int* tiles) {
   jb.tiles_j = (jb.J + kTile - 1) / kTile;
   jb.tile0 = *tiles;
+  jb.vec_a = aligned16(jb.a, jb.a_outer, jb.a_inner);
+  jb.vec_b = aligned16(jb.b, jb.b_outer, jb.b_inner);
   *tiles += jb.tiles_j * ((jb.K + kTile - 1) / kTile);
   tiled->job[tiled->n++] = jb;
 }
 
-// Adds `jb` to the narrow list if its outputs fit it, else to the tiled one.
-__host__ inline void add_job(Job jb, Jobs* tiled, Jobs* narrow, int* tiles) {
-  if ((long long)(jb.K + jb.bias) * jb.J <= (long long)kWgThreads * kNarrowPer) {
+// Adds `jb` to the bias list if it is bias-only (K = 0), else to the tiled
+// one. (A 1- or 2-wide head on the tensor cores wastes most of each tile's
+// products, but streams its rows at the tiled kernel's rate: the
+// thread-per-output kernel that took the heads before spent 2.05 ms of the
+// recurrent update on them on an H100, chip_smoke.py --time-updates.)
+__host__ inline void add_job(Job jb, Jobs* tiled, Jobs* bias, int* tiles) {
+  if (jb.K == 0) {
     jb.tiles_j = jb.tile0 = 0;
-    narrow->job[narrow->n++] = jb;
+    bias->job[bias->n++] = jb;
   } else {
     add_tiled(jb, tiled, tiles);
   }
-}
-
-// Where row n0 + r of the job's operands starts, or -1 past n_end: one
-// division per row and chunk, kept in shared memory, so the loads
-// themselves divide nothing. Only jobs with inner_rows > 1 stage them (the
-// kernels' kStaged instantiation); with inner_rows = 1 a row starts at n *
-// outer.
-__device__ __forceinline__ void row_offsets(const Job& jb, int inner_rows, long long n0, long long n_end, int r,
-                                            long long* off_a, long long* off_b) {
-  const long long n = n0 + r;
-  const long long outer = n / inner_rows, inner = n % inner_rows;
-  off_a[r] = n < n_end ? outer * jb.a_outer + inner * jb.a_inner : -1;
-  off_b[r] = n < n_end ? outer * jb.b_outer + inner * jb.b_inner : -1;
 }
 
 // The job of a block, selected with constant indices so the table stays in
@@ -97,150 +101,166 @@ __device__ __forceinline__ Job select_job(const Jobs& js, int index, bool by_til
   return jb;
 }
 
-// Wide jobs: a block owns a 64x64 tile of dW for one group of rows and walks
-// the group 32 rows at a time through shared memory; each thread keeps 4x4
-// outputs. The blocks of the first k tile of a biased job also sum db.
-// kStaged: rows are (outer, inner) pairs whose offsets are staged per chunk.
+// Where row n of a job's operand starts: n * outer, or with kStaged ((outer,
+// inner) rows, n < 2^31) (n / inner_rows) * outer + (n % inner_rows) * inner.
 template <bool kStaged>
-__global__ void __launch_bounds__(kWgThreads) reduce_tiled_kernel(Jobs js, float* __restrict__ partials) {
-  __shared__ __align__(16) float As[kChunk][kTile];
-  __shared__ __align__(16) float Bs[kChunk][kTile];
-  __shared__ long long off_a[kChunk], off_b[kChunk];
+__device__ __forceinline__ long long row_start(long long n, int inner_rows, long long outer, long long inner) {
+  if constexpr (kStaged) {
+    const unsigned q = (unsigned)n / (unsigned)inner_rows;
+    return (long long)q * outer + (long long)((unsigned)n - q * (unsigned)inner_rows) * inner;
+  } else {
+    return n * outer;
+  }
+}
+
+// Issues the cp.async copies of rows [n0, n0 + kChunk) of one operand's
+// columns [c0, c0 + width) into dst [kChunk, kLd]: 16 bytes a copy where
+// the operand allows it (vec), else 4. Rows past n_end are zero-filled;
+// columns at or past width are not written (they stay 0 from the start).
+template <bool kStaged>
+__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ src, long long outer, long long inner,
+                                           int vec, int inner_rows, long long n0, long long n_end, int c0, int width) {
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < kChunk * kTile / 4 / kWgThreads; ++u) {
+      const int i = threadIdx.x + u * kWgThreads;
+      const int r = i / (kTile / 4), col = 4 * (i % (kTile / 4));
+      if (col < width) {
+        const long long n = n0 + r;
+        const int bytes = n < n_end ? 4 * min(4, width - col) : 0;
+        const float* p = bytes ? src + row_start<kStaged>(n, inner_rows, outer, inner) + c0 + col : src;
+        cp_async16(dst + r * kLd + col, p, bytes);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < kChunk * kTile / kWgThreads; ++u) {
+      const int i = threadIdx.x + u * kWgThreads;
+      const int r = i / kTile, col = i % kTile;
+      if (col < width) {
+        const long long n = n0 + r;
+        const int bytes = n < n_end ? 4 : 0;
+        const float* p = bytes ? src + row_start<kStaged>(n, inner_rows, outer, inner) + c0 + col : src;
+        cp_async4(dst + r * kLd + col, p, bytes);
+      }
+    }
+  }
+}
+
+// Wide jobs, on the tensor cores: a block owns a 128x128 tile of dW for one
+// group of rows and walks the group kChunk rows at a time through a ring of
+// kStages shared-memory stages filled by cp.async, so that the next chunks'
+// loads overlap this chunk's products. Its 8 warps split the tile 2 x 4,
+// 64x32 outputs each (4 x 4 m16n8 tiles), summed with mma.cuh's 3xTF32
+// products over the chunk's rows (the reduction axis). m and n tiles past
+// the job's K and J are skipped. The blocks of the first k tile of a biased
+// job also sum db, one column per thread of the first 128, on the CUDA
+// cores from the staged B chunk: a K that fills its k tiles leaves no room
+// for a ones column. kStaged: rows are (outer, inner) pairs.
+template <bool kStaged>
+__global__ void __launch_bounds__(kWgThreads, 2) reduce_tiled_kernel(Jobs js, float* __restrict__ partials) {
+  extern __shared__ __align__(16) float wg_smem[];  // kStages x [A chunk, B chunk], each [kChunk, kLd]
   const Job jb = select_job(js, blockIdx.x, true);
   const int t = blockIdx.x - jb.tile0;
   const int k0 = (t / jb.tiles_j) * kTile;
   const int j0 = (t % jb.tiles_j) * kTile;
+  const int kw = min(kTile, jb.K - k0), jw = min(kTile, jb.J - j0);
   const long long n_begin = (long long)blockIdx.y * js.rows_per_group;
   const long long n_end = min(js.rows, n_begin + js.rows_per_group);
-  const int tk = threadIdx.x / 16 * 4;
-  const int tj = threadIdx.x % 16 * 4;
+  const int chunks = (int)((n_end - n_begin + kChunk - 1) / kChunk);
   const bool do_bias = jb.bias && k0 == 0 && threadIdx.x < kTile;
-  float acc[4][4];
+
+  // Columns past kw and jw are never copied: zero them once in every stage
+  // (a full tile's copies write every column, zeros past n_end included).
+  if (kw < kTile || jw < kTile) {
+    for (int i = threadIdx.x; i < kStages * 2 * kChunk * kLd; i += kWgThreads) wg_smem[i] = 0.0f;
+    __syncthreads();
+  }
+  auto issue = [&](int chunk) {
+    if (chunk < chunks) {
+      float* As = wg_smem + (chunk % kStages) * 2 * kChunk * kLd;
+      const long long n0 = n_begin + (long long)chunk * kChunk;
+      load_chunk<kStaged>(As, jb.a, jb.a_outer, jb.a_inner, jb.vec_a, js.inner_rows, n0, n_end, k0, kw);
+      load_chunk<kStaged>(As + kChunk * kLd, jb.b, jb.b_outer, jb.b_inner, jb.vec_b, js.inner_rows, n0, n_end, j0,
+                          jw);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) issue(c);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
   float bias = 0.0f;
-  for (long long n0 = n_begin; n0 < n_end; n0 += kChunk) {
-    if constexpr (kStaged) {
-      if (threadIdx.x < kChunk) row_offsets(jb, js.inner_rows, n0, n_end, threadIdx.x, off_a, off_b);
-      __syncthreads();
-    }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c has landed, and every warp is done with chunk c - 1's stage
+    issue(c + kStages - 1);
+    const float* As = wg_smem + (c % kStages) * 2 * kChunk * kLd;
+    const float* Bs = As + kChunk * kLd;
 #pragma unroll
-    for (int u = 0; u < kChunk * kTile / kWgThreads; ++u) {
-      const int rr = (threadIdx.x + u * kWgThreads) / kTile;
-      const int cc = threadIdx.x % kTile;
-      const long long n = n0 + rr;
-      const bool in_rows = n < n_end;
-      const long long oa = kStaged ? off_a[rr] : n * jb.a_outer;
-      const long long ob = kStaged ? off_b[rr] : n * jb.b_outer;
-      As[rr][cc] = (in_rows && k0 + cc < jb.K) ? jb.a[oa + k0 + cc] : 0.0f;
-      Bs[rr][cc] = (in_rows && j0 + cc < jb.J) ? jb.b[ob + j0 + cc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[rr][tk]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][tj]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int ks = 0; ks < kChunk; ks += 8) {
+      const float* a_lo = As + (ks + tq) * kLd + wm + g;
+      const float* b_lo = Bs + (ks + tq) * kLd + wn + g;
+      FragB fb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < 4; ++nt) fb[nt].set(b_lo[nt * 8], b_lo[nt * 8 + 4 * kLd]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    if (do_bias) {
-      for (int rr = 0; rr < kChunk; ++rr) bias += Bs[rr][threadIdx.x];
-    }
-    __syncthreads();
-  }
-  float* out = partials + (size_t)blockIdx.y * js.P + jb.off;
+      for (int mt = 0; mt < 4; ++mt) {
+        if (wm + mt * 16 < kw) {
+          const float* a = a_lo + mt * 16;
+          FragA fa;
+          fa.set(a[0], a[8], a[4 * kLd], a[4 * kLd + 8]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + tk + i;
-      const int col = j0 + tj + j;
-      if (k < jb.K && col < jb.J) out[(size_t)k * jb.J + col] = acc[i][j];
-    }
-  }
-  if (do_bias && j0 + threadIdx.x < jb.J) out[(size_t)jb.K * jb.J + j0 + threadIdx.x] = bias;
-}
-
-// dst[r * width + c] = src[off[r] + c] for r < rows, c < width (off[r] =
-// (n0 + r) * outer when off is null), with each thread's loads issued in
-// batches of kStageBatch before their stores, so that they wait on device
-// memory together rather than one by one.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, const long long* off, long long n0,
-                                           long long outer, int width, int rows, float* dst) {
-  const int total = rows * width;
-  for (int base = threadIdx.x; base < total; base += kWgThreads * kStageBatch) {
-    float v[kStageBatch];
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = base + u * kWgThreads;
-      const int r = i / width;
-      v[u] = i < total ? src[(off != nullptr ? off[r] : (n0 + r) * outer) + i % width] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int i = base + u * kWgThreads;
-      if (i < total) dst[i] = v[u];
-    }
-  }
-}
-
-// Narrow jobs ((K + bias) * J <= kWgThreads * kNarrowPer): a block per job and
-// group of rows, a thread per output of C (row K is the bias). The block
-// stages chunks of rows of A and B through shared memory with all its
-// threads, so that many loads are in flight at once, and each thread then
-// sums its outputs from shared memory. kStaged: as for reduce_tiled_kernel.
-template <bool kStaged>
-__global__ void __launch_bounds__(kWgThreads) reduce_narrow_kernel(Jobs js, float* __restrict__ partials) {
-  __shared__ __align__(16) float sm[kNarrowSmem];
-  __shared__ long long off_a[kChunk], off_b[kChunk];
-  const Job jb = select_job(js, blockIdx.x, false);
-  const long long n_begin = (long long)blockIdx.y * js.rows_per_group;
-  const long long n_end = min(js.rows, n_begin + js.rows_per_group);
-  const int K = jb.K, J = jb.J;
-  const int outputs = (K + jb.bias) * J;
-  const int chunk = min(kChunk, kNarrowSmem / (K + J));
-  float* As = sm;              // [chunk, K]
-  float* Bs = sm + chunk * K;  // [chunk, J]
-  int rk[kNarrowPer], cj[kNarrowPer];
-  float acc[kNarrowPer];
-#pragma unroll
-  for (int i = 0; i < kNarrowPer; ++i) {
-    const int o = threadIdx.x + i * kWgThreads;
-    rk[i] = o / J;
-    cj[i] = o % J;
-    acc[i] = 0.0f;
-  }
-  for (long long n0 = n_begin; n0 < n_end; n0 += chunk) {
-    const int rows = (int)min((long long)chunk, n_end - n0);
-    if constexpr (kStaged) {
-      if (threadIdx.x < rows) row_offsets(jb, js.inner_rows, n0, n_end, threadIdx.x, off_a, off_b);
-      __syncthreads();
-    }
-    stage_rows(jb.a, kStaged ? off_a : nullptr, n0, jb.a_outer, K, rows, As);
-    stage_rows(jb.b, kStaged ? off_b : nullptr, n0, jb.b_outer, J, rows, Bs);
-    __syncthreads();
-    for (int rr = 0; rr < rows; ++rr) {
-#pragma unroll
-      for (int i = 0; i < kNarrowPer; ++i) {
-        if (threadIdx.x + i * kWgThreads < outputs) {
-          const float av = rk[i] < K ? As[rr * K + rk[i]] : 1.0f;
-          acc[i] = fmaf(av, Bs[rr * J + cj[i]], acc[i]);
+          for (int nt = 0; nt < 4; ++nt) {
+            if (wn + nt * 8 < jw) mma_3xtf32(acc[mt][nt], fa, fb[nt]);
+          }
         }
       }
     }
-    __syncthreads();
+    if (do_bias) {
+#pragma unroll 8
+      for (int r = 0; r < kChunk; ++r) bias += Bs[r * kLd + threadIdx.x];
+    }
   }
+  cp_async_wait<0>();
   float* out = partials + (size_t)blockIdx.y * js.P + jb.off;
 #pragma unroll
-  for (int i = 0; i < kNarrowPer; ++i) {
-    const int o = threadIdx.x + i * kWgThreads;
-    if (o < outputs) out[o] = acc[i];
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + wm + mt * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = j0 + wn + nt * 8 + 2 * tq + (e & 1);
+        if (k < jb.K && col < jb.J) out[(size_t)k * jb.J + col] = acc[mt][nt][e];
+      }
+    }
+  }
+  if (do_bias && threadIdx.x < jw) out[(size_t)jb.K * jb.J + j0 + threadIdx.x] = bias;
+}
+
+// Bias-only jobs (K = 0, rows with inner_rows = 1: LayerNorm's dscale and
+// dbias in chains.cu): a block per job and group of rows, a thread per
+// column, summing the group's rows in order.
+__global__ void __launch_bounds__(kWgThreads) reduce_bias_kernel(Jobs js, float* __restrict__ partials) {
+  const Job jb = select_job(js, blockIdx.x, false);
+  const long long n_begin = (long long)blockIdx.y * js.rows_per_group;
+  const long long n_end = min(js.rows, n_begin + js.rows_per_group);
+  float* out = partials + (size_t)blockIdx.y * js.P + jb.off;
+  for (int j = threadIdx.x; j < jb.J; j += kWgThreads) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (long long n = n_begin; n < n_end; ++n) s += jb.b[n * jb.b_outer + j];
+    out[j] = s;
   }
 }
 
@@ -292,24 +312,30 @@ __host__ inline int grid_for(long long work) {
   return (int)(blocks < 1 ? 1 : (blocks > 4096 ? 4096 : blocks));
 }
 
-// Launches the weight products of `tiled` and `narrow` (`tiles` tiles in
-// all) over `groups` groups, then the fixed-order sum into grads [P] and the
-// stat sums of `blocks` row blocks into stats [4].
-__host__ inline cudaError_t launch_wgrad(const Jobs& tiled, const Jobs& narrow, int tiles, int groups,
-                                         float* partials, float* grads, const float* stat_part, int blocks,
-                                         float* stats, cudaStream_t s) {
+// Launches the tiled products of `tiled` (`tiles` tiles) over `groups`
+// groups of rows.
+__host__ inline cudaError_t launch_tiled(const Jobs& tiled, int tiles, int groups, float* partials, cudaStream_t s) {
+  const auto kernel = tiled.inner_rows > 1 ? reduce_tiled_kernel<true> : reduce_tiled_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTiledSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles, groups), kWgThreads, kTiledSmem, s>>>(tiled, partials);
+  return cudaGetLastError();
+}
+
+// Launches the bias-only jobs of `bias` over `groups` groups of rows.
+__host__ inline cudaError_t launch_bias(const Jobs& bias, int groups, float* partials, cudaStream_t s) {
+  if (bias.inner_rows != 1) return cudaErrorInvalidValue;
+  reduce_bias_kernel<<<dim3(bias.n, groups), kWgThreads, 0, s>>>(bias, partials);
+  return cudaGetLastError();
+}
+
+// Launches the weight products of `tiled` (`tiles` tiles) over `groups`
+// groups, then the fixed-order sum into grads [P] and the stat sums of
+// `blocks` row blocks into stats [4].
+__host__ inline cudaError_t launch_wgrad(const Jobs& tiled, int tiles, int groups, float* partials, float* grads,
+                                         const float* stat_part, int blocks, float* stats, cudaStream_t s) {
   cudaError_t err;
-  const bool staged = tiled.inner_rows > 1;
-  if (tiled.n > 0) {
-    const auto kernel = staged ? reduce_tiled_kernel<true> : reduce_tiled_kernel<false>;
-    kernel<<<dim3(tiles, groups), kWgThreads, 0, s>>>(tiled, partials);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (narrow.n > 0) {
-    const auto kernel = staged ? reduce_narrow_kernel<true> : reduce_narrow_kernel<false>;
-    kernel<<<dim3(narrow.n, groups), kWgThreads, 0, s>>>(narrow, partials);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if ((err = launch_tiled(tiled, tiles, groups, partials, s)) != cudaSuccess) return err;
   sum_partials_kernel<<<grid_for(tiled.P), kWgThreads, 0, s>>>(partials, groups, tiled.P, grads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_stats_kernel<<<1, kWgThreads, 0, s>>>(stat_part, blocks, stats);

@@ -117,10 +117,10 @@ def _copy_leaf(param: torch.Tensor, value: Any, name: str) -> None:
 
 
 def _dense(layer: nn.Linear) -> dict[str, np.ndarray]:
-    return {
-        "kernel": layer.weight.detach().t().cpu().numpy().copy(),
-        "bias": layer.bias.detach().cpu().numpy().copy(),
-    }
+    out = {"kernel": layer.weight.detach().t().cpu().numpy().copy()}
+    if layer.bias is not None:
+        out["bias"] = layer.bias.detach().cpu().numpy().copy()
+    return out
 
 
 def to_jax_params(model: GenericModel | RecurrentModel, /) -> dict[str, Any]:

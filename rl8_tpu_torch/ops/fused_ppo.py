@@ -36,6 +36,7 @@ __all__ = [
     "PackedColumns",
     "fused_ppo_grads",
     "ppo_grads_plain",
+    "supports_distribution",
     "supports_fused_update",
 ]
 
@@ -89,22 +90,31 @@ class PackedColumns:
         )
 
 
-def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
-    """Whether the kernels can evaluate this model/distribution pair: a
-    default model (relu or tanh, biased layers, at most 8 of them), the
-    discrete one with ``Categorical``, the continuous one with ``Normal``
-    or, only when the entropy bonus is statically zero (it has no
-    entropy), with ``SquashedNormal``."""
+def supports_distribution(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
+    """Whether this model/distribution pair is one the port trains: a
+    default model, the discrete one with ``Categorical``, the continuous
+    one with ``Normal`` or, only when the entropy bonus is statically zero
+    (it has no entropy), with ``SquashedNormal``."""
     from ..distributions import Categorical, Normal, SquashedNormal
     from ..models import DefaultContinuousModel, DefaultDiscreteModel
 
     if type(model) is DefaultDiscreteModel:
-        pair_ok = distribution_cls is Categorical
-    elif type(model) is DefaultContinuousModel:
-        pair_ok = distribution_cls is Normal or (distribution_cls is SquashedNormal and zero_entropy)
-    else:
-        return False
-    return pair_ok and model.activation_fn in ACT_FNS and bool(model.bias) and len(model.hiddens) <= _MAX_LAYERS
+        return distribution_cls is Categorical
+    if type(model) is DefaultContinuousModel:
+        return distribution_cls is Normal or (distribution_cls is SquashedNormal and zero_entropy)
+    return False
+
+
+def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
+    """Whether the kernels can evaluate this model/distribution pair: a
+    pair :func:`supports_distribution` takes, with relu or tanh, biased
+    layers and at most 8 of them."""
+    return (
+        supports_distribution(model, distribution_cls, zero_entropy=zero_entropy)
+        and model.activation_fn in ACT_FNS
+        and bool(model.bias)
+        and len(model.hiddens) <= _MAX_LAYERS
+    )
 
 
 def _policy_grad_terms(

@@ -124,11 +124,11 @@ def _kernel_dims(params: RnnParams, seq_len: int) -> tuple[int, ...]:
 
 def card_takes_rnn_update(params: RnnParams) -> bool:
     """Whether ``csrc/rnn_ppo.cu`` takes the model's widths. Its row pass
-    keeps a block's 16 sequences' layer inputs, gate cotangents and head
-    rows in shared memory, which caps the width (``H`` near 500 at the
-    main path's heads on an H100, where ``rl8_tpu``'s VMEM gate allows
-    ~2048). The limit is the kernel's own; this builds the kernels, if they
-    are not built yet, and asks them."""
+    keeps a block's sequences' layer inputs, gate cotangents and head rows
+    in shared memory (32 sequences where they fit, else 16), which caps
+    the width (``H`` near 700 at the main path's heads on an H100, where
+    ``rl8_tpu``'s VMEM gate allows ~2048). The limit is the kernel's own;
+    this builds the kernels, if they are not built yet, and asks them."""
     return load().rl8_rnn_ppo_workspace(1, *_kernel_dims(params, seq_len=1)) >= 0
 
 

@@ -90,6 +90,30 @@ def test_collect_and_advantages_match_jax() -> None:
     np.testing.assert_allclose(ret.numpy(), np.asarray(j_ret), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize(
+    "extra",
+    [{"model_config": {"hiddens": HIDDENS, "activation_fn": "gelu"}}, {"fused_act": False}],
+    ids=["gelu", "fused-act-off"],
+)
+def test_module_rollout_of_a_default_model_matches_jax(extra: dict) -> None:
+    """A default model the act kernel does not take, or ``fused_act=False``,
+    collects through the module rollout as ``rl8_tpu`` does: two
+    deterministic collects from the same weights and start positions give
+    the same buffers."""
+    jalgo = JAlgorithmConfig(**{**_config(), **extra}).build(JaxStartEnv)
+    params = jax.device_get(jalgo.state.params)
+    head = params["feature_head"]["kernel"]
+    params["feature_head"]["kernel"] = head + 0.3 * np.random.default_rng(1).normal(size=head.shape).astype(np.float32)
+    jalgo.state = jalgo.state.replace(params=jax.tree_util.tree_map(jnp.asarray, params))
+    talgo = AlgorithmConfig(**{**_config(device="cpu"), **extra}).build(TorchStartEnv)
+    assert not talgo._fused_act
+    load_jax_params(talgo.policy.model, params)
+    for _ in range(2):
+        jalgo.collect(deterministic=True)
+        talgo.collect(deterministic=True)
+        _buffers_close(jalgo.state.buffer, talgo.state.buffer)
+
+
 def test_stochastic_collect_is_seeded() -> None:
     def run(seed):
         algo = AlgorithmConfig(**_config(device="cpu", seed=seed)).build(tenv.DiscreteDummyEnv)

@@ -19,7 +19,6 @@ from examples.algotrading.models import MischievousMule as JMischievousMule
 from rl8_tpu import AlgorithmConfig as JAlgorithmConfig
 from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
 from rl8_tpu_torch.data import DataKeys
-from rl8_tpu_torch.env import DiscreteDummyEnv
 from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
 from rl8_tpu_torch.models import load_jax_params, to_jax_params
 from rl8_tpu_torch.views import ViewRequirement
@@ -113,7 +112,7 @@ def test_collect_matches_jax() -> None:
     chain kernels' plain versions: observations, actions, log-probs,
     values, rewards and returns, and the reward scale."""
     jalgo, talgo, _ = _pair()
-    assert talgo._fused_forward and not talgo._default_route
+    assert talgo._fused_forward and not (talgo._fused_act or talgo._fused_update)
     for i in range(2):
         jstats = jalgo.collect(deterministic=True)
         tstats = talgo.collect(deterministic=True)
@@ -244,7 +243,7 @@ def test_drop_size_rejection_matches_jax() -> None:
     "build",
     [
         lambda: AlgorithmConfig(model_cls=_ActionWindowMule, device="cpu", **_config()).build(AlgoTrading),
-        lambda: RecurrentAlgorithmConfig(fused_forward=True, device="cpu").build(DiscreteDummyEnv),
+        lambda: RecurrentAlgorithmConfig(model_cls=MischievousMule, fused_forward=True, device="cpu").build(AlgoTrading),
         lambda: RecurrentAlgorithmConfig(model_cls=MischievousMule, device="cpu").build(AlgoTrading),
         lambda: AlgorithmConfig(model_cls=MischievousMule, enable_amp=True, device="cpu", **_config()).build(AlgoTrading),
         lambda: AlgorithmConfig(model_cls=MischievousMule, device="cpu",

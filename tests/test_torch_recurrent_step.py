@@ -216,7 +216,7 @@ def test_step_requires_collect_and_train_steps() -> None:
     [
         ({"model": object()}, NotImplementedError),
         ({"model_cls": object}, NotImplementedError),
-        ({"fused_forward": True}, NotImplementedError),
+        ({"fused_update": False}, NotImplementedError),
         ({"enable_amp": True}, NotImplementedError),
         ({"optimizer_cls": object()}, NotImplementedError),
         ({"flatten_optimizer": False}, NotImplementedError),
@@ -228,11 +228,29 @@ def test_step_requires_collect_and_train_steps() -> None:
         ({"seq_len": 3}, ValueError),
         ({"seqs_per_state_reset": 0}, ValueError),
         ({"sgd_minibatch_size": 3}, ValueError),
+        ({"fused_act": False}, NotImplementedError),
+        ({"exact_sharding": True}, NotImplementedError),
     ],
 )
 def test_unported_and_invalid_configurations_raise(kw: dict, error: type) -> None:
     with pytest.raises(error):
         _port(**kw)
+
+
+def test_fused_forward_is_accepted_and_off_like_jax() -> None:
+    """``fused_forward=True`` on the default recurrent model builds and
+    stays off, as in ``rl8_tpu`` (the model declares no
+    ``FusedRecurrentApplySpec``), and the algorithm collects and steps as
+    without it; ``fused_update=False`` raises ``NotImplementedError``
+    naming the missing autodiff route, not ``TypeError``."""
+    kw = dict(num_envs=4, horizon=4, seq_len=2, seqs_per_state_reset=2, model_config={"hidden_size": 8})
+    jalgo = JRecurrentAlgorithmConfig(fused_forward=True, **kw).build(jenv.DiscreteDummyEnv)
+    talgo = RecurrentAlgorithmConfig(fused_forward=True, device="cpu", **kw).build(tenv.DiscreteDummyEnv)
+    assert talgo._fused_forward is jalgo._fused_forward is False
+    talgo.collect()
+    assert all(math.isfinite(v) for v in talgo.step().values())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #5"):
+        RecurrentAlgorithmConfig(fused_update=False, device="cpu", **kw).build(tenv.DiscreteDummyEnv)
 
 
 def test_wide_model_trains_on_the_cpu() -> None:

@@ -202,7 +202,7 @@ def test_scheduler_cadence_matches_jax() -> None:
         ({"enable_amp": True}, NotImplementedError),
         ({"mesh": object()}, NotImplementedError),
         ({"optimizer_config": {"lr": 1e-3, "nesterov": True}}, NotImplementedError),
-        ({"model_config": {"hiddens": (8,), "activation_fn": "gelu"}}, NotImplementedError),
+        ({"exact_sharding": True}, NotImplementedError),
         ({"optimizer_config": {"lr": 1e-3, "learning_rate": 1e-3}}, ValueError),
     ],
 )
@@ -211,6 +211,44 @@ def test_unported_configurations_raise(kw: dict, error: type) -> None:
         AlgorithmConfig(**{"num_envs": 4, "horizon": 2, "model_config": {"hiddens": (8,)}, "device": "cpu", **kw}).build(
             tenv.DiscreteDummyEnv
         )
+
+
+@pytest.mark.parametrize(
+    "extra,fused",
+    [
+        ({"model_config": {"hiddens": HIDDENS, "activation_fn": "gelu"}}, (False, False)),
+        ({"model_config": {"hiddens": HIDDENS, "bias": False}}, (False, False)),
+        ({"model_config": {"hiddens": (8,) * 9}}, (False, False)),
+        ({"fused_update": False, "fused_act": False}, (False, False)),
+        ({"fused_act": False}, (False, True)),
+    ],
+    ids=["gelu", "no-bias", "nine-layers", "fused-off", "module-rollout-update-kernel"],
+)
+def test_default_models_off_the_kernels_match_jax(extra: dict, fused: tuple) -> None:
+    """Default models the kernels do not take, and the kernels turned off,
+    train as ``rl8_tpu`` trains them (module rollout, autodiff update):
+    one whole-buffer ``step()`` from the same numpy weights and buffer
+    gives the same losses and parameters. ``fused_act=False`` alone keeps
+    the update kernel (its plain version here) behind the module rollout."""
+    config = dict(num_envs=NUM_ENVS, horizon=HORIZON, model_config={"hiddens": HIDDENS}, seed=3,
+                  entropy_coeff=0.01)
+    config.update(extra)
+    jalgo = JAlgorithmConfig(**config).build(jenv.DiscreteDummyEnv)
+    params0 = _jax_params(jalgo)
+    talgo = AlgorithmConfig(**config, device="cpu").build(tenv.DiscreteDummyEnv)
+    assert (talgo._fused_act, talgo._fused_update) == fused
+    load_jax_params(talgo.policy.model, params0)
+    jalgo.collect()
+    _copy_rollout(jalgo, talgo)
+    jstats, tstats = jalgo.step(), talgo.step()
+    for key in STAT_KEYS:
+        assert math.isclose(tstats[key], jstats[key], rel_tol=STAT_RTOL, abs_tol=STAT_ATOL), (key, tstats[key], jstats[key])
+    start = _flat(params0)
+    jdelta = _flat(jax.device_get(jalgo.state.params)) - start
+    tdelta = _flat(to_jax_params(talgo.policy.model)) - start
+    assert np.linalg.norm(jdelta) > 0
+    assert np.linalg.norm(tdelta - jdelta) <= DELTA_REL * np.linalg.norm(jdelta)
+    assert int(talgo.state.opt_state.count) == int(jax.tree_util.tree_leaves(jalgo.state.opt_state.inner_state)[0])
 
 
 def test_learning_drive_on_cpu() -> None:

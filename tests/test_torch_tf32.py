@@ -1,0 +1,119 @@
+"""Why the update kernels multiply in 3xTF32, pinned on the CPU.
+
+The update kernels (``csrc/ppo.cu``, ``csrc/rnn_ppo.cu`` and
+``csrc/wgrad.cuh``) run their products on the tensor cores through
+``csrc/mma.cuh``: every f32 operand x splits into big = tf32(x), rounded
+to nearest at TF32's 10 mantissa bits (PTX's ``cvt.rna``), and small = x -
+big, which the tensor core reads truncated to TF32, and a product adds
+small * big + big * small, then big * big, into f32 accumulators. The
+checks of ``chip_smoke.py`` hold each gradient to ``||k - p|| <= 1e-4
+||p|| + 1e-6`` against the f32 plain version. Here TF32 is emulated in
+torch at the update's shapes (256-deep dot products, and weight-gradient
+sums over 65,536 rows in the kernel's order: groups of rows, chunks of 8
+per tensor-core step, f32 accumulators, a fixed-order sum of the groups'
+partials) and held against float64: 3xTF32 stays ten times under the
+checks' limit, one TF32 product per f32 product does not meet it. (The
+emulation rounds each step's f32 result to nearest; the card's tensor
+cores round it toward zero, which is why ``mma.cuh`` starts a fresh
+accumulator every step and the forwards stay on the CUDA cores.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+#: The update checks' norm-relative limit (chip_smoke.py PPO_GRAD_RTOL).
+PPO_GRAD_RTOL = 1e-4
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> f32 rounded to nearest, ties away from zero, at 10 mantissa
+    bits (``cvt.rna.tf32.f32`` with the low 13 bits cleared): adding half
+    of the dropped range to the magnitude's bits carries into the kept
+    ones exactly when the dropped part is at least half an ulp."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_rz(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> f32 truncated to 10 mantissa bits, as the tensor core reads
+    an f32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    big = tf32_rna(x)
+    return big, tf32_rz(x - big)
+
+
+def products_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One tensor-core step of 3xTF32 for a [M, k] x [k, N] chunk: TF32
+    operands multiply exactly (float64 holds their products), the small
+    terms first, then big * big, rounded into f32."""
+    ab, as_ = (t.double() for t in split(a))
+    bb, bs = (t.double() for t in split(b))
+    return ((as_ @ bb + ab @ bs) + ab @ bb).float()
+
+
+def products_1x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product per f32 product."""
+    return (tf32_rna(a).double() @ tf32_rna(b).double()).float()
+
+
+def weight_sum(a: torch.Tensor, b: torch.Tensor, products, groups: int = 64, chunk: int = 8) -> torch.Tensor:
+    """``a^T b`` over rows as the tiled weight products sum it: each group
+    of rows accumulates chunk after chunk in f32, then the groups'
+    partials are added in order in f32."""
+    rows = a.shape[0]
+    per = rows // groups
+    total = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32)
+    for g in range(groups):
+        acc = torch.zeros_like(total)
+        for r in range(g * per, (g + 1) * per, chunk):
+            acc = acc + products(a[r : r + chunk].T.contiguous(), b[r : r + chunk])
+        total = total + acc
+    return total
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
+def test_tf32_rounding_is_to_nearest_ties_away() -> None:
+    ulp = 2.0**-10
+    x = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 4, 1.0 + 3 * ulp / 4, -(1.0 + ulp / 2), 3.0e-3], dtype=torch.float32)
+    got = tf32_rna(x)
+    assert got[:5].tolist() == [1.0, 1.0 + ulp, 1.0, 1.0 + ulp, -(1.0 + ulp)]
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert tf32_rz(torch.tensor([1.0 + 3 * ulp / 4])).item() == 1.0
+    # big + small keeps ~21 bits: the split's error is at f32's scale.
+    v = torch.from_numpy(np.random.default_rng(0).normal(size=10_000).astype(np.float32))
+    big, small = split(v)
+    assert float(((big.double() + small.double()) - v.double()).abs().max() / v.abs().max()) < 2.0**-20
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_256_deep_dot_products(seed: int) -> None:
+    """[64, 256] x [256, 256], the row pass's dense products (h W, and
+    dpre W^T) at the default torso width."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(np.maximum(rng.normal(size=(64, 256)), 0.0).astype(np.float32) * 30.0)
+    b = torch.from_numpy((rng.normal(size=(256, 256)) / 16.0).astype(np.float32))
+    want = a.double() @ b.double()
+    assert rel_err(products_3x(a, b), want) <= PPO_GRAD_RTOL / 10
+    assert rel_err(products_1x(a, b), want) > PPO_GRAD_RTOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_weight_gradient_sums_over_65536_rows(seed: int) -> None:
+    """dW = h^T dpre over 65,536 rows, 64 groups: relu activations against
+    zero-mean cotangents of the loss's 1 / n_rows scale."""
+    rng = np.random.default_rng(seed)
+    rows = 65_536
+    h = torch.from_numpy(np.maximum(rng.normal(size=(rows, 8)), 0.0).astype(np.float32) * 20.0)
+    dpre = torch.from_numpy((rng.normal(size=(rows, 8)) / rows).astype(np.float32))
+    want = h.double().T @ dpre.double()
+    assert rel_err(weight_sum(h, dpre, products_3x), want) <= PPO_GRAD_RTOL / 10
+    assert rel_err(weight_sum(h, dpre, products_1x), want) > PPO_GRAD_RTOL

@@ -25,14 +25,16 @@ non-zero:
    accumulation), at ragged weight tiles and at rows that hit the +-100
    clamp; the recurrent act kernel at obs [8192, 1] with one 256-wide
    LSTM layer (all three kinds, draw for draw and deterministic, new
-   states included) and at a ragged B=1000 with two layers; the recurrent
-   update at 65,536 sequences of 4 steps (categorical and squashed), at a
-   ragged 1,000 sequences with two layers (entropy, dual clip,
-   accumulation) and at samples that hit the clamp, and its width limit;
+   states included), at a ragged B=1000 with two layers and at H = 720
+   (its 16-row tiles); the recurrent update at 65,536 sequences of 4
+   steps (categorical and squashed), at a ragged 1,000 sequences with two
+   layers (entropy, dual clip, accumulation) and at samples that hit the
+   clamp, and its width limit;
    the chain forward and backward kernels at MischievousMule's chains
    (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
-   (1,000 rows, d_in 1 and 64) and at zero-variance rows), each timed
-   beside its plain version.
+   (1,000 rows, d_in 1 and 64), at zero-variance rows and at one 768-wide
+   LayerNorm chain (the backward's streaming route)), each timed beside
+   its plain version.
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -559,9 +561,9 @@ def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unp
 
 
 def update_bounds(record: dict, flops: int, bytes_moved: int) -> None:
-    """An update kernel's bounds: f32 CUDA cores (bound_ms) and 3xTF32
-    tensor cores (bound_tc_ms), each the larger of its FLOP time and the
-    bytes' time."""
+    """A kernel's bounds: f32 CUDA cores (bound_ms) and 3xTF32 tensor cores
+    (bound_tc_ms), each the larger of its FLOP time and the bytes'
+    time."""
     byte_s = bytes_moved / PEAK_BYTES_PER_S
     record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, byte_s)
     record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > byte_s else "bytes"
@@ -856,6 +858,8 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     configs = {
         "main": dict(B=8192, obs_dim=1, A=1, n=2, H=256, K=1),
         "ragged": dict(B=1000, obs_dim=3, A=2, n=3, H=96, K=2),
+        # 16-row tiles: 32 rows of a 720-wide layer do not fit two blocks an SM.
+        "wide": dict(B=1000, obs_dim=3, A=1, n=2, H=720, K=1),
     }
     key = (24680, 1357)
     for name, c in configs.items():
@@ -920,11 +924,10 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False), iters=20
     )
-    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    update_bounds(record, flops, bytes_moved)
     emit({"phase": "kernel_time", "kernel": "rnn_act", "B": B, "flops": flops, "bytes": bytes_moved,
           "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
 
 
 def rnn_ppo_inputs(torch, dev, model, kind: str, N: int, L: int, seed: int, clip_share: float = 0.0):
@@ -1227,8 +1230,12 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     4,096 rollout rows and 32,768 minibatch rows; (b) a ragged 1,000 rows
     of three tanh chains with mixed LayerNorm flags, 48 and 100 wide, two
     heads (2 and 9 wide) on one chain, at d_in 1 and 64; (c) rows whose pre-LayerNorm
-    values are constant (zero variance). Then each kernel timed beside its
-    plain version at the main path's shapes, with its bound."""
+    values are constant (zero variance); (d) one 768-wide LayerNorm chain
+    at d_in 7, near the kernels' width limit. (a) to (c) must take the
+    backward's tiled route (chains_bwd_tiles_kernel), (d) its streaming
+    route (chains_bwd_rows_kernel: its parameters and gradients do not fit
+    a block). Then each kernel timed beside its plain version at the main
+    path's shapes, with its bounds."""
     from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1238,7 +1245,8 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     xs = {N: 0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)}
     for N, x in xs.items():
         result = compare_chains(torch, f"chains (a, N={N})", x, mule_chains, "relu", seed=N)
-        emit({"phase": "kernel_check", "kernel": "chains", "config": "a", "N": N, **result})
+        emit({"phase": "kernel_check", "kernel": "chains", "config": "a", "N": N, **result,
+              "route": backward_route(torch, x, mule_chains, "relu")})
         if N == 32768:
             fwd_record["max_abs_err"] = result["fwd_max_abs_err"]
             bwd_record["max_abs_err"] = result["max_abs_err"]
@@ -1251,7 +1259,8 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
         chains = random_chains(torch, dev, seed=d_in, d_in=d_in, layout=ragged)
         x = 2.0 * torch.randn((1000, d_in), generator=gen, device=dev)
         result = compare_chains(torch, f"chains (b, d_in={d_in})", x, chains, "tanh", seed=d_in)
-        emit({"phase": "kernel_check", "kernel": "chains", "config": "b", "N": 1000, "d_in": d_in, **result})
+        emit({"phase": "kernel_check", "kernel": "chains", "config": "b", "N": 1000, "d_in": d_in, **result,
+              "route": backward_route(torch, x, chains, "tanh")})
     # (c): zero rows of x meet a constant first-layer bias, so those rows'
     # pre-LayerNorm values are exactly 0.5: variance 0, s = 1000.
     layers, heads = mule_chains[0]
@@ -1260,7 +1269,13 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
     x[::3] = 0.0
     result = compare_chains(torch, "chains (c, zero variance)", x, const, "relu", seed=7)
-    emit({"phase": "kernel_check", "kernel": "chains", "config": "c", "N": 1000, "zero_variance_rows": 334, **result})
+    emit({"phase": "kernel_check", "kernel": "chains", "config": "c", "N": 1000, "zero_variance_rows": 334, **result,
+          "route": backward_route(torch, x, const, "relu")})
+    near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
+    x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
+    result = compare_chains(torch, "chains (d, 768 wide)", x, near, "relu", seed=8)
+    emit({"phase": "kernel_check", "kernel": "chains", "config": "d", "N": 1000, "width": 768, **result,
+          "route": backward_route(torch, x, near, "relu", "streaming")})
     # The size limit is the kernels' own: the main path's chains pass, a
     # 4096-wide layer (whose rows do not fit a block's shared memory) is
     # refused by the query and by the wrapper.
@@ -1288,17 +1303,17 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
         emit({"phase": "kernel_time", "kernel": "chains_fwd", "N": N, "flops": fwd_flops, "bytes": fwd_bytes,
               "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": times[N]["bound"][0]})
     t = times[32768]
-    fwd_record.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0], bound_by=t["bound"][1],
-                      host_ms=t["host_ms"], rollout_ms=times[4096]["ms"], rollout_plain_ms=times[4096]["plain_ms"],
-                      rollout_bound_ms=times[4096]["bound"][0])
+    fwd_record.update(ms=t["ms"], plain_ms=t["plain_ms"], host_ms=t["host_ms"], rollout_ms=times[4096]["ms"],
+                      rollout_plain_ms=times[4096]["plain_ms"], rollout_bound_ms=times[4096]["bound"][0])
+    update_bounds(fwd_record, *chain_counts(structure, 32768)[:2])
     N, x = 32768, xs[32768]
     _, _, bwd_flops, bwd_bytes = chain_counts(structure, N)
     douts = [torch.randn((N, w), generator=gen, device=dev) for w in (3, 1)]
     ms, host_ms = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=20, warmup=2)
     plain_ms, _ = time_ms(torch, lambda: chains_vjp_plain(x, mule_chains, "relu", [douts[:1], douts[1:]]),
                           iters=10, warmup=2)
-    bwd_record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound(bwd_flops, bwd_bytes)[0],
-                      bound_by=bound(bwd_flops, bwd_bytes)[1], host_ms=host_ms)
+    bwd_record.update(ms=ms, plain_ms=plain_ms, host_ms=host_ms)
+    update_bounds(bwd_record, bwd_flops, bwd_bytes)
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1308,17 +1323,39 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     split = {e.key[:60]: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.self_device_time_total > 0}
     emit({"phase": "kernel_time", "kernel": "chains_bwd", "N": N, "flops": bwd_flops, "bytes": bwd_bytes,
           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bwd_record["bound_ms"],
-          "split_ms": split})
+          "bound_tc_ms": bwd_record["bound_tc_ms"], "split_ms": split})
+
+
+def backward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
+    """The route the chain backward took on ``chains`` (the kernels of one
+    launch, from ``torch.profiler``), which must be ``want``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rl8_tpu_torch.ops import fused_chains_bwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    structure = chain_structure(chains)
+    douts = [torch.zeros((x.shape[0], w), device=x.device) for _, heads in structure[1] for w in heads]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_chains_bwd(x, flatten_chains(chains), structure, activation, douts)
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    routes = {"chains_bwd_tiles_kernel": "tiled", "chains_bwd_rows_kernel": "streaming"}
+    took = [route for kernel, route in routes.items() if kernel in names]
+    check(took == [want], f"the chain backward took {took}, not the {want} route")
+    return want
 
 
 def time_updates(torch, dev, label: str, card: str) -> None:
     """``--time-updates LABEL``: only the update kernels' device ms per
     launch at the main paths' shapes (``time_ms``: the feedforward kernel,
     262,144 rows, categorical and squashed; the recurrent one, 65,536
-    sequences of 4 steps, categorical; the chain kernels at
-    MischievousMule's 32,768 minibatch rows, and the forward at 4,096) and
-    the feedforward (both kinds), recurrent and chain backward launches'
-    device time by kernel (``torch.profiler``), on one JSON line with
+    sequences of 4 steps, categorical; the recurrent act kernel, 8,192 rows
+    of one 256-wide layer; the chain kernels at MischievousMule's 32,768
+    minibatch rows, and the forward at 4,096) and the feedforward (both
+    kinds), recurrent, recurrent act and chain backward launches' device
+    time by kernel (``torch.profiler``), on one JSON line with
     LABEL and the card. To compare two commits on one card, unpack one into a
     directory that ``.gitignore`` lists (``git archive``) and run each
     checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
@@ -1362,6 +1399,13 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
     out["rnn_ppo_ms"] = device_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
     out["rnn_ppo_split_ms"] = split_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
+    B, H = 8192, 256
+    gen = torch.Generator(device=dev).manual_seed(5)
+    obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    states = rnn_states(torch, dev, B, 1, H, gen)
+    params = ops.pack_rnn_params(make_rnn_model(torch, "categorical", seed=99))
+    out["rnn_act_ms"] = device_ms(lambda: ops.fused_rnn_act(params, obs, states, (1, 2)))
+    out["rnn_act_split_ms"] = split_ms(lambda: ops.fused_rnn_act(params, obs, states, (1, 2)))
 
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1620,6 +1664,8 @@ def run_recurrent_path(torch, dev, kernels: dict) -> None:
     for name, param in model.named_parameters():
         check(bool(torch.isfinite(param).all()), f"parameter {name} finite")
     check(tuple(model.lstm.wh[0].shape) == (256, 1024) and model.num_layers == 1, "LSTM width")
+    check(all(v.device.type == "cuda" for v in algo.policy.init_states(4).values()),
+          "policy.init_states(4) lies on the model's card")
     check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
           "the buffer is spent and Adam counted every update")
     check(algo.state.seqs == iters * h.horizon // h.seq_len, f"sequence counter {algo.state.seqs}")

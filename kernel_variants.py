@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time and check design variants of the PPO update kernels on one card.
+"""Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [NAME ...]`` (all variants when no name is
-given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act] [NAME ...]``
+(all variants when no name is given; ``--kernels`` picks what each
+variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
 under ``build/variants/NAME/``, all with one ``nvcc`` per source started
 together. For each variant, at the main paths' shapes (``chip_smoke.py``'s
@@ -16,9 +17,19 @@ of 4 steps of the recurrent one), it prints one JSON line with
   version and, for the feedforward update, against the plain version in
   float64 (the largest error per chain), and whether two launches gave
   the same bits;
-- per update kernel, the tensor-core (``HMMA``, and of those ``TF32``) and
-  f32 FMA (``FFMA``) instructions in its SASS (``cuobjdump -sass``);
+- per kernel, the tensor-core (``HMMA``, and of those ``TF32``), f32 FMA
+  (``FFMA``) and local-memory (``LDL``, ``STL``) instructions in its SASS
+  (``cuobjdump -sass``);
 - ``nvcc -Xptxas -v``'s registers and spills of the row passes.
+
+With ``chains``, the chain backward at MischievousMule's 32,768 rows
+(``chip_smoke.py``'s check inputs): ms, split, dx and each gradient
+tensor against the plain f32 version and a float64 one, the dx elements
+outside the checks' tolerance with the smallest pre-activation margin of
+their rows (float64: a relu mask the card's rounding may flip), and bit
+identity. With ``rnn_act``, the recurrent act kernel at 8,192 rows of one
+256-wide layer: ms and its largest errors against the plain version,
+deterministic and draw for draw.
 
 The card's name and power limit come first. It imports neither JAX nor
 ``rl8_tpu``.
@@ -77,6 +88,68 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     )],
     # 64 rows a feedforward row-pass block (32-row weight stages), one block to an SM.
     "ff_rows64": _ROWS64,
+    # The chain backward's forward recompute on the tensor cores (3xTF32)
+    # instead of f32 FMAs.
+    "chains_tc_forward": [(
+        "chains.cu",
+        "      forward_rows(in, ld_in, t.in[l], W, ldw, bv, w, h, ld, ln, act);",
+        "      row_product(in, ld_in, t.in[l], w, [&](int k, int n) { return W[k * ldw + n]; },\n"
+        "                  [&](int r, int n, float v) { h[r * ld + n] = ln ? v + bv[n] : activate(v + bv[n], act); });",
+    )],
+    # The tiled chain backward's k loops not unrolled.
+    "chains_no_unroll": [("chains.cu", "#pragma unroll 2\n  for (int kb = 0; kb < K; kb += 8) {",
+                          "  for (int kb = 0; kb < K; kb += 8) {")],
+    # The recurrent act kernel's weights three and four k steps ahead.
+    "rnn_act_ahead3": [("rnn_act.cu", "constexpr int kAhead = 2;", "constexpr int kAhead = 3;")],
+    "rnn_act_ahead4": [("rnn_act.cu", "constexpr int kAhead = 2;", "constexpr int kAhead = 4;")],
+    # Ablations of the tiled chain backward (wrong results; their times
+    # against as_is split the kernel's time by phase): no weight products,
+    # no column sums, no dh products, no forward recompute products, no dx.
+    "chains_no_wgrad": [("chains.cu", "      weight_product(hin, ld_in, in_w, cot, ldc, nc, Gw, ldwc);\n", "")],
+    "chains_no_colsums": [
+        ("chains.cu", "      column_sums(cot, ldc, nullptr, nc, Gb);\n", ""),
+        ("chains.cu", "        column_sums(h, ld, xh, w, Gs + t.sv[l] + w);\n"
+                      "        column_sums(h, ld, nullptr, w, Gs + t.sv[l] + 2 * w);\n", ""),
+    ],
+    "chains_no_dh": [("chains.cu", "      row_product(cot, ldc, nc, w, [&]", "      if (l > 100) row_product(cot, ldc, nc, w, [&]")],
+    "chains_no_forward": [("chains.cu", "      forward_rows(in, ld_in, t.in[l], W, ldw, bv, w, h, ld, ln, act);\n", "")],
+    "chains_no_dx": [("chains.cu", "        row_product(cot, ldc, nc, d_in, [&]", "        if (l > 100) row_product(cot, ldc, nc, d_in, [&]")],
+    # The chain backward's and the recurrent act kernel's 3xTF32 products
+    # as three independent mma.sync each, in fresh accumulators summed on
+    # the CUDA cores (no product waits on another's result).
+    "mma_independent": [
+        ("mma.cuh", "__device__ __forceinline__ uint32_t smem_addr(const void* p) {",
+         "__device__ __forceinline__ void mma_3xtf32_independent(float (&c)[4], const FragA& a, const FragB& b) {\n"
+         "  float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, t1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, t2[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+         "  mma_tf32(t0, a.small, b.big);\n  mma_tf32(t1, a.big, b.small);\n  mma_tf32(t2, a.big, b.big);\n"
+         "#pragma unroll\n  for (int e = 0; e < 4; ++e) c[e] += (t0[e] + t1[e]) + t2[e];\n}\n\n"
+         "__device__ __forceinline__ uint32_t smem_addr(const void* p) {"),
+        ("chains.cu", "rl8::mma_3xtf32(", "rl8::mma_3xtf32_independent("),
+        ("rnn_act.cu", "rl8::mma_3xtf32(", "rl8::mma_3xtf32_independent("),
+    ],
+    # 256 threads a tiled chain-backward block.
+    "chains_256": [("chains.cu", "constexpr int kTileThreads = 512;", "constexpr int kTileThreads = 256;")],
+    # 64-row recurrent act tiles, one block to an SM (and its registers).
+    "rnn_act_rows64": [
+        ("rnn_act.cu", "smem_floats(d, 2) <= kTwoBlocksSmem", "smem_floats(d, 4) <= kMaxSmem"),
+        ("rnn_act.cu", "err = launch<2>(", "err = launch<4>("),
+        ("rnn_act.cu", "__global__ void __launch_bounds__(kThreads, 2)\n    rnn_act_kernel(",
+         "__global__ void __launch_bounds__(kThreads, MT > 2 ? 1 : 2)\n    rnn_act_kernel("),
+    ],
+    # Ablations of the recurrent act kernel (wrong results; times only):
+    # constant weights in place of the L2 loads, and the products replaced
+    # by one integer op per tile (fragment loads and splits kept).
+    "rnn_act_no_weight_loads": [
+        ("rnn_act.cu", "bn[q][0] = in_units && k < K ? __ldg(w) : 0.0f;", "bn[q][0] = in_units && k < K ? 0.5f : 0.0f;"),
+        ("rnn_act.cu", "bn[q][1] = in_units && k + 4 < K ? __ldg(w + 4 * ldw) : 0.0f;",
+         "bn[q][1] = in_units && k + 4 < K ? 0.25f : 0.0f;"),
+    ],
+    "rnn_act_no_mma": [(
+        "rnn_act.cu", "for (int mt = 0; mt < MT; ++mt) rl8::mma_3xtf32(acc[mt][q], fa[mt], fb[q]);",
+        "for (int mt = 0; mt < MT; ++mt) acc[mt][q][0] += __uint_as_float(fa[mt].big[0] & fb[q].small[1]);",
+    )],
+    # 16-row recurrent act tiles.
+    "rnn_act_rows16": [("rnn_act.cu", "err = launch<2>(", "err = launch<1>(")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -120,7 +193,8 @@ def build(name: str, subs: list[tuple[str, str, str]]) -> tuple[Path, dict[str, 
 
 def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<\w+>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
-                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel)", kernel)
+                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|"
+                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>)", kernel)
     return m.group(1) if m else None
 
 
@@ -135,27 +209,31 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            source = re.search(r"(ppo|rnn_ppo|chains)_cu", fn)
-            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|reduce_tiled_kernel)I?L?b?([01])?", fn)
-            fn = f"{source.group(1)}.cu {kernel.group(1)}<{kernel.group(2)}>" if source and kernel else None
+            source = re.search(r"(ppo|rnn_ppo|chains|rnn_act)_cu", fn)
+            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
+                               r"rnn_act_kernel)(I\w*)?", fn)
+            args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
+            fn = f"{source.group(1)}.cu {kernel.group(1)}<{args}>" if source and kernel else None
             continue
-        if fn and ("HMMA" in line or "FFMA" in line):
-            c = counts.setdefault(fn, {"HMMA": 0, "HMMA_TF32": 0, "FFMA": 0})
+        if fn and re.search(r"HMMA|FFMA|LDL|STL", line):
+            c = counts.setdefault(fn, {"HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "local": 0})
             if "HMMA" in line:
                 c["HMMA"] += 1
                 c["HMMA_TF32"] += "TF32" in line
-            else:
+            elif "FFMA" in line:
                 c["FFMA"] += 1
+            else:
+                c["local"] += 1
     return counts
 
 
 def ptxas_rows(logs: dict[str, str]) -> list[str]:
     out, fn = [], None
-    for stem in ("ppo", "rnn_ppo"):
+    for stem in ("ppo", "rnn_ppo", "chains", "rnn_act"):
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if "rows_kernel" in m.group(1) else None
+                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|rnn_act_kernel", m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
                 out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')}")
     return out
@@ -168,21 +246,60 @@ def main() -> int:
         print("kernel_variants: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    import chip_smoke as cs
-    from rl8_tpu_torch.ops import PPOLossConfig, _build, fused_ppo, fused_rnn_ppo_grads, pack_rnn_params
-    from rl8_tpu_torch.ops import rnn_ppo_grads_plain
-    from rl8_tpu_torch.ops.fused_act import ActParams
-    from rl8_tpu_torch.ops.fused_rnn_act import RnnParams
-    from rl8_tpu_torch.specs import Discrete
+    from rl8_tpu_torch.ops import _build
     from torch.profiler import ProfilerActivity, profile
 
+    args = sys.argv[1:]
+    kinds = {"ppo"}
+    if args[:1] == ["--kernels"]:
+        kinds, args = set(args[1].split(",")), args[2:]
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     emit({"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                  check=True, capture_output=True, text=True).stdout.strip()})
-    names = sys.argv[1:] or list(VARIANTS)
+    names = args or list(VARIANTS)
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(lambda n: build(n, VARIANTS[n]), names)))
+
+    def split(fn) -> dict[str, float]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out: dict[str, float] = {}
+        for e in prof.key_averages():
+            name = short(e.key)
+            if name and e.self_device_time_total > 0:
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+        return out
+
+    measures = []
+    if "ppo" in kinds:
+        measures.append(ppo_measure(torch, dev, split))
+    if "chains" in kinds:
+        measures.append(chains_measure(torch, dev, split))
+    if "rnn_act" in kinds:
+        measures.append(rnn_act_measure(torch, dev))
+    for name, (lib, logs) in built.items():
+        _build._lib = None
+        _build.build = lambda lib=lib: lib
+        record = {"variant": name}
+        for measure in measures:
+            record.update(measure())
+        record.update(sass=sass_counts(lib), ptxas=ptxas_rows(logs))
+        emit(record)
+    return 0
+
+
+def ppo_measure(torch, dev, split):
+    """The PPO update kernels' measurement of a variant (see the module's
+    docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo, fused_rnn_ppo_grads, pack_rnn_params
+    from rl8_tpu_torch.ops import rnn_ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_act import ActParams
+    from rl8_tpu_torch.ops.fused_rnn_act import RnnParams
+    from rl8_tpu_torch.specs import Discrete
 
     # The plain feedforward update in float64: ppo_grads_plain with the
     # packed f32 columns widened (it returns its gradients rounded to f32).
@@ -221,28 +338,13 @@ def main() -> int:
             return [t for layer in v.lstm() for t in layer] + [t for head in v.heads() for t in head]
         return max(float((g - w).norm() / w.norm()) for g, w in zip(tensors(got), tensors(rnn_plain)))
 
-    def split(fn) -> dict[str, float]:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out: dict[str, float] = {}
-        for e in prof.key_averages():
-            name = short(e.key)
-            if name and e.self_device_time_total > 0:
-                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
-        return out
-
-    for name, (lib, logs) in built.items():
-        _build._lib = None
-        _build.build = lambda lib=lib: lib
+    def measure() -> dict:
         ff = lambda: fused_ppo.fused_ppo_grads(params, packed, unpack, ec, cfg)  # noqa: E731
         rnn = lambda: fused_rnn_ppo_grads(rnn_params, rnn_packed, rnn_unpack, ec, rnn_cfg)  # noqa: E731
         g1, g2 = ff()[2], ff()[2]
         r1, r2 = rnn()[2], rnn()[2]
         torch.cuda.synchronize()
-        emit({
-            "variant": name,
+        return {
             "ppo_ms": cs.time_ms(torch, ff, iters=10, warmup=2)[0],
             "ppo_split_ms": split(ff),
             "ppo_worst_grad_vs_plain": chain_errors(g1, plain),
@@ -252,10 +354,98 @@ def main() -> int:
             "rnn_ppo_split_ms": split(rnn),
             "rnn_worst_grad_vs_plain": rnn_error(r1),
             "bit_identical": bool(torch.equal(g1, g2) and torch.equal(r1, r2)),
-            "sass": sass_counts(lib),
-            "ptxas": ptxas_rows(logs),
-        })
-    return 0
+        }
+
+    return measure
+
+
+def chains_measure(torch, dev, split):
+    """The chain backward's measurement of a variant (see the module's
+    docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import chains_vjp_plain, fused_chains_bwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains, unflatten_chains
+
+    chains = default_chains(cs.make_mule(torch, seed=5).to(dev))
+    structure, flat = chain_structure(chains), flatten_chains(chains)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = [0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)][1]
+    gen = torch.Generator(device=dev).manual_seed(32768)
+    douts = [torch.randn((32768, w), generator=gen, device=dev) for w in (3, 1)]
+    grouped = [douts[:1], douts[1:]]
+    p_dx, p_grads = chains_vjp_plain(x, chains, "relu", grouped)
+    double = tuple(tuple(tuple(tuple(t.double() for t in p) for p in part) for part in chain) for chain in chains)
+    f_dx, f_grads = chains_vjp_plain(x.double(), double, "relu", [[d.double() for d in g] for g in grouped])
+    # Per row, the smallest |pre-activation| over every unit of every chain.
+    margin = torch.full((x.shape[0],), float("inf"), dtype=torch.float64, device=dev)
+    for layers, _ in double:
+        h = x.double()
+        for layer in layers:
+            z = h @ layer[0] + layer[1]
+            if len(layer) == 4:
+                mu = z.mean(1, keepdim=True)
+                var = ((z * z).mean(1, keepdim=True) - mu * mu).clamp_min(0.0)
+                z = (z - mu) * torch.rsqrt(var + 1e-6) * layer[2] + layer[3]
+            margin = torch.minimum(margin, z.abs().min(1).values)
+            h = torch.relu(z)
+
+    def tensors(flat_grads):
+        return [t for layers, heads in unflatten_chains(flat_grads, structure) for ts in (*layers, *heads) for t in ts]
+
+    def worst(got, want) -> float:
+        return max(float((g.double() - w.double()).norm() / w.double().norm()) for g, w in zip(tensors(got), tensors(want)))
+
+    def measure() -> dict:
+        run = lambda: fused_chains_bwd(x, flat, structure, "relu", douts)  # noqa: E731
+        (k_dx, k_flat), (k2_dx, k2_flat) = run(), run()
+        torch.cuda.synchronize()
+        bad = ~torch.isclose(k_dx, p_dx, rtol=cs.CHAIN_RTOL, atol=cs.CHAIN_ATOL)
+        rows = bad.any(1).nonzero().flatten()[:8]
+        return {
+            "chains_bwd_ms": cs.time_ms(torch, run, iters=20, warmup=2)[0],
+            "chains_bwd_split_ms": split(run),
+            "dx_vs_plain": float((k_dx - p_dx).abs().max()),
+            "dx_vs_float64": float((k_dx.double() - f_dx).abs().max()),
+            "plain_dx_vs_float64": float((p_dx.double() - f_dx).abs().max()),
+            "dx_outside_tolerance": int(bad.sum()),
+            "bad_rows": {int(r): {"margin": float(margin[r]), "kernel_err": float((k_dx[r] - p_dx[r]).abs().max()),
+                                  "plain_vs_float64": float((p_dx[r].double() - f_dx[r]).abs().max())}
+                         for r in rows},
+            "smallest_margin": float(margin.min()),
+            "grad_vs_plain": worst(k_flat, flatten_chains(p_grads)),
+            "grad_vs_float64": worst(k_flat, flatten_chains(f_grads)),
+            "plain_grad_vs_float64": worst(flatten_chains(p_grads), flatten_chains(f_grads)),
+            "chains_bit_identical": bool(torch.equal(k_dx, k2_dx) and torch.equal(k_flat, k2_flat)),
+        }
+
+    return measure
+
+
+def rnn_act_measure(torch, dev):
+    """The recurrent act kernel's measurement of a variant (see the
+    module's docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
+
+    B, H = 8192, 256
+    gen = torch.Generator(device=dev).manual_seed(5)
+    obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    states = cs.rnn_states(torch, dev, B, 1, H, gen)
+    params = pack_rnn_params(cs.make_rnn_model(torch, "categorical", seed=99))
+
+    def measure() -> dict:
+        out = {"rnn_act_ms": cs.time_ms(torch, lambda: fused_rnn_act(params, obs, states, (1, 2)))[0]}
+        for det in (True, False):
+            ka, kl, kv, ks = fused_rnn_act(params, obs, states, (1, 2), deterministic=det)
+            pa, pl, pv, ps = rnn_act_plain(params, obs, states, (1, 2), deterministic=det)
+            out["deterministic" if det else "stochastic"] = {
+                "actions_differ": int((ka != pa).sum()), "logp": float((kl - pl).abs().max()),
+                "values": float((kv - pv).abs().max()),
+                "states": max(float((ks[k] - ps[k]).abs().max()) for k in ks),
+            }
+        return out
+
+    return measure
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 // d_in], each ending in linear heads, forward and backward.
 //
 // chains_fwd_kernel replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by
-// _call_fwd, the forward of fused_chains); chains_bwd_rows_kernel and the
-// weight products below replace fused_mlp.py:_bwd_kernel (_fused_bwd, the
-// recompute-based backward). Per chain, layer l computes
+// _call_fwd, the forward of fused_chains); chains_bwd_tiles_kernel (and, for
+// chains too wide for it, chains_bwd_rows_kernel with the weight products
+// below) replaces fused_mlp.py:_bwd_kernel (_fused_bwd, the recompute-based
+// backward). Per chain, layer l computes
 //   h_l = act(LN_l?(h_{l-1} @ W_l + b_l)),  h_{-1} = x,
 // with flax's fast-variance LayerNorm where the layer has one: mu = mean(z),
 // var = max(mean(z^2) - mu^2, 0), s = rsqrt(var + 1e-6), xhat = (z - mu) s,
@@ -21,40 +22,54 @@
 // GFLOP for a 32,768-row minibatch, against 36 bytes of input and 16 of
 // output per row and ~0.14 MB of parameters: f32 FMAs bound it, 34 us at 67
 // TFLOP/s for the minibatch. The backward recomputes the forward and adds the
-// dh products and the weight products, ~3x the operations, and writes ~6 KB
-// of scratch per row (~0.2 GB per minibatch), so it is bound by both at about
-// 0.1 ms.
+// dh products and the weight products, ~3x the operations (6.90 GFLOP): 0.103
+// ms on the CUDA cores, 0.042 ms at three TF32 products per f32 product on
+// the tensor cores; its inputs and outputs are ~2.6 MB.
 //
-// Design. Everything is f32 on CUDA cores, as the port's other kernels.
-// - Forward: a block of 256 threads owns 16 rows and walks every chain, the
-//   current layer's activations in shared memory (two ping-pong buffers),
-//   weights streaming from L2 (mlp.cuh's dense_layer: thread j reads column j
-//   of W [in, out], coalesced). A LayerNorm is a warp per row: lane-strided
-//   sums of z and z^2 reduced with an xor butterfly, in a fixed order. Heads
-//   narrower than 8 are warp dot products (mlp.cuh's narrow_head), as the TPU
-//   ran them as lane reductions. Rows past N are zeros in shared memory and
-//   are never stored; nothing is padded in device memory.
-// - Backward: the TPU kernel adds every grid step's gradients into
+// Design.
+// - Forward, f32 on the CUDA cores: a block of 256 threads owns 16 rows and
+//   walks every chain, the current layer's activations in shared memory (two
+//   ping-pong buffers), weights streaming from L2 (mlp.cuh's dense_layer:
+//   thread j reads column j of W [in, out], coalesced). A LayerNorm is a warp
+//   per row: lane-strided sums of z and z^2 reduced with an xor butterfly, in
+//   a fixed order. Heads narrower than 8 are warp dot products (mlp.cuh's
+//   narrow_head), as the TPU ran them as lane reductions. Rows past N are
+//   zeros in shared memory and are never stored; nothing is padded in device
+//   memory.
+// - Backward. The TPU kernel adds every grid step's gradients into
 //   VMEM-resident accumulators over a sequential grid. CUDA blocks run in
-//   parallel, so it follows ppo.cu instead:
-//   1. chains_bwd_rows_kernel: a block owns 32 rows, recomputes each chain's
-//      forward and writes every layer's output h_l to a device scratch
-//      (LayerNorm layers also xhat, and keep s per row in shared memory).
-//      Then, down the chain, da = dh * act'(h_l); through a LayerNorm dxhat =
-//      da * scale and dpre = s (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
-//      (warp per row); dpre_l goes to the scratch (and, for a LayerNorm, da
-//      and da * xhat); dh_{l-1} = dpre_l W_l^T against a transposed copy of
-//      W_l, or as warp dot products when W_l's input is narrower than 8 (the
-//      7-wide first layer's dx). dx sums the chains in chain order.
-//   2. The weight products dW = h_in^T dpre, db = sum(dpre) and the heads'
-//      dW = h_{L-1}^T dout over all rows, and LayerNorm's dscale = sum(da *
-//      xhat) and dbias = sum(da) as bias-only column sums of scratch rows:
-//      wgrad.cuh's split-K jobs (128x128 tensor-core tiles for products 8 or
-//      more wide, the 7-wide input's dW and the heads included; a thread per
-//      column for the bias-only ones), each group of rows writing its own
-//      partial.
-//   3. sum_partials_kernel adds the partials in a fixed order.
-//   No float atomics: two launches give the same bits.
+//   parallel and nothing carries over between them, so:
+//   - The tiled route (chains whose parameters, their gradients and a 32-row
+//     tile fit a block's shared memory: MischievousMule's use 219 KB). Block
+//     (i, c) of 512 threads owns chain c and walks the row tiles i, i +
+//     groups, ...: persistent blocks, as many as the card holds at once (one
+//     an SM), split evenly over the chains. It loads the chain's parameters
+//     into shared memory once (cp.async) and keeps their gradient
+//     accumulators there, in the same padded layout. Per tile it recomputes
+//     the forward (f32 FMAs in order of k: on the tensor cores it flipped a
+//     relu mask, see forward_rows), keeping every h_l (and a LayerNorm's
+//     xhat and s) in shared memory; then, from the top, the weight products
+//     dW += h_in^T dpre and the cotangents da = (dpre_above W^T) act'(h_l),
+//     in place of h_l, on the tensor cores (mma.cuh's 3xTF32; the 7-wide
+//     input's dx on the CUDA cores as warp dot products), and the column sums
+//     db = sum(dpre), dscale = sum(da xhat), dbias = sum(da) on the CUDA
+//     cores; through a LayerNorm dxhat = da scale and dpre = s (dxhat -
+//     mean(dxhat) - xhat mean(dxhat xhat)) (a warp per row). The per-row
+//     activations and cotangents never reach device memory: the first design
+//     wrote ~6 KB of them per row (~0.2 GB per minibatch) and read them back.
+//     Each gradient element has one owner thread for every tile, so its adds
+//     come in a fixed order. The block writes its gradients as one row of the
+//     partials, and its rows' dx of its chain to a per-chain dx.
+//   - The streaming route (the rest, up to the forward's width limit; e.g. a
+//     768-wide layer, whose weights alone fill shared memory): the first
+//     design's row pass, chains_bwd_rows_kernel, 32 rows a block of 256
+//     threads with the weights streaming from L2 and the per-row activations
+//     and cotangents going to a device scratch, then wgrad.cuh's split-K
+//     weight products (128x128 tensor-core tiles; a thread per column for
+//     LayerNorm's column sums), each group of rows writing its own partial.
+//   Then sum_partials_kernel adds the partials, and (tiled) sum_chain_dx_kernel
+//   the chains' dx, in a fixed order. No float atomics: two launches give the
+//   same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,6 +80,8 @@ namespace {
 
 using rl8::activate;
 using rl8::dense_layer;
+using rl8::FragA;
+using rl8::FragB;
 using rl8::Job;
 using rl8::Jobs;
 using rl8::kIdentity;
@@ -88,6 +105,12 @@ constexpr int kMaxJobs = kMaxChains * (3 * kMaxLayers + kMaxHeads);
 // 32-row chunks, so the chains split much finer.
 constexpr int kGroupRows = 128;
 constexpr int kMaxChainGroups = 256;
+// The tiled backward: threads and rows per block, the parameter blocks a
+// chain's layout copies, and the most blocks over all chains.
+constexpr int kTileThreads = 512;
+constexpr int kTileRows = 32;
+constexpr int kMaxTileSegs = 2 * kMaxLayers + 2 * kMaxHeads;
+constexpr int kMaxTileBlocks = 264;
 
 // The chains' structure, the parameter offsets and, for the backward, the
 // workspace offsets.
@@ -445,6 +468,488 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < nr * d.d_in; i += blockDim.x) dx[r0 * d.d_in + i] = dxs[i];
 }
 
+// ------------------------------------------------------- tiled backward
+
+// A row-major block of the flat parameters ([rows, cols] from flat) and its
+// place in shared memory (rows ld apart from sm).
+struct Seg {
+  long long flat;
+  int rows, cols, sm, ld;
+};
+
+// One chain's shared-memory layout in the tiled backward (offsets in
+// floats). The parameters lie at [0, S) and their gradient accumulators, in
+// the same layout, at [S, 2S): per layer W_l [in_l, w_l] (rows ldw apart),
+// then its b (and LayerNorm scale and bias) as in the flat vector; then the
+// heads' Ws side by side, [w_last, n_out] (rows ldh apart), and their
+// biases. The row tile's activations follow.
+struct TileChain {
+  int L, n_out, n_heads;
+  int in[kMaxLayers], w[kMaxLayers], ln[kMaxLayers];
+  int sw[kMaxLayers], ldw[kMaxLayers], sv[kMaxLayers];
+  int sh, ldh, shb, S;
+  int sa[kMaxLayers], lda[kMaxLayers];  // h_l (then da_l, then dpre_l) [R, w_l]
+  int sxh[kMaxLayers];                  // LayerNorm xhat_l [R, w_l], rows lda[l] apart
+  int sx, ldx, sd, ldd, ss;             // x [R, d_in], head cotangents [R, n_out], LayerNorm s [L, R]
+  int n_seg;
+  Seg seg[kMaxTileSegs];
+  const float* dout[kMaxHeads];
+  int head_w[kMaxHeads], head_col[kMaxHeads];  // columns among the chain's heads
+};
+
+struct Tiled {
+  long long N, P;
+  int d_in, act, n_chains, groups;
+  size_t smem;
+  TileChain c[kMaxChains];
+};
+
+// Row strides: activations 4 past a multiple of 32 (the A fragments' loads
+// are then free of bank conflicts), weights a multiple of 8 that is not one
+// of 16 (the B fragments' loads of a forward product are then free of them).
+int act_ld(int w) { return (w + 31) / 32 * 32 + 4; }
+int weight_ld(int w) {
+  const int ld = (w + 7) / 8 * 8;
+  return ld % 16 == 0 ? ld + 8 : ld;
+}
+
+// Lays out the tiled backward of Lo's chains; false where a chain's
+// parameters, gradients and row tile do not fit a block's shared memory
+// (those chains take the streaming route).
+bool make_tiled(const Layout& Lo, Tiled* T) {
+  const Chains& d = Lo.d;
+  T->N = d.N;
+  T->P = Lo.P;
+  T->d_in = d.d_in;
+  T->act = d.act;
+  T->n_chains = d.n_chains;
+  long long most = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    TileChain& t = T->c[c];
+    t.L = d.n_layers[c];
+    t.n_out = d.chain_out[c];
+    t.n_heads = d.n_heads[c];
+    long long off = 0;
+    int n = 0, in = d.d_in;
+    for (int l = 0; l < t.L; ++l) {
+      const int w = d.width[c][l];
+      t.in[l] = in;
+      t.w[l] = w;
+      t.ln[l] = d.ln[c][l];
+      t.sw[l] = (int)off;
+      t.ldw[l] = weight_ld(w);
+      t.seg[n++] = Seg{d.woff[c][l], in, w, (int)off, t.ldw[l]};
+      off += (long long)in * t.ldw[l];
+      const int nv = t.ln[l] ? 3 * w : w;
+      t.sv[l] = (int)off;
+      t.seg[n++] = Seg{d.woff[c][l] + (long long)in * w, 1, nv, (int)off, nv};
+      off += nv;
+      in = w;
+    }
+    t.sh = (int)off;
+    t.ldh = weight_ld(t.n_out);
+    off += (long long)in * t.ldh;
+    t.shb = (int)off;
+    off += t.n_out;
+    for (int j = 0; j < t.n_heads; ++j) {
+      const int hw = d.head_w[c][j], col = d.head_col[c][j] - d.head_col[c][0];
+      t.head_w[j] = hw;
+      t.head_col[j] = col;
+      t.dout[j] = d.dout[c][j];
+      t.seg[n++] = Seg{d.woff[c][t.L + j], in, hw, t.sh + col, t.ldh};
+      t.seg[n++] = Seg{d.woff[c][t.L + j] + (long long)in * hw, 1, hw, t.shb + col, hw};
+    }
+    t.n_seg = n;
+    off = (off + 3) / 4 * 4;
+    t.S = (int)off;
+    constexpr int R = kTileRows;
+    long long a = 2 * off;
+    t.sx = (int)a;
+    t.ldx = act_ld(d.d_in);
+    a += (long long)R * t.ldx;
+    for (int l = 0; l < t.L; ++l) {
+      t.lda[l] = act_ld(t.w[l]);
+      t.sa[l] = (int)a;
+      a += (long long)R * t.lda[l];
+      t.sxh[l] = -1;
+      if (t.ln[l]) {
+        t.sxh[l] = (int)a;
+        a += (long long)R * t.lda[l];
+      }
+    }
+    t.sd = (int)a;
+    t.ldd = act_ld(t.n_out);
+    a += (long long)R * t.ldd;
+    t.ss = (int)a;
+    a += (long long)t.L * R;
+    if (a * (long long)sizeof(float) + (long long)sizeof(TileChain) > kMaxSmem) return false;
+    most = a > most ? a : most;
+  }
+  T->smem = sizeof(float) * (size_t)most;
+  const long long tiles = (d.N + kTileRows - 1) / kTileRows;
+  const long long cap = kMaxTileBlocks / d.n_chains;
+  T->groups = (int)(tiles < cap ? tiles : cap);
+  return true;
+}
+
+// acc[mt][nt] += sum over k < K of a(m, k) b(k, n) on the tensor cores
+// (mma.cuh's 3xTF32, a fresh accumulator per k step of 8), for the warp's
+// MTW m16 tiles from m0 and NTW n8 tiles from n0 (mma.cuh's fragment
+// layouts); a and b return 0 outside their operands, k >= K included.
+template <int MTW, int NTW, class FA, class FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[MTW][NTW][4], int m0, int n0, int K, FA a, FB b) {
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+#pragma unroll 2
+  for (int kb = 0; kb < K; kb += 8) {
+    const int k = kb + tq;
+    FragB fb[NTW];
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) fb[nt].set(b(k, n0 + nt * 8 + g), b(k + 4, n0 + nt * 8 + g));
+#pragma unroll
+    for (int mt = 0; mt < MTW; ++mt) {
+      const int m = m0 + mt * 16 + g;
+      FragA fa;
+      fa.set(a(m, k), a(m + 8, k), a(m, k + 4), a(m + 8, k + 4));
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) rl8::mma_3xtf32(acc[mt][nt], fa, fb[nt]);
+    }
+  }
+}
+
+// out(r, n, v) with v = sum over k < K of A[r, k] b(k, n), for the tile's
+// rows and n < N; A in shared memory (rows lda apart). Products 8 or more
+// wide run on the tensor cores, a warp per 8 columns for every row;
+// narrower ones (the 7-wide input's dx) on the CUDA cores: S adjacent lanes
+// per (row, column), S the largest power of two up to 32 that the block's
+// threads allow, each summing every S-th k, then a shuffle reduction, all
+// in a fixed order. (A warp per (row, column) left most of the block idle
+// behind its serial shuffles: 0.1 ms of the 0.53 ms launch on an H100,
+// kernel_variants.py's chains_no_dx.) Each output is passed to out by one
+// lane, once.
+template <class FB, class OUT>
+__device__ __forceinline__ void row_product(const float* A, int lda, int K, int N, FB b, OUT out) {
+  constexpr int R = kTileRows, MT = R / 16, n_warps = kTileThreads / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  if (N < kNarrow) {
+    int S = 32;
+    while (S > 1 && S * R * N > kTileThreads) S >>= 1;
+    const int part = threadIdx.x % S;
+    // Whole groups of S lanes step together, so the shuffles see every lane
+    // of a group (the loop's bound is rounded up to whole warps).
+    const int outputs = R * N, per_pass = kTileThreads / S;
+    for (int p0 = 0; p0 < outputs; p0 += per_pass) {
+      const int p = p0 + threadIdx.x / S;
+      const bool live = p < outputs;
+      const int r = live ? p / N : 0, n = live ? p % N : 0;
+      float s = 0.0f;
+      if (live) {
+        for (int k = part; k < K; k += S) s = fmaf(A[r * lda + k], b(k, n), s);
+      }
+      for (int off = S / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (live && part == 0) out(r, n, s);
+    }
+    return;
+  }
+  auto a = [&](int m, int k) { return k < K ? A[m * lda + k] : 0.0f; };
+  auto bk = [&](int k, int n) { return k < K && n < N ? b(k, n) : 0.0f; };
+  for (int n0 = 8 * warp; n0 < N; n0 += 8 * n_warps) {
+    float acc[MT][1][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][0][e] = 0.0f;
+    warp_mma<MT, 1>(acc, 0, n0, K, a, bk);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 2 * tq + (e & 1);
+        if (n < N) out(mt * 16 + g + (e >= 2 ? 8 : 0), n, acc[mt][0][e]);
+      }
+    }
+  }
+}
+
+// G[m ldg + n] += sum over the tile's rows r of A[r lda + m] B[r ldb + n],
+// for m < M and n < N, on the tensor cores: a warp per 32 x 16 block of G.
+// The same warp owns a block at every tile, so each element of G has one
+// owner and its adds need no barrier and come in a fixed order.
+__device__ __forceinline__ void weight_product(const float* A, int lda, int M, const float* B, int ldb, int N,
+                                               float* G, int ldg) {
+  constexpr int n_warps = kTileThreads / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int units_n = (N + 15) / 16, units = (M + 31) / 32 * units_n;
+  auto a = [&](int m, int k) { return m < M ? A[k * lda + m] : 0.0f; };
+  auto b = [&](int k, int n) { return n < N ? B[k * ldb + n] : 0.0f; };
+  for (int u = warp; u < units; u += n_warps) {
+    const int m0 = (u / units_n) * 32, n0 = (u % units_n) * 16;
+    float acc[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    warp_mma<2, 2>(acc, m0, n0, kTileRows, a, b);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + mt * 16 + g + (e >= 2 ? 8 : 0), n = n0 + nt * 8 + 2 * tq + (e & 1);
+          if (m < M && n < N) G[m * ldg + n] += acc[mt][nt][e];
+        }
+      }
+    }
+  }
+}
+
+// G[n] += sum over the tile's rows of B[r ldb + n] (times X[r ldb + n]
+// when X is given), for n < N: a thread per column, rows in order.
+__device__ __forceinline__ void column_sums(const float* B, int ldb, const float* X, int N, float* G) {
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float s = 0.0f;
+    if (X != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) s = fmaf(B[r * ldb + n], X[r * ldb + n], s);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) s += B[r * ldb + n];
+    }
+    G[n] += s;
+  }
+}
+
+// out[r, n] = act(sum over k < K of A[r, k] W[k, n] + b[n]) for the tile's
+// rows and n < N (no activation where ln: a LayerNorm follows), A and W in
+// shared memory (rows lda and ldw apart): the forward recompute, on the
+// CUDA cores in f32, summed in order of k. On the tensor cores it flipped a
+// relu mask that the plain version's f32 sums keep (a unit 1.6e-8 from 0:
+// 3xTF32 truncates each k step's sum), and dx missed the checks by 0.025 on
+// an H100 (kernel_variants.py's chains_tc_forward). Thread (q, j) owns
+// column j (and j + 128, ...) of the tile's q-th group of rows: each weight
+// it loads feeds a group's FMAs, and a warp's activation loads are
+// broadcasts (four k at a time where K and lda allow).
+__device__ __forceinline__ void forward_rows(const float* A, int lda, int K, const float* W, int ldw,
+                                             const float* b, int N, float* out, int ldo, bool ln, int act) {
+  constexpr int kCols = 128, kGroup = kTileRows * kCols / kTileThreads;
+  const int j0 = threadIdx.x % kCols, q0 = (threadIdx.x / kCols) * kGroup;
+  const bool vec = (K & 3) == 0 && (lda & 3) == 0;
+  for (int n = j0; n < N; n += kCols) {
+    float acc[kGroup];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) acc[r] = 0.0f;
+    int k = 0;
+    if (vec) {
+      for (; k < K; k += 4) {
+        const float w0 = W[k * ldw + n], w1 = W[(k + 1) * ldw + n], w2 = W[(k + 2) * ldw + n], w3 = W[(k + 3) * ldw + n];
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) {
+          const float4 a = *reinterpret_cast<const float4*>(A + (q0 + r) * lda + k);
+          acc[r] = fmaf(a.x, w0, acc[r]);
+          acc[r] = fmaf(a.y, w1, acc[r]);
+          acc[r] = fmaf(a.z, w2, acc[r]);
+          acc[r] = fmaf(a.w, w3, acc[r]);
+        }
+      }
+    }
+    for (; k < K; ++k) {
+      const float wk = W[k * ldw + n];
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) acc[r] = fmaf(A[(q0 + r) * lda + k], wk, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      const float v = acc[r] + b[n];
+      out[(q0 + r) * ldo + n] = ln ? v : activate(v, act);
+    }
+  }
+}
+
+__device__ __forceinline__ float act_grad(float h, int act) {
+  return act == kRelu ? (h > 0.0f ? 1.0f : 0.0f) : 1.0f - h * h;
+}
+
+// The tiled backward: block (i, c) owns chain c, holds its parameters and
+// their gradient accumulators in shared memory, and walks the row tiles i,
+// i + groups, ...; per tile the forward recompute, the backward and the
+// weight products run on the tile's rows in shared memory. At the end the
+// block writes its gradients as row i of the partials (the chain's columns)
+// and has written its tiles' dx of the chain to dxc [n_chains, N, d_in].
+__global__ void __launch_bounds__(kTileThreads, 1)
+    chains_bwd_tiles_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                            float* __restrict__ partials, float* __restrict__ dxc, const __grid_constant__ Tiled T) {
+  constexpr int R = kTileRows, n_warps = kTileThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  // The block's chain, copied from the parameters: read with indices known
+  // only at run time, the parameters are generic loads on every use.
+  __shared__ TileChain t;
+  for (int i = threadIdx.x; i < (int)(sizeof(TileChain) / sizeof(int)); i += blockDim.x) {
+    reinterpret_cast<int*>(&t)[i] = reinterpret_cast<const int*>(&T.c[blockIdx.y])[i];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, act = T.act, d_in = T.d_in;
+  float* Ws = smem;
+  float* Gs = smem + t.S;
+  for (int q = 0; q < t.n_seg; ++q) {
+    const Seg s = t.seg[q];
+    for (int i = threadIdx.x; i < s.rows * s.cols; i += blockDim.x) {
+      rl8::cp_async4(Ws + s.sm + (i / s.cols) * s.ld + i % s.cols, params + s.flat + i, 4);
+    }
+  }
+  rl8::cp_async_commit();
+  for (int i = threadIdx.x; i < t.S; i += blockDim.x) Gs[i] = 0.0f;
+  rl8::cp_async_wait<0>();
+  __syncthreads();
+  float* xs = smem + t.sx;
+  float* ds = smem + t.sd;
+  float* svals = smem + t.ss;
+  float* dxo = dxc + (size_t)blockIdx.y * T.N * d_in;
+
+  for (long long tile = blockIdx.x; tile * R < T.N; tile += gridDim.x) {
+    const long long r0 = tile * R;
+    const int nr = (int)min((long long)R, T.N - r0);
+    for (int i = threadIdx.x; i < R * d_in; i += blockDim.x) {
+      const int r = i / d_in;
+      xs[r * t.ldx + i % d_in] = r < nr ? x[r0 * d_in + i] : 0.0f;
+    }
+    for (int j = 0; j < t.n_heads; ++j) {
+      const int hw = t.head_w[j];
+      for (int i = threadIdx.x; i < R * hw; i += blockDim.x) {
+        const int r = i / hw;
+        ds[r * t.ldd + t.head_col[j] + i % hw] = r < nr ? t.dout[j][r0 * hw + i] : 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // Forward, each layer's output h_l (a LayerNorm layer's xhat and s too).
+    for (int l = 0; l < t.L; ++l) {
+      const float* in = l == 0 ? xs : smem + t.sa[l - 1];
+      const int ld_in = l == 0 ? t.ldx : t.lda[l - 1];
+      float* h = smem + t.sa[l];
+      const int ld = t.lda[l], w = t.w[l], ldw = t.ldw[l], ln = t.ln[l];
+      const float* W = Ws + t.sw[l];
+      const float* bv = Ws + t.sv[l];
+      forward_rows(in, ld_in, t.in[l], W, ldw, bv, w, h, ld, ln, act);
+      __syncthreads();
+      if (ln) {
+        float* xh = smem + t.sxh[l];
+        for (int r = warp; r < R; r += n_warps) {
+          float* row = h + r * ld;
+          float s1 = 0.0f, s2 = 0.0f;
+          for (int k = lane; k < w; k += 32) {
+            const float v = row[k];
+            s1 += v;
+            s2 = fmaf(v, v, s2);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+          }
+          const float mu = s1 / w;
+          const float s = rsqrtf(fmaxf(s2 / w - mu * mu, 0.0f) + kLnEps);
+          for (int k = lane; k < w; k += 32) {
+            const float xv = (row[k] - mu) * s;
+            xh[r * ld + k] = xv;
+            row[k] = activate(fmaf(xv, bv[w + k], bv[2 * w + k]), act);
+          }
+          if (lane == 0) svals[l * R + r] = s;
+        }
+        __syncthreads();
+      }
+    }
+
+    // Backward from the top. cot is the cotangent of the layer above's
+    // pre-activation (first the heads' outputs), rows ldc apart and nc
+    // wide; Wc (rows ldwc apart), Gw and Gb that layer's weights and
+    // gradients. At l = -1 the layer above is layer 0 and its input x.
+    const float* cot = ds;
+    int ldc = t.ldd, nc = t.n_out, ldwc = t.ldh;
+    const float* Wc = Ws + t.sh;
+    float* Gw = Gs + t.sh;
+    float* Gb = Gs + t.shb;
+    for (int l = t.L - 1; l >= -1; --l) {
+      const float* hin = l >= 0 ? smem + t.sa[l] : xs;
+      const int ld_in = l >= 0 ? t.lda[l] : t.ldx, in_w = l >= 0 ? t.w[l] : d_in;
+      weight_product(hin, ld_in, in_w, cot, ldc, nc, Gw, ldwc);
+      column_sums(cot, ldc, nullptr, nc, Gb);
+      if (l < 0) {
+        // This chain's dx = dpre_0 W_0^T (x is not overwritten).
+        row_product(cot, ldc, nc, d_in, [&](int k, int n) { return Wc[n * ldwc + k]; },
+                    [&](int r, int n, float v) {
+                      if (r < nr) dxo[(r0 + r) * d_in + n] = v;
+                    });
+        break;
+      }
+      __syncthreads();  // h_l is read above and overwritten below
+      // da_l = (cot Wc^T) act'(h_l), in place of h_l.
+      float* h = smem + t.sa[l];
+      const int ld = t.lda[l], w = t.w[l];
+      row_product(cot, ldc, nc, w, [&](int k, int n) { return Wc[n * ldwc + k]; },
+                  [&](int r, int n, float v) { h[r * ld + n] = v * act_grad(h[r * ld + n], act); });
+      __syncthreads();
+      if (t.ln[l]) {
+        // dscale = sum(da xhat) and dbias = sum(da); then per row dxhat =
+        // da scale and dpre = s (dxhat - mean(dxhat) - xhat mean(dxhat
+        // xhat)), in place.
+        const float* bv = Ws + t.sv[l];
+        const float* xh = smem + t.sxh[l];
+        column_sums(h, ld, xh, w, Gs + t.sv[l] + w);
+        column_sums(h, ld, nullptr, w, Gs + t.sv[l] + 2 * w);
+        __syncthreads();
+        for (int r = warp; r < R; r += n_warps) {
+          float* row = h + r * ld;
+          const float* xr = xh + r * ld;
+          float m1 = 0.0f, m2 = 0.0f;
+          for (int k = lane; k < w; k += 32) {
+            const float dxh = row[k] * bv[w + k];
+            m1 += dxh;
+            m2 = fmaf(dxh, xr[k], m2);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            m1 += __shfl_xor_sync(0xffffffffu, m1, off);
+            m2 += __shfl_xor_sync(0xffffffffu, m2, off);
+          }
+          m1 /= w;
+          m2 /= w;
+          const float s = svals[l * R + r];
+          for (int k = lane; k < w; k += 32) row[k] = s * (row[k] * bv[w + k] - m1 - xr[k] * m2);
+        }
+        __syncthreads();
+      }
+      cot = h;
+      ldc = ld;
+      nc = w;
+      ldwc = t.ldw[l];
+      Wc = Ws + t.sw[l];
+      Gw = Gs + t.sw[l];
+      Gb = Gs + t.sv[l];
+    }
+    __syncthreads();  // the next tile reuses every buffer
+  }
+  float* out = partials + (size_t)blockIdx.x * T.P;
+  for (int q = 0; q < t.n_seg; ++q) {
+    const Seg s = t.seg[q];
+    for (int i = threadIdx.x; i < s.rows * s.cols; i += blockDim.x) {
+      out[s.flat + i] = Gs[s.sm + (i / s.cols) * s.ld + i % s.cols];
+    }
+  }
+}
+
+// dx = sum over chains of dxc[c], in chain order.
+__global__ void sum_chain_dx_kernel(const float* __restrict__ dxc, int n_chains, long long n,
+                                    float* __restrict__ dx) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = dxc[i];
+    for (int c = 1; c < n_chains; ++c) s += dxc[(size_t)c * n + i];
+    dx[i] = s;
+  }
+}
+
 // Launches the weight products of jobs[0..n) in lists of at most
 // kMaxWgJobs, each group of rows writing its partial gradient.
 cudaError_t launch_jobs(const Job* jobs, int n, const Layout& L, float* partials, cudaStream_t s) {
@@ -499,11 +1004,16 @@ Job make_job(const float* a, long long a_outer, const float* b, long long b_oute
 }  // namespace
 
 // Floats of workspace that rl8_chains_bwd needs (backward != 0) or 0 for the
-// forward, or -1 where the kernels do not take the chains.
+// forward, or -1 where the kernels do not take the chains: the tiled route's
+// partials (at most kMaxTileBlocks / n_chains groups) and per-chain dx, or
+// the streaming route's transposed weights, row scratch and partials.
 extern "C" long long rl8_chains_workspace(long long N, int d_in, const int* spec, int spec_len, int backward) {
   Layout L;
   if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
-  return backward ? L.wt_floats + L.row_floats + L.part_floats : 0;
+  if (!backward) return 0;
+  Tiled T;
+  if (make_tiled(L, &T)) return (long long)T.groups * L.P + (long long)L.d.n_chains * N * d_in;
+  return L.wt_floats + L.row_floats + L.part_floats;
 }
 
 // outs: a host array of each head's output [N, hw], chain by chain.
@@ -538,6 +1048,30 @@ extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
+
+  Tiled T;
+  if (make_tiled(L, &T)) {
+    // The tiled route: as many persistent blocks as the card holds at once
+    // (within the workspace's groups), split evenly over the chains.
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(chains_bwd_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T.smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chains_bwd_tiles_kernel, kTileThreads, T.smem);
+    if (err != cudaSuccess) return (int)err;
+    const int fit = sms * per_sm / d.n_chains;
+    T.groups = fit < 1 ? 1 : (fit < T.groups ? fit : T.groups);
+    float* partials = workspace;
+    float* dxc = partials + (long long)T.groups * L.P;
+    chains_bwd_tiles_kernel<<<dim3(T.groups, d.n_chains), kTileThreads, T.smem, s>>>(x, params, partials, dxc, T);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    rl8::sum_partials_kernel<<<rl8::grid_for(L.P), rl8::kWgThreads, 0, s>>>(partials, T.groups, L.P, grads);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    sum_chain_dx_kernel<<<rl8::grid_for(N * d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d_in, dx);
+    return (int)cudaGetLastError();
+  }
+
+  // The streaming route.
   float* wt = workspace;
   float* scratch = wt + L.wt_floats;
   float* partials = scratch + L.row_floats;

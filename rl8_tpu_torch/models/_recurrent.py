@@ -54,8 +54,14 @@ class RecurrentModel(GenericModelBase):
             return DefaultContinuousRecurrentModel
         raise TypeError(f"Action spec {action_spec} has no default model support.")
 
-    def init_states(self, n: int, /, device: Any = "cpu") -> dict[str, torch.Tensor]:
-        """Return zeroed initial recurrent states for ``n`` batch elements."""
+    def init_states(self, n: int, /, device: Any = None) -> dict[str, torch.Tensor]:
+        """Return zeroed initial recurrent states for ``n`` batch elements,
+        on ``device``, or by default on the device of the model's first
+        parameter (the CPU for a model without parameters), as
+        ``rl8_tpu``'s states land beside its parameters."""
+        if device is None:
+            param = next(self.parameters(), None)
+            device = "cpu" if param is None else param.device
         return self.state_spec.zero((n,), device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -451,11 +451,13 @@ def fused_chains_bwd(
     flat parameters from every head's output cotangent ``douts`` (chain
     by chain, as :func:`fused_chains_fwd` returns the outputs).
 
-    CUDA tensors launch ``csrc/chains.cu``'s backward (a row pass that
-    recomputes the forward, split-K weight products and a fixed-order
-    sum, bit-identical from launch to launch; counting one launch in
-    ``fused_chains_bwd.launches``) or raise; CPU tensors run
-    :func:`chains_vjp_plain`."""
+    CUDA tensors launch ``csrc/chains.cu``'s backward (persistent blocks
+    that each hold one chain's parameters and gradients in shared memory
+    and recompute the forward tile by tile, or, for chains too large for
+    that, a row pass through a device scratch and split-K weight
+    products; then fixed-order sums, bit-identical from launch to launch;
+    counting one launch in ``fused_chains_bwd.launches``) or raise; CPU
+    tensors run :func:`chains_vjp_plain`."""
     _check(x, flat, structure, activation)
     widths = [w for _, heads in structure[1] for w in heads]
     if len(douts) != len(widths) or any(

@@ -77,8 +77,10 @@ class RecurrentPolicy(GenericPolicyBase[RecurrentModel]):
         """Spec defining the recurrent model states."""
         return self.model.state_spec
 
-    def init_states(self, n: int, /, device: Any = "cpu") -> dict[str, torch.Tensor]:
-        """Return initial recurrent states for ``n`` parallel environments."""
+    def init_states(self, n: int, /, device: Any = None) -> dict[str, torch.Tensor]:
+        """Return initial recurrent states for ``n`` parallel environments,
+        on ``device`` or by default on the model's own
+        (:meth:`RecurrentModel.init_states`)."""
         return self.model.init_states(n, device)
 
     def init_params(self, generator: torch.Generator, /) -> None:

@@ -152,6 +152,55 @@ def test_default_model_cls_states_and_bias_flag() -> None:
         no_bias({DataKeys.OBS: torch.zeros(2, 1, 3)}, no_bias.init_states(2))
 
 
+@pytest.mark.parametrize("through", ["model", "policy"])
+def test_init_states_default_to_the_parameters_device(through: str) -> None:
+    """``init_states(n)`` with no device puts the states on the device of
+    the model's parameters (``rl8_tpu``'s land beside its parameters, so
+    ``policy.sample(batch, policy.init_states(n))`` runs on the card); an
+    explicit device still wins. The meta device stands in for the card."""
+    model = DefaultDiscreteRecurrentModel(Unbounded(3), Discrete(2), hidden_size=8, num_layers=2)
+    policy = RecurrentPolicy(model.observation_spec, model.action_spec, model=model)
+    owner = model if through == "model" else policy
+    assert all(v.device.type == "cpu" for v in owner.init_states(4).values())
+    model.to("meta")
+    states = owner.init_states(4)
+    assert {k: (v.device.type, tuple(v.shape)) for k, v in states.items()} == {
+        DataKeys.HIDDEN_STATES: ("meta", (4, 2, 8)),
+        DataKeys.CELL_STATES: ("meta", (4, 2, 8)),
+    }
+    assert all(v.device.type == "cpu" for v in owner.init_states(4, "cpu").values())
+    assert all(v.device.type == "cpu" for v in owner.init_states(4, device=torch.device("cpu")).values())
+
+
+def test_init_states_without_parameters_are_on_the_cpu() -> None:
+    class Stateful(RecurrentModel):
+        @property
+        def state_spec(self):
+            return DefaultDiscreteRecurrentModel(Unbounded(3), Discrete(2), hidden_size=4).state_spec
+
+    model = Stateful(Unbounded(3), Discrete(2))
+    assert next(model.parameters(), None) is None
+    states = model.init_states(3)
+    assert {k: (v.device.type, tuple(v.shape)) for k, v in states.items()} == {
+        DataKeys.HIDDEN_STATES: ("cpu", (3, 1, 4)),
+        DataKeys.CELL_STATES: ("cpu", (3, 1, 4)),
+    }
+
+
+@pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
+def test_init_states_equal_jax(continuous: bool) -> None:
+    """The states equal ``rl8_tpu``'s ``init_states(n)``: zeros of the same
+    keys, shapes and dtype, from the model and from the policy."""
+    jmodel, params, model, _, _ = _pair(continuous, hidden=8, layers=2)
+    jpolicy = JRecurrentPolicy(jmodel.observation_spec, jmodel.action_spec, model=jmodel)
+    policy = RecurrentPolicy(model.observation_spec, model.action_spec, model=model)
+    for want, got in ((jmodel.init_states(6), model.init_states(6)), (jpolicy.init_states(6), policy.init_states(6))):
+        assert set(got) == set(want)
+        for key in want:
+            assert got[key].dtype == torch.float32 and np.asarray(want[key]).dtype == np.float32
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+
+
 @pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
 def test_policy_sample_matches_jax(continuous: bool) -> None:
     """Deterministic ``RecurrentPolicy.sample`` against ``rl8_tpu``'s from

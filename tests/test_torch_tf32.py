@@ -16,6 +16,13 @@ checks' limit, one TF32 product per f32 product does not meet it. (The
 emulation rounds each step's f32 result to nearest; the card's tensor
 cores round it toward zero, which is why ``mma.cuh`` starts a fresh
 accumulator every step and the forwards stay on the CUDA cores.)
+
+The recurrent act kernel's gate products (``csrc/rnn_act.cu``) and the
+chain backward's dh products (``csrc/chains.cu``) also run on 3xTF32; a
+last case emulates them as the card rounds, each ``mma``'s f32 result
+truncated toward zero into a fresh accumulator per k step of 8, and holds
+them against float64 at ten times under the act checks' and the chain
+checks' absolute tolerance.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import torch
 
 #: The update checks' norm-relative limit (chip_smoke.py PPO_GRAD_RTOL).
 PPO_GRAD_RTOL = 1e-4
+#: The act and chain checks' absolute tolerances (chip_smoke.py ACT_ATOL,
+#: CHAIN_ATOL).
+ACT_ATOL = CHAIN_ATOL = 1e-4
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +70,29 @@ def products_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def products_1x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One TF32 product per f32 product."""
     return (tf32_rna(a).double() @ tf32_rna(b).double()).float()
+
+
+def f32_rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> f32 rounded toward zero, as an ``mma``'s f32 result."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def products_3x_rz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``mma.cuh``'s ``mma_3xtf32`` computes it on the card:
+    per k step of 8, three ``mma``s into a fresh accumulator (small * big,
+    big * small, big * big), each result truncated to f32 toward zero,
+    then added to the running f32 sum (round to nearest)."""
+    ab, as_ = (t.double() for t in split(a))
+    bb, bs = (t.double() for t in split(b))
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        t = f32_rz(as_[:, s] @ bb[s])
+        t = f32_rz(t.double() + ab[:, s] @ bs[s])
+        t = f32_rz(t.double() + ab[:, s] @ bb[s])
+        total = total + t
+    return total
 
 
 def weight_sum(a: torch.Tensor, b: torch.Tensor, products, groups: int = 64, chunk: int = 8) -> torch.Tensor:
@@ -117,3 +150,26 @@ def test_weight_gradient_sums_over_65536_rows(seed: int) -> None:
     want = h.double().T @ dpre.double()
     assert rel_err(weight_sum(h, dpre, products_3x), want) <= PPO_GRAD_RTOL / 10
     assert rel_err(weight_sum(h, dpre, products_1x), want) > PPO_GRAD_RTOL
+
+
+@pytest.mark.parametrize("shape", ["lstm_gates", "chain_dh"])
+def test_truncating_3xtf32_products_at_the_act_and_chain_shapes(shape: str) -> None:
+    """``lstm_gates``: a recurrent act step's gate pre-activations, [x | h]
+    [8192, 257] x [Wi; Wh] [257, 1024] (observations in +-3, h in (-1, 1),
+    lecun-scale Wi and orthogonal-scale Wh); ``chain_dh``: the chain
+    backward's dh = dpre W^T, [4096, 128] x [128, 128]. Truncated 3xTF32
+    stays ten times under the checks' absolute tolerance against float64."""
+    rng = np.random.default_rng(7)
+    if shape == "lstm_gates":
+        x = rng.uniform(-3.0, 3.0, size=(8192, 1))
+        h = rng.uniform(-1.0, 1.0, size=(8192, 256))
+        a = np.concatenate([x, h], axis=1)
+        b = np.concatenate([rng.normal(size=(1, 1024)), rng.normal(size=(256, 1024)) / 16.0])
+        tol = ACT_ATOL / 10
+    else:
+        a = rng.normal(size=(4096, 128)) * np.maximum(rng.normal(size=(4096, 128)), 0.0)
+        b = rng.normal(size=(128, 128)) / np.sqrt(128.0)
+        tol = CHAIN_ATOL / 10
+    a32, b32 = torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b.astype(np.float32))
+    want = a32.double() @ b32.double()
+    assert float((products_3x_rz(a32, b32).double() - want).abs().max()) <= tol

@@ -19,8 +19,10 @@ non-zero:
    262,144 rows, at a ragged 1,000 rows with entropy, dual clip and
    accumulation, and at ragged weight tiles; the continuous act kernel
    at obs [8192, 1] (Normal and squashed, stochastic draw for draw and
-   deterministic) and at a ragged B=1000, A=4 with tanh layers, plus a
-   moment check of its noise; the continuous update at 262,144 rows
+   deterministic) and at a ragged B=1000, A=4 with tanh layers (its
+   tiled route), and at 320/288-wide layers (its streaming route), each
+   route asserted and two launches bit-identical, plus a moment check of
+   its noise; the continuous update at 262,144 rows
    (squashed), at a ragged 1,000 rows (Normal, entropy, dual clip,
    accumulation), at ragged weight tiles and at rows that hit the +-100
    clamp; the recurrent act kernel at obs [8192, 1] with one 256-wide
@@ -32,9 +34,11 @@ non-zero:
    clamp, and its width limit;
    the chain forward and backward kernels at MischievousMule's chains
    (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
-   (1,000 rows, d_in 1 and 64), at zero-variance rows and at one 768-wide
-   LayerNorm chain (the backward's streaming route)), each timed beside
-   its plain version.
+   (1,000 rows, d_in 1 and 64), at zero-variance rows, at 160/136-wide
+   layers (the tiled forward's general path, the streaming backward) and at
+   one 768-wide LayerNorm chain (the forward's and the backward's streaming
+   routes; the rest take their tiled routes, each route asserted; two
+   launches of each bit-identical)), each timed beside its plain version.
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -603,8 +608,12 @@ def check_continuous_act(torch, dev, record: dict) -> None:
     """The continuous act kernel against its plain version on the card:
     Normal and squashed, deterministic and stochastic (the plain version
     replays the kernel's Philox draws), at the main path's shapes (obs
-    [8192, 1] up to 100 in magnitude, twin 256-wide relu torsos, A=1) and
-    at a ragged B=1000 with obs dim 3, A=4 and 100/72-wide tanh layers.
+    [8192, 1] up to 100 in magnitude, twin 256-wide relu torsos, A=1), at
+    a ragged B=1000 with obs dim 3, A=4 and 100/72-wide tanh layers (both
+    on the tiled route, continuous_act_tiles_kernel) and at B=1000, obs dim
+    2, A=2 and 320/288-wide relu layers (wider than the tiled route's 256:
+    continuous_act_kernel), each route asserted from the profiler's kernel
+    names; two launches bit-identical.
     Actions and values within ACT_*; log-probs within ACT_* of the plain
     distribution's log-prob of the kernel's own actions on every row, and
     of the plain version's own log-probs on every Normal row and every
@@ -616,11 +625,15 @@ def check_continuous_act(torch, dev, record: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     configs = {
-        "main": dict(B=8192, A=1, obs_dim=1, obs_scale=100.0, model={}, heads={"mean_scale": 0.15, "log_std_bias": -2.0}),
+        "main": dict(B=8192, A=1, obs_dim=1, obs_scale=100.0, model={}, heads={"mean_scale": 0.15, "log_std_bias": -2.0},
+                     route="tiled"),
         "ragged": dict(B=1000, A=4, obs_dim=3, obs_scale=3.0,
                        model={"hiddens": (100, 72), "activation_fn": "tanh"},
-                       heads={"mean_scale": 0.3, "log_std_scale": 0.3}),
+                       heads={"mean_scale": 0.3, "log_std_scale": 0.3}, route="tiled"),
+        "wide": dict(B=1000, A=2, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)},
+                     heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="streaming"),
     }
+    routes = {"continuous_act_tiles_kernel": "tiled", "continuous_act_kernel": "streaming"}
     key = (12345, 678)
     for name, c in configs.items():
         B, A = c["B"], c["A"]
@@ -628,14 +641,18 @@ def check_continuous_act(torch, dev, record: dict) -> None:
         model = make_continuous_model(torch, A, seed=60 + A, obs_dim=c["obs_dim"], **c["heads"], **c["model"])
         for kind in ("normal", "squashed"):
             params = pack_act_params(model, squashed=kind == "squashed")
+            route = launched_route(torch, f"the continuous act kernel ({name})",
+                                   lambda: fused_act(params, obs, key), routes, c["route"])
             ((mean, pre), _), _ = forward_chains(obs, params.chains(), params.activation)
             log_std = torch.tanh(pre)
             dist = (SquashedNormal if kind == "squashed" else Normal)({"mean": mean, "log_std": log_std})
             for det in (True, False):
                 what = f"continuous act {name} {kind} {'deterministic' if det else 'stochastic'}"
                 ka, kl, kv = fused_act(params, obs, key, deterministic=det)
+                k2 = fused_act(params, obs, key, deterministic=det)
                 pa, pl, pv = act_plain(params, obs, key, deterministic=det)
                 torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip((ka, kl, kv), k2)), f"{what}: two launches bit-identical")
                 check(ka.dtype == torch.float32 and tuple(ka.shape) == (B, A), f"{what}: actions [B, A] f32")
                 check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: actions")
                 check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: values")
@@ -654,8 +671,8 @@ def check_continuous_act(torch, dev, record: dict) -> None:
                                    rows_clamped=int(clamped.sum()))
                 err = max(float((ka - pa).abs().max()), float((kv - pv).abs().max()),
                           float((kl - own).abs().max()), float((kl[keep] - pl[keep]).abs().max()))
-                emit({"phase": "kernel_check", "kernel": "continuous_act", "config": name, "kind": kind,
-                      "deterministic": det, "B": B, "A": A, "hiddens": list(params.hiddens),
+                emit({"phase": "kernel_check", "kernel": "continuous_act", "config": name, "route": route,
+                      "kind": kind, "deterministic": det, "B": B, "A": A, "hiddens": list(params.hiddens),
                       "activation": params.activation, "max_abs_err": err, "rtol": ACT_RTOL,
                       "atol": ACT_ATOL, **regimes})
                 check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp")
@@ -665,6 +682,7 @@ def check_continuous_act(torch, dev, record: dict) -> None:
                         check(int(clamped.sum()) > 0, f"{what}: no row reaches the +-100 clamp")
                 if name == "main":
                     record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+                    record["kernel"] = f"continuous_act_{'tiles_' if route == 'tiled' else ''}kernel"
 
     # The noise's moments: Normal at the main shapes, FREQ_DRAWS keys; the
     # standardized draws (a - mean) / std must have mean 0, variance 1 and
@@ -1152,8 +1170,9 @@ def random_chains(torch, dev, seed: int, d_in: int, layout):
 
 
 def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> dict:
-    """The chain kernels against their plain versions on ``x``: every head
-    output within CHAIN_RTOL/ATOL, then from random head cotangents the
+    """The chain kernels against their plain versions on ``x``: the forward
+    twice (bit-identical), every head output within CHAIN_RTOL/ATOL, then
+    from random head cotangents the
     backward twice (bit-identical) against ``chains_vjp_plain``: dx within
     CHAIN_RTOL/ATOL and each parameter gradient within PPO_GRAD_* by norm,
     all finite."""
@@ -1163,8 +1182,10 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> d
     structure = chain_structure(chains)
     flat = flatten_chains(chains)
     k_outs = fused_chains_fwd(x, flat, structure, activation)
+    k2_outs = fused_chains_fwd(x, flat, structure, activation)
     p_outs = [o for chain in forward_chains(x, chains, activation)[0] for o in chain]
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k_outs, k2_outs)), f"{what}: two forward launches bit-identical")
     fwd_err = 0.0
     for i, (k, p) in enumerate(zip(k_outs, p_outs)):
         check(bool(torch.isfinite(k).all()), f"{what}: head {i} output finite")
@@ -1231,11 +1252,14 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     of three tanh chains with mixed LayerNorm flags, 48 and 100 wide, two
     heads (2 and 9 wide) on one chain, at d_in 1 and 64; (c) rows whose pre-LayerNorm
     values are constant (zero variance); (d) one 768-wide LayerNorm chain
-    at d_in 7, near the kernels' width limit. (a) to (c) must take the
-    backward's tiled route (chains_bwd_tiles_kernel), (d) its streaming
-    route (chains_bwd_rows_kernel: its parameters and gradients do not fit
-    a block). Then each kernel timed beside its plain version at the main
-    path's shapes, with its bounds."""
+    at d_in 7, near the kernels' width limit; (e) 160- and 136-wide layers
+    (the tiled forward's passes of 128 columns and its separate LayerNorm
+    and head passes). (a) to (c) must take the forward's and the backward's
+    tiled routes (chains_fwd_tiles_kernel, chains_bwd_tiles_kernel), (d)
+    their streaming routes (chains_fwd_kernel: its tile buffers do not fit a
+    block; chains_bwd_rows_kernel: its parameters and gradients do not), (e)
+    the tiled forward and the streaming backward. Then each kernel timed
+    beside its plain version at the main path's shapes, with its bounds."""
     from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1246,10 +1270,13 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     for N, x in xs.items():
         result = compare_chains(torch, f"chains (a, N={N})", x, mule_chains, "relu", seed=N)
         emit({"phase": "kernel_check", "kernel": "chains", "config": "a", "N": N, **result,
-              "route": backward_route(torch, x, mule_chains, "relu")})
+              "route": backward_route(torch, x, mule_chains, "relu"),
+              "forward_route": forward_route(torch, x, mule_chains, "relu")})
         if N == 32768:
             fwd_record["max_abs_err"] = result["fwd_max_abs_err"]
             bwd_record["max_abs_err"] = result["max_abs_err"]
+    # The main path's chains take the forward's tiled route (asserted above).
+    fwd_record["kernel"] = "chains_fwd_tiles_kernel"
     ragged = (
         ([(48, True), (100, False), (48, True)], [2, 9]),
         ([(100, False), (48, True), (100, True)], [1]),
@@ -1260,7 +1287,8 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
         x = 2.0 * torch.randn((1000, d_in), generator=gen, device=dev)
         result = compare_chains(torch, f"chains (b, d_in={d_in})", x, chains, "tanh", seed=d_in)
         emit({"phase": "kernel_check", "kernel": "chains", "config": "b", "N": 1000, "d_in": d_in, **result,
-              "route": backward_route(torch, x, chains, "tanh")})
+              "route": backward_route(torch, x, chains, "tanh"),
+              "forward_route": forward_route(torch, x, chains, "tanh")})
     # (c): zero rows of x meet a constant first-layer bias, so those rows'
     # pre-LayerNorm values are exactly 0.5: variance 0, s = 1000.
     layers, heads = mule_chains[0]
@@ -1270,12 +1298,23 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     x[::3] = 0.0
     result = compare_chains(torch, "chains (c, zero variance)", x, const, "relu", seed=7)
     emit({"phase": "kernel_check", "kernel": "chains", "config": "c", "N": 1000, "zero_variance_rows": 334, **result,
-          "route": backward_route(torch, x, const, "relu")})
+          "route": backward_route(torch, x, const, "relu"), "forward_route": forward_route(torch, x, const, "relu")})
+    # (e): layers wider than one pass of the tiled forward (two buffers, a
+    # LayerNorm a warp per row), narrow heads after a LayerNorm layer and a
+    # 9-wide head; its parameters and gradients do not fit the tiled backward.
+    wider = random_chains(torch, dev, seed=10, d_in=7,
+                          layout=(([(160, True), (136, False)], [2, 9]), ([(136, True)], [1])))
+    x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
+    result = compare_chains(torch, "chains (e, 160/136 wide)", x, wider, "relu", seed=10)
+    emit({"phase": "kernel_check", "kernel": "chains", "config": "e", "N": 1000, "widths": [160, 136], **result,
+          "route": backward_route(torch, x, wider, "relu", "streaming"),
+          "forward_route": forward_route(torch, x, wider, "relu")})
     near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
     x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
     result = compare_chains(torch, "chains (d, 768 wide)", x, near, "relu", seed=8)
     emit({"phase": "kernel_check", "kernel": "chains", "config": "d", "N": 1000, "width": 768, **result,
-          "route": backward_route(torch, x, near, "relu", "streaming")})
+          "route": backward_route(torch, x, near, "relu", "streaming"),
+          "forward_route": forward_route(torch, x, near, "relu", "streaming")})
     # The size limit is the kernels' own: the main path's chains pass, a
     # 4096-wide layer (whose rows do not fit a block's shared memory) is
     # refused by the query and by the wrapper.
@@ -1326,25 +1365,54 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
           "bound_tc_ms": bwd_record["bound_tc_ms"], "split_ms": split})
 
 
-def backward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
-    """The route the chain backward took on ``chains`` (the kernels of one
-    launch, from ``torch.profiler``), which must be ``want``."""
+def launched_route(torch, what: str, fn, routes: dict, want: str) -> str:
+    """The route that calls of ``fn`` took (``routes`` maps kernel names to
+    routes; the kernels that three calls launched, from ``torch.profiler``),
+    which must be ``want``. The profiler sometimes returns no record of a
+    short launch at all: a window that saw none of the kernels is taken
+    again, up to three windows; any kernel it does see counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    took: list = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        took = [route for kernel, route in routes.items() if any(re.search(rf"\b{kernel}\b", n) for n in names)]
+        if took:
+            break
+    check(took == [want], f"{what} took {took}, not the {want} route")
+    return want
+
+
+def backward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
+    """The route the chain backward took on ``chains``, which must be
+    ``want``."""
     from rl8_tpu_torch.ops import fused_chains_bwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
 
     structure = chain_structure(chains)
     douts = [torch.zeros((x.shape[0], w), device=x.device) for _, heads in structure[1] for w in heads]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_chains_bwd(x, flatten_chains(chains), structure, activation, douts)
-        torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages())
     routes = {"chains_bwd_tiles_kernel": "tiled", "chains_bwd_rows_kernel": "streaming"}
-    took = [route for kernel, route in routes.items() if kernel in names]
-    check(took == [want], f"the chain backward took {took}, not the {want} route")
-    return want
+    return launched_route(torch, "the chain backward",
+                          lambda: fused_chains_bwd(x, flatten_chains(chains), structure, activation, douts),
+                          routes, want)
+
+
+def forward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
+    """The route the chain forward took on ``chains``, which must be
+    ``want``."""
+    from rl8_tpu_torch.ops import fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    routes = {"chains_fwd_tiles_kernel": "tiled", "chains_fwd_kernel": "streaming"}
+    return launched_route(
+        torch, "the chain forward",
+        lambda: fused_chains_fwd(x, flatten_chains(chains), chain_structure(chains), activation), routes, want,
+    )
 
 
 def time_updates(torch, dev, label: str, card: str) -> None:
@@ -1352,9 +1420,11 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     launch at the main paths' shapes (``time_ms``: the feedforward kernel,
     262,144 rows, categorical and squashed; the recurrent one, 65,536
     sequences of 4 steps, categorical; the recurrent act kernel, 8,192 rows
-    of one 256-wide layer; the chain kernels at MischievousMule's 32,768
-    minibatch rows, and the forward at 4,096) and the feedforward (both
-    kinds), recurrent, recurrent act and chain backward launches' device
+    of one 256-wide layer; the continuous (squashed) and discrete act
+    kernels, 8,192 rows of twin 256-wide torsos; the chain kernels at
+    MischievousMule's 32,768 minibatch rows, and the forward at 4,096) and
+    the feedforward (both kinds), recurrent, recurrent act, continuous act,
+    chain forward (both row counts) and chain backward launches' device
     time by kernel (``torch.profiler``), on one JSON line with
     LABEL and the card. To compare two commits on one card, unpack one into a
     directory that ``.gitignore`` lists (``git archive``) and run each
@@ -1406,6 +1476,15 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     params = ops.pack_rnn_params(make_rnn_model(torch, "categorical", seed=99))
     out["rnn_act_ms"] = device_ms(lambda: ops.fused_rnn_act(params, obs, states, (1, 2)))
     out["rnn_act_split_ms"] = split_ms(lambda: ops.fused_rnn_act(params, obs, states, (1, 2)))
+    # The act kernels at the main paths' shapes (8,192 rows, twin 256-wide
+    # relu torsos): the continuous one squashed, and the discrete one, A=1,
+    # n=2, whose code no redesign since PR 6 has touched: the A/B's control.
+    obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    params = ops.pack_act_params(make_continuous_model(torch, 1, seed=62), squashed=True)
+    out["continuous_act_ms"] = device_ms(lambda: ops.fused_act(params, obs, (1, 2)))
+    out["continuous_act_split_ms"] = split_ms(lambda: ops.fused_act(params, obs, (1, 2)))
+    params = ops.pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
+    out["discrete_act_ms"] = device_ms(lambda: ops.fused_act(params, obs, (1, 2)))
 
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1416,6 +1495,8 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     douts = [torch.randn((32768, w), generator=gen, device=dev) for w in (3, 1)]
     out["chains_fwd_ms"] = device_ms(lambda: ops.fused_chains_fwd(x, flat, structure, "relu"))
     out["chains_fwd_4096_ms"] = device_ms(lambda: ops.fused_chains_fwd(x[:4096], flat, structure, "relu"))
+    out["chains_fwd_split_ms"] = split_ms(lambda: ops.fused_chains_fwd(x, flat, structure, "relu"), 60)
+    out["chains_fwd_4096_split_ms"] = split_ms(lambda: ops.fused_chains_fwd(x[:4096], flat, structure, "relu"), 60)
     out["chains_bwd_ms"] = device_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts))
     out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
     emit(out)

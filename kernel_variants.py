@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -29,7 +29,13 @@ outside the checks' tolerance with the smallest pre-activation margin of
 their rows (float64: a relu mask the card's rounding may flip), and bit
 identity. With ``rnn_act``, the recurrent act kernel at 8,192 rows of one
 256-wide layer: ms and its largest errors against the plain version,
-deterministic and draw for draw.
+deterministic and draw for draw. With ``chains_fwd``, the chain forward at
+MischievousMule's 4,096 and 32,768 rows: ms, split, the largest error
+against the plain version and bit identity. With ``act``, the continuous act
+kernel (squashed) at 8,192 rows of twin 256-wide torsos: ms, split, its
+largest errors against the plain version (deterministic and draw for draw)
+and bit identity, and the discrete act kernel's ms beside it as a control.
+The SASS counts include shared-memory loads (``LDS``).
 
 The card's name and power limit come first. It imports neither JAX nor
 ``rl8_tpu``.
@@ -150,6 +156,38 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     )],
     # 16-row recurrent act tiles.
     "rnn_act_rows16": [("rnn_act.cu", "err = launch<2>(", "err = launch<1>(")],
+    # Ablations of the chain forward's tiled route (wrong results; their
+    # times against as_is split the kernel's time): no layer products, no
+    # parameter loads, no (fused) LayerNorm, no (fused) narrow heads.
+    "fwd_no_product": [("chains.cu", "        rl8::tile_fma<RT>(acc, cur + rg * RT * cur_ld, cur_ld, W, ldw, cur_w,",
+                        "        if (l > 100) rl8::tile_fma<RT>(acc, cur + rg * RT * cur_ld, cur_ld, W, ldw, cur_w,")],
+    "fwd_no_param_load": [("chains.cu", "  load_segments(t.seg, t.n_seg, params, smem);\n", "")],
+    "fwd_no_layer_norm": [("chains.cu", "        if (ln && one_pass) fused_layer_norm<RT, CG, ACT>(acc, n, w, bv + w, bv + 2 * w);\n", "")],
+    "fwd_no_heads": [("chains.cu", "          fused_heads<RT, CG>(acc, n, w, t, smem, r0, rg * RT, nr);\n", "")],
+    # The chain forward's tiled route at 32-row tiles (128 threads: 8 warps
+    # an SM).
+    "fwd_rows32": [("chains.cu", "constexpr int kFwdTileRows = 64;", "constexpr int kFwdTileRows = 32;")],
+    # Ablations of the continuous act kernel's tiled route: no products, no
+    # weight-slab copies, no heads, no epilogue (sampling and log-probs).
+    "act_no_product": [("act.cu", "    rl8::tile_fma<RT>(acc, in + rg * RT * ld + k0,", "    if (g > 1000) rl8::tile_fma<RT>(acc, in + rg * RT * ld + k0,")],
+    "act_no_slab_loads": [
+        ("act.cu", "        rl8::mbar_expect(bar, rows * bytes);", "        rl8::mbar_expect(bar, 0u);"),
+        ("act.cu", "        if (w == kTileWidth) {\n          rl8::bulk_copy(", "        if (w < 0) {\n          rl8::bulk_copy("),
+        ("act.cu", "          for (int r = 0; r < rows; ++r) rl8::bulk_copy(", "          for (int r = 0; r < 0; ++r) rl8::bulk_copy("),
+        ("act.cu", "    } else {\n      const int lane64", "    } else if (g < 0) {\n      const int lane64"),
+    ],
+    # The continuous act kernel's slabs all by every thread's cp.async copies.
+    "act_cp_async": [("act.cu", "P->bulk[q] = P->out_w[q] % 4 == 0 && P->woff[q] % 4 == 0;", "P->bulk[q] = 0;")],
+    "act_no_heads": [("act.cu", "        rl8::tile_heads<RT, CG>(acc, n, w, W, n_out,", "        if (j > 100) rl8::tile_heads<RT, CG>(acc, n, w, W, n_out,")],
+    "act_no_epilogue": [("act.cu", "    __syncthreads();\n  }\n  rl8::continuous_epilogue(",
+                         "    __syncthreads();\n  }\n  if (B < 0) rl8::continuous_epilogue(")],
+    # The continuous act kernel's tiled route with slabs of 16 rows, with two
+    # slabs (one in flight), and with 32-row tiles (128 threads).
+    "act_slab16": [("act.cu", "constexpr int kSlabK = 32;", "constexpr int kSlabK = 16;")],
+    "act_stages2": [("act.cu", "constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    # The continuous act kernel's tiled route with 4 rows a thread (512 threads).
+    "act_rt4": [("act.cu", "constexpr int kTileRT = 8;", "constexpr int kTileRT = 4;")],
+    "act_rows32": [("act.cu", "constexpr int kTileRows = 64;", "constexpr int kTileRows = 32;")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -193,8 +231,8 @@ def build(name: str, subs: list[tuple[str, str, str]]) -> tuple[Path, dict[str, 
 
 def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<\w+>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
-                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|"
-                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>)", kernel)
+                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
+                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_kernel)", kernel)
     return m.group(1) if m else None
 
 
@@ -209,19 +247,22 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            source = re.search(r"(ppo|rnn_ppo|chains|rnn_act)_cu", fn)
+            source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act)_cu", fn)
             kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
+                               r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_kernel|"
                                r"rnn_act_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
             fn = f"{source.group(1)}.cu {kernel.group(1)}<{args}>" if source and kernel else None
             continue
-        if fn and re.search(r"HMMA|FFMA|LDL|STL", line):
-            c = counts.setdefault(fn, {"HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "local": 0})
+        if fn and re.search(r"HMMA|FFMA|LDL|STL|\bLDS\b", line):
+            c = counts.setdefault(fn, {"HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "LDS": 0, "local": 0})
             if "HMMA" in line:
                 c["HMMA"] += 1
                 c["HMMA_TF32"] += "TF32" in line
             elif "FFMA" in line:
                 c["FFMA"] += 1
+            elif re.search(r"\bLDS\b", line):
+                c["LDS"] += 1
             else:
                 c["local"] += 1
     return counts
@@ -229,11 +270,11 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
 
 def ptxas_rows(logs: dict[str, str]) -> list[str]:
     out, fn = [], None
-    for stem in ("ppo", "rnn_ppo", "chains", "rnn_act"):
+    for stem in ("ppo", "rnn_ppo", "chains", "rnn_act", "act"):
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|rnn_act_kernel", m.group(1)) else None
+                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|act_kernel|chains_fwd_kernel", m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
                 out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')}")
     return out
@@ -280,6 +321,10 @@ def main() -> int:
         measures.append(chains_measure(torch, dev, split))
     if "rnn_act" in kinds:
         measures.append(rnn_act_measure(torch, dev))
+    if "chains_fwd" in kinds:
+        measures.append(chains_fwd_measure(torch, dev, split))
+    if "act" in kinds:
+        measures.append(act_measure(torch, dev, split))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -442,6 +487,67 @@ def rnn_act_measure(torch, dev):
                 "actions_differ": int((ka != pa).sum()), "logp": float((kl - pl).abs().max()),
                 "values": float((kv - pv).abs().max()),
                 "states": max(float((ks[k] - ps[k]).abs().max()) for k in ks),
+            }
+        return out
+
+    return measure
+
+
+def chains_fwd_measure(torch, dev, split):
+    """The chain forward's measurement of a variant (see the module's
+    docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import forward_chains, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+
+    chains = default_chains(cs.make_mule(torch, seed=5).to(dev))
+    structure, flat = chain_structure(chains), flatten_chains(chains)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = [0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)]
+    plain = [[o for chain in forward_chains(x, chains, "relu")[0] for o in chain] for x in xs]
+
+    def measure() -> dict:
+        out = {}
+        for x, want in zip(xs, plain):
+            N = x.shape[0]
+            run = lambda: fused_chains_fwd(x, flat, structure, "relu")  # noqa: E731
+            k1, k2 = run(), run()
+            torch.cuda.synchronize()
+            out[f"chains_fwd_{N}_ms"] = cs.time_ms(torch, run)[0]
+            out[f"chains_fwd_{N}_split_ms"] = split(run)
+            out[f"chains_fwd_{N}_vs_plain"] = max(float((k - p).abs().max()) for k, p in zip(k1, want))
+            out[f"chains_fwd_{N}_bit_identical"] = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        return out
+
+    return measure
+
+
+def act_measure(torch, dev, split):
+    """The act kernels' measurement of a variant (see the module's
+    docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import act_plain, fused_act, pack_act_params
+    from rl8_tpu_torch.specs import Discrete
+
+    B = 8192
+    gen = torch.Generator(device=dev).manual_seed(3)
+    obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+    squashed = pack_act_params(cs.make_continuous_model(torch, 1, seed=62), squashed=True)
+    discrete = pack_act_params(cs.make_model(torch, Discrete(2, shape=(1,)), seed=12))
+
+    def measure() -> dict:
+        run = lambda: fused_act(squashed, obs, (1, 2))  # noqa: E731
+        out = {"continuous_act_ms": cs.time_ms(torch, run)[0], "continuous_act_split_ms": split(run),
+               "discrete_act_ms": cs.time_ms(torch, lambda: fused_act(discrete, obs, (1, 2)))[0]}
+        for det in (True, False):
+            k1 = fused_act(squashed, obs, (1, 2), deterministic=det)
+            k2 = fused_act(squashed, obs, (1, 2), deterministic=det)
+            p = act_plain(squashed, obs, (1, 2), deterministic=det)
+            torch.cuda.synchronize()
+            out["deterministic" if det else "stochastic"] = {
+                "actions": float((k1[0] - p[0]).abs().max()), "values": float((k1[2] - p[2]).abs().max()),
+                "logp": float((k1[1] - p[1]).abs().max()),
+                "bit_identical": all(torch.equal(a, b) for a, b in zip(k1, k2)),
             }
         return out
 

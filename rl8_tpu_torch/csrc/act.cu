@@ -45,6 +45,34 @@
 // Everything is f32 end to end (no tensor cores), so logp and values agree
 // with the plain PyTorch version to f32 rounding.
 //
+// The continuous kernel has a second, tiled design (continuous_act_tiles_kernel),
+// which it takes wherever every layer is at most 256 wide and the tiles fit
+// a block's shared memory (the main path's twin 256-wide torsos);
+// continuous_act_kernel, the design above, takes the rest (up to the update
+// kernels' widths). The design above re-reads both 256x256 weights from L2
+// for every 16 rows (~0.27 GB a launch at B=8192) and pays about one
+// shared-memory load per FMA, at ~0.3 of the f32 peak (PERF.md). The tiled
+// route:
+// - A block of 256 threads owns 64 rows (B=8192: 128 blocks, about one an
+//   SM) and runs both chains on them. Both chains stay in one block, rather
+//   than a block per chain over blockIdx.y: the epilogue needs the value
+//   beside the policy heads, and at B=8192 128 blocks of 64 rows fill the
+//   card as well as 256 half blocks would (one block an SM either way: ~170
+//   KB of shared memory).
+// - Weights stream through shared memory in slabs of 32 rows, two in flight
+//   while a third is multiplied, each read from L2 once per 64 rows. A slab
+//   whose rows are 16-byte aligned is a bulk copy (the TMA unit: one
+//   instruction, an mbarrier); others are every thread's cp.async copies,
+//   which share the load pipe with the products' shared-memory loads (all
+//   cp.async: 0.0886 ms against 0.0829 on an H100). The biases and the
+//   heads' weights are copied to shared memory with the first slab.
+// - Each thread owns 8 rows x 8 columns of a layer (tile.cuh), so one
+//   16-byte shared-memory load feeds ~10 FMAs, and each output still sums
+//   in order of k in f32. A layer's output replaces its input in place.
+// - The heads are summed from the last layer's outputs in registers: each
+//   of a row's 32 lanes sums its 8 columns, then a butterfly (tile.cuh's
+//   tile_heads).
+//
 // Sampling and its Philox random numbers are sample.cuh's, shared with
 // rnn_act.cu.
 #include <cuda_runtime.h>
@@ -53,7 +81,9 @@
 
 #include "distmath.cuh"
 #include "mlp.cuh"
+#include "mma.cuh"
 #include "sample.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -152,6 +182,270 @@ __global__ void __launch_bounds__(kThreads)
                            values, parts);
 }
 
+// ---------------------------------------------------------- tiled route
+
+// The continuous kernel's tiled route: rows and threads per block, each
+// thread's rows (tile.cuh's RT) and the threads of a row group (CG): one
+// pass covers a layer up to kTileWidth wide. Weights stream through shared
+// memory in slabs of kSlabK rows, kStages - 1 in flight.
+constexpr int kTileRows = 64;
+constexpr int kTileRT = 8;
+constexpr int kTileCG = 32;
+constexpr int kTileThreads = kTileRows / kTileRT * kTileCG;
+constexpr int kTileWidth = 8 * kTileCG;
+constexpr int kSlabK = 32;
+constexpr int kSlabFloats = kSlabK * kTileWidth;
+constexpr int kStages = 3;  // slabs a block holds: kStages - 1 in flight
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on an H100
+constexpr int kMaxQ = 2 * kMaxLayers;  // layers over both chains
+
+// A tiled launch: layer q = chain * n_layers + l reads in_w[q] x out_w[q]
+// weights at woff[q] of the flat parameters (its bias follows them), in
+// slabs first_slab[q] .. first_slab[q + 1] - 1; head j of chain c is at
+// hoff[c][j]. Shared memory: obs' tile [R, ldx], the activations [R, ldh]
+// (each layer's output replaces its input), kStages weight slabs, the heads
+// [R, head_stride] and the epilogue's [R, 2A].
+struct TilePlan {
+  int ldx, ldh, n_q;
+  int first_slab[kMaxQ + 1];
+  int in_w[kMaxQ], out_w[kMaxQ];
+  long long woff[kMaxQ];
+  long long hoff[2][2];
+  // The biases and the heads' W and b, copied to shared memory from sp with
+  // the first slab: layer q's bias at sbias[q], head j of chain c at
+  // shead[c][j] (its b after its W).
+  int sp;
+  // Whether layer q's weight rows start 16-byte aligned, so that its slabs
+  // are bulk copies (the TMA unit, one instruction a slab or row; per-thread
+  // cp.async copies share the load pipe with the products' shared-memory
+  // loads: with cp.async alone ~0.019 ms of them showed, kernel_variants.py's
+  // act_no_slab_loads); cp.async otherwise.
+  int bulk[kMaxQ];
+  int sbias[kMaxQ], shead[2][2];
+  size_t smem;
+};
+
+// The tiled plan of a continuous launch, or false where its widest layer
+// is wider than one pass or its tiles do not fit a block's shared memory
+// (those launches take continuous_act_kernel).
+bool make_plan(const ActDims& d, TilePlan* P) {
+  if (d.max_hidden > kTileWidth || d.n_heads > 2) return false;
+  P->ldx = rl8::tile_ld(d.d_in);
+  P->ldh = rl8::tile_ld(d.max_hidden);
+  P->n_q = 2 * d.n_layers;
+  long long off = 0;
+  int slabs = 0;
+  for (int c = 0; c < 2; ++c) {
+    int in = d.d_in;
+    for (int l = 0; l < d.n_layers; ++l) {
+      const int q = c * d.n_layers + l, w = d.hidden[l];
+      P->in_w[q] = in;
+      P->out_w[q] = w;
+      P->woff[q] = off;
+      P->first_slab[q] = slabs;
+      slabs += (in + kSlabK - 1) / kSlabK;
+      off += (long long)in * w + w;
+      in = w;
+    }
+    const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
+    for (int j = 0; j < n_heads; ++j) {
+      P->hoff[c][j] = off;
+      off += (long long)in * n_out + n_out;
+    }
+  }
+  P->first_slab[P->n_q] = slabs;
+  for (int q = 0; q < P->n_q; ++q) P->bulk[q] = P->out_w[q] % 4 == 0 && P->woff[q] % 4 == 0;
+  const int stride = d.n_heads * d.head_w + 1;
+  P->sp = kTileRows * (P->ldx + P->ldh + stride + 2 * d.head_w) + kStages * kSlabFloats;
+  int small = 0;
+  for (int q = 0; q < P->n_q; ++q) {
+    P->sbias[q] = P->sp + small;
+    small += P->out_w[q];
+  }
+  for (int c = 0; c < 2; ++c) {
+    const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
+    for (int j = 0; j < n_heads; ++j) {
+      P->shead[c][j] = P->sp + small;
+      small += d.hidden[d.n_layers - 1] * n_out + n_out;
+    }
+  }
+  P->smem = sizeof(float) * ((size_t)P->sp + small);
+  return P->smem <= (size_t)kMaxSmem;
+}
+
+// Issues the copies of slab g (rows k0 .. k0 + kSlabK of layer q's W [in,
+// out], fewer at the end) to dst, rows kTileWidth apart, and commits a
+// cp.async group (empty past the last slab and for bulk copies, so that
+// every thread counts one group a slab). A layer whose rows are 16-byte
+// aligned takes bulk copies by one thread, reported to bar (one for the
+// slab where its rows are kTileWidth wide, else one a row); the others
+// every thread's cp.async copies, 16, 8 or 4 bytes as the rows' alignment
+// allows, 64 threads a row. Returns whether the slab's copies are bulk.
+__device__ __forceinline__ bool issue_slab(const float* __restrict__ params, const TilePlan& P, int g, float* dst,
+                                           uint64_t* bar) {
+  bool bulk = false;
+  if (g < P.first_slab[P.n_q]) {
+    int q = 0;
+    while (P.first_slab[q + 1] <= g) ++q;
+    const int k0 = (g - P.first_slab[q]) * kSlabK, w = P.out_w[q];
+    const int rows = min(kSlabK, P.in_w[q] - k0);
+    const float* src = params + P.woff[q] + (size_t)k0 * w;
+    bulk = P.bulk[q];
+    if (bulk) {
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = (uint32_t)(w * sizeof(float));
+        rl8::async_proxy_fence();
+        rl8::mbar_expect(bar, rows * bytes);
+        if (w == kTileWidth) {
+          rl8::bulk_copy(dst, src, rows * bytes, bar);
+        } else {
+          for (int r = 0; r < rows; ++r) rl8::bulk_copy(dst + r * kTileWidth, src + r * w, bytes, bar);
+        }
+      }
+    } else {
+      const int lane64 = threadIdx.x % 64, step = blockDim.x / 64;
+      const uintptr_t align = reinterpret_cast<uintptr_t>(src) | (uintptr_t)(w * sizeof(float));
+      if ((align & 15) == 0) {
+        for (int r = threadIdx.x / 64; r < rows; r += step) {
+          for (int c = 4 * lane64; c < w; c += 256) rl8::cp_async16(dst + r * kTileWidth + c, src + r * w + c, 16);
+        }
+      } else if ((align & 7) == 0) {
+        for (int r = threadIdx.x / 64; r < rows; r += step) {
+          for (int c = 2 * lane64; c < w; c += 128) rl8::cp_async8(dst + r * kTileWidth + c, src + r * w + c);
+        }
+      } else {
+        for (int r = threadIdx.x / 64; r < rows; r += step) {
+          for (int c = lane64; c < w; c += 64) rl8::cp_async4(dst + r * kTileWidth + c, src + r * w + c, 4);
+        }
+      }
+    }
+  }
+  rl8::cp_async_commit();
+  return bulk;
+}
+
+// The continuous act kernel's tiled route: a block of 256 threads owns 64
+// rows and runs both chains on them. Every layer is tile.cuh's product,
+// each thread owning 8 rows x 8 columns, over the weight slabs in order,
+// with the next kStages - 1 slabs in flight (bulk copies or cp.async)
+// across layer and chain boundaries. A layer's output replaces its input in
+// place once every thread's product is done (the sums live in registers);
+// a chain's last layer goes straight into its heads (tile.cuh's tile_heads,
+// a row's 32 lanes each summing its 8 columns, then a butterfly). Then
+// rl8::continuous_epilogue with the rows' true index, as
+// continuous_act_kernel calls it.
+template <int ACT>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    continuous_act_tiles_kernel(const float* __restrict__ obs, const float* __restrict__ params,
+                                float* __restrict__ actions, float* __restrict__ logp,
+                                float* __restrict__ values, int B, ActDims d, const __grid_constant__ TilePlan P,
+                                int squashed, uint32_t seed, uint32_t offset, int deterministic) {
+  constexpr int R = kTileRows, RT = kTileRT, CG = kTileCG;
+  extern __shared__ __align__(16) float smem[];
+  const int A = d.head_w, stride = head_stride(d), ldx = P.ldx, ldh = P.ldh;
+  float* xs = smem;
+  float* h = xs + R * ldx;
+  float* slabs = h + R * ldh;
+  float* heads = slabs + kStages * kSlabFloats;
+  float* parts = heads + R * stride;
+  const int r0 = blockIdx.x * R;
+  const int nr = min(R, B - r0);
+  const int n_slabs = P.first_slab[P.n_q];
+  // Bulk copies: slab g reports to bars[g % kStages]; bit s of phases is the
+  // parity of stage s's next phase, and bit s of bulk whether the slab in
+  // stage s is bulk.
+  __shared__ uint64_t bars[kStages];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) rl8::mbar_init(&bars[s]);
+    rl8::mbar_init_fence();
+  }
+  __syncthreads();
+  uint32_t phases = 0, bulk = 0;
+  // The biases and the heads' parameters, with the first slab's group.
+  for (int q = 0; q < P.n_q; ++q) {
+    for (int i = threadIdx.x; i < P.out_w[q]; i += blockDim.x) {
+      rl8::cp_async4(smem + P.sbias[q] + i, params + P.woff[q] + (size_t)P.in_w[q] * P.out_w[q] + i, 4);
+    }
+  }
+  for (int c = 0; c < 2; ++c) {
+    const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
+    const int n = (d.hidden[d.n_layers - 1] + 1) * n_out;
+    for (int j = 0; j < n_heads; ++j) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) rl8::cp_async4(smem + P.shead[c][j] + i, params + P.hoff[c][j] + i, 4);
+    }
+  }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (issue_slab(params, P, s, slabs + s * kSlabFloats, &bars[s])) bulk |= 1u << s;
+  }
+  for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) {
+    const int r = i / d.d_in;
+    xs[r * ldx + i % d.d_in] = r < nr ? obs[(size_t)r0 * d.d_in + i] : 0.0f;
+  }
+  const int rg = threadIdx.x / CG, c0 = 4 * (threadIdx.x % CG), c1 = c0 + 4 * CG;
+  float acc[RT][8];
+  rl8::tile_zero(acc);
+  for (int g = 0; g < n_slabs; ++g) {
+    const int gs = g + kStages - 1;
+    const int st = g % kStages, next = gs % kStages;
+    if (issue_slab(params, P, gs, slabs + next * kSlabFloats, &bars[next])) {
+      bulk |= 1u << next;
+    } else {
+      bulk &= ~(1u << next);
+    }
+    rl8::cp_async_wait<kStages - 1>();
+    if (bulk & (1u << st)) {
+      rl8::mbar_wait(&bars[st], (phases >> st) & 1);
+      phases ^= 1u << st;
+    }
+    __syncthreads();  // slab g has landed for every thread (and obs' tile)
+    int q = 0;
+    while (P.first_slab[q + 1] <= g) ++q;
+    const int l = q % d.n_layers, k0 = (g - P.first_slab[q]) * kSlabK;
+    const float* in = l == 0 ? xs : h;
+    const int ld = l == 0 ? ldx : ldh;
+    rl8::tile_fma<RT>(acc, in + rg * RT * ld + k0, ld, slabs + st * kSlabFloats, kTileWidth,
+                      min(kSlabK, P.in_w[q] - k0), c0, c1);
+    __syncthreads();  // slab g may be overwritten, and the layer's input
+    if (g + 1 < P.first_slab[q + 1]) continue;
+    // The layer's last slab: its output, in place of its input, or, after a
+    // chain's last layer, straight into the chain's heads (tile.cuh's
+    // tile_heads, on the outputs in registers): the policy chain's (mean,
+    // pre-tanh log-std) from column 0, the value chain's value in column
+    // stride - 1.
+    const int w = P.out_w[q], c = q / d.n_layers;
+    const float* bias = smem + P.sbias[q];
+    int n[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      n[j] = j < 4 ? c0 + j : c1 + j - 4;
+      const float b = n[j] < w ? bias[n[j]] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < RT; ++r) acc[r][j] = rl8::activate(acc[r][j] + b, ACT);
+    }
+    if (l == d.n_layers - 1) {
+      const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? A : 1;
+      for (int j = 0; j < n_heads; ++j) {
+        const float* W = smem + P.shead[c][j];
+        float* col = heads + rg * RT * stride + (c == 0 ? j * n_out : stride - 1);
+        rl8::tile_heads<RT, CG>(acc, n, w, W, n_out, W + (size_t)w * n_out, n_out,
+                                [&](int r, int o, float v) { col[r * stride + o] = v; });
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (n[j] < w) h[(rg * RT + r) * ldh + n[j]] = acc[r][j];
+        }
+      }
+    }
+    rl8::tile_zero(acc);
+    __syncthreads();
+  }
+  rl8::continuous_epilogue(heads, stride, r0, nr, A, squashed, seed, offset, deterministic, actions, logp,
+                           values, parts);
+}
+
 // The dims of a launch, or false if the kernels do not take them.
 bool make_dims(int B, int d_in, int n_layers, const int* hidden, int act, int n_heads, int head_w,
                ActDims* d) {
@@ -215,6 +509,23 @@ extern "C" int rl8_continuous_act(const float* obs, const float* params, float* 
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  TilePlan P;
+  if (make_plan(d, &P)) {
+    if ((reinterpret_cast<uintptr_t>(params) & 15) != 0) {
+      for (int q = 0; q < P.n_q; ++q) P.bulk[q] = 0;
+    }
+    // The activation is a template argument: chosen at run time, every
+    // activation also paid for tanhf's instructions.
+    auto kernel = act == rl8::kRelu ? continuous_act_tiles_kernel<rl8::kRelu> : continuous_act_tiles_kernel<rl8::kTanh>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(B + kTileRows - 1) / kTileRows, kTileThreads, P.smem, (cudaStream_t)stream>>>(
+        obs, params, actions, logp, values, B, d, P, squashed, seed, offset, deterministic);
+    return (int)cudaGetLastError();
+  }
+  // Layers wider than one pass of the tiled route.
   const size_t smem = smem_bytes(d, 2 * action_dim);
   err = cudaFuncSetAttribute(continuous_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -1,8 +1,9 @@
 // Chain kernels: several activation-MLP chains that share one input x [N,
 // d_in], each ending in linear heads, forward and backward.
 //
-// chains_fwd_kernel replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by
-// _call_fwd, the forward of fused_chains); chains_bwd_tiles_kernel (and, for
+// chains_fwd_tiles_kernel (and, for chains too wide for it, chains_fwd_kernel)
+// replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by _call_fwd, the
+// forward of fused_chains); chains_bwd_tiles_kernel (and, for
 // chains too wide for it, chains_bwd_rows_kernel with the weight products
 // below) replaces fused_mlp.py:_bwd_kernel (_fused_bwd, the recompute-based
 // backward). Per chain, layer l computes
@@ -27,15 +28,38 @@
 // the tensor cores; its inputs and outputs are ~2.6 MB.
 //
 // Design.
-// - Forward, f32 on the CUDA cores: a block of 256 threads owns 16 rows and
-//   walks every chain, the current layer's activations in shared memory (two
-//   ping-pong buffers), weights streaming from L2 (mlp.cuh's dense_layer:
-//   thread j reads column j of W [in, out], coalesced). A LayerNorm is a warp
-//   per row: lane-strided sums of z and z^2 reduced with an xor butterfly, in
-//   a fixed order. Heads narrower than 8 are warp dot products (mlp.cuh's
-//   narrow_head), as the TPU ran them as lane reductions. Rows past N are
-//   zeros in shared memory and are never stored; nothing is padded in device
-//   memory.
+// - Forward, f32 on the CUDA cores (a tensor-core forward flipped a relu
+//   mask, PERF.md), each output summed in order of k.
+//   - The tiled route (chains whose parameters and a 64-row tile fit a
+//     block's shared memory: MischievousMule's use ~114 KB, so two
+//     256-thread blocks share an SM). Block (i, c) owns chain c, loads its
+//     parameters into shared memory once (cp.async) and walks the row tiles
+//     i, i + groups, ...: the weights are read from L2 once per block, where
+//     the first design read both chains' ~0.14 MB from L2 for every 16 rows
+//     (~0.3 GB a 32,768-row launch). One chain a block rather than both
+//     (~146 KB): two blocks an SM (16 warps to hide the latency of the
+//     barrier-separated phases; 8 warps an SM, 32-row tiles of 128
+//     threads, took 0.0996 ms against 0.0908 at 32,768 rows on an H100),
+//     and a 4,096-row rollout step still gives 128 blocks.
+//     Products are tile.cuh's register tiles: each thread owns 4 rows x 8
+//     columns, so one 16-byte shared-memory load feeds 8 FMAs (the first
+//     design issued about one load per FMA and left half its threads idle
+//     at width 128). A layer up to 128 wide is one pass, and its row group's
+//     16 lanes hold each of its rows in registers: its LayerNorm (flax's
+//     fast variance, clamped at 0: each lane sums its 8 columns in order,
+//     then an xor butterfly over the 16 lanes) and, after the last layer,
+//     the narrow heads (the same sums of products) run there and write
+//     straight to each head's output [N, hw]; its output replaces its input
+//     in shared memory. Wider layers take passes of 128 columns between two
+//     buffers, a LayerNorm a warp per row, narrow heads 4 lanes a row, and
+//     wider heads the product. The activation is a template argument.
+//   - The streaming route (the rest, up to the kernels' width limit; e.g.
+//     a 768-wide layer, whose tile buffers alone fill shared memory): the
+//     first design, a block of 256 threads per 16 rows walking every chain
+//     with the weights streaming from L2 (mlp.cuh's dense_layer) and heads
+//     narrower than 8 as warp dot products (mlp.cuh's narrow_head).
+//   Rows past N are zeros in shared memory and are never stored; nothing is
+//   padded in device memory.
 // - Backward. The TPU kernel adds every grid step's gradients into
 //   VMEM-resident accumulators over a sequential grid. CUDA blocks run in
 //   parallel and nothing carries over between them, so:
@@ -74,6 +98,7 @@
 #include <math.h>
 
 #include "mlp.cuh"
+#include "tile.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -592,6 +617,387 @@ bool make_tiled(const Layout& Lo, Tiled* T) {
   return true;
 }
 
+// -------------------------------------------------------- tiled forward
+
+// The forward's tiled route: threads and rows per block, each thread's rows
+// (tile.cuh's RT) and the threads of a row group (CG); a pass covers 8 CG
+// columns of a layer.
+constexpr int kFwdTileRows = 64;
+constexpr int kFwdRT = 4;
+constexpr int kFwdCG = 16;
+constexpr int kFwdTileThreads = kFwdTileRows / kFwdRT * kFwdCG;
+constexpr int kFwdPass = 8 * kFwdCG;
+
+// One chain's shared-memory layout in the tiled forward (offsets in
+// floats from the block's shared memory): per layer W_l [in_l, w_l] (rows
+// ldw apart, 16-byte aligned, as tile.cuh reads them) and its b (and
+// LayerNorm scale and bias); per head W [w_last, hw] (rows ldh apart) and
+// b. The backward's TileChain lays the same blocks out for its mma fragments
+// (rows a multiple of 8 apart, heads side by side) beside their gradients
+// and a tile's activations for every layer, which the forward does not keep.
+struct FwdChain {
+  int L, n_heads;
+  int in[kMaxLayers], w[kMaxLayers], ln[kMaxLayers];
+  int sw[kMaxLayers], ldw[kMaxLayers], sv[kMaxLayers];
+  int sh[kMaxHeads], ldh[kMaxHeads], shb[kMaxHeads], head_w[kMaxHeads];
+  int narrow_heads;  // every head narrower than kNarrow
+  int n_seg;
+  Seg seg[kMaxTileSegs];
+  float* out[kMaxHeads];
+};
+
+// The tiled forward: two buffers of x's tile [R, d_in] at 0 (rows ldx
+// apart; the next tile's lands while one is computed), then the activation
+// buffers [R, widest layer] (rows lda apart) at sa and sb (one buffer, sa ==
+// sb, where every layer is one pass), then the block's chain.
+struct FwdTiled {
+  long long N;
+  int d_in, act, n_chains, groups;
+  int ldx, lda, sa, sb;
+  size_t smem;
+  FwdChain c[kMaxChains];
+};
+
+// Lays out the tiled forward of Lo's chains; false where a chain's
+// parameters and a row tile's two activation buffers do not fit a block's
+// shared memory (those chains take the streaming route, chains_fwd_kernel).
+bool make_fwd_tiled(const Layout& Lo, FwdTiled* F) {
+  constexpr int R = kFwdTileRows;
+  const Chains& d = Lo.d;
+  F->N = d.N;
+  F->d_in = d.d_in;
+  F->act = d.act;
+  F->n_chains = d.n_chains;
+  F->ldx = rl8::tile_ld(d.d_in);
+  F->lda = rl8::tile_ld(d.max_w);
+  // Layers of one pass each (the thread's sums live in registers until the
+  // pass is done) write their output in place of their input: one buffer.
+  int widest = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    for (int l = 0; l < d.n_layers[c]; ++l) widest = d.width[c][l] > widest ? d.width[c][l] : widest;
+  }
+  F->sa = 2 * R * F->ldx;
+  F->sb = widest <= kFwdPass ? F->sa : F->sa + R * F->lda;
+  const long long sp = F->sb + (long long)R * F->lda;
+  auto up4 = [](long long v) { return (v + 3) / 4 * 4; };
+  long long most = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    FwdChain& t = F->c[c];
+    t.L = d.n_layers[c];
+    t.n_heads = d.n_heads[c];
+    long long off = sp;
+    int n = 0, in = d.d_in;
+    for (int l = 0; l < t.L; ++l) {
+      const int w = d.width[c][l];
+      t.in[l] = in;
+      t.w[l] = w;
+      t.ln[l] = d.ln[c][l];
+      t.ldw[l] = (w + 3) / 4 * 4;
+      t.sw[l] = (int)off;
+      t.seg[n++] = Seg{d.woff[c][l], in, w, (int)off, t.ldw[l]};
+      off = up4(off + (long long)in * t.ldw[l]);
+      const int nv = t.ln[l] ? 3 * w : w;
+      t.sv[l] = (int)off;
+      t.seg[n++] = Seg{d.woff[c][l] + (long long)in * w, 1, nv, (int)off, nv};
+      off = up4(off + nv);
+      in = w;
+    }
+    t.narrow_heads = 1;
+    for (int j = 0; j < t.n_heads; ++j) {
+      const int hw = d.head_w[c][j];
+      t.head_w[j] = hw;
+      t.narrow_heads &= hw < kNarrow;
+      t.ldh[j] = (hw + 3) / 4 * 4;
+      t.sh[j] = (int)off;
+      t.seg[n++] = Seg{d.woff[c][t.L + j], in, hw, (int)off, t.ldh[j]};
+      off = up4(off + (long long)in * t.ldh[j]);
+      t.shb[j] = (int)off;
+      t.seg[n++] = Seg{d.woff[c][t.L + j] + (long long)in * hw, 1, hw, (int)off, hw};
+      off = up4(off + hw);
+      t.out[j] = d.out[c][j];
+    }
+    t.n_seg = n;
+    if (off * (long long)sizeof(float) + (long long)sizeof(FwdChain) > kMaxSmem) return false;
+    most = off > most ? off : most;
+  }
+  F->smem = sizeof(float) * (size_t)most;
+  F->groups = (int)((d.N + R - 1) / R);
+  return true;
+}
+
+// LayerNorm of the block's rows of z (rows ld apart, w wide), in place,
+// followed by the activation: z = act(xhat * scale + bias), with scale and
+// bias in shared memory. Warp i owns rows i RW .. i RW + RW - 1 and works
+// on them at once: per row, each lane sums its strided elements in order,
+// then an xor butterfly, as layer_norm_rows does for one row at a time (the
+// same sums in the same order; its rows' serial shuffles were ~25% of the
+// forward, kernel_variants.py's fwd_no_layer_norm).
+template <int RW, int ACT>
+__device__ __forceinline__ void layer_norm_tile(float* z, int ld, int w, const float* scale, const float* bias) {
+  const int lane = threadIdx.x % 32;
+  float* rows = z + (threadIdx.x / 32) * RW * ld;
+  float s1[RW], s2[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) s1[i] = s2[i] = 0.0f;
+  for (int k = lane; k < w; k += 32) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const float v = rows[i * ld + k];
+      s1[i] += v;
+      s2[i] = fmaf(v, v, s2[i]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], off);
+      s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], off);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const float mu = s1[i] / w;
+    s1[i] = mu;
+    s2[i] = rsqrtf(fmaxf(s2[i] / w - mu * mu, 0.0f) + kLnEps);
+  }
+  for (int k = lane; k < w; k += 32) {
+    const float sc = scale[k], bi = bias[k];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      float* v = rows + i * ld + k;
+      *v = activate(fmaf((*v - s1[i]) * s2[i], sc, bi), ACT);
+    }
+  }
+}
+
+// LayerNorm and activation of a one-pass layer's outputs in registers:
+// v[r][j] is row r's column n[j] (columns past w are ignored), and the CG
+// lanes of the row group (adjacent, within a warp) hold the whole row. Each
+// lane sums its columns in order, then an xor butterfly over the CG lanes;
+// flax's fast variance, clamped at 0, as layer_norm_tile computes it. Its
+// separate pass over shared memory was ~14% of the forward
+// (kernel_variants.py's fwd_no_layer_norm).
+template <int RT, int CG, int ACT>
+__device__ __forceinline__ void fused_layer_norm(float (&v)[RT][8], const int (&n)[8], int w, const float* scale,
+                                                 const float* bias) {
+  float sc[8], bi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    sc[j] = n[j] < w ? scale[n[j]] : 0.0f;
+    bi[j] = n[j] < w ? bias[n[j]] : 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (n[j] < w) {
+        s1 += v[r][j];
+        s2 = fmaf(v[r][j], v[r][j], s2);
+      }
+    }
+#pragma unroll
+    for (int off = CG / 2; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float mu = s1 / w;
+    const float s = rsqrtf(fmaxf(s2 / w - mu * mu, 0.0f) + kLnEps);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[r][j] = activate(fmaf((v[r][j] - mu) * s, sc[j], bi[j]), ACT);
+  }
+}
+
+// The chain's narrow heads on the last layer's outputs in registers (rows
+// q0 .. q0 + RT - 1; tile.cuh's tile_heads), each straight to its output
+// [N, hw] for the rows below nr. Their separate pass over shared memory, and
+// the barrier before it, were ~7% of the forward (fwd_no_heads).
+template <int RT, int CG>
+__device__ __forceinline__ void fused_heads(const float (&h)[RT][8], const int (&n)[8], int w, const FwdChain& t,
+                                            const float* smem, long long r0, int q0, int nr) {
+  for (int j = 0; j < t.n_heads; ++j) {
+    const int hw = t.head_w[j];
+    float* o = t.out[j] + r0 * hw;
+    rl8::tile_heads<RT, CG>(h, n, w, smem + t.sh[j], t.ldh[j], smem + t.shb[j], hw, [&](int r, int q, float v) {
+      if (q0 + r < nr) o[(q0 + r) * hw + q] = v;
+    });
+  }
+}
+
+// Copies the segments of a chain's parameters into shared memory
+// (cp.async; committed by the caller): 16 bytes a copy where a segment's
+// rows allow it, else 4, a row at a time for wide rows.
+__device__ __forceinline__ void load_segments(const Seg* segs, int n_seg, const float* __restrict__ params,
+                                              float* smem) {
+  for (int q = 0; q < n_seg; ++q) {
+    const Seg s = segs[q];
+    const float* src = params + s.flat;
+    float* dst = smem + s.sm;
+    if ((s.cols & 3) == 0 && (s.flat & 3) == 0) {
+      const int per_row = s.cols / 4;
+      for (int i = threadIdx.x; i < s.rows * per_row; i += blockDim.x) {
+        const int row = i / per_row, c = 4 * (i - row * per_row);
+        rl8::cp_async16(dst + row * s.ld + c, src + (size_t)row * s.cols + c, 16);
+      }
+    } else if (s.cols >= 32) {
+      for (int row = 0; row < s.rows; ++row) {
+        for (int c = threadIdx.x; c < s.cols; c += blockDim.x) {
+          rl8::cp_async4(dst + row * s.ld + c, src + (size_t)row * s.cols + c, 4);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < s.rows * s.cols; i += blockDim.x) {
+        rl8::cp_async4(dst + (i / s.cols) * s.ld + i % s.cols, src + i, 4);
+      }
+    }
+  }
+}
+
+// Copies rows r0 .. r0 + R of x (zeros past N) to xs, rows ldx apart
+// (cp.async; committed by the caller).
+template <int R>
+__device__ __forceinline__ void load_x(const float* __restrict__ x, long long N, int d_in, long long r0, float* xs,
+                                       int ldx) {
+  const int nr = (int)min((long long)R, N - r0);
+  for (int i = threadIdx.x; i < R * d_in; i += blockDim.x) {
+    const int r = i / d_in;
+    rl8::cp_async4(xs + r * ldx + (i - r * d_in), x + r0 * d_in + (r < nr ? i : 0), r < nr ? 4 : 0);
+  }
+}
+
+// The tiled forward: block (i, c) owns chain c, loads its parameters into
+// shared memory once (cp.async) and walks the row tiles i, i + groups, ...
+// (the next tile's x in flight while one is computed); per tile each layer
+// is tile.cuh's register-tiled product in passes of 128 columns (bias and
+// activation on the way out), then a LayerNorm where the layer has one, and
+// each head goes straight to its output [N, hw]: narrow ones 4 lanes per
+// row (tile.cuh's narrow_rows), wider ones as a product. Rows past N are
+// zeros in shared memory and are never stored.
+template <int ACT>
+__global__ void __launch_bounds__(kFwdTileThreads, 2)
+    chains_fwd_tiles_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                            const __grid_constant__ FwdTiled F) {
+  constexpr int R = kFwdTileRows, RT = kFwdRT, CG = kFwdCG;
+  extern __shared__ __align__(16) float smem[];
+  // The block's chain, copied from the parameters: read with indices known
+  // only at run time, the parameters are generic loads on every use.
+  __shared__ FwdChain t;
+  for (int i = threadIdx.x; i < (int)(sizeof(FwdChain) / sizeof(int)); i += blockDim.x) {
+    reinterpret_cast<int*>(&t)[i] = reinterpret_cast<const int*>(&F.c[blockIdx.y])[i];
+  }
+  __syncthreads();
+  load_segments(t.seg, t.n_seg, params, smem);
+  const int d_in = F.d_in, ldx = F.ldx, lda = F.lda;
+  load_x<R>(x, F.N, d_in, (long long)blockIdx.x * R, smem, ldx);
+  rl8::cp_async_commit();
+  const int rg = threadIdx.x / CG, c0 = 4 * (threadIdx.x % CG), c1 = c0 + 4 * CG;
+
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile * R < F.N; tile += gridDim.x, buf ^= 1) {
+    const long long r0 = tile * R;
+    const int nr = (int)min((long long)R, F.N - r0);
+    const float* xs = smem + buf * R * ldx;
+    rl8::cp_async_wait<0>();
+    __syncthreads();  // x (and the parameters) landed; the last tile's heads are done
+    if ((tile + gridDim.x) * R < F.N) {
+      load_x<R>(x, F.N, d_in, (tile + gridDim.x) * R, smem + (buf ^ 1) * R * ldx, ldx);
+      rl8::cp_async_commit();
+    }
+    const float* cur = xs;
+    int cur_ld = ldx, cur_w = d_in;
+    bool heads_done = false;
+    for (int l = 0; l < t.L; ++l) {
+      const int w = t.w[l], ldw = t.ldw[l], ln = t.ln[l];
+      const float* W = smem + t.sw[l];
+      const float* bv = smem + t.sv[l];
+      float* dst = smem + ((l & 1) ? F.sb : F.sa);
+      // A layer of one pass has each row in the registers of its row
+      // group: its LayerNorm, and the narrow heads of the last layer, run on
+      // them (fused_layer_norm, fused_heads) with no pass over shared memory.
+      const bool one_pass = w <= kFwdPass;
+      const bool fuse_heads = l == t.L - 1 && !ln && one_pass && t.narrow_heads;
+      for (int n0 = 0; n0 < w; n0 += kFwdPass) {
+        float acc[RT][8];
+        rl8::tile_zero(acc);
+        rl8::tile_fma<RT>(acc, cur + rg * RT * cur_ld, cur_ld, W, ldw, cur_w, min(n0 + c0, ldw - 4),
+                          min(n0 + c1, ldw - 4));
+        int n[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          n[j] = n0 + (j < 4 ? c0 + j : c1 + j - 4);
+          const float b = n[j] < w ? bv[n[j]] : 0.0f;
+#pragma unroll
+          for (int r = 0; r < RT; ++r) acc[r][j] = ln ? acc[r][j] + b : activate(acc[r][j] + b, ACT);
+        }
+        if (ln && one_pass) fused_layer_norm<RT, CG, ACT>(acc, n, w, bv + w, bv + 2 * w);
+        if (fuse_heads) {
+          fused_heads<RT, CG>(acc, n, w, t, smem, r0, rg * RT, nr);
+          continue;
+        }
+        if (dst == cur) __syncthreads();  // in place: every thread's product has read its input
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float* row = dst + (rg * RT + r) * lda;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int n4 = n[4 * half];
+            if (n4 + 4 <= w) {
+              *reinterpret_cast<float4*>(row + n4) =
+                  make_float4(acc[r][4 * half], acc[r][4 * half + 1], acc[r][4 * half + 2], acc[r][4 * half + 3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (n4 + j < w) row[n4 + j] = acc[r][4 * half + j];
+              }
+            }
+          }
+        }
+      }
+      if (fuse_heads) {
+        heads_done = true;
+        break;
+      }
+      __syncthreads();
+      if (ln && !one_pass) {
+        layer_norm_tile<R * 32 / kFwdTileThreads, ACT>(dst, lda, w, bv + w, bv + 2 * w);
+        __syncthreads();
+      }
+      cur = dst;
+      cur_ld = lda;
+      cur_w = w;
+    }
+    if (heads_done) continue;  // the next tile's barrier orders its writes after these reads
+    for (int j = 0; j < t.n_heads; ++j) {
+      const int hw = t.head_w[j], ldh = t.ldh[j];
+      const float* W = smem + t.sh[j];
+      const float* bh = smem + t.shb[j];
+      float* o = t.out[j] + r0 * hw;
+      if (hw < kNarrow) {
+        rl8::narrow_rows<kFwdTileThreads / R>(cur, cur_ld, cur_w, W, ldh, bh, hw, [&](int r, int q, float v) {
+          if (r < nr) o[r * hw + q] = v;
+        });
+        continue;
+      }
+      for (int n0 = 0; n0 < hw; n0 += kFwdPass) {
+        float acc[RT][8];
+        rl8::tile_zero(acc);
+        rl8::tile_fma<RT>(acc, cur + rg * RT * cur_ld, cur_ld, W, ldh, cur_w, min(n0 + c0, ldh - 4),
+                          min(n0 + c1, ldh - 4));
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const int row = rg * RT + r;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int n = n0 + (q < 4 ? c0 + q : c1 + q - 4);
+            if (row < nr && n < hw) o[row * hw + n] = acc[r][q] + bh[n];
+          }
+        }
+      }
+    }
+  }
+}
+
 // acc[mt][nt] += sum over k < K of a(m, k) b(k, n) on the tensor cores
 // (mma.cuh's 3xTF32, a fresh accumulator per k step of 8), for the warp's
 // MTW m16 tiles from m0 and NTW n8 tiles from n0 (mma.cuh's fragment
@@ -1026,6 +1432,27 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  FwdTiled F;
+  if (make_fwd_tiled(L, &F)) {
+    // The tiled route: as many persistent blocks as the card holds at once
+    // (within the row tiles), split evenly over the chains.
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+    // The activation is a template argument: chosen at run time, every
+    // activation also paid for tanhf's instructions.
+    auto kernel = act == kRelu ? chains_fwd_tiles_kernel<kRelu> : chains_fwd_tiles_kernel<kTanh>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F.smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdTileThreads, F.smem);
+    if (err != cudaSuccess) return (int)err;
+    const int fit = sms * per_sm / L.d.n_chains;
+    F.groups = fit < 1 ? 1 : (fit < F.groups ? fit : F.groups);
+    kernel<<<dim3(F.groups, L.d.n_chains), kFwdTileThreads, F.smem, (cudaStream_t)stream>>>(x, params, F);
+    return (int)cudaGetLastError();
+  }
+  // The streaming route.
   err = cudaFuncSetAttribute(chains_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.fwd_smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (N + kFwdRows - 1) / kFwdRows;

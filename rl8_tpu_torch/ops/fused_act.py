@@ -167,7 +167,10 @@ def fused_act(
     CUDA tensors launch the kind's kernel in ``csrc/act.cu`` (and count
     one launch in ``fused_act.launches`` for the categorical kind, in
     ``fused_act.continuous_launches`` for the others) or raise; CPU
-    tensors run :func:`act_plain`. Non-f32 observations are widened to
+    tensors run :func:`act_plain`. The continuous kinds take the kernel's
+    tiled route (64-row blocks, weights streamed through shared memory,
+    register-tiled f32 products) where every hidden layer is at most 256
+    wide, and its streaming route otherwise; the shapes pick it. Non-f32 observations are widened to
     f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
     actions int32 for the categorical kind and f32 otherwise.
     """

@@ -419,8 +419,12 @@ def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, 
     ``structure`` with parameters ``flat`` (:func:`flatten_chains` order)
     on ``x [N, d_in]``.
 
-    CUDA tensors launch ``csrc/chains.cu``'s forward kernel (counting one
-    launch in ``fused_chains_fwd.launches``) or raise; CPU tensors run
+    CUDA tensors launch ``csrc/chains.cu``'s forward (persistent blocks
+    that each hold one chain's parameters in shared memory and walk 32-row
+    tiles through register-tiled f32 products, or, for chains too large for
+    that, 16-row blocks with the weights streaming from L2; the route is
+    picked by the chains' shapes; counting one launch in
+    ``fused_chains_fwd.launches``) or raise; CPU tensors run
     :func:`forward_chains`."""
     _check(x, flat, structure, activation)
     if x.device.type == "cpu":

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rl8_tpu.nn import MLP as JMLP
+from rl8_tpu.ops.fused_mlp import _call_fwd as jax_call_fwd
 from rl8_tpu.ops.fused_mlp import fused_chains as jax_fused_chains
 from rl8_tpu_torch.nn import MLP
 from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains, fused_chains_bwd, fused_chains_fwd
@@ -136,6 +137,22 @@ def test_plain_chains_match_pallas_bf16_path() -> None:
     norm_close(j_dx, t_dx)
     for j, t in zip(j_grads, t_grads):
         norm_close(j, t)
+
+
+def test_plain_forward_matches_pallas_fwd_at_mule_widths() -> None:
+    """``forward_chains`` at MischievousMule's chains (d_in 7 -> 128 with
+    LayerNorm -> 128, heads of 3 and 1, relu), the widths the card's tiled
+    forward runs, against the Pallas forward ``_call_fwd`` in interpret
+    mode, at the bf16 path's tolerance."""
+    layout = (([(128, True), (128, False)], [3]), ([(128, True), (128, False)], [1]))
+    chains = _random_chains(4, 7, layout)
+    x = np.random.default_rng(3).normal(size=(300, 7)).astype(np.float32)
+    j_outs = [np.asarray(o) for outs in jax_call_fwd("relu", True, jnp.asarray(x), _to(chains, jnp.asarray)) for o in outs]
+    t_outs, _ = forward_chains(torch.from_numpy(x), _to(chains, torch.from_numpy), "relu")
+    t_outs = [o.numpy() for outs in t_outs for o in outs]
+    assert [o.shape for o in t_outs] == [(300, 3), (300, 1)] == [o.shape for o in j_outs]
+    for j, t in zip(j_outs, t_outs):
+        np.testing.assert_allclose(t, j, atol=BF16_REL * (np.max(np.abs(j)) + 1e-6), rtol=BF16_REL)
 
 
 def test_layer_norm_mlp_matches_flax() -> None:

@@ -276,10 +276,29 @@ def test_act_plain_with_injected_noise_matches_numpy(kind: str) -> None:
     np.testing.assert_allclose(logp.numpy()[keep, 0], want_logp[keep], rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("kind,jcls", [("normal", JNormal), ("squashed", JSquashedNormal)])
-def test_act_plain_deterministic_matches_pallas_act_kernel(kind: str, jcls) -> None:
-    jmodel, params, model, rng = _setup(A=2, seed=5)
-    obs = rng.normal(size=(64, 3)).astype(np.float32)
+#: The narrow model (obs dim 3, A=2, 32/16-wide torsos, 64 rows), and the
+#: main path's widths (obs dim 1, A=1, twin 256-wide relu torsos, 300 rows),
+#: where the card's tiled act kernel runs; there the perturbation is scaled
+#: to the fan-in so that the means stay of order 1.
+_ACT_KERNEL_SHAPES = {
+    "narrow": dict(setup=dict(A=2, seed=5), rows=64, d=3),
+    "main": dict(setup=dict(A=1, d=1, hiddens=(256, 256), seed=5, scale=0.3 / 4), rows=300, d=1),
+}
+
+
+@pytest.mark.parametrize(
+    "kind,jcls,shape",
+    [
+        pytest.param("normal", JNormal, "narrow", id="normal-JNormal"),
+        pytest.param("squashed", JSquashedNormal, "narrow", id="squashed-JSquashedNormal"),
+        pytest.param("normal", JNormal, "main", id="main-width-normal"),
+        pytest.param("squashed", JSquashedNormal, "main", id="main-width-squashed"),
+    ],
+)
+def test_act_plain_deterministic_matches_pallas_act_kernel(kind: str, jcls, shape: str) -> None:
+    cfg = _ACT_KERNEL_SHAPES[shape]
+    jmodel, params, model, rng = _setup(**cfg["setup"])
+    obs = rng.normal(size=(cfg["rows"], cfg["d"])).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         ja, jl, jv = jax_fused_act(
             jmodel, params, {"obs": jnp.asarray(obs)}, jax.random.key(5),

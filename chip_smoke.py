@@ -14,8 +14,13 @@ non-zero:
    print the card's name and power limit.
 2. kernels: every kernel of the main paths against its plain PyTorch
    version on the card at the main paths' shapes (discrete act at obs
-   [8192, 1] with twin 256-wide torsos, and at A=2, n=3; GAE at [32,
-   8192], at a ragged B=1000 and at T=512; the discrete PPO update at
+   [8192, 1] with twin 256-wide torsos, and at A=2, n=3 (its wgmma
+   route), at a ragged B=1000 with tanh layers (wgmma), at an obs dim of
+   300 and at parameters off 16-byte alignment (its tiled f32 route) and
+   at 320/288-wide layers (its streaming route), each route asserted and
+   two launches bit-identical; GAE at T = 1, 32, 33 and 512 over B = 8192
+   and a ragged 1000, two launches bit-identical, timed beside an empty
+   launch of its grid; the discrete PPO update at
    262,144 rows, at a ragged 1,000 rows with entropy, dual clip and
    accumulation, and at ragged weight tiles; the continuous act kernel
    at obs [8192, 1] (Normal and squashed, stochastic draw for draw and
@@ -319,79 +324,123 @@ def make_model(torch, action_spec, seed: int, obs_dim: int = 1, **model_config):
 
 
 def check_act(torch, dev, record: dict) -> None:
+    """The discrete act kernel against its plain version on the card, each
+    case on the route its shapes pick (asserted from the profiler's kernel
+    names), deterministic and draw for draw (the plain version replays the
+    kernel's Philox draws), two launches bit-identical: the main path's
+    shapes (obs [8192, 1] up to 100 in magnitude, twin 256-wide relu
+    torsos, A=1, n=2) and A=2, n=3 there, on the wgmma route, each with a
+    frequency test of the draws; on the wgmma route too a ragged B=1000
+    with obs dim 3 and 100/72-wide tanh layers; on the tiled f32 route an
+    obs dim of 300 (wider than the wgmma route's 256) with 64-wide layers,
+    and the main model's parameters 4 bytes off 16-byte alignment; on the
+    streaming route 320/288-wide layers. Actions equal except rows whose
+    top-2 scores are within TIE_GAP; log-probs and values within ACT_*."""
     from rl8_tpu_torch.distributions import Categorical
     from rl8_tpu_torch.ops import act_plain, fused_act, pack_act_params
     from rl8_tpu_torch.ops.distmath import log_softmax_rows, philox_uniform
+    from rl8_tpu_torch.ops.fused_act import ActParams
     from rl8_tpu_torch.ops.fused_mlp import forward_chains
     from rl8_tpu_torch.specs import Discrete
 
-    B = 8192
     gen = torch.Generator(device=dev).manual_seed(1)
-    obs = (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0) * 100.0
-    for A, n in ((1, 2), (2, 3)):
-        params = pack_act_params(make_model(torch, Discrete(n, shape=(A,)), seed=A * 10 + n))
+    configs = {
+        "main": dict(B=8192, A=1, n=2, obs_dim=1, obs_scale=100.0, model={}, route="wgmma"),
+        "A2n3": dict(B=8192, A=2, n=3, obs_dim=1, obs_scale=100.0, model={}, route="wgmma"),
+        "ragged": dict(B=1000, A=2, n=3, obs_dim=3, obs_scale=3.0,
+                       model={"hiddens": (100, 72), "activation_fn": "tanh"}, route="wgmma"),
+        "wide_obs": dict(B=1000, A=2, n=3, obs_dim=300, obs_scale=3.0, model={"hiddens": (64, 64)}, route="tiled"),
+        "misaligned": dict(B=8192, A=1, n=2, obs_dim=1, obs_scale=100.0, model={}, route="tiled"),
+        "wide": dict(B=1000, A=2, n=3, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)}, route="streaming"),
+    }
+    routes = {"discrete_act_wgmma_kernel": "wgmma", "discrete_act_tiles_kernel": "tiled",
+              "discrete_act_kernel": "streaming"}
+
+    def near_tie(scores):
+        top2 = scores.topk(2, dim=-1).values
+        return ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
+
+    key = (12345, 678)
+    for name, c in configs.items():
+        B, A, n = c["B"], c["A"], c["n"]
+        obs = c["obs_scale"] * (2.0 * torch.rand((B, c["obs_dim"]), generator=gen, device=dev) - 1.0)
+        params = pack_act_params(make_model(torch, Discrete(n, shape=(A,)), seed=A * 10 + n, obs_dim=c["obs_dim"],
+                                            **c["model"]))
+        if name == "misaligned":
+            buf = torch.zeros(params.flat.numel() + 1, device=dev)
+            buf[1:] = params.flat
+            params = ActParams(**{**params.__dict__, "flat": buf[1:]})
+        route = launched_route(torch, f"the discrete act kernel ({name})", lambda: fused_act(params, obs, key),
+                               routes, c["route"])
         ((logits,), _), _ = forward_chains(obs, params.chains(), params.activation)
         z = torch.cat([log_softmax_rows(logits[:, a * n : (a + 1) * n]) for a in range(A)], 1)
         zg = z.view(B, A, n)
 
-        def near_tie(scores):
-            top2 = scores.topk(2, dim=-1).values
-            return ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
-
         # Deterministic: argmax actions, log-probs and values.
-        key = (12345, 678)
         ka, kl, kv = fused_act(params, obs, key, deterministic=True)
+        k2 = fused_act(params, obs, key, deterministic=True)
         pa, pl, pv = act_plain(params, obs, key, deterministic=True)
         torch.cuda.synchronize()
+        what = f"discrete act {name}"
+        check(all(torch.equal(a, b) for a, b in zip((ka, kl, kv), k2)), f"{what} deterministic: two launches bit-identical")
+        check(ka.dtype == torch.int32 and tuple(ka.shape) == (B, A), f"{what}: actions [B, A] int32")
         keep = ~near_tie(zg)
-        check(bool((ka == pa).all(dim=1)[keep].all()), f"deterministic actions A={A} n={n}")
-        check(torch.allclose(kl, pl, rtol=ACT_RTOL, atol=ACT_ATOL), f"deterministic logp A={A} n={n}")
-        check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"values A={A} n={n}")
+        check(bool((ka == pa).all(dim=1)[keep].all()), f"{what}: deterministic actions")
+        check(torch.allclose(kl, pl, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: deterministic logp")
+        check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: values")
         det_err = max(float((kl - pl).abs().max()), float((kv - pv).abs().max()))
 
         # Stochastic: the plain version replays the kernel's Philox draws.
-        ka, kl, _ = fused_act(params, obs, key, deterministic=False)
+        ka, kl, kv = fused_act(params, obs, key, deterministic=False)
+        k2 = fused_act(params, obs, key, deterministic=False)
         pa, pl, _ = act_plain(params, obs, key, deterministic=False)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((ka, kl, kv), k2)), f"{what} stochastic: two launches bit-identical")
         u = philox_uniform(*key, B, A, n, dev).view(B, A, n)
         keep = ~near_tie(zg - torch.log(-torch.log(u)))
-        check(bool((ka == pa).all(dim=1)[keep].all()), f"stochastic actions A={A} n={n}")
+        check(bool((ka == pa).all(dim=1)[keep].all()), f"{what}: stochastic actions")
         ref_logp = Categorical({"logits": logits.view(B, A, n)}).logp(ka)
-        check(torch.allclose(kl, ref_logp, rtol=ACT_RTOL, atol=ACT_ATOL),
-              f"stochastic logp vs Categorical.logp A={A} n={n}")
+        check(torch.allclose(kl, ref_logp, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: stochastic logp vs Categorical.logp")
         sto_err = float((kl - ref_logp).abs().max())
 
         # Frequencies of FREQ_DRAWS draws per row against softmax probs,
         # per category, overall and within ten bins of probability.
-        probs = zg.exp()
-        counts = torch.zeros_like(probs)
-        cats = torch.arange(n, device=dev)
-        for d in range(FREQ_DRAWS):
-            a_d, _, _ = fused_act(params, obs, (99, d), deterministic=False)
-            counts += (a_d.long()[..., None] == cats).float()
-        freq_worst = 0.0
-        for a in range(A):
-            for c in range(n):
-                p = probs[:, a, c].double()
-                hits = counts[:, a, c].double()
-                bins = torch.clamp((p * 10).long(), max=9)
-                for b in [None, *range(10)]:
-                    sel = slice(None) if b is None else bins == b
-                    expected = FREQ_DRAWS * p[sel].sum()
-                    sigma = math.sqrt(FREQ_DRAWS * float((p[sel] * (1 - p[sel])).sum()))
-                    dev_sigmas = abs(float(hits[sel].sum() - expected)) / max(sigma, 1e-12)
-                    if sigma > 0:
-                        freq_worst = max(freq_worst, dev_sigmas)
-                        check(dev_sigmas <= FREQ_SIGMAS,
-                              f"frequency A={A} n={n} group {a} cat {c} bin {b}: {dev_sigmas:.2f} sigma")
+        freq_worst = None
+        if name in ("main", "A2n3"):
+            probs = zg.exp()
+            counts = torch.zeros_like(probs)
+            cats = torch.arange(n, device=dev)
+            for d in range(FREQ_DRAWS):
+                a_d, _, _ = fused_act(params, obs, (99, d), deterministic=False)
+                counts += (a_d.long()[..., None] == cats).float()
+            freq_worst = 0.0
+            for a in range(A):
+                for cat in range(n):
+                    p = probs[:, a, cat].double()
+                    hits = counts[:, a, cat].double()
+                    bins = torch.clamp((p * 10).long(), max=9)
+                    for b in [None, *range(10)]:
+                        sel = slice(None) if b is None else bins == b
+                        expected = FREQ_DRAWS * p[sel].sum()
+                        sigma = math.sqrt(FREQ_DRAWS * float((p[sel] * (1 - p[sel])).sum()))
+                        dev_sigmas = abs(float(hits[sel].sum() - expected)) / max(sigma, 1e-12)
+                        if sigma > 0:
+                            freq_worst = max(freq_worst, dev_sigmas)
+                            check(dev_sigmas <= FREQ_SIGMAS,
+                                  f"frequency {name} group {a} cat {cat} bin {b}: {dev_sigmas:.2f} sigma")
         emit({
-            "phase": "kernel_check", "kernel": "discrete_act", "A": A, "n": n, "B": B,
+            "phase": "kernel_check", "kernel": "discrete_act", "config": name, "route": route, "A": A, "n": n,
+            "B": B, "obs_dim": c["obs_dim"], "hiddens": list(params.hiddens), "activation": params.activation,
             "det_max_abs_err": det_err, "stochastic_logp_max_abs_err": sto_err,
             "frequency_worst_sigmas": freq_worst, "rtol": ACT_RTOL, "atol": ACT_ATOL,
         })
-        if (A, n) == (1, 2):
+        if name == "main":
             record["max_abs_err"] = max(det_err, sto_err)
+            record["kernel"] = f"discrete_act_{route}_kernel"
 
     # Timing at the main path's shapes: B=8192, twin 256-wide torsos, A=1, n=2.
+    B = 8192
+    obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
     params = pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
     H = params.hiddens
     macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
@@ -401,37 +450,49 @@ def check_act(torch, dev, record: dict) -> None:
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: act_plain(params, obs, (1, 2), deterministic=False), iters=20
     )
-    record["bound_ms"] = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_moved / PEAK_BYTES_PER_S)
-    record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
+    update_bounds(record, flops, bytes_moved)
     emit({"phase": "kernel_time", "kernel": "discrete_act", "B": B, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
 
 
 def check_gae(torch, dev, record: dict) -> None:
-    from rl8_tpu_torch.ops import fused_gae, gae_plain
+    """The GAE kernel against its plain version at T = 1, 32, 33 (no
+    multiple of the kernel's chunk of time steps) and 512 over B = 8192 and
+    a ragged 1000 columns, two launches bit-identical; timed at the main
+    path's T = 32, B = 8192 beside an empty launch of the same grid
+    (``empty_ms``: what a launch costs before it moves a byte)."""
+    from rl8_tpu_torch.ops import _build, fused_gae, gae_plain
 
     gen = torch.Generator(device=dev).manual_seed(2)
     kw = {"gamma": 0.95, "gae_lambda": 0.95}
-    for T, B in ((32, 8192), (32, 1000), (512, 8192)):
-        rewards = torch.randn((T, B, 1), generator=gen, device=dev)
-        values = torch.randn((T + 1, B, 1), generator=gen, device=dev)
-        scale = torch.tensor(3.7, device=dev)
-        ka, kr = fused_gae(rewards, values, scale, **kw)
-        pa, pr = gae_plain(rewards, values, scale, **kw)
-        torch.cuda.synchronize()
-        err = max(float((ka - pa).abs().max()), float((kr - pr).abs().max()))
-        check(torch.allclose(ka, pa, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE advantages T={T} B={B}")
-        check(torch.allclose(kr, pr, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE returns T={T} B={B}")
-        emit({"phase": "kernel_check", "kernel": "gae", "T": T, "B": B, "max_abs_err": err,
-              "rtol": GAE_RTOL, "atol": GAE_ATOL})
-        if (T, B) == (32, 8192):
+    for T in (32, 1, 33, 512):
+        for B in (8192, 1000):
+            rewards = torch.randn((T, B, 1), generator=gen, device=dev)
+            values = torch.randn((T + 1, B, 1), generator=gen, device=dev)
+            scale = torch.tensor(3.7, device=dev)
+            ka, kr = fused_gae(rewards, values, scale, **kw)
+            k2 = fused_gae(rewards, values, scale, **kw)
+            pa, pr = gae_plain(rewards, values, scale, **kw)
+            torch.cuda.synchronize()
+            err = max(float((ka - pa).abs().max()), float((kr - pr).abs().max()))
+            check(torch.equal(ka, k2[0]) and torch.equal(kr, k2[1]), f"GAE T={T} B={B}: two launches bit-identical")
+            check(torch.allclose(ka, pa, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE advantages T={T} B={B}")
+            check(torch.allclose(kr, pr, rtol=GAE_RTOL, atol=GAE_ATOL), f"GAE returns T={T} B={B}")
+            emit({"phase": "kernel_check", "kernel": "gae", "T": T, "B": B, "max_abs_err": err,
+                  "rtol": GAE_RTOL, "atol": GAE_ATOL})
+            if (T, B) != (32, 8192):
+                continue
             record["max_abs_err"] = err
             bytes_moved = 4 * ((4 * T + 1) * B + 1)
             flops = 6 * T * B
             record["ms"], host_ms = time_ms(
                 torch, lambda: fused_gae(rewards, values, scale, **kw), iters=200
             )
+            lib = _build.load()
+            record["empty_ms"] = time_ms(
+                torch, lambda: lib.rl8_gae_empty(B, 0, torch.cuda.current_stream().cuda_stream), iters=200
+            )[0]
             record["plain_ms"], plain_host_ms = time_ms(
                 torch, lambda: gae_plain(rewards, values, scale, **kw)
             )
@@ -439,7 +500,7 @@ def check_gae(torch, dev, record: dict) -> None:
             record["bound_by"] = "operations" if flops / PEAK_F32_FLOPS > bytes_moved / PEAK_BYTES_PER_S else "bytes"
             emit({"phase": "kernel_time", "kernel": "gae", "T": T, "B": B, "flops": flops,
                   "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-                  **{k: record[k] for k in ("ms", "plain_ms", "bound_ms")}})
+                  **{k: record[k] for k in ("ms", "empty_ms", "plain_ms", "bound_ms")}})
 
 
 def ppo_inputs(torch, dev, model, N: int, seed: int):
@@ -1421,11 +1482,12 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     262,144 rows, categorical and squashed; the recurrent one, 65,536
     sequences of 4 steps, categorical; the recurrent act kernel, 8,192 rows
     of one 256-wide layer; the continuous (squashed) and discrete act
-    kernels, 8,192 rows of twin 256-wide torsos; the chain kernels at
-    MischievousMule's 32,768 minibatch rows, and the forward at 4,096) and
-    the feedforward (both kinds), recurrent, recurrent act, continuous act,
-    chain forward (both row counts) and chain backward launches' device
-    time by kernel (``torch.profiler``), on one JSON line with
+    kernels, 8,192 rows of twin 256-wide torsos; GAE at T = 32 over 8,192
+    columns (200 launches); the chain kernels at MischievousMule's 32,768
+    minibatch rows, and the forward at 4,096) and the feedforward (both
+    kinds), recurrent, recurrent act, both act kernels', chain forward (both
+    row counts) and chain backward launches' device time by kernel
+    (``torch.profiler``), on one JSON line with
     LABEL and the card. To compare two commits on one card, unpack one into a
     directory that ``.gitignore`` lists (``git archive``) and run each
     checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
@@ -1478,13 +1540,22 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["rnn_act_split_ms"] = split_ms(lambda: ops.fused_rnn_act(params, obs, states, (1, 2)))
     # The act kernels at the main paths' shapes (8,192 rows, twin 256-wide
     # relu torsos): the continuous one squashed, and the discrete one, A=1,
-    # n=2, whose code no redesign since PR 6 has touched: the A/B's control.
+    # n=2. The A/B's controls are the kernels whose code a change leaves
+    # alone: for PR 9's (the discrete act kernel and GAE), the chain forward,
+    # rnn_act and the continuous act kernel.
     obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
     params = ops.pack_act_params(make_continuous_model(torch, 1, seed=62), squashed=True)
     out["continuous_act_ms"] = device_ms(lambda: ops.fused_act(params, obs, (1, 2)))
     out["continuous_act_split_ms"] = split_ms(lambda: ops.fused_act(params, obs, (1, 2)))
     params = ops.pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
     out["discrete_act_ms"] = device_ms(lambda: ops.fused_act(params, obs, (1, 2)))
+    out["discrete_act_split_ms"] = split_ms(lambda: ops.fused_act(params, obs, (1, 2)))
+    # GAE at the main path's T = 32 over 8,192 columns.
+    rewards = torch.randn((32, B, 1), generator=gen, device=dev)
+    values = torch.randn((33, B, 1), generator=gen, device=dev)
+    scale = torch.tensor(3.7, device=dev)
+    out["gae_ms"] = time_ms(torch, lambda: ops.fused_gae(rewards, values, scale, gamma=0.95, gae_lambda=0.95),
+                            iters=200)[0]
 
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 

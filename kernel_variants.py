@@ -2,12 +2,13 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
-under ``build/variants/NAME/``, all with one ``nvcc`` per source started
-together. For each variant, at the main paths' shapes (``chip_smoke.py``'s
+under ``build/variants/NAME/`` (only the sources a variant changes are
+compiled for it; the others come from one build of the checkout's
+sources), all with one ``nvcc`` per source started together. For each variant, at the main paths' shapes (``chip_smoke.py``'s
 inputs: 262,144 rows of the discrete feedforward update, 65,536 sequences
 of 4 steps of the recurrent one), it prints one JSON line with
 
@@ -32,10 +33,14 @@ identity. With ``rnn_act``, the recurrent act kernel at 8,192 rows of one
 deterministic and draw for draw. With ``chains_fwd``, the chain forward at
 MischievousMule's 4,096 and 32,768 rows: ms, split, the largest error
 against the plain version and bit identity. With ``act``, the continuous act
-kernel (squashed) at 8,192 rows of twin 256-wide torsos: ms, split, its
-largest errors against the plain version (deterministic and draw for draw)
-and bit identity, and the discrete act kernel's ms beside it as a control.
-The SASS counts include shared-memory loads (``LDS``).
+kernel (squashed) and the discrete one (A=1, n=2) at 8,192 rows of twin
+256-wide torsos: each one's ms, split, largest errors against the plain
+version (deterministic and draw for draw) and bit identity. With ``gae``,
+the GAE kernel at T = 32 and 512 over 8,192 columns: ms, the largest error
+against the plain version and bit identity, and an empty launch of its
+grid (``gae_empty_ms``) timed the same way. The SASS counts include
+shared-memory loads (``LDS``) and warpgroup tensor-core products
+(``HGMMA``); the ptxas lines include its notes of serialized ``wgmma``.
 
 The card's name and power limit come first. It imports neither JAX nor
 ``rl8_tpu``.
@@ -49,7 +54,6 @@ import re
 import shutil
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -179,8 +183,8 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # The continuous act kernel's slabs all by every thread's cp.async copies.
     "act_cp_async": [("act.cu", "P->bulk[q] = P->out_w[q] % 4 == 0 && P->woff[q] % 4 == 0;", "P->bulk[q] = 0;")],
     "act_no_heads": [("act.cu", "        rl8::tile_heads<RT, CG>(acc, n, w, W, n_out,", "        if (j > 100) rl8::tile_heads<RT, CG>(acc, n, w, W, n_out,")],
-    "act_no_epilogue": [("act.cu", "    __syncthreads();\n  }\n  rl8::continuous_epilogue(",
-                         "    __syncthreads();\n  }\n  if (B < 0) rl8::continuous_epilogue(")],
+    "act_no_epilogue": [("act.cu", "    __syncthreads();\n  }\n  if constexpr (CATEGORICAL) {",
+                         "    __syncthreads();\n  }\n  if (B >= 0) return;\n  if constexpr (CATEGORICAL) {")],
     # The continuous act kernel's tiled route with slabs of 16 rows, with two
     # slabs (one in flight), and with 32-row tiles (128 threads).
     "act_slab16": [("act.cu", "constexpr int kSlabK = 32;", "constexpr int kSlabK = 16;")],
@@ -188,6 +192,48 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # The continuous act kernel's tiled route with 4 rows a thread (512 threads).
     "act_rt4": [("act.cu", "constexpr int kTileRT = 8;", "constexpr int kTileRT = 4;")],
     "act_rows32": [("act.cu", "constexpr int kTileRows = 64;", "constexpr int kTileRows = 32;")],
+    # The discrete act kernel on the tiled f32 route (the yardstick of its
+    # wgmma route).
+    "act_discrete_tiled": [("act.cu", "if ((reinterpret_cast<uintptr_t>(params) & 15) == 0 && make_wgmma_plan(d, A, &W)) {",
+                            "if (B < 0 && make_wgmma_plan(d, A, &W)) {")],
+    # Ablations of the wgmma route (wrong results; times only): no products
+    # (the fragments' loads and splits kept), one TF32 product per f32
+    # product (big * big: the other two products' cost), no slab copies, no
+    # heads.
+    "act_wg_no_product": [("act.cu", "for (int mt = 0; mt < 2; ++mt) rl8::wgmma_3xtf32(acc[mt], a_big[ks][mt], a_small[ks][mt], db, ds, add);",
+                           "for (int mt = 0; mt < 2; ++mt) acc[mt][ks] += __uint_as_float((a_big[ks][mt][0] ^ a_small[ks][mt][1]"
+                           " ^ a_big[ks][mt][2] ^ a_small[ks][mt][3]) & (uint32_t)(db ^ ds ^ add));")],
+    "act_wg_1xtf32": [("wgmma.cuh", "  wgmma_m64n64k8_tf32(d, a_small, b_big, add);\n  wgmma_m64n64k8_tf32(d, a_big, b_small);\n  wgmma_m64n64k8_tf32(d, a_big, b_big);",
+                       "  wgmma_m64n64k8_tf32(d, a_big, b_big, add);")],
+    "act_wg_no_slab_loads": [
+        ("act.cu", "    rl8::mbar_expect(&full[st], total);", "    rl8::mbar_expect(&full[st], 0u * total);"),
+        ("act.cu", "  if (bytes && (uint32_t)(lane & 1) == rank) {", "  if (lane < 0 && bytes && (uint32_t)(lane & 1) == rank) {"),
+    ],
+    "act_wg_no_heads": [("act.cu", "          for (int o = 0; o < n_out; ++o) {\n            float wf[2][2];",
+                         "          for (int o = 0; o < n_out && B < 0; ++o) {\n            float wf[2][2];")],
+    # The wgmma route with 32-row slabs, two of them (ptxas spills at its
+    # 168 registers); with five 16-row slabs.
+    "act_wg_slab32": [("act.cu", "constexpr int kWgSlabK = 16;", "constexpr int kWgSlabK = 32;"),
+                      ("act.cu", "constexpr int kWgStages = 4;", "constexpr int kWgStages = 2;")],
+    "act_wg_stages5": [("act.cu", "constexpr int kWgStages = 4;", "constexpr int kWgStages = 5;")],
+    # Every block copies every row of its slabs itself (still in clusters
+    # of two): each block reads all the weights from L2.
+    "act_wg_no_multicast": [
+        ("act.cu", "  if (bytes && (uint32_t)(lane & 1) == rank) {\n    rl8::bulk_copy_multicast(slabs + st * kWgSlabFloats + lane * kWgLdw, params + (e - shift), bytes, &full[st], 0x3);",
+         "  if (bytes) {\n    rl8::bulk_copy(slabs + st * kWgSlabFloats + lane * kWgLdw, params + (e - shift), bytes, &full[st]);"),
+        ("act.cu", "            rl8::mbar_arrive_cluster(&empty[st], rank ^ 1u);\n", ""),
+        ("act.cu", "      rl8::mbar_init_count(&empty[s], 2 * kWgConsumers / 32);", "      rl8::mbar_init_count(&empty[s], kWgConsumers / 32);"),
+    ],
+    # GAE: 32 columns a block; 128 columns a block with chunks of 16 time
+    # steps (a block's static shared memory is at most 48 KB); chunks of 16,
+    # and of 64 with 32 columns a block; three chunks in flight.
+    "gae_cols32": [("gae.cu", "constexpr int kCols = 64;", "constexpr int kCols = 32;")],
+    "gae_cols128_chunk16": [("gae.cu", "constexpr int kCols = 64;", "constexpr int kCols = 128;"),
+                            ("gae.cu", "constexpr int kChunk = 32;", "constexpr int kChunk = 16;")],
+    "gae_chunk16": [("gae.cu", "constexpr int kChunk = 32;", "constexpr int kChunk = 16;")],
+    "gae_cols32_chunk64": [("gae.cu", "constexpr int kCols = 64;", "constexpr int kCols = 32;"),
+                           ("gae.cu", "constexpr int kChunk = 32;", "constexpr int kChunk = 64;")],
+    "gae_stages3": [("gae.cu", "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -201,38 +247,58 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def build(name: str, subs: list[tuple[str, str, str]]) -> tuple[Path, dict[str, str]]:
-    """The variant's library and each source's ptxas report."""
+def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
+    """Each variant's library and each source's ptxas report. The
+    checkout's sources are compiled once (``build/variants/_base``); a
+    variant compiles only the sources its substitutions change (all of
+    them where it changes a header) and links the base's other objects.
+    Every compile of every variant starts at once."""
     from rl8_tpu_torch.ops import _build
 
-    src = REPO / "build" / "variants" / name
-    shutil.rmtree(src, ignore_errors=True)
-    shutil.copytree(_build.CSRC, src)
-    for file, old, new in subs:
-        text = (src / file).read_text()
-        if old not in text:
-            raise RuntimeError(f"variant {name}: {file} has no {old[:60]!r}")
-        (src / file).write_text(text.replace(old, new))
+    root = REPO / "build" / "variants"
     nvcc = _build._nvcc()
-    procs = {
-        cu.stem: subprocess.Popen([nvcc, *_build._FLAGS, "-c", str(cu), "-o", str(cu.with_suffix(".o"))],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for cu in sorted(src.glob("*.cu"))
-    }
-    logs = {stem: proc.communicate()[0] for stem, proc in procs.items()}
-    for stem, proc in procs.items():
+    jobs: dict[tuple[str, str], Path] = {}  # (variant, stem) -> the source to compile
+    dirs = {}
+    for name in ["_base", *names]:
+        src = root / name
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(_build.CSRC, src)
+        changed = set()
+        for file, old, new in VARIANTS.get(name, []):
+            text = (src / file).read_text()
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {file} has no {old[:60]!r}")
+            (src / file).write_text(text.replace(old, new))
+            changed.add(file)
+        dirs[name] = src
+        for cu in sorted(src.glob("*.cu")):
+            if name == "_base" or cu.name in changed or any(f.endswith(".cuh") for f in changed):
+                jobs[(name, cu.stem)] = cu
+    procs = {key: subprocess.Popen([nvcc, *_build._FLAGS, "-c", str(cu), "-o", str(cu.with_suffix(".o"))],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for key, cu in jobs.items()}
+    logs = {key: proc.communicate()[0] for key, proc in procs.items()}
+    for (name, stem), proc in procs.items():
         if proc.returncode != 0:
-            raise RuntimeError(f"variant {name}: nvcc failed on {stem}.cu:\n{logs[stem]}")
-    lib = src / "lib.so"
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                    *(str(cu.with_suffix(".o")) for cu in sorted(src.glob("*.cu"))), "-o", str(lib)], check=True)
-    return lib, logs
+            raise RuntimeError(f"variant {name}: nvcc failed on {stem}.cu:\n{logs[(name, stem)]}")
+    built = {}
+    for name in names:
+        objects, variant_logs = [], {}
+        for cu in sorted(dirs[name].glob("*.cu")):
+            owner = name if (name, cu.stem) in jobs else "_base"
+            objects.append(str(dirs[owner] / f"{cu.stem}.o"))
+            variant_logs[cu.stem] = logs[(owner, cu.stem)]
+        lib = dirs[name] / "lib.so"
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", *objects, "-o", str(lib)],
+                       check=True)
+        built[name] = (lib, variant_logs)
+    return built
 
 
 def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<\w+>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
-                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_kernel)", kernel)
+                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel)", kernel)
     return m.group(1) if m else None
 
 
@@ -247,16 +313,18 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act)_cu", fn)
+            source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
             kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
-                               r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_kernel|"
-                               r"rnn_act_kernel)(I\w*)?", fn)
+                               r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
+                               r"rnn_act_kernel|gae_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
             fn = f"{source.group(1)}.cu {kernel.group(1)}<{args}>" if source and kernel else None
             continue
-        if fn and re.search(r"HMMA|FFMA|LDL|STL|\bLDS\b", line):
-            c = counts.setdefault(fn, {"HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "LDS": 0, "local": 0})
-            if "HMMA" in line:
+        if fn and re.search(r"HGMMA|HMMA|FFMA|LDL|STL|\bLDS\b", line):
+            c = counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "LDS": 0, "local": 0})
+            if "HGMMA" in line:
+                c["HGMMA"] += 1
+            elif "HMMA" in line:
                 c["HMMA"] += 1
                 c["HMMA_TF32"] += "TF32" in line
             elif "FFMA" in line:
@@ -270,13 +338,16 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
 
 def ptxas_rows(logs: dict[str, str]) -> list[str]:
     out, fn = [], None
-    for stem in ("ppo", "rnn_ppo", "chains", "rnn_act", "act"):
+    for stem in ("ppo", "rnn_ppo", "chains", "rnn_act", "act", "gae"):
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|act_kernel|chains_fwd_kernel", m.group(1)) else None
+                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|act_kernel|wgmma_kernel|chains_fwd_kernel|gae_kernel",
+                                             m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
                 out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')}")
+            elif "serialized" in line:
+                out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')[:160]}")
     return out
 
 
@@ -299,8 +370,7 @@ def main() -> int:
     emit({"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                  check=True, capture_output=True, text=True).stdout.strip()})
     names = args or list(VARIANTS)
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(lambda n: build(n, VARIANTS[n]), names)))
+    built = build_all(names)
 
     def split(fn) -> dict[str, float]:
         torch.cuda.synchronize()
@@ -325,6 +395,8 @@ def main() -> int:
         measures.append(chains_fwd_measure(torch, dev, split))
     if "act" in kinds:
         measures.append(act_measure(torch, dev, split))
+    if "gae" in kinds:
+        measures.append(gae_measure(torch, dev))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -536,19 +608,53 @@ def act_measure(torch, dev, split):
     discrete = pack_act_params(cs.make_model(torch, Discrete(2, shape=(1,)), seed=12))
 
     def measure() -> dict:
-        run = lambda: fused_act(squashed, obs, (1, 2))  # noqa: E731
-        out = {"continuous_act_ms": cs.time_ms(torch, run)[0], "continuous_act_split_ms": split(run),
-               "discrete_act_ms": cs.time_ms(torch, lambda: fused_act(discrete, obs, (1, 2)))[0]}
-        for det in (True, False):
-            k1 = fused_act(squashed, obs, (1, 2), deterministic=det)
-            k2 = fused_act(squashed, obs, (1, 2), deterministic=det)
-            p = act_plain(squashed, obs, (1, 2), deterministic=det)
+        out = {}
+        for name, params in (("continuous", squashed), ("discrete", discrete)):
+            run = lambda: fused_act(params, obs, (1, 2))  # noqa: E731
+            out[f"{name}_act_ms"] = cs.time_ms(torch, run)[0]
+            out[f"{name}_act_split_ms"] = split(run)
+            for det in (True, False):
+                k1 = fused_act(params, obs, (1, 2), deterministic=det)
+                k2 = fused_act(params, obs, (1, 2), deterministic=det)
+                p = act_plain(params, obs, (1, 2), deterministic=det)
+                torch.cuda.synchronize()
+                out[f"{name}_{'deterministic' if det else 'stochastic'}"] = {
+                    "actions": float((k1[0] - p[0]).abs().max()), "values": float((k1[2] - p[2]).abs().max()),
+                    "logp": float((k1[1] - p[1]).abs().max()),
+                    "bit_identical": all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                }
+        return out
+
+    return measure
+
+
+def gae_measure(torch, dev):
+    """The GAE kernel's measurement of a variant (see the module's
+    docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import _build, fused_gae, gae_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kw = {"gamma": 0.95, "gae_lambda": 0.95}
+    cases = {}
+    for T in (32, 512):
+        rewards = torch.randn((T, 8192, 1), generator=gen, device=dev)
+        values = torch.randn((T + 1, 8192, 1), generator=gen, device=dev)
+        cases[T] = (rewards, values, torch.tensor(3.7, device=dev))
+
+    def measure() -> dict:
+        out = {}
+        for T, (rewards, values, scale) in cases.items():
+            run = lambda: fused_gae(rewards, values, scale, **kw)  # noqa: E731
+            (ka, kr), (k2a, k2r) = run(), run()
+            pa, pr = gae_plain(rewards, values, scale, **kw)
             torch.cuda.synchronize()
-            out["deterministic" if det else "stochastic"] = {
-                "actions": float((k1[0] - p[0]).abs().max()), "values": float((k1[2] - p[2]).abs().max()),
-                "logp": float((k1[1] - p[1]).abs().max()),
-                "bit_identical": all(torch.equal(a, b) for a, b in zip(k1, k2)),
-            }
+            out[f"gae_{T}_ms"] = cs.time_ms(torch, run, iters=200)[0]
+            out[f"gae_{T}_vs_plain"] = max(float((ka - pa).abs().max()), float((kr - pr).abs().max()))
+            out[f"gae_{T}_bit_identical"] = bool(torch.equal(ka, k2a) and torch.equal(kr, k2r))
+        lib = _build.load()
+        out["gae_empty_ms"] = cs.time_ms(
+            torch, lambda: lib.rl8_gae_empty(8192, 0, torch.cuda.current_stream().cuda_stream), iters=200)[0]
         return out
 
     return measure

@@ -1,6 +1,6 @@
 // Register-tiled f32 products on the CUDA cores, shared by the chain
-// forward's tiled route (chains.cu) and the continuous act kernel's tiled
-// route (act.cu).
+// forward's tiled route (chains.cu) and the act kernels' tiled route
+// (act.cu).
 //
 // A block computes out[R, n] = A[R, K] @ W[K, n] with A and W in shared
 // memory, both row-major. Thread (rg, cg) owns RT adjacent rows (rg * RT

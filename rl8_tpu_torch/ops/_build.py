@@ -115,6 +115,8 @@ def load() -> ctypes.CDLL:
         lib.rl8_continuous_act.restype = i32
         lib.rl8_gae.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
         lib.rl8_gae.restype = i32
+        lib.rl8_gae_empty.argtypes = [i32, i32, ptr]  # B, device, stream
+        lib.rl8_gae_empty.restype = i32
         # N, d_in, n_layers, hidden, kind, action_dim, n_cat
         lib.rl8_ppo_workspace.argtypes = [i32, i32, i32, ptr, i32, i32, i32]
         lib.rl8_ppo_workspace.restype = ctypes.c_longlong

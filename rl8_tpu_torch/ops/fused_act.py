@@ -167,11 +167,15 @@ def fused_act(
     CUDA tensors launch the kind's kernel in ``csrc/act.cu`` (and count
     one launch in ``fused_act.launches`` for the categorical kind, in
     ``fused_act.continuous_launches`` for the others) or raise; CPU
-    tensors run :func:`act_plain`. The continuous kinds take the kernel's
-    tiled route (64-row blocks, weights streamed through shared memory,
-    register-tiled f32 products) where every hidden layer is at most 256
-    wide, and its streaming route otherwise; the shapes pick it. Non-f32 observations are widened to
-    f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
+    tensors run :func:`act_plain`. The shapes pick each kernel's route: the
+    categorical kind takes the wgmma route (64-row blocks, products on the
+    tensor cores in 3xTF32) where the observation and every hidden layer
+    are at most 256 wide and the parameters are 16-byte aligned; the
+    continuous kinds, and the categorical kind that the wgmma route does
+    not take, take the tiled route (64-row blocks, weights streamed through
+    shared memory, register-tiled f32 products) where every hidden layer is
+    at most 256 wide; the streaming route takes wider layers. Non-f32
+    observations are widened to f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
     actions int32 for the categorical kind and f32 otherwise.
     """
     if obs.dtype != torch.float32:

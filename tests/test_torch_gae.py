@@ -30,10 +30,13 @@ def _inputs(T: int, B: int, seed: int):
     return rewards, values
 
 
+@pytest.mark.parametrize("T", [1, 7, 32])
 @pytest.mark.parametrize("B", [3, 512, 1000])
 @pytest.mark.parametrize("gamma,lam,scale", _PARAMS)
-def test_plain_gae_matches_pallas_and_scan(B: int, gamma: float, lam: float, scale: float) -> None:
-    T = 8
+def test_plain_gae_matches_pallas_and_scan(T: int, B: int, gamma: float, lam: float, scale: float) -> None:
+    """At one step, at a T that is no multiple of the CUDA kernel's chunk of
+    time steps, and at the main path's horizon (``chip_smoke.py`` holds the
+    kernel against this plain version at T = 1, 32, 33 and 512)."""
     rewards, values = _inputs(T, B, seed=B)
     adv, ret = gae_plain(
         torch.from_numpy(rewards), torch.from_numpy(values), torch.tensor(scale),

@@ -22,7 +22,10 @@ chain backward's dh products (``csrc/chains.cu``) also run on 3xTF32; a
 last case emulates them as the card rounds, each ``mma``'s f32 result
 truncated toward zero into a fresh accumulator per k step of 8, and holds
 them against float64 at ten times under the act checks' and the chain
-checks' absolute tolerance.
+checks' absolute tolerance. Its ``act_torso`` case emulates the discrete
+act kernel's wgmma route (``csrc/act.cu``, ``csrc/wgmma.cuh``), whose
+accumulators hold a layer's whole K: there 3xTF32 stays ten times inside
+the act checks' limits, and one TF32 product per f32 product does not.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ import torch
 #: The update checks' norm-relative limit (chip_smoke.py PPO_GRAD_RTOL).
 PPO_GRAD_RTOL = 1e-4
 #: The act and chain checks' absolute tolerances (chip_smoke.py ACT_ATOL,
-#: CHAIN_ATOL).
+#: CHAIN_ATOL), and the act checks' relative one (ACT_RTOL).
 ACT_ATOL = CHAIN_ATOL = 1e-4
+ACT_RTOL = 1e-4
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +99,44 @@ def products_3x_rz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def products_3x_rz_whole_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the discrete act kernel's wgmma route computes it on the
+    card: per k step of 8, three products (small * big, big * small, big *
+    big) into one accumulator that holds the whole K, each step's f32
+    result truncated toward zero."""
+    ab, as_ = (t.double() for t in split(a))
+    bb, bs = (t.double() for t in split(b))
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc = f32_rz(acc.double() + as_[:, s] @ bb[s])
+        acc = f32_rz(acc.double() + ab[:, s] @ bs[s])
+        acc = f32_rz(acc.double() + ab[:, s] @ bb[s])
+    return acc
+
+
+def lecun_normal(rng: np.random.Generator, fan_in: int, shape: tuple[int, int]) -> np.ndarray:
+    """flax's default kernel init (the port's ``lecun_normal_``): a normal
+    of variance ``1 / fan_in`` truncated at two of its stds."""
+    std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = rng.normal(size=shape)
+    while (bad := np.abs(w) > 2.0).any():
+        w[bad] = rng.normal(size=int(bad.sum()))
+    return w * std
+
+
+def act_torso_outputs(obs: torch.Tensor, chains, products) -> list[torch.Tensor]:
+    """Each chain's head outputs: two relu layers whose products are
+    ``products`` (the bias added after it, as the kernel adds it to the
+    accumulator), then an f32 head (the CUDA cores' narrow sums)."""
+    outs = []
+    for w0, w1, head in chains:
+        h = torch.relu(products(obs, w0))
+        h = torch.relu(products(h, w1))
+        outs.append(h @ head)
+    return outs
+
+
 def weight_sum(a: torch.Tensor, b: torch.Tensor, products, groups: int = 64, chunk: int = 8) -> torch.Tensor:
     """``a^T b`` over rows as the tiled weight products sum it: each group
     of rows accumulates chunk after chunk in f32, then the groups'
@@ -152,14 +194,43 @@ def test_weight_gradient_sums_over_65536_rows(seed: int) -> None:
     assert rel_err(weight_sum(h, dpre, products_1x), want) > PPO_GRAD_RTOL
 
 
-@pytest.mark.parametrize("shape", ["lstm_gates", "chain_dh"])
+@pytest.mark.parametrize("shape", ["lstm_gates", "chain_dh", "act_torso"])
 def test_truncating_3xtf32_products_at_the_act_and_chain_shapes(shape: str) -> None:
     """``lstm_gates``: a recurrent act step's gate pre-activations, [x | h]
     [8192, 257] x [Wi; Wh] [257, 1024] (observations in +-3, h in (-1, 1),
     lecun-scale Wi and orthogonal-scale Wh); ``chain_dh``: the chain
     backward's dh = dpre W^T, [4096, 128] x [128, 128]. Truncated 3xTF32
-    stays ten times under the checks' absolute tolerance against float64."""
+    stays ten times under the checks' absolute tolerance against float64.
+
+    ``act_torso``: the discrete act kernel's forward at the main path's
+    shapes, as ``chip_smoke.py``'s ``check_act`` drives it: 8,192 rows of
+    observations in +-100 through twin 256-wide relu torsos at the default
+    init (lecun-normal kernels, zero biases; both heads lecun-normal, as
+    ``check_act`` redraws the logits head), every layer's product in
+    truncated 3xTF32 with the whole K in one accumulator. What the act
+    checks compare, the log-probs (the logits' log-softmax, A=1, n=2) and
+    the value, stays ten times inside their limit against float64, ``|k -
+    p| <= (ACT_ATOL + ACT_RTOL |p|) / 10`` (values reach ~200, so an
+    absolute bound alone would not hold f32 itself); one TF32 product per
+    f32 product breaks the limit itself."""
     rng = np.random.default_rng(7)
+    if shape == "act_torso":
+        obs = rng.uniform(-100.0, 100.0, size=(8192, 1))
+        chains = [(lecun_normal(rng, 1, (1, 256)), lecun_normal(rng, 256, (256, 256)), lecun_normal(rng, 256, (256, n)))
+                  for n in (2, 1)]
+        obs32 = torch.from_numpy(obs.astype(np.float32))
+        chains32 = [tuple(torch.from_numpy(w.astype(np.float32)) for w in chain) for chain in chains]
+        want = act_torso_outputs(obs32.double(), [tuple(w.double() for w in c) for c in chains32],
+                                 lambda a, b: a @ b)
+
+        def ratio(products) -> float:
+            logits, values = act_torso_outputs(obs32, chains32, products)
+            pairs = ((torch.log_softmax(logits.double(), 1), torch.log_softmax(want[0], 1)), (values, want[1]))
+            return max(float(((g.double() - w).abs() / (ACT_ATOL + ACT_RTOL * w.abs())).max()) for g, w in pairs)
+
+        assert ratio(products_3x_rz_whole_k) <= 0.1
+        assert ratio(products_1x) > 1.0
+        return
     if shape == "lstm_gates":
         x = rng.uniform(-3.0, 3.0, size=(8192, 1))
         h = rng.uniform(-1.0, 1.0, size=(8192, 256))

@@ -43,7 +43,10 @@ non-zero:
    layers (the tiled forward's general path, the streaming backward) and at
    one 768-wide LayerNorm chain (the forward's and the backward's streaming
    routes; the rest take their tiled routes, each route asserted; two
-   launches of each bit-identical)), each timed beside its plain version.
+   launches of each bit-identical)); the discrete act kernel also at the
+   CartPole and MountainCar examples' shapes (1024 rows, obs dims 5 and 2,
+   A=1, n=3) and the continuous one at Pendulum's (1024 rows, obs dim 3);
+   each timed beside its plain version.
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -77,7 +80,22 @@ non-zero:
    versions) from the same seed, two collects and one step, compared:
    the discrete one and the continuous one with ``Normal``, feedforward
    and recurrent, and ``MischievousMule`` (deterministic collects).
-6. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
+6. one step of each classic-control example env (CartPole with both
+   integrators, Pendulum, MountainCar) on the card and on the CPU from
+   the same state, compared.
+7. the entry points, each with the launch counters set to 0 just before
+   and read just after: the README quick start (``DiscreteDummyEnv``, 8192
+   envs, horizon 32) through the ``train`` CLI in this process, 6 steps
+   with an eval every 3 (records, launch counts, every tensor on the
+   card, the act route, the trainer's host overhead per step against
+   ``collect()`` + ``step()``, whether the memory reading waits for the
+   device); the three example configs (1024 envs) through the CLI, 4
+   steps each (launch counts: the continuous kernels for Pendulum, the
+   discrete ones for the others; the env step's share of a collect; no
+   host sync in an env step); and ``Trainer`` on CartPole (256 envs,
+   horizon 64, seed 0) for 25 steps against the JAX package's learning
+   criterion, then one eval.
+8. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
 
@@ -88,6 +106,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -268,6 +287,11 @@ def main() -> int:
         check_small_against_cpu(torch, dev, recurrent=recurrent)
         check_small_against_cpu(torch, dev, continuous=True, recurrent=recurrent)
     check_small_custom_against_cpu(torch, dev)
+    check_envs_against_cpu(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cli_main_path(torch, dev, Path(tmp))
+        run_examples_path(torch, dev, Path(tmp))
+    check_learning_cartpole(torch, dev)
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -306,6 +330,15 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+
+
+#: The act kernels' routes by kind, each by kernel name (for
+#: launched_route).
+ACT_ROUTES = {
+    "discrete": {"discrete_act_wgmma_kernel": "wgmma", "discrete_act_tiles_kernel": "tiled",
+                 "discrete_act_kernel": "streaming"},
+    "continuous": {"continuous_act_tiles_kernel": "tiled", "continuous_act_kernel": "streaming"},
+}
 
 
 def make_model(torch, action_spec, seed: int, obs_dim: int = 1, **model_config):
@@ -352,9 +385,11 @@ def check_act(torch, dev, record: dict) -> None:
         "wide_obs": dict(B=1000, A=2, n=3, obs_dim=300, obs_scale=3.0, model={"hiddens": (64, 64)}, route="tiled"),
         "misaligned": dict(B=8192, A=1, n=2, obs_dim=1, obs_scale=100.0, model={}, route="tiled"),
         "wide": dict(B=1000, A=2, n=3, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)}, route="streaming"),
+        # The classic-control examples' shapes: CartPole and MountainCar.
+        "cartpole": dict(B=1024, A=1, n=3, obs_dim=5, obs_scale=4.0, model={}, route="wgmma"),
+        "mountain_car": dict(B=1024, A=1, n=3, obs_dim=2, obs_scale=1.2, model={}, route="wgmma"),
     }
-    routes = {"discrete_act_wgmma_kernel": "wgmma", "discrete_act_tiles_kernel": "tiled",
-              "discrete_act_kernel": "streaming"}
+    routes = ACT_ROUTES["discrete"]
 
     def near_tie(scores):
         top2 = scores.topk(2, dim=-1).values
@@ -535,7 +570,9 @@ def check_ppo(torch, dev, record: dict) -> None:
     """The update kernel against its plain version on the card: (a) the
     main path's shapes, (b) a ragged N with A=2, n=3, entropy, dual clip
     and accumulation, (c) ragged weight tiles (100- and 72-wide tanh
-    layers) over three row groups. Two launches must be bit-identical."""
+    layers) over three row groups, and the CartPole and MountainCar
+    examples' launches (EXAMPLE_UPDATES, the default loss, example_rows
+    rows). Two launches must be bit-identical."""
     from rl8_tpu_torch.ops import PPOLossConfig
     from rl8_tpu_torch.specs import Discrete
 
@@ -548,9 +585,15 @@ def check_ppo(torch, dev, record: dict) -> None:
                   model={"hiddens": (100, 72), "activation_fn": "tanh"}, obs_dim=5, ec=0.02,
                   loss=dict(vf_clip_param=2.0, vf_coeff=0.5, dual_clip_param=None, accum=2)),
     }
+    for example in ("cartpole", "mountain_car"):
+        e = EXAMPLE_UPDATES[example]
+        configs[example] = dict(N=example_rows(example), spec=Discrete(e["n"], shape=(e["A"],)), model={},
+                                obs_dim=e["obs_dim"], ec=0.0,
+                                loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1))
     for name, c in configs.items():
-        model = make_model(torch, c["spec"], seed=40 + ord(name), obs_dim=c["obs_dim"], **c["model"])
-        params, packed, unpack = ppo_inputs(torch, dev, model, c["N"], seed=ord(name))
+        seed = sum(map(ord, name))  # ord(name) for the one-letter cases
+        model = make_model(torch, c["spec"], seed=40 + seed, obs_dim=c["obs_dim"], **c["model"])
+        params, packed, unpack = ppo_inputs(torch, dev, model, c["N"], seed=seed)
         cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0, **c["loss"])
         ec = torch.tensor(c["ec"], device=dev)
         result = compare_ppo(torch, f"ppo ({name})", params, packed, unpack, ec, cfg)
@@ -693,8 +736,11 @@ def check_continuous_act(torch, dev, record: dict) -> None:
                        heads={"mean_scale": 0.3, "log_std_scale": 0.3}, route="tiled"),
         "wide": dict(B=1000, A=2, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)},
                      heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="streaming"),
+        # The Pendulum example's shapes (obs dim 3, velocities up to 8).
+        "pendulum": dict(B=1024, A=1, obs_dim=3, obs_scale=8.0, model={},
+                         heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="tiled"),
     }
-    routes = {"continuous_act_tiles_kernel": "tiled", "continuous_act_kernel": "streaming"}
+    routes = ACT_ROUTES["continuous"]
     key = (12345, 678)
     for name, c in configs.items():
         B, A = c["B"], c["A"]
@@ -834,7 +880,8 @@ def check_continuous_ppo(torch, dev, record: dict) -> None:
     A=3, entropy, dual clip and accumulation; (c) ragged weight tiles
     (100- and 72-wide tanh layers), squashed; (d) squashed rows with
     actions at +-1 and a small std, so that the +-100 clamp cuts their
-    gradients."""
+    gradients; and the Pendulum example's launches (EXAMPLE_UPDATES,
+    Normal, the default loss, example_rows rows)."""
     from rl8_tpu_torch.ops import PPOLossConfig
 
     configs = {
@@ -849,11 +896,16 @@ def check_continuous_ppo(torch, dev, record: dict) -> None:
                   heads={"mean_scale": 0.001, "log_std_bias": -3.0}, squashed=True, ec=0.0, clip_share=0.3,
                   loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)),
     }
+    e = EXAMPLE_UPDATES["pendulum"]
+    configs["pendulum"] = dict(N=example_rows("pendulum"), A=e["A"], model={}, obs_dim=e["obs_dim"], heads={},
+                               squashed=e["kind"] == "squashed", ec=0.0, clip_share=0.0,
+                               loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1))
     for name, c in configs.items():
-        model = make_continuous_model(torch, c["A"], seed=80 + ord(name), obs_dim=c["obs_dim"],
+        seed = sum(map(ord, name))  # ord(name) for the one-letter cases
+        model = make_continuous_model(torch, c["A"], seed=80 + seed, obs_dim=c["obs_dim"],
                                       **c["heads"], **c["model"])
         params, packed, unpack, clamped = continuous_ppo_inputs(
-            torch, dev, model, c["N"], seed=ord(name), squashed=c["squashed"], clip_share=c["clip_share"]
+            torch, dev, model, c["N"], seed=seed, squashed=c["squashed"], clip_share=c["clip_share"]
         )
         if c["clip_share"]:
             check(int(clamped.sum()) >= c["N"] // 10, f"continuous ppo ({name}): too few rows hit the +-100 clamp")
@@ -2180,6 +2232,350 @@ def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: boo
           "advantages_max_abs_err": float((a_g - a_c).abs().max()),
           "step_loss_max_abs_err": max(abs(st_g[k] - st_c[k]) for k in st_c if k.startswith("losses/")),
           "param_change_norm_rel_err": delta_err, "param_max_abs_err": float((d_g - d_c).abs().max())})
+
+
+#: The README quick start's config (``DiscreteDummyEnv``, 8192 envs,
+#: horizon 32, gamma 0.95, the default twin 256-wide model) and the
+#: classic-control examples' committed configs
+#: (``rl8_tpu_torch/examples/*/config.yaml``; the tests hold these copies
+#: equal to them), all on the card. They go to the CLI as JSON, so the
+#: script needs no PyYAML.
+QUICK_START = {"env_cls": "rl8_tpu_torch.env.DiscreteDummyEnv",
+               "algorithm_config": {"horizon": 32, "num_envs": 8192, "gamma": 0.95}}
+EXAMPLE_CONFIGS = {
+    "cartpole": {"env_cls": "rl8_tpu_torch.examples.cartpole.env.CartPole",
+                 "algorithm_config": {"horizon": 64, "num_envs": 1024}},
+    "pendulum": {"env_cls": "rl8_tpu_torch.examples.pendulum.env.Pendulum",
+                 "algorithm_config": {"horizon": 128, "horizons_per_env_reset": 4, "num_envs": 1024}},
+    "mountain_car": {"env_cls": "rl8_tpu_torch.examples.mountain_car.env.MountainCar",
+                     "algorithm_config": {"horizon": 64, "num_envs": 1024}},
+}
+#: What each example's update launches get besides the default model's
+#: twin 256-wide torsos and the default loss: obs dim, action components
+#: and categories (0: continuous) and distribution kind. The update checks
+#: (check_ppo, check_continuous_ppo) hold the kernels at these shapes with
+#: example_rows rows; run_examples_path asserts that the CLI's runs match.
+EXAMPLE_UPDATES = {
+    "cartpole": dict(obs_dim=5, A=1, n=3, kind="categorical"),
+    "pendulum": dict(obs_dim=3, A=1, n=0, kind="normal"),
+    "mountain_car": dict(obs_dim=2, A=1, n=3, kind="categorical"),
+}
+
+
+def example_rows(name: str) -> int:
+    """Rows per update launch of an example's config: the whole buffer,
+    since ``sgd_minibatch_size`` defaults to num_envs x horizon."""
+    c = EXAMPLE_CONFIGS[name]["algorithm_config"]
+    return c["num_envs"] * c["horizon"]
+
+
+def train_cli(torch, tmp: Path, name: str, config: dict, *flags: str):
+    """``rl8_tpu_torch.__main__.main(["train", "-f", <config as JSON>,
+    "--track-dir", <dir>, *flags])`` in this process, with the kernels'
+    launch counters set to 0 just before and read just after. Returns
+    the exit code, the trainer the CLI built, the tracked records and the
+    launch counts."""
+    from rl8_tpu_torch.__main__ import main as cli
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads
+    from rl8_tpu_torch.trainers import TrainConfig, tracking
+
+    path, track = tmp / f"{name}.json", tmp / f"{name}-track"
+    path.write_text(json.dumps(config))
+    built = []
+    build = TrainConfig.build
+
+    def recording_build(self):
+        built.append(build(self))
+        return built[-1]
+
+    TrainConfig.build = recording_build
+    default_run = tracking.get_default_run()
+    try:
+        torch.cuda.synchronize()
+        zero_counters()
+        rc = cli(["train", "-f", str(path), "--track-dir", str(track), *flags])
+        torch.cuda.synchronize()
+        launches = {"act": fused_act.launches, "continuous_act": fused_act.continuous_launches,
+                    "gae": fused_gae.launches, "ppo": fused_ppo_grads.launches,
+                    "continuous_ppo": fused_ppo_grads.continuous_launches}
+    finally:
+        # The CLI sets the process's default tracking run to its JSONL run.
+        TrainConfig.build = build
+        tracking.set_default_run(default_run)
+    check(len(built) == 1, f"{name}: the CLI built {len(built)} trainers")
+    records = [json.loads(line) for line in (track / "metrics.jsonl").read_text().splitlines()]
+    return rc, built[0], records, launches
+
+
+def cpu_tensors(torch, tree, path: str = "state") -> list[str]:
+    """Paths of the tensors in ``tree`` (dataclasses, dicts, lists) that
+    are not on the card."""
+    import dataclasses
+
+    if isinstance(tree, torch.Tensor):
+        return [] if tree.is_cuda else [path]
+    if dataclasses.is_dataclass(tree):
+        tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in cpu_tensors(torch, v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in cpu_tensors(torch, v, f"{path}/{i}")]
+    return []
+
+
+def check_train_records(records: list, num_envs: int, horizon: int, max_steps: int,
+                        steps_per_eval: None | int, what: str) -> tuple[list, list]:
+    """The CLI's tracked records: ``max_steps`` train records, each with
+    integer counters and ``step`` = ``env/steps`` = num_envs x horizon x
+    k, and the evals ``run()``'s cadence gives (after every
+    ``steps_per_eval`` steps, never after the stopping one), each logged at
+    the step before it; every value finite."""
+    train = [r for r in records if "algorithm/steps" in r]
+    evals = [r for r in records if "algorithm/steps" not in r]
+    check([r["algorithm/steps"] for r in train] == list(range(1, max_steps + 1)), f"{what}: train records")
+    for r in train:
+        k = r["algorithm/steps"]
+        check(isinstance(r["env/steps"], int) and r["step"] == r["env/steps"] == num_envs * horizon * k,
+              f"{what}: step {k} logged at {r['step']}, env/steps {r['env/steps']}")
+    want_evals = [s for s in range(1, max_steps) if steps_per_eval and s % steps_per_eval == 0]
+    check([r["step"] for r in evals] == [num_envs * horizon * s for s in want_evals],
+          f"{what}: evals at {[r['step'] for r in evals]}, not after steps {want_evals}")
+    for r in records:
+        check(all(math.isfinite(v) for v in r.values() if isinstance(v, (int, float))), f"{what}: finite stats")
+    return train, evals
+
+
+def run_cli_main_path(torch, dev, tmp: Path) -> None:
+    """The README quick start through the CLI at full width: ``train -f
+    <config> --max-steps 6 --steps-per-eval 3`` on the card, in this
+    process. Six train records and one eval (after step 3; the stop
+    condition ends the run at step 6 before a second); the act kernel
+    launched 32 times per collect (six train and one eval collect), GAE
+    once and the update num_sgd_iters x num_minibatches times per train
+    step, no continuous kernel; no tensor of the algorithm's state off the
+    card. Then the trainer's host overhead: Trainer.step() against
+    collect() + step() of the same algorithm, in turns."""
+    from rl8_tpu_torch.utils import memory_stats
+
+    max_steps, steps_per_eval = 6, 3
+    t = time.perf_counter()
+    rc, trainer, records, launches = train_cli(torch, tmp, "quick_start", QUICK_START, "--max-steps",
+                                               str(max_steps), "--steps-per-eval", str(steps_per_eval))
+    cli_s = time.perf_counter() - t
+    check(rc == 0, f"the CLI exited {rc}")
+    algo = trainer.algorithm
+    h = algo.hparams
+    check(algo.device.type == "cuda" and (h.num_envs, h.horizon, h.gamma) == (8192, 32, 0.95),
+          f"quick start config: {algo.device}, {h.num_envs} envs, horizon {h.horizon}, gamma {h.gamma}")
+    train, evals = check_train_records(records, h.num_envs, h.horizon, max_steps, steps_per_eval, "cli_main_path")
+    collects = len(train) + sum(r["eval/env/steps"] // (h.num_envs * h.horizon) for r in evals)
+    want = {"act": h.horizon * collects, "continuous_act": 0, "gae": len(train),
+            "ppo": len(train) * h.num_sgd_iters * h.num_minibatches, "continuous_ppo": 0}
+    check(launches == want, f"cli_main_path launches {launches} != {want}")
+    off_card = cpu_tensors(torch, algo.state) + [n for n, p in algo.policy.model.named_parameters() if not p.is_cuda]
+    check(not off_card, f"cli_main_path: tensors off the card: {off_card}")
+    check(trainer.state == {"algorithm/collects": collects, "algorithm/steps": max_steps,
+                            "env/steps": max_steps * h.num_envs * h.horizon}, f"trainer state {trainer.state}")
+    route = launched_route(torch, "cli_main_path's collect", algo.collect, ACT_ROUTES["discrete"], "wgmma")
+
+    # The trainer's host overhead, in turns: Trainer.step() (memory stats,
+    # collect, step, a JSONL line) against collect() + step().
+    trainer_ms, algo_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.step()
+        trainer_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        algo.collect()
+        algo.step()
+        algo_ms.append((time.perf_counter() - t) * 1e3)
+    # Whether torch.cuda.mem_get_info waits for the device: read it behind
+    # ~50 ms of queued device work.
+    mem_idle_ms = []
+    for _ in range(20):
+        t = time.perf_counter()
+        memory_stats(dev)
+        mem_idle_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))  # cycles: >= 50 ms at the SM clock's <= 2 GHz
+    t = time.perf_counter()
+    memory_stats(dev)
+    mem_busy_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    sleep_left_ms = (time.perf_counter() - t) * 1e3
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    emit({"phase": "cli_main_path", "config": QUICK_START, "cli_s": cli_s, "train_records": len(train),
+          "eval_records": len(evals), "launches": launches, "act_route": f"discrete {route}",
+          "memory_percent": train[-1].get("memory/percent"), "trainer_step_ms": trainer_ms,
+          "collect_plus_step_ms": algo_ms, "trainer_step_ms_median": med(trainer_ms),
+          "collect_plus_step_ms_median": med(algo_ms), "trainer_overhead_ms": med(trainer_ms) - med(algo_ms),
+          "memory_stats_ms_median": med(mem_idle_ms), "memory_stats_behind_50ms_of_work_ms": mem_busy_ms,
+          "sleep_left_after_it_ms": sleep_left_ms, "last_record": train[-1]})
+
+
+def run_examples_path(torch, dev, tmp: Path) -> None:
+    """The three classic-control example configs through the CLI, 4 steps
+    each, at their committed widths on the card: finite stats; the
+    discrete act and update kernels for CartPole and MountainCar, the
+    continuous ones for Pendulum, each its exact count, GAE once a step,
+    the update at the shapes the update checks hold (EXAMPLE_UPDATES,
+    example_rows); the env state on the card; the act route. Then one env
+    step run with synchronizing calls made errors (no host sync in a
+    step), the env step's share of ENV_SHARE_COLLECTS real collects
+    (env_share), and a profiled collect."""
+    from rl8_tpu_torch.data import DataKeys
+
+    steps = 4
+    for name, config in EXAMPLE_CONFIGS.items():
+        rc, trainer, records, launches = train_cli(torch, tmp, name, config, "--max-steps", str(steps))
+        check(rc == 0, f"{name}: the CLI exited {rc}")
+        algo = trainer.algorithm
+        h = algo.hparams
+        continuous = name == "pendulum"
+        check((h.num_envs, h.horizon) == (1024, config["algorithm_config"]["horizon"]), f"{name}: widths")
+        train, _ = check_train_records(records, h.num_envs, h.horizon, steps, None, name)
+        per_step = h.num_sgd_iters * h.num_minibatches
+        want = {"act": 0 if continuous else steps * h.horizon,
+                "continuous_act": steps * h.horizon if continuous else 0, "gae": steps,
+                "ppo": 0 if continuous else steps * per_step, "continuous_ppo": steps * per_step if continuous else 0}
+        check(launches == want, f"{name}: launches {launches} != {want}")
+        params = algo._pack_params()
+        got = dict(obs_dim=params.d_in, A=params.action_dim, n=params.n, kind=params.kind)
+        check(got == EXAMPLE_UPDATES[name] and params.hiddens == (256, 256) and params.activation == "relu"
+              and h.sgd_minibatch_size == example_rows(name) and not h.accumulate_grads,
+              f"{name}: the update runs at {got}, {params.hiddens} {params.activation}, "
+              f"{h.sgd_minibatch_size} rows, not at the shapes the update checks hold")
+        off_card = cpu_tensors(torch, algo.state)
+        check(not off_card and algo.state.env_state["phys"].is_cuda, f"{name}: tensors off the card: {off_card}")
+        kind = "continuous" if continuous else "discrete"
+        route = launched_route(torch, f"{name}'s collect", algo.collect, ACT_ROUTES[kind],
+                               "tiled" if continuous else "wgmma")
+
+        env, state = algo.env, algo.state.env_state
+        actions = algo.state.buffer[DataKeys.ACTIONS][-1]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            env.step(state, actions)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        share = env_share(torch, algo)
+        emit({"phase": "examples_path", "example": name, "config": config, "launches": launches,
+              "act_route": f"{kind} {route}", "cli_collect_ms": [r["profiling/collect_ms"] for r in train],
+              **share, "transitions_per_s_collect": h.num_envs * h.horizon / (share["collect_ms_median"] / 1e3),
+              "returns_mean": [r["returns/mean"] for r in train], "last_record": train[-1]})
+        profile_window(torch, f"{name} collect", algo.collect)
+
+
+#: Collects that env_share times.
+ENV_SHARE_COLLECTS = 7
+
+
+def env_share(torch, algo) -> dict:
+    """The env step's share of ENV_SHARE_COLLECTS real collects of
+    ``algo``: each ``env.step`` call inside the collect loop is wrapped in
+    a host timer and a pair of CUDA events (no synchronize inside a
+    collect; the wrapper adds two event records, a few µs, to each step),
+    and each collect is timed on the host from a synchronize to a
+    synchronize. Per collect: the host ms spent in env steps (what the
+    host pays to issue them) and the stream ms between each step's events
+    (the span the steps hold the stream: device time where the card runs
+    behind the host, issue time where it waits for it), each over the
+    collect's ms. Returns every collect's readings and their medians."""
+    env = algo.env
+    step = env.step
+    host, spans = [], []
+
+    def timed_step(state, actions):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out = step(state, actions)
+        end.record()
+        host.append((time.perf_counter() - t) * 1e3)
+        spans.append((start, end))
+        return out
+
+    collect_ms, host_ms, stream_ms = [], [], []
+    env.step = timed_step
+    try:
+        for _ in range(ENV_SHARE_COLLECTS):
+            host.clear()
+            spans.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            algo.collect()
+            torch.cuda.synchronize()
+            collect_ms.append((time.perf_counter() - t) * 1e3)
+            check(len(host) == algo.hparams.horizon, f"env_share: {len(host)} env steps in a collect")
+            host_ms.append(sum(host))
+            stream_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+    finally:
+        del env.step
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    host_share = [e / c for e, c in zip(host_ms, collect_ms)]
+    stream_share = [e / c for e, c in zip(stream_ms, collect_ms)]
+    return {"collect_ms": collect_ms, "collect_ms_median": med(collect_ms),
+            "env_host_ms": host_ms, "env_stream_ms": stream_ms,
+            "env_host_share": host_share, "env_host_share_median": med(host_share),
+            "env_stream_share": stream_share, "env_stream_share_median": med(stream_share)}
+
+
+def check_learning_cartpole(torch, dev) -> None:
+    """The JAX package's CartPole criterion (``tests/test_examples.py``'s
+    ``test_cartpole_solves``) on the card through ``Trainer``: 256 envs,
+    horizon 64, seed 0, 25 steps; the first step's mean return below -100
+    and the last one's above -40; then one eval with finite stats."""
+    from rl8_tpu_torch import AlgorithmConfig, Trainer
+    from rl8_tpu_torch.examples.cartpole import CartPole
+
+    t = time.perf_counter()
+    trainer = Trainer(AlgorithmConfig(num_envs=256, horizon=64, seed=0, device="cuda").build(CartPole))
+    returns = [trainer.step()["returns/mean"] for _ in range(25)]
+    stats = trainer.eval()
+    emit({"phase": "learning_cartpole", "steps": 25, "returns_mean": returns, "eval": stats,
+          "seconds": time.perf_counter() - t})
+    check(returns[0] < -100.0 and returns[-1] > -40.0,
+          f"CartPole did not learn: first mean return {returns[0]}, last {returns[-1]}")
+    check(all(math.isfinite(v) for v in stats.values()), f"CartPole eval stats finite: {stats}")
+
+
+def check_envs_against_cpu(torch, dev) -> None:
+    """One step of each classic-control env (CartPole with both
+    integrators) from the same state and actions on the card and on the
+    CPU: state, observations and rewards within rtol 1e-6, atol 4e-6 (the
+    tests' tolerance against rl8_tpu: an ulp of sin/cos carried through
+    the dynamics). Pendulum's angles span [-3 pi, 3 pi] (its floor modulo)."""
+    from rl8_tpu_torch.examples.cartpole import CartPole
+    from rl8_tpu_torch.examples.mountain_car import MountainCar
+    from rl8_tpu_torch.examples.pendulum import Pendulum
+
+    B = 4096
+    gen = torch.Generator().manual_seed(21)
+    u = lambda *shape: torch.rand(shape, generator=gen)  # noqa: E731
+    three = lambda: torch.randint(0, 3, (B, 1), generator=gen)  # noqa: E731
+    cartpole = (torch.stack([4 * u(B) - 2, 6 * u(B) - 3, 2 * math.pi * u(B) - math.pi, 8 * u(B) - 4], 1), three())
+    cases = {
+        "cartpole-euler": (CartPole, {}, *cartpole),
+        "cartpole-semi-implicit": (CartPole, {"kinematics_integrator": "semi_implicit"}, *cartpole),
+        "pendulum": (Pendulum, {}, torch.stack([6 * math.pi * u(B) - 3 * math.pi, 16 * u(B) - 8], 1), 6 * u(B, 1) - 3),
+        "mountain_car": (MountainCar, {}, torch.stack([1.9 * u(B) - 1.25, 0.16 * u(B) - 0.08], 1), three()),
+    }
+    worst = {}
+    for name, (env_cls, config, phys, actions) in cases.items():
+        out = {}
+        for device in ("cuda", "cpu"):
+            env = env_cls(B, device=device)
+            state, _ = env.reset(torch.Generator(device=device).manual_seed(0), config=config)
+            state = {**state, "phys": phys.to(device)}
+            new_state, obs, reward = env.step(state, actions.to(device))
+            out[device] = [new_state["phys"].cpu(), obs.cpu(), reward.cpu()]
+        for what, g, c in zip(("phys", "obs", "reward"), out["cuda"], out["cpu"]):
+            check(torch.allclose(g, c, rtol=1e-6, atol=4e-6), f"{name} env step {what} on the card vs the CPU")
+        worst[name] = max(float((g - c).abs().max()) for g, c in zip(out["cuda"], out["cpu"]))
+    emit({"phase": "envs_vs_cpu", "B": B, "max_abs_err": worst, "rtol": 1e-6, "atol": 4e-6})
 
 
 if __name__ == "__main__":

@@ -15,10 +15,24 @@ PPO update kernel of the model (feedforward, or the recurrent one with
 its backward through time), with clip-by-global-norm and Adam. Custom
 feedforward models (``model``/``model_cls``; ``examples.algotrading``'s
 ``MischievousMule``) run their forward, with ``fused_forward=True``,
-through the chain kernels, and their update through autograd.
+through the chain kernels, and their update through autograd. The
+trainers (``Trainer``, ``RecurrentTrainer``), stop conditions, tracking,
+``TrainConfig`` and the ``train`` CLI (``python -m rl8_tpu_torch train -f
+config.yaml``) drive those algorithms; ``examples`` holds the
+classic-control envs (CartPole, Pendulum, MountainCar) and algotrading.
 """
 
 from .algorithms import Algorithm, AlgorithmConfig, RecurrentAlgorithm, RecurrentAlgorithmConfig
 from .env import Env
+from .trainers import RecurrentTrainer, TrainConfig, Trainer
 
-__all__ = ["Algorithm", "AlgorithmConfig", "Env", "RecurrentAlgorithm", "RecurrentAlgorithmConfig"]
+__all__ = [
+    "Algorithm",
+    "AlgorithmConfig",
+    "Env",
+    "RecurrentAlgorithm",
+    "RecurrentAlgorithmConfig",
+    "RecurrentTrainer",
+    "TrainConfig",
+    "Trainer",
+]

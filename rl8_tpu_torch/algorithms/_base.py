@@ -23,7 +23,7 @@ from ..env import Env
 from ..ops import PPOLossConfig, block_shuffle, fused_gae
 from ..parallel import gmean, gstd
 from ..schedulers import EntropyScheduler, LRScheduler
-from ..utils import profile_ms
+from ..utils import memory_stats, profile_ms
 from ..utils.optim import Adam, AdamState, adam_step
 
 __all__ = ["GenericAlgorithmBase"]
@@ -69,6 +69,10 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         }
         out.update(dataclasses.asdict(self.hparams))
         return {k: (v if v is not None else "None") for k, v in out.items()}
+
+    def memory_stats(self) -> dict[str, Any]:
+        """Return memory stats of the algorithm's device."""
+        return memory_stats(self.device)
 
     # ------------------------------------------------------------------
     # set-up

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, TypedDict
+from typing import Any, Literal, TypedDict
 
 import torch
 
@@ -21,9 +21,14 @@ __all__ = [
     "AlgorithmHparams",
     "AlgorithmState",
     "CollectStats",
+    "EvalCollectStats",
+    "MemoryStats",
     "RecurrentAlgorithmHparams",
     "RecurrentAlgorithmState",
     "StepStats",
+    "TrainStatKey",
+    "TrainStats",
+    "TrainerState",
 ]
 
 
@@ -225,6 +230,15 @@ class RecurrentAlgorithmState(AlgorithmState):
     seqs: int = 0
 
 
+TrainerState = TypedDict(
+    "TrainerState",
+    {
+        "algorithm/collects": int,
+        "algorithm/steps": int,
+        "env/steps": int,
+    },
+)
+
 CollectStats = TypedDict(
     "CollectStats",
     {
@@ -243,6 +257,34 @@ CollectStats = TypedDict(
     total=False,
 )
 
+EvalCollectStats = TypedDict(
+    "EvalCollectStats",
+    {
+        "eval/env/resets": int,
+        "eval/env/steps": int,
+        "eval/profiling/collect_ms": float,
+        "eval/returns/min": float,
+        "eval/returns/max": float,
+        "eval/returns/mean": float,
+        "eval/returns/std": float,
+        "eval/rewards/min": float,
+        "eval/rewards/max": float,
+        "eval/rewards/mean": float,
+        "eval/rewards/std": float,
+    },
+    total=False,
+)
+
+MemoryStats = TypedDict(
+    "MemoryStats",
+    {
+        "memory/free": int,
+        "memory/total": int,
+        "memory/percent": float,
+    },
+    total=False,
+)
+
 StepStats = TypedDict(
     "StepStats",
     {
@@ -257,3 +299,36 @@ StepStats = TypedDict(
     },
     total=False,
 )
+
+
+class TrainStats(CollectStats, MemoryStats, StepStats, TrainerState):
+    """What a trainer's step logs: the collect, memory and step stats and
+    the trainer's counters."""
+
+
+TrainStatKey = Literal[
+    "algorithm/collects",
+    "algorithm/steps",
+    "env/resets",
+    "env/steps",
+    "profiling/collect_ms",
+    "returns/min",
+    "returns/max",
+    "returns/mean",
+    "returns/std",
+    "rewards/min",
+    "rewards/max",
+    "rewards/mean",
+    "rewards/std",
+    "coefficients/entropy",
+    "coefficients/vf",
+    "losses/entropy",
+    "losses/policy",
+    "losses/vf",
+    "losses/total",
+    "memory/free",
+    "memory/total",
+    "memory/percent",
+    "monitors/kl_div",
+    "profiling/step_ms",
+]

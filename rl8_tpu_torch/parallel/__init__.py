@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gmax", "gmean", "gmin", "gstd"]
+__all__ = ["gmax", "gmean", "gmin", "gstd", "is_main_process"]
 
 
 def gmean(x: torch.Tensor) -> torch.Tensor:
@@ -30,3 +30,12 @@ def gmin(x: torch.Tensor) -> torch.Tensor:
 
 def gmax(x: torch.Tensor) -> torch.Tensor:
     return x.max()
+
+
+def is_main_process() -> bool:
+    """Whether this is process 0, the one that logs metrics: every process
+    of a single-process run, and rank 0 where ``torch.distributed`` is
+    initialized."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0

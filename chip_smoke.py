@@ -95,7 +95,23 @@ non-zero:
    host sync in an env step); and ``Trainer`` on CartPole (256 envs,
    horizon 64, seed 0) for 25 steps against the JAX package's learning
    criterion, then one eval.
-8. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
+8. persistence and serving: ``checkpoint_resume`` (the discrete and the
+   recurrent cell at full width: train, save, train; restore into a fresh
+   algorithm and train; every parameter, Adam, buffer, env and generator
+   state bit-identical, the resumed steps' launches counted; an async
+   save that publishes only on ``wait_for_checkpoint()``; checkpoint
+   bytes, save and restore ms); ``preemption`` (``Trainer.run`` with a
+   checkpoint directory while a timer thread sends SIGTERM: it saves and
+   returns, and a second run resumes); ``cli_persistence`` (``train
+   --checkpoint-dir D --steps-per-checkpoint 2 --max-steps 4 --save OUT``,
+   then ``--max-steps 6`` resuming at step 5; ``OUT/policy.pkl`` loads
+   onto the card); ``serving`` (``PolicyModel`` and
+   ``RecurrentPolicyModel`` on the card against the CPU at B = 1, 7, 100
+   and 8192 and at a sample-dropping view, the discrete one also against
+   a deterministic act-kernel launch; median predict latency); and
+   ``parity_card`` (the five parity configs, seeds 0-2, on the card, with
+   both criteria's outcomes against the reference curves).
+9. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
 
@@ -292,6 +308,12 @@ def main() -> int:
         run_cli_main_path(torch, dev, Path(tmp))
         run_examples_path(torch, dev, Path(tmp))
     check_learning_cartpole(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_checkpoint_resume(torch, dev, Path(tmp))
+        run_preemption(torch, dev, Path(tmp))
+        run_cli_persistence(torch, dev, Path(tmp))
+        run_serving(torch, dev, Path(tmp))
+        run_parity_card(torch, dev, Path(tmp))
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -2576,6 +2598,371 @@ def check_envs_against_cpu(torch, dev) -> None:
             check(torch.allclose(g, c, rtol=1e-6, atol=4e-6), f"{name} env step {what} on the card vs the CPU")
         worst[name] = max(float((g - c).abs().max()) for g, c in zip(out["cuda"], out["cpu"]))
     emit({"phase": "envs_vs_cpu", "B": B, "max_abs_err": worst, "rtol": 1e-6, "atol": 4e-6})
+
+
+def state_tensors(torch, algo) -> dict:
+    """Every piece of an algorithm's dynamic state by name, as copies:
+    the model's parameters, the state's tensors and host values (Adam,
+    buffer, env state, counters), every generator's state and the
+    schedulers' coefficients."""
+    import dataclasses
+
+    out: dict = {}
+
+    def walk(obj, path):
+        if isinstance(obj, torch.Tensor):
+            out[path] = obj.detach().clone()
+        elif dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                walk(getattr(obj, f.name), f"{path}.{f.name}")
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{path}[{k}]")
+        else:
+            out[path] = obj
+
+    walk(algo.state, "state")
+    for k, v in algo.policy.model.state_dict().items():
+        out[f"model.{k}"] = v.detach().clone()
+    for k, v in vars(algo).items():
+        if isinstance(v, torch.Generator):
+            out[f"generator.{k}"] = v.get_state()
+    out["coefficients"] = (algo.lr_scheduler.coeff, algo.entropy_scheduler.coeff)
+    return out
+
+
+def differing(torch, a: dict, b: dict) -> list:
+    """Names whose values are not bit-identical (or not in both)."""
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.device != y.device or not torch.equal(x, y):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_checkpoint_resume(torch, dev, tmp: Path) -> None:
+    """A checkpointed run resumes bit for bit on the card, at full width:
+    the discrete cell (8192 envs, horizon 32, twin 256-wide torsos) and
+    the recurrent cell (one 256-wide LSTM). Train 2 steps, save
+    (blocking), train 2 more; build a fresh algorithm, restore, train 2
+    steps: every parameter, Adam, buffer and env tensor, host counter,
+    generator state and coefficient must equal the first run's, and the
+    resumed steps must have launched the path's kernels (act 32, GAE 1,
+    update 4 per step). Then an async save: latest.json must not move
+    until wait_for_checkpoint(), and its generation restores the state at
+    the call, bit for bit. The recurrent policy is exported for the
+    serving phase."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint, wait_for_checkpoint
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads
+
+    cells = {
+        "discrete": (lambda: AlgorithmConfig(device="cuda").build(DiscreteDummyEnv), fused_act, fused_ppo_grads),
+        "recurrent": (lambda: RecurrentAlgorithmConfig(device="cuda").build(DiscreteDummyEnv), fused_rnn_act,
+                      fused_rnn_ppo_grads),
+    }
+    for name, (make, act_fn, ppo_fn) in cells.items():
+        ckpt = tmp / f"ckpt-{name}"
+
+        def train(algo, n):
+            for _ in range(n):
+                algo.collect()
+                algo.step()
+            torch.cuda.synchronize()
+
+        algo = make()
+        h = algo.hparams
+        train(algo, 2)
+        t = time.perf_counter()
+        save_checkpoint(ckpt, algo, trainer_state={"algorithm/steps": 2})
+        save_ms = (time.perf_counter() - t) * 1e3
+        train(algo, 2)
+        want = state_tensors(torch, algo)
+
+        resumed = make()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer_state = restore_checkpoint(ckpt, resumed)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        check(trainer_state == {"algorithm/steps": 2}, f"{name}: restored trainer state {trainer_state}")
+        zero_counters()
+        train(resumed, 2)
+        launches = {"act": act_fn.launches, "gae": fused_gae.launches, "update": ppo_fn.launches}
+        per_step = h.num_sgd_iters * h.num_minibatches
+        check(launches == {"act": 2 * h.horizon, "gae": 2, "update": 2 * per_step},
+              f"{name}: resumed launches {launches}")
+        got = state_tensors(torch, resumed)
+        bad = differing(torch, want, got)
+        check(not bad, f"{name}: the resumed run differs from the uninterrupted one in {bad[:10]}")
+        off_card = cpu_tensors(torch, resumed.state)
+        check(not off_card, f"{name}: restored tensors off the card: {off_card}")
+
+        # Async: the call returns once the state is in host memory; the
+        # generation is published only by wait_for_checkpoint().
+        latest = ckpt / "latest.json"
+        before = latest.read_text()
+        t = time.perf_counter()
+        save_checkpoint(ckpt, resumed, trainer_state={"algorithm/steps": 4}, block=False)
+        async_ms = (time.perf_counter() - t) * 1e3
+        at_save = state_tensors(torch, resumed)
+        check(latest.read_text() == before, f"{name}: latest.json moved before the async write was waited for")
+        train(resumed, 1)
+        check(latest.read_text() == before, f"{name}: latest.json moved while training overlapped the write")
+        t = time.perf_counter()
+        wait_for_checkpoint()
+        wait_ms = (time.perf_counter() - t) * 1e3
+        check(json.loads(latest.read_text())["checkpoint"] == "ckpt-00000002", f"{name}: async generation not published")
+        # The async generation holds the state at the call, not the one the
+        # overlapping step left.
+        del algo
+        restored = make()
+        restore_checkpoint(ckpt, restored)
+        bad = differing(torch, at_save, state_tensors(torch, restored))
+        check(not bad, f"{name}: the async checkpoint differs from the state at its save in {bad[:10]}")
+        del restored
+        gen_bytes = dir_bytes(ckpt / "ckpt-00000001")
+        if name == "recurrent":
+            resumed.policy.save(tmp / "recurrent_policy.pkl")
+        emit({"phase": "checkpoint_resume", "cell": name, "num_envs": h.num_envs, "horizon": h.horizon,
+              "parameters": sum(p.numel() for p in resumed.policy.model.parameters()),
+              "compared": len(want), "bit_identical": True, "resumed_launches": launches,
+              "checkpoint_bytes": gen_bytes, "save_ms": save_ms, "restore_ms": restore_ms,
+              "async_save_ms": async_ms, "async_wait_ms": wait_ms})
+
+
+def run_preemption(torch, dev, tmp: Path) -> None:
+    """``Trainer.run(checkpoint_dir=..., steps_per_checkpoint=2)`` on the
+    discrete cell while a timer thread sends SIGTERM to this process: the
+    run saves a checkpoint at the next step boundary and returns, with the
+    SIGTERM disposition restored; a second run resumes from its counters
+    and stops two steps later."""
+    import os
+    import signal
+    import threading
+
+    from rl8_tpu_torch import AlgorithmConfig, Trainer
+    from rl8_tpu_torch.checkpoint import checkpoint_exists
+    from rl8_tpu_torch.conditions import HitsUpperBound
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    ckpt = tmp / "ckpt-preemption"
+    prev = signal.getsignal(signal.SIGTERM)
+    sent: list = []
+
+    class SigtermSoon:
+        """Starts a timer thread at step 1 that sends SIGTERM 0.3 s later."""
+
+        def __call__(self, stats) -> bool:
+            if stats["algorithm/steps"] == 1 and not sent:
+                timer = threading.Timer(0.3, lambda: (sent.append(time.perf_counter()),
+                                                      os.kill(os.getpid(), signal.SIGTERM)))
+                timer.start()
+            return False
+
+    make = lambda: Trainer(AlgorithmConfig(device="cuda").build(DiscreteDummyEnv))  # noqa: E731
+    trainer = make()
+    t = time.perf_counter()
+    stats = trainer.run(stop_conditions=[SigtermSoon(), HitsUpperBound("algorithm/steps", 2000)],
+                        checkpoint_dir=ckpt, steps_per_checkpoint=2)
+    returned = time.perf_counter()
+    steps = trainer.state["algorithm/steps"]
+    check(bool(sent) and steps < 2000, f"preemption: the run went {steps} steps")
+    check(signal.getsignal(signal.SIGTERM) == prev, "preemption: SIGTERM disposition not restored")
+    check(checkpoint_exists(ckpt), "preemption: no checkpoint")
+    latest = json.loads((ckpt / "latest.json").read_text())
+    host = json.loads((ckpt / latest["checkpoint"] / "host_state.json").read_text())
+    check(host["trainer_state"] == trainer.state, f"preemption: saved counters {host['trainer_state']}")
+    check(stats["algorithm/steps"] == steps, "preemption: the returned stats are the last step's")
+    second = make()
+    second.run(stop_conditions=[HitsUpperBound("algorithm/steps", steps + 2)], checkpoint_dir=ckpt,
+               steps_per_checkpoint=2)
+    h = second.algorithm.hparams
+    check(second.state == {"algorithm/collects": steps + 2, "algorithm/steps": steps + 2,
+                           "env/steps": (steps + 2) * h.num_envs * h.horizon}, f"preemption: resumed {second.state}")
+    emit({"phase": "preemption", "steps_before_sigterm_returned": steps, "generation": latest["checkpoint"],
+          "sigterm_to_return_ms": (returned - sent[0]) * 1e3, "run_s": returned - t,
+          "resumed_state": second.state})
+
+
+def run_cli_persistence(torch, dev, tmp: Path) -> None:
+    """``train -f <config> --checkpoint-dir D --steps-per-checkpoint 2
+    --max-steps 4 --save OUT`` through the CLI on the card (the quick
+    start's config), then the same with ``--max-steps 6``: the second
+    run's records start at step 5 and its launches are two steps' worth;
+    ``OUT/policy.pkl`` loads onto the card."""
+    from rl8_tpu_torch.policies import Policy
+
+    ckpt, out = tmp / "cli-ckpt", tmp / "cli-out"
+    flags = ("--checkpoint-dir", str(ckpt), "--steps-per-checkpoint", "2", "--save", str(out))
+    rc, trainer, records, _ = train_cli(torch, tmp, "persist4", QUICK_START, "--max-steps", "4", *flags)
+    check(rc == 0, f"cli_persistence: the CLI exited {rc}")
+    h = trainer.algorithm.hparams
+    check_train_records(records, h.num_envs, h.horizon, 4, None, "cli_persistence")
+    gens = sorted(e.name for e in ckpt.iterdir() if e.name.startswith("ckpt-"))
+    check(gens == ["ckpt-00000001", "ckpt-00000002"], f"cli_persistence: generations {gens}")
+    rc, trainer, records, launches = train_cli(torch, tmp, "persist6", QUICK_START, "--max-steps", "6", *flags)
+    check(rc == 0, f"cli_persistence: the resumed CLI exited {rc}")
+    steps = [r["algorithm/steps"] for r in records]
+    check(steps == [5, 6], f"cli_persistence: the resumed run logged steps {steps}")
+    check(records[0]["env/steps"] == 5 * h.num_envs * h.horizon, "cli_persistence: env steps resumed")
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check(launches["act"] == 2 * h.horizon and launches["gae"] == 2 and launches["ppo"] == 2 * per_step,
+          f"cli_persistence: resumed launches {launches}")
+    policy = Policy.load(out / "policy.pkl")
+    check(all(p.is_cuda for p in policy.model.parameters()), "cli_persistence: policy.pkl did not load onto the card")
+    for (k, a), b in zip(trainer.algorithm.policy.model.state_dict().items(), policy.model.state_dict().values()):
+        check(torch.equal(a, b), f"cli_persistence: exported {k} differs from the trained model")
+    emit({"phase": "cli_persistence", "generations": gens, "resumed_steps": steps, "launches": launches,
+          "policy_bytes": (out / "policy.pkl").stat().st_size})
+
+
+def serving_compare(torch, what: str, got: dict, want: dict, logits) -> dict:
+    """Card against CPU serving arrays: actions equal except rows whose
+    top-2 ``logits`` (the CPU model's) are within TIE_GAP, log-probs there
+    and values everywhere within the act tolerances. Returns the worst
+    errors."""
+    import numpy as np
+
+    from rl8_tpu_torch.data import DataKeys
+
+    top = torch.topk(logits.reshape(logits.shape[0], -1, logits.shape[-1]), 2, dim=-1).values
+    tie = ((top[..., 0] - top[..., 1]) < TIE_GAP).any(dim=-1).numpy()
+    diff = (got[DataKeys.ACTIONS] != want[DataKeys.ACTIONS]).reshape(len(tie), -1).any(axis=1)
+    check(not bool((diff & ~tie).any()), f"{what}: actions differ away from ties")
+    errs = {"action_mismatches": int(diff.sum()), "ties": int(tie.sum())}
+    for key in (DataKeys.LOGP, DataKeys.VALUES):
+        ok = ~tie if key == DataKeys.LOGP else np.ones_like(tie)
+        check(np.allclose(got[key][ok], want[key][ok], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: {key}")
+        errs[key] = float(np.abs(got[key][ok] - want[key][ok]).max()) if ok.any() else 0.0
+    return errs
+
+
+def run_serving(torch, dev, tmp: Path) -> None:
+    """``PolicyModel.load`` of the CLI's exported policy and
+    ``RecurrentPolicyModel.load`` of the recurrent cell's on the card:
+    ``_predict_arrays`` at B = 1, 7, 100 and 8192 (T = 1) and at a
+    sample-dropping view, against the same policy loaded on the CPU; the
+    discrete policy also against a deterministic act-kernel launch on the
+    same parameters and observations; median predict latency per batch
+    size."""
+    import numpy as np
+
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.models import DefaultDiscreteModel
+    from rl8_tpu_torch.ops import fused_act, pack_act_params
+    from rl8_tpu_torch.policies import Policy
+    from rl8_tpu_torch.policies.serving import PolicyModel, RecurrentPolicyModel
+    from rl8_tpu_torch.views import ViewRequirement
+
+    rng = np.random.default_rng(11)
+    sizes = (1, 7, 100, 8192)
+    card, host = PolicyModel.load(tmp / "cli-out" / "policy.pkl"), PolicyModel.load(tmp / "cli-out" / "policy.pkl", "cpu")
+    rcard = RecurrentPolicyModel.load(tmp / "recurrent_policy.pkl")
+    rhost = RecurrentPolicyModel.load(tmp / "recurrent_policy.pkl", "cpu")
+    check(all(p.is_cuda for m in (card, rcard) for p in m.policy.model.parameters()), "serving: not on the card")
+    latency: dict = {"feedforward": {}, "recurrent": {}}
+    errors: dict = {"feedforward": {}, "recurrent": {}}
+
+    def median_ms(fn, n: int = 20) -> float:
+        fn()
+        ms = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return sorted(ms)[n // 2]
+
+    for B in sizes:
+        obs = rng.uniform(-100.0, 100.0, size=(B, 1, 1)).astype(np.float32)
+        model_input = {DataKeys.OBS: obs}
+        got, want = card._predict_arrays(model_input), host._predict_arrays(model_input)
+        with torch.no_grad():
+            features, _ = host.policy.model({DataKeys.OBS: torch.from_numpy(obs[:, 0])})
+        errors["feedforward"][B] = serving_compare(torch, f"serving B={B}", got, want, features["logits"])
+        latency["feedforward"][B] = median_ms(lambda: card._predict_arrays(model_input))
+        # The same observations through one deterministic act-kernel launch.
+        params = pack_act_params(card.policy.model)
+        actions, logp, values = fused_act(params, torch.from_numpy(obs[:, 0]).to(dev), (0, 0), deterministic=True)
+        kernel = {DataKeys.ACTIONS: actions.cpu().numpy(), DataKeys.LOGP: logp.cpu().numpy(),
+                  DataKeys.VALUES: values.cpu().numpy()}
+        errors["feedforward"][f"act_kernel_{B}"] = serving_compare(torch, f"serving vs act kernel B={B}", got, kernel,
+                                                                   features["logits"])
+
+        def recurrent_logits(states):
+            with torch.no_grad():
+                (features, _), _ = rhost.policy.model({DataKeys.OBS: torch.from_numpy(obs)}, states)
+            return features["logits"]
+
+        rgot, rstates = rcard._predict_arrays(model_input)
+        rwant, rwant_states = rhost._predict_arrays(model_input)
+        errors["recurrent"][B] = serving_compare(torch, f"recurrent serving B={B}", rgot, rwant,
+                                                 recurrent_logits(rhost.policy.init_states(B, "cpu")))
+        for k in rwant_states:
+            check(np.allclose(rstates[k], rwant_states[k], rtol=ACT_RTOL, atol=ACT_ATOL), f"recurrent states {k} B={B}")
+        # The states fed back continue the recurrence on both devices alike.
+        nxt = {DataKeys.OBS: obs, DataKeys.STATES: rwant_states}
+        serving_compare(torch, f"recurrent serving from states B={B}", rcard._predict_arrays(nxt)[0],
+                        rhost._predict_arrays(nxt)[0],
+                        recurrent_logits({k: torch.from_numpy(v) for k, v in rwant_states.items()}))
+        latency["recurrent"][B] = median_ms(lambda: rcard._predict_arrays(model_input))
+
+    class LastOfWindow(DefaultDiscreteModel):
+        """The default model on the last observation of a rolling window
+        that drops the first two samples of a sequence."""
+
+        @property
+        def view_requirements(self):
+            return {DataKeys.OBS: ViewRequirement(shift=2, method="rolling_window")}
+
+        def forward(self, batch):
+            return super().forward({DataKeys.OBS: batch[DataKeys.OBS][:, -1]})
+
+    policy = Policy(card.policy.observation_spec, card.policy.action_spec, model_cls=LastOfWindow)
+    policy.model.load_state_dict(host.policy.model.state_dict())
+    obs = rng.uniform(-100.0, 100.0, size=(100, 6, 1)).astype(np.float32)
+    host_arrays = PolicyModel(policy)._predict_arrays({DataKeys.OBS: obs})
+    policy.model.to(dev)
+    card_arrays = PolicyModel(policy)._predict_arrays({DataKeys.OBS: obs})
+    check(len(card_arrays[DataKeys.VALUES]) == 100 * 4, "serving: drop_size rows not sliced off")
+    with torch.no_grad():
+        features, _ = host.policy.model({DataKeys.OBS: torch.from_numpy(obs[:, 2:].reshape(-1, 1))})
+    errors["drop_size"] = serving_compare(torch, "serving drop_size view", card_arrays, host_arrays, features["logits"])
+    emit({"phase": "serving", "batch_sizes": list(sizes), "predict_ms_median": latency, "errors": errors,
+          "rtol": ACT_RTOL, "atol": ACT_ATOL, "tie_gap": TIE_GAP})
+
+
+def run_parity_card(torch, dev, tmp: Path, seeds: tuple = (0, 1, 2)) -> None:
+    """The five parity configs (``rl8_tpu_torch.parity``: 256 envs, 40
+    trainer steps or 100 for pendulum) on the card, seeds 0-2, with both
+    criteria against the reference's curves: one line per config. Any
+    non-finite return, or a curve that never reaches the half-max
+    threshold, fails the phase; the criteria themselves are reported (a
+    card curve differs from a CPU curve by design)."""
+    from rl8_tpu_torch import parity
+
+    out = tmp / "parity"
+    for name in parity.CONFIGS:
+        t = time.perf_counter()
+        for seed in seeds:
+            parity.run_ours(name, seed=seed, device="cuda", out_dir=str(out))
+        curves = [parity.load_curve(str(out / f"{name}_seed{s}.jsonl"))[1] for s in seeds]
+        ref = [parity.load_curve(str(Path(parity.REFERENCE_CURVES_DIR) / f"{name}_seed{s}.jsonl"))[1] for s in (0, 1, 2)]
+        for seed, records in zip(seeds, curves):
+            check(all(math.isfinite(r["returns_mean"]) for r in records), f"parity_card {name} seed {seed}: non-finite")
+        summary = parity.summarize(name, curves, ref)
+        never = [s for s, n in zip(seeds, summary["ours_steps_to_half_max"]) if n is None]
+        check(not never, f"parity_card {name}: seeds {never} never reach the half-max return")
+        emit({"phase": "parity_card", "seeds": list(seeds), **summary, "seconds": time.perf_counter() - t})
 
 
 if __name__ == "__main__":

@@ -20,6 +20,10 @@ trainers (``Trainer``, ``RecurrentTrainer``), stop conditions, tracking,
 ``TrainConfig`` and the ``train`` CLI (``python -m rl8_tpu_torch train -f
 config.yaml``) drive those algorithms; ``examples`` holds the
 classic-control envs (CartPole, Pendulum, MountainCar) and algotrading.
+``checkpoint`` saves and restores a run bit for bit, ``preemption``
+turns a SIGTERM into a final checkpoint, ``Policy.save``/``load`` export
+a policy and ``policies.serving`` serves it; ``parity`` records and
+judges the port's learning curves against the reference's.
 """
 
 from .algorithms import Algorithm, AlgorithmConfig, RecurrentAlgorithm, RecurrentAlgorithmConfig

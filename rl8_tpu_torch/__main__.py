@@ -1,17 +1,16 @@
 """Command-line interface: ``python -m rl8_tpu_torch train -f config.yaml``
 (counterpart of ``rl8_tpu/__main__.py``). Tracking goes to a JSONL run
 directory (``--track-dir``) or to MLflow when it is installed and
-requested (``--mlflow``).
-
-The options that need modules this port does not have yet exit with an
-error naming the ROADMAP item that brings them: ``--save`` (policy
-export) and ``--checkpoint-dir`` with its companions (Queue 1 #7), and
-the ``doctor`` subcommand (Queue 1 #8).
+requested (``--mlflow``). ``--checkpoint-dir`` saves full-state
+checkpoints and resumes from them, ``--save DIR`` exports the trained
+policy to ``DIR/policy.pkl``. The ``doctor`` subcommand exits with an
+error naming the ROADMAP item that brings it (Queue 1 #8).
 """
 
 from __future__ import annotations
 
 import argparse
+import pathlib
 import sys
 import tempfile
 
@@ -38,19 +37,24 @@ def main(argv: None | list[str] = None) -> int:
         "--steps-per-eval", type=int, default=None, help="Trainer steps between policy evaluations."
     )
     train_parser.add_argument(
-        "--save", default=None, help="Directory to export the trained policy to (not ported yet: Queue 1 #7)."
+        "--save", default=None, help="Directory to export the trained policy to (as policy.pkl)."
     )
     train_parser.add_argument(
         "--track-dir", default=None, help="Directory for JSONL metric tracking (a temp dir by default)."
     )
     train_parser.add_argument(
-        "--checkpoint-dir", default=None, help="Directory for full-state checkpoints (not ported yet: Queue 1 #7)."
+        "--checkpoint-dir",
+        default=None,
+        help="Directory for full-state checkpoints; an existing checkpoint there is resumed from.",
     )
     train_parser.add_argument(
-        "--steps-per-checkpoint", type=int, default=None, help="Trainer steps between checkpoints (Queue 1 #7)."
+        "--steps-per-checkpoint",
+        type=int,
+        default=None,
+        help="Trainer steps between checkpoints (default: every step, or every --fused-steps batch).",
     )
     train_parser.add_argument(
-        "--no-resume", action="store_true", help="Ignore an existing checkpoint (Queue 1 #7)."
+        "--no-resume", action="store_true", help="Start fresh even if --checkpoint-dir holds a checkpoint."
     )
     train_parser.add_argument(
         "--fused-steps",
@@ -60,10 +64,14 @@ def main(argv: None | list[str] = None) -> int:
         " Must divide --steps-per-eval.",
     )
     train_parser.add_argument(
-        "--async-checkpoints", action="store_true", help="Background checkpoint writes (Queue 1 #7)."
+        "--async-checkpoints",
+        action="store_true",
+        help="Write checkpoints in the background (training overlaps the write).",
     )
     train_parser.add_argument(
-        "--no-preemption-checkpoint", action="store_true", help="No checkpoint on SIGTERM (Queue 1 #7)."
+        "--no-preemption-checkpoint",
+        action="store_true",
+        help="Don't catch SIGTERM for a final checkpoint (on by default with --checkpoint-dir).",
     )
     train_parser.add_argument("--mlflow", action="store_true", help="Track with MLflow instead of JSONL files.")
     doctor_parser = subparsers.add_parser("doctor", help="Bring-up checks (not ported yet: Queue 1 #8).")
@@ -83,15 +91,6 @@ def main(argv: None | list[str] = None) -> int:
         ):
             if value:
                 parser.error(f"{flag} requires --checkpoint-dir")
-    for flag, value in (
-        ("--checkpoint-dir", args.checkpoint_dir),
-        ("--no-resume", args.no_resume),
-        ("--no-preemption-checkpoint", args.no_preemption_checkpoint),
-    ):
-        if value:
-            parser.error(f"{flag}: checkpoints are not in this port yet (ROADMAP Queue 1 #7).")
-    if args.save:
-        parser.error("--save: policy export is not in this port yet (ROADMAP Queue 1 #7).")
 
     config = TrainConfig.from_file(args.file)
     if args.mlflow:
@@ -108,8 +107,23 @@ def main(argv: None | list[str] = None) -> int:
     trainer.run(
         steps_per_eval=args.steps_per_eval,
         stop_conditions=[HitsUpperBound("algorithm/steps", args.max_steps)],
+        checkpoint_dir=args.checkpoint_dir,
+        steps_per_checkpoint=(
+            # Default cadence: every step, or every fused batch.
+            (args.steps_per_checkpoint or args.fused_steps or 1)
+            if args.checkpoint_dir
+            else None
+        ),
+        resume=not args.no_resume,
+        checkpoint_on_preemption=not args.no_preemption_checkpoint,
+        async_checkpoints=args.async_checkpoints,
         fused_steps=args.fused_steps,
     )
+    if args.save:
+        save_dir = pathlib.Path(args.save)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        trainer.algorithm.policy.save(save_dir / "policy.pkl")
+        print(f"Saved policy to {save_dir / 'policy.pkl'}", file=sys.stderr)
     return 0
 
 

@@ -1,13 +1,9 @@
 """High-level training interfaces (counterpart of
 ``rl8_tpu/trainers/_base.py``): the same counters, eval reset-boundary
 guards, cadence rules and metric names, with tracking through the
-pluggable :mod:`rl8_tpu_torch.trainers.tracking` interface.
-
-Checkpoints and preemption (``checkpoint_dir`` and the options that go
-with it, :meth:`GenericTrainerBase.save_checkpoint` and
-:meth:`GenericTrainerBase.restore_checkpoint`) are not in this port yet
-(ROADMAP Queue 1 #7): they raise ``NotImplementedError`` before anything
-is collected.
+pluggable :mod:`rl8_tpu_torch.trainers.tracking` interface, and
+checkpoints, auto-resume and a final checkpoint on preemption through
+:mod:`rl8_tpu_torch.checkpoint` and :mod:`rl8_tpu_torch.preemption`.
 """
 
 from __future__ import annotations
@@ -25,13 +21,6 @@ from .tracking import NoopRun, Run, get_default_run
 __all__ = ["GenericTrainerBase"]
 
 _Algorithm = TypeVar("_Algorithm", bound=GenericAlgorithmBase[Any, Any, Any])
-
-#: Why the checkpoint options raise.
-_NO_CHECKPOINTS = (
-    "Checkpoints, resume and preemption handling are not in this port yet;"
-    " they come with persistence and serving (ROADMAP Queue 1 #7)."
-)
-
 
 class GenericTrainerBase(Generic[_Algorithm]):
     """The base trainer interface.
@@ -163,13 +152,20 @@ class GenericTrainerBase(Generic[_Algorithm]):
             stop_conditions: Any one evaluating ``True`` stops training.
             fused_steps: Run the steps in batches of this many through
                 :meth:`step_fused`; must divide ``steps_per_eval``.
-            steps_per_checkpoint: Validated as ``rl8_tpu`` validates it;
-                checkpoints are not in this port yet.
-            checkpoint_dir: Any value raises ``NotImplementedError``
-                (ROADMAP Queue 1 #7).
-            resume: Used only with ``checkpoint_dir``.
-            checkpoint_on_preemption: Used only with ``checkpoint_dir``.
-            async_checkpoints: Requires ``checkpoint_dir``.
+            steps_per_checkpoint: Trainer steps between checkpoints
+                (requires ``checkpoint_dir``; with ``fused_steps`` a
+                multiple of it).
+            checkpoint_dir: Directory for full-state checkpoints. With
+                ``resume``, an existing checkpoint there is restored
+                before training, and counter-keyed stop conditions are
+                checked against the restored counters before any step.
+            resume: Whether to restore from ``checkpoint_dir``.
+            checkpoint_on_preemption: With ``checkpoint_dir``, catch
+                ``SIGTERM``, save a final checkpoint at the next step
+                boundary and return.
+            async_checkpoints: Write periodic checkpoints in the
+                background (requires ``checkpoint_dir``); every one is
+                published by the time ``run`` returns.
 
         Returns:
             The most recent train stats when training stops.
@@ -179,7 +175,6 @@ class GenericTrainerBase(Generic[_Algorithm]):
                 never resets, if ``steps_per_eval`` isn't a multiple of
                 ``horizons_per_env_reset``, or on the cadence and
                 checkpoint-option errors ``rl8_tpu`` raises.
-            NotImplementedError: If ``checkpoint_dir`` is given.
 
         """
         if steps_per_eval and self.algorithm.horizons_per_env_reset < 0 and eval_env_config:
@@ -218,32 +213,96 @@ class GenericTrainerBase(Generic[_Algorithm]):
                 "`async_checkpoints` requires a `checkpoint_dir` (there is"
                 " nothing to write in the background without one)."
             )
-        if checkpoint_dir:
-            raise NotImplementedError(_NO_CHECKPOINTS)
         eval_env_config = eval_env_config or env_config
         stop_conditions = stop_conditions or []
+        if checkpoint_dir and resume:
+            from ..checkpoint import checkpoint_exists
 
-        if fused_steps and fused_steps > 1:
-            while True:
-                for train_stats in self.step_fused(fused_steps, env_config=env_config):
-                    if any(c(train_stats) for c in stop_conditions):
+            if checkpoint_exists(checkpoint_dir, agree=True):
+                self.restore_checkpoint(checkpoint_dir)
+                # A restart of a finished job must not train past its
+                # bound: counter-keyed stop conditions are checked against
+                # the restored counters before any step (conditions on
+                # losses or returns fail the key lookup and wait for one).
+                counter_stats: dict[str, Any] = dict(self.state)
+                for condition in stop_conditions:
+                    try:
+                        met = condition(counter_stats)  # type: ignore[arg-type]
+                    except KeyError:
+                        continue
+                    if met:
+                        return counter_stats  # type: ignore[return-value]
+
+        def _maybe_checkpoint() -> None:
+            if steps_per_checkpoint and checkpoint_dir and not (self.state["algorithm/steps"] % steps_per_checkpoint):
+                self.save_checkpoint(checkpoint_dir, block=not async_checkpoints)
+
+        monitor = None
+        if checkpoint_dir and checkpoint_on_preemption:
+            from ..preemption import PreemptionMonitor
+
+            monitor = PreemptionMonitor().install()
+
+        def _preempt_save() -> bool:
+            if monitor is not None and monitor.preempted():
+                # Always blocking: the process is about to exit.
+                self.save_checkpoint(checkpoint_dir)
+                return True
+            return False
+
+        try:
+            if fused_steps and fused_steps > 1:
+                while True:
+                    for train_stats in self.step_fused(fused_steps, env_config=env_config):
+                        if any(c(train_stats) for c in stop_conditions):
+                            _maybe_checkpoint()
+                            return train_stats
+                    if _preempt_save():
                         return train_stats
-                if steps_per_eval and not (self.state["algorithm/steps"] % steps_per_eval):
-                    self.eval(env_config=eval_env_config)
-        train_stats = self.step(env_config=env_config)
-        while not any(condition(train_stats) for condition in stop_conditions):
-            if steps_per_eval and not (self.state["algorithm/steps"] % steps_per_eval):
-                self.eval(env_config=eval_env_config)
+                    _maybe_checkpoint()
+                    if steps_per_eval and not (self.state["algorithm/steps"] % steps_per_eval):
+                        # Don't start an eval with an eviction pending.
+                        if _preempt_save():
+                            return train_stats
+                        self.eval(env_config=eval_env_config)
             train_stats = self.step(env_config=env_config)
-        return train_stats
+            if _preempt_save():
+                return train_stats
+            _maybe_checkpoint()
+            while not any(condition(train_stats) for condition in stop_conditions):
+                if steps_per_eval and not (self.state["algorithm/steps"] % steps_per_eval):
+                    if _preempt_save():
+                        return train_stats
+                    self.eval(env_config=eval_env_config)
+                train_stats = self.step(env_config=env_config)
+                if _preempt_save():
+                    return train_stats
+                _maybe_checkpoint()
+            return train_stats
+        finally:
+            if monitor is not None:
+                monitor.uninstall()
+            if async_checkpoints:
+                # Checkpoints are durable once run() returns.
+                from ..checkpoint import wait_for_checkpoint
+
+                wait_for_checkpoint()
 
     def save_checkpoint(self, directory: Any, /, *, block: bool = True) -> None:
-        """Not in this port yet (ROADMAP Queue 1 #7)."""
-        raise NotImplementedError(_NO_CHECKPOINTS)
+        """Persist the full training state (algorithm and trainer
+        counters) for restarts; ``block=False`` writes in the background
+        (see :func:`rl8_tpu_torch.checkpoint.save_checkpoint`)."""
+        from ..checkpoint import save_checkpoint
+
+        save_checkpoint(directory, self.algorithm, trainer_state=dict(self.state), block=block)
 
     def restore_checkpoint(self, directory: Any, /) -> None:
-        """Not in this port yet (ROADMAP Queue 1 #7)."""
-        raise NotImplementedError(_NO_CHECKPOINTS)
+        """Restore the algorithm's state and the trainer counters saved by
+        :meth:`save_checkpoint`; training continues where it left off."""
+        from ..checkpoint import restore_checkpoint
+
+        for k, v in restore_checkpoint(directory, self.algorithm).items():
+            self.state[k] = int(v)  # type: ignore[literal-required]
 
     def step(self, *, env_config: None | dict[str, Any] = None) -> TrainStats:
         """One training step: collect + update + log."""

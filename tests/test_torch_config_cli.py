@@ -3,7 +3,7 @@ config.py``, ``rl8_tpu_torch/__main__.py``) on the CPU: loading YAML and
 JSON configs (JSON without PyYAML), the dotted imports and their errors,
 ``_import``'s nested-dependency rule beside ``rl8_tpu``'s, the CLI's
 metric lines against ``rl8_tpu``'s CLI at the same config, and the
-options the port refuses."""
+checkpoint and export options against ``rl8_tpu``'s CLI."""
 
 from __future__ import annotations
 
@@ -202,23 +202,63 @@ def test_cli_logs_what_the_jax_cli_logs(tmp_path, flags) -> None:
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["--save", "out"], "#7"),
-        (["--checkpoint-dir", "ckpt"], "#7"),
-        (["--checkpoint-dir", "ckpt", "--steps-per-checkpoint", "2"], "#7"),
-        (["--checkpoint-dir", "ckpt", "--async-checkpoints"], "#7"),
-        (["--no-resume"], "#7"),
-        (["--no-preemption-checkpoint"], "#7"),
+        (["--save", "out"], "Saved policy to"),
+        (["--checkpoint-dir", "ckpt"], "resumes"),
+        (["--checkpoint-dir", "ckpt", "--steps-per-checkpoint", "2"], "resumes"),
+        (["--checkpoint-dir", "ckpt", "--async-checkpoints"], "resumes"),
+        (["--no-resume"], "ignored"),
+        (["--no-preemption-checkpoint"], "ignored"),
         (["--async-checkpoints"], "requires --checkpoint-dir"),
         (["--steps-per-checkpoint", "2"], "requires --checkpoint-dir"),
     ],
 )
 def test_cli_refuses_unported_options(tmp_path, capsys, argv, item) -> None:
-    config = _write(tmp_path, _port_config())
-    with pytest.raises(SystemExit) as exc:
-        main(["train", "-f", config, "--track-dir", str(tmp_path / "track"), *argv])
-    assert exc.value.code != 0
-    assert item in capsys.readouterr().err
-    assert not (tmp_path / "track").exists(), "nothing may train before the refusal"
+    """The checkpoint and export options act as in ``rl8_tpu``'s CLI: both
+    refuse the knobs that need a ``--checkpoint-dir`` before anything
+    trains, accept and ignore ``--no-resume`` and
+    ``--no-preemption-checkpoint`` without one, lay out the same
+    checkpoint generations and resume a rerun at step 5, and ``--save``
+    writes ``DIR/policy.pkl``."""
+    from rl8_tpu_torch.policies import Policy
+
+    jconfig = {"env_cls": "rl8_tpu.env.DiscreteDummyEnv", "algorithm_config": SMALL}
+    runs = {"j": (jmain, jconfig), "t": (main, _port_config())}
+
+    def cli(pkg: str, max_steps: int) -> tuple[int, str]:
+        entry, config = runs[pkg]
+        flags = [str(tmp_path / pkg / a) if a in ("out", "ckpt") else a for a in argv]
+        track = tmp_path / pkg / f"track{max_steps}"
+        try:
+            rc = entry(["train", "-f", _write(tmp_path / pkg, config), "--track-dir", str(track),
+                        "--max-steps", str(max_steps), *flags])
+        except SystemExit as exc:
+            rc = exc.code
+        return rc, capsys.readouterr().err
+
+    for pkg in runs:
+        rc, err = cli(pkg, 4)
+        if item == "requires --checkpoint-dir":
+            assert rc != 0 and item in err
+            assert not (tmp_path / pkg / "track4").exists(), "nothing may train before the refusal"
+            continue
+        assert rc == 0
+        assert [r["algorithm/steps"] for r in _records(tmp_path / pkg / "track4")] == [1, 2, 3, 4]
+        if item == "Saved policy to":
+            assert item in err and (tmp_path / pkg / "out" / "policy.pkl").exists()
+        if item == "resumes":
+            rc, _ = cli(pkg, 6)
+            assert rc == 0
+            assert [r["algorithm/steps"] for r in _records(tmp_path / pkg / "track6")] == [5, 6]
+        if item == "ignored":
+            assert sorted(os.listdir(tmp_path / pkg)) == ["config.json", "track4"]
+    if item == "resumes":
+        gens = [sorted(os.listdir(tmp_path / pkg / "ckpt")) for pkg in runs]
+        assert gens[0] == gens[1] and "latest.json" in gens[1]
+        latest = [(tmp_path / pkg / "ckpt" / "latest.json").read_text() for pkg in runs]
+        assert latest[0] == latest[1]
+    if item == "Saved policy to":
+        policy = Policy.load(tmp_path / "t" / "out" / "policy.pkl", device="cpu")
+        assert next(policy.model.parameters()).device.type == "cpu"
 
 
 def test_cli_refuses_doctor(capsys) -> None:

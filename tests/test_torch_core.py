@@ -158,7 +158,7 @@ def test_dummy_env_reset_bounds() -> None:
     assert obs.tolist() == [[1.0], [1.0]] and rew.tolist() == [[-1.0], [-1.0]]
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rl8_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rl8_tpu", "benchmarks")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -178,7 +178,7 @@ def _imported_roots(path: Path) -> set[str]:
 )
 def test_port_imports_no_jax(path: str) -> None:
     """No module of the port, and not chip_smoke.py, imports JAX, flax,
-    optax or the JAX package (read from the source: the interpreter may
+    optax, the JAX package or the benchmark folder (read from the source: the interpreter may
     have imported JAX at startup, so sys.modules proves nothing)."""
     assert not (_imported_roots(REPO / path) & set(_FORBIDDEN))
 
@@ -195,6 +195,7 @@ def test_port_imports_no_jax(path: str) -> None:
         "rl8_tpu_torch.models._feedforward",
         "rl8_tpu_torch.models._recurrent",
         "rl8_tpu_torch.policies._recurrent",
+        "rl8_tpu_torch.policies.serving",
         "rl8_tpu_torch.utils",
         "rl8_tpu_torch.algorithms._feedforward",
         "rl8_tpu_torch.algorithms._recurrent",

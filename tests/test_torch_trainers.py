@@ -2,9 +2,9 @@
 (``rl8_tpu_torch/{conditions,trainers,utils,parallel}``) held against
 ``rl8_tpu``'s on the CPU: conditions' decisions on the same stat
 sequences, ``run()``'s cadence on one counter-only stub algorithm driven
-by both packages' ``GenericTrainerBase``, the checkpoint options the port
-refuses, and ``Trainer``/``RecurrentTrainer`` on real algorithms against
-``rl8_tpu``'s ``TrainStats`` keys at the same config."""
+by both packages' ``GenericTrainerBase``, the checkpoint options on real
+algorithms of both packages, and ``Trainer``/``RecurrentTrainer`` on real
+algorithms against ``rl8_tpu``'s ``TrainStats`` keys at the same config."""
 
 from __future__ import annotations
 
@@ -280,6 +280,10 @@ def test_eval_guards_match_jax() -> None:
             trainer.eval(env_config={"bounds": 1.0})
 
 
+#: A tiny discrete config both packages build.
+SMALL_KW = dict(num_envs=8, horizon=4, model_config={"hiddens": (8,)}, seed=7)
+
+
 @pytest.mark.parametrize(
     "run_kwargs",
     [
@@ -290,18 +294,38 @@ def test_eval_guards_match_jax() -> None:
     ],
 )
 def test_checkpoints_raise_before_any_collect(run_kwargs, tmp_path) -> None:
-    algo = StubAlgorithm()
-    trainer = GenericTrainerBase(algo, run=RecordingRun())
-    with pytest.raises(NotImplementedError, match="#7"):
-        trainer.run(**{**run_kwargs, "checkpoint_dir": tmp_path / "ckpt"})
-    assert algo.collects == 0 and algo.steps == 0
-    for call in (lambda: trainer.save_checkpoint(tmp_path), lambda: trainer.restore_checkpoint(tmp_path)):
-        with pytest.raises(NotImplementedError, match="#7"):
-            call()
+    """Each set of checkpoint options runs on both packages' trainers
+    (4 steps, then a rerun to 6 that resumes when a checkpoint exists):
+    the same generations, latest.json and counters; the trainer's own
+    save and restore round trip."""
+    import json
+    import os
+
+    layouts = []
+    for name, make in (
+        ("jax", lambda: JTrainer(JAlgorithmConfig(**SMALL_KW).build(JDiscreteDummyEnv))),
+        ("torch", lambda: Trainer(AlgorithmConfig(**SMALL_KW, device="cpu").build(DiscreteDummyEnv))),
+    ):
+        ckpt = tmp_path / name
+        kwargs = {**run_kwargs, "checkpoint_dir": ckpt}
+        first = make()
+        first.run(stop_conditions=[conditions.HitsUpperBound("algorithm/steps", 4)], **kwargs)
+        rerun = make()
+        rerun.run(stop_conditions=[conditions.HitsUpperBound("algorithm/steps", 6)], **kwargs)
+        gens = sorted(e for e in os.listdir(ckpt) if e.startswith("ckpt-")) if ckpt.exists() else []
+        latest = json.loads((ckpt / "latest.json").read_text()) if gens else None
+        layouts.append((gens, latest, dict(first.state), dict(rerun.state)))
+    assert layouts[0] == layouts[1]
+    trainer = Trainer(AlgorithmConfig(**SMALL_KW, device="cpu").build(DiscreteDummyEnv))
+    trainer.step()
+    trainer.save_checkpoint(tmp_path / "manual")
+    restored = Trainer(AlgorithmConfig(**SMALL_KW, device="cpu").build(DiscreteDummyEnv))
+    restored.restore_checkpoint(tmp_path / "manual")
+    assert restored.state == trainer.state == {"algorithm/collects": 1, "algorithm/steps": 1, "env/steps": 32}
 
 
 def test_checkpoint_value_errors_come_first(tmp_path) -> None:
-    """rl8_tpu's ValueErrors still win over the port's refusal."""
+    """rl8_tpu's ValueErrors come before anything is collected or saved."""
     trainer = GenericTrainerBase(StubAlgorithm(), run=RecordingRun())
     with pytest.raises(ValueError, match="steps_per_checkpoint"):
         trainer.run(fused_steps=2, steps_per_checkpoint=3, checkpoint_dir=tmp_path)

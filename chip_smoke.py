@@ -70,16 +70,34 @@ non-zero:
    the recurrent paths, the routes ``rl8_tpu`` takes off the kernels at the
    discrete cell's width, one collect and one step each: a ``gelu`` torso
    (module rollout and autograd update, no act or update launch) and
-   ``fused_act=False`` (module rollout, 4 update launches).
+   ``fused_act=False`` (module rollout, 4 update launches). Then, each
+   with the counters set to 0 just before and read just after, one
+   warm-up and five timed iterations and a profiled one (idle share):
+   ``amp_paths`` (the discrete and the recurrent cell with
+   ``enable_amp=True``: bf16 default models on the module routes, GAE
+   once an iteration and no other kernel of ours, the rollout held
+   against the bf16 module); ``recurrent_module_route`` (the recurrent
+   cell with ``fused_act=False, fused_update=False``, f32); ``custom_amp``
+   (BASELINE #5: ``MischievousMule`` with ``dtype=bfloat16``,
+   ``enable_amp``, ``accumulate_grads``, 4096 envs, horizon 32,
+   minibatches of 32,768 rows, ``fused_forward`` True with chain forward
+   49 and backward 16 launches an iteration asserted, and False);
+   ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
+   and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
+   optimizer's state on the card).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
-   discrete env and for the continuous one with ``SquashedNormal``; the
-   recurrent drive (64 envs, horizon 16, seq_len 4, hidden 16, seed 1, 15
-   iterations) must raise the mean return.
+   discrete env (in f32 and with ``enable_amp=True``) and
+   for the continuous one with ``SquashedNormal``; the recurrent drive
+   (64 envs, horizon 16, seq_len 4, hidden 16, seed 1, 15 iterations)
+   must raise the mean return.
 5. small configurations run on the card and on the CPU (the plain
    versions) from the same seed, two collects and one step, compared:
    the discrete one and the continuous one with ``Normal``, feedforward
-   and recurrent, and ``MischievousMule`` (deterministic collects).
+   and recurrent, and ``MischievousMule`` (deterministic collects); the
+   discrete one with ``torch.optim.SGD`` (momentum 0.9), AdamW
+   and AdamW per leaf, and the recurrent one with AdamW per leaf (the
+   optimizer's state compared too).
 6. one step of each classic-control example env (CartPole with both
    integrators, Pendulum, MountainCar) on the card and on the CPU from
    the same state, compared.
@@ -96,7 +114,8 @@ non-zero:
    horizon 64, seed 0) for 25 steps against the JAX package's learning
    criterion, then one eval.
 8. persistence and serving: ``checkpoint_resume`` (the discrete and the
-   recurrent cell at full width: train, save, train; restore into a fresh
+   recurrent cell at full width, and the discrete cell with
+   ``torch.optim.AdamW``: train, save, train; restore into a fresh
    algorithm and train; every parameter, Adam, buffer, env and generator
    state bit-identical, the resumed steps' launches counted; an async
    save that publishes only on ``wait_for_checkpoint()``; checkpoint
@@ -296,13 +315,26 @@ def main() -> int:
     run_repaired_routes(torch, dev)
     run_recurrent_path(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
+    run_amp_paths(torch, dev)
+    run_recurrent_module_route(torch, dev)
+    run_custom_amp(torch, dev)
+    run_optimizers(torch, dev)
     check_learning(torch, dev)
+    check_learning(torch, dev, amp=True)
     check_learning_continuous(torch, dev)
     check_learning_recurrent(torch, dev)
     for recurrent in (False, True):
         check_small_against_cpu(torch, dev, recurrent=recurrent)
         check_small_against_cpu(torch, dev, continuous=True, recurrent=recurrent)
     check_small_custom_against_cpu(torch, dev)
+    for label, kw in (
+        ("sgd_momentum", {"optimizer_cls": torch.optim.SGD, "optimizer_config": {"lr": 1e-2, "momentum": 0.9}}),
+        ("adamw", {"optimizer_cls": torch.optim.AdamW}),
+        ("adamw_per_leaf", {"optimizer_cls": torch.optim.AdamW, "flatten_optimizer": False}),
+    ):
+        check_small_against_cpu(torch, dev, label=label, **kw)
+    check_small_against_cpu(torch, dev, recurrent=True, label="adamw_per_leaf", optimizer_cls=torch.optim.AdamW,
+                            flatten_optimizer=False)
     check_envs_against_cpu(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         run_cli_main_path(torch, dev, Path(tmp))
@@ -1865,8 +1897,6 @@ def run_recurrent_path(torch, dev, kernels: dict) -> None:
     values are held against the module's plain forward from the stored
     states, and a profiled collect and step."""
     from rl8_tpu_torch import RecurrentAlgorithmConfig
-    from rl8_tpu_torch.data import DataKeys
-    from rl8_tpu_torch.distributions import Categorical
     from rl8_tpu_torch.env import DiscreteDummyEnv
     from rl8_tpu_torch.ops import fused_act, fused_gae, fused_ppo_grads, fused_rnn_act, fused_rnn_ppo_grads
 
@@ -1899,28 +1929,8 @@ def run_recurrent_path(torch, dev, kernels: dict) -> None:
     med_step = sorted(step_ms)[len(step_ms) // 2]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # The rollout against the module: per step, the plain forward from the
-    # stored input states gives the values and the log-probs of the
-    # stored actions, and the stored next states.
-    algo.collect()
-    buffer = algo.state.buffer
     T, B = h.horizon, h.num_envs
-    states = buffer[DataKeys.STATES]
-    check(tuple(states[DataKeys.HIDDEN_STATES].shape) == (T + 1, B, 1, 256), "buffer states shape")
-    worst = 0.0
-    with torch.no_grad():
-        for t in range(T):
-            step_states = {k: v[t] for k, v in states.items()}
-            (features, values), new_states = model({DataKeys.OBS: buffer[DataKeys.OBS][t][:, None]}, step_states)
-            logp = Categorical(features).logp(buffer[DataKeys.ACTIONS][t])
-            for what, got, want in (("values", buffer[DataKeys.VALUES][t], values),
-                                    ("logp", buffer[DataKeys.LOGP][t], logp)):
-                worst = max(worst, float((got - want).abs().max()))
-                check(torch.allclose(got, want, rtol=ACT_RTOL, atol=ACT_ATOL), f"recurrent rollout {what} at t={t}")
-            if (t + 1) % h.seq_len or ((t + 1) // h.seq_len + algo.state.seqs - T // h.seq_len) % h.seqs_per_state_reset:
-                for k, v in new_states.items():
-                    check(torch.allclose(states[k][t + 1], v, rtol=ACT_RTOL, atol=ACT_ATOL),
-                          f"recurrent rollout {k} at t={t + 1}")
+    worst = check_recurrent_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
     emit({
         "phase": "main_path_recurrent", "num_envs": B, "horizon": T, "seq_len": h.seq_len,
         "hidden_size": model.hidden_size, "num_layers": model.num_layers,
@@ -1934,6 +1944,38 @@ def run_recurrent_path(torch, dev, kernels: dict) -> None:
     })
     profile_window(torch, "recurrent collect", algo.collect)
     profile_window(torch, "recurrent step", algo.step)
+
+
+def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
+    """Collect once more and hold the rollout against the module: per
+    step, the model's forward from the stored input states gives the
+    values and the log-probs of the stored actions, and the stored next
+    states (where no reset follows). Returns the largest difference."""
+    from rl8_tpu_torch.data import DataKeys
+
+    h, model = algo.hparams, algo.policy.model
+    algo.collect()
+    buffer = algo.state.buffer
+    T, B = h.horizon, h.num_envs
+    states = buffer[DataKeys.STATES]
+    shape = (T + 1, B, model.num_layers, model.hidden_size)
+    check(tuple(states[DataKeys.HIDDEN_STATES].shape) == shape, "buffer states shape")
+    check(all(v.dtype == torch.float32 for v in states.values()), "buffer states are f32")
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(T):
+            step_states = {k: v[t] for k, v in states.items()}
+            (features, values), new_states = model({DataKeys.OBS: buffer[DataKeys.OBS][t][:, None]}, step_states)
+            logp = algo.policy.distribution_cls(features, model).logp(buffer[DataKeys.ACTIONS][t])
+            for what, got, want in (("values", buffer[DataKeys.VALUES][t], values),
+                                    ("logp", buffer[DataKeys.LOGP][t], logp)):
+                worst = max(worst, float((got - want).abs().max()))
+                check(torch.allclose(got, want, rtol=rtol, atol=atol), f"recurrent rollout {what} at t={t}")
+            if (t + 1) % h.seq_len or ((t + 1) // h.seq_len + algo.state.seqs - T // h.seq_len) % h.seqs_per_state_reset:
+                for k, v in new_states.items():
+                    check(torch.allclose(states[k][t + 1], v, rtol=rtol, atol=atol),
+                          f"recurrent rollout {k} at t={t + 1}")
+    return worst
 
 
 def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibatch_size: int = 32768) -> None:
@@ -2025,6 +2067,207 @@ def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibat
             profile_window(torch, "custom module step", algo.step)
 
 
+#: bf16 module forwards (the AMP cells' rollouts held against the module
+#: recomputed outside the rollout): one bf16 rounding of an output is
+#: 2^-8 relative, and cuBLAS may take another kernel (another summation
+#: order) for a strided slice than for a contiguous one, so the two are
+#: held a few bf16 roundings apart.
+AMP_RTOL, AMP_ATOL = 2.0**-6, 2.0**-6
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter (a wrapper's two families
+    summed)."""
+    from rl8_tpu_torch.ops import (
+        fused_act,
+        fused_chains_bwd,
+        fused_chains_fwd,
+        fused_gae,
+        fused_ppo_grads,
+        fused_rnn_act,
+        fused_rnn_ppo_grads,
+    )
+
+    both = lambda fn: fn.launches + fn.continuous_launches  # noqa: E731
+    return {"act": both(fused_act), "gae": fused_gae.launches, "update": both(fused_ppo_grads),
+            "rnn_act": both(fused_rnn_act), "rnn_update": both(fused_rnn_ppo_grads),
+            "chains_fwd": fused_chains_fwd.launches, "chains_bwd": fused_chains_bwd.launches}
+
+
+def time_cell(torch, algo, phase: str, per_iteration: dict, updates_per_step: int, **extra) -> dict:
+    """One warm-up and five timed collect() + step() iterations of a cell
+    (``time_iterations``: counters set to 0 just before, read just after):
+    every kernel must have launched exactly ``per_iteration`` times an
+    iteration (a kernel it leaves out: none), the stats and parameters
+    stay finite, the buffer is spent and the optimizer counted
+    ``updates_per_step`` updates a step (for the default Adam). Then one
+    profiled iteration for the device's idle share. Emits and returns
+    the record."""
+    h, model = algo.hparams, algo.policy.model
+    iters = 6
+    collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
+    launches = launch_counts()
+    want = {k: iters * per_iteration.get(k, 0) for k in launches}
+    check(launches == want, f"{phase}: launches {launches} != {want}")
+    for stats in steps:
+        check(all(math.isfinite(v) for v in stats.values()), f"{phase}: step stats finite: {stats}")
+    for name, param in model.named_parameters():
+        check(bool(torch.isfinite(param).all()), f"{phase}: parameter {name} finite")
+    check(not algo.state.buffered, f"{phase}: the buffer is spent")
+    if hasattr(algo.state.opt_state, "count"):
+        check(int(algo.state.opt_state.count) == iters * updates_per_step, f"{phase}: Adam counted every update")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med_collect = sorted(collect_ms)[len(collect_ms) // 2]
+    med_step = sorted(step_ms)[len(step_ms) // 2]
+    prof = profile_window(torch, f"{phase} iteration", lambda: (algo.collect(), algo.step()))
+    record = {
+        "phase": phase, "num_envs": h.num_envs, "horizon": h.horizon,
+        "fused_act": algo._fused_act, "fused_update": algo._fused_update, "fused_forward": algo._fused_forward,
+        "dtype": str(getattr(model, "dtype", None)), "parameters": sum(p.numel() for p in model.parameters()),
+        "collect_ms": collect_ms, "step_ms": step_ms, "collect_ms_median": med_collect, "step_ms_median": med_step,
+        "transitions_per_s_with_update": h.num_envs * h.horizon / ((med_collect + med_step) / 1e3),
+        "launches_per_iteration": {k: v // iters for k, v in launches.items() if v},
+        "device_idle_share": prof["device_idle_share"], "peak_memory_gb": peak_gb, "last_step": steps[-1],
+        **extra,
+    }
+    emit(record)
+    return record
+
+
+def check_feedforward_rollout(torch, algo, rtol: float, atol: float) -> float:
+    """Collect once more and hold a default model's rollout against its
+    module forward on each step's stored observations (log-probs of the
+    stored actions, values). Returns the largest difference."""
+    from rl8_tpu_torch.data import DataKeys
+
+    model = algo.policy.model
+    algo.collect()
+    buffer = algo.state.buffer
+    check(buffer[DataKeys.LOGP].dtype == buffer[DataKeys.VALUES].dtype == torch.float32, "buffer entries are f32")
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(algo.hparams.horizon):
+            features, values = model({DataKeys.OBS: buffer[DataKeys.OBS][t]})
+            logp = algo.policy.distribution_cls(features, model).logp(buffer[DataKeys.ACTIONS][t])
+            for what, got, want in (("values", buffer[DataKeys.VALUES][t], values),
+                                    ("logp", buffer[DataKeys.LOGP][t], logp)):
+                worst = max(worst, float((got - want).abs().max()))
+                check(torch.allclose(got, want, rtol=rtol, atol=atol), f"rollout {what} at t={t}")
+    return worst
+
+
+def run_amp_paths(torch, dev) -> None:
+    """``enable_amp=True`` on the discrete and the recurrent default cells
+    at full width (8192 envs, horizon 32; twin 256-wide torsos, one
+    256-wide LSTM layer): the default models compute in bf16, which takes
+    them off the act, update and recurrent kernels (as in ``rl8_tpu``),
+    so an iteration launches GAE once and nothing else of ours; the
+    rollout is held against the bf16 module."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    for name, config in (("discrete", AlgorithmConfig), ("recurrent", RecurrentAlgorithmConfig)):
+        algo = config(device="cuda", enable_amp=True).build(DiscreteDummyEnv)
+        h = algo.hparams
+        check(algo.policy.model.dtype is torch.bfloat16 and h.enable_amp, f"amp {name}: bf16 model")
+        check((algo._fused_act, algo._fused_update) == (False, False), f"amp {name}: module routes")
+        record = time_cell(torch, algo, "amp_paths", {"gae": 1}, h.num_sgd_iters * h.num_minibatches, cell=name)
+        rollout = check_recurrent_rollout if name == "recurrent" else check_feedforward_rollout
+        worst = rollout(torch, algo, AMP_RTOL, AMP_ATOL)
+        emit({"phase": "amp_rollout_vs_module", "cell": name, "max_abs_err": worst,
+              "transitions_per_s_with_update": record["transitions_per_s_with_update"]})
+
+
+def run_recurrent_module_route(torch, dev) -> None:
+    """The recurrent cell at full width with ``fused_act=False,
+    fused_update=False``: the module rollout and the autodiff update (f32),
+    GAE once an iteration and no other kernel of ours; the rollout held
+    against the module at the act tolerances."""
+    from rl8_tpu_torch import RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    algo = RecurrentAlgorithmConfig(device="cuda", fused_act=False, fused_update=False).build(DiscreteDummyEnv)
+    h = algo.hparams
+    time_cell(torch, algo, "recurrent_module_route", {"gae": 1}, h.num_sgd_iters * h.num_minibatches)
+    worst = check_recurrent_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
+    emit({"phase": "recurrent_module_route_rollout_vs_module", "max_abs_err": worst})
+
+
+def run_custom_amp(torch, dev) -> None:
+    """BASELINE config #5 as the JAX bench runs it (``bench.py:295-301``,
+    ``benchmarks/throughput.py:47-57``): ``MischievousMule`` with
+    ``dtype=bfloat16``, ``enable_amp=True``, ``accumulate_grads=True``,
+    4096 envs, horizon 32, minibatches of 32,768 rows, with
+    ``fused_forward`` True (chain forward 49 and backward 16 launches an
+    iteration, asserted: the bf16-assembled input upcast to f32 for the
+    f32 chain kernels) and False (the bf16 module on cuBLAS, no chain
+    launch). The fused cell's rollout is held against the bf16 module on
+    its training views, a few bf16 roundings apart."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.algorithms._feedforward import _t2b
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+
+    for fused in (True, False):
+        algo = AlgorithmConfig(model_cls=MischievousMule, model_config={"dtype": torch.bfloat16}, enable_amp=True,
+                               accumulate_grads=True, num_envs=4096, horizon=32, sgd_minibatch_size=32768,
+                               fused_forward=fused, device="cuda").build(AlgoTrading)
+        h, model = algo.hparams, algo.policy.model
+        check(model.dtype is torch.bfloat16 and h.accumulate_grads and h.enable_amp, "custom_amp: BASELINE #5")
+        check(algo._fused_forward == fused and model.hiddens == (128, 128) and h.num_minibatches == 4,
+              f"custom_amp: fused_forward {algo._fused_forward}, shape")
+        per_step = h.num_sgd_iters * h.num_minibatches
+        want = {"gae": 1, **({"chains_fwd": h.horizon + 1 + per_step, "chains_bwd": per_step} if fused else {})}
+        check(not fused or (want["chains_fwd"], want["chains_bwd"]) == (49, 16), f"custom_amp: chain launches {want}")
+        # accumulate_grads: one optimizer update per epoch.
+        time_cell(torch, algo, "custom_amp", want, h.num_sgd_iters, model="MischievousMule", accumulate_grads=True)
+        if fused:
+            algo.collect()
+            buffer = algo.state.buffer
+            with torch.no_grad():
+                features, values = model(algo._training_views(buffer[DataKeys.OBS]))
+                logp = algo.policy.distribution_cls(features, model).logp(_t2b(buffer[DataKeys.ACTIONS]))
+            worst = 0.0
+            for what, got, want_t in (("logp", _t2b(buffer[DataKeys.LOGP]), logp),
+                                      ("values", _t2b(buffer[DataKeys.VALUES][:-1]), values)):
+                worst = max(worst, float((got - want_t).abs().max()))
+                check(torch.allclose(got, want_t, rtol=AMP_RTOL, atol=AMP_ATOL), f"custom_amp rollout {what}")
+            emit({"phase": "custom_amp_rollout_vs_bf16_module", "max_abs_err": worst})
+
+
+def run_optimizers(torch, dev) -> None:
+    """The discrete cell at full width with the default Adam, with
+    ``optimizer_cls=torch.optim.AdamW`` over the flat vector, and with
+    AdamW per leaf (``flatten_optimizer=False``), timed in turns: the
+    kernels launch as with Adam (act 32, GAE 1, update 4 an iteration),
+    the optimizer's state stays on the card (``capturable=True``: its
+    step counts too), and the step's ms sit beside Adam's."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    records = {}
+    for name, kw in (("adam", {}), ("adamw", {"optimizer_cls": torch.optim.AdamW}),
+                     ("adamw_per_leaf", {"optimizer_cls": torch.optim.AdamW, "flatten_optimizer": False})):
+        algo = AlgorithmConfig(device="cuda", **kw).build(DiscreteDummyEnv)
+        h = algo.hparams
+        per_step = h.num_sgd_iters * h.num_minibatches
+        records[name] = time_cell(torch, algo, "optimizers", {"act": h.horizon, "gae": 1, "update": per_step},
+                                  per_step, optimizer=name)
+        if name != "adam":
+            opt = algo._torch_optimizer
+            check(opt.optimizer.defaults.get("capturable") is True, f"{name}: capturable on the card")
+            state = [v for d in algo.state.opt_state.per_param.values() for v in d.values()]
+            check(all(v.device.type == "cuda" for v in state), f"{name}: optimizer state on the card")
+            check({int(d["step"]) for d in algo.state.opt_state.per_param.values()} == {7 * per_step},
+                  f"{name}: step count")
+            check(len(opt.params) == (1 if name == "adamw" else len(list(algo.policy.model.parameters()))),
+                  f"{name}: optimizer leaves")
+    emit({"phase": "optimizers_summary",
+          "step_ms_median": {k: r["step_ms_median"] for k, r in records.items()},
+          "step_ms_over_adam": {k: r["step_ms_median"] - records["adam"]["step_ms_median"] for k, r in records.items()},
+          "transitions_per_s_with_update": {k: r["transitions_per_s_with_update"] for k, r in records.items()}})
+
+
 def check_small_custom_against_cpu(torch, dev) -> None:
     """MischievousMule (16-wide torsos, fused_forward) on AlgoTrading, 64
     envs, horizon 8, on the card and on the CPU (the kernels' plain
@@ -2079,11 +2322,14 @@ def check_small_custom_against_cpu(torch, dev) -> None:
           "param_change_norm_rel_err": delta_err})
 
 
-def profile_window(torch, window: str, fn) -> None:
+def profile_window(torch, window: str, fn) -> dict:
     """Device time by kernel over one call of ``fn``, from
-    ``torch.profiler``; the busy share is the summed device time over the
+    ``torch.profiler``; the busy share is the summed device time of the
+    device's own events (kernels and copies, not the host operators that
+    launched them, whose device time repeats their kernels') over the
     host wall time of the profiled window (the profiler's own host
-    overhead lengthens that window)."""
+    overhead lengthens that window). Emits and returns the record."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2093,29 +2339,34 @@ def profile_window(torch, window: str, fn) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
+        (e.key, e.device_time_total / 1e3, e.count)
         for e in prof.key_averages()
-        if getattr(e, "self_device_time_total", 0) > 0
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0
     ]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({
+    record = {
         "phase": "profile", "window": window, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
         "top": [{"name": name[:80], "ms": ms, "count": count} for name, ms, count in rows[:10]],
-    })
+    }
+    emit(record)
+    return record
 
 
-def check_learning(torch, dev) -> None:
+def check_learning(torch, dev, amp: bool = False) -> None:
     """The verify recipe's learning drive on the card: 256 envs, horizon
     16, seed 1, 30 collect+step iterations with bounds 10; the greedy
-    policy must move every position toward the origin."""
+    policy must move every position toward the origin. With ``amp`` the
+    same drive with ``enable_amp=True`` (the bf16 model on the module
+    routes)."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.env import DiscreteDummyEnv
 
     t = time.perf_counter()
-    algo = AlgorithmConfig(num_envs=256, horizon=16, seed=1, device="cuda").build(DiscreteDummyEnv)
+    algo = AlgorithmConfig(num_envs=256, horizon=16, seed=1, enable_amp=amp, device="cuda").build(DiscreteDummyEnv)
+    check(amp == (algo.policy.model.dtype is torch.bfloat16), "learning: the model's dtype")
     for _ in range(30):
         collect_stats = algo.collect(env_config={"bounds": 10.0})
         algo.step()
@@ -2123,7 +2374,7 @@ def check_learning(torch, dev) -> None:
     out = algo.policy.sample({DataKeys.OBS: obs}, kind="last", deterministic=True)
     actions = out[DataKeys.ACTIONS].ravel().tolist()
     check(actions == [0, 1, 0, 1], f"the policy did not learn: greedy actions {actions}")
-    emit({"phase": "learning", "iterations": 30, "greedy_actions": actions,
+    emit({"phase": "learning_amp" if amp else "learning", "iterations": 30, "greedy_actions": actions,
           "final_returns_mean": collect_stats["returns/mean"], "seconds": time.perf_counter() - t})
 
 
@@ -2175,7 +2426,8 @@ def check_learning_recurrent(torch, dev) -> None:
           "seconds": time.perf_counter() - t})
 
 
-def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: bool = False) -> None:
+def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: bool = False, label: str = "",
+                            **extra) -> None:
     """The same small configuration on the card and on the CPU (the
     kernels' plain versions), from one seed and the same start positions:
     two stochastic collects (the second carrying over), the advantage
@@ -2184,7 +2436,10 @@ def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: boo
     continuous run (Normal) draws the same noise on both, but its f32
     actions move the positions, so both are held to the act tolerances.
     The recurrent runs (one 32-wide LSTM layer, seq_len 4, states reset
-    every 2 sequences) also compare the stored states."""
+    every 2 sequences) also compare the stored states. ``extra`` goes to
+    the config (a ``torch.optim`` optimizer, whose state after the step is
+    compared too, by the parameters' norm-relative error), ``label`` to
+    the phase's name."""
     from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.distributions import Normal
@@ -2202,10 +2457,10 @@ def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: boo
             return pack_rnn_params(model).flat.cpu()
         return flatten_chains(default_chains(model)).cpu()
 
-    runs, steps = {}, {}
+    runs, steps, opt_states = {}, {}, {}
     for device in ("cuda", "cpu"):
         common = dict(num_envs=64, horizon=8, horizons_per_env_reset=2, seed=7, device=device,
-                      distribution_cls=Normal if continuous else None)
+                      distribution_cls=Normal if continuous else None, **extra)
         if recurrent:
             config = RecurrentAlgorithmConfig(model_config={"hidden_size": 32}, seq_len=4, seqs_per_state_reset=2,
                                               **common)
@@ -2220,6 +2475,9 @@ def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: boo
         runs[device] = (stats, buffer, adv.cpu(), ret.cpu(), algo.state.reward_scale.cpu())
         start = flat_params(algo.policy.model)
         steps[device] = (algo.step(), flat_params(algo.policy.model) - start)
+        opt_states[device] = {
+            f"{i}.{k}": v.cpu() for i, d in getattr(algo.state.opt_state, "per_param", {}).items() for k, v in d.items()
+        }
     (s_g, b_g, a_g, r_g, sc_g), (s_c, b_c, a_c, r_c, sc_c) = runs["cuda"], runs["cpu"]
     if recurrent:
         for key in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
@@ -2247,8 +2505,15 @@ def check_small_against_cpu(torch, dev, continuous: bool = False, recurrent: boo
         check(math.isclose(st_g[k], st_c[k], rel_tol=1e-4, abs_tol=1e-6), f"small run step {k}: {st_g[k]} vs {st_c[k]}")
     delta_err = float((d_g - d_c).norm() / d_c.norm())
     check(delta_err <= 1e-3, f"small run parameter change differs by {delta_err:.3g} of its norm")
-    phase = "small_" + ("recurrent_" if recurrent else "") + ("continuous_" if continuous else "") + "vs_cpu"
-    emit({"phase": phase, "num_envs": 64,
+    check(opt_states["cuda"].keys() == opt_states["cpu"].keys(), "small run optimizer state keys")
+    opt_err = 0.0
+    for key, want in opt_states["cpu"].items():
+        got = opt_states["cuda"][key]
+        opt_err = max(opt_err, float((got - want).norm() / max(float(want.norm()), 1e-12)))
+    check(opt_err <= 1e-3, f"small run optimizer state differs by {opt_err:.3g} of its norm")
+    phase = ("small_" + ("recurrent_" if recurrent else "") + ("continuous_" if continuous else "")
+             + (f"{label}_" if label else "") + "vs_cpu")
+    emit({"phase": phase, "num_envs": 64, "optimizer_state_norm_rel_err": opt_err if opt_states["cpu"] else None,
           "horizon": 8, "collects": 2, "steps": 1,
           "logp_max_abs_err": float((b_g[DataKeys.LOGP] - b_c[DataKeys.LOGP]).abs().max()),
           "advantages_max_abs_err": float((a_g - a_c).abs().max()),
@@ -2651,7 +2916,8 @@ def dir_bytes(path: Path) -> int:
 def run_checkpoint_resume(torch, dev, tmp: Path) -> None:
     """A checkpointed run resumes bit for bit on the card, at full width:
     the discrete cell (8192 envs, horizon 32, twin 256-wide torsos) and
-    the recurrent cell (one 256-wide LSTM). Train 2 steps, save
+    the recurrent cell (one 256-wide LSTM), and the discrete cell with
+    ``torch.optim.AdamW`` (its state on the card). Train 2 steps, save
     (blocking), train 2 more; build a fresh algorithm, restore, train 2
     steps: every parameter, Adam, buffer and env tensor, host counter,
     generator state and coefficient must equal the first run's, and the
@@ -2669,6 +2935,8 @@ def run_checkpoint_resume(torch, dev, tmp: Path) -> None:
         "discrete": (lambda: AlgorithmConfig(device="cuda").build(DiscreteDummyEnv), fused_act, fused_ppo_grads),
         "recurrent": (lambda: RecurrentAlgorithmConfig(device="cuda").build(DiscreteDummyEnv), fused_rnn_act,
                       fused_rnn_ppo_grads),
+        "discrete_adamw": (lambda: AlgorithmConfig(device="cuda", optimizer_cls=torch.optim.AdamW)
+                           .build(DiscreteDummyEnv), fused_act, fused_ppo_grads),
     }
     for name, (make, act_fn, ppo_fn) in cells.items():
         ckpt = tmp / f"ckpt-{name}"

@@ -4,9 +4,11 @@ Beside the type parameters, the base holds what the feedforward and the
 recurrent algorithm share: the set-up of the device, the optimizer, the
 schedulers and the random streams; the public ``collect``, ``step`` and
 ``train_steps`` around each algorithm's ``_collect_impl`` and
-``_step_impl`` (one host fetch each); the advantage stage; and the SGD
-epochs of an update, whose KL early stop, gradient accumulation and stat
-sums stay on the device.
+``_step_impl`` (one host fetch each); the advantage stage; the flat
+parameter vector the optimizer updates (the kernels' layout where the
+update kernel runs, ``model.parameters()``'s on the autodiff route); the
+autodiff route's gradients; and the SGD epochs of an update, whose KL
+early stop, gradient accumulation and stat sums stay on the device.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 
 from ..data import AlgorithmHparams, CollectStats, DataKeys, StepStats
 from ..env import Env
+from ..nn import ppo_losses
 from ..ops import PPOLossConfig, block_shuffle, fused_gae
 from ..parallel import gmean, gstd
 from ..schedulers import EntropyScheduler, LRScheduler
 from ..utils import memory_stats, profile_ms
-from ..utils.optim import Adam, AdamState, adam_step
+from ..utils.optim import Adam, AdamState, OptimizerState, TorchOptimizer, adam_step
 
 __all__ = ["GenericAlgorithmBase"]
 
@@ -61,11 +64,14 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
 
     @property
     def params(self) -> dict[str, Any]:
-        """Flat dict of algorithm parameters for experiment tracking."""
+        """Flat dict of algorithm parameters for experiment tracking: the
+        env, model, distribution and optimizer classes (``adam_step`` for
+        the default Adam), and the hyperparameters."""
         out: dict[str, Any] = {
             "env_cls": self.env.__class__.__name__,
             "model_cls": self.policy.model.__class__.__name__,  # type: ignore[attr-defined]
             "distribution_cls": self.policy.distribution_cls.__name__,  # type: ignore[attr-defined]
+            "optimizer_cls": getattr(self._optimizer_cls, "__name__", None) or "adam_step",
         }
         out.update(dataclasses.asdict(self.hparams))
         return {k: (v if v is not None else "None") for k, v in out.items()}
@@ -80,16 +86,14 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
 
     def _init_common(self, config: Any, unported: tuple[tuple[bool, str], ...] = ()) -> int:
         """Refuse what the port does not run yet, then set up the device,
-        Adam, the schedulers and the random streams from ``config``.
-        Returns the seed of the parameters' generator.
+        the optimizer's hyperparameters, the schedulers and the random
+        streams from ``config``. Returns the seed of the parameters'
+        generator.
 
         One host generator seeds the others and then draws the act
         kernels' per-step Philox keys; env resets and minibatch shuffles
         draw on the device."""
         for flag, what in (
-            (config.optimizer_cls is not None, "optimizers other than Adam"),
-            (not config.flatten_optimizer, "flatten_optimizer=False"),
-            (config.enable_amp, "enable_amp"),
             (config.exact_sharding, "exact_sharding, rl8_tpu's GSPMD mode of a mesh (ROADMAP Queue 1 #8)"),
             *unported,
         ):
@@ -109,8 +113,10 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
                     " pass device='cpu' to run the kernels' plain versions."
                 )
             # Full-f32 products in the model forward (the bootstrap value),
-            # so they agree with the act kernels' f32 FMAs.
+            # so they agree with the act kernels' f32 FMAs; bf16 products
+            # (AMP) sum their split-K partials in f32, as XLA does.
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         optimizer_config = dict(config.optimizer_config or {"lr": 1e-3})
         if "lr" in optimizer_config and "learning_rate" in optimizer_config:
             raise ValueError(
@@ -120,13 +126,23 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         lr0 = optimizer_config.pop("lr", None)
         if lr0 is None:
             lr0 = optimizer_config.pop("learning_rate", 1e-3)
-        unknown = set(optimizer_config) - {f.name for f in dataclasses.fields(Adam)}
-        if unknown:
-            raise NotImplementedError(
-                f"This port's Adam takes b1, b2, eps and eps_root; {sorted(unknown)}"
-                " come with other optimizers in a later slice (ROADMAP Queue 1)."
-            )
-        self.adam = Adam(**optimizer_config)
+        #: ``None`` for the hand-written Adam (:func:`adam_step`), else the
+        #: ``torch.optim`` class and its keywords other than ``lr``.
+        self._optimizer_cls = config.optimizer_cls
+        self._optimizer_kwargs = optimizer_config
+        self._flatten_optimizer = config.flatten_optimizer
+        if self._optimizer_cls is None:
+            unknown = set(optimizer_config) - {f.name for f in dataclasses.fields(Adam)}
+            if unknown:
+                raise NotImplementedError(
+                    f"The default Adam takes b1, b2, eps and eps_root; for {sorted(unknown)} pass a"
+                    " torch.optim class as `optimizer_cls` (e.g. torch.optim.SGD)."
+                )
+            self.adam = Adam(**optimizer_config)
+        elif not callable(self._optimizer_cls):
+            raise TypeError(f"optimizer_cls must be a torch.optim.Optimizer class, not {self._optimizer_cls!r}.")
+        #: The ``torch.optim`` optimizer (set by :meth:`_init_opt_state`).
+        self._torch_optimizer: None | TorchOptimizer = None
         self.lr_scheduler = LRScheduler(lr0, schedule=config.lr_schedule, kind=config.lr_schedule_kind)
         self.entropy_scheduler = EntropyScheduler(
             config.entropy_coeff,
@@ -151,7 +167,7 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
             accumulate_grads=config.accumulate_grads,
             clip_param=config.clip_param,
             dual_clip_param=config.dual_clip_param,
-            enable_amp=False,
+            enable_amp=config.enable_amp,
             gae_lambda=config.gae_lambda,
             gamma=config.gamma,
             horizon=horizon,
@@ -312,25 +328,125 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
             squashed=self._squashed_dist,  # type: ignore[attr-defined]
         )
 
+    # ------------------------------------------------------------------
+    # the parameters the optimizer updates
+    # ------------------------------------------------------------------
+
+    @abstractmethod
+    def _pack_params(self) -> Any:
+        """The model's current parameters packed for the kernels (a copy;
+        ``.flat`` is the flat vector)."""
+
+    @abstractmethod
+    def _load_packed(self, flat: torch.Tensor) -> None:
+        """Write a flat vector in the kernels' layout into the model."""
+
+    @abstractmethod
+    def _packed_shapes(self) -> list[tuple[int, ...]]:
+        """The leaves of the kernels' flat layout, in its order."""
+
+    def _flat_params(self) -> torch.Tensor:
+        """The parameters as the flat vector the optimizer updates (its
+        state keeps this order): the kernels' layout where the update
+        kernel runs, ``model.parameters()``'s on the autodiff route."""
+        if self._fused_update:  # type: ignore[attr-defined]
+            return self._pack_params().flat
+        return torch.cat([p.detach().reshape(-1) for p in self._params])  # type: ignore[attr-defined]
+
+    def _load_flat(self, flat: torch.Tensor) -> None:
+        """Write a flat vector of :meth:`_flat_params`'s layout into the
+        model."""
+        if self._fused_update:  # type: ignore[attr-defined]
+            self._load_packed(flat)
+            return
+        off = 0
+        with torch.no_grad():
+            for p in self._params:  # type: ignore[attr-defined]
+                p.copy_(flat[off : off + p.numel()].view_as(p))
+                off += p.numel()
+
+    def _init_opt_state(self) -> AdamState | OptimizerState:
+        """The optimizer's initial state over :meth:`_flat_params`: Adam's
+        zeros, or a new ``torch.optim`` optimizer's (empty) state, over one
+        flat tensor or, with ``flatten_optimizer=False``, one view per
+        leaf. The default Adam is elementwise, so its flat state is the
+        per-leaf state laid end to end either way."""
+        flat = self._flat_params()
+        if self._optimizer_cls is None:
+            return AdamState.zeros_like(flat)
+        if self._flatten_optimizer:
+            shapes = None
+        elif self._fused_update:  # type: ignore[attr-defined]
+            shapes = self._packed_shapes()
+        else:
+            shapes = [tuple(p.shape) for p in self._params]  # type: ignore[attr-defined]
+        self._torch_optimizer = TorchOptimizer(
+            self._optimizer_cls, flat, lr=self.lr_scheduler.coeff, shapes=shapes, **self._optimizer_kwargs
+        )
+        return self._torch_optimizer.export()
+
+    def _autodiff_grads_fn(
+        self, forward: Callable[[Any], tuple[Any, torch.Tensor, dict[str, torch.Tensor]]], unpack: Any,
+        entropy_coeff: float, accum: int,
+    ) -> GradsFn:
+        """The autodiff route's ``grads_fn`` for :meth:`_sgd_epochs`:
+        ``forward(batch)`` gives a packed minibatch's ``(features, values,
+        targets)`` (``targets`` holding the actions, log-probs, advantages
+        and returns row for row); then the PPO losses through the policy's
+        distribution, their approximate KL, and the gradient of ``total /
+        accum`` over the flat parameters, by autograd (``rl8_tpu``'s
+        ``_loss_fn``)."""
+        h = self.hparams
+        model = self.policy.model  # type: ignore[attr-defined]
+        dist_cls = self.policy.distribution_cls  # type: ignore[attr-defined]
+        params = self._params  # type: ignore[attr-defined]
+        # A literal 0 skips the entropy term (SquashedNormal has none).
+        ec: Any = 0.0 if self._static_zero_entropy else torch.tensor(entropy_coeff, device=self.device)
+
+        def grads_fn(flat: torch.Tensor, mb: torch.Tensor) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+            self._load_flat(flat)
+            # ``step`` runs without autograd; the loss needs it.
+            with torch.enable_grad():
+                features, values, targets = forward(unpack(mb))
+                dist = dist_cls(features, model)
+                losses = ppo_losses(
+                    targets, values, dist, clip_param=h.clip_param, dual_clip_param=h.dual_clip_param,
+                    entropy_coeff=ec, vf_clip_param=h.vf_clip_param, vf_coeff=h.vf_coeff,
+                )
+                grads = torch.autograd.grad(losses["total"] / accum, params, allow_unused=True)
+            ratio = dist.logp(targets[DataKeys.ACTIONS]).detach().reshape(-1) - targets[DataKeys.LOGP].reshape(-1)
+            kl = torch.mean((torch.exp(ratio) - 1) - ratio)
+            flat_grads = torch.cat(
+                [(g if g is not None else torch.zeros_like(p)).reshape(-1) for g, p in zip(grads, params)]
+            )
+            return {k: v.detach() for k, v in losses.items()}, kl, flat_grads
+
+        return grads_fn
+
     def _sgd_epochs(
         self, packed: torch.Tensor, grads_fn: GradsFn, flat: torch.Tensor, lr: float
-    ) -> tuple[torch.Tensor, AdamState, torch.Tensor]:
+    ) -> tuple[torch.Tensor, AdamState | OptimizerState, torch.Tensor]:
         """``num_sgd_iters`` epochs over the packed rows ``[N, D]``, each cut
         into ``num_minibatches`` minibatches (block-shuffled per epoch
         unless there is one, or the epoch accumulates into one update),
         each one call of ``grads_fn(flat, minibatch)`` and, per
-        accumulation window, one clipped Adam update of ``flat``.
+        accumulation window, one clipped optimizer update of ``flat``
+        (:func:`adam_step`, or the ``torch.optim`` optimizer's ``step``).
 
         The KL early stop, the accumulation and the stat sums stay on the
         device (the update is gated with ``torch.where``, as ``lax.cond``
-        gates it in ``rl8_tpu``). Returns the new parameters, Adam's state
-        and the window-averaged stats (entropy, policy, vf, total, kl)."""
+        gates it in ``rl8_tpu``). Returns the new parameters, the
+        optimizer's state and the window-averaged stats (entropy, policy,
+        vf, total, kl)."""
         h = self.hparams
         M = h.num_minibatches
         mb_rows = packed.shape[0] // M
         accum = M if h.accumulate_grads else 1
         dev = flat.device
         opt_state = self.state.opt_state  # type: ignore[attr-defined]
+        opt = self._torch_optimizer
+        if opt is not None:
+            flat = opt.bind(flat, opt_state)
         # Device-side carry: the gradient and stat sums of the current
         # accumulation window (entropy, policy, vf, total, kl), their
         # totals over windows, the window count, and the KL stop flag.
@@ -355,15 +471,23 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
                 ) / accum
                 grad_acc = grad_acc + grads
                 if (i + 1) % accum == 0:
-                    flat, opt_state = adam_step(
-                        flat, grad_acc, opt_state, lr=lr, max_grad_norm=h.max_grad_norm,
-                        adam=self.adam, apply=active & ~trigger,
-                    )
+                    if opt is None:
+                        flat, opt_state = adam_step(
+                            flat, grad_acc, opt_state, lr=lr, max_grad_norm=h.max_grad_norm,
+                            adam=self.adam, apply=active & ~trigger,
+                        )
+                    else:
+                        opt.step(
+                            grad_acc, lr=lr, max_grad_norm=h.max_grad_norm,
+                            apply=active & ~trigger if h.target_kl_div is not None else None,
+                        )
                     totals = torch.where(active, totals + window, totals)
                     n_windows = torch.where(active, n_windows + 1.0, n_windows)
                     grad_acc = torch.zeros_like(grad_acc)
                     window = torch.zeros_like(window)
                 stopped = stopped | trigger
+        if opt is not None:
+            opt_state = opt.export()
         return flat, opt_state, totals / torch.clamp_min(n_windows, 1.0)
 
     @abstractmethod

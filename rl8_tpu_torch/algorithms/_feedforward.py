@@ -23,8 +23,15 @@ them, and its distribution):
   (``ops/gae.py``) and packs the B-major training batch into one int32
   matrix (``ops/packing.py``); then, per epoch and minibatch, either one
   launch of the PPO update kernel (``ops/fused_ppo.py``) or the PPO loss's
-  gradient by autograd through the model, then the clipped Adam update
-  (``utils/optim.py``) over one flat parameter vector.
+  gradient by autograd through the model, then the clipped optimizer
+  update (``utils/optim.py``: the hand-written Adam, or a ``torch.optim``
+  class) over the flat parameter vector.
+
+``enable_amp`` gives the default models ``dtype=torch.bfloat16`` (flax's
+per-module compute dtype: f32 parameters, bf16 products, f32 outputs),
+which takes them off the act and update kernels, as in ``rl8_tpu``; a
+custom model's dtype is its own, and a bf16 one declaring a
+``FusedApplySpec`` still runs its chains through the f32 chain kernels.
 
 In both, the KL early stop, the gradient accumulation and the stat sums
 stay on the device (the update is gated with ``torch.where``, as
@@ -44,7 +51,6 @@ from ..data import AlgorithmHparams, AlgorithmState, DataKeys
 from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..models import DefaultContinuousModel, DefaultDiscreteModel, Model, ModelFactory
-from ..nn import ppo_losses
 from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
 from ..ops.fused_ppo import supports_distribution
 from ..ops.fused_mlp import (
@@ -61,7 +67,6 @@ from ..policies import Policy
 from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
 from ..utils import get_nested, set_nested
-from ..utils.optim import AdamState
 from ..views import tree_map
 from ._base import GenericAlgorithmBase
 
@@ -108,10 +113,9 @@ class AlgorithmConfig:
     runs, plus ``device``. Without ``model`` or ``model_cls`` the model is
     the default model for the env's specs, with ``Categorical`` for
     discrete actions and ``Normal`` or ``SquashedNormal`` for continuous
-    ones; the optimizer is Adam after a global-norm clip, over one flat
-    parameter vector. ``optimizer_cls``, ``flatten_optimizer``,
-    ``enable_amp``, ``mesh`` and ``exact_sharding`` exist so that a JAX
-    config carries over; any value but the default raises
+    ones; the optimizer is Adam, or ``optimizer_cls``, after a global-norm
+    clip. ``mesh`` and ``exact_sharding`` exist so that a JAX config
+    carries over; any value but the default raises
     ``NotImplementedError``.
     """
 
@@ -135,15 +139,21 @@ class AlgorithmConfig:
     horizons_per_env_reset: int = 1
     #: Number of parallelized environment instances.
     num_envs: int = 8192
-    #: ``None`` is Adam (``optax.adam`` in the JAX package); other
-    #: optimizers come in a later slice.
+    #: ``None`` is the hand-written Adam (``optax.adam``, the JAX
+    #: default); else a ``torch.optim.Optimizer`` class (``rl8_tpu``'s
+    #: optax factory), built with ``lr=`` and ``optimizer_config``'s other
+    #: keywords under torch's names and defaults, and ``capturable=True``
+    #: on the card where the class takes it.
     optimizer_cls: Any = None
-    #: Adam's kwargs: ``lr`` (or ``learning_rate``), ``b1``, ``b2``,
-    #: ``eps``, ``eps_root``; ``{"lr": 1e-3}`` by default.
+    #: The optimizer's kwargs: ``lr`` (or ``learning_rate``), then, for
+    #: the default Adam, ``b1``, ``b2``, ``eps``, ``eps_root``;
+    #: ``{"lr": 1e-3}`` by default.
     optimizer_config: None | dict[str, Any] = None
     #: Accumulate gradients across minibatches before stepping.
     accumulate_grads: bool = False
-    #: bf16 mixed precision: not in this port yet.
+    #: bf16 mixed precision: the default model computes in bf16
+    #: (``model_config["dtype"]``, unless given), which takes it off the
+    #: act and update kernels; custom models are left as they are.
     enable_amp: bool = False
     #: Optional LR schedule over environment transition counts.
     lr_schedule: None | list[tuple[int, float]] = None
@@ -180,8 +190,9 @@ class AlgorithmConfig:
     normalize_advantages: bool = True
     #: Normalize rewards by the std of reversed discounted returns.
     normalize_rewards: bool = True
-    #: Run the optimizer over one flat parameter vector (the only mode
-    #: of this port).
+    #: Run a ``torch.optim`` optimizer over one flat parameter vector;
+    #: ``False`` gives it one tensor per model leaf (per-leaf state). The
+    #: default Adam is elementwise, so the flag does not change it.
     flatten_optimizer: bool = True
     #: Evaluate the model's forward through the chain kernels
     #: (``ops/fused_mlp.py``, recompute-based backward) wherever the
@@ -198,7 +209,8 @@ class AlgorithmConfig:
     #: smooth-L1 value loss, hand-derived backward). Matches the autodiff
     #: route to f32 rounding. Off for custom models and for default models
     #: the kernels do not take (another activation than relu or tanh,
-    #: ``bias=False``, more than 8 layers), which take the autodiff route.
+    #: ``bias=False``, more than 8 layers, a compute dtype), which take the
+    #: autodiff route.
     fused_update: bool = True
     #: Sample rollout actions, log-probs and values with one launch of the
     #: act kernel per step (``ops/fused_act.py``). Its Philox draws differ
@@ -256,12 +268,15 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         assert_nd_spec(self.env.observation_spec)
         assert_nd_spec(self.env.action_spec)
 
+        model_config = dict(config.model_config or {})
+        if config.model is None and config.model_cls is None and config.enable_amp:
+            model_config.setdefault("dtype", torch.bfloat16)
         self.policy = Policy(
             self.env.observation_spec,
             self.env.action_spec,
             model=config.model,
             model_cls=config.model_cls,
-            model_config=dict(config.model_config or {}),
+            model_config=model_config,
             distribution_cls=config.distribution_cls,
         )
         model = self.policy.model
@@ -321,8 +336,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             env_state=None,
             buffer=self._zero_buffer(),
             reward_scale=torch.tensor(1.0, device=self.device),
-            opt_state=AdamState.zeros_like(self._flat_params()),
         )
+        self.state.opt_state = self._init_opt_state()
 
     # ------------------------------------------------------------------
     # Model application and parameters
@@ -344,25 +359,16 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         with the policy's distribution kind."""
         return pack_act_params(self.policy.model, squashed=self._squashed_dist)
 
-    def _flat_params(self) -> torch.Tensor:
-        """The parameters as the flat vector the optimizer updates (Adam's
-        state keeps its order): the kernels' order where the update kernel
-        runs, ``model.parameters()``'s on the autodiff route."""
-        if self._fused_update:
-            return self._pack_params().flat
-        return torch.cat([p.detach().reshape(-1) for p in self._params])
+    def _load_packed(self, flat: torch.Tensor) -> None:
+        load_flat_params(self.policy.model, flat)
 
-    def _load_flat(self, flat: torch.Tensor) -> None:
-        """Write a flat vector of :meth:`_flat_params`'s layout into the
-        model."""
-        if self._fused_update:
-            load_flat_params(self.policy.model, flat)
-            return
-        off = 0
-        with torch.no_grad():
-            for p in self._params:
-                p.copy_(flat[off : off + p.numel()].view_as(p))
-                off += p.numel()
+    def _packed_shapes(self) -> list[tuple[int, ...]]:
+        return [
+            tuple(t.shape)
+            for layers, heads in self._pack_params().chains()
+            for tensors in (*layers, *heads)
+            for t in tensors
+        ]
 
     # ------------------------------------------------------------------
     # Buffer and view helpers
@@ -580,38 +586,6 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
     # step
     # ------------------------------------------------------------------
 
-    def _autodiff_grads_fn(self, unpack: Any, entropy_coeff: float, accum: int) -> Callable:
-        """The autodiff route's ``grads_fn`` for ``_sgd_epochs``: the PPO
-        losses of a packed minibatch through :meth:`_apply_model` and the
-        policy's distribution, their approximate KL, and the gradient of
-        ``total / accum`` over the flat parameters, by autograd
-        (``rl8_tpu``'s ``_loss_fn``)."""
-        h = self.hparams
-        model = self.policy.model
-        # A literal 0 skips the entropy term (SquashedNormal has none).
-        ec: Any = 0.0 if self._static_zero_entropy else torch.tensor(entropy_coeff, device=self.device)
-
-        def grads_fn(flat: torch.Tensor, mb: torch.Tensor) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
-            self._load_flat(flat)
-            batch = unpack(mb)
-            # ``step`` runs without autograd; the loss needs it.
-            with torch.enable_grad():
-                features, values = self._apply_model(batch[DataKeys.VIEWS])
-                dist = self.policy.distribution_cls(features, model)
-                losses = ppo_losses(
-                    batch, values, dist, clip_param=h.clip_param, dual_clip_param=h.dual_clip_param,
-                    entropy_coeff=ec, vf_clip_param=h.vf_clip_param, vf_coeff=h.vf_coeff,
-                )
-                grads = torch.autograd.grad(losses["total"] / accum, self._params, allow_unused=True)
-            ratio = dist.logp(batch[DataKeys.ACTIONS]).detach().reshape(-1) - batch[DataKeys.LOGP].reshape(-1)
-            kl = torch.mean((torch.exp(ratio) - 1) - ratio)
-            flat_grads = torch.cat(
-                [(g if g is not None else torch.zeros_like(p)).reshape(-1) for g, p in zip(grads, self._params)]
-            )
-            return {k: v.detach() for k, v in losses.items()}, kl, flat_grads
-
-        return grads_fn
-
     @torch.no_grad()
     def _step_impl(self, lr: float, entropy_coeff: float) -> torch.Tensor:
         """One PPO update from the buffer (``rl8_tpu``'s ``_step_impl``).
@@ -641,7 +615,13 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 return fused_ppo_grads(dataclasses.replace(params, flat=flat), mb, unpack, ec, cfg)
 
         else:
-            grads_fn = self._autodiff_grads_fn(unpack, entropy_coeff, h.num_minibatches if h.accumulate_grads else 1)
+
+            def forward(batch: Any) -> tuple[Any, torch.Tensor, dict[str, torch.Tensor]]:
+                return (*self._apply_model(batch[DataKeys.VIEWS]), batch)
+
+            grads_fn = self._autodiff_grads_fn(
+                forward, unpack, entropy_coeff, h.num_minibatches if h.accumulate_grads else 1
+            )
         flat, opt_state, stats = self._sgd_epochs(packed, grads_fn, self._flat_params(), lr)
         self._load_flat(flat)
         # Reset the buffer, keeping the final observation.

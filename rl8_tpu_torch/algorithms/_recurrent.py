@@ -3,21 +3,31 @@ advantage stage and the truncated-BPTT update.
 
 PyTorch counterpart of ``rl8_tpu/algorithms/_recurrent.py``. As in the
 port's feedforward algorithm, ``collect`` and ``step`` are Python loops
-that launch the port's kernels, with one host fetch each:
+that launch the port's kernels, with one host fetch each, and each has
+two routes, chosen at build by ``rl8_tpu``'s gates (``fused_act`` and
+``fused_update``, each on where the kernels take the model: a default
+recurrent model with 1 to 8 biased LSTM layers, no compute dtype, and its
+distribution):
 
 - ``collect`` loops over the horizon, each step one launch of the
   recurrent act kernel (``ops/fused_rnn_act.py``: the LSTM cells, the
-  heads and the sampling, returning the new states), the env step and the
-  reversed-return update. The states carry across collects and are
-  re-initialized at the start of a sequence every ``seqs_per_state_reset``
-  sequences, counted by a host-side ``seqs``; the buffer keeps each
-  step's input states and, last, the final ones;
+  heads and the sampling, returning the new states) or, on the module
+  route, the model's forward from the states and a draw from its
+  distribution; then the env step and the reversed-return update. The
+  states carry across collects and are re-initialized at the start of a
+  sequence every ``seqs_per_state_reset`` sequences, counted by a
+  host-side ``seqs``; the buffer keeps each step's input states and,
+  last, the final ones;
 - ``step`` runs the advantage stage through the GAE kernel, cuts the
   buffer into ``[B * T/L, L]`` sequences whose stored initial states seed
   the forward, packs them into one int32 matrix, and per epoch and
   minibatch launches the recurrent update kernel
-  (``ops/fused_rnn_ppo.py``), then the clipped Adam update; the KL early
+  (``ops/fused_rnn_ppo.py``) or takes the PPO loss's gradient by autograd
+  through the model, then the clipped optimizer update; the KL early
   stop, the accumulation and the stat sums stay on the device.
+
+``enable_amp`` gives the default model ``dtype=torch.bfloat16``, which
+takes it to the module routes, as in ``rl8_tpu``.
 """
 
 from __future__ import annotations
@@ -33,11 +43,11 @@ from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..ops import fused_rnn_act, fused_rnn_ppo_grads, load_rnn_params, pack_rnn_params, pack_rows
 from ..ops import card_takes_rnn_update, supports_fused_rnn_update
+from ..ops.fused_rnn_ppo import supports_rnn_distribution
 from ..parallel import gmax, gmean, gmin, gstd
 from ..policies import RecurrentPolicy
 from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
-from ..utils.optim import AdamState
 from ._base import GenericAlgorithmBase
 
 __all__ = ["RecurrentAlgorithmConfig", "RecurrentAlgorithm"]
@@ -61,11 +71,10 @@ class RecurrentAlgorithmConfig:
     ones. The model is the default recurrent model for the env's specs
     (a stacked LSTM), with ``Categorical`` for discrete actions and
     ``Normal`` or ``SquashedNormal`` for continuous ones. ``model``,
-    ``model_cls``, ``fused_update``, ``fused_act``, ``optimizer_cls``,
-    ``flatten_optimizer``, ``enable_amp``, ``mesh`` and ``exact_sharding``
-    exist so that a JAX config carries over; any value but the default
-    raises ``NotImplementedError``. ``fused_forward`` is accepted and, as
-    in ``rl8_tpu``, stays off for the default model (it declares no
+    ``model_cls``, ``mesh`` and ``exact_sharding`` exist so that a JAX
+    config carries over; any value but the default raises
+    ``NotImplementedError``. ``fused_forward`` is accepted and, as in
+    ``rl8_tpu``, stays off for the default model (it declares no
     ``FusedRecurrentApplySpec``).
     """
 
@@ -89,13 +98,16 @@ class RecurrentAlgorithmConfig:
     seq_len: int = 4
     #: Sequences before recurrent states re-initialize (negative = never).
     seqs_per_state_reset: int = 8
-    #: ``None`` is Adam; other optimizers come in a later slice.
+    #: ``None`` is the hand-written Adam; else a ``torch.optim.Optimizer``
+    #: class (see ``AlgorithmConfig.optimizer_cls``).
     optimizer_cls: Any = None
-    #: Adam's kwargs; ``{"lr": 1e-3}`` by default.
+    #: The optimizer's kwargs; ``{"lr": 1e-3}`` by default.
     optimizer_config: None | dict[str, Any] = None
     #: Accumulate gradients across minibatches before stepping.
     accumulate_grads: bool = False
-    #: bf16 mixed precision: not in this port yet.
+    #: bf16 mixed precision: the default model computes in bf16
+    #: (``model_config["dtype"]``, unless given), which takes it to the
+    #: module rollout and the autodiff update.
     enable_amp: bool = False
     lr_schedule: None | list[tuple[int, float]] = None
     lr_schedule_kind: ScheduleKind = "step"
@@ -118,8 +130,8 @@ class RecurrentAlgorithmConfig:
     max_grad_norm: float = 5.0
     normalize_advantages: bool = True
     normalize_rewards: bool = True
-    #: Run the optimizer over one flat parameter vector (the only mode of
-    #: this port).
+    #: Run a ``torch.optim`` optimizer over one flat parameter vector;
+    #: ``False`` gives it one tensor per model leaf (per-leaf state).
     flatten_optimizer: bool = True
     #: The chain kernels of custom recurrent models declaring a
     #: ``FusedRecurrentApplySpec`` (custom recurrent models are a later
@@ -127,12 +139,15 @@ class RecurrentAlgorithmConfig:
     fused_forward: bool = False
     #: Compute each minibatch's losses and parameter gradients with one
     #: launch of the recurrent update kernel (``ops/fused_rnn_ppo.py``:
-    #: LSTM BPTT, heads and PPO losses). The port has no recurrent
-    #: autodiff route yet (ROADMAP Queue 1 #5): ``False`` raises.
+    #: LSTM BPTT, heads and PPO losses); else by autograd through the
+    #: model. Off for models the kernels do not take (a compute dtype,
+    #: more than 8 layers).
     fused_update: bool = True
     #: Sample rollout actions, log-probs, values and states with one launch
-    #: of the recurrent act kernel per step (``ops/fused_rnn_act.py``).
-    #: ``False`` raises, as ``fused_update`` does.
+    #: of the recurrent act kernel per step (``ops/fused_rnn_act.py``);
+    #: else the model's forward and its distribution's sampler, whose
+    #: draws differ from the kernel's at equal seeds. Off under the same
+    #: conditions as ``fused_update``.
     fused_act: bool = True
     seed: int = 0
     #: Multi-device sharding: not in this port yet.
@@ -181,11 +196,6 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                     config.model is not None or config.model_cls is not None,
                     "custom recurrent models (`model`, `model_cls`; ROADMAP Queue 1 #5)",
                 ),
-                (
-                    not (config.fused_update and config.fused_act),
-                    "fused_update=False or fused_act=False on recurrent models: the recurrent"
-                    " autodiff route and module rollout (ROADMAP Queue 1 #5)",
-                ),
             ),
         )
         num_envs = min(config.num_envs, getattr(env_cls, "max_num_envs", config.num_envs))
@@ -194,22 +204,31 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         assert_nd_spec(self.env.observation_spec)
         assert_nd_spec(self.env.action_spec)
 
+        model_config = dict(config.model_config or {})
+        if config.enable_amp:
+            model_config.setdefault("dtype", torch.bfloat16)
         self.policy = RecurrentPolicy(
             self.env.observation_spec,
             self.env.action_spec,
-            model_config=dict(config.model_config or {}),
+            model_config=model_config,
             distribution_cls=config.distribution_cls,
         )
         model = self.policy.model
         #: Whether the action distribution squashes through tanh.
         self._squashed_dist = self.policy.distribution_cls is SquashedNormal
-        if not supports_fused_rnn_update(model, self.policy.distribution_cls, zero_entropy=self._static_zero_entropy):
+        dist_cls, zero_entropy = self.policy.distribution_cls, self._static_zero_entropy
+        if not supports_rnn_distribution(model, dist_cls, zero_entropy=zero_entropy):
             raise NotImplementedError(
-                "This port runs the default recurrent models (1 to 8 biased LSTM layers,"
-                " float observations): the discrete one with Categorical, the continuous one"
-                " with Normal, or with SquashedNormal when the entropy coefficient is 0 with"
-                f" no schedule; not {type(model).__name__} with {self.policy.distribution_cls.__name__} here."
+                "This port runs the default recurrent models: the discrete one with Categorical, the"
+                " continuous one with Normal, or with SquashedNormal when the entropy coefficient is 0"
+                f" with no schedule; not {type(model).__name__} with {dist_cls.__name__} here."
             )
+        kernels_take = supports_fused_rnn_update(model, dist_cls, zero_entropy=zero_entropy)
+        #: Whether the update launches the recurrent update kernel (else
+        #: autograd), and the rollout the recurrent act kernel (else the
+        #: module rollout): ``rl8_tpu``'s gates.
+        self._fused_update = config.fused_update and kernels_take
+        self._fused_act = config.fused_act and kernels_take
         #: The chain kernels for custom recurrent models: never on for the
         #: default model, as in ``rl8_tpu``.
         self._fused_forward = False
@@ -220,22 +239,45 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         ).validate()
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
-        if self.device.type == "cuda" and not card_takes_rnn_update(self._pack_params()):
+        if self._fused_update and self.device.type == "cuda" and not card_takes_rnn_update(self._pack_params()):
             raise NotImplementedError(
                 f"The card's recurrent update kernel does not take hidden_size {model.hidden_size} with these"
                 " inputs and heads: its row pass must fit a block's shared memory (the CPU takes any width)."
+            )
+        #: The autodiff route's parameters, in the order of its flat vector.
+        self._params = list(model.parameters())
+        if not self._fused_act:
+            #: Generator of the module rollout's action samples.
+            self._sample_gen = torch.Generator(device=self.device).manual_seed(
+                int(torch.randint(0, 2**62, (1,), generator=self._key_gen))
             )
         self.state = RecurrentAlgorithmState(
             env_state=None,
             buffer=self._zero_buffer(),
             reward_scale=torch.tensor(1.0, device=self.device),
-            opt_state=AdamState.zeros_like(self._pack_params().flat),
         )
+        self.state.opt_state = self._init_opt_state()
 
     def _pack_params(self):
         """The model's current parameters packed for the kernels, with the
         policy's distribution kind."""
         return pack_rnn_params(self.policy.model, squashed=self._squashed_dist)
+
+    def _load_packed(self, flat: torch.Tensor) -> None:
+        load_rnn_params(self.policy.model, flat)
+
+    def _packed_shapes(self) -> list[tuple[int, ...]]:
+        params = self._pack_params()
+        return [tuple(t.shape) for tensors in (*params.lstm(), *params.heads()) for t in tensors]
+
+    def _module_act(self, obs: torch.Tensor, states: Any, deterministic: bool) -> tuple[Any, ...]:
+        """The module rollout's step (``rl8_tpu``'s non-fused scan step):
+        the model's forward on ``obs`` from ``states``, then a draw from
+        its distribution. Returns ``(actions, logp, values, new_states)``."""
+        (features, values), new_states = self.policy.model({DataKeys.OBS: obs[:, None]}, states)
+        dist = self.policy.distribution_cls(features, self.policy.model)
+        actions = dist.deterministic_sample() if deterministic else dist.sample(self._sample_gen)
+        return actions, dist.logp(actions), values, new_states
 
     def _zero_buffer(self) -> dict[str, Any]:
         """Time-major rollout buffer of zeros, with per-step recurrent
@@ -284,8 +326,9 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         # re-initializes them.
         states = {key: value[-1] for key, value in buffer[DataKeys.STATES].items()}
 
-        params = self._pack_params()
-        keys = torch.randint(0, 2**32, (T, 2), generator=self._key_gen).tolist()
+        if self._fused_act:
+            params = self._pack_params()
+            keys = torch.randint(0, 2**32, (T, 2), generator=self._key_gen).tolist()
         cols: dict[str, list[Any]] = {
             DataKeys.OBS: [obs],
             DataKeys.STATES: [],
@@ -303,9 +346,12 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                 reset_states = t % L == 0 and seqs % h.seqs_per_state_reset == 0
             if reset_states:
                 states = self.policy.init_states(B, self.device)
-            actions, logp, values, new_states = fused_rnn_act(
-                params, obs, states, tuple(keys[t]), deterministic=deterministic
-            )
+            if self._fused_act:
+                actions, logp, values, new_states = fused_rnn_act(
+                    params, obs, states, tuple(keys[t]), deterministic=deterministic
+                )
+            else:
+                actions, logp, values, new_states = self._module_act(obs, states, deterministic)
             env_state, obs, rewards = self.env.step(env_state, actions)
             if h.normalize_rewards:
                 rev = h.gamma * rev + rewards
@@ -334,7 +380,8 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         new_buffer[DataKeys.STATES] = {
             key: torch.stack([s[key] for s in cols[DataKeys.STATES]]) for key in states
         }
-        new_buffer[DataKeys.REWARDS] = new_buffer[DataKeys.REWARDS].to(torch.float32)
+        for key in (DataKeys.REWARDS, DataKeys.LOGP, DataKeys.VALUES):
+            new_buffer[key] = new_buffer[key].to(torch.float32)
         if h.normalize_rewards:
             reward_scale = gstd(new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][1:])
         else:
@@ -389,16 +436,33 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                 DataKeys.RETURNS: _seq_major(returns, L),
             }
         )
-        cfg = self._loss_config(packed.shape[0] // h.num_minibatches)
-        ec = torch.full((), entropy_coeff, dtype=torch.float32, device=self.device)
-        params = self._pack_params()
-        flat, opt_state, stats = self._sgd_epochs(
-            packed,
-            lambda flat, mb: fused_rnn_ppo_grads(dataclasses.replace(params, flat=flat), mb, unpack, ec, cfg),
-            params.flat,
-            lr,
-        )
-        load_rnn_params(self.policy.model, flat)
+        if self._fused_update:
+            cfg = self._loss_config(packed.shape[0] // h.num_minibatches)
+            ec = torch.full((), entropy_coeff, dtype=torch.float32, device=self.device)
+            params = self._pack_params()
+
+            def grads_fn(flat: torch.Tensor, mb: torch.Tensor):
+                return fused_rnn_ppo_grads(dataclasses.replace(params, flat=flat), mb, unpack, ec, cfg)
+
+            flat0 = params.flat
+        else:
+
+            def forward(batch: Any) -> tuple[Any, torch.Tensor, dict[str, torch.Tensor]]:
+                # [mb, L] sequences from their stored initial states; the
+                # targets flattened to the model's [mb * L] rows.
+                (features, values), _ = self.policy.model({DataKeys.OBS: batch[DataKeys.OBS]}, batch[DataKeys.STATES])
+                targets = {
+                    key: batch[key].reshape(-1, *batch[key].shape[2:])
+                    for key in (DataKeys.ACTIONS, DataKeys.LOGP, DataKeys.ADVANTAGES, DataKeys.RETURNS)
+                }
+                return features, values, targets
+
+            grads_fn = self._autodiff_grads_fn(
+                forward, unpack, entropy_coeff, h.num_minibatches if h.accumulate_grads else 1
+            )
+            flat0 = self._flat_params()
+        flat, opt_state, stats = self._sgd_epochs(packed, grads_fn, flat0, lr)
+        self._load_flat(flat)
         # Reset the buffer, keeping the final observation and the final
         # states.
         new_buffer: dict[str, Any] = {

@@ -2,11 +2,13 @@
 
 A checkpoint holds everything a resumed run needs to continue bit for bit:
 the model's ``state_dict``, the algorithm state (env state, rollout
-buffer, reward scale, Adam's moments and count, the host counters
-``horizons``, ``buffered`` and, for recurrent algorithms, ``seqs``), the
-state of every ``torch.Generator`` the algorithm holds (the host key
-stream, the env-reset, shuffle and module-rollout streams), the
-schedulers' coefficients and the trainer's counters.
+buffer, reward scale, the optimizer's state: Adam's moments and count,
+or a ``torch.optim`` optimizer's per-parameter ``state_dict()`` entries,
+tensors and Python scalars, loaded back into it at the next update; the
+host counters ``horizons``, ``buffered`` and, for recurrent algorithms,
+``seqs``), the state of every ``torch.Generator`` the algorithm holds
+(the host key stream, the env-reset, shuffle and module-rollout streams),
+the schedulers' coefficients and the trainer's counters.
 
 The on-disk protocol is ``rl8_tpu``'s: each save writes a fresh
 ``ckpt-<8 digits>/`` holding ``host_state.json`` (``horizons_host``,

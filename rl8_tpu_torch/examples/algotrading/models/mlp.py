@@ -6,7 +6,10 @@ windows of historical price changes, which are sum-aggregated at four
 intervals into the feature vector; the action mask adds FMIN-clipped
 logits. It declares a :class:`~rl8_tpu_torch.ops.fused_mlp.FusedApplySpec`,
 so that with ``fused_forward=True`` its two LayerNorm-MLP chains and their
-heads run through the chain kernels.
+heads run through the chain kernels. ``dtype=torch.bfloat16`` is flax's
+compute dtype (the JAX bench's configuration): the assembled input is
+cast to it and the module forward computes in it; the chain kernels take
+that input upcast to f32 and compute in f32.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from torch import nn
 
 from rl8_tpu_torch.data import DataKeys
 from rl8_tpu_torch.models import GenericModel, lecun_normal_, small_uniform_
-from rl8_tpu_torch.nn import MLP, OneHotEmbed, get_activation
+from rl8_tpu_torch.nn import MLP, OneHotEmbed, dense, get_activation
 from rl8_tpu_torch.ops.fused_mlp import FusedApplySpec
 from rl8_tpu_torch.specs import Spec
 from rl8_tpu_torch.views import ViewRequirement
@@ -57,7 +60,8 @@ class MischievousMule(GenericModel):
             divisible by 4 and less than the training horizon.
         hiddens: Hidden layer sizes for the feature and value models.
         activation_fn: Activation function ID.
-        dtype: Compute dtype; only ``None`` (f32) in this port.
+        dtype: Compute dtype (``None``: f32; ``torch.bfloat16`` for AMP);
+            the parameters stay f32.
 
     """
 
@@ -76,8 +80,6 @@ class MischievousMule(GenericModel):
         super().__init__(observation_spec, action_spec)
         if seq_len % 4:
             raise ValueError("`seq_len` must be divisible by 4.")
-        if dtype is not None:
-            raise NotImplementedError("This port computes in f32 only; bf16 compute is ROADMAP Queue 1 #9.")
         self.invested_embed_dim = invested_embed_dim
         self.seq_len = seq_len
         self.hiddens = tuple(hiddens)
@@ -85,9 +87,9 @@ class MischievousMule(GenericModel):
         self.dtype = dtype
         d_in = invested_embed_dim + 1 + 4
         self.invested_embedding = OneHotEmbed(2, invested_embed_dim)
-        self.feature_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, layer_norm=True)
+        self.feature_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, layer_norm=True, dtype=dtype)
         self.feature_head = nn.Linear(self.hiddens[-1], 3)
-        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, layer_norm=True)
+        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, layer_norm=True, dtype=dtype)
         self.vf_head = nn.Linear(self.hiddens[-1], 1)
         self._act = get_activation(activation_fn)
 
@@ -122,8 +124,9 @@ class MischievousMule(GenericModel):
             self.vf_head.bias.zero_()
 
     def _assemble(self, obs: dict) -> torch.Tensor:
-        """The chains' shared input ``[B, invested_embed_dim + 5]``."""
-        return torch.cat(
+        """The chains' shared input ``[B, invested_embed_dim + 5]``, in the
+        model's compute dtype."""
+        x = torch.cat(
             [
                 self.invested_embedding(obs["invested"].reshape(-1)),
                 obs["LOG_CHANGE(price, position)"].to(torch.float32),
@@ -131,13 +134,14 @@ class MischievousMule(GenericModel):
             ],
             dim=-1,
         )
+        return x if self.dtype is None else x.to(self.dtype)
 
     def forward(self, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
         obs = batch[DataKeys.OBS]
         x = self._assemble(obs)
-        logits = self.feature_head(self._act(self.feature_model(x))).reshape(-1, 1, 3)
-        values = self.vf_head(self._act(self.vf_model(x)))
-        return {"logits": logits + action_mask_logits(obs)}, values
+        logits = dense(self.feature_head, self._act(self.feature_model(x)), self.dtype).reshape(-1, 1, 3)
+        values = dense(self.vf_head, self._act(self.vf_model(x)), self.dtype)
+        return {"logits": logits.to(torch.float32) + action_mask_logits(obs)}, values.to(torch.float32)
 
     def fused_apply_spec(self) -> FusedApplySpec:
         """The composite-observation assembly (embedding + interval sums)

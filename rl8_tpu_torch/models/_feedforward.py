@@ -2,7 +2,11 @@
 
 ``forward(batch) -> (features, values)``. Parameters are initialized as
 flax initializes the JAX package's models (lecun-normal kernels, zero
-biases, small-uniform policy heads), from an explicit generator.
+biases, small-uniform policy heads), from an explicit generator. A
+default model's ``dtype`` is flax's compute dtype: the parameters stay
+f32, the observations are cast to it, every layer computes in it
+(:func:`~rl8_tpu_torch.nn.modules.mlp.dense`), and the features and
+values are cast back to f32 where ``rl8_tpu``'s models cast them.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import torch
 from torch import nn
 
 from ..data import DataKeys
-from ..nn.modules import MLP, get_activation
+from ..nn.modules import MLP, dense, get_activation
 from ..specs import Discrete, Spec, Unbounded, assert_1d_spec
 from ..utils import set_nested
 from ..views import ViewKind, ViewRequirement
@@ -45,6 +49,12 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
 def small_uniform_(weight: torch.Tensor, generator: torch.Generator, scale: float = 1e-3) -> torch.Tensor:
     """Symmetric small-uniform init used for output heads."""
     return nn.init.uniform_(weight, -scale, scale, generator=generator)
+
+
+def _model_input(batch: Any, dtype: Any) -> torch.Tensor:
+    """A default model's observations in its compute dtype (f32 without
+    one)."""
+    return batch[DataKeys.OBS].to(torch.float32 if dtype is None else dtype)
 
 
 class Model(GenericModelBase):
@@ -172,6 +182,7 @@ class DefaultContinuousModel(GenericModel):
         hiddens: Sequence[int] = (256, 256),
         activation_fn: str = "relu",
         bias: bool = True,
+        dtype: Any = None,
     ) -> None:
         super().__init__(observation_spec, action_spec)
         if not isinstance(action_spec, Unbounded):
@@ -179,12 +190,14 @@ class DefaultContinuousModel(GenericModel):
         self.hiddens = tuple(hiddens)
         self.activation_fn = activation_fn
         self.bias = bias
+        #: Compute dtype (``None``: f32); ``torch.bfloat16`` under AMP.
+        self.dtype = dtype
         d_in = observation_spec.shape[0]
         action_dim = action_spec.shape[0]
-        self.latent_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.latent_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias, dtype=dtype)
         self.action_mean = nn.Linear(self.hiddens[-1], action_dim)
         self.action_log_std = nn.Linear(self.hiddens[-1], action_dim)
-        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias, dtype=dtype)
         self.vf_head = nn.Linear(self.hiddens[-1], 1)
         self._act = get_activation(activation_fn)
 
@@ -204,16 +217,14 @@ class DefaultContinuousModel(GenericModel):
                 head.bias.zero_()
 
     def forward(self, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-        obs = batch[DataKeys.OBS]
-        if obs.dtype != torch.float32:
-            obs = obs.to(torch.float32)
+        obs = _model_input(batch, self.dtype)
         latents = self._act(self.latent_model(obs))
         features = {
-            "mean": self.action_mean(latents),
-            "log_std": torch.tanh(self.action_log_std(latents)),
+            "mean": dense(self.action_mean, latents, self.dtype).to(torch.float32),
+            "log_std": torch.tanh(dense(self.action_log_std, latents, self.dtype)).to(torch.float32),
         }
-        values = self.vf_head(self._act(self.vf_model(obs)))
-        return features, values
+        values = dense(self.vf_head, self._act(self.vf_model(obs)), self.dtype)
+        return features, values.to(torch.float32)
 
 
 class DefaultDiscreteModel(GenericModel):
@@ -241,6 +252,7 @@ class DefaultDiscreteModel(GenericModel):
         hiddens: Sequence[int] = (256, 256),
         activation_fn: str = "relu",
         bias: bool = True,
+        dtype: Any = None,
     ) -> None:
         super().__init__(observation_spec, action_spec)
         if not isinstance(action_spec, Discrete):
@@ -248,11 +260,13 @@ class DefaultDiscreteModel(GenericModel):
         self.hiddens = tuple(hiddens)
         self.activation_fn = activation_fn
         self.bias = bias
+        #: Compute dtype (``None``: f32); ``torch.bfloat16`` under AMP.
+        self.dtype = dtype
         d_in = observation_spec.shape[0]
         n_logits = action_spec.shape[0] * action_spec.n
-        self.feature_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.feature_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias, dtype=dtype)
         self.feature_head = nn.Linear(self.hiddens[-1], n_logits)
-        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias)
+        self.vf_model = MLP(d_in, self.hiddens, activation_fn=activation_fn, bias=bias, dtype=dtype)
         self.vf_head = nn.Linear(self.hiddens[-1], 1)
         self._act = get_activation(activation_fn)
 
@@ -270,10 +284,8 @@ class DefaultDiscreteModel(GenericModel):
                 head.bias.zero_()
 
     def forward(self, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-        obs = batch[DataKeys.OBS]
-        if obs.dtype != torch.float32:
-            obs = obs.to(torch.float32)
+        obs = _model_input(batch, self.dtype)
         A, n = self.action_spec.shape[0], self.action_spec.n
-        logits = self.feature_head(self._act(self.feature_model(obs))).reshape(-1, A, n)
-        values = self.vf_head(self._act(self.vf_model(obs)))
-        return {"logits": logits}, values
+        logits = dense(self.feature_head, self._act(self.feature_model(obs)), self.dtype).reshape(-1, A, n)
+        values = dense(self.vf_head, self._act(self.vf_model(obs)), self.dtype)
+        return {"logits": logits.to(torch.float32)}, values.to(torch.float32)

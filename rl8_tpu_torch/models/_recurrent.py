@@ -7,6 +7,12 @@ as explicit products on each layer's concatenated input kernel ``Wi
 [d_in, 4H]``, hidden kernel ``Wh [H, 4H]`` and bias ``b [4H]``, gates in
 flax's i, f, g, o order (the layout both recurrent kernels read; see
 ``ops/fused_rnn_act.py``). States stay ``[B, K, H]`` for ``K`` layers.
+
+A default model's ``dtype`` is flax's compute dtype: the parameters stay
+f32; the observations, each cell's products and gates, and the heads run
+in it; the cells' f32 carry promotes the new cell and hidden states to
+f32 (the next product casts them back), and the features, values and
+states leave the model as f32.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from ..data import DataKeys
+from ..nn.modules import dense
 from ..ops.fused_rnn_act import lstm_cell
 from ..specs import Composite, Discrete, Spec, Unbounded, assert_1d_spec
 from ._base import GenericModelBase
@@ -83,12 +90,14 @@ class GenericRecurrentModel(RecurrentModel):
 class _StackedLSTM(nn.Module):
     """``num_layers`` LSTM cells over a ``[B, T, D]`` sequence with explicit
     ``[B, K, H]`` hidden and cell states; layer ``l``'s parameters are
-    ``wi[l] [d_l, 4H]``, ``wh[l] [H, 4H]`` and ``b[l] [4H]``."""
+    ``wi[l] [d_l, 4H]``, ``wh[l] [H, 4H]`` and ``b[l] [4H]``, and ``dtype``
+    the cells' compute dtype."""
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int) -> None:
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, dtype: Any = None) -> None:
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.dtype = dtype
         widths = [input_size] + [hidden_size] * (num_layers - 1)
         self.wi = nn.ParameterList([nn.Parameter(torch.empty(d, 4 * hidden_size)) for d in widths])
         self.wh = nn.ParameterList(
@@ -117,7 +126,7 @@ class _StackedLSTM(nn.Module):
         for t in range(x.shape[1]):
             inp = x[:, t]
             for l in range(self.num_layers):
-                hs[l], cs[l] = lstm_cell(inp, hs[l], cs[l], self.wi[l], self.wh[l], self.b[l])[:2]
+                hs[l], cs[l] = lstm_cell(inp, hs[l], cs[l], self.wi[l], self.wh[l], self.b[l], self.dtype)[:2]
                 inp = hs[l]
             outs.append(inp)
         return torch.stack(outs, dim=1), torch.stack(hs, dim=1), torch.stack(cs, dim=1)
@@ -144,12 +153,15 @@ class _DefaultRecurrentModel(GenericRecurrentModel):
         hidden_size: int = 256,
         num_layers: int = 1,
         bias: bool = True,
+        dtype: Any = None,
     ) -> None:
         super().__init__(observation_spec, action_spec)
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.bias = bias
-        self.lstm = _StackedLSTM(observation_spec.shape[0], hidden_size, num_layers)
+        #: Compute dtype (``None``: f32); ``torch.bfloat16`` under AMP.
+        self.dtype = dtype
+        self.lstm = _StackedLSTM(observation_spec.shape[0], hidden_size, num_layers, dtype)
 
     @property
     def state_spec(self) -> Composite:
@@ -164,11 +176,9 @@ class _DefaultRecurrentModel(GenericRecurrentModel):
                 " flag would be silently ignored rather than matching"
                 " the reference's `nn.LSTM(bias=False)` architecture."
             )
-        obs = batch[DataKeys.OBS]
-        if obs.dtype != torch.float32:
-            obs = obs.to(torch.float32)
+        obs = batch[DataKeys.OBS].to(torch.float32 if self.dtype is None else self.dtype)
         latents, h_n, c_n = self.lstm(obs, states[DataKeys.HIDDEN_STATES], states[DataKeys.CELL_STATES])
-        new_states = {DataKeys.HIDDEN_STATES: h_n, DataKeys.CELL_STATES: c_n}
+        new_states = {DataKeys.HIDDEN_STATES: h_n.to(torch.float32), DataKeys.CELL_STATES: c_n.to(torch.float32)}
         return latents.reshape(-1, self.hidden_size), new_states
 
 
@@ -212,10 +222,10 @@ class DefaultContinuousRecurrentModel(_DefaultRecurrentModel):
     def forward(self, batch: Any, states: Any) -> tuple[tuple[dict[str, torch.Tensor], torch.Tensor], Any]:
         latents, new_states = self._torso(batch, states)
         features = {
-            "mean": self.action_mean(latents),
-            "log_std": torch.tanh(self.action_log_std(latents)),
+            "mean": dense(self.action_mean, latents, self.dtype).to(torch.float32),
+            "log_std": torch.tanh(dense(self.action_log_std, latents, self.dtype)).to(torch.float32),
         }
-        return (features, self.vf_model(latents)), new_states
+        return (features, dense(self.vf_model, latents, self.dtype).to(torch.float32)), new_states
 
 
 class DefaultDiscreteRecurrentModel(_DefaultRecurrentModel):
@@ -251,5 +261,5 @@ class DefaultDiscreteRecurrentModel(_DefaultRecurrentModel):
     def forward(self, batch: Any, states: Any) -> tuple[tuple[dict[str, torch.Tensor], torch.Tensor], Any]:
         latents, new_states = self._torso(batch, states)
         A, n = self.action_spec.shape[0], self.action_spec.n
-        logits = self.feature_head(latents).reshape(-1, A, n)
-        return ({"logits": logits}, self.vf_head(latents)), new_states
+        logits = dense(self.feature_head, latents, self.dtype).reshape(-1, A, n).to(torch.float32)
+        return ({"logits": logits}, dense(self.vf_head, latents, self.dtype).to(torch.float32)), new_states

@@ -6,10 +6,14 @@ uses) takes the variance as ``E[z^2] - E[z]^2`` clamped at 0, not as
 more than the port's tolerances on rows whose mean is large against
 their spread. This is flax's formula, with its epsilon of 1e-6 and its
 ``scale`` and ``bias``, which the fused chain kernels compute too
-(``rl8_tpu/ops/fused_mlp.py:276-290``).
+(``rl8_tpu/ops/fused_mlp.py:276-290``). With a compute ``dtype``
+(flax's ``LayerNorm(dtype=...)``) the statistics and the normalization
+run in f32 on the input cast to f32, and the output is cast to ``dtype``.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
@@ -43,10 +47,11 @@ class LayerNorm(nn.Module):
 
     """
 
-    def __init__(self, features: int) -> None:
+    def __init__(self, features: int, *, dtype: Any = None) -> None:
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
@@ -54,4 +59,6 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return layer_norm_stats(z)[0] * self.scale + self.bias
+        if self.dtype is None:
+            return layer_norm_stats(z)[0] * self.scale + self.bias
+        return (layer_norm_stats(z.to(torch.float32))[0] * self.scale + self.bias).to(self.dtype)

@@ -550,16 +550,18 @@ def fused_chains(activation: str, x: torch.Tensor, chains: Sequence[Chain]) -> t
 
 def _custom_spec(model: Any) -> None | FusedApplySpec:
     """The model's :class:`FusedApplySpec` when it declares one and the
-    kernels can honor it, else ``None``: f32 only (the port has no bf16
-    compute yet, where ``rl8_tpu`` also takes ``dtype=bfloat16``), and a
-    kernel activation."""
+    kernels can honor it, else ``None``: a kernel activation, and a
+    compute dtype of ``None`` or ``torch.bfloat16`` (``rl8_tpu``'s gate).
+    A bf16 (AMP) model's chains run in the kernels' f32, which only
+    tightens its numerics, as ``rl8_tpu``'s bf16-operand, f32-accumulating
+    kernels do; any other dtype keeps the module forward."""
     get_spec = getattr(model, "fused_apply_spec", None)
     if get_spec is None:
         return None
     spec = get_spec()
     if not isinstance(spec, FusedApplySpec):
         return None
-    if getattr(model, "dtype", None) is not None:
+    if getattr(model, "dtype", None) not in (None, torch.bfloat16):
         return None
     if getattr(model, "activation_fn", None) not in ACT_FNS:
         return None
@@ -569,8 +571,9 @@ def _custom_spec(model: Any) -> None | FusedApplySpec:
 def supports_fused_apply(model: Any) -> bool:
     """Whether the chain kernels can evaluate ``model``'s forward: a
     default model (relu or tanh, biased layers, float observations, no
-    compute dtype), or a custom model declaring a
-    :class:`FusedApplySpec` (``rl8_tpu``'s gating, without bf16)."""
+    compute dtype: an AMP default model keeps its bf16 module forward), or
+    a custom model declaring a :class:`FusedApplySpec`, f32 or bf16
+    (``rl8_tpu``'s gating)."""
     from ..models import DefaultContinuousModel, DefaultDiscreteModel
 
     if type(model) not in (DefaultContinuousModel, DefaultDiscreteModel):
@@ -585,7 +588,9 @@ def supports_fused_apply(model: Any) -> bool:
 def fused_custom_apply(model: Any, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """``model(batch)`` for a model declaring a :class:`FusedApplySpec`:
     ``assemble`` and ``finalize`` in plain PyTorch, the chains through
-    :func:`fused_chains`. Differentiable end to end."""
+    :func:`fused_chains`. Differentiable end to end. A bf16 model's
+    assembled input is upcast to f32 for the kernels, which return f32
+    heads; its cotangent returns to the input's dtype through the cast."""
     spec = _custom_spec(model)
     if spec is None:
         raise TypeError(f"{type(model).__name__} has no fused apply spec the chain kernels take.")

@@ -108,9 +108,11 @@ def supports_distribution(model: Any, distribution_cls: Any, *, zero_entropy: bo
 def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
     """Whether the kernels can evaluate this model/distribution pair: a
     pair :func:`supports_distribution` takes, with relu or tanh, biased
-    layers and at most 8 of them."""
+    layers, at most 8 of them, and no compute dtype (``rl8_tpu`` keeps an
+    AMP model, ``dtype=bfloat16``, off its kernels too)."""
     return (
         supports_distribution(model, distribution_cls, zero_entropy=zero_entropy)
+        and getattr(model, "dtype", None) is None
         and model.activation_fn in ACT_FNS
         and bool(model.bias)
         and len(model.hiddens) <= _MAX_LAYERS

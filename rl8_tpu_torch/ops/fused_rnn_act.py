@@ -47,12 +47,24 @@ RNN_KINDS = ("categorical", "normal", "squashed")
 
 
 def lstm_cell(
-    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    wi: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    dtype: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor, tuple[torch.Tensor, ...], torch.Tensor]:
     """One LSTM cell as flax's ``OptimizedLSTMCell`` computes it:
     ``z = (h Wh + b) + x Wi`` with gates i, f, g, o side by side in ``z``;
     sigmoid on i, f, o and tanh on g; ``c' = f c + i g``; ``h' = o
-    tanh(c')``. Returns ``(h', c', (i, f, g, o), tanh(c'))``."""
+    tanh(c')``. Returns ``(h', c', (i, f, g, o), tanh(c'))``.
+
+    With a compute ``dtype`` (flax's cell ``dtype``), ``x``, ``h`` and the
+    parameters are cast to it and ``z`` and the gates are ``dtype``; an
+    f32 carry then promotes ``c'`` and ``h'`` to f32, as in flax."""
+    if dtype is not None:
+        x, h, wi, wh, b = (t.to(dtype) for t in (x, h, wi, wh, b))
     z = (h @ wh + b) + x @ wi
     zi, zf, zg, zo = z.chunk(4, dim=-1)
     i, f, g, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.tanh(zg), torch.sigmoid(zo)

@@ -46,6 +46,7 @@ __all__ = [
     "fused_rnn_ppo_grads",
     "rnn_ppo_grads_plain",
     "supports_fused_rnn_update",
+    "supports_rnn_distribution",
 ]
 
 
@@ -87,28 +88,39 @@ class RnnPackedColumns:
         return self.logp[1] - self.logp[0]
 
 
-def supports_fused_rnn_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
-    """Whether the recurrent update can evaluate this model/distribution
-    pair: a default recurrent model with 1 to 8 biased LSTM layers and
-    float observations, the discrete one with ``Categorical``, the
-    continuous one with ``Normal`` or, only when the entropy bonus is
-    statically zero (it has no entropy), with ``SquashedNormal``.
-
-    These are ``rl8_tpu``'s gates without its VMEM residency limit on the
-    width: the plain version takes any width, and the card kernel's own
-    limit is asked of it by :func:`card_takes_rnn_update`."""
+def supports_rnn_distribution(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
+    """Whether this recurrent model/distribution pair is one the port
+    trains: a default recurrent model, the discrete one with
+    ``Categorical``, the continuous one with ``Normal`` or, only when the
+    entropy bonus is statically zero (it has no entropy), with
+    ``SquashedNormal``."""
     from ..distributions import Categorical, Normal, SquashedNormal
     from ..models import DefaultContinuousRecurrentModel, DefaultDiscreteRecurrentModel
 
     if type(model) is DefaultDiscreteRecurrentModel:
-        ok = distribution_cls is Categorical
-    elif type(model) is DefaultContinuousRecurrentModel:
-        ok = distribution_cls is Normal or (distribution_cls is SquashedNormal and zero_entropy)
-    else:
-        return False
+        return distribution_cls is Categorical
+    if type(model) is DefaultContinuousRecurrentModel:
+        return distribution_cls is Normal or (distribution_cls is SquashedNormal and zero_entropy)
+    return False
+
+
+def supports_fused_rnn_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
+    """Whether the recurrent kernels can evaluate this model/distribution
+    pair: a default recurrent model with 1 to 8 biased LSTM layers, float
+    observations and no compute dtype (an AMP model, ``dtype=bfloat16``,
+    runs the module, as in ``rl8_tpu``), the discrete one with
+    ``Categorical``, the continuous one with ``Normal`` or, only when the
+    entropy bonus is statically zero (it has no entropy), with
+    ``SquashedNormal``. The algorithm routes a model this refuses to the
+    module rollout and the autodiff update.
+
+    These are ``rl8_tpu``'s gates without its VMEM residency limit on the
+    width: the plain version takes any width, and the card kernel's own
+    limit is asked of it by :func:`card_takes_rnn_update`."""
     # The packed rows carry observations as f32 bit patterns.
     return (
-        ok
+        supports_rnn_distribution(model, distribution_cls, zero_entropy=zero_entropy)
+        and getattr(model, "dtype", None) is None
         and 1 <= model.num_layers <= MAX_RNN_LAYERS
         and bool(model.bias)
         and model.observation_spec.dtype.is_floating_point

@@ -289,18 +289,17 @@ def _mule(**kw):
 def test_supports_fused_apply_classification() -> None:
     """As ``tests/test_ops.py::test_supports_fused_apply_classification``:
     spec-declaring custom models with a kernel activation are supported,
-    models without a spec or an activation are not; any compute dtype is
-    refused, bf16 too (the port has no bf16, where ``rl8_tpu`` takes it)."""
+    models without a spec or an activation are not; a bf16 compute dtype
+    is accepted and any other refused, as ``rl8_tpu`` classifies them."""
     from rl8_tpu_torch.models import GenericModel, Model
     from rl8_tpu_torch.specs import Discrete, Unbounded
 
     mule = _mule()
     assert supports_fused_apply(mule)
-    for dtype in (torch.bfloat16, torch.float16):
+    assert supports_fused_apply(_mule(dtype=torch.bfloat16))
+    for dtype in (torch.float16, torch.float64):
         mule.dtype = dtype
         assert not supports_fused_apply(mule)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        _mule(dtype=torch.bfloat16)
 
     class NoSpec(GenericModel):
         def forward(self, batch):

@@ -34,8 +34,10 @@ RCFG = dict(
 
 #: Every route whose state differs: the act kernel's, the module
 #: rollout's (its sample generator), a continuous distribution, a custom
-#: model with shuffled minibatches, an env state with Python values, and
-#: the recurrent algorithm.
+#: model with shuffled minibatches, an env state with Python values, the
+#: recurrent algorithm, ``torch.optim`` optimizers (their state flat and
+#: per leaf, gated by a KL stop), and AMP on both algorithms (the module
+#: routes, the recurrent one's sample generator).
 MAKERS = {
     "discrete": lambda: AlgorithmConfig(**CFG).build(DiscreteDummyEnv),
     "module_rollout": lambda: AlgorithmConfig(**CFG, fused_act=False).build(DiscreteDummyEnv),
@@ -45,6 +47,15 @@ MAKERS = {
     ).build(AlgoTrading),
     "cartpole": lambda: AlgorithmConfig(**{**CFG, "horizons_per_env_reset": 2}).build(CartPole),
     "recurrent": lambda: RecurrentAlgorithmConfig(**RCFG).build(DiscreteDummyEnv),
+    "adamw": lambda: AlgorithmConfig(**CFG, optimizer_cls=torch.optim.AdamW).build(DiscreteDummyEnv),
+    "sgd_per_leaf_kl": lambda: AlgorithmConfig(
+        **CFG, optimizer_cls=torch.optim.SGD, optimizer_config={"lr": 1e-2, "momentum": 0.9},
+        flatten_optimizer=False, target_kl_div=1e-4, entropy_coeff=0.01,
+    ).build(DiscreteDummyEnv),
+    "amp": lambda: AlgorithmConfig(**CFG, enable_amp=True).build(ContinuousDummyEnv),
+    "recurrent_amp_adamw": lambda: RecurrentAlgorithmConfig(
+        **RCFG, enable_amp=True, optimizer_cls=torch.optim.AdamW, flatten_optimizer=False
+    ).build(DiscreteDummyEnv),
 }
 
 

@@ -67,6 +67,35 @@ def test_train_config_from_file(tmp_path, suffix) -> None:
     assert trainer.algorithm.device.type == "cpu"
 
 
+@pytest.mark.parametrize("recurrent", [False, True], ids=["feedforward", "recurrent"])
+def test_cli_trains_with_an_optimizer_class_and_amp(tmp_path, recurrent: bool) -> None:
+    """A YAML config naming ``optimizer_cls: torch.optim.AdamW`` (with
+    torch's keywords) and ``enable_amp: true`` builds through the dotted
+    import and trains a step through the ``train`` CLI; the tracked params
+    name the optimizer class and AMP."""
+    algorithm_config = {
+        "optimizer_cls": "torch.optim.AdamW",
+        "optimizer_config": {"lr": 3e-4, "weight_decay": 1e-4},
+        "enable_amp": True,
+        "flatten_optimizer": False,
+    }
+    data = _port_config(**algorithm_config)
+    if recurrent:
+        data["recurrent"] = True
+        data["algorithm_config"].update(seq_len=2, seqs_per_state_reset=2, model_config={"hidden_size": 8})
+    path = _write(tmp_path, data, ".yaml")
+    import torch
+
+    algo = TrainConfig.from_file(path).build().algorithm
+    assert algo.policy.model.dtype is torch.bfloat16
+    assert isinstance(algo._torch_optimizer.optimizer, torch.optim.AdamW)
+    assert main(["train", "-f", path, "--max-steps", "1", "--track-dir", str(tmp_path / "track")]) == 0
+    params = json.loads((tmp_path / "track" / "params.json").read_text())
+    assert params["optimizer_cls"] == "AdamW" and params["enable_amp"] == "True"
+    record = _records(tmp_path / "track")[-1]
+    assert record["algorithm/steps"] == 1
+
+
 def test_train_config_recurrent_and_example_env(tmp_path) -> None:
     data = {
         "env_cls": "rl8_tpu_torch.examples.cartpole.env.CartPole",

@@ -245,11 +245,8 @@ def test_drop_size_rejection_matches_jax() -> None:
         lambda: AlgorithmConfig(model_cls=_ActionWindowMule, device="cpu", **_config()).build(AlgoTrading),
         lambda: RecurrentAlgorithmConfig(model_cls=MischievousMule, fused_forward=True, device="cpu").build(AlgoTrading),
         lambda: RecurrentAlgorithmConfig(model_cls=MischievousMule, device="cpu").build(AlgoTrading),
-        lambda: AlgorithmConfig(model_cls=MischievousMule, enable_amp=True, device="cpu", **_config()).build(AlgoTrading),
-        lambda: AlgorithmConfig(model_cls=MischievousMule, device="cpu",
-                                **{**_config(), "model_config": {"dtype": torch.bfloat16}}).build(AlgoTrading),
     ],
-    ids=["nonobs-view-keys", "recurrent-fused-forward", "custom-recurrent-model", "enable-amp", "bf16-model"],
+    ids=["nonobs-view-keys", "recurrent-fused-forward", "custom-recurrent-model"],
 )
 def test_unported_configurations_raise(build) -> None:
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):

@@ -197,9 +197,7 @@ def test_scheduler_cadence_matches_jax() -> None:
 @pytest.mark.parametrize(
     "kw,error",
     [
-        ({"optimizer_cls": object()}, NotImplementedError),
-        ({"flatten_optimizer": False}, NotImplementedError),
-        ({"enable_amp": True}, NotImplementedError),
+        ({"optimizer_cls": object()}, TypeError),
         ({"mesh": object()}, NotImplementedError),
         ({"optimizer_config": {"lr": 1e-3, "nesterov": True}}, NotImplementedError),
         ({"exact_sharding": True}, NotImplementedError),

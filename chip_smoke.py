@@ -43,7 +43,11 @@ non-zero:
    layers (the tiled forward's general path, the streaming backward) and at
    one 768-wide LayerNorm chain (the forward's and the backward's streaming
    routes; the rest take their tiled routes, each route asserted; two
-   launches of each bit-identical)); the discrete act kernel also at the
+   launches of each bit-identical)); the chain kernels also at the
+   custom-model cells' chains (AttentiveAlpaca's at d_in 11, LazyLemur's at
+   d_in 64, twin (64, 64) LayerNorm torsos, 4,096 and 32,768 rows), each
+   route recorded and each timed beside its plain version with its bound;
+   the discrete act kernel also at the
    CartPole and MountainCar examples' shapes (1024 rows, obs dims 5 and 2,
    A=1, n=3) and the continuous one at Pendulum's (1024 rows, obs dim 3);
    each timed beside its plain version.
@@ -82,6 +86,13 @@ non-zero:
    ``enable_amp``, ``accumulate_grads``, 4096 envs, horizon 32,
    minibatches of 32,768 rows, ``fused_forward`` True with chain forward
    49 and backward 16 launches an iteration asserted, and False);
+   ``custom_alpaca`` and ``custom_lemur`` (AttentiveAlpaca, and LazyLemur
+   with seq_len 4 and seqs_per_state_reset 2, on AlgoTrading at the JAX
+   bench's shape: 4096 envs, horizon 32, four minibatches an epoch; each in
+   f32 with ``fused_forward=True`` (chain forward 33 a collect and 16 a
+   step, backward 16 a step, GAE 1, no act or update kernel) and in the
+   bench's bf16 regime with ``fused_forward`` True and False; one warm-up
+   and three timed iterations each, the rollout held against the module);
    ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
    and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
    optimizer's state on the card).
@@ -112,7 +123,9 @@ non-zero:
    discrete ones for the others; the env step's share of a collect; no
    host sync in an env step); and ``Trainer`` on CartPole (256 envs,
    horizon 64, seed 0) for 25 steps against the JAX package's learning
-   criterion, then one eval.
+   criterion, then one eval; and ``algotrading_cli``: the algotrading
+   ``config.yaml`` (AttentiveAlpaca, 512 envs, horizon 64) through the CLI
+   for 2 steps.
 8. persistence and serving: ``checkpoint_resume`` (the discrete and the
    recurrent cell at full width, and the discrete cell with
    ``torch.optim.AdamW``: train, save, train; restore into a fresh
@@ -309,6 +322,7 @@ def main() -> int:
     check_rnn_act(torch, dev, kernels["rnn_act"])
     check_rnn_ppo(torch, dev, kernels["rnn_ppo"])
     check_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
+    check_model_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
@@ -318,6 +332,7 @@ def main() -> int:
     run_amp_paths(torch, dev)
     run_recurrent_module_route(torch, dev)
     run_custom_amp(torch, dev)
+    run_custom_models(torch, dev)
     run_optimizers(torch, dev)
     check_learning(torch, dev)
     check_learning(torch, dev, amp=True)
@@ -339,6 +354,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_cli_main_path(torch, dev, Path(tmp))
         run_examples_path(torch, dev, Path(tmp))
+        run_algotrading_cli(torch, dev, Path(tmp))
     check_learning_cartpole(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         run_checkpoint_resume(torch, dev, Path(tmp))
@@ -1532,12 +1548,80 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
           "bound_tc_ms": bwd_record["bound_tc_ms"], "split_ms": split})
 
 
-def launched_route(torch, what: str, fn, routes: dict, want: str) -> str:
+def custom_model(torch, name: str, seed: int):
+    """AttentiveAlpaca or LazyLemur at its defaults, as the custom-model
+    phases build them, on the CPU, with the logits head re-drawn at lecun
+    scale."""
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, AttentiveAlpaca, LazyLemur
+    from rl8_tpu_torch.models import lecun_normal_
+
+    env = AlgoTrading(1, device="cpu")
+    model = {"alpaca": AttentiveAlpaca, "lemur": LazyLemur}[name](env.observation_spec, env.action_spec)
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        lecun_normal_(model.feature_head.weight, gen)
+    return model
+
+
+#: The custom-model cells' chains: AttentiveAlpaca's (d_in 11: the
+#: invested embedding, the position's log change and the pooled 8-wide
+#: attention output; 44-byte rows) and LazyLemur's (d_in 64: the LSTM
+#: latent), both twin (64, 64) LayerNorm torsos with heads of 3 and 1, at
+#: the rollout's 4,096 rows and a minibatch's 32,768 (LazyLemur: 8,192
+#: sequences of 4 steps).
+MODEL_CHAIN_ROWS = (4096, 32768)
+
+
+def check_model_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
+    """The chain kernels against their plain versions (compare_chains) at
+    the custom-model cells' chains and row counts (MODEL_CHAIN_ROWS),
+    each route the forward and the backward took (not asserted: a row of
+    44 bytes is not 16-byte aligned), and each launch timed beside its
+    plain version with its bound. Adds the records to the chain kernels'
+    under ``model_shapes``."""
+    from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    fwd_record["model_shapes"], bwd_record["model_shapes"] = [], []
+    for name, seed in (("alpaca", 13), ("lemur", 14)):
+        chains = default_chains(custom_model(torch, name, seed).to(dev))
+        structure, flat = chain_structure(chains), flatten_chains(chains)
+        check(structure[0] == {"alpaca": 11, "lemur": 64}[name], f"{name}'s chains take d_in {structure[0]}")
+        for N in MODEL_CHAIN_ROWS:
+            x = 0.5 * torch.randn((N, structure[0]), generator=gen, device=dev)
+            result = compare_chains(torch, f"chains ({name}, N={N})", x, chains, "relu", seed=N + seed)
+            routes = {"forward_route": forward_route(torch, x, chains, "relu", None),
+                      "route": backward_route(torch, x, chains, "relu", None)}
+            fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = chain_counts(structure, N)
+            ms, _ = time_ms(torch, lambda: fused_chains_fwd(x, flat, structure, "relu"), iters=30)
+            plain_ms, _ = time_ms(torch, lambda: forward_chains(x, chains, "relu"), iters=10)
+            fwd_record["model_shapes"].append({"model": name, "N": N, "d_in": structure[0], "ms": ms,
+                                               "plain_ms": plain_ms, "bound_ms": bound(fwd_flops, fwd_bytes)[0],
+                                               "route": routes["forward_route"]})
+            record = {"phase": "kernel_check", "kernel": "chains", "config": name, "N": N, "d_in": structure[0],
+                      **result, **routes, "fwd_ms": ms, "fwd_plain_ms": plain_ms,
+                      "fwd_bound_ms": bound(fwd_flops, fwd_bytes)[0]}
+            if N == MODEL_CHAIN_ROWS[-1]:
+                douts = [torch.randn((N, w), generator=gen, device=dev) for w in (3, 1)]
+                ms, _ = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=10, warmup=2)
+                plain_ms, _ = time_ms(torch, lambda: chains_vjp_plain(x, chains, "relu", [douts[:1], douts[1:]]),
+                                      iters=5, warmup=1)
+                bwd_record["model_shapes"].append({"model": name, "N": N, "d_in": structure[0], "ms": ms,
+                                                   "plain_ms": plain_ms, "bound_ms": bound(bwd_flops, bwd_bytes)[0],
+                                                   "route": routes["route"]})
+                record.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound_ms=bound(bwd_flops, bwd_bytes)[0])
+            emit(record)
+
+
+def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
     """The route that calls of ``fn`` took (``routes`` maps kernel names to
     routes; the kernels that three calls launched, from ``torch.profiler``),
-    which must be ``want``. The profiler sometimes returns no record of a
-    short launch at all: a window that saw none of the kernels is taken
-    again, up to three windows; any kernel it does see counts."""
+    which must be ``want`` (``None``: one route, whichever it is). The
+    profiler sometimes returns no record of a short launch at all: a window
+    that saw none of the kernels is taken again, up to three windows; any
+    kernel it does see counts."""
     from torch.profiler import ProfilerActivity, profile
 
     took: list = []
@@ -1551,11 +1635,11 @@ def launched_route(torch, what: str, fn, routes: dict, want: str) -> str:
         took = [route for kernel, route in routes.items() if any(re.search(rf"\b{kernel}\b", n) for n in names)]
         if took:
             break
-    check(took == [want], f"{what} took {took}, not the {want} route")
-    return want
+    check(took == [want] if want else len(took) == 1, f"{what} took {took}, not the {want} route")
+    return took[0]
 
 
-def backward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
+def backward_route(torch, x, chains, activation: str, want: None | str = "tiled") -> str:
     """The route the chain backward took on ``chains``, which must be
     ``want``."""
     from rl8_tpu_torch.ops import fused_chains_bwd
@@ -1569,7 +1653,7 @@ def backward_route(torch, x, chains, activation: str, want: str = "tiled") -> st
                           routes, want)
 
 
-def forward_route(torch, x, chains, activation: str, want: str = "tiled") -> str:
+def forward_route(torch, x, chains, activation: str, want: None | str = "tiled") -> str:
     """The route the chain forward took on ``chains``, which must be
     ``want``."""
     from rl8_tpu_torch.ops import fused_chains_fwd
@@ -1952,6 +2036,7 @@ def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
     values and the log-probs of the stored actions, and the stored next
     states (where no reset follows). Returns the largest difference."""
     from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.views import tree_map
 
     h, model = algo.hparams, algo.policy.model
     algo.collect()
@@ -1965,7 +2050,8 @@ def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
     with torch.no_grad():
         for t in range(T):
             step_states = {k: v[t] for k, v in states.items()}
-            (features, values), new_states = model({DataKeys.OBS: buffer[DataKeys.OBS][t][:, None]}, step_states)
+            obs = tree_map(lambda o: o[t][:, None], buffer[DataKeys.OBS])
+            (features, values), new_states = model({DataKeys.OBS: obs}, step_states)
             logp = algo.policy.distribution_cls(features, model).logp(buffer[DataKeys.ACTIONS][t])
             for what, got, want in (("values", buffer[DataKeys.VALUES][t], values),
                                     ("logp", buffer[DataKeys.LOGP][t], logp)):
@@ -1992,9 +2078,7 @@ def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibat
     timing with ``fused_forward=False`` (module forward, autograd on
     cuBLAS), which must launch no chain kernel."""
     from rl8_tpu_torch import AlgorithmConfig
-    from rl8_tpu_torch.algorithms._feedforward import _t2b
     from rl8_tpu_torch.data import DataKeys
-    from rl8_tpu_torch.distributions import Categorical
     from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
     from rl8_tpu_torch.ops import (
         fused_act,
@@ -2035,16 +2119,8 @@ def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibat
         if fused:
             kernels["chains_fwd"]["launches"], kernels["chains_bwd"]["launches"] = fwd, bwd
             # The rollout against the module on the buffer's training views.
-            algo.collect()
+            worst, features = check_custom_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
             buffer = algo.state.buffer
-            with torch.no_grad():
-                features, values = model(algo._training_views(buffer[DataKeys.OBS]))
-                logp = Categorical(features).logp(_t2b(buffer[DataKeys.ACTIONS]))
-            worst = 0.0
-            for what, got, want_t in (("logp", _t2b(buffer[DataKeys.LOGP]), logp),
-                                      ("values", _t2b(buffer[DataKeys.VALUES][:-1]), values)):
-                worst = max(worst, float((got - want_t).abs().max()))
-                check(torch.allclose(got, want_t, rtol=ACT_RTOL, atol=ACT_ATOL), f"custom rollout {what} vs module")
             masked = features["logits"] < -1e37
             check(bool((masked == ~buffer[DataKeys.OBS]["action_mask"][:-1].transpose(0, 1).reshape(-1, 1, 3)).all()),
                   "masked logits are exactly the masked actions")
@@ -2094,9 +2170,10 @@ def launch_counts() -> dict:
             "chains_fwd": fused_chains_fwd.launches, "chains_bwd": fused_chains_bwd.launches}
 
 
-def time_cell(torch, algo, phase: str, per_iteration: dict, updates_per_step: int, **extra) -> dict:
-    """One warm-up and five timed collect() + step() iterations of a cell
-    (``time_iterations``: counters set to 0 just before, read just after):
+def time_cell(torch, algo, phase: str, per_iteration: dict, updates_per_step: int, iters: int = 6, **extra) -> dict:
+    """One warm-up and ``iters - 1`` (five) timed collect() + step()
+    iterations of a cell (``time_iterations``: counters set to 0 just
+    before, read just after):
     every kernel must have launched exactly ``per_iteration`` times an
     iteration (a kernel it leaves out: none), the stats and parameters
     stay finite, the buffer is spent and the optimizer counted
@@ -2104,7 +2181,6 @@ def time_cell(torch, algo, phase: str, per_iteration: dict, updates_per_step: in
     profiled iteration for the device's idle share. Emits and returns
     the record."""
     h, model = algo.hparams, algo.policy.model
-    iters = 6
     collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
     launches = launch_counts()
     want = {k: iters * per_iteration.get(k, 0) for k in launches}
@@ -2132,6 +2208,29 @@ def time_cell(torch, algo, phase: str, per_iteration: dict, updates_per_step: in
     }
     emit(record)
     return record
+
+
+def check_custom_rollout(torch, algo, rtol: float, atol: float) -> tuple[float, dict]:
+    """Collect once more and hold a custom feedforward model's rollout
+    (log-probs of the stored actions, values) against its module forward
+    on the training views of the buffer (the rollout's view windows must
+    equal them). Returns the largest difference and the module's
+    features."""
+    from rl8_tpu_torch.algorithms._feedforward import _t2b
+    from rl8_tpu_torch.data import DataKeys
+
+    model = algo.policy.model
+    algo.collect()
+    buffer = algo.state.buffer
+    with torch.no_grad():
+        features, values = model(algo._training_views(buffer))
+        logp = algo.policy.distribution_cls(features, model).logp(_t2b(buffer[DataKeys.ACTIONS]))
+    worst = 0.0
+    for what, got, want in (("logp", _t2b(buffer[DataKeys.LOGP]), logp),
+                            ("values", _t2b(buffer[DataKeys.VALUES][:-1]), values)):
+        worst = max(worst, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=rtol, atol=atol), f"{type(model).__name__} rollout {what} vs module")
+    return worst, features
 
 
 def check_feedforward_rollout(torch, algo, rtol: float, atol: float) -> float:
@@ -2204,8 +2303,6 @@ def run_custom_amp(torch, dev) -> None:
     launch). The fused cell's rollout is held against the bf16 module on
     its training views, a few bf16 roundings apart."""
     from rl8_tpu_torch import AlgorithmConfig
-    from rl8_tpu_torch.algorithms._feedforward import _t2b
-    from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
 
     for fused in (True, False):
@@ -2222,17 +2319,114 @@ def run_custom_amp(torch, dev) -> None:
         # accumulate_grads: one optimizer update per epoch.
         time_cell(torch, algo, "custom_amp", want, h.num_sgd_iters, model="MischievousMule", accumulate_grads=True)
         if fused:
-            algo.collect()
-            buffer = algo.state.buffer
-            with torch.no_grad():
-                features, values = model(algo._training_views(buffer[DataKeys.OBS]))
-                logp = algo.policy.distribution_cls(features, model).logp(_t2b(buffer[DataKeys.ACTIONS]))
-            worst = 0.0
-            for what, got, want_t in (("logp", _t2b(buffer[DataKeys.LOGP]), logp),
-                                      ("values", _t2b(buffer[DataKeys.VALUES][:-1]), values)):
-                worst = max(worst, float((got - want_t).abs().max()))
-                check(torch.allclose(got, want_t, rtol=AMP_RTOL, atol=AMP_ATOL), f"custom_amp rollout {what}")
+            worst, _ = check_custom_rollout(torch, algo, AMP_RTOL, AMP_ATOL)
             emit({"phase": "custom_amp_rollout_vs_bf16_module", "max_abs_err": worst})
+
+
+def custom_cell(torch, name: str, fused: bool, amp: bool):
+    """``AttentiveAlpaca`` (``custom_alpaca``) or ``LazyLemur``
+    (``custom_lemur``) on ``AlgoTrading`` as the JAX bench's diagnostic
+    lines build them (``benchmarks/throughput.py:31-75``, ``bench.py:321-363``):
+    4096 envs, horizon 32, minibatches of a quarter of the buffer
+    (LazyLemur: seq_len 4, seqs_per_state_reset 2, minibatches in
+    sequences), at the models' defaults; with ``amp`` the bench's regime
+    (``dtype=bfloat16``, ``enable_amp``, ``accumulate_grads``)."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, AttentiveAlpaca, LazyLemur
+
+    common = dict(model_config={"dtype": torch.bfloat16} if amp else {}, accumulate_grads=amp, enable_amp=amp,
+                  num_envs=4096, horizon=32, sgd_minibatch_size=4096 * 32 // 4, fused_forward=fused, device="cuda")
+    if name == "custom_alpaca":
+        return AlgorithmConfig(model_cls=AttentiveAlpaca, **common).build(AlgoTrading)
+    common["sgd_minibatch_size"] //= 4
+    return RecurrentAlgorithmConfig(model_cls=LazyLemur, seq_len=4, seqs_per_state_reset=2, **common).build(AlgoTrading)
+
+
+#: Iterations of each custom-model run: one warm-up, three timed.
+CUSTOM_ITERS = 4
+
+
+def run_custom_models(torch, dev) -> None:
+    """The ``custom_alpaca`` and ``custom_lemur`` phases (custom_cell):
+    each runs f32 with ``fused_forward=True`` (the chain kernels: chain
+    forward 33 launches a collect (32 steps and the bootstrap value) and
+    16 a step, backward 16 a step, GAE 1, and no act or update kernel),
+    then the bench's bf16 regime with ``fused_forward`` True (the same
+    launches) and False (GAE only), each one warm-up and three timed
+    iterations and a profiled one (time_cell), with the launches of one
+    more collect and step printed apart. Each rollout is held against the
+    module forward recomputed on the same batch: 1e-4 in f32, the bf16
+    tolerance (AMP_RTOL) in bf16."""
+    for name in ("custom_alpaca", "custom_lemur"):
+        summary = {}
+        for fused, amp in ((True, False), (True, True), (False, True)):
+            algo = custom_cell(torch, name, fused, amp)
+            h, model = algo.hparams, algo.policy.model
+            recurrent = name == "custom_lemur"
+            check(algo._fused_forward == fused and not (algo._fused_act or algo._fused_update),
+                  f"{name}: routes {algo._fused_forward, algo._fused_act, algo._fused_update}")
+            check(model.hiddens == (64, 64) and model.dtype is (torch.bfloat16 if amp else None)
+                  and (model.hidden_size == 64 and h.seq_len == 4 if recurrent else model.seq_len == 4),
+                  f"{name}: the model's defaults")
+            per_step = h.num_sgd_iters * h.num_minibatches
+            check(per_step == 16, f"{name}: {per_step} minibatches a step")
+            chains = {"chains_fwd": h.horizon + 1 + per_step, "chains_bwd": per_step} if fused else {}
+            label = f"{'bf16' if amp else 'f32'}_{'fused' if fused else 'module'}"
+            record = time_cell(torch, algo, name, {"gae": 1, **chains}, h.num_sgd_iters if amp else per_step,
+                               iters=CUSTOM_ITERS, run=label, model=type(model).__name__)
+            # One more collect (its rollout against the module) and step,
+            # their launches apart.
+            tol = (AMP_RTOL, AMP_ATOL) if amp else (ACT_RTOL, ACT_ATOL)
+            torch.cuda.synchronize()
+            zero_counters()
+            if recurrent:
+                worst = check_recurrent_rollout(torch, algo, *tol)
+            else:
+                worst, _ = check_custom_rollout(torch, algo, *tol)
+            torch.cuda.synchronize()
+            per_collect = {k: v for k, v in launch_counts().items() if v}
+            zero_counters()
+            algo.step()
+            torch.cuda.synchronize()
+            per_step_launches = {k: v for k, v in launch_counts().items() if v}
+            want_collect = {"chains_fwd": h.horizon + 1} if fused else {}
+            want_step = {"gae": 1, **({"chains_fwd": per_step, "chains_bwd": per_step} if fused else {})}
+            check(per_collect == want_collect and per_step_launches == want_step,
+                  f"{name} {label}: launches {per_collect} a collect, {per_step_launches} a step")
+            summary[label] = {k: record[k] for k in ("transitions_per_s_with_update", "collect_ms_median",
+                                                     "step_ms_median", "device_idle_share")}
+            emit({"phase": f"{name}_launches", "run": label, "per_collect": per_collect, "per_step": per_step_launches,
+                  "rollout_vs_module_max_abs_err": worst, "rtol": tol[0], "atol": tol[1]})
+        emit({"phase": f"{name}_summary", "runs": summary})
+
+
+#: ``rl8_tpu_torch/examples/algotrading/config.yaml`` as JSON (the card's
+#: machine may lack PyYAML; the tests hold this copy to the file).
+ALGOTRADING_CONFIG = {
+    "env_cls": "rl8_tpu_torch.examples.algotrading.env.AlgoTrading",
+    "algorithm_config": {"model_cls": "rl8_tpu_torch.examples.algotrading.models.AttentiveAlpaca", "horizon": 64,
+                         "num_envs": 512, "accumulate_grads": True, "enable_amp": True, "sgd_minibatch_size": 8192},
+}
+
+
+def run_algotrading_cli(torch, dev, tmp: Path) -> None:
+    """``python -m rl8_tpu_torch train -f rl8_tpu_torch/examples/algotrading/config.yaml
+    --max-steps 2`` (the committed config, AttentiveAlpaca at 512 envs,
+    horizon 64, through the module forward) in this process: two steps
+    recorded with finite stats, GAE once a step, no other kernel."""
+    steps = 2
+    rc, trainer, records, launches = train_cli(torch, tmp, "algotrading", ALGOTRADING_CONFIG, "--max-steps",
+                                               str(steps))
+    check(rc == 0, f"algotrading: the CLI exited {rc}")
+    algo = trainer.algorithm
+    h = algo.hparams
+    check(type(algo.policy.model).__name__ == "AttentiveAlpaca" and (h.num_envs, h.horizon) == (512, 64),
+          "algotrading: the config's model and widths")
+    train, _ = check_train_records(records, h.num_envs, h.horizon, steps, None, "algotrading")
+    check(launches == {"act": 0, "continuous_act": 0, "gae": steps, "ppo": 0, "continuous_ppo": 0},
+          f"algotrading: launches {launches}")
+    emit({"phase": "algotrading_cli", "config": ALGOTRADING_CONFIG, "steps": len(train), "launches": launches,
+          "returns_mean": [r["returns/mean"] for r in train], "last_record": train[-1]})
 
 
 def run_optimizers(torch, dev) -> None:

@@ -13,9 +13,11 @@ through the act kernel of the model (feedforward, or the stacked-LSTM
 recurrent one), and the update (``step``) through the GAE kernel and the
 PPO update kernel of the model (feedforward, or the recurrent one with
 its backward through time), with clip-by-global-norm and Adam. Custom
-feedforward models (``model``/``model_cls``; ``examples.algotrading``'s
-``MischievousMule``) run their forward, with ``fused_forward=True``,
-through the chain kernels, and their update through autograd. The
+models (``model``/``model_cls``; ``examples.algotrading``'s
+``MischievousMule``, ``AttentiveAlpaca`` and the recurrent ``LazyLemur``)
+run their torso and head chains, with ``fused_forward=True``, through the
+chain kernels, and their update through autograd; their views may window
+past actions, rewards, log-probs and values. The
 trainers (``Trainer``, ``RecurrentTrainer``), stop conditions, tracking,
 ``TrainConfig`` and the ``train`` CLI (``python -m rl8_tpu_torch train -f
 config.yaml``) drive those algorithms; ``examples`` holds the
@@ -30,6 +32,9 @@ from .algorithms import Algorithm, AlgorithmConfig, RecurrentAlgorithm, Recurren
 from .env import Env
 from .trainers import RecurrentTrainer, TrainConfig, Trainer
 
+#: ``rl8_tpu``'s version: the port follows that release's API.
+__version__ = "0.5.0"
+
 __all__ = [
     "Algorithm",
     "AlgorithmConfig",
@@ -39,4 +44,5 @@ __all__ = [
     "RecurrentTrainer",
     "TrainConfig",
     "Trainer",
+    "__version__",
 ]

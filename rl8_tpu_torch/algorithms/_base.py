@@ -24,6 +24,7 @@ from ..data import AlgorithmHparams, CollectStats, DataKeys, StepStats
 from ..env import Env
 from ..nn import ppo_losses
 from ..ops import PPOLossConfig, block_shuffle, fused_gae
+from ..ops.fused_mlp import card_takes_chains, chain_names, named_chains
 from ..parallel import gmean, gstd
 from ..schedulers import EntropyScheduler, LRScheduler
 from ..utils import memory_stats, profile_ms
@@ -84,7 +85,17 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
     # set-up
     # ------------------------------------------------------------------
 
-    def _init_common(self, config: Any, unported: tuple[tuple[bool, str], ...] = ()) -> int:
+    def _check_card_takes_chains(self, model: Any) -> None:
+        """On a CUDA device, raise ``NotImplementedError`` where the card's
+        chain kernels do not take ``model``'s chains (``fused_forward``)."""
+        if self.device.type == "cuda" and not card_takes_chains(named_chains(model, chain_names(model))):
+            raise NotImplementedError(
+                f"The card's chain kernels do not take {type(model).__name__}'s chains: at most 4"
+                " chains of 1 to 8 layers and 1 to 4 heads, whose row passes must fit a block's"
+                " shared memory (the CPU takes any width)."
+            )
+
+    def _init_common(self, config: Any) -> int:
         """Refuse what the port does not run yet, then set up the device,
         the optimizer's hyperparameters, the schedulers and the random
         streams from ``config``. Returns the seed of the parameters'
@@ -93,14 +104,11 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         One host generator seeds the others and then draws the act
         kernels' per-step Philox keys; env resets and minibatch shuffles
         draw on the device."""
-        for flag, what in (
-            (config.exact_sharding, "exact_sharding, rl8_tpu's GSPMD mode of a mesh (ROADMAP Queue 1 #8)"),
-            *unported,
-        ):
-            if flag:
-                raise NotImplementedError(
-                    f"This port does not run {what} yet; it is a later slice (ROADMAP Queue 1)."
-                )
+        if config.exact_sharding:
+            raise NotImplementedError(
+                "This port does not run exact_sharding, rl8_tpu's GSPMD mode of a mesh (ROADMAP Queue 1 #8)"
+                " yet; it is a later slice (ROADMAP Queue 1)."
+            )
         if config.mesh is not None:
             raise NotImplementedError(
                 "Multi-device training is a later slice of the port (ROADMAP Queue 1, multi-device)."

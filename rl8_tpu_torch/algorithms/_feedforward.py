@@ -14,8 +14,10 @@ them, and its distribution):
   (``ops/fused_act.py``), the env step and the reversed-return update.
 - The module rollout (custom models, ``model`` or ``model_cls``, and
   default models the kernels do not take or with ``fused_act=False``):
-  each rollout step builds the model's views from a carried window of
-  observations, runs the model (through the chain kernels,
+  each rollout step builds the model's views from carried windows of
+  observations and of the actions, rewards, log-probs and values written
+  so far (the current step's still zero, as in ``rl8_tpu``), runs the
+  model (through the chain kernels,
   ``ops/fused_mlp.py``, with ``fused_forward=True`` and a model that
   declares a ``FusedApplySpec``; else its module forward) and samples its
   distribution.
@@ -53,15 +55,7 @@ from ..env import EnvFactory
 from ..models import DefaultContinuousModel, DefaultDiscreteModel, Model, ModelFactory
 from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
 from ..ops.fused_ppo import supports_distribution
-from ..ops.fused_mlp import (
-    card_takes_chains,
-    chain_names,
-    fused_custom_apply,
-    fused_default_apply,
-    load_flat_params,
-    named_chains,
-    supports_fused_apply,
-)
+from ..ops.fused_mlp import fused_custom_apply, fused_default_apply, load_flat_params, supports_fused_apply
 from ..parallel import gmax, gmean, gmin, gstd
 from ..policies import Policy
 from ..schedulers import ScheduleKind
@@ -72,8 +66,7 @@ from ._base import GenericAlgorithmBase
 
 __all__ = ["AlgorithmConfig", "Algorithm"]
 
-#: Non-observation buffer keys ``rl8_tpu``'s models may window; this port
-#: does not yet (ROADMAP Queue 1 #5).
+#: Non-observation buffer keys a model's view requirements may window.
 _VIEWABLE_NONOBS_KEYS = (DataKeys.ACTIONS, DataKeys.REWARDS, DataKeys.LOGP, DataKeys.VALUES)
 
 
@@ -306,7 +299,9 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 " training views with the rollout buffer. Use"
                 " `padded_rolling_window` (drop size 0) views instead."
             )
-        self._check_view_keys()
+        #: Non-observation buffer keys the model's views read, in
+        #: declaration order (raises on keys outside the buffer).
+        self._nonobs_roots = self._nonobs_view_roots()
 
         self.hparams = AlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * horizon)
@@ -316,13 +311,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         #: The model's forward through the chain kernels (``rl8_tpu``'s
         #: ``_fused_forward``; both of the port's devices run them).
         self._fused_forward = config.fused_forward and supports_fused_apply(model)
-        if self._fused_forward and self.device.type == "cuda":
-            if not card_takes_chains(named_chains(model, chain_names(model))):
-                raise NotImplementedError(
-                    f"The card's chain kernels do not take {type(model).__name__}'s chains: at most 4"
-                    " chains of 1 to 8 layers and 1 to 4 heads, whose row passes must fit a block's"
-                    " shared memory (the CPU takes any width)."
-                )
+        if self._fused_forward:
+            self._check_card_takes_chains(model)
         #: The autodiff route's parameters, in the order of its flat vector.
         self._params = list(model.parameters())
         if not self._fused_act:
@@ -391,34 +381,47 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             buf[DataKeys.REVERSED_DISCOUNTED_RETURNS] = torch.zeros((T + 1, B, 1), device=dev)
         return buf
 
-    def _check_view_keys(self) -> None:
-        """Refuse view requirements on anything but observations:
-        ``rl8_tpu`` also windows past actions, rewards, log-probs and
-        values, which this port does not yet, and raises for the rest."""
+    def _nonobs_view_roots(self) -> tuple[str, ...]:
+        """The non-observation buffer keys the model's view requirements
+        read (past actions, rewards, log-probs, values), in declaration
+        order; ``rl8_tpu``'s errors for nested keys and keys outside the
+        buffer."""
+        roots: dict[str, None] = {}
         for key in self.policy.model.view_requirements:
             root = key if isinstance(key, str) else (key[0] if key else "")
             if root == DataKeys.OBS:
                 continue
             if isinstance(key, tuple):
                 raise RuntimeError(
-                    f"View requirement key {key!r} is invalid: nested keys may only reference observations."
+                    f"View requirement key {key!r} is invalid: nested keys"
+                    " may only reference observations."
                 )
-            if root in _VIEWABLE_NONOBS_KEYS:
-                raise NotImplementedError(
-                    f"View requirements on {root!r} (windows of past actions, rewards, log-probs or"
-                    " values) are a later slice of the port (ROADMAP Queue 1 #5)."
+            if root not in _VIEWABLE_NONOBS_KEYS:
+                raise RuntimeError(
+                    f"View requirement key {key!r} does not reference a"
+                    f" rollout buffer entry (one of"
+                    f" {(DataKeys.OBS, *_VIEWABLE_NONOBS_KEYS)})."
                 )
-            raise RuntimeError(
-                f"View requirement key {key!r} does not reference a rollout buffer entry (one of"
-                f" {(DataKeys.OBS, *_VIEWABLE_NONOBS_KEYS)})."
-            )
+            roots[root] = None
+        return tuple(roots)
 
-    def _training_views(self, obs: Any) -> Any:
-        """The model's ``kind="all"`` views of the time-major observations
-        ``[T(+1), B, ...]``: ``[B * T, ...]`` rows aligned with the
+    def _zero_view_slot(self, root: str, B: int) -> torch.Tensor:
+        """A non-observation key's zero entry ``[B, ...]``: the buffer slot a
+        ``kind="last"`` view sees at the current step (it is written after
+        sampling)."""
+        if root == DataKeys.ACTIONS:
+            return self.env.action_spec.zero((B,), self.device)
+        return torch.zeros((B, 1), device=self.device)
+
+    def _training_views(self, buffer: dict[str, Any]) -> Any:
+        """The model's ``kind="all"`` views of the time-major buffer
+        ``[T(+1), B, ...]``: of its observations and of the non-observation
+        keys the views read; ``[B * T, ...]`` rows aligned with the
         flattened buffer (``rl8_tpu``'s ``_training_view_batch``)."""
         T = self.hparams.horizon
-        batch = {DataKeys.OBS: tree_map(lambda x: x[:T].transpose(0, 1), obs)}
+        batch = {DataKeys.OBS: tree_map(lambda x: x[:T].transpose(0, 1), buffer[DataKeys.OBS])}
+        for root in self._nonobs_roots:
+            batch[root] = buffer[root][:T].transpose(0, 1)
         return self.policy.model.apply_view_requirements(batch, kind="all")
 
     def _pad_mask(self, size: int, valid: int) -> torch.Tensor:
@@ -429,22 +432,35 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             self._pad_masks[key] = torch.arange(size, device=self.device) < size - min(valid, size)
         return self._pad_masks[key]
 
-    def _build_last_views(self, window: Any, valid: int) -> dict[str, Any]:
+    def _build_last_views(
+        self, window: Any, valid: int, nonobs: None | dict[str, torch.Tensor] = None
+    ) -> dict[str, Any]:
         """The model input of a ``kind="last"`` sample from the carried
         observation window ``[B, S + 1, ...]`` whose last ``valid`` slots
-        hold this horizon's observations: ``rl8_tpu``'s
-        ``_build_last_views`` for observation keys (the reference's
+        hold this horizon's observations, and the carried windows ``[B, S,
+        ...]`` of the non-observation keys' values written so far in this
+        horizon, each view of which ends in the current step's zero slot
+        (``rl8_tpu``'s ``_build_last_views``: the reference's
         ``apply_view_requirements(buffer[:, :t + 1], kind="last")``)."""
         B = self.hparams.num_envs
         out: dict[str, Any] = {}
         for key, vr in self.policy.model.view_requirements.items():
-            item = window if key == DataKeys.OBS else get_nested(window, key[1:])
-            if vr.shift == 0:
-                view = tree_map(lambda t: t[:, -1], item)
+            size = vr.shift + 1
+            if key == DataKeys.OBS or isinstance(key, tuple):  # nested keys are observations
+                item = window if key == DataKeys.OBS else get_nested(window, key[1:])
+                if vr.shift == 0:
+                    view = tree_map(lambda t: t[:, -1], item)
+                else:
+                    mask = self._pad_mask(size, valid).expand(B, size)
+                    view = tree_map(lambda t: {DataKeys.INPUTS: t[:, -size:], DataKeys.PADDING_MASK: mask}, item)
             else:
-                size = vr.shift + 1
-                mask = self._pad_mask(size, valid).expand(B, size)
-                view = tree_map(lambda t: {DataKeys.INPUTS: t[:, -size:], DataKeys.PADDING_MASK: mask}, item)
+                zero_slot = self._zero_view_slot(key, B)
+                if vr.shift == 0:
+                    view = zero_slot
+                else:
+                    w = nonobs[key]
+                    tail = torch.cat([w[:, w.shape[1] - vr.shift :], zero_slot[:, None]], dim=1)
+                    view = {DataKeys.INPUTS: tail, DataKeys.PADDING_MASK: self._pad_mask(size, valid).expand(B, size)}
             set_nested(out, key, view)
         return out
 
@@ -459,10 +475,10 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         keys = torch.randint(0, 2**32, (self.hparams.horizon, 2), generator=self._key_gen).tolist()
         step = iter(keys)
 
-        def act(obs: torch.Tensor) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        def act(obs: torch.Tensor, written: None | dict[str, torch.Tensor]) -> tuple[Any, torch.Tensor, torch.Tensor]:
             return fused_act(params, obs, tuple(next(step)), deterministic=deterministic)
 
-        def bootstrap(obs: torch.Tensor) -> torch.Tensor:
+        def bootstrap(obs: torch.Tensor, written: None | dict[str, torch.Tensor]) -> torch.Tensor:
             views = self.policy.model.apply_view_requirements({DataKeys.OBS: obs[:, None]}, kind="last")
             return self._apply_model(views)[1]
 
@@ -472,28 +488,39 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         """The module rollout's ``(act, bootstrap)``: each pushes the newest
         observation into a window of the last ``S + 1`` observations of
         this horizon (``S`` the largest view shift; zeros, flagged as
-        padding, before the horizon's first) and runs the model on its
-        views; ``act`` then samples the distribution (``rl8_tpu``'s
-        non-fused scan step)."""
+        padding, before the horizon's first) and the previous step's
+        ``written`` values (action, reward, log-prob, value) into windows
+        of the last ``S`` of them, and runs the model on its views; ``act``
+        then samples the distribution (``rl8_tpu``'s non-fused scan step).
+        The windows restart each horizon."""
         B = self.hparams.num_envs
         S = max(vr.shift for vr in self.policy.model.view_requirements.values())
-        carry: dict[str, Any] = {"window": None, "valid": 0}
+        carry: dict[str, Any] = {"window": None, "valid": 0, "nonobs": {}}
+        if S:
+            carry["nonobs"] = {
+                root: self._zero_view_slot(root, B)[:, None].repeat_interleave(S, dim=1) for root in self._nonobs_roots
+            }
 
-        def views(obs: Any) -> dict[str, Any]:
+        def views(obs: Any, written: None | dict[str, torch.Tensor]) -> dict[str, Any]:
             if carry["window"] is None:
                 carry["window"] = tree_map(lambda o: o.new_zeros((B, S + 1, *o.shape[1:])), obs)
             carry["window"] = _map2(lambda w, o: torch.cat([w[:, 1:], o[:, None]], dim=1), carry["window"], obs)
             carry["valid"] = min(carry["valid"] + 1, S + 1)
-            return self._build_last_views(carry["window"], carry["valid"])
+            if written is not None:
+                carry["nonobs"] = {
+                    root: torch.cat([w[:, 1:], written[root].to(w.dtype)[:, None]], dim=1)
+                    for root, w in carry["nonobs"].items()
+                }
+            return self._build_last_views(carry["window"], carry["valid"], carry["nonobs"])
 
-        def act(obs: Any) -> tuple[Any, torch.Tensor, torch.Tensor]:
-            features, values = self._apply_model(views(obs))
+        def act(obs: Any, written: None | dict[str, torch.Tensor]) -> tuple[Any, torch.Tensor, torch.Tensor]:
+            features, values = self._apply_model(views(obs, written))
             dist = self.policy.distribution_cls(features, self.policy.model)
             actions = dist.deterministic_sample() if deterministic else dist.sample(self._sample_gen)
             return actions, dist.logp(actions), values
 
-        def bootstrap(obs: Any) -> torch.Tensor:
-            return self._apply_model(views(obs))[1]
+        def bootstrap(obs: Any, written: None | dict[str, torch.Tensor]) -> torch.Tensor:
+            return self._apply_model(views(obs, written))[1]
 
         return act, bootstrap
 
@@ -534,11 +561,15 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             DataKeys.REWARDS: [],
             DataKeys.REVERSED_DISCOUNTED_RETURNS: [rev],
         }
+        written = None
         for _ in range(T):
-            actions, logp, values = act(obs)
+            actions, logp, values = act(obs, written)
             env_state, obs, rewards = self.env.step(env_state, actions)
             if h.normalize_rewards:
                 rev = h.gamma * rev + rewards
+            written = {
+                DataKeys.ACTIONS: actions, DataKeys.REWARDS: rewards, DataKeys.LOGP: logp, DataKeys.VALUES: values
+            }
             for key, value in (
                 (DataKeys.OBS, obs),
                 (DataKeys.ACTIONS, actions),
@@ -549,7 +580,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             ):
                 cols[key].append(value)
         # Bootstrap value at the final observation.
-        cols[DataKeys.VALUES].append(bootstrap(obs))
+        cols[DataKeys.VALUES].append(bootstrap(obs, written))
 
         new_buffer = {key: _stack(values) for key, values in cols.items()}
         for key in (DataKeys.REWARDS, DataKeys.LOGP, DataKeys.VALUES):
@@ -602,7 +633,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 DataKeys.LOGP: _t2b(buffer[DataKeys.LOGP]),
                 DataKeys.ADVANTAGES: _t2b(advantages),
                 DataKeys.RETURNS: _t2b(returns),
-                DataKeys.VIEWS: self._training_views(buffer[DataKeys.OBS]),
+                DataKeys.VIEWS: self._training_views(buffer),
             }
         )
         if self._fused_update:
@@ -644,8 +675,13 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         B = self.hparams.num_envs
         generator = torch.Generator(device=self.device).manual_seed(0)
         env_state, obs = self.env.reset(generator)
+        # The reference samples with the whole (zeroed) buffer sliced to
+        # one step, so the non-observation keys the views read are zeros.
+        batch: dict[str, Any] = {DataKeys.OBS: tree_map(lambda o: o[:, None], obs)}
+        for root in self._nonobs_roots:
+            batch[root] = self._zero_view_slot(root, B)[:, None]
         sample = self.policy.sample(
-            {DataKeys.OBS: tree_map(lambda o: o[:, None], obs)},
+            batch,
             kind="last",
             generator=generator,
             return_logp=True,
@@ -671,7 +707,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
 
         T = self.hparams.horizon
         Bv = min(B, 2)
-        views = self._training_views(self._zero_buffer(Bv)[DataKeys.OBS])
+        views = self._training_views(self._zero_buffer(Bv))
         sample_all = self.policy.sample(
             {DataKeys.VIEWS: views},
             kind="all",

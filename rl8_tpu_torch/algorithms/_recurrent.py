@@ -7,7 +7,8 @@ that launch the port's kernels, with one host fetch each, and each has
 two routes, chosen at build by ``rl8_tpu``'s gates (``fused_act`` and
 ``fused_update``, each on where the kernels take the model: a default
 recurrent model with 1 to 8 biased LSTM layers, no compute dtype, and its
-distribution):
+distribution; any other model or distribution, custom recurrent models
+(``model``, ``model_cls``) included, takes the module routes):
 
 - ``collect`` loops over the horizon, each step one launch of the
   recurrent act kernel (``ops/fused_rnn_act.py``: the LSTM cells, the
@@ -17,7 +18,10 @@ distribution):
   states carry across collects and are re-initialized at the start of a
   sequence every ``seqs_per_state_reset`` sequences, counted by a
   host-side ``seqs``; the buffer keeps each step's input states and,
-  last, the final ones;
+  last, the final ones. With ``fused_forward=True``, a custom model that
+  declares a ``FusedRecurrentApplySpec`` runs its post-recurrence chains
+  through the chain kernels (``ops/fused_mlp.py``) wherever its forward
+  runs;
 - ``step`` runs the advantage stage through the GAE kernel, cuts the
   buffer into ``[B * T/L, L]`` sequences whose stored initial states seed
   the forward, packs them into one int32 matrix, and per epoch and
@@ -27,7 +31,8 @@ distribution):
   stop, the accumulation and the stat sums stay on the device.
 
 ``enable_amp`` gives the default model ``dtype=torch.bfloat16``, which
-takes it to the module routes, as in ``rl8_tpu``.
+takes it to the module routes, as in ``rl8_tpu``; a custom model's dtype
+is its own.
 """
 
 from __future__ import annotations
@@ -43,22 +48,29 @@ from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..ops import fused_rnn_act, fused_rnn_ppo_grads, load_rnn_params, pack_rnn_params, pack_rows
 from ..ops import card_takes_rnn_update, supports_fused_rnn_update
-from ..ops.fused_rnn_ppo import supports_rnn_distribution
+from ..ops.fused_mlp import fused_recurrent_custom_apply, supports_fused_recurrent_apply
 from ..parallel import gmax, gmean, gmin, gstd
 from ..policies import RecurrentPolicy
 from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
+from ..views import tree_map
 from ._base import GenericAlgorithmBase
+from ._feedforward import _keep_last, _stack
 
 __all__ = ["RecurrentAlgorithmConfig", "RecurrentAlgorithm"]
 
 
-def _seq_major(x: torch.Tensor, L: int) -> torch.Tensor:
+def _seq_major(x: Any, L: int) -> Any:
     """Time-major ``[T, B, ...]`` -> sequence batch ``[B * T/L, L, ...]``,
-    in ``rl8_tpu``'s element order (row ``i`` is the same sequence)."""
-    T, B = x.shape[:2]
-    x = x.reshape(T // L, L, B, *x.shape[2:]).movedim(2, 0)  # [B, T/L, L, ...]
-    return x.reshape(B * (T // L), L, *x.shape[3:])
+    leaf by leaf, in ``rl8_tpu``'s element order (row ``i`` is the same
+    sequence)."""
+
+    def leaf(x: torch.Tensor) -> torch.Tensor:
+        T, B = x.shape[:2]
+        x = x.reshape(T // L, L, B, *x.shape[2:]).movedim(2, 0)  # [B, T/L, L, ...]
+        return x.reshape(B * (T // L), L, *x.shape[3:])
+
+    return tree_map(leaf, x)
 
 
 @dataclass
@@ -68,21 +80,25 @@ class RecurrentAlgorithmConfig:
     The fields of ``rl8_tpu.algorithms.RecurrentAlgorithmConfig`` that this
     port runs, plus ``device``; see
     :class:`~rl8_tpu_torch.algorithms.AlgorithmConfig` for the shared
-    ones. The model is the default recurrent model for the env's specs
-    (a stacked LSTM), with ``Categorical`` for discrete actions and
-    ``Normal`` or ``SquashedNormal`` for continuous ones. ``model``,
-    ``model_cls``, ``mesh`` and ``exact_sharding`` exist so that a JAX
-    config carries over; any value but the default raises
-    ``NotImplementedError``. ``fused_forward`` is accepted and, as in
-    ``rl8_tpu``, stays off for the default model (it declares no
-    ``FusedRecurrentApplySpec``).
+    ones. Without ``model`` or ``model_cls`` the model is the default
+    recurrent model for the env's specs (a stacked LSTM), with
+    ``Categorical`` for discrete actions and ``Normal`` or
+    ``SquashedNormal`` for continuous ones. ``mesh`` and
+    ``exact_sharding`` exist so that a JAX config carries over; any value
+    but the default raises ``NotImplementedError``. ``fused_forward``
+    stays off, as in ``rl8_tpu``, for a model that declares no
+    ``FusedRecurrentApplySpec`` (the default one).
     """
 
-    #: A custom recurrent model instance: not in this port yet.
+    #: Recurrent model instance to use (its architecture; its parameters
+    #: are initialized from the seed). Mutually exclusive with
+    #: ``model_cls``.
     model: Any = None
-    #: A custom recurrent model class or factory: not in this port yet.
+    #: Custom recurrent model class or factory; the default recurrent
+    #: model for the env's specs if omitted.
     model_cls: Any = None
-    #: Default model kwargs: ``hidden_size`` (256), ``num_layers`` (1).
+    #: Model kwargs unpacked into the model at instantiation (the default
+    #: model's: ``hidden_size`` (256), ``num_layers`` (1)).
     model_config: None | dict[str, Any] = None
     #: Action distribution class; inferred from the action spec
     #: (``Categorical`` or ``Normal``) when omitted. ``SquashedNormal``
@@ -107,7 +123,8 @@ class RecurrentAlgorithmConfig:
     accumulate_grads: bool = False
     #: bf16 mixed precision: the default model computes in bf16
     #: (``model_config["dtype"]``, unless given), which takes it to the
-    #: module rollout and the autodiff update.
+    #: module rollout and the autodiff update; custom models are left as
+    #: they are.
     enable_amp: bool = False
     lr_schedule: None | list[tuple[int, float]] = None
     lr_schedule_kind: ScheduleKind = "step"
@@ -133,9 +150,11 @@ class RecurrentAlgorithmConfig:
     #: Run a ``torch.optim`` optimizer over one flat parameter vector;
     #: ``False`` gives it one tensor per model leaf (per-leaf state).
     flatten_optimizer: bool = True
-    #: The chain kernels of custom recurrent models declaring a
-    #: ``FusedRecurrentApplySpec`` (custom recurrent models are a later
-    #: slice, ROADMAP Queue 1 #5); off for the default model.
+    #: Evaluate the post-recurrence chains of a custom recurrent model
+    #: declaring a ``FusedRecurrentApplySpec`` through the chain kernels
+    #: (``ops/fused_mlp.py``) wherever its forward runs; off for models
+    #: without one (the default model). On a CUDA device, chains wider
+    #: than the card kernels take raise ``NotImplementedError`` at build.
     fused_forward: bool = False
     #: Compute each minibatch's losses and parameter gradients with one
     #: launch of the recurrent update kernel (``ops/fused_rnn_ppo.py``:
@@ -189,15 +208,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
 
     def __init__(self, env_cls: EnvFactory, /, config: None | RecurrentAlgorithmConfig = None) -> None:
         config = config or RecurrentAlgorithmConfig()
-        params_seed = self._init_common(
-            config,
-            unported=(
-                (
-                    config.model is not None or config.model_cls is not None,
-                    "custom recurrent models (`model`, `model_cls`; ROADMAP Queue 1 #5)",
-                ),
-            ),
-        )
+        params_seed = self._init_common(config)
         num_envs = min(config.num_envs, getattr(env_cls, "max_num_envs", config.num_envs))
         horizon = min(config.horizon, getattr(env_cls, "max_horizon", 1_000_000))
         self.env = env_cls(num_envs, horizon, device=self.device)
@@ -205,11 +216,13 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         assert_nd_spec(self.env.action_spec)
 
         model_config = dict(config.model_config or {})
-        if config.enable_amp:
+        if config.model is None and config.model_cls is None and config.enable_amp:
             model_config.setdefault("dtype", torch.bfloat16)
         self.policy = RecurrentPolicy(
             self.env.observation_spec,
             self.env.action_spec,
+            model=config.model,
+            model_cls=config.model_cls,
             model_config=model_config,
             distribution_cls=config.distribution_cls,
         )
@@ -217,21 +230,16 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         #: Whether the action distribution squashes through tanh.
         self._squashed_dist = self.policy.distribution_cls is SquashedNormal
         dist_cls, zero_entropy = self.policy.distribution_cls, self._static_zero_entropy
-        if not supports_rnn_distribution(model, dist_cls, zero_entropy=zero_entropy):
-            raise NotImplementedError(
-                "This port runs the default recurrent models: the discrete one with Categorical, the"
-                " continuous one with Normal, or with SquashedNormal when the entropy coefficient is 0"
-                f" with no schedule; not {type(model).__name__} with {dist_cls.__name__} here."
-            )
         kernels_take = supports_fused_rnn_update(model, dist_cls, zero_entropy=zero_entropy)
         #: Whether the update launches the recurrent update kernel (else
         #: autograd), and the rollout the recurrent act kernel (else the
         #: module rollout): ``rl8_tpu``'s gates.
         self._fused_update = config.fused_update and kernels_take
         self._fused_act = config.fused_act and kernels_take
-        #: The chain kernels for custom recurrent models: never on for the
-        #: default model, as in ``rl8_tpu``.
-        self._fused_forward = False
+        #: The chain kernels for the chains of a custom recurrent model
+        #: declaring a ``FusedRecurrentApplySpec`` (``rl8_tpu``'s gate; never
+        #: the default model).
+        self._fused_forward = config.fused_forward and supports_fused_recurrent_apply(model)
         self.hparams = RecurrentAlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * (horizon // max(config.seq_len, 1))),
             seq_len=config.seq_len,
@@ -239,6 +247,8 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         ).validate()
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
+        if self._fused_forward:
+            self._check_card_takes_chains(model)
         if self._fused_update and self.device.type == "cuda" and not card_takes_rnn_update(self._pack_params()):
             raise NotImplementedError(
                 f"The card's recurrent update kernel does not take hidden_size {model.hidden_size} with these"
@@ -270,11 +280,19 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         params = self._pack_params()
         return [tuple(t.shape) for tensors in (*params.lstm(), *params.heads()) for t in tensors]
 
-    def _module_act(self, obs: torch.Tensor, states: Any, deterministic: bool) -> tuple[Any, ...]:
+    def _apply_model(self, batch: Any, states: Any) -> tuple[tuple[dict[str, torch.Tensor], torch.Tensor], Any]:
+        """Model forward: the chain kernels for the chains of a custom
+        model declaring a ``FusedRecurrentApplySpec`` with
+        ``fused_forward``, the module otherwise."""
+        if self._fused_forward:
+            return fused_recurrent_custom_apply(self.policy.model, batch, states)
+        return self.policy.model(batch, states)
+
+    def _module_act(self, obs: Any, states: Any, deterministic: bool) -> tuple[Any, ...]:
         """The module rollout's step (``rl8_tpu``'s non-fused scan step):
         the model's forward on ``obs`` from ``states``, then a draw from
         its distribution. Returns ``(actions, logp, values, new_states)``."""
-        (features, values), new_states = self.policy.model({DataKeys.OBS: obs[:, None]}, states)
+        (features, values), new_states = self._apply_model({DataKeys.OBS: tree_map(lambda o: o[:, None], obs)}, states)
         dist = self.policy.distribution_cls(features, self.policy.model)
         actions = dist.deterministic_sample() if deterministic else dist.sample(self._sample_gen)
         return actions, dist.logp(actions), values, new_states
@@ -316,7 +334,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
             env_state, obs = self.env.reset(self._env_gen, state=state.env_state, config=env_config)
             rev = torch.zeros((B, 1), device=self.device)
         else:
-            env_state, obs = state.env_state, buffer[DataKeys.OBS][-1]
+            env_state, obs = state.env_state, tree_map(lambda x: x[-1], buffer[DataKeys.OBS])
             rev = (
                 buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][-1]
                 if h.normalize_rewards
@@ -368,15 +386,12 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
             states = new_states
             seqs += (t + 1) % L == 0
 
-        # Bootstrap value at the final observation from the final states,
-        # through the module.
-        (_, v_last), _ = self.policy.model({DataKeys.OBS: obs[:, None]}, states)
+        # Bootstrap value at the final observation from the final states.
+        (_, v_last), _ = self._apply_model({DataKeys.OBS: tree_map(lambda o: o[:, None], obs)}, states)
         cols[DataKeys.VALUES].append(v_last)
         cols[DataKeys.STATES].append(states)
 
-        new_buffer: dict[str, Any] = {
-            key: torch.stack(values) for key, values in cols.items() if key != DataKeys.STATES
-        }
+        new_buffer: dict[str, Any] = {key: _stack(values) for key, values in cols.items() if key != DataKeys.STATES}
         new_buffer[DataKeys.STATES] = {
             key: torch.stack([s[key] for s in cols[DataKeys.STATES]]) for key in states
         }
@@ -426,7 +441,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         # forward.
         packed, unpack = pack_rows(
             {
-                DataKeys.OBS: _seq_major(buffer[DataKeys.OBS][:T], L),
+                DataKeys.OBS: _seq_major(tree_map(lambda x: x[:T], buffer[DataKeys.OBS]), L),
                 DataKeys.STATES: {
                     key: _seq_major(value[:T], L)[:, 0] for key, value in buffer[DataKeys.STATES].items()
                 },
@@ -450,7 +465,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
             def forward(batch: Any) -> tuple[Any, torch.Tensor, dict[str, torch.Tensor]]:
                 # [mb, L] sequences from their stored initial states; the
                 # targets flattened to the model's [mb * L] rows.
-                (features, values), _ = self.policy.model({DataKeys.OBS: batch[DataKeys.OBS]}, batch[DataKeys.STATES])
+                (features, values), _ = self._apply_model({DataKeys.OBS: batch[DataKeys.OBS]}, batch[DataKeys.STATES])
                 targets = {
                     key: batch[key].reshape(-1, *batch[key].shape[2:])
                     for key in (DataKeys.ACTIONS, DataKeys.LOGP, DataKeys.ADVANTAGES, DataKeys.RETURNS)
@@ -466,9 +481,9 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         # Reset the buffer, keeping the final observation and the final
         # states.
         new_buffer: dict[str, Any] = {
-            key: torch.zeros_like(value) for key, value in buffer.items() if key != DataKeys.STATES
+            key: tree_map(torch.zeros_like, value) for key, value in buffer.items() if key != DataKeys.STATES
         }
-        new_buffer[DataKeys.OBS][-1] = buffer[DataKeys.OBS][-1]
+        _keep_last(new_buffer[DataKeys.OBS], buffer[DataKeys.OBS])
         new_buffer[DataKeys.STATES] = {}
         for key, value in buffer[DataKeys.STATES].items():
             new_buffer[DataKeys.STATES][key] = torch.zeros_like(value)
@@ -488,7 +503,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         generator = torch.Generator(device=self.device).manual_seed(0)
         env_state, obs = self.env.reset(generator)
         sample, new_states = self.policy.sample(
-            {DataKeys.OBS: obs[:, None]},
+            {DataKeys.OBS: tree_map(lambda o: o[:, None], obs)},
             self.policy.init_states(B, self.device),
             generator=generator,
             return_logp=True,

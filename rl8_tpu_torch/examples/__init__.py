@@ -3,5 +3,5 @@
 (``cartpole``, ``pendulum``, ``mountain_car``), each with a run script
 (``python -m rl8_tpu_torch.examples.cartpole``) and a ``config.yaml`` for
 the ``train`` CLI, ``dummy.yaml`` (``DiscreteDummyEnv``), and
-``algotrading`` with ``MischievousMule`` (its other models and run script
-are ROADMAP Queue 1 #5)."""
+``algotrading`` with its three custom models, its run script and its
+``config.yaml``."""

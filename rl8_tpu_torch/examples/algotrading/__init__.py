@@ -1,6 +1,10 @@
 """The algotrading example: a mock trading environment with composite
-observations and masked categorical actions (counterpart of
-``examples/algotrading``).
+observations and masked categorical actions, and three custom models:
+``MischievousMule`` (an MLP), ``AttentiveAlpaca`` (self-attention) and
+``LazyLemur`` (an LSTM) (counterpart of ``examples/algotrading``). Train
+one with ``python -m rl8_tpu_torch.examples.algotrading --model
+{lstm,mlp,transformer}``, or the ``config.yaml`` beside this file with
+``python -m rl8_tpu_torch train -f``.
 
 Examples:
     >>> from rl8_tpu_torch import AlgorithmConfig
@@ -15,6 +19,6 @@ Examples:
 """
 
 from .env import Action, AlgoTrading
-from .models import MischievousMule
+from .models import AttentiveAlpaca, LazyLemur, MischievousMule
 
-__all__ = ["Action", "AlgoTrading", "MischievousMule"]
+__all__ = ["Action", "AlgoTrading", "AttentiveAlpaca", "LazyLemur", "MischievousMule"]

@@ -1,7 +1,8 @@
 """Custom algotrading models (counterpart of
-``examples/algotrading/models``). ``AttentiveAlpaca`` and ``LazyLemur``
-come in a later slice (ROADMAP Queue 1 #5)."""
+``examples/algotrading/models``)."""
 
+from .lstm import LazyLemur
 from .mlp import MischievousMule
+from .transformer import AttentiveAlpaca
 
-__all__ = ["MischievousMule"]
+__all__ = ["AttentiveAlpaca", "LazyLemur", "MischievousMule"]

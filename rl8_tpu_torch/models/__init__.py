@@ -9,6 +9,7 @@ from ._feedforward import (
     ModelFactory,
     lecun_normal_,
     small_uniform_,
+    small_uniform_init,
 )
 from ._recurrent import (
     DefaultContinuousRecurrentModel,
@@ -34,5 +35,6 @@ __all__ = [
     "lecun_normal_",
     "load_jax_params",
     "small_uniform_",
+    "small_uniform_init",
     "to_jax_params",
 ]

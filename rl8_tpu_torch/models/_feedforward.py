@@ -11,7 +11,6 @@ values are cast back to f32 where ``rl8_tpu``'s models cast them.
 
 from __future__ import annotations
 
-import math
 from typing import Any, Protocol, Sequence
 
 import torch
@@ -19,6 +18,7 @@ from torch import nn
 
 from ..data import DataKeys
 from ..nn.modules import MLP, dense, get_activation
+from ..nn.modules.mlp import lecun_normal_
 from ..specs import Discrete, Spec, Unbounded, assert_1d_spec
 from ..utils import set_nested
 from ..views import ViewKind, ViewRequirement
@@ -32,23 +32,32 @@ __all__ = [
     "DefaultDiscreteModel",
     "lecun_normal_",
     "small_uniform_",
+    "small_uniform_init",
 ]
-
-#: Std of the unit normal truncated to [-2, 2]; flax's truncated-normal
-#: variance scaling divides by it so the kept draws have unit variance.
-_TRUNC_STD = 0.87962566103423978
-
-
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """flax's default ``Dense`` kernel init for an ``[out, in]`` weight:
-    a normal truncated at two stds, variance ``1 / fan_in``."""
-    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
-    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def small_uniform_(weight: torch.Tensor, generator: torch.Generator, scale: float = 1e-3) -> torch.Tensor:
     """Symmetric small-uniform init used for output heads."""
     return nn.init.uniform_(weight, -scale, scale, generator=generator)
+
+
+def small_uniform_init(scale: float = 1e-3) -> Any:
+    """``rl8_tpu``'s initializer factory: ``init(weight, generator)`` fills
+    ``weight`` in place from U(-scale, scale) (:func:`small_uniform_`).
+
+    Examples:
+        >>> import torch
+        >>> from rl8_tpu_torch.models import small_uniform_init
+        >>> w = small_uniform_init(0.1)(torch.empty(3, 4), torch.Generator().manual_seed(0))
+        >>> bool(w.abs().max() <= 0.1)
+        True
+
+    """
+
+    def init(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        return small_uniform_(weight, generator, scale)
+
+    return init
 
 
 def _model_input(batch: Any, dtype: Any) -> torch.Tensor:

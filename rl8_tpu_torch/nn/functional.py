@@ -5,6 +5,12 @@ rollout buffer. :func:`ppo_losses` is the autodiff-able PPO loss; the
 update's main path computes the same losses and their gradients in the
 fused kernel (``ops/fused_ppo.py``), and the tests differentiate this one
 with ``torch.autograd`` to hold the kernel's hand-derived backward.
+
+The masked ops keep ``rl8_tpu``'s finite masking: a mask enters logits as
+``log(mask)`` clipped to f32's finite range, ``masked_max`` fills with
+f32's finite minimum, and ``masked_avg`` floors its denominator at 1e-9,
+so a fully masked row gives 0 or a uniform result, never NaN. (In bf16
+the clip bounds round to infinities, as they do in ``rl8_tpu``.)
 """
 
 from __future__ import annotations
@@ -15,7 +21,33 @@ import torch
 
 from ..data import DataKeys
 
-__all__ = ["generalized_advantage_estimate", "ppo_losses"]
+__all__ = [
+    "binary_mask_to_float_mask",
+    "float_mask_to_binary_mask",
+    "generalized_advantage_estimate",
+    "mask_from_lengths",
+    "masked_avg",
+    "masked_categorical_sample",
+    "masked_log_softmax",
+    "masked_max",
+    "ppo_losses",
+    "skip_connection",
+]
+
+#: f32's finite extremes: the clip bounds of ``log(mask)`` and the fill of
+#: :func:`masked_max`.
+FMIN = float(torch.finfo(torch.float32).min)
+FMAX = float(torch.finfo(torch.float32).max)
+
+
+def binary_mask_to_float_mask(mask: torch.Tensor, /) -> torch.Tensor:
+    """Convert ``0``/``1`` mask elements to ``-inf``/``0`` (f32)."""
+    return torch.where(mask == 0, float("-inf"), 0.0).to(torch.float32)
+
+
+def float_mask_to_binary_mask(mask: torch.Tensor, /) -> torch.Tensor:
+    """Convert ``0``/``-inf`` mask elements to ``True``/``False``."""
+    return mask == 0.0
 
 
 def generalized_advantage_estimate(
@@ -68,6 +100,102 @@ def generalized_advantage_estimate(
     if normalize_advantages:
         advantages = (advantages - advantages.mean()) / (advantages.std(correction=1) + 1e-8)
     return advantages, returns
+
+
+def mask_from_lengths(x: torch.Tensor, lengths: torch.Tensor, /) -> torch.Tensor:
+    """Sequence mask ``[B, T]`` of ``x [B, T, ...]``, ``True`` where the
+    position is below the row's ``lengths [B]``.
+
+    Examples:
+        >>> import torch
+        >>> from rl8_tpu_torch.nn import mask_from_lengths
+        >>> mask_from_lengths(torch.zeros(2, 3), torch.tensor([1, 3])).tolist()
+        [[True, False, False], [True, True, True]]
+
+    """
+    T = x.shape[1]
+    return torch.arange(T, device=x.device)[None, :] < lengths.to(torch.int32).reshape(-1, 1)
+
+
+def _broadcast_mask(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    while mask.dim() < x.dim():
+        mask = mask[..., None]
+    return mask
+
+
+def _mask_logits(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``x + clip(log(mask), FMIN, FMAX)`` in ``x``'s dtype."""
+    log_mask = torch.log(_broadcast_mask(mask, x).to(x.dtype))
+    lo, hi = (torch.tensor(v, dtype=x.dtype, device=x.device) for v in (FMIN, FMAX))
+    return x + torch.clamp(log_mask, lo, hi)
+
+
+def masked_avg(
+    x: torch.Tensor,
+    /,
+    *,
+    mask: None | torch.Tensor = None,
+    dim: int = 1,
+    keepdim: bool = False,
+) -> torch.Tensor:
+    """Masked average of ``x`` along ``dim`` (``mask`` ``True`` = keep);
+    a fully masked row averages to 0.
+
+    Examples:
+        >>> import torch
+        >>> from rl8_tpu_torch.nn import masked_avg
+        >>> x = torch.tensor([[1.0, 2.0, 9.0]])
+        >>> masked_avg(x, mask=torch.tensor([[True, True, False]]), dim=1).tolist()
+        [1.5]
+
+    """
+    if mask is not None:
+        mask = _broadcast_mask(mask, x).to(x.dtype)
+        denom = torch.clamp_min(mask.sum(dim=dim, keepdim=True), 1e-9)
+        avg = (mask * x).sum(dim=dim, keepdim=True) / denom
+    else:
+        avg = x.mean(dim=dim, keepdim=True)
+    return avg if keepdim else avg.squeeze(dim)
+
+
+def masked_categorical_sample(
+    x: torch.Tensor,
+    /,
+    *,
+    generator: None | torch.Generator = None,
+    mask: None | torch.Tensor = None,
+    dim: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample indices along ``dim`` from the logits ``x`` with the masked
+    entries (``mask`` ``False``) excluded; returns the sampled (masked)
+    logits and their indices, both with ``dim`` kept. ``generator`` takes
+    the place of ``rl8_tpu``'s PRNG key."""
+    if mask is not None:
+        x = _mask_logits(x, mask)
+    moved = x.movedim(dim, -1)
+    probs = torch.softmax(moved.to(torch.float32), dim=-1).reshape(-1, moved.shape[-1])
+    samples = torch.multinomial(probs, 1, generator=generator).reshape(*moved.shape[:-1], 1).movedim(-1, dim)
+    return torch.gather(x, dim, samples), samples
+
+
+def masked_log_softmax(x: torch.Tensor, /, *, mask: None | torch.Tensor = None, dim: int = -1) -> torch.Tensor:
+    """Log-softmax of ``x`` along ``dim`` with the masked entries (``mask``
+    ``False``) pushed to f32's finite minimum."""
+    if mask is not None:
+        x = _mask_logits(x, mask)
+    return torch.log_softmax(x, dim=dim)
+
+
+def masked_max(
+    x: torch.Tensor, /, *, mask: None | torch.Tensor = None, dim: int = 1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Max of ``x`` along ``dim`` over the entries ``mask`` keeps, and its
+    (first) index, both with ``dim`` kept."""
+    if mask is not None:
+        fill = torch.tensor(FMIN, dtype=x.dtype, device=x.device)
+        x = torch.where(_broadcast_mask(mask, x).to(torch.bool), x, fill)
+    idx = torch.argmax(x, dim=dim, keepdim=True)
+    return torch.gather(x, dim, idx), idx
 
 
 def _smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -137,3 +265,17 @@ def ppo_losses(
         "vf": vf_loss,
         "total": total_loss,
     }
+
+
+def skip_connection(x: torch.Tensor, y: torch.Tensor, /, *, kind: None | str = "cat", dim: int = -1) -> torch.Tensor:
+    """Combine ``x`` and ``y`` by residual sum (``"residual"``),
+    concatenation along ``dim`` (``"cat"``), or pass ``y`` through
+    (``None``)."""
+    match kind:
+        case "residual":
+            return x + y
+        case "cat":
+            return torch.cat([x, y], dim=dim)
+        case None:
+            return y
+    raise ValueError(f"No skip connection type for {kind}.")

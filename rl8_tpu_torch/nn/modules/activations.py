@@ -8,13 +8,21 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["ACTIVATIONS", "get_activation", "squared_relu"]
+__all__ = ["ACTIVATIONS", "SquaredReLU", "get_activation", "squared_relu"]
 
 
 def squared_relu(x: torch.Tensor) -> torch.Tensor:
     """ReLU squared, from `Primer <https://arxiv.org/abs/2109.08668>`_."""
     return torch.square(F.relu(x))
+
+
+class SquaredReLU(nn.Module):
+    """Module form of :func:`squared_relu`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return squared_relu(x)
 
 
 def _hard_shrink(x: torch.Tensor, lambd: float = 0.5) -> torch.Tensor:

@@ -13,7 +13,8 @@ parameters stay f32, and each layer casts its input and parameters to
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import math
+from typing import Any, NamedTuple, Sequence
 
 import torch
 from torch import nn
@@ -21,7 +22,66 @@ from torch import nn
 from .activations import get_activation
 from .normalization import LayerNorm
 
-__all__ = ["MLP", "dense"]
+__all__ = ["MLP", "JaxLeaf", "dense", "dense_leaves", "flax_init_", "lecun_normal_", "prefixed"]
+
+#: Std of the unit normal truncated to [-2, 2]; flax's truncated-normal
+#: variance scaling divides by it so the kept draws have unit variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default ``Dense`` kernel init for an ``[out, in]`` weight:
+    a normal truncated at two stds, variance ``1 / fan_in``."""
+    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers on every submodule of ``module``, in
+    ``modules()`` order: lecun-normal linear weights (a ``DenseGeneral``'s
+    fan-in is its contracted width, the ``in`` of its ``nn.Linear``), zero
+    biases, LayerNorm scale 1 and bias 0. Other parameters keep their
+    values."""
+    from .normalization import LayerNorm
+
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, nn.Linear):
+                lecun_normal_(sub.weight, generator)
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, LayerNorm):
+                sub.reset_parameters()
+
+
+class JaxLeaf(NamedTuple):
+    """A parameter and the shape of its leaf in ``rl8_tpu``'s flax tree
+    (``models/convert.py`` reads these). With ``kernel``, ``param`` is an
+    ``nn.Linear`` weight ``[out, in]`` whose flax kernel is its transpose
+    reshaped to ``shape`` (a ``Dense`` kernel ``[in, out]``, or a
+    ``DenseGeneral`` one such as attention's ``[E, H, dh]``); else the leaf
+    is ``param`` reshaped to ``shape``."""
+
+    param: torch.Tensor
+    shape: tuple[int, ...]
+    kernel: bool = False
+
+
+def prefixed(prefix: tuple[str, ...], leaves: dict[tuple[str, ...], JaxLeaf]) -> dict[tuple[str, ...], JaxLeaf]:
+    """``leaves`` with ``prefix`` before every path."""
+    return {(*prefix, *path): leaf for path, leaf in leaves.items()}
+
+
+def dense_leaves(
+    layer: nn.Linear, kernel_shape: None | tuple[int, ...] = None, bias_shape: None | tuple[int, ...] = None
+) -> dict[tuple[str, ...], JaxLeaf]:
+    """The flax leaves of a ``Dense`` (or, with the shapes, a
+    ``DenseGeneral``) held by ``layer``."""
+    out_f, in_f = layer.weight.shape
+    leaves = {("kernel",): JaxLeaf(layer.weight, kernel_shape or (in_f, out_f), True)}
+    if layer.bias is not None:
+        leaves[("bias",)] = JaxLeaf(layer.bias, bias_shape or (out_f,))
+    return leaves
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Any = None) -> torch.Tensor:
@@ -84,6 +144,15 @@ class MLP(nn.Module):
     @property
     def layer_norm(self) -> bool:
         return len(self.norms) > 0
+
+    def jax_leaves(self) -> dict[tuple[str, ...], JaxLeaf]:
+        """The flax tree's leaves: ``Dense_i`` and ``LayerNorm_i``."""
+        leaves: dict[tuple[str, ...], JaxLeaf] = {}
+        for i, layer in enumerate(self.layers):
+            leaves.update(prefixed((f"Dense_{i}",), dense_leaves(layer)))
+        for i, norm in enumerate(self.norms):
+            leaves.update(prefixed((f"LayerNorm_{i}",), norm.jax_leaves()))
+        return leaves
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers[:-1]):

@@ -58,6 +58,12 @@ class LayerNorm(nn.Module):
             self.scale.fill_(1.0)
             self.bias.zero_()
 
+    def jax_leaves(self) -> dict[tuple[str, ...], Any]:
+        """The flax tree's leaves: ``scale`` and ``bias``."""
+        from .mlp import JaxLeaf
+
+        return {(name,): JaxLeaf(getattr(self, name), tuple(self.scale.shape)) for name in ("scale", "bias")}
+
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         if self.dtype is None:
             return layer_norm_stats(z)[0] * self.scale + self.bias

@@ -9,6 +9,7 @@ raise. The kernels are built from ``csrc/`` at first use.
 from .fused_act import ActParams, act_plain, fused_act, pack_act_params
 from .fused_mlp import (
     FusedApplySpec,
+    FusedRecurrentApplySpec,
     card_takes_chains,
     chains_vjp_plain,
     forward_chains,
@@ -17,7 +18,9 @@ from .fused_mlp import (
     fused_chains_fwd,
     fused_custom_apply,
     fused_default_apply,
+    fused_recurrent_custom_apply,
     supports_fused_apply,
+    supports_fused_recurrent_apply,
 )
 from .fused_ppo import PPOLossConfig, fused_ppo_grads, ppo_grads_plain, supports_fused_update
 from .fused_rnn_act import RnnParams, fused_rnn_act, load_rnn_params, pack_rnn_params, rnn_act_plain
@@ -28,6 +31,7 @@ from .packing import RowUnpacker, block_shuffle, pack_rows
 __all__ = [
     "ActParams",
     "FusedApplySpec",
+    "FusedRecurrentApplySpec",
     "PPOLossConfig",
     "RnnParams",
     "RowUnpacker",
@@ -44,6 +48,7 @@ __all__ = [
     "fused_custom_apply",
     "fused_default_apply",
     "fused_gae",
+    "fused_recurrent_custom_apply",
     "fused_ppo_grads",
     "fused_rnn_act",
     "fused_rnn_ppo_grads",
@@ -56,6 +61,7 @@ __all__ = [
     "rnn_act_plain",
     "rnn_ppo_grads_plain",
     "supports_fused_apply",
+    "supports_fused_recurrent_apply",
     "supports_fused_rnn_update",
     "supports_fused_update",
 ]

@@ -22,7 +22,10 @@ each head is a linear ``(W, b)``. Several chains share one input.
   VJP does.
 - :class:`FusedApplySpec`, :func:`supports_fused_apply`,
   :func:`fused_custom_apply` and :func:`fused_default_apply` run a
-  model's forward through :func:`fused_chains`.
+  model's forward through :func:`fused_chains`; for custom recurrent
+  models, :class:`FusedRecurrentApplySpec`,
+  :func:`supports_fused_recurrent_apply` and
+  :func:`fused_recurrent_custom_apply`.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ._build import check, load
 __all__ = [
     "ACT_FNS",
     "FusedApplySpec",
+    "FusedRecurrentApplySpec",
     "card_takes_chains",
     "chain_names",
     "chain_structure",
@@ -53,9 +57,11 @@ __all__ = [
     "fused_chains_fwd",
     "fused_custom_apply",
     "fused_default_apply",
+    "fused_recurrent_custom_apply",
     "load_flat_params",
     "named_chains",
     "supports_fused_apply",
+    "supports_fused_recurrent_apply",
     "unflatten_chains",
 ]
 
@@ -110,6 +116,27 @@ class FusedApplySpec:
     """
 
     assemble: Callable[[Any], torch.Tensor]
+    finalize: Callable[[Any, Any], tuple[dict[str, torch.Tensor], torch.Tensor]]
+    chain_names: tuple[tuple[str, tuple[str, ...]], ...]
+
+
+@dataclass(frozen=True)
+class FusedRecurrentApplySpec:
+    """:class:`FusedApplySpec` for a custom recurrent model (``rl8_tpu``'s
+    ``FusedRecurrentApplySpec``): ``assemble`` runs the recurrent front
+    half (states thread serially over time) and returns the chains' input
+    with the new states; the per-row torso and head chains run through
+    :func:`fused_chains`, whose ``dx`` carries the gradient back through
+    time.
+
+    Attributes:
+        assemble: ``(batch [B, T, ...], states) -> (x [B * T, d],
+            new_states)``.
+        finalize: ``(batch, outs) -> (features, values)``.
+        chain_names: As in :class:`FusedApplySpec`.
+    """
+
+    assemble: Callable[[Any, Any], tuple[torch.Tensor, Any]]
     finalize: Callable[[Any, Any], tuple[dict[str, torch.Tensor], torch.Tensor]]
     chain_names: tuple[tuple[str, tuple[str, ...]], ...]
 
@@ -548,18 +575,19 @@ def fused_chains(activation: str, x: torch.Tensor, chains: Sequence[Chain]) -> t
 # ----------------------------------------------------------------------
 
 
-def _custom_spec(model: Any) -> None | FusedApplySpec:
-    """The model's :class:`FusedApplySpec` when it declares one and the
-    kernels can honor it, else ``None``: a kernel activation, and a
-    compute dtype of ``None`` or ``torch.bfloat16`` (``rl8_tpu``'s gate).
-    A bf16 (AMP) model's chains run in the kernels' f32, which only
-    tightens its numerics, as ``rl8_tpu``'s bf16-operand, f32-accumulating
-    kernels do; any other dtype keeps the module forward."""
+def _custom_spec(model: Any, cls: type = FusedApplySpec) -> Any:
+    """The model's spec of class ``cls`` (:class:`FusedApplySpec` or
+    :class:`FusedRecurrentApplySpec`) when it declares one and the kernels
+    can honor it, else ``None``: a kernel activation, and a compute dtype
+    of ``None`` or ``torch.bfloat16`` (``rl8_tpu``'s gate). A bf16 (AMP)
+    model's chains run in the kernels' f32, which only tightens its
+    numerics, as ``rl8_tpu``'s bf16-operand, f32-accumulating kernels do;
+    any other dtype keeps the module forward."""
     get_spec = getattr(model, "fused_apply_spec", None)
     if get_spec is None:
         return None
     spec = get_spec()
-    if not isinstance(spec, FusedApplySpec):
+    if not isinstance(spec, cls):
         return None
     if getattr(model, "dtype", None) not in (None, torch.bfloat16):
         return None
@@ -597,6 +625,28 @@ def fused_custom_apply(model: Any, batch: Any) -> tuple[dict[str, torch.Tensor],
     x = spec.assemble(batch)
     outs = fused_chains(model.activation_fn, x, named_chains(model, spec.chain_names))
     return spec.finalize(batch, outs)
+
+
+def supports_fused_recurrent_apply(model: Any) -> bool:
+    """Whether ``model`` declares a :class:`FusedRecurrentApplySpec` the
+    chain kernels can honor (:func:`_custom_spec`'s dtype and activation
+    rules)."""
+    return _custom_spec(model, FusedRecurrentApplySpec) is not None
+
+
+def fused_recurrent_custom_apply(
+    model: Any, batch: Any, states: Any
+) -> tuple[tuple[dict[str, torch.Tensor], torch.Tensor], Any]:
+    """``model(batch, states)`` for a recurrent model declaring a
+    :class:`FusedRecurrentApplySpec`: ``assemble`` (the recurrent front
+    half) and ``finalize`` in plain PyTorch, the chains through
+    :func:`fused_chains`. Differentiable end to end, through time too."""
+    spec = _custom_spec(model, FusedRecurrentApplySpec)
+    if spec is None:
+        raise TypeError(f"{type(model).__name__} has no fused recurrent apply spec the chain kernels take.")
+    x, new_states = spec.assemble(batch, states)
+    outs = fused_chains(model.activation_fn, x, named_chains(model, spec.chain_names))
+    return spec.finalize(batch, outs), new_states
 
 
 def fused_default_apply(model: Any, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:

@@ -279,7 +279,7 @@ def test_enable_amp_collect_and_learning_drive() -> None:
         buf = algo.state.buffer
         assert buf[DataKeys.LOGP].dtype == buf[DataKeys.VALUES].dtype == torch.float32
         with torch.no_grad():
-            _, values = algo.policy.model(algo._training_views(buf[DataKeys.OBS]))
+            _, values = algo.policy.model(algo._training_views(buf))
         v = buf[DataKeys.VALUES][:-1].transpose(0, 1).reshape(-1, 1)
         torch.testing.assert_close(values, v, rtol=1e-6, atol=1e-6)
         algo.step()

@@ -23,7 +23,7 @@ from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig, Trainer
 from rl8_tpu_torch.checkpoint import checkpoint_exists, restore_checkpoint, save_checkpoint
 from rl8_tpu_torch.conditions import HitsUpperBound
 from rl8_tpu_torch.env import ContinuousDummyEnv, DiscreteDummyEnv
-from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+from rl8_tpu_torch.examples.algotrading import AlgoTrading, AttentiveAlpaca, LazyLemur, MischievousMule
 from rl8_tpu_torch.examples.cartpole import CartPole
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,8 +36,9 @@ RCFG = dict(
 #: rollout's (its sample generator), a continuous distribution, a custom
 #: model with shuffled minibatches, an env state with Python values, the
 #: recurrent algorithm, ``torch.optim`` optimizers (their state flat and
-#: per leaf, gated by a KL stop), and AMP on both algorithms (the module
-#: routes, the recurrent one's sample generator).
+#: per leaf, gated by a KL stop), AMP on both algorithms (the module
+#: routes, the recurrent one's sample generator), and the attention and
+#: custom recurrent models (shared attention parameters; custom states).
 MAKERS = {
     "discrete": lambda: AlgorithmConfig(**CFG).build(DiscreteDummyEnv),
     "module_rollout": lambda: AlgorithmConfig(**CFG, fused_act=False).build(DiscreteDummyEnv),
@@ -56,6 +57,14 @@ MAKERS = {
     "recurrent_amp_adamw": lambda: RecurrentAlgorithmConfig(
         **RCFG, enable_amp=True, optimizer_cls=torch.optim.AdamW, flatten_optimizer=False
     ).build(DiscreteDummyEnv),
+    "alpaca": lambda: AlgorithmConfig(
+        **{**CFG, "num_envs": 16, "model_config": {"hiddens": (16, 16)}}, model_cls=AttentiveAlpaca,
+        fused_forward=True, sgd_minibatch_size=64,
+    ).build(AlgoTrading),
+    "lemur": lambda: RecurrentAlgorithmConfig(
+        **{**RCFG, "num_envs": 16, "model_config": {"hiddens": (16, 16), "hidden_size": 8}}, model_cls=LazyLemur,
+        fused_forward=True, sgd_minibatch_size=16,
+    ).build(AlgoTrading),
 }
 
 

@@ -211,25 +211,53 @@ def test_step_requires_collect_and_train_steps() -> None:
         algo.train_steps(0)
 
 
+def _jax_kw(kw: dict) -> None | dict:
+    """``rl8_tpu``'s counterpart of a case that it builds the same way
+    (custom models, the distribution), else ``None``."""
+    from rl8_tpu.distributions import Normal as JNormal
+
+    if "model" in kw or "model_cls" in kw:
+        return kw
+    if kw.get("distribution_cls") is Normal:
+        return {"distribution_cls": JNormal}
+    return None
+
+
 @pytest.mark.parametrize(
     "kw,error",
     [
-        ({"model": object()}, NotImplementedError),
-        ({"model_cls": object}, NotImplementedError),
+        ({"model": object()}, AttributeError),
+        ({"model_cls": object}, TypeError),
         ({"optimizer_cls": object()}, TypeError),
         ({"mesh": object()}, NotImplementedError),
         ({"optimizer_config": {"lr": 1e-3, "nesterov": True}}, NotImplementedError),
-        ({"distribution_cls": Normal}, NotImplementedError),
+        ({"distribution_cls": Normal}, KeyError),
         ({"model_config": {"hidden_size": 8, "bias": False}}, NotImplementedError),
         ({"seq_len": 3}, ValueError),
         ({"seqs_per_state_reset": 0}, ValueError),
         ({"sgd_minibatch_size": 3}, ValueError),
         ({"exact_sharding": True}, NotImplementedError),
     ],
+    # The cases keep the names they had when the first two and the sixth
+    # asserted the port's refusal (NotImplementedError).
+    ids=[f"kw{i}-{e}" for i, e in enumerate(
+        ["NotImplementedError"] * 2 + ["TypeError"] + ["NotImplementedError"] * 4 + ["ValueError"] * 3
+        + ["NotImplementedError"]
+    )],
 )
 def test_unported_and_invalid_configurations_raise(kw: dict, error: type) -> None:
+    """Invalid configurations and the port's refusals raise. Custom models
+    and distributions build as in ``rl8_tpu``, so an object that is not a
+    recurrent model, or a ``Normal`` over the discrete model's logits,
+    raises what ``rl8_tpu`` raises (held against it here)."""
     with pytest.raises(error):
         _port(**kw)
+    jax_kw = _jax_kw(kw)
+    if jax_kw is not None:
+        with pytest.raises(error):
+            JRecurrentAlgorithmConfig(
+                num_envs=4, horizon=4, seq_len=2, seqs_per_state_reset=2, model_config={"hidden_size": 8}, **jax_kw
+            ).build(jenv.DiscreteDummyEnv)
 
 
 def test_fused_forward_is_accepted_and_off_like_jax() -> None:
@@ -276,12 +304,23 @@ def test_zero_seq_len_raises_the_hparams_error() -> None:
 
 
 def test_squashed_normal_needs_zero_entropy() -> None:
-    config = dict(
-        num_envs=4, horizon=4, seq_len=2, seqs_per_state_reset=2, model_config={"hidden_size": 8}, device="cpu",
-        distribution_cls=SquashedNormal,
-    )
-    with pytest.raises(NotImplementedError, match="SquashedNormal"):
-        RecurrentAlgorithmConfig(**config, entropy_coeff=0.01).build(tenv.ContinuousDummyEnv)
+    """``SquashedNormal`` has no entropy: with an entropy bonus it builds
+    and collects (on the module routes) and its ``step()`` raises
+    ``NotImplementedError``, as ``rl8_tpu``'s does; without one it trains
+    on the kernels."""
+    from rl8_tpu.distributions import SquashedNormal as JSquashedNormal
+
+    common = dict(num_envs=4, horizon=4, seq_len=2, seqs_per_state_reset=2, model_config={"hidden_size": 8})
+    config = dict(**common, device="cpu", distribution_cls=SquashedNormal)
+    for algo in (
+        RecurrentAlgorithmConfig(**config, entropy_coeff=0.01).build(tenv.ContinuousDummyEnv),
+        JRecurrentAlgorithmConfig(**common, distribution_cls=JSquashedNormal, entropy_coeff=0.01).build(
+            jenv.ContinuousDummyEnv
+        ),
+    ):
+        algo.collect()
+        with pytest.raises(NotImplementedError, match="SquashedNormal"):
+            algo.step()
     algo = RecurrentAlgorithmConfig(**config).build(tenv.ContinuousDummyEnv)
     algo.collect()
     assert float(algo.state.buffer[DataKeys.ACTIONS].abs().max()) <= 1.0

@@ -6,7 +6,9 @@ It needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 ``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. (``python3
 chip_smoke.py --time-updates LABEL`` builds the kernels and times only
 the update kernels and their split by kernel, for comparing two
-checkouts: see ``time_updates``.)
+checkouts: see ``time_updates``; ``python3 chip_smoke.py --multi-card``
+on a host with several cards runs the sharded cells one rank a card over
+NCCL: see ``run_multi_card``.)
 Phases, each printing one JSON line; any failed check raises and exits
 non-zero:
 
@@ -143,7 +145,27 @@ non-zero:
    a deterministic act-kernel launch; median predict latency); and
    ``parity_card`` (the five parity configs, seeds 0-2, on the card, with
    both criteria's outcomes against the reference curves).
-9. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
+9. ``sharded`` (``rl8_tpu_torch.parallel``): (a) the default discrete cell
+   with ``mesh=create_mesh()`` over a one-process NCCL group, one warm-up
+   and five timed iterations beside the same cell without a mesh (act 32,
+   GAE 1, update 4 launches an iteration, counted from 0 in each),
+   all-reduce calls per collect and per step and ms per call, and three
+   iterations against the unsharded run from the same seed (rank 0 draws
+   the unsharded streams: the first collect bit-identical, then only the
+   two-pass global std rounds); (b) two ranks sharing the card over gloo
+   (NCCL refuses two ranks on one card), two subprocesses of this script
+   (``--sharded-worker``): the discrete and the recurrent cell at 8192
+   envs in all, three iterations each, launches a rank, parameters
+   bit-identical across the ranks after every step, global stats
+   identical, transitions/s, gloo all-reduce ms; (c) ``exact_sharding``
+   at two ranks (2048 envs, four shuffled minibatches, no kernel launch)
+   against the single-device run of the same routes; (d) a two-rank
+   checkpoint restored onto two ranks and onto one (every tensor equal),
+   SIGTERM to one rank making both save and return, ``python -m
+   rl8_tpu_torch doctor -f`` on the default cell, ``trace`` of a collect
+   holding the act kernel's launches, ``debug_nans`` raising at a poisoned
+   parameter and at an act launch whose output holds a NaN.
+10. a ``{"kernels": [...]}`` line, the card line, and the ``{"ok": ...}``
    line last.
 """
 
@@ -220,6 +242,10 @@ def main() -> int:
         print("chip_smoke: run it from a checkout holding rl8_tpu_torch/", file=sys.stderr)
         return 1
     sys.path.insert(0, str(repo))
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        return sharded_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--multi-card-worker"]:
+        return multi_card_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5]))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -247,6 +273,13 @@ def main() -> int:
     })
     if sys.argv[1:2] == ["--time-updates"]:
         time_updates(torch, dev, sys.argv[2] if len(sys.argv) > 2 else "", card)
+        return 0
+    if sys.argv[1:2] == ["--multi-card"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            run_multi_card(torch, dev, Path(tmp))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
 
     kernels = {
@@ -362,6 +395,7 @@ def main() -> int:
         run_cli_persistence(torch, dev, Path(tmp))
         run_serving(torch, dev, Path(tmp))
         run_parity_card(torch, dev, Path(tmp))
+        run_sharded(torch, dev, Path(tmp))
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -3425,6 +3459,502 @@ def run_parity_card(torch, dev, tmp: Path, seeds: tuple = (0, 1, 2)) -> None:
         never = [s for s, n in zip(seeds, summary["ours_steps_to_half_max"]) if n is None]
         check(not never, f"parity_card {name}: seeds {never} never reach the half-max return")
         emit({"phase": "parity_card", "seeds": list(seeds), **summary, "seconds": time.perf_counter() - t})
+
+
+# ---------------------------------------------------------------------------
+# The multi-device path (rl8_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+#: The discrete cell's kernels and the recurrent cell's, per iteration.
+DISCRETE_LAUNCHES = {"act": 32, "gae": 1, "update": 4}
+RECURRENT_LAUNCHES = {"rnn_act": 32, "gae": 1, "rnn_update": 4}
+#: A mesh of one draws the unsharded streams; only the global std's two
+#: passes (reward scale, advantage normalization) round otherwise, so the
+#: parameters' change agrees to this norm-relative error (Adam divides each
+#: gradient by its own magnitude, so a parameter whose gradient is pure
+#: rounding noise may move by up to lr either way), and the stats to this
+#: relative error.
+SHARDED_DELTA_REL, SHARDED_STAT_RTOL = 1e-3, 1e-4
+#: Exact mode at 2 ranks against the single-device run of the same routes
+#: (its stats by |a - b| / max(|b|, 1), as tests/test_parallel.py holds the
+#: losses, which can be near 0, by an absolute 1e-4).
+EXACT_CELL = {"num_envs": 2048, "sgd_minibatch_size": 16384}
+#: Seconds the worker ranks (subprocesses of this script) may take.
+SHARDED_WORKER_TIMEOUT = 600
+
+
+def flat_params(torch, algo):
+    return torch.cat([p.detach().reshape(-1) for p in algo.policy.model.parameters()])
+
+
+def relative_delta(torch, got, want, start) -> float:
+    """||(got - start) - (want - start)|| / ||want - start||."""
+    return float(torch.linalg.norm((got - start) - (want - start)) / torch.linalg.norm(want - start))
+
+
+def run_sharded(torch, dev, tmp: Path) -> None:
+    """The multi-device phase: (a) one rank over NCCL, (b)-(d) two ranks
+    sharing the card over gloo, in two subprocesses of this script, then
+    the operations aids."""
+    run_sharded_one_rank(torch, dev, tmp)
+    run_sharded_two_ranks(torch, dev, tmp)
+    run_sharded_operations(torch, dev, tmp)
+
+
+def run_sharded_one_rank(torch, dev, tmp: Path) -> None:
+    """(a) The default discrete cell with ``mesh=create_mesh()`` over a
+    one-process NCCL group: one warm-up and five timed iterations beside
+    the same cell without a mesh (act 32, GAE 1, update 4 launches an
+    iteration in both), all-reduce calls per collect and per step and ms
+    per call, and the sharded run against the unsharded one from the same
+    seed: rank 0 draws the unsharded streams, so the first collect is
+    bit-identical, and afterwards they differ only by the two-pass global
+    std's rounding."""
+    import torch.distributed as dist
+
+    import rl8_tpu_torch.parallel as tp
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    tp.initialize_multihost(f"file://{tmp / 'rdzv-nccl'}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", f"sharded: backend {dist.get_backend()}")
+        mesh = tp.create_mesh()
+        group = mesh.get_group(tp.ENV_AXIS)
+        twin = time_cell(torch, AlgorithmConfig(device="cuda").build(DiscreteDummyEnv), "sharded_one_rank_twin",
+                         DISCRETE_LAUNCHES, 4)
+        sharded = AlgorithmConfig(device="cuda", mesh=mesh).build(DiscreteDummyEnv)
+        record = time_cell(torch, sharded, "sharded_one_rank", DISCRETE_LAUNCHES, 4, backend="nccl",
+                           num_envs_per_rank=sharded._impl_B)
+        calls = tp._all_reduce.calls
+        sharded.collect()
+        collect_calls = tp._all_reduce.calls - calls
+        sharded.step()
+        step_calls = tp._all_reduce.calls - calls - collect_calls
+
+        n = sum(p.numel() for p in sharded.policy.model.parameters()) + 5
+        timings = {}
+        for label, size in (("update", n), ("stat", 1)):
+            x = torch.randn(size, device=dev)
+            for _ in range(5):
+                tp.pmean_tree(x, group)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(50):
+                tp.pmean_tree(x, group)
+            end.record()
+            torch.cuda.synchronize()
+            timings[label] = {"floats": size, "bytes": 4 * size, "ms": start.elapsed_time(end) / 50}
+
+        runs = []
+        for m in (None, mesh):
+            algo = AlgorithmConfig(device="cuda", mesh=m).build(DiscreteDummyEnv)
+            start_params = flat_params(torch, algo)
+            first = algo.collect()
+            buffer = {k: algo.state.buffer[k].clone() for k in (DataKeys.OBS, DataKeys.ACTIONS, DataKeys.REWARDS)}
+            records = [{**first, **algo.step()}]
+            for _ in range(2):
+                records.append({**algo.collect(), **algo.step()})
+            runs.append((buffer, records, flat_params(torch, algo)))
+        (ub, ur, up), (sb, sr, sp) = runs
+        for key in ub:
+            check(torch.equal(ub[key], sb[key]), f"sharded: the first collect's {key} differs from the unsharded one")
+        stat_keys = ("returns/mean", "returns/std", "losses/total", "losses/vf", "monitors/kl_div")
+        stat_err = max(abs(s[k] - u[k]) / max(abs(u[k]), 1e-6) for s, u in zip(sr, ur) for k in stat_keys)
+        delta = relative_delta(torch, sp, up, start_params)
+        check(stat_err <= SHARDED_STAT_RTOL, f"sharded: stats differ from the unsharded run by {stat_err}")
+        check(delta <= SHARDED_DELTA_REL, f"sharded: the parameters' change differs by {delta} (relative)")
+        iteration = lambda r: r["collect_ms_median"] + r["step_ms_median"]  # noqa: E731
+        emit({
+            "phase": "sharded_one_rank_summary", "backend": "nccl", "world": mesh.size(),
+            "transitions_per_s_with_update": record["transitions_per_s_with_update"],
+            "unsharded_transitions_per_s_with_update": twin["transitions_per_s_with_update"],
+            "iteration_ms_overhead": iteration(record) - iteration(twin),
+            "all_reduce_calls_per_collect": collect_calls, "all_reduce_calls_per_step": step_calls,
+            "all_reduce": timings, "first_collect_bit_identical": True, "max_stat_rel_err_3_iterations": stat_err,
+            "param_change_rel_err_3_iterations": delta, "param_max_abs_err": float((sp - up).abs().max()),
+        })
+    finally:
+        dist.destroy_process_group()
+
+
+def all_reduce_ms(torch, group, iters: int = 20) -> dict:
+    """Host ms per ``pmean_tree`` call of the update's size (133,384
+    floats: the gradient, the losses and the KL) and of one statistic's,
+    over ``iters`` calls after a barrier, ending in a synchronize."""
+    import torch.distributed as dist
+
+    from rl8_tpu_torch.parallel import pmean_tree
+
+    out = {}
+    for label, size in (("update", 133384), ("stat", 1)):
+        x = torch.randn(size, device="cuda")
+        for _ in range(3):
+            pmean_tree(x, group)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(iters):
+            pmean_tree(x, group)
+        torch.cuda.synchronize()
+        out[label] = {"floats": size, "bytes": 4 * size, "ms": (time.perf_counter() - t) * 1e3 / iters}
+    return out
+
+
+def sharded_iterations(torch, algo, group, per_iteration: dict, iters: int) -> dict:
+    """``iters`` collect() + step() iterations of a sharded ``algo`` (the
+    first a warm-up), the launch counters set to 0 just before and read
+    just after: host ms of each (from a barrier), and after every step the
+    parameters and the global stats gathered from every rank and compared
+    bit for bit. Returns the cell's record."""
+    import torch.distributed as dist
+
+    from rl8_tpu_torch.parallel import _gather_rows
+
+    zero_counters()
+    iterations = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        stats = {**algo.collect(), **algo.step()}
+        ms = (time.perf_counter() - t) * 1e3
+        params = _gather_rows(flat_params(torch, algo)[None], group)
+        keys = sorted(k for k in stats if not k.startswith("profiling/"))
+        values = _gather_rows(torch.tensor([[stats[k] for k in keys]], dtype=torch.float64, device="cuda"), group)
+        iterations.append({"ms": ms, "params_identical": all(torch.equal(params[0], p) for p in params[1:]),
+                           "stats_identical": all(torch.equal(values[0], v) for v in values[1:]),
+                           "returns_mean": stats["returns/mean"], "losses_total": stats["losses/total"]})
+    ms = sorted(it["ms"] for it in iterations[1:])
+    h = algo.hparams
+    return {
+        "num_envs": h.num_envs, "num_envs_per_rank": algo._impl_B,
+        "launches": {k: v for k, v in launch_counts().items() if v},
+        "launches_want": {k: iters * v for k, v in per_iteration.items()}, "iterations": iterations,
+        "iteration_ms_median": ms[len(ms) // 2],
+        "transitions_per_s_with_update": h.num_envs * h.horizon / (ms[len(ms) // 2] / 1e3),
+    }
+
+
+def check_sharded_cell(name: str, cell: dict) -> None:
+    check(cell["launches"] == cell["launches_want"], f"sharded: {name} launches {cell['launches']} != "
+          f"{cell['launches_want']}")
+    for i, it in enumerate(cell["iterations"]):
+        check(it["params_identical"], f"sharded: {name} parameters differ across ranks after step {i + 1}")
+        check(it["stats_identical"], f"sharded: {name} global stats differ across ranks at step {i + 1}")
+
+
+def sharded_worker(rank: int, rdzv: str, out: str) -> int:
+    """One of the two ranks of (b)-(d), sharing the card over gloo: the
+    discrete and the recurrent cell at 8192 envs in all (4096 a rank),
+    three iterations each, with the parameters gathered and compared after
+    every step; exact mode against the single-device run; a checkpoint of
+    the discrete cell, restored onto two ranks here and onto one by the
+    parent; SIGTERM to rank 1 during ``Trainer.run``. Writes its results
+    to ``out/rank<rank>.json``."""
+    import os
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    import rl8_tpu_torch.parallel as tp
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig, Trainer
+    from rl8_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from rl8_tpu_torch.conditions import HitsUpperBound
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    tp.initialize_multihost(f"file://{rdzv}", 2, rank, cpu_collectives="gloo")
+    try:
+        mesh = tp.create_mesh()
+        group = mesh.get_group(tp.ENV_AXIS)
+        result: dict = {"rank": rank, "backend": dist.get_backend(), "world": mesh.size(),
+                        "all_reduce": all_reduce_ms(torch, group)}
+        cells = {
+            "discrete": (lambda: AlgorithmConfig(device="cuda", mesh=mesh).build(DiscreteDummyEnv), DISCRETE_LAUNCHES),
+            "recurrent": (lambda: RecurrentAlgorithmConfig(device="cuda", mesh=mesh).build(DiscreteDummyEnv),
+                          RECURRENT_LAUNCHES),
+        }
+        for name, (make, per_iteration) in cells.items():
+            algo = make()
+            result[name] = sharded_iterations(torch, algo, group, per_iteration, 3)
+            if name == "discrete":
+                algo.collect()
+                save_checkpoint(f"{out}/ckpt", algo)
+                saved = state_tensors(torch, algo)
+                torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in saved.items()},
+                           f"{out}/state{rank}.pt")
+                restored = make()
+                restore_checkpoint(f"{out}/ckpt", restored)
+                result["restored_onto_two_ranks_differing"] = differing(torch, state_tensors(torch, restored), saved)
+
+        # (c) exact mode against the single-device run of the same routes.
+        exact = AlgorithmConfig(device="cuda", mesh=mesh, exact_sharding=True, **EXACT_CELL).build(DiscreteDummyEnv)
+        start = flat_params(torch, exact)
+        zero_counters()
+        exact_stats = [{**exact.collect(), **exact.step()} for _ in range(2)]
+        result["exact_launches"] = {k: v for k, v in launch_counts().items() if v}
+        if rank == 0:
+            single = AlgorithmConfig(device="cuda", fused_act=False, fused_update=False, **EXACT_CELL).build(
+                DiscreteDummyEnv
+            )
+            single_stats = [{**single.collect(), **single.step()} for _ in range(2)]
+            keys = ("returns/mean", "returns/std", "losses/total", "losses/policy", "losses/vf", "monitors/kl_div")
+            got, want = flat_params(torch, exact), flat_params(torch, single)
+            result["exact"] = {
+                **EXACT_CELL, "max_stat_err": max(abs(e[k] - s[k]) / max(abs(s[k]), 1.0)
+                                                  for e, s in zip(exact_stats, single_stats) for k in keys),
+                "param_change_rel_err": relative_delta(torch, got, want, start),
+                "param_max_abs_err": float((got - want).abs().max()),
+                "params_within_rtol_1e-4_atol_1e-6": bool(torch.allclose(got, want, rtol=1e-4, atol=1e-6)),
+            }
+        dist.barrier()
+
+        # (d) SIGTERM to rank 1 in step 2: both save at the next boundary.
+        class SigtermRank1:
+            def __call__(self, stats) -> bool:
+                if rank == 1 and stats["algorithm/steps"] == 2:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return False
+
+        trainer = Trainer(cells["discrete"][0]())
+        stats = trainer.run(stop_conditions=[SigtermRank1(), HitsUpperBound("algorithm/steps", 12)],
+                            checkpoint_dir=f"{out}/preempt")
+        result["preempted_at_step"] = int(stats["algorithm/steps"])
+        Path(f"{out}/rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_workers(mode: str, n: int, rdzv: Path, out: Path, *extra: str) -> list:
+    """Run ``n`` ranks as subprocesses of this script (``mode RANK RDZV OUT
+    *extra``), each writing ``out/rank<r>.json``; stop every one of them,
+    raise if one failed, and return their results in rank order."""
+    out.mkdir()
+    procs = [
+        subprocess.Popen([sys.executable, str(Path(__file__).resolve()), mode, str(r), str(rdzv), str(out), *extra],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARDED_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{mode}: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def run_sharded_two_ranks(torch, dev, tmp: Path) -> None:
+    """(b)-(d) Two ranks on the one card over gloo (NCCL refuses two ranks
+    on one card), as two subprocesses of this script: per-rank launches
+    (act 32, GAE 1, update 4 an iteration in the discrete cell; the
+    recurrent kernels in the recurrent one), parameters bit-identical
+    across the ranks after every step, global stats identical on both,
+    transitions/s; exact mode against the single-device run; the
+    two-rank checkpoint restored onto two ranks there and onto one rank
+    here, every tensor equal; SIGTERM to one rank saving on both."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.checkpoint import restore_checkpoint
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    out = tmp / "sharded"
+    t = time.perf_counter()
+    ranks = run_workers("--sharded-worker", 2, tmp / "rdzv-gloo", out)
+    for res in ranks:
+        check(res["backend"] == "gloo" and res["world"] == 2, f"sharded: rank {res['rank']} group")
+        for name in ("discrete", "recurrent"):
+            check_sharded_cell(f"rank {res['rank']} {name}", res[name])
+            check(res[name]["num_envs_per_rank"] == 4096, f"sharded: {name} envs a rank {res[name]['num_envs_per_rank']}")
+        check(not res["restored_onto_two_ranks_differing"],
+              f"sharded: restored onto two ranks, {res['restored_onto_two_ranks_differing']} differ")
+        check(res["exact_launches"] == {}, f"sharded: exact mode launched {res['exact_launches']}")
+        check(res["preempted_at_step"] == 3, f"sharded: SIGTERM returned at step {res['preempted_at_step']}")
+    exact = ranks[0]["exact"]
+    check(exact["max_stat_err"] <= SHARDED_STAT_RTOL, f"sharded: exact-mode stats err {exact['max_stat_err']}")
+    check(exact["param_change_rel_err"] <= SHARDED_DELTA_REL,
+          f"sharded: exact-mode parameter change err {exact['param_change_rel_err']}")
+    preempt = out / "preempt"
+    latest = json.loads((preempt / "latest.json").read_text())["checkpoint"]
+    host = json.loads((preempt / latest / "host_state.json").read_text())
+    check(host["trainer_state"]["algorithm/steps"] == 3, f"sharded: preemption checkpoint {host}")
+    check(sorted(p.name for p in (preempt / latest).glob("shard-*")) == [
+        "shard-00000-of-00002.pt", "shard-00001-of-00002.pt"], "sharded: the preemption checkpoint's shards")
+
+    # The two-rank checkpoint onto one rank: shards joined along their batch axes.
+    algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    restore_checkpoint(out / "ckpt", algo)
+    got = state_tensors(torch, algo)
+    saved = [torch.load(out / f"state{r}.pt", weights_only=False) for r in range(2)]
+    bad = sorted(set(got) ^ set(saved[0]))
+    for key in set(got) & set(saved[0]):
+        want = saved[0][key]
+        if key.startswith(("state.env_state[position]", "state.buffer[")):
+            want = torch.cat([want, saved[1][key]], dim=0 if key.startswith("state.env_state") else 1)
+        if not (torch.equal(got[key].cpu(), want) if isinstance(want, torch.Tensor) else got[key] == want):
+            bad.append(key)
+    check(not bad, f"sharded: restored onto one rank, {sorted(bad)} differ")
+    emit({
+        "phase": "sharded_two_ranks", "backend": "gloo", "world": 2, "seconds": time.perf_counter() - t,
+        **{name: {k: ranks[0][name][k] for k in ("num_envs", "num_envs_per_rank", "launches",
+                                                  "transitions_per_s_with_update")}
+           | {"iteration_ms": [[it["ms"] for it in res[name]["iterations"]] for res in ranks],
+              "params_identical_after_every_step": True, "stats_identical": True}
+           for name in ("discrete", "recurrent")},
+        "all_reduce": [res["all_reduce"] for res in ranks],
+        "exact": exact, "restored_onto_one_rank_every_tensor_equal": True, "preempted_at_step": 3,
+        "checkpoint_bytes": dir_bytes(out / "ckpt"),
+    })
+
+
+def multi_card_worker(rank: int, rdzv: str, out: str, world: int) -> int:
+    """One rank a card over NCCL (``--multi-card``): the all-reduces' ms,
+    then six iterations (one a warm-up) of the discrete cell at 8192 envs
+    in all, of the discrete cell at 8192 envs a rank, and of the
+    recurrent cell at 8192 envs in all, each with the parameters and
+    global stats compared across every rank after every step. Writes
+    ``out/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import rl8_tpu_torch.parallel as tp
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp.initialize_multihost(f"file://{rdzv}", world, rank)
+    _build.load()
+    try:
+        mesh = tp.create_mesh()
+        group = mesh.get_group(tp.ENV_AXIS)
+        result: dict = {"rank": rank, "backend": dist.get_backend(), "world": mesh.size(),
+                        "device": torch.cuda.current_device(), "all_reduce": all_reduce_ms(torch, group, iters=50)}
+        cells = {
+            "discrete_8192_in_all": (AlgorithmConfig(device="cuda", mesh=mesh), DISCRETE_LAUNCHES),
+            "discrete_8192_a_rank": (AlgorithmConfig(device="cuda", mesh=mesh, num_envs=8192 * world), DISCRETE_LAUNCHES),
+            "recurrent_8192_in_all": (RecurrentAlgorithmConfig(device="cuda", mesh=mesh), RECURRENT_LAUNCHES),
+        }
+        for name, (config, per_iteration) in cells.items():
+            result[name] = sharded_iterations(torch, config.build(DiscreteDummyEnv), group, per_iteration, 6)
+        Path(f"{out}/rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_multi_card(torch, dev, tmp: Path) -> None:
+    """``python3 chip_smoke.py --multi-card``: one rank per card over NCCL
+    on every card of the host (the default run needs one card and does not
+    run this). The single-card cells first (card 0, one warm-up and five
+    timed iterations), then the ranks (``multi_card_worker``): per-rank
+    launches, parameters bit-identical across every rank after every
+    step, NCCL all-reduce ms, transitions/s at 8192 envs in all (strong
+    scaling) and at 8192 a rank (weak scaling) against one card."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+
+    world = torch.cuda.device_count()
+    check(world >= 2, f"--multi-card needs two cards or more, not {world}")
+    single = time_cell(torch, AlgorithmConfig(device="cuda").build(DiscreteDummyEnv), "multi_card_single_discrete",
+                       DISCRETE_LAUNCHES, 4)
+    single_rec = time_cell(torch, RecurrentAlgorithmConfig(device="cuda").build(DiscreteDummyEnv),
+                           "multi_card_single_recurrent", RECURRENT_LAUNCHES, 4)
+    t = time.perf_counter()
+    ranks = run_workers("--multi-card-worker", world, tmp / "rdzv-nccl-cards", tmp / "cards", str(world))
+    check(sorted(res["device"] for res in ranks) == list(range(world)), "--multi-card: one rank a card")
+    cells = ("discrete_8192_in_all", "discrete_8192_a_rank", "recurrent_8192_in_all")
+    for res in ranks:
+        check(res["backend"] == "nccl" and res["world"] == world, f"--multi-card: rank {res['rank']} group")
+        for name in cells:
+            check_sharded_cell(f"rank {res['rank']} {name}", res[name])
+    rate = {name: ranks[0][name]["transitions_per_s_with_update"] for name in cells}
+    one = single["transitions_per_s_with_update"]
+    emit({
+        "phase": "multi_card", "backend": "nccl", "world": world, "seconds": time.perf_counter() - t,
+        **{name: {"num_envs": ranks[0][name]["num_envs"], "num_envs_per_rank": ranks[0][name]["num_envs_per_rank"],
+                  "launches": ranks[0][name]["launches"], "transitions_per_s_with_update": rate[name],
+                  "iteration_ms_median": [res[name]["iteration_ms_median"] for res in ranks],
+                  "params_identical_after_every_step": True}
+           for name in cells},
+        "single_card_transitions_per_s_with_update": {"discrete": one,
+                                                      "recurrent": single_rec["transitions_per_s_with_update"]},
+        "strong_scaling_discrete": rate["discrete_8192_in_all"] / one,
+        "weak_scaling_efficiency_discrete": rate["discrete_8192_a_rank"] / (world * one),
+        "strong_scaling_recurrent": rate["recurrent_8192_in_all"] / single_rec["transitions_per_s_with_update"],
+        "all_reduce": [res["all_reduce"] for res in ranks],
+    })
+
+
+def run_sharded_operations(torch, dev, tmp: Path) -> None:
+    """(d) ``python -m rl8_tpu_torch doctor -f <config>`` on the default
+    discrete cell exits 0 and names the kernels on; ``trace`` of a collect
+    captures the act kernel's launches; ``debug_nans`` raises at a poisoned
+    parameter (an ATen operator) and at a launch whose output holds a NaN
+    (the act kernel's wrapper)."""
+    import dataclasses
+
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_act, pack_act_params
+    from rl8_tpu_torch.utils.debugging import debug_nans, trace
+
+    config = tmp / "doctor.json"
+    config.write_text(json.dumps({"env_cls": "rl8_tpu_torch.env.DiscreteDummyEnv", "algorithm_config": {}}))
+    doctor = subprocess.run([sys.executable, "-m", "rl8_tpu_torch", "doctor", "-f", str(config)],
+                            capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent), timeout=300)
+    lines = doctor.stdout.splitlines()
+    check(doctor.returncode == 0, f"doctor exited {doctor.returncode}: {doctor.stdout}{doctor.stderr}")
+    on = "ok: fast paths on: act kernel (csrc/act.cu), update kernel (csrc/ppo.cu), GAE kernel (csrc/gae.cu)"
+    check(any(ln.startswith(on) for ln in lines), f"doctor does not name the kernels on: {lines}")
+    check("ok: execution mode: single-device" in lines, f"doctor: {lines}")
+    check(lines[0].startswith("ok: 1 device(s) [") and "on platform 'cuda'" in lines[0], f"doctor: {lines[0]}")
+
+    algo = AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)
+    params = pack_act_params(algo.policy.model)
+    obs = torch.randn(8192, 1, device=dev)
+    # A collect, as a user traces one: 32 act launches. (A lone launch as
+    # the first work of a trace after earlier profiler sessions in the
+    # process left no record in three tries on the card.)
+    with trace(str(tmp / "trace")):
+        algo.collect()
+    (path,) = (tmp / "trace").iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    launches = [e for e in events if e.get("cat") == "kernel" and "discrete_act" in e["name"]]
+    kernels = sorted({e["name"][:80] for e in events if e.get("cat") == "kernel"})
+    check(bool(launches), f"trace: no act kernel among {kernels}")
+
+    raised = {}
+    small = AlgorithmConfig(num_envs=64, horizon=8, device="cuda").build(DiscreteDummyEnv)
+    with torch.no_grad():
+        next(small.policy.model.parameters())[0, 0] = float("nan")
+    # The last packed parameter is a head's bias, so every row of that
+    # head's output is NaN (a NaN observation may not reach an output:
+    # the kernels' relu is fmaxf, which drops a NaN).
+    bad = dataclasses.replace(params, flat=params.flat.clone())
+    bad.flat[-1] = float("nan")
+    for what, fn in (("poisoned parameter", small.collect), ("act launch", lambda: fused_act(bad, obs, (1, 2)))):
+        try:
+            with debug_nans():
+                fn()
+        except FloatingPointError as e:
+            raised[what] = str(e)
+    check(set(raised) == {"poisoned parameter", "act launch"}, f"debug_nans raised only for {raised}")
+    check("act kernel" in raised["act launch"], f"debug_nans: {raised['act launch']}")
+    fused_act(bad, obs, (1, 2))  # outside the block nothing raises
+    emit({"phase": "sharded_operations", "doctor": lines, "trace_kernels": kernels, "trace_act_launches": len(launches),
+          "debug_nans": raised})
 
 
 if __name__ == "__main__":

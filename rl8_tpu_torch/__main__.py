@@ -3,8 +3,8 @@
 directory (``--track-dir``) or to MLflow when it is installed and
 requested (``--mlflow``). ``--checkpoint-dir`` saves full-state
 checkpoints and resumes from them, ``--save DIR`` exports the trained
-policy to ``DIR/policy.pkl``. The ``doctor`` subcommand exits with an
-error naming the ROADMAP item that brings it (Queue 1 #8).
+policy to ``DIR/policy.pkl``. ``doctor`` runs the bring-up checks
+(``rl8_tpu_torch/doctor.py``) and exits non-zero if one fails.
 """
 
 from __future__ import annotations
@@ -74,13 +74,15 @@ def main(argv: None | list[str] = None) -> int:
         help="Don't catch SIGTERM for a final checkpoint (on by default with --checkpoint-dir).",
     )
     train_parser.add_argument("--mlflow", action="store_true", help="Track with MLflow instead of JSONL files.")
-    doctor_parser = subparsers.add_parser("doctor", help="Bring-up checks (not ported yet: Queue 1 #8).")
+    doctor_parser = subparsers.add_parser("doctor", help="Bring-up checks (devices, mesh, storage, config gates).")
     doctor_parser.add_argument("-f", "--file", default=None, help="Optional train config.")
     doctor_parser.add_argument("--checkpoint-dir", default=None, help="Optional checkpoint path to probe.")
     args = parser.parse_args(argv)
 
     if args.command == "doctor":
-        parser.error("`doctor` is not in this port yet; it comes with multi-device and operations (ROADMAP Queue 1 #8).")
+        from .doctor import run_doctor
+
+        return run_doctor(config_file=args.file, checkpoint_dir=args.checkpoint_dir)
 
     if not args.checkpoint_dir:
         # Checkpoint knobs without a destination would otherwise be

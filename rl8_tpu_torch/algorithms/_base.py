@@ -9,6 +9,23 @@ parameter vector the optimizer updates (the kernels' layout where the
 update kernel runs, ``model.parameters()``'s on the autodiff route); the
 autodiff route's gradients; and the SGD epochs of an update, whose KL
 early stop, gradient accumulation and stat sums stay on the device.
+
+With a ``mesh`` (``rl8_tpu_torch.parallel.create_mesh``) every process
+of the group runs the algorithm on its own ``num_envs / world`` envs.
+Two modes, as in ``rl8_tpu``:
+
+- ``shard_map`` (the default): each process runs the kernels on its
+  shard, with its own env-reset, sampling and shuffle streams (the
+  rank folded into each seed; rank 0 keeps the unsharded streams); the
+  batch statistics reduce over the group, and each minibatch's
+  gradient, losses and KL are averaged by one all-reduce before the KL
+  stop and the update, so every process applies the same update.
+- exact (``exact_sharding=True``): the single-device run, computed by
+  the group. The kernels are off, as ``rl8_tpu``'s gates take them off
+  in this mode. Every process draws the global env-reset and sampling
+  noise and keeps its own rows; where a minibatch mixes processes'
+  rows, the packed batch is all-gathered once a step and each process
+  takes its equal part of every global minibatch.
 """
 
 from __future__ import annotations
@@ -25,7 +42,9 @@ from ..env import Env
 from ..nn import ppo_losses
 from ..ops import PPOLossConfig, block_shuffle, fused_gae
 from ..ops.fused_mlp import card_takes_chains, chain_names, named_chains
-from ..parallel import gmean, gstd
+from ..ops.gae import gae_plain
+from ..parallel import ENV_AXIS, _gather_rows, _rank_seed, gmax, gmean, gmin, gstd, pmean_tree, shard_batch
+from ..views import tree_map
 from ..schedulers import EntropyScheduler, LRScheduler
 from ..utils import memory_stats, profile_ms
 from ..utils.optim import Adam, AdamState, OptimizerState, TorchOptimizer, adam_step
@@ -96,23 +115,43 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
             )
 
     def _init_common(self, config: Any) -> int:
-        """Refuse what the port does not run yet, then set up the device,
-        the optimizer's hyperparameters, the schedulers and the random
-        streams from ``config``. Returns the seed of the parameters'
-        generator.
+        """Set up the mesh, the device, the optimizer's hyperparameters, the
+        schedulers and the random streams from ``config``. Returns the seed
+        of the parameters' generator.
 
         One host generator seeds the others and then draws the act
-        kernels' per-step Philox keys; env resets and minibatch shuffles
-        draw on the device."""
-        if config.exact_sharding:
-            raise NotImplementedError(
-                "This port does not run exact_sharding, rl8_tpu's GSPMD mode of a mesh (ROADMAP Queue 1 #8)"
-                " yet; it is a later slice (ROADMAP Queue 1)."
-            )
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "Multi-device training is a later slice of the port (ROADMAP Queue 1, multi-device)."
-            )
+        kernels' per-step Philox keys; it advances alike on every process
+        of a mesh. Env resets and minibatch shuffles draw on the device,
+        from seeds with the rank folded in (``shard_map`` mode)."""
+        #: The device mesh (``None``: one device), its group (what the
+        #: collectives run over), its size and this process's rank.
+        self.mesh = config.mesh
+        self._group: Any = None
+        self._world, self._rank = 1, 0
+        #: Whether the group computes the single-device run
+        #: (``exact_sharding`` with a mesh).
+        self._exact = False
+        if self.mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(
+                    "`mesh` must be a DeviceMesh from rl8_tpu_torch.parallel.create_mesh(), not"
+                    f" {type(self.mesh).__name__}."
+                )
+            self._group = self.mesh.get_group(ENV_AXIS)
+            self._world, self._rank = self.mesh.size(), self.mesh.get_local_rank(ENV_AXIS)
+            self._exact = bool(config.exact_sharding)
+        #: Mesh axis of the ``shard_map`` mode (``rl8_tpu``'s ``_axis``):
+        #: ``None`` without a mesh and in exact mode.
+        self._axis: None | str = ENV_AXIS if self.mesh is not None and not self._exact else None
+        #: The rank folded into the device streams and the act kernels'
+        #: keys: this process's in ``shard_map`` mode, else 0 (the global
+        #: streams).
+        self._stream_rank = self._rank if self._axis else 0
+        #: Whether the advantage stage launches the GAE kernel; exact mode
+        #: takes it off, as ``rl8_tpu``'s gate does.
+        self._gae_kernel = not self._exact
         self.device = torch.device(config.device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -163,9 +202,78 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         self._static_zero_entropy = config.entropy_coeff_schedule is None and config.entropy_coeff == 0.0
         self._key_gen = torch.Generator().manual_seed(config.seed)
         params_seed, env_seed, shuffle_seed = torch.randint(0, 2**62, (3,), generator=self._key_gen).tolist()
-        self._env_gen = torch.Generator(device=self.device).manual_seed(env_seed)
-        self._shuffle_gen = torch.Generator(device=self.device).manual_seed(shuffle_seed)
+        self._env_gen = self._device_generator(env_seed)
+        self._shuffle_gen = self._device_generator(shuffle_seed)
         return params_seed
+
+    def _device_generator(self, seed: int) -> torch.Generator:
+        """A generator on the device, seeded for this process's stream."""
+        return torch.Generator(device=self.device).manual_seed(_rank_seed(seed, self._stream_rank))
+
+    def _init_sharding(self, env_cls: Any, num_envs: int, horizon: int) -> None:
+        """Check that the mesh divides the env batch and the minibatch, and
+        build the env this process steps (``rl8_tpu``'s ``_impl_env``, of
+        ``_impl_B = num_envs / world`` envs); ``self.env`` stays the global
+        one."""
+        #: The env this process steps and its batch size.
+        self._impl_env, self._impl_B = self.env, num_envs
+        if self._world == 1:
+            return
+        if num_envs % self._world:
+            raise ValueError(f"`num_envs` ({num_envs}) must divide evenly over the mesh's {self._world} devices.")
+        mb = self.hparams.sgd_minibatch_size
+        if mb % self._world:
+            raise ValueError(f"`sgd_minibatch_size` ({mb}) must divide evenly over the mesh's {self._world} devices.")
+        self._impl_B = num_envs // self._world
+        self._impl_env = env_cls(self._impl_B, horizon, device=self.device)
+
+    def _reset_env(self, env_state: Any, env_config: None | dict[str, Any]) -> tuple[Any, Any]:
+        """Reset this process's envs. In exact mode the global env resets
+        from the global stream and this process keeps its rows (the
+        previous state it hands the reset is its own rows)."""
+        if self._exact and self._world > 1:
+            env_state, obs = self.env.reset(self._env_gen, state=env_state, config=env_config)
+            n = self.hparams.num_envs
+            return shard_batch(env_state, self.mesh, n), shard_batch(obs, self.mesh, n)
+        return self._impl_env.reset(self._env_gen, state=env_state, config=env_config)
+
+    def _act_keys(self) -> list[tuple[int, int]]:
+        """The act kernels' per-step Philox keys of one rollout, from the
+        host key stream, with the stream rank folded in."""
+        keys = torch.randint(0, 2**32, (self.hparams.horizon, 2), generator=self._key_gen).tolist()
+        return [(k0, _rank_seed(k1, self._stream_rank, 32)) for k0, k1 in keys]
+
+    def _sample(self, dist: Any, deterministic: bool) -> Any:
+        """The module rollout's actions from ``dist``. In exact mode the
+        draw is the global run's: the distribution over the global batch
+        (this process's features in its rows, zeros elsewhere) samples the
+        global stream, and this process keeps its rows."""
+        if deterministic:
+            return dist.deterministic_sample()
+        if not (self._exact and self._world > 1):
+            return dist.sample(self._sample_gen)
+        B, r, W = self._impl_B, self._rank, self._world
+        padded = tree_map(
+            lambda f: torch.cat([f.new_zeros((r * B, *f.shape[1:])), f, f.new_zeros(((W - r - 1) * B, *f.shape[1:]))]),
+            dist.features,
+        )
+        return tree_map(lambda a: a[r * B : (r + 1) * B], type(dist)(padded, dist.model).sample(self._sample_gen))
+
+    def _rollout_stats(self, rewards: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The return and reward statistics of a rollout's ``[T, B, 1]``
+        rewards, over every process's envs on a mesh."""
+        g = self._group
+        returns = rewards.sum(dim=0)
+        return {
+            "returns/min": gmin(returns, g),
+            "returns/max": gmax(returns, g),
+            "returns/mean": gmean(returns, g),
+            "returns/std": gstd(returns, g),
+            "rewards/min": gmin(rewards, g),
+            "rewards/max": gmax(rewards, g),
+            "rewards/mean": gmean(rewards, g),
+            "rewards/std": gstd(rewards, g),
+        }
 
     @staticmethod
     def _hparams_fields(config: Any, num_envs: int, horizon: int, rows: int) -> dict[str, Any]:
@@ -310,7 +418,7 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         Returns ``(advantages [T, B, 1], returns [T, B, 1])``."""
         h = self.hparams
         buffer = self.state.buffer  # type: ignore[attr-defined]
-        advantages, returns = fused_gae(
+        advantages, returns = (fused_gae if self._gae_kernel else gae_plain)(
             buffer[DataKeys.REWARDS],
             buffer[DataKeys.VALUES],
             self.state.reward_scale,  # type: ignore[attr-defined]
@@ -318,7 +426,7 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
             gae_lambda=h.gae_lambda,
         )
         if h.normalize_advantages:
-            advantages = (advantages - gmean(advantages)) / (gstd(advantages) + 1e-8)
+            advantages = (advantages - gmean(advantages, self._group)) / (gstd(advantages, self._group) + 1e-8)
         return advantages, returns
 
     def _loss_config(self, n_rows: int) -> PPOLossConfig:
@@ -445,10 +553,21 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         device (the update is gated with ``torch.where``, as ``lax.cond``
         gates it in ``rl8_tpu``). Returns the new parameters, the
         optimizer's state and the window-averaged stats (entropy, policy,
-        vf, total, kl)."""
+        vf, total, kl).
+
+        On a mesh, each minibatch's gradient, losses and KL are averaged
+        over the group by one all-reduce, before the KL stop and the
+        accumulation. In exact mode, where a step has several minibatches,
+        ``packed`` is gathered from every process first and each process
+        takes its equal part of every global minibatch."""
         h = self.hparams
         M = h.num_minibatches
+        parts = 1
+        if self._exact and self._world > 1 and M > 1:
+            packed, parts = _gather_rows(packed, self._group), self._world
         mb_rows = packed.shape[0] // M
+        part = mb_rows // parts
+        lo = self._rank * part if parts > 1 else 0
         accum = M if h.accumulate_grads else 1
         dev = flat.device
         opt_state = self.state.opt_state  # type: ignore[attr-defined]
@@ -469,14 +588,15 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         for _ in range(h.num_sgd_iters):
             epoch = block_shuffle(packed, self._shuffle_gen, blk) if shuffle else packed
             for i in range(M):
-                losses, kl, grads = grads_fn(flat, epoch[i * mb_rows : (i + 1) * mb_rows])
+                start = i * mb_rows + lo
+                losses, kl, grads = grads_fn(flat, epoch[start : start + part])
+                stats = torch.stack([losses["entropy"], losses["policy"], losses["vf"], losses["total"], kl])
+                grads, stats = pmean_tree((grads, stats), self._group)
                 # Minibatches after a KL early stop change nothing; the
                 # one that triggers it still counts in the stats.
                 active = ~stopped
-                trigger = kl > 1.5 * h.target_kl_div if h.target_kl_div is not None else never
-                window = window + torch.stack(
-                    [losses["entropy"], losses["policy"], losses["vf"], losses["total"], kl]
-                ) / accum
+                trigger = stats[4] > 1.5 * h.target_kl_div if h.target_kl_div is not None else never
+                window = window + stats / accum
                 grad_acc = grad_acc + grads
                 if (i + 1) % accum == 0:
                     if opt is None:

@@ -56,7 +56,7 @@ from ..models import DefaultContinuousModel, DefaultDiscreteModel, Model, ModelF
 from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
 from ..ops.fused_ppo import supports_distribution
 from ..ops.fused_mlp import fused_custom_apply, fused_default_apply, load_flat_params, supports_fused_apply
-from ..parallel import gmax, gmean, gmin, gstd
+from ..parallel import gstd
 from ..policies import Policy
 from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
@@ -107,9 +107,9 @@ class AlgorithmConfig:
     the default model for the env's specs, with ``Categorical`` for
     discrete actions and ``Normal`` or ``SquashedNormal`` for continuous
     ones; the optimizer is Adam, or ``optimizer_cls``, after a global-norm
-    clip. ``mesh`` and ``exact_sharding`` exist so that a JAX config
-    carries over; any value but the default raises
-    ``NotImplementedError``.
+    clip. With ``mesh`` every process of the mesh's group runs
+    ``num_envs / world`` of the envs (see ``algorithms/_base.py`` for the
+    two modes).
     """
 
     #: Model instance to use (its architecture; its parameters are
@@ -214,10 +214,20 @@ class AlgorithmConfig:
     #: Seed of every random stream (parameters, env resets, sampling,
     #: minibatch shuffles).
     seed: int = 0
-    #: Multi-device sharding: not in this port yet.
+    #: A 1-D ``DeviceMesh`` with an ``"env"`` axis
+    #: (``rl8_tpu_torch.parallel.create_mesh()``), over which the env
+    #: batch, the rollout buffer and each minibatch shard; ``None`` runs on
+    #: one device. ``num_envs`` and the minibatch size must divide evenly
+    #: over it.
     mesh: Any = None
-    #: ``rl8_tpu``'s GSPMD sharding mode of a ``mesh``: not in this port
-    #: yet (ROADMAP Queue 1 #8).
+    #: Sharded execution mode. ``False``: each process runs the kernels on
+    #: its shard with its own random streams, and the gradient and batch
+    #: statistics are averaged over the mesh (``rl8_tpu``'s ``shard_map``
+    #: mode). ``True``: the mesh computes, from the same seed, what one
+    #: device computes with the kernels off (``fused_act=False``,
+    #: ``fused_update=False``; ``rl8_tpu``'s GSPMD mode takes them off
+    #: too): global random draws, global minibatches. Without a mesh it
+    #: changes nothing.
     exact_sharding: bool = False
     #: Device that holds the model, the env and the buffer. The default
     #: is the card; pass ``"cpu"`` to run the kernels' plain versions.
@@ -231,7 +241,8 @@ class AlgorithmConfig:
 
 
 class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
-    """Feedforward PPO on one device.
+    """Feedforward PPO on one device or, with a mesh, on each process of
+    its group.
 
     Args:
         env_cls: Highly parallelized environment factory. Stepped
@@ -290,8 +301,8 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         #: Whether the update launches the update kernel (else autograd),
         #: and the rollout the act kernel (else the module rollout):
         #: ``rl8_tpu``'s gates, on the kernels' support of the model.
-        self._fused_update = config.fused_update and kernels_take
-        self._fused_act = config.fused_act and kernels_take
+        self._fused_update = config.fused_update and kernels_take and not self._exact
+        self._fused_act = config.fused_act and kernels_take and not self._exact
         model.validate_view_requirements()
         if model.drop_size:
             raise RuntimeError(
@@ -306,20 +317,19 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         self.hparams = AlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * horizon)
         ).validate()
+        self._init_sharding(env_cls, num_envs, horizon)
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
         #: The model's forward through the chain kernels (``rl8_tpu``'s
         #: ``_fused_forward``; both of the port's devices run them).
-        self._fused_forward = config.fused_forward and supports_fused_apply(model)
+        self._fused_forward = config.fused_forward and supports_fused_apply(model) and not self._exact
         if self._fused_forward:
             self._check_card_takes_chains(model)
         #: The autodiff route's parameters, in the order of its flat vector.
         self._params = list(model.parameters())
         if not self._fused_act:
             #: Generator of the module rollout's action samples.
-            self._sample_gen = torch.Generator(device=self.device).manual_seed(
-                int(torch.randint(0, 2**62, (1,), generator=self._key_gen))
-            )
+            self._sample_gen = self._device_generator(int(torch.randint(0, 2**62, (1,), generator=self._key_gen)))
         #: Padding masks of the rollout's view windows, by (size, valid).
         self._pad_masks: dict[tuple[int, int], torch.Tensor] = {}
         self.state = AlgorithmState(
@@ -365,9 +375,10 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
     # ------------------------------------------------------------------
 
     def _zero_buffer(self, num_envs: None | int = None) -> dict[str, Any]:
-        """Time-major rollout buffer of zeros; ``num_envs`` overrides the
-        batch size (``validate()`` builds a tiny one)."""
-        B = self.hparams.num_envs if num_envs is None else num_envs
+        """Time-major rollout buffer of zeros over this process's envs;
+        ``num_envs`` overrides the batch size (``validate()`` builds a tiny
+        one)."""
+        B = self._impl_B if num_envs is None else num_envs
         T = self.hparams.horizon
         dev = self.device
         buf = {
@@ -442,7 +453,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         horizon, each view of which ends in the current step's zero slot
         (``rl8_tpu``'s ``_build_last_views``: the reference's
         ``apply_view_requirements(buffer[:, :t + 1], kind="last")``)."""
-        B = self.hparams.num_envs
+        B = self._impl_B
         out: dict[str, Any] = {}
         for key, vr in self.policy.model.view_requirements.items():
             size = vr.shift + 1
@@ -472,8 +483,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         """The fused act route's ``(act, bootstrap)``: one act-kernel launch
         per step, with the parameters packed once for the rollout."""
         params = self._pack_params()
-        keys = torch.randint(0, 2**32, (self.hparams.horizon, 2), generator=self._key_gen).tolist()
-        step = iter(keys)
+        step = iter(self._act_keys())
 
         def act(obs: torch.Tensor, written: None | dict[str, torch.Tensor]) -> tuple[Any, torch.Tensor, torch.Tensor]:
             return fused_act(params, obs, tuple(next(step)), deterministic=deterministic)
@@ -493,7 +503,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         of the last ``S`` of them, and runs the model on its views; ``act``
         then samples the distribution (``rl8_tpu``'s non-fused scan step).
         The windows restart each horizon."""
-        B = self.hparams.num_envs
+        B = self._impl_B
         S = max(vr.shift for vr in self.policy.model.view_requirements.values())
         carry: dict[str, Any] = {"window": None, "valid": 0, "nonobs": {}}
         if S:
@@ -516,7 +526,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         def act(obs: Any, written: None | dict[str, torch.Tensor]) -> tuple[Any, torch.Tensor, torch.Tensor]:
             features, values = self._apply_model(views(obs, written))
             dist = self.policy.distribution_cls(features, self.policy.model)
-            actions = dist.deterministic_sample() if deterministic else dist.sample(self._sample_gen)
+            actions = self._sample(dist, deterministic)
             return actions, dist.logp(actions), values
 
         def bootstrap(obs: Any, written: None | dict[str, torch.Tensor]) -> torch.Tensor:
@@ -531,7 +541,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         """One rollout into a fresh buffer; returns the device-side stats
         and whether the env was reset."""
         h = self.hparams
-        B, T = h.num_envs, h.horizon
+        B, T = self._impl_B, h.horizon
         state = self.state
         buffer = state.buffer
 
@@ -540,9 +550,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         else:
             reset_now = state.horizons % h.horizons_per_env_reset == 0
         if reset_now:
-            env_state, obs = self.env.reset(
-                self._env_gen, state=state.env_state, config=env_config
-            )
+            env_state, obs = self._reset_env(state.env_state, env_config)
             rev = torch.zeros((B, 1), device=self.device)
         else:
             env_state, obs = state.env_state, tree_map(lambda x: x[-1], buffer[DataKeys.OBS])
@@ -564,7 +572,7 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         written = None
         for _ in range(T):
             actions, logp, values = act(obs, written)
-            env_state, obs, rewards = self.env.step(env_state, actions)
+            env_state, obs, rewards = self._impl_env.step(env_state, actions)
             if h.normalize_rewards:
                 rev = h.gamma * rev + rewards
             written = {
@@ -586,23 +594,12 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         for key in (DataKeys.REWARDS, DataKeys.LOGP, DataKeys.VALUES):
             new_buffer[key] = new_buffer[key].to(torch.float32)
         if h.normalize_rewards:
-            reward_scale = gstd(new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][1:])
+            reward_scale = gstd(new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][1:], self._group)
         else:
             del new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS]
             reward_scale = torch.tensor(1.0, device=self.device)
 
-        rewards = new_buffer[DataKeys.REWARDS]
-        returns = rewards.sum(dim=0)
-        stats = {
-            "returns/min": gmin(returns),
-            "returns/max": gmax(returns),
-            "returns/mean": gmean(returns),
-            "returns/std": gstd(returns),
-            "rewards/min": gmin(rewards),
-            "rewards/max": gmax(rewards),
-            "rewards/mean": gmean(rewards),
-            "rewards/std": gstd(rewards),
-        }
+        stats = self._rollout_stats(new_buffer[DataKeys.REWARDS])
         self.state = dataclasses.replace(
             state,
             env_state=env_state,

@@ -49,7 +49,7 @@ from ..env import EnvFactory
 from ..ops import fused_rnn_act, fused_rnn_ppo_grads, load_rnn_params, pack_rnn_params, pack_rows
 from ..ops import card_takes_rnn_update, supports_fused_rnn_update
 from ..ops.fused_mlp import fused_recurrent_custom_apply, supports_fused_recurrent_apply
-from ..parallel import gmax, gmean, gmin, gstd
+from ..parallel import gstd
 from ..policies import RecurrentPolicy
 from ..schedulers import ScheduleKind
 from ..specs import assert_nd_spec
@@ -84,8 +84,9 @@ class RecurrentAlgorithmConfig:
     recurrent model for the env's specs (a stacked LSTM), with
     ``Categorical`` for discrete actions and ``Normal`` or
     ``SquashedNormal`` for continuous ones. ``mesh`` and
-    ``exact_sharding`` exist so that a JAX config carries over; any value
-    but the default raises ``NotImplementedError``. ``fused_forward``
+    ``exact_sharding`` shard the env batch as in
+    :class:`~rl8_tpu_torch.algorithms.AlgorithmConfig` (the recurrent
+    states are env-batched buffer leaves). ``fused_forward``
     stays off, as in ``rl8_tpu``, for a model that declares no
     ``FusedRecurrentApplySpec`` (the default one).
     """
@@ -169,10 +170,9 @@ class RecurrentAlgorithmConfig:
     #: conditions as ``fused_update``.
     fused_act: bool = True
     seed: int = 0
-    #: Multi-device sharding: not in this port yet.
+    #: See :class:`rl8_tpu_torch.algorithms.AlgorithmConfig.mesh`.
     mesh: Any = None
-    #: ``rl8_tpu``'s GSPMD sharding mode of a ``mesh``: not in this port
-    #: yet (ROADMAP Queue 1 #8).
+    #: See :class:`rl8_tpu_torch.algorithms.AlgorithmConfig.exact_sharding`.
     exact_sharding: bool = False
     #: Device that holds the model, the env and the buffer. The default
     #: is the card; pass ``"cpu"`` to run the kernels' plain versions.
@@ -186,7 +186,8 @@ class RecurrentAlgorithmConfig:
 
 
 class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, RecurrentAlgorithmState, RecurrentPolicy]):
-    """Recurrent PPO on one device.
+    """Recurrent PPO on one device or, with a mesh, on each process of its
+    group.
 
     Args:
         env_cls: Highly parallelized environment factory.
@@ -234,17 +235,18 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         #: Whether the update launches the recurrent update kernel (else
         #: autograd), and the rollout the recurrent act kernel (else the
         #: module rollout): ``rl8_tpu``'s gates.
-        self._fused_update = config.fused_update and kernels_take
-        self._fused_act = config.fused_act and kernels_take
+        self._fused_update = config.fused_update and kernels_take and not self._exact
+        self._fused_act = config.fused_act and kernels_take and not self._exact
         #: The chain kernels for the chains of a custom recurrent model
         #: declaring a ``FusedRecurrentApplySpec`` (``rl8_tpu``'s gate; never
         #: the default model).
-        self._fused_forward = config.fused_forward and supports_fused_recurrent_apply(model)
+        self._fused_forward = config.fused_forward and supports_fused_recurrent_apply(model) and not self._exact
         self.hparams = RecurrentAlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * (horizon // max(config.seq_len, 1))),
             seq_len=config.seq_len,
             seqs_per_state_reset=config.seqs_per_state_reset,
         ).validate()
+        self._init_sharding(env_cls, num_envs, horizon)
         self.policy.init_params(torch.Generator().manual_seed(params_seed))
         model.to(self.device)
         if self._fused_forward:
@@ -258,9 +260,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         self._params = list(model.parameters())
         if not self._fused_act:
             #: Generator of the module rollout's action samples.
-            self._sample_gen = torch.Generator(device=self.device).manual_seed(
-                int(torch.randint(0, 2**62, (1,), generator=self._key_gen))
-            )
+            self._sample_gen = self._device_generator(int(torch.randint(0, 2**62, (1,), generator=self._key_gen)))
         self.state = RecurrentAlgorithmState(
             env_state=None,
             buffer=self._zero_buffer(),
@@ -294,13 +294,13 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         its distribution. Returns ``(actions, logp, values, new_states)``."""
         (features, values), new_states = self._apply_model({DataKeys.OBS: tree_map(lambda o: o[:, None], obs)}, states)
         dist = self.policy.distribution_cls(features, self.policy.model)
-        actions = dist.deterministic_sample() if deterministic else dist.sample(self._sample_gen)
+        actions = self._sample(dist, deterministic)
         return actions, dist.logp(actions), values, new_states
 
     def _zero_buffer(self) -> dict[str, Any]:
-        """Time-major rollout buffer of zeros, with per-step recurrent
-        states ``[T + 1, B, K, H]``."""
-        B, T, dev = self.hparams.num_envs, self.hparams.horizon, self.device
+        """Time-major rollout buffer of zeros over this process's envs, with
+        per-step recurrent states ``[T + 1, B, K, H]``."""
+        B, T, dev = self._impl_B, self.hparams.horizon, self.device
         buf: dict[str, Any] = {
             DataKeys.OBS: self.env.observation_spec.zero((T + 1, B), dev),
             DataKeys.STATES: self.policy.state_spec.zero((T + 1, B), dev),
@@ -322,7 +322,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         self, env_config: None | dict[str, Any], deterministic: bool
     ) -> tuple[dict[str, torch.Tensor], bool]:
         h = self.hparams
-        B, T, L = h.num_envs, h.horizon, h.seq_len
+        B, T, L = self._impl_B, h.horizon, h.seq_len
         state = self.state
         buffer = state.buffer
 
@@ -331,7 +331,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         else:
             reset_now = state.horizons % h.horizons_per_env_reset == 0
         if reset_now:
-            env_state, obs = self.env.reset(self._env_gen, state=state.env_state, config=env_config)
+            env_state, obs = self._reset_env(state.env_state, env_config)
             rev = torch.zeros((B, 1), device=self.device)
         else:
             env_state, obs = state.env_state, tree_map(lambda x: x[-1], buffer[DataKeys.OBS])
@@ -346,7 +346,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
 
         if self._fused_act:
             params = self._pack_params()
-            keys = torch.randint(0, 2**32, (T, 2), generator=self._key_gen).tolist()
+            keys = self._act_keys()
         cols: dict[str, list[Any]] = {
             DataKeys.OBS: [obs],
             DataKeys.STATES: [],
@@ -370,7 +370,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
                 )
             else:
                 actions, logp, values, new_states = self._module_act(obs, states, deterministic)
-            env_state, obs, rewards = self.env.step(env_state, actions)
+            env_state, obs, rewards = self._impl_env.step(env_state, actions)
             if h.normalize_rewards:
                 rev = h.gamma * rev + rewards
             for key, value in (
@@ -398,23 +398,12 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         for key in (DataKeys.REWARDS, DataKeys.LOGP, DataKeys.VALUES):
             new_buffer[key] = new_buffer[key].to(torch.float32)
         if h.normalize_rewards:
-            reward_scale = gstd(new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][1:])
+            reward_scale = gstd(new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS][1:], self._group)
         else:
             del new_buffer[DataKeys.REVERSED_DISCOUNTED_RETURNS]
             reward_scale = torch.tensor(1.0, device=self.device)
 
-        rewards = new_buffer[DataKeys.REWARDS]
-        returns = rewards.sum(dim=0)
-        stats = {
-            "returns/min": gmin(returns),
-            "returns/max": gmax(returns),
-            "returns/mean": gmean(returns),
-            "returns/std": gstd(returns),
-            "rewards/min": gmin(rewards),
-            "rewards/max": gmax(rewards),
-            "rewards/mean": gmean(rewards),
-            "rewards/std": gstd(rewards),
-        }
+        stats = self._rollout_stats(new_buffer[DataKeys.REWARDS])
         self.state = dataclasses.replace(
             state,
             env_state=env_state,

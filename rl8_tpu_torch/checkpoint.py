@@ -33,10 +33,21 @@ algorithms, so across kinds the device generators are re-seeded from the
 saved state: the run continues, with other env-reset, shuffle and sample
 draws (as a run on the card never reproduces a CPU run).
 
-Not here, by design or until later (ROADMAP Queue 3 and Queue 1 #8):
-object-store URLs (``gs://`` and the like) raise ``ValueError``; the
-multi-process barrier and broadcast of ``rl8_tpu`` are single-process
-no-ops; ``rl8_tpu``'s legacy flat layout is not read.
+Multi-process runs (``rl8_tpu_torch.parallel``): saves and restores are
+collective. Process 0's generation index is the one every process uses
+(a stale shared-mount view elsewhere cannot split the job), process 0
+alone writes ``host_state.json``, ``latest.json`` and ``state.pt`` (the
+replicated state), and each process of an algorithm's mesh writes its
+shard of the env state and the buffer, with its device generators, to
+``shard-<rank>-of-<world>.pt``; ``latest.json`` moves once every process
+has written. Restore reshards onto the restoring mesh: the saved shards
+are joined along their batch axes and each process keeps its rows, so a
+checkpoint of 2 processes restores onto 1 or 4 bit for bit. A process
+whose rank the saving mesh did not have takes rank 0's generator states,
+re-seeded for its own stream in ``shard_map`` mode.
+
+Not here, by design: object-store URLs (``gs://`` and the like) raise
+``ValueError``; ``rl8_tpu``'s legacy flat layout is not read.
 """
 
 from __future__ import annotations
@@ -52,6 +63,9 @@ from typing import Any
 
 import torch
 
+from .parallel import _BATCHED_STATE_FIELDS, _barrier, _batch_axis, _broadcast_int, _map, _max_int, _rank_seed, _rows
+from .parallel import _world, is_main_process
+
 __all__ = [
     "save_checkpoint",
     "restore_checkpoint",
@@ -66,6 +80,9 @@ _KEEP = 2
 _STATE_FILE = "state.pt"
 #: Marks an encoded dataclass in the saved tree.
 _DATACLASS = "__dataclass__"
+#: The generators every process of a mesh holds alike (the host key
+#: stream); the others are per process, in its shard file.
+_REPLICATED_GENERATORS = ("_key_gen",)
 
 #: In-flight async save: ``(writer, directory, name, index)``; the writer
 #: has a ``wait()`` that returns when the write is done or raises its error.
@@ -98,18 +115,22 @@ def _latest(directory: str) -> tuple[int, str] | None:
 def checkpoint_exists(directory: str | os.PathLike[str], /, *, agree: bool = False) -> bool:
     """Whether ``directory`` holds a complete checkpoint written by
     :func:`save_checkpoint` (``latest.json`` only ever points at complete
-    state). A pending async save is finished and published first.
-    ``agree`` is accepted for ``rl8_tpu``'s signature; with one process
-    there is nothing to agree on."""
-    wait_for_checkpoint()
+    state). In a single-process run a pending async save is finished and
+    published first; in a multi-process run this is a local read, which
+    any subset of processes may make. ``agree=True`` (collective: every
+    process calls it) returns process 0's answer everywhere, so that
+    resume decisions cannot diverge across hosts."""
+    if _world() == 1:
+        wait_for_checkpoint()
     directory = _as_path(directory)
-    if not os.path.isdir(directory):
-        return False
-    latest = _latest(directory)
-    if latest is None:
-        return False
-    sub = latest[1]
-    return os.path.exists(os.path.join(sub, "host_state.json")) and os.path.exists(os.path.join(sub, _STATE_FILE))
+    exists = False
+    latest = _latest(directory) if os.path.isdir(directory) else None
+    if latest is not None:
+        sub = latest[1]
+        exists = os.path.exists(os.path.join(sub, "host_state.json")) and os.path.exists(os.path.join(sub, _STATE_FILE))
+    if agree:
+        exists = bool(_broadcast_int(int(exists)))
+    return exists
 
 
 def _publish_latest(directory: str, name: str, index: int) -> None:
@@ -121,12 +142,28 @@ def _publish_latest(directory: str, name: str, index: int) -> None:
 
 
 def _finalize_publish(directory: str, name: str, index: int) -> None:
-    """Publish generation ``name`` and prune those older than the kept window."""
-    _publish_latest(directory, name, index)
-    for entry in os.listdir(directory):
-        m = _CKPT_RE.match(entry)
-        if m and int(m.group(1)) <= index - _KEEP:
-            shutil.rmtree(os.path.join(directory, entry), ignore_errors=True)
+    """Once every process has written its files, publish generation
+    ``name`` and prune those older than the kept window (process 0), then
+    hold every process until the publish is done."""
+    _barrier()
+    if is_main_process():
+        _publish_latest(directory, name, index)
+        for entry in os.listdir(directory):
+            m = _CKPT_RE.match(entry)
+            if m and int(m.group(1)) <= index - _KEEP:
+                shutil.rmtree(os.path.join(directory, entry), ignore_errors=True)
+    _barrier()
+
+
+def _agree_written(error: None | Exception) -> None:
+    """Collective: raise on this process if another process's write
+    failed, so that no process publishes a generation missing a part (a
+    process whose own write failed raises its error after this)."""
+    if _max_int(int(error is not None)) and error is None:
+        raise RuntimeError(
+            "Another process failed to write its part of the checkpoint; latest.json still points at"
+            " the previous complete generation."
+        )
 
 
 class _Writer:
@@ -171,14 +208,18 @@ def wait_for_checkpoint() -> None:
         return
     writer, directory, name, index = _PENDING
     _PENDING = None
+    error = None
     try:
         writer.wait()
-    except Exception as e:
+    except Exception as e:  # agreed on by every process, then raised
+        error = e
+    _agree_written(error)
+    if error is not None:
         raise RuntimeError(
             f"Background write of checkpoint {name!r} under {directory}"
             " failed; latest.json still points at the previous complete"
             " generation."
-        ) from e
+        ) from error
     _finalize_publish(directory, name, index)
 
 
@@ -258,13 +299,20 @@ def _host_state(algorithm: Any, trainer_state: None | dict[str, int]) -> dict[st
     }
 
 
-def _write_generation(ckpt_dir: str, host: dict[str, Any], tree: dict[str, Any]) -> None:
-    """Write one generation's files (``state.pt`` through a tmp file)."""
-    with open(os.path.join(ckpt_dir, "host_state.json"), "w") as f:
-        f.write(json.dumps(host))
-    tmp = os.path.join(ckpt_dir, _STATE_FILE + ".tmp")
-    torch.save(tree, tmp)
-    os.replace(tmp, os.path.join(ckpt_dir, _STATE_FILE))
+def _write_generation(ckpt_dir: str, host: None | dict[str, Any], files: dict[str, Any]) -> None:
+    """Write this process's files of one generation (``host_state.json``
+    where ``host`` is given; each tensor file through a tmp file)."""
+    if host is not None:
+        with open(os.path.join(ckpt_dir, "host_state.json"), "w") as f:
+            f.write(json.dumps(host))
+    for name, tree in files.items():
+        tmp = os.path.join(ckpt_dir, name + ".tmp")
+        torch.save(tree, tmp)
+        os.replace(tmp, os.path.join(ckpt_dir, name))
+
+
+def _shard_file(rank: int, world: int) -> str:
+    return f"shard-{rank:05d}-of-{world:05d}.pt"
 
 
 def save_checkpoint(
@@ -277,6 +325,7 @@ def save_checkpoint(
 ) -> None:
     """Save an algorithm's full dynamic state (and optional trainer
     counters) as a new checkpoint generation under ``directory``.
+    Collective in a multi-process run: every process calls it.
 
     Args:
         directory: Checkpoint directory (created if missing); it holds the
@@ -292,37 +341,57 @@ def save_checkpoint(
     global _PENDING, _ATEXIT_REGISTERED
     # One generation in flight at a time.
     wait_for_checkpoint()
+    main = is_main_process()
     directory = _as_path(directory)
-    os.makedirs(directory, exist_ok=True)
-    latest = _latest(directory)
-    index = (latest[0] if latest else 0) + 1
+    if main:
+        os.makedirs(directory, exist_ok=True)
+    latest = _latest(directory) if os.path.isdir(directory) else None
+    index = _broadcast_int((latest[0] if latest else 0) + 1)
     name = f"ckpt-{index:08d}"
     ckpt_dir = os.path.join(directory, name)
-    # Clear debris from a previously interrupted save of this index.
-    if os.path.isdir(ckpt_dir):
-        shutil.rmtree(ckpt_dir)
-    os.makedirs(ckpt_dir)
+    if main:
+        # Clear debris from a previously interrupted save of this index.
+        if os.path.isdir(ckpt_dir):
+            shutil.rmtree(ckpt_dir)
+        os.makedirs(ckpt_dir)
+    _barrier()
 
     copies: list[torch.Tensor] = []
-    tree = {
-        "model": _snapshot(dict(algorithm.policy.model.state_dict()), copies, "model"),
-        "state": _snapshot(algorithm.state, copies, "state"),
-        "generators": {
-            k: {"device": g.device.type, "state": g.get_state()} for k, g in _generators(algorithm).items()
-        },
-    }
+    state = _snapshot(algorithm.state, copies, "state")
+    generators = {k: {"device": g.device.type, "state": g.get_state()} for k, g in _generators(algorithm).items()}
+    files: dict[str, Any] = {}
+    world = algorithm._world
+    if world > 1:
+        files[_shard_file(algorithm._rank, world)] = {
+            "state": {f: state.pop(f) for f in _BATCHED_STATE_FIELDS},
+            "generators": {k: generators.pop(k) for k in list(generators) if k not in _REPLICATED_GENERATORS},
+        }
+    if main:
+        files[_STATE_FILE] = {
+            "model": _snapshot(dict(algorithm.policy.model.state_dict()), copies, "model"),
+            "state": state,
+            "generators": generators,
+            "world": world,
+        }
     if copies:
         # The copies to pinned memory are queued on the current stream;
         # the snapshot is complete once they are.
         event = torch.cuda.Event()
         event.record()
         event.synchronize()
-    host = _host_state(algorithm, trainer_state)
+    host = _host_state(algorithm, trainer_state) if main else None
     if block:
-        _write_generation(ckpt_dir, host, tree)
+        error = None
+        try:
+            _write_generation(ckpt_dir, host, files)
+        except Exception as e:  # agreed on by every process, then raised
+            error = e
+        _agree_written(error)
+        if error is not None:
+            raise error
         _finalize_publish(directory, name, index)
         return
-    _PENDING = (_Writer(lambda: _write_generation(ckpt_dir, host, tree)), directory, name, index)
+    _PENDING = (_Writer(lambda: _write_generation(ckpt_dir, host, files)), directory, name, index)
     if not _ATEXIT_REGISTERED:
         import atexit
 
@@ -337,10 +406,62 @@ def _reseed(saved_state: torch.Tensor) -> int:
     return int.from_bytes(digest[:8], "little") >> 2
 
 
+def _load(path: str) -> Any:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _restore_shards(
+    algorithm: Any, ckpt_dir: str, saved: dict[str, Any]
+) -> tuple[dict[str, Any], dict[str, Any], int]:
+    """This process's env state and buffer (snapshot form) and device
+    generator states from generation ``ckpt_dir``, whose ``state.pt`` is
+    ``saved``: its own shard file where the saving mesh had this size,
+    else the saved shards joined along their batch axes and cut to this
+    process's rows. The last item is the rank to fold into the generator
+    states (a rank the saving mesh did not have takes rank 0's states,
+    re-seeded for its own stream where streams are per process), or 0."""
+    W, r = algorithm._world, algorithm._rank
+    saved_world = saved.get("world", 1)
+    if saved_world == W and W > 1:
+        shard = _load(os.path.join(ckpt_dir, _shard_file(r, W)))
+        return shard["state"], shard["generators"], 0
+    if saved_world == 1:
+        fields = {f: saved["state"][f] for f in _BATCHED_STATE_FIELDS}
+        parts = [{k: g for k, g in saved["generators"].items() if k not in _REPLICATED_GENERATORS}]
+    else:
+        shards = [_load(os.path.join(ckpt_dir, _shard_file(i, saved_world))) for i in range(saved_world)]
+        # The env state's batch axes, by rl8_tpu's rule on a global
+        # reset's shapes (a replicated leaf may match a shard's size).
+        template = algorithm.env.reset(torch.Generator(device=algorithm.device).manual_seed(0))[0]
+        n = algorithm.hparams.num_envs
+        axes = {
+            "env_state": _map(lambda leaf: _batch_axis(leaf, n), template),
+            "buffer": _map(lambda _: 1, shards[0]["state"]["buffer"]),
+        }
+        fields = {
+            f: _map(
+                lambda first, axis, *rest: first if axis is None else torch.cat([first, *rest], dim=axis),
+                shards[0]["state"][f], axes[f], *(s["state"][f] for s in shards[1:]),
+            )
+            for f in _BATCHED_STATE_FIELDS
+        }
+        parts = [s["generators"] for s in shards]
+    if W > 1:
+        n = algorithm.hparams.num_envs
+        fields = {
+            f: _map(lambda leaf, tm=f == "buffer": _rows(leaf, _batch_axis(leaf, n, time_major=tm), r, W), tree)
+            for f, tree in fields.items()
+        }
+    if r < len(parts):
+        return fields, parts[r], 0
+    return fields, parts[0], algorithm._stream_rank
+
+
 def restore_checkpoint(directory: str | os.PathLike[str], algorithm: Any, /) -> dict[str, int]:
     """Restore an algorithm's state from ``directory``'s newest complete
     checkpoint, in place. The algorithm must be built from the same
-    config; its device may differ from the saving one.
+    config; its device and its mesh may differ from the saving one.
+    Collective in a multi-process run: every process calls it.
 
     Returns:
         The persisted trainer counters (empty dict if none were saved).
@@ -349,26 +470,35 @@ def restore_checkpoint(directory: str | os.PathLike[str], algorithm: Any, /) -> 
     wait_for_checkpoint()
     directory = _as_path(directory)
     latest = _latest(directory) if os.path.isdir(directory) else None
-    if latest is None:
+    # Agree on process 0's view of the newest generation before acting on
+    # the local read (another host's view of a shared mount can lag).
+    agreed = _broadcast_int(latest[0] if latest is not None else -1)
+    if agreed < 0:
         raise FileNotFoundError(f"No checkpoint found under {directory}.")
-    ckpt_dir = latest[1]
-    tree = torch.load(os.path.join(ckpt_dir, _STATE_FILE), map_location="cpu", weights_only=True)
+    ckpt_dir = latest[1] if latest is not None and agreed == latest[0] else os.path.join(directory, f"ckpt-{agreed:08d}")
+    tree = _load(os.path.join(ckpt_dir, _STATE_FILE))
+    fields, device_generators, fold = _restore_shards(algorithm, ckpt_dir, tree)
+    tree["state"].update(fields)
+    saved_generators = {k: g for k, g in tree["generators"].items() if k in _REPLICATED_GENERATORS}
+    saved_generators.update(device_generators)
     device = algorithm.device
     with torch.no_grad():
         algorithm.policy.model.load_state_dict(tree["model"])
     algorithm.state = _restore_tree(tree["state"], algorithm.state, device)
     generators = _generators(algorithm)
-    if set(generators) != set(tree["generators"]):
+    if set(generators) != set(saved_generators):
         raise ValueError(
-            f"The checkpoint holds generators {sorted(tree['generators'])}, the restoring"
+            f"The checkpoint holds generators {sorted(saved_generators)}, the restoring"
             f" algorithm {sorted(generators)}; restore into an algorithm built from the same config."
         )
-    for key, saved in tree["generators"].items():
+    for key, saved in saved_generators.items():
         gen = generators[key]
         if saved["device"] == gen.device.type:
             gen.set_state(saved["state"])
         else:
             gen.manual_seed(_reseed(saved["state"]))
+        if fold and key in device_generators:
+            gen.manual_seed(_rank_seed(_reseed(saved["state"]), fold))
     with open(os.path.join(ckpt_dir, "host_state.json")) as f:
         host = json.load(f)
     algorithm.lr_scheduler.coeff = host["lr_coeff"]

@@ -19,6 +19,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Any
+
+from ..utils.debugging import check_kernel_outputs
 
 __all__ = ["BUILD_DIR", "CSRC", "build", "check", "load"]
 
@@ -172,8 +175,11 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
+def check(code: int, what: str, *outputs: Any) -> None:
+    """Raise if a launch function returned a CUDA error code, or if a
+    floating output of the launch holds a NaN while
+    :func:`rl8_tpu_torch.utils.debugging.debug_nans` is on."""
     if code != 0:
         message = load().rl8_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({message}).")
+    check_kernel_outputs(what, *outputs)

@@ -209,14 +209,14 @@ def fused_act(
             *ptrs, *dims, params.action_dim, act, int(params.kind == "squashed"),
             seed, offset, int(deterministic), *stream,
         )
-        check(code, "The continuous act kernel")
+        check(code, "The continuous act kernel", actions, logp, values)
         fused_act.continuous_launches += 1
     else:
         code = lib.rl8_discrete_act(
             *ptrs, *dims, params.action_dim * params.n, params.n, act,
             seed, offset, int(deterministic), *stream,
         )
-        check(code, "The discrete act kernel")
+        check(code, "The discrete act kernel", logp, values)
         fused_act.launches += 1
     return actions, logp, values
 

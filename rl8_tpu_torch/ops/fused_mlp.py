@@ -466,7 +466,7 @@ def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, 
         x.data_ptr(), flat.data_ptr(), ptrs, N, structure[0], spec, n, list(ACT_FNS).index(activation),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(code, "The chain forward kernel")
+    check(code, "The chain forward kernel", outs)
     fused_chains_fwd.launches += 1
     return outs
 
@@ -516,7 +516,7 @@ def fused_chains_bwd(
         x.data_ptr(), flat.data_ptr(), ptrs, dx.data_ptr(), dflat.data_ptr(), work.data_ptr(), N, structure[0],
         spec, n, list(ACT_FNS).index(activation), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(code, "The chain backward kernel")
+    check(code, "The chain backward kernel", dx, dflat)
     fused_chains_bwd.launches += 1
     return dx, dflat
 

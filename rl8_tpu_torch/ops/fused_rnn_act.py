@@ -311,7 +311,7 @@ def fused_rnn_act(
         RNN_KINDS.index(params.kind), params.action_dim, params.n, seed, offset, int(deterministic),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(code, "The recurrent act kernel")
+    check(code, "The recurrent act kernel", actions, logp, values, h_n, c_n)
     if params.continuous:
         fused_rnn_act.continuous_launches += 1
     else:

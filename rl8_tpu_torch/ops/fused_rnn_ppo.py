@@ -346,7 +346,7 @@ def fused_rnn_ppo_grads(
         cfg.vf_clip_param, cfg.vf_coeff * scale, scale, int(cfg.use_entropy),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(code, "The recurrent PPO update kernel")
+    check(code, "The recurrent PPO update kernel", grads, stats)
     if params.continuous:
         fused_rnn_ppo_grads.continuous_launches += 1
     else:

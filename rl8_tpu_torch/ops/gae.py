@@ -89,7 +89,7 @@ def fused_gae(
         adv.data_ptr(), ret.data_ptr(), T, B, gamma, gamma * gae_lambda,
         rewards.device.index or 0, torch.cuda.current_stream(rewards.device).cuda_stream,
     )
-    check(code, "The GAE kernel")
+    check(code, "The GAE kernel", adv, ret)
     fused_gae.launches += 1
     return adv, ret
 

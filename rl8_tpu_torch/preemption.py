@@ -4,9 +4,9 @@ Machines that host the card receive ``SIGTERM`` with a grace period
 before eviction (maintenance, spot reclaims, scheduler moves).
 :class:`PreemptionMonitor` latches the signal, and ``Trainer.run`` saves a
 final checkpoint at the next step boundary and returns; rerunning the
-same command resumes from it. ``preempted()`` answers for this process;
-the reduction over the processes of a multi-device job comes with it
-(ROADMAP Queue 1 #8).
+same command resumes from it. In a multi-process run ``preempted()``
+answers for every process: one signalled process makes all of them save
+and return.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import threading
 import warnings
 from types import FrameType
 from typing import Any
+
+from .parallel import _max_int
 
 __all__ = ["PreemptionMonitor"]
 
@@ -105,8 +107,13 @@ class PreemptionMonitor:
         return self._flag
 
     def preempted(self) -> bool:
-        """Whether this process has latched a preemption."""
-        return self._flag
+        """Whether any process has latched a preemption.
+
+        In a multi-process run this is a collective (a MAX of the flag over
+        the default group): every process calls it the same number of
+        times, as ``Trainer.run`` does once per step boundary. Alone it is
+        this process's flag."""
+        return bool(_max_int(int(self._flag)))
 
     def __enter__(self) -> "PreemptionMonitor":
         return self.install()

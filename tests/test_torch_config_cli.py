@@ -290,12 +290,26 @@ def test_cli_refuses_unported_options(tmp_path, capsys, argv, item) -> None:
         assert next(policy.model.parameters()).device.type == "cpu"
 
 
-def test_cli_refuses_doctor(capsys) -> None:
-    for argv in (["doctor"], ["doctor", "-f", "config.yaml", "--checkpoint-dir", "ckpt"]):
-        with pytest.raises(SystemExit) as exc:
-            main(argv)
-        assert exc.value.code != 0
-        assert "#8" in capsys.readouterr().err
+def test_cli_refuses_doctor(tmp_path, capsys) -> None:
+    """``doctor`` runs (it refused to before the multi-device slice) and
+    refuses, with exit code 1, what ``rl8_tpu``'s refuses: a config that
+    does not build and a checkpoint directory that fails the write probe,
+    with the same ``fail:`` lines."""
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("env_cls: not.a.real.Env\n")
+    blocker = tmp_path / "blocker"
+    blocker.write_text("")  # a file where a directory is needed
+    for argv, line in (
+        (["doctor", "-f", str(bad)], "fail: config build failed: "),
+        (["doctor", "--checkpoint-dir", str(blocker / "sub")], f"fail: checkpoint dir {blocker / 'sub'} failed the write probe: "),
+    ):
+        outs = []
+        for run in (main, jmain):
+            assert run(argv) == 1
+            outs.append(capsys.readouterr().out)
+        for out in outs:
+            assert any(ln.startswith(line) for ln in out.splitlines()), out
+            assert "1 FAILED" in out
 
 
 def test_cli_mlflow_needs_mlflow(tmp_path, monkeypatch) -> None:

@@ -229,17 +229,20 @@ def _jax_kw(kw: dict) -> None | dict:
         ({"model": object()}, AttributeError),
         ({"model_cls": object}, TypeError),
         ({"optimizer_cls": object()}, TypeError),
-        ({"mesh": object()}, NotImplementedError),
+        ({"mesh": object()}, TypeError),
         ({"optimizer_config": {"lr": 1e-3, "nesterov": True}}, NotImplementedError),
         ({"distribution_cls": Normal}, KeyError),
         ({"model_config": {"hidden_size": 8, "bias": False}}, NotImplementedError),
         ({"seq_len": 3}, ValueError),
         ({"seqs_per_state_reset": 0}, ValueError),
         ({"sgd_minibatch_size": 3}, ValueError),
-        ({"exact_sharding": True}, NotImplementedError),
+        ({"exact_sharding": True, "mesh": object()}, TypeError),
     ],
     # The cases keep the names they had when the first two and the sixth
-    # asserted the port's refusal (NotImplementedError).
+    # asserted the port's refusal (NotImplementedError), and the mesh
+    # cases (fourth and last) when any mesh and exact_sharding raised it:
+    # a mesh now builds (tests/test_torch_sharded_step.py), and one that
+    # is not a DeviceMesh raises TypeError.
     ids=[f"kw{i}-{e}" for i, e in enumerate(
         ["NotImplementedError"] * 2 + ["TypeError"] + ["NotImplementedError"] * 4 + ["ValueError"] * 3
         + ["NotImplementedError"]

@@ -198,11 +198,17 @@ def test_scheduler_cadence_matches_jax() -> None:
     "kw,error",
     [
         ({"optimizer_cls": object()}, TypeError),
-        ({"mesh": object()}, NotImplementedError),
+        ({"mesh": object()}, TypeError),
         ({"optimizer_config": {"lr": 1e-3, "nesterov": True}}, NotImplementedError),
-        ({"exact_sharding": True}, NotImplementedError),
+        ({"exact_sharding": True, "mesh": object()}, TypeError),
         ({"optimizer_config": {"lr": 1e-3, "learning_rate": 1e-3}}, ValueError),
     ],
+    # The mesh cases keep the names they had when any mesh and
+    # exact_sharding raised NotImplementedError; a mesh now builds
+    # (tests/test_torch_sharded_step.py), and one that is not a
+    # DeviceMesh raises TypeError.
+    ids=["kw0-TypeError", "kw1-NotImplementedError", "kw2-NotImplementedError", "kw3-NotImplementedError",
+         "kw4-ValueError"],
 )
 def test_unported_configurations_raise(kw: dict, error: type) -> None:
     with pytest.raises(error):

@@ -52,7 +52,10 @@ non-zero:
    the discrete act kernel also at the
    CartPole and MountainCar examples' shapes (1024 rows, obs dims 5 and 2,
    A=1, n=3) and the continuous one at Pendulum's (1024 rows, obs dim 3);
-   each timed beside its plain version.
+   each timed beside its plain version. Then a NaN in one observation row
+   on every act route and both chain-forward routes: that row's log-probs,
+   values and head outputs NaN, as in the plain versions
+   (``check_nan_routes``).
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
    ``AlgorithmConfig(device="cuda").build(DiscreteDummyEnv)`` at the
@@ -97,7 +100,18 @@ non-zero:
    and three timed iterations each, the rollout held against the module);
    ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
    and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
-   optimizer's state on the card).
+   optimizer's state on the card). Between the squashed path and the
+   repaired routes, the wide models: ``wide_torso`` (``bench.py:366``'s
+   line, a 1024-wide twin torso at 8192 envs, horizon 32: one warm-up,
+   three timed and one profiled iteration, act 32, GAE 1, update 4 an
+   iteration; then both kernels against their plain versions on the first
+   8,192 rows of the buffer and timed, the update also at 262,144 rows,
+   and the continuous kernels (SquashedNormal) at the same widths)
+   and ``wide_sweep`` (twin torsos 737 to 2388 wide, three distributions,
+   4,096 rows, each act and update kernel against its plain version on
+   its asserted route; the gate grid: every default model ``rl8_tpu``'s
+   residency gate admits is taken by both kernels; a 2389-wide torso
+   builds onto the module routes with no act or update launch).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
    discrete env (in f32 and with ``enable_amp=True``) and
@@ -171,6 +185,7 @@ non-zero:
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -220,6 +235,26 @@ FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
 #: act tolerances). Every row is also held against the plain log-prob of
 #: the kernel's own actions, which does not go through that rounding.
 SQUASH_LIMIT = 2.0
+#: The wide sweep's continuous heads: the mean head is scaled so that the
+#: pre-squash means have this RMS over the sweep's observations at every
+#: width. Left as drawn, the means grow with the torso's width and saturate
+#: the tanh; deep in the saturation a squashed row's log-prob is ~10x as
+#: sensitive to its mean, and f32 rounding of the forward flips the ratio's
+#: clip decisions of enough rows that f32 itself lands up to ~1e-2 off the
+#: float64 gradient, the kernel and the plain version alike. Those inputs
+#: are held against float64 (compare_ppo_f64).
+WIDE_MEAN_RMS = 2.0
+#: compare_ppo_f64, for inputs on which the plain f32 version itself lands
+#: far off the float64 gradient: per gradient tensor, the update kernel's
+#: error off float64 may be at most F64_K times the plain f32 version's,
+#: plus PPO_GRAD_*. Both are f32 with other summation orders, and which
+#: rows' clip decisions flip is a matter of the last bits, so the ratio
+#: scatters around 1: 0.30-2.47 over the sweep's 18 saturated draws, where
+#: the control (the plain version with one-pass TF32 products) lands 124x
+#: the plain f32 version's error or more (PERF.md section 6).
+F64_K = 4.0
+#: Input draws of the saturated squashed update at each sweep width.
+SATURATED_DRAWS = 3
 
 
 def emit(obj: dict) -> None:
@@ -356,9 +391,12 @@ def main() -> int:
     check_rnn_ppo(torch, dev, kernels["rnn_ppo"])
     check_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
     check_model_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
+    check_nan_routes(torch, dev)
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
+    run_wide_torso(torch, dev)
+    run_wide_sweep(torch, dev)
     run_repaired_routes(torch, dev)
     run_recurrent_path(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
@@ -581,10 +619,7 @@ def check_act(torch, dev, record: dict) -> None:
     B = 8192
     obs = 100.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
     params = pack_act_params(make_model(torch, Discrete(2, shape=(1,)), seed=12))
-    H = params.hiddens
-    macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
-    flops = 2 * B * (2 * macs_chain + H[-1] * (sum(params.policy_heads) + 1))
-    bytes_moved = 4 * (obs.numel() + params.flat.numel() + B * (params.action_dim + 2))
+    flops, bytes_moved = act_cost(params, B)
     record["ms"], host_ms = time_ms(torch, lambda: fused_act(params, obs, (1, 2)))
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: act_plain(params, obs, (1, 2), deterministic=False), iters=20
@@ -709,6 +744,74 @@ def check_ppo(torch, dev, record: dict) -> None:
             time_ppo(torch, "ppo_update", record, result, params, packed, unpack, ec, cfg)
 
 
+def check_nan_routes(torch, dev) -> None:
+    """A NaN in one observation row reaches that row's log-prob and value
+    on every act route, and every head output of that row on both chain
+    forward routes, as in the plain versions (relu keeps a NaN, as
+    ``torch.relu`` and ``jnp.maximum`` do); every other row stays finite
+    and within ACT_* or CHAIN_* of the plain version. Sampled actions from
+    NaN logits are not compared. Routes: the discrete act kernel's wgmma
+    (the main model), tiled (an obs dim of 300) and streaming routes
+    (320/288-wide layers: in shared memory, and in the scratch at an obs
+    dim of 4,000), the continuous one's tiled and streaming routes (the
+    same shapes), each asserted; the chain forward's tiled route
+    (MischievousMule's chains) and streaming route (one 768-wide LayerNorm
+    chain)."""
+    from rl8_tpu_torch.ops import act_plain, forward_chains, fused_act, fused_chains_fwd, pack_act_params
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+    from rl8_tpu_torch.specs import Discrete
+
+    B, bad = 1000, 7
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = [
+        ("discrete", "wgmma", 1, {}), ("discrete", "tiled", 300, {"hiddens": (64, 64)}),
+        ("discrete", "streaming", 2, {"hiddens": (320, 288)}),
+        ("discrete", "streaming_scratch", 4000, {"hiddens": (320, 288)}),
+        ("continuous", "tiled", 1, {}), ("continuous", "streaming", 2, {"hiddens": (320, 288)}),
+        ("continuous", "streaming_scratch", 4000, {"hiddens": (320, 288)}),
+    ]
+    seen = []
+    for family, want, obs_dim, model_config in cases:
+        if family == "discrete":
+            model = make_model(torch, Discrete(3, shape=(2,)), seed=obs_dim, obs_dim=obs_dim, **model_config)
+        else:
+            model = make_continuous_model(torch, 2, seed=obs_dim, obs_dim=obs_dim, **model_config)
+        params = pack_act_params(model)
+        obs = torch.randn((B, obs_dim), generator=gen, device=dev)
+        obs[bad, obs_dim // 2] = float("nan")
+        routes = {**ACT_ROUTES[family], **STREAMING_ROUTES[family == "continuous"]}
+        routes = {k: v for k, v in routes.items() if not k.endswith("act_kernel")}
+        route = launched_route(torch, f"nan {family} act", lambda: fused_act(params, obs, (1, 2)), routes, want)
+        _, kl, kv = fused_act(params, obs, (1, 2), deterministic=True)
+        _, pl, pv = act_plain(params, obs, (1, 2), deterministic=True)
+        torch.cuda.synchronize()
+        what = f"nan {family} act ({route})"
+        rest = torch.arange(B, device=dev) != bad
+        for name, k, p in (("logp", kl, pl), ("values", kv, pv)):
+            check(bool(torch.isnan(p[bad]).all()), f"{what}: the plain {name} of the NaN row is not NaN")
+            check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is {k[bad].tolist()}")
+            check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
+        seen.append(f"{family}_act_{route}")
+    mule_chains = default_chains(make_mule(torch, seed=5).to(dev))
+    near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
+    for chains, want in ((mule_chains, "tiled"), (near, "streaming")):
+        x = 0.5 * torch.randn((B, 7), generator=gen, device=dev)
+        x[bad, 3] = float("nan")
+        route = forward_route(torch, x, chains, "relu", want)
+        outs = fused_chains_fwd(x, flatten_chains(chains), chain_structure(chains), "relu")
+        (plain, _) = forward_chains(x, chains, "relu")
+        plain = [t for heads in plain for t in heads]
+        torch.cuda.synchronize()
+        rest = torch.arange(B, device=dev) != bad
+        for k, p in zip(outs, plain):
+            check(bool(torch.isnan(p[bad]).all()), "nan chains: the plain outputs of the NaN row are not NaN")
+            check(bool(torch.isnan(k[bad]).all()), f"nan chains ({route}): the kernel's NaN row is {k[bad].tolist()}")
+            check(torch.allclose(k[rest], p[rest], rtol=CHAIN_RTOL, atol=CHAIN_ATOL),
+                  f"nan chains ({route}): other rows")
+        seen.append(f"chains_fwd_{route}")
+    emit({"phase": "kernel_check", "kernel": "nan_observation", "rows": B, "routes": seen})
+
+
 def compare_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
     """The update kernel twice and its plain version once on one
     minibatch: the launches must be bit-identical, each gradient tensor
@@ -752,14 +855,8 @@ def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unp
     from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
 
     record["max_abs_err"] = result["max_abs_err"]
-    N, H, d_in = packed.shape[0], params.hiddens, params.d_in
-    dense = d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
-    heads = H[-1] * (sum(params.policy_heads) + 1)
-    fwd_macs = 2 * dense + heads
-    bwd_macs = fwd_macs + 2 * (dense - d_in * H[0]) + heads  # every dW, dh past layer 1
-    flops = 2 * N * (fwd_macs + bwd_macs)
-    n_params = params.flat.numel()
-    bytes_moved = 4 * (packed.numel() + 2 * n_params + 4 + 1)
+    N = packed.shape[0]
+    flops, bytes_moved = ppo_cost(params, packed)
     record["ms"], host_ms = time_ms(
         torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
     )
@@ -921,10 +1018,7 @@ def check_continuous_act(torch, dev, record: dict) -> None:
     # Timing at the main path's shapes: B=8192, twin 256-wide relu torsos,
     # A=1, squashed, stochastic.
     params = pack_act_params(make_continuous_model(torch, 1, seed=62), squashed=True)
-    H = params.hiddens
-    macs_chain = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
-    flops = 2 * B * (2 * macs_chain + H[-1] * (sum(params.policy_heads) + 1))
-    bytes_moved = 4 * (obs.numel() + params.flat.numel() + B * (params.action_dim + 2))
+    flops, bytes_moved = act_cost(params, B)
     record["ms"], host_ms = time_ms(torch, lambda: fused_act(params, obs, (1, 2)))
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: act_plain(params, obs, (1, 2), deterministic=False), iters=20
@@ -1669,7 +1763,8 @@ def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
         took = [route for kernel, route in routes.items() if any(re.search(rf"\b{kernel}\b", n) for n in names)]
         if took:
             break
-    check(took == [want] if want else len(took) == 1, f"{what} took {took}, not the {want} route")
+    check(took == [want] if want else len(took) == 1,
+          f"{what} took {took}, not the {want} route (kernels: {[n[:90] for n in names][:12]})")
     return took[0]
 
 
@@ -2004,6 +2099,471 @@ def run_repaired_routes(torch, dev) -> None:
               "hiddens": list(algo.policy.model.hiddens), "activation": algo.policy.model.activation_fn,
               "fused_act": fused[0], "fused_update": fused[1], "launches": launches,
               "collect_ms": (t_mid - t) * 1e3, "step_ms": (t_end - t_mid) * 1e3, "step": stats})
+
+
+#: Twin-torso widths of the wide sweep: the update kernel's first width on
+#: its wide route (737), the JAX bench's wide line (1024), the act kernel's
+#: last width with its streaming rows in shared memory and its first in the
+#: scratch at the dummy envs' shapes (1813, 1814), and rl8_tpu's last
+#: admitted width (2388).
+WIDE_WIDTHS = (737, 1024, 1813, 1814, 2048, 2388)
+#: The update kernel's row-pass routes per distribution family (continuous
+#: or not), and the act kernels' streaming routes, each by kernel name (for
+#: launched_route).
+PPO_ROUTES = {
+    False: {"ppo_rows_kernel<false, false": "narrow", "ppo_rows_kernel<false, true": "wide"},
+    True: {"ppo_rows_kernel<true, false": "narrow", "ppo_rows_kernel<true, true": "wide"},
+}
+STREAMING_ROUTES = {
+    False: {"discrete_act_kernel<false": "streaming", "discrete_act_kernel<true": "streaming_scratch"},
+    True: {"continuous_act_kernel<false": "streaming", "continuous_act_kernel<true": "streaming_scratch"},
+}
+
+
+def compare_act(torch, what: str, params, obs, key=(12345, 678)) -> float:
+    """An act kernel twice and its plain version, deterministic and
+    stochastic (the plain version replays the kernel's Philox draws) on
+    ``obs``: two launches bit-identical; categorical actions equal except
+    rows whose top-2 scores are within TIE_GAP, continuous ones within
+    ACT_*; values within ACT_*; log-probs within ACT_* of the plain
+    distribution's log-prob of the kernel's own actions on every row and
+    of the plain version's own where the actions agree (squashed: where
+    every pre-squash |x| < SQUASH_LIMIT). Returns the largest error."""
+    from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
+    from rl8_tpu_torch.ops import act_plain, fused_act
+    from rl8_tpu_torch.ops.distmath import log_softmax_rows, philox_normal, philox_uniform
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+
+    B, A = obs.shape[0], params.action_dim
+    (heads, _), _ = forward_chains(obs, params.chains(), params.activation)
+    worst = 0.0
+    for det in (True, False):
+        name = f"{what} {'deterministic' if det else 'stochastic'}"
+        ka, kl, kv = fused_act(params, obs, key, deterministic=det)
+        k2 = fused_act(params, obs, key, deterministic=det)
+        pa, pl, pv = act_plain(params, obs, key, deterministic=det)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((ka, kl, kv), k2)), f"{name}: two launches bit-identical")
+        check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{name}: values")
+        if params.continuous:
+            mean, log_std = heads[0], torch.tanh(heads[1])
+            dist = (SquashedNormal if params.kind == "squashed" else Normal)({"mean": mean, "log_std": log_std})
+            check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{name}: actions")
+            x = mean if det else mean + torch.exp(log_std) * philox_normal(*key, B, A, obs.device)
+            keep = (x.abs() < SQUASH_LIMIT).all(dim=1) if params.kind == "squashed" else torch.ones_like(kv[:, 0] > 0)
+            worst = max(worst, float((ka - pa).abs().max()))
+        else:
+            n = params.n
+            z = torch.cat([log_softmax_rows(heads[0][:, a * n : (a + 1) * n]) for a in range(A)], 1).view(B, A, n)
+            if not det:
+                z = z - torch.log(-torch.log(philox_uniform(*key, B, A, n, obs.device).view(B, A, n)))
+            top2 = z.topk(2, dim=-1).values
+            keep = ~((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
+            check(bool((ka == pa).all(dim=1)[keep].all()), f"{name}: actions")
+            dist = Categorical({"logits": heads[0].view(B, A, n)})
+        own = dist.logp(ka)
+        check(torch.allclose(kl, own, rtol=ACT_RTOL, atol=ACT_ATOL),
+              f"{name}: logp vs the plain log-prob of its actions")
+        check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{name}: logp")
+        worst = max(worst, float((kv - pv).abs().max()), float((kl - own).abs().max()),
+                    float((kl[keep] - pl[keep]).abs().max()))
+    return worst
+
+
+def scale_mean_head(torch, model, obs, rms: float):
+    """Scale a default continuous model's mean head (weights and bias) so
+    that its means over ``obs`` have root mean square ``rms``."""
+    from rl8_tpu_torch.ops import forward_chains, pack_act_params
+
+    params = pack_act_params(model)
+    ((mean, _), _), _ = forward_chains(obs, params.chains(), params.activation)
+    with torch.no_grad():
+        factor = rms / float(mean.pow(2).mean().sqrt())
+        model.action_mean.weight.mul_(factor)
+        model.action_mean.bias.mul_(factor)
+    return model
+
+
+def grad_tensors(params, flat) -> list:
+    """``(chain, tensor)`` for every weight and bias of a flat gradient laid
+    out as ``params`` (chain 0 the policy, 1 the value)."""
+    from rl8_tpu_torch.ops.fused_act import ActParams
+
+    return [(chain, t) for chain, (layers, heads) in enumerate(ActParams(**{**params.__dict__, "flat": flat}).chains())
+            for pair in (*layers, *heads) for t in pair]
+
+
+def compare_ppo_f64(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
+    """For inputs on which the plain f32 version is no reference (see F64_K:
+    the saturated squashed rows of WIDE_MEAN_RMS, and wide_torso's
+    synthetic rows at 262,144): the update kernel twice, its plain version
+    in f32, in float64 and, as a control, in f32 with one-pass TF32
+    products. The launches must be bit-identical and finite, and each
+    gradient tensor's error off float64 within F64_K times the plain f32
+    version's plus PPO_GRAD_*. Returns the worst norm-relative errors off
+    float64 of the three, per chain (policy, value)."""
+    from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_act import ActParams
+
+    k1 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    k2 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    plain = ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
+    f64 = ppo_grads_plain(ActParams(**{**params.__dict__, "flat": params.flat.double()}), packed, unpack, ec, cfg)[2]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.equal(k1, k2) and bool(torch.isfinite(k1).all()), f"{what}: two launches bit-identical and finite")
+
+    tensors = lambda flat: grad_tensors(params, flat.double())  # noqa: E731
+    worst = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0], "tf32_control": [0.0, 0.0]}
+    for (chain, k), (_, p), (_, c), (_, f) in zip(tensors(k1), tensors(plain), tensors(tf32), tensors(f64)):
+        ref = float(f.norm())
+        err = {"kernel": float((k - f).norm()), "plain": float((p - f).norm()), "tf32_control": float((c - f).norm())}
+        for key, e in err.items():
+            worst[key][chain] = max(worst[key][chain], e / ref)
+        check(err["kernel"] <= F64_K * err["plain"] + PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+              f"{what}: gradient {tuple(f.shape)} {err['kernel'] / ref:.3g} off float64, "
+              f"the plain f32 version {err['plain'] / ref:.3g}")
+    return {f"{key}_worst_grad_vs_float64": v for key, v in worst.items()}
+
+
+def check_halves(torch, what: str, params, packed, unpack, ec, cfg) -> float:
+    """The update kernel over N rows against the mean of its launches over
+    each half (n_rows N / 2 each): per gradient tensor within PPO_GRAD_*.
+    At wide_torso's 262,144 rows the wide route's input slab lies past
+    2^31 floats of the scratch, at 131,072 below it, so an index that
+    wraps at 32 bits shows here. Returns the worst norm-relative error."""
+    import dataclasses
+
+    from rl8_tpu_torch.ops import fused_ppo_grads
+
+    M = packed.shape[0] // 2
+    half = dataclasses.replace(cfg, n_rows=M)
+    full = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    a = fused_ppo_grads(params, packed[:M].contiguous(), unpack, ec, half)[2]
+    b = fused_ppo_grads(params, packed[M:].contiguous(), unpack, ec, half)[2]
+    torch.cuda.synchronize()
+
+    worst = 0.0
+    halves = (a.double() + b.double()) / 2
+    for (_, f), (_, h) in zip(grad_tensors(params, full.double()), grad_tensors(params, halves)):
+        err, ref = float((f - h).norm()), float(h.norm())
+        worst = max(worst, err / ref)
+        check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL, f"{what}: gradient {tuple(h.shape)} error {err:.3g} "
+              f"vs the mean of the halves' norm {ref:.3g}")
+    return worst
+
+
+def act_cost(params, B: int) -> tuple[int, int]:
+    """``(FLOP, bytes)`` of an act launch of ``B`` rows: both chains'
+    products and heads; observations and parameters read once, actions,
+    log-probs and values written once."""
+    H = params.hiddens
+    macs = params.d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+    flops = 2 * B * (2 * macs + H[-1] * (sum(params.policy_heads) + 1))
+    return flops, 4 * (B * params.d_in + params.flat.numel() + B * (params.action_dim + 2))
+
+
+def ppo_cost(params, packed) -> tuple[int, int]:
+    """``(FLOP, bytes)`` of an update launch (``time_ppo``'s count): both
+    chains' forward, and their backward's every dW and every dh past the
+    first layer; the packed rows and the parameters read once, the
+    gradient and the stats written once."""
+    N, H, d_in = packed.shape[0], params.hiddens, params.d_in
+    dense = d_in * H[0] + sum(H[i] * H[i + 1] for i in range(len(H) - 1))
+    heads = H[-1] * (sum(params.policy_heads) + 1)
+    fwd = 2 * dense + heads
+    bwd = fwd + 2 * (dense - d_in * H[0]) + heads
+    return 2 * N * (fwd + bwd), 4 * (packed.numel() + 2 * params.flat.numel() + 4 + 1)
+
+
+def time_kernel(torch, what: str, fn, plain, cost: tuple[int, int], iters: int, plain_iters: int, **extra) -> dict:
+    """A kernel's device ms per launch beside its plain version's, with its
+    bounds (update_bounds); emits and returns the record."""
+    record = dict(extra)
+    record["ms"], record["host_ms"] = time_ms(torch, fn, iters=iters, warmup=1)
+    record["plain_ms"], _ = time_ms(torch, plain, iters=plain_iters, warmup=1)
+    update_bounds(record, *cost)
+    record.update(flops=cost[0], bytes=cost[1])
+    emit({"phase": "kernel_time", "kernel": what, **record})
+    return record
+
+
+def buffer_rows(torch, algo, N: int, seed: int):
+    """The first ``N`` rows of a collected buffer (time-major: the first
+    time steps of every env) packed as a training minibatch: observations,
+    actions, log-probs and values from the rollout, standard-normal
+    advantages, returns around the values. Returns the observations, the
+    packed rows and their unpacker."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.ops import pack_rows
+
+    buf, T = algo.state.buffer, algo.hparams.horizon
+    rows = lambda key: buf[key][:T].reshape(-1, buf[key].shape[-1])[:N]  # noqa: E731
+    gen = torch.Generator(device=rows(DataKeys.OBS).device).manual_seed(seed)
+    obs, values = rows(DataKeys.OBS).float().contiguous(), rows(DataKeys.VALUES)
+    packed, unpack = pack_rows({
+        DataKeys.ACTIONS: rows(DataKeys.ACTIONS).to(torch.int32),
+        DataKeys.LOGP: rows(DataKeys.LOGP),
+        DataKeys.ADVANTAGES: torch.randn((N, 1), generator=gen, device=obs.device),
+        DataKeys.RETURNS: values + 2.0 * torch.randn((N, 1), generator=gen, device=obs.device),
+        DataKeys.VIEWS: {DataKeys.OBS: obs},
+    })
+    return obs, packed, unpack
+
+
+def run_wide_torso(torch, dev) -> None:
+    """``bench.py:366``'s wide line on the card: ``DefaultDiscreteModel``
+    with a 1024-wide twin torso on ``DiscreteDummyEnv``, 8192 envs, horizon
+    32, the defaults otherwise (a whole-buffer minibatch, 4 epochs, Adam
+    1e-3 after the 5.0 clip): one warm-up, three timed and one profiled
+    iteration (time_cell: act 32, GAE 1, update 4 launches an iteration).
+    Then, on the first 8,192 rows of a collected buffer, the act kernel
+    (its streaming route) and the update kernel (its wide route) against
+    their plain versions, and both timed beside their plain versions: the
+    act at 8,192 rows, the update at 8,192 and at the cell's 262,144 (the
+    whole buffer checked against the plain version, the timed synthetic
+    rows against float64, compare_ppo_f64, and against the kernel's
+    launches over their halves, check_halves). Then the continuous kernels (SquashedNormal, the mean
+    head at WIDE_MEAN_RMS) at the same widths: the act checked at 8,192
+    rows, the update at 8,192 and 262,144, and timed as the discrete
+    ones."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import PPOLossConfig, act_plain, fused_act, fused_ppo_grads, ppo_grads_plain
+
+    algo = AlgorithmConfig(device="cuda", model_config={"hiddens": (1024, 1024)}).build(DiscreteDummyEnv)
+    h = algo.hparams
+    check((algo._fused_act, algo._fused_update) == (True, True), "wide_torso: the kernels' routes")
+    check(tuple(algo.policy.model.vf_model.layers[1].weight.shape) == (1024, 1024), "wide_torso: torso width")
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check((h.num_envs, h.horizon, per_step) == (8192, 32, 4), "wide_torso: the bench's shapes")
+    time_cell(torch, algo, "wide_torso", {"act": h.horizon, "gae": 1, "update": per_step}, per_step, iters=4,
+              hiddens=[1024, 1024])
+    algo.collect()
+    params = algo._pack_params()
+    obs, packed, unpack = buffer_rows(torch, algo, 8192, seed=16)
+    act_route = launched_route(torch, "wide_torso act", lambda: fused_act(params, obs, (1, 2)),
+                               STREAMING_ROUTES[False], "streaming")
+    act_err = compare_act(torch, "wide_torso act", params, obs)
+    cfg = algo._loss_config(8192)
+    ec = torch.tensor(0.0, device=dev)
+    ppo_route = launched_route(torch, "wide_torso update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                               PPO_ROUTES[False], "wide")
+    result = compare_ppo(torch, "wide_torso update", params, packed, unpack, ec, cfg)
+    emit({"phase": "kernel_check", "kernel": "wide_torso", "N": 8192, "act_route": act_route,
+          "act_max_abs_err": act_err, "update_route": ppo_route, **result["summary"]})
+    time_kernel(torch, "discrete_act", lambda: fused_act(params, obs, (1, 2)),
+                lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, 8192),
+                iters=20, plain_iters=10, B=8192, hiddens=[1024, 1024], route=act_route)
+    time_kernel(torch, "ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
+                iters=10, plain_iters=5, N=8192, hiddens=[1024, 1024], route=ppo_route)
+    # At the cell's 262,144 rows: the whole buffer against the plain version,
+    # then the synthetic rows that are timed against float64. On those the
+    # trained policy's plain f32 gradient lands up to 5e-3 off float64 (the
+    # kernel ~1e-5), so it is no reference there (compare_ppo_f64).
+    cfg = algo._loss_config(8192 * 32)
+    _, packed, unpack = buffer_rows(torch, algo, 8192 * 32, seed=16)
+    result = compare_ppo(torch, "wide_torso update", params, packed, unpack, ec, cfg)
+    params, packed, unpack = ppo_inputs(torch, dev, algo.policy.model, 8192 * 32, seed=17)
+    synthetic = compare_ppo_f64(torch, "wide_torso update (synthetic rows)", params, packed, unpack, ec, cfg)
+    halves = check_halves(torch, "wide_torso update (halves)", params, packed, unpack, ec, cfg)
+    emit({"phase": "kernel_check", "kernel": "wide_torso", "N": 8192 * 32, "update_route": ppo_route,
+          **result["summary"], "synthetic_rows": synthetic, "halves_worst_grad_norm_rel_err": halves})
+    time_kernel(torch, "ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
+                iters=3, plain_iters=2, N=8192 * 32, hiddens=[1024, 1024], route=ppo_route)
+    # The continuous kernels at the same widths and rows (SquashedNormal, as
+    # the squashed cell): the act checked and timed at 8,192 rows, the
+    # update at 8,192 and 262,144.
+    model = scale_mean_head(torch, make_continuous_model(torch, 1, seed=19, log_std_scale=0.03, hiddens=(1024, 1024)),
+                            obs, WIDE_MEAN_RMS)
+    for N in (8192, 8192 * 32):
+        params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=20, squashed=True)
+        cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=h.vf_clip_param, vf_coeff=h.vf_coeff, dual_clip_param=None,
+                            n_rows=N, accum=1, use_entropy=False, squashed=True)
+        checked = {}
+        if N == 8192:
+            act_route = launched_route(torch, "wide_torso continuous act", lambda: fused_act(params, obs, (1, 2)),
+                                       STREAMING_ROUTES[True], "streaming")
+            checked = {"act_route": act_route, "act_max_abs_err": compare_act(torch, "wide_torso continuous act",
+                                                                               params, obs)}
+        result = compare_ppo(torch, "wide_torso continuous update", params, packed, unpack, ec, cfg)
+        emit({"phase": "kernel_check", "kernel": "wide_torso_continuous", "N": N, **checked, **result["summary"]})
+        if N == 8192:
+            time_kernel(torch, "continuous_act", lambda: fused_act(params, obs, (1, 2)),
+                        lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
+                        iters=20, plain_iters=10, B=N, hiddens=[1024, 1024], kind="squashed", route=act_route)
+        time_kernel(torch, "continuous_ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                    lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
+                    iters=10 if N == 8192 else 3, plain_iters=5 if N == 8192 else 2, N=N, hiddens=[1024, 1024],
+                    kind="squashed", route="wide")
+
+
+def run_wide_sweep(torch, dev) -> None:
+    """Fixed inputs at 4,096 rows, twin torsos of WIDE_WIDTHS: for
+    Categorical (DefaultDiscreteModel), Normal (with an entropy bonus) and
+    SquashedNormal (DefaultContinuousModel, its mean head scaled to
+    WIDE_MEAN_RMS), the act kernel (compare_act; its streaming route in
+    shared memory up to 1813 wide, in the scratch from 1814) and the update
+    kernel (compare_ppo; its wide route) against their plain versions, each
+    route asserted; for SquashedNormal also the update on the mean head as
+    drawn, deep in the tanh's saturation, against float64 over
+    SATURATED_DRAWS input draws (compare_ppo_f64); at
+    2388 the act and update kernels timed beside their plain versions.
+    The same checks at other depths, widths, inputs and heads: three
+    uneven tanh layers (1024, 737, 900) at an obs dim of 3 with A=3, n=3;
+    one 3000-wide layer, Normal over 4 dims at an obs dim of 5; eight
+    737-wide layers; each with an entropy bonus, dual clip and
+    accumulation. Then, over a grid of default models (check_gate_grid),
+    every model rl8_tpu's residency gate admits is taken by the card's act
+    and update kernels; and a 2389-wide twin torso, past the gate, builds
+    onto the module rollout and the autodiff update, as rl8_tpu routes it,
+    and trains one collect and one step with no act or update launch."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import PPOLossConfig, act_plain, fused_act, fused_ppo_grads, pack_act_params
+    from rl8_tpu_torch.ops import ppo_grads_plain
+    from rl8_tpu_torch.specs import Discrete
+
+    N = 4096
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for w in WIDE_WIDTHS:
+        obs = 20.0 * torch.randn((N, 1), generator=gen, device=dev)
+        saturated = make_continuous_model(torch, 1, seed=w + 1, log_std_scale=0.03, hiddens=(w, w))
+        models = {"discrete": make_model(torch, Discrete(2, shape=(1,)), seed=w, hiddens=(w, w)),
+                  "continuous": scale_mean_head(torch, copy.deepcopy(saturated), obs, WIDE_MEAN_RMS)}
+        for kind in ("categorical", "normal", "squashed"):
+            model = models["discrete" if kind == "categorical" else "continuous"]
+            params = pack_act_params(model, squashed=kind == "squashed")
+            what = f"wide_sweep {kind} {w}"
+            act_route = launched_route(torch, f"{what} act", lambda: fused_act(params, obs, (1, 2)),
+                                       STREAMING_ROUTES[params.continuous],
+                                       "streaming" if w <= 1813 else "streaming_scratch")
+            act_err = compare_act(torch, f"{what} act", params, obs)
+            regimes = {}
+            if kind == "categorical":
+                params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=w)
+            else:
+                params, packed, unpack, clamped = continuous_ppo_inputs(torch, dev, model, N, seed=w,
+                                                                        squashed=kind == "squashed")
+                regimes = {"rows_clamped": int(clamped.sum())}
+            cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=3.0, n_rows=N,
+                                accum=1, use_entropy=kind == "normal", squashed=kind == "squashed")
+            ec = torch.tensor(0.01 if kind == "normal" else 0.0, device=dev)
+            ppo_route = launched_route(torch, f"{what} update",
+                                       lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                                       PPO_ROUTES[params.continuous], "wide")
+            result = compare_ppo(torch, f"{what} update", params, packed, unpack, ec, cfg)
+            if kind == "squashed":
+                # The same squashed update on the heads as drawn (saturated),
+                # over SATURATED_DRAWS draws of the inputs.
+                regimes["saturated"] = []
+                for draw in range(SATURATED_DRAWS):
+                    sat, sat_packed, sat_unpack, sat_clamped = continuous_ppo_inputs(
+                        torch, dev, saturated, N, seed=w + 7919 * draw, squashed=True)
+                    regimes["saturated"].append({
+                        "rows_clamped": int(sat_clamped.sum()),
+                        **compare_ppo_f64(torch, f"{what} saturated update (draw {draw})", sat, sat_packed,
+                                          sat_unpack, ec, cfg)})
+            emit({"phase": "kernel_check", "kernel": "wide_sweep", "width": w, "kind": kind, "N": N,
+                  "act_route": act_route, "act_max_abs_err": act_err, "update_route": ppo_route,
+                  **regimes, **result["summary"]})
+            if w == 2388:
+                time_kernel(torch, "continuous_act" if params.continuous else "discrete_act",
+                            lambda: fused_act(params, obs, (1, 2)),
+                            lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
+                            iters=10, plain_iters=5, B=N, hiddens=[w, w], kind=kind, route=act_route)
+                time_kernel(torch, "continuous_ppo_update" if params.continuous else "ppo_update",
+                            lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                            lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
+                            iters=5, plain_iters=3, N=N, hiddens=[w, w], kind=kind, route=ppo_route)
+    # Other depths, widths, inputs and heads on the wide routes: three
+    # uneven tanh layers, one 3000-wide layer (admitted: one layer's
+    # residents are small) and eight 737-wide layers.
+    shapes = [("categorical", 3, (3, 3), {"hiddens": (1024, 737, 900), "activation_fn": "tanh"}, "streaming"),
+              ("normal", 5, 4, {"hiddens": (3000,)}, "streaming_scratch"),
+              ("categorical", 1, (1, 2), {"hiddens": (737,) * 8}, "streaming")]
+    for kind, obs_dim, action, config, want in shapes:
+        if kind == "categorical":
+            model = make_model(torch, Discrete(action[1], shape=(action[0],)), seed=obs_dim, obs_dim=obs_dim, **config)
+        else:
+            model = make_continuous_model(torch, action, seed=obs_dim, obs_dim=obs_dim, **config)
+        obs = 20.0 * torch.randn((N, obs_dim), generator=gen, device=dev)
+        if kind != "categorical":
+            model = scale_mean_head(torch, model, obs, WIDE_MEAN_RMS)
+        params = pack_act_params(model)
+        what = f"wide_sweep {kind} {config['hiddens']}"
+        act_route = launched_route(torch, f"{what} act", lambda: fused_act(params, obs, (1, 2)),
+                                   STREAMING_ROUTES[params.continuous], want)
+        act_err = compare_act(torch, f"{what} act", params, obs)
+        if kind == "categorical":
+            params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=obs_dim)
+        else:
+            params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=obs_dim, squashed=False)
+        cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=3.0, n_rows=N,
+                            accum=2, use_entropy=True)
+        ec = torch.tensor(0.01, device=dev)
+        ppo_route = launched_route(torch, f"{what} update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                                   PPO_ROUTES[params.continuous], "wide")
+        result = compare_ppo(torch, f"{what} update", params, packed, unpack, ec, cfg)
+        emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": list(params.hiddens), "kind": kind,
+              "obs_dim": obs_dim, "activation": params.activation, "policy_heads": list(params.policy_heads), "N": N,
+              "act_route": act_route, "act_max_abs_err": act_err, "update_route": ppo_route, **result["summary"]})
+    check_gate_grid(torch)
+    zero_counters()
+    algo = AlgorithmConfig(device="cuda", num_envs=1024, model_config={"hiddens": (2389, 2389)}).build(
+        DiscreteDummyEnv)
+    flags = (algo._fused_act, algo._fused_update, algo._fused_forward)
+    check(flags == (False, False, False), f"wide_sweep 2389: routes {flags}, not rl8_tpu's module routes")
+    algo.collect()
+    stats = algo.step()
+    launches = launch_counts()
+    check(launches["act"] == 0 and launches["update"] == 0 and launches["gae"] == 1,
+          f"wide_sweep 2389: launches {launches}")
+    check(all(math.isfinite(v) for v in stats.values()), f"wide_sweep 2389: step stats finite: {stats}")
+    emit({"phase": "wide_sweep_module_route", "hiddens": [2389, 2389], "num_envs": 1024, "routes": flags,
+          "launches": launches, "losses/total": stats["losses/total"]})
+
+
+def check_gate_grid(torch) -> None:
+    """Default models built without values (the ``meta`` device) over obs
+    dims 1 and 4, Categorical over A x n of 1x2, 3x3 and 1x64 and Normal
+    and SquashedNormal over 1 and 6 dims, 1 to 8 layers and widths from 64
+    to 4096: every model rl8_tpu's residency gate (``model_fits_vmem``)
+    admits is taken by the card's act and update kernels
+    (``card_takes_act``, ``card_takes_update``)."""
+    from rl8_tpu_torch.models import DefaultContinuousModel, DefaultDiscreteModel
+    from rl8_tpu_torch.ops import card_takes_act, card_takes_update, model_fits_vmem, pack_act_params
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    widths = (64, 256, 257, 512, 736, 737, 1024, 1500, 1813, 1814, 2048, 2388, 2389, 3000, 4096)
+    actions = [("categorical", Discrete(2, shape=(1,))), ("categorical", Discrete(3, shape=(3,))),
+               ("categorical", Discrete(64, shape=(1,))), ("normal", Unbounded(1)), ("squashed", Unbounded(1)),
+               ("normal", Unbounded(6)), ("squashed", Unbounded(6))]
+    admitted = refused = 0
+    widest = {}
+    for obs_dim in (1, 4):
+        for kind, spec in actions:
+            cls = DefaultDiscreteModel if kind == "categorical" else DefaultContinuousModel
+            for layers in range(1, 9):
+                for w in widths:
+                    with torch.device("meta"):
+                        model = cls(Unbounded(obs_dim), spec, hiddens=(w,) * layers)
+                    if not model_fits_vmem(model):
+                        refused += 1
+                        continue
+                    admitted += 1
+                    widest[layers] = max(widest.get(layers, 0), w)
+                    params = pack_act_params(model, squashed=kind == "squashed")
+                    shape = f"obs {obs_dim}, {kind} {params.policy_heads}, {layers} x {w}"
+                    check(card_takes_update(params), f"gate grid: the update kernel refuses {shape}")
+                    check(card_takes_act(params), f"gate grid: the act kernel refuses {shape}")
+    check(admitted > 0 and refused > 0, "gate grid: both sides of the gate")
+    emit({"phase": "wide_gate_grid", "admitted": admitted, "refused_by_the_gate": refused,
+          "widest_admitted_by_layers": widest})
 
 
 def run_recurrent_path(torch, dev, kernels: dict) -> None:
@@ -3902,9 +4462,7 @@ def run_sharded_operations(torch, dev, tmp: Path) -> None:
     discrete cell exits 0 and names the kernels on; ``trace`` of a collect
     captures the act kernel's launches; ``debug_nans`` raises at a poisoned
     parameter (an ATen operator) and at a launch whose output holds a NaN
-    (the act kernel's wrapper)."""
-    import dataclasses
-
+    (the act kernel's wrapper: a NaN observation reaches its outputs)."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.env import DiscreteDummyEnv
     from rl8_tpu_torch.ops import fused_act, pack_act_params
@@ -3939,12 +4497,11 @@ def run_sharded_operations(torch, dev, tmp: Path) -> None:
     small = AlgorithmConfig(num_envs=64, horizon=8, device="cuda").build(DiscreteDummyEnv)
     with torch.no_grad():
         next(small.policy.model.parameters())[0, 0] = float("nan")
-    # The last packed parameter is a head's bias, so every row of that
-    # head's output is NaN (a NaN observation may not reach an output:
-    # the kernels' relu is fmaxf, which drops a NaN).
-    bad = dataclasses.replace(params, flat=params.flat.clone())
-    bad.flat[-1] = float("nan")
-    for what, fn in (("poisoned parameter", small.collect), ("act launch", lambda: fused_act(bad, obs, (1, 2)))):
+    # A NaN observation reaches its row's log-prob and value (the kernels'
+    # relu keeps a NaN: check_nan_routes).
+    bad = obs.clone()
+    bad[5, 0] = float("nan")
+    for what, fn in (("poisoned parameter", small.collect), ("act launch", lambda: fused_act(params, bad, (1, 2)))):
         try:
             with debug_nans():
                 fn()
@@ -3952,7 +4509,7 @@ def run_sharded_operations(torch, dev, tmp: Path) -> None:
             raised[what] = str(e)
     check(set(raised) == {"poisoned parameter", "act launch"}, f"debug_nans raised only for {raised}")
     check("act kernel" in raised["act launch"], f"debug_nans: {raised['act launch']}")
-    fused_act(bad, obs, (1, 2))  # outside the block nothing raises
+    fused_act(params, bad, (1, 2))  # outside the block nothing raises
     emit({"phase": "sharded_operations", "doctor": lines, "trace_kernels": kernels, "trace_act_launches": len(launches),
           "debug_nans": raised})
 

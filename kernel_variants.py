@@ -71,16 +71,16 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # The feedforward forward's l >= 1 products on the tensor cores too.
     "tc_forward": [(
         "ppo.cu",
-        "      dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);",
-        "      if (l == 0) {\n"
-        "        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, 0);\n"
-        "      } else {\n"
-        "        tc_dense(cur, cur_w, W, w, dst, ld, ws);\n"
-        "        __syncthreads();\n"
-        "        for (int k = threadIdx.x; k < w; k += blockDim.x)\n"
-        "          for (int r = 0; r < kRows; ++r)\n"
-        "            dst[r * ld + k] = rl8::activate(dst[r * ld + k] + __ldg(W + (size_t)cur_w * w + k), d.act);\n"
-        "      }",
+        "        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);",
+        "        if (l == 0) {\n"
+        "          dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, 0);\n"
+        "        } else {\n"
+        "          tc_dense(cur, cur_w, ld, W, w, dst, ld, ws);\n"
+        "          __syncthreads();\n"
+        "          for (int k = threadIdx.x; k < w; k += blockDim.x)\n"
+        "            for (int r = 0; r < kRows; ++r)\n"
+        "              dst[r * ld + k] = rl8::activate(dst[r * ld + k] + __ldg(W + (size_t)cur_w * w + k), d.act);\n"
+        "        }",
     )],
     # Every 3xTF32 product accumulated in the tensor core's own accumulator
     # across the whole reduction, with no fresh accumulator per k step.
@@ -296,7 +296,7 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 
 
 def short(kernel: str) -> str | None:
-    m = re.search(r"(ppo_rows_kernel<\w+>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
+    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel)", kernel)
     return m.group(1) if m else None

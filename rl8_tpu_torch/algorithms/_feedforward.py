@@ -53,9 +53,15 @@ from ..data import AlgorithmHparams, AlgorithmState, DataKeys
 from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..models import DefaultContinuousModel, DefaultDiscreteModel, Model, ModelFactory
-from ..ops import fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
+from ..ops import card_takes_act, card_takes_update, fused_act, fused_ppo_grads, pack_act_params, pack_rows, supports_fused_update
 from ..ops.fused_ppo import supports_distribution
-from ..ops.fused_mlp import fused_custom_apply, fused_default_apply, load_flat_params, supports_fused_apply
+from ..ops.fused_mlp import (
+    fused_custom_apply,
+    fused_default_apply,
+    load_flat_params,
+    model_fits_vmem,
+    supports_fused_apply,
+)
 from ..parallel import gstd
 from ..policies import Policy
 from ..schedulers import ScheduleKind
@@ -297,7 +303,12 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 f" coefficient is 0 with no schedule; not {type(model).__name__} with"
                 f" {dist_cls.__name__} here."
             )
-        kernels_take = supports_fused_update(model, dist_cls, zero_entropy=zero_entropy)
+        # rl8_tpu's residency gate, ANDed into every kernel route as it
+        # does: a model too wide for its TPU kernels' VMEM (twin torsos
+        # wider than 2388 at the dummy envs' shapes) takes the module
+        # forward, rollout and autodiff update.
+        fused_fits = supports_fused_apply(model) and model_fits_vmem(model)
+        kernels_take = supports_fused_update(model, dist_cls, zero_entropy=zero_entropy) and fused_fits
         #: Whether the update launches the update kernel (else autograd),
         #: and the rollout the act kernel (else the module rollout):
         #: ``rl8_tpu``'s gates, on the kernels' support of the model.
@@ -322,9 +333,10 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
         model.to(self.device)
         #: The model's forward through the chain kernels (``rl8_tpu``'s
         #: ``_fused_forward``; both of the port's devices run them).
-        self._fused_forward = config.fused_forward and supports_fused_apply(model) and not self._exact
+        self._fused_forward = config.fused_forward and fused_fits and not self._exact
         if self._fused_forward:
             self._check_card_takes_chains(model)
+        self._check_card_takes_kernels(model)
         #: The autodiff route's parameters, in the order of its flat vector.
         self._params = list(model.parameters())
         if not self._fused_act:
@@ -353,6 +365,21 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
                 return fused_default_apply(model, batch)
             return fused_custom_apply(model, batch)
         return model(batch)
+
+    def _check_card_takes_kernels(self, model: Any) -> None:
+        """On a CUDA device, raise ``NotImplementedError`` at build where a
+        kernel route the gates chose does not take the model's shapes, so
+        that no step fails on them."""
+        if self.device.type != "cuda" or not (self._fused_update or self._fused_act):
+            return
+        packed = self._pack_params()
+        for on, takes, what in ((self._fused_update, card_takes_update, "update"), (self._fused_act, card_takes_act, "act")):
+            if on and not takes(packed):
+                raise NotImplementedError(
+                    f"The card's {what} kernel does not take {type(model).__name__} with hiddens"
+                    f" {tuple(model.hiddens)}, {packed.d_in} inputs and heads {packed.policy_heads}: a block's"
+                    " rows must fit its shared memory (the CPU takes any width)."
+                )
 
     def _pack_params(self):
         """The default model's current parameters packed for the kernels,

@@ -48,7 +48,7 @@ from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..ops import fused_rnn_act, fused_rnn_ppo_grads, load_rnn_params, pack_rnn_params, pack_rows
 from ..ops import card_takes_rnn_update, supports_fused_rnn_update
-from ..ops.fused_mlp import fused_recurrent_custom_apply, supports_fused_recurrent_apply
+from ..ops.fused_mlp import fused_recurrent_custom_apply, model_fits_vmem, supports_fused_recurrent_apply
 from ..parallel import gstd
 from ..policies import RecurrentPolicy
 from ..schedulers import ScheduleKind
@@ -240,7 +240,9 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         #: The chain kernels for the chains of a custom recurrent model
         #: declaring a ``FusedRecurrentApplySpec`` (``rl8_tpu``'s gate; never
         #: the default model).
-        self._fused_forward = config.fused_forward and supports_fused_recurrent_apply(model) and not self._exact
+        self._fused_forward = (
+            config.fused_forward and supports_fused_recurrent_apply(model) and model_fits_vmem(model) and not self._exact
+        )
         self.hparams = RecurrentAlgorithmHparams(
             **self._hparams_fields(config, num_envs, horizon, rows=num_envs * (horizon // max(config.seq_len, 1))),
             seq_len=config.seq_len,

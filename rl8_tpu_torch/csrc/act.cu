@@ -68,6 +68,14 @@
 //
 // Streaming design. A block of 256 threads owns kRows=16 rows and keeps
 // their activations in shared memory (two ping-pong buffers of [16, H]).
+// Where those do not fit (layers wider than ~1,800 at the dummy envs'
+// shapes, or wide observations), the scratch variant keeps the block's
+// observation rows and both buffers in a device-memory scratch that the
+// wrapper allocates (kScratch: the rows of a block lie together, so the
+// 8 warps' broadcast reads of a row hit L1 after its first), and only the
+// heads in shared memory: any width, 16 rows a block, each row summed
+// exactly as in shared memory. (8 rows a block in shared memory would
+// reach ~3,500 wide, and read every weight from L2 twice as often.)
 // The TPU kernel keeps every weight resident in VMEM; here a 256x256 f32
 // weight (256 KB) is larger than a block's shared memory, so weights
 // stream from L2 (the whole parameter set is ~0.53 MB of the 50 MB L2).
@@ -137,20 +145,22 @@ struct ActDims {
   int head_w;   // width of each: A * n logits, or A
 };
 
-// Shared memory of a block: xs [kRows, d_in], two ping-pong activation
+// A streaming block's rows: xs [kRows, d_in], two ping-pong activation
 // buffers [kRows, max_hidden], and the heads [kRows, n_heads * head_w + 1]
-// (the policy heads, then the value).
+// (the policy heads, then the value), all in shared memory or, kScratch,
+// all but the heads in the block's part of the scratch.
 __device__ __forceinline__ int head_stride(const ActDims& d) { return d.n_heads * d.head_w + 1; }
 
 // Loads the block's rows of obs and runs both chains' forward: chain 0 is
 // the policy torso and its heads, chain 1 the value torso and value head;
 // params hold each layer's W [in, out] then b [out]. Returns the heads.
+template <bool kScratch>
 __device__ float* twin_forward(const float* __restrict__ obs, const float* __restrict__ params,
-                               int r0, int nr, const ActDims& d, float* smem) {
-  float* xs = smem;
+                               int r0, int nr, const ActDims& d, float* smem, float* scratch) {
+  float* xs = kScratch ? scratch + (size_t)blockIdx.x * kRows * (d.d_in + 2 * d.max_hidden) : smem;
   float* h0 = xs + kRows * d.d_in;
   float* h1 = h0 + kRows * d.max_hidden;
-  float* heads = h1 + kRows * d.max_hidden;
+  float* heads = kScratch ? smem : h1 + kRows * d.max_hidden;
   const int stride = head_stride(d);
   for (int i = threadIdx.x; i < kRows * d.d_in; i += blockDim.x) {
     xs[i] = (i / d.d_in) < nr ? obs[(size_t)r0 * d.d_in + i] : 0.0f;
@@ -181,36 +191,38 @@ __device__ float* twin_forward(const float* __restrict__ obs, const float* __res
   return heads;
 }
 
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads)
     discrete_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
                         int* __restrict__ actions, float* __restrict__ logp,
-                        float* __restrict__ values, int B, ActDims d, int n_cat, uint32_t seed,
-                        uint32_t offset, int deterministic) {
+                        float* __restrict__ values, float* __restrict__ scratch, int B, ActDims d,
+                        int n_cat, uint32_t seed, uint32_t offset, int deterministic) {
   extern __shared__ float smem[];
   const int A = d.head_w / n_cat;
   const int stride = head_stride(d);
   const int r0 = blockIdx.x * kRows;
   const int nr = min(kRows, B - r0);
-  const float* heads = twin_forward(obs, params, r0, nr, d, smem);
-  float* chosen = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);  // [kRows, A]
+  const float* heads = twin_forward<kScratch>(obs, params, r0, nr, d, smem, scratch);
+  float* chosen = const_cast<float*>(heads) + kRows * stride;  // [kRows, A]
   rl8::categorical_epilogue(heads, stride, r0, nr, A, n_cat, seed, offset, deterministic, actions, logp,
                             values, chosen);
 }
 
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads)
     continuous_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
                           float* __restrict__ actions, float* __restrict__ logp,
-                          float* __restrict__ values, int B, ActDims d, int squashed,
-                          uint32_t seed, uint32_t offset, int deterministic) {
+                          float* __restrict__ values, float* __restrict__ scratch, int B, ActDims d,
+                          int squashed, uint32_t seed, uint32_t offset, int deterministic) {
   extern __shared__ float smem[];
   const int A = d.head_w;
   const int stride = head_stride(d);
   const int r0 = blockIdx.x * kRows;
   const int nr = min(kRows, B - r0);
-  const float* heads = twin_forward(obs, params, r0, nr, d, smem);
+  const float* heads = twin_forward<kScratch>(obs, params, r0, nr, d, smem, scratch);
   // [kRows, 2A]: each dim's (clamped, when squashed) base log-prob, then
   // its tanh log-det term.
-  float* parts = smem + kRows * (d.d_in + 2 * d.max_hidden + stride);
+  float* parts = const_cast<float*>(heads) + kRows * stride;
   rl8::continuous_epilogue(heads, stride, r0, nr, A, squashed, seed, offset, deterministic, actions, logp,
                            values, parts);
 }
@@ -861,17 +873,49 @@ bool make_dims(int B, int d_in, int n_layers, const int* hidden, int act, int n_
   return true;
 }
 
-// Floats of shared memory: xs, two activation buffers, the heads and
-// `extra` floats per row.
-size_t smem_bytes(const ActDims& d, int extra) {
+// Bytes of a streaming block's shared memory: xs, two activation buffers
+// (in the scratch instead, kScratch), the heads and `extra` floats per row.
+size_t smem_bytes(const ActDims& d, int extra, bool scratch) {
   return sizeof(float) * (size_t)kRows *
-         (d.d_in + 2 * d.max_hidden + d.n_heads * d.head_w + 1 + extra);
+         ((scratch ? 0 : d.d_in + 2 * d.max_hidden) + d.n_heads * d.head_w + 1 + extra);
+}
+
+// Floats of scratch that a launch of B rows needs: 0 where the launch
+// takes the wgmma, tiled or shared-memory streaming route (for the
+// discrete kind, `aligned`: whether its parameters are 16-byte aligned),
+// else its blocks' rows of the scratch variant; -1 where no route takes
+// it (heads too wide for a block's shared memory).
+long long scratch_floats(const ActDims& d, int extra, int A, bool aligned, int B) {
+  WgPlan W;
+  TilePlan P;
+  if ((d.n_heads == 1 && aligned && make_wgmma_plan(d, A, &W)) || make_plan(d, &P) ||
+      smem_bytes(d, extra, false) <= (size_t)kMaxSmem) {
+    return 0;
+  }
+  if (smem_bytes(d, extra, true) > (size_t)kMaxSmem) return -1;
+  return (long long)(B + kRows - 1) / kRows * kRows * (d.d_in + 2 * d.max_hidden);
+}
+
+// Launches the streaming route: in shared memory where it fits, else the
+// scratch variant on `scratch` (which must then hold scratch_floats).
+template <typename Kernel, typename... Args>
+int launch_streaming(Kernel in_smem, Kernel in_scratch, const ActDims& d, int extra, float* scratch, int B,
+                     cudaStream_t stream, Args... args) {
+  const bool use_scratch = smem_bytes(d, extra, false) > (size_t)kMaxSmem;
+  const size_t smem = smem_bytes(d, extra, use_scratch);
+  if (smem > (size_t)kMaxSmem || (use_scratch && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = use_scratch ? in_scratch : in_smem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + kRows - 1) / kRows, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// scratch: rl8_act_scratch floats (null where that is 0).
 extern "C" int rl8_discrete_act(const float* obs, const float* params, int* actions, float* logp,
-                                float* values, int B, int d_in, int n_layers, const int* hidden,
+                                float* values, float* scratch, int B, int d_in, int n_layers, const int* hidden,
                                 int n_logits, int n_cat, int act, unsigned int seed,
                                 unsigned int offset, int deterministic, int device,
                                 void* stream) {
@@ -914,18 +958,13 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
     return (int)cudaGetLastError();
   }
   // Layers wider than 256.
-  const size_t smem = smem_bytes(d, A);
-  err = cudaFuncSetAttribute(discrete_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + kRows - 1) / kRows;
-  discrete_act_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      obs, params, actions, logp, values, B, d, n_cat, seed, offset, deterministic);
-  return (int)cudaGetLastError();
+  return launch_streaming(discrete_act_kernel<false>, discrete_act_kernel<true>, d, A, scratch, B,
+                          (cudaStream_t)stream, obs, params, actions, logp, values, scratch, B, d, n_cat, seed,
+                          offset, deterministic);
 }
 
 extern "C" int rl8_continuous_act(const float* obs, const float* params, float* actions,
-                                  float* logp, float* values, int B, int d_in, int n_layers,
+                                  float* logp, float* values, float* scratch, int B, int d_in, int n_layers,
                                   const int* hidden, int action_dim, int act, int squashed,
                                   unsigned int seed, unsigned int offset, int deterministic,
                                   int device, void* stream) {
@@ -952,12 +991,19 @@ extern "C" int rl8_continuous_act(const float* obs, const float* params, float* 
     return (int)cudaGetLastError();
   }
   // Layers wider than one pass of the tiled route.
-  const size_t smem = smem_bytes(d, 2 * action_dim);
-  err = cudaFuncSetAttribute(continuous_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + kRows - 1) / kRows;
-  continuous_act_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      obs, params, actions, logp, values, B, d, squashed, seed, offset, deterministic);
-  return (int)cudaGetLastError();
+  return launch_streaming(continuous_act_kernel<false>, continuous_act_kernel<true>, d, 2 * action_dim, scratch,
+                          B, (cudaStream_t)stream, obs, params, actions, logp, values, scratch, B, d, squashed,
+                          seed, offset, deterministic);
+}
+
+// Floats of scratch that rl8_discrete_act (continuous = 0; aligned: its
+// parameters are 16-byte aligned) or rl8_continuous_act needs for a launch
+// of B rows of these shapes: 0 for none, -1 where no route takes them.
+extern "C" long long rl8_act_scratch(int B, int d_in, int n_layers, const int* hidden, int continuous,
+                                     int action_dim, int n_cat, int aligned) {
+  ActDims d;
+  if (action_dim <= 0 || (!continuous && n_cat <= 0)) return -1;
+  const int head_w = continuous ? action_dim : action_dim * n_cat;
+  if (!make_dims(B, d_in, n_layers, hidden, 0, continuous ? 2 : 1, head_w, &d)) return -1;
+  return scratch_floats(d, continuous ? 2 * action_dim : action_dim, action_dim, aligned != 0, B);
 }

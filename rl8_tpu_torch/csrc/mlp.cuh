@@ -23,8 +23,11 @@ constexpr int kRelu = 0;
 constexpr int kTanh = 1;
 constexpr int kIdentity = 2;
 
+// relu keeps a NaN, as torch.relu and jnp.maximum do (fmaxf(NaN, 0) is 0).
+// Every kernel's forward activation is this one; the backward masks stay
+// h > 0, which is 0 at a NaN, as torch's threshold_backward gives.
 __device__ __forceinline__ float activate(float x, int act) {
-  return act == kRelu ? fmaxf(x, 0.0f) : (act == kTanh ? tanhf(x) : x);
+  return act == kRelu ? (x > 0.0f || x != x ? x : 0.0f) : (act == kTanh ? tanhf(x) : x);
 }
 
 // out[r, j] = act(sum_k in[r, k] * W[k, j] + b[j]) for all R rows, summed in

@@ -67,6 +67,23 @@
 //      The backward's activation gate reads h_l back from that scratch (this
 //      block's own writes), which keeps two activation buffers in shared
 //      memory.
+//      Wide torsos (the wide route, ppo_rows_kernel<_, true>): where two
+//      [kRows, ld] activation buffers do not fit a block's shared memory
+//      beside the W stages (ld > ~771, layers wider than 736 at the dummy
+//      envs' shapes), the block keeps no activations in shared memory at all.
+//      The scratch's slabs are padded to whole row blocks (NP rows), the
+//      block's input rows are copied to a slab of their own, and each
+//      layer's forward reads its input rows from the row scratch and writes
+//      its output there, as dense_layer's generic loads and stores; the
+//      backward's dh_l is the dpre_l slab itself, gated in place, and
+//      tc_dense reads its A operand from that slab and writes dh_{l-1} into
+//      the next one. The 8 warps read the same rows in step, so L1 catches
+//      the re-reads, and 32 rows a block keep the tensor cores' m16 tiles
+//      full and each weight read from L2 feeding 32 rows at any width (rows
+//      per block by width would halve that, and the tiles, at 16 or 8
+//      rows). Shared memory is then the W stages, the heads and the row
+//      stats, whatever the width, and every output is summed in the narrow
+//      route's order.
 //   2. The weight products dW = h_in^T dpre and db = sum(dpre) over rows,
 //      split over up to 64 groups of rows (wgrad.cuh, shared with
 //      rnn_ppo.cu): 128x128 tensor-core tiles for every layer and head, the
@@ -117,6 +134,8 @@ constexpr size_t kMaxSmem = 232448;  // shared memory a block may use on an H100
 // The loss's columns and constants (LossDims), and the shapes.
 struct Dims : rl8::LossDims {
   long long N;
+  long long NP;                        // rows of each scratch slab: N, or whole row blocks (wide route)
+  long long xoff;                      // the wide route's input slab [NP, d_in] in the row scratch
   int D, obs_col;
   int d_in, n_layers, act, max_hidden, sum_hidden;
   int ld;                              // row stride of the activation buffers in shared memory
@@ -131,17 +150,19 @@ struct Dims : rl8::LossDims {
 };
 
 // Where everything lives: the parameter layout, and the workspace (floats):
-// [W^T copies][row scratch: per chain h_l..., dpre_l..., dout][partials: groups x P][stats: blocks x 4].
+// [W^T copies][row scratch: per chain h_l..., dpre_l..., dout; wide: the inputs][partials: groups x P][stats: blocks x 4].
 struct Layout {
   Dims d;
   long long P, wt_floats, row_floats, part_floats, stat_floats, rows_per_group;
   int groups, row_blocks;
-  size_t smem;  // the row pass's: the W stages, two activation buffers, the inputs, the heads, the row stats
+  bool wide;    // the wide route (activations in the row scratch)
+  size_t smem;  // the row pass's: the W stages, (narrow) two activation buffers and the inputs, the heads, the row stats
 };
 
 // The policy chain has one head of act_dim * n_cat logits (categorical)
 // or two of act_dim (mean, pre-tanh log-std); the value chain one of 1.
-// False where the row pass does not fit a block's shared memory.
+// The narrow route where its row pass fits a block's shared memory, else
+// the wide one; false where neither does (heads too wide).
 bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int act_dim,
                  int n_cat, Layout* L) {
   if (N <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || act_dim <= 0 ||
@@ -187,14 +208,21 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   }
   L->P = off;
   L->wt_floats = wt;
-  d.region[0] = 0;
-  d.region[1] = (long long)N * (2 * d.sum_hidden + d.n_out[0]);
-  L->row_floats = d.region[1] + (long long)N * (2 * d.sum_hidden + d.n_out[1]);
-  rl8::split_rows(N, &L->groups, &L->rows_per_group);
-  L->part_floats = (long long)L->groups * L->P;
-  L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (2 * d.ld + ((d_in + 3) / 4 * 4) + d.n_out[0] + 4));
   L->row_blocks = (N + kRows - 1) / kRows;
   L->stat_floats = 4LL * L->row_blocks;
+  L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (2 * d.ld + ((d_in + 3) / 4 * 4) + d.n_out[0] + 4));
+  L->wide = L->smem > kMaxSmem;
+  if (L->wide) L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (d.n_out[0] + 4));
+  // Wide: every slab holds whole row blocks (a multiple of 32 rows, so
+  // every slab starts 16-byte aligned), which the blocks' padding rows
+  // fill.
+  d.NP = L->wide ? (long long)L->row_blocks * kRows : N;
+  d.region[0] = 0;
+  d.region[1] = d.NP * (2 * d.sum_hidden + d.n_out[0]);
+  d.xoff = d.region[1] + d.NP * (2 * d.sum_hidden + d.n_out[1]);
+  L->row_floats = d.xoff + (L->wide ? d.NP * d_in : 0);
+  rl8::split_rows(N, &L->groups, &L->rows_per_group);
+  L->part_floats = (long long)L->groups * L->P;
   return L->smem <= kMaxSmem;
 }
 
@@ -207,14 +235,16 @@ __device__ __forceinline__ float head_weight(const float* params, const Dims& d,
 }
 
 // out[r, n] = sum_k in[r, k] W[k, n] for the block's kRows rows, on the
-// tensor cores (mma.cuh's 3xTF32). in [kRows, K] in shared memory, rows ld
-// apart (a multiple of 32 plus 4); W [K, N] row-major in device memory,
-// streamed kSlice rows at a time through the two stages of ws with
-// cp.async, the next slice's copies in flight during this one's products;
-// out [kRows, N] in shared memory, rows ld apart. The 8 warps split the
-// rows 2 ways (an m16 tile each) and the columns 4 ways (n tiles of 8
+// tensor cores (mma.cuh's 3xTF32). in [kRows, K], rows ld_in apart: in
+// shared memory (ld_in a multiple of 32 plus 4) or, on the wide route, the
+// row scratch; W [K, N] row-major in device memory, streamed kSlice rows at
+// a time through the two stages of ws with cp.async, the next slice's
+// copies in flight during this one's products; out [kRows, N], rows ld_out
+// apart, in shared memory or the row scratch. The 8 warps split the rows 2
+// ways (an m16 tile each) and the columns 4 ways (n tiles of 8
 // interleaved), over passes of kWCols columns.
-__device__ void tc_dense(const float* in, int K, const float* __restrict__ W, int N, float* out, int ld, float* ws) {
+__device__ void tc_dense(const float* in, int K, int ld_in, const float* __restrict__ W, int N, float* out,
+                         int ld_out, float* ws) {
   constexpr int MT = kRows / 32;  // m16 tiles per warp
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
@@ -274,8 +304,8 @@ __device__ void tc_dense(const float* in, int K, const float* __restrict__ W, in
           rl8::FragA fa[MT];
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            const float* a = in + (m0 + mt * 16 + g) * ld + k;
-            fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * ld] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * ld + 4] : 0.0f);
+            const float* a = in + (m0 + mt * 16 + g) * ld_in + k;
+            fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * ld_in] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * ld_in + 4] : 0.0f);
           }
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
@@ -300,7 +330,7 @@ __device__ void tc_dense(const float* in, int K, const float* __restrict__ W, in
         const int c = col + (e & 1);
         if (c < n0 + nw) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) out[(m0 + mt * 16 + g + (e >= 2 ? 8 : 0)) * ld + c] = acc[mt][i][e];
+          for (int mt = 0; mt < MT; ++mt) out[(m0 + mt * 16 + g + (e >= 2 ? 8 : 0)) * ld_out + c] = acc[mt][i][e];
         }
       }
     }
@@ -317,26 +347,33 @@ __device__ __forceinline__ void store_rows(const float* src, int ld, int nr, int
   }
 }
 
-template <bool kContinuous>
+// The row pass. kWide: the wide route (see the file's head), whose
+// activations live in the row scratch; the narrow route keeps them in
+// shared memory.
+template <bool kContinuous, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
     ppo_rows_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
                     const float* __restrict__ params, const float* __restrict__ wt,
                     float* __restrict__ scratch, float* __restrict__ stat_part, Dims d) {
   extern __shared__ __align__(16) float smem[];
   const int ld = d.ld;
-  float* ws = smem;                                    // tc_dense's W stages
-  float* ga = ws + kWFloats;                           // [kRows, ld]: layer outputs, dh
-  float* gb = ga + kRows * ld;                             // [kRows, ld]
-  float* xs = gb + kRows * ld;                             // [kRows, d_in]
-  float* head = xs + kRows * ((d.d_in + 3) / 4 * 4);       // [kRows, n_out]: outputs, then cotangents
+  const int ld_x = (d.d_in + 3) / 4 * 4;
+  float* ws = smem;                                        // tc_dense's W stages
+  float* ga = ws + kWFloats;                               // [kRows, ld]: layer outputs, dh (narrow)
+  float* gb = ga + (kWide ? 0 : kRows * ld);               // [kRows, ld] (narrow)
+  float* xs = gb + (kWide ? 0 : kRows * ld);               // [kRows, d_in] (narrow)
+  float* head = xs + (kWide ? 0 : kRows * ld_x);           // [kRows, n_out]: outputs, then cotangents
   float* rowv = head + kRows * d.n_out[0];                 // [kRows, 4]: pol, vf, ent, kl
 
   const long long r0 = (long long)blockIdx.x * kRows;
   const int nr = (int)min((long long)kRows, d.N - r0);
   const float* packed_f = reinterpret_cast<const float*>(packed);
+  // The block's input rows (zeros past N): in shared memory, or the wide
+  // route's input slab.
+  float* x = kWide ? scratch + d.xoff + r0 * d.d_in : xs;
   for (int i = threadIdx.x; i < kRows * d.d_in; i += blockDim.x) {
     const int r = i / d.d_in;
-    xs[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
+    x[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
   }
   const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
   __syncthreads();
@@ -345,23 +382,34 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* region = scratch + d.region[c];
     const int n_out = d.n_out[c];
     // Forward; every layer's output also goes to the scratch, where the
-    // weight products and this block's backward read it.
-    const float* cur = xs;
+    // weight products and this block's backward read it (the wide route
+    // writes it there only, and reads the layer's input back from there).
+    const float* cur = x;
     int cur_w = d.d_in;
+    int cur_ld = kWide ? d.d_in : 0;
     for (int l = 0; l < d.n_layers; ++l) {
       const int w = d.hidden[l];
-      float* dst = (l & 1) ? gb : ga;
+      float* hl = region + d.NP * d.prefix[l] + r0 * w;
       const float* W = params + d.woff[c][l];
-      dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);
-      __syncthreads();
-      store_rows(dst, ld, nr, w, region + (size_t)d.N * d.prefix[l] + (size_t)r0 * w);
-      cur = dst;
+      if constexpr (kWide) {
+        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, hl, w, d.act, w, cur_ld);
+        __syncthreads();
+        cur = hl;
+        cur_ld = w;
+      } else {
+        float* dst = (l & 1) ? gb : ga;
+        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);
+        __syncthreads();
+        store_rows(dst, ld, nr, w, hl);
+        cur = dst;
+        cur_ld = ld;
+      }
       cur_w = w;
     }
     for (int j = 0; j < d.n_heads[c]; ++j) {
       const int w = d.head_w[c];
       const float* Wh = params + d.woff[c][d.n_layers + j];
-      narrow_head<kRows>(cur, cur_w, Wh, Wh + (size_t)cur_w * w, w, head, n_out, j * w, ld);
+      narrow_head<kRows>(cur, cur_w, Wh, Wh + (size_t)cur_w * w, w, head, n_out, j * w, cur_ld);
     }
     __syncthreads();
     // Losses and head cotangents, a thread per row; rows past N get zeros.
@@ -390,11 +438,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    float* dout = region + (size_t)d.N * 2 * d.sum_hidden + (size_t)r0 * n_out;
+    float* dout = region + d.NP * 2 * d.sum_hidden + r0 * n_out;
     for (int i = threadIdx.x; i < nr * n_out; i += blockDim.x) dout[i] = head[i];
     // dh_L = dout @ Wh^T over the chain's heads: they are narrow, so a loop
-    // over their outputs.
-    float* dh = ga;
+    // over their outputs. The wide route's dh_l is the dpre_l slab itself,
+    // rows dh_ld apart.
+    const int top = d.n_layers - 1;
+    float* dh = kWide ? region + d.NP * (d.sum_hidden + d.prefix[top]) + r0 * cur_w : ga;
+    int dh_ld = kWide ? cur_w : ld;
     for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
       float acc[kRows];
       const float w0 = head_weight(params, d, c, 0, k);
@@ -406,29 +457,32 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int r = 0; r < kRows; ++r) acc[r] = fmaf(head[r * n_out + o], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) dh[r * ld + k] = acc[r];
+      for (int r = 0; r < kRows; ++r) dh[r * dh_ld + k] = acc[r];
     }
     __syncthreads();
     // Down the chain: dpre_l = dh_l * act'(h_l), stored; dh_{l-1} = dpre_l W_l^T.
-    for (int l = d.n_layers - 1; l >= 0; --l) {
+    for (int l = top; l >= 0; --l) {
       const int w = d.hidden[l];
       // This block's h_l rows, written above and visible after the
       // barriers since; rows past N have no h, and a zero dh.
-      const float* h = region + (size_t)d.N * d.prefix[l] + (size_t)r0 * w;
+      const float* h = region + d.NP * d.prefix[l] + r0 * w;
       for (int k = threadIdx.x; k < w; k += blockDim.x) {
 #pragma unroll 8
         for (int r = 0; r < kRows; ++r) {
           const float hv = r < nr ? h[(size_t)r * w + k] : 0.0f;
-          dh[r * ld + k] *= d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv;
+          dh[r * dh_ld + k] *= d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv;
         }
       }
       __syncthreads();
-      store_rows(dh, ld, nr, w, region + (size_t)d.N * (d.sum_hidden + d.prefix[l]) + (size_t)r0 * w);
+      if constexpr (!kWide) store_rows(dh, ld, nr, w, region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w);
       if (l > 0) {
-        float* next = dh == ga ? gb : ga;
-        tc_dense(dh, w, wt + d.wtoff[c][l], d.hidden[l - 1], next, ld, ws);
+        const int w_in = d.hidden[l - 1];
+        float* next = kWide ? region + d.NP * (d.sum_hidden + d.prefix[l - 1]) + r0 * w_in : (dh == ga ? gb : ga);
+        const int next_ld = kWide ? w_in : ld;
+        tc_dense(dh, w, dh_ld, wt + d.wtoff[c][l], w_in, next, next_ld, ws);
         __syncthreads();
         dh = next;
+        dh_ld = next_ld;
       }
     }
     __syncthreads();  // the next chain reuses every buffer
@@ -503,7 +557,8 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
     }
   }
 
-  const auto rows_kernel = kind == kCategorical ? ppo_rows_kernel<false> : ppo_rows_kernel<true>;
+  const auto rows_kernel = kind == kCategorical ? (L.wide ? ppo_rows_kernel<false, true> : ppo_rows_kernel<false, false>)
+                                                : (L.wide ? ppo_rows_kernel<true, true> : ppo_rows_kernel<true, false>);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
   if (err != cudaSuccess) return (int)err;
   rows_kernel<<<L.row_blocks, kThreads, L.smem, s>>>(packed, ec, params, wt, rows, stat_part, d);
@@ -531,14 +586,14 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
         jb.a = reinterpret_cast<const float*>(packed) + d.obs_col;
         jb.a_outer = D;
       } else {
-        jb.a = region + (size_t)N * d.prefix[in_l - 1];
+        jb.a = region + d.NP * d.prefix[in_l - 1];
         jb.a_outer = d.hidden[in_l - 1];
       }
       if (is_head) {
-        jb.b = region + (size_t)N * 2 * d.sum_hidden + (size_t)(l - n_layers) * d.head_w[c];
+        jb.b = region + d.NP * 2 * d.sum_hidden + (size_t)(l - n_layers) * d.head_w[c];
         jb.b_outer = d.n_out[c];
       } else {
-        jb.b = region + (size_t)N * (d.sum_hidden + d.prefix[l]);
+        jb.b = region + d.NP * (d.sum_hidden + d.prefix[l]);
         jb.b_outer = jb.J;
       }
       jb.off = d.woff[c][l];

@@ -101,7 +101,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.rl8_discrete_act.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # obs, params, actions, logp, values
+            ptr, ptr, ptr, ptr, ptr, ptr,  # obs, params, actions, logp, values, scratch
             i32, i32, i32, ptr,  # B, d_in, n_layers, hidden (host int array)
             i32, i32, i32,  # n_logits, n_cat, act
             u32, u32, i32,  # seed, offset, deterministic
@@ -109,13 +109,16 @@ def load() -> ctypes.CDLL:
         ]
         lib.rl8_discrete_act.restype = i32
         lib.rl8_continuous_act.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # obs, params, actions, logp, values
+            ptr, ptr, ptr, ptr, ptr, ptr,  # obs, params, actions, logp, values, scratch
             i32, i32, i32, ptr,  # B, d_in, n_layers, hidden (host int array)
             i32, i32, i32,  # action_dim, act, squashed
             u32, u32, i32,  # seed, offset, deterministic
             i32, ptr,  # device, stream
         ]
         lib.rl8_continuous_act.restype = i32
+        # B, d_in, n_layers, hidden (host int array), continuous, action_dim, n_cat, aligned
+        lib.rl8_act_scratch.argtypes = [i32, i32, i32, ptr, i32, i32, i32, i32]
+        lib.rl8_act_scratch.restype = ctypes.c_longlong
         lib.rl8_gae.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, ptr]
         lib.rl8_gae.restype = i32
         lib.rl8_gae_empty.argtypes = [i32, i32, ptr]  # B, device, stream

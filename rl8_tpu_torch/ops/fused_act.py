@@ -23,7 +23,7 @@ from ._build import check, load
 from .distmath import philox_normal, philox_uniform, sample_continuous_actions, sample_discrete_actions
 from .fused_mlp import ACT_FNS, Chain, default_chains, flatten_chains, forward_chains
 
-__all__ = ["KINDS", "ActParams", "act_plain", "fused_act", "pack_act_params"]
+__all__ = ["KINDS", "ActParams", "act_plain", "card_takes_act", "fused_act", "pack_act_params"]
 
 _MAX_LAYERS = 8
 #: Distribution kinds the kernels sample and score: ``Categorical``,
@@ -112,6 +112,24 @@ def pack_act_params(model: Any, *, squashed: bool = False) -> ActParams:
     )
 
 
+def _scratch_floats(params: ActParams, B: int, aligned: bool = True) -> int:
+    """``csrc/act.cu``'s scratch for a launch of ``B`` rows (0: none; -1:
+    no route takes these shapes)."""
+    hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
+    return load().rl8_act_scratch(
+        B, params.d_in, len(params.hiddens), hidden, int(params.continuous), params.action_dim, params.n, int(aligned)
+    )
+
+
+def card_takes_act(params: ActParams) -> bool:
+    """Whether ``csrc/act.cu`` takes these shapes on one of its routes: the
+    streaming route's scratch variant takes any width and observation, as
+    long as a block's heads fit its shared memory (policy heads up to
+    ~3,600 wide). This builds the kernels, if they are not built yet, and
+    asks them; the algorithms ask at build."""
+    return _scratch_floats(params, 1) >= 0
+
+
 def act_plain(
     params: ActParams,
     obs: torch.Tensor,
@@ -174,7 +192,9 @@ def fused_act(
     continuous kinds, and the categorical kind that the wgmma route does
     not take, take the tiled route (64-row blocks, weights streamed through
     shared memory, register-tiled f32 products) where every hidden layer is
-    at most 256 wide; the streaming route takes wider layers. Non-f32
+    at most 256 wide; the streaming route takes wider layers, its
+    activations in shared memory where they fit and else in a scratch
+    allocated here (:func:`card_takes_act` asks its limit). Non-f32
     observations are widened to f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
     actions int32 for the categorical kind and f32 otherwise.
     """
@@ -200,7 +220,14 @@ def fused_act(
     values = torch.empty((B, 1), dtype=torch.float32, device=obs.device)
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
     lib = load()
-    ptrs = (obs.data_ptr(), params.flat.data_ptr(), actions.data_ptr(), logp.data_ptr(), values.data_ptr())
+    floats = _scratch_floats(params, B, aligned=params.flat.data_ptr() % 16 == 0)
+    if floats < 0:
+        raise ValueError("The act kernel does not take these shapes (see card_takes_act).")
+    scratch = torch.empty(floats, dtype=torch.float32, device=obs.device) if floats else None
+    ptrs = (
+        obs.data_ptr(), params.flat.data_ptr(), actions.data_ptr(), logp.data_ptr(), values.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+    )
     dims = (B, params.d_in, len(params.hiddens), hidden)
     act = list(ACT_FNS).index(params.activation)
     stream = (obs.device.index or 0, torch.cuda.current_stream(obs.device).cuda_stream)

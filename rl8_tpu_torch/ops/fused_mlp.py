@@ -20,6 +20,10 @@ each head is a linear ``(W, b)``. Several chains share one input.
   differentiable op over them, a ``torch.autograd.Function`` whose
   backward recomputes the activations from ``x``, as the TPU's custom
   VJP does.
+- :func:`model_fits_vmem` and :func:`chains_fit_vmem`: ``rl8_tpu``'s
+  residency gates, which send a model too wide for its TPU kernels' VMEM
+  to the module forward and the autodiff update; the algorithms AND them
+  into their kernel routes where ``rl8_tpu`` does.
 - :class:`FusedApplySpec`, :func:`supports_fused_apply`,
   :func:`fused_custom_apply` and :func:`fused_default_apply` run a
   model's forward through :func:`fused_chains`; for custom recurrent
@@ -46,6 +50,7 @@ __all__ = [
     "FusedRecurrentApplySpec",
     "card_takes_chains",
     "chain_names",
+    "chains_fit_vmem",
     "chain_structure",
     "chains_backward_plain",
     "chains_vjp_plain",
@@ -59,6 +64,7 @@ __all__ = [
     "fused_default_apply",
     "fused_recurrent_custom_apply",
     "load_flat_params",
+    "model_fits_vmem",
     "named_chains",
     "supports_fused_apply",
     "supports_fused_recurrent_apply",
@@ -82,6 +88,16 @@ Chain = tuple[tuple[Layer, ...], tuple[tuple[torch.Tensor, torch.Tensor], ...]]
 ChainShape = tuple[tuple[tuple[int, bool], ...], tuple[int, ...]]
 #: ``(d_in, per-chain shapes)``: everything but the values.
 Structure = tuple[int, tuple[ChainShape, ...]]
+
+#: ``rl8_tpu``'s VMEM budget for its kernels' resident parameters and
+#: row tiles (``rl8_tpu/ops/fused_mlp.py:_VMEM_TOTAL_BUDGET``, 88 MiB of a
+#: TPU core's VMEM). It is ``rl8_tpu``'s routing rule, not a limit of the
+#: card: the port sends the models it admits to the kernels and the rest to
+#: the module forward and the autodiff update, as ``rl8_tpu`` does. The
+#: card kernels' own limits are asked of them (:func:`card_takes_chains`,
+#: ``fused_ppo.card_takes_update``, ``fused_act.card_takes_act``,
+#: ``fused_rnn_ppo.card_takes_rnn_update``).
+_VMEM_TOTAL_BUDGET = 88 * 1024 * 1024
 
 #: Per-model (torso, heads) layouts, which are also the flax trees'
 #: names (``models/convert.py``). Chain 0 is the policy, chain 1 the value.
@@ -413,6 +429,59 @@ def card_takes_chains(chains: Sequence[Chain]) -> bool:
     structure = chain_structure(chains)
     spec, n = _spec(structure)
     return load().rl8_chains_workspace(1, structure[0], spec, n, 1) >= 0
+
+
+def _chain_mem(structure: Structure) -> tuple[int, int]:
+    """``rl8_tpu``'s VMEM footprint model of its chain backward (the
+    bigger of its two chain kernels), over a :data:`Structure`:
+    ``(fixed_bytes, row_f32s)``. ``fixed_bytes`` counts the parameters,
+    their gradient accumulators and the transposed head weights;
+    ``row_f32s`` the per-row f32s of a row tile: the input and its
+    cotangent, each chain's activations, the LayerNorms' ``(xhat, s)``,
+    the head cotangents and three ``dh``-sized transients."""
+    d_in, shapes = structure
+    fixed = row = 0
+    for layers, heads in shapes:
+        k = d_in
+        for width, has_ln in layers:
+            fixed += (k * width + width + (2 * width if has_ln else 0)) * 8  # param + dparam
+            k = width
+        for n_out in heads:
+            fixed += (k * n_out + n_out) * 8 + k * n_out * 4  # + W^T
+            row += n_out
+        widths = [width for width, _ in layers]
+        row += d_in + sum(widths)
+        row += sum(width + 1 for width, has_ln in layers if has_ln)
+        row += 3 * max(widths, default=d_in)
+    row += 2 * (d_in or 1)
+    return fixed, row
+
+
+def chains_fit_vmem(chains: Sequence[Chain]) -> bool:
+    """``rl8_tpu``'s ``chains_fit_vmem``: whether the resident set of
+    ``chains`` leaves room for an 8-row tile in :data:`_VMEM_TOTAL_BUDGET`
+    (twin torsos up to 2388 wide at the dummy envs' shapes)."""
+    fixed, row = _chain_mem(chain_structure(chains))
+    return fixed + 4 * row * 8 <= _VMEM_TOTAL_BUDGET
+
+
+def model_fits_vmem(model: Any) -> bool:
+    """``rl8_tpu``'s ``model_fits_vmem``: :func:`chains_fit_vmem` of the
+    model's chains (a default model's, or a custom model's declared by its
+    :class:`FusedApplySpec` or :class:`FusedRecurrentApplySpec`; ``False``
+    for a custom model with neither). The algorithms AND it into their
+    kernel routes at build, after :func:`supports_fused_apply` (a model
+    it refuses may have no chains), as ``rl8_tpu`` does."""
+    from ..models import DefaultContinuousModel, DefaultDiscreteModel
+
+    if type(model) in (DefaultDiscreteModel, DefaultContinuousModel):
+        names = chain_names(model)
+    else:
+        spec = _custom_spec(model) or _custom_spec(model, FusedRecurrentApplySpec)
+        if spec is None:
+            return False
+        names = spec.chain_names
+    return chains_fit_vmem(named_chains(model, names))
 
 
 def _check(x: torch.Tensor, flat: torch.Tensor, structure: Structure, activation: str) -> None:

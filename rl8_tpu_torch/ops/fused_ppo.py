@@ -34,6 +34,7 @@ from .packing import RowUnpacker
 __all__ = [
     "PPOLossConfig",
     "PackedColumns",
+    "card_takes_update",
     "fused_ppo_grads",
     "ppo_grads_plain",
     "supports_distribution",
@@ -117,6 +118,19 @@ def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bo
         and bool(model.bias)
         and len(model.hiddens) <= _MAX_LAYERS
     )
+
+
+def card_takes_update(params: ActParams) -> bool:
+    """Whether ``csrc/ppo.cu`` takes these shapes: its narrow route keeps
+    a row block's activations in shared memory (layers up to 736 wide at
+    the dummy envs' shapes), its wide route keeps them in the row scratch
+    (any width); either needs the heads' rows to fit a block's shared
+    memory. This builds the kernels, if they are not built yet, and asks
+    them; the algorithms ask at build, so that a shape the kernel does not
+    take raises there and never at a step."""
+    hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
+    kind = KINDS.index(params.kind)
+    return load().rl8_ppo_workspace(1, params.d_in, len(params.hiddens), hidden, kind, params.action_dim, params.n) >= 0
 
 
 def _policy_grad_terms(
@@ -239,11 +253,14 @@ def ppo_grads_plain(
     cfg: PPOLossConfig,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the update kernel (see
-    :func:`fused_ppo_grads` for the arguments and results)."""
+    :func:`fused_ppo_grads` for the arguments and results). With float64
+    ``params.flat`` it computes in float64 (the packed f32 columns widened;
+    the gradient is returned rounded to f32): a reference for inputs whose
+    f32 rounding the loss magnifies."""
     cols = PackedColumns.from_unpacker(unpacker)
     _check(params, packed, cols, entropy_coeff, cfg)
     def as_f32(lo: int, hi: int) -> torch.Tensor:
-        return packed[:, lo:hi].contiguous().view(torch.float32)
+        return packed[:, lo:hi].contiguous().view(torch.float32).to(params.flat.dtype)
 
     x = as_f32(*cols.obs)
     old_logp = as_f32(cols.logp, cols.logp + 1)

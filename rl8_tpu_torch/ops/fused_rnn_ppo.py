@@ -37,6 +37,7 @@ from .fused_ppo import (
     _policy_grad_terms,
     _vf_grad_terms,
 )
+from .fused_mlp import _VMEM_TOTAL_BUDGET
 from .fused_rnn_act import MAX_RNN_LAYERS, RNN_KINDS, RnnParams, lstm_cell
 from .packing import RowUnpacker
 
@@ -114,9 +115,10 @@ def supports_fused_rnn_update(model: Any, distribution_cls: Any, *, zero_entropy
     ``SquashedNormal``. The algorithm routes a model this refuses to the
     module rollout and the autodiff update.
 
-    These are ``rl8_tpu``'s gates without its VMEM residency limit on the
-    width: the plain version takes any width, and the card kernel's own
-    limit is asked of it by :func:`card_takes_rnn_update`."""
+    These are ``rl8_tpu``'s gates, its weight-residency term included
+    (:func:`_rnn_fits_vmem`: ``hidden_size`` up to 1617 at the dummy envs'
+    shapes). The card kernel's own limit is asked of it by
+    :func:`card_takes_rnn_update`."""
     # The packed rows carry observations as f32 bit patterns.
     return (
         supports_rnn_distribution(model, distribution_cls, zero_entropy=zero_entropy)
@@ -124,7 +126,30 @@ def supports_fused_rnn_update(model: Any, distribution_cls: Any, *, zero_entropy
         and 1 <= model.num_layers <= MAX_RNN_LAYERS
         and bool(model.bias)
         and model.observation_spec.dtype.is_floating_point
+        and _rnn_fits_vmem(model)
     )
+
+
+def _rnn_fits_vmem(model: Any) -> bool:
+    """``rl8_tpu``'s weight-residency term of ``supports_fused_rnn_update``
+    (``rl8_tpu/ops/fused_rnn_ppo.py:131-150``): its update kernel holds
+    every LSTM and head parameter, their gradient accumulators and the
+    transposed head weights in VMEM, within ``_VMEM_TOTAL_BUDGET`` less 8
+    MiB. ``rl8_tpu``'s routing rule, not a limit of the card (see
+    :data:`~rl8_tpu_torch.ops.fused_mlp._VMEM_TOTAL_BUDGET`)."""
+    from ..models import DefaultDiscreteRecurrentModel
+
+    H, L = model.hidden_size, model.num_layers
+    d0 = int(model.observation_spec.shape[0])
+    lstm_f32s = 4 * H * (d0 + H + 1) + (L - 1) * 4 * H * (2 * H + 1)
+    A = int(model.action_spec.shape[0])
+    if type(model) is DefaultDiscreteRecurrentModel:
+        head_out = A * int(model.action_spec.n) + 1  # logits + value
+    else:
+        head_out = 2 * A + 1  # mean + log_std + value
+    head_w_f32s = H * head_out
+    resident = 2 * (lstm_f32s + head_w_f32s + head_out) + head_w_f32s  # + transposes
+    return 4 * resident <= _VMEM_TOTAL_BUDGET - 8 * 1024 * 1024
 
 
 def _kernel_dims(params: RnnParams, seq_len: int) -> tuple[int, ...]:
@@ -138,8 +163,8 @@ def card_takes_rnn_update(params: RnnParams) -> bool:
     """Whether ``csrc/rnn_ppo.cu`` takes the model's widths. Its row pass
     keeps a block's sequences' layer inputs, gate cotangents and head rows
     in shared memory (32 sequences where they fit, else 16), which caps
-    the width (``H`` near 700 at the main path's heads on an H100, where
-    ``rl8_tpu``'s VMEM gate allows ~2048). The limit is the kernel's own;
+    the width (``H`` near 720 at the main path's heads on an H100, where
+    ``rl8_tpu``'s residency gate admits up to 1617). The limit is the kernel's own;
     this builds the kernels, if they are not built yet, and asks them."""
     return load().rl8_rnn_ppo_workspace(1, *_kernel_dims(params, seq_len=1)) >= 0
 

@@ -38,7 +38,7 @@ non-zero:
    (its 16-row tiles); the recurrent update at 65,536 sequences of 4
    steps (categorical and squashed), at a ragged 1,000 sequences with two
    layers (entropy, dual clip, accumulation) and at samples that hit the
-   clamp, and its width limit;
+   clamp, and at 1024 wide (its wide route, 16 sequences);
    the chain forward and backward kernels at MischievousMule's chains
    (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
    (1,000 rows, d_in 1 and 64), at zero-variance rows, at 160/136-wide
@@ -53,8 +53,9 @@ non-zero:
    CartPole and MountainCar examples' shapes (1024 rows, obs dims 5 and 2,
    A=1, n=3) and the continuous one at Pendulum's (1024 rows, obs dim 3);
    each timed beside its plain version. Then a NaN in one observation row
-   on every act route and both chain-forward routes: that row's log-probs,
-   values and head outputs NaN, as in the plain versions
+   on every act route (the recurrent act kernel's 32-row tiles and wide
+   route included) and both chain-forward routes: that row's log-probs,
+   values, new states and head outputs NaN, as in the plain versions
    (``check_nan_routes``).
 3. main paths, each with the kernels' launch counters set to 0 just
    before and read just after, and a profiler breakdown:
@@ -111,7 +112,20 @@ non-zero:
    4,096 rows, each act and update kernel against its plain version on
    its asserted route; the gate grid: every default model ``rl8_tpu``'s
    residency gate admits is taken by both kernels; a 2389-wide torso
-   builds onto the module routes with no act or update launch).
+   builds onto the module routes with no act or update launch). After
+   the recurrent main path, the wide LSTMs: ``rnn_wide_sweep`` (LSTMs of
+   721 to 1617, one layer, three distributions, and two layers at 721 and
+   at rl8_tpu's two-layer limit: each kernel against its plain version on
+   its asserted route; 1618 on the module routes with no act or update
+   launch; 1300 with ``fused_update=False`` collecting through the act
+   kernel's wide route), then ``wide_recurrent`` (one 1024-wide LSTM layer
+   at the recurrent cell's shapes: 8192 envs, horizon 32, seq_len 4, a
+   whole-buffer minibatch of 65,536 sequences, 4 epochs; one warm-up,
+   three timed and one profiled iteration, act 32, GAE 1, update 4 an
+   iteration; the rollout against the module; the update against its
+   plain version over the whole buffer and against its launches over the
+   halves; both kernels timed beside their plain versions; the same cell
+   on the module rollout and autodiff update timed beside it).
 4. learning: the verify recipe's drive (256 envs, horizon 16, seed 1, 30
    iterations) on the card must learn the optimal greedy policy, for the
    discrete env (in f32 and with ``enable_amp=True``) and
@@ -399,6 +413,8 @@ def main() -> int:
     run_wide_sweep(torch, dev)
     run_repaired_routes(torch, dev)
     run_recurrent_path(torch, dev, kernels)
+    run_rnn_wide_sweep(torch, dev)
+    run_wide_recurrent(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
     run_amp_paths(torch, dev)
     run_recurrent_module_route(torch, dev)
@@ -754,10 +770,13 @@ def check_nan_routes(torch, dev) -> None:
     (the main model), tiled (an obs dim of 300) and streaming routes
     (320/288-wide layers: in shared memory, and in the scratch at an obs
     dim of 4,000), the continuous one's tiled and streaming routes (the
-    same shapes), each asserted; the chain forward's tiled route
+    same shapes), each asserted; the recurrent act kernel's 32-row tiles
+    (one 256-wide LSTM layer) and its wide route (1300 wide), where the NaN
+    row's new states are NaN too; the chain forward's tiled route
     (MischievousMule's chains) and streaming route (one 768-wide LayerNorm
     chain)."""
-    from rl8_tpu_torch.ops import act_plain, forward_chains, fused_act, fused_chains_fwd, pack_act_params
+    from rl8_tpu_torch.ops import act_plain, forward_chains, fused_act, fused_chains_fwd, fused_rnn_act, pack_act_params
+    from rl8_tpu_torch.ops import pack_rnn_params, rnn_act_plain
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
     from rl8_tpu_torch.specs import Discrete
 
@@ -792,6 +811,25 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is {k[bad].tolist()}")
             check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
         seen.append(f"{family}_act_{route}")
+    # The recurrent act kernel's routes: 32-row tiles (the main path's
+    # 256-wide LSTM) and the wide route (1300 wide).
+    for H in (256, 1300):
+        params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=H, hidden_size=H))
+        obs = torch.randn((B, 1), generator=gen, device=dev)
+        obs[bad, 0] = float("nan")
+        states = rnn_states(torch, dev, B, 1, H, gen)
+        route = launched_route(torch, "nan rnn act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                               RNN_ACT_ROUTES[False], rnn_routes(H)[0])
+        _, kl, kv, ks = fused_rnn_act(params, obs, states, (1, 2), deterministic=True)
+        _, pl, pv, ps = rnn_act_plain(params, obs, states, (1, 2), deterministic=True)
+        torch.cuda.synchronize()
+        what = f"nan rnn act ({route})"
+        rest = torch.arange(B, device=dev) != bad
+        for name, k, p in (("logp", kl, pl), ("values", kv, pv), *((sk, ks[sk], ps[sk]) for sk in ks)):
+            check(bool(torch.isnan(p[bad]).all()), f"{what}: the plain {name} of the NaN row is not NaN")
+            check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is not NaN")
+            check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
+        seen.append(f"rnn_act_{route}")
     mule_chains = default_chains(make_mule(torch, seed=5).to(dev))
     near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
     for chains, want in ((mule_chains, "tiled"), (near, "streaming")):
@@ -1167,21 +1205,75 @@ def rnn_heads_plain(torch, params, obs, states):
     return [x @ w + b for w, b in params.heads()]
 
 
-def check_rnn_act(torch, dev, record: dict) -> None:
-    """The recurrent act kernel against its plain version on the card, for
-    the categorical, Normal and squashed kinds, deterministic and draw for
-    draw (the plain version replays the kernel's Philox draws): at the main
-    path's shapes (obs [8192, 1], one 256-wide LSTM layer, A = 1) and at a
-    ragged B = 1000 with obs dim 3, two 96-wide layers and A = 2 (n = 3).
-    The new states, values and continuous actions within ACT_*; discrete
-    actions equal except near ties; log-probs within ACT_* of the plain
-    distribution's log-prob of the kernel's own actions on every row, and of
-    the plain version's own where SQUASH_LIMIT allows (as for the
-    feedforward act kernels)."""
+def compare_rnn_act(torch, what: str, params, obs, states, key=(24680, 1357)) -> dict:
+    """The recurrent act kernel twice and its plain version, deterministic
+    and stochastic (the plain version replays the kernel's Philox draws):
+    the two launches bit-identical; the new states, values and continuous
+    actions within ACT_*; discrete actions equal except near ties; log-probs
+    within ACT_* of the plain distribution's log-prob of the kernel's own
+    actions on every row, and of the plain version's own where
+    SQUASH_LIMIT allows (as for the feedforward act kernels). Returns, per
+    mode, the largest difference and the rows whose log-probs were
+    compared directly."""
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
-    from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
+    from rl8_tpu_torch.ops import fused_rnn_act, rnn_act_plain
     from rl8_tpu_torch.ops.distmath import philox_normal, philox_uniform
+
+    dev = obs.device
+    B, K, H, kind = obs.shape[0], params.num_layers, params.hidden, params.kind
+    outs = rnn_heads_plain(torch, params, obs, states)
+    out = {}
+    for det in (True, False):
+        mode = f"{what} {kind} {'deterministic' if det else 'stochastic'}"
+        ka, kl, kv, ks = fused_rnn_act(params, obs, states, key, deterministic=det)
+        ka2, kl2, kv2, ks2 = fused_rnn_act(params, obs, states, key, deterministic=det)
+        pa, pl, pv, ps = rnn_act_plain(params, obs, states, key, deterministic=det)
+        torch.cuda.synchronize()
+        check(torch.equal(ka, ka2) and torch.equal(kl, kl2) and torch.equal(kv, kv2)
+              and all(torch.equal(ks[sk], ks2[sk]) for sk in ks), f"{mode}: two launches bit-identical")
+        for sk in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
+            check(tuple(ks[sk].shape) == (B, K, H), f"{mode}: {sk} shape")
+            check(torch.allclose(ks[sk], ps[sk], rtol=ACT_RTOL, atol=ACT_ATOL), f"{mode}: {sk}")
+        check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{mode}: values")
+        keep = torch.ones(B, dtype=torch.bool, device=dev)
+        if kind == "categorical":
+            A, n = params.action_dim, params.n
+            logits = outs[0].view(B, A, n)
+            dist = Categorical({"logits": logits})
+            scores = logits.log_softmax(-1)
+            if not det:
+                scores = scores - torch.log(-torch.log(philox_uniform(*key, B, A, n, dev).view(B, A, n)))
+            top2 = scores.topk(2, dim=-1).values
+            ties = ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
+            check(bool((ka == pa).all(dim=1)[~ties].all()), f"{mode}: actions")
+            err_a = 0.0
+        else:
+            log_std = torch.tanh(outs[1])
+            dist = (SquashedNormal if kind == "squashed" else Normal)({"mean": outs[0], "log_std": log_std})
+            check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{mode}: actions")
+            err_a = float((ka - pa).abs().max())
+            if kind == "squashed":
+                x = outs[0] if det else outs[0] + torch.exp(log_std) * philox_normal(*key, B, params.action_dim, dev)
+                keep = (x.abs() < SQUASH_LIMIT).all(dim=1)
+        own = dist.logp(ka)
+        check(torch.allclose(kl, own, rtol=ACT_RTOL, atol=ACT_ATOL),
+              f"{mode}: logp vs the plain log-prob of the kernel's actions")
+        check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{mode}: logp")
+        err = max(err_a, float((kv - pv).abs().max()), float((kl - own).abs().max()),
+                  float((kl[keep] - pl[keep]).abs().max()),
+                  *(float((ks[sk] - ps[sk]).abs().max()) for sk in ks))
+        out["deterministic" if det else "stochastic"] = {"max_abs_err": err, "rows_compared_logp": int(keep.sum())}
+    return out
+
+
+def check_rnn_act(torch, dev, record: dict) -> None:
+    """The recurrent act kernel against its plain version on the card, for
+    the categorical, Normal and squashed kinds (compare_rnn_act): at the
+    main path's shapes (obs [8192, 1], one 256-wide LSTM layer, A = 1), at a
+    ragged B = 1000 with obs dim 3, two 96-wide layers and A = 2 (n = 3),
+    and at H = 720 (16-row tiles)."""
+    from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
     configs = {
@@ -1190,7 +1282,6 @@ def check_rnn_act(torch, dev, record: dict) -> None:
         # 16-row tiles: 32 rows of a 720-wide layer do not fit two blocks an SM.
         "wide": dict(B=1000, obs_dim=3, A=1, n=2, H=720, K=1),
     }
-    key = (24680, 1357)
     for name, c in configs.items():
         B, A, n, H, K = c["B"], c["A"], c["n"], c["H"], c["K"]
         obs = 3.0 * (2.0 * torch.rand((B, c["obs_dim"]), generator=gen, device=dev) - 1.0)
@@ -1199,47 +1290,13 @@ def check_rnn_act(torch, dev, record: dict) -> None:
             model = make_rnn_model(torch, kind, seed=90 + K, obs_dim=c["obs_dim"], A=A, n=n, hidden_size=H,
                                    num_layers=K, log_std_bias=-1.0)
             params = pack_rnn_params(model, squashed=kind == "squashed")
-            outs = rnn_heads_plain(torch, params, obs, states)
-            for det in (True, False):
-                what = f"rnn act {name} {kind} {'deterministic' if det else 'stochastic'}"
-                ka, kl, kv, ks = fused_rnn_act(params, obs, states, key, deterministic=det)
-                pa, pl, pv, ps = rnn_act_plain(params, obs, states, key, deterministic=det)
-                torch.cuda.synchronize()
-                for sk in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
-                    check(tuple(ks[sk].shape) == (B, K, H), f"{what}: {sk} shape")
-                    check(torch.allclose(ks[sk], ps[sk], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: {sk}")
-                check(torch.allclose(kv, pv, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: values")
-                keep = torch.ones(B, dtype=torch.bool, device=dev)
-                if kind == "categorical":
-                    logits = outs[0].view(B, A, n)
-                    dist = Categorical({"logits": logits})
-                    scores = logits.log_softmax(-1)
-                    if not det:
-                        scores = scores - torch.log(-torch.log(philox_uniform(*key, B, A, n, dev).view(B, A, n)))
-                    top2 = scores.topk(2, dim=-1).values
-                    ties = ((top2[..., 0] - top2[..., 1]) < TIE_GAP).any(dim=1)
-                    check(bool((ka == pa).all(dim=1)[~ties].all()), f"{what}: actions")
-                    err_a = 0.0
-                else:
-                    log_std = torch.tanh(outs[1])
-                    dist = (SquashedNormal if kind == "squashed" else Normal)({"mean": outs[0], "log_std": log_std})
-                    check(torch.allclose(ka, pa, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: actions")
-                    err_a = float((ka - pa).abs().max())
-                    if kind == "squashed":
-                        x = outs[0] if det else outs[0] + torch.exp(log_std) * philox_normal(*key, B, A, dev)
-                        keep = (x.abs() < SQUASH_LIMIT).all(dim=1)
-                own = dist.logp(ka)
-                check(torch.allclose(kl, own, rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp vs the plain log-prob of the kernel's actions")
-                check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: logp")
-                err = max(err_a, float((kv - pv).abs().max()), float((kl - own).abs().max()),
-                          float((kl[keep] - pl[keep]).abs().max()),
-                          *(float((ks[sk] - ps[sk]).abs().max()) for sk in ks))
+            result = compare_rnn_act(torch, f"rnn act {name}", params, obs, states)
+            for mode, r in result.items():
                 emit({"phase": "kernel_check", "kernel": "rnn_act", "config": name, "kind": kind,
-                      "deterministic": det, "B": B, "A": A, "n": n if kind == "categorical" else 0, "H": H,
-                      "K": K, "max_abs_err": err, "rows_compared_logp": int(keep.sum()),
-                      "rtol": ACT_RTOL, "atol": ACT_ATOL})
+                      "deterministic": mode == "deterministic", "B": B, "A": A, "n": n if kind == "categorical" else 0,
+                      "H": H, "K": K, **r, "rtol": ACT_RTOL, "atol": ACT_ATOL})
                 if name == "main":
-                    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+                    record["max_abs_err"] = max(record.get("max_abs_err", 0.0), r["max_abs_err"])
 
     # Timing at the main path's shapes: B = 8192, one 256-wide layer,
     # categorical A = 1, n = 2, stochastic.
@@ -1247,8 +1304,7 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
     states = rnn_states(torch, dev, B, 1, H, gen)
     params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=99))
-    flops = 2 * B * ((params.d_in + H) * 4 * H + H * sum(params.head_widths))
-    bytes_moved = 4 * (obs.numel() + 4 * B * H + params.flat.numel() + B * (params.action_dim + 2))
+    flops, bytes_moved = rnn_act_cost(params, B)
     record["ms"], host_ms = time_ms(torch, lambda: fused_rnn_act(params, obs, states, (1, 2)))
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False), iters=20
@@ -1257,6 +1313,18 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     emit({"phase": "kernel_time", "kernel": "rnn_act", "B": B, "flops": flops, "bytes": bytes_moved,
           "host_ms": host_ms, "plain_host_ms": plain_host_ms,
           **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+
+
+def rnn_act_cost(params, B: int) -> tuple[int, int]:
+    """``(FLOP, bytes)`` of a recurrent act launch of ``B`` rows: every
+    layer's gate products and the heads; observations, states (in and out)
+    and parameters read or written once, with the actions, log-probs and
+    values."""
+    H, G = params.hidden, 4 * params.hidden
+    macs = sum(((params.d_in if l == 0 else H) + H) * G for l in range(params.num_layers))
+    flops = 2 * B * (macs + H * sum(params.head_widths))
+    states = 4 * B * params.num_layers * H  # h and c, read and written
+    return flops, 4 * (B * params.d_in + states + params.flat.numel() + B * (params.action_dim + 2))
 
 
 def rnn_ppo_inputs(torch, dev, model, kind: str, N: int, L: int, seed: int, clip_share: float = 0.0):
@@ -1348,24 +1416,26 @@ def check_rnn_ppo(torch, dev, record: dict) -> None:
         if name == "a":
             time_rnn_ppo(torch, record, result, params, packed, unpack, ec, cfg)
 
-    # The width limit is the kernel's own (its row pass must fit a block's
-    # shared memory): the main width passes, 1024 is refused by the query
-    # and by the wrapper.
+    # The width limit: the main width takes the narrow row pass, and 1024
+    # (past its shared memory) is taken too, on the wide route, by the
+    # query and by the wrapper, whose result matches the plain version.
     from rl8_tpu_torch.ops import card_takes_rnn_update, fused_rnn_ppo_grads
 
     main_model, wide_model = (make_rnn_model(torch, "categorical", seed=0, hidden_size=h) for h in (256, 1024))
-    wide = pack_rnn_params(wide_model)
-    check(card_takes_rnn_update(pack_rnn_params(main_model)), "rnn ppo: the kernel refuses the main width")
-    check(not card_takes_rnn_update(wide), "rnn ppo: the kernel takes a 1024-wide row pass")
-    packed, unpack, _ = rnn_ppo_inputs(torch, dev, wide_model, "categorical", 16, L, seed=0)
+    main, wide = pack_rnn_params(main_model), pack_rnn_params(wide_model)
+    check(card_takes_rnn_update(main), "rnn ppo: the kernel refuses the main width")
+    check(card_takes_rnn_update(wide), "rnn ppo: the kernel refuses a 1024-wide row pass")
     cfg = PPOLossConfig(clip_param=0.2, n_rows=16, use_entropy=False, **main_loss)
-    try:
-        fused_rnn_ppo_grads(wide, packed, unpack, torch.tensor(0.0, device=dev), cfg)
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "rnn ppo: the wrapper launched a 1024-wide update")
-    emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "width_limit": {"256": True, "1024": False}})
+    ec = torch.tensor(0.0, device=dev)
+    routes = {}
+    for width, params, model in (("256", main, main_model), ("1024", wide, wide_model)):
+        packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, "categorical", 16, L, seed=0)
+        routes[width] = launched_route(torch, f"rnn ppo {width}",
+                                       lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+                                       RNN_PPO_ROUTES[False], "narrow" if width == "256" else "wide")
+        result = compare_rnn_ppo(torch, f"rnn ppo ({width} wide, 16 sequences)", params, packed, unpack, ec, cfg)
+    emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "width_limit": {"256": True, "1024": True},
+          "routes": routes, **result["summary"]})
 
 
 def compare_rnn_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
@@ -1417,20 +1487,9 @@ def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, 
     from rl8_tpu_torch.ops.fused_rnn_ppo import RnnPackedColumns
 
     record["max_abs_err"] = result["max_abs_err"]
-    N, H, K, d_in = packed.shape[0], params.hidden, params.num_layers, params.d_in
+    N = packed.shape[0]
     L = RnnPackedColumns.from_unpacker(unpack).seq_len
-    G = 4 * H
-    step_macs = 0
-    for l in range(K):
-        d_l = d_in if l == 0 else H
-        step_macs += (d_l + H) * G          # forward gate products
-        step_macs += G * H if l > 0 else 0  # dx = dz Wi^T into the layer below
-        step_macs += (d_l + H + 1) * G      # dWi, dWh, db
-    head_out = sum(params.head_widths)
-    step_macs += 3 * (H + 1) * head_out     # heads forward, their dh and dW
-    seq_macs = L * step_macs + (L - 1) * K * G * H  # dh_t = dz Wh^T at steps t > 0
-    flops = 2 * N * seq_macs
-    bytes_moved = 4 * (packed.numel() + 2 * params.flat.numel() + 4 + 1)
+    flops, bytes_moved = rnn_ppo_cost(params, packed, L)
     record["ms"], host_ms = time_ms(
         torch, lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg), iters=10, warmup=2
     )
@@ -1442,6 +1501,27 @@ def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, 
     emit({"phase": "kernel_time", "kernel": "rnn_ppo_update", "N": N, "L": L, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
           **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+
+
+def rnn_ppo_cost(params, packed, L: int) -> tuple[int, int]:
+    """``(FLOP, bytes)`` of a recurrent update launch over the packed
+    sequences of L steps: per sample, the forward's gate products, the
+    backward's dx products below the top layer, the weight products and
+    the heads'; per sequence, the dh products of its L - 1 later steps
+    (the stored initial states take no gradient). The packed rows and the
+    parameters read once, the gradient and the stats written once."""
+    N, H, K, d_in = packed.shape[0], params.hidden, params.num_layers, params.d_in
+    G = 4 * H
+    step_macs = 0
+    for l in range(K):
+        d_l = d_in if l == 0 else H
+        step_macs += (d_l + H) * G          # forward gate products
+        step_macs += G * H if l > 0 else 0  # dx = dz Wi^T into the layer below
+        step_macs += (d_l + H + 1) * G      # dWi, dWh, db
+    head_out = sum(params.head_widths)
+    step_macs += 3 * (H + 1) * head_out     # heads forward, their dh and dW
+    seq_macs = L * step_macs + (L - 1) * K * G * H  # dh_t = dz Wh^T at steps t > 0
+    return 2 * N * seq_macs, 4 * (packed.numel() + 2 * params.flat.numel() + 4 + 1)
 
 
 def make_mule(torch, seed: int, hiddens=(128, 128)):
@@ -1747,18 +1827,23 @@ def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
     """The route that calls of ``fn`` took (``routes`` maps kernel names to
     routes; the kernels that three calls launched, from ``torch.profiler``),
     which must be ``want`` (``None``: one route, whichever it is). The
-    profiler sometimes returns no record of a short launch at all: a window
-    that saw none of the kernels is taken again, up to three windows; any
-    kernel it does see counts."""
+    profiler sometimes returns no record of a short launch at all (once,
+    after a profiled window of ~2,000 kernels, three windows in a row held
+    only the host's calls): a window that saw none of the kernels is taken
+    again, up to five windows, each after the first held open half a second
+    past the launches for late device records; any kernel it does see
+    counts."""
     from torch.profiler import ProfilerActivity, profile
 
     took: list = []
-    for _ in range(3):
+    for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
+            if attempt:
+                time.sleep(0.5)
         names = [e.key for e in prof.key_averages()]
         took = [route for kernel, route in routes.items() if any(re.search(rf"\b{kernel}\b", n) for n in names)]
         if took:
@@ -2113,6 +2198,19 @@ WIDE_WIDTHS = (737, 1024, 1813, 1814, 2048, 2388)
 PPO_ROUTES = {
     False: {"ppo_rows_kernel<false, false": "narrow", "ppo_rows_kernel<false, true": "wide"},
     True: {"ppo_rows_kernel<true, false": "narrow", "ppo_rows_kernel<true, true": "wide"},
+}
+#: The recurrent kernels' routes per distribution family (continuous or
+#: not), by kernel name (for launched_route): the act kernel's tiles of 32
+#: or 16 rows in shared memory and its wide route; the update's narrow and
+#: wide row passes.
+RNN_ACT_ROUTES = {
+    c: {f"rnn_act_kernel<2, {b}, false": "shared32", f"rnn_act_kernel<1, {b}, false": "shared16",
+        f"rnn_act_kernel<1, {b}, true": "wide"}
+    for c, b in ((False, "false"), (True, "true"))
+}
+RNN_PPO_ROUTES = {
+    c: {f"rnn_rows_kernel<{b}, false": "narrow", f"rnn_rows_kernel<{b}, true": "wide"}
+    for c, b in ((False, "false"), (True, "true"))
 }
 STREAMING_ROUTES = {
     False: {"discrete_act_kernel<false": "streaming", "discrete_act_kernel<true": "streaming_scratch"},
@@ -2656,6 +2754,338 @@ def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
                     check(torch.allclose(states[k][t + 1], v, rtol=rtol, atol=atol),
                           f"recurrent rollout {k} at t={t + 1}")
     return worst
+
+
+#: The recurrent kernels' wide widths (one layer, the dummy envs' shapes):
+#: the update's last narrow width and its wide route (721, 768), the wide
+#: cell's (1024), the act kernel's last width with 16-row tiles in shared
+#: memory and its first on the wide route (1209, 1210), and rl8_tpu's last
+#: admitted width (1617).
+RNN_WIDE_WIDTHS = (721, 768, 1024, 1209, 1210, 1300, 1617)
+
+
+def rnn_routes(H: int) -> tuple[str, str]:
+    """The routes the recurrent act and update kernels take at one or two
+    H-wide layers and the dummy envs' inputs and heads (three head
+    outputs): the act kernel's 16-row tiles in shared memory up to 1209
+    (32-row tiles up to 288), its wide route from 1210; the update's
+    narrow row pass up to 724, its wide route from 725."""
+    act = "shared32" if H <= 288 else "shared16" if H <= 1209 else "wide"
+    return act, "narrow" if H <= 724 else "wide"
+
+
+def recurrent_buffer_rows(torch, algo):
+    """A collected recurrent buffer packed as the algorithm's update packs
+    it (``_step_impl``: [seq_len] chunks with their stored initial states,
+    advantages and returns from the advantage stage). Returns the packed
+    sequences and their unpacker."""
+    from rl8_tpu_torch.algorithms._recurrent import _seq_major
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.ops import pack_rows
+
+    h, buf = algo.hparams, algo.state.buffer
+    T, L = h.horizon, h.seq_len
+    advantages, returns = algo._advantages()
+    return pack_rows({
+        DataKeys.OBS: _seq_major(buf[DataKeys.OBS][:T], L),
+        DataKeys.STATES: {k: _seq_major(v[:T], L)[:, 0] for k, v in buf[DataKeys.STATES].items()},
+        DataKeys.ACTIONS: _seq_major(buf[DataKeys.ACTIONS], L),
+        DataKeys.LOGP: _seq_major(buf[DataKeys.LOGP], L),
+        DataKeys.ADVANTAGES: _seq_major(advantages, L),
+        DataKeys.RETURNS: _seq_major(returns, L),
+    })
+
+
+def check_rnn_halves(torch, what: str, params, packed, unpack, ec, cfg) -> float:
+    """The recurrent update kernel over N sequences against the mean of its
+    launches over each half (n_rows N / 2 each): per gradient tensor within
+    PPO_GRAD_*. At 65,536 sequences of a 1024-wide LSTM the workspace
+    passes 2^31 floats (its gate scratch alone is 1.07e9), at half of them
+    it does not, so an offset that wraps at 32 bits shows here. Returns the
+    worst norm-relative error."""
+    import dataclasses
+
+    from rl8_tpu_torch.ops import fused_rnn_ppo_grads
+    from rl8_tpu_torch.ops.fused_rnn_act import RnnParams
+
+    M = packed.shape[0] // 2
+    half = dataclasses.replace(cfg, n_rows=M)
+    full = fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    a = fused_rnn_ppo_grads(params, packed[:M].contiguous(), unpack, ec, half)[2]
+    b = fused_rnn_ppo_grads(params, packed[M:].contiguous(), unpack, ec, half)[2]
+    torch.cuda.synchronize()
+
+    def tensors(flat):
+        views = RnnParams(**{**params.__dict__, "flat": flat})
+        return [t for layer in views.lstm() for t in layer] + [t for head in views.heads() for t in head]
+
+    worst = 0.0
+    for f, h in zip(tensors(full.double()), tensors((a.double() + b.double()) / 2)):
+        err, ref = float((f - h).norm()), float(h.norm())
+        worst = max(worst, err / ref)
+        check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL, f"{what}: gradient {tuple(h.shape)} error {err:.3g} "
+              f"vs the mean of the halves' norm {ref:.3g}")
+    return worst
+
+
+def run_wide_recurrent(torch, dev, kernels: dict) -> None:
+    """The wide recurrent cell: ``RecurrentAlgorithmConfig(device="cuda",
+    model_config={"hidden_size": 1024}).build(DiscreteDummyEnv)`` (8192
+    envs, horizon 32, seq_len 4, a whole-buffer minibatch of 65,536
+    sequences, 4 epochs): one warm-up, three timed and one profiled
+    iteration (time_cell: recurrent act 32, GAE 1, recurrent update 4
+    launches an iteration, no other kernel). Then one more collect, held
+    against the module from the stored states; on its buffer, packed as the
+    update packs it, the update kernel (its wide route) against its plain
+    version over all 65,536 sequences and against its launches over the
+    halves (check_rnn_halves), and both kernels timed beside their plain
+    versions at the cell's shapes (the act kernel on its 16-row tiles).
+    Then the same cell with ``fused_act=False, fused_update=False`` (the
+    module rollout and the autodiff update) timed the same way."""
+    from rl8_tpu_torch import RecurrentAlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import fused_rnn_act, fused_rnn_ppo_grads, rnn_act_plain, rnn_ppo_grads_plain
+
+    H = 1024
+    algo = RecurrentAlgorithmConfig(device="cuda", model_config={"hidden_size": H}).build(DiscreteDummyEnv)
+    h, model = algo.hparams, algo.policy.model
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check((algo._fused_act, algo._fused_update) == (True, True), "wide_recurrent: the kernels' routes")
+    check(tuple(model.lstm.wh[0].shape) == (H, 4 * H) and model.num_layers == 1, "wide_recurrent: LSTM width")
+    check((h.num_envs, h.horizon, h.seq_len, per_step) == (8192, 32, 4, 4), "wide_recurrent: the cell's shapes")
+    cell = time_cell(torch, algo, "wide_recurrent", {"rnn_act": h.horizon, "gae": 1, "rnn_update": per_step},
+                     per_step, iters=4, hidden_size=H)
+    worst = check_recurrent_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
+    params = algo._pack_params()
+    B, T = h.num_envs, h.horizon
+    obs = algo.state.buffer[DataKeys.OBS][0].float().contiguous()
+    states = {k: v[0].contiguous() for k, v in algo.state.buffer[DataKeys.STATES].items()}
+    act_route = launched_route(torch, "wide_recurrent act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                               RNN_ACT_ROUTES[False], rnn_routes(H)[0])
+    act = compare_rnn_act(torch, "wide_recurrent act", params, obs, states)
+    packed, unpack = recurrent_buffer_rows(torch, algo)
+    N = packed.shape[0]
+    check(N == B * T // h.seq_len, f"wide_recurrent: {N} sequences in the buffer")
+    cfg = algo._loss_config(N)
+    check(not cfg.use_entropy, "wide_recurrent: no entropy bonus at the defaults")
+    ec = torch.tensor(0.0, device=dev)
+    ppo_route = launched_route(torch, "wide_recurrent update",
+                               lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg), RNN_PPO_ROUTES[False],
+                               rnn_routes(H)[1])
+    result = compare_rnn_ppo(torch, "wide_recurrent update (whole buffer)", params, packed, unpack, ec, cfg)
+    halves = check_rnn_halves(torch, "wide_recurrent update (halves)", params, packed, unpack, ec, cfg)
+    emit({"phase": "kernel_check", "kernel": "wide_recurrent", "hidden_size": H, "sequences": N, "seq_len": h.seq_len,
+          "rollout_vs_module_max_abs_err": worst, "act_route": act_route, "act": act, "update_route": ppo_route,
+          **result["summary"], "halves_worst_grad_norm_rel_err": halves})
+    wide = {
+        "act": time_kernel(torch, "rnn_act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                           lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False),
+                           rnn_act_cost(params, B), iters=20, plain_iters=10, B=B, hidden_size=H, route=act_route,
+                           launches_per_iteration=h.horizon),
+        "ppo": time_kernel(torch, "rnn_ppo_update", lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+                           lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg),
+                           rnn_ppo_cost(params, packed, h.seq_len), iters=3, plain_iters=2, N=N, hidden_size=H,
+                           route=ppo_route, launches_per_iteration=per_step),
+    }
+    for key, rec in wide.items():
+        kernels["rnn_" + key]["wide_recurrent"] = {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms",
+                                                                       "route", "launches_per_iteration")}
+    del algo, packed
+    torch.cuda.empty_cache()
+    module = RecurrentAlgorithmConfig(device="cuda", model_config={"hidden_size": H}, fused_act=False,
+                                      fused_update=False).build(DiscreteDummyEnv)
+    twin = time_cell(torch, module, "wide_recurrent_module_route", {"gae": 1}, per_step, iters=4, hidden_size=H)
+    emit({"phase": "wide_recurrent_summary", "hidden_size": H,
+          "kernels_transitions_per_s_with_update": cell["transitions_per_s_with_update"],
+          "module_transitions_per_s_with_update": twin["transitions_per_s_with_update"],
+          "kernels_over_module": cell["transitions_per_s_with_update"] / twin["transitions_per_s_with_update"]})
+
+
+def rnn_gate_limit(torch, layers: int) -> int:
+    """The widest LSTM of ``layers`` layers that rl8_tpu's residency gate
+    (``supports_fused_rnn_update``) admits at the dummy envs' shapes,
+    found by bisection on models without values (the ``meta`` device)."""
+    from rl8_tpu_torch.distributions import Categorical
+    from rl8_tpu_torch.models import DefaultDiscreteRecurrentModel
+    from rl8_tpu_torch.ops import supports_fused_rnn_update
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    def admitted(H: int) -> bool:
+        with torch.device("meta"):
+            model = DefaultDiscreteRecurrentModel(Unbounded(1), Discrete(2, shape=(1,)), hidden_size=H,
+                                                  num_layers=layers)
+        return supports_fused_rnn_update(model, Categorical)
+
+    lo, hi = 1, 1 << 14
+    check(admitted(lo) and not admitted(hi), "rnn gate: both sides")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if admitted(mid) else (lo, mid)
+    return lo
+
+
+def check_rnn_gate_grid(torch) -> None:
+    """Default recurrent models built without values (the ``meta`` device)
+    over obs dims 1 and 64, Categorical over A x n of 1x2, 3x3, 1x64 and
+    1x4096 and Normal and SquashedNormal over 1 and 6 dims, 1 to 8 layers
+    and H from 16 to 2048: every model rl8_tpu's residency gate
+    (``supports_fused_rnn_update``) admits is taken by the card's recurrent
+    act and update kernels (``card_takes_rnn_act``,
+    ``card_takes_rnn_update``), so none raises at build."""
+    from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
+    from rl8_tpu_torch.models import DefaultContinuousRecurrentModel, DefaultDiscreteRecurrentModel
+    from rl8_tpu_torch.ops import card_takes_rnn_act, card_takes_rnn_update, pack_rnn_params, supports_fused_rnn_update
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    widths = (16, 64, 256, 288, 289, 720, 724, 725, 934, 935, 1024, 1209, 1210, 1617, 1618, 2048)
+    actions = [("categorical", Discrete(2, shape=(1,))), ("categorical", Discrete(3, shape=(3,))),
+               ("categorical", Discrete(64, shape=(1,))), ("categorical", Discrete(4096, shape=(1,))),
+               ("normal", Unbounded(1)), ("squashed", Unbounded(1)), ("normal", Unbounded(6)),
+               ("squashed", Unbounded(6))]
+    dists = {"categorical": Categorical, "normal": Normal, "squashed": SquashedNormal}
+    admitted = refused = 0
+    widest = {}
+    for obs_dim in (1, 64):
+        for kind, spec in actions:
+            cls = DefaultDiscreteRecurrentModel if kind == "categorical" else DefaultContinuousRecurrentModel
+            for layers in range(1, 9):
+                for H in widths:
+                    with torch.device("meta"):
+                        model = cls(Unbounded(obs_dim), spec, hidden_size=H, num_layers=layers)
+                    if not supports_fused_rnn_update(model, dists[kind], zero_entropy=True):
+                        refused += 1
+                        continue
+                    admitted += 1
+                    widest[layers] = max(widest.get(layers, 0), H)
+                    params = pack_rnn_params(model, squashed=kind == "squashed")
+                    shape = f"obs {obs_dim}, {kind} {params.head_widths}, {layers} x {H}"
+                    check(card_takes_rnn_update(params), f"rnn gate grid: the update kernel refuses {shape}")
+                    check(card_takes_rnn_act(params), f"rnn gate grid: the act kernel refuses {shape}")
+    check(admitted > 0 and refused > 0, "rnn gate grid: both sides of the gate")
+    emit({"phase": "rnn_wide_gate_grid", "admitted": admitted, "refused_by_the_gate": refused,
+          "widest_admitted_by_layers": widest})
+
+
+def run_rnn_wide_sweep(torch, dev) -> None:
+    """The recurrent kernels past their shared-memory tiles, at the dummy
+    envs' shapes: one LSTM layer of RNN_WIDE_WIDTHS, Categorical, Normal
+    (with an entropy bonus) and SquashedNormal, and two layers at 721 and
+    at rl8_tpu's two-layer limit (rnn_gate_limit, Categorical and Normal):
+    the act kernel (compare_rnn_act, 4,096 rows) and the update kernel
+    (compare_rnn_ppo, 2,048 sequences of 4 steps, dual clip) against their
+    plain versions, each on its asserted route (rnn_routes), two launches
+    bit-identical; the same for 4,096 categories on a 64-wide LSTM (both
+    kernels' wide routes, for the heads). The policy heads are drawn at 0.3 sqrt(256 / H), so that
+    their outputs have the main path's spread at every width (as drawn at
+    0.3 the squashed means grow with the width into the tanh's saturation,
+    where f32 itself is no reference: see F64_K). The act kernel is timed
+    beside its plain version at 1209 and 1210 (the last width on its
+    16-row tiles and the first on its wide route) and at 1617, the update
+    kernel at 1617. Then the gate grid (check_rnn_gate_grid); a 1618-wide
+    LSTM (past the gate) builds onto the module routes and trains a
+    collect and a step with no act or update launch; and a 1300-wide LSTM
+    with ``fused_update=False`` builds and collects through the act
+    kernel's wide route (its deterministic rollout held against
+    rnn_act_plain at every step) and steps by autodiff."""
+    from rl8_tpu_torch import RecurrentAlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import (
+        PPOLossConfig,
+        fused_rnn_act,
+        fused_rnn_ppo_grads,
+        pack_rnn_params,
+        rnn_act_plain,
+        rnn_ppo_grads_plain,
+    )
+
+    B, N, L = 4096, 2048, 4
+    gen = torch.Generator(device=dev).manual_seed(16)
+    limit2 = rnn_gate_limit(torch, 2)
+    # (H, layers, kind, categories, routes): the dummy envs' two categories
+    # on rnn_routes, and 4,096 categories on a 64-wide LSTM, whose heads
+    # take both kernels' wide routes.
+    cases = [(H, 1, kind, 2, rnn_routes(H)) for H in RNN_WIDE_WIDTHS for kind in ("categorical", "normal", "squashed")]
+    cases += [(H, 2, kind, 2, rnn_routes(H)) for H in (721, limit2) for kind in ("categorical", "normal")]
+    cases += [(64, 1, "categorical", 4096, ("wide", "wide"))]
+    for H, K, kind, n, (want_act, want_ppo) in cases:
+        model = make_rnn_model(torch, kind, seed=H + K, n=n, hidden_size=H, num_layers=K,
+                               head_scale=0.3 * math.sqrt(256 / H), log_std_bias=-1.0)
+        params = pack_rnn_params(model, squashed=kind == "squashed")
+        what = f"rnn_wide_sweep {kind} {K} x {H}, heads {params.head_widths}"
+        obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+        states = rnn_states(torch, dev, B, K, H, gen)
+        act_route = launched_route(torch, f"{what} act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                                   RNN_ACT_ROUTES[params.continuous], want_act)
+        act = compare_rnn_act(torch, f"{what} act", params, obs, states)
+        packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, kind, N, L, seed=H + 31 * K)
+        cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=3.0, n_rows=N, accum=1,
+                            use_entropy=kind == "normal", squashed=kind == "squashed")
+        ec = torch.tensor(0.01 if kind == "normal" else 0.0, device=dev)
+        ppo_route = launched_route(torch, f"{what} update",
+                                   lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+                                   RNN_PPO_ROUTES[params.continuous], want_ppo)
+        result = compare_rnn_ppo(torch, f"{what} update", params, packed, unpack, ec, cfg)
+        emit({"phase": "kernel_check", "kernel": "rnn_wide_sweep", "hidden_size": H, "layers": K, "kind": kind,
+              "heads": list(params.head_widths), "B": B, "N": N, "L": L, "act_route": act_route, "act": act,
+              "update_route": ppo_route, **result["summary"]})
+        if (K, kind, n) == (1, "categorical", 2) and H in (1209, 1210, 1617):
+            time_kernel(torch, "rnn_act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                        lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False),
+                        rnn_act_cost(params, B), iters=10, plain_iters=5, B=B, hidden_size=H, route=act_route)
+        if (H, K, kind, n) == (1617, 1, "categorical", 2):
+            time_kernel(torch, "rnn_ppo_update", lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+                        lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), rnn_ppo_cost(params, packed, L),
+                        iters=5, plain_iters=3, N=N, hidden_size=H, route=ppo_route)
+    emit({"phase": "rnn_wide_gate", "two_layer_limit": limit2, "one_layer_limit": rnn_gate_limit(torch, 1)})
+    check_rnn_gate_grid(torch)
+
+    # Past the gate: the module routes, as rl8_tpu routes them.
+    zero_counters()
+    algo = RecurrentAlgorithmConfig(device="cuda", num_envs=1024, model_config={"hidden_size": 1618}).build(
+        DiscreteDummyEnv)
+    flags = (algo._fused_act, algo._fused_update, algo._fused_forward)
+    check(flags == (False, False, False), f"rnn_wide_sweep 1618: routes {flags}, not rl8_tpu's module routes")
+    algo.collect()
+    stats = algo.step()
+    launches = launch_counts()
+    check(launches["rnn_act"] == 0 and launches["rnn_update"] == 0 and launches["gae"] == 1,
+          f"rnn_wide_sweep 1618: launches {launches}")
+    check(all(math.isfinite(v) for v in stats.values()), f"rnn_wide_sweep 1618: step stats finite: {stats}")
+    emit({"phase": "rnn_wide_sweep_module_route", "hidden_size": 1618, "num_envs": 1024, "routes": flags,
+          "launches": launches, "losses/total": stats["losses/total"]})
+    del algo
+
+    # The act kernel alone on the wide route, the update by autodiff: the
+    # configuration that built and then failed at its first collect before
+    # the act kernel had a capacity check.
+    zero_counters()
+    H = 1300
+    algo = RecurrentAlgorithmConfig(device="cuda", num_envs=1024, fused_update=False,
+                                    model_config={"hidden_size": H}).build(DiscreteDummyEnv)
+    h = algo.hparams
+    check((algo._fused_act, algo._fused_update) == (True, False), "rnn_wide_sweep 1300: routes")
+    algo.collect(deterministic=True)
+    launches = launch_counts()
+    check(launches["rnn_act"] == h.horizon and launches["rnn_update"] == 0, f"rnn_wide_sweep 1300: launches {launches}")
+    buf, params = algo.state.buffer, algo._pack_params()
+    worst = 0.0
+    for t in range(h.horizon):
+        step_states = {k: v[t].contiguous() for k, v in buf[DataKeys.STATES].items()}
+        actions, logp, values, new_states = rnn_act_plain(params, buf[DataKeys.OBS][t].float(), step_states, (0, 0),
+                                                          deterministic=True)
+        for name, got, want in (("logp", buf[DataKeys.LOGP][t], logp), ("values", buf[DataKeys.VALUES][t], values)):
+            worst = max(worst, float((got - want).abs().max()))
+            check(torch.allclose(got, want, rtol=ACT_RTOL, atol=ACT_ATOL), f"rnn_wide_sweep 1300: {name} at t={t}")
+        check(bool((buf[DataKeys.ACTIONS][t] == actions).float().mean() > 0.99),
+              f"rnn_wide_sweep 1300: actions at t={t}")
+    stats = algo.step()
+    launches = launch_counts()
+    check(launches["rnn_update"] == 0 and all(math.isfinite(v) for v in stats.values()),
+          f"rnn_wide_sweep 1300: the autodiff step: {launches}, {stats}")
+    emit({"phase": "rnn_wide_sweep_act_only", "hidden_size": H, "num_envs": 1024, "launches": launches,
+          "rollout_vs_plain_max_abs_err": worst, "losses/total": stats["losses/total"]})
 
 
 def run_custom_path(torch, dev, kernels: dict, num_envs: int = 4096, sgd_minibatch_size: int = 32768) -> None:

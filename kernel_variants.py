@@ -141,8 +141,8 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "chains_256": [("chains.cu", "constexpr int kTileThreads = 512;", "constexpr int kTileThreads = 256;")],
     # 64-row recurrent act tiles, one block to an SM (and its registers).
     "rnn_act_rows64": [
-        ("rnn_act.cu", "smem_floats(d, 2) <= kTwoBlocksSmem", "smem_floats(d, 4) <= kMaxSmem"),
-        ("rnn_act.cu", "err = launch<2>(", "err = launch<4>("),
+        ("rnn_act.cu", "smem_floats(*d, 2) <= kTwoBlocksSmem", "smem_floats(*d, 4) <= kMaxSmem"),
+        ("rnn_act.cu", "err = launch<2, false>(", "err = launch<4, false>("),
         ("rnn_act.cu", "__global__ void __launch_bounds__(kThreads, 2)\n    rnn_act_kernel(",
          "__global__ void __launch_bounds__(kThreads, MT > 2 ? 1 : 2)\n    rnn_act_kernel("),
     ],
@@ -159,7 +159,7 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
         "for (int mt = 0; mt < MT; ++mt) acc[mt][q][0] += __uint_as_float(fa[mt].big[0] & fb[q].small[1]);",
     )],
     # 16-row recurrent act tiles.
-    "rnn_act_rows16": [("rnn_act.cu", "err = launch<2>(", "err = launch<1>(")],
+    "rnn_act_rows16": [("rnn_act.cu", "err = launch<2, false>(", "err = launch<1, false>(")],
     # Ablations of the chain forward's tiled route (wrong results; their
     # times against as_is split the kernel's time): no layer products, no
     # parameter loads, no (fused) LayerNorm, no (fused) narrow heads.
@@ -296,7 +296,7 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 
 
 def short(kernel: str) -> str | None:
-    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<\w+>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
+    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel)", kernel)
     return m.group(1) if m else None

@@ -47,7 +47,7 @@ from ..data import DataKeys, RecurrentAlgorithmHparams, RecurrentAlgorithmState
 from ..distributions import Distribution, SquashedNormal
 from ..env import EnvFactory
 from ..ops import fused_rnn_act, fused_rnn_ppo_grads, load_rnn_params, pack_rnn_params, pack_rows
-from ..ops import card_takes_rnn_update, supports_fused_rnn_update
+from ..ops import card_takes_rnn_act, card_takes_rnn_update, supports_fused_rnn_update
 from ..ops.fused_mlp import fused_recurrent_custom_apply, model_fits_vmem, supports_fused_recurrent_apply
 from ..parallel import gstd
 from ..policies import RecurrentPolicy
@@ -253,11 +253,7 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
         model.to(self.device)
         if self._fused_forward:
             self._check_card_takes_chains(model)
-        if self._fused_update and self.device.type == "cuda" and not card_takes_rnn_update(self._pack_params()):
-            raise NotImplementedError(
-                f"The card's recurrent update kernel does not take hidden_size {model.hidden_size} with these"
-                " inputs and heads: its row pass must fit a block's shared memory (the CPU takes any width)."
-            )
+        self._check_card_takes_kernels(model)
         #: The autodiff route's parameters, in the order of its flat vector.
         self._params = list(model.parameters())
         if not self._fused_act:
@@ -269,6 +265,23 @@ class RecurrentAlgorithm(GenericAlgorithmBase[RecurrentAlgorithmHparams, Recurre
             reward_scale=torch.tensor(1.0, device=self.device),
         )
         self.state.opt_state = self._init_opt_state()
+
+    def _check_card_takes_kernels(self, model: Any) -> None:
+        """On a CUDA device, raise ``NotImplementedError`` at build where a
+        kernel route the gates chose does not take the model's shapes, so
+        that no collect or step fails on them: the update kernel when
+        ``_fused_update`` is on, the act kernel when ``_fused_act`` is on."""
+        if self.device.type != "cuda" or not (self._fused_update or self._fused_act):
+            return
+        packed = self._pack_params()
+        checks = ((self._fused_update, card_takes_rnn_update, "update"), (self._fused_act, card_takes_rnn_act, "act"))
+        for on, takes, what in checks:
+            if on and not takes(packed):
+                raise NotImplementedError(
+                    f"The card's recurrent {what} kernel does not take {type(model).__name__} with hidden_size"
+                    f" {model.hidden_size}, {model.num_layers} layers, {packed.d_in} inputs and heads"
+                    f" {packed.head_widths} (the CPU takes any shape)."
+                )
 
     def _pack_params(self):
         """The model's current parameters packed for the kernels, with the

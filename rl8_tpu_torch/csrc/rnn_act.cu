@@ -39,6 +39,16 @@
 // to 4 past a multiple of 32 so that the A fragment loads are free of bank
 // conflicts (unpadded where padding would not fit: the widest layers). The
 // narrow heads and the sampling stay on the CUDA cores.
+//
+// The wide route (rnn_act_kernel<1, _, true>) takes the shapes whose 16-row
+// tile does not fit a block's shared memory (H from ~1210 at the main
+// path's shapes, up to the 1617 that rl8_tpu's residency gate admits
+// there, and wide heads): the A fragments are read straight from device
+// memory through L1 (the observations, h0 with row stride K H, and layer l
+// - 1's h', already written to h_out, with a barrier between layers; rows
+// past B read as 0), shared memory keeps only the top layer's h' [16, H]
+// for the heads, and the heads' rows and the sampling scratch lie in a
+// scratch that the wrapper allocates (rl8_rnn_act_scratch floats).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,13 +89,21 @@ size_t smem_floats(const RnnActDims& d, int mt) {
   return (size_t)16 * mt * (2 * d.ldx + d.ldh + d.stride + 2 * d.act_dim);
 }
 
+// The wide route's floats: shared memory (the top layer's h' of 16 rows)
+// and, per 16 rows, scratch (the heads' rows and the sampling scratch).
+size_t wide_smem_floats(const RnnActDims& d) { return (size_t)16 * d.H; }
+__host__ __device__ inline long long wide_scratch_floats(const RnnActDims& d) {
+  return 16LL * (d.stride + 2 * d.act_dim);
+}
+
 // acc[mt][q] += A[rows of m tile mt, k < K] W[k, q H + units u0 .. u0 + 7]
 // for the four gates q, on the tensor cores: A in shared memory (rows lda
-// apart), W [K, 4H] row-major in device memory, read as B fragments in
+// apart; kGlobal: in device memory, 64-bit row offsets, rows at or past nr
+// read as 0), W [K, 4H] row-major in device memory, read as B fragments in
 // place kAhead k steps ahead. Units at or past H and k at or past K read 0.
-template <int MT>
+template <int MT, bool kGlobal = false>
 __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A, int lda, int K,
-                                          const float* __restrict__ W, int H, int u0) {
+                                          const float* __restrict__ W, int H, int u0, int nr = 16 * MT) {
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
   const size_t ldw = 4 * (size_t)H;
   const int u = u0 + g;
@@ -118,8 +136,17 @@ __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A
       FragA fa[MT];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const float* a = A + (mt * 16 + g) * lda + k;
-        fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
+        if constexpr (kGlobal) {
+          const int ra = mt * 16 + g, rb = ra + 8;
+          const bool ia = ra < nr, ib = rb < nr;
+          const float* a = A + (size_t)(ia ? ra : 0) * lda + k;
+          const float* a8 = A + (size_t)(ib ? rb : 0) * lda + k;
+          fa[mt].set(lo && ia ? a[0] : 0.0f, lo && ib ? a8[0] : 0.0f, hi && ia ? a[4] : 0.0f,
+                     hi && ib ? a8[4] : 0.0f);
+        } else {
+          const float* a = A + (mt * 16 + g) * lda + k;
+          fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
+        }
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -129,40 +156,56 @@ __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A
   }
 }
 
-template <int MT, bool kContinuous>
+template <int MT, bool kContinuous, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
     rnn_act_kernel(const float* __restrict__ obs, const float* __restrict__ h0, const float* __restrict__ c0,
                    const float* __restrict__ params, void* __restrict__ actions, float* __restrict__ logp,
-                   float* __restrict__ values, float* __restrict__ h_out, float* __restrict__ c_out, int B,
-                   RnnActDims d, int squashed, uint32_t seed, uint32_t offset, int deterministic) {
+                   float* __restrict__ values, float* __restrict__ h_out, float* __restrict__ c_out,
+                   float* __restrict__ wide_scratch, int B, RnnActDims d, int squashed, uint32_t seed,
+                   uint32_t offset, int deterministic) {
   constexpr int R = 16 * MT;
   extern __shared__ __align__(16) float smem[];
   const int H = d.H, KH = d.K * H, ldx = d.ldx, ldh = d.ldh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
   float* cur = smem;                    // [R, ldx]: the layer's input
-  float* nxt = cur + R * ldx;           // [R, ldx]: its output, the next layer's input
+  float* nxt = kWide ? smem : cur + R * ldx;  // [R, ldx]: its output, the next layer's input (wide: the heads')
   float* hp = nxt + R * ldx;            // [R, ldh]: the layer's previous hidden state
-  float* heads = hp + R * ldh;          // [R, stride]
+  float* heads = kWide ? wide_scratch + (size_t)blockIdx.x * wide_scratch_floats(d) : hp + R * ldh;  // [R, stride]
   float* scratch = heads + R * d.stride;  // [R, 2A]
   const int r0 = blockIdx.x * R;
   const int nr = min(R, B - r0);
 
   int in_w = d.d_in;
-  for (int i = threadIdx.x; i < R * in_w; i += blockDim.x) {
-    const int r = i / in_w;
-    cur[r * ldx + i % in_w] = r < nr ? obs[(size_t)r0 * in_w + i] : 0.0f;
+  if constexpr (!kWide) {
+    for (int i = threadIdx.x; i < R * in_w; i += blockDim.x) {
+      const int r = i / in_w;
+      cur[r * ldx + i % in_w] = r < nr ? obs[(size_t)r0 * in_w + i] : 0.0f;
+    }
   }
   const float* p = params;
   for (int l = 0; l < d.K; ++l) {
-    for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
-      const int r = i / H;
-      hp[r * ldh + i % H] = r < nr ? h0[(size_t)(r0 + r) * KH + l * H + i % H] : 0.0f;
+    if constexpr (!kWide) {
+      for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
+        const int r = i / H;
+        hp[r * ldh + i % H] = r < nr ? h0[(size_t)(r0 + r) * KH + l * H + i % H] : 0.0f;
+      }
     }
     __syncthreads();
     const float* wi = p;
     const float* wh = wi + (size_t)in_w * 4 * H;
     const float* b = wh + (size_t)H * 4 * H;
     p = b + 4 * H;
+    // The A operands: in shared memory, or (wide) in place in device memory:
+    // the observations, or layer l - 1's h' in h_out; the stored state.
+    const float* x = cur;
+    const float* hx = hp;
+    int ld_x = ldx, ld_hx = ldh;
+    if constexpr (kWide) {
+      x = l == 0 ? obs + (size_t)r0 * in_w : h_out + (size_t)r0 * KH + (size_t)(l - 1) * H;
+      ld_x = l == 0 ? in_w : KH;
+      hx = h0 + (size_t)r0 * KH + (size_t)l * H;
+      ld_hx = KH;
+    }
     for (int u0 = 8 * warp; u0 < H; u0 += 8 * kWarps) {
       float acc[MT][4][4];
 #pragma unroll
@@ -171,8 +214,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.0f;
-      gate_tile<MT>(acc, cur, ldx, in_w, wi, H, u0);
-      gate_tile<MT>(acc, hp, ldh, H, wh, H, u0);
+      gate_tile<MT, kWide>(acc, x, ld_x, in_w, wi, H, u0, nr);
+      gate_tile<MT, kWide>(acc, hx, ld_hx, H, wh, H, u0, nr);
       // The cell update of the lane's (row, unit) pairs: C fragment element
       // e holds row mt 16 + g (+ 8 for e >= 2) and unit u0 + 2 tq + (e & 1).
 #pragma unroll
@@ -201,16 +244,19 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+    if constexpr (!kWide) {
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
     in_w = H;
   }
-  // Heads on the top layer's h' (cur): the policy heads side by side, then
-  // the value in the last column.
+  // Heads on the top layer's h' (cur; wide: nxt): the policy heads side by
+  // side, then the value in the last column.
+  const float* top = kWide ? nxt : cur;
   for (int q = 0; q <= d.n_heads; ++q) {
     const int w = q < d.n_heads ? d.head_w : 1;
-    narrow_head<R>(cur, H, p, p + (size_t)H * w, w, heads, d.stride, q < d.n_heads ? q * w : d.stride - 1, ldx);
+    narrow_head<R>(top, H, p, p + (size_t)H * w, w, heads, d.stride, q < d.n_heads ? q * w : d.stride - 1, ldx);
     p += (size_t)H * w + w;
   }
   __syncthreads();
@@ -223,60 +269,88 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int MT>
+template <int MT, bool kWide>
 cudaError_t launch(const RnnActDims& d, int kind, const float* obs, const float* h0, const float* c0,
                    const float* params, void* actions, float* logp, float* values, float* h_out, float* c_out,
-                   int B, uint32_t seed, uint32_t offset, int deterministic, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(d, MT);
-  const auto kernel = kind == kCategorical ? rnn_act_kernel<MT, false> : rnn_act_kernel<MT, true>;
+                   float* wide_scratch, int B, uint32_t seed, uint32_t offset, int deterministic,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kWide ? wide_smem_floats(d) : smem_floats(d, MT));
+  const auto kernel = kind == kCategorical ? rnn_act_kernel<MT, false, kWide> : rnn_act_kernel<MT, true, kWide>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (B + 16 * MT - 1) / (16 * MT);
-  kernel<<<grid, kThreads, smem, stream>>>(obs, h0, c0, params, actions, logp, values, h_out, c_out, B, d,
-                                          (int)(kind == kSquashed), seed, offset, deterministic);
+  kernel<<<grid, kThreads, smem, stream>>>(obs, h0, c0, params, actions, logp, values, h_out, c_out, wide_scratch,
+                                          B, d, (int)(kind == kSquashed), seed, offset, deterministic);
   return cudaGetLastError();
+}
+
+// The route of a launch for these shapes, with d filled in: 2 or 1 (tiles
+// of 16 * route rows, the layer inputs in shared memory: 32 rows where two
+// such blocks fit an SM, else 16, with padded rows where they fit a block,
+// else unpadded), 0 (the wide route), or -1 (no route takes them).
+int make_plan(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat, RnnActDims* d) {
+  if (B <= 0 || d_in <= 0 || H <= 0 || K < 1 || K > kMaxLayers || act_dim <= 0 || kind < kCategorical ||
+      kind > kSquashed || (kind == kCategorical && n_cat < 2)) {
+    return -1;
+  }
+  d->d_in = d_in;
+  d->H = H;
+  d->K = K;
+  d->act_dim = act_dim;
+  d->n_cat = n_cat;
+  d->n_heads = kind == kCategorical ? 1 : 2;
+  d->head_w = kind == kCategorical ? act_dim * n_cat : act_dim;
+  d->stride = d->n_heads * d->head_w + 1;
+  const int xw = d_in > H ? d_in : H;
+  d->ldx = (xw + 31) / 32 * 32 + 4;
+  d->ldh = (H + 31) / 32 * 32 + 4;
+  if (sizeof(float) * smem_floats(*d, 2) <= kTwoBlocksSmem) return 2;
+  if (sizeof(float) * smem_floats(*d, 1) > kMaxSmem) {
+    d->ldx = xw;
+    d->ldh = H;
+  }
+  if (sizeof(float) * smem_floats(*d, 1) <= kMaxSmem) return 1;
+  d->ldx = H;
+  d->ldh = 0;
+  return sizeof(float) * wide_smem_floats(*d) <= kMaxSmem ? 0 : -1;
 }
 
 }  // namespace
 
+// Floats of scratch that rl8_rnn_act needs for these shapes (0 on the
+// shared-memory routes; the wide route's heads and sampling rows, per 16
+// rows), or -1 where no route takes them (which
+// ops/fused_rnn_act.py:card_takes_rnn_act asks).
+extern "C" long long rl8_rnn_act_scratch(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat) {
+  RnnActDims d;
+  const int route = make_plan(B, d_in, H, K, kind, act_dim, n_cat, &d);
+  if (route < 0) return -1;
+  return route == 0 ? (long long)((B + 15) / 16) * wide_scratch_floats(d) : 0;
+}
+
 // kind: 0 categorical (actions int32 [B, A]), 1 normal, 2 squashed (actions
 // f32 [B, A]). h0, c0, h_out, c_out are [B, K * H]; params are laid out as
-// ops/fused_rnn_act.py:RnnParams. The tile is 32 rows where two such blocks
-// fit an SM, else 16 rows (with padded rows where they fit a block, else
-// unpadded: as wide as the first design took).
+// ops/fused_rnn_act.py:RnnParams; scratch holds rl8_rnn_act_scratch floats
+// (null where that is 0). make_plan picks the route.
 extern "C" int rl8_rnn_act(const float* obs, const float* h0, const float* c0, const float* params,
-                           void* actions, float* logp, float* values, float* h_out, float* c_out, int B,
-                           int d_in, int H, int K, int kind, int act_dim, int n_cat, unsigned int seed,
+                           void* actions, float* logp, float* values, float* h_out, float* c_out, float* scratch,
+                           int B, int d_in, int H, int K, int kind, int act_dim, int n_cat, unsigned int seed,
                            unsigned int offset, int deterministic, int device, void* stream) {
-  if (B <= 0 || d_in <= 0 || H <= 0 || K < 1 || K > kMaxLayers || act_dim <= 0 || kind < kCategorical ||
-      kind > kSquashed || (kind == kCategorical && n_cat < 2)) {
-    return (int)cudaErrorInvalidValue;
-  }
   RnnActDims d;
-  d.d_in = d_in;
-  d.H = H;
-  d.K = K;
-  d.act_dim = act_dim;
-  d.n_cat = n_cat;
-  d.n_heads = kind == kCategorical ? 1 : 2;
-  d.head_w = kind == kCategorical ? act_dim * n_cat : act_dim;
-  d.stride = d.n_heads * d.head_w + 1;
-  const int xw = d_in > H ? d_in : H;
-  d.ldx = (xw + 31) / 32 * 32 + 4;
-  d.ldh = (H + 31) / 32 * 32 + 4;
+  const int route = make_plan(B, d_in, H, K, kind, act_dim, n_cat, &d);
+  if (route < 0 || (route == 0 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (sizeof(float) * smem_floats(d, 2) <= kTwoBlocksSmem) {
-    err = launch<2>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, B, seed, offset,
-                    deterministic, s);
+  if (route == 2) {
+    err = launch<2, false>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, nullptr, B, seed,
+                           offset, deterministic, s);
+  } else if (route == 1) {
+    err = launch<1, false>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, nullptr, B, seed,
+                           offset, deterministic, s);
   } else {
-    if (sizeof(float) * smem_floats(d, 1) > kMaxSmem) {
-      d.ldx = xw;
-      d.ldh = H;
-    }
-    err = launch<1>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, B, seed, offset,
-                    deterministic, s);
+    err = launch<1, true>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, scratch, B, seed,
+                          offset, deterministic, s);
   }
   return (int)err;
 }

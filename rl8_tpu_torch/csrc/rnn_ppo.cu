@@ -65,6 +65,21 @@
 //   3. The fixed-order sums of the partials and of the blocks' stats.
 // Sequences past N are zeros in the last block: their states, inputs and
 // cotangents are 0, and the weight products read rows below N only.
+//
+// The wide route (rnn_rows_kernel<_, true>) takes the widths whose row pass
+// does not fit a block's shared memory (H past ~720 at the main path's
+// heads; make_layout picks it, and every narrower shape keeps the route
+// above). Its operands are read in place, through L1 and L2, from the
+// scratches the pass writes anyway: the forward's layer input (the packed
+// obs columns, or layer l - 1's h' in slot t + 1 of the state scratch) and
+// previous state (slot t), the heads' input (the top layer's h'), the
+// heads' outputs and cotangents (the head-cotangent scratch, where they
+// are computed in place), and the backward's A operand dz (the gate
+// scratch it overwrites). Shared memory keeps only the cotangent into the
+// current layer's output, dx [16, H], and the per-row stats, so the
+// route takes H up to ~3,600, past every width rl8_tpu's residency gate
+// admits (1617 at the dummy envs' shapes). It keeps 16 sequences a block
+// (full m16 tiles), the forward on the CUDA cores and the fixed-order sums.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -90,9 +105,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // sequences per block of the row pass
 constexpr int kMaxLayers = 8;
 constexpr int kMaxHeads = 3;  // policy heads and the value head
-// A block's shared memory on an H100 (227 KB): the one limit on the width.
-// make_layout refuses a row pass larger than this, and
-// rl8_rnn_ppo_workspace then returns -1 (which
+// A block's shared memory on an H100 (227 KB). make_layout takes the wide
+// route where the row pass's buffers pass it, and refuses a shape whose
+// wide route passes it too; rl8_rnn_ppo_workspace then returns -1 (which
 // ops/fused_rnn_ppo.py:card_takes_rnn_update asks).
 constexpr size_t kMaxSmem = 232448;
 static_assert(2 * kMaxLayers + kMaxHeads <= rl8::kMaxWgJobs, "weight-product jobs");
@@ -105,7 +120,7 @@ struct Dims : rl8::LossDims {
   int n_heads, head_w;  // policy heads and each one's width
   int n_out;            // n_heads * head_w + 1: a step's head row, the value last
   int ldx, ldh, ldz;    // row strides in shared memory of a layer input, an [H] row and a [4H] row
-  int u_floats;         // per sequence: the forward's or the backward's shared buffers
+  int u_floats;         // per sequence: the forward's or the backward's shared buffers (wide: dx)
   long long hs;         // floats per sequence of the h (and c) scratch: (L + 1) K H
   long long gs;         // floats per sequence of the gate (then dz) scratch: L K 4H
   long long ds;         // floats per sequence of the head cotangents: L n_out
@@ -123,6 +138,7 @@ struct Layout {
   long long rows_per_group;
   int groups, row_blocks;
   size_t smem;
+  bool wide;  // the wide route: the operands read in place from the scratches
 };
 
 // The row strides (padded to a multiple of 32 plus 4, which makes the
@@ -138,14 +154,24 @@ size_t set_strides(Dims& d, bool pad) {
   return sizeof(float) * (size_t)kRows * (d.u_floats + d.n_out + 4);
 }
 
+// The wide route's stride of dx, its one [H] row buffer (padded, or
+// unpadded), and its shared memory: dx and the per-row stats.
+size_t set_wide_strides(Dims& d, bool pad) {
+  d.ldh = pad ? (d.H + 31) / 32 * 32 + 4 : d.H;
+  d.ldx = d.ldz = 0;
+  d.u_floats = d.ldh;
+  return sizeof(float) * (size_t)kRows * (d.u_floats + 4);
+}
+
 // The row pass's strides are padded where that fits shared memory, else
-// unpadded (as wide as the kernel took before the padding); false where
-// neither fits.
+// unpadded (as wide as the kernel took before the padding), else the wide
+// route's (padded where that fits); false where none fits.
 bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, int n_cat, Layout* Lo) {
-  // The weight products divide a row index by L in 32 bits.
+  // The weight products divide a row index by L in 32 bits; a block's
+  // offsets within a sequence's rows of the scratches are 32-bit.
   if (N <= 0 || d_in <= 0 || H <= 0 || L <= 0 || K < 1 || K > kMaxLayers || act_dim <= 0 ||
       kind < kCategorical || kind > kSquashed || (kind == kCategorical && n_cat < 2) ||
-      (long long)N * L >= (1LL << 31)) {
+      (long long)N * L >= (1LL << 31) || (long long)kRows * (L + 1) * K * 4 * H >= (1LL << 31)) {
     return false;
   }
   Dims& d = Lo->d;
@@ -160,6 +186,7 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
   d.n_heads = kind == kCategorical ? 1 : 2;
   d.head_w = kind == kCategorical ? act_dim * n_cat : act_dim;
   d.n_out = d.n_heads * d.head_w + 1;
+  if ((long long)kRows * L * d.n_out >= (1LL << 31)) return false;
   const long long H4 = 4LL * H;
   long long off = 0, wt = 0;
   for (int l = 0; l < K; ++l) {
@@ -182,6 +209,11 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
   Lo->wt_floats = wt;
   Lo->smem = set_strides(d, true);
   if (Lo->smem > kMaxSmem) Lo->smem = set_strides(d, false);
+  Lo->wide = Lo->smem > kMaxSmem;
+  if (Lo->wide) {
+    Lo->smem = set_wide_strides(d, true);
+    if (Lo->smem > kMaxSmem) Lo->smem = set_wide_strides(d, false);
+  }
   Lo->row_blocks = (N + kRows - 1) / kRows;
   d.Npad = (long long)Lo->row_blocks * kRows;
   d.hs = (long long)(L + 1) * K * H;
@@ -217,9 +249,10 @@ __device__ __forceinline__ float head_weight(const float* params, const Dims& d,
 
 
 // acc[mt][i] += A[kRows, K] W[K, units of tile i] over k < K: A in shared
-// memory with rows lda apart; W [K, H] row-major in device memory (L2),
-// read as B fragments in place, two k steps ahead of the products.
-template <int MT, int KUT>
+// memory with rows lda apart (kGlobal: in device memory, 64-bit row
+// offsets); W [K, H] row-major in device memory (L2), read as B fragments
+// in place, two k steps ahead of the products.
+template <int MT, int KUT, bool kGlobal = false>
 __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const float* A, int lda, int K,
                                               const float* __restrict__ W, int H, const int (&u0)[KUT]) {
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
@@ -244,8 +277,14 @@ __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const fl
     FragA fa[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      const float* a = A + (mt * 16 + g) * lda + k;
-      fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
+      if constexpr (kGlobal) {
+        const float* a = A + (size_t)(mt * 16 + g) * lda + k;
+        const float* a8 = a + 8 * (size_t)lda;
+        fa[mt].set(lo ? a[0] : 0.0f, lo ? a8[0] : 0.0f, hi ? a[4] : 0.0f, hi ? a8[4] : 0.0f);
+      } else {
+        const float* a = A + (mt * 16 + g) * lda + k;
+        fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
+      }
     }
 #pragma unroll
     for (int i = 0; i < KUT; ++i) {
@@ -264,7 +303,7 @@ __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const fl
   }
 }
 
-template <bool kContinuous>
+template <bool kContinuous, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
     rnn_rows_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
                     const float* __restrict__ params, const float* __restrict__ wt, float* __restrict__ hseq,
@@ -283,17 +322,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* xb = xa + kRows * ldx;    // [kRows, ldx]
   float* hp = xb + kRows * ldx;    // [kRows, ldh]
   // The backward's: the gate cotangents, the cotangent into the current
-  // layer's output, and the step's head cotangents.
+  // layer's output, and the step's head cotangents. The wide route keeps
+  // dx alone: dz, the heads' outputs and cotangents stay in the scratches.
   float* dzs = smem;                      // [kRows, ldz]
-  float* dx = dzs + kRows * ldz;              // [kRows, ldh]
+  float* dx = kWide ? smem : dzs + kRows * ldz;  // [kRows, ldh]
   float* dos = dx + kRows * ldh;              // [kRows, n_out]
   float* head = smem + kRows * d.u_floats;    // [kRows, n_out]: outputs, then cotangents
-  float* rowv = head + kRows * d.n_out;       // [kRows, 4]: pol, vf, ent, kl over the steps
+  float* rowv = kWide ? smem + kRows * ldh : head + kRows * d.n_out;  // [kRows, 4]: pol, vf, ent, kl over the steps
 
   const long long r0 = (long long)blockIdx.x * kRows;
   const int nr = (int)min((long long)kRows, d.N - r0);
   const float* packed_f = reinterpret_cast<const float*>(packed);
   const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
+  // The wide route's rows of the scratches: the block's first sequence.
+  float* hseq_b = hseq + (size_t)r0 * d.hs;
+  float* gz_b = gz + (size_t)r0 * d.gs;
+  float* dout_b = dout + (size_t)r0 * d.ds;
 
   // Slot 0 of the state scratch: the stored initial states.
   for (int i = threadIdx.x; i < kRows * KH; i += blockDim.x) {
@@ -310,23 +354,47 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* cur = xa;
     float* nxt = xb;
     int in_w = d.d_in;
-    for (int i = threadIdx.x; i < kRows * in_w; i += blockDim.x) {
-      const int r = i / in_w;
-      cur[r * ldx + i % in_w] =
-          r < nr ? packed_f[(size_t)(r0 + r) * d.D + d.obs_col + t * in_w + i % in_w] : 0.0f;
+    if constexpr (!kWide) {
+      for (int i = threadIdx.x; i < kRows * in_w; i += blockDim.x) {
+        const int r = i / in_w;
+        cur[r * ldx + i % in_w] =
+            r < nr ? packed_f[(size_t)(r0 + r) * d.D + d.obs_col + t * in_w + i % in_w] : 0.0f;
+      }
     }
     for (int l = 0; l < K; ++l) {
       __syncthreads();  // the state scratch's slot t, and the buffers, are ready
-      for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-        hp[(i / H) * ldh + i % H] = hseq[(size_t)(r0 + i / H) * d.hs + ((size_t)t * K + l) * H + i % H];
+      if constexpr (!kWide) {
+        for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
+          hp[(i / H) * ldh + i % H] = hseq[(size_t)(r0 + i / H) * d.hs + ((size_t)t * K + l) * H + i % H];
+        }
+        __syncthreads();
       }
-      __syncthreads();
       const float* wi = params + d.wi_off[l];
       const float* wh = params + d.wh_off[l];
       const float* b = wh + (size_t)H * H4;
       for (int j = threadIdx.x; j < H; j += blockDim.x) {
         float z[4][kRows];
-        rl8::lstm_preact<kRows>(cur, in_w, hp, wi, wh, b, H, j, z, ldx, ldh);
+        if constexpr (kWide) {
+          // In place: the layer's input (the obs columns of the block's
+          // sequences, past N read as 0, or layer l - 1's h' in slot t + 1)
+          // and the previous state (slot t), as lstm_preact sums them.
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float bq = __ldg(b + q * H + j);
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) z[q][r] = bq;
+          }
+          if (l == 0) {
+            rl8::gate_products<kRows, true>(packed_f + (size_t)r0 * d.D + d.obs_col + (size_t)t * in_w, in_w, wi, H,
+                                            j, z, d.D, nr);
+          } else {
+            rl8::gate_products<kRows, true>(hseq_b + ((size_t)(t + 1) * K + l - 1) * H, in_w, wi, H, j, z,
+                                            (int)d.hs);
+          }
+          rl8::gate_products<kRows, true>(hseq_b + ((size_t)t * K + l) * H, H, wh, H, j, z, (int)d.hs);
+        } else {
+          rl8::lstm_preact<kRows>(cur, in_w, hp, wi, wh, b, H, j, z, ldx, ldh);
+        }
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const size_t row = (size_t)(r0 + r);
@@ -341,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const float h = z[3][r] * tanhf(c);
           cseq[row * d.hs + ((size_t)(t + 1) * K + l) * H + j] = c;
           hseq[row * d.hs + ((size_t)(t + 1) * K + l) * H + j] = h;
-          nxt[r * ldx + j] = h;
+          if constexpr (!kWide) nxt[r * ldx + j] = h;
         }
       }
       __syncthreads();
@@ -350,18 +418,29 @@ __global__ void __launch_bounds__(kThreads, 2)
       nxt = tmp;
       in_w = H;
     }
-    // The heads on the top layer's h' (cur).
+    // The heads on the top layer's h' (cur; wide: in slot t + 1 of the
+    // state scratch, the heads' row in the head-cotangent scratch).
+    const float* top = cur;
+    float* head_t = head;
+    int ld_top = ldx, ld_head = d.n_out;
+    if constexpr (kWide) {
+      top = hseq_b + ((size_t)(t + 1) * K + K - 1) * H;
+      head_t = dout_b + (size_t)t * d.n_out;
+      ld_top = (int)d.hs;
+      ld_head = (int)d.ds;
+    }
     for (int q = 0; q <= d.n_heads; ++q) {
       const int w = q < d.n_heads ? d.head_w : 1;
       const float* Wq = params + d.head_off[q];
-      narrow_head<kRows>(cur, H, Wq, Wq + (size_t)H * w, w, head, d.n_out, q < d.n_heads ? q * w : d.n_out - 1, ldx);
+      narrow_head<kRows>(top, H, Wq, Wq + (size_t)H * w, w, head_t, ld_head, q < d.n_heads ? q * w : d.n_out - 1,
+                         ld_top);
     }
     __syncthreads();
     // The step's loss terms and head cotangents, a thread per sequence;
     // sequences past N get zeros.
     if (threadIdx.x < kRows) {
       const int r = threadIdx.x;
-      float* z = head + r * d.n_out;
+      float* z = head_t + r * ld_head;
       if (r < nr) {
         rl8::LossDims s = d;
         s.act_col += t * d.act_dim;
@@ -382,19 +461,28 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int o = 0; o < d.n_out; ++o) z[o] = 0.0f;
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
-      dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out] = head[i];
+    if constexpr (!kWide) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
+        dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out] = head[i];
+      }
     }
   }
 
   // ---------------- backward through time
   for (int t = L - 1; t >= 0; --t) {
     __syncthreads();  // the head cotangents are stored, and the union is free
-    for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
-      dos[i] = dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out];
+    const float* dos_t = dos;
+    int ld_dos = d.n_out;
+    if constexpr (kWide) {
+      dos_t = dout_b + (size_t)t * d.n_out;
+      ld_dos = (int)d.ds;
+    } else {
+      for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
+        dos[i] = dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out];
+      }
+      __syncthreads();
     }
-    __syncthreads();
     // The heads' cotangent into the top layer's h': dx = dout W_heads^T (the
     // heads are narrow, so a loop over their outputs).
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
@@ -404,7 +492,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int o = 0; o < d.n_out; ++o) {
         const float w = head_weight(params, d, o, j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(dos[r * d.n_out + o], w, acc[r]);
+        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(dos_t[r * ld_dos + o], w, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) dx[r * ldh + j] = acc[r];
@@ -438,11 +526,13 @@ __global__ void __launch_bounds__(kThreads, 2)
               gp[H] = df;
               gp[2 * H] = dg;
               gp[3 * H] = dout_o;
-              float* dzr = dzs + r * ldz + u;
-              dzr[0] = di;
-              dzr[H] = df;
-              dzr[2 * H] = dg;
-              dzr[3 * H] = dout_o;
+              if constexpr (!kWide) {
+                float* dzr = dzs + r * ldz + u;
+                dzr[0] = di;
+                dzr[H] = df;
+                dzr[2 * H] = dg;
+                dzr[3 * H] = dout_o;
+              }
               dct[ut] = dc * gf;
             }
           }
@@ -452,8 +542,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       // dh_t = dz Wh^T for the previous step (none before step 0: the
       // stored initial states take no gradient); dx = dz Wi^T into the
       // layer below. Both on the tensor cores, into the lanes that own the
-      // units.
+      // units; the wide route's A operand is dz in the gate scratch.
       if (t > 0 || l > 0) {
+        const float* dz_t = gz_b + ((size_t)t * K + l) * H4;
         for (int p0 = warp; p0 < n_tiles; p0 += kWarps * KUT) {
           int u0[KUT];
           float ah[MT][KUT][4], ax[MT][KUT][4];
@@ -465,8 +556,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
               for (int e = 0; e < 4; ++e) ah[mt][i][e] = ax[mt][i][e] = 0.0f;
           }
-          if (t > 0) unit_products<MT, KUT>(ah, dzs, ldz, H4, wt + d.whT_off[l], H, u0);
-          if (l > 0) unit_products<MT, KUT>(ax, dzs, ldz, H4, wt + d.wiT_off[l], H, u0);
+          if constexpr (kWide) {
+            if (t > 0) unit_products<MT, KUT, true>(ah, dz_t, (int)d.gs, H4, wt + d.whT_off[l], H, u0);
+            if (l > 0) unit_products<MT, KUT, true>(ax, dz_t, (int)d.gs, H4, wt + d.wiT_off[l], H, u0);
+          } else {
+            if (t > 0) unit_products<MT, KUT>(ah, dzs, ldz, H4, wt + d.whT_off[l], H, u0);
+            if (l > 0) unit_products<MT, KUT>(ax, dzs, ldz, H4, wt + d.wiT_off[l], H, u0);
+          }
 #pragma unroll
           for (int i = 0; i < KUT; ++i) {
 #pragma unroll
@@ -565,7 +661,9 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
     }
   }
 
-  const auto rows_kernel = kind == kCategorical ? rnn_rows_kernel<false> : rnn_rows_kernel<true>;
+  const auto rows_kernel = kind == kCategorical
+                               ? (Lo.wide ? rnn_rows_kernel<false, true> : rnn_rows_kernel<false, false>)
+                               : (Lo.wide ? rnn_rows_kernel<true, true> : rnn_rows_kernel<true, false>);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);
   if (err != cudaSuccess) return (int)err;
   rows_kernel<<<Lo.row_blocks, kThreads, Lo.smem, s>>>(packed, ec, params, wt, hseq, cseq, gz, dout, dht, dct,

@@ -25,7 +25,7 @@ from .fused_mlp import (
     supports_fused_recurrent_apply,
 )
 from .fused_ppo import PPOLossConfig, card_takes_update, fused_ppo_grads, ppo_grads_plain, supports_fused_update
-from .fused_rnn_act import RnnParams, fused_rnn_act, load_rnn_params, pack_rnn_params, rnn_act_plain
+from .fused_rnn_act import RnnParams, card_takes_rnn_act, fused_rnn_act, load_rnn_params, pack_rnn_params, rnn_act_plain
 from .fused_rnn_ppo import card_takes_rnn_update, fused_rnn_ppo_grads, rnn_ppo_grads_plain, supports_fused_rnn_update
 from .gae import fused_gae, gae_plain
 from .packing import RowUnpacker, block_shuffle, pack_rows
@@ -41,6 +41,7 @@ __all__ = [
     "block_shuffle",
     "card_takes_act",
     "card_takes_chains",
+    "card_takes_rnn_act",
     "card_takes_rnn_update",
     "card_takes_update",
     "chains_fit_vmem",

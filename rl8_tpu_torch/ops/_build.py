@@ -137,13 +137,16 @@ def load() -> ctypes.CDLL:
         lib.rl8_ppo_grads.restype = i32
         lib.rl8_rnn_act.argtypes = [
             ptr, ptr, ptr, ptr,  # obs, h, c, params
-            ptr, ptr, ptr, ptr, ptr,  # actions, logp, values, new h, new c
+            ptr, ptr, ptr, ptr, ptr, ptr,  # actions, logp, values, new h, new c, scratch
             i32, i32, i32, i32,  # B, d_in, H, K
             i32, i32, i32,  # kind, action_dim, n_cat
             u32, u32, i32,  # seed, offset, deterministic
             i32, ptr,  # device, stream
         ]
         lib.rl8_rnn_act.restype = i32
+        # B, d_in, H, K, kind, action_dim, n_cat
+        lib.rl8_rnn_act_scratch.argtypes = [i32] * 7
+        lib.rl8_rnn_act_scratch.restype = ctypes.c_longlong
         # N, d_in, H, L, K, kind, action_dim, n_cat
         lib.rl8_rnn_ppo_workspace.argtypes = [i32] * 8
         lib.rl8_rnn_ppo_workspace.restype = ctypes.c_longlong

@@ -96,7 +96,7 @@ Structure = tuple[int, tuple[ChainShape, ...]]
 #: the module forward and the autodiff update, as ``rl8_tpu`` does. The
 #: card kernels' own limits are asked of them (:func:`card_takes_chains`,
 #: ``fused_ppo.card_takes_update``, ``fused_act.card_takes_act``,
-#: ``fused_rnn_ppo.card_takes_rnn_update``).
+#: ``fused_rnn_ppo.card_takes_rnn_update``, ``fused_rnn_act.card_takes_rnn_act``).
 _VMEM_TOTAL_BUDGET = 88 * 1024 * 1024
 
 #: Per-model (torso, heads) layouts, which are also the flax trees'

@@ -11,6 +11,8 @@ discrete and a continuous branch.
 it cannot; for CPU tensors it runs :func:`rnn_act_plain`, the same
 function in plain PyTorch (with the kernel's Philox draws replayed by
 ``ops/distmath.py``), which is also what the kernel is held against.
+:func:`card_takes_rnn_act` asks the kernel whether it takes a model's
+shapes: every width and head ``rl8_tpu``'s residency gate admits.
 :func:`pack_rnn_params` lays the parameters out as both recurrent kernels
 read them, the counterpart of ``rl8_tpu``'s ``_concat_lstm_params``,
 ``_head_layout`` and ``_head_params``.
@@ -31,6 +33,7 @@ __all__ = [
     "MAX_RNN_LAYERS",
     "RNN_KINDS",
     "RnnParams",
+    "card_takes_rnn_act",
     "fused_rnn_act",
     "load_rnn_params",
     "lstm_cell",
@@ -256,6 +259,27 @@ def rnn_act_plain(
     return actions, logp, outs[-1], new_states
 
 
+def _scratch_floats(params: RnnParams, B: int) -> int:
+    """``csrc/rnn_act.cu``'s scratch for a launch of ``B`` rows (0: none; -1:
+    no route takes these shapes)."""
+    kind = RNN_KINDS.index(params.kind)
+    return load().rl8_rnn_act_scratch(
+        B, params.d_in, params.hidden, params.num_layers, kind, params.action_dim, params.n
+    )
+
+
+def card_takes_rnn_act(params: RnnParams) -> bool:
+    """Whether ``csrc/rnn_act.cu`` takes these shapes on one of its routes:
+    the layer inputs in shared memory where a 16-row tile of them fits a
+    block (``H`` up to ~1209 at the dummy envs' shapes), else the wide
+    route, which reads them in place from device memory and keeps the
+    heads' rows in a scratch (``H`` up to ~3,600, past every width
+    ``rl8_tpu``'s residency gate admits). This builds the kernels, if they
+    are not built yet, and asks them; the recurrent algorithm asks at
+    build."""
+    return _scratch_floats(params, 1) >= 0
+
+
 def fused_rnn_act(
     params: RnnParams,
     obs: torch.Tensor,
@@ -269,9 +293,12 @@ def fused_rnn_act(
 
     CUDA tensors launch ``csrc/rnn_act.cu`` (and count one launch in
     ``fused_rnn_act.launches`` for the categorical kind, in
-    ``fused_rnn_act.continuous_launches`` for the others) or raise; CPU
-    tensors run :func:`rnn_act_plain`. Non-f32 observations are widened
-    to f32 first. See :func:`rnn_act_plain` for the arguments and results.
+    ``fused_rnn_act.continuous_launches`` for the others) or raise:
+    ``NotImplementedError``, before any launch, where no route of the
+    kernel takes the shapes (:func:`card_takes_rnn_act`). The wide route's
+    scratch is allocated here. CPU tensors run :func:`rnn_act_plain`.
+    Non-f32 observations are widened to f32 first. See
+    :func:`rnn_act_plain` for the arguments and results.
     """
     if obs.dtype != torch.float32:
         obs = obs.to(torch.float32)
@@ -299,6 +326,13 @@ def fused_rnn_act(
     if not all(t.is_contiguous() for t in (obs, h, c, params.flat)):
         raise ValueError("The recurrent act kernel needs contiguous obs, states and params.")
     dev = obs.device
+    floats = _scratch_floats(params, B)
+    if floats < 0:
+        raise NotImplementedError(
+            f"The recurrent act kernel takes no route at hidden size {H} with {K} layers, {params.d_in} inputs"
+            f" and heads {params.head_widths} (see card_takes_rnn_act)."
+        )
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
     action_dtype = torch.float32 if params.continuous else torch.int32
     actions = torch.empty((B, params.action_dim), dtype=action_dtype, device=dev)
     logp = torch.empty((B, 1), dtype=torch.float32, device=dev)
@@ -307,7 +341,8 @@ def fused_rnn_act(
     c_n = torch.empty_like(c)
     code = load().rl8_rnn_act(
         obs.data_ptr(), h.data_ptr(), c.data_ptr(), params.flat.data_ptr(), actions.data_ptr(),
-        logp.data_ptr(), values.data_ptr(), h_n.data_ptr(), c_n.data_ptr(), B, params.d_in, H, K,
+        logp.data_ptr(), values.data_ptr(), h_n.data_ptr(), c_n.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, B, params.d_in, H, K,
         RNN_KINDS.index(params.kind), params.action_dim, params.n, seed, offset, int(deterministic),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -117,8 +117,9 @@ def supports_fused_rnn_update(model: Any, distribution_cls: Any, *, zero_entropy
 
     These are ``rl8_tpu``'s gates, its weight-residency term included
     (:func:`_rnn_fits_vmem`: ``hidden_size`` up to 1617 at the dummy envs'
-    shapes). The card kernel's own limit is asked of it by
-    :func:`card_takes_rnn_update`."""
+    shapes). The card kernels' own limits are asked of them by
+    :func:`card_takes_rnn_update` and
+    :func:`~rl8_tpu_torch.ops.fused_rnn_act.card_takes_rnn_act`."""
     # The packed rows carry observations as f32 bit patterns.
     return (
         supports_rnn_distribution(model, distribution_cls, zero_entropy=zero_entropy)
@@ -161,11 +162,14 @@ def _kernel_dims(params: RnnParams, seq_len: int) -> tuple[int, ...]:
 
 def card_takes_rnn_update(params: RnnParams) -> bool:
     """Whether ``csrc/rnn_ppo.cu`` takes the model's widths. Its row pass
-    keeps a block's sequences' layer inputs, gate cotangents and head rows
-    in shared memory (32 sequences where they fit, else 16), which caps
-    the width (``H`` near 720 at the main path's heads on an H100, where
-    ``rl8_tpu``'s residency gate admits up to 1617). The limit is the kernel's own;
-    this builds the kernels, if they are not built yet, and asks them."""
+    keeps a block's 16 sequences' layer inputs, gate cotangents and head
+    rows in shared memory where they fit (``H`` up to ~720 at the dummy
+    envs' heads), else takes its wide route, which reads them in place from
+    the scratches and keeps only ``dx`` ``[16, H]`` in shared memory
+    (``H`` up to ~3,600, any heads: past every shape ``rl8_tpu``'s
+    residency gate admits, ``H`` up to 1617 there). The limit is the
+    kernel's own; this builds the kernels, if they are not built yet, and
+    asks them."""
     return load().rl8_rnn_ppo_workspace(1, *_kernel_dims(params, seq_len=1)) >= 0
 
 
@@ -354,8 +358,9 @@ def fused_rnn_ppo_grads(
     workspace = lib.rl8_rnn_ppo_workspace(N, *dims)
     if workspace < 0:
         raise NotImplementedError(
-            f"The recurrent update kernel's row pass does not fit a block's shared memory at hidden size"
-            f" {params.hidden} with {params.d_in} inputs (see card_takes_rnn_update)."
+            f"The recurrent update kernel takes no route at hidden size {params.hidden} with"
+            f" {params.num_layers} layers, {params.d_in} inputs, heads {params.head_widths}, {N} sequences"
+            f" of {L} steps (see card_takes_rnn_update)."
         )
     dev = packed.device
     work = torch.empty(workspace, dtype=torch.float32, device=dev)

@@ -284,9 +284,10 @@ def test_fused_forward_is_accepted_and_off_like_jax() -> None:
 
 
 def test_wide_model_trains_on_the_cpu() -> None:
-    """The CPU's plain update takes any width: a 1024-wide LSTM, past the
-    card kernel's shared-memory limit (``card_takes_rnn_update``, held
-    on the card by ``chip_smoke.py``), builds, collects and steps."""
+    """The CPU's plain versions take any width: a 1024-wide LSTM, past the
+    card update kernel's shared-memory tiles (on the card its wide route
+    takes it: ``chip_smoke.py``'s ``wide_recurrent``), builds, collects and
+    steps."""
     algo = _port(model_config={"hidden_size": 1024})
     algo.collect()
     stats = algo.step()

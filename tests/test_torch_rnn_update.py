@@ -220,8 +220,9 @@ def test_gating_matches_jax() -> None:
     """``supports_fused_rnn_update`` agrees with ``rl8_tpu``'s on the
     family, distribution, entropy, depth and observation-dtype gates, and
     on its VMEM residency term (H up to 1617 at these shapes, or a
-    narrower head), which the port takes as its route; the card kernel's
-    own limit (shared memory) is asked of it by ``card_takes_rnn_update``."""
+    narrower head), which the port takes as its route; the card kernels'
+    own limits are asked of them by ``card_takes_rnn_update`` and
+    ``card_takes_rnn_act``."""
     from rl8_tpu.distributions import Categorical as JCat
 
     def pair(continuous: bool, obs_dtype=(jnp.float32, torch.float32), n: int = 3, **config):

@@ -102,11 +102,20 @@ non-zero:
    ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
    and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
    optimizer's state on the card). Between the squashed path and the
-   repaired routes, the wide models: ``wide_torso`` (``bench.py:366``'s
+   repaired routes, the wide models, whose update kernels run their wide
+   routes (``ppo_wide_fwd_kernel`` and ``ppo_wide_bwd_kernel``,
+   ``rnn_wide_fwd_kernel`` and ``rnn_wide_bwd_kernel``: 128 rows or
+   sequences a block, each product staged through shared memory, the
+   forward in f32 on the CUDA cores, the backward's dh products on 3xTF32
+   ``wgmma``), each route asserted by its kernel's name, each update held
+   to ``PPO_GRAD_*`` against its plain version and two launches
+   bit-identical: ``wide_torso`` (``bench.py:366``'s
    line, a 1024-wide twin torso at 8192 envs, horizon 32: one warm-up,
    three timed and one profiled iteration, act 32, GAE 1, update 4 an
    iteration; then both kernels against their plain versions on the first
-   8,192 rows of the buffer and timed, the update also at 262,144 rows,
+   8,192 rows of the buffer and timed, the update also at 262,144 rows
+   (the whole buffer against the plain version, the synthetic timed rows
+   against float64 and over their halves),
    and the continuous kernels (SquashedNormal) at the same widths)
    and ``wide_sweep`` (twin torsos 737 to 2388 wide, three distributions,
    4,096 rows, each act and update kernel against its plain version on
@@ -1891,11 +1900,12 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     minibatch rows, and the forward at 4,096) and the feedforward (both
     kinds), recurrent, recurrent act, both act kernels', chain forward (both
     row counts) and chain backward launches' device time by kernel
-    (``torch.profiler``), on one JSON line with
-    LABEL and the card. To compare two commits on one card, unpack one into a
-    directory that ``.gitignore`` lists (``git archive``) and run each
-    checkout's ``chip_smoke.py --time-updates`` in turns (A, B, B, A) in
-    one command."""
+    (``torch.profiler``), and the wide routes (``time_wide_updates``), on
+    one JSON line with LABEL and the card. To compare two commits on one
+    card, unpack one into a directory that ``.gitignore`` lists (``git
+    archive``) and run each checkout's ``chip_smoke.py --time-updates`` in
+    turns (A, B, B, A) in one command (a checkout older than the wide
+    routes' timings runs a copy of the newer script)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rl8_tpu_torch import ops
@@ -1974,7 +1984,67 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["chains_fwd_4096_split_ms"] = split_ms(lambda: ops.fused_chains_fwd(x[:4096], flat, structure, "relu"), 60)
     out["chains_bwd_ms"] = device_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts))
     out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
+    del x, douts
+    out.update(time_wide_updates(torch, dev, split_ms))
     emit(out)
+
+
+def time_wide_updates(torch, dev, split_ms) -> dict:
+    """``time_updates``' wide routes: the update kernels at the wide cells'
+    shapes (the feedforward kernel at 1024 x 262,144 rows, categorical and
+    squashed, ``wide_torso``; the recurrent one at H 1024 x 65,536
+    sequences of 4, ``wide_recurrent``) and at the widest models
+    ``rl8_tpu``'s gates admit (2388 x 4,096 rows; H 1617 x 2,048
+    sequences), each with its device ms per launch, the plain version's, the
+    f32 and 3xTF32 bounds, and the profiler's split by kernel and into the
+    row pass (``row_pass_ms``: the row kernel, and the copies of the weights
+    it reads), the weight products and their sums (``weight_products_ms``).
+    Each shape's inputs and workspace are freed before the next (the 1024 x
+    262,144 row scratch is ~17 GB)."""
+    from rl8_tpu_torch import ops
+    from rl8_tpu_torch.specs import Discrete
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+    out = {}
+
+    def record(name: str, run, plain, cost, iters: int) -> None:
+        rec = {"ms": time_ms(torch, run, iters=iters, warmup=1)[0],
+               "plain_ms": time_ms(torch, plain, iters=max(2, iters // 2), warmup=1)[0]}
+        split = split_ms(run)
+        rec["row_pass_ms"] = sum(v for k, v in split.items() if re.search(r"rows_kernel|wide_\w+_kernel|transpose|tile_", k))
+        rec["weight_products_ms"] = sum(split.values()) - rec["row_pass_ms"]
+        rec["split_ms"] = split
+        update_bounds(rec, *cost)
+        out[f"wide_{name}_ms"] = rec.pop("ms")
+        out[f"wide_{name}"] = rec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    for width, N, kind in ((1024, 8192 * 32, "categorical"), (1024, 8192 * 32, "squashed"),
+                           (2388, 4096, "categorical")):
+        if kind == "squashed":
+            model = make_continuous_model(torch, 1, seed=80 + width, hiddens=(width, width))
+            params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=width, squashed=True)
+        else:
+            model = make_model(torch, Discrete(2, shape=(1,)), seed=40 + width, hiddens=(width, width))
+            params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=width)
+        cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, squashed=kind == "squashed", **loss)
+        record(f"ppo_{width}x{N}" + ("_squashed" if kind == "squashed" else ""),
+               lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg),
+               lambda: ops.ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
+               iters=3 if N > 8192 else 10)
+        del model, params, packed, unpack
+    for H, N in ((1024, 65536), (1617, 2048)):
+        model = make_rnn_model(torch, "categorical", seed=110 + H, hidden_size=H)
+        params = ops.pack_rnn_params(model)
+        packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, "categorical", N, 4, seed=H)
+        cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+        record(f"rnn_ppo_{H}x{N}", lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+               lambda: ops.rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), rnn_ppo_cost(params, packed, 4),
+               iters=3 if N > 8192 else 10)
+        del model, params, packed, unpack
+    return out
 
 
 def run_main_path(torch, dev) -> None:
@@ -2196,8 +2266,8 @@ WIDE_WIDTHS = (737, 1024, 1813, 1814, 2048, 2388)
 #: or not), and the act kernels' streaming routes, each by kernel name (for
 #: launched_route).
 PPO_ROUTES = {
-    False: {"ppo_rows_kernel<false, false": "narrow", "ppo_rows_kernel<false, true": "wide"},
-    True: {"ppo_rows_kernel<true, false": "narrow", "ppo_rows_kernel<true, true": "wide"},
+    False: {"ppo_rows_kernel<false": "narrow", "ppo_wide_fwd_kernel<false": "wide"},
+    True: {"ppo_rows_kernel<true": "narrow", "ppo_wide_fwd_kernel<true": "wide"},
 }
 #: The recurrent kernels' routes per distribution family (continuous or
 #: not), by kernel name (for launched_route): the act kernel's tiles of 32
@@ -2209,7 +2279,7 @@ RNN_ACT_ROUTES = {
     for c, b in ((False, "false"), (True, "true"))
 }
 RNN_PPO_ROUTES = {
-    c: {f"rnn_rows_kernel<{b}, false": "narrow", f"rnn_rows_kernel<{b}, true": "wide"}
+    c: {f"rnn_rows_kernel<{b}": "narrow", f"rnn_wide_fwd_kernel<{b}": "wide"}
     for c, b in ((False, "false"), (True, "true"))
 }
 STREAMING_ROUTES = {
@@ -2515,7 +2585,8 @@ def run_wide_sweep(torch, dev) -> None:
     uneven tanh layers (1024, 737, 900) at an obs dim of 3 with A=3, n=3;
     one 3000-wide layer, Normal over 4 dims at an obs dim of 5; eight
     737-wide layers; each with an entropy bonus, dual clip and
-    accumulation. Then, over a grid of default models (check_gate_grid),
+    accumulation; and the update alone at 2,000 logits on a 64-wide torso
+    (heads that only the wide route takes). Then, over a grid of default models (check_gate_grid),
     every model rl8_tpu's residency gate admits is taken by the card's act
     and update kernels; and a 2389-wide twin torso, past the gate, builds
     onto the module rollout and the autodiff update, as rl8_tpu routes it,
@@ -2610,6 +2681,19 @@ def run_wide_sweep(torch, dev) -> None:
         emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": list(params.hiddens), "kind": kind,
               "obs_dim": obs_dim, "activation": params.activation, "policy_heads": list(params.policy_heads), "N": N,
               "act_route": act_route, "act_max_abs_err": act_err, "update_route": ppo_route, **result["summary"]})
+    # Heads too wide for the narrow route's shared memory (2,000 logits on a
+    # 64-wide torso): the wide route keeps them in its row scratch.
+    params, packed, unpack = ppo_inputs(torch, dev, make_model(torch, Discrete(2000, shape=(1,)), seed=64,
+                                                               hiddens=(64, 64)), N, seed=64)
+    cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, n_rows=N, accum=1,
+                        use_entropy=False)
+    ec = torch.tensor(0.0, device=dev)
+    what = "wide_sweep 2000 logits update"
+    ppo_route = launched_route(torch, what, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                               PPO_ROUTES[False], "wide")
+    result = compare_ppo(torch, what, params, packed, unpack, ec, cfg)
+    emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": [64, 64], "kind": "categorical",
+          "policy_heads": list(params.policy_heads), "N": N, "update_route": ppo_route, **result["summary"]})
     check_gate_grid(torch)
     zero_counters()
     algo = AlgorithmConfig(device="cuda", num_envs=1024, model_config={"hiddens": (2389, 2389)}).build(

@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -38,7 +38,10 @@ kernel (squashed) and the discrete one (A=1, n=2) at 8,192 rows of twin
 version (deterministic and draw for draw) and bit identity. With ``gae``,
 the GAE kernel at T = 32 and 512 over 8,192 columns: ms, the largest error
 against the plain version and bit identity, and an empty launch of its
-grid (``gae_empty_ms``) timed the same way. The SASS counts include
+grid (``gae_empty_ms``) timed the same way. With ``wide``, the update
+kernels' wide routes at the wide cells' shapes (1024 x 262,144 rows,
+categorical; H 1024 x 65,536 sequences of 4): ms, split, the gradient's
+norm-relative error against the plain version and bit identity. The SASS counts include
 shared-memory loads (``LDS``) and warpgroup tensor-core products
 (``HGMMA``); the ptxas lines include its notes of serialized ``wgmma``.
 
@@ -71,16 +74,16 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # The feedforward forward's l >= 1 products on the tensor cores too.
     "tc_forward": [(
         "ppo.cu",
-        "        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);",
-        "        if (l == 0) {\n"
-        "          dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, 0);\n"
-        "        } else {\n"
-        "          tc_dense(cur, cur_w, ld, W, w, dst, ld, ws);\n"
-        "          __syncthreads();\n"
-        "          for (int k = threadIdx.x; k < w; k += blockDim.x)\n"
-        "            for (int r = 0; r < kRows; ++r)\n"
-        "              dst[r * ld + k] = rl8::activate(dst[r * ld + k] + __ldg(W + (size_t)cur_w * w + k), d.act);\n"
-        "        }",
+        "      dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);",
+        "      if (l == 0) {\n"
+        "        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, 0);\n"
+        "      } else {\n"
+        "        tc_dense(cur, cur_w, ld, W, w, dst, ld, ws);\n"
+        "        __syncthreads();\n"
+        "        for (int k = threadIdx.x; k < w; k += blockDim.x)\n"
+        "          for (int r = 0; r < kRows; ++r)\n"
+        "            dst[r * ld + k] = rl8::activate(dst[r * ld + k] + __ldg(W + (size_t)cur_w * w + k), d.act);\n"
+        "      }",
     )],
     # Every 3xTF32 product accumulated in the tensor core's own accumulator
     # across the whole reduction, with no fresh accumulator per k step.
@@ -234,6 +237,25 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "gae_cols32_chunk64": [("gae.cu", "constexpr int kCols = 64;", "constexpr int kCols = 32;"),
                            ("gae.cu", "constexpr int kChunk = 32;", "constexpr int kChunk = 64;")],
     "gae_stages3": [("gae.cu", "constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    # Ablations of the update kernels' wide routes (stage.cuh; times only,
+    # wrong results): no forward products, no backward products.
+    "wide_no_fwd_fma": [("stage.cuh", "        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,\n"
+                         "                     c1 + 128 * h);\n",
+                         "")],
+    "wide_no_bwd_mma": [("stage.cuh", "        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, add);\n", "")],
+    # No weight slab copies, or no activation slab copies (the products
+    # read what the ring held before).
+    "wide_no_w_loads": [
+        ("stage.cuh", "      st_load_run(st + kStAFloats, seg[q].w + ((long long)p * Sq + sq) * kStFwdWFloats, kStFwdWFloats);\n", ""),
+        ("stage.cuh", "      st_load_run(st + kStAFloats, big + w, kStWFloats);\n"
+         "      st_load_run(st + kStAFloats + kStWFloats, small + w, kStWFloats);\n", ""),
+    ],
+    "wide_no_a_loads": [
+        ("stage.cuh", "      st_load_rows(st, seg[q].a, sq * kStK);\n", ""),
+        ("stage.cuh", "      st_load_rows(st, a, (it % S) * kStK);\n", ""),
+    ],
+    # Four stages in the wide routes' ring.
+    "wide_stages4": [("stage.cuh", "constexpr int kStStages = 3; ", "constexpr int kStStages = 4; ")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -296,7 +318,8 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 
 
 def short(kernel: str) -> str | None:
-    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
+    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_wide_\w+_kernel<[^>]*>|ppo_wide_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
+                  r"tile_fwd_kernel|tile_bwd_kernel|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel)", kernel)
     return m.group(1) if m else None
@@ -314,7 +337,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         if m:
             fn = m.group(1)
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
-            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
+            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_wide_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
                                r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
                                r"rnn_act_kernel|gae_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
@@ -342,7 +365,7 @@ def ptxas_rows(logs: dict[str, str]) -> list[str]:
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search("rows_kernel|tiles_kernel|act_kernel|wgmma_kernel|chains_fwd_kernel|gae_kernel",
+                fn = m.group(1) if re.search("rows_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|chains_fwd_kernel|gae_kernel",
                                              m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
                 out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')}")
@@ -397,6 +420,8 @@ def main() -> int:
         measures.append(act_measure(torch, dev, split))
     if "gae" in kinds:
         measures.append(gae_measure(torch, dev))
+    if "wide" in kinds:
+        measures.append(wide_measure(torch, dev, split))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -472,6 +497,44 @@ def ppo_measure(torch, dev, split):
             "rnn_worst_grad_vs_plain": rnn_error(r1),
             "bit_identical": bool(torch.equal(g1, g2) and torch.equal(r1, r2)),
         }
+
+    return measure
+
+
+def wide_measure(torch, dev, split):
+    """The update kernels' wide routes' measurement of a variant (see the
+    module's docstring)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo_grads, fused_rnn_ppo_grads, pack_rnn_params
+    from rl8_tpu_torch.ops import ppo_grads_plain, rnn_ppo_grads_plain
+    from rl8_tpu_torch.specs import Discrete
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+    N = 8192 * 32
+    params, packed, unpack = cs.ppo_inputs(
+        torch, dev, cs.make_model(torch, Discrete(2, shape=(1,)), seed=1064, hiddens=(1024, 1024)), N, seed=1024)
+    cfg = PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+    plain = ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
+    rnn_model = cs.make_rnn_model(torch, "categorical", seed=1134, hidden_size=1024)
+    rnn_params = pack_rnn_params(rnn_model)
+    rnn_packed, rnn_unpack, _ = cs.rnn_ppo_inputs(torch, dev, rnn_model, "categorical", 65536, 4, seed=1024)
+    rnn_cfg = PPOLossConfig(clip_param=0.2, n_rows=65536, use_entropy=False, **loss)
+    rnn_plain = rnn_ppo_grads_plain(rnn_params, rnn_packed, rnn_unpack, ec, rnn_cfg)[2]
+
+    def measure() -> dict:
+        out = {}
+        for name, run, want in (
+            ("wide_ppo", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), plain),
+            ("wide_rnn_ppo", lambda: fused_rnn_ppo_grads(rnn_params, rnn_packed, rnn_unpack, ec, rnn_cfg), rnn_plain),
+        ):
+            g1, g2 = run()[2], run()[2]
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = cs.time_ms(torch, run, iters=3, warmup=1)[0]
+            out[f"{name}_split_ms"] = split(run)
+            out[f"{name}_vs_plain"] = float((g1 - want).norm() / want.norm())
+            out[f"{name}_bit_identical"] = bool(torch.equal(g1, g2))
+        return out
 
     return measure
 

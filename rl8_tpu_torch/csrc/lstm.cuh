@@ -1,8 +1,7 @@
 // LSTM cell pieces shared by the recurrent kernels (rnn_act.cu, rnn_ppo.cu).
 // A layer's parameters are Wi [in_w, 4H], Wh [H, 4H] and b [4H], the gates
 // i, f, g, o side by side (flax's OptimizedLSTMCell order); a block owns R
-// rows, whose layer input and previous hidden state live in shared memory
-// (or, on rnn_ppo.cu's wide route, in its scratch in device memory),
+// rows, whose layer input and previous hidden state live in shared memory,
 // and thread j owns hidden unit j: it computes that unit's four gate columns
 // (j, H + j, 2H + j, 3H + j) for all R rows, so the cell update stays in its
 // registers. Weights stream from L2: the 32 threads of a warp read 32
@@ -23,23 +22,14 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(
 // acc[g][r] += sum_k in[r, k] * W[k, g H + j] over k in order, for the four
 // gates g; in's rows are ld_in apart (in_w when 0). Where in_w and ld_in
 // are multiples of 4, `in` (16-byte aligned) is read four k at a time.
-// kGlobal: `in` lies in device memory (read in place through L1), its row
-// offsets are 64-bit, it is read four k at a time only where it is also
-// 16-byte aligned, and rows at or past nr read as 0.
-template <int R, bool kGlobal = false>
+template <int R>
 __device__ __forceinline__ void gate_products(const float* in, int in_w, const float* __restrict__ W, int H,
-                                              int j, float (&acc)[4][R], int ld_in = 0, int nr = R) {
+                                              int j, float (&acc)[4][R], int ld_in = 0) {
   if (ld_in == 0) ld_in = in_w;
   const size_t ld = 4 * (size_t)H;
-  auto at = [&](int r, int k) -> const float* {
-    if constexpr (kGlobal) {
-      return in + (size_t)r * ld_in + k;
-    } else {
-      return in + r * ld_in + k;
-    }
-  };
+  auto at = [&](int r, int k) -> const float* { return in + r * ld_in + k; };
   int k = 0;
-  if ((in_w & 3) == 0 && (ld_in & 3) == 0 && (!kGlobal || (reinterpret_cast<uintptr_t>(in) & 15) == 0)) {
+  if ((in_w & 3) == 0 && (ld_in & 3) == 0) {
     for (; k < in_w; k += 4) {
       float w[4][4];
 #pragma unroll
@@ -48,12 +38,7 @@ __device__ __forceinline__ void gate_products(const float* in, int in_w, const f
         for (int g = 0; g < 4; ++g) w[q][g] = __ldg(W + (k + q) * ld + g * H + j);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float4 x;
-        if constexpr (kGlobal) {
-          x = r < nr ? *reinterpret_cast<const float4*>(at(r, k)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        } else {
-          x = *reinterpret_cast<const float4*>(at(r, k));
-        }
+        const float4 x = *reinterpret_cast<const float4*>(at(r, k));
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           acc[g][r] = fmaf(x.x, w[0][g], acc[g][r]);
@@ -70,7 +55,7 @@ __device__ __forceinline__ void gate_products(const float* in, int in_w, const f
     for (int g = 0; g < 4; ++g) w[g] = __ldg(W + k * ld + g * H + j);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float x = !kGlobal || r < nr ? *at(r, k) : 0.0f;
+      const float x = *at(r, k);
 #pragma unroll
       for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(x, w[g], acc[g][r]);
     }

@@ -67,23 +67,41 @@
 //      The backward's activation gate reads h_l back from that scratch (this
 //      block's own writes), which keeps two activation buffers in shared
 //      memory.
-//      Wide torsos (the wide route, ppo_rows_kernel<_, true>): where two
-//      [kRows, ld] activation buffers do not fit a block's shared memory
-//      beside the W stages (ld > ~771, layers wider than 736 at the dummy
-//      envs' shapes), the block keeps no activations in shared memory at all.
-//      The scratch's slabs are padded to whole row blocks (NP rows), the
-//      block's input rows are copied to a slab of their own, and each
-//      layer's forward reads its input rows from the row scratch and writes
-//      its output there, as dense_layer's generic loads and stores; the
-//      backward's dh_l is the dpre_l slab itself, gated in place, and
-//      tc_dense reads its A operand from that slab and writes dh_{l-1} into
-//      the next one. The 8 warps read the same rows in step, so L1 catches
-//      the re-reads, and 32 rows a block keep the tensor cores' m16 tiles
-//      full and each weight read from L2 feeding 32 rows at any width (rows
-//      per block by width would halve that, and the tiles, at 16 or 8
-//      rows). Shared memory is then the W stages, the heads and the row
-//      stats, whatever the width, and every output is summed in the narrow
-//      route's order.
+//      Wide torsos (the wide route): where two [kRows, ld] activation
+//      buffers do not fit a block's shared memory beside the W stages (ld >
+//      ~771, layers wider than 736 at the dummy envs' shapes; or heads too
+//      wide for it), the row pass is two kernels over blocks of 128 rows
+//      (stage.cuh's kStRows), which keep every activation, head row and
+//      cotangent in the row scratch (its slabs padded to whole row blocks,
+//      NP rows; the block's input rows copied to a slab of their own) and
+//      stream each product's operands, the block's rows and a weight slab,
+//      through a 3-stage cp.async ring in shared memory, 32 deep in k.
+//      ppo_wide_fwd_kernel (one block an SM) runs each chain's forward on
+//      the CUDA cores in f32, register-tiled 8 rows x 16 columns a thread
+//      in 256-column passes (stage.cuh's fwd_product: each output summed in
+//      order of k, as dense_layer sums it), the heads (narrow_head's sums,
+//      stage.cuh's st_heads), the loss terms and the top layer's dpre.
+//      ppo_wide_bwd_kernel (one block an SM; layers >= 2) runs dpre_{l-1} =
+//      (dpre_l W_l^T) act'(h_{l-1}) down each chain on the tensor cores in
+//      3xTF32 wgmma (bwd_product): W_l as stored, [in, out], is the K-major
+//      B operand over the output units, from big and small TF32 halves that
+//      the launch copies once in the stages' layout (no transposed copy),
+//      and the rows' dpre the A operand, split in registers; a fresh
+//      accumulator every 64 k keeps the tensor core's truncation near f32's
+//      rounding. Shared memory is the stages, whatever the width and the
+//      heads, and each weight slab a block reads feeds 128 rows (32 on the
+//      narrow route).
+//      Bound at 1024 x 262,144 (wide_torso's update): the row pass's
+//      products are 2.2e12 FLOP, the forward's 1.1e12 at the CUDA cores'
+//      67 TFLOP/s (16.4 ms) and the dh products' 1.1e12 at 3xTF32 on the
+//      tensor cores' 495 (6.7 ms); the launch's 3.30e12 FLOP, 49.3 ms at
+//      f32. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
+//      chip_smoke.py --time-updates): the launch 90.0-90.7 ms (squashed
+//      92.3), of which the row pass 59.4 (the first kernel ~39, the second
+//      ~19) and the weight products ~31.7, against 171 ms for the earlier
+//      wide route (row pass 142: activations read in place from L1 and L2,
+//      32 rows a block) and 84.3 ms for the plain version (cuBLAS SGEMMs);
+//      at 2388 x 4,096 rows, 32 blocks, 21.4 ms against 34.0.
 //   2. The weight products dW = h_in^T dpre and db = sum(dpre) over rows,
 //      split over up to 64 groups of rows (wgrad.cuh, shared with
 //      rnn_ppo.cu): 128x128 tensor-core tiles for every layer and head, the
@@ -104,6 +122,7 @@
 #include "mlp.cuh"
 #include "mma.cuh"
 #include "ppo_terms.cuh"
+#include "stage.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -136,6 +155,10 @@ struct Dims : rl8::LossDims {
   long long N;
   long long NP;                        // rows of each scratch slab: N, or whole row blocks (wide route)
   long long xoff;                      // the wide route's input slab [NP, d_in] in the row scratch
+  // The wide route's weight copies (stage.cuh's layouts) in the workspace:
+  // each layer's W for the forward, and for layers >= 1 its big and small
+  // TF32 halves for the backward's dh products.
+  long long cf[2][kMaxLayers], cb[2][kMaxLayers], cbs[2][kMaxLayers];
   int D, obs_col;
   int d_in, n_layers, act, max_hidden, sum_hidden;
   int ld;                              // row stride of the activation buffers in shared memory
@@ -150,19 +173,21 @@ struct Dims : rl8::LossDims {
 };
 
 // Where everything lives: the parameter layout, and the workspace (floats):
-// [W^T copies][row scratch: per chain h_l..., dpre_l..., dout; wide: the inputs][partials: groups x P][stats: blocks x 4].
+// [W^T copies; wide: the weight copies][row scratch: per chain h_l..., dpre_l..., dout; wide: the inputs]
+// [partials: groups x P][stats: blocks x 4].
 struct Layout {
   Dims d;
   long long P, wt_floats, row_floats, part_floats, stat_floats, rows_per_group;
   int groups, row_blocks;
-  bool wide;    // the wide route (activations in the row scratch)
-  size_t smem;  // the row pass's: the W stages, (narrow) two activation buffers and the inputs, the heads, the row stats
+  bool wide;    // the wide route (ppo_wide_fwd_kernel, ppo_wide_bwd_kernel: activations and heads in the row scratch)
+  size_t smem;  // the row pass's: the W stages, two activation buffers and the inputs, the heads, the row stats (narrow);
+                // the first wide kernel's: stage.cuh's forward stages and the row stats (its second: rl8::kStBwdSmem)
 };
 
 // The policy chain has one head of act_dim * n_cat logits (categorical)
 // or two of act_dim (mean, pre-tanh log-std); the value chain one of 1.
 // The narrow route where its row pass fits a block's shared memory, else
-// the wide one; false where neither does (heads too wide).
+// the wide one, which keeps nothing of a width in shared memory.
 bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int act_dim,
                  int n_cat, Layout* L) {
   if (N <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || act_dim <= 0 ||
@@ -207,16 +232,32 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
     }
   }
   L->P = off;
-  L->wt_floats = wt;
-  L->row_blocks = (N + kRows - 1) / kRows;
-  L->stat_floats = 4LL * L->row_blocks;
   L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (2 * d.ld + ((d_in + 3) / 4 * 4) + d.n_out[0] + 4));
   L->wide = L->smem > kMaxSmem;
-  if (L->wide) L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (d.n_out[0] + 4));
-  // Wide: every slab holds whole row blocks (a multiple of 32 rows, so
+  const int rows = L->wide ? rl8::kStRows : kRows;
+  L->row_blocks = (N + rows - 1) / rows;
+  L->stat_floats = 4LL * L->row_blocks;
+  if (L->wide) {
+    L->smem = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
+    wt = 0;
+    for (int c = 0; c < 2; ++c) {
+      int in = d_in;
+      for (int l = 0; l < n_layers; ++l) {
+        d.cf[c][l] = wt;
+        wt += rl8::fwd_copy_floats(in, d.hidden[l]);
+        d.cb[c][l] = wt;
+        if (l > 0) wt += rl8::bwd_copy_floats(d.hidden[l], in);
+        d.cbs[c][l] = wt;
+        if (l > 0) wt += rl8::bwd_copy_floats(d.hidden[l], in);
+        in = d.hidden[l];
+      }
+    }
+  }
+  L->wt_floats = wt;
+  // Wide: every slab holds whole row blocks (a multiple of 128 rows, so
   // every slab starts 16-byte aligned), which the blocks' padding rows
   // fill.
-  d.NP = L->wide ? (long long)L->row_blocks * kRows : N;
+  d.NP = L->wide ? (long long)L->row_blocks * rows : N;
   d.region[0] = 0;
   d.region[1] = d.NP * (2 * d.sum_hidden + d.n_out[0]);
   d.xoff = d.region[1] + d.NP * (2 * d.sum_hidden + d.n_out[1]);
@@ -347,10 +388,9 @@ __device__ __forceinline__ void store_rows(const float* src, int ld, int nr, int
   }
 }
 
-// The row pass. kWide: the wide route (see the file's head), whose
-// activations live in the row scratch; the narrow route keeps them in
-// shared memory.
-template <bool kContinuous, bool kWide>
+// The narrow route's row pass (see the file's head): the activations live
+// in shared memory.
+template <bool kContinuous>
 __global__ void __launch_bounds__(kThreads, 2)
     ppo_rows_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
                     const float* __restrict__ params, const float* __restrict__ wt,
@@ -359,21 +399,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ld = d.ld;
   const int ld_x = (d.d_in + 3) / 4 * 4;
   float* ws = smem;                                        // tc_dense's W stages
-  float* ga = ws + kWFloats;                               // [kRows, ld]: layer outputs, dh (narrow)
-  float* gb = ga + (kWide ? 0 : kRows * ld);               // [kRows, ld] (narrow)
-  float* xs = gb + (kWide ? 0 : kRows * ld);               // [kRows, d_in] (narrow)
-  float* head = xs + (kWide ? 0 : kRows * ld_x);           // [kRows, n_out]: outputs, then cotangents
+  float* ga = ws + kWFloats;                               // [kRows, ld]: layer outputs, dh
+  float* gb = ga + kRows * ld;                             // [kRows, ld]
+  float* xs = gb + kRows * ld;                             // [kRows, d_in]
+  float* head = xs + kRows * ld_x;                         // [kRows, n_out]: outputs, then cotangents
   float* rowv = head + kRows * d.n_out[0];                 // [kRows, 4]: pol, vf, ent, kl
 
   const long long r0 = (long long)blockIdx.x * kRows;
   const int nr = (int)min((long long)kRows, d.N - r0);
   const float* packed_f = reinterpret_cast<const float*>(packed);
-  // The block's input rows (zeros past N): in shared memory, or the wide
-  // route's input slab.
-  float* x = kWide ? scratch + d.xoff + r0 * d.d_in : xs;
+  // The block's input rows (zeros past N).
   for (int i = threadIdx.x; i < kRows * d.d_in; i += blockDim.x) {
     const int r = i / d.d_in;
-    x[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
+    xs[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
   }
   const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
   __syncthreads();
@@ -382,28 +420,20 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* region = scratch + d.region[c];
     const int n_out = d.n_out[c];
     // Forward; every layer's output also goes to the scratch, where the
-    // weight products and this block's backward read it (the wide route
-    // writes it there only, and reads the layer's input back from there).
-    const float* cur = x;
+    // weight products and this block's backward read it.
+    const float* cur = xs;
     int cur_w = d.d_in;
-    int cur_ld = kWide ? d.d_in : 0;
+    int cur_ld = 0;
     for (int l = 0; l < d.n_layers; ++l) {
       const int w = d.hidden[l];
       float* hl = region + d.NP * d.prefix[l] + r0 * w;
       const float* W = params + d.woff[c][l];
-      if constexpr (kWide) {
-        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, hl, w, d.act, w, cur_ld);
-        __syncthreads();
-        cur = hl;
-        cur_ld = w;
-      } else {
-        float* dst = (l & 1) ? gb : ga;
-        dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);
-        __syncthreads();
-        store_rows(dst, ld, nr, w, hl);
-        cur = dst;
-        cur_ld = ld;
-      }
+      float* dst = (l & 1) ? gb : ga;
+      dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);
+      __syncthreads();
+      store_rows(dst, ld, nr, w, hl);
+      cur = dst;
+      cur_ld = ld;
       cur_w = w;
     }
     for (int j = 0; j < d.n_heads[c]; ++j) {
@@ -441,11 +471,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* dout = region + d.NP * 2 * d.sum_hidden + r0 * n_out;
     for (int i = threadIdx.x; i < nr * n_out; i += blockDim.x) dout[i] = head[i];
     // dh_L = dout @ Wh^T over the chain's heads: they are narrow, so a loop
-    // over their outputs. The wide route's dh_l is the dpre_l slab itself,
-    // rows dh_ld apart.
+    // over their outputs.
     const int top = d.n_layers - 1;
-    float* dh = kWide ? region + d.NP * (d.sum_hidden + d.prefix[top]) + r0 * cur_w : ga;
-    int dh_ld = kWide ? cur_w : ld;
+    float* dh = ga;
     for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
       float acc[kRows];
       const float w0 = head_weight(params, d, c, 0, k);
@@ -457,7 +485,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int r = 0; r < kRows; ++r) acc[r] = fmaf(head[r * n_out + o], w, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) dh[r * dh_ld + k] = acc[r];
+      for (int r = 0; r < kRows; ++r) dh[r * ld + k] = acc[r];
     }
     __syncthreads();
     // Down the chain: dpre_l = dh_l * act'(h_l), stored; dh_{l-1} = dpre_l W_l^T.
@@ -470,19 +498,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll 8
         for (int r = 0; r < kRows; ++r) {
           const float hv = r < nr ? h[(size_t)r * w + k] : 0.0f;
-          dh[r * dh_ld + k] *= d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv;
+          dh[r * ld + k] *= d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv;
         }
       }
       __syncthreads();
-      if constexpr (!kWide) store_rows(dh, ld, nr, w, region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w);
+      store_rows(dh, ld, nr, w, region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w);
       if (l > 0) {
         const int w_in = d.hidden[l - 1];
-        float* next = kWide ? region + d.NP * (d.sum_hidden + d.prefix[l - 1]) + r0 * w_in : (dh == ga ? gb : ga);
-        const int next_ld = kWide ? w_in : ld;
-        tc_dense(dh, w, dh_ld, wt + d.wtoff[c][l], w_in, next, next_ld, ws);
+        float* next = dh == ga ? gb : ga;
+        tc_dense(dh, w, ld, wt + d.wtoff[c][l], w_in, next, ld, ws);
         __syncthreads();
         dh = next;
-        dh_ld = next_ld;
       }
     }
     __syncthreads();  // the next chain reuses every buffer
@@ -491,6 +517,176 @@ __global__ void __launch_bounds__(kThreads, 2)
     float s = 0.0f;
     for (int r = 0; r < nr; ++r) s += rowv[r * 4 + threadIdx.x];
     stat_part[(size_t)blockIdx.x * 4 + threadIdx.x] = s;
+  }
+}
+
+
+// The activation's derivative at its output h (relu: h > 0, as torch's
+// threshold_backward; tanh: 1 - h^2).
+__device__ __forceinline__ float act_grad(float h, int act) {
+  return act == kRelu ? (h > 0.0f ? 1.0f : 0.0f) : 1.0f - h * h;
+}
+
+// The wide route's row pass, first kernel (see the file's head): kStRows
+// rows a block, one block an SM; both chains' forward, heads and loss
+// terms, and the top layer's dpre, every activation, head row and
+// cotangent in the row scratch.
+template <bool kContinuous>
+__global__ void __launch_bounds__(rl8::kStThreads, 1)
+    ppo_wide_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
+                        const float* __restrict__ params, const float* __restrict__ wt,
+                        float* __restrict__ scratch, float* __restrict__ stat_part, Dims d) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  float* rowv = st_smem + rl8::kStFwdSmem / sizeof(float);  // [R, 4]: pol, vf, ent, kl
+  const long long r0 = (long long)blockIdx.x * R;
+  const int nr = (int)min((long long)R, d.N - r0);
+  const float* packed_f = reinterpret_cast<const float*>(packed);
+  // The block's input rows (zeros past N), in the input slab.
+  float* x = scratch + d.xoff + r0 * d.d_in;
+  for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) {
+    const int r = i / d.d_in;
+    x[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
+  }
+  const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
+  __syncthreads();
+
+  for (int c = 0; c < 2; ++c) {
+    float* region = scratch + d.region[c];
+    const int n_out = d.n_out[c];
+    // Forward: h_l = act(h_{l-1} W_l + b_l) into the scratch, the layer's
+    // input read back from there (the padding rows' too: they are zeros
+    // past N, or a layer's output on them).
+    const float* cur = x;
+    int cur_w = d.d_in;
+    for (int l = 0; l < d.n_layers; ++l) {
+      const int w = d.hidden[l];
+      float* hl = region + d.NP * d.prefix[l] + r0 * w;
+      const float* b = params + d.woff[c][l] + (size_t)cur_w * w;
+      const bool vec = rl8::st_vec(hl, w);
+      const rl8::FwdSeg seg{{cur, cur_w, cur_w, R, rl8::st_vec(cur, cur_w)}, wt + d.cf[c][l]};
+      rl8::fwd_product(
+          &seg, 1, w, st_smem, [](auto& acc, const int(&)[8]) { rl8::tile_zero(acc); },
+          [&](auto& acc, int rg, const int(&n)[8]) {
+            float bj[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) bj[j] = n[j] < w ? __ldg(b + n[j]) : 0.0f;
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i) {
+              float* row = hl + (size_t)(rg + 16 * i) * w;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = rl8::activate(acc[i][j] + bj[j], d.act);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (vec) {
+                  if (n[4 * h] < w) {
+                    *reinterpret_cast<float4*>(row + n[4 * h]) =
+                        make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+                  }
+                } else {
+#pragma unroll
+                  for (int j = 4 * h; j < 4 * h + 4; ++j) {
+                    if (n[j] < w) row[n[j]] = acc[i][j];
+                  }
+                }
+              }
+            }
+          });
+      cur = hl;
+      cur_w = w;
+    }
+    // The heads (narrow_head's sums), into the block's rows of the chain's
+    // cotangent slab, where the loss terms turn them into their cotangents
+    // in place.
+    float* dout = region + d.NP * 2 * d.sum_hidden + r0 * n_out;
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int w = d.head_w[c];
+      const float* Wh = params + d.woff[c][d.n_layers + j];
+      rl8::st_heads(cur, cur_w, cur_w, Wh, Wh + (size_t)cur_w * w, w, dout, n_out, j * w);
+    }
+    __syncthreads();
+    // Losses and head cotangents, a thread per row; rows past N get zeros.
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      float* z = dout + (size_t)r * n_out;
+      float* v = rowv + r * 4;
+      if (r < nr) {
+        const int* row = packed + (r0 + r) * d.D;
+        if (c == 0) {
+          if constexpr (kContinuous) {
+            rl8::continuous_row(row, z, v, d, ec_scale);
+          } else {
+            rl8::policy_row(row, z, v, d, ec_scale);
+          }
+        } else {
+          rl8::value_row(row, z, v, d);
+        }
+      } else {
+        for (int o = 0; o < n_out; ++o) z[o] = 0.0f;
+        if (c == 0) {
+          v[0] = v[2] = v[3] = 0.0f;
+        } else {
+          v[1] = 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+    // dpre_L = (dout @ Wh^T) * act'(h_L) over the chain's heads (narrow: a
+    // loop over their outputs), 32 rows at a time.
+    const int top = d.n_layers - 1;
+    {
+      constexpr int RC = 32;
+      float* dp = region + d.NP * (d.sum_hidden + d.prefix[top]) + r0 * cur_w;
+      for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
+        for (int rc = 0; rc < R; rc += RC) {
+          float acc[RC];
+          const float w0 = head_weight(params, d, c, 0, k);
+#pragma unroll
+          for (int r = 0; r < RC; ++r) acc[r] = dout[(size_t)(rc + r) * n_out] * w0;
+          for (int o = 1; o < n_out; ++o) {
+            const float w = head_weight(params, d, c, o, k);
+#pragma unroll
+            for (int r = 0; r < RC; ++r) acc[r] = fmaf(dout[(size_t)(rc + r) * n_out + o], w, acc[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < RC; ++r) {
+            const float hv = rc + r < nr ? cur[(size_t)(rc + r) * cur_w + k] : 0.0f;
+            dp[(size_t)(rc + r) * cur_w + k] = acc[r] * act_grad(hv, d.act);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chain reuses the stages
+  }
+  if (threadIdx.x < 4) {
+    float s = 0.0f;
+    for (int r = 0; r < nr; ++r) s += rowv[r * 4 + threadIdx.x];
+    stat_part[(size_t)blockIdx.x * 4 + threadIdx.x] = s;
+  }
+}
+
+// The wide route's row pass, second kernel (layers >= 2; see the file's
+// head): down each chain, dpre_{l-1} = (dpre_l W_l^T) * act'(h_{l-1}) on
+// the tensor cores, kStRows rows a block, one block an SM.
+__global__ void __launch_bounds__(rl8::kStThreads, 1)
+    ppo_wide_bwd_kernel(const float* __restrict__ wt, float* __restrict__ scratch, Dims d) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const long long r0 = (long long)blockIdx.x * R;
+  const int nr = (int)min((long long)R, d.N - r0);
+  for (int c = 0; c < 2; ++c) {
+    float* region = scratch + d.region[c];
+    for (int l = d.n_layers - 1; l > 0; --l) {
+      const int w = d.hidden[l], w_in = d.hidden[l - 1];
+      const float* dp = region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w;
+      float* next = region + d.NP * (d.sum_hidden + d.prefix[l - 1]) + r0 * w_in;
+      const float* h = region + d.NP * d.prefix[l - 1] + r0 * w_in;
+      const rl8::StRows a{dp, w, w, R, rl8::st_vec(dp, w)};
+      rl8::bwd_product(a, wt + d.cb[c][l], wt + d.cbs[c][l], w_in, st_smem, [&](int r, int u, float v) {
+        const float hv = r < nr ? h[(size_t)r * w_in + u] : 0.0f;
+        next[(size_t)r * w_in + u] = v * act_grad(hv, d.act);
+      });
+    }
   }
 }
 
@@ -549,20 +745,42 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
   float* stat_part = partials + L.part_floats;
 
   for (int c = 0; c < 2; ++c) {
-    for (int l = 1; l < n_layers; ++l) {
-      const int K = d.hidden[l - 1], J = d.hidden[l];
-      rl8::transpose_kernel<<<rl8::grid_for((long long)K * J), kThreads, 0, s>>>(
-          params + d.woff[c][l], wt + d.wtoff[c][l], K, J);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    int in = d_in;
+    for (int l = 0; l < n_layers; ++l) {
+      const int J = d.hidden[l];
+      const float* W = params + d.woff[c][l];
+      if (L.wide) {
+        // The wide route's copies: W for the forward, and (l >= 1) its
+        // TF32 halves for the backward's dh products.
+        rl8::tile_fwd_kernel<<<rl8::grid_for(rl8::fwd_copy_floats(in, J)), kThreads, 0, s>>>(W, J, in, J, 0,
+                                                                                           wt + d.cf[c][l]);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        if (l > 0) {
+          rl8::tile_bwd_kernel<<<rl8::grid_for(rl8::bwd_copy_floats(J, in)), kThreads, 0, s>>>(
+              W, J, J, in, wt + d.cb[c][l], wt + d.cbs[c][l]);
+          if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        }
+      } else if (l > 0) {
+        rl8::transpose_kernel<<<rl8::grid_for((long long)in * J), kThreads, 0, s>>>(W, wt + d.wtoff[c][l], in, J);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      }
+      in = J;
     }
   }
 
-  const auto rows_kernel = kind == kCategorical ? (L.wide ? ppo_rows_kernel<false, true> : ppo_rows_kernel<false, false>)
-                                                : (L.wide ? ppo_rows_kernel<true, true> : ppo_rows_kernel<true, false>);
+  const auto rows_kernel = kind == kCategorical ? (L.wide ? ppo_wide_fwd_kernel<false> : ppo_rows_kernel<false>)
+                                                : (L.wide ? ppo_wide_fwd_kernel<true> : ppo_rows_kernel<true>);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
   if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<L.row_blocks, kThreads, L.smem, s>>>(packed, ec, params, wt, rows, stat_part, d);
+  rows_kernel<<<L.row_blocks, L.wide ? rl8::kStThreads : kThreads, L.smem, s>>>(packed, ec, params, wt, rows,
+                                                                                stat_part, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (L.wide && n_layers > 1) {
+    err = cudaFuncSetAttribute(ppo_wide_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    ppo_wide_bwd_kernel<<<L.row_blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(wt, rows, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
   Jobs tiled;
   tiled.n = 0;

@@ -66,20 +66,40 @@
 // Sequences past N are zeros in the last block: their states, inputs and
 // cotangents are 0, and the weight products read rows below N only.
 //
-// The wide route (rnn_rows_kernel<_, true>) takes the widths whose row pass
-// does not fit a block's shared memory (H past ~720 at the main path's
-// heads; make_layout picks it, and every narrower shape keeps the route
-// above). Its operands are read in place, through L1 and L2, from the
-// scratches the pass writes anyway: the forward's layer input (the packed
-// obs columns, or layer l - 1's h' in slot t + 1 of the state scratch) and
-// previous state (slot t), the heads' input (the top layer's h'), the
-// heads' outputs and cotangents (the head-cotangent scratch, where they
-// are computed in place), and the backward's A operand dz (the gate
-// scratch it overwrites). Shared memory keeps only the cotangent into the
-// current layer's output, dx [16, H], and the per-row stats, so the
-// route takes H up to ~3,600, past every width rl8_tpu's residency gate
-// admits (1617 at the dummy envs' shapes). It keeps 16 sequences a block
-// (full m16 tiles), the forward on the CUDA cores and the fixed-order sums.
+// The wide route takes the widths whose row pass does not fit a block's
+// shared memory (H past ~720 at the main path's heads; make_layout picks
+// it, and every narrower shape keeps the route above). It runs the row pass
+// as two kernels over blocks of 128 sequences (stage.cuh's kStRows), every
+// operand in the scratches: rnn_wide_fwd_kernel (one block an SM) runs the
+// forward, step by step and layer by layer, as one product z = b + x Wi +
+// h Wh over the block's rows (stage.cuh's fwd_product: the layer's input,
+// the packed obs columns or layer l - 1's h' in slot t + 1, then the
+// previous state in slot t, streamed with Wi and Wh, whose gate columns a
+// copy interleaves so that a thread's four adjacent columns are one unit's
+// gates, through a 3-stage cp.async ring in shared memory, 32 deep in k;
+// each gate summed in order of k from its bias, on the CUDA cores in f32,
+// as lstm_preact sums it), the cell update on the sums in registers, the
+// heads and the loss terms into the head-cotangent scratch;
+// rnn_wide_bwd_kernel (one block an SM) runs the backward through time:
+// the heads' cotangent dx (a scratch [Npad, H]), the cell backward into dz
+// in the gate scratch, elementwise, and dh_t = dz Wh^T, dx = dz Wi^T on the
+// tensor cores in 3xTF32 wgmma (bwd_product: Wh and Wi as stored, [H,
+// 4H], are the K-major B operand over the units, from big and small TF32
+// halves the launch copies once in the stages' layout, no transposed copy;
+// dz the A operand, split in registers; a fresh accumulator every 64 k).
+// Shared memory is the stages, whatever H and the heads; each weight slab
+// a block reads feeds 128 sequences (16 on the narrow route), and offsets
+// are 64-bit. Bound at H 1024 x 65,536 sequences of 4 (wide_recurrent's
+// update): the row pass's products are 3.85e12 FLOP, the forward's 2.20e12
+// at the CUDA cores' 67 TFLOP/s (32.8 ms) and the dh products' 1.65e12 at
+// 3xTF32 on the tensor cores' 495 (10.0 ms); the launch's 6.05e12 FLOP,
+// 90.4 ms at f32. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (PERF.md §6, chip_smoke.py --time-updates): the launch 162.3-162.7 ms,
+// of which the row pass 94.0-94.5 (the first kernel ~61, the second ~30)
+// and the weight products ~70.5, against 289 ms for the earlier wide route
+// (row pass 222: operands read in place, 16 sequences a block) and 167.0
+// for the plain version; at H 1617 x 2,048 sequences, 16 blocks on 132
+// SMs, 66.6 ms against the earlier route's 53.6 (128 blocks of 16).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -88,6 +108,7 @@
 #include "mlp.cuh"
 #include "mma.cuh"
 #include "ppo_terms.cuh"
+#include "stage.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -120,25 +141,29 @@ struct Dims : rl8::LossDims {
   int n_heads, head_w;  // policy heads and each one's width
   int n_out;            // n_heads * head_w + 1: a step's head row, the value last
   int ldx, ldh, ldz;    // row strides in shared memory of a layer input, an [H] row and a [4H] row
-  int u_floats;         // per sequence: the forward's or the backward's shared buffers (wide: dx)
+  int u_floats;         // per sequence: the forward's or the backward's shared buffers
   long long hs;         // floats per sequence of the h (and c) scratch: (L + 1) K H
   long long gs;         // floats per sequence of the gate (then dz) scratch: L K 4H
   long long ds;         // floats per sequence of the head cotangents: L n_out
   long long wi_off[kMaxLayers], wh_off[kMaxLayers];  // in params; each layer's b follows its Wh
   long long head_off[kMaxHeads];
   long long whT_off[kMaxLayers], wiT_off[kMaxLayers];  // in the transposed copies (Wi^T: layers >= 1)
+  // The wide route's weight copies (stage.cuh's layouts): Wi and Wh for the
+  // forward, their gate columns interleaved; Wh's and (layers >= 1) Wi's
+  // big and small TF32 halves for the backward's products.
+  long long cfi[kMaxLayers], cfh[kMaxLayers], cbh[kMaxLayers], cbhs[kMaxLayers], cbi[kMaxLayers], cbis[kMaxLayers];
 };
 
-// The parameter layout and the workspace (floats): [Wh^T, Wi^T copies][h
-// scratch][c scratch][gates, then dz][head cotangents][dh_t][dc_t]
-// [partials: groups x P][stats: blocks x 4].
+// The parameter layout and the workspace (floats): [Wh^T, Wi^T copies;
+// wide: the weight copies][h scratch][c scratch][gates, then dz][head
+// cotangents][dh_t][dc_t][wide: dx][partials: groups x P][stats: blocks x 4].
 struct Layout {
   Dims d;
-  long long P, wt_floats, state_floats, gz_floats, dout_floats, time_floats, part_floats, stat_floats;
+  long long P, wt_floats, state_floats, gz_floats, dout_floats, time_floats, dx_floats, part_floats, stat_floats;
   long long rows_per_group;
   int groups, row_blocks;
-  size_t smem;
-  bool wide;  // the wide route: the operands read in place from the scratches
+  size_t smem;  // the row pass's (wide: its first kernel's; the second's is rl8::kStBwdSmem)
+  bool wide;    // the wide route (rnn_wide_fwd_kernel, rnn_wide_bwd_kernel: every operand in the scratches)
 };
 
 // The row strides (padded to a multiple of 32 plus 4, which makes the
@@ -154,18 +179,9 @@ size_t set_strides(Dims& d, bool pad) {
   return sizeof(float) * (size_t)kRows * (d.u_floats + d.n_out + 4);
 }
 
-// The wide route's stride of dx, its one [H] row buffer (padded, or
-// unpadded), and its shared memory: dx and the per-row stats.
-size_t set_wide_strides(Dims& d, bool pad) {
-  d.ldh = pad ? (d.H + 31) / 32 * 32 + 4 : d.H;
-  d.ldx = d.ldz = 0;
-  d.u_floats = d.ldh;
-  return sizeof(float) * (size_t)kRows * (d.u_floats + 4);
-}
-
 // The row pass's strides are padded where that fits shared memory, else
 // unpadded (as wide as the kernel took before the padding), else the wide
-// route's (padded where that fits); false where none fits.
+// route, which keeps nothing of a width in shared memory.
 bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, int n_cat, Layout* Lo) {
   // The weight products divide a row index by L in 32 bits; a block's
   // offsets within a sequence's rows of the scratches are 32-bit.
@@ -206,16 +222,31 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
     off += (long long)H * w + w;
   }
   Lo->P = off;
-  Lo->wt_floats = wt;
   Lo->smem = set_strides(d, true);
   if (Lo->smem > kMaxSmem) Lo->smem = set_strides(d, false);
   Lo->wide = Lo->smem > kMaxSmem;
   if (Lo->wide) {
-    Lo->smem = set_wide_strides(d, true);
-    if (Lo->smem > kMaxSmem) Lo->smem = set_wide_strides(d, false);
+    Lo->smem = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
+    wt = 0;
+    for (int l = 0; l < K; ++l) {
+      d.cfi[l] = wt;
+      wt += rl8::fwd_copy_floats(l == 0 ? d_in : H, 4 * H);
+      d.cfh[l] = wt;
+      wt += rl8::fwd_copy_floats(H, 4 * H);
+      d.cbh[l] = wt;
+      wt += rl8::bwd_copy_floats(4 * H, H);
+      d.cbhs[l] = wt;
+      wt += rl8::bwd_copy_floats(4 * H, H);
+      d.cbi[l] = wt;
+      if (l > 0) wt += rl8::bwd_copy_floats(4 * H, H);
+      d.cbis[l] = wt;
+      if (l > 0) wt += rl8::bwd_copy_floats(4 * H, H);
+    }
   }
-  Lo->row_blocks = (N + kRows - 1) / kRows;
-  d.Npad = (long long)Lo->row_blocks * kRows;
+  Lo->wt_floats = wt;
+  const int rows = Lo->wide ? rl8::kStRows : kRows;
+  Lo->row_blocks = (N + rows - 1) / rows;
+  d.Npad = (long long)Lo->row_blocks * rows;
   d.hs = (long long)(L + 1) * K * H;
   d.gs = (long long)L * K * H4;
   d.ds = (long long)L * d.n_out;
@@ -223,6 +254,7 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
   Lo->gz_floats = d.Npad * d.gs;
   Lo->dout_floats = d.Npad * d.ds;
   Lo->time_floats = (long long)K * d.Npad * H;
+  Lo->dx_floats = Lo->wide ? d.Npad * H : 0;
   rl8::split_rows((long long)N * L, &Lo->groups, &Lo->rows_per_group);
   Lo->part_floats = (long long)Lo->groups * Lo->P;
   Lo->stat_floats = 4LL * Lo->row_blocks;
@@ -249,10 +281,9 @@ __device__ __forceinline__ float head_weight(const float* params, const Dims& d,
 
 
 // acc[mt][i] += A[kRows, K] W[K, units of tile i] over k < K: A in shared
-// memory with rows lda apart (kGlobal: in device memory, 64-bit row
-// offsets); W [K, H] row-major in device memory (L2), read as B fragments
-// in place, two k steps ahead of the products.
-template <int MT, int KUT, bool kGlobal = false>
+// memory with rows lda apart; W [K, H] row-major in device memory (L2),
+// read as B fragments in place, two k steps ahead of the products.
+template <int MT, int KUT>
 __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const float* A, int lda, int K,
                                               const float* __restrict__ W, int H, const int (&u0)[KUT]) {
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
@@ -277,14 +308,8 @@ __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const fl
     FragA fa[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      if constexpr (kGlobal) {
-        const float* a = A + (size_t)(mt * 16 + g) * lda + k;
-        const float* a8 = a + 8 * (size_t)lda;
-        fa[mt].set(lo ? a[0] : 0.0f, lo ? a8[0] : 0.0f, hi ? a[4] : 0.0f, hi ? a8[4] : 0.0f);
-      } else {
-        const float* a = A + (mt * 16 + g) * lda + k;
-        fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
-      }
+      const float* a = A + (mt * 16 + g) * lda + k;
+      fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
     }
 #pragma unroll
     for (int i = 0; i < KUT; ++i) {
@@ -303,7 +328,8 @@ __device__ __forceinline__ void unit_products(float (&acc)[MT][KUT][4], const fl
   }
 }
 
-template <bool kContinuous, bool kWide>
+// The narrow route's row pass (see the file's head).
+template <bool kContinuous>
 __global__ void __launch_bounds__(kThreads, 2)
     rnn_rows_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
                     const float* __restrict__ params, const float* __restrict__ wt, float* __restrict__ hseq,
@@ -322,22 +348,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* xb = xa + kRows * ldx;    // [kRows, ldx]
   float* hp = xb + kRows * ldx;    // [kRows, ldh]
   // The backward's: the gate cotangents, the cotangent into the current
-  // layer's output, and the step's head cotangents. The wide route keeps
-  // dx alone: dz, the heads' outputs and cotangents stay in the scratches.
+  // layer's output, and the step's head cotangents.
   float* dzs = smem;                      // [kRows, ldz]
-  float* dx = kWide ? smem : dzs + kRows * ldz;  // [kRows, ldh]
-  float* dos = dx + kRows * ldh;              // [kRows, n_out]
+  float* dx = dzs + kRows * ldz;          // [kRows, ldh]
+  float* dos = dx + kRows * ldh;          // [kRows, n_out]
   float* head = smem + kRows * d.u_floats;    // [kRows, n_out]: outputs, then cotangents
-  float* rowv = kWide ? smem + kRows * ldh : head + kRows * d.n_out;  // [kRows, 4]: pol, vf, ent, kl over the steps
+  float* rowv = head + kRows * d.n_out;   // [kRows, 4]: pol, vf, ent, kl over the steps
 
   const long long r0 = (long long)blockIdx.x * kRows;
   const int nr = (int)min((long long)kRows, d.N - r0);
   const float* packed_f = reinterpret_cast<const float*>(packed);
   const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
-  // The wide route's rows of the scratches: the block's first sequence.
-  float* hseq_b = hseq + (size_t)r0 * d.hs;
-  float* gz_b = gz + (size_t)r0 * d.gs;
-  float* dout_b = dout + (size_t)r0 * d.ds;
 
   // Slot 0 of the state scratch: the stored initial states.
   for (int i = threadIdx.x; i < kRows * KH; i += blockDim.x) {
@@ -354,47 +375,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     float* cur = xa;
     float* nxt = xb;
     int in_w = d.d_in;
-    if constexpr (!kWide) {
-      for (int i = threadIdx.x; i < kRows * in_w; i += blockDim.x) {
-        const int r = i / in_w;
-        cur[r * ldx + i % in_w] =
-            r < nr ? packed_f[(size_t)(r0 + r) * d.D + d.obs_col + t * in_w + i % in_w] : 0.0f;
-      }
+    for (int i = threadIdx.x; i < kRows * in_w; i += blockDim.x) {
+      const int r = i / in_w;
+      cur[r * ldx + i % in_w] = r < nr ? packed_f[(size_t)(r0 + r) * d.D + d.obs_col + t * in_w + i % in_w] : 0.0f;
     }
     for (int l = 0; l < K; ++l) {
       __syncthreads();  // the state scratch's slot t, and the buffers, are ready
-      if constexpr (!kWide) {
-        for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-          hp[(i / H) * ldh + i % H] = hseq[(size_t)(r0 + i / H) * d.hs + ((size_t)t * K + l) * H + i % H];
-        }
-        __syncthreads();
+      for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
+        hp[(i / H) * ldh + i % H] = hseq[(size_t)(r0 + i / H) * d.hs + ((size_t)t * K + l) * H + i % H];
       }
+      __syncthreads();
       const float* wi = params + d.wi_off[l];
       const float* wh = params + d.wh_off[l];
       const float* b = wh + (size_t)H * H4;
       for (int j = threadIdx.x; j < H; j += blockDim.x) {
         float z[4][kRows];
-        if constexpr (kWide) {
-          // In place: the layer's input (the obs columns of the block's
-          // sequences, past N read as 0, or layer l - 1's h' in slot t + 1)
-          // and the previous state (slot t), as lstm_preact sums them.
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float bq = __ldg(b + q * H + j);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) z[q][r] = bq;
-          }
-          if (l == 0) {
-            rl8::gate_products<kRows, true>(packed_f + (size_t)r0 * d.D + d.obs_col + (size_t)t * in_w, in_w, wi, H,
-                                            j, z, d.D, nr);
-          } else {
-            rl8::gate_products<kRows, true>(hseq_b + ((size_t)(t + 1) * K + l - 1) * H, in_w, wi, H, j, z,
-                                            (int)d.hs);
-          }
-          rl8::gate_products<kRows, true>(hseq_b + ((size_t)t * K + l) * H, H, wh, H, j, z, (int)d.hs);
-        } else {
-          rl8::lstm_preact<kRows>(cur, in_w, hp, wi, wh, b, H, j, z, ldx, ldh);
-        }
+        rl8::lstm_preact<kRows>(cur, in_w, hp, wi, wh, b, H, j, z, ldx, ldh);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const size_t row = (size_t)(r0 + r);
@@ -409,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const float h = z[3][r] * tanhf(c);
           cseq[row * d.hs + ((size_t)(t + 1) * K + l) * H + j] = c;
           hseq[row * d.hs + ((size_t)(t + 1) * K + l) * H + j] = h;
-          if constexpr (!kWide) nxt[r * ldx + j] = h;
+          nxt[r * ldx + j] = h;
         }
       }
       __syncthreads();
@@ -418,29 +414,18 @@ __global__ void __launch_bounds__(kThreads, 2)
       nxt = tmp;
       in_w = H;
     }
-    // The heads on the top layer's h' (cur; wide: in slot t + 1 of the
-    // state scratch, the heads' row in the head-cotangent scratch).
-    const float* top = cur;
-    float* head_t = head;
-    int ld_top = ldx, ld_head = d.n_out;
-    if constexpr (kWide) {
-      top = hseq_b + ((size_t)(t + 1) * K + K - 1) * H;
-      head_t = dout_b + (size_t)t * d.n_out;
-      ld_top = (int)d.hs;
-      ld_head = (int)d.ds;
-    }
+    // The heads on the top layer's h' (cur).
     for (int q = 0; q <= d.n_heads; ++q) {
       const int w = q < d.n_heads ? d.head_w : 1;
       const float* Wq = params + d.head_off[q];
-      narrow_head<kRows>(top, H, Wq, Wq + (size_t)H * w, w, head_t, ld_head, q < d.n_heads ? q * w : d.n_out - 1,
-                         ld_top);
+      narrow_head<kRows>(cur, H, Wq, Wq + (size_t)H * w, w, head, d.n_out, q < d.n_heads ? q * w : d.n_out - 1, ldx);
     }
     __syncthreads();
     // The step's loss terms and head cotangents, a thread per sequence;
     // sequences past N get zeros.
     if (threadIdx.x < kRows) {
       const int r = threadIdx.x;
-      float* z = head_t + r * ld_head;
+      float* z = head + r * d.n_out;
       if (r < nr) {
         rl8::LossDims s = d;
         s.act_col += t * d.act_dim;
@@ -461,28 +446,19 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int o = 0; o < d.n_out; ++o) z[o] = 0.0f;
       }
     }
-    if constexpr (!kWide) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
-        dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out] = head[i];
-      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
+      dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out] = head[i];
     }
   }
 
   // ---------------- backward through time
   for (int t = L - 1; t >= 0; --t) {
     __syncthreads();  // the head cotangents are stored, and the union is free
-    const float* dos_t = dos;
-    int ld_dos = d.n_out;
-    if constexpr (kWide) {
-      dos_t = dout_b + (size_t)t * d.n_out;
-      ld_dos = (int)d.ds;
-    } else {
-      for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
-        dos[i] = dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out];
-      }
-      __syncthreads();
+    for (int i = threadIdx.x; i < kRows * d.n_out; i += blockDim.x) {
+      dos[i] = dout[(size_t)(r0 + i / d.n_out) * d.ds + t * d.n_out + i % d.n_out];
     }
+    __syncthreads();
     // The heads' cotangent into the top layer's h': dx = dout W_heads^T (the
     // heads are narrow, so a loop over their outputs).
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
@@ -492,7 +468,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int o = 0; o < d.n_out; ++o) {
         const float w = head_weight(params, d, o, j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(dos_t[r * ld_dos + o], w, acc[r]);
+        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(dos[r * d.n_out + o], w, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) dx[r * ldh + j] = acc[r];
@@ -526,13 +502,11 @@ __global__ void __launch_bounds__(kThreads, 2)
               gp[H] = df;
               gp[2 * H] = dg;
               gp[3 * H] = dout_o;
-              if constexpr (!kWide) {
-                float* dzr = dzs + r * ldz + u;
-                dzr[0] = di;
-                dzr[H] = df;
-                dzr[2 * H] = dg;
-                dzr[3 * H] = dout_o;
-              }
+              float* dzr = dzs + r * ldz + u;
+              dzr[0] = di;
+              dzr[H] = df;
+              dzr[2 * H] = dg;
+              dzr[3 * H] = dout_o;
               dct[ut] = dc * gf;
             }
           }
@@ -542,9 +516,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       // dh_t = dz Wh^T for the previous step (none before step 0: the
       // stored initial states take no gradient); dx = dz Wi^T into the
       // layer below. Both on the tensor cores, into the lanes that own the
-      // units; the wide route's A operand is dz in the gate scratch.
+      // units.
       if (t > 0 || l > 0) {
-        const float* dz_t = gz_b + ((size_t)t * K + l) * H4;
         for (int p0 = warp; p0 < n_tiles; p0 += kWarps * KUT) {
           int u0[KUT];
           float ah[MT][KUT][4], ax[MT][KUT][4];
@@ -556,13 +529,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
               for (int e = 0; e < 4; ++e) ah[mt][i][e] = ax[mt][i][e] = 0.0f;
           }
-          if constexpr (kWide) {
-            if (t > 0) unit_products<MT, KUT, true>(ah, dz_t, (int)d.gs, H4, wt + d.whT_off[l], H, u0);
-            if (l > 0) unit_products<MT, KUT, true>(ax, dz_t, (int)d.gs, H4, wt + d.wiT_off[l], H, u0);
-          } else {
-            if (t > 0) unit_products<MT, KUT>(ah, dzs, ldz, H4, wt + d.whT_off[l], H, u0);
-            if (l > 0) unit_products<MT, KUT>(ax, dzs, ldz, H4, wt + d.wiT_off[l], H, u0);
-          }
+          if (t > 0) unit_products<MT, KUT>(ah, dzs, ldz, H4, wt + d.whT_off[l], H, u0);
+          if (l > 0) unit_products<MT, KUT>(ax, dzs, ldz, H4, wt + d.wiT_off[l], H, u0);
 #pragma unroll
           for (int i = 0; i < KUT; ++i) {
 #pragma unroll
@@ -590,6 +558,213 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The wide route's row pass (see the file's head), first kernel: the
+// forward over the steps, the heads and the loss terms, kStRows sequences
+// a block, one block an SM; the gates, states and head rows go to the
+// scratches. Offsets are 64-bit throughout.
+template <bool kContinuous>
+__global__ void __launch_bounds__(rl8::kStThreads, 1)
+    rnn_wide_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
+                        const float* __restrict__ params, const float* __restrict__ wt, float* __restrict__ hseq,
+                        float* __restrict__ cseq, float* __restrict__ gz, float* __restrict__ dout,
+                        float* __restrict__ stat_part, Dims d) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  float* rowv = st_smem + rl8::kStFwdSmem / sizeof(float);  // [R, 4]: pol, vf, ent, kl over the steps
+  const int H = d.H, K = d.K, L = d.L;
+  const long long H4 = 4LL * H, KH = (long long)K * H;
+  const long long r0 = (long long)blockIdx.x * R;
+  const int nr = (int)min((long long)R, d.N - r0);
+  const float* packed_f = reinterpret_cast<const float*>(packed);
+  const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
+  // The block's rows of the scratches: its first sequence.
+  float* hseq_b = hseq + r0 * d.hs;
+  float* cseq_b = cseq + r0 * d.hs;
+  float* gz_b = gz + r0 * d.gs;
+  float* dout_b = dout + r0 * d.ds;
+
+  // Slot 0 of the state scratch: the stored initial states.
+  for (long long i = threadIdx.x; i < R * KH; i += blockDim.x) {
+    const long long r = i / KH, k = i % KH;
+    const bool in = r < nr;
+    hseq_b[r * d.hs + k] = in ? packed_f[(r0 + r) * d.D + d.h_col + k] : 0.0f;
+    cseq_b[r * d.hs + k] = in ? packed_f[(r0 + r) * d.D + d.c_col + k] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < R * 4; i += blockDim.x) rowv[i] = 0.0f;
+
+  // ---------------- forward: the LSTM, the heads and the loss terms per step
+  for (int t = 0; t < L; ++t) {
+    for (int l = 0; l < K; ++l) {
+      __syncthreads();  // the state scratch's slot t and layer l - 1's h' are stored
+      // z = b + x Wi + h Wh over the block's rows: x the obs columns (rows
+      // past N read as 0) or layer l - 1's h' (slot t + 1), h slot t; gate
+      // columns interleaved, so a thread's four adjacent columns are one
+      // unit's gates.
+      const float* xp = l == 0 ? packed_f + r0 * d.D + d.obs_col + (long long)t * d.d_in
+                               : hseq_b + ((long long)(t + 1) * K + l - 1) * H;
+      const long long ldx = l == 0 ? d.D : d.hs;
+      const float* hp = hseq_b + ((long long)t * K + l) * H;
+      const rl8::FwdSeg seg[2] = {
+          {{xp, ldx, l == 0 ? d.d_in : H, l == 0 ? nr : R, rl8::st_vec(xp, ldx)}, wt + d.cfi[l]},
+          {{hp, d.hs, H, R, rl8::st_vec(hp, d.hs)}, wt + d.cfh[l]}};
+      const float* b = params + d.wh_off[l] + (size_t)H * H4;
+      rl8::fwd_product(
+          seg, 2, 4 * H, st_smem,
+          [&](auto& acc, const int(&n)[8]) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float bj = n[j] < 4 * H ? __ldg(b + (n[j] % 4) * H + n[j] / 4) : 0.0f;
+#pragma unroll
+              for (int i = 0; i < R / 16; ++i) acc[i][j] = bj;
+            }
+          },
+          [&](auto& acc, int rg, const int(&n)[8]) {
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i) {
+              const long long r = rg + 16 * i;
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const int j = n[4 * q] / 4;
+                if (j < H) {
+                  float zi = acc[i][4 * q], zf = acc[i][4 * q + 1], zg = acc[i][4 * q + 2], zo = acc[i][4 * q + 3];
+                  rl8::gate_activations(zi, zf, zg, zo);
+                  float* gp = gz_b + r * d.gs + ((long long)t * K + l) * H4 + j;
+                  gp[0] = zi;
+                  gp[H] = zf;
+                  gp[2 * H] = zg;
+                  gp[3 * H] = zo;
+                  const float c_prev = cseq_b[r * d.hs + ((long long)t * K + l) * H + j];
+                  const float c = zf * c_prev + zi * zg;
+                  const float h = zo * tanhf(c);
+                  cseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + j] = c;
+                  hseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + j] = h;
+                }
+              }
+            }
+          });
+    }
+    // The heads on the top layer's h' (slot t + 1) into the step's row of
+    // the head-cotangent scratch (narrow_head's sums).
+    const float* top = hseq_b + ((long long)(t + 1) * K + K - 1) * H;
+    float* head_t = dout_b + (long long)t * d.n_out;
+    for (int q = 0; q <= d.n_heads; ++q) {
+      const int w = q < d.n_heads ? d.head_w : 1;
+      const float* Wq = params + d.head_off[q];
+      rl8::st_heads(top, d.hs, H, Wq, Wq + (size_t)H * w, w, head_t, d.ds, q < d.n_heads ? q * w : d.n_out - 1);
+    }
+    __syncthreads();
+    // The step's loss terms and head cotangents in place, a thread per
+    // sequence; sequences past N get zeros.
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      float* z = head_t + r * d.ds;
+      if (r < nr) {
+        rl8::LossDims s = d;
+        s.act_col += t * d.act_dim;
+        s.logp_col += t;
+        s.adv_col += t;
+        s.ret_col += t;
+        const int* row = packed + (r0 + r) * d.D;
+        float v[4];
+        if constexpr (kContinuous) {
+          rl8::continuous_row(row, z, v, s, ec_scale);
+        } else {
+          rl8::policy_row(row, z, v, s, ec_scale);
+        }
+        rl8::value_row(row, z + d.n_out - 1, v, s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rowv[r * 4 + i] += v[i];
+      } else {
+        for (int o = 0; o < d.n_out; ++o) z[o] = 0.0f;
+      }
+    }
+  }
+
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    float s = 0.0f;
+    for (int r = 0; r < nr; ++r) s += rowv[r * 4 + threadIdx.x];
+    stat_part[(size_t)blockIdx.x * 4 + threadIdx.x] = s;
+  }
+}
+
+// The wide route's row pass, second kernel: the backward through time, the
+// steps and layers in reverse, kStRows sequences a block, one block an SM;
+// dz overwrites the gates in the gate scratch, dh_t, dc_t and dx go to
+// their scratches.
+__global__ void __launch_bounds__(rl8::kStThreads, 1)
+    rnn_wide_bwd_kernel(const float* __restrict__ params, const float* __restrict__ wt,
+                        const float* __restrict__ cseq, float* __restrict__ gz, const float* __restrict__ dout,
+                        float* __restrict__ dht, float* __restrict__ dct, float* __restrict__ dxs, Dims d) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const int H = d.H, K = d.K, L = d.L;
+  const long long H4 = 4LL * H;
+  const long long r0 = (long long)blockIdx.x * R;
+  const float* cseq_b = cseq + r0 * d.hs;
+  float* gz_b = gz + r0 * d.gs;
+  const float* dout_b = dout + r0 * d.ds;
+  float* dx = dxs + r0 * H;  // [R, H]: the cotangent into the current layer's output
+  for (int t = L - 1; t >= 0; --t) {
+    __syncthreads();  // the step's head cotangents are stored, and dx is free
+    // The heads' cotangent into the top layer's h': dx = dout W_heads^T (the
+    // heads are narrow, so a loop over their outputs), 32 rows at a time.
+    const float* dos = dout_b + (long long)t * d.n_out;
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      for (int rc = 0; rc < R; rc += 32) {
+        float acc[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
+        for (int o = 0; o < d.n_out; ++o) {
+          const float w = head_weight(params, d, o, j);
+#pragma unroll
+          for (int r = 0; r < 32; ++r) acc[r] = fmaf(dos[(rc + r) * d.ds + o], w, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < 32; ++r) dx[(long long)(rc + r) * H + j] = acc[r];
+      }
+    }
+    __syncthreads();
+    for (int l = K - 1; l >= 0; --l) {
+      // The cell backward, elementwise over the block's (row, unit) pairs,
+      // four at a time: its operands come from device memory, so each
+      // thread keeps several pairs' loads in flight.
+      const bool last = t == L - 1;
+#pragma unroll 4
+      for (long long i = threadIdx.x; i < R * (long long)H; i += blockDim.x) {
+        const long long r = i / H, u = i % H;
+        const long long ut = ((long long)l * d.Npad + r0 + r) * H + u;
+        const float dh = (last ? 0.0f : dht[ut]) + dx[i];
+        float* gp = gz_b + r * d.gs + ((long long)t * K + l) * H4 + u;
+        const float gi = gp[0], gf = gp[H], gg = gp[2 * H], go = gp[3 * H];
+        const float c_prev = cseq_b[r * d.hs + ((long long)t * K + l) * H + u];
+        const float tc = tanhf(cseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + u]);
+        const float dc = dh * go * (1.0f - tc * tc) + (last ? 0.0f : dct[ut]);
+        gp[0] = dc * gg * gi * (1.0f - gi);
+        gp[H] = dc * c_prev * gf * (1.0f - gf);
+        gp[2 * H] = dc * gi * (1.0f - gg * gg);
+        gp[3 * H] = dh * tc * go * (1.0f - go);
+        dct[ut] = dc * gf;
+      }
+      __syncthreads();
+      // dh_t = dz Wh^T for the previous step (none before step 0: the
+      // stored initial states take no gradient); dx = dz Wi^T into the
+      // layer below. Both on the tensor cores, dz read from the gate scratch.
+      const float* dz = gz_b + ((long long)t * K + l) * H4;
+      const rl8::StRows a{dz, d.gs, 4 * H, R, rl8::st_vec(dz, d.gs)};
+      if (t > 0) {
+        rl8::bwd_product(a, wt + d.cbh[l], wt + d.cbhs[l], H, st_smem, [&](int r, int u, float v) {
+          dht[((long long)l * d.Npad + r0 + r) * H + u] = v;
+        });
+      }
+      if (l > 0) {
+        rl8::bwd_product(a, wt + d.cbi[l], wt + d.cbis[l], H, st_smem,
+                         [&](int r, int u, float v) { dx[(long long)r * H + u] = v; });
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // Floats of workspace that rl8_rnn_ppo_grads needs for these shapes, or -1.
@@ -597,7 +772,7 @@ extern "C" long long rl8_rnn_ppo_workspace(int N, int d_in, int H, int L, int K,
                                            int n_cat) {
   Layout Lo;
   if (!make_layout(N, d_in, H, L, K, kind, act_dim, n_cat, &Lo)) return -1;
-  return Lo.wt_floats + 2 * Lo.state_floats + Lo.gz_floats + Lo.dout_floats + 2 * Lo.time_floats +
+  return Lo.wt_floats + 2 * Lo.state_floats + Lo.gz_floats + Lo.dout_floats + 2 * Lo.time_floats + Lo.dx_floats +
          Lo.part_floats + Lo.stat_floats;
 }
 
@@ -646,10 +821,29 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
   float* dout = gz + Lo.gz_floats;
   float* dht = dout + Lo.dout_floats;
   float* dct = dht + Lo.time_floats;
-  float* partials = dct + Lo.time_floats;
+  float* dxs = dct + Lo.time_floats;
+  float* partials = dxs + Lo.dx_floats;
   float* stat_part = partials + Lo.part_floats;
 
-  for (int l = 0; l < K; ++l) {
+  for (int l = 0; l < K && Lo.wide; ++l) {
+    // The wide route's copies: Wi, Wh for the forward (gates interleaved),
+    // the TF32 halves of Wh and (l >= 1) Wi for the backward.
+    const int in = l == 0 ? d_in : H;
+    const float* wi = params + d.wi_off[l];
+    const float* wh = params + d.wh_off[l];
+    rl8::tile_fwd_kernel<<<rl8::grid_for(rl8::fwd_copy_floats(in, 4 * H)), kThreads, 0, s>>>(wi, 4 * H, in, 4 * H, H,
+                                                                                            wt + d.cfi[l]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    rl8::tile_fwd_kernel<<<rl8::grid_for(rl8::fwd_copy_floats(H, 4 * H)), kThreads, 0, s>>>(wh, 4 * H, H, 4 * H, H,
+                                                                                           wt + d.cfh[l]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    for (int q = 0; q < (l > 0 ? 2 : 1); ++q) {
+      rl8::tile_bwd_kernel<<<rl8::grid_for(rl8::bwd_copy_floats(4 * H, H)), kThreads, 0, s>>>(
+          q == 0 ? wh : wi, 4 * H, 4 * H, H, wt + (q == 0 ? d.cbh[l] : d.cbi[l]), wt + (q == 0 ? d.cbhs[l] : d.cbis[l]));
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  for (int l = 0; l < K && !Lo.wide; ++l) {
     const long long in = l == 0 ? d_in : H;
     rl8::transpose_kernel<<<rl8::grid_for(4LL * H * H), kThreads, 0, s>>>(params + d.wh_off[l],
                                                                           wt + d.whT_off[l], H, 4 * H);
@@ -661,13 +855,25 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
     }
   }
 
-  const auto rows_kernel = kind == kCategorical
-                               ? (Lo.wide ? rnn_rows_kernel<false, true> : rnn_rows_kernel<false, false>)
-                               : (Lo.wide ? rnn_rows_kernel<true, true> : rnn_rows_kernel<true, false>);
-  err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);
-  if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<Lo.row_blocks, kThreads, Lo.smem, s>>>(packed, ec, params, wt, hseq, cseq, gz, dout, dht, dct,
-                                                      stat_part, d);
+  if (Lo.wide) {
+    const auto fwd_kernel = kind == kCategorical ? rnn_wide_fwd_kernel<false> : rnn_wide_fwd_kernel<true>;
+    err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);
+    if (err != cudaSuccess) return (int)err;
+    fwd_kernel<<<Lo.row_blocks, rl8::kStThreads, Lo.smem, s>>>(packed, ec, params, wt, hseq, cseq, gz, dout,
+                                                               stat_part, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(rnn_wide_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)rl8::kStBwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    rnn_wide_bwd_kernel<<<Lo.row_blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(params, wt, cseq, gz, dout, dht,
+                                                                               dct, dxs, d);
+  } else {
+    const auto rows_kernel = kind == kCategorical ? rnn_rows_kernel<false> : rnn_rows_kernel<true>;
+    err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);
+    if (err != cudaSuccess) return (int)err;
+    rows_kernel<<<Lo.row_blocks, kThreads, Lo.smem, s>>>(packed, ec, params, wt, hseq, cseq, gz, dout, dht, dct,
+                                                        stat_part, d);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // The weight products over the N L (sequence, step) rows: row (n, t) of

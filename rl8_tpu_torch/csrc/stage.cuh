@@ -1,0 +1,381 @@
+// Staged block products for the update kernels' wide routes (ppo.cu's
+// ppo_wide_fwd_kernel and ppo_wide_bwd_kernel, rnn_ppo.cu's
+// rnn_wide_fwd_kernel and rnn_wide_bwd_kernel): a block of 256 threads
+// owns kStRows rows whose operands live in device memory (the kernels'
+// scratches, or the packed minibatch), and each product streams both of
+// its operands through a ring of kStStages shared-memory stages filled by
+// cp.async, kStK deep along the reduction axis, so that shared memory is
+// bounded by the stage depth and not by the layer's width, and each weight
+// slab that a stage holds feeds all kStRows rows.
+//
+// - fwd_product: out[r, n] = sum_k A[r, k] W[k, n] on the CUDA cores in
+//   f32, register-tiled as tile.cuh's tile_fma (thread (rg, cg) owns rows
+//   rg + 16 i, i < RT = kStRows / 16, and two tiles of 8 columns, 4 cg ..
+//   and 64 + 4 cg .., and 128 more, of a pass of kStFwdPass columns; one
+//   16-byte shared-memory load feeds 16 FMAs, and the block's rows, re-read
+//   once a pass, are read once for every 256 columns). Each output sums in
+//   order of k into one accumulator with fmaf, as mlp.cuh's dense_layer
+//   and lstm.cuh's gate_products do (the forward's values reach the loss,
+//   so it stays off the tensor cores: mma.cuh). A product may run over two
+//   operands one after the other (the LSTM's x Wi, then h Wh).
+// - bwd_product: out[r, u] = sum_k A[r, k] W[u, k] (dh = dpre W^T with W
+//   stored [in, out]: W's rows are the output units) on the tensor cores,
+//   3xTF32 wgmma (wgmma.cuh): the two warpgroups own 64 rows each (M), a
+//   pass covers kStPass units as two n64 tiles (N), and each thread loads
+//   its A fragments (the rows' cotangents) from the staged slab and splits
+//   them in registers. W is the B operand, K-major as it is stored, from
+//   big and small TF32 copies that the launch makes once (tile_bwd_kernel)
+//   in the stages' layout. wgmma keeps a sum in one accumulator and rounds
+//   each k step's result toward zero; over a whole K of 1024 to 6468 that
+//   bias reaches 1e-5 to 6e-5 of the outputs (tests/test_torch_tf32.py), so
+//   every kStChunk of k starts a fresh accumulator that a CUDA-core add
+//   (round to nearest) folds into the running f32 sum, in order.
+//
+// Each kernel of a wide route holds one kind of product, one block an SM:
+// fwd_product's 128 accumulators a thread, and bwd_product's running sums
+// and fragments, take most of its registers.
+//
+// Weights are read from copies in the stages' own layout, zero-padded to
+// whole stages (tile_fwd_kernel, tile_bwd_kernel), so a stage's weight slab
+// is one contiguous run and needs no masks; activations are read in place,
+// with columns at or past K and rows at or past nr zero-filled. Zero terms
+// leave an f32 sum's bits as they are, so the padding changes no output.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+#include "tile.cuh"
+#include "wgmma.cuh"
+
+namespace rl8 {
+namespace {  // each including source gets its own copy
+
+constexpr int kStThreads = 256;
+constexpr int kStRows = 128;                   // rows a block
+constexpr int kStK = 32;                       // k a stage
+constexpr int kStStages = 3;                   // stages of the ring
+constexpr int kStPass = 128;                   // output units a pass of bwd_product
+constexpr int kStFwdPass = 256;                // output columns a pass of fwd_product
+constexpr int kStChunk = 64;                   // k a wgmma accumulator holds
+constexpr int kStLdA = kStK + 4;               // a staged row: A fragment loads hit 32 banks
+constexpr int kStAFloats = kStRows * kStLdA;   // a stage's A slab
+constexpr int kStWFloats = kStK * kStPass;     // a stage's weight slab (each of big and small)
+constexpr int kStFwdWFloats = kStK * kStFwdPass;  // fwd_product's weight slab
+constexpr int kStFwdFloats = kStAFloats + kStFwdWFloats;
+constexpr int kStBwdFloats = kStAFloats + 2 * kStWFloats;
+// A block's shared memory for each product's ring.
+constexpr size_t kStFwdSmem = sizeof(float) * kStStages * kStFwdFloats;
+constexpr size_t kStBwdSmem = sizeof(float) * kStStages * kStBwdFloats;
+static_assert(kStRows == 128 && kStThreads == 256, "two warpgroups of 64 rows; 16 x 16 thread tiles");
+static_assert(kStChunk % kStK == 0, "a wgmma chunk is whole stages");
+static_assert((kStAFloats * 4) % 128 == 0 && (kStBwdFloats * 4) % 128 == 0 && (kStFwdFloats * 4) % 128 == 0,
+              "128-byte aligned slabs");
+
+__host__ __device__ inline long long round_up(long long x, long long m) { return (x + m - 1) / m * m; }
+
+// Floats of a weight copy of K x N in fwd_product's layout, and of one of
+// the two halves of a copy in bwd_product's (N units, K deep).
+__host__ inline long long fwd_copy_floats(int K, int N) { return round_up(K, kStK) * round_up(N, kStFwdPass); }
+__host__ inline long long bwd_copy_floats(int K, int N) { return round_up(K, kStK) * round_up(N, kStPass); }
+
+// fwd_product's copy of W [K, N] (W[k, n] = src[k * ld + col(n)], col(n) =
+// n, or, with gates, the LSTM's gate q = n % 4 of unit n / 4: q H + n / 4,
+// so that a thread's four adjacent columns are one unit's four gates):
+// [N / kStFwdPass passes][K / kStK stages][kStK][kStFwdPass], zeros past K
+// and N.
+__global__ void tile_fwd_kernel(const float* __restrict__ src, long long ld, int K, int N, int gates_H,
+                                float* __restrict__ dst) {
+  const long long S = round_up(K, kStK) / kStK, total = round_up(N, kStFwdPass) * S * kStK;
+  for (long long o = blockIdx.x * (long long)blockDim.x + threadIdx.x; o < total;
+       o += (long long)gridDim.x * blockDim.x) {
+    const long long p = o / (S * kStFwdWFloats), s = (o / kStFwdWFloats) % S;
+    const int kk = (int)(o % kStFwdWFloats) / kStFwdPass, nn = (int)(o % kStFwdPass);
+    const long long k = s * kStK + kk, n = p * kStFwdPass + nn;
+    const long long col = gates_H ? (n % 4) * gates_H + n / 4 : n;
+    dst[o] = k < K && n < N ? src[k * ld + col] : 0.0f;
+  }
+}
+
+// bwd_product's copies of W [N, K] (units n, depth k: W[n, k] = src[n * ld
+// + k]) split into TF32 big and small halves (mma.cuh's split_tf32):
+// [N / kStPass passes][K / kStK stages][kStK / 4][kStPass][4], each stage
+// one B operand in wgmma.cuh's bt_offset layout; zeros past K and N.
+__global__ void tile_bwd_kernel(const float* __restrict__ src, long long ld, int K, int N, float* __restrict__ big,
+                                float* __restrict__ small) {
+  const long long S = round_up(K, kStK) / kStK, total = round_up(N, kStPass) * S * kStK;
+  for (long long o = blockIdx.x * (long long)blockDim.x + threadIdx.x; o < total;
+       o += (long long)gridDim.x * blockDim.x) {
+    const long long p = o / (S * kStWFloats), s = (o / kStWFloats) % S;
+    const int e = (int)(o % kStWFloats);
+    const int kc = e / (4 * kStPass), nn = (e / 4) % kStPass, kk = 4 * kc + e % 4;
+    const long long k = s * kStK + kk, n = p * kStPass + nn;
+    uint32_t b = 0, sm = 0;
+    if (k < K && n < N) split_tf32(src[n * ld + k], b, sm);
+    big[o] = __uint_as_float(b);
+    small[o] = __uint_as_float(sm);
+  }
+}
+
+// An operand of the block's rows in device memory: row r (r < nr; rows
+// past it read as 0) at p + r * ld, columns k < K (past K read as 0). vec:
+// p and ld allow 16-byte copies.
+struct StRows {
+  const float* p;
+  long long ld;
+  int K, nr, vec;
+};
+
+__host__ __device__ inline int st_vec(const float* p, long long ld) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && ld % 4 == 0;
+}
+
+// Copies columns k0 .. k0 + kStK of the block's rows of `a` into dst
+// [kStRows][kStLdA] with cp.async.cg (from L2: the block's own rows, written
+// before a barrier, are read back here).
+__device__ __forceinline__ void st_load_rows(float* dst, const StRows& a, int k0) {
+  if (a.vec) {
+#pragma unroll
+    for (int u = 0; u < kStRows * kStK / 4 / kStThreads; ++u) {
+      const int i = threadIdx.x + u * kStThreads;
+      const int r = i / (kStK / 4), kc = 4 * (i % (kStK / 4));
+      const int k = k0 + kc;
+      const int bytes = r < a.nr && k < a.K ? 4 * min(4, a.K - k) : 0;
+      cp_async16(dst + r * kStLdA + kc, bytes ? a.p + (long long)r * a.ld + k : a.p, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < kStRows * kStK / kStThreads; ++u) {
+      const int i = threadIdx.x + u * kStThreads;
+      const int r = i / kStK, kc = i % kStK;
+      const int k = k0 + kc;
+      const int bytes = r < a.nr && k < a.K ? 4 : 0;
+      cp_async4(dst + r * kStLdA + kc, bytes ? a.p + (long long)r * a.ld + k : a.p, bytes);
+    }
+  }
+}
+
+// Copies `floats` contiguous floats (a multiple of 4 * kStThreads) from src
+// to dst.
+__device__ __forceinline__ void st_load_run(float* dst, const float* __restrict__ src, int floats) {
+  for (int i = 4 * threadIdx.x; i < floats; i += 4 * kStThreads) cp_async16(dst + i, src + i, 16);
+}
+
+// Waits for this thread's copies of the oldest stage in flight and makes
+// the block's copies of it visible to every thread (and, async, to wgmma).
+template <bool kAsync>
+__device__ __forceinline__ void st_stage_ready() {
+  cp_async_wait<kStStages - 2>();
+  if constexpr (kAsync) async_proxy_fence();
+  __syncthreads();
+}
+
+// mlp.cuh's narrow_head for rows in device memory, 64-bit row offsets:
+// out[r * stride + col0 + o] = sum_k in[r * ld_in + k] W[k, o] + b[o] for
+// the block's kStRows rows, one warp a (row, output) pair, lane l summing
+// k = l, l + 32, ... in order and an xor butterfly adding the lanes, the
+// same sums as narrow_head's (so the same bits), with eight of a lane's
+// loads in flight at once.
+__device__ __forceinline__ void st_heads(const float* in, long long ld_in, int in_w, const float* __restrict__ W,
+                                         const float* __restrict__ b, int n_out, float* out, long long stride,
+                                         int col0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int p = warp; p < kStRows * n_out; p += kStThreads / 32) {
+    const int r = p / n_out, o = p % n_out;
+    const float* x = in + r * ld_in;
+    float s = 0.0f;
+    int k = lane;
+    for (; k + 7 * 32 < in_w; k += 8 * 32) {
+      float xv[8], wv[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        xv[u] = x[k + 32 * u];
+        wv[u] = __ldg(W + (size_t)(k + 32 * u) * n_out + o);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s = fmaf(xv[u], wv[u], s);
+    }
+    for (; k < in_w; k += 32) s = fmaf(x[k], __ldg(W + (size_t)k * n_out + o), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) out[r * stride + col0 + o] = s + __ldg(b + o);
+  }
+}
+
+// One operand of fwd_product: rows `a` against the copy `w` of its weight
+// (tile_fwd_kernel's layout, for a K of a.K and N columns).
+struct FwdSeg {
+  StRows a;
+  const float* w;
+};
+
+// out = A W (see the file's head) over the segments one after the other, N
+// output columns. For each pass of kStFwdPass columns and each of the
+// thread's two tiles in it, init(acc, n) sets the tile's accumulators
+// (acc[i][j]: row rg + 16 i, column n[j]) and, after the pass's products,
+// store(acc, rg, n) takes them. Every thread of the block calls it; it
+// returns after a barrier, with the stores visible to the block.
+template <class Init, class Store>
+__device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, Init init, Store store) {
+  constexpr int RT = kStRows / 16;
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
+  const int c0 = 4 * cg, c1 = c0 + 64;  // the first tile's columns; the second's are 128 on
+  int S = 0, s1 = 0;  // stages of the product, and of the first segment
+  for (int q = 0; q < n_seg; ++q) {
+    const int sq = (seg[q].a.K + kStK - 1) / kStK;
+    if (q == 0) s1 = sq;
+    S += sq;
+  }
+  const int passes = (N + kStFwdPass - 1) / kStFwdPass;
+  const int iters = passes * S;
+  auto issue = [&](int it) {
+    if (it < iters) {
+      float* st = smem + (it % kStStages) * kStFwdFloats;
+      const int p = it / S, s = it % S;
+      const int q = s < s1 ? 0 : 1, sq = q == 0 ? s : s - s1;
+      const int Sq = (seg[q].a.K + kStK - 1) / kStK;
+      st_load_rows(st, seg[q].a, sq * kStK);
+      st_load_run(st + kStAFloats, seg[q].w + ((long long)p * Sq + sq) * kStFwdWFloats, kStFwdWFloats);
+    }
+    cp_async_commit();
+  };
+  // The columns of tile h of pass p (computed where they are used, so that
+  // they hold no registers through the products).
+  auto columns = [&](int p, int h, int (&n)[8]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) n[j] = p * kStFwdPass + 128 * h + (j < 4 ? c0 + j : c1 + j - 4);
+  };
+  float acc[2][RT][8];
+#pragma unroll
+  for (int s = 0; s < kStStages - 1; ++s) issue(s);
+  for (int it = 0; it < iters; ++it) {
+    const int p = it / S, s = it % S;
+    if (s == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int n[8];
+        columns(p, h, n);
+        init(acc[h], n);
+      }
+    }
+    st_stage_ready<false>();
+    issue(it + kStStages - 1);
+    const float* st = smem + (it % kStStages) * kStFwdFloats;
+    // The stage's k within its segment's K (past it the slabs hold zeros,
+    // which add nothing: a first layer's K of d_in takes d_in steps).
+    const int q = s < s1 ? 0 : 1;
+    const int kq = seg[q].a.K - (q == 0 ? s : s - s1) * kStK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (kq >= kStK) {
+        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,
+                     c1 + 128 * h);
+      } else {
+        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kq, c0 + 128 * h,
+                     c1 + 128 * h);
+      }
+    }
+    if (s == S - 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int n[8];
+        columns(p, h, n);
+        store(acc[h], rg, n);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out = A W^T (see the file's head) for `units` output units: rows `a` (K
+// = a.K) against big and small (tile_bwd_kernel's copies). store(r, u, v)
+// takes each output of the block's rows r < kStRows and units u < units,
+// once. Every thread of the block calls it; it returns after a barrier,
+// with the stores visible to the block.
+template <class Store>
+__device__ void bwd_product(const StRows& a, const float* __restrict__ big, const float* __restrict__ small,
+                            int units, float* smem, Store store) {
+  constexpr int KSteps = kStK / 8;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int S = (a.K + kStK - 1) / kStK;
+  const int passes = (units + kStPass - 1) / kStPass;
+  const int iters = passes * S;
+  auto issue = [&](int it) {
+    if (it < iters) {
+      float* st = smem + (it % kStStages) * kStBwdFloats;
+      const long long w = (long long)it * kStWFloats;  // pass p, stage s: (p S + s) slabs in
+      st_load_rows(st, a, (it % S) * kStK);
+      st_load_run(st + kStAFloats, big + w, kStWFloats);
+      st_load_run(st + kStAFloats + kStWFloats, small + w, kStWFloats);
+    }
+    cp_async_commit();
+  };
+  float acc[2][32], sum[2][32];
+#pragma unroll
+  for (int s = 0; s < kStStages - 1; ++s) issue(s);
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % S;
+    st_stage_ready<true>();
+    issue(it + kStStages - 1);
+    const float* st = smem + (it % kStStages) * kStBwdFloats;
+    const float* As = st + (64 * wg + 16 * warp + g) * kStLdA + t;
+    uint32_t a_big[KSteps][4], a_small[KSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < KSteps; ++ks) {
+      // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+      const float* x = As + 8 * ks;
+      split_tf32(x[0], a_big[ks][0], a_small[ks][0]);
+      split_tf32(x[8 * kStLdA], a_big[ks][1], a_small[ks][1]);
+      split_tf32(x[4], a_big[ks][2], a_small[ks][2]);
+      split_tf32(x[8 * kStLdA + 4], a_big[ks][3], a_small[ks][3]);
+    }
+    // Every k step and both n64 tiles of the pass, also past K and units
+    // (zeros there): no wgmma sits in a branch (ptxas serializes every
+    // wgmma of a kernel that has one).
+#pragma unroll
+    for (int ks = 0; ks < KSteps; ++ks) {
+      const float* b = st + kStAFloats + 8 * ks * kStPass;
+      wgmma_fence();
+      const int add = (s * kStK + 8 * ks) % kStChunk != 0;  // a chunk's first k step starts its sum
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t db = wgmma_desc(b + 4 * 64 * h, 16 * kStPass, 128);
+        const uint64_t ds = wgmma_desc(b + kStWFloats + 4 * 64 * h, 16 * kStPass, 128);
+        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, add);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[h][i])::"memory");
+    if ((s + 1) * kStK % kStChunk == 0 || s == S - 1) {
+      const bool first = s < kStChunk / kStK;  // the pass's first chunk
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sum[h][i] = first ? acc[h][i] : sum[h][i] + acc[h][i];
+    }
+    if (s == S - 1) {
+      const int u0 = (it / S) * kStPass;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          // D [64, 64]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
+          const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+          const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * t + (i & 1);
+          if (u < units) store(r, u, sum[h][i]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+}  // namespace
+}  // namespace rl8

@@ -122,10 +122,10 @@ def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bo
 
 def card_takes_update(params: ActParams) -> bool:
     """Whether ``csrc/ppo.cu`` takes these shapes: its narrow route keeps
-    a row block's activations in shared memory (layers up to 736 wide at
-    the dummy envs' shapes), its wide route keeps them in the row scratch
-    (any width); either needs the heads' rows to fit a block's shared
-    memory. This builds the kernels, if they are not built yet, and asks
+    a row block's activations and heads in shared memory (layers up to 736
+    wide at the dummy envs' shapes), its wide route keeps them in the row
+    scratch and stages each product through shared memory (any width, any
+    heads). This builds the kernels, if they are not built yet, and asks
     them; the algorithms ask at build, so that a shape the kernel does not
     take raises there and never at a step."""
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)

@@ -26,6 +26,16 @@ checks' absolute tolerance. Its ``act_torso`` case emulates the discrete
 act kernel's wgmma route (``csrc/act.cu``, ``csrc/wgmma.cuh``), whose
 accumulators hold a layer's whole K: there 3xTF32 stays ten times inside
 the act checks' limits, and one TF32 product per f32 product does not.
+
+The update kernels' wide routes (``csrc/stage.cuh``'s ``bwd_product``, in
+``ppo_wide_kernel`` and ``rnn_wide_kernel``) run the backward's dh
+products on 3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to
+6468. ``wgmma``'s accumulator rounds each k step toward zero; held over the
+whole K, that bias passes a tenth of the update checks' limit from K ~
+2400 up, so the kernel starts a fresh accumulator every 64 k and adds it
+to an f32 running sum. The wide cases emulate exactly that and hold it ten
+times inside the limit against float64, where one TF32 product per f32
+product misses the limit and one whole-K accumulator misses the margin.
 """
 
 from __future__ import annotations
@@ -113,6 +123,17 @@ def products_3x_rz_whole_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         acc = f32_rz(acc.double() + ab[:, s] @ bs[s])
         acc = f32_rz(acc.double() + ab[:, s] @ bb[s])
     return acc
+
+
+def products_3x_rz_chunked(a: torch.Tensor, b: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """``a @ b`` as the wide routes' ``bwd_product`` computes it on the
+    card: per ``chunk`` of k, a fresh ``wgmma`` accumulator over its k steps
+    of 8 (``products_3x_rz_whole_k``), added in order to an f32 running sum
+    (round to nearest)."""
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], chunk):
+        total = total + products_3x_rz_whole_k(a[:, k : k + chunk], b[k : k + chunk])
+    return total
 
 
 def lecun_normal(rng: np.random.Generator, fan_in: int, shape: tuple[int, int]) -> np.ndarray:
@@ -244,3 +265,52 @@ def test_truncating_3xtf32_products_at_the_act_and_chain_shapes(shape: str) -> N
     a32, b32 = torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b.astype(np.float32))
     want = a32.double() @ b32.double()
     assert float((products_3x_rz(a32, b32).double() - want).abs().max()) <= tol
+
+
+#: The wide routes' dh products at their depths over the 128 rows of one
+#: row-pass block (a pass of 128 output units): the feedforward dh_{l-1} =
+#: dpre_l W_l^T at K = 1024 (``wide_torso``) and 2388 (the widest torso
+#: ``rl8_tpu``'s gate admits), and the recurrent dh_t = dz Wh^T and dx = dz
+#: Wi^T at K = 4H = 4096 (``wide_recurrent``) and 6468 (H = 1617, the gate's
+#: widest LSTM).
+WIDE_DH = {"ppo_1024": (1024, "ppo"), "ppo_2388": (2388, "ppo"), "rnn_4096": (4096, "rnn"), "rnn_6468": (6468, "rnn")}
+
+
+def wide_dh_operands(K: int, kind: str, seed: int = 11) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cotangents [128, K], W^T [K, 128])``: relu-gated normal cotangents
+    against lecun-normal W (``ppo``), or gate cotangents (a product of
+    normals and gate derivatives in (0, 1/4]) against W of the LSTM's
+    1 / sqrt(H) scale (``rnn``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "ppo":
+        a = rng.normal(size=(128, K)) * (rng.normal(size=(128, K)) > 0.0)
+        w = lecun_normal(rng, K, (K, 128))
+    else:
+        a = rng.normal(size=(128, K)) * rng.uniform(0.0, 0.25, size=(128, K))
+        w = rng.normal(size=(K, 128)) / np.sqrt(K / 4)
+    return torch.from_numpy(a.astype(np.float32)), torch.from_numpy(w.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", list(WIDE_DH))
+def test_wide_route_dh_products_in_64_deep_wgmma_chunks(case: str) -> None:
+    """The wide routes' dh products as ``bwd_product`` sums them (fresh
+    truncating accumulators every 64 k, an f32 running sum) stay ten times
+    inside the update checks' norm-relative limit against float64; one
+    TF32 product per f32 product breaks the limit itself."""
+    K, kind = WIDE_DH[case]
+    a, w = wide_dh_operands(K, kind)
+    want = a.double() @ w.double()
+    assert rel_err(products_3x_rz_chunked(a, w), want) <= PPO_GRAD_RTOL / 10
+    assert rel_err(products_1x(a, w), want) > PPO_GRAD_RTOL
+
+
+@pytest.mark.parametrize("case", ["ppo_2388", "rnn_4096", "rnn_6468"])
+def test_whole_k_wgmma_accumulator_misses_the_margin_at_wide_depths(case: str) -> None:
+    """Why ``bwd_product`` folds its accumulator every 64 k: one truncating
+    accumulator over the whole K (as the act kernel's ``wgmma`` route holds
+    its 256-deep layers) biases the products past a tenth of the update
+    checks' limit at these depths."""
+    K, kind = WIDE_DH[case]
+    a, w = wide_dh_operands(K, kind)
+    want = a.double() @ w.double()
+    assert rel_err(products_3x_rz_whole_k(a, w), want) > PPO_GRAD_RTOL / 10

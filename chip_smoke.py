@@ -19,7 +19,7 @@ non-zero:
    [8192, 1] with twin 256-wide torsos, and at A=2, n=3 (its wgmma
    route), at a ragged B=1000 with tanh layers (wgmma), at an obs dim of
    300 and at parameters off 16-byte alignment (its tiled f32 route) and
-   at 320/288-wide layers (its streaming route), each route asserted and
+   at 320/288-wide layers (its staged route), each route asserted and
    two launches bit-identical; GAE at T = 1, 32, 33 and 512 over B = 8192
    and a ragged 1000, two launches bit-identical, timed beside an empty
    launch of its grid; the discrete PPO update at
@@ -27,15 +27,15 @@ non-zero:
    accumulation, and at ragged weight tiles; the continuous act kernel
    at obs [8192, 1] (Normal and squashed, stochastic draw for draw and
    deterministic) and at a ragged B=1000, A=4 with tanh layers (its
-   tiled route), and at 320/288-wide layers (its streaming route), each
+   tiled route), and at 320/288-wide layers (its staged route), each
    route asserted and two launches bit-identical, plus a moment check of
    its noise; the continuous update at 262,144 rows
    (squashed), at a ragged 1,000 rows (Normal, entropy, dual clip,
    accumulation), at ragged weight tiles and at rows that hit the +-100
    clamp; the recurrent act kernel at obs [8192, 1] with one 256-wide
    LSTM layer (all three kinds, draw for draw and deterministic, new
-   states included), at a ragged B=1000 with two layers and at H = 720
-   (its 16-row tiles); the recurrent update at 65,536 sequences of 4
+   states included), at a ragged B=1000 with two layers, at H = 720 and
+   at two 1024-wide layers (its staged route); the recurrent update at 65,536 sequences of 4
    steps (categorical and squashed), at a ragged 1,000 sequences with two
    layers (entropy, dual clip, accumulation) and at samples that hit the
    clamp, and at 1024 wide (its wide route, 16 sequences);
@@ -127,7 +127,7 @@ non-zero:
    at rl8_tpu's two-layer limit: each kernel against its plain version on
    its asserted route; 1618 on the module routes with no act or update
    launch; 1300 with ``fused_update=False`` collecting through the act
-   kernel's wide route), then ``wide_recurrent`` (one 1024-wide LSTM layer
+   kernel's staged route), then ``wide_recurrent`` (one 1024-wide LSTM layer
    at the recurrent cell's shapes: 8192 envs, horizon 32, seq_len 4, a
    whole-buffer minibatch of 65,536 sequences, 4 epochs; one warm-up,
    three timed and one profiled iteration, act 32, GAE 1, update 4 an
@@ -418,11 +418,11 @@ def main() -> int:
     run_main_path(torch, dev)
     run_update_path(torch, dev, kernels)
     run_update_path(torch, dev, kernels, continuous=True)
-    run_wide_torso(torch, dev)
-    run_wide_sweep(torch, dev)
+    run_wide_torso(torch, dev, kernels)
+    run_wide_sweep(torch, dev, kernels)
     run_repaired_routes(torch, dev)
     run_recurrent_path(torch, dev, kernels)
-    run_rnn_wide_sweep(torch, dev)
+    run_rnn_wide_sweep(torch, dev, kernels)
     run_wide_recurrent(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
     run_amp_paths(torch, dev)
@@ -503,8 +503,8 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
 #: launched_route).
 ACT_ROUTES = {
     "discrete": {"discrete_act_wgmma_kernel": "wgmma", "discrete_act_tiles_kernel": "tiled",
-                 "discrete_act_kernel": "streaming"},
-    "continuous": {"continuous_act_tiles_kernel": "tiled", "continuous_act_kernel": "streaming"},
+                 "act_heads_kernel<true": "staged"},
+    "continuous": {"continuous_act_tiles_kernel": "tiled", "act_heads_kernel<false": "staged"},
 }
 
 
@@ -534,7 +534,7 @@ def check_act(torch, dev, record: dict) -> None:
     with obs dim 3 and 100/72-wide tanh layers; on the tiled f32 route an
     obs dim of 300 (wider than the wgmma route's 256) with 64-wide layers,
     and the main model's parameters 4 bytes off 16-byte alignment; on the
-    streaming route 320/288-wide layers. Actions equal except rows whose
+    staged route 320/288-wide layers. Actions equal except rows whose
     top-2 scores are within TIE_GAP; log-probs and values within ACT_*."""
     from rl8_tpu_torch.distributions import Categorical
     from rl8_tpu_torch.ops import act_plain, fused_act, pack_act_params
@@ -551,7 +551,7 @@ def check_act(torch, dev, record: dict) -> None:
                        model={"hiddens": (100, 72), "activation_fn": "tanh"}, route="wgmma"),
         "wide_obs": dict(B=1000, A=2, n=3, obs_dim=300, obs_scale=3.0, model={"hiddens": (64, 64)}, route="tiled"),
         "misaligned": dict(B=8192, A=1, n=2, obs_dim=1, obs_scale=100.0, model={}, route="tiled"),
-        "wide": dict(B=1000, A=2, n=3, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)}, route="streaming"),
+        "wide": dict(B=1000, A=2, n=3, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)}, route="staged"),
         # The classic-control examples' shapes: CartPole and MountainCar.
         "cartpole": dict(B=1024, A=1, n=3, obs_dim=5, obs_scale=4.0, model={}, route="wgmma"),
         "mountain_car": dict(B=1024, A=1, n=3, obs_dim=2, obs_scale=1.2, model={}, route="wgmma"),
@@ -776,11 +776,11 @@ def check_nan_routes(torch, dev) -> None:
     ``torch.relu`` and ``jnp.maximum`` do); every other row stays finite
     and within ACT_* or CHAIN_* of the plain version. Sampled actions from
     NaN logits are not compared. Routes: the discrete act kernel's wgmma
-    (the main model), tiled (an obs dim of 300) and streaming routes
-    (320/288-wide layers: in shared memory, and in the scratch at an obs
-    dim of 4,000), the continuous one's tiled and streaming routes (the
-    same shapes), each asserted; the recurrent act kernel's 32-row tiles
-    (one 256-wide LSTM layer) and its wide route (1300 wide), where the NaN
+    (the main model), tiled (an obs dim of 300) and staged routes
+    (320/288-wide layers at obs dims of 2 and 4,000), the continuous one's
+    tiled and staged routes (the same shapes), each asserted; the
+    recurrent act kernel's 32-row tiles (one 256-wide LSTM layer) and its
+    staged route (1300 wide, and two 1024-wide layers), where the NaN
     row's new states are NaN too; the chain forward's tiled route
     (MischievousMule's chains) and streaming route (one 768-wide LayerNorm
     chain)."""
@@ -793,10 +793,10 @@ def check_nan_routes(torch, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(18)
     cases = [
         ("discrete", "wgmma", 1, {}), ("discrete", "tiled", 300, {"hiddens": (64, 64)}),
-        ("discrete", "streaming", 2, {"hiddens": (320, 288)}),
-        ("discrete", "streaming_scratch", 4000, {"hiddens": (320, 288)}),
-        ("continuous", "tiled", 1, {}), ("continuous", "streaming", 2, {"hiddens": (320, 288)}),
-        ("continuous", "streaming_scratch", 4000, {"hiddens": (320, 288)}),
+        ("discrete", "staged", 2, {"hiddens": (320, 288)}),
+        ("discrete", "staged", 4000, {"hiddens": (320, 288)}),
+        ("continuous", "tiled", 1, {}), ("continuous", "staged", 2, {"hiddens": (320, 288)}),
+        ("continuous", "staged", 4000, {"hiddens": (320, 288)}),
     ]
     seen = []
     for family, want, obs_dim, model_config in cases:
@@ -807,9 +807,8 @@ def check_nan_routes(torch, dev) -> None:
         params = pack_act_params(model)
         obs = torch.randn((B, obs_dim), generator=gen, device=dev)
         obs[bad, obs_dim // 2] = float("nan")
-        routes = {**ACT_ROUTES[family], **STREAMING_ROUTES[family == "continuous"]}
-        routes = {k: v for k, v in routes.items() if not k.endswith("act_kernel")}
-        route = launched_route(torch, f"nan {family} act", lambda: fused_act(params, obs, (1, 2)), routes, want)
+        route = launched_route(torch, f"nan {family} act", lambda: fused_act(params, obs, (1, 2)),
+                               ACT_ROUTES[family], want)
         _, kl, kv = fused_act(params, obs, (1, 2), deterministic=True)
         _, pl, pv = act_plain(params, obs, (1, 2), deterministic=True)
         torch.cuda.synchronize()
@@ -819,14 +818,14 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(p[bad]).all()), f"{what}: the plain {name} of the NaN row is not NaN")
             check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is {k[bad].tolist()}")
             check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
-        seen.append(f"{family}_act_{route}")
+        seen.append(f"{family}_act_{route}_obs{obs_dim}")
     # The recurrent act kernel's routes: 32-row tiles (the main path's
-    # 256-wide LSTM) and the wide route (1300 wide).
-    for H in (256, 1300):
-        params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=H, hidden_size=H))
+    # 256-wide LSTM) and the staged route (1300 wide; two 1024-wide layers).
+    for H, K in ((256, 1), (1300, 1), (1024, 2)):
+        params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=H + K, hidden_size=H, num_layers=K))
         obs = torch.randn((B, 1), generator=gen, device=dev)
         obs[bad, 0] = float("nan")
-        states = rnn_states(torch, dev, B, 1, H, gen)
+        states = rnn_states(torch, dev, B, K, H, gen)
         route = launched_route(torch, "nan rnn act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
                                RNN_ACT_ROUTES[False], rnn_routes(H)[0])
         _, kl, kv, ks = fused_rnn_act(params, obs, states, (1, 2), deterministic=True)
@@ -838,7 +837,7 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(p[bad]).all()), f"{what}: the plain {name} of the NaN row is not NaN")
             check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is not NaN")
             check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
-        seen.append(f"rnn_act_{route}")
+        seen.append(f"rnn_act_{route}_{K}x{H}")
     mule_chains = default_chains(make_mule(torch, seed=5).to(dev))
     near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
     for chains, want in ((mule_chains, "tiled"), (near, "streaming")):
@@ -983,7 +982,7 @@ def check_continuous_act(torch, dev, record: dict) -> None:
                        model={"hiddens": (100, 72), "activation_fn": "tanh"},
                        heads={"mean_scale": 0.3, "log_std_scale": 0.3}, route="tiled"),
         "wide": dict(B=1000, A=2, obs_dim=2, obs_scale=3.0, model={"hiddens": (320, 288)},
-                     heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="streaming"),
+                     heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="staged"),
         # The Pendulum example's shapes (obs dim 3, velocities up to 8).
         "pendulum": dict(B=1024, A=1, obs_dim=3, obs_scale=8.0, model={},
                          heads={"mean_scale": 0.06, "log_std_scale": 0.3}, route="tiled"),
@@ -1281,15 +1280,18 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     the categorical, Normal and squashed kinds (compare_rnn_act): at the
     main path's shapes (obs [8192, 1], one 256-wide LSTM layer, A = 1), at a
     ragged B = 1000 with obs dim 3, two 96-wide layers and A = 2 (n = 3),
-    and at H = 720 (16-row tiles)."""
+    at H = 720 and at two 1024-wide layers over 4,096 rows (the staged
+    route, one gate launch a layer)."""
     from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
     configs = {
         "main": dict(B=8192, obs_dim=1, A=1, n=2, H=256, K=1),
         "ragged": dict(B=1000, obs_dim=3, A=2, n=3, H=96, K=2),
-        # 16-row tiles: 32 rows of a 720-wide layer do not fit two blocks an SM.
+        # The staged route: 32 rows of a 720-wide layer do not fit two blocks an SM.
         "wide": dict(B=1000, obs_dim=3, A=1, n=2, H=720, K=1),
+        # Two layers on the staged route: layer 2 reads layer 1's h' from h_out.
+        "two_layer_1024": dict(B=4096, obs_dim=1, A=1, n=2, H=1024, K=2),
     }
     for name, c in configs.items():
         B, A, n, H, K = c["B"], c["A"], c["n"], c["H"], c["K"]
@@ -1905,7 +1907,8 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     card, unpack one into a directory that ``.gitignore`` lists (``git
     archive``) and run each checkout's ``chip_smoke.py --time-updates`` in
     turns (A, B, B, A) in one command (a checkout older than the wide
-    routes' timings runs a copy of the newer script)."""
+    routes' timings runs a copy of the newer script). The wide act routes
+    are timed too (``time_wide_acts``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rl8_tpu_torch import ops
@@ -1986,6 +1989,7 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
     del x, douts
     out.update(time_wide_updates(torch, dev, split_ms))
+    out.update(time_wide_acts(torch, dev, split_ms))
     emit(out)
 
 
@@ -2044,6 +2048,73 @@ def time_wide_updates(torch, dev, split_ms) -> dict:
                lambda: ops.rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), rnn_ppo_cost(params, packed, 4),
                iters=3 if N > 8192 else 10)
         del model, params, packed, unpack
+    return out
+
+
+#: The wide act shapes ``time_wide_acts`` times: (H or width, rows), and
+#: for the recurrent kernel the layers. The recurrent cell's (1024 x 8,192)
+#: and H 289 to 1617 at 4,096 rows (RNN_WIDE_WIDTHS, 289, 512, two 1024-wide
+#: layers); the wide cell's twin torso (1024 x 8,192) and 257 to 2388 at
+#: 4,096 rows (WIDE_WIDTHS, 257, 384, 512). Those in *_HEADLINE are timed
+#: beside their plain versions too.
+RNN_ACT_TIMED = ((1024, 8192, 1), *((H, 4096, 1) for H in (289, 512, 721, 768, 1024, 1209, 1210, 1300, 1617)),
+                 (1024, 4096, 2))
+RNN_ACT_HEADLINE = ((1024, 8192, 1), (1209, 4096, 1), (1210, 4096, 1), (1617, 4096, 1))
+ACT_TIMED = ((1024, 8192), *((w, 4096) for w in (257, 384, 512, 737, 1024, 1813, 1814, 2048, 2388)))
+ACT_HEADLINE = ((1024, 8192), (2388, 4096))
+
+
+def time_wide_acts(torch, dev, split_ms) -> dict:
+    """``time_updates``' wide act routes: the recurrent act kernel
+    (categorical, its heads drawn at 0.3 sqrt(256 / H) as
+    ``run_rnn_wide_sweep`` draws them) over RNN_ACT_TIMED and both act
+    kernels (categorical; SquashedNormal with the mean head at
+    WIDE_MEAN_RMS) over ACT_TIMED, twin torsos of one width: each shape's
+    device ms per launch (stochastic), the profiler's split by kernel, the
+    f32 and 3xTF32 bounds, and at the *_HEADLINE shapes the plain
+    version's ms. The records' names carry the shape (``wide_rnn_act_{H}x
+    {rows}[_{layers}l]``, ``wide_act_{width}x{rows}[_squashed]``)."""
+    from rl8_tpu_torch import ops
+    from rl8_tpu_torch.specs import Discrete
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def record(name: str, run, plain, cost, headline: bool) -> None:
+        rec = {"ms": time_ms(torch, run, iters=10, warmup=2)[0]}
+        if headline:
+            rec["plain_ms"] = time_ms(torch, plain, iters=5, warmup=1)[0]
+        rec["split_ms"] = split_ms(run)
+        update_bounds(rec, *cost)
+        out[f"wide_{name}_ms"] = rec.pop("ms")
+        out[f"wide_{name}"] = rec
+
+    for H, B, K in RNN_ACT_TIMED:
+        params = ops.pack_rnn_params(make_rnn_model(torch, "categorical", seed=H + K, hidden_size=H, num_layers=K,
+                                                    head_scale=0.3 * math.sqrt(256 / H)))
+        obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+        states = rnn_states(torch, dev, B, K, H, gen)
+        record(f"rnn_act_{H}x{B}" + (f"_{K}l" if K > 1 else ""),
+               lambda: ops.fused_rnn_act(params, obs, states, (1, 2)),
+               lambda: ops.rnn_act_plain(params, obs, states, (1, 2), deterministic=False),
+               rnn_act_cost(params, B), (H, B, K) in RNN_ACT_HEADLINE)
+        del params, obs, states
+    for w, B in ACT_TIMED:
+        obs = 20.0 * torch.randn((B, 1), generator=gen, device=dev)
+        for kind in ("categorical", "squashed"):
+            if kind == "categorical":
+                model = make_model(torch, Discrete(2, shape=(1,)), seed=w, hiddens=(w, w))
+            else:
+                model = scale_mean_head(torch, make_continuous_model(torch, 1, seed=w + 1, log_std_scale=0.03,
+                                                                     hiddens=(w, w)), obs, WIDE_MEAN_RMS)
+            params = ops.pack_act_params(model, squashed=kind == "squashed")
+            record(f"act_{w}x{B}" + ("_squashed" if kind == "squashed" else ""),
+                   lambda: ops.fused_act(params, obs, (1, 2)),
+                   lambda: ops.act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, B),
+                   (w, B) in ACT_HEADLINE)
+            del model, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2256,35 +2327,32 @@ def run_repaired_routes(torch, dev) -> None:
               "collect_ms": (t_mid - t) * 1e3, "step_ms": (t_end - t_mid) * 1e3, "step": stats})
 
 
+#: The keys of a kernel's record at a wide cell's shapes in the
+#: ``{"kernels": [...]}`` line.
+WIDE_RECORD = ("ms", "plain_ms", "bound_ms", "bound_tc_ms", "route", "launches_per_iteration")
 #: Twin-torso widths of the wide sweep: the update kernel's first width on
-#: its wide route (737), the JAX bench's wide line (1024), the act kernel's
-#: last width with its streaming rows in shared memory and its first in the
-#: scratch at the dummy envs' shapes (1813, 1814), and rl8_tpu's last
-#: admitted width (2388).
+#: its wide route (737), the JAX bench's wide line (1024), the earlier
+#: streaming act route's last width with its rows in shared memory and its
+#: first in a scratch at the dummy envs' shapes (1813, 1814), and rl8_tpu's
+#: last admitted width (2388).
 WIDE_WIDTHS = (737, 1024, 1813, 1814, 2048, 2388)
 #: The update kernel's row-pass routes per distribution family (continuous
-#: or not), and the act kernels' streaming routes, each by kernel name (for
-#: launched_route).
+#: or not), by kernel name (for launched_route).
 PPO_ROUTES = {
     False: {"ppo_rows_kernel<false": "narrow", "ppo_wide_fwd_kernel<false": "wide"},
     True: {"ppo_rows_kernel<true": "narrow", "ppo_wide_fwd_kernel<true": "wide"},
 }
 #: The recurrent kernels' routes per distribution family (continuous or
-#: not), by kernel name (for launched_route): the act kernel's tiles of 32
-#: or 16 rows in shared memory and its wide route; the update's narrow and
-#: wide row passes.
+#: not), by kernel name (for launched_route): the act kernel's 32-row tiles
+#: in shared memory and its staged route (named by its heads kernel); the
+#: update's narrow and wide row passes.
 RNN_ACT_ROUTES = {
-    c: {f"rnn_act_kernel<2, {b}, false": "shared32", f"rnn_act_kernel<1, {b}, false": "shared16",
-        f"rnn_act_kernel<1, {b}, true": "wide"}
+    c: {f"rnn_act_kernel<{b}": "shared32", f"rnn_heads_kernel<{b}": "staged"}
     for c, b in ((False, "false"), (True, "true"))
 }
 RNN_PPO_ROUTES = {
     c: {f"rnn_rows_kernel<{b}": "narrow", f"rnn_wide_fwd_kernel<{b}": "wide"}
     for c, b in ((False, "false"), (True, "true"))
-}
-STREAMING_ROUTES = {
-    False: {"discrete_act_kernel<false": "streaming", "discrete_act_kernel<true": "streaming_scratch"},
-    True: {"continuous_act_kernel<false": "streaming", "continuous_act_kernel<true": "streaming_scratch"},
 }
 
 
@@ -2481,7 +2549,7 @@ def buffer_rows(torch, algo, N: int, seed: int):
     return obs, packed, unpack
 
 
-def run_wide_torso(torch, dev) -> None:
+def run_wide_torso(torch, dev, kernels: dict) -> None:
     """``bench.py:366``'s wide line on the card: ``DefaultDiscreteModel``
     with a 1024-wide twin torso on ``DiscreteDummyEnv``, 8192 envs, horizon
     32, the defaults otherwise (a whole-buffer minibatch, 4 epochs, Adam
@@ -2513,7 +2581,7 @@ def run_wide_torso(torch, dev) -> None:
     params = algo._pack_params()
     obs, packed, unpack = buffer_rows(torch, algo, 8192, seed=16)
     act_route = launched_route(torch, "wide_torso act", lambda: fused_act(params, obs, (1, 2)),
-                               STREAMING_ROUTES[False], "streaming")
+                               ACT_ROUTES["discrete"], "staged")
     act_err = compare_act(torch, "wide_torso act", params, obs)
     cfg = algo._loss_config(8192)
     ec = torch.tensor(0.0, device=dev)
@@ -2522,9 +2590,11 @@ def run_wide_torso(torch, dev) -> None:
     result = compare_ppo(torch, "wide_torso update", params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "wide_torso", "N": 8192, "act_route": act_route,
           "act_max_abs_err": act_err, "update_route": ppo_route, **result["summary"]})
-    time_kernel(torch, "discrete_act", lambda: fused_act(params, obs, (1, 2)),
-                lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, 8192),
-                iters=20, plain_iters=10, B=8192, hiddens=[1024, 1024], route=act_route)
+    rec = time_kernel(torch, "discrete_act", lambda: fused_act(params, obs, (1, 2)),
+                      lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, 8192),
+                      iters=20, plain_iters=10, B=8192, hiddens=[1024, 1024], route=act_route,
+                      launches_per_iteration=h.horizon)
+    kernels["act"]["wide_torso"] = {k: rec[k] for k in WIDE_RECORD}
     time_kernel(torch, "ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
                 lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
                 iters=10, plain_iters=5, N=8192, hiddens=[1024, 1024], route=ppo_route)
@@ -2555,27 +2625,28 @@ def run_wide_torso(torch, dev) -> None:
         checked = {}
         if N == 8192:
             act_route = launched_route(torch, "wide_torso continuous act", lambda: fused_act(params, obs, (1, 2)),
-                                       STREAMING_ROUTES[True], "streaming")
+                                       ACT_ROUTES["continuous"], "staged")
             checked = {"act_route": act_route, "act_max_abs_err": compare_act(torch, "wide_torso continuous act",
                                                                                params, obs)}
         result = compare_ppo(torch, "wide_torso continuous update", params, packed, unpack, ec, cfg)
         emit({"phase": "kernel_check", "kernel": "wide_torso_continuous", "N": N, **checked, **result["summary"]})
         if N == 8192:
-            time_kernel(torch, "continuous_act", lambda: fused_act(params, obs, (1, 2)),
-                        lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
-                        iters=20, plain_iters=10, B=N, hiddens=[1024, 1024], kind="squashed", route=act_route)
+            rec = time_kernel(torch, "continuous_act", lambda: fused_act(params, obs, (1, 2)),
+                              lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
+                              iters=20, plain_iters=10, B=N, hiddens=[1024, 1024], kind="squashed",
+                              route=act_route, launches_per_iteration=0)
+            kernels["continuous_act"]["wide_torso_squashed"] = {k: rec[k] for k in WIDE_RECORD}
         time_kernel(torch, "continuous_ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
                     lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
                     iters=10 if N == 8192 else 3, plain_iters=5 if N == 8192 else 2, N=N, hiddens=[1024, 1024],
                     kind="squashed", route="wide")
 
 
-def run_wide_sweep(torch, dev) -> None:
+def run_wide_sweep(torch, dev, kernels: dict) -> None:
     """Fixed inputs at 4,096 rows, twin torsos of WIDE_WIDTHS: for
     Categorical (DefaultDiscreteModel), Normal (with an entropy bonus) and
     SquashedNormal (DefaultContinuousModel, its mean head scaled to
-    WIDE_MEAN_RMS), the act kernel (compare_act; its streaming route in
-    shared memory up to 1813 wide, in the scratch from 1814) and the update
+    WIDE_MEAN_RMS), the act kernel (compare_act; its staged route) and the update
     kernel (compare_ppo; its wide route) against their plain versions, each
     route asserted; for SquashedNormal also the update on the mean head as
     drawn, deep in the tanh's saturation, against float64 over
@@ -2586,15 +2657,17 @@ def run_wide_sweep(torch, dev) -> None:
     one 3000-wide layer, Normal over 4 dims at an obs dim of 5; eight
     737-wide layers; each with an entropy bonus, dual clip and
     accumulation; and the update alone at 2,000 logits on a 64-wide torso
-    (heads that only the wide route takes). Then, over a grid of default models (check_gate_grid),
+    (heads that only the wide route takes), the act kernel alone at 4,096
+    (its staged route; the gates' and the update kernel's answers
+    recorded). Then, over a grid of default models (check_gate_grid),
     every model rl8_tpu's residency gate admits is taken by the card's act
     and update kernels; and a 2389-wide twin torso, past the gate, builds
     onto the module rollout and the autodiff update, as rl8_tpu routes it,
     and trains one collect and one step with no act or update launch."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.env import DiscreteDummyEnv
-    from rl8_tpu_torch.ops import PPOLossConfig, act_plain, fused_act, fused_ppo_grads, pack_act_params
-    from rl8_tpu_torch.ops import ppo_grads_plain
+    from rl8_tpu_torch.ops import PPOLossConfig, act_plain, card_takes_act, card_takes_update, fused_act
+    from rl8_tpu_torch.ops import fused_ppo_grads, model_fits_vmem, pack_act_params, ppo_grads_plain
     from rl8_tpu_torch.specs import Discrete
 
     N = 4096
@@ -2609,8 +2682,8 @@ def run_wide_sweep(torch, dev) -> None:
             params = pack_act_params(model, squashed=kind == "squashed")
             what = f"wide_sweep {kind} {w}"
             act_route = launched_route(torch, f"{what} act", lambda: fused_act(params, obs, (1, 2)),
-                                       STREAMING_ROUTES[params.continuous],
-                                       "streaming" if w <= 1813 else "streaming_scratch")
+                                       ACT_ROUTES["continuous" if params.continuous else "discrete"],
+                                       "staged")
             act_err = compare_act(torch, f"{what} act", params, obs)
             regimes = {}
             if kind == "categorical":
@@ -2641,10 +2714,14 @@ def run_wide_sweep(torch, dev) -> None:
                   "act_route": act_route, "act_max_abs_err": act_err, "update_route": ppo_route,
                   **regimes, **result["summary"]})
             if w == 2388:
-                time_kernel(torch, "continuous_act" if params.continuous else "discrete_act",
-                            lambda: fused_act(params, obs, (1, 2)),
-                            lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
-                            iters=10, plain_iters=5, B=N, hiddens=[w, w], kind=kind, route=act_route)
+                rec = time_kernel(torch, "continuous_act" if params.continuous else "discrete_act",
+                                  lambda: fused_act(params, obs, (1, 2)),
+                                  lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, N),
+                                  iters=10, plain_iters=5, B=N, hiddens=[w, w], kind=kind, route=act_route,
+                                  launches_per_iteration=0)
+                if kind != "normal":
+                    key = "continuous_act" if params.continuous else "act"
+                    kernels[key][f"wide_sweep_{w}x{N}"] = {k: rec[k] for k in WIDE_RECORD}
                 time_kernel(torch, "continuous_ppo_update" if params.continuous else "ppo_update",
                             lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
                             lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
@@ -2652,9 +2729,9 @@ def run_wide_sweep(torch, dev) -> None:
     # Other depths, widths, inputs and heads on the wide routes: three
     # uneven tanh layers, one 3000-wide layer (admitted: one layer's
     # residents are small) and eight 737-wide layers.
-    shapes = [("categorical", 3, (3, 3), {"hiddens": (1024, 737, 900), "activation_fn": "tanh"}, "streaming"),
-              ("normal", 5, 4, {"hiddens": (3000,)}, "streaming_scratch"),
-              ("categorical", 1, (1, 2), {"hiddens": (737,) * 8}, "streaming")]
+    shapes = [("categorical", 3, (3, 3), {"hiddens": (1024, 737, 900), "activation_fn": "tanh"}, "staged"),
+              ("normal", 5, 4, {"hiddens": (3000,)}, "staged"),
+              ("categorical", 1, (1, 2), {"hiddens": (737,) * 8}, "staged")]
     for kind, obs_dim, action, config, want in shapes:
         if kind == "categorical":
             model = make_model(torch, Discrete(action[1], shape=(action[0],)), seed=obs_dim, obs_dim=obs_dim, **config)
@@ -2666,7 +2743,7 @@ def run_wide_sweep(torch, dev) -> None:
         params = pack_act_params(model)
         what = f"wide_sweep {kind} {config['hiddens']}"
         act_route = launched_route(torch, f"{what} act", lambda: fused_act(params, obs, (1, 2)),
-                                   STREAMING_ROUTES[params.continuous], want)
+                                   ACT_ROUTES["continuous" if params.continuous else "discrete"], want)
         act_err = compare_act(torch, f"{what} act", params, obs)
         if kind == "categorical":
             params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=obs_dim)
@@ -2694,6 +2771,18 @@ def run_wide_sweep(torch, dev) -> None:
     result = compare_ppo(torch, what, params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": [64, 64], "kind": "categorical",
           "policy_heads": list(params.policy_heads), "N": N, "update_route": ppo_route, **result["summary"]})
+    # 4,096 logits on a 64-wide torso: heads too wide for the tiled route's
+    # shared memory (and for the earlier streaming route's 16 rows); the
+    # staged route keeps them in its scratch.
+    model = make_model(torch, Discrete(4096, shape=(1,)), seed=65, hiddens=(64, 64))
+    params = pack_act_params(model)
+    obs = 20.0 * torch.randn((N, 1), generator=gen, device=dev)
+    what = "wide_sweep 4096 logits act"
+    act_route = launched_route(torch, what, lambda: fused_act(params, obs, (1, 2)), ACT_ROUTES["discrete"], "staged")
+    emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": [64, 64], "kind": "categorical",
+          "policy_heads": list(params.policy_heads), "N": N, "act_route": act_route,
+          "act_max_abs_err": compare_act(torch, what, params, obs), "card_takes_act": card_takes_act(params),
+          "card_takes_update": card_takes_update(params), "model_fits_vmem": model_fits_vmem(model)})
     check_gate_grid(torch)
     zero_counters()
     algo = AlgorithmConfig(device="cuda", num_envs=1024, model_config={"hiddens": (2389, 2389)}).build(
@@ -2842,19 +2931,19 @@ def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
 
 #: The recurrent kernels' wide widths (one layer, the dummy envs' shapes):
 #: the update's last narrow width and its wide route (721, 768), the wide
-#: cell's (1024), the act kernel's last width with 16-row tiles in shared
-#: memory and its first on the wide route (1209, 1210), and rl8_tpu's last
-#: admitted width (1617).
+#: cell's (1024), the earlier act routes' last width with 16-row tiles in
+#: shared memory and first on their wide route (1209, 1210), and rl8_tpu's
+#: last admitted width (1617).
 RNN_WIDE_WIDTHS = (721, 768, 1024, 1209, 1210, 1300, 1617)
 
 
 def rnn_routes(H: int) -> tuple[str, str]:
     """The routes the recurrent act and update kernels take at one or two
     H-wide layers and the dummy envs' inputs and heads (three head
-    outputs): the act kernel's 16-row tiles in shared memory up to 1209
-    (32-row tiles up to 288), its wide route from 1210; the update's
-    narrow row pass up to 724, its wide route from 725."""
-    act = "shared32" if H <= 288 else "shared16" if H <= 1209 else "wide"
+    outputs): the act kernel's 32-row tiles up to 288, its staged route
+    from 289; the update's narrow row pass up to 724, its wide route from
+    725."""
+    act = "shared32" if H <= 288 else "staged"
     return act, "narrow" if H <= 724 else "wide"
 
 
@@ -2923,7 +3012,7 @@ def run_wide_recurrent(torch, dev, kernels: dict) -> None:
     update packs it, the update kernel (its wide route) against its plain
     version over all 65,536 sequences and against its launches over the
     halves (check_rnn_halves), and both kernels timed beside their plain
-    versions at the cell's shapes (the act kernel on its 16-row tiles).
+    versions at the cell's shapes (the act kernel on its staged route).
     Then the same cell with ``fused_act=False, fused_update=False`` (the
     module rollout and the autodiff update) timed the same way."""
     from rl8_tpu_torch import RecurrentAlgorithmConfig
@@ -2973,8 +3062,7 @@ def run_wide_recurrent(torch, dev, kernels: dict) -> None:
                            route=ppo_route, launches_per_iteration=per_step),
     }
     for key, rec in wide.items():
-        kernels["rnn_" + key]["wide_recurrent"] = {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms",
-                                                                       "route", "launches_per_iteration")}
+        kernels["rnn_" + key]["wide_recurrent"] = {k: rec[k] for k in WIDE_RECORD}
     del algo, packed
     torch.cuda.empty_cache()
     module = RecurrentAlgorithmConfig(device="cuda", model_config={"hidden_size": H}, fused_act=False,
@@ -3051,7 +3139,7 @@ def check_rnn_gate_grid(torch) -> None:
           "widest_admitted_by_layers": widest})
 
 
-def run_rnn_wide_sweep(torch, dev) -> None:
+def run_rnn_wide_sweep(torch, dev, kernels: dict) -> None:
     """The recurrent kernels past their shared-memory tiles, at the dummy
     envs' shapes: one LSTM layer of RNN_WIDE_WIDTHS, Categorical, Normal
     (with an entropy bonus) and SquashedNormal, and two layers at 721 and
@@ -3059,18 +3147,19 @@ def run_rnn_wide_sweep(torch, dev) -> None:
     the act kernel (compare_rnn_act, 4,096 rows) and the update kernel
     (compare_rnn_ppo, 2,048 sequences of 4 steps, dual clip) against their
     plain versions, each on its asserted route (rnn_routes), two launches
-    bit-identical; the same for 4,096 categories on a 64-wide LSTM (both
-    kernels' wide routes, for the heads). The policy heads are drawn at 0.3 sqrt(256 / H), so that
+    bit-identical; the same for 4,096 categories on a 64-wide LSTM (the
+    act kernel's staged route and the update's wide route, for the heads). The policy heads are drawn at 0.3 sqrt(256 / H), so that
     their outputs have the main path's spread at every width (as drawn at
     0.3 the squashed means grow with the width into the tanh's saturation,
     where f32 itself is no reference: see F64_K). The act kernel is timed
-    beside its plain version at 1209 and 1210 (the last width on its
-    16-row tiles and the first on its wide route) and at 1617, the update
+    beside its plain version at 1209 and 1210 (the last width of the
+    earlier 16-row tiles and the first of the earlier wide route) and at
+    1617, the update
     kernel at 1617. Then the gate grid (check_rnn_gate_grid); a 1618-wide
     LSTM (past the gate) builds onto the module routes and trains a
     collect and a step with no act or update launch; and a 1300-wide LSTM
     with ``fused_update=False`` builds and collects through the act
-    kernel's wide route (its deterministic rollout held against
+    kernel's staged route (its deterministic rollout held against
     rnn_act_plain at every step) and steps by autodiff."""
     from rl8_tpu_torch import RecurrentAlgorithmConfig
     from rl8_tpu_torch.data import DataKeys
@@ -3089,10 +3178,10 @@ def run_rnn_wide_sweep(torch, dev) -> None:
     limit2 = rnn_gate_limit(torch, 2)
     # (H, layers, kind, categories, routes): the dummy envs' two categories
     # on rnn_routes, and 4,096 categories on a 64-wide LSTM, whose heads
-    # take both kernels' wide routes.
+    # take the act kernel's staged route and the update's wide route.
     cases = [(H, 1, kind, 2, rnn_routes(H)) for H in RNN_WIDE_WIDTHS for kind in ("categorical", "normal", "squashed")]
     cases += [(H, 2, kind, 2, rnn_routes(H)) for H in (721, limit2) for kind in ("categorical", "normal")]
-    cases += [(64, 1, "categorical", 4096, ("wide", "wide"))]
+    cases += [(64, 1, "categorical", 4096, ("staged", "wide"))]
     for H, K, kind, n, (want_act, want_ppo) in cases:
         model = make_rnn_model(torch, kind, seed=H + K, n=n, hidden_size=H, num_layers=K,
                                head_scale=0.3 * math.sqrt(256 / H), log_std_bias=-1.0)
@@ -3115,9 +3204,11 @@ def run_rnn_wide_sweep(torch, dev) -> None:
               "heads": list(params.head_widths), "B": B, "N": N, "L": L, "act_route": act_route, "act": act,
               "update_route": ppo_route, **result["summary"]})
         if (K, kind, n) == (1, "categorical", 2) and H in (1209, 1210, 1617):
-            time_kernel(torch, "rnn_act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
-                        lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False),
-                        rnn_act_cost(params, B), iters=10, plain_iters=5, B=B, hidden_size=H, route=act_route)
+            rec = time_kernel(torch, "rnn_act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                              lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False),
+                              rnn_act_cost(params, B), iters=10, plain_iters=5, B=B, hidden_size=H, route=act_route,
+                              launches_per_iteration=0)
+            kernels["rnn_act"][f"rnn_wide_sweep_{H}x{B}"] = {k: rec[k] for k in WIDE_RECORD}
         if (H, K, kind, n) == (1617, 1, "categorical", 2):
             time_kernel(torch, "rnn_ppo_update", lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
                         lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), rnn_ppo_cost(params, packed, L),
@@ -3141,7 +3232,7 @@ def run_rnn_wide_sweep(torch, dev) -> None:
           "launches": launches, "losses/total": stats["losses/total"]})
     del algo
 
-    # The act kernel alone on the wide route, the update by autodiff: the
+    # The act kernel alone on its staged route, the update by autodiff: the
     # configuration that built and then failed at its first collect before
     # the act kernel had a capacity check.
     zero_counters()

@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -41,7 +41,14 @@ against the plain version and bit identity, and an empty launch of its
 grid (``gae_empty_ms``) timed the same way. With ``wide``, the update
 kernels' wide routes at the wide cells' shapes (1024 x 262,144 rows,
 categorical; H 1024 x 65,536 sequences of 4): ms, split, the gradient's
-norm-relative error against the plain version and bit identity. The SASS counts include
+norm-relative error against the plain version and bit identity. With
+``wide_act``, the act kernels' staged routes (``rnn_act`` at H 1024 x
+8,192, 1617, 512 and 289 x 4,096; both act kernels, categorical and
+squashed, at 1024 x 8,192, 2388 and 384 x 4,096): ms (stochastic), split,
+the largest deterministic error against the plain version (log-probs,
+values, new states) with the count of differing actions, and bit
+identity; its variants ``heads_rows32``, ``staged_stages2`` and
+``wide_stages4`` are the staged design's ablations. The SASS counts include
 shared-memory loads (``LDS``) and warpgroup tensor-core products
 (``HGMMA``); the ptxas lines include its notes of serialized ``wgmma``.
 
@@ -144,10 +151,10 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "chains_256": [("chains.cu", "constexpr int kTileThreads = 512;", "constexpr int kTileThreads = 256;")],
     # 64-row recurrent act tiles, one block to an SM (and its registers).
     "rnn_act_rows64": [
-        ("rnn_act.cu", "smem_floats(*d, 2) <= kTwoBlocksSmem", "smem_floats(*d, 4) <= kMaxSmem"),
-        ("rnn_act.cu", "err = launch<2, false>(", "err = launch<4, false>("),
+        ("rnn_act.cu", "constexpr int kRows = 32; ", "constexpr int kRows = 64; "),
+        ("rnn_act.cu", "smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1", "smem_floats(*d) <= 227 * 1024 ? 2 : 1"),
         ("rnn_act.cu", "__global__ void __launch_bounds__(kThreads, 2)\n    rnn_act_kernel(",
-         "__global__ void __launch_bounds__(kThreads, MT > 2 ? 1 : 2)\n    rnn_act_kernel("),
+         "__global__ void __launch_bounds__(kThreads, 1)\n    rnn_act_kernel("),
     ],
     # Ablations of the recurrent act kernel (wrong results; times only):
     # constant weights in place of the L2 loads, and the products replaced
@@ -162,7 +169,7 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
         "for (int mt = 0; mt < MT; ++mt) acc[mt][q][0] += __uint_as_float(fa[mt].big[0] & fb[q].small[1]);",
     )],
     # 16-row recurrent act tiles.
-    "rnn_act_rows16": [("rnn_act.cu", "err = launch<2, false>(", "err = launch<1, false>(")],
+    "rnn_act_rows16": [("rnn_act.cu", "constexpr int kRows = 32; ", "constexpr int kRows = 16; ")],
     # Ablations of the chain forward's tiled route (wrong results; their
     # times against as_is split the kernel's time): no layer products, no
     # parameter loads, no (fused) LayerNorm, no (fused) narrow heads.
@@ -256,6 +263,12 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     ],
     # Four stages in the wide routes' ring.
     "wide_stages4": [("stage.cuh", "constexpr int kStStages = 3; ", "constexpr int kStStages = 4; ")],
+    # The act kernels' staged routes (stage.cuh; times and errors with
+    # --kernels wide_act): the heads kernels with 32 rows a block instead of
+    # 8, and two stages in the ring (wide_stages4 above: four).
+    "heads_rows32": [("rnn_act.cu", "constexpr int kHeadRows = 8;", "constexpr int kHeadRows = 32;"),
+                     ("act.cu", "constexpr int kHeadRows = 8;", "constexpr int kHeadRows = 32;")],
+    "staged_stages2": [("stage.cuh", "constexpr int kStStages = 3; ", "constexpr int kStStages = 2; ")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -321,7 +334,8 @@ def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_wide_\w+_kernel<[^>]*>|ppo_wide_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
                   r"tile_fwd_kernel|tile_bwd_kernel|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
-                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel)", kernel)
+                  r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel|"
+                  r"rnn_gates_\w*kernel|rnn_heads_kernel<\w+>|act_layer_\w*kernel|act_heads_kernel<\w+>|tile_tc_kernel)", kernel)
     return m.group(1) if m else None
 
 
@@ -339,7 +353,8 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
             kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_wide_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
                                r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
-                               r"rnn_act_kernel|gae_kernel)(I\w*)?", fn)
+                               r"rnn_act_kernel|gae_kernel|rnn_gates_\w*?kernel|rnn_heads_kernel|act_layer_\w*?kernel|"
+                               r"act_heads_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
             fn = f"{source.group(1)}.cu {kernel.group(1)}<{args}>" if source and kernel else None
             continue
@@ -365,10 +380,14 @@ def ptxas_rows(logs: dict[str, str]) -> list[str]:
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search("rows_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|chains_fwd_kernel|gae_kernel",
+                fn = m.group(1) if re.search("rows_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|"
+                                             r"chains_fwd_kernel|gae_kernel|gates_\w*kernel|layer_\w*kernel|heads_kernel",
                                              m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
-                out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')}")
+                name = re.search(r"(rnn_gates_tc_kernel|rnn_heads_kernel|act_layer_tc_kernel|"
+                                 r"act_layer_kernel|act_heads_kernel)", fn)
+                where = f"{stem}.cu {name.group(1)}" if name else f"{stem}.cu"
+                out.append(f"{where}: {line.strip().replace('ptxas info    : ', '')}")
             elif "serialized" in line:
                 out.append(f"{stem}.cu: {line.strip().replace('ptxas info    : ', '')[:160]}")
     return out
@@ -422,6 +441,8 @@ def main() -> int:
         measures.append(gae_measure(torch, dev))
     if "wide" in kinds:
         measures.append(wide_measure(torch, dev, split))
+    if "wide_act" in kinds:
+        measures.append(wide_act_measure(torch, dev, split))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -534,6 +555,62 @@ def wide_measure(torch, dev, split):
             out[f"{name}_split_ms"] = split(run)
             out[f"{name}_vs_plain"] = float((g1 - want).norm() / want.norm())
             out[f"{name}_bit_identical"] = bool(torch.equal(g1, g2))
+        return out
+
+    return measure
+
+
+#: wide_act_measure's shapes: the recurrent act kernel's (H, rows) and the
+#: act kernels' (width, rows), the wide cells' first.
+WIDE_ACT_RNN = ((1024, 8192), (1617, 4096), (512, 4096), (289, 4096))
+WIDE_ACT_FF = ((1024, 8192), (2388, 4096), (384, 4096))
+
+
+def wide_act_measure(torch, dev, split):
+    """The act kernels' staged routes' measurement of a variant (see the
+    module's docstring)."""
+    import math
+
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import act_plain, fused_act, fused_rnn_act, pack_act_params, pack_rnn_params, rnn_act_plain
+    from rl8_tpu_torch.specs import Discrete
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+    for H, B in WIDE_ACT_RNN:
+        params = pack_rnn_params(cs.make_rnn_model(torch, "categorical", seed=H, hidden_size=H,
+                                                   head_scale=0.3 * math.sqrt(256 / H)))
+        obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+        states = cs.rnn_states(torch, dev, B, 1, H, gen)
+        cases.append((f"rnn_act_{H}x{B}", lambda p=params, o=obs, s=states, d=False: fused_rnn_act(p, o, s, (1, 2), deterministic=d),
+                      rnn_act_plain(params, obs, states, (1, 2), deterministic=True)))
+    for w, B in WIDE_ACT_FF:
+        obs = 20.0 * torch.randn((B, 1), generator=gen, device=dev)
+        for kind in ("categorical", "squashed"):
+            if kind == "categorical":
+                model = cs.make_model(torch, Discrete(2, shape=(1,)), seed=w, hiddens=(w, w))
+            else:
+                model = cs.scale_mean_head(torch, cs.make_continuous_model(torch, 1, seed=w + 1, log_std_scale=0.03,
+                                                                           hiddens=(w, w)), obs, cs.WIDE_MEAN_RMS)
+            params = pack_act_params(model, squashed=kind == "squashed")
+            cases.append((f"act_{w}x{B}" + ("_squashed" if kind == "squashed" else ""),
+                          lambda p=params, o=obs, d=False: fused_act(p, o, (1, 2), deterministic=d),
+                          act_plain(params, obs, (1, 2), deterministic=True)))
+
+    def measure() -> dict:
+        out = {}
+        for name, run, plain in cases:
+            k1, k2 = run(d=True), run(d=True)
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = cs.time_ms(torch, run, iters=10, warmup=2)[0]
+            out[f"{name}_split_ms"] = split(run)
+            kf = [t for t in k1 if torch.is_tensor(t)] + ([v for v in k1[3].values()] if len(k1) > 3 else [])
+            pf = [t for t in plain if torch.is_tensor(t)] + ([v for v in plain[3].values()] if len(plain) > 3 else [])
+            out[f"{name}_vs_plain"] = {
+                "actions_differ": int((k1[0] != plain[0]).sum()),
+                "max_abs": max(float((k.float() - q.float()).abs().max()) for k, q in zip(kf[1:], pf[1:])),
+            }
+            out[f"{name}_bit_identical"] = all(torch.equal(a, b) for a, b in zip(kf, [t for t in k2 if torch.is_tensor(t)] + ([v for v in k2[3].values()] if len(k2) > 3 else [])))
         return out
 
     return measure

@@ -377,8 +377,9 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             if on and not takes(packed):
                 raise NotImplementedError(
                     f"The card's {what} kernel does not take {type(model).__name__} with hiddens"
-                    f" {tuple(model.hiddens)}, {packed.d_in} inputs and heads {packed.policy_heads}: a block's"
-                    " rows must fit its shared memory (the CPU takes any width)."
+                    f" {tuple(model.hiddens)}, {packed.d_in} inputs and heads {packed.policy_heads}: its wide"
+                    " route takes any width, so a dimension is out of the kernel's range (the CPU takes any"
+                    " shape)."
                 )
 
     def _pack_params(self):

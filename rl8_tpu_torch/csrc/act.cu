@@ -63,34 +63,49 @@
 //   wide, and the discrete one where the wgmma route does not take the
 //   launch) run the products on the CUDA cores in f32, each output summed
 //   in order of k; see act_tiles.
-// - continuous_act_kernel and discrete_act_kernel (the streaming route:
-//   layers wider than 256) follow the streaming design below.
+// - act_layer_tc_kernel (discrete) or act_layer_kernel (continuous), and
+//   act_heads_kernel<_> (the staged route: layers wider than 256, and
+//   inputs or heads too wide for the tiled route) follow the staged design
+//   below.
 //
-// Streaming design. A block of 256 threads owns kRows=16 rows and keeps
-// their activations in shared memory (two ping-pong buffers of [16, H]).
-// Where those do not fit (layers wider than ~1,800 at the dummy envs'
-// shapes, or wide observations), the scratch variant keeps the block's
-// observation rows and both buffers in a device-memory scratch that the
-// wrapper allocates (kScratch: the rows of a block lie together, so the
-// 8 warps' broadcast reads of a row hit L1 after its first), and only the
-// heads in shared memory: any width, 16 rows a block, each row summed
-// exactly as in shared memory. (8 rows a block in shared memory would
-// reach ~3,500 wide, and read every weight from L2 twice as often.)
-// The TPU kernel keeps every weight resident in VMEM; here a 256x256 f32
-// weight (256 KB) is larger than a block's shared memory, so weights
-// stream from L2 (the whole parameter set is ~0.53 MB of the 50 MB L2).
-// Weights are packed [in, out] so that thread j reads column j: the 32
-// threads of a warp read 32 consecutive floats, and each weight read feeds
-// 16 FMAs (one per row) against shared-memory activations that the warp
-// reads as 16-byte broadcasts. 16 rows rather than 32 or 8: at B=8192 it
-// gives 512 blocks, enough resident warps to hide the L2 latency of the
-// weight reads, while 8 rows doubles the weight reads (PERF.md has the
-// measurements). Narrow heads (A*n logits, 1 value) are warp dot products
-// with shuffle reductions, as the TPU kernel runs them as lane reductions.
-// Everything is f32 end to end, so logp and values agree with the plain
-// PyTorch version to f32 rounding. It re-reads both 256x256 weights from
-// L2 for every 16 rows (~0.27 GB a launch at B=8192) and pays about one
-// shared-memory load per FMA, at ~0.3 of the f32 peak (PERF.md).
+// Staged design. A launch is one kernel a layer over both chains, then one
+// for the heads and the sampling, on stage.cuh's parts:
+//   - copies of every layer's W in the stages' layout, zero-padded to whole
+//     slabs: for the discrete kind TF32 big and small halves, K-major
+//     (tile_tc_kernel), for the continuous kinds f32 (tile_fwd_kernel),
+//     into the scratch the wrapper allocates (rl8_act_scratch);
+//   - per layer, act_layer_tc_kernel (discrete) or act_layer_kernel
+//     (continuous) over a grid of (column tiles, 128-row tiles, the two
+//     chains): a block streams its rows of the layer's input (the
+//     observations, or the previous layer's activations in the scratch's
+//     ping-pong buffers) and its column tile's 32-deep weight slabs through
+//     a 3-stage cp.async ring in shared memory; the discrete kind sums on
+//     the tensor cores in 3xTF32 wgmma (tc_product, 128 columns a block, a
+//     fresh accumulator every 64 k folded into an f32 sum), the continuous
+//     kinds in f32 on the CUDA cores, each output in order of k
+//     (fwd_product, 256 columns a block, 8 rows by 16 columns a thread, one
+//     16-byte shared-memory load for 16 FMAs), since their squashed
+//     log-probs are sensitive near +-1; each weight slab feeds all 128
+//     rows; then the bias and the activation (relu keeps a NaN) into the
+//     other buffer;
+//   - act_heads_kernel over blocks of 8 rows: each chain's heads on its
+//     last layer's activations (st_heads: narrow_head's sums) into the
+//     scratch, then the kind's sample.cuh epilogue.
+// Shared memory is the ring's, whatever the widths, inputs and heads; the
+// activations make a round trip through device memory between layers
+// (~0.27 GB a launch at 1024 wide x 8,192 rows, ~0.08 ms at 3.35 TB/s),
+// under the products' 34 GFLOP there (0.51 ms at 67 TFLOP/s f32, 0.21 at
+// 3xTF32 on 495). One block to an SM (the ring, and fwd_product's 128
+// accumulators a thread). It replaces the streaming route (16 rows a
+// block, every weight re-read from L2 for every 16 rows, one shared-memory
+// load per FMA; past ~1,800 wide the rows in a device-memory scratch
+// re-read through L1 at every k). On an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md, one A/B) the discrete launch at 1024 x 8,192 took 0.67 ms (f32
+// layers, an ablation since removed, 1.14; the streaming route 2.40-2.43;
+// the plain version 3.6-3.8) and at 2388 x 4,096 1.66-1.67 (f32 3.23,
+// streaming 18.02-18.05, plain 3.5-4.3). The TPU kernel keeps every weight resident in VMEM; here one
+// 1024 x 1024 f32 weight (4 MB) is larger than a block's shared memory, so
+// weights stream from L2 in slabs.
 //
 // Tiled f32 design:
 // - A block of 256 threads owns 64 rows (B=8192: 128 blocks, about one an
@@ -123,16 +138,12 @@
 #include "mlp.cuh"
 #include "mma.cuh"
 #include "sample.cuh"
+#include "stage.cuh"
 #include "tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-using rl8::dense_layer;
-using rl8::kRows;
-using rl8::narrow_head;
-
-constexpr int kThreads = 256;
 constexpr int kMaxLayers = 8;
 
 struct ActDims {
@@ -145,87 +156,7 @@ struct ActDims {
   int head_w;   // width of each: A * n logits, or A
 };
 
-// A streaming block's rows: xs [kRows, d_in], two ping-pong activation
-// buffers [kRows, max_hidden], and the heads [kRows, n_heads * head_w + 1]
-// (the policy heads, then the value), all in shared memory or, kScratch,
-// all but the heads in the block's part of the scratch.
-__device__ __forceinline__ int head_stride(const ActDims& d) { return d.n_heads * d.head_w + 1; }
-
-// Loads the block's rows of obs and runs both chains' forward: chain 0 is
-// the policy torso and its heads, chain 1 the value torso and value head;
-// params hold each layer's W [in, out] then b [out]. Returns the heads.
-template <bool kScratch>
-__device__ float* twin_forward(const float* __restrict__ obs, const float* __restrict__ params,
-                               int r0, int nr, const ActDims& d, float* smem, float* scratch) {
-  float* xs = kScratch ? scratch + (size_t)blockIdx.x * kRows * (d.d_in + 2 * d.max_hidden) : smem;
-  float* h0 = xs + kRows * d.d_in;
-  float* h1 = h0 + kRows * d.max_hidden;
-  float* heads = kScratch ? smem : h1 + kRows * d.max_hidden;
-  const int stride = head_stride(d);
-  for (int i = threadIdx.x; i < kRows * d.d_in; i += blockDim.x) {
-    xs[i] = (i / d.d_in) < nr ? obs[(size_t)r0 * d.d_in + i] : 0.0f;
-  }
-  __syncthreads();
-  const float* p = params;
-  for (int chain = 0; chain < 2; ++chain) {
-    const float* cur = xs;
-    int cur_w = d.d_in;
-    for (int l = 0; l < d.n_layers; ++l) {
-      const int out_w = d.hidden[l];
-      float* dst = (l & 1) ? h1 : h0;
-      dense_layer<kRows>(cur, cur_w, p, p + cur_w * out_w, dst, out_w, d.act);
-      p += cur_w * out_w + out_w;
-      __syncthreads();
-      cur = dst;
-      cur_w = out_w;
-    }
-    const int n_heads = chain == 0 ? d.n_heads : 1;
-    const int n_out = chain == 0 ? d.head_w : 1;
-    for (int j = 0; j < n_heads; ++j) {
-      narrow_head<kRows>(cur, cur_w, p, p + cur_w * n_out, n_out, heads, stride,
-                         chain == 0 ? j * n_out : stride - 1);
-      p += cur_w * n_out + n_out;
-    }
-    __syncthreads();
-  }
-  return heads;
-}
-
-template <bool kScratch>
-__global__ void __launch_bounds__(kThreads)
-    discrete_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
-                        int* __restrict__ actions, float* __restrict__ logp,
-                        float* __restrict__ values, float* __restrict__ scratch, int B, ActDims d,
-                        int n_cat, uint32_t seed, uint32_t offset, int deterministic) {
-  extern __shared__ float smem[];
-  const int A = d.head_w / n_cat;
-  const int stride = head_stride(d);
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, B - r0);
-  const float* heads = twin_forward<kScratch>(obs, params, r0, nr, d, smem, scratch);
-  float* chosen = const_cast<float*>(heads) + kRows * stride;  // [kRows, A]
-  rl8::categorical_epilogue(heads, stride, r0, nr, A, n_cat, seed, offset, deterministic, actions, logp,
-                            values, chosen);
-}
-
-template <bool kScratch>
-__global__ void __launch_bounds__(kThreads)
-    continuous_act_kernel(const float* __restrict__ obs, const float* __restrict__ params,
-                          float* __restrict__ actions, float* __restrict__ logp,
-                          float* __restrict__ values, float* __restrict__ scratch, int B, ActDims d,
-                          int squashed, uint32_t seed, uint32_t offset, int deterministic) {
-  extern __shared__ float smem[];
-  const int A = d.head_w;
-  const int stride = head_stride(d);
-  const int r0 = blockIdx.x * kRows;
-  const int nr = min(kRows, B - r0);
-  const float* heads = twin_forward<kScratch>(obs, params, r0, nr, d, smem, scratch);
-  // [kRows, 2A]: each dim's (clamped, when squashed) base log-prob, then
-  // its tanh log-det term.
-  float* parts = const_cast<float*>(heads) + kRows * stride;
-  rl8::continuous_epilogue(heads, stride, r0, nr, A, squashed, seed, offset, deterministic, actions, logp,
-                           values, parts);
-}
+__host__ __device__ inline int head_stride(const ActDims& d) { return d.n_heads * d.head_w + 1; }
 
 // ---------------------------------------------------------- tiled route
 
@@ -272,7 +203,7 @@ struct TilePlan {
 
 // The tiled plan of a launch, or false where its widest layer
 // is wider than one pass or its tiles do not fit a block's shared memory
-// (those launches take the streaming route).
+// (those launches take the staged route).
 bool make_plan(const ActDims& d, TilePlan* P) {
   if (d.max_hidden > kTileWidth || d.n_heads > 2) return false;
   P->ldx = rl8::tile_ld(d.d_in);
@@ -377,7 +308,7 @@ __device__ __forceinline__ bool issue_slab(const float* __restrict__ params, con
 // thread's product is done (the sums live in registers); a chain's last
 // layer goes straight into its heads (tile.cuh's tile_heads, a row's 32
 // lanes each summing its 8 columns, then a butterfly). Then the kind's
-// epilogue with the rows' true index, as the streaming kernels call it:
+// epilogue with the rows' true index, as the staged heads kernel calls it:
 // rl8::continuous_epilogue (CATEGORICAL false; `arg` is squashed) or
 // rl8::categorical_epilogue (`arg` is n_cat, actions are int32).
 template <int ACT, bool CATEGORICAL>
@@ -873,42 +804,251 @@ bool make_dims(int B, int d_in, int n_layers, const int* hidden, int act, int n_
   return true;
 }
 
-// Bytes of a streaming block's shared memory: xs, two activation buffers
-// (in the scratch instead, kScratch), the heads and `extra` floats per row.
-size_t smem_bytes(const ActDims& d, int extra, bool scratch) {
-  return sizeof(float) * (size_t)kRows *
-         ((scratch ? 0 : d.d_in + 2 * d.max_hidden) + d.n_heads * d.head_w + 1 + extra);
+// ---------------------------------------------------------- staged route
+
+// Rows a block of the staged route's heads kernel.
+constexpr int kHeadRows = 8;
+
+// A staged launch's scratch (floats from its start) and the parameters'
+// places: layer q = chain * n_layers + l is in_w[q] x out_w[q] at woff[q]
+// of the flat parameters (its bias after it) and its copy at copy[q]
+// (categorical: tc_product's big and small halves, one after the other;
+// else fwd_product's layout); head j of chain c at hoff[c][j]; the
+// activations of layer l of chain c at act + ((l % 2) * 2 + c) * B ld; the
+// heads' rows and the epilogue's scratch of every kHeadRows rows at heads.
+struct StagedPlan {
+  bool categorical;  // the discrete kind (one policy head): its layers in 3xTF32 wgmma
+  int n_q, ld;       // ld: an activation row's stride, the widest layer
+  int in_w[kMaxQ], out_w[kMaxQ];
+  long long woff[kMaxQ], copy[kMaxQ], hoff[2][2];
+  long long act, heads, floats;
+};
+
+// The continuous kinds' layers stay f32 (fwd_product): their squashed
+// log-probs are sensitive near +-1.
+StagedPlan staged_plan(const ActDims& d, int extra, int B) {
+  StagedPlan P;
+  P.categorical = d.n_heads == 1;
+  P.n_q = 2 * d.n_layers;
+  P.ld = d.max_hidden;
+  long long off = 0, copies = 0;
+  for (int c = 0; c < 2; ++c) {
+    int in = d.d_in;
+    for (int l = 0; l < d.n_layers; ++l) {
+      const int q = c * d.n_layers + l, w = d.hidden[l];
+      P.in_w[q] = in;
+      P.out_w[q] = w;
+      P.woff[q] = off;
+      P.copy[q] = copies;
+      off += (long long)in * w + w;
+      copies += P.categorical ? 2 * rl8::bwd_copy_floats(in, w) : rl8::fwd_copy_floats(in, w);
+      in = w;
+    }
+    const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
+    for (int j = 0; j < n_heads; ++j) {
+      P.hoff[c][j] = off;
+      off += (long long)in * n_out + n_out;
+    }
+  }
+  P.act = copies;
+  P.heads = P.act + (long long)(d.n_layers > 1 ? 4 : 2) * B * P.ld;
+  P.floats = P.heads + (long long)(B + kHeadRows - 1) / kHeadRows * kHeadRows * (head_stride(d) + extra);
+  return P;
+}
+
+// One layer of both chains (blockIdx.z is the chain): its weight copies,
+// biases, inputs (rows ld_in apart, in_w wide: the observations or the
+// previous layer's activations) and outputs (rows ld_out apart).
+struct LayerArgs {
+  const float* w[2];
+  const float* b[2];
+  const float* in[2];
+  float* out[2];
+  long long ld_in, ld_out;
+  int in_w, out_w;
+};
+
+// The staged route's layer in f32 (the continuous kinds): blockIdx.x is the column tile (columns 256 x ..
+// 256 x + 255), blockIdx.y the first 128-row tile, which steps by
+// gridDim.y, blockIdx.z the chain; out = act(in W + b), each output summed
+// in order of k from 0 in f32 (fwd_product), then the bias.
+__global__ void __launch_bounds__(rl8::kStThreads, 1) act_layer_kernel(LayerArgs a, int B, int act) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const int c = blockIdx.z;
+  const int n0 = blockIdx.x * rl8::kStFwdPass;
+  const int N = min(rl8::kStFwdPass, a.out_w - n0);
+  const long long stages = (a.in_w + rl8::kStK - 1) / rl8::kStK;
+  const float* w = a.w[c] + blockIdx.x * stages * rl8::kStFwdWFloats;
+  const float* b = a.b[c];
+  float* out = a.out[c];
+  const long long tiles = (B + R - 1) / R;
+  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, B - r0);
+    const float* in = a.in[c] + r0 * a.ld_in;
+    const rl8::FwdSeg seg = {{in, a.ld_in, a.in_w, nr, rl8::st_vec(in, a.ld_in)}, w};
+    rl8::fwd_product(
+        &seg, 1, N, st_smem,
+        [&](auto& acc, const int(&)[8]) {
+#pragma unroll
+          for (int i = 0; i < R / 16; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        },
+        [&](auto& acc, int rg, const int(&n)[8]) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = n0 + n[j];
+            if (col >= a.out_w) continue;
+            const float bj = __ldg(b + col);
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i) {
+              const int r = rg + 16 * i;
+              if (r < nr) out[(r0 + r) * a.ld_out + col] = rl8::activate(acc[i][j] + bj, act);
+            }
+          }
+        });
+  }
+}
+
+// act_layer_kernel with its products in 3xTF32 wgmma (the discrete kind):
+// blockIdx.x is a tile of 128 columns (tc_product), the big halves of the
+// copies at a.w, the small ones bwd_copy_floats further; each output's sum
+// in 64-deep chunks, then the bias and the activation.
+__global__ void __launch_bounds__(rl8::kStThreads, 1) act_layer_tc_kernel(LayerArgs a, int B, int act) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const int c = blockIdx.z;
+  const long long stages = (a.in_w + rl8::kStK - 1) / rl8::kStK;
+  const long long half = rl8::round_up(a.in_w, rl8::kStK) * rl8::round_up(a.out_w, rl8::kStPass);
+  const float* big = a.w[c] + blockIdx.x * stages * rl8::kStWFloats;
+  const float* b = a.b[c];
+  float* out = a.out[c];
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, tq = threadIdx.x % 4;
+  const long long tiles = (B + R - 1) / R;
+  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, B - r0);
+    const float* in = a.in[c] + r0 * a.ld_in;
+    const rl8::TcSeg seg = {{in, a.ld_in, a.in_w, nr, rl8::st_vec(in, a.ld_in)}, big, big + half};
+    rl8::tc_product(&seg, 1, st_smem, [&](const float(&sum)[2][32]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+          const int col = rl8::kStPass * blockIdx.x + 64 * h + 8 * (i >> 2) + 2 * tq + (i & 1);
+          if (r < nr && col < a.out_w) out[(r0 + r) * a.ld_out + col] = rl8::activate(sum[h][i] + __ldg(b + col), act);
+        }
+    });
+  }
+}
+
+// The staged route's heads and sampling over blocks of kHeadRows rows: each
+// chain's heads on its last layer's activations (top[c], rows ld apart,
+// in_w wide; st_heads: narrow_head's sums) into the block's rows of the
+// scratch (the policy heads side by side, the value last), then the kind's
+// epilogue: rl8::continuous_epilogue (CATEGORICAL false; `arg` is
+// squashed) or rl8::categorical_epilogue (`arg` is n_cat, actions int32).
+template <bool CATEGORICAL>
+__global__ void __launch_bounds__(rl8::kStThreads)
+    act_heads_kernel(const float* __restrict__ top0, const float* __restrict__ top1, long long ld, int in_w,
+                     const float* __restrict__ params, StagedPlan P, float* __restrict__ rows,
+                     void* __restrict__ actions, float* __restrict__ logp, float* __restrict__ values, int B,
+                     ActDims d, int arg, uint32_t seed, uint32_t offset, int deterministic) {
+  const int A = CATEGORICAL ? d.head_w / arg : d.head_w, stride = head_stride(d);
+  const int r0 = blockIdx.x * kHeadRows;
+  const int nr = min(kHeadRows, B - r0);
+  float* heads = rows + (long long)blockIdx.x * kHeadRows * (stride + (CATEGORICAL ? A : 2 * A));
+  float* parts = heads + kHeadRows * stride;  // the epilogue's [kHeadRows, A] or [kHeadRows, 2A]
+  for (int c = 0; c < 2; ++c) {
+    const float* top = (c == 0 ? top0 : top1) + (long long)r0 * ld;
+    const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
+    for (int j = 0; j < n_heads; ++j) {
+      const float* W = params + P.hoff[c][j];
+      rl8::st_heads(top, ld, in_w, W, W + (size_t)in_w * n_out, n_out, heads, stride,
+                    c == 0 ? j * n_out : stride - 1, nr);
+    }
+  }
+  __syncthreads();
+  if constexpr (CATEGORICAL) {
+    rl8::categorical_epilogue(heads, stride, r0, nr, A, arg, seed, offset, deterministic,
+                              static_cast<int*>(actions), logp, values, parts);
+  } else {
+    rl8::continuous_epilogue(heads, stride, r0, nr, A, arg, seed, offset, deterministic,
+                             static_cast<float*>(actions), logp, values, parts);
+  }
+}
+
+// The staged route's launches (see the file's head) on `scratch`
+// (staged_plan's floats; `extra` floats of epilogue scratch a row: A, or
+// 2A for the continuous kinds; `arg` is n_cat, or squashed).
+int launch_staged(const float* obs, const float* params, void* actions, float* logp, float* values,
+                  float* scratch, int B, const ActDims& d, int extra, int arg, uint32_t seed, uint32_t offset,
+                  int deterministic, cudaStream_t s) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const StagedPlan P = staged_plan(d, extra, B);
+  for (int q = 0; q < P.n_q; ++q) {
+    const float* w = params + P.woff[q];
+    float* dst = scratch + P.copy[q];
+    if (P.categorical) {
+      const long long half = rl8::bwd_copy_floats(P.in_w[q], P.out_w[q]);
+      rl8::tile_tc_kernel<<<rl8::st_copy_grid(half), rl8::kStThreads, 0, s>>>(w, P.out_w[q], P.in_w[q],
+                                                                               P.out_w[q], 0, dst, dst + half);
+    } else {
+      rl8::tile_fwd_kernel<<<rl8::st_copy_grid(rl8::fwd_copy_floats(P.in_w[q], P.out_w[q])), rl8::kStThreads, 0,
+                             s>>>(w, P.out_w[q], P.in_w[q], P.out_w[q], 0, dst);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaError_t err =
+      P.categorical
+          ? cudaFuncSetAttribute(act_layer_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)rl8::kStBwdSmem)
+          : cudaFuncSetAttribute(act_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  float* act = scratch + P.act;
+  auto buffer = [&](int l, int c) { return act + ((long long)(l % 2) * 2 + c) * B * P.ld; };
+  for (int l = 0; l < d.n_layers; ++l) {
+    LayerArgs a;
+    for (int c = 0; c < 2; ++c) {
+      const int q = c * d.n_layers + l;
+      a.w[c] = scratch + P.copy[q];
+      a.b[c] = params + P.woff[q] + (long long)P.in_w[q] * P.out_w[q];
+      a.in[c] = l == 0 ? obs : buffer(l - 1, c);
+      a.out[c] = buffer(l, c);
+    }
+    a.ld_in = l == 0 ? d.d_in : P.ld;
+    a.ld_out = P.ld;
+    a.in_w = l == 0 ? d.d_in : d.hidden[l - 1];
+    a.out_w = d.hidden[l];
+    const int cols = P.categorical ? rl8::kStPass : rl8::kStFwdPass;  // columns a block
+    const dim3 grid((a.out_w + cols - 1) / cols, rl8::st_row_grid(B), 2);
+    if (P.categorical) {
+      act_layer_tc_kernel<<<grid, rl8::kStThreads, rl8::kStBwdSmem, s>>>(a, B, d.act);
+    } else {
+      act_layer_kernel<<<grid, rl8::kStThreads, rl8::kStFwdSmem, s>>>(a, B, d.act);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const int L = d.n_layers - 1;
+  const auto heads = P.categorical ? act_heads_kernel<true> : act_heads_kernel<false>;
+  heads<<<(B + kHeadRows - 1) / kHeadRows, rl8::kStThreads, 0, s>>>(
+      buffer(L, 0), buffer(L, 1), P.ld, d.hidden[L], params, P, scratch + P.heads, actions, logp, values, B, d, arg,
+      seed, offset, deterministic);
+  return (int)cudaGetLastError();
 }
 
 // Floats of scratch that a launch of B rows needs: 0 where the launch
-// takes the wgmma, tiled or shared-memory streaming route (for the
-// discrete kind, `aligned`: whether its parameters are 16-byte aligned),
-// else its blocks' rows of the scratch variant; -1 where no route takes
-// it (heads too wide for a block's shared memory).
+// takes the wgmma or the tiled route (for the discrete kind, `aligned`:
+// whether its parameters are 16-byte aligned), else the staged route's.
 long long scratch_floats(const ActDims& d, int extra, int A, bool aligned, int B) {
   WgPlan W;
   TilePlan P;
-  if ((d.n_heads == 1 && aligned && make_wgmma_plan(d, A, &W)) || make_plan(d, &P) ||
-      smem_bytes(d, extra, false) <= (size_t)kMaxSmem) {
-    return 0;
-  }
-  if (smem_bytes(d, extra, true) > (size_t)kMaxSmem) return -1;
-  return (long long)(B + kRows - 1) / kRows * kRows * (d.d_in + 2 * d.max_hidden);
-}
-
-// Launches the streaming route: in shared memory where it fits, else the
-// scratch variant on `scratch` (which must then hold scratch_floats).
-template <typename Kernel, typename... Args>
-int launch_streaming(Kernel in_smem, Kernel in_scratch, const ActDims& d, int extra, float* scratch, int B,
-                     cudaStream_t stream, Args... args) {
-  const bool use_scratch = smem_bytes(d, extra, false) > (size_t)kMaxSmem;
-  const size_t smem = smem_bytes(d, extra, use_scratch);
-  if (smem > (size_t)kMaxSmem || (use_scratch && scratch == nullptr)) return (int)cudaErrorInvalidValue;
-  const Kernel kernel = use_scratch ? in_scratch : in_smem;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(B + kRows - 1) / kRows, kThreads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+  if ((d.n_heads == 1 && aligned && make_wgmma_plan(d, A, &W)) || make_plan(d, &P)) return 0;
+  return staged_plan(d, extra, B).floats;
 }
 
 }  // namespace
@@ -957,10 +1097,9 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
         obs, params, actions, logp, values, B, d, P, n_cat, seed, offset, deterministic);
     return (int)cudaGetLastError();
   }
-  // Layers wider than 256.
-  return launch_streaming(discrete_act_kernel<false>, discrete_act_kernel<true>, d, A, scratch, B,
-                          (cudaStream_t)stream, obs, params, actions, logp, values, scratch, B, d, n_cat, seed,
-                          offset, deterministic);
+  // Layers wider than 256, and heads or inputs too wide for the tiled route.
+  return launch_staged(obs, params, actions, logp, values, scratch, B, d, A, n_cat, seed, offset, deterministic,
+                       (cudaStream_t)stream);
 }
 
 extern "C" int rl8_continuous_act(const float* obs, const float* params, float* actions,
@@ -990,15 +1129,16 @@ extern "C" int rl8_continuous_act(const float* obs, const float* params, float* 
         obs, params, actions, logp, values, B, d, P, squashed, seed, offset, deterministic);
     return (int)cudaGetLastError();
   }
-  // Layers wider than one pass of the tiled route.
-  return launch_streaming(continuous_act_kernel<false>, continuous_act_kernel<true>, d, 2 * action_dim, scratch,
-                          B, (cudaStream_t)stream, obs, params, actions, logp, values, scratch, B, d, squashed,
-                          seed, offset, deterministic);
+  // Layers wider than one pass of the tiled route, and heads or inputs too
+  // wide for it.
+  return launch_staged(obs, params, actions, logp, values, scratch, B, d, 2 * action_dim, squashed, seed, offset,
+                       deterministic, (cudaStream_t)stream);
 }
 
 // Floats of scratch that rl8_discrete_act (continuous = 0; aligned: its
 // parameters are 16-byte aligned) or rl8_continuous_act needs for a launch
-// of B rows of these shapes: 0 for none, -1 where no route takes them.
+// of B rows of these shapes: 0 for none, -1 where no route takes them
+// (dims out of range).
 extern "C" long long rl8_act_scratch(int B, int d_in, int n_layers, const int* hidden, int continuous,
                                      int action_dim, int n_cat, int aligned) {
   ActDims d;

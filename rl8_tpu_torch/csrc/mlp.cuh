@@ -1,6 +1,7 @@
-// Block-level MLP pieces shared by the act kernel (act.cu) and the PPO
-// update kernel (ppo.cu): a block of threads owns R rows whose activations
-// live in shared memory, and weights stream from L2.
+// Block-level MLP pieces shared by the kernels (the PPO update kernel
+// ppo.cu, the chain kernels chains.cu, the act kernels' activations and
+// narrow heads): a block of threads owns R rows whose activations live in
+// shared memory, and weights stream from L2.
 //
 // dense_layer is a [R, in_w] x [in_w, out_w] product: weights are packed
 // [in, out], so thread j reads column j and the 32 threads of a warp read 32
@@ -13,9 +14,6 @@
 
 namespace rl8 {
 namespace {  // each including source gets its own copy
-
-// Rows per block of the act kernel.
-constexpr int kRows = 16;
 
 // Activation codes: the position in rl8_tpu_torch/ops/fused_mlp.py:ACT_FNS,
 // plus kIdentity for products that are not followed by an activation.

@@ -22,9 +22,11 @@
 // ~0.064 ms at the CUDA cores' 67 TFLOP/s f32, ~0.026 ms at three TF32
 // products per f32 product at the tensor cores' 495 TFLOP/s.
 //
-// Design. A block of 256 threads owns a tile of 16 * MT rows (MT = 2 where
-// the tile fits two blocks to an SM, else 1: the two instantiations, chosen
-// by shape at launch). The gate products run on the tensor cores through
+// Two routes, picked by shape at launch (make_plan):
+//
+// The 32-row tiles (rnn_act_kernel, H up to 288 at the main path's shapes:
+// wherever a 32-row tile fits two blocks to an SM). A block of 256 threads
+// owns 32 rows. The gate products run on the tensor cores through
 // mma.cuh's 3xTF32 (f32-accurate per product; each k step of 8 in a fresh
 // accumulator, so the tensor core's truncation does not build up over the
 // 257-deep sums). Warp w owns hidden-unit tiles w, w + 8, ... of 8 units,
@@ -32,23 +34,40 @@
 // every row of the block, so lane (g, tq) holds all four gates of its
 // (row, unit) pairs in its accumulator fragments and the cell update runs
 // there, with no pass through shared memory. Each weight is read from L2
-// once per block (the 16-row blocks of the first design read Wi, Wh and b,
-// 1.06 MB at H = 256, once per 16 rows: ~540 MB of L2 traffic a launch),
-// as B fragments in place, two k steps ahead of the products. The layer's
-// input and previous hidden state lie in shared memory, their rows padded
-// to 4 past a multiple of 32 so that the A fragment loads are free of bank
-// conflicts (unpadded where padding would not fit: the widest layers). The
-// narrow heads and the sampling stay on the CUDA cores.
+// once per block, as B fragments in place, two k steps ahead of the
+// products. The layer's input and previous hidden state lie in shared
+// memory, their rows padded to 4 past a multiple of 32 so that the A
+// fragment loads are free of bank conflicts. The narrow heads and the
+// sampling stay on the CUDA cores.
 //
-// The wide route (rnn_act_kernel<1, _, true>) takes the shapes whose 16-row
-// tile does not fit a block's shared memory (H from ~1210 at the main
-// path's shapes, up to the 1617 that rl8_tpu's residency gate admits
-// there, and wide heads): the A fragments are read straight from device
-// memory through L1 (the observations, h0 with row stride K H, and layer l
-// - 1's h', already written to h_out, with a barrier between layers; rows
-// past B read as 0), shared memory keeps only the top layer's h' [16, H]
-// for the heads, and the heads' rows and the sampling scratch lie in a
-// scratch that the wrapper allocates (rl8_rnn_act_scratch floats).
+// The staged route (every other shape: wider layers, and heads too wide
+// for the 32-row tile) runs a launch as kernels on stage.cuh's parts:
+//   - per layer, TF32 big and small halves of Wi and Wh in the stages'
+//     K-major layout, the gate columns permuted so that the thread of a
+//     wgmma D fragment holds all four gates of its units (tile_tc_kernel,
+//     into the scratch the wrapper allocates, rl8_rnn_act_scratch);
+//   - per layer, rnn_gates_tc_kernel over a grid of (32-unit tiles,
+//     128-row tiles): a block streams its rows of the layer input (the
+//     observations, or layer l - 1's h' from h_out) and of h0, and its unit
+//     tile's 32-deep weight slabs, through a 3-stage cp.async ring in shared
+//     memory, and sums x Wi, then h Wh, on the tensor cores in 3xTF32
+//     wgmma (tc_product: each weight slab feeds all 128 rows; a fresh
+//     accumulator every 64 k folded into an f32 sum, so wgmma's truncation
+//     does not build up over the 1025- to 3234-deep sums), adds the bias
+//     and runs the cell update on the sums in registers, and writes h', c';
+//   - rnn_heads_kernel over blocks of 8 rows: the heads on the top layer's
+//     h' in h_out (st_heads: narrow_head's sums), into the scratch, then
+//     sample.cuh's epilogue.
+// Its shared memory is the ring's, whatever H and the heads; offsets are
+// 64-bit. At H 1024 x 8,192 rows (wide_recurrent's act) the gate grid is 32
+// x 64 blocks, one to an SM, ~15.5 waves on 132 SMs; the products are 68.8
+// GFLOP, 1.03 ms at the CUDA cores' 67 TFLOP/s f32 and 0.42 ms at three
+// TF32 products per f32 product at the tensor cores' 495 TFLOP/s. On an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, one A/B) the launch took
+// 1.19-1.21 ms, the same route with f32 gates on the CUDA cores
+// (fwd_product, an ablation since removed) 1.94, the earlier 16-row tiles
+// (two layer inputs in 204 KB of shared memory, every weight read as scalar
+// B fragments from L2 once per 16 rows) 7.01, the plain version 3.6-4.1.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -58,6 +77,7 @@
 #include "mlp.cuh"
 #include "mma.cuh"
 #include "sample.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -70,9 +90,10 @@ using rl8::narrow_head;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 8;
-constexpr size_t kMaxSmem = 232448;       // a block's shared memory on an H100
+constexpr int kRows = 32;                      // rows a block of the 32-row tiles
 constexpr size_t kTwoBlocksSmem = 113 * 1024;  // two blocks to an SM
 constexpr int kAhead = 2;  // k steps of weights in flight ahead of the products
+constexpr int kHeadRows = 8;  // rows a block of the staged route's heads kernel
 
 struct RnnActDims {
   int d_in, H, K, act_dim, n_cat;
@@ -83,27 +104,46 @@ struct RnnActDims {
   int ldh;      // row stride of the previous hidden state: H, padded
 };
 
-// Floats of shared memory for 16 * mt rows: two layer inputs, the previous
-// hidden state, the heads and the sampling scratch (2A per row).
-size_t smem_floats(const RnnActDims& d, int mt) {
-  return (size_t)16 * mt * (2 * d.ldx + d.ldh + d.stride + 2 * d.act_dim);
+// Floats of shared memory for the 32-row tiles: two layer inputs, the
+// previous hidden state, the heads and the sampling scratch (2A per row).
+size_t smem_floats(const RnnActDims& d) {
+  return (size_t)kRows * (2 * d.ldx + d.ldh + d.stride + 2 * d.act_dim);
 }
 
-// The wide route's floats: shared memory (the top layer's h' of 16 rows)
-// and, per 16 rows, scratch (the heads' rows and the sampling scratch).
-size_t wide_smem_floats(const RnnActDims& d) { return (size_t)16 * d.H; }
-__host__ __device__ inline long long wide_scratch_floats(const RnnActDims& d) {
-  return 16LL * (d.stride + 2 * d.act_dim);
+// The staged route's scratch: per layer the big and small TF32 copies of
+// Wi and Wh (tile_tc_kernel's layout, gate columns permuted), then the
+// heads' rows and the sampling scratch of every kHeadRows rows.
+struct Staged {
+  long long wi[kMaxLayers], wh[kMaxLayers];    // the big halves' offsets
+  long long wis[kMaxLayers], whs[kMaxLayers];  // the small halves'
+  long long heads;                             // the heads' rows' offset
+  long long floats;                            // the whole scratch
+};
+
+Staged staged_layout(const RnnActDims& d, int B) {
+  Staged s;
+  long long off = 0;
+  for (int l = 0; l < d.K; ++l) {
+    const int in_w = l == 0 ? d.d_in : d.H;
+    const long long fi = rl8::bwd_copy_floats(in_w, 4 * d.H), fh = rl8::bwd_copy_floats(d.H, 4 * d.H);
+    s.wi[l] = off;
+    s.wis[l] = off += fi;
+    s.wh[l] = off += fi;
+    s.whs[l] = off += fh;
+    off += fh;
+  }
+  s.heads = off;
+  s.floats = off + (long long)(B + kHeadRows - 1) / kHeadRows * kHeadRows * (d.stride + 2 * d.act_dim);
+  return s;
 }
 
 // acc[mt][q] += A[rows of m tile mt, k < K] W[k, q H + units u0 .. u0 + 7]
 // for the four gates q, on the tensor cores: A in shared memory (rows lda
-// apart; kGlobal: in device memory, 64-bit row offsets, rows at or past nr
-// read as 0), W [K, 4H] row-major in device memory, read as B fragments in
+// apart), W [K, 4H] row-major in device memory, read as B fragments in
 // place kAhead k steps ahead. Units at or past H and k at or past K read 0.
-template <int MT, bool kGlobal = false>
+template <int MT>
 __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A, int lda, int K,
-                                          const float* __restrict__ W, int H, int u0, int nr = 16 * MT) {
+                                          const float* __restrict__ W, int H, int u0) {
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
   const size_t ldw = 4 * (size_t)H;
   const int u = u0 + g;
@@ -136,17 +176,8 @@ __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A
       FragA fa[MT];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        if constexpr (kGlobal) {
-          const int ra = mt * 16 + g, rb = ra + 8;
-          const bool ia = ra < nr, ib = rb < nr;
-          const float* a = A + (size_t)(ia ? ra : 0) * lda + k;
-          const float* a8 = A + (size_t)(ib ? rb : 0) * lda + k;
-          fa[mt].set(lo && ia ? a[0] : 0.0f, lo && ib ? a8[0] : 0.0f, hi && ia ? a[4] : 0.0f,
-                     hi && ib ? a8[4] : 0.0f);
-        } else {
-          const float* a = A + (mt * 16 + g) * lda + k;
-          fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
-        }
+        const float* a = A + (mt * 16 + g) * lda + k;
+        fa[mt].set(lo ? a[0] : 0.0f, lo ? a[8 * lda] : 0.0f, hi ? a[4] : 0.0f, hi ? a[8 * lda + 4] : 0.0f);
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -156,56 +187,41 @@ __device__ __forceinline__ void gate_tile(float (&acc)[MT][4][4], const float* A
   }
 }
 
-template <int MT, bool kContinuous, bool kWide>
+// The 32-row tiles (see the file's head).
+template <bool kContinuous>
 __global__ void __launch_bounds__(kThreads, 2)
     rnn_act_kernel(const float* __restrict__ obs, const float* __restrict__ h0, const float* __restrict__ c0,
                    const float* __restrict__ params, void* __restrict__ actions, float* __restrict__ logp,
-                   float* __restrict__ values, float* __restrict__ h_out, float* __restrict__ c_out,
-                   float* __restrict__ wide_scratch, int B, RnnActDims d, int squashed, uint32_t seed,
-                   uint32_t offset, int deterministic) {
-  constexpr int R = 16 * MT;
+                   float* __restrict__ values, float* __restrict__ h_out, float* __restrict__ c_out, int B,
+                   RnnActDims d, int squashed, uint32_t seed, uint32_t offset, int deterministic) {
+  constexpr int MT = kRows / 16, R = kRows;
   extern __shared__ __align__(16) float smem[];
   const int H = d.H, KH = d.K * H, ldx = d.ldx, ldh = d.ldh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  float* cur = smem;                    // [R, ldx]: the layer's input
-  float* nxt = kWide ? smem : cur + R * ldx;  // [R, ldx]: its output, the next layer's input (wide: the heads')
-  float* hp = nxt + R * ldx;            // [R, ldh]: the layer's previous hidden state
-  float* heads = kWide ? wide_scratch + (size_t)blockIdx.x * wide_scratch_floats(d) : hp + R * ldh;  // [R, stride]
+  float* cur = smem;              // [R, ldx]: the layer's input
+  float* nxt = cur + R * ldx;     // [R, ldx]: its output, the next layer's input
+  float* hp = nxt + R * ldx;      // [R, ldh]: the layer's previous hidden state
+  float* heads = hp + R * ldh;    // [R, stride]
   float* scratch = heads + R * d.stride;  // [R, 2A]
   const int r0 = blockIdx.x * R;
   const int nr = min(R, B - r0);
 
   int in_w = d.d_in;
-  if constexpr (!kWide) {
-    for (int i = threadIdx.x; i < R * in_w; i += blockDim.x) {
-      const int r = i / in_w;
-      cur[r * ldx + i % in_w] = r < nr ? obs[(size_t)r0 * in_w + i] : 0.0f;
-    }
+  for (int i = threadIdx.x; i < R * in_w; i += blockDim.x) {
+    const int r = i / in_w;
+    cur[r * ldx + i % in_w] = r < nr ? obs[(size_t)r0 * in_w + i] : 0.0f;
   }
   const float* p = params;
   for (int l = 0; l < d.K; ++l) {
-    if constexpr (!kWide) {
-      for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
-        const int r = i / H;
-        hp[r * ldh + i % H] = r < nr ? h0[(size_t)(r0 + r) * KH + l * H + i % H] : 0.0f;
-      }
+    for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
+      const int r = i / H;
+      hp[r * ldh + i % H] = r < nr ? h0[(size_t)(r0 + r) * KH + l * H + i % H] : 0.0f;
     }
     __syncthreads();
     const float* wi = p;
     const float* wh = wi + (size_t)in_w * 4 * H;
     const float* b = wh + (size_t)H * 4 * H;
     p = b + 4 * H;
-    // The A operands: in shared memory, or (wide) in place in device memory:
-    // the observations, or layer l - 1's h' in h_out; the stored state.
-    const float* x = cur;
-    const float* hx = hp;
-    int ld_x = ldx, ld_hx = ldh;
-    if constexpr (kWide) {
-      x = l == 0 ? obs + (size_t)r0 * in_w : h_out + (size_t)r0 * KH + (size_t)(l - 1) * H;
-      ld_x = l == 0 ? in_w : KH;
-      hx = h0 + (size_t)r0 * KH + (size_t)l * H;
-      ld_hx = KH;
-    }
     for (int u0 = 8 * warp; u0 < H; u0 += 8 * kWarps) {
       float acc[MT][4][4];
 #pragma unroll
@@ -214,8 +230,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.0f;
-      gate_tile<MT, kWide>(acc, x, ld_x, in_w, wi, H, u0, nr);
-      gate_tile<MT, kWide>(acc, hx, ld_hx, H, wh, H, u0, nr);
+      gate_tile<MT>(acc, cur, ldx, in_w, wi, H, u0);
+      gate_tile<MT>(acc, hp, ldh, H, wh, H, u0);
       // The cell update of the lane's (row, unit) pairs: C fragment element
       // e holds row mt 16 + g (+ 8 for e >= 2) and unit u0 + 2 tq + (e & 1).
 #pragma unroll
@@ -244,19 +260,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    if constexpr (!kWide) {
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
     in_w = H;
   }
-  // Heads on the top layer's h' (cur; wide: nxt): the policy heads side by
-  // side, then the value in the last column.
-  const float* top = kWide ? nxt : cur;
+  // Heads on the top layer's h' (cur): the policy heads side by side, then
+  // the value in the last column.
   for (int q = 0; q <= d.n_heads; ++q) {
     const int w = q < d.n_heads ? d.head_w : 1;
-    narrow_head<R>(top, H, p, p + (size_t)H * w, w, heads, d.stride, q < d.n_heads ? q * w : d.stride - 1, ldx);
+    narrow_head<R>(cur, H, p, p + (size_t)H * w, w, heads, d.stride, q < d.n_heads ? q * w : d.stride - 1, ldx);
     p += (size_t)H * w + w;
   }
   __syncthreads();
@@ -269,28 +282,135 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int MT, bool kWide>
-cudaError_t launch(const RnnActDims& d, int kind, const float* obs, const float* h0, const float* c0,
-                   const float* params, void* actions, float* logp, float* values, float* h_out, float* c_out,
-                   float* wide_scratch, int B, uint32_t seed, uint32_t offset, int deterministic,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kWide ? wide_smem_floats(d) : smem_floats(d, MT));
-  const auto kernel = kind == kCategorical ? rnn_act_kernel<MT, false, kWide> : rnn_act_kernel<MT, true, kWide>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The staged route's layer l: blockIdx.x is a tile of 32 units
+// (tc_product's 128 gate columns, in tile_tc_kernel's order), blockIdx.y
+// the first 128-row tile, which steps by gridDim.y; each gate's sum is the
+// products' (x Wi, then h Wh, in 64-deep chunks) plus its bias. x [B, in_w]
+// (rows ldx apart) is the layer's input (for l >= 1 layer l - 1's columns
+// of h_out), h0 and c0 the stored states; h' and c' go to layer l's columns
+// of h_out and c_out (rows KH apart).
+__global__ void __launch_bounds__(rl8::kStThreads, 1)
+    rnn_gates_tc_kernel(const float* x, long long ldx, int in_w, const float* __restrict__ h0,
+                        const float* __restrict__ c0, const float* __restrict__ wi_big,
+                        const float* __restrict__ wi_small, const float* __restrict__ wh_big,
+                        const float* __restrict__ wh_small, const float* __restrict__ b, float* __restrict__ h_out,
+                        float* __restrict__ c_out, int B, int H, int K, int l) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const long long KH = (long long)K * H;
+  const long long si = (in_w + rl8::kStK - 1) / rl8::kStK, sh = (H + rl8::kStK - 1) / rl8::kStK;
+  const long long wi = blockIdx.x * si * rl8::kStWFloats, wh = blockIdx.x * sh * rl8::kStWFloats;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, tq = threadIdx.x % 4;
+  const long long tiles = (B + R - 1) / R;
+  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, B - r0);
+    const float* xp = x + r0 * ldx;
+    const float* hp = h0 + r0 * KH + (long long)l * H;
+    const rl8::TcSeg seg[2] = {{{xp, ldx, in_w, nr, rl8::st_vec(xp, ldx)}, wi_big + wi, wi_small + wi},
+                               {{hp, KH, H, nr, rl8::st_vec(hp, KH)}, wh_big + wh, wh_small + wh}};
+    rl8::tc_product(seg, 2, st_smem, [&](const float(&sum)[2][32]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = 32 * blockIdx.x + 16 * h + 4 * m + tq;
+          if (j >= H) continue;
+          const float bi = __ldg(b + j), bf = __ldg(b + H + j), bg = __ldg(b + 2 * H + j), bo = __ldg(b + 3 * H + j);
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int r = 64 * wg + 16 * warp + g + 8 * rh;
+            if (r >= nr) continue;
+            float zi = sum[h][8 * m + 2 * rh] + bi, zf = sum[h][8 * m + 2 * rh + 1] + bf;
+            float zg = sum[h][8 * m + 4 + 2 * rh] + bg, zo = sum[h][8 * m + 4 + 2 * rh + 1] + bo;
+            rl8::gate_activations(zi, zf, zg, zo);
+            const long long at = (r0 + r) * KH + (long long)l * H + j;
+            const float c = zf * c0[at] + zi * zg;
+            h_out[at] = zo * tanhf(c);
+            c_out[at] = c;
+          }
+        }
+    });
+  }
+}
+
+// The staged route's heads and sampling over blocks of kHeadRows rows: the
+// heads on the top layer's h' (in h_out) into the block's rows of the
+// scratch (the policy heads side by side, the value last), then the kind's
+// epilogue. heads_p points at the first head's W.
+template <bool kContinuous>
+__global__ void __launch_bounds__(rl8::kStThreads)
+    rnn_heads_kernel(const float* __restrict__ h_out, const float* __restrict__ heads_p, float* __restrict__ rows,
+                     void* __restrict__ actions, float* __restrict__ logp, float* __restrict__ values, int B,
+                     RnnActDims d, int squashed, uint32_t seed, uint32_t offset, int deterministic) {
+  const int H = d.H;
+  const long long KH = (long long)d.K * H;
+  const int r0 = blockIdx.x * kHeadRows;
+  const int nr = min(kHeadRows, B - r0);
+  const float* top = h_out + (long long)r0 * KH + (long long)(d.K - 1) * H;
+  float* heads = rows + (long long)blockIdx.x * kHeadRows * (d.stride + 2 * d.act_dim);  // [kHeadRows, stride]
+  float* scratch = heads + kHeadRows * d.stride;                                           // [kHeadRows, 2A]
+  const float* p = heads_p;
+  for (int q = 0; q <= d.n_heads; ++q) {
+    const int w = q < d.n_heads ? d.head_w : 1;
+    rl8::st_heads(top, KH, H, p, p + (size_t)H * w, w, heads, d.stride, q < d.n_heads ? q * w : d.stride - 1, nr);
+    p += (size_t)H * w + w;
+  }
+  __syncthreads();
+  if constexpr (kContinuous) {
+    rl8::continuous_epilogue(heads, d.stride, r0, nr, d.act_dim, squashed, seed, offset, deterministic,
+                             static_cast<float*>(actions), logp, values, scratch);
+  } else {
+    rl8::categorical_epilogue(heads, d.stride, r0, nr, d.act_dim, d.n_cat, seed, offset, deterministic,
+                              static_cast<int*>(actions), logp, values, scratch);
+  }
+}
+
+// The staged route's launches (see the file's head), on `scratch`
+// (staged_layout's floats).
+cudaError_t launch_staged(const RnnActDims& d, int kind, const float* obs, const float* h0, const float* c0,
+                          const float* params, void* actions, float* logp, float* values, float* h_out,
+                          float* c_out, float* scratch, int B, uint32_t seed, uint32_t offset, int deterministic,
+                          cudaStream_t s) {
+  const Staged S = staged_layout(d, B);
+  const int H = d.H;
+  const long long KH = (long long)d.K * H;
+  cudaError_t err =
+      cudaFuncSetAttribute(rnn_gates_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
   if (err != cudaSuccess) return err;
-  const int grid = (B + 16 * MT - 1) / (16 * MT);
-  kernel<<<grid, kThreads, smem, stream>>>(obs, h0, c0, params, actions, logp, values, h_out, c_out, wide_scratch,
-                                          B, d, (int)(kind == kSquashed), seed, offset, deterministic);
+  const dim3 grid((4 * H + rl8::kStPass - 1) / rl8::kStPass, rl8::st_row_grid(B));
+  const float* p = params;
+  for (int l = 0; l < d.K; ++l) {
+    const int in_w = l == 0 ? d.d_in : H;
+    const float* wi = p;
+    const float* wh = wi + (size_t)in_w * 4 * H;
+    const float* b = wh + (size_t)H * 4 * H;
+    p = b + 4 * H;
+    const float* x = l == 0 ? obs : h_out + (size_t)(l - 1) * H;
+    rl8::tile_tc_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(in_w, 4 * H)), rl8::kStThreads, 0, s>>>(
+        wi, 4 * H, in_w, 4 * H, H, scratch + S.wi[l], scratch + S.wis[l]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    rl8::tile_tc_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(H, 4 * H)), rl8::kStThreads, 0, s>>>(
+        wh, 4 * H, H, 4 * H, H, scratch + S.wh[l], scratch + S.whs[l]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    rnn_gates_tc_kernel<<<grid, rl8::kStThreads, rl8::kStBwdSmem, s>>>(
+        x, l == 0 ? d.d_in : KH, in_w, h0, c0, scratch + S.wi[l], scratch + S.wis[l], scratch + S.wh[l],
+        scratch + S.whs[l], b, h_out, c_out, B, H, d.K, l);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const auto heads = kind == kCategorical ? rnn_heads_kernel<false> : rnn_heads_kernel<true>;
+  heads<<<(B + kHeadRows - 1) / kHeadRows, rl8::kStThreads, 0, s>>>(
+      h_out, p, scratch + S.heads, actions, logp, values, B, d, (int)(kind == kSquashed), seed, offset,
+      deterministic);
   return cudaGetLastError();
 }
 
-// The route of a launch for these shapes, with d filled in: 2 or 1 (tiles
-// of 16 * route rows, the layer inputs in shared memory: 32 rows where two
-// such blocks fit an SM, else 16, with padded rows where they fit a block,
-// else unpadded), 0 (the wide route), or -1 (no route takes them).
+// The route of a launch for these shapes, with d filled in: 2 (the 32-row
+// tiles, where such a tile fits two blocks to an SM), 1 (the staged route,
+// any other shape), or -1 (no route takes them: arguments out of range).
 int make_plan(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat, RnnActDims* d) {
   if (B <= 0 || d_in <= 0 || H <= 0 || K < 1 || K > kMaxLayers || act_dim <= 0 || kind < kCategorical ||
-      kind > kSquashed || (kind == kCategorical && n_cat < 2)) {
+      kind > kSquashed || (kind == kCategorical && n_cat < 2) || 4LL * H > (1LL << 30)) {
     return -1;
   }
   d->d_in = d_in;
@@ -304,28 +424,20 @@ int make_plan(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat, R
   const int xw = d_in > H ? d_in : H;
   d->ldx = (xw + 31) / 32 * 32 + 4;
   d->ldh = (H + 31) / 32 * 32 + 4;
-  if (sizeof(float) * smem_floats(*d, 2) <= kTwoBlocksSmem) return 2;
-  if (sizeof(float) * smem_floats(*d, 1) > kMaxSmem) {
-    d->ldx = xw;
-    d->ldh = H;
-  }
-  if (sizeof(float) * smem_floats(*d, 1) <= kMaxSmem) return 1;
-  d->ldx = H;
-  d->ldh = 0;
-  return sizeof(float) * wide_smem_floats(*d) <= kMaxSmem ? 0 : -1;
+  return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;
 }
 
 }  // namespace
 
 // Floats of scratch that rl8_rnn_act needs for these shapes (0 on the
-// shared-memory routes; the wide route's heads and sampling rows, per 16
-// rows), or -1 where no route takes them (which
+// 32-row tiles; the staged route's weight copies, heads' rows and sampling
+// scratch), or -1 where no route takes them (which
 // ops/fused_rnn_act.py:card_takes_rnn_act asks).
 extern "C" long long rl8_rnn_act_scratch(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat) {
   RnnActDims d;
   const int route = make_plan(B, d_in, H, K, kind, act_dim, n_cat, &d);
   if (route < 0) return -1;
-  return route == 0 ? (long long)((B + 15) / 16) * wide_scratch_floats(d) : 0;
+  return route == 1 ? staged_layout(d, B).floats : 0;
 }
 
 // kind: 0 categorical (actions int32 [B, A]), 1 normal, 2 squashed (actions
@@ -338,19 +450,19 @@ extern "C" int rl8_rnn_act(const float* obs, const float* h0, const float* c0, c
                            unsigned int offset, int deterministic, int device, void* stream) {
   RnnActDims d;
   const int route = make_plan(B, d_in, H, K, kind, act_dim, n_cat, &d);
-  if (route < 0 || (route == 0 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  if (route < 0 || (route == 1 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (route == 2) {
-    err = launch<2, false>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, nullptr, B, seed,
-                           offset, deterministic, s);
-  } else if (route == 1) {
-    err = launch<1, false>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, nullptr, B, seed,
-                           offset, deterministic, s);
-  } else {
-    err = launch<1, true>(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, scratch, B, seed,
-                          offset, deterministic, s);
+  if (route == 1) {
+    return (int)launch_staged(d, kind, obs, h0, c0, params, actions, logp, values, h_out, c_out, scratch, B, seed,
+                              offset, deterministic, s);
   }
-  return (int)err;
+  const size_t smem = sizeof(float) * smem_floats(d);
+  const auto kernel = kind == kCategorical ? rnn_act_kernel<false> : rnn_act_kernel<true>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(B + kRows - 1) / kRows, kThreads, smem, s>>>(obs, h0, c0, params, actions, logp, values, h_out, c_out, B,
+                                                        d, (int)(kind == kSquashed), seed, offset, deterministic);
+  return (int)cudaGetLastError();
 }

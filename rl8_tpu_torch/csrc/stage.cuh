@@ -1,6 +1,8 @@
 // Staged block products for the update kernels' wide routes (ppo.cu's
 // ppo_wide_fwd_kernel and ppo_wide_bwd_kernel, rnn_ppo.cu's
-// rnn_wide_fwd_kernel and rnn_wide_bwd_kernel): a block of 256 threads
+// rnn_wide_fwd_kernel and rnn_wide_bwd_kernel) and the act kernels' staged
+// routes (act.cu's act_layer_kernel and act_layer_tc_kernel, rnn_act.cu's
+// rnn_gates_tc_kernel, and their heads kernels): a block of 256 threads
 // owns kStRows rows whose operands live in device memory (the kernels'
 // scratches, or the packed minibatch), and each product streams both of
 // its operands through a ring of kStStages shared-memory stages filled by
@@ -30,6 +32,14 @@
 //   bias reaches 1e-5 to 6e-5 of the outputs (tests/test_torch_tf32.py), so
 //   every kStChunk of k starts a fresh accumulator that a CUDA-core add
 //   (round to nearest) folds into the running f32 sum, in order.
+//
+// - tc_product: out[r, n] = sum_k A[r, k] W[k, n] for one tile of kStPass
+//   columns on the tensor cores, 3xTF32 wgmma with bwd_product's scheme, W
+//   (stored [in, out]) from big and small TF32 copies that the launch makes
+//   once, K-major, in the stages' layout (tile_tc_kernel; for the LSTM's
+//   gates with the columns permuted so that one thread's D fragment holds
+//   all four gates of its units), over one or two operands one after the
+//   other (x Wi, then h Wh), a fresh accumulator every kStChunk of k.
 //
 // Each kernel of a wide route holds one kind of product, one block an SM:
 // fwd_product's 128 accumulators a thread, and bwd_product's running sums
@@ -79,6 +89,18 @@ __host__ __device__ inline long long round_up(long long x, long long m) { return
 // the two halves of a copy in bwd_product's (N units, K deep).
 __host__ inline long long fwd_copy_floats(int K, int N) { return round_up(K, kStK) * round_up(N, kStFwdPass); }
 __host__ inline long long bwd_copy_floats(int K, int N) { return round_up(K, kStK) * round_up(N, kStPass); }
+
+// Blocks of kStThreads for a weight copy of `floats` (tile_fwd_kernel's and
+// tile_tc_kernel's loops step by the grid), and the y extent of a grid over
+// B rows' kStRows-row tiles (its kernels step by gridDim.y past the cap).
+__host__ inline int st_copy_grid(long long floats) {
+  const long long blocks = (floats + kStThreads - 1) / kStThreads;
+  return (int)(blocks < 1 ? 1 : (blocks > 4096 ? 4096 : blocks));
+}
+__host__ inline unsigned st_row_grid(long long B) {
+  const long long tiles = (B + kStRows - 1) / kStRows;
+  return (unsigned)(tiles < 65535 ? tiles : 65535);
+}
 
 // fwd_product's copy of W [K, N] (W[k, n] = src[k * ld + col(n)], col(n) =
 // n, or, with gates, the LSTM's gate q = n % 4 of unit n / 4: q H + n / 4,
@@ -173,15 +195,15 @@ __device__ __forceinline__ void st_stage_ready() {
 
 // mlp.cuh's narrow_head for rows in device memory, 64-bit row offsets:
 // out[r * stride + col0 + o] = sum_k in[r * ld_in + k] W[k, o] + b[o] for
-// the block's kStRows rows, one warp a (row, output) pair, lane l summing
-// k = l, l + 32, ... in order and an xor butterfly adding the lanes, the
-// same sums as narrow_head's (so the same bits), with eight of a lane's
-// loads in flight at once.
+// the block's first `rows` rows (kStRows by default), one warp a (row,
+// output) pair, lane l summing k = l, l + 32, ... in order and an xor
+// butterfly adding the lanes, the same sums as narrow_head's (so the same
+// bits), with eight of a lane's loads in flight at once.
 __device__ __forceinline__ void st_heads(const float* in, long long ld_in, int in_w, const float* __restrict__ W,
                                          const float* __restrict__ b, int n_out, float* out, long long stride,
-                                         int col0) {
+                                         int col0, int rows = kStRows) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int p = warp; p < kStRows * n_out; p += kStThreads / 32) {
+  for (int p = warp; p < rows * n_out; p += kStThreads / 32) {
     const int r = p / n_out, o = p % n_out;
     const float* x = in + r * ld_in;
     float s = 0.0f;
@@ -375,6 +397,126 @@ __device__ void bwd_product(const StRows& a, const float* __restrict__ big, cons
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// tc_product's copies of W [K, N] (W[k, n] = src[k * ld + col(n)]; col(n)
+// = n, or, with gates, the LSTM's column of gate q of unit u below) split
+// into TF32 big and small halves: [N / kStPass passes][K / kStK stages]
+// [kStK / 4][kStPass][4] (bwd_product's stage layout), zeros past K and N.
+// With gates, column c of pass p (n64 tile h = c / 64, then j = (c % 64) / 8,
+// t = (c % 8) / 2, e = c % 2) is gate q = 2 (j % 2) + e of unit u = 32 p +
+// 16 h + 4 (j / 2) + t, so that the thread of a wgmma D fragment that holds
+// column 2 t + e of the tile's 8-column groups 2 m and 2 m + 1 holds all
+// four gates of unit 4 m + t.
+__global__ void tile_tc_kernel(const float* __restrict__ src, long long ld, int K, int N, int gates_H,
+                               float* __restrict__ big, float* __restrict__ small) {
+  const long long S = round_up(K, kStK) / kStK, total = round_up(N, kStPass) * S * kStK;
+  for (long long o = blockIdx.x * (long long)blockDim.x + threadIdx.x; o < total;
+       o += (long long)gridDim.x * blockDim.x) {
+    const long long p = o / (S * kStWFloats), s = (o / kStWFloats) % S;
+    const int e = (int)(o % kStWFloats);
+    const int kc = e / (4 * kStPass), nn = (e / 4) % kStPass, kk = 4 * kc + e % 4;
+    const long long k = s * kStK + kk, n = p * kStPass + nn;
+    long long col = n;
+    bool in = n < N;
+    if (gates_H) {
+      const int j = (nn % 64) / 8, tq = (nn % 8) / 2;
+      const long long u = 32 * p + 16 * (nn / 64) + 4 * (j / 2) + tq;
+      col = (2 * (j % 2) + nn % 2) * (long long)gates_H + u;
+      in = u < gates_H;
+    }
+    uint32_t b = 0, sm = 0;
+    if (k < K && in) split_tf32(src[k * ld + col], b, sm);
+    big[o] = __uint_as_float(b);
+    small[o] = __uint_as_float(sm);
+  }
+}
+
+// One operand of tc_product: rows `a` against the big and small copies of
+// its weight's column tile (tile_tc_kernel's layout, the tile's pass).
+struct TcSeg {
+  StRows a;
+  const float* big;
+  const float* small;
+};
+
+// out = A W over the segments one after the other for one tile of kStPass
+// columns, on the tensor cores in 3xTF32 wgmma (bwd_product's scheme: the
+// two warpgroups own 64 rows each, each thread splits its A fragments from
+// the staged slab in registers, W's halves are the K-major B operand), each
+// kStChunk of k (counted over the segments' stages in turn) in a fresh
+// accumulator folded into an f32 running sum in order. done(sum) takes the
+// thread's sums once: element i of n64 tile h is row 64 wg + 16 warp + g +
+// 8 ((i >> 1) & 1), column 64 h + 8 (i >> 2) + 2 t + (i & 1). Every thread
+// of the block calls it; it returns after a barrier.
+template <class Done>
+__device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done) {
+  constexpr int KSteps = kStK / 8;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  int iters = 0, s1 = 0;
+  for (int q = 0; q < n_seg; ++q) {
+    const int sq = (seg[q].a.K + kStK - 1) / kStK;
+    if (q == 0) s1 = sq;
+    iters += sq;
+  }
+  auto issue = [&](int it) {
+    if (it < iters) {
+      float* st = smem + (it % kStStages) * kStBwdFloats;
+      const int q = it < s1 ? 0 : 1, sq = q == 0 ? it : it - s1;
+      const long long w = (long long)sq * kStWFloats;
+      st_load_rows(st, seg[q].a, sq * kStK);
+      st_load_run(st + kStAFloats, seg[q].big + w, kStWFloats);
+      st_load_run(st + kStAFloats + kStWFloats, seg[q].small + w, kStWFloats);
+    }
+    cp_async_commit();
+  };
+  float acc[2][32], sum[2][32];
+#pragma unroll
+  for (int s = 0; s < kStStages - 1; ++s) issue(s);
+  for (int it = 0; it < iters; ++it) {
+    st_stage_ready<true>();
+    issue(it + kStStages - 1);
+    const float* st = smem + (it % kStStages) * kStBwdFloats;
+    const float* As = st + (64 * wg + 16 * warp + g) * kStLdA + t;
+    uint32_t a_big[KSteps][4], a_small[KSteps][4];
+#pragma unroll
+    for (int ks = 0; ks < KSteps; ++ks) {
+      const float* x = As + 8 * ks;
+      split_tf32(x[0], a_big[ks][0], a_small[ks][0]);
+      split_tf32(x[8 * kStLdA], a_big[ks][1], a_small[ks][1]);
+      split_tf32(x[4], a_big[ks][2], a_small[ks][2]);
+      split_tf32(x[8 * kStLdA + 4], a_big[ks][3], a_small[ks][3]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < KSteps; ++ks) {
+      const float* b = st + kStAFloats + 8 * ks * kStPass;
+      wgmma_fence();
+      const int add = (it * kStK + 8 * ks) % kStChunk != 0;  // a chunk's first k step starts its sum
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t db = wgmma_desc(b + 4 * 64 * h, 16 * kStPass, 128);
+        const uint64_t ds = wgmma_desc(b + kStWFloats + 4 * 64 * h, 16 * kStPass, 128);
+        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, add);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[h][i])::"memory");
+    if ((it + 1) * kStK % kStChunk == 0 || it == iters - 1) {
+      const bool first = it < kStChunk / kStK;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sum[h][i] = first ? acc[h][i] : sum[h][i] + acc[h][i];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  done(sum);
 }
 
 }  // namespace

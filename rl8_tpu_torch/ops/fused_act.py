@@ -123,10 +123,10 @@ def _scratch_floats(params: ActParams, B: int, aligned: bool = True) -> int:
 
 def card_takes_act(params: ActParams) -> bool:
     """Whether ``csrc/act.cu`` takes these shapes on one of its routes: the
-    streaming route's scratch variant takes any width and observation, as
-    long as a block's heads fit its shared memory (policy heads up to
-    ~3,600 wide). This builds the kernels, if they are not built yet, and
-    asks them; the algorithms ask at build."""
+    staged route takes any width, observation and heads (its activations,
+    heads and weight copies in a scratch allocated per launch). This
+    builds the kernels, if they are not built yet, and asks them; the
+    algorithms ask at build."""
     return _scratch_floats(params, 1) >= 0
 
 
@@ -185,17 +185,22 @@ def fused_act(
     CUDA tensors launch the kind's kernel in ``csrc/act.cu`` (and count
     one launch in ``fused_act.launches`` for the categorical kind, in
     ``fused_act.continuous_launches`` for the others) or raise; CPU
-    tensors run :func:`act_plain`. The shapes pick each kernel's route: the
+    tensors run :func:`act_plain`. Where no route takes the shapes it
+    raises ``NotImplementedError`` before allocating or launching anything
+    (:func:`card_takes_act`). The shapes pick each kernel's route: the
     categorical kind takes the wgmma route (64-row blocks, products on the
     tensor cores in 3xTF32) where the observation and every hidden layer
     are at most 256 wide and the parameters are 16-byte aligned; the
     continuous kinds, and the categorical kind that the wgmma route does
     not take, take the tiled route (64-row blocks, weights streamed through
     shared memory, register-tiled f32 products) where every hidden layer is
-    at most 256 wide; the streaming route takes wider layers, its
-    activations in shared memory where they fit and else in a scratch
-    allocated here (:func:`card_takes_act` asks its limit). Non-f32
-    observations are widened to f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
+    at most 256 wide; the staged route takes wider layers (and inputs or
+    heads too wide for the tiled route): one launch a layer over both
+    chains, 128-row blocks, operands staged through shared memory, the
+    categorical kind's layers in 3xTF32 ``wgmma``, the continuous kinds'
+    in f32, then a heads and sampling launch, on a scratch allocated here
+    (:func:`card_takes_act` asks it). Non-f32 observations are widened to
+    f32 first. Returns ``(actions [B, A], logp [B, 1], values [B, 1])``,
     actions int32 for the categorical kind and f32 otherwise.
     """
     if obs.dtype != torch.float32:
@@ -214,15 +219,15 @@ def fused_act(
     if not (obs.is_contiguous() and params.flat.is_contiguous()):
         raise ValueError("The act kernel needs contiguous obs and params.")
     B = obs.shape[0]
+    floats = _scratch_floats(params, B, aligned=params.flat.data_ptr() % 16 == 0)
+    if floats < 0:
+        raise NotImplementedError("The act kernel takes no route at these shapes (see card_takes_act).")
+    lib = load()
     action_dtype = torch.float32 if params.continuous else torch.int32
     actions = torch.empty((B, params.action_dim), dtype=action_dtype, device=obs.device)
     logp = torch.empty((B, 1), dtype=torch.float32, device=obs.device)
     values = torch.empty((B, 1), dtype=torch.float32, device=obs.device)
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
-    lib = load()
-    floats = _scratch_floats(params, B, aligned=params.flat.data_ptr() % 16 == 0)
-    if floats < 0:
-        raise ValueError("The act kernel does not take these shapes (see card_takes_act).")
     scratch = torch.empty(floats, dtype=torch.float32, device=obs.device) if floats else None
     ptrs = (
         obs.data_ptr(), params.flat.data_ptr(), actions.data_ptr(), logp.data_ptr(), values.data_ptr(),

@@ -270,13 +270,13 @@ def _scratch_floats(params: RnnParams, B: int) -> int:
 
 def card_takes_rnn_act(params: RnnParams) -> bool:
     """Whether ``csrc/rnn_act.cu`` takes these shapes on one of its routes:
-    the layer inputs in shared memory where a 16-row tile of them fits a
-    block (``H`` up to ~1209 at the dummy envs' shapes), else the wide
-    route, which reads them in place from device memory and keeps the
-    heads' rows in a scratch (``H`` up to ~3,600, past every width
-    ``rl8_tpu``'s residency gate admits). This builds the kernels, if they
-    are not built yet, and asks them; the recurrent algorithm asks at
-    build."""
+    32-row tiles in shared memory where one fits two blocks to an SM
+    (``H`` up to 288 at the dummy envs' shapes), else the staged route,
+    which streams the rows and the weights through shared memory and keeps
+    its weight copies and the heads' rows in a scratch: any ``H`` and heads
+    (past every width ``rl8_tpu``'s residency gate admits). This builds the
+    kernels, if they are not built yet, and asks them; the recurrent
+    algorithm asks at build."""
     return _scratch_floats(params, 1) >= 0
 
 
@@ -295,8 +295,8 @@ def fused_rnn_act(
     ``fused_rnn_act.launches`` for the categorical kind, in
     ``fused_rnn_act.continuous_launches`` for the others) or raise:
     ``NotImplementedError``, before any launch, where no route of the
-    kernel takes the shapes (:func:`card_takes_rnn_act`). The wide route's
-    scratch is allocated here. CPU tensors run :func:`rnn_act_plain`.
+    kernel takes the shapes (:func:`card_takes_rnn_act`). The staged
+    route's scratch is allocated here. CPU tensors run :func:`rnn_act_plain`.
     Non-f32 observations are widened to f32 first. See
     :func:`rnn_act_plain` for the arguments and results.
     """

@@ -8,16 +8,19 @@ check and the act wrapper's refusal.
   against on the card) against ``jax.grad`` of ``rl8_tpu``'s recurrent
   loss at H = 1024, one and two layers, Categorical with an entropy
   bonus, Normal, and SquashedNormal without one.
-- ``rnn_act_plain`` (what ``csrc/rnn_act.cu``'s wide route is held
+- ``rnn_act_plain`` (what ``csrc/rnn_act.cu``'s staged route is held
   against), deterministic, against ``rl8_tpu``'s module forward at H =
-  1210 (the first width past the act kernel's 16-row tile) and 1617 (the
-  gate's widest).
+  1210 (the first width past the earlier 16-row tile) and 1617 (the
+  gate's widest), one layer, and at two 1024-wide layers (the staged
+  route's per-layer launches, layer 2 reading layer 1's h').
 - One whole-buffer ``step()`` of a 1024-wide LSTM in each package from
   the same parameters and buffer, and the route flags of a 1300-wide LSTM
   against ``rl8_tpu``'s.
 - ``_check_card_takes_kernels`` with the device patched to ``cuda`` and
   the kernels' queries patched, and ``fused_rnn_act`` on tensors that
-  report ``cuda`` with the query saying -1.
+  report ``cuda``: with the query saying -1 it raises before any launch;
+  with a positive answer it allocates that scratch and passes it to the
+  launch.
 
 Tolerances, f32 on both sides with other summation orders over 1024- to
 1617-term sums: gradients by norm-relative error 1e-5, losses rtol 1e-5
@@ -178,18 +181,16 @@ def test_plain_update_matches_jax_autodiff_at_1024(kind: str, ec: float, layers:
         assert _norm_rel(got, ref) < F32_GRAD_REL, (jax.tree_util.keystr(path), _norm_rel(got, ref))
 
 
-@pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
-@pytest.mark.parametrize("H", [1210, 1617])
-def test_act_plain_matches_jax_forward_wide(H: int, kind: str) -> None:
+def _check_act_plain_against_jax(H: int, layers: int, kind: str) -> None:
     """``rnn_act_plain``, deterministic, against ``rl8_tpu``'s module forward
-    at the act kernel's wide-route widths: the values, the log-prob of the
+    at ``layers`` H-wide LSTM layers: the values, the log-prob of the
     greedy action (the argmax, or the mean, squashed when the kind is)
     under ``rl8_tpu``'s distribution, and the new states."""
     B = 16
-    rng = np.random.default_rng(H)
-    jmodel, model = _models(kind, H, 1)
+    rng = np.random.default_rng(H + layers - 1)
+    jmodel, model = _models(kind, H, layers)
     obs = rng.normal(size=(B, D)).astype(np.float32)
-    states = _states(rng, B, 1, H)
+    states = _states(rng, B, layers, H)
     params = _params(jmodel, model, obs[:, None], states, rng)
     (features, values), new_states = jmodel.apply(
         {"params": params}, {DataKeys.OBS: jnp.asarray(obs[:, None])}, jax.tree_util.tree_map(jnp.asarray, states)
@@ -210,6 +211,22 @@ def test_act_plain_matches_jax_forward_wide(H: int, kind: str) -> None:
     for key in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES):
         np.testing.assert_allclose(tstates[key].numpy(), np.asarray(new_states[key]), rtol=ACT_RTOL, atol=ACT_ATOL,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
+@pytest.mark.parametrize("H", [1210, 1617])
+def test_act_plain_matches_jax_forward_wide(H: int, kind: str) -> None:
+    """``rnn_act_plain`` against ``rl8_tpu``'s module forward at one wide
+    layer (``_check_act_plain_against_jax``)."""
+    _check_act_plain_against_jax(H, 1, kind)
+
+
+@pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
+def test_act_plain_matches_jax_forward_two_layers_1024(kind: str) -> None:
+    """``rnn_act_plain`` against ``rl8_tpu``'s module forward at two
+    1024-wide LSTM layers, the shape the staged route runs as one gate
+    launch a layer on the card (``_check_act_plain_against_jax``)."""
+    _check_act_plain_against_jax(1024, 2, kind)
 
 
 def test_step_matches_jax_at_1024() -> None:

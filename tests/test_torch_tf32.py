@@ -27,6 +27,19 @@ act kernel's wgmma route (``csrc/act.cu``, ``csrc/wgmma.cuh``), whose
 accumulators hold a layer's whole K: there 3xTF32 stays ten times inside
 the act checks' limits, and one TF32 product per f32 product does not.
 
+The act kernels' staged routes (``csrc/act.cu`` past 256 wide,
+``csrc/rnn_act.cu`` past the 32-row tiles) run the LSTM's gate products
+and the discrete torso's layers on 3xTF32 ``wgmma`` (``csrc/stage.cuh``'s
+``tc_product``: ``bwd_product``'s fresh accumulator every 64 k, an f32
+running sum, the bias added after; for the gates x Wi, its k padded to a
+whole stage of 32, then h Wh, in one run of chunks), and the continuous
+torso's layers in f32 on the CUDA cores (``fwd_product``: each output one
+accumulator, in order of k, one ``fmaf`` a term, from 0, the bias added
+after; ``kernel_variants.py`` also runs the gates and the discrete layers
+that way, from the bias for the gates). The staged cases emulate both at
+the routes' depths against float64 as a share of the act checks' limit;
+one TF32 product per f32 product breaks the limit at every one of them.
+
 The update kernels' wide routes (``csrc/stage.cuh``'s ``bwd_product``, in
 ``ppo_wide_kernel`` and ``rnn_wide_kernel``) run the backward's dh
 products on 3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to
@@ -314,3 +327,113 @@ def test_whole_k_wgmma_accumulator_misses_the_margin_at_wide_depths(case: str) -
     a, w = wide_dh_operands(K, kind)
     want = a.double() @ w.double()
     assert rel_err(products_3x_rz_whole_k(a, w), want) > PPO_GRAD_RTOL / 10
+
+
+def f32_fma_sum(a: torch.Tensor, w: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """``start + a @ w`` as ``fwd_product`` sums it: one f32 accumulator per
+    output, one fused multiply-add a k in order of k (the product exact in
+    float64, the sum rounded to f32 once per term)."""
+    acc = start.float().clone()
+    a64, w64 = a.double(), w.double()
+    for k in range(a.shape[1]):
+        acc = (acc.double() + a64[:, k : k + 1] * w64[k : k + 1]).float()
+    return acc
+
+
+#: The LSTM gate sums of ``rnn_gates_tc_kernel`` over 128 rows (d_x, H):
+#: the gate pre-activations at H = 1024 (``wide_recurrent``'s act; x Wi
+#: over the obs dim 1, then h Wh over 1024) and H = 1617 (the gate's
+#: widest), and a second layer's (x of 1024 h' values).
+STAGED = {"lstm_1024": (1, 1024), "lstm_1617": (1, 1617), "lstm_layer2_1024": (1024, 1024)}
+
+#: The continuous act kernel's staged layers (f32, ``fwd_product``) over
+#: 128 rows and one 256-column tile: a torso layer at 1024 (``wide_torso``)
+#: and 2388 (the widest admitted twin torso).
+STAGED_TORSO = {"torso_1024": 1024, "torso_2388": 2388}
+
+
+@pytest.mark.parametrize("case", list(STAGED_TORSO))
+def test_staged_act_sums_in_f32_order_of_k(case: str) -> None:
+    """The continuous kinds' staged layer sums in f32 in order of k against
+    float64, as a share of the act checks' limit ``ACT_ATOL + ACT_RTOL
+    |p|``: relu activations of a wide cell's spread, up to ~80, against
+    lecun-normal weights, outputs up to ~65, within a quarter of it, and
+    within twice what torch's own f32 product reaches on the same inputs
+    (~0.09 of the limit: f32 itself leaves no tenfold margin at outputs of
+    that size)."""
+    d_x = STAGED_TORSO[case]
+    rng = np.random.default_rng(23)
+    a = np.maximum(rng.normal(size=(128, d_x)), 0.0) * 20.0
+    w = lecun_normal(rng, d_x, (d_x, 256))
+    start = np.zeros((128, 256))
+    a32, w32, s32 = (torch.from_numpy(v.astype(np.float32)) for v in (a, w, start))
+    want = s32.double() + a32.double() @ w32.double()
+
+    def share(got: torch.Tensor) -> float:
+        return float(((got.double() - want).abs() / (ACT_ATOL + ACT_RTOL * want.abs())).max())
+
+    staged = share(f32_fma_sum(a32, w32, s32))
+    assert staged <= 0.25
+    assert staged <= 2 * share(s32 + a32 @ w32)
+
+
+def staged_gate_operands(d_x: int, H: int, seed: int = 23):
+    """A 128-row block's gate operands for one 128-column tile: ``[x, 0, h]``
+    with x's k padded to a whole stage of 32 (observations in +-3 when
+    ``d_x`` is 1, else a layer's h' in (-1, 1)), ``[Wi; 0; Wh]`` at the
+    LSTM's 1 / sqrt(H) scale, a bias of a few tenths; and the float64
+    pre-activations."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3.0, 3.0, size=(128, d_x)) if d_x == 1 else rng.uniform(-1.0, 1.0, size=(128, d_x))
+    pad = (-d_x) % 32
+    a = np.concatenate([x, np.zeros((128, pad)), rng.uniform(-1.0, 1.0, size=(128, H))], 1)
+    w = np.concatenate([rng.uniform(-1.0, 1.0, size=(d_x, 128)), np.zeros((pad, 128)),
+                        rng.uniform(-1.0, 1.0, size=(H, 128))], 0) / np.sqrt(H)
+    b = rng.uniform(-0.3, 0.3, size=(1, 128))
+    a32, w32, b32 = (torch.from_numpy(v.astype(np.float32)) for v in (a, w, b))
+    return a32, w32, b32, a32.double() @ w32.double() + b32.double()
+
+
+@pytest.mark.parametrize("case", ["lstm_1024", "lstm_1617", "lstm_layer2_1024"])
+def test_staged_wgmma_gates_in_64_deep_chunks(case: str) -> None:
+    """``rnn_gates_tc_kernel``'s sums (x Wi then h Wh through
+    ``tc_product``'s 64-deep chunks, then the bias) stay ten times inside
+    the act checks' limit against float64 at the gate depths of
+    ``wide_recurrent`` (1 + 1024), the gate's widest LSTM (1 + 1617) and a
+    second 1024-wide layer (1024 + 1024); one TF32 product per f32 product
+    breaks the limit."""
+    d_x, H = STAGED[case]
+    a, w, b, want = staged_gate_operands(d_x, H)
+
+    def share(got: torch.Tensor) -> float:
+        return float(((got.double() - want).abs() / (ACT_ATOL + ACT_RTOL * want.abs())).max())
+
+    assert share(products_3x_rz_chunked(a, w) + b) <= 0.1
+    assert share(products_1x(a, w) + b) > 1.0
+
+
+@pytest.mark.parametrize("width", [1025, 1813, 2388])
+def test_staged_wgmma_torso_in_64_deep_chunks(width: int) -> None:
+    """The discrete act kernel's staged route at twin torsos of ``width``
+    (the second layer's k 1025 to 2388), as ``wide_sweep`` drives it: 256
+    rows of observations 20 N(0, 1) through two relu layers whose products
+    are ``tc_product``'s (64-deep chunks; the first layer's k of 1 padded
+    to a stage), then f32 heads (lecun-normal, as the checks draw them).
+    What the act checks compare, the log-probs (A=1, n=2) and the value,
+    stays within a quarter of their limit against float64 (torch's own f32
+    products reach 0.03-0.07 of it there), and one TF32 product per f32
+    product breaks the limit."""
+    rng = np.random.default_rng(29)
+    obs = torch.from_numpy((rng.normal(size=(256, 1)) * 20.0).astype(np.float32))
+    chains = [tuple(torch.from_numpy(m.astype(np.float32)) for m in
+                    (lecun_normal(rng, 1, (1, width)), lecun_normal(rng, width, (width, width)),
+                     lecun_normal(rng, width, (width, n)))) for n in (2, 1)]
+    want = act_torso_outputs(obs.double(), [tuple(m.double() for m in c) for c in chains], lambda a, b: a @ b)
+
+    def share(products) -> float:
+        logits, values = act_torso_outputs(obs, chains, products)
+        pairs = ((torch.log_softmax(logits.double(), 1), torch.log_softmax(want[0], 1)), (values, want[1]))
+        return max(float(((g.double() - w).abs() / (ACT_ATOL + ACT_RTOL * w.abs())).max()) for g, w in pairs)
+
+    assert share(products_3x_rz_chunked) <= 0.25
+    assert share(products_1x) > 1.0

@@ -13,6 +13,9 @@ port's plain update, act and step at a 1024-wide twin torso against
 - ``ppo_grads_plain`` against ``jax.grad`` and ``act_plain`` against the
   flax forward at 1024 wide on 64 rows, and one ``step()`` of a 1024-wide
   model against ``rl8_tpu``'s from the same parameters and buffer.
+- ``fused_act`` on tensors that report ``cuda`` with the kernel's capacity
+  query saying -1 (it raises before any launch), and ``card_takes_act``
+  reading that query at one row.
 
 Tolerances, f32 on both sides with other summation orders over 1024-term
 sums: gradients by norm-relative error 1e-5, losses rtol 1e-5 atol 1e-6
@@ -22,6 +25,7 @@ sums: gradients by norm-relative error 1e-5, losses rtol 1e-5 atol 1e-6
 
 from __future__ import annotations
 
+import importlib
 import math
 
 import jax
@@ -69,6 +73,8 @@ from rl8_tpu_torch.models import (
 from rl8_tpu_torch.ops import (
     PPOLossConfig,
     act_plain,
+    card_takes_act,
+    fused_act,
     chains_fit_vmem,
     model_fits_vmem,
     pack_act_params,
@@ -366,7 +372,7 @@ def test_plain_update_matches_jax_autodiff_at_1024(kind: str, ec: float) -> None
 
 @pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
 def test_act_plain_matches_jax_forward_at_1024(kind: str) -> None:
-    """``act_plain`` (what ``csrc/act.cu``'s streaming route is held
+    """``act_plain`` (what ``csrc/act.cu``'s staged route is held
     against on the card), deterministic, against ``rl8_tpu``'s 1024-wide
     module forward: the values, and the log-prob of the greedy action (the
     mean, or its tanh) under ``rl8_tpu``'s distribution."""
@@ -408,3 +414,52 @@ def test_step_matches_jax_at_1024() -> None:
     tdelta = _flat(to_jax_params(talgo.policy.model)) - start
     assert np.linalg.norm(jdelta) > 0
     assert np.linalg.norm(tdelta - jdelta) <= DELTA_REL * np.linalg.norm(jdelta)
+
+
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that a wrapper takes its
+    card path up to the point where it would allocate or launch."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("cuda", 0)
+
+
+def _reports_cuda(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_ReportsCuda, t)
+
+
+@pytest.mark.parametrize("kind", ["categorical", "squashed"])
+def test_act_wrapper_refuses_before_any_launch(kind: str, monkeypatch) -> None:
+    """``fused_act`` raises ``NotImplementedError`` where the kernel's
+    capacity query says -1 (for the launch's rows and the parameters'
+    alignment), before it launches anything or counts a launch; and
+    ``card_takes_act`` is that query at one row."""
+    fused_act_module = importlib.import_module("rl8_tpu_torch.ops.fused_act")
+    B = 4
+    if kind == "categorical":
+        model = DefaultDiscreteModel(Unbounded(1), Discrete(2, shape=(1,)), hiddens=(300, 300))
+    else:
+        model = DefaultContinuousModel(Unbounded(1), Unbounded(1), hiddens=(300, 300))
+    params = pack_act_params(model, squashed=kind == "squashed")
+    params = type(params)(**{**params.__dict__, "flat": _reports_cuda(params.flat)})
+    obs = _reports_cuda(torch.zeros((B, 1)))
+    asked = []
+
+    class Library:
+        def rl8_discrete_act(self, *args):
+            raise AssertionError("the kernel was launched")
+
+        rl8_continuous_act = rl8_discrete_act
+
+    monkeypatch.setattr(fused_act_module, "_scratch_floats",
+                        lambda p, rows, aligned=True: asked.append((rows, aligned)) or -1)
+    monkeypatch.setattr(fused_act_module, "load", Library)
+    launches = (fused_act.launches, fused_act.continuous_launches)
+    with pytest.raises(NotImplementedError, match="card_takes_act"):
+        fused_act(params, obs, (1, 2))
+    assert asked == [(B, params.flat.data_ptr() % 16 == 0)]
+    assert (fused_act.launches, fused_act.continuous_launches) == launches
+    assert not card_takes_act(params) and asked[-1] == (1, True)
+    monkeypatch.setattr(fused_act_module, "_scratch_floats", lambda p, rows, aligned=True: 12345)
+    assert card_takes_act(params)

@@ -6,9 +6,8 @@ It needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and
 ``nvidia-smi``, and imports neither JAX nor ``rl8_tpu``. (``python3
 chip_smoke.py --time-updates LABEL`` builds the kernels and times only
 the update kernels and their split by kernel, for comparing two
-checkouts: see ``time_updates``; ``python3 chip_smoke.py --multi-card``
-on a host with several cards runs the sharded cells one rank a card over
-NCCL: see ``run_multi_card``.)
+checkouts: see ``time_updates``; ``python3 chip_smoke.py --multi-card`` on a host with several cards runs the
+sharded cells one rank a card over NCCL: see ``run_multi_card``.)
 Phases, each printing one JSON line; any failed check raises and exits
 non-zero:
 
@@ -42,10 +41,10 @@ non-zero:
    the chain forward and backward kernels at MischievousMule's chains
    (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
    (1,000 rows, d_in 1 and 64), at zero-variance rows, at 160/136-wide
-   layers (the tiled forward's general path, the streaming backward) and at
-   one 768-wide LayerNorm chain (the forward's and the backward's streaming
-   routes; the rest take their tiled routes, each route asserted; two
-   launches of each bit-identical)); the chain kernels also at the
+   layers (the tiled forward's general path, the staged backward) and at
+   one 768-wide and one 4096-wide LayerNorm chain (the forward's and the
+   backward's staged routes; the rest take their tiled routes, each route
+   asserted; two launches of each bit-identical)); the chain kernels also at the
    custom-model cells' chains (AttentiveAlpaca's at d_in 11, LazyLemur's at
    d_in 64, twin (64, 64) LayerNorm torsos, 4,096 and 32,768 rows), each
    route recorded and each timed beside its plain version with its bound;
@@ -54,7 +53,8 @@ non-zero:
    A=1, n=3) and the continuous one at Pendulum's (1024 rows, obs dim 3);
    each timed beside its plain version. Then a NaN in one observation row
    on every act route (the recurrent act kernel's 32-row tiles and wide
-   route included) and both chain-forward routes: that row's log-probs,
+   route included) and both chain-forward routes (the staged one with a
+   narrow and a 9-wide head): that row's log-probs,
    values, new states and head outputs NaN, as in the plain versions
    (``check_nan_routes``).
 3. main paths, each with the kernels' launch counters set to 0 just
@@ -76,7 +76,24 @@ non-zero:
    device="cuda").build(AlgoTrading)``, one warm-up and five timed
    iterations (chain forward 49, backward 16, GAE 1 per iteration), its
    rollout held against the module on its training views, and the same
-   with ``fused_forward=False`` (no chain launch); between the squashed and
+   with ``fused_forward=False`` (no chain launch); after it the wide
+   chains: ``chains_wide_sweep`` (both chain kernels on their staged
+   routes against their plain versions, routes asserted, timed beside the
+   plain versions with their bounds: MischievousMule's layout at 896, 1024,
+   1536, 2048 and 2382 wide, LazyLemur's at 2354, AttentiveAlpaca's at 1024, a
+   default twin torso at 2388, 768- and 4096-wide LayerNorm chains, ragged
+   chains; 4,096 and 32,768 rows and ragged counts), ``chain_gate_grid``
+   (``card_takes_chains`` takes every chain ``chains_fit_vmem`` admits, for
+   the custom models and the default torso at the widths where the gate
+   flips), ``wide_chain_builds`` (MischievousMule at 2382, LazyLemur at
+   2354 and a default model at 2388 with ``fused_forward``, which raised at
+   build before: one collect and step each) and ``wide_custom``
+   (MischievousMule at ``hiddens=(2048, 2048)`` at the custom cell's
+   shapes: one warm-up, three timed and one profiled iteration, chain
+   forward 49 and backward 16 launches an iteration on their staged
+   routes, the rollout against the module forward, one minibatch's step
+   gradient against the module route's; its ``fused_forward=False`` twin
+   timed beside it); between the squashed and
    the recurrent paths, the routes ``rl8_tpu`` takes off the kernels at the
    discrete cell's width, one collect and one step each: a ``gelu`` torso
    (module rollout and autograd update, no act or update launch) and
@@ -248,6 +265,15 @@ PPO_STAT_RTOL, PPO_STAT_ATOL = 1e-5, 1e-6
 #: other summation orders (and LayerNorm's E[z^2] - E[z]^2 cancelling in
 #: both); parameter gradients by PPO_GRAD_*'s norm-relative error.
 CHAIN_RTOL, CHAIN_ATOL = 1e-4, 1e-4
+#: The chain kernels' staged backward at relu chains: a relu unit whose
+#: pre-activation lies a few 1e-8 from 0 may take the other side of the mask
+#: in the kernel than in the plain version (both f32, their sums in other
+#: orders; seen at 1.5e-8 to 5.2e-8 at 896 and 1024 wide, each changing its
+#: row's dx by up to 1.8e-2). The staged backward recomputes the staged
+#: forward's activations bit for bit, so compare_chains runs the plain
+#: backward on those (kernel_activations), held themselves to the plain
+#: forward's at CHAIN_RTOL/ATOL: its masks are the kernel's, and every row
+#: is compared.
 #: Frequency test: draws per row, and the allowed deviation in standard
 #: deviations of a sum of independent Bernoulli counts.
 FREQ_DRAWS, FREQ_SIGMAS = 64, 5.0
@@ -425,6 +451,10 @@ def main() -> int:
     run_rnn_wide_sweep(torch, dev, kernels)
     run_wide_recurrent(torch, dev, kernels)
     run_custom_path(torch, dev, kernels)
+    run_chains_wide_sweep(torch, dev, kernels)
+    check_chain_gate_grid(torch)
+    run_wide_chain_builds(torch, dev)
+    run_wide_custom(torch, dev, kernels)
     run_amp_paths(torch, dev)
     run_recurrent_module_route(torch, dev)
     run_custom_amp(torch, dev)
@@ -782,8 +812,9 @@ def check_nan_routes(torch, dev) -> None:
     recurrent act kernel's 32-row tiles (one 256-wide LSTM layer) and its
     staged route (1300 wide, and two 1024-wide layers), where the NaN
     row's new states are NaN too; the chain forward's tiled route
-    (MischievousMule's chains) and streaming route (one 768-wide LayerNorm
-    chain)."""
+    (MischievousMule's chains) and staged route (one 768-wide LayerNorm
+    chain; MischievousMule's layout at 1024 wide with a 9-wide head, the
+    staged route's head product, beside its narrow one)."""
     from rl8_tpu_torch.ops import act_plain, forward_chains, fused_act, fused_chains_fwd, fused_rnn_act, pack_act_params
     from rl8_tpu_torch.ops import pack_rnn_params, rnn_act_plain
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
@@ -840,7 +871,9 @@ def check_nan_routes(torch, dev) -> None:
         seen.append(f"rnn_act_{route}_{K}x{H}")
     mule_chains = default_chains(make_mule(torch, seed=5).to(dev))
     near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
-    for chains, want in ((mule_chains, "tiled"), (near, "streaming")):
+    wide = random_chains(torch, dev, seed=11, d_in=7,
+                         layout=(([(1024, True), (1024, False)], [9, 3]), ([(1024, True), (1024, False)], [1])))
+    for chains, want in ((mule_chains, "tiled"), (near, "staged"), (wide, "staged")):
         x = 0.5 * torch.randn((B, 7), generator=gen, device=dev)
         x[bad, 3] = float("nan")
         route = forward_route(torch, x, chains, "relu", want)
@@ -854,7 +887,7 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(k[bad]).all()), f"nan chains ({route}): the kernel's NaN row is {k[bad].tolist()}")
             check(torch.allclose(k[rest], p[rest], rtol=CHAIN_RTOL, atol=CHAIN_ATOL),
                   f"nan chains ({route}): other rows")
-        seen.append(f"chains_fwd_{route}")
+        seen.append(f"chains_fwd_{route}_{chain_structure(chains)[1][0][0][0][0]}")
     emit({"phase": "kernel_check", "kernel": "nan_observation", "rows": B, "routes": seen})
 
 
@@ -1571,21 +1604,53 @@ def random_chains(torch, dev, seed: int, d_in: int, layout):
     return tuple(chains)
 
 
-def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> dict:
+#: The width of the identity heads through which kernel_activations reads
+#: a layer's activations: a head this wide never fits the tiled forward's
+#: shared memory, so the layers run the staged route's launches.
+PROBE_WIDTH = 1024
+
+
+def kernel_activations(torch, x, chains, activation: str) -> list:
+    """Each chain's activation stack ``[x, h_1, ..., h_L]`` (as
+    ``forward_chains`` returns it) as the staged chain kernels compute it:
+    h_l is the output of a forward launch on the chain's layers 1 to l
+    under one identity head, zero-padded to at least PROBE_WIDTH columns
+    (each output a sum of h_l times 1 and zeros, so exactly h_l)."""
+    from rl8_tpu_torch.ops import fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    stacks = []
+    for layers, _ in chains:
+        hs = [x]
+        for depth in range(1, len(layers) + 1):
+            width = layers[depth - 1][0].shape[1]
+            cols = max(width, PROBE_WIDTH)
+            probe = ((layers[:depth], ((torch.eye(width, cols, device=x.device), torch.zeros(cols, device=x.device)),)),)
+            out = fused_chains_fwd(x, flatten_chains(probe), chain_structure(probe), activation)[0]
+            hs.append(out[:, :width])
+        stacks.append(hs)
+    return stacks
+
+
+def compare_chains(torch, what: str, x, chains, activation: str, seed: int, staged: bool = False) -> dict:
     """The chain kernels against their plain versions on ``x``: the forward
     twice (bit-identical), every head output within CHAIN_RTOL/ATOL, then
-    from random head cotangents the
-    backward twice (bit-identical) against ``chains_vjp_plain``: dx within
+    from random head cotangents the backward twice (bit-identical) against
+    the plain backward (``chains_vjp_plain``'s arithmetic): dx within
     CHAIN_RTOL/ATOL and each parameter gradient within PPO_GRAD_* by norm,
-    all finite."""
-    from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
-    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains, unflatten_chains
+    all finite, every row. ``staged``: the backward takes its staged route,
+    and the plain backward runs on the kernels' own activations
+    (kernel_activations, each within CHAIN_RTOL/ATOL of the plain forward's),
+    so that both take the same relu masks."""
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import _backward, _forward_block, chain_structure, flatten_chains, unflatten_chains
 
     structure = chain_structure(chains)
     flat = flatten_chains(chains)
     k_outs = fused_chains_fwd(x, flat, structure, activation)
     k2_outs = fused_chains_fwd(x, flat, structure, activation)
-    p_outs = [o for chain in forward_chains(x, chains, activation)[0] for o in chain]
+    p_chain_outs, p_hs, p_aux = _forward_block(x, chains, activation)
+    p_outs = [o for chain in p_chain_outs for o in chain]
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(k_outs, k2_outs)), f"{what}: two forward launches bit-identical")
     fwd_err = 0.0
@@ -1593,6 +1658,15 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> d
         check(bool(torch.isfinite(k).all()), f"{what}: head {i} output finite")
         check(torch.allclose(k, p, rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: head {i} output")
         fwd_err = max(fwd_err, float((k - p).abs().max()))
+    hidden_err = None
+    if staged:
+        k_hs = kernel_activations(torch, x, chains, activation)
+        hidden_err = 0.0
+        for c, (kh, ph) in enumerate(zip(k_hs, p_hs)):
+            for depth, (k, p) in enumerate(zip(kh[1:], ph[1:]), start=1):
+                check(torch.allclose(k, p, rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: chain {c} h_{depth}")
+                hidden_err = max(hidden_err, float((k - p).abs().max()))
+        p_hs = k_hs
     gen = torch.Generator(device=x.device).manual_seed(seed)
     douts = [torch.randn(o.shape, generator=gen, device=x.device) for o in p_outs]
     k_dx, k_dflat = fused_chains_bwd(x, flat, structure, activation, douts)
@@ -1601,11 +1675,12 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> d
     for _, heads in structure[1]:
         grouped.append(douts[i : i + len(heads)])
         i += len(heads)
-    p_dx, p_dchains = chains_vjp_plain(x, chains, activation, grouped)
+    p_dchains, p_dx = _backward(chains, activation, p_hs, p_aux, grouped, need_dx=True)
     torch.cuda.synchronize()
     check(torch.equal(k_dx, k2_dx) and torch.equal(k_dflat, k2_dflat), f"{what}: two backward launches bit-identical")
     check(bool(torch.isfinite(k_dx).all() and torch.isfinite(k_dflat).all()), f"{what}: gradients finite")
-    check(torch.allclose(k_dx, p_dx, rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: dx")
+    check(torch.allclose(k_dx, p_dx, rtol=CHAIN_RTOL, atol=CHAIN_ATOL),
+          f"{what}: dx, largest error {float((k_dx - p_dx).abs().max()):.3g}")
     worst_grad = 0.0
     k_tensors = [t for layers, heads in unflatten_chains(k_dflat, structure) for ts in (*layers, *heads) for t in ts]
     p_tensors = [t for layers, heads in p_dchains for ts in (*layers, *heads) for t in ts]
@@ -1614,9 +1689,11 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int) -> d
         worst_grad = max(worst_grad, err / max(ref, 1e-30))
         check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
               f"{what}: gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
-    return {"fwd_max_abs_err": fwd_err, "dx_max_abs_err": float((k_dx - p_dx).abs().max()),
+    return {"fwd_max_abs_err": fwd_err, "hidden_max_abs_err": hidden_err,
+            "dx_max_abs_err": float((k_dx - p_dx).abs().max()),
             "worst_grad_norm_rel_err": worst_grad, "bit_identical": True,
-            "max_abs_err": max(fwd_err, float((k_dx - p_dx).abs().max()), float((k_dflat - flatten_chains(p_dchains)).abs().max()))}
+            "max_abs_err": max(fwd_err, float((k_dx - p_dx).abs().max()),
+                               float((k_dflat - flatten_chains(p_dchains)).abs().max()))}
 
 
 def chain_counts(structure, N: int) -> tuple[int, int, int, int]:
@@ -1647,6 +1724,19 @@ def bound(flops: int, bytes_moved: int) -> tuple[float, str]:
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s > bytes_s else "bytes"
 
 
+def chain_bwd_bounds(record: dict, fwd_flops: int, bwd_flops: int, bwd_bytes: int) -> dict:
+    """The chain backward's bounds, as its kernels run the products:
+    bound_ms with the recompute (the forward's operations) at the f32 rate
+    and the dh and weight products (the rest) in 3xTF32 on the tensor
+    cores; bound_tc_ms with all of it in 3xTF32 (update_bounds)."""
+    update_bounds(record, bwd_flops, bwd_bytes)
+    ops_s = fwd_flops / PEAK_F32_FLOPS + TF32_PRODUCTS * (bwd_flops - fwd_flops) / PEAK_TF32_FLOPS
+    byte_s = bwd_bytes / PEAK_BYTES_PER_S
+    record["bound_ms"] = 1e3 * max(ops_s, byte_s)
+    record["bound_by"] = "operations" if ops_s > byte_s else "bytes"
+    return record
+
+
 def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     """The chain kernels against their plain versions on the card
     (compare_chains): (a) MischievousMule's chains at the main path's
@@ -1654,13 +1744,14 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     of three tanh chains with mixed LayerNorm flags, 48 and 100 wide, two
     heads (2 and 9 wide) on one chain, at d_in 1 and 64; (c) rows whose pre-LayerNorm
     values are constant (zero variance); (d) one 768-wide LayerNorm chain
-    at d_in 7, near the kernels' width limit; (e) 160- and 136-wide layers
-    (the tiled forward's passes of 128 columns and its separate LayerNorm
-    and head passes). (a) to (c) must take the forward's and the backward's
-    tiled routes (chains_fwd_tiles_kernel, chains_bwd_tiles_kernel), (d)
-    their streaming routes (chains_fwd_kernel: its tile buffers do not fit a
-    block; chains_bwd_rows_kernel: its parameters and gradients do not), (e)
-    the tiled forward and the streaming backward. Then each kernel timed
+    at d_in 7; (e) 160- and 136-wide layers (the tiled forward's passes of
+    128 columns and its separate LayerNorm and head passes); (f) one
+    4096-wide LayerNorm chain at d_in 7, which the card refused before the
+    staged routes. (a) to (c) must take the forward's and the backward's
+    tiled routes (chains_fwd_tiles_kernel, chains_bwd_tiles_kernel), (d) and
+    (f) their staged routes (chains_layer_kernel: the tile buffers do not
+    fit a block; chains_dh_kernel: the parameters and gradients do not), (e)
+    the tiled forward and the staged backward. Then each kernel timed
     beside its plain version at the main path's shapes, with its bounds."""
     from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
@@ -1707,31 +1798,29 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     wider = random_chains(torch, dev, seed=10, d_in=7,
                           layout=(([(160, True), (136, False)], [2, 9]), ([(136, True)], [1])))
     x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
-    result = compare_chains(torch, "chains (e, 160/136 wide)", x, wider, "relu", seed=10)
+    result = compare_chains(torch, "chains (e, 160/136 wide)", x, wider, "relu", seed=10, staged=True)
     emit({"phase": "kernel_check", "kernel": "chains", "config": "e", "N": 1000, "widths": [160, 136], **result,
-          "route": backward_route(torch, x, wider, "relu", "streaming"),
+          "route": backward_route(torch, x, wider, "relu", "staged"),
           "forward_route": forward_route(torch, x, wider, "relu")})
     near = random_chains(torch, dev, seed=8, d_in=7, layout=(([(768, True)], [3]),))
     x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
-    result = compare_chains(torch, "chains (d, 768 wide)", x, near, "relu", seed=8)
+    result = compare_chains(torch, "chains (d, 768 wide)", x, near, "relu", seed=8, staged=True)
     emit({"phase": "kernel_check", "kernel": "chains", "config": "d", "N": 1000, "width": 768, **result,
-          "route": backward_route(torch, x, near, "relu", "streaming"),
-          "forward_route": forward_route(torch, x, near, "relu", "streaming")})
-    # The size limit is the kernels' own: the main path's chains pass, a
-    # 4096-wide layer (whose rows do not fit a block's shared memory) is
-    # refused by the query and by the wrapper.
+          "route": backward_route(torch, x, near, "relu", "staged"),
+          "forward_route": forward_route(torch, x, near, "relu", "staged")})
+    # (f): the kernels' only limits are their counts: a 4096-wide layer,
+    # refused before the staged routes, is taken by the query and by the
+    # wrapper, and equals the plain version.
     from rl8_tpu_torch.ops import card_takes_chains
 
     wide = random_chains(torch, dev, seed=9, d_in=7, layout=(([(4096, True)], [3]),))
     check(card_takes_chains(mule_chains), "chains: the kernels refuse the main path's chains")
-    check(not card_takes_chains(wide), "chains: the kernels take a 4096-wide layer")
-    try:
-        fused_chains_fwd(xs[4096][:16], flatten_chains(wide), chain_structure(wide), "relu")
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "chains: the wrapper launched a 4096-wide layer")
-    emit({"phase": "kernel_check", "kernel": "chains", "width_limit": {"128": True, "4096": False}})
+    check(card_takes_chains(wide), "chains: the kernels refuse a 4096-wide layer")
+    x = 0.5 * torch.randn((1000, 7), generator=gen, device=dev)
+    result = compare_chains(torch, "chains (f, 4096 wide)", x, wide, "relu", seed=9, staged=True)
+    emit({"phase": "kernel_check", "kernel": "chains", "config": "f", "N": 1000, "width": 4096, **result,
+          "route": backward_route(torch, x, wide, "relu", "staged"),
+          "forward_route": forward_route(torch, x, wide, "relu", "staged")})
 
     structure = chain_structure(mule_chains)
     flat = flatten_chains(mule_chains)
@@ -1748,13 +1837,13 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
                       rollout_plain_ms=times[4096]["plain_ms"], rollout_bound_ms=times[4096]["bound"][0])
     update_bounds(fwd_record, *chain_counts(structure, 32768)[:2])
     N, x = 32768, xs[32768]
-    _, _, bwd_flops, bwd_bytes = chain_counts(structure, N)
+    fwd_flops, _, bwd_flops, bwd_bytes = chain_counts(structure, N)
     douts = [torch.randn((N, w), generator=gen, device=dev) for w in (3, 1)]
     ms, host_ms = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=20, warmup=2)
     plain_ms, _ = time_ms(torch, lambda: chains_vjp_plain(x, mule_chains, "relu", [douts[:1], douts[1:]]),
                           iters=10, warmup=2)
     bwd_record.update(ms=ms, plain_ms=plain_ms, host_ms=host_ms)
-    update_bounds(bwd_record, bwd_flops, bwd_bytes)
+    chain_bwd_bounds(bwd_record, fwd_flops, bwd_flops, bwd_bytes)
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1827,10 +1916,11 @@ def check_model_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
                 ms, _ = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=10, warmup=2)
                 plain_ms, _ = time_ms(torch, lambda: chains_vjp_plain(x, chains, "relu", [douts[:1], douts[1:]]),
                                       iters=5, warmup=1)
+                bwd_bound = chain_bwd_bounds({}, fwd_flops, bwd_flops, bwd_bytes)["bound_ms"]
                 bwd_record["model_shapes"].append({"model": name, "N": N, "d_in": structure[0], "ms": ms,
-                                                   "plain_ms": plain_ms, "bound_ms": bound(bwd_flops, bwd_bytes)[0],
+                                                   "plain_ms": plain_ms, "bound_ms": bwd_bound,
                                                    "route": routes["route"]})
-                record.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound_ms=bound(bwd_flops, bwd_bytes)[0])
+                record.update(bwd_ms=ms, bwd_plain_ms=plain_ms, bwd_bound_ms=bwd_bound)
             emit(record)
 
 
@@ -1872,7 +1962,7 @@ def backward_route(torch, x, chains, activation: str, want: None | str = "tiled"
 
     structure = chain_structure(chains)
     douts = [torch.zeros((x.shape[0], w), device=x.device) for _, heads in structure[1] for w in heads]
-    routes = {"chains_bwd_tiles_kernel": "tiled", "chains_bwd_rows_kernel": "streaming"}
+    routes = {"chains_bwd_tiles_kernel": "tiled", "chains_dh_kernel": "staged"}
     return launched_route(torch, "the chain backward",
                           lambda: fused_chains_bwd(x, flatten_chains(chains), structure, activation, douts),
                           routes, want)
@@ -1884,11 +1974,390 @@ def forward_route(torch, x, chains, activation: str, want: None | str = "tiled")
     from rl8_tpu_torch.ops import fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
 
-    routes = {"chains_fwd_tiles_kernel": "tiled", "chains_fwd_kernel": "streaming"}
+    routes = {"chains_fwd_tiles_kernel": "tiled", "chains_layer_kernel": "staged"}
     return launched_route(
         torch, "the chain forward",
         lambda: fused_chains_fwd(x, flatten_chains(chains), chain_structure(chains), activation), routes, want,
     )
+
+
+def mule_layout(width: int) -> tuple:
+    """MischievousMule's chains at ``hiddens=(width, width)`` (and
+    AttentiveAlpaca's and LazyLemur's, at their own d_in): two chains of a
+    LayerNorm layer and a plain one, with heads of 3 and 1."""
+    return (([(width, True), (width, False)], [3]), ([(width, True), (width, False)], [1]))
+
+
+def torso_layout(width: int) -> tuple:
+    """A default discrete model's chains at ``hiddens=(width, width)`` on
+    ``DiscreteDummyEnv`` (``fused_forward``): two plain layers a chain,
+    heads of 2 logits and 1 value."""
+    return (([(width, False), (width, False)], [2]), ([(width, False), (width, False)], [1]))
+
+
+#: ``run_chains_wide_sweep``'s shapes, none of which the tiled routes take:
+#: ``(name, d_in, layout, rows)``. MischievousMule's layout (d_in 7) from
+#: the card's first refused width before the staged routes (896) to
+#: rl8_tpu's last admitted one (2382, ``chains_fit_vmem``), with
+#: ``wide_custom``'s 2048 between, LazyLemur's (d_in 64; 2354) and a default twin torso (d_in 1; 2388) at rl8_tpu's
+#: last admitted widths, AttentiveAlpaca's (d_in 11), check (d)'s 768-wide LayerNorm
+#: chain, the 4096-wide one that the card refused before, and ragged
+#: chains (three depths; a 9-wide head on a 1200-wide chain) at ragged row
+#: counts.
+CHAINS_WIDE = (
+    ("mule_896", 7, mule_layout(896), (4096, 32768)),
+    ("mule_1024", 7, mule_layout(1024), (4096, 32768)),
+    ("mule_1536", 7, mule_layout(1536), (4096, 32768, 4999)),
+    ("mule_2048", 7, mule_layout(2048), (4096, 32768)),
+    ("mule_2382", 7, mule_layout(2382), (4096, 32768)),
+    ("lemur_2354", 64, mule_layout(2354), (4096, 32768)),
+    ("alpaca_1024", 11, mule_layout(1024), (4096, 32768)),
+    ("torso_2388", 1, torso_layout(2388), (4096, 32768)),
+    ("ln_768", 7, (([(768, True)], [3]),), (4096, 32768)),
+    ("ln_4096", 7, (([(4096, True)], [3]),), (4096, 32768)),
+    ("ragged", 5, (([(1200, True), (900, False), (700, True)], [9, 2]), ([(1500, False)], [1]),
+                   ([(1000, True), (1000, False)], [4])), (1000, 4097)),
+)
+#: Rows of the chains' timed launches: the rollout step's and the
+#: minibatch's of the custom cells.
+CHAIN_TIMED_ROWS = (4096, 32768)
+
+
+def chain_backward_bytes(structure, N: int) -> dict:
+    """The chain backward's workspace and the part of it that its weight
+    products' partials take, in bytes, on N rows, as csrc/chains.cu
+    answers them (rl8_chains_workspace, rl8_chains_partials)."""
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_mlp import _spec
+
+    spec, n = _spec(structure)
+    return {"workspace_bytes": 4 * load().rl8_chains_workspace(N, structure[0], spec, n, 1),
+            "partial_bytes": 4 * load().rl8_chains_partials(N, structure[0], spec, n)}
+
+
+def run_chains_wide_sweep(torch, dev, kernels: dict) -> None:
+    """Both chain kernels on their staged routes at CHAINS_WIDE's shapes:
+    each against its plain version (compare_chains, staged: the forward
+    and the hidden activations at CHAIN_RTOL/ATOL, dx too, the gradients
+    by PPO_GRAD_*'s norm-relative error, two launches bit-identical), the
+    route each launched
+    (launched_route: the staged kernels, chains_layer_kernel and
+    chains_dh_kernel), and each timed beside its plain version with its
+    bounds at CHAIN_TIMED_ROWS (the backward at the minibatch's rows, with
+    its workspace and partials' bytes, chain_backward_bytes). Adds the records to the chain
+    kernels' under ``wide``."""
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    fwd_records, bwd_records = [], []
+    for i, (name, d_in, layout, rows) in enumerate(CHAINS_WIDE):
+        chains = random_chains(torch, dev, seed=40 + i, d_in=d_in, layout=layout)
+        structure = chain_structure(chains)
+        for N in rows:
+            x = 0.5 * torch.randn((N, d_in), generator=gen, device=dev)
+            result = compare_chains(torch, f"chains_wide ({name}, N={N})", x, chains, "relu", seed=N + i,
+                                    staged=True)
+            record = {"phase": "chains_wide_sweep", "shape": name, "d_in": d_in, "N": N, **result,
+                      "forward_route": forward_route(torch, x, chains, "relu", "staged"),
+                      "route": backward_route(torch, x, chains, "relu", "staged")}
+            if N in CHAIN_TIMED_ROWS:
+                big = N * max(w for layers, _ in layout for w, _ in layers) >= 2**25
+                record["fwd"] = {"shape": name, "route": "staged",
+                                 **time_chain_kernel(torch, x, chains, False, 5 if big else 20)}
+                fwd_records.append(record["fwd"])
+            if N == CHAIN_TIMED_ROWS[-1]:
+                record["bwd"] = {"shape": name, "route": "staged", **chain_backward_bytes(structure, N),
+                                 **time_chain_kernel(torch, x, chains, True, 3)}
+                bwd_records.append(record["bwd"])
+            emit(record)
+        del chains, x
+        torch.cuda.empty_cache()
+    kernels["chains_fwd"]["wide"], kernels["chains_bwd"]["wide"] = fwd_records, bwd_records
+
+
+def chain_gate_model(torch, name: str, width: int):
+    """A model of the chain gate grid at ``hiddens=(width, width)``, built
+    without values (the ``meta`` device): MischievousMule (``mule``) and
+    AttentiveAlpaca (``alpaca``) on AlgoTrading, LazyLemur (``lemur``, LSTM
+    hidden 64) as a recurrent policy's model, and the default discrete
+    model (``torso``) on DiscreteDummyEnv's spaces (its chains with
+    ``fused_forward``)."""
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, AttentiveAlpaca, LazyLemur, MischievousMule
+    from rl8_tpu_torch.models import DefaultDiscreteModel
+    from rl8_tpu_torch.policies import Policy, RecurrentPolicy
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    env = AlgoTrading(1, device="cpu")
+    config = {"hiddens": (width, width)}
+    with torch.device("meta"):
+        if name == "torso":
+            return DefaultDiscreteModel(Unbounded(1), Discrete(2, shape=(1,)), hiddens=(width, width))
+        if name == "lemur":
+            return RecurrentPolicy(env.observation_spec, env.action_spec, model_cls=LazyLemur,
+                                   model_config={**config, "hidden_size": 64}).model
+        cls = {"mule": MischievousMule, "alpaca": AttentiveAlpaca}[name]
+        return Policy(env.observation_spec, env.action_spec, model_cls=cls, model_config=config).model
+
+
+CHAIN_GATE_MODELS = ("mule", "alpaca", "lemur", "torso")
+
+
+def check_chain_gate_grid(torch) -> None:
+    """For each model of CHAIN_GATE_MODELS, at the widths that
+    ``tests/test_torch_wide.py``'s custom-model gate test visits (64, 768,
+    1024, 2048, the last width rl8_tpu's residency gate admits, the next,
+    4096): wherever ``chains_fit_vmem`` (rl8_tpu's gate, the port's route)
+    admits the model's chains, ``card_takes_chains`` takes them, so the
+    route on the card is the gate's; past the gate the card's kernels take
+    them as well (their only limits are the counts)."""
+    from rl8_tpu_torch.ops import card_takes_chains, chains_fit_vmem
+    from rl8_tpu_torch.ops.fused_mlp import chain_names, named_chains
+
+    def chains_of(name: str, width: int):
+        model = chain_gate_model(torch, name, width)
+        return named_chains(model, chain_names(model))
+
+    grid = {}
+    for name in CHAIN_GATE_MODELS:
+        lo, hi = 64, 8192
+        check(chains_fit_vmem(chains_of(name, lo)) and not chains_fit_vmem(chains_of(name, hi)),
+              f"chain gate grid: {name} flips between {lo} and {hi}")
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if chains_fit_vmem(chains_of(name, mid)) else (lo, mid)
+        row = {}
+        for width in sorted({64, 768, 1024, 2048, lo, lo + 1, 4096}):
+            chains = chains_of(name, width)
+            fits, takes = chains_fit_vmem(chains), card_takes_chains(chains)
+            check(takes or not fits, f"chain gate grid: the card refuses {name} at {width}, which the gate admits")
+            row[width] = {"fits": fits, "card_takes": takes}
+        grid[name] = {"last_admitted": lo, "widths": row}
+    emit({"phase": "chain_gate_grid", "grid": grid})
+
+
+def run_wide_chain_builds(torch, dev) -> None:
+    """The builds that raised at build on the card before the staged chain
+    routes, each built and trained for one collect() and step() at 256 envs
+    and horizon 8 (launch counters set to 0 just before and read just
+    after; the chain kernels must launch, stats and parameters finite):
+    MischievousMule at ``hiddens=(2382, 2382)`` with ``fused_forward``,
+    LazyLemur at 2354 (LSTM hidden 64; seq_len 4, a state reset every 2
+    sequences), and a default discrete model at 2388 with ``fused_forward``
+    (its act and update kernels take it; the chain forward computes the
+    bootstrap value)."""
+    from rl8_tpu_torch import AlgorithmConfig, RecurrentAlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, LazyLemur, MischievousMule
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
+
+    builds = (
+        ("mule_2382", lambda: AlgorithmConfig(model_cls=MischievousMule, fused_forward=True, num_envs=256, horizon=8,
+                                              model_config={"hiddens": (2382, 2382)}, device=dev).build(AlgoTrading)),
+        ("lemur_2354", lambda: RecurrentAlgorithmConfig(
+            model_cls=LazyLemur, fused_forward=True, num_envs=256, horizon=8, seq_len=4, seqs_per_state_reset=2,
+            model_config={"hiddens": (2354, 2354), "hidden_size": 64}, device=dev).build(AlgoTrading)),
+        ("torso_2388", lambda: AlgorithmConfig(fused_forward=True, num_envs=256, horizon=8,
+                                               model_config={"hiddens": (2388, 2388)},
+                                               device=dev).build(DiscreteDummyEnv)),
+    )
+    seen = {}
+    for name, build in builds:
+        algo = build()
+        check(algo._fused_forward, f"{name}: fused_forward is off")
+        zero_counters()
+        algo.collect()
+        stats = algo.step()
+        torch.cuda.synchronize()
+        fwd, bwd = fused_chains_fwd.launches, fused_chains_bwd.launches
+        check(fwd > 0 and (bwd > 0 or name == "torso_2388"), f"{name}: chain launches (fwd, bwd) {(fwd, bwd)}")
+        check(all(math.isfinite(v) for v in stats.values()), f"{name}: step stats finite: {stats}")
+        for pname, param in algo.policy.model.named_parameters():
+            check(bool(torch.isfinite(param).all()), f"{name}: parameter {pname} finite")
+        seen[name] = {"chains_fwd": fwd, "chains_bwd": bwd, "losses/total": stats["losses/total"]}
+        del algo
+        torch.cuda.empty_cache()
+    emit({"phase": "wide_chain_builds", "builds": seen})
+
+
+def check_step_gradients(torch, algo, what: str) -> dict:
+    """One minibatch of a freshly collected buffer through the step's
+    gradient function (``_autodiff_grads_fn``, advantages from the GAE
+    kernel, rows packed as ``step`` packs them) from the same parameters:
+    twice with ``fused_forward`` (the chain kernels; bit-identical), and
+    on the module route (autograd through the modules, the plain version
+    on the card). The losses within PPO_STAT_* of the module route's, and
+    each gradient tensor within PPO_GRAD_* of it by norm, finite."""
+    from rl8_tpu_torch.algorithms._feedforward import _t2b
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.ops import pack_rows
+
+    h = algo.hparams
+    algo.collect()
+    buffer = algo.state.buffer
+    with torch.no_grad():
+        advantages, returns = algo._advantages()
+        packed, unpack = pack_rows({
+            DataKeys.ACTIONS: _t2b(buffer[DataKeys.ACTIONS]), DataKeys.LOGP: _t2b(buffer[DataKeys.LOGP]),
+            DataKeys.ADVANTAGES: _t2b(advantages), DataKeys.RETURNS: _t2b(returns),
+            DataKeys.VIEWS: algo._training_views(buffer),
+        })
+    mb = packed[: packed.shape[0] // h.num_minibatches]
+    flat = algo._flat_params()
+
+    def grads(fused: bool):
+        algo._fused_forward = fused
+        return algo._autodiff_grads_fn(lambda batch: (*algo._apply_model(batch[DataKeys.VIEWS]), batch),
+                                       unpack, 0.0, 1)(flat, mb)
+
+    k_losses, _, k_grads = grads(True)
+    _, _, k2_grads = grads(True)
+    p_losses, _, p_grads = grads(False)
+    algo._fused_forward = True
+    torch.cuda.synchronize()
+    check(torch.equal(k_grads, k2_grads), f"{what}: two fused gradients bit-identical")
+    for key in ("policy", "vf", "total"):
+        check(math.isclose(float(k_losses[key]), float(p_losses[key]), rel_tol=PPO_STAT_RTOL,
+                           abs_tol=PPO_STAT_ATOL), f"{what}: loss {key} {float(k_losses[key])} vs {float(p_losses[key])}")
+    worst, off = 0.0, 0
+    for param in algo._params:
+        k, p = (g[off : off + param.numel()] for g in (k_grads, p_grads))
+        off += param.numel()
+        err, ref = float((k - p).norm()), float(p.norm())
+        worst = max(worst, err / max(ref, 1e-30))
+        check(bool(torch.isfinite(k).all()) and err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+              f"{what}: gradient {tuple(param.shape)} error {err:.3g} vs norm {ref:.3g}")
+    return {"rows": int(mb.shape[0]), "worst_grad_norm_rel_err_vs_module": worst,
+            "loss_total": float(k_losses["total"]), "loss_total_module": float(p_losses["total"])}
+
+
+def run_wide_custom(torch, dev, kernels: dict) -> None:
+    """The slice's path at full width: ``AlgorithmConfig(model_cls=
+    MischievousMule, fused_forward=True, num_envs=4096, horizon=32,
+    sgd_minibatch_size=32768, model_config={"hiddens": (2048, 2048)})
+    .build(AlgoTrading)`` (the custom cell's shapes, ``bench.py:295-319``;
+    8,441,864 parameters, f32), one warm-up, three timed and one profiled
+    iteration (time_cell: chain forward 33 + 16, backward 16, GAE 1 an
+    iteration, both chain kernels on their staged routes), the rollout held
+    against the module forward on the buffer's training views
+    (check_custom_rollout), and the step's gradient against the module
+    route's on one minibatch of a collected buffer (check_step_gradients);
+    both kernels timed on the model's chains (time_chain_kernel: the
+    forward at 4,096 and 32,768 rows, the backward at 32,768, with its
+    workspace's and partials' bytes, chain_backward_bytes);
+    then the same cell with ``fused_forward=False`` (module forward and
+    autograd on cuBLAS, no chain launch) timed beside it."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.ops.fused_mlp import chain_names, chain_structure, named_chains
+
+    for fused in (True, False):
+        algo = AlgorithmConfig(model_cls=MischievousMule, fused_forward=fused, num_envs=4096, horizon=32,
+                               sgd_minibatch_size=32768, model_config={"hiddens": (2048, 2048)},
+                               device=dev).build(AlgoTrading)
+        h, model = algo.hparams, algo.policy.model
+        per_step = h.num_sgd_iters * h.num_minibatches
+        check(sum(p.numel() for p in model.parameters()) == 8441864 and per_step == 16
+              and algo._fused_forward == fused, "wide_custom: the cell's shapes")
+        per_iteration = {"gae": 1}
+        extra = {"hiddens": [2048, 2048]}
+        if fused:
+            per_iteration.update(chains_fwd=h.horizon + 1 + per_step, chains_bwd=per_step)
+            chains = named_chains(model, chain_names(model))
+            x = torch.randn((4096, chain_structure(chains)[0]), device=dev)
+            extra.update(forward_route=forward_route(torch, x, chains, "relu", "staged"),
+                         route=backward_route(torch, x, chains, "relu", "staged"))
+        record = time_cell(torch, algo, "wide_custom" if fused else "wide_custom_module", per_iteration, per_step,
+                           iters=4, **extra)
+        if fused:
+            chains = tuple((tuple(tuple(t.detach() for t in layer) for layer in layers),
+                            tuple(tuple(t.detach() for t in head) for head in heads)) for layers, heads in chains)
+            xs = {N: torch.randn((N, chain_structure(chains)[0]), device=dev) for N in (4096, 32768)}
+            times = {"fwd": time_chain_kernel(torch, xs[4096], chains, False, 10),
+                     "fwd_minibatch": time_chain_kernel(torch, xs[32768], chains, False, 5),
+                     "bwd": {**chain_backward_bytes(chain_structure(chains), 32768),
+                             **time_chain_kernel(torch, xs[32768], chains, True, 5)}}
+            emit({"phase": "kernel_time", "kernel": "chains", "model": "wide_custom", "route": "staged", **times})
+            kernels["chains_fwd"]["wide_custom"] = {"launches_per_iteration": per_iteration["chains_fwd"],
+                                                    "route": "staged", **times["fwd"],
+                                                    "minibatch": times["fwd_minibatch"]}
+            kernels["chains_bwd"]["wide_custom"] = {"launches_per_iteration": per_step, "route": "staged",
+                                                    **times["bwd"]}
+            del xs
+            worst, _ = check_custom_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
+            emit({"phase": "kernel_check", "kernel": "wide_custom", "rollout_vs_module_max_abs_err": worst,
+                  "step_gradient": check_step_gradients(torch, algo, "wide_custom step"),
+                  "transitions_per_s_with_update": record["transitions_per_s_with_update"]})
+        del algo, model
+        torch.cuda.empty_cache()
+
+
+def time_chain_kernel(torch, x, chains, backward: bool, iters: int) -> dict:
+    """A chain kernel's device ms per launch on ``x`` (the backward from
+    normal head cotangents), beside its plain version's, with its bounds
+    (update_bounds of chain_counts)."""
+    from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    structure, flat, N = chain_structure(chains), flatten_chains(chains), x.shape[0]
+    fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = chain_counts(structure, N)
+    record = {"N": N}
+    if backward:
+        gen = torch.Generator(device=x.device).manual_seed(N)
+        douts = [torch.randn((N, w), generator=gen, device=x.device) for _, heads in structure[1] for w in heads]
+        grouped, q = [], 0
+        for _, heads in structure[1]:
+            grouped.append(douts[q : q + len(heads)])
+            q += len(heads)
+        record["ms"], _ = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=iters,
+                                  warmup=1)
+        record["plain_ms"], _ = time_ms(torch, lambda: chains_vjp_plain(x, chains, "relu", grouped), iters=iters,
+                                        warmup=1)
+        chain_bwd_bounds(record, fwd_flops, bwd_flops, bwd_bytes)
+    else:
+        record["ms"], _ = time_ms(torch, lambda: fused_chains_fwd(x, flat, structure, "relu"), iters=iters, warmup=2)
+        record["plain_ms"], _ = time_ms(torch, lambda: forward_chains(x, chains, "relu"), iters=max(iters // 2, 3),
+                                        warmup=1)
+        update_bounds(record, fwd_flops, fwd_bytes)
+    return record
+
+
+#: ``time_updates``' chain shapes beyond the main path's, which a checkout
+#: before the staged chain routes takes too (its tiled or streaming
+#: routes): ``(name, d_in, layout, rows)``.
+CHAINS_AB = (
+    ("mule_768", 7, mule_layout(768), 4096),
+    ("mule_768", 7, mule_layout(768), 32768),
+    ("ln_768", 7, (([(768, True)], [3]),), 32768),
+    ("wider_160_136", 7, (([(160, True), (136, False)], [2, 9]), ([(136, True)], [1])), 32768),
+)
+
+
+def time_chains_ab(torch, dev) -> list:
+    """``time_updates``' chain kernels at CHAINS_AB's shapes: device ms per
+    launch (``time_ms``) and the route each took (the streaming routes'
+    kernels named too, for a checkout that has them)."""
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    fwd_routes = {"chains_fwd_tiles_kernel": "tiled", "chains_fwd_kernel": "streaming",
+                  "chains_layer_kernel": "staged"}
+    bwd_routes = {"chains_bwd_tiles_kernel": "tiled", "chains_bwd_rows_kernel": "streaming",
+                  "chains_dh_kernel": "staged"}
+    gen = torch.Generator(device=dev).manual_seed(51)
+    records = []
+    for i, (name, d_in, layout, N) in enumerate(CHAINS_AB):
+        chains = random_chains(torch, dev, seed=51 + i, d_in=d_in, layout=layout)
+        structure, flat = chain_structure(chains), flatten_chains(chains)
+        x = 0.5 * torch.randn((N, d_in), generator=gen, device=dev)
+        douts = [torch.randn((N, w), generator=gen, device=dev) for _, heads in structure[1] for w in heads]
+        fwd = lambda: fused_chains_fwd(x, flat, structure, "relu")  # noqa: E731
+        bwd = lambda: fused_chains_bwd(x, flat, structure, "relu", douts)  # noqa: E731
+        records.append({"shape": name, "N": N,
+                        "fwd_route": launched_route(torch, "time_updates chain forward", fwd, fwd_routes, None),
+                        "bwd_route": launched_route(torch, "time_updates chain backward", bwd, bwd_routes, None),
+                        "fwd_ms": time_ms(torch, fwd, iters=20, warmup=3)[0],
+                        "bwd_ms": time_ms(torch, bwd, iters=10, warmup=2)[0]})
+    return records
 
 
 def time_updates(torch, dev, label: str, card: str) -> None:
@@ -1899,7 +2368,8 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     of one 256-wide layer; the continuous (squashed) and discrete act
     kernels, 8,192 rows of twin 256-wide torsos; GAE at T = 32 over 8,192
     columns (200 launches); the chain kernels at MischievousMule's 32,768
-    minibatch rows, and the forward at 4,096) and the feedforward (both
+    minibatch rows, and the forward at 4,096; both at CHAINS_AB's shapes,
+    ``time_chains_ab``) and the feedforward (both
     kinds), recurrent, recurrent act, both act kernels', chain forward (both
     row counts) and chain backward launches' device time by kernel
     (``torch.profiler``), and the wide routes (``time_wide_updates``), on
@@ -1988,6 +2458,7 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["chains_bwd_ms"] = device_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts))
     out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
     del x, douts
+    out["chains_ab"] = time_chains_ab(torch, dev)
     out.update(time_wide_updates(torch, dev, split_ms))
     out.update(time_wide_acts(torch, dev, split_ms))
     emit(out)

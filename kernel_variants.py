@@ -333,7 +333,7 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_wide_\w+_kernel<[^>]*>|ppo_wide_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
                   r"tile_fwd_kernel|tile_bwd_kernel|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
-                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_bwd_\w+_kernel|chains_fwd_\w*kernel|"
+                  r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel|"
                   r"rnn_gates_\w*kernel|rnn_heads_kernel<\w+>|act_layer_\w*kernel|act_heads_kernel<\w+>|tile_tc_kernel)", kernel)
     return m.group(1) if m else None
@@ -352,7 +352,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             fn = m.group(1)
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
             kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_wide_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
-                               r"chains_fwd_\w*?kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
+                               r"chains_fwd_\w*?kernel|chains_(?:layer|dh|ln|ln_bwd|heads|dx)_kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
                                r"rnn_act_kernel|gae_kernel|rnn_gates_\w*?kernel|rnn_heads_kernel|act_layer_\w*?kernel|"
                                r"act_heads_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
@@ -381,7 +381,7 @@ def ptxas_rows(logs: dict[str, str]) -> list[str]:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1) if re.search("rows_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|"
-                                             r"chains_fwd_kernel|gae_kernel|gates_\w*kernel|layer_\w*kernel|heads_kernel",
+                                             r"chains_\w*kernel|gae_kernel|gates_\w*kernel|layer_\w*kernel|heads_kernel",
                                              m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
                 name = re.search(r"(rnn_gates_tc_kernel|rnn_heads_kernel|act_layer_tc_kernel|"

@@ -109,9 +109,8 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         chain kernels do not take ``model``'s chains (``fused_forward``)."""
         if self.device.type == "cuda" and not card_takes_chains(named_chains(model, chain_names(model))):
             raise NotImplementedError(
-                f"The card's chain kernels do not take {type(model).__name__}'s chains: at most 4"
-                " chains of 1 to 8 layers and 1 to 4 heads, whose row passes must fit a block's"
-                " shared memory (the CPU takes any width)."
+                f"The card's chain kernels do not take {type(model).__name__}'s chains: they take at"
+                " most 4 chains of 1 to 8 layers and 1 to 4 heads (the CPU takes any count)."
             )
 
     def _init_common(self, config: Any) -> int:

@@ -1,12 +1,12 @@
 // Chain kernels: several activation-MLP chains that share one input x [N,
 // d_in], each ending in linear heads, forward and backward.
 //
-// chains_fwd_tiles_kernel (and, for chains too wide for it, chains_fwd_kernel)
-// replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by _call_fwd, the
-// forward of fused_chains); chains_bwd_tiles_kernel (and, for
-// chains too wide for it, chains_bwd_rows_kernel with the weight products
-// below) replaces fused_mlp.py:_bwd_kernel (_fused_bwd, the recompute-based
-// backward). Per chain, layer l computes
+// chains_fwd_tiles_kernel (and, for chains too large for it, the staged
+// forward below) replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by
+// _call_fwd, the forward of fused_chains); chains_bwd_tiles_kernel (and,
+// for chains too large for it, the staged backward) replaces
+// fused_mlp.py:_bwd_kernel (_fused_bwd, the recompute-based backward). Per
+// chain, layer l computes
 //   h_l = act(LN_l?(h_{l-1} @ W_l + b_l)),  h_{-1} = x,
 // with flax's fast-variance LayerNorm where the layer has one: mu = mean(z),
 // var = max(mean(z^2) - mu^2, 0), s = rsqrt(var + 1e-6), xhat = (z - mu) s,
@@ -25,7 +25,9 @@
 // TFLOP/s for the minibatch. The backward recomputes the forward and adds the
 // dh products and the weight products, ~3x the operations (6.90 GFLOP): 0.103
 // ms on the CUDA cores, 0.042 ms at three TF32 products per f32 product on
-// the tensor cores; its inputs and outputs are ~2.6 MB.
+// the tensor cores; its inputs and outputs are ~2.6 MB. At 2048 wide (the
+// same layout, 8,441,864 parameters) a 32,768-row minibatch's forward is 552
+// GFLOP (8.24 ms at 67 TFLOP/s) and its backward ~3x that.
 //
 // Design.
 // - Forward, f32 on the CUDA cores (a tensor-core forward flipped a relu
@@ -53,11 +55,21 @@
 //     in shared memory. Wider layers take passes of 128 columns between two
 //     buffers, a LayerNorm a warp per row, narrow heads 4 lanes a row, and
 //     wider heads the product. The activation is a template argument.
-//   - The streaming route (the rest, up to the kernels' width limit; e.g.
-//     a 768-wide layer, whose tile buffers alone fill shared memory): the
-//     first design, a block of 256 threads per 16 rows walking every chain
-//     with the weights streaming from L2 (mlp.cuh's dense_layer) and heads
-//     narrower than 8 as warp dot products (mlp.cuh's narrow_head).
+//   - The staged route (every other chain, of any width: e.g. a 768-wide
+//     layer, whose tile buffers alone fill shared memory, or MischievousMule
+//     at 2382 wide): one launch per layer depth over (256-column tiles,
+//     128-row blocks, the chains that have that layer), chains_layer_kernel,
+//     each block stage.cuh's fwd_product (the block's rows and a weight slab
+//     streamed through a 3-stage cp.async ring, 8 rows x 16 columns a
+//     thread) from a copy of W_l laid out per stage (tile_fwd_kernel, made
+//     once a call), reading h_{l-1} in place and writing h_l (or, before a
+//     LayerNorm, z) to a device scratch of two buffers a chain; a LayerNorm
+//     needs the whole row, so chains_ln_kernel then applies it and the
+//     activation in place, a warp per row. Heads narrower than 8 are warp
+//     dot products in narrow_head's order (chains_heads_kernel, stage.cuh's
+//     st_heads); wider heads are chains_layer_kernel products without an
+//     activation. Shared memory is the ring's, whatever the width; each
+//     weight slab a block stages feeds 128 rows.
 //   Rows past N are zeros in shared memory and are never stored; nothing is
 //   padded in device memory.
 // - Backward. The TPU kernel adds every grid step's gradients into
@@ -84,27 +96,41 @@
 //     Each gradient element has one owner thread for every tile, so its adds
 //     come in a fixed order. The block writes its gradients as one row of the
 //     partials, and its rows' dx of its chain to a per-chain dx.
-//   - The streaming route (the rest, up to the forward's width limit; e.g. a
-//     768-wide layer, whose weights alone fill shared memory): the first
-//     design's row pass, chains_bwd_rows_kernel, 32 rows a block of 256
-//     threads with the weights streaming from L2 and the per-row activations
-//     and cotangents going to a device scratch, then wgrad.cuh's split-K
-//     weight products (128x128 tensor-core tiles; a thread per column for
-//     LayerNorm's column sums), each group of rows writing its own partial.
-//   Then sum_partials_kernel adds the partials, and (tiled) sum_chain_dx_kernel
-//   the chains' dx, in a fixed order. No float atomics: two launches give the
+//   - The staged route (every other chain): a row pass through a device
+//     scratch, then the weight products. The row pass recomputes the forward
+//     with the staged forward's launches, keeping every h_l (and a
+//     LayerNorm's xhat and s) in the scratch; then, from the top, one launch
+//     per step down the chains, chains_dh_kernel: dh = cot W^T by stage.cuh's
+//     bwd_product (3xTF32 wgmma from big and small TF32 copies that
+//     tile_bwd_kernel lays out per stage, a fresh accumulator every 64 k;
+//     the heads' weights stacked side by side, their cotangents copied into
+//     one slab per chain), stored as da = dh act'(h_l); through a LayerNorm,
+//     chains_ln_bwd_kernel turns da into dpre = s (dxhat - mean(dxhat) -
+//     xhat mean(dxhat xhat)), a warp per row, and leaves da xhat over xhat;
+//     finally dx_c = dpre_0 W_0^T, a bwd_product where d_in is 8 or more and
+//     warp dot products on the CUDA cores (chains_dx_kernel) below that. One
+//     kind of product a kernel: one holding both spilled at 255 registers
+//     (ppo.cu's wide route). Then wgrad.cuh's split-K weight products (128x128
+//     tensor-core tiles; 256 columns a block for LayerNorm's column sums)
+//     over groups of rows, each group writing its own partial of every
+//     parameter. The groups are bounded by rows and by a budget of
+//     kPartialFloats for all partials (at 2382 wide, 11.4 M parameters,
+//     five groups, 0.23 GB, where 256 groups of 128 rows would write and
+//     read back 11.7 GB a launch).
+//   Then sum_partials_kernel adds the partials, and sum_chain_dx_kernel the
+//   chains' dx, in a fixed order. No float atomics: two launches give the
 //   same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mlp.cuh"
+#include "stage.cuh"
 #include "tile.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
 using rl8::activate;
-using rl8::dense_layer;
 using rl8::FragA;
 using rl8::FragB;
 using rl8::Job;
@@ -112,11 +138,7 @@ using rl8::Jobs;
 using rl8::kIdentity;
 using rl8::kRelu;
 using rl8::kTanh;
-using rl8::narrow_head;
 
-constexpr int kThreads = 256;
-constexpr int kFwdRows = 16;  // rows per block of the forward
-constexpr int kBwdRows = 32;  // rows per block of the backward's row pass
 constexpr int kMaxChains = 4;
 constexpr int kMaxLayers = 8;
 constexpr int kMaxHeads = 4;
@@ -124,12 +146,14 @@ constexpr int kNarrow = 8;  // products with fewer outputs than this are warp do
 constexpr float kLnEps = 1e-6f;
 constexpr int kMaxSmem = 232448;  // shared memory a block may use on an H100
 constexpr int kMaxJobs = kMaxChains * (3 * kMaxLayers + kMaxHeads);
-// Rows per group of the weight products, and the most groups: a minibatch
-// of 32,768 rows makes wgrad.cuh's 4,096-row groups only 8, too few blocks
-// for the card, and its blocks walk their rows in a latency-bound loop of
-// 32-row chunks, so the chains split much finer.
+// Rows per group of the staged backward's weight products, and the most
+// groups: a minibatch of 32,768 rows makes wgrad.cuh's 4,096-row groups
+// only 8, too few blocks for the card at narrow widths, and its blocks walk
+// their rows in a latency-bound loop of 32-row chunks, so the chains split
+// finer, as far as kPartialFloats allows.
 constexpr int kGroupRows = 128;
 constexpr int kMaxChainGroups = 256;
+constexpr long long kPartialFloats = 64LL << 20;  // 256 MiB of partials at most
 // The tiled backward: threads and rows per block, the parameter blocks a
 // chain's layout copies, and the most blocks over all chains.
 constexpr int kTileThreads = 512;
@@ -137,8 +161,7 @@ constexpr int kTileRows = 32;
 constexpr int kMaxTileSegs = 2 * kMaxLayers + 2 * kMaxHeads;
 constexpr int kMaxTileBlocks = 264;
 
-// The chains' structure, the parameter offsets and, for the backward, the
-// workspace offsets.
+// The chains' structure and the parameter offsets.
 struct Chains {
   long long N;
   int d_in, act, n_chains, n_out;
@@ -151,33 +174,21 @@ struct Chains {
   int chain_out[kMaxChains];            // a chain's heads' columns, which are adjacent
   float* out[kMaxChains][kMaxHeads];        // forward: each head's output [N, hw]
   const float* dout[kMaxChains][kMaxHeads];  // backward: each head's cotangent [N, hw]
-  int max_w;                            // widest layer, or d_in if wider: the ping-pong buffers
-  int max_chain_out;
+  int max_w;                            // widest layer, or d_in if wider
   // Offset of each layer's W in the flat parameters (b, then a LayerNorm's
   // scale and bias follow it); index n_layers + j: head j's W.
   long long woff[kMaxChains][kMaxLayers + kMaxHeads];
-  // Backward: offset in the workspace of the transposed copy of W_l used for
-  // dh_{l-1} (-1 where the product is narrow), and at index n_layers the
-  // chain's heads, transposed and stacked [chain_out, w_last].
-  long long wt[kMaxChains][kMaxLayers + 1];
-  // Backward: scratch offsets of h_l [N, w_l] and dpre_l [N, w_l], and for
-  // LayerNorm layers of xhat_l (then da_l * xhat_l) and da_l, each [N, w_l].
-  long long h_off[kMaxChains][kMaxLayers];
-  long long dpre_off[kMaxChains][kMaxLayers];
-  long long xhat_off[kMaxChains][kMaxLayers];
-  long long da_off[kMaxChains][kMaxLayers];
 };
 
 struct Layout {
   Chains d;
-  long long P, wt_floats, row_floats, part_floats, rows_per_group;
-  int groups;
-  size_t fwd_smem, bwd_smem;
+  long long P;
 };
 
 // Parses spec = [n_chains, then per chain: n_layers, (width, ln) per layer,
-// n_heads, width per head] and lays everything out; false where the kernels
-// do not take the chains.
+// n_heads, width per head] and lays the parameters out; false where the
+// kernels do not take the chains (their counts: at most kMaxChains chains
+// of 1 to kMaxLayers layers and 1 to kMaxHeads heads).
 bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, Layout* L) {
   if (N <= 0 || d_in <= 0 || (act != kRelu && act != kTanh) || spec_len < 1) return false;
   Chains& d = L->d;
@@ -191,10 +202,9 @@ bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, 
     return true;
   };
   if (!next(&d.n_chains) || d.n_chains < 1 || d.n_chains > kMaxChains) return false;
-  long long off = 0, wt = 0, row = 0;
+  long long off = 0;
   d.n_out = 0;
   d.max_w = d_in;
-  d.max_chain_out = 0;
   for (int c = 0; c < d.n_chains; ++c) {
     if (!next(&d.n_layers[c]) || d.n_layers[c] < 1 || d.n_layers[c] > kMaxLayers) return false;
     int in = d_in;
@@ -206,19 +216,6 @@ bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, 
       d.max_w = w > d.max_w ? w : d.max_w;
       d.woff[c][l] = off;
       off += (long long)in * w + w + (ln ? 2LL * w : 0);
-      d.wt[c][l] = in >= kNarrow ? wt : -1;
-      if (in >= kNarrow) wt += (long long)in * w;
-      d.h_off[c][l] = row;
-      row += N * w;
-      d.dpre_off[c][l] = row;
-      row += N * w;
-      d.xhat_off[c][l] = d.da_off[c][l] = -1;
-      if (ln) {
-        d.xhat_off[c][l] = row;
-        row += N * w;
-        d.da_off[c][l] = row;
-        row += N * w;
-      }
       in = w;
     }
     if (!next(&d.n_heads[c]) || d.n_heads[c] < 1 || d.n_heads[c] > kMaxHeads) return false;
@@ -233,264 +230,10 @@ bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, 
       d.woff[c][d.n_layers[c] + j] = off;
       off += (long long)in * hw + hw;
     }
-    d.wt[c][d.n_layers[c]] = wt;
-    wt += (long long)in * d.chain_out[c];
-    d.max_chain_out = d.chain_out[c] > d.max_chain_out ? d.chain_out[c] : d.max_chain_out;
   }
   if (i != spec_len) return false;
   L->P = off;
-  L->wt_floats = wt;
-  L->row_floats = row;
-  long long groups = (N + kGroupRows - 1) / kGroupRows;
-  groups = groups < 1 ? 1 : (groups > kMaxChainGroups ? kMaxChainGroups : groups);
-  L->groups = (int)groups;
-  L->rows_per_group = (N + groups - 1) / groups;
-  L->part_floats = (long long)L->groups * off;
-  L->fwd_smem = sizeof(float) * (size_t)kFwdRows * (d_in + 2 * d.max_w + d.n_out);
-  L->bwd_smem = sizeof(float) * ((size_t)kBwdRows * (2 * d_in + 2 * d.max_w + d.max_chain_out) +
-                                 (size_t)kMaxLayers * kBwdRows);
-  return L->fwd_smem <= (size_t)kMaxSmem && L->bwd_smem <= (size_t)kMaxSmem;
-}
-
-// ------------------------------------------------------------ block pieces
-
-// LayerNorm of each of the R rows of z [R, w], in place, followed by the
-// activation: z = act(xhat * scale + bias). A warp per row; each lane sums
-// its strided elements in order, then an xor butterfly (which leaves the same
-// bits in every lane). With s_out, s goes to s_out[r] and xhat to
-// xhat_out[r * w + k] for rows r < nr (xhat_out points at the block's first
-// row).
-template <int R>
-__device__ void layer_norm_rows(float* z, int w, const float* __restrict__ scale, const float* __restrict__ bias,
-                                int act, float* s_out, float* xhat_out, int nr) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  for (int r = warp; r < R; r += n_warps) {
-    float* row = z + r * w;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int k = lane; k < w; k += 32) {
-      const float v = row[k];
-      s1 += v;
-      s2 = fmaf(v, v, s2);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    const float mu = s1 / w;
-    const float s = rsqrtf(fmaxf(s2 / w - mu * mu, 0.0f) + kLnEps);
-    const bool keep = xhat_out != nullptr && r < nr;
-    for (int k = lane; k < w; k += 32) {
-      const float xh = (row[k] - mu) * s;
-      if (keep) xhat_out[(size_t)r * w + k] = xh;
-      row[k] = activate(fmaf(xh, __ldg(scale + k), __ldg(bias + k)), act);
-    }
-    if (s_out != nullptr && lane == 0) s_out[r] = s;
-  }
-}
-
-// out[r, j] = sum_k in[r, k] * Wt[j, k] for the R rows and j < J, Wt row-major
-// [J, K] (so in @ Wt^T): a warp per (row, output), lanes striding over k
-// (coalesced), then a shuffle reduction.
-template <int R>
-__device__ void narrow_bt(const float* in, int K, const float* __restrict__ Wt, float* out, int J) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-  for (int p = warp; p < R * J; p += n_warps) {
-    const int r = p / J, j = p % J;
-    float s = 0.0f;
-    for (int k = lane; k < K; k += 32) s = fmaf(in[r * K + k], __ldg(Wt + (size_t)j * K + k), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) out[r * J + j] = s;
-  }
-}
-
-// Head j of a chain on h [R, w]: hb [R, hw] = h @ Wh + bh.
-template <int R>
-__device__ void head_product(const float* h, int w, const float* __restrict__ W, int hw, float* hb) {
-  if (hw < kNarrow) {
-    narrow_head<R>(h, w, W, W + (size_t)w * hw, hw, hb, hw, 0);
-  } else {
-    dense_layer<R>(h, w, W, W + (size_t)w * hw, hb, hw, kIdentity);
-  }
-}
-
-// --------------------------------------------------------------- forward
-
-__global__ void __launch_bounds__(kThreads)
-    chains_fwd_kernel(const float* __restrict__ x, const float* __restrict__ params, Chains d) {
-  constexpr int R = kFwdRows;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // [R, d_in]
-  float* ga = xs + R * d.d_in;       // [R, max_w]
-  float* gb = ga + R * d.max_w;      // [R, max_w]
-  float* heads = gb + R * d.max_w;   // head j of chain c: [R, hw] from R * head_col
-  const long long r0 = (long long)blockIdx.x * R;
-  const int nr = (int)min((long long)R, d.N - r0);
-  for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) {
-    xs[i] = i < nr * d.d_in ? x[r0 * d.d_in + i] : 0.0f;
-  }
-  __syncthreads();
-  for (int c = 0; c < d.n_chains; ++c) {
-    const float* cur = xs;
-    int cur_w = d.d_in;
-    for (int l = 0; l < d.n_layers[c]; ++l) {
-      const int w = d.width[c][l];
-      float* dst = (l & 1) ? gb : ga;
-      const float* W = params + d.woff[c][l];
-      const float* b = W + (size_t)cur_w * w;
-      dense_layer<R>(cur, cur_w, W, b, dst, w, d.ln[c][l] ? kIdentity : d.act);
-      __syncthreads();
-      if (d.ln[c][l]) {
-        layer_norm_rows<R>(dst, w, b + w, b + 2 * w, d.act, nullptr, nullptr, nr);
-        __syncthreads();
-      }
-      cur = dst;
-      cur_w = w;
-    }
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      head_product<R>(cur, cur_w, params + d.woff[c][d.n_layers[c] + j], d.head_w[c][j],
-                      heads + R * d.head_col[c][j]);
-    }
-    __syncthreads();  // the next chain overwrites the buffers the heads read
-  }
-  for (int c = 0; c < d.n_chains; ++c) {
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      const int hw = d.head_w[c][j];
-      const float* hb = heads + R * d.head_col[c][j];
-      float* o = d.out[c][j] + r0 * hw;
-      for (int i = threadIdx.x; i < nr * hw; i += blockDim.x) o[i] = hb[i];
-    }
-  }
-}
-
-// --------------------------------------------------------------- backward
-
-__global__ void __launch_bounds__(kThreads)
-    chains_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ params, const float* __restrict__ wt,
-                           float* __restrict__ scratch, float* __restrict__ dx, Chains d) {
-  constexpr int R = kBwdRows;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                      // [R, d_in]
-  float* dxs = xs + R * d.d_in;          // [R, d_in]: dx summed over chains
-  float* ga = dxs + R * d.d_in;          // [R, max_w]
-  float* gb = ga + R * d.max_w;          // [R, max_w]
-  float* douts = gb + R * d.max_w;       // [R, max_chain_out]
-  float* svals = douts + R * d.max_chain_out;  // [kMaxLayers, R]: LayerNorm's s per layer and row
-  const long long r0 = (long long)blockIdx.x * R;
-  const int nr = (int)min((long long)R, d.N - r0);
-  for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) {
-    xs[i] = i < nr * d.d_in ? x[r0 * d.d_in + i] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int c = 0; c < d.n_chains; ++c) {
-    const int L = d.n_layers[c];
-    // Forward, storing each layer's output (and a LayerNorm's xhat).
-    const float* cur = xs;
-    int cur_w = d.d_in;
-    for (int l = 0; l < L; ++l) {
-      const int w = d.width[c][l];
-      float* dst = (l & 1) ? gb : ga;
-      const float* W = params + d.woff[c][l];
-      const float* b = W + (size_t)cur_w * w;
-      dense_layer<R>(cur, cur_w, W, b, dst, w, d.ln[c][l] ? kIdentity : d.act);
-      __syncthreads();
-      if (d.ln[c][l]) {
-        layer_norm_rows<R>(dst, w, b + w, b + 2 * w, d.act, svals + l * R,
-                           scratch + d.xhat_off[c][l] + r0 * w, nr);
-        __syncthreads();
-      }
-      float* h = scratch + d.h_off[c][l] + r0 * w;
-      for (int i = threadIdx.x; i < nr * w; i += blockDim.x) h[i] = dst[i];
-      cur = dst;
-      cur_w = w;
-    }
-    // The chain's head cotangents; rows past N are zeros.
-    const int n_out = d.chain_out[c];
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      const int hw = d.head_w[c][j], col = d.head_col[c][j] - d.head_col[c][0];
-      const float* g = d.dout[c][j] + r0 * hw;
-      for (int i = threadIdx.x; i < R * hw; i += blockDim.x) {
-        const int r = i / hw;
-        douts[r * n_out + col + i % hw] = r < nr ? g[i] : 0.0f;
-      }
-    }
-    __syncthreads();
-    // dh_{L-1} = sum over heads of dout_j Wh_j^T, one product against the
-    // heads' stacked transposes.
-    float* dh = (cur == ga) ? gb : ga;
-    dense_layer<R>(douts, n_out, wt + d.wt[c][L], nullptr, dh, cur_w, kIdentity);
-    __syncthreads();
-    for (int l = L - 1; l >= 0; --l) {
-      const int w = d.width[c][l];
-      // This block's h_l rows, written above and visible after the barriers
-      // since; rows past N have a zero dh, so their h does not matter.
-      const float* h = scratch + d.h_off[c][l] + r0 * w;
-      if (!d.ln[c][l]) {
-        for (int i = threadIdx.x; i < R * w; i += blockDim.x) {
-          const float hv = i < nr * w ? h[i] : 0.0f;
-          dh[i] *= d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv;
-        }
-      } else {
-        // da = dh * act'(h); dxhat = da * scale; dpre = s (dxhat - mean(dxhat)
-        // - xhat mean(dxhat xhat)). A warp per row: the first sweep sums, the
-        // second stores da and da * xhat (over xhat) and leaves dpre in dh.
-        const float* scale = params + d.woff[c][l] + (size_t)(l == 0 ? d.d_in : d.width[c][l - 1]) * w + w;
-        float* xhat = scratch + d.xhat_off[c][l] + r0 * w;
-        float* da_g = scratch + d.da_off[c][l] + r0 * w;
-        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
-        for (int r = warp; r < R; r += n_warps) {
-          float* row = dh + r * w;
-          const bool in_rows = r < nr;
-          float m1 = 0.0f, m2 = 0.0f;
-          for (int k = lane; k < w; k += 32) {
-            const float hv = in_rows ? h[r * w + k] : 0.0f;
-            const float xh = in_rows ? xhat[r * w + k] : 0.0f;
-            const float da = row[k] * (d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv);
-            const float dxh = da * __ldg(scale + k);
-            m1 += dxh;
-            m2 = fmaf(dxh, xh, m2);
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            m1 += __shfl_xor_sync(0xffffffffu, m1, off);
-            m2 += __shfl_xor_sync(0xffffffffu, m2, off);
-          }
-          m1 /= w;
-          m2 /= w;
-          const float s = svals[l * R + r];
-          for (int k = lane; k < w; k += 32) {
-            const float hv = in_rows ? h[r * w + k] : 0.0f;
-            const float xh = in_rows ? xhat[r * w + k] : 0.0f;
-            const float da = row[k] * (d.act == kRelu ? (hv > 0.0f ? 1.0f : 0.0f) : 1.0f - hv * hv);
-            const float dxh = da * __ldg(scale + k);
-            if (in_rows) {
-              da_g[r * w + k] = da;
-              xhat[r * w + k] = da * xh;
-            }
-            row[k] = s * (dxh - m1 - xh * m2);
-          }
-        }
-      }
-      __syncthreads();
-      float* g = scratch + d.dpre_off[c][l] + r0 * w;
-      for (int i = threadIdx.x; i < nr * w; i += blockDim.x) g[i] = dh[i];
-      // dh_{l-1} = dpre_l W_l^T, or at l = 0 this chain's dx.
-      const int in_w = l == 0 ? d.d_in : d.width[c][l - 1];
-      float* next = dh == ga ? gb : ga;
-      if (d.wt[c][l] >= 0) {
-        dense_layer<R>(dh, w, wt + d.wt[c][l], nullptr, next, in_w, kIdentity);
-      } else {
-        narrow_bt<R>(dh, w, params + d.woff[c][l], next, in_w);
-      }
-      __syncthreads();
-      dh = next;
-    }
-    for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) dxs[i] = c == 0 ? dh[i] : dxs[i] + dh[i];
-    __syncthreads();  // the next chain reuses every buffer
-  }
-  for (int i = threadIdx.x; i < nr * d.d_in; i += blockDim.x) dx[r0 * d.d_in + i] = dxs[i];
+  return true;
 }
 
 // ------------------------------------------------------- tiled backward
@@ -540,7 +283,7 @@ int weight_ld(int w) {
 
 // Lays out the tiled backward of Lo's chains; false where a chain's
 // parameters, gradients and row tile do not fit a block's shared memory
-// (those chains take the streaming route).
+// (those chains take the staged route).
 bool make_tiled(const Layout& Lo, Tiled* T) {
   const Chains& d = Lo.d;
   T->N = d.N;
@@ -660,7 +403,7 @@ struct FwdTiled {
 
 // Lays out the tiled forward of Lo's chains; false where a chain's
 // parameters and a row tile's two activation buffers do not fit a block's
-// shared memory (those chains take the streaming route, chains_fwd_kernel).
+// shared memory (those chains take the staged route, chains_layer_kernel).
 bool make_fwd_tiled(const Layout& Lo, FwdTiled* F) {
   constexpr int R = kFwdTileRows;
   const Chains& d = Lo.d;
@@ -1356,37 +1099,586 @@ __global__ void sum_chain_dx_kernel(const float* __restrict__ dxc, int n_chains,
   }
 }
 
+// ------------------------------------------------------------ staged route
+
+constexpr int kMaxStJobs = kMaxChains * kMaxHeads;  // products (or row jobs) a staged launch holds
+constexpr int kRowThreads = 256;                    // the row kernels: a warp per row
+constexpr int kRowRows = 32;                        // rows a block of chains_ln_kernel, chains_ln_bwd_kernel
+constexpr int kHeadRows = 8;                        // rows a block of chains_heads_kernel, chains_dx_kernel
+
+inline long long round4(long long v) { return (v + 3) / 4 * 4; }
+
+// Where the staged route's operands live in its workspace (floats from its
+// start, every slab 16-byte aligned), per chain: copies of W_l in
+// fwd_product's layout (fwd) and, for the backward's dh products, in
+// bwd_product's (big and small halves: W_l for dh_{l-1} where l >= 1, and
+// for dx at l = 0 where d_in >= kNarrow; at index L the heads' weights
+// stacked side by side, [w_last, chain_out], in `stack`); copies of the
+// heads at least kNarrow wide (forward); the activations h_l [N, ld_l]
+// (forward: two buffers a chain, ld its widest layer, layer l in buffer l %
+// 2; backward: one a layer) and, backward, dpre_l, a LayerNorm layer's
+// xhat_l and da_l [N, ld_l] and s_l [N], and the heads' cotangents side by
+// side [N, ld_out]. Then, backward, each chain's dx [N, d_in] and the
+// weight products' partials [groups, P]; -1 where a slab is not used.
+struct StagedChain {
+  long long fwd[kMaxLayers], big[kMaxLayers + 1], small[kMaxLayers + 1], head[kMaxHeads], stack;
+  long long h[kMaxLayers], dpre[kMaxLayers], xhat[kMaxLayers], da[kMaxLayers], s[kMaxLayers], dout;
+  int ld[kMaxLayers], ld_out;
+};
+
+struct Staged {
+  StagedChain c[kMaxChains];
+  long long dxc, partials, rows_per_group, floats;
+  int groups, depth;  // depth: the most layers of a chain
+};
+
+Staged make_staged(const Layout& Lo, bool backward) {
+  const Chains& d = Lo.d;
+  const long long N = d.N;
+  Staged S;
+  long long off = 0;
+  auto take = [&](long long floats) {
+    const long long at = off;
+    off += round4(floats);
+    return at;
+  };
+  S.depth = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    StagedChain& t = S.c[c];
+    const int L = d.n_layers[c];
+    S.depth = L > S.depth ? L : S.depth;
+    int in = d.d_in, widest = 0;
+    for (int l = 0; l < L; ++l) {
+      const int w = d.width[c][l];
+      widest = w > widest ? w : widest;
+      t.fwd[l] = take(rl8::fwd_copy_floats(in, w));
+      t.big[l] = t.small[l] = -1;
+      if (backward && (l > 0 || in >= kNarrow)) {
+        t.big[l] = take(rl8::bwd_copy_floats(w, in));
+        t.small[l] = take(rl8::bwd_copy_floats(w, in));
+      }
+      in = w;
+    }
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int hw = d.head_w[c][j];
+      t.head[j] = !backward && hw >= kNarrow ? take(rl8::fwd_copy_floats(in, hw)) : -1;
+    }
+    t.stack = t.big[L] = t.small[L] = -1;
+    if (backward) {
+      t.stack = take((long long)in * d.chain_out[c]);
+      t.big[L] = take(rl8::bwd_copy_floats(d.chain_out[c], in));
+      t.small[L] = take(rl8::bwd_copy_floats(d.chain_out[c], in));
+    }
+    for (int l = 0; l < L; ++l) {
+      t.ld[l] = (int)round4(backward ? d.width[c][l] : widest);
+      t.h[l] = backward || l < 2 ? take(N * t.ld[l]) : t.h[l - 2];
+      t.dpre[l] = t.xhat[l] = t.da[l] = t.s[l] = -1;
+      if (backward) {
+        t.dpre[l] = take(N * t.ld[l]);
+        if (d.ln[c][l]) {
+          t.xhat[l] = take(N * t.ld[l]);
+          t.da[l] = take(N * t.ld[l]);
+          t.s[l] = take(N);
+        }
+      }
+    }
+    t.ld_out = (int)round4(d.chain_out[c]);
+    t.dout = backward ? take(N * t.ld_out) : -1;
+  }
+  S.dxc = S.partials = S.rows_per_group = -1;
+  S.groups = 0;
+  if (backward) {
+    S.dxc = take((long long)d.n_chains * N * d.d_in);
+    long long g = (N + kGroupRows - 1) / kGroupRows;
+    const long long cap = kPartialFloats / Lo.P;
+    g = g > kMaxChainGroups ? kMaxChainGroups : g;
+    g = g > cap ? cap : g;
+    g = g < 1 ? 1 : g;
+    S.groups = (int)g;
+    S.rows_per_group = (N + g - 1) / g;
+    S.partials = take(g * Lo.P);
+  }
+  S.floats = off;
+  return S;
+}
+
+// The item of a launch's table at an index known only at run time,
+// selected with constant indices so the table stays in the parameter bank.
+template <class T, int M>
+__device__ __forceinline__ T select_item(const T (&items)[M], int index) {
+  T v = items[0];
+#pragma unroll
+  for (int q = 1; q < M; ++q) {
+    if (q == index) v = items[q];
+  }
+  return v;
+}
+
+// One product of chains_layer_kernel: out = act(in W + b), in [rows, K]
+// (rows ld_in apart), W a copy in fwd_product's layout, out [rows, N] (rows
+// ld_out apart); act is kIdentity before a LayerNorm and for a head.
+struct StProduct {
+  const float* in;
+  const float* w;
+  const float* b;
+  float* out;
+  long long ld_in, ld_out;
+  int K, N, act;
+};
+
+struct StProducts {
+  StProduct p[kMaxStJobs];
+  long long rows;
+};
+
+// The staged forward's products: blockIdx.x is the tile of columns 256 x ..
+// 256 x + 255, blockIdx.y the first 128-row block, which steps by
+// gridDim.y, blockIdx.z the product; each output summed in order of k from
+// 0 in f32 (fwd_product), then the bias and the activation.
+__global__ void __launch_bounds__(rl8::kStThreads, 1) chains_layer_kernel(const __grid_constant__ StProducts ps) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const StProduct p = select_item(ps.p, blockIdx.z);
+  const int n0 = blockIdx.x * rl8::kStFwdPass;
+  if (n0 >= p.N) return;
+  const long long stages = (p.K + rl8::kStK - 1) / rl8::kStK;
+  const float* w = p.w + blockIdx.x * stages * rl8::kStFwdWFloats;
+  const long long tiles = (ps.rows + R - 1) / R;
+  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, ps.rows - r0);
+    const float* in = p.in + r0 * p.ld_in;
+    float* out = p.out + r0 * p.ld_out;
+    const rl8::FwdSeg seg = {{in, p.ld_in, p.K, nr, rl8::st_vec(in, p.ld_in)}, w};
+    rl8::fwd_product(
+        &seg, 1, min(rl8::kStFwdPass, p.N - n0), st_smem, [](auto& acc, const int(&)[8]) { rl8::tile_zero(acc); },
+        [&](auto& acc, int rg, const int(&n)[8]) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = n0 + n[j];
+            if (col >= p.N) continue;
+            const float bj = __ldg(p.b + col);
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i) {
+              const int r = rg + 16 * i;
+              if (r < nr) out[r * p.ld_out + col] = activate(acc[i][j] + bj, p.act);
+            }
+          }
+        });
+  }
+}
+
+// One chain's LayerNorm rows for chains_ln_kernel: z [rows, w] (rows ld
+// apart), in place; with xhat and s (the backward's recompute) each row's
+// xhat [rows, w] (rows ld apart) and s [rows].
+struct LnRows {
+  float* z;
+  const float* scale;
+  const float* bias;
+  float* xhat;
+  float* s;
+  long long ld;
+  int w;
+};
+
+struct LnLaunch {
+  LnRows j[kMaxChains];
+  long long rows;
+  int act;
+};
+
+// z = act(xhat * scale + bias) for kRowRows rows a block (blockIdx.x) of
+// chain job blockIdx.y, a warp per row: each lane sums its strided elements
+// in order, then an xor butterfly (the same bits in every lane); flax's
+// fast variance, clamped at 0.
+__global__ void __launch_bounds__(kRowThreads) chains_ln_kernel(const __grid_constant__ LnLaunch ls) {
+  const LnRows j = select_item(ls.j, blockIdx.y);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < kRowRows; i += kRowThreads / 32) {
+    const long long r = (long long)blockIdx.x * kRowRows + i;
+    if (r >= ls.rows) break;
+    float* row = j.z + r * j.ld;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int k = lane; k < j.w; k += 32) {
+      const float v = row[k];
+      s1 += v;
+      s2 = fmaf(v, v, s2);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float mu = s1 / j.w;
+    const float s = rsqrtf(fmaxf(s2 / j.w - mu * mu, 0.0f) + kLnEps);
+    for (int k = lane; k < j.w; k += 32) {
+      const float xh = (row[k] - mu) * s;
+      if (j.xhat != nullptr) j.xhat[r * j.ld + k] = xh;
+      row[k] = activate(fmaf(xh, __ldg(j.scale + k), __ldg(j.bias + k)), ls.act);
+    }
+    if (j.s != nullptr && lane == 0) j.s[r] = s;
+  }
+}
+
+// One narrow head for chains_heads_kernel: out [rows, hw] = in W + b, in
+// [rows, K] (rows ld_in apart), W [K, hw] and b as stored.
+struct HeadRows {
+  const float* in;
+  const float* W;
+  float* out;
+  long long ld_in;
+  int K, hw;
+};
+
+struct HeadLaunch {
+  HeadRows j[kMaxStJobs];
+  long long rows;
+};
+
+// The heads narrower than kNarrow over blocks of kHeadRows rows (blockIdx.x;
+// blockIdx.y the head): stage.cuh's st_heads, narrow_head's sums.
+__global__ void __launch_bounds__(rl8::kStThreads) chains_heads_kernel(const __grid_constant__ HeadLaunch hs) {
+  const HeadRows j = select_item(hs.j, blockIdx.y);
+  const long long r0 = (long long)blockIdx.x * kHeadRows;
+  const int nr = (int)min((long long)kHeadRows, hs.rows - r0);
+  rl8::st_heads(j.in + r0 * j.ld_in, j.ld_in, j.K, j.W, j.W + (size_t)j.K * j.hw, j.hw, j.out + r0 * j.hw, j.hw, 0,
+                nr);
+}
+
+// One product of chains_dh_kernel: out = (a W^T) act'(h), or a W^T where h
+// is null; a [rows, K] (rows lda apart), W's big and small TF32 halves in
+// bwd_product's layout (units x K), out and h [rows, units] (rows ldo and
+// ldh apart).
+struct DhProduct {
+  const float* a;
+  const float* big;
+  const float* small;
+  const float* h;
+  float* out;
+  long long lda, ldh, ldo;
+  int K, units;
+};
+
+struct DhLaunch {
+  DhProduct j[kMaxChains];
+  long long rows;
+  int act;
+};
+
+// The staged backward's dh products: blockIdx.x the first 128-row block,
+// which steps by gridDim.x, blockIdx.y the product; stage.cuh's
+// bwd_product (3xTF32 wgmma, a fresh accumulator every 64 k), every unit of
+// the block's rows.
+__global__ void __launch_bounds__(rl8::kStThreads, 1) chains_dh_kernel(const __grid_constant__ DhLaunch ds) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const DhProduct p = select_item(ds.j, blockIdx.y);
+  const long long tiles = (ds.rows + R - 1) / R;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, ds.rows - r0);
+    const float* a = p.a + r0 * p.lda;
+    const float* h = p.h == nullptr ? nullptr : p.h + r0 * p.ldh;
+    float* out = p.out + r0 * p.ldo;
+    const rl8::StRows rows{a, p.lda, p.K, nr, rl8::st_vec(a, p.lda)};
+    rl8::bwd_product(rows, p.big, p.small, p.units, st_smem, [&](int r, int u, float v) {
+      if (r < nr) out[r * p.ldo + u] = h == nullptr ? v : v * act_grad(h[r * p.ldh + u], ds.act);
+    });
+  }
+}
+
+// One LayerNorm layer of chains_ln_bwd_kernel (each [rows, w], rows ld
+// apart): its da, xhat and s from the recompute, its scale, and dpre.
+struct LnBwdRows {
+  const float* da;
+  float* xhat;
+  const float* s;
+  const float* scale;
+  float* dpre;
+  long long ld;
+  int w;
+};
+
+struct LnBwdLaunch {
+  LnBwdRows j[kMaxChains];
+  long long rows;
+};
+
+// Per row, dxhat = da scale and dpre = s (dxhat - mean(dxhat) - xhat
+// mean(dxhat xhat)); xhat is overwritten with da xhat (the column sums of
+// dscale read it). A warp per row, kRowRows rows a block: each lane sums
+// its strided elements in order, then an xor butterfly.
+__global__ void __launch_bounds__(kRowThreads) chains_ln_bwd_kernel(const __grid_constant__ LnBwdLaunch ls) {
+  const LnBwdRows j = select_item(ls.j, blockIdx.y);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < kRowRows; i += kRowThreads / 32) {
+    const long long r = (long long)blockIdx.x * kRowRows + i;
+    if (r >= ls.rows) break;
+    const float* da = j.da + r * j.ld;
+    float* xh = j.xhat + r * j.ld;
+    float m1 = 0.0f, m2 = 0.0f;
+    for (int k = lane; k < j.w; k += 32) {
+      const float dxh = da[k] * __ldg(j.scale + k);
+      m1 += dxh;
+      m2 = fmaf(dxh, xh[k], m2);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m1 += __shfl_xor_sync(0xffffffffu, m1, off);
+      m2 += __shfl_xor_sync(0xffffffffu, m2, off);
+    }
+    m1 /= j.w;
+    m2 /= j.w;
+    const float s = j.s[r];
+    float* dpre = j.dpre + r * j.ld;
+    for (int k = lane; k < j.w; k += 32) {
+      const float dv = da[k], xv = xh[k];
+      dpre[k] = s * (dv * __ldg(j.scale + k) - m1 - xv * m2);
+      xh[k] = dv * xv;
+    }
+  }
+}
+
+// One chain's dx for chains_dx_kernel: out [rows, d_in] = a W^T, a
+// [rows, K] (rows lda apart), W [d_in, K] as stored.
+struct DxRows {
+  const float* a;
+  const float* W;
+  float* out;
+  long long lda;
+  int K;
+};
+
+struct DxLaunch {
+  DxRows j[kMaxChains];
+  long long rows;
+  int d_in;
+};
+
+// dx of an input narrower than kNarrow on the CUDA cores, kHeadRows rows a
+// block (blockIdx.x; blockIdx.y the chain): a warp per (row, input) pair,
+// lane l summing k = l, l + 32, ... in order, then an xor butterfly.
+__global__ void __launch_bounds__(rl8::kStThreads) chains_dx_kernel(const __grid_constant__ DxLaunch xs) {
+  const DxRows j = select_item(xs.j, blockIdx.y);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r0 = (long long)blockIdx.x * kHeadRows;
+  const int nr = (int)min((long long)kHeadRows, xs.rows - r0);
+  for (int q = warp; q < nr * xs.d_in; q += rl8::kStThreads / 32) {
+    const int r = q / xs.d_in, n = q % xs.d_in;
+    const float* a = j.a + (r0 + r) * j.lda;
+    const float* W = j.W + (size_t)n * j.K;
+    float s = 0.0f;
+#pragma unroll 4
+    for (int k = lane; k < j.K; k += 32) s = fmaf(a[k], __ldg(W + k), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) j.out[(r0 + r) * xs.d_in + n] = s;
+  }
+}
+
+// A copy of src [rows, cols] (contiguous) into dst, rows ld apart.
+struct Copy2d {
+  const float* src;
+  float* dst;
+  long long rows, ld;
+  int cols;
+};
+
+struct CopyLaunch {
+  Copy2d j[kMaxStJobs];
+};
+
+// The copies (blockIdx.y), a thread an element, grid-stride.
+__global__ void __launch_bounds__(rl8::kWgThreads) chains_copy_kernel(const __grid_constant__ CopyLaunch cs) {
+  const Copy2d j = select_item(cs.j, blockIdx.y);
+  const long long total = j.rows * j.cols;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    j.dst[(i / j.cols) * j.ld + i % j.cols] = j.src[i];
+  }
+}
+
+cudaError_t copy_2d(const CopyLaunch& cs, int n, long long most, cudaStream_t s) {
+  if (n == 0) return cudaSuccess;
+  chains_copy_kernel<<<dim3(rl8::grid_for(most), n), rl8::kWgThreads, 0, s>>>(cs);
+  return cudaGetLastError();
+}
+
+// The staged kernels' shared memory (stage.cuh's rings).
+cudaError_t staged_attributes() {
+  cudaError_t err =
+      cudaFuncSetAttribute(chains_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStFwdSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chains_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
+}
+
+// The weight copies of the staged route (make_staged's fwd, head, big and
+// small; the heads' stack first).
+cudaError_t staged_copies(const float* params, float* ws, const Layout& Lo, const Staged& S, cudaStream_t s) {
+  const Chains& d = Lo.d;
+  CopyLaunch stack;
+  int n_stack = 0;
+  long long most = 0;
+  cudaError_t err;
+  for (int c = 0; c < d.n_chains; ++c) {
+    const StagedChain& t = S.c[c];
+    const int L = d.n_layers[c];
+    int in = d.d_in;
+    for (int l = 0; l < L; ++l) {
+      const int w = d.width[c][l];
+      const float* W = params + d.woff[c][l];
+      rl8::tile_fwd_kernel<<<rl8::st_copy_grid(rl8::fwd_copy_floats(in, w)), rl8::kStThreads, 0, s>>>(
+          W, w, in, w, 0, ws + t.fwd[l]);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      if (t.big[l] >= 0) {
+        rl8::tile_bwd_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(w, in)), rl8::kStThreads, 0, s>>>(
+            W, w, w, in, ws + t.big[l], ws + t.small[l]);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      in = w;
+    }
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int hw = d.head_w[c][j];
+      const float* W = params + d.woff[c][L + j];
+      if (t.head[j] >= 0) {
+        rl8::tile_fwd_kernel<<<rl8::st_copy_grid(rl8::fwd_copy_floats(in, hw)), rl8::kStThreads, 0, s>>>(
+            W, hw, in, hw, 0, ws + t.head[j]);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      if (t.stack >= 0) {
+        stack.j[n_stack++] = Copy2d{W, ws + t.stack + (d.head_col[c][j] - d.head_col[c][0]), in, d.chain_out[c], hw};
+        most = (long long)in * hw > most ? (long long)in * hw : most;
+      }
+    }
+  }
+  if ((err = copy_2d(stack, n_stack, most, s)) != cudaSuccess) return err;
+  for (int c = 0; c < d.n_chains; ++c) {
+    const StagedChain& t = S.c[c];
+    if (t.stack < 0) continue;
+    const int L = d.n_layers[c], n_out = d.chain_out[c], w = d.width[c][L - 1];
+    rl8::tile_bwd_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(n_out, w)), rl8::kStThreads, 0, s>>>(
+        ws + t.stack, n_out, n_out, w, ws + t.big[L], ws + t.small[L]);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t launch_products(const StProducts& ps, int n, int widest, cudaStream_t s) {
+  if (n == 0) return cudaSuccess;
+  const dim3 grid((widest + rl8::kStFwdPass - 1) / rl8::kStFwdPass, rl8::st_row_grid(ps.rows), n);
+  chains_layer_kernel<<<grid, rl8::kStThreads, rl8::kStFwdSmem, s>>>(ps);
+  return cudaGetLastError();
+}
+
+// The staged forward's layers, one depth at a time over the chains that
+// have that layer (keep: the backward's recompute, keeping each LayerNorm's
+// xhat and s).
+cudaError_t staged_layers(const float* x, const float* params, float* ws, const Layout& Lo, const Staged& S, bool keep,
+                          cudaStream_t s) {
+  const Chains& d = Lo.d;
+  const long long N = d.N;
+  cudaError_t err;
+  for (int l = 0; l < S.depth; ++l) {
+    StProducts ps;
+    ps.rows = N;
+    LnLaunch ls;
+    ls.rows = N;
+    ls.act = d.act;
+    int n = 0, n_ln = 0, widest = 0;
+    for (int c = 0; c < d.n_chains; ++c) {
+      if (l >= d.n_layers[c]) continue;
+      const StagedChain& t = S.c[c];
+      const int w = d.width[c][l], in_w = l == 0 ? d.d_in : d.width[c][l - 1];
+      const float* b = params + d.woff[c][l] + (long long)in_w * w;
+      ps.p[n++] = StProduct{l == 0 ? x : ws + t.h[l - 1], ws + t.fwd[l], b, ws + t.h[l],
+                            l == 0 ? d.d_in : t.ld[l - 1], t.ld[l], in_w, w, d.ln[c][l] ? kIdentity : d.act};
+      widest = w > widest ? w : widest;
+      if (d.ln[c][l]) {
+        ls.j[n_ln++] = LnRows{ws + t.h[l], b + w, b + 2 * w, keep ? ws + t.xhat[l] : nullptr,
+                              keep ? ws + t.s[l] : nullptr, t.ld[l], w};
+      }
+    }
+    if ((err = launch_products(ps, n, widest, s)) != cudaSuccess) return err;
+    if (n_ln > 0) {
+      chains_ln_kernel<<<dim3((unsigned)((N + kRowRows - 1) / kRowRows), n_ln), kRowThreads, 0, s>>>(ls);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+// The staged forward (see the file's head) on `ws` (make_staged(Lo,
+// false)'s floats).
+cudaError_t staged_forward(const float* x, const float* params, float* ws, const Layout& Lo, cudaStream_t s) {
+  const Chains& d = Lo.d;
+  const Staged S = make_staged(Lo, false);
+  cudaError_t err;
+  if ((err = staged_attributes()) != cudaSuccess) return err;
+  if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
+  if ((err = staged_layers(x, params, ws, Lo, S, false, s)) != cudaSuccess) return err;
+  StProducts wide;
+  wide.rows = d.N;
+  HeadLaunch hl;
+  hl.rows = d.N;
+  int n_wide = 0, n_narrow = 0, widest = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    const StagedChain& t = S.c[c];
+    const int L = d.n_layers[c], w = d.width[c][L - 1];
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int hw = d.head_w[c][j];
+      const float* W = params + d.woff[c][L + j];
+      if (hw >= kNarrow) {
+        wide.p[n_wide++] =
+            StProduct{ws + t.h[L - 1], ws + t.head[j], W + (long long)w * hw, d.out[c][j], t.ld[L - 1], hw, w, hw,
+                      kIdentity};
+        widest = hw > widest ? hw : widest;
+      } else {
+        hl.j[n_narrow++] = HeadRows{ws + t.h[L - 1], W, d.out[c][j], t.ld[L - 1], w, hw};
+      }
+    }
+  }
+  if ((err = launch_products(wide, n_wide, widest, s)) != cudaSuccess) return err;
+  if (n_narrow > 0) {
+    chains_heads_kernel<<<dim3((unsigned)((d.N + kHeadRows - 1) / kHeadRows), n_narrow), rl8::kStThreads, 0, s>>>(hl);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Launches the weight products of jobs[0..n) in lists of at most
-// kMaxWgJobs, each group of rows writing its partial gradient.
-cudaError_t launch_jobs(const Job* jobs, int n, const Layout& L, float* partials, cudaStream_t s) {
+// kMaxWgJobs over `groups` groups of rows, each writing its partial
+// gradient.
+cudaError_t launch_jobs(const Job* jobs, int n, long long rows, int groups, long long rows_per_group, long long P,
+                        float* partials, cudaStream_t s) {
   Jobs tiled, bias;
   auto reset = [&](Jobs* js) {
     js->n = 0;
     js->inner_rows = 1;
-    js->rows_per_group = L.rows_per_group;
-    js->rows = L.d.N;
-    js->P = L.P;
+    js->rows_per_group = rows_per_group;
+    js->rows = rows;
+    js->P = P;
   };
   reset(&tiled);
   reset(&bias);
-  int tiles = 0;
+  int tiles = 0, bias_tiles = 0;
   cudaError_t err;
   auto flush = [&](bool force) -> cudaError_t {
     if (tiled.n > 0 && (force || tiled.n == rl8::kMaxWgJobs)) {
-      cudaError_t e = rl8::launch_tiled(tiled, tiles, L.groups, partials, s);
+      cudaError_t e = rl8::launch_tiled(tiled, tiles, groups, partials, s);
       reset(&tiled);
       tiles = 0;
       if (e != cudaSuccess) return e;
     }
     if (bias.n > 0 && (force || bias.n == rl8::kMaxWgJobs)) {
-      cudaError_t e = rl8::launch_bias(bias, L.groups, partials, s);
+      cudaError_t e = rl8::launch_bias(bias, bias_tiles, groups, partials, s);
       reset(&bias);
+      bias_tiles = 0;
       return e;
     }
     return cudaSuccess;
   };
   for (int q = 0; q < n; ++q) {
-    rl8::add_job(jobs[q], &tiled, &bias, &tiles);
+    rl8::add_job(jobs[q], &tiled, &bias, &tiles, &bias_tiles);
     if ((err = flush(false)) != cudaSuccess) return err;
   }
   return flush(true);
@@ -1407,25 +1699,158 @@ Job make_job(const float* a, long long a_outer, const float* b, long long b_oute
   return jb;
 }
 
-}  // namespace
-
-// Floats of workspace that rl8_chains_bwd needs (backward != 0) or 0 for the
-// forward, or -1 where the kernels do not take the chains: the tiled route's
-// partials (at most kMaxTileBlocks / n_chains groups) and per-chain dx, or
-// the streaming route's transposed weights, row scratch and partials.
-extern "C" long long rl8_chains_workspace(long long N, int d_in, const int* spec, int spec_len, int backward) {
-  Layout L;
-  if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
-  if (!backward) return 0;
-  Tiled T;
-  if (make_tiled(L, &T)) return (long long)T.groups * L.P + (long long)L.d.n_chains * N * d_in;
-  return L.wt_floats + L.row_floats + L.part_floats;
+// The staged backward (see the file's head) on `ws` (make_staged(Lo,
+// true)'s floats).
+cudaError_t staged_backward(const float* x, const float* params, float* dx, float* grads, float* ws, const Layout& Lo,
+                            cudaStream_t s) {
+  const Chains& d = Lo.d;
+  const long long N = d.N;
+  const Staged S = make_staged(Lo, true);
+  cudaError_t err;
+  if ((err = staged_attributes()) != cudaSuccess) return err;
+  if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
+  if ((err = staged_layers(x, params, ws, Lo, S, true, s)) != cudaSuccess) return err;
+  // Each chain's head cotangents side by side.
+  CopyLaunch douts;
+  int n_douts = 0;
+  long long most = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      const int hw = d.head_w[c][j];
+      douts.j[n_douts++] =
+          Copy2d{d.dout[c][j], ws + S.c[c].dout + (d.head_col[c][j] - d.head_col[c][0]), N, S.c[c].ld_out, hw};
+      most = N * hw > most ? N * hw : most;
+    }
+  }
+  if ((err = copy_2d(douts, n_douts, most, s)) != cudaSuccess) return err;
+  // Down the chains from the top, one step a launch: step i takes chain c
+  // from layer L_c - i to layer l = L_c - 1 - i (at i = 0, from the heads).
+  const dim3 dh_grid(rl8::st_row_grid(N), 1);
+  for (int i = 0; i < S.depth; ++i) {
+    DhLaunch dh;
+    dh.rows = N;
+    dh.act = d.act;
+    LnBwdLaunch lb;
+    lb.rows = N;
+    int n = 0, n_ln = 0;
+    for (int c = 0; c < d.n_chains; ++c) {
+      const int L = d.n_layers[c], l = L - 1 - i;
+      if (l < 0) continue;
+      const StagedChain& t = S.c[c];
+      const int w = d.width[c][l], above = i == 0 ? L : l + 1;
+      const bool ln = d.ln[c][l];
+      dh.j[n++] = DhProduct{i == 0 ? ws + t.dout : ws + t.dpre[l + 1], ws + t.big[above], ws + t.small[above],
+                            ws + t.h[l], ws + (ln ? t.da[l] : t.dpre[l]), i == 0 ? t.ld_out : t.ld[l + 1], t.ld[l],
+                            t.ld[l], i == 0 ? d.chain_out[c] : d.width[c][l + 1], w};
+      if (ln) {
+        const int in_w = l == 0 ? d.d_in : d.width[c][l - 1];
+        const float* scale = params + d.woff[c][l] + (long long)in_w * w + w;
+        lb.j[n_ln++] = LnBwdRows{ws + t.da[l], ws + t.xhat[l], ws + t.s[l], scale, ws + t.dpre[l], t.ld[l], w};
+      }
+    }
+    chains_dh_kernel<<<dim3(dh_grid.x, n), rl8::kStThreads, rl8::kStBwdSmem, s>>>(dh);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (n_ln > 0) {
+      chains_ln_bwd_kernel<<<dim3((unsigned)((N + kRowRows - 1) / kRowRows), n_ln), kRowThreads, 0, s>>>(lb);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  // Each chain's dx = dpre_0 W_0^T, then their sum in chain order.
+  float* dxc = ws + S.dxc;
+  if (d.d_in >= kNarrow) {
+    DhLaunch dh;
+    dh.rows = N;
+    dh.act = d.act;
+    for (int c = 0; c < d.n_chains; ++c) {
+      const StagedChain& t = S.c[c];
+      dh.j[c] = DhProduct{ws + t.dpre[0], ws + t.big[0], ws + t.small[0], nullptr, dxc + (long long)c * N * d.d_in,
+                          t.ld[0], 0, d.d_in, d.width[c][0], d.d_in};
+    }
+    chains_dh_kernel<<<dim3(dh_grid.x, d.n_chains), rl8::kStThreads, rl8::kStBwdSmem, s>>>(dh);
+  } else {
+    DxLaunch xl;
+    xl.rows = N;
+    xl.d_in = d.d_in;
+    for (int c = 0; c < d.n_chains; ++c) {
+      xl.j[c] = DxRows{ws + S.c[c].dpre[0], params + d.woff[c][0], dxc + (long long)c * N * d.d_in, S.c[c].ld[0],
+                       d.width[c][0]};
+    }
+    chains_dx_kernel<<<dim3((unsigned)((N + kHeadRows - 1) / kHeadRows), d.n_chains), rl8::kStThreads, 0, s>>>(xl);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  sum_chain_dx_kernel<<<rl8::grid_for(N * d.d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d.d_in, dx);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // The weight products: dW = h_in^T dpre and db per layer (and a
+  // LayerNorm's dscale = sum(da xhat), dbias = sum(da) as bias-only column
+  // sums), and per head h_last^T dout.
+  Job jobs[kMaxJobs];
+  int n = 0;
+  for (int c = 0; c < d.n_chains; ++c) {
+    const StagedChain& t = S.c[c];
+    const int L = d.n_layers[c];
+    int in = d.d_in;
+    for (int l = 0; l < L; ++l) {
+      const int w = d.width[c][l];
+      const float* a = l == 0 ? x : ws + t.h[l - 1];
+      const long long lda = l == 0 ? d.d_in : t.ld[l - 1];
+      jobs[n++] = make_job(a, lda, ws + t.dpre[l], t.ld[l], in, w, d.woff[c][l]);
+      if (d.ln[c][l]) {
+        const long long scale_off = d.woff[c][l] + (long long)in * w + w;
+        jobs[n++] = make_job(a, lda, ws + t.xhat[l], t.ld[l], 0, w, scale_off);
+        jobs[n++] = make_job(a, lda, ws + t.da[l], t.ld[l], 0, w, scale_off + w);
+      }
+      in = w;
+    }
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      jobs[n++] = make_job(ws + t.h[L - 1], t.ld[L - 1], d.dout[c][j], d.head_w[c][j], in, d.head_w[c][j],
+                           d.woff[c][L + j]);
+    }
+  }
+  float* partials = ws + S.partials;
+  if ((err = launch_jobs(jobs, n, N, S.groups, S.rows_per_group, Lo.P, partials, s)) != cudaSuccess) return err;
+  rl8::sum_partials_kernel<<<rl8::grid_for(Lo.P), rl8::kWgThreads, 0, s>>>(partials, S.groups, Lo.P, grads);
+  return cudaGetLastError();
 }
 
-// outs: a host array of each head's output [N, hw], chain by chain.
-extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const* outs, long long N, int d_in,
-                              const int* spec, int spec_len, int act, int device, void* stream) {
-  Layout L;
+}  // namespace
+
+// Floats of workspace that rl8_chains_fwd (backward = 0) or rl8_chains_bwd
+// (backward != 0) needs, or -1 where the kernels do not take the chains
+// (their counts): 0 where the forward takes its tiled route; the tiled
+// backward's partials (at most kMaxTileBlocks / n_chains groups) and
+// per-chain dx; else the staged route's copies, row scratch and (backward)
+// partials (make_staged).
+extern "C" long long rl8_chains_workspace(long long N, int d_in, const int* spec, int spec_len, int backward) {
+  Layout L = {};
+  if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
+  if (!backward) {
+    FwdTiled F;
+    return make_fwd_tiled(L, &F) ? 0 : make_staged(L, false).floats;
+  }
+  Tiled T;
+  if (make_tiled(L, &T)) return (long long)T.groups * L.P + (long long)L.d.n_chains * N * d_in;
+  return make_staged(L, true).floats;
+}
+
+// Floats of the weight products' partials that rl8_chains_bwd writes on
+// these chains: the staged route's groups times the parameter count
+// (make_staged), or at most the tiled route's (its workspace's groups; a
+// launch takes fewer where the card holds fewer blocks at once); -1 where the
+// kernels do not take the chains.
+extern "C" long long rl8_chains_partials(long long N, int d_in, const int* spec, int spec_len) {
+  Layout L = {};
+  if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
+  Tiled T;
+  if (make_tiled(L, &T)) return (long long)T.groups * L.P;
+  return (long long)make_staged(L, true).groups * L.P;
+}
+
+// outs: a host array of each head's output [N, hw], chain by chain;
+// workspace holds rl8_chains_workspace(..., 0) floats (null where that is
+// 0).
+extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const* outs, float* workspace, long long N,
+                              int d_in, const int* spec, int spec_len, int act, int device, void* stream) {
+  Layout L = {};
   if (!make_layout(N, d_in, act, spec, spec_len, &L)) return (int)cudaErrorInvalidValue;
   for (int c = 0, q = 0; c < L.d.n_chains; ++c) {
     for (int j = 0; j < L.d.n_heads[c]; ++j) L.d.out[c][j] = outs[q++];
@@ -1452,12 +1877,8 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
     kernel<<<dim3(F.groups, L.d.n_chains), kFwdTileThreads, F.smem, (cudaStream_t)stream>>>(x, params, F);
     return (int)cudaGetLastError();
   }
-  // The streaming route.
-  err = cudaFuncSetAttribute(chains_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.fwd_smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (N + kFwdRows - 1) / kFwdRows;
-  chains_fwd_kernel<<<(unsigned)blocks, kThreads, L.fwd_smem, (cudaStream_t)stream>>>(x, params, L.d);
-  return (int)cudaGetLastError();
+  if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)staged_forward(x, params, workspace, L, (cudaStream_t)stream);
 }
 
 // douts: a host array of each head's cotangent [N, hw], chain by chain; dx
@@ -1466,7 +1887,7 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
 extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* const* douts, float* dx,
                               float* grads, float* workspace, long long N, int d_in, const int* spec, int spec_len,
                               int act, int device, void* stream) {
-  Layout L;
+  Layout L = {};
   if (!make_layout(N, d_in, act, spec, spec_len, &L)) return (int)cudaErrorInvalidValue;
   for (int c = 0, q = 0; c < L.d.n_chains; ++c) {
     for (int j = 0; j < L.d.n_heads[c]; ++j) L.d.dout[c][j] = douts[q++];
@@ -1497,63 +1918,5 @@ extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* 
     sum_chain_dx_kernel<<<rl8::grid_for(N * d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d_in, dx);
     return (int)cudaGetLastError();
   }
-
-  // The streaming route.
-  float* wt = workspace;
-  float* scratch = wt + L.wt_floats;
-  float* partials = scratch + L.row_floats;
-
-  // Transposed copies for the dh products.
-  for (int c = 0; c < d.n_chains; ++c) {
-    int in = d_in;
-    for (int l = 0; l < d.n_layers[c]; ++l) {
-      const int w = d.width[c][l];
-      if (d.wt[c][l] >= 0) {
-        rl8::transpose_kernel<<<rl8::grid_for((long long)in * w), kThreads, 0, s>>>(
-            params + d.woff[c][l], wt + d.wt[c][l], in, w);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      }
-      in = w;
-    }
-    long long row = d.wt[c][d.n_layers[c]];
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      const int hw = d.head_w[c][j];
-      rl8::transpose_kernel<<<rl8::grid_for((long long)in * hw), kThreads, 0, s>>>(
-          params + d.woff[c][d.n_layers[c] + j], wt + row, in, hw);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      row += (long long)hw * in;
-    }
-  }
-
-  err = cudaFuncSetAttribute(chains_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bwd_smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (N + kBwdRows - 1) / kBwdRows;
-  chains_bwd_rows_kernel<<<(unsigned)blocks, kThreads, L.bwd_smem, s>>>(x, params, wt, scratch, dx, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  Job jobs[kMaxJobs];
-  int n = 0;
-  for (int c = 0; c < d.n_chains; ++c) {
-    const int Lc = d.n_layers[c];
-    int in = d_in;
-    for (int l = 0; l < Lc; ++l) {
-      const int w = d.width[c][l];
-      const float* a = l == 0 ? x : scratch + d.h_off[c][l - 1];
-      jobs[n++] = make_job(a, in, scratch + d.dpre_off[c][l], w, in, w, d.woff[c][l]);
-      if (d.ln[c][l]) {
-        // Bias-only column sums: dscale = sum(da * xhat), dbias = sum(da).
-        const long long scale_off = d.woff[c][l] + (long long)in * w + w;
-        jobs[n++] = make_job(a, in, scratch + d.xhat_off[c][l], w, 0, w, scale_off);
-        jobs[n++] = make_job(a, in, scratch + d.da_off[c][l], w, 0, w, scale_off + w);
-      }
-      in = w;
-    }
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      jobs[n++] = make_job(scratch + d.h_off[c][Lc - 1], in, d.dout[c][j], d.head_w[c][j], in, d.head_w[c][j],
-                           d.woff[c][Lc + j]);
-    }
-  }
-  if ((err = launch_jobs(jobs, n, L, partials, s)) != cudaSuccess) return (int)err;
-  rl8::sum_partials_kernel<<<rl8::grid_for(L.P), rl8::kWgThreads, 0, s>>>(partials, L.groups, L.P, grads);
-  return (int)cudaGetLastError();
+  return (int)staged_backward(x, params, dx, grads, workspace, L, s);
 }

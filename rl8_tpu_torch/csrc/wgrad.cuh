@@ -11,7 +11,8 @@
 // included) go to reduce_tiled_kernel, 128x128 output tiles on the tensor
 // cores (mma.cuh's 3xTF32) fed by a cp.async ring of row chunks; bias-only
 // jobs (K = 0: LayerNorm's column sums in chains.cu) to reduce_bias_kernel,
-// a thread per column on the CUDA cores.
+// a block per kWgThreads columns and group of rows, a thread per column on
+// the CUDA cores.
 //
 // Row i of a job is (i / inner_rows, i % inner_rows): the feedforward
 // update's rows have inner_rows = 1; the recurrent update's rows are
@@ -76,14 +77,17 @@ __host__ inline void add_tiled(Job jb, Jobs* tiled, int* tiles) {
   tiled->job[tiled->n++] = jb;
 }
 
-// Adds `jb` to the bias list if it is bias-only (K = 0), else to the tiled
-// one. (A 1- or 2-wide head on the tensor cores wastes most of each tile's
-// products, but streams its rows at the tiled kernel's rate: the
-// thread-per-output kernel that took the heads before spent 2.05 ms of the
-// recurrent update on them on an H100, chip_smoke.py --time-updates.)
-__host__ inline void add_job(Job jb, Jobs* tiled, Jobs* bias, int* tiles) {
+// Adds `jb` to the bias list (`bias_tiles` blocks of kWgThreads columns so
+// far) if it is bias-only (K = 0), else to the tiled one. (A 1- or 2-wide
+// head on the tensor cores wastes most of each tile's products, but streams
+// its rows at the tiled kernel's rate: the thread-per-output kernel that
+// took the heads before spent 2.05 ms of the recurrent update on them on an
+// H100, chip_smoke.py --time-updates.)
+__host__ inline void add_job(Job jb, Jobs* tiled, Jobs* bias, int* tiles, int* bias_tiles) {
   if (jb.K == 0) {
-    jb.tiles_j = jb.tile0 = 0;
+    jb.tiles_j = (jb.J + kWgThreads - 1) / kWgThreads;
+    jb.tile0 = *bias_tiles;
+    *bias_tiles += jb.tiles_j;
     bias->job[bias->n++] = jb;
   } else {
     add_tiled(jb, tiled, tiles);
@@ -249,19 +253,18 @@ __global__ void __launch_bounds__(kWgThreads, 2) reduce_tiled_kernel(Jobs js, fl
 }
 
 // Bias-only jobs (K = 0, rows with inner_rows = 1: LayerNorm's dscale and
-// dbias in chains.cu): a block per job and group of rows, a thread per
-// column, summing the group's rows in order.
+// dbias in chains.cu): a block per kWgThreads columns of a job and group of
+// rows, a thread per column, summing the group's rows in order.
 __global__ void __launch_bounds__(kWgThreads) reduce_bias_kernel(Jobs js, float* __restrict__ partials) {
-  const Job jb = select_job(js, blockIdx.x, false);
+  const Job jb = select_job(js, blockIdx.x, true);
+  const int j = (blockIdx.x - jb.tile0) * kWgThreads + threadIdx.x;
+  if (j >= jb.J) return;
   const long long n_begin = (long long)blockIdx.y * js.rows_per_group;
   const long long n_end = min(js.rows, n_begin + js.rows_per_group);
-  float* out = partials + (size_t)blockIdx.y * js.P + jb.off;
-  for (int j = threadIdx.x; j < jb.J; j += kWgThreads) {
-    float s = 0.0f;
+  float s = 0.0f;
 #pragma unroll 8
-    for (long long n = n_begin; n < n_end; ++n) s += jb.b[n * jb.b_outer + j];
-    out[j] = s;
-  }
+  for (long long n = n_begin; n < n_end; ++n) s += jb.b[n * jb.b_outer + j];
+  partials[(size_t)blockIdx.y * js.P + jb.off + j] = s;
 }
 
 // grads[p] = sum over groups of partials[g, p], in order of g.
@@ -322,10 +325,11 @@ __host__ inline cudaError_t launch_tiled(const Jobs& tiled, int tiles, int group
   return cudaGetLastError();
 }
 
-// Launches the bias-only jobs of `bias` over `groups` groups of rows.
-__host__ inline cudaError_t launch_bias(const Jobs& bias, int groups, float* partials, cudaStream_t s) {
+// Launches the bias-only jobs of `bias` (`tiles` blocks of columns) over
+// `groups` groups of rows.
+__host__ inline cudaError_t launch_bias(const Jobs& bias, int tiles, int groups, float* partials, cudaStream_t s) {
   if (bias.inner_rows != 1) return cudaErrorInvalidValue;
-  reduce_bias_kernel<<<dim3(bias.n, groups), kWgThreads, 0, s>>>(bias, partials);
+  reduce_bias_kernel<<<dim3(tiles, groups), kWgThreads, 0, s>>>(bias, partials);
   return cudaGetLastError();
 }
 

@@ -163,8 +163,11 @@ def load() -> ctypes.CDLL:
         # N, d_in, spec (host int array), spec length, backward
         lib.rl8_chains_workspace.argtypes = [i64, i32, ptr, i32, i32]
         lib.rl8_chains_workspace.restype = i64
+        # N, d_in, spec, spec length
+        lib.rl8_chains_partials.argtypes = [i64, i32, ptr, i32]
+        lib.rl8_chains_partials.restype = i64
         lib.rl8_chains_fwd.argtypes = [
-            ptr, ptr, ptr,  # x, params, head outputs (host pointer array)
+            ptr, ptr, ptr, ptr,  # x, params, head outputs (host pointer array), workspace
             i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act
             i32, ptr,  # device, stream
         ]

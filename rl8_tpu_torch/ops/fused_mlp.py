@@ -422,10 +422,11 @@ def _spec(structure: Structure) -> Any:
 
 def card_takes_chains(chains: Sequence[Chain]) -> bool:
     """Whether ``csrc/chains.cu`` takes these chains: at most 4 chains of
-    1 to 8 layers and 1 to 4 heads, whose row passes fit a block's shared
-    memory (layers up to ~800 wide). The limit is the kernels' own; this
-    builds them, if they are not built yet, and asks them (the
-    counterpart of ``rl8_tpu``'s ``chains_fit_vmem``)."""
+    1 to 8 layers and 1 to 4 heads, of any width (chains too large for
+    the tiled routes take the staged ones, whose activations live in a
+    device scratch). The limit is the kernels' own; this builds them, if
+    they are not built yet, and asks them (the counterpart of
+    ``rl8_tpu``'s ``chains_fit_vmem``)."""
     structure = chain_structure(chains)
     spec, n = _spec(structure)
     return load().rl8_chains_workspace(1, structure[0], spec, n, 1) >= 0
@@ -504,8 +505,8 @@ def _launch_args(x: torch.Tensor, flat: torch.Tensor, structure: Structure) -> t
     spec, n = _spec(structure)
     if load().rl8_chains_workspace(x.shape[0], structure[0], spec, n, 1) < 0:
         raise NotImplementedError(
-            "The card's chain kernels do not take these chains (at most 4 chains of 1 to 8"
-            " layers and 1 to 4 heads, whose row passes must fit a block's shared memory)."
+            "The card's chain kernels do not take these chains: they take at most 4 chains"
+            " of 1 to 8 layers and 1 to 4 heads."
         )
     return spec, n
 
@@ -516,10 +517,11 @@ def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, 
     on ``x [N, d_in]``.
 
     CUDA tensors launch ``csrc/chains.cu``'s forward (persistent blocks
-    that each hold one chain's parameters in shared memory and walk 32-row
+    that each hold one chain's parameters in shared memory and walk 64-row
     tiles through register-tiled f32 products, or, for chains too large for
-    that, 16-row blocks with the weights streaming from L2; the route is
-    picked by the chains' shapes; counting one launch in
+    that, the staged route: one launch a layer depth over 128-row blocks,
+    the activations in a workspace this allocates; the route is picked by
+    the chains' shapes; counting one launch in
     ``fused_chains_fwd.launches``) or raise; CPU tensors run
     :func:`forward_chains`."""
     _check(x, flat, structure, activation)
@@ -527,13 +529,16 @@ def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, 
         outs, _ = forward_chains(x, unflatten_chains(flat, structure), activation)
         return [o for chain in outs for o in chain]
     spec, n = _launch_args(x, flat, structure)
+    lib = load()
     N = x.shape[0]
-    outs = [torch.empty((N, w), dtype=torch.float32, device=x.device) for _, heads in structure[1] for w in heads]
-    ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
     dev = x.device
-    code = load().rl8_chains_fwd(
-        x.data_ptr(), flat.data_ptr(), ptrs, N, structure[0], spec, n, list(ACT_FNS).index(activation),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+    outs = [torch.empty((N, w), dtype=torch.float32, device=dev) for _, heads in structure[1] for w in heads]
+    ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    floats = lib.rl8_chains_workspace(N, structure[0], spec, n, 0)
+    work = torch.empty(floats, dtype=torch.float32, device=dev) if floats > 0 else None
+    code = lib.rl8_chains_fwd(
+        x.data_ptr(), flat.data_ptr(), ptrs, None if work is None else work.data_ptr(), N, structure[0], spec, n,
+        list(ACT_FNS).index(activation), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     check(code, "The chain forward kernel", outs)
     fused_chains_fwd.launches += 1
@@ -554,8 +559,10 @@ def fused_chains_bwd(
     CUDA tensors launch ``csrc/chains.cu``'s backward (persistent blocks
     that each hold one chain's parameters and gradients in shared memory
     and recompute the forward tile by tile, or, for chains too large for
-    that, a row pass through a device scratch and split-K weight
-    products; then fixed-order sums, bit-identical from launch to launch;
+    that, the staged route: a row pass through a device scratch, its dh
+    products in 3xTF32 ``wgmma``, and split-K weight products whose
+    partials a fixed budget bounds; then fixed-order sums, bit-identical
+    from launch to launch;
     counting one launch in ``fused_chains_bwd.launches``) or raise; CPU
     tensors run :func:`chains_vjp_plain`."""
     _check(x, flat, structure, activation)

@@ -49,6 +49,7 @@ from rl8_tpu_torch.models import (
 )
 from rl8_tpu_torch.nn import MLP, LayerNorm
 from rl8_tpu_torch.specs import Discrete, Unbounded
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: The port's distance to ``rl8_tpu`` in bf16, relative to the f32
 #: reference's largest magnitude: a few bf16 rounding steps (2^-8).
@@ -57,18 +58,6 @@ BF16_REL = 2e-2
 FLOOR = 1e-6
 OBS_DIM, HIDDENS = 6, (64, 64)
 _OBS = (3.0 * np.random.default_rng(0).normal(size=(64, OBS_DIM))).astype(np.float32)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Small bf16 CPU kernels gain nothing from more threads, and the
-    test workers share the machine's cores: one ATen thread per test."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _hold(port, jax_bf16, ref, what: str) -> None:

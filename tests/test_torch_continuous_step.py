@@ -22,6 +22,7 @@ from rl8_tpu import AlgorithmConfig as JAlgorithmConfig
 from rl8_tpu_torch import AlgorithmConfig
 from rl8_tpu_torch.data import DataKeys
 from rl8_tpu_torch.models import load_jax_params, to_jax_params
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_ENVS, HORIZON, HIDDENS = 64, 8, (32, 32)
 _POSITIONS = np.random.default_rng(0).uniform(-50, 50, size=(NUM_ENVS, 1)).astype(np.float32)

@@ -84,9 +84,9 @@ class TorchStartTrading(AlgoTrading):
         return s, self._obs(s)
 
 
-def _config(**kw):
+def _config(hiddens: tuple = HIDDENS, **kw):
     return dict(num_envs=NUM_ENVS, horizon=HORIZON, horizons_per_env_reset=2,
-                model_config={"hiddens": HIDDENS}, seed=3, **kw)
+                model_config={"hiddens": hiddens}, seed=3, **kw)
 
 
 #: The feedforward custom models, by name: ``rl8_tpu``'s, the port's, and
@@ -168,21 +168,24 @@ def _copy_rollout(jalgo, talgo) -> None:
 
 
 @pytest.mark.parametrize(
-    "model,fused_forward",
+    "model,fused_forward,hiddens",
     [
-        pytest.param("mule", True, id="fused"),
-        pytest.param("mule", False, id="module"),
-        pytest.param("alpaca", True, id="alpaca-fused"),
-        pytest.param("alpaca", False, id="alpaca-module"),
+        pytest.param("mule", True, HIDDENS, id="fused"),
+        pytest.param("mule", False, HIDDENS, id="module"),
+        pytest.param("alpaca", True, HIDDENS, id="alpaca-fused"),
+        pytest.param("alpaca", False, HIDDENS, id="alpaca-module"),
+        pytest.param("mule", True, (1024, 1024), id="wide-fused"),
     ],
 )
-def test_step_matches_jax(model: str, fused_forward: bool) -> None:
+def test_step_matches_jax(model: str, fused_forward: bool, hiddens: tuple) -> None:
     """One whole-buffer ``step()`` in each package from the same
     parameters and buffer (no shuffle): the stats, the parameters
     afterwards in the flax layout, and Adam's count; through the chain
     kernels' plain versions and through the module with autograd (for
-    AttentiveAlpaca, into the shared attention stack)."""
-    jalgo, talgo, params0 = _pair(fused_forward, model, entropy_coeff=0.01, num_sgd_iters=2)
+    AttentiveAlpaca, into the shared attention stack); and MischievousMule
+    at ``hiddens=(1024, 1024)``, a width whose chains the card's kernels
+    take on their staged routes."""
+    jalgo, talgo, params0 = _pair(fused_forward, model, hiddens=hiddens, entropy_coeff=0.01, num_sgd_iters=2)
     jalgo.collect()
     _copy_rollout(jalgo, talgo)
     jstats, tstats = jalgo.step(), talgo.step()

@@ -2,17 +2,19 @@
 past the card kernels' shared-memory tiles (``H`` 721 to 1617, which
 ``rl8_tpu``'s residency gate admits at the dummy envs' shapes) against
 ``rl8_tpu`` on the CPU, and the recurrent algorithm's build-time capacity
-check and the act wrapper's refusal.
+check and the act wrapper's refusal. The helpers here are shared with
+the two files split off it to spread its run time over the test workers.
 
 - ``rnn_ppo_grads_plain`` (what ``csrc/rnn_ppo.cu``'s wide route is held
   against on the card) against ``jax.grad`` of ``rl8_tpu``'s recurrent
-  loss at H = 1024, one and two layers, Categorical with an entropy
+  loss at H = 1024, one layer (two layers in
+  ``tests/test_torch_rnn_wide_update.py``), Categorical with an entropy
   bonus, Normal, and SquashedNormal without one.
 - ``rnn_act_plain`` (what ``csrc/rnn_act.cu``'s staged route is held
-  against), deterministic, against ``rl8_tpu``'s module forward at H =
-  1210 (the first width past the earlier 16-row tile) and 1617 (the
-  gate's widest), one layer, and at two 1024-wide layers (the staged
-  route's per-layer launches, layer 2 reading layer 1's h').
+  against), deterministic, against ``rl8_tpu``'s module forward at two
+  1024-wide layers (the staged route's per-layer launches, layer 2
+  reading layer 1's h'; one layer at H = 1210 and 1617 in
+  ``tests/test_torch_rnn_wide_act.py``).
 - One whole-buffer ``step()`` of a 1024-wide LSTM in each package from
   the same parameters and buffer, and the route flags of a 1300-wide LSTM
   against ``rl8_tpu``'s.
@@ -75,6 +77,7 @@ from rl8_tpu_torch.ops import (
 from rl8_tpu_torch.specs import Discrete, Unbounded
 from tests.test_torch_recurrent_route import _jax_flags
 from tests.test_torch_recurrent_step import DELTA_REL, STAT_ATOL, STAT_KEYS, STAT_RTOL, _flat
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_GRAD_REL, F32_LOSS_RTOL, F32_LOSS_ATOL = 1e-5, 1e-5, 1e-6
 ACT_RTOL = ACT_ATOL = 1e-5
@@ -122,9 +125,20 @@ def _torch_tree(tree):
     return {k: _torch_tree(v) if isinstance(v, dict) else torch.from_numpy(v) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("layers", [1, 2])
-@pytest.mark.parametrize("kind,ec", [("categorical", 0.013), ("normal", 0.0), ("squashed", 0.0)])
+#: The update cases' distributions and entropy coefficients.
+UPDATE_KINDS = [("categorical", 0.013), ("normal", 0.0), ("squashed", 0.0)]
+
+
+@pytest.mark.parametrize("layers", [1])
+@pytest.mark.parametrize("kind,ec", UPDATE_KINDS)
 def test_plain_update_matches_jax_autodiff_at_1024(kind: str, ec: float, layers: int) -> None:
+    """``rnn_ppo_grads_plain`` against ``jax.grad`` at one 1024-wide layer
+    (``check_update_against_jax``; two layers in
+    ``tests/test_torch_rnn_wide_update.py``)."""
+    check_update_against_jax(kind, ec, layers)
+
+
+def check_update_against_jax(kind: str, ec: float, layers: int) -> None:
     """``rnn_ppo_grads_plain`` against ``jax.grad`` of ``ppo_losses(...)
     ["total"] / accum`` through ``rl8_tpu``'s 1024-wide recurrent model over
     N sequences of L steps: losses, KL and every gradient."""
@@ -181,7 +195,7 @@ def test_plain_update_matches_jax_autodiff_at_1024(kind: str, ec: float, layers:
         assert _norm_rel(got, ref) < F32_GRAD_REL, (jax.tree_util.keystr(path), _norm_rel(got, ref))
 
 
-def _check_act_plain_against_jax(H: int, layers: int, kind: str) -> None:
+def check_act_plain_against_jax(H: int, layers: int, kind: str) -> None:
     """``rnn_act_plain``, deterministic, against ``rl8_tpu``'s module forward
     at ``layers`` H-wide LSTM layers: the values, the log-prob of the
     greedy action (the argmax, or the mean, squashed when the kind is)
@@ -214,19 +228,11 @@ def _check_act_plain_against_jax(H: int, layers: int, kind: str) -> None:
 
 
 @pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
-@pytest.mark.parametrize("H", [1210, 1617])
-def test_act_plain_matches_jax_forward_wide(H: int, kind: str) -> None:
-    """``rnn_act_plain`` against ``rl8_tpu``'s module forward at one wide
-    layer (``_check_act_plain_against_jax``)."""
-    _check_act_plain_against_jax(H, 1, kind)
-
-
-@pytest.mark.parametrize("kind", ["categorical", "normal", "squashed"])
 def test_act_plain_matches_jax_forward_two_layers_1024(kind: str) -> None:
     """``rnn_act_plain`` against ``rl8_tpu``'s module forward at two
     1024-wide LSTM layers, the shape the staged route runs as one gate
-    launch a layer on the card (``_check_act_plain_against_jax``)."""
-    _check_act_plain_against_jax(1024, 2, kind)
+    launch a layer on the card (``check_act_plain_against_jax``)."""
+    check_act_plain_against_jax(1024, 2, kind)
 
 
 def test_step_matches_jax_at_1024() -> None:

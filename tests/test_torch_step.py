@@ -21,6 +21,7 @@ from rl8_tpu import AlgorithmConfig as JAlgorithmConfig
 from rl8_tpu_torch import AlgorithmConfig
 from rl8_tpu_torch.data import DataKeys
 from rl8_tpu_torch.models import load_jax_params, to_jax_params
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_ENVS, HORIZON, HIDDENS = 64, 8, (32, 32)
 STAT_KEYS = ("losses/entropy", "losses/policy", "losses/vf", "losses/total", "monitors/kl_div")

@@ -1,4 +1,7 @@
-"""Why the update kernels multiply in 3xTF32, pinned on the CPU.
+"""Why the update kernels multiply in 3xTF32, pinned on the CPU. (Two
+cases of the staged torso test are split off into
+``tests/test_torch_tf32_torso.py``, which uses the helpers here, to
+spread the run time over the test workers.)
 
 The update kernels (``csrc/ppo.cu``, ``csrc/rnn_ppo.cu`` and
 ``csrc/wgrad.cuh``) run their products on the tensor cores through
@@ -41,9 +44,9 @@ the routes' depths against float64 as a share of the act checks' limit;
 one TF32 product per f32 product breaks the limit at every one of them.
 
 The update kernels' wide routes (``csrc/stage.cuh``'s ``bwd_product``, in
-``ppo_wide_kernel`` and ``rnn_wide_kernel``) run the backward's dh
-products on 3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to
-6468. ``wgmma``'s accumulator rounds each k step toward zero; held over the
+``ppo_wide_kernel`` and ``rnn_wide_kernel``) and the chain backward's
+staged route (``chains_dh_kernel``) run the backward's dh products on
+3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to 6468. ``wgmma``'s accumulator rounds each k step toward zero; held over the
 whole K, that bias passes a tenth of the update checks' limit from K ~
 2400 up, so the kernel starts a fresh accumulator every 64 k and adds it
 to an f32 running sum. The wide cases emulate exactly that and hold it ten
@@ -56,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: The update checks' norm-relative limit (chip_smoke.py PPO_GRAD_RTOL).
 PPO_GRAD_RTOL = 1e-4
@@ -283,10 +287,13 @@ def test_truncating_3xtf32_products_at_the_act_and_chain_shapes(shape: str) -> N
 #: The wide routes' dh products at their depths over the 128 rows of one
 #: row-pass block (a pass of 128 output units): the feedforward dh_{l-1} =
 #: dpre_l W_l^T at K = 1024 (``wide_torso``) and 2388 (the widest torso
-#: ``rl8_tpu``'s gate admits), and the recurrent dh_t = dz Wh^T and dx = dz
+#: ``rl8_tpu``'s gate admits), the recurrent dh_t = dz Wh^T and dx = dz
 #: Wi^T at K = 4H = 4096 (``wide_recurrent``) and 6468 (H = 1617, the gate's
-#: widest LSTM).
-WIDE_DH = {"ppo_1024": (1024, "ppo"), "ppo_2388": (2388, "ppo"), "rnn_4096": (4096, "rnn"), "rnn_6468": (6468, "rnn")}
+#: widest LSTM), and the chain backward's staged dh = dpre W^T
+#: (``csrc/chains.cu``'s ``chains_dh_kernel`` on ``bwd_product``) at K =
+#: 2382, MischievousMule's widest layer that ``rl8_tpu``'s gate admits.
+WIDE_DH = {"ppo_1024": (1024, "ppo"), "ppo_2388": (2388, "ppo"), "rnn_4096": (4096, "rnn"), "rnn_6468": (6468, "rnn"),
+           "chain_2382": (2382, "ppo")}
 
 
 def wide_dh_operands(K: int, kind: str, seed: int = 11) -> tuple[torch.Tensor, torch.Tensor]:
@@ -317,7 +324,7 @@ def test_wide_route_dh_products_in_64_deep_wgmma_chunks(case: str) -> None:
     assert rel_err(products_1x(a, w), want) > PPO_GRAD_RTOL
 
 
-@pytest.mark.parametrize("case", ["ppo_2388", "rnn_4096", "rnn_6468"])
+@pytest.mark.parametrize("case", ["ppo_2388", "rnn_4096", "rnn_6468", "chain_2382"])
 def test_whole_k_wgmma_accumulator_misses_the_margin_at_wide_depths(case: str) -> None:
     """Why ``bwd_product`` folds its accumulator every 64 k: one truncating
     accumulator over the whole K (as the act kernel's ``wgmma`` route holds
@@ -412,8 +419,14 @@ def test_staged_wgmma_gates_in_64_deep_chunks(case: str) -> None:
     assert share(products_1x(a, w) + b) > 1.0
 
 
-@pytest.mark.parametrize("width", [1025, 1813, 2388])
+@pytest.mark.parametrize("width", [2388])
 def test_staged_wgmma_torso_in_64_deep_chunks(width: int) -> None:
+    """``check_staged_wgmma_torso`` at the widest admitted twin torso (1025
+    and 1813 in ``tests/test_torch_tf32_torso.py``)."""
+    check_staged_wgmma_torso(width)
+
+
+def check_staged_wgmma_torso(width: int) -> None:
     """The discrete act kernel's staged route at twin torsos of ``width``
     (the second layer's k 1025 to 2388), as ``wide_sweep`` drives it: 256
     rows of observations 20 N(0, 1) through two relu layers whose products

@@ -87,6 +87,7 @@ from rl8_tpu_torch.policies import Policy, RecurrentPolicy
 from rl8_tpu_torch.specs import Discrete, Unbounded
 from tests.test_torch_recurrent_route import _jax_flags
 from tests.test_torch_step import DELTA_REL, STAT_KEYS, STAT_RTOL, STAT_ATOL, _copy_rollout, _flat, _jax_params
+from tests._torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_GRAD_REL, F32_LOSS_RTOL, F32_LOSS_ATOL = 1e-5, 1e-5, 1e-6
 ACT_RTOL = ACT_ATOL = 1e-5

@@ -93,7 +93,23 @@ non-zero:
    forward 49 and backward 16 launches an iteration on their staged
    routes, the rollout against the module forward, one minibatch's step
    gradient against the module route's; its ``fused_forward=False`` twin
-   timed beside it); between the squashed and
+   timed beside it); then the deep models: ``deep_sweep``
+   (default models of 9, 16 and 32 layers of 256 and rl8_tpu's deepest
+   admitted ones, 87 of 256 and 1,306 of 64, for Categorical, Normal and
+   SquashedNormal, the act kernel at 4,096 rows and the update at 8,192
+   against their plain versions, or both against float64 where the plain
+   f32 version drifts off it past the limits; routes asserted, timed with
+   bounds), ``deep_memory`` (the update at 87 x 256 on 262,144 rows and the
+   chain backward at MischievousMule's deepest admitted layout, 324 x 128,
+   on 32,768: halves, bit-identity, workspace and peak memory within their
+   12 and 4 GiB budgets), ``deep_gate_grid`` (every depth rl8_tpu's gate admits at
+   32, 64, 256 and 512 wide asked of the act, update and chain kernels; the
+   first refused depth on the module routes), ``chains_count_sweep`` (5 and
+   8 chains, 12 and 24 layers, 5 and 8 heads on the tiled and staged chain
+   routes), ``deep_custom`` (MischievousMule at 12 x 128 at the custom
+   cell's shapes) and ``deep_torso`` (the slice's cell: 16 x 256, 8192
+   envs, horizon 32, act 32, GAE 1, update 4 launches an iteration, beside
+   its module twin); between the squashed and
    the recurrent paths, the routes ``rl8_tpu`` takes off the kernels at the
    discrete cell's width, one collect and one step each: a ``gelu`` torso
    (module rollout and autograd update, no act or update launch) and
@@ -455,6 +471,15 @@ def main() -> int:
     check_chain_gate_grid(torch)
     run_wide_chain_builds(torch, dev)
     run_wide_custom(torch, dev, kernels)
+    for name, fn in (("deep_sweep", lambda: run_deep_sweep(torch, dev, kernels)),
+                     ("deep_memory", lambda: run_deep_memory(torch, dev, kernels)),
+                     ("deep_gate_grid", lambda: check_deep_gate_grid(torch)),
+                     ("chains_count_sweep", lambda: run_chains_count_sweep(torch, dev, kernels)),
+                     ("deep_custom", lambda: run_deep_custom(torch, dev, kernels)),
+                     ("deep_torso", lambda: run_deep_torso(torch, dev, kernels))):
+        t0 = time.perf_counter()
+        fn()
+        emit({"phase": "phase_seconds", "name": name, "seconds": time.perf_counter() - t0})
     run_amp_paths(torch, dev)
     run_recurrent_module_route(torch, dev)
     run_custom_amp(torch, dev)
@@ -808,7 +833,10 @@ def check_nan_routes(torch, dev) -> None:
     NaN logits are not compared. Routes: the discrete act kernel's wgmma
     (the main model), tiled (an obs dim of 300) and staged routes
     (320/288-wide layers at obs dims of 2 and 4,000), the continuous one's
-    tiled and staged routes (the same shapes), each asserted; the
+    tiled and staged routes (the same shapes), and deep models on them
+    (16 layers of 256 on the wgmma and the continuous tiled routes, 12 and
+    200 of 64 on the discrete tiled route, 12 of 320 on the continuous
+    staged route), each asserted; the
     recurrent act kernel's 32-row tiles (one 256-wide LSTM layer) and its
     staged route (1300 wide, and two 1024-wide layers), where the NaN
     row's new states are NaN too; the chain forward's tiled route
@@ -828,6 +856,10 @@ def check_nan_routes(torch, dev) -> None:
         ("discrete", "staged", 4000, {"hiddens": (320, 288)}),
         ("continuous", "tiled", 1, {}), ("continuous", "staged", 2, {"hiddens": (320, 288)}),
         ("continuous", "staged", 4000, {"hiddens": (320, 288)}),
+        # Deep models: the routes read their layers from the launch's table.
+        ("discrete", "wgmma", 1, {"hiddens": (256,) * 16}), ("discrete", "tiled", 300, {"hiddens": (64,) * 12}),
+        ("discrete", "tiled", 1, {"hiddens": (64,) * 200}),
+        ("continuous", "tiled", 1, {"hiddens": (256,) * 16}), ("continuous", "staged", 1, {"hiddens": (320,) * 12}),
     ]
     seen = []
     for family, want, obs_dim, model_config in cases:
@@ -849,7 +881,7 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(p[bad]).all()), f"{what}: the plain {name} of the NaN row is not NaN")
             check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is {k[bad].tolist()}")
             check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
-        seen.append(f"{family}_act_{route}_obs{obs_dim}")
+        seen.append(f"{family}_act_{route}_obs{obs_dim}_{len(params.hiddens)}x{params.hiddens[0]}")
     # The recurrent act kernel's routes: 32-row tiles (the main path's
     # 256-wide LSTM) and the staged route (1300 wide; two 1024-wide layers).
     for H, K in ((256, 1), (1300, 1), (1024, 2)):
@@ -1612,27 +1644,43 @@ PROBE_WIDTH = 1024
 
 def kernel_activations(torch, x, chains, activation: str) -> list:
     """Each chain's activation stack ``[x, h_1, ..., h_L]`` (as
-    ``forward_chains`` returns it) as the staged chain kernels compute it:
-    h_l is the output of a forward launch on the chain's layers 1 to l
-    under one identity head, zero-padded to at least PROBE_WIDTH columns
-    (each output a sum of h_l times 1 and zeros, so exactly h_l)."""
+    ``forward_chains`` returns it) as the staged chain kernels compute it.
+    The staged forward computes layer l from h_{l-1} alone (its product
+    summed in order of k, then its LayerNorm in place), so h_l is the
+    output of a forward launch of layer l on the kernels' h_{l-1}, under
+    one identity head zero-padded to at least PROBE_WIDTH columns (which
+    sends it to the staged route; each output a sum of h_l times 1 and
+    zeros, so exactly h_l): L launches a chain."""
     from rl8_tpu_torch.ops import fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
 
     stacks = []
     for layers, _ in chains:
         hs = [x]
-        for depth in range(1, len(layers) + 1):
-            width = layers[depth - 1][0].shape[1]
+        for layer in layers:
+            width = layer[0].shape[1]
             cols = max(width, PROBE_WIDTH)
-            probe = ((layers[:depth], ((torch.eye(width, cols, device=x.device), torch.zeros(cols, device=x.device)),)),)
-            out = fused_chains_fwd(x, flatten_chains(probe), chain_structure(probe), activation)[0]
-            hs.append(out[:, :width])
+            probe = (((layer,), ((torch.eye(width, cols, device=x.device), torch.zeros(cols, device=x.device)),)),)
+            out = fused_chains_fwd(hs[-1], flatten_chains(probe), chain_structure(probe), activation)[0]
+            hs.append(out[:, :width].contiguous())
         stacks.append(hs)
     return stacks
 
 
-def compare_chains(torch, what: str, x, chains, activation: str, seed: int, staged: bool = False) -> dict:
+def chains_f64(torch, chains):
+    """``chains`` with every tensor in float64."""
+    return tuple((tuple(tuple(t.double() for t in layer) for layer in layers),
+                  tuple(tuple(t.double() for t in head) for head in heads)) for layers, heads in chains)
+
+
+def chain_tensors(chains) -> list:
+    """Every tensor of ``chains`` (or of their gradients) in kernel order:
+    per chain each layer's, then each head's."""
+    return [t for layers, heads in chains for ts in (*layers, *heads) for t in ts]
+
+
+def compare_chains(torch, what: str, x, chains, activation: str, seed: int, staged: bool = False,
+                   f64_fallback: bool = False) -> dict:
     """The chain kernels against their plain versions on ``x``: the forward
     twice (bit-identical), every head output within CHAIN_RTOL/ATOL, then
     from random head cotangents the backward twice (bit-identical) against
@@ -1641,7 +1689,13 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int, stag
     all finite, every row. ``staged``: the backward takes its staged route,
     and the plain backward runs on the kernels' own activations
     (kernel_activations, each within CHAIN_RTOL/ATOL of the plain forward's),
-    so that both take the same relu masks."""
+    so that both take the same relu masks. ``f64_fallback``: where the
+    plain f32 backward is no reference (its dx off the float64 backward's,
+    run on the same activations, by CHAIN_RTOL/ATOL on some element, or a
+    gradient by PPO_GRAD_RTOL / 2 of its norm: down deep LayerNorm chains
+    f32 sums drift), dx and each gradient are held to float64 by f64_rule
+    instead (slack PPO_GRAD_* of the norm; the control the plain backward
+    with one-pass TF32 products)."""
     from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import _backward, _forward_block, chain_structure, flatten_chains, unflatten_chains
 
@@ -1679,19 +1733,40 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int, stag
     torch.cuda.synchronize()
     check(torch.equal(k_dx, k2_dx) and torch.equal(k_dflat, k2_dflat), f"{what}: two backward launches bit-identical")
     check(bool(torch.isfinite(k_dx).all() and torch.isfinite(k_dflat).all()), f"{what}: gradients finite")
+    record = {"fwd_max_abs_err": fwd_err, "hidden_max_abs_err": hidden_err, "bit_identical": True}
+    k_tensors = [k_dx, *chain_tensors(unflatten_chains(k_dflat, structure))]
+    p_tensors = [p_dx, *chain_tensors(p_dchains)]
+    if f64_fallback:
+        c64 = chains_f64(torch, chains)
+        _, f_hs, f_aux = _forward_block(x.double(), c64, activation)
+        if staged:  # the kernels' activations, so that all take their relu masks
+            for c, hs in enumerate(p_hs):
+                for depth, h in enumerate(hs):
+                    f_hs[c][depth] = h.double()
+        f_dchains, f_dx = _backward(c64, activation, f_hs, f_aux, [[d.double() for d in g] for g in grouped],
+                                    need_dx=True)
+        del f_hs, f_aux
+        f_tensors = [f_dx, *chain_tensors(f_dchains)]
+        rel = lambda a, f: float((a.double() - f).norm()) / max(float(f.norm()), 1e-30)  # noqa: E731
+        record["plain_off_float64"] = max(rel(p, f) for p, f in zip(p_tensors, f_tensors))
+        if not (torch.allclose(p_dx.double(), f_dx, rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
+                and max(rel(p, f) for p, f in zip(p_tensors[1:], f_tensors[1:])) <= PPO_GRAD_RTOL / 2):
+            c_dchains, c_dx = tf32_control(torch, lambda: _backward(chains, activation, p_hs, p_aux, grouped,
+                                                                    need_dx=True))
+            c_tensors = [c_dx, *chain_tensors(c_dchains)]
+            rows = {f"{i} {tuple(f.shape)}": f64_rule(k, p, f, PPO_GRAD_RTOL * float(f.norm()) + PPO_GRAD_ATOL, c)
+                    for i, (k, p, c, f) in enumerate(zip(k_tensors, p_tensors, c_tensors, f_tensors))}
+            return {**record, **check_f64(what, rows), "max_abs_err": None}
+        record["held_to"] = "plain_f32"
     check(torch.allclose(k_dx, p_dx, rtol=CHAIN_RTOL, atol=CHAIN_ATOL),
           f"{what}: dx, largest error {float((k_dx - p_dx).abs().max()):.3g}")
     worst_grad = 0.0
-    k_tensors = [t for layers, heads in unflatten_chains(k_dflat, structure) for ts in (*layers, *heads) for t in ts]
-    p_tensors = [t for layers, heads in p_dchains for ts in (*layers, *heads) for t in ts]
-    for kt, pt in zip(k_tensors, p_tensors):
+    for kt, pt in zip(k_tensors[1:], p_tensors[1:]):
         err, ref = float((kt - pt).norm()), float(pt.norm())
         worst_grad = max(worst_grad, err / max(ref, 1e-30))
         check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
               f"{what}: gradient {tuple(pt.shape)} error {err:.3g} vs norm {ref:.3g}")
-    return {"fwd_max_abs_err": fwd_err, "hidden_max_abs_err": hidden_err,
-            "dx_max_abs_err": float((k_dx - p_dx).abs().max()),
-            "worst_grad_norm_rel_err": worst_grad, "bit_identical": True,
+    return {**record, "dx_max_abs_err": float((k_dx - p_dx).abs().max()), "worst_grad_norm_rel_err": worst_grad,
             "max_abs_err": max(fwd_err, float((k_dx - p_dx).abs().max()),
                                float((k_dflat - flatten_chains(p_dchains)).abs().max()))}
 
@@ -1924,13 +1999,13 @@ def check_model_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
             emit(record)
 
 
-def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
+def launched_route(torch, what: str, fn, routes: dict, want: None | str, calls: int = 3) -> str:
     """The route that calls of ``fn`` took (``routes`` maps kernel names to
-    routes; the kernels that three calls launched, from ``torch.profiler``),
-    which must be ``want`` (``None``: one route, whichever it is). The
-    profiler sometimes returns no record of a short launch at all (once,
-    after a profiled window of ~2,000 kernels, three windows in a row held
-    only the host's calls): a window that saw none of the kernels is taken
+    routes; the kernels that ``calls`` calls launched, from
+    ``torch.profiler``), which must be ``want`` (``None``: one route,
+    whichever it is). The profiler sometimes returns no record of a short
+    launch at all (once, after a profiled window of ~2,000 kernels, three
+    windows in a row held only the host's calls): a window that saw none of the kernels is taken
     again, up to five windows, each after the first held open half a second
     past the launches for late device records; any kernel it does see
     counts."""
@@ -1940,7 +2015,7 @@ def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
     for attempt in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             if attempt:
@@ -1954,9 +2029,9 @@ def launched_route(torch, what: str, fn, routes: dict, want: None | str) -> str:
     return took[0]
 
 
-def backward_route(torch, x, chains, activation: str, want: None | str = "tiled") -> str:
+def backward_route(torch, x, chains, activation: str, want: None | str = "tiled", calls: int = 3) -> str:
     """The route the chain backward took on ``chains``, which must be
-    ``want``."""
+    ``want`` (from ``calls`` launches)."""
     from rl8_tpu_torch.ops import fused_chains_bwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
 
@@ -1965,7 +2040,7 @@ def backward_route(torch, x, chains, activation: str, want: None | str = "tiled"
     routes = {"chains_bwd_tiles_kernel": "tiled", "chains_dh_kernel": "staged"}
     return launched_route(torch, "the chain backward",
                           lambda: fused_chains_bwd(x, flatten_chains(chains), structure, activation, douts),
-                          routes, want)
+                          routes, want, calls)
 
 
 def forward_route(torch, x, chains, activation: str, want: None | str = "tiled") -> str:
@@ -2179,14 +2254,14 @@ def run_wide_chain_builds(torch, dev) -> None:
     emit({"phase": "wide_chain_builds", "builds": seen})
 
 
-def check_step_gradients(torch, algo, what: str) -> dict:
+def step_minibatch_grads(torch, algo, control: bool = False):
     """One minibatch of a freshly collected buffer through the step's
     gradient function (``_autodiff_grads_fn``, advantages from the GAE
     kernel, rows packed as ``step`` packs them) from the same parameters:
-    twice with ``fused_forward`` (the chain kernels; bit-identical), and
-    on the module route (autograd through the modules, the plain version
-    on the card). The losses within PPO_STAT_* of the module route's, and
-    each gradient tensor within PPO_GRAD_* of it by norm, finite."""
+    twice with ``fused_forward`` (the chain kernels) and once on the module
+    route (with ``control`` once more with one-pass TF32 products).
+    Returns ``(fused losses, fused grads, second fused grads, module
+    losses, module grads, minibatch, unpacker, control grads or None)``."""
     from rl8_tpu_torch.algorithms._feedforward import _t2b
     from rl8_tpu_torch.data import DataKeys
     from rl8_tpu_torch.ops import pack_rows
@@ -2212,22 +2287,71 @@ def check_step_gradients(torch, algo, what: str) -> dict:
     k_losses, _, k_grads = grads(True)
     _, _, k2_grads = grads(True)
     p_losses, _, p_grads = grads(False)
+    c_grads = tf32_control(torch, lambda: grads(False)[2]) if control else None
     algo._fused_forward = True
+    return k_losses, k_grads, k2_grads, p_losses, p_grads, mb, unpack, c_grads
+
+
+def check_step_gradients(torch, algo, what: str, f64_fallback: bool = False) -> dict:
+    """step_minibatch_grads' gradients: the two fused ones bit-identical,
+    the fused losses within PPO_STAT_* of the module route's (autograd
+    through the modules, the plain version on the card), and each fused
+    gradient tensor within PPO_GRAD_* of the module route's by norm,
+    finite. ``f64_fallback``: where the module route's f32 gradient is no
+    reference (a tensor off the module route's on a float64 copy of the
+    model by more than PPO_GRAD_RTOL / 2 of its norm: a deep torso's f32
+    sums drift, and a unit near its relu's edge may take the other side),
+    each tensor is held to float64 by f64_rule instead (slack PPO_GRAD_*
+    of its norm; the control the module route with one-pass TF32
+    products)."""
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.nn import ppo_losses
+
+    h = algo.hparams
+    k_losses, k_grads, k2_grads, p_losses, p_grads, mb, unpack, c_grads = step_minibatch_grads(torch, algo,
+                                                                                             f64_fallback)
     torch.cuda.synchronize()
     check(torch.equal(k_grads, k2_grads), f"{what}: two fused gradients bit-identical")
     for key in ("policy", "vf", "total"):
         check(math.isclose(float(k_losses[key]), float(p_losses[key]), rel_tol=PPO_STAT_RTOL,
                            abs_tol=PPO_STAT_ATOL), f"{what}: loss {key} {float(k_losses[key])} vs {float(p_losses[key])}")
-    worst, off = 0.0, 0
-    for param in algo._params:
-        k, p = (g[off : off + param.numel()] for g in (k_grads, p_grads))
-        off += param.numel()
+    split = lambda flat: list(torch.split(flat, [p.numel() for p in algo._params]))  # noqa: E731
+    record = {"rows": int(mb.shape[0]), "loss_total": float(k_losses["total"]),
+              "loss_total_module": float(p_losses["total"])}
+    for param, k in zip(algo._params, split(k_grads)):
+        check(bool(torch.isfinite(k).all()), f"{what}: gradient {tuple(param.shape)} finite")
+    if f64_fallback:
+        model64 = copy.deepcopy(algo.policy.model).double()
+
+        def to64(tree):
+            if isinstance(tree, dict):
+                return {k: to64(v) for k, v in tree.items()}
+            return tree.double() if tree.is_floating_point() else tree
+
+        batch = to64(unpack(mb))
+        with torch.enable_grad():
+            features, values = model64(batch[DataKeys.VIEWS])
+            dist = algo.policy.distribution_cls(features, model64)
+            losses = ppo_losses(batch, values, dist, clip_param=h.clip_param, dual_clip_param=h.dual_clip_param,
+                                entropy_coeff=0.0, vf_clip_param=h.vf_clip_param, vf_coeff=h.vf_coeff)
+            f_grads = torch.cat([g.reshape(-1) for g in torch.autograd.grad(losses["total"],
+                                                                          list(model64.parameters()))])
+        del model64
+        rel = lambda a, f: float((a.double() - f).norm()) / max(float(f.norm()), 1e-30)  # noqa: E731
+        record["module_off_float64"] = max(rel(p, f) for p, f in zip(split(p_grads), split(f_grads)))
+        if record["module_off_float64"] > PPO_GRAD_RTOL / 2:
+            rows = {f"{i} {tuple(param.shape)}": f64_rule(k, p, f, PPO_GRAD_RTOL * float(f.norm()) + PPO_GRAD_ATOL, c)
+                    for i, (param, k, p, c, f) in enumerate(zip(algo._params, split(k_grads), split(p_grads),
+                                                                split(c_grads), split(f_grads)))}
+            return {**record, **check_f64(what, rows)}
+        record["held_to"] = "module_f32"
+    worst = 0.0
+    for param, k, p in zip(algo._params, split(k_grads), split(p_grads)):
         err, ref = float((k - p).norm()), float(p.norm())
         worst = max(worst, err / max(ref, 1e-30))
-        check(bool(torch.isfinite(k).all()) and err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
+        check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
               f"{what}: gradient {tuple(param.shape)} error {err:.3g} vs norm {ref:.3g}")
-    return {"rows": int(mb.shape[0]), "worst_grad_norm_rel_err_vs_module": worst,
-            "loss_total": float(k_losses["total"]), "loss_total_module": float(p_losses["total"])}
+    return {**record, "worst_grad_norm_rel_err_vs_module": worst}
 
 
 def run_wide_custom(torch, dev, kernels: dict) -> None:
@@ -2289,6 +2413,576 @@ def run_wide_custom(torch, dev, kernels: dict) -> None:
                   "transitions_per_s_with_update": record["transitions_per_s_with_update"]})
         del algo, model
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- deep models
+
+#: The workspace budgets of the update kernel (csrc/ppo.cu's
+#: kWorkspaceFloats, 12 GiB) and of the chain backward's staged route
+#: (csrc/chains.cu's, 4 GiB).
+PPO_BUDGET_BYTES, CHAINS_BUDGET_BYTES = 12 << 30, 4 << 30
+#: rl8_tpu's residency gate's deepest default models (DiscreteDummyEnv and
+#: ContinuousDummyEnv shapes, model_fits_vmem) at each width: deep_gate_grid
+#: checks them, deep_sweep and deep_memory run them.
+GATE_DEEPEST = {32: 4871, 64: 1306, 256: 87, 512: 22}
+#: rl8_tpu's deepest admitted MischievousMule at 128 wide (chains_fit_vmem:
+#: its first layer with a LayerNorm, 323 plain ones after it).
+MULE_DEEPEST = 324
+
+
+def he_scaled(torch, model):
+    """``model`` with its torsos' weights scaled by sqrt(2) (He's scale for
+    relu from lecun's): at depth a lecun-scaled relu torso halves its
+    activations' variance at every layer, so that 87 layers leave values
+    and logits of ~1e-13 and every row's logits a tie; at sqrt(2) they keep
+    their scale down the torso."""
+    with torch.no_grad():
+        for name in ("feature_model", "latent_model", "vf_model"):
+            torso = getattr(model, name, None)
+            for layer in (torso.layers if torso is not None else ()):
+                layer.weight.mul_(math.sqrt(2.0))
+    return model
+
+
+def deep_model(torch, kind: str, layers: int, width: int, seed: int, obs_dim: int = 1, activation: str = "relu"):
+    """A default model of ``layers`` x ``width`` for ``kind``, on the card:
+    a relu torso he_scaled (the continuous model's mean head scaled to
+    WIDE_MEAN_RMS over observations of DEEP_OBS_SCALE["relu"]); a tanh torso
+    at lecun's scale, its critical one, where a unit's output shrinks like
+    1 / sqrt(2 l) down l layers (~0.02 at 1,306), so its heads (the logits
+    or the mean, and the value) are scaled to an RMS of 2 over observations
+    of DEEP_OBS_SCALE["tanh"]: otherwise every row's logits tie."""
+    from rl8_tpu_torch.ops import forward_chains, pack_act_params
+    from rl8_tpu_torch.specs import Discrete
+
+    hiddens = (width,) * layers
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    obs = DEEP_OBS_SCALE[activation] * torch.randn((4096, obs_dim), generator=gen, device="cuda")
+    if kind == "categorical":
+        model = make_model(torch, Discrete(2, shape=(1,)), seed=seed, obs_dim=obs_dim, hiddens=hiddens,
+                           activation_fn=activation)
+    else:
+        model = make_continuous_model(torch, 1, seed=seed, obs_dim=obs_dim, log_std_scale=0.03, hiddens=hiddens,
+                                      activation_fn=activation)
+    if activation == "relu":
+        model = he_scaled(torch, model)
+        return model if kind == "categorical" else scale_mean_head(torch, model, obs, WIDE_MEAN_RMS)
+    ((first, *_), (values,)), _ = forward_chains(obs, pack_act_params(model).chains(), activation)
+    heads = ((model.feature_head if kind == "categorical" else model.action_mean, first), (model.vf_head, values))
+    with torch.no_grad():
+        for head, out in heads:
+            factor = 2.0 / float(out.pow(2).mean().sqrt())
+            head.weight.mul_(factor)
+            head.bias.mul_(factor)
+    return model
+
+
+def deep_update_inputs(torch, dev, model, kind: str, N: int, seed: int):
+    """A packed minibatch for ``model`` and its loss config (Normal with an
+    entropy bonus and dual clip; the others without a bonus)."""
+    from rl8_tpu_torch.ops import PPOLossConfig
+
+    if kind == "categorical":
+        params, packed, unpack = ppo_inputs(torch, dev, model, N, seed=seed)
+    else:
+        params, packed, unpack, _ = continuous_ppo_inputs(torch, dev, model, N, seed=seed, squashed=kind == "squashed")
+    cfg = PPOLossConfig(clip_param=0.2, vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=3.0, n_rows=N, accum=1,
+                        use_entropy=kind == "normal", squashed=kind == "squashed")
+    ec = torch.tensor(0.01 if kind == "normal" else 0.0, device=dev)
+    return params, packed, unpack, ec, cfg
+
+
+#: deep_sweep's cases: ``(kind, layers, width, obs_dim, act route,
+#: update route, activation)``: the discrete act kernel's wgmma route takes chains of
+#: up to 1,024 k steps (csrc/act.cu's kWgMaxSteps; 32 layers of 256 take
+#: 994), its tiled f32 route deeper ones up to 256 wide, and, at 16 layers, inputs
+#: wider than 256 (tiled, at 128 wide: 256-wide layers beside an input of
+#: 300 fill its shared memory) and layers wider than 256 (staged); the
+#: continuous kinds take the tiled route at any depth up to 256 wide.
+#: The 1,306-layer torsos are tanh (deep_model): a relu torso of 1,306
+#: layers of 64 collapses at He's scale too (a 64-wide layer's gain
+#: scatters, and over 1,306 layers its product vanishes: its logits are
+#: ~1e-8 and every row's tie), where a tanh torso at lecun's scale keeps
+#: distinct rows (its heads scaled), on observations of scale 1 (at 20 its
+#: first layer saturates, and every row of a sign gives the same output).
+DEEP_OBS_SCALE = {"relu": 20.0, "tanh": 1.0}
+DEEP_SWEEP = [
+    *[(kind, layers, 256, 1, act, "narrow", "relu")
+      for layers, act in ((9, "wgmma"), (16, "wgmma"), (32, "wgmma"), (GATE_DEEPEST[256], "tiled"))
+      for kind in ("categorical", "normal", "squashed")],
+    *[(kind, GATE_DEEPEST[64], 64, 1, "tiled", "narrow", "tanh") for kind in ("categorical", "normal", "squashed")],
+    ("categorical", 16, 128, 300, "tiled", "narrow", "relu"),
+    ("categorical", 16, 320, 1, "staged", "narrow", "relu"),
+]
+
+
+def run_deep_sweep(torch, dev, kernels: dict) -> None:
+    """Deep default models on the act and update kernels (DEEP_SWEEP):
+    Categorical, Normal (entropy bonus, dual clip) and SquashedNormal at 9,
+    16 and 32 layers of 256 and at rl8_tpu's deepest admitted models at
+    256 (87 layers; relu, he_scaled) and at 64 (1,306; tanh) wide; the categorical act
+    also on its tiled (an obs dim of 300, 128 wide) and staged (320 wide)
+    routes at 16 layers. The act kernel at 4,096 rows (compare_act), the update at
+    8,192 (compare_ppo_f64), each held to its plain version, or to float64
+    where the plain f32 version drifts off it; each route asserted, two
+    launches bit-identical, and both timed beside their plain versions
+    with their bounds (f32 and 3xTF32, by operations), except Normal's
+    (the continuous kernels of the squashed cases, whose work is the
+    same)."""
+    from rl8_tpu_torch.ops import act_plain, fused_act, fused_ppo_grads, pack_act_params, ppo_grads_plain
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    models = {}  # Normal and SquashedNormal share the continuous model
+    for kind, layers, width, obs_dim, want_act, want_ppo, activation in DEEP_SWEEP:
+        t0 = time.perf_counter()
+        what = f"deep_sweep {kind} {layers}x{width} {activation}" + (f" obs {obs_dim}" if obs_dim != 1 else "")
+        family = "discrete" if kind == "categorical" else "continuous"
+        shape = (family, layers, width, obs_dim, activation)
+        if shape not in models:
+            models.clear()
+            models[shape] = deep_model(torch, kind, layers, width, seed=layers + width + obs_dim, obs_dim=obs_dim,
+                                       activation=activation)
+        model = models[shape]
+        params = pack_act_params(model, squashed=kind == "squashed")
+        obs = DEEP_OBS_SCALE[activation] * torch.randn((4096, obs_dim), generator=gen, device=dev)
+        uparams, packed, unpack, ec, cfg = deep_update_inputs(torch, dev, model, kind, 8192, seed=layers + 7)
+        want = "tiled" if family == "continuous" and want_act == "wgmma" else want_act
+        act_route = launched_route(torch, f"{what} act", lambda: fused_act(params, obs, (1, 2)), ACT_ROUTES[family],
+                                   want)
+        ppo_route = launched_route(torch, f"{what} update", lambda: fused_ppo_grads(uparams, packed, unpack, ec, cfg),
+                                   PPO_ROUTES[uparams.continuous], want_ppo, calls=1)
+        act_check = compare_act(torch, f"{what} act", params, obs, f64_fallback=True)
+        deep, timed = layers > 200, kind != "normal"
+        if timed:
+            act_rec = time_kernel(torch, f"{family}_act" if family == "continuous" else "discrete_act",
+                                  lambda: fused_act(params, obs, (1, 2)),
+                                  lambda: act_plain(params, obs, (1, 2), deterministic=False), act_cost(params, 4096),
+                                  iters=2 if deep else 5, plain_iters=1 if deep else 2, plain_warmup=0 if deep else 1,
+                                  B=4096, kind=kind, hiddens=f"{layers}x{width}", activation=activation,
+                                  obs_dim=obs_dim, route=act_route, launches_per_iteration=0)
+        result = compare_ppo_f64(torch, f"{what} update", uparams, packed, unpack, ec, cfg, plain_first=True)
+        if timed:
+            ppo_rec = time_kernel(torch, "continuous_ppo_update" if uparams.continuous else "ppo_update",
+                                  lambda: fused_ppo_grads(uparams, packed, unpack, ec, cfg),
+                                  lambda: ppo_grads_plain(uparams, packed, unpack, ec, cfg), ppo_cost(uparams, packed),
+                                  iters=1 if deep else 2, plain_iters=1, plain_warmup=0 if deep else 1, N=8192,
+                                  kind=kind, hiddens=f"{layers}x{width}", activation=activation, route=ppo_route,
+                                  workspace_bytes=4 * ppo_workspace_floats(uparams, 8192))
+        emit({"phase": "kernel_check", "kernel": "deep_sweep", "kind": kind, "layers": layers, "width": width,
+              "activation": activation, "obs_dim": obs_dim, "act_route": act_route, "act": act_check,
+              "update_route": ppo_route, **result, "seconds": time.perf_counter() - t0})
+        if kind != "normal" and obs_dim == 1 and width in (256, 64) and layers in (16, GATE_DEEPEST[256],
+                                                                                   GATE_DEEPEST[64]):
+            key = f"deep_sweep_{layers}x{width}"
+            kernels["continuous_act" if family == "continuous" else "act"][key] = {k: act_rec[k] for k in WIDE_RECORD}
+            kernels["continuous_ppo" if family == "continuous" else "ppo"][key] = {
+                **{k: ppo_rec[k] for k in WIDE_RECORD if k != "launches_per_iteration"},
+                "workspace_bytes": ppo_rec["workspace_bytes"]}
+        del model, params, uparams, packed
+        torch.cuda.empty_cache()
+
+
+def ppo_workspace_floats(params, N: int) -> int:
+    """rl8_ppo_workspace's answer for ``params`` at N rows."""
+    import ctypes
+
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_act import KINDS
+
+    hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
+    return load().rl8_ppo_workspace(N, params.d_in, len(params.hiddens), hidden, KINDS.index(params.kind),
+                                    params.action_dim, params.n)
+
+
+def ppo_chunk_rows(params, N: int) -> int:
+    """rl8_ppo_chunk_rows' answer for ``params`` at N rows: the rows of each
+    chunk of the update's row pass."""
+    import ctypes
+
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_act import KINDS
+
+    hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
+    return load().rl8_ppo_chunk_rows(N, params.d_in, len(params.hiddens), hidden, KINDS.index(params.kind),
+                                     params.action_dim, params.n)
+
+
+def check_chain_halves(torch, what: str, x, chains, douts) -> float:
+    """The chain backward over N rows against its launches over each half:
+    dx row for row within CHAIN_RTOL/ATOL and each parameter gradient
+    against the halves' sum within PPO_GRAD_* by norm. Returns the worst
+    norm-relative gradient error."""
+    from rl8_tpu_torch.ops import fused_chains_bwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    structure, flat, M = chain_structure(chains), flatten_chains(chains), x.shape[0] // 2
+    dx, grads = fused_chains_bwd(x, flat, structure, "relu", douts)
+    dx_a, grads_a = fused_chains_bwd(x[:M].contiguous(), flat, structure, "relu", [d[:M].contiguous() for d in douts])
+    dx_b, grads_b = fused_chains_bwd(x[M:].contiguous(), flat, structure, "relu", [d[M:].contiguous() for d in douts])
+    torch.cuda.synchronize()
+    check(torch.allclose(dx, torch.cat([dx_a, dx_b]), rtol=CHAIN_RTOL, atol=CHAIN_ATOL), f"{what}: dx vs the halves'")
+    halves = grads_a.double() + grads_b.double()
+    err, ref = float((grads.double() - halves).norm()), float(halves.norm())
+    check(err <= PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL, f"{what}: gradient error {err:.3g} vs the halves' norm {ref:.3g}")
+    return err / ref
+
+
+def run_deep_memory(torch, dev, kernels: dict) -> None:
+    """The bounded workspaces at rl8_tpu's deepest models. The update kernel
+    at the deepest 256-wide default model (87 layers, he_scaled) on 262,144
+    synthetic rows (the cell's whole-buffer minibatch): two launches
+    bit-identical, against its launches over the halves (check_halves), its
+    chunks' rows and workspace (rl8_ppo_workspace) and the launch's peak
+    device memory (torch.cuda.max_memory_allocated) against its 12 GiB
+    budget, timed. Then the chain backward at the deepest admitted
+    MischievousMule layout (324 layers of 128, the first with a LayerNorm)
+    on 32,768 rows (the custom cell's minibatch), on its staged route: two
+    launches bit-identical, against its launches over the halves
+    (check_chain_halves) and against the plain backward on the kernels' own
+    activations (compare_chains, held to float64 where the plain f32
+    version drifts off it), workspace and peak memory against its 4 GiB
+    budget, timed."""
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_ppo_grads
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_mlp import _spec, chain_structure, flatten_chains
+
+    N, layers = 8192 * 32, GATE_DEEPEST[256]
+    model = deep_model(torch, "categorical", layers, 256, seed=87)
+    params, packed, unpack, ec, cfg = deep_update_inputs(torch, dev, model, "categorical", N, seed=88)
+    chunk = ppo_chunk_rows(params, N)
+    workspace = 4 * ppo_workspace_floats(params, N)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g1 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    g2 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    torch.cuda.synchronize()
+    check(torch.equal(g1, g2) and bool(torch.isfinite(g1).all()), "deep_memory update: two launches bit-identical")
+    check(workspace <= PPO_BUDGET_BYTES and peak <= PPO_BUDGET_BYTES + 4 * 2 * params.flat.numel() + 4096,
+          f"deep_memory update: workspace {workspace}, peak {peak} over the budget")
+    halves = check_halves(torch, "deep_memory update (halves)", params, packed, unpack, ec, cfg)
+    ms, _ = time_ms(torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=1, warmup=0)
+    record = {"ms": ms, "plain_ms": None, "route": "narrow", "N": N, "chunk_rows": chunk, "workspace_bytes": workspace,
+              "peak_launch_bytes": peak, "budget_bytes": PPO_BUDGET_BYTES}
+    update_bounds(record, *ppo_cost(params, packed))
+    emit({"phase": "deep_memory", "kernel": "ppo_update", "hiddens": f"{layers}x256", "parameters": params.flat.numel(),
+          "halves_worst_grad_norm_rel_err": halves, "bit_identical": True, **record})
+    kernels["ppo"][f"deep_memory_{layers}x256x{N}"] = record
+    del g1, g2, packed, params, model
+    torch.cuda.empty_cache()
+
+    layout = (([(128, True)] + [(128, False)] * (MULE_DEEPEST - 1), [3]),
+              ([(128, True)] + [(128, False)] * (MULE_DEEPEST - 1), [1]))
+    chains = random_chains(torch, dev, seed=324, d_in=7, layout=layout)
+    # He's scale for the relu layers after the LayerNorm (as he_scaled):
+    # at lecun's their signal halves at every layer and the first ~200
+    # layers' gradients underflow f32 to exact zeros.
+    for layers, _ in chains:
+        for layer in layers[1:]:
+            layer[0].mul_(math.sqrt(2.0))
+    structure, flat, N = chain_structure(chains), flatten_chains(chains), 32768
+    spec, n = _spec(structure)
+    chunk = load().rl8_chains_chunk_rows(N, 7, spec, n)
+    gen = torch.Generator(device=dev).manual_seed(325)
+    x = torch.randn((N, 7), generator=gen, device=dev)
+    douts = [torch.randn((N, w), generator=gen, device=dev) for w in (3, 1)]
+    route = backward_route(torch, x, chains, "relu", "staged", calls=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dx1, g1 = fused_chains_bwd(x, flat, structure, "relu", douts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    dx2, g2 = fused_chains_bwd(x, flat, structure, "relu", douts)
+    torch.cuda.synchronize()
+    check(torch.equal(dx1, dx2) and torch.equal(g1, g2) and bool(torch.isfinite(g1).all()),
+          "deep_memory chains: two launches bit-identical and finite")
+    sizes = chain_backward_bytes(structure, N)
+    check(sizes["workspace_bytes"] <= CHAINS_BUDGET_BYTES
+          and peak <= CHAINS_BUDGET_BYTES + 4 * (2 * flat.numel() + N * 7) + 4096,
+          f"deep_memory chains: workspace {sizes}, peak {peak} over the budget")
+    halves = check_chain_halves(torch, "deep_memory chains (halves)", x, chains, douts)
+    del dx1, dx2, g1, g2, douts
+    torch.cuda.empty_cache()
+    # The chunked backward (N / chunk chunks) against the plain backward on
+    # the kernels' own activations.
+    result = compare_chains(torch, "deep_memory chains", x, chains, "relu", seed=326, staged=True, f64_fallback=True)
+    record = {"route": route, "chunk_rows": chunk, "peak_launch_bytes": peak, "budget_bytes": CHAINS_BUDGET_BYTES,
+              **sizes, **time_chain_kernel(torch, x, chains, True, 2)}
+    emit({"phase": "deep_memory", "kernel": "chains_bwd", "layout": f"mule {MULE_DEEPEST}x128",
+          "parameters": flat.numel(), "halves_worst_grad_norm_rel_err": halves, "vs_plain": result, **record})
+    kernels["chains_bwd"][f"deep_memory_mule_{MULE_DEEPEST}x128x{N}"] = record
+
+
+def check_deep_gate_grid(torch) -> None:
+    """At 32, 64, 256 and 512 wide, rl8_tpu's residency gate
+    (``model_fits_vmem`` on the ``meta`` device) admits the default models
+    of GATE_DEEPEST layers and refuses one more; the card's kernels take
+    every depth from 1 to that: ``card_takes_act`` (Categorical on
+    DiscreteDummyEnv's shapes, Normal on ContinuousDummyEnv's),
+    ``card_takes_update`` (Categorical, Normal, SquashedNormal) and
+    ``card_takes_chains`` (the twin torso with ``fused_forward``), each
+    asked at 1 layer and at the deepest, and at every depth between through
+    the library queries they are (``rl8_act_scratch``, ``rl8_ppo_workspace``,
+    ``rl8_chains_workspace`` at one row, on arrays built once a width: 4,871
+    models of 32 to 4,871 layers through Python's packing would take ~30 s).
+    Then the first refused depth at 256 and 512 wide builds onto the module
+    routes, as rl8_tpu routes it (``fused_act``, ``fused_update`` and
+    ``fused_forward`` off), and at 512 wide trains one collect and one step
+    with no act or update launch."""
+    import ctypes
+
+    import numpy as np
+
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.models import DefaultContinuousModel, DefaultDiscreteModel
+    from rl8_tpu_torch.ops import ActParams, card_takes_act, card_takes_chains, card_takes_update, model_fits_vmem
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_act import KINDS
+    from rl8_tpu_torch.ops.fused_mlp import chain_names, named_chains
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    lib = load()
+    t0 = time.perf_counter()
+    for width, deepest in GATE_DEEPEST.items():
+        # The gate's boundary (the continuous model's too where its meta
+        # models are small: 4,871 layers take seconds to build).
+        classes = ((DefaultDiscreteModel, Discrete(2, shape=(1,))), (DefaultContinuousModel, Unbounded(1)))
+        models = {}
+        for cls, spec in classes[: 1 if deepest > 1000 else 2]:
+            for layers, admitted in ((deepest, True), (deepest + 1, False)):
+                with torch.device("meta"):
+                    models[cls, layers] = cls(Unbounded(1), spec, hiddens=(width,) * layers)
+                check(model_fits_vmem(models[cls, layers]) == admitted, f"deep gate grid: the gate at {layers} x {width}")
+        for layers in (1, deepest):
+            if layers == 1:
+                with torch.device("meta"):
+                    model = DefaultDiscreteModel(Unbounded(1), Discrete(2, shape=(1,)), hiddens=(width,))
+            else:
+                model = models[DefaultDiscreteModel, deepest]
+            flat = torch.empty(0, device="meta")
+            for kind, n in (("categorical", 2), ("normal", 0), ("squashed", 0)):
+                params = ActParams(flat=flat, d_in=1, hiddens=(width,) * layers, action_dim=1, n=n, activation="relu",
+                                   kind=kind)
+                check(card_takes_update(params) and (kind == "squashed" or card_takes_act(params)),
+                      f"deep gate grid: a kernel refuses {kind} {layers} x {width}")
+            check(card_takes_chains(named_chains(model, chain_names(model))),
+                  f"deep gate grid: the chain kernels refuse {layers} x {width}")
+        hidden = np.full(deepest, width, dtype=np.int32)
+        h_ptr = hidden.ctypes.data_as(ctypes.c_void_p)
+        spec = np.empty(2 * (2 * deepest + 3) + 1, dtype=np.int32)
+        for layers in range(1, deepest + 1):
+            for continuous, n in ((0, 2), (1, 0)):
+                check(lib.rl8_act_scratch(1, 1, layers, h_ptr, continuous, 1, n, 1) >= 0,
+                      f"deep gate grid: the act kernel refuses {'Normal' if continuous else 'Categorical'}"
+                      f" {layers} x {width}")
+            for kind, n in (("categorical", 2), ("normal", 0), ("squashed", 0)):
+                check(lib.rl8_ppo_workspace(1, 1, layers, h_ptr, KINDS.index(kind), 1, n) >= 0,
+                      f"deep gate grid: the update kernel refuses {kind} {layers} x {width}")
+            # The torso with fused_forward: 2 chains of `layers` plain layers, heads 2 and 1.
+            m = 2 * layers
+            spec[0] = 2
+            for c, head in enumerate((2, 1)):
+                base = 1 + c * (m + 3)
+                spec[base] = layers
+                spec[base + 1 : base + 1 + m : 2] = width
+                spec[base + 2 : base + 2 + m : 2] = 0
+                spec[base + 1 + m] = 1
+                spec[base + 2 + m] = head
+            check(lib.rl8_chains_workspace(1, 1, spec.ctypes.data_as(ctypes.c_void_p), 2 * (m + 3) + 1, 1) >= 0,
+                  f"deep gate grid: the chain kernels refuse the torso {layers} x {width}")
+    seconds = time.perf_counter() - t0
+    routes = {}
+    for width, deepest in GATE_DEEPEST.items():
+        if deepest > 1000:
+            continue  # 4,872 and 1,307 layers take seconds to build; the gate refused them above
+        zero_counters()
+        algo = AlgorithmConfig(device="cuda", num_envs=64, horizon=8, fused_forward=True,
+                               model_config={"hiddens": (width,) * (deepest + 1)}).build(DiscreteDummyEnv)
+        flags = (algo._fused_act, algo._fused_update, algo._fused_forward)
+        check(flags == (False, False, False), f"deep gate grid: {deepest + 1} x {width} routes {flags}")
+        routes[f"{deepest + 1}x{width}"] = flags
+        if width == 512:
+            algo.collect()
+            stats = algo.step()
+            launches = launch_counts()
+            check(launches["act"] == launches["update"] == launches["chains_fwd"] == 0 and launches["gae"] == 1,
+                  f"deep gate grid: {deepest + 1} x 512 launches {launches}")
+            check(all(math.isfinite(v) for v in stats.values()), "deep gate grid: step stats finite")
+        del algo
+        torch.cuda.empty_cache()
+    emit({"phase": "deep_gate_grid", "deepest_admitted_by_width": GATE_DEEPEST, "queries_seconds": seconds,
+          "first_refused_routes": routes})
+
+
+#: chains_count_sweep's structures: ``(name, d_in, layout, rows, activation,
+#: forward route, backward route)``. The tiled routes take up to 8 layers
+#: and 4 heads a chain, any number of chains (4 a launch); deeper chains
+#: or more heads take the staged ones.
+CHAIN_COUNTS = (
+    ("c5_tiled", 7, tuple(([(64, c % 2 == 0), (48, False)], [3] if c else [2, 1]) for c in range(5)), 4096,
+     "relu", "tiled", "tiled"),
+    ("c8_tiled", 7, tuple(([(32, c % 3 == 0)] * 4, [1, 9, 2, 3] if c == 0 else [2]) for c in range(8)), 4097,
+     "tanh", "tiled", "tiled"),
+    ("c5_l12_ln_6heads", 7, tuple(([(64, l % 2 == 0) for l in range(12)], [3, 1, 2, 9, 1] if c == 0 else [2])
+                                  for c in range(5)), 4096, "relu", "staged", "staged"),
+    ("c8_l12_noln", 16, tuple(([(96, False)] * 12, [1]) for c in range(8)), 5000, "relu", "staged", "staged"),
+    ("c5_l24_ln_tanh", 16, tuple(([(96, True)] * 24, [4, 8] if c % 2 else [1]) for c in range(5)), 5000, "tanh",
+     "staged", "staged"),
+    ("c8_l24_8heads", 11, tuple(([(80, c % 2 == 1)] * 24, [1, 2, 3, 9, 1, 2, 3, 1] if c == 7 else [1])
+                                for c in range(8)), 4096, "relu", "staged", "staged"),
+    ("c5_l3_5heads", 7, tuple(([(128, True), (128, False), (128, False)], [3, 1, 1, 9, 2]) for c in range(5)), 32768,
+     "relu", "staged", "staged"),
+)
+
+
+def run_chains_count_sweep(torch, dev, kernels: dict) -> None:
+    """The chain kernels past their former counts (CHAIN_COUNTS): 5 and 8
+    chains, 12 and 24 layers with and without LayerNorm, 5 and 8 heads on a
+    chain (ragged, one 9 wide), on the tiled routes (up to 8 layers and 4
+    heads a chain, launches of 4 chains) and the staged ones, each route
+    asserted; each against its plain versions (compare_chains: the staged
+    backward's on the kernels' own activations; held to float64 where the
+    plain f32 backward drifts off it), timed beside them
+    with their bounds and the backward's workspace and partial bytes."""
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for name, d_in, layout, N, activation, want_fwd, want_bwd in CHAIN_COUNTS:
+        chains = random_chains(torch, dev, seed=len(name) + N, d_in=d_in, layout=layout)
+        x = torch.randn((N, d_in), generator=gen, device=dev)
+        routes = {"forward": forward_route(torch, x, chains, activation, want_fwd),
+                  "backward": backward_route(torch, x, chains, activation, want_bwd)}
+        result = compare_chains(torch, f"chains_count_sweep {name}", x, chains, activation, seed=N,
+                                staged=want_bwd == "staged", f64_fallback=True)
+        structure = chain_structure(chains)
+        times = {"fwd": time_chain_kernel(torch, x, chains, False, 5), "bwd": time_chain_kernel(torch, x, chains, True, 3)}
+        emit({"phase": "kernel_check", "kernel": "chains_count_sweep", "name": name, "N": N,
+              "chains": len(layout), "layers": [len(layers) for layers, _ in layout],
+              "heads": [list(heads) for _, heads in layout], "activation": activation, **routes, **result,
+              **chain_backward_bytes(structure, N), "times": times})
+        if name in ("c8_tiled", "c5_l12_ln_6heads", "c8_l24_8heads"):
+            kernels["chains_fwd"][f"count_{name}"] = {"route": routes["forward"], **times["fwd"]}
+            kernels["chains_bwd"][f"count_{name}"] = {"route": routes["backward"], **times["bwd"],
+                                                      **chain_backward_bytes(structure, N)}
+
+
+def run_deep_custom(torch, dev, kernels: dict) -> None:
+    """MischievousMule with ``hiddens=(128,) * 12`` and ``fused_forward`` at
+    the custom cell's shapes (4096 envs, horizon 32, minibatches of 32,768
+    rows): it builds (the card's chain kernels take 12 layers: their staged
+    routes), and one warm-up, three timed and one profiled iteration
+    collect and step through the chain kernels (time_cell: forward 49,
+    backward 16, GAE 1 an iteration); its rollout held against its module
+    forward (check_custom_rollout) and one minibatch's step gradient
+    against the module route's (check_step_gradients: PPO_GRAD_*, or to
+    float64 where the module route's f32 gradient drifts off it)."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.ops.fused_mlp import chain_names, chain_structure, named_chains
+
+    algo = AlgorithmConfig(model_cls=MischievousMule, fused_forward=True, num_envs=4096, horizon=32,
+                           sgd_minibatch_size=32768, model_config={"hiddens": (128,) * 12},
+                           device=dev).build(AlgoTrading)
+    h, model = algo.hparams, algo.policy.model
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check(algo._fused_forward and per_step == 16, "deep_custom: fused_forward and the cell's shapes")
+    chains = named_chains(model, chain_names(model))
+    x = torch.randn((4096, chain_structure(chains)[0]), device=dev)
+    routes = {"forward_route": forward_route(torch, x, chains, "relu", "staged"),
+              "route": backward_route(torch, x, chains, "relu", "staged")}
+    record = time_cell(torch, algo, "deep_custom", {"gae": 1, "chains_fwd": h.horizon + 1 + per_step,
+                                                     "chains_bwd": per_step}, per_step, iters=4,
+                       hiddens="12x128", **routes)
+    worst, _ = check_custom_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
+    step = check_step_gradients(torch, algo, "deep_custom step", f64_fallback=True)
+    chains = tuple((tuple(tuple(t.detach() for t in layer) for layer in layers),
+                    tuple(tuple(t.detach() for t in head) for head in heads)) for layers, heads in chains)
+    xs = {N: torch.randn((N, chain_structure(chains)[0]), device=dev) for N in (4096, 32768)}
+    times = {"fwd": time_chain_kernel(torch, xs[4096], chains, False, 10),
+             "bwd": {**chain_backward_bytes(chain_structure(chains), 32768),
+                     **time_chain_kernel(torch, xs[32768], chains, True, 5)}}
+    emit({"phase": "kernel_check", "kernel": "deep_custom", "rollout_vs_module_max_abs_err": worst,
+          "step_gradient": step, "transitions_per_s_with_update": record["transitions_per_s_with_update"],
+          "times": times})
+    kernels["chains_fwd"]["deep_custom"] = {"launches_per_iteration": h.horizon + 1 + per_step, "route": "staged",
+                                            **times["fwd"]}
+    kernels["chains_bwd"]["deep_custom"] = {"launches_per_iteration": per_step, "route": "staged", **times["bwd"]}
+    del algo, model, xs
+    torch.cuda.empty_cache()
+
+
+def run_deep_torso(torch, dev, kernels: dict) -> None:
+    """The slice's cell: ``DefaultDiscreteModel`` with ``hiddens=(256,) *
+    16`` (1,975,555 parameters) on ``DiscreteDummyEnv``, 8192 envs, horizon
+    32, a whole-buffer minibatch of 262,144 rows, 4 epochs, Adam, through
+    ``AlgorithmConfig(...).build(env)``, ``collect()`` and ``step()``: one
+    warm-up, three timed and one profiled iteration (time_cell: act 32, GAE
+    1, update 4 launches an iteration, no other kernel), the rollout held
+    against the module forward (check_feedforward_rollout). On the cell's
+    buffer, both kernels against their plain versions (compare_act at
+    8,192 rows; compare_ppo over the whole buffer, 262,144 rows in two
+    chunks whose partial gradients are summed in order, and compare_ppo_f64
+    against float64 where the plain f32 gradient drifts off it) and the
+    update against its launches over the halves (check_halves, each half
+    one chunk), then timed beside their plain versions; then its module
+    twin (``fused_act=False, fused_update=False``: the module rollout and
+    the autodiff update) timed the same way."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.env import DiscreteDummyEnv
+    from rl8_tpu_torch.ops import act_plain, fused_act, fused_ppo_grads, ppo_grads_plain
+
+    hiddens = (256,) * 16
+    algo = AlgorithmConfig(device="cuda", model_config={"hiddens": hiddens}).build(DiscreteDummyEnv)
+    h = algo.hparams
+    per_step = h.num_sgd_iters * h.num_minibatches
+    check((algo._fused_act, algo._fused_update) == (True, True), "deep_torso: the kernels' routes")
+    check(sum(p.numel() for p in algo.policy.model.parameters()) == 1975555
+          and (h.num_envs, h.horizon, per_step) == (8192, 32, 4), "deep_torso: the cell's shapes")
+    cell = time_cell(torch, algo, "deep_torso", {"act": h.horizon, "gae": 1, "update": per_step}, per_step, iters=4,
+                     hiddens="16x256")
+    worst = check_feedforward_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
+    params = algo._pack_params()
+    obs, packed, unpack = buffer_rows(torch, algo, 8192 * 32, seed=27)
+    act_obs = obs[:8192].contiguous()
+    cfg = algo._loss_config(8192 * 32)
+    ec = torch.tensor(0.0, device=dev)
+    act_route = launched_route(torch, "deep_torso act", lambda: fused_act(params, act_obs, (1, 2)),
+                               ACT_ROUTES["discrete"], "wgmma")
+    ppo_route = launched_route(torch, "deep_torso update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                               PPO_ROUTES[False], "narrow", calls=1)
+    act_check = compare_act(torch, "deep_torso act", params, act_obs, f64_fallback=True)
+    update_check = compare_ppo(torch, "deep_torso update", params, packed, unpack, ec, cfg)
+    vs_float64 = compare_ppo_f64(torch, "deep_torso update", params, packed, unpack, ec, cfg, plain_first=True)
+    halves = check_halves(torch, "deep_torso update (halves)", params, packed, unpack, ec, cfg)
+    act = time_kernel(torch, "discrete_act", lambda: fused_act(params, act_obs, (1, 2)),
+                      lambda: act_plain(params, act_obs, (1, 2), deterministic=False), act_cost(params, 8192),
+                      iters=20, plain_iters=10, B=8192, hiddens="16x256", route=act_route,
+                      launches_per_iteration=h.horizon)
+    ppo = time_kernel(torch, "ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                      lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed), iters=3,
+                      plain_iters=2, plain_warmup=0, N=8192 * 32, hiddens="16x256", route=ppo_route,
+                      launches_per_iteration=per_step,
+                      workspace_bytes=4 * ppo_workspace_floats(params, 8192 * 32))
+    kernels["act"]["deep_torso"] = {k: act[k] for k in WIDE_RECORD}
+    kernels["ppo"]["deep_torso"] = {**{k: ppo[k] for k in WIDE_RECORD}, "workspace_bytes": ppo["workspace_bytes"]}
+    emit({"phase": "kernel_check", "kernel": "deep_torso", "rollout_vs_module_max_abs_err": worst,
+          "act_route": act_route, "act": act_check, "update_route": ppo_route, **update_check["summary"],
+          "update_vs_float64": vs_float64, "chunk_rows": ppo_chunk_rows(params, 8192 * 32), "halves_worst_grad_norm_rel_err": halves})
+    del algo, packed, obs
+    torch.cuda.empty_cache()
+    module = AlgorithmConfig(device="cuda", model_config={"hiddens": hiddens}, fused_act=False,
+                             fused_update=False).build(DiscreteDummyEnv)
+    twin = time_cell(torch, module, "deep_torso_module_route", {"gae": 1}, per_step, iters=4, hiddens="16x256")
+    emit({"phase": "deep_torso_summary", "hiddens": "16x256",
+          "kernels_transitions_per_s_with_update": cell["transitions_per_s_with_update"],
+          "module_transitions_per_s_with_update": twin["transitions_per_s_with_update"],
+          "kernels_over_module": cell["transitions_per_s_with_update"] / twin["transitions_per_s_with_update"]})
+    del module
+    torch.cuda.empty_cache()
 
 
 def time_chain_kernel(torch, x, chains, backward: bool, iters: int) -> dict:
@@ -2827,7 +3521,7 @@ RNN_PPO_ROUTES = {
 }
 
 
-def compare_act(torch, what: str, params, obs, key=(12345, 678)) -> float:
+def compare_act(torch, what: str, params, obs, key=(12345, 678), f64_fallback: bool = False):
     """An act kernel twice and its plain version, deterministic and
     stochastic (the plain version replays the kernel's Philox draws) on
     ``obs``: two launches bit-identical; categorical actions equal except
@@ -2835,14 +3529,27 @@ def compare_act(torch, what: str, params, obs, key=(12345, 678)) -> float:
     ACT_*; values within ACT_*; log-probs within ACT_* of the plain
     distribution's log-prob of the kernel's own actions on every row and
     of the plain version's own where the actions agree (squashed: where
-    every pre-squash |x| < SQUASH_LIMIT). Returns the largest error."""
+    every pre-squash |x| < SQUASH_LIMIT). Returns the largest error.
+    ``f64_fallback``: where the plain f32 forward is no reference (its
+    heads or values off the float64 forward's past ACT_RTOL, and ACT_ATOL /
+    2 beyond it, on some row: down a deep torso f32 sums drift), the kernel
+    is held to float64 instead (act_f64); returns a record of the reference
+    held to and its errors."""
     from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
     from rl8_tpu_torch.ops import act_plain, fused_act
     from rl8_tpu_torch.ops.distmath import log_softmax_rows, philox_normal, philox_uniform
+    from rl8_tpu_torch.ops.fused_act import ActParams
     from rl8_tpu_torch.ops.fused_mlp import forward_chains
 
     B, A = obs.shape[0], params.action_dim
-    (heads, _), _ = forward_chains(obs, params.chains(), params.activation)
+    (heads, (values,)), _ = forward_chains(obs, params.chains(), params.activation)
+    if f64_fallback:
+        p64 = ActParams(**{**params.__dict__, "flat": params.flat.double()})
+        (h64, (v64,)), _ = forward_chains(obs.double(), p64.chains(), params.activation)
+        drift = max(float(((a.double() - b).abs() - ACT_RTOL * b.abs()).max())
+                    for a, b in zip((*heads, values), (*h64, v64)))
+        if drift > ACT_ATOL / 2:
+            return {"plain_drift": drift, **act_f64(torch, what, params, obs, key, (heads, values), (h64, v64))}
     worst = 0.0
     for det in (True, False):
         name = f"{what} {'deterministic' if det else 'stochastic'}"
@@ -2874,7 +3581,66 @@ def compare_act(torch, what: str, params, obs, key=(12345, 678)) -> float:
         check(torch.allclose(kl[keep], pl[keep], rtol=ACT_RTOL, atol=ACT_ATOL), f"{name}: logp")
         worst = max(worst, float((kv - pv).abs().max()), float((kl - own).abs().max()),
                     float((kl[keep] - pl[keep]).abs().max()))
-    return worst
+    return {"held_to": "plain_f32", "plain_drift": drift, "max_abs_err": worst} if f64_fallback else worst
+
+
+def act_dist(torch, params, heads):
+    """The plain distribution of an act launch's policy heads: Categorical
+    over the logits, or Normal/SquashedNormal over the mean and tanh of the
+    pre-log-std."""
+    from rl8_tpu_torch.distributions import Categorical, Normal, SquashedNormal
+
+    if not params.continuous:
+        return Categorical({"logits": heads[0].view(heads[0].shape[0], params.action_dim, params.n)})
+    cls = SquashedNormal if params.kind == "squashed" else Normal
+    return cls({"mean": heads[0], "log_std": torch.tanh(heads[1])})
+
+
+def act_f64(torch, what: str, params, obs, key, plain, f64) -> dict:
+    """compare_act's float64 branch, given the plain forward's ``(heads,
+    values)`` in f32 and in float64: deterministic and stochastic (the
+    kernel's Philox draws), two launches bit-identical; the values, the
+    deterministic continuous actions and the log-probs of the kernel's own
+    actions (squashed: rows where every pre-squash |x| < SQUASH_LIMIT) held
+    to float64 by f64_rule (slack ACT_ATOL a row, by norm; the control the
+    plain forward with one-pass TF32 products); the greedy actions equal
+    float64's where its top two logits lie 8 times the plain f32 logits'
+    largest drift apart."""
+    from rl8_tpu_torch.ops import fused_act
+    from rl8_tpu_torch.ops.distmath import philox_normal
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+
+    (h32, v32), (h64, v64) = plain, f64
+    (hc, (vc,)), _ = tf32_control(torch, lambda: forward_chains(obs, params.chains(), params.activation))
+    B, A = obs.shape[0], params.action_dim
+    d32, d64, dc = (act_dist(torch, params, h) for h in (h32, h64, hc))
+    squash = torch.tanh if params.kind == "squashed" else (lambda t: t)
+    rows, greedy = {}, None
+    for det in (True, False):
+        name = "deterministic" if det else "stochastic"
+        ka, kl, kv = fused_act(params, obs, key, deterministic=det)
+        k2 = fused_act(params, obs, key, deterministic=det)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((ka, kl, kv), k2)), f"{what} {name}: two launches bit-identical")
+        rows[f"{name} values"] = f64_rule(kv, v32, v64, ACT_ATOL * math.sqrt(v64.numel()), vc)
+        keep = torch.ones_like(kv[:, 0] > 0)
+        if params.continuous:
+            x = h64[0] if det else h64[0] + torch.exp(torch.tanh(h64[1])) * philox_normal(*key, B, A, obs.device)
+            if params.kind == "squashed":
+                keep = (x.abs() < SQUASH_LIMIT).all(dim=1)
+            if det:
+                rows[f"{name} actions"] = f64_rule(ka, squash(h32[0]), squash(h64[0]),
+                                                   ACT_ATOL * math.sqrt(ka.numel()), squash(hc[0]))
+        elif det:
+            z64 = h64[0].view(B, A, params.n)
+            top2 = z64.topk(2, dim=-1).values
+            clear = ((top2[..., 0] - top2[..., 1]) > 8 * float((h32[0].double() - h64[0]).abs().max())).all(dim=1)
+            check(bool((ka.long() == z64.argmax(-1))[clear].all()), f"{what} {name}: greedy actions vs float64")
+            greedy = int(clear.sum())
+        own = ka.double() if params.continuous else ka
+        rows[f"{name} logp"] = f64_rule(kl[keep], d32.logp(ka)[keep], d64.logp(own)[keep],
+                                        ACT_ATOL * math.sqrt(int(keep.sum())), dc.logp(ka)[keep])
+    return {**check_f64(what, rows), "greedy_rows_compared": greedy, "max_abs_err": None}
 
 
 def scale_mean_head(torch, model, obs, rms: float):
@@ -2900,39 +3666,83 @@ def grad_tensors(params, flat) -> list:
             for pair in (*layers, *heads) for t in pair]
 
 
-def compare_ppo_f64(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
+def tf32_control(torch, fn):
+    """``fn()`` with one-pass TF32 matrix products: the control of F64_K's
+    rule, a plain version computing in lower precision than f32."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def f64_rule(k, p, f, slack: float, c) -> dict:
+    """F64_K's rule for one tensor, where the plain f32 version ``p`` is no
+    reference: the kernel's ``k`` may lie F64_K times p's distance from the
+    float64 version ``f``, plus ``slack``, by norm. ``c`` is the control
+    (tf32_control of the plain version), whose distance check_f64 holds to
+    the same limit. Returns the distances and the limit."""
+    k, p, f, c = k.double(), p.double(), f.double(), c.double()
+    row = {"kernel": float((k - f).norm()), "plain": float((p - f).norm()), "control": float((c - f).norm()),
+           "vs_plain": float((k - p).norm()), "ref": float(f.norm())}
+    row["limit"] = F64_K * row["plain"] + slack
+    return row
+
+
+def check_f64(what: str, rows: dict) -> dict:
+    """f64_rule's rows (name -> row): every kernel distance within its
+    limit, and the control's past its limit on some row, so that each check
+    shows that its limit refuses a version computing with one-pass TF32
+    products. Returns the worst kernel and control distances over their
+    limits and the worst distances off float64 (and the kernel's off the
+    plain f32 version) relative to float64's norm."""
+    for name, r in rows.items():
+        ref = max(r["ref"], 1e-30)
+        check(r["kernel"] <= r["limit"], f"{what} {name}: {r['kernel'] / ref:.3g} off float64, the plain f32 "
+              f"version {r['plain'] / ref:.3g}, limit {r['limit'] / ref:.3g}")
+    control = max(r["control"] / r["limit"] for r in rows.values())
+    check(control > 1.0, f"{what}: the one-pass TF32 control lies within the limit ({control:.3g} of it)")
+    rel = lambda key: max(r[key] / max(r["ref"], 1e-30) for r in rows.values())  # noqa: E731
+    return {"held_to": "float64", "kernel_over_limit": max(r["kernel"] / r["limit"] for r in rows.values()),
+            "tf32_control_over_limit": control, "kernel_off_float64": rel("kernel"),
+            "plain_off_float64": rel("plain"), "tf32_control_off_float64": rel("control"),
+            "kernel_vs_plain": rel("vs_plain")}
+
+
+def compare_ppo_f64(torch, what: str, params, packed, unpack, ec, cfg, plain_first: bool = False) -> dict:
     """For inputs on which the plain f32 version is no reference (see F64_K:
-    the saturated squashed rows of WIDE_MEAN_RMS, and wide_torso's
-    synthetic rows at 262,144): the update kernel twice, its plain version
-    in f32, in float64 and, as a control, in f32 with one-pass TF32
-    products. The launches must be bit-identical and finite, and each
-    gradient tensor's error off float64 within F64_K times the plain f32
-    version's plus PPO_GRAD_*. Returns the worst norm-relative errors off
-    float64 of the three, per chain (policy, value)."""
+    the saturated squashed rows of WIDE_MEAN_RMS, wide_torso's synthetic
+    rows at 262,144, deep torsos): the update kernel twice, its plain
+    version in f32, in float64 and, as the control, in f32 with one-pass
+    TF32 products. The launches must be bit-identical and finite, and each
+    gradient tensor is held to float64 by f64_rule (slack PPO_GRAD_* of its
+    norm, check_f64). ``plain_first``: where the plain f32 gradient lies
+    within PPO_GRAD_RTOL / 2 of float64's on every tensor, the kernel is
+    held to it instead (compare_ppo)."""
     from rl8_tpu_torch.ops import fused_ppo_grads, ppo_grads_plain
     from rl8_tpu_torch.ops.fused_act import ActParams
 
-    k1 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
-    k2 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
     plain = ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
     f64 = ppo_grads_plain(ActParams(**{**params.__dict__, "flat": params.flat.double()}), packed, unpack, ec, cfg)[2]
-    torch.backends.cuda.matmul.allow_tf32 = True
-    tf32 = ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
-    torch.cuda.synchronize()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    check(torch.equal(k1, k2) and bool(torch.isfinite(k1).all()), f"{what}: two launches bit-identical and finite")
-
     tensors = lambda flat: grad_tensors(params, flat.double())  # noqa: E731
-    worst = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0], "tf32_control": [0.0, 0.0]}
-    for (chain, k), (_, p), (_, c), (_, f) in zip(tensors(k1), tensors(plain), tensors(tf32), tensors(f64)):
-        ref = float(f.norm())
-        err = {"kernel": float((k - f).norm()), "plain": float((p - f).norm()), "tf32_control": float((c - f).norm())}
-        for key, e in err.items():
-            worst[key][chain] = max(worst[key][chain], e / ref)
-        check(err["kernel"] <= F64_K * err["plain"] + PPO_GRAD_RTOL * ref + PPO_GRAD_ATOL,
-              f"{what}: gradient {tuple(f.shape)} {err['kernel'] / ref:.3g} off float64, "
-              f"the plain f32 version {err['plain'] / ref:.3g}")
-    return {f"{key}_worst_grad_vs_float64": v for key, v in worst.items()}
+    off = max(float((p - f).norm()) / max(float(f.norm()), 1e-30) for (_, p), (_, f) in zip(tensors(plain),
+                                                                                             tensors(f64)))
+    if plain_first and off <= PPO_GRAD_RTOL / 2:
+        result = compare_ppo(torch, what, params, packed, unpack, ec, cfg)
+        return {"held_to": "plain_f32", "plain_off_float64": off, "max_abs_err": result["max_abs_err"],
+                **result["summary"]}
+    tf32 = tf32_control(torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg)[2])
+    k1 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    k2 = fused_ppo_grads(params, packed, unpack, ec, cfg)[2]
+    torch.cuda.synchronize()
+    check(torch.equal(k1, k2) and bool(torch.isfinite(k1).all()), f"{what}: two launches bit-identical and finite")
+    rows = {f"{('policy', 'value')[chain]} {i} {tuple(f.shape)}": f64_rule(k, p, f, PPO_GRAD_RTOL * float(f.norm())
+                                                                            + PPO_GRAD_ATOL, c)
+            for i, ((chain, k), (_, p), (_, c), (_, f)) in enumerate(zip(tensors(k1), tensors(plain), tensors(tf32),
+                                                                         tensors(f64)))}
+    return {**check_f64(what, rows), "max_abs_err": None}
 
 
 def check_halves(torch, what: str, params, packed, unpack, ec, cfg) -> float:
@@ -2985,12 +3795,14 @@ def ppo_cost(params, packed) -> tuple[int, int]:
     return 2 * N * (fwd + bwd), 4 * (packed.numel() + 2 * params.flat.numel() + 4 + 1)
 
 
-def time_kernel(torch, what: str, fn, plain, cost: tuple[int, int], iters: int, plain_iters: int, **extra) -> dict:
+def time_kernel(torch, what: str, fn, plain, cost: tuple[int, int], iters: int, plain_iters: int,
+                plain_warmup: int = 1, **extra) -> dict:
     """A kernel's device ms per launch beside its plain version's, with its
-    bounds (update_bounds); emits and returns the record."""
+    bounds (update_bounds); emits and returns the record. ``plain_warmup``
+    0 where a check has just run the plain version on the same inputs."""
     record = dict(extra)
     record["ms"], record["host_ms"] = time_ms(torch, fn, iters=iters, warmup=1)
-    record["plain_ms"], _ = time_ms(torch, plain, iters=plain_iters, warmup=1)
+    record["plain_ms"], _ = time_ms(torch, plain, iters=plain_iters, warmup=plain_warmup)
     update_bounds(record, *cost)
     record.update(flops=cost[0], bytes=cost[1])
     emit({"phase": "kernel_time", "kernel": what, **record})

@@ -109,8 +109,9 @@ class GenericAlgorithmBase(ABC, Generic[_Hparams, _State, _Policy]):
         chain kernels do not take ``model``'s chains (``fused_forward``)."""
         if self.device.type == "cuda" and not card_takes_chains(named_chains(model, chain_names(model))):
             raise NotImplementedError(
-                f"The card's chain kernels do not take {type(model).__name__}'s chains: they take at"
-                " most 4 chains of 1 to 8 layers and 1 to 4 heads (the CPU takes any count)."
+                f"The card's chain kernels do not take {type(model).__name__}'s chains: their weight"
+                " copies and partials leave no room for one row block in the staged backward's workspace"
+                " budget (the CPU takes any size)."
             )
 
     def _init_common(self, config: Any) -> int:

@@ -6,8 +6,8 @@ package compiles ``collect`` and ``step`` into ``lax.scan``s; here they
 are Python loops that launch the port's kernels. Two routes for the
 rollout and two for the update, chosen at build as ``rl8_tpu`` chooses
 them (``fused_act`` and ``fused_update``, each on where the kernels take
-the model: a default model with relu or tanh, biased layers, at most 8 of
-them, and its distribution):
+the model: a default model with relu or tanh, biased layers, any number
+of them within ``rl8_tpu``'s residency gate, and its distribution):
 
 - The fused act kernel: ``collect`` loops over the horizon, each step one
   launch of the act kernel of the policy's distribution
@@ -208,8 +208,8 @@ class AlgorithmConfig:
     #: smooth-L1 value loss, hand-derived backward). Matches the autodiff
     #: route to f32 rounding. Off for custom models and for default models
     #: the kernels do not take (another activation than relu or tanh,
-    #: ``bias=False``, more than 8 layers, a compute dtype), which take the
-    #: autodiff route.
+    #: ``bias=False``, a compute dtype, or past ``rl8_tpu``'s residency
+    #: gate), which take the autodiff route.
     fused_update: bool = True
     #: Sample rollout actions, log-probs and values with one launch of the
     #: act kernel per step (``ops/fused_act.py``). Its Philox draws differ
@@ -377,9 +377,9 @@ class Algorithm(GenericAlgorithmBase[AlgorithmHparams, AlgorithmState, Policy]):
             if on and not takes(packed):
                 raise NotImplementedError(
                     f"The card's {what} kernel does not take {type(model).__name__} with hiddens"
-                    f" {tuple(model.hiddens)}, {packed.d_in} inputs and heads {packed.policy_heads}: its wide"
-                    " route takes any width, so a dimension is out of the kernel's range (the CPU takes any"
-                    " shape)."
+                    f" {tuple(model.hiddens)}, {packed.d_in} inputs and heads {packed.policy_heads}: its routes"
+                    " take any width and depth, so a dimension is out of the kernel's range or its workspace"
+                    " over the kernel's budget (the CPU takes any shape)."
                 )
 
     def _pack_params(self):

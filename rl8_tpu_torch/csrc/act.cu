@@ -81,7 +81,7 @@
 //     ping-pong buffers) and its column tile's 32-deep weight slabs through
 //     a 3-stage cp.async ring in shared memory; the discrete kind sums on
 //     the tensor cores in 3xTF32 wgmma (tc_product, 128 columns a block, a
-//     fresh accumulator every 64 k folded into an f32 sum), the continuous
+//     fresh accumulator every 32 k folded into an f32 sum), the continuous
 //     kinds in f32 on the CUDA cores, each output in order of k
 //     (fwd_product, 256 columns a block, 8 rows by 16 columns a thread, one
 //     16-byte shared-memory load for 16 FMAs), since their squashed
@@ -128,6 +128,22 @@
 //   of a row's 32 lanes sums its 8 columns, then a butterfly (tile.cuh's
 //   tile_heads).
 //
+// Depth. A model may have any number of layers. The wgmma and the tiled
+// routes run every layer in one launch, so they read each layer's shapes,
+// offsets and slabs from a table in the scratch (WgLayer, TileLayer;
+// table.cuh), which the launch writes before the kernel, walking it with a
+// cursor as the slabs come: no table of fixed size in a kernel's
+// parameters covers every depth. The wgmma route's shared memory does not
+// grow with depth, so a deep discrete model up to 256 wide keeps it (16
+// layers of 256: the same block of 64 rows, twice the slabs of 8 layers).
+// The wgmma route's tensor cores round each output's running sum toward
+// zero at every k step, so it takes chains of at most kWgMaxSteps k steps
+// (32 layers of 256); deeper discrete models up to 256 wide take the tiled
+// f32 route. The tiled route reads a layer's biases from the parameters
+// where its outputs are made, so its shared memory does not grow with
+// depth either. The staged route launches a layer at a time from the host
+// and takes any depth; its heads kernel gets only the heads' offsets.
+//
 // Sampling and its Philox random numbers are sample.cuh's, shared with
 // rnn_act.cu.
 #include <cuda_runtime.h>
@@ -139,19 +155,21 @@
 #include "mma.cuh"
 #include "sample.cuh"
 #include "stage.cuh"
+#include "table.cuh"
 #include "tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-
+// A launch's shapes; the widths of its layers (any number) stay on the
+// host, and the kernels read what they need of them from their plans'
+// tables in device memory (table.cuh).
 struct ActDims {
   int d_in;
   int n_layers;
   int act;  // 0: relu, 1: tanh
   int max_hidden;
-  int hidden[kMaxLayers];
+  int last;     // the last hidden layer's width
   int n_heads;  // heads of the policy chain: 1 (logits) or 2 (mean, log-std)
   int head_w;   // width of each: A * n logits, or A
 };
@@ -173,53 +191,60 @@ constexpr int kSlabK = 32;
 constexpr int kSlabFloats = kSlabK * kTileWidth;
 constexpr int kStages = 3;  // slabs a block holds: kStages - 1 in flight
 constexpr int kMaxSmem = 232448;  // shared memory a block may use on an H100
-constexpr int kMaxQ = 2 * kMaxLayers;  // layers over both chains
 
-// A tiled launch: layer q = chain * n_layers + l reads in_w[q] x out_w[q]
-// weights at woff[q] of the flat parameters (its bias follows them), in
-// slabs first_slab[q] .. first_slab[q + 1] - 1; head j of chain c is at
-// hoff[c][j]. Shared memory: obs' tile [R, ldx], the activations [R, ldh]
-// (each layer's output replaces its input), kStages weight slabs, the heads
-// [R, head_stride] and the epilogue's [R, 2A].
-struct TilePlan {
-  int ldx, ldh, n_q;
-  int first_slab[kMaxQ + 1];
-  int in_w[kMaxQ], out_w[kMaxQ];
-  long long woff[kMaxQ];
-  long long hoff[2][2];
-  // The biases and the heads' W and b, copied to shared memory from sp with
-  // the first slab: layer q's bias at sbias[q], head j of chain c at
-  // shead[c][j] (its b after its W).
-  int sp;
-  // Whether layer q's weight rows start 16-byte aligned, so that its slabs
-  // are bulk copies (the TMA unit, one instruction a slab or row; per-thread
-  // cp.async copies share the load pipe with the products' shared-memory
-  // loads: with cp.async alone ~0.019 ms of them showed, kernel_variants.py's
-  // act_no_slab_loads); cp.async otherwise.
-  int bulk[kMaxQ];
-  int sbias[kMaxQ], shead[2][2];
-  size_t smem;
+// Layer q = chain * n_layers + l of a tiled launch, entry q of its table:
+// in_w x out_w weights at woff of the flat parameters (its bias follows
+// them), in slabs first_slab .. end_slab - 1; bulk: whether its weight rows
+// start 16-byte aligned, so
+// that its slabs are bulk copies (the TMA unit, one instruction a slab or
+// row; per-thread cp.async copies share the load pipe with the products'
+// shared-memory loads: with cp.async alone ~0.019 ms of them showed,
+// kernel_variants.py's act_no_slab_loads); cp.async otherwise.
+struct TileLayer {
+  long long woff;
+  int first_slab, end_slab, in_w, out_w, bulk, pad;
 };
 
-// The tiled plan of a launch, or false where its widest layer
-// is wider than one pass or its tiles do not fit a block's shared memory
-// (those launches take the staged route).
-bool make_plan(const ActDims& d, TilePlan* P) {
+// A tiled launch: its n_q layers in the table tab (device memory), head j
+// of chain c at hoff[c][j]. Shared memory: obs' tile [R, ldx], the
+// activations [R, ldh] (each layer's output replaces its input), kStages
+// weight slabs, the heads [R, head_stride] and the epilogue's [R, 2A]; then
+// from sp the heads' W and b, copied with the first slab (head j of chain c
+// at shead[c][j], its b after its W). None of it grows with depth: a
+// layer's biases are read from the parameters (L1) where its outputs are
+// made, 8 a thread.
+struct TilePlan {
+  int ldx, ldh, n_q, n_slabs;
+  long long hoff[2][2];
+  int sp;
+  int shead[2][2];
+  size_t smem;
+  const TileLayer* tab;
+};
+
+// The tiled plan of a launch (and its table, *tab), or false where its
+// widest layer is wider than one pass or its tiles do not fit a block's
+// shared memory (those launches take the staged route).
+bool make_plan(const ActDims& d, const int* hidden, TilePlan* P, std::vector<TileLayer>* tab) {
   if (d.max_hidden > kTileWidth || d.n_heads > 2) return false;
   P->ldx = rl8::tile_ld(d.d_in);
   P->ldh = rl8::tile_ld(d.max_hidden);
   P->n_q = 2 * d.n_layers;
+  tab->assign((size_t)P->n_q, TileLayer{});
   long long off = 0;
   int slabs = 0;
   for (int c = 0; c < 2; ++c) {
     int in = d.d_in;
     for (int l = 0; l < d.n_layers; ++l) {
-      const int q = c * d.n_layers + l, w = d.hidden[l];
-      P->in_w[q] = in;
-      P->out_w[q] = w;
-      P->woff[q] = off;
-      P->first_slab[q] = slabs;
+      TileLayer& e = (*tab)[c * d.n_layers + l];
+      const int w = hidden[l];
+      e.in_w = in;
+      e.out_w = w;
+      e.woff = off;
+      e.first_slab = slabs;
       slabs += (in + kSlabK - 1) / kSlabK;
+      e.end_slab = slabs;
+      e.bulk = w % 4 == 0 && off % 4 == 0;
       off += (long long)in * w + w;
       in = w;
     }
@@ -229,20 +254,15 @@ bool make_plan(const ActDims& d, TilePlan* P) {
       off += (long long)in * n_out + n_out;
     }
   }
-  P->first_slab[P->n_q] = slabs;
-  for (int q = 0; q < P->n_q; ++q) P->bulk[q] = P->out_w[q] % 4 == 0 && P->woff[q] % 4 == 0;
+  P->n_slabs = slabs;
   const int stride = d.n_heads * d.head_w + 1;
   P->sp = kTileRows * (P->ldx + P->ldh + stride + 2 * d.head_w) + kStages * kSlabFloats;
-  int small = 0;
-  for (int q = 0; q < P->n_q; ++q) {
-    P->sbias[q] = P->sp + small;
-    small += P->out_w[q];
-  }
+  long long small = 0;
   for (int c = 0; c < 2; ++c) {
     const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
     for (int j = 0; j < n_heads; ++j) {
-      P->shead[c][j] = P->sp + small;
-      small += d.hidden[d.n_layers - 1] * n_out + n_out;
+      P->shead[c][j] = (int)(P->sp + small);
+      small += (long long)d.last * n_out + n_out;
     }
   }
   P->smem = sizeof(float) * ((size_t)P->sp + small);
@@ -256,17 +276,19 @@ bool make_plan(const ActDims& d, TilePlan* P) {
 // aligned takes bulk copies by one thread, reported to bar (one for the
 // slab where its rows are kTileWidth wide, else one a row); the others
 // every thread's cp.async copies, 16, 8 or 4 bytes as the rows' alignment
-// allows, 64 threads a row. Returns whether the slab's copies are bulk.
+// allows, 64 threads a row. q is the caller's cursor over the layers (g
+// only grows from call to call). Returns whether the slab's copies are
+// bulk.
 __device__ __forceinline__ bool issue_slab(const float* __restrict__ params, const TilePlan& P, int g, float* dst,
-                                           uint64_t* bar) {
+                                           uint64_t* bar, int& q) {
   bool bulk = false;
-  if (g < P.first_slab[P.n_q]) {
-    int q = 0;
-    while (P.first_slab[q + 1] <= g) ++q;
-    const int k0 = (g - P.first_slab[q]) * kSlabK, w = P.out_w[q];
-    const int rows = min(kSlabK, P.in_w[q] - k0);
-    const float* src = params + P.woff[q] + (size_t)k0 * w;
-    bulk = P.bulk[q];
+  if (g < P.n_slabs) {
+    while (P.tab[q].end_slab <= g) ++q;
+    const TileLayer e = P.tab[q];
+    const int k0 = (g - e.first_slab) * kSlabK, w = e.out_w;
+    const int rows = min(kSlabK, e.in_w - k0);
+    const float* src = params + e.woff + (size_t)k0 * w;
+    bulk = e.bulk;
     if (bulk) {
       if (threadIdx.x == 0) {
         const uint32_t bytes = (uint32_t)(w * sizeof(float));
@@ -326,7 +348,7 @@ __device__ __forceinline__ void act_tiles(const float* __restrict__ obs, const f
   float* parts = heads + R * stride;
   const int r0 = blockIdx.x * R;
   const int nr = min(R, B - r0);
-  const int n_slabs = P.first_slab[P.n_q];
+  const int n_slabs = P.n_slabs;
   // Bulk copies: slab g reports to bars[g % kStages]; bit s of phases is the
   // parity of stage s's next phase, and bit s of bulk whether the slab in
   // stage s is bulk.
@@ -337,21 +359,17 @@ __device__ __forceinline__ void act_tiles(const float* __restrict__ obs, const f
   }
   __syncthreads();
   uint32_t phases = 0, bulk = 0;
-  // The biases and the heads' parameters, with the first slab's group.
-  for (int q = 0; q < P.n_q; ++q) {
-    for (int i = threadIdx.x; i < P.out_w[q]; i += blockDim.x) {
-      rl8::cp_async4(smem + P.sbias[q] + i, params + P.woff[q] + (size_t)P.in_w[q] * P.out_w[q] + i, 4);
-    }
-  }
+  // The heads' parameters, with the first slab's group.
   for (int c = 0; c < 2; ++c) {
     const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
-    const int n = (d.hidden[d.n_layers - 1] + 1) * n_out;
+    const int n = (d.last + 1) * n_out;
     for (int j = 0; j < n_heads; ++j) {
       for (int i = threadIdx.x; i < n; i += blockDim.x) rl8::cp_async4(smem + P.shead[c][j] + i, params + P.hoff[c][j] + i, 4);
     }
   }
+  int q_issue = 0, q = 0;  // the layers of the next slab to issue and of slab g
   for (int s = 0; s < kStages - 1; ++s) {
-    if (issue_slab(params, P, s, slabs + s * kSlabFloats, &bars[s])) bulk |= 1u << s;
+    if (issue_slab(params, P, s, slabs + s * kSlabFloats, &bars[s], q_issue)) bulk |= 1u << s;
   }
   for (int i = threadIdx.x; i < R * d.d_in; i += blockDim.x) {
     const int r = i / d.d_in;
@@ -363,7 +381,7 @@ __device__ __forceinline__ void act_tiles(const float* __restrict__ obs, const f
   for (int g = 0; g < n_slabs; ++g) {
     const int gs = g + kStages - 1;
     const int st = g % kStages, next = gs % kStages;
-    if (issue_slab(params, P, gs, slabs + next * kSlabFloats, &bars[next])) {
+    if (issue_slab(params, P, gs, slabs + next * kSlabFloats, &bars[next], q_issue)) {
       bulk |= 1u << next;
     } else {
       bulk &= ~(1u << next);
@@ -374,27 +392,27 @@ __device__ __forceinline__ void act_tiles(const float* __restrict__ obs, const f
       phases ^= 1u << st;
     }
     __syncthreads();  // slab g has landed for every thread (and obs' tile)
-    int q = 0;
-    while (P.first_slab[q + 1] <= g) ++q;
-    const int l = q % d.n_layers, k0 = (g - P.first_slab[q]) * kSlabK;
+    while (P.tab[q].end_slab <= g) ++q;
+    const TileLayer e = P.tab[q];
+    const int l = q % d.n_layers, k0 = (g - e.first_slab) * kSlabK;
     const float* in = l == 0 ? xs : h;
     const int ld = l == 0 ? ldx : ldh;
     rl8::tile_fma<RT>(acc, in + rg * RT * ld + k0, ld, slabs + st * kSlabFloats, kTileWidth,
-                      min(kSlabK, P.in_w[q] - k0), c0, c1);
+                      min(kSlabK, e.in_w - k0), c0, c1);
     __syncthreads();  // slab g may be overwritten, and the layer's input
-    if (g + 1 < P.first_slab[q + 1]) continue;
+    if (g + 1 < e.end_slab) continue;
     // The layer's last slab: its output, in place of its input, or, after a
     // chain's last layer, straight into the chain's heads (tile.cuh's
     // tile_heads, on the outputs in registers): the policy chain's (mean,
     // pre-tanh log-std) from column 0, the value chain's value in column
     // stride - 1.
-    const int w = P.out_w[q], c = q / d.n_layers;
-    const float* bias = smem + P.sbias[q];
+    const int w = e.out_w, c = q / d.n_layers;
+    const float* bias = params + e.woff + (size_t)e.in_w * w;
     int n[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       n[j] = j < 4 ? c0 + j : c1 + j - 4;
-      const float b = n[j] < w ? bias[n[j]] : 0.0f;
+      const float b = n[j] < w ? __ldg(bias + n[j]) : 0.0f;
 #pragma unroll
       for (int r = 0; r < RT; ++r) acc[r][j] = rl8::activate(acc[r][j] + b, ACT);
     }
@@ -461,58 +479,76 @@ constexpr int kWgSteps = kWgSlabK / 8;  // k steps a slab
 constexpr int kWgLdw = kWgWidth + 8;  // a slab row's stride: A fragment loads hit 32 banks
 constexpr int kWgStages = 4;
 constexpr int kWgMaxLogits = 64;
+// The most k steps of 8 down a chain (every layer's input, in slabs): each
+// output keeps its whole K in the tensor core's accumulator, which rounds
+// toward zero at every k step, and a relu torso carries that shrinkage
+// down the chain. At 32 layers of 256 (994 steps) the values and log-probs
+// stay within 1e-4 of the f32 forward's, at 87 (2,754) they do not (on an
+// H100, chip_smoke.py's deep_sweep), so deeper chains take the tiled f32
+// route, which any depth fits.
+constexpr int kWgMaxSteps = 1024;
 constexpr int kWgSlabFloats = kWgSlabK * kWgLdw;
 
-// A wgmma launch: layer q = chain * n_layers + l reads in_w[q] x out_w[q]
-// weights at woff[q] of the flat parameters (its bias follows them), in
-// slabs first_slab[q] .. first_slab[q + 1] - 1; chain c's head (the logits,
-// the value) is at hoff[c]. Shared memory, in floats: the activations'
-// big and small TF32 halves, each [kWgWidth / 4][kWgRows][4] (wgmma.cuh's
-// bt_offset), which the heads' partial sums overlay; kWgStages slabs; the
-// heads [kWgRows, stride] at `heads`; the epilogue's [kWgRows, A]; the
-// heads' parameters at head_w.
+// Layer q = chain * n_layers + l of a wgmma launch, entry q of its table:
+// in_w x out_w weights at woff of the flat parameters (its bias follows
+// them), in slabs first_slab .. end_slab - 1.
+struct WgLayer {
+  long long woff;
+  int first_slab, end_slab, in_w, out_w;
+};
+
+// A wgmma launch: its n_q layers in the table tab (device memory); chain
+// c's head (the logits, the value) is at hoff[c]. Shared memory, in floats:
+// the activations' big and small TF32 halves, each [kWgWidth / 4][kWgRows]
+// [4] (wgmma.cuh's bt_offset), which the heads' partial sums overlay;
+// kWgStages slabs; the heads [kWgRows, stride] at `heads`; the epilogue's
+// [kWgRows, A]; the heads' parameters at head_w. None of it grows with
+// depth.
 struct WgPlan {
-  int n_q, stride, heads;
+  int n_q, n_slabs, stride, heads;
   // Chain c's head, W and b (head_n[c] floats from hoff[c]), copied to
   // shared memory at head_w[c].
   int head_w[2], head_n[2];
-  int first_slab[kMaxQ + 1];
-  int in_w[kMaxQ], out_w[kMaxQ];
-  long long woff[kMaxQ];
   long long hoff[2];
   size_t smem;
+  const WgLayer* tab;
 };
 
-// The wgmma plan of a discrete launch, or false where an input or a layer
-// is wider than kWgWidth, the logits are more than kWgMaxLogits or the tiles
-// do not fit a block's shared memory.
-bool make_wgmma_plan(const ActDims& d, int A, WgPlan* P) {
+// The wgmma plan of a discrete launch (and its table, *tab), or false where
+// an input or a layer is wider than kWgWidth, the logits are more than
+// kWgMaxLogits, a chain takes more than kWgMaxSteps k steps or the tiles do
+// not fit a block's shared memory.
+bool make_wgmma_plan(const ActDims& d, const int* hidden, int A, WgPlan* P, std::vector<WgLayer>* tab) {
   // The heads' partials, [8 warps][kWgRows][head_w], go over the B operand.
   if (d.n_heads != 1 || d.d_in > kWgWidth || d.max_hidden > kWgWidth || d.head_w > kWgMaxLogits) return false;
   P->n_q = 2 * d.n_layers;
+  tab->assign((size_t)P->n_q, WgLayer{});
   long long off = 0;
   int slabs = 0;
   for (int c = 0; c < 2; ++c) {
     int in = d.d_in;
     for (int l = 0; l < d.n_layers; ++l) {
-      const int q = c * d.n_layers + l, w = d.hidden[l];
-      P->in_w[q] = in;
-      P->out_w[q] = w;
-      P->woff[q] = off;
-      P->first_slab[q] = slabs;
+      WgLayer& e = (*tab)[c * d.n_layers + l];
+      const int w = hidden[l];
+      e.in_w = in;
+      e.out_w = w;
+      e.woff = off;
+      e.first_slab = slabs;
       slabs += (in + kWgSlabK - 1) / kWgSlabK;
+      e.end_slab = slabs;
       off += (long long)in * w + w;
       in = w;
     }
     const int n_out = c == 0 ? d.head_w : 1;
     P->hoff[c] = off;
     off += (long long)in * n_out + n_out;
+    if (c == 0 && (long long)slabs * kWgSteps > kWgMaxSteps) return false;
   }
-  P->first_slab[P->n_q] = slabs;
+  P->n_slabs = slabs;
   P->stride = d.head_w + 1;
   P->heads = 2 * kWgRows * kWgWidth + kWgStages * kWgSlabFloats;
-  P->head_n[0] = (d.hidden[d.n_layers - 1] + 1) * d.head_w;
-  P->head_n[1] = d.hidden[d.n_layers - 1] + 1;
+  P->head_n[0] = (d.last + 1) * d.head_w;
+  P->head_n[1] = d.last + 1;
   P->head_w[0] = P->heads + kWgRows * (P->stride + A);
   P->head_w[1] = P->head_w[0] + P->head_n[0];
   P->smem = sizeof(float) * ((size_t)P->head_w[1] + P->head_n[1]);
@@ -530,17 +566,18 @@ __device__ __forceinline__ uint32_t wg_row_bytes(int shift, int w) { return (uin
 // kWgStages of both blocks of the cluster: one bulk copy a row, a lane a
 // row, this block's producer the rows of its rank's parity, each multicast
 // to both blocks; each block's full mbarrier expects the whole slab.
-// Called by the producer warp.
+// Called by the producer warp; q is its cursor over the layers (g only
+// grows from call to call).
 __device__ __forceinline__ void wg_issue_slab(const float* __restrict__ params, const WgPlan& P, int g, float* slabs,
-                                              uint64_t* full, uint32_t rank) {
+                                              uint64_t* full, uint32_t rank, int& q) {
   static_assert(kWgSlabK <= 32, "a slab's rows are one warp's copies");
   const int lane = threadIdx.x % 32, st = g % kWgStages;
-  int q = 0;
-  while (P.first_slab[q + 1] <= g) ++q;
-  const int k0 = (g - P.first_slab[q]) * kWgSlabK, w = P.out_w[q];
-  const long long e = P.woff[q] + (long long)(k0 + lane) * w;  // this lane's row
+  while (P.tab[q].end_slab <= g) ++q;
+  const WgLayer L = P.tab[q];
+  const int k0 = (g - L.first_slab) * kWgSlabK, w = L.out_w;
+  const long long e = L.woff + (long long)(k0 + lane) * w;  // this lane's row
   const int shift = (int)(e & 3);
-  const uint32_t bytes = lane < P.in_w[q] - k0 && lane < kWgSlabK ? wg_row_bytes(shift, w) : 0u;
+  const uint32_t bytes = lane < L.in_w - k0 && lane < kWgSlabK ? wg_row_bytes(shift, w) : 0u;
   const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
   if (lane == 0) {
     rl8::async_proxy_fence();
@@ -603,7 +640,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kWgThreads, 1)
   __shared__ uint64_t full[kWgStages], empty[kWgStages];
   const int r0 = blockIdx.x * kWgRows;
   const int nr = min(kWgRows, B - r0);
-  const int n_slabs = P.first_slab[P.n_q];
+  const int n_slabs = P.n_slabs;
   const uint32_t rank = rl8::cluster_rank();
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -616,9 +653,10 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kWgThreads, 1)
   if (threadIdx.x >= kWgConsumers) {
     // The producer warp: slab g once every consumer warp of both blocks has
     // released the slab before it in its stage.
+    int q = 0;
     for (int g = 0; g < n_slabs; ++g) {
       if (g >= kWgStages) rl8::mbar_wait(&empty[g % kWgStages], (g / kWgStages - 1) & 1);
-      wg_issue_slab(params, P, g, slabs, full, rank);
+      wg_issue_slab(params, P, g, slabs, full, rank, q);
     }
   } else {
     const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -634,7 +672,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kWgThreads, 1)
     int g = 0;
     for (int c = 0; c < 2; ++c) {
       for (int l = 0; l < d.n_layers; ++l) {
-        const int q = c * d.n_layers + l, in = P.in_w[q], w = P.out_w[q];
+        const WgLayer L = P.tab[c * d.n_layers + l];
+        const int in = L.in_w, w = L.out_w;
         const int first = g;
         // The layer's biases of this thread's features, loaded while the
         // products run.
@@ -644,12 +683,12 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kWgThreads, 1)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int f = 128 * wg + 64 * mt + 16 * warp + g8 + 8 * half;
-            bias[mt][half] = f < w ? __ldg(params + P.woff[q] + (size_t)in * w + f) : 0.0f;
+            bias[mt][half] = f < w ? __ldg(params + L.woff + (size_t)in * w + f) : 0.0f;
           }
-        for (; g < P.first_slab[q + 1]; ++g) {
+        for (; g < L.end_slab; ++g) {
           const int st = g % kWgStages;
-          const int k0 = (g - P.first_slab[q]) * kWgSlabK;
-          const long long base = P.woff[q] + (long long)k0 * w;
+          const int k0 = (g - L.first_slab) * kWgSlabK;
+          const long long base = L.woff + (long long)k0 * w;
           const float* slab = slabs + st * kWgSlabFloats;
           rl8::mbar_wait(&full[st], (g / kWgStages) & 1);
 #pragma unroll
@@ -783,24 +822,22 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kWgThreads, 1)
   rl8::cluster_sync();  // the other block's last arrivals on this block's mbarriers have landed
 }
 
-// The dims of a launch, or false if the kernels do not take them.
+// The dims of a launch, or false if the kernels do not take them (any
+// number of layers).
 bool make_dims(int B, int d_in, int n_layers, const int* hidden, int act, int n_heads, int head_w,
                ActDims* d) {
-  if (B <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || head_w <= 0 ||
-      (act != 0 && act != 1)) {
-    return false;
-  }
+  if (B <= 0 || d_in <= 0 || n_layers < 1 || head_w <= 0 || (act != 0 && act != 1)) return false;
   d->d_in = d_in;
   d->n_layers = n_layers;
   d->act = act;
   d->n_heads = n_heads;
   d->head_w = head_w;
   d->max_hidden = 0;
-  for (int l = 0; l < kMaxLayers; ++l) {
-    d->hidden[l] = l < n_layers ? hidden[l] : 0;
-    if (l < n_layers && d->hidden[l] <= 0) return false;
-    if (d->hidden[l] > d->max_hidden) d->max_hidden = d->hidden[l];
+  for (int l = 0; l < n_layers; ++l) {
+    if (hidden[l] <= 0) return false;
+    if (hidden[l] > d->max_hidden) d->max_hidden = hidden[l];
   }
+  d->last = hidden[n_layers - 1];
   return true;
 }
 
@@ -816,26 +853,37 @@ constexpr int kHeadRows = 8;
 // else fwd_product's layout); head j of chain c at hoff[c][j]; the
 // activations of layer l of chain c at act + ((l % 2) * 2 + c) * B ld; the
 // heads' rows and the epilogue's scratch of every kHeadRows rows at heads.
+// The plan lives on the host (a launch a layer); the heads kernel gets only
+// the heads' offsets.
+struct HeadOffsets {
+  long long hoff[2][2];
+};
+
 struct StagedPlan {
   bool categorical;  // the discrete kind (one policy head): its layers in 3xTF32 wgmma
   int n_q, ld;       // ld: an activation row's stride, the widest layer
-  int in_w[kMaxQ], out_w[kMaxQ];
-  long long woff[kMaxQ], copy[kMaxQ], hoff[2][2];
+  std::vector<int> in_w, out_w;
+  std::vector<long long> woff, copy;
+  HeadOffsets heads_at;
   long long act, heads, floats;
 };
 
 // The continuous kinds' layers stay f32 (fwd_product): their squashed
 // log-probs are sensitive near +-1.
-StagedPlan staged_plan(const ActDims& d, int extra, int B) {
+StagedPlan staged_plan(const ActDims& d, const int* hidden, int extra, int B) {
   StagedPlan P;
   P.categorical = d.n_heads == 1;
   P.n_q = 2 * d.n_layers;
   P.ld = d.max_hidden;
+  P.in_w.resize(P.n_q);
+  P.out_w.resize(P.n_q);
+  P.woff.resize(P.n_q);
+  P.copy.resize(P.n_q);
   long long off = 0, copies = 0;
   for (int c = 0; c < 2; ++c) {
     int in = d.d_in;
     for (int l = 0; l < d.n_layers; ++l) {
-      const int q = c * d.n_layers + l, w = d.hidden[l];
+      const int q = c * d.n_layers + l, w = hidden[l];
       P.in_w[q] = in;
       P.out_w[q] = w;
       P.woff[q] = off;
@@ -846,7 +894,7 @@ StagedPlan staged_plan(const ActDims& d, int extra, int B) {
     }
     const int n_heads = c == 0 ? d.n_heads : 1, n_out = c == 0 ? d.head_w : 1;
     for (int j = 0; j < n_heads; ++j) {
-      P.hoff[c][j] = off;
+      P.heads_at.hoff[c][j] = off;
       off += (long long)in * n_out + n_out;
     }
   }
@@ -915,7 +963,7 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1) act_layer_kernel(LayerArgs
 // act_layer_kernel with its products in 3xTF32 wgmma (the discrete kind):
 // blockIdx.x is a tile of 128 columns (tc_product), the big halves of the
 // copies at a.w, the small ones bwd_copy_floats further; each output's sum
-// in 64-deep chunks, then the bias and the activation.
+// in 32-deep chunks, then the bias and the activation.
 __global__ void __launch_bounds__(rl8::kStThreads, 1) act_layer_tc_kernel(LayerArgs a, int B, int act) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
@@ -954,7 +1002,7 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1) act_layer_tc_kernel(LayerA
 template <bool CATEGORICAL>
 __global__ void __launch_bounds__(rl8::kStThreads)
     act_heads_kernel(const float* __restrict__ top0, const float* __restrict__ top1, long long ld, int in_w,
-                     const float* __restrict__ params, StagedPlan P, float* __restrict__ rows,
+                     const float* __restrict__ params, HeadOffsets P, float* __restrict__ rows,
                      void* __restrict__ actions, float* __restrict__ logp, float* __restrict__ values, int B,
                      ActDims d, int arg, uint32_t seed, uint32_t offset, int deterministic) {
   const int A = CATEGORICAL ? d.head_w / arg : d.head_w, stride = head_stride(d);
@@ -985,10 +1033,10 @@ __global__ void __launch_bounds__(rl8::kStThreads)
 // (staged_plan's floats; `extra` floats of epilogue scratch a row: A, or
 // 2A for the continuous kinds; `arg` is n_cat, or squashed).
 int launch_staged(const float* obs, const float* params, void* actions, float* logp, float* values,
-                  float* scratch, int B, const ActDims& d, int extra, int arg, uint32_t seed, uint32_t offset,
-                  int deterministic, cudaStream_t s) {
+                  float* scratch, int B, const ActDims& d, const int* hidden, int extra, int arg, uint32_t seed,
+                  uint32_t offset, int deterministic, cudaStream_t s) {
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const StagedPlan P = staged_plan(d, extra, B);
+  const StagedPlan P = staged_plan(d, hidden, extra, B);
   for (int q = 0; q < P.n_q; ++q) {
     const float* w = params + P.woff[q];
     float* dst = scratch + P.copy[q];
@@ -1022,8 +1070,8 @@ int launch_staged(const float* obs, const float* params, void* actions, float* l
     }
     a.ld_in = l == 0 ? d.d_in : P.ld;
     a.ld_out = P.ld;
-    a.in_w = l == 0 ? d.d_in : d.hidden[l - 1];
-    a.out_w = d.hidden[l];
+    a.in_w = l == 0 ? d.d_in : hidden[l - 1];
+    a.out_w = hidden[l];
     const int cols = P.categorical ? rl8::kStPass : rl8::kStFwdPass;  // columns a block
     const dim3 grid((a.out_w + cols - 1) / cols, rl8::st_row_grid(B), 2);
     if (P.categorical) {
@@ -1036,24 +1084,30 @@ int launch_staged(const float* obs, const float* params, void* actions, float* l
   const int L = d.n_layers - 1;
   const auto heads = P.categorical ? act_heads_kernel<true> : act_heads_kernel<false>;
   heads<<<(B + kHeadRows - 1) / kHeadRows, rl8::kStThreads, 0, s>>>(
-      buffer(L, 0), buffer(L, 1), P.ld, d.hidden[L], params, P, scratch + P.heads, actions, logp, values, B, d, arg,
+      buffer(L, 0), buffer(L, 1), P.ld, hidden[L], params, P.heads_at, scratch + P.heads, actions, logp, values, B, d, arg,
       seed, offset, deterministic);
   return (int)cudaGetLastError();
 }
 
-// Floats of scratch that a launch of B rows needs: 0 where the launch
-// takes the wgmma or the tiled route (for the discrete kind, `aligned`:
-// whether its parameters are 16-byte aligned), else the staged route's.
-long long scratch_floats(const ActDims& d, int extra, int A, bool aligned, int B) {
+// Floats of scratch that a launch of B rows needs: the wgmma or the tiled
+// route's table (for the discrete kind, `aligned`: whether its parameters
+// are 16-byte aligned, which the wgmma route needs), else the staged
+// route's copies, activations and heads.
+long long scratch_floats(const ActDims& d, const int* hidden, int extra, int A, bool aligned, int B) {
   WgPlan W;
   TilePlan P;
-  if ((d.n_heads == 1 && aligned && make_wgmma_plan(d, A, &W)) || make_plan(d, &P)) return 0;
-  return staged_plan(d, extra, B).floats;
+  std::vector<WgLayer> wt;
+  std::vector<TileLayer> tt;
+  if (d.n_heads == 1 && aligned && make_wgmma_plan(d, hidden, A, &W, &wt)) {
+    return rl8::table_floats<WgLayer>((long long)wt.size());
+  }
+  if (make_plan(d, hidden, &P, &tt)) return rl8::table_floats<TileLayer>((long long)tt.size());
+  return staged_plan(d, hidden, extra, B).floats;
 }
 
 }  // namespace
 
-// scratch: rl8_act_scratch floats (null where that is 0).
+// scratch: rl8_act_scratch floats.
 extern "C" int rl8_discrete_act(const float* obs, const float* params, int* actions, float* logp,
                                 float* values, float* scratch, int B, int d_in, int n_layers, const int* hidden,
                                 int n_logits, int n_cat, int act, unsigned int seed,
@@ -1061,14 +1115,18 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
                                 void* stream) {
   ActDims d;
   if (n_cat <= 0 || n_logits % n_cat != 0 ||
-      !make_dims(B, d_in, n_layers, hidden, act, 1, n_logits, &d)) {
+      !make_dims(B, d_in, n_layers, hidden, act, 1, n_logits, &d) || scratch == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
   const int A = n_logits / n_cat;
   WgPlan W;
-  if ((reinterpret_cast<uintptr_t>(params) & 15) == 0 && make_wgmma_plan(d, A, &W)) {
+  std::vector<WgLayer> wt;
+  if ((reinterpret_cast<uintptr_t>(params) & 15) == 0 && make_wgmma_plan(d, hidden, A, &W, &wt)) {
+    if ((err = rl8::upload_table(wt, scratch, s)) != cudaSuccess) return (int)err;
+    W.tab = reinterpret_cast<const WgLayer*>(scratch);
     auto kernel = act == rl8::kRelu ? discrete_act_wgmma_kernel<rl8::kRelu> : discrete_act_wgmma_kernel<rl8::kTanh>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W.smem);
     if (err != cudaSuccess) return (int)err;
@@ -1076,7 +1134,7 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
     if (err != cudaSuccess) return (int)err;
     // An even grid: blocks run in clusters of two (a last block past B
     // only streams its half of the weights).
-    kernel<<<(B + 2 * kWgRows - 1) / (2 * kWgRows) * 2, kWgThreads, W.smem, (cudaStream_t)stream>>>(
+    kernel<<<(B + 2 * kWgRows - 1) / (2 * kWgRows) * 2, kWgThreads, W.smem, s>>>(
         obs, params, actions, logp, values, B, d, W, n_cat, seed, offset, deterministic);
     return (int)cudaGetLastError();
   }
@@ -1084,22 +1142,26 @@ extern "C" int rl8_discrete_act(const float* obs, const float* params, int* acti
   // alignment (its bulk copies start at 16-byte boundaries): the tiled f32
   // route, where every layer is at most 256 wide.
   TilePlan P;
-  if (make_plan(d, &P)) {
+  std::vector<TileLayer> tt;
+  if (make_plan(d, hidden, &P, &tt)) {
     if ((reinterpret_cast<uintptr_t>(params) & 15) != 0) {
-      for (int q = 0; q < P.n_q; ++q) P.bulk[q] = 0;
+      for (TileLayer& e : tt) e.bulk = 0;
     }
+    if ((err = rl8::upload_table(tt, scratch, s)) != cudaSuccess) return (int)err;
+    P.tab = reinterpret_cast<const TileLayer*>(scratch);
     auto kernel = act == rl8::kRelu ? discrete_act_tiles_kernel<rl8::kRelu> : discrete_act_tiles_kernel<rl8::kTanh>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<(B + kTileRows - 1) / kTileRows, kTileThreads, P.smem, (cudaStream_t)stream>>>(
+    kernel<<<(B + kTileRows - 1) / kTileRows, kTileThreads, P.smem, s>>>(
         obs, params, actions, logp, values, B, d, P, n_cat, seed, offset, deterministic);
     return (int)cudaGetLastError();
   }
-  // Layers wider than 256, and heads or inputs too wide for the tiled route.
-  return launch_staged(obs, params, actions, logp, values, scratch, B, d, A, n_cat, seed, offset, deterministic,
-                       (cudaStream_t)stream);
+  // Layers wider than 256, and heads or inputs too wide for the tiled route
+  // (or, at depth, biases too many for its shared memory).
+  return launch_staged(obs, params, actions, logp, values, scratch, B, d, hidden, A, n_cat, seed, offset,
+                       deterministic, s);
 }
 
 extern "C" int rl8_continuous_act(const float* obs, const float* params, float* actions,
@@ -1108,16 +1170,20 @@ extern "C" int rl8_continuous_act(const float* obs, const float* params, float* 
                                   unsigned int seed, unsigned int offset, int deterministic,
                                   int device, void* stream) {
   ActDims d;
-  if (!make_dims(B, d_in, n_layers, hidden, act, 2, action_dim, &d)) {
+  if (!make_dims(B, d_in, n_layers, hidden, act, 2, action_dim, &d) || scratch == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
   TilePlan P;
-  if (make_plan(d, &P)) {
+  std::vector<TileLayer> tt;
+  if (make_plan(d, hidden, &P, &tt)) {
     if ((reinterpret_cast<uintptr_t>(params) & 15) != 0) {
-      for (int q = 0; q < P.n_q; ++q) P.bulk[q] = 0;
+      for (TileLayer& e : tt) e.bulk = 0;
     }
+    if ((err = rl8::upload_table(tt, scratch, s)) != cudaSuccess) return (int)err;
+    P.tab = reinterpret_cast<const TileLayer*>(scratch);
     // The activation is a template argument: chosen at run time, every
     // activation also paid for tanhf's instructions.
     auto kernel = act == rl8::kRelu ? continuous_act_tiles_kernel<rl8::kRelu> : continuous_act_tiles_kernel<rl8::kTanh>;
@@ -1125,25 +1191,26 @@ extern "C" int rl8_continuous_act(const float* obs, const float* params, float* 
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<(B + kTileRows - 1) / kTileRows, kTileThreads, P.smem, (cudaStream_t)stream>>>(
+    kernel<<<(B + kTileRows - 1) / kTileRows, kTileThreads, P.smem, s>>>(
         obs, params, actions, logp, values, B, d, P, squashed, seed, offset, deterministic);
     return (int)cudaGetLastError();
   }
   // Layers wider than one pass of the tiled route, and heads or inputs too
-  // wide for it.
-  return launch_staged(obs, params, actions, logp, values, scratch, B, d, 2 * action_dim, squashed, seed, offset,
-                       deterministic, (cudaStream_t)stream);
+  // wide for it (or, at depth, biases too many for its shared memory).
+  return launch_staged(obs, params, actions, logp, values, scratch, B, d, hidden, 2 * action_dim, squashed, seed,
+                       offset, deterministic, s);
 }
 
 // Floats of scratch that rl8_discrete_act (continuous = 0; aligned: its
 // parameters are 16-byte aligned) or rl8_continuous_act needs for a launch
-// of B rows of these shapes: 0 for none, -1 where no route takes them
-// (dims out of range).
+// of B rows of these shapes (always some: the wgmma and the tiled routes'
+// table of layers, or the staged route's scratch), or -1 where no route
+// takes them (dims out of range).
 extern "C" long long rl8_act_scratch(int B, int d_in, int n_layers, const int* hidden, int continuous,
                                      int action_dim, int n_cat, int aligned) {
   ActDims d;
   if (action_dim <= 0 || (!continuous && n_cat <= 0)) return -1;
   const int head_w = continuous ? action_dim : action_dim * n_cat;
   if (!make_dims(B, d_in, n_layers, hidden, 0, continuous ? 2 : 1, head_w, &d)) return -1;
-  return scratch_floats(d, continuous ? 2 * action_dim : action_dim, action_dim, aligned != 0, B);
+  return scratch_floats(d, hidden, continuous ? 2 * action_dim : action_dim, action_dim, aligned != 0, B);
 }

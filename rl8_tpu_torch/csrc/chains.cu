@@ -102,7 +102,7 @@
 //     LayerNorm's xhat and s) in the scratch; then, from the top, one launch
 //     per step down the chains, chains_dh_kernel: dh = cot W^T by stage.cuh's
 //     bwd_product (3xTF32 wgmma from big and small TF32 copies that
-//     tile_bwd_kernel lays out per stage, a fresh accumulator every 64 k;
+//     tile_bwd_kernel lays out per stage, a fresh accumulator every 32 k;
 //     the heads' weights stacked side by side, their cotangents copied into
 //     one slab per chain), stored as da = dh act'(h_l); through a LayerNorm,
 //     chains_ln_bwd_kernel turns da into dpre = s (dxhat - mean(dxhat) -
@@ -120,6 +120,22 @@
 //   Then sum_partials_kernel adds the partials, and sum_chain_dx_kernel the
 //   chains' dx, in a fixed order. No float atomics: two launches give the
 //   same bits.
+// - Counts. Any number of chains, layers and heads. The tiled routes pass
+//   their chains' layouts in the kernels' parameters: a launch holds up to
+//   kTileChains chains (more chains take more launches, each block row of
+//   the partials holding every chain's columns), each of up to kTileDepth
+//   layers and kTileHeads heads; deeper chains, or chains with more heads,
+//   take the staged routes. Those launch a layer depth (or a step down the
+//   chains) at a time, with tables of kStJobs products or rows a launch
+//   (more take more launches), and the weight products go to wgrad.cuh's
+//   launch_jobs in lists. The staged backward's row scratch holds every
+//   h_l, dpre_l and LayerNorm xhat_l, da_l and s_l of every chain, which
+//   grows with depth times rows (MischievousMule's deepest admitted layout,
+//   324 layers of 128, would take ~22 GB at 32,768 rows), so it runs over
+//   chunks of whole 128-row blocks that fit kWorkspaceFloats (4 GiB) beside
+//   the weight copies and the partials: per chunk the recompute, the dh
+//   products, dx and the weight products, whose partials are added into
+//   the gradient in chunk order.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -127,6 +143,8 @@
 #include "stage.cuh"
 #include "tile.cuh"
 #include "wgrad.cuh"
+
+#include <vector>
 
 namespace {
 
@@ -139,13 +157,16 @@ using rl8::kIdentity;
 using rl8::kRelu;
 using rl8::kTanh;
 
-constexpr int kMaxChains = 4;
-constexpr int kMaxLayers = 8;
-constexpr int kMaxHeads = 4;
+// The tiled routes' tables, passed in the kernels' parameters: a launch
+// holds up to kTileChains chains (more chains take more launches), each of
+// up to kTileDepth layers and kTileHeads heads. Deeper chains, or chains
+// with more heads, take the staged routes, which take any count.
+constexpr int kTileChains = 4;
+constexpr int kTileDepth = 8;
+constexpr int kTileHeads = 4;
 constexpr int kNarrow = 8;  // products with fewer outputs than this are warp dot products
 constexpr float kLnEps = 1e-6f;
 constexpr int kMaxSmem = 232448;  // shared memory a block may use on an H100
-constexpr int kMaxJobs = kMaxChains * (3 * kMaxLayers + kMaxHeads);
 // Rows per group of the staged backward's weight products, and the most
 // groups: a minibatch of 32,768 rows makes wgrad.cuh's 4,096-row groups
 // only 8, too few blocks for the card at narrow widths, and its blocks walk
@@ -154,30 +175,36 @@ constexpr int kMaxJobs = kMaxChains * (3 * kMaxLayers + kMaxHeads);
 constexpr int kGroupRows = 128;
 constexpr int kMaxChainGroups = 256;
 constexpr long long kPartialFloats = 64LL << 20;  // 256 MiB of partials at most
+// The staged backward's workspace budget: 4 GiB, the weight copies, the
+// partials and the row scratch of a chunk of rows together. Its row scratch
+// keeps every h_l (and a LayerNorm's xhat, da and s) of every chain for its
+// rows, which grows with depth times rows, so it runs over chunks of whole
+// 128-row blocks that fit the budget, as few as fit and of equal rows.
+constexpr long long kWorkspaceFloats = 1LL << 30;
 // The tiled backward: threads and rows per block, the parameter blocks a
-// chain's layout copies, and the most blocks over all chains.
+// chain's layout copies, and the most blocks over a launch's chains.
 constexpr int kTileThreads = 512;
 constexpr int kTileRows = 32;
-constexpr int kMaxTileSegs = 2 * kMaxLayers + 2 * kMaxHeads;
+constexpr int kMaxTileSegs = 2 * kTileDepth + 2 * kTileHeads;
 constexpr int kMaxTileBlocks = 264;
 
-// The chains' structure and the parameter offsets.
+// The chains' structure and the parameter offsets (host only; any number
+// of chains, layers and heads): chain c's layer l is width[c][l] wide
+// (ln[c][l]: with a LayerNorm), its head j head_w[c][j] wide, at column
+// head_col[c][j] among all heads' outputs (a chain's heads are adjacent,
+// chain_out[c] columns).
 struct Chains {
   long long N;
   int d_in, act, n_chains, n_out;
-  int n_layers[kMaxChains];
-  int width[kMaxChains][kMaxLayers];
-  int ln[kMaxChains][kMaxLayers];
-  int n_heads[kMaxChains];
-  int head_w[kMaxChains][kMaxHeads];
-  int head_col[kMaxChains][kMaxHeads];  // each head's first column among all heads' outputs
-  int chain_out[kMaxChains];            // a chain's heads' columns, which are adjacent
-  float* out[kMaxChains][kMaxHeads];        // forward: each head's output [N, hw]
-  const float* dout[kMaxChains][kMaxHeads];  // backward: each head's cotangent [N, hw]
-  int max_w;                            // widest layer, or d_in if wider
+  int max_w;  // widest layer, or d_in if wider
+  int depth;  // the most layers of a chain
+  std::vector<int> n_layers, n_heads, chain_out;
+  std::vector<std::vector<int>> width, ln, head_w, head_col;
+  std::vector<std::vector<float*>> out;         // forward: each head's output [N, hw]
+  std::vector<std::vector<const float*>> dout;  // backward: each head's cotangent [N, hw]
   // Offset of each layer's W in the flat parameters (b, then a LayerNorm's
   // scale and bias follow it); index n_layers + j: head j's W.
-  long long woff[kMaxChains][kMaxLayers + kMaxHeads];
+  std::vector<std::vector<long long>> woff;
 };
 
 struct Layout {
@@ -187,8 +214,8 @@ struct Layout {
 
 // Parses spec = [n_chains, then per chain: n_layers, (width, ln) per layer,
 // n_heads, width per head] and lays the parameters out; false where the
-// kernels do not take the chains (their counts: at most kMaxChains chains
-// of 1 to kMaxLayers layers and 1 to kMaxHeads heads).
+// spec is malformed (no chain, a chain of no layer or no head, a width
+// below 1). Any count is taken.
 bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, Layout* L) {
   if (N <= 0 || d_in <= 0 || (act != kRelu && act != kTanh) || spec_len < 1) return false;
   Chains& d = L->d;
@@ -201,38 +228,63 @@ bool make_layout(long long N, int d_in, int act, const int* spec, int spec_len, 
     *v = spec[i++];
     return true;
   };
-  if (!next(&d.n_chains) || d.n_chains < 1 || d.n_chains > kMaxChains) return false;
+  if (!next(&d.n_chains) || d.n_chains < 1 || d.n_chains > spec_len) return false;
+  const int C = d.n_chains;
+  d.n_layers.assign(C, 0);
+  d.n_heads.assign(C, 0);
+  d.chain_out.assign(C, 0);
+  d.width.assign(C, {});
+  d.ln.assign(C, {});
+  d.head_w.assign(C, {});
+  d.head_col.assign(C, {});
+  d.out.assign(C, {});
+  d.dout.assign(C, {});
+  d.woff.assign(C, {});
   long long off = 0;
   d.n_out = 0;
   d.max_w = d_in;
-  for (int c = 0; c < d.n_chains; ++c) {
-    if (!next(&d.n_layers[c]) || d.n_layers[c] < 1 || d.n_layers[c] > kMaxLayers) return false;
+  d.depth = 0;
+  for (int c = 0; c < C; ++c) {
+    if (!next(&d.n_layers[c]) || d.n_layers[c] < 1 || d.n_layers[c] > spec_len) return false;
+    const int nl = d.n_layers[c];
+    d.depth = nl > d.depth ? nl : d.depth;
+    d.width[c].resize(nl);
+    d.ln[c].resize(nl);
     int in = d_in;
-    for (int l = 0; l < d.n_layers[c]; ++l) {
+    for (int l = 0; l < nl; ++l) {
       int w, ln;
       if (!next(&w) || !next(&ln) || w < 1 || (ln != 0 && ln != 1)) return false;
       d.width[c][l] = w;
       d.ln[c][l] = ln;
       d.max_w = w > d.max_w ? w : d.max_w;
-      d.woff[c][l] = off;
+      d.woff[c].push_back(off);
       off += (long long)in * w + w + (ln ? 2LL * w : 0);
       in = w;
     }
-    if (!next(&d.n_heads[c]) || d.n_heads[c] < 1 || d.n_heads[c] > kMaxHeads) return false;
-    d.chain_out[c] = 0;
+    if (!next(&d.n_heads[c]) || d.n_heads[c] < 1 || d.n_heads[c] > spec_len) return false;
     for (int j = 0; j < d.n_heads[c]; ++j) {
       int hw;
       if (!next(&hw) || hw < 1) return false;
-      d.head_w[c][j] = hw;
-      d.head_col[c][j] = d.n_out;
+      d.head_w[c].push_back(hw);
+      d.head_col[c].push_back(d.n_out);
       d.n_out += hw;
       d.chain_out[c] += hw;
-      d.woff[c][d.n_layers[c] + j] = off;
+      d.woff[c].push_back(off);
       off += (long long)in * hw + hw;
     }
+    d.out[c].assign(d.n_heads[c], nullptr);
+    d.dout[c].assign(d.n_heads[c], nullptr);
   }
   if (i != spec_len) return false;
   L->P = off;
+  return true;
+}
+
+// Whether every chain fits the tiled routes' tables.
+bool tile_tables_fit(const Chains& d) {
+  for (int c = 0; c < d.n_chains; ++c) {
+    if (d.n_layers[c] > kTileDepth || d.n_heads[c] > kTileHeads) return false;
+  }
   return true;
 }
 
@@ -253,23 +305,27 @@ struct Seg {
 // biases. The row tile's activations follow.
 struct TileChain {
   int L, n_out, n_heads;
-  int in[kMaxLayers], w[kMaxLayers], ln[kMaxLayers];
-  int sw[kMaxLayers], ldw[kMaxLayers], sv[kMaxLayers];
+  int in[kTileDepth], w[kTileDepth], ln[kTileDepth];
+  int sw[kTileDepth], ldw[kTileDepth], sv[kTileDepth];
   int sh, ldh, shb, S;
-  int sa[kMaxLayers], lda[kMaxLayers];  // h_l (then da_l, then dpre_l) [R, w_l]
-  int sxh[kMaxLayers];                  // LayerNorm xhat_l [R, w_l], rows lda[l] apart
+  int sa[kTileDepth], lda[kTileDepth];  // h_l (then da_l, then dpre_l) [R, w_l]
+  int sxh[kTileDepth];                  // LayerNorm xhat_l [R, w_l], rows lda[l] apart
   int sx, ldx, sd, ldd, ss;             // x [R, d_in], head cotangents [R, n_out], LayerNorm s [L, R]
   int n_seg;
   Seg seg[kMaxTileSegs];
-  const float* dout[kMaxHeads];
-  int head_w[kMaxHeads], head_col[kMaxHeads];  // columns among the chain's heads
+  const float* dout[kTileHeads];
+  int head_w[kTileHeads], head_col[kTileHeads];  // columns among the chain's heads
 };
 
+// A tiled backward launch: n_chains chains of the structure's (at most
+// kTileChains), from chain `base` on; groups blocks a chain. Every launch of
+// a structure has the same groups, so that each block row of the partials
+// holds every parameter.
 struct Tiled {
   long long N, P;
-  int d_in, act, n_chains, groups;
+  int d_in, act, n_chains, base, groups;
   size_t smem;
-  TileChain c[kMaxChains];
+  TileChain c[kTileChains];
 };
 
 // Row strides: activations 4 past a multiple of 32 (the A fragments' loads
@@ -281,19 +337,23 @@ int weight_ld(int w) {
   return ld % 16 == 0 ? ld + 8 : ld;
 }
 
-// Lays out the tiled backward of Lo's chains; false where a chain's
-// parameters, gradients and row tile do not fit a block's shared memory
-// (those chains take the staged route).
-bool make_tiled(const Layout& Lo, Tiled* T) {
+// Lays out the tiled backward of Lo's chains (every chain's in *chains; T
+// the launches' shared fields); false where a chain's parameters, gradients
+// and row tile do not fit a block's shared memory, or the chain does not
+// fit the tables (those chains take the staged route).
+bool make_tiled(const Layout& Lo, Tiled* T, std::vector<TileChain>* chains) {
   const Chains& d = Lo.d;
+  if (!tile_tables_fit(d)) return false;
   T->N = d.N;
   T->P = Lo.P;
   T->d_in = d.d_in;
   T->act = d.act;
-  T->n_chains = d.n_chains;
+  T->n_chains = d.n_chains < kTileChains ? d.n_chains : kTileChains;
+  T->base = 0;
+  chains->assign(d.n_chains, TileChain{});
   long long most = 0;
   for (int c = 0; c < d.n_chains; ++c) {
-    TileChain& t = T->c[c];
+    TileChain& t = (*chains)[c];
     t.L = d.n_layers[c];
     t.n_out = d.chain_out[c];
     t.n_heads = d.n_heads[c];
@@ -355,7 +415,7 @@ bool make_tiled(const Layout& Lo, Tiled* T) {
   }
   T->smem = sizeof(float) * (size_t)most;
   const long long tiles = (d.N + kTileRows - 1) / kTileRows;
-  const long long cap = kMaxTileBlocks / d.n_chains;
+  const long long cap = kMaxTileBlocks / T->n_chains;
   T->groups = (int)(tiles < cap ? tiles : cap);
   return true;
 }
@@ -380,37 +440,42 @@ constexpr int kFwdPass = 8 * kFwdCG;
 // and a tile's activations for every layer, which the forward does not keep.
 struct FwdChain {
   int L, n_heads;
-  int in[kMaxLayers], w[kMaxLayers], ln[kMaxLayers];
-  int sw[kMaxLayers], ldw[kMaxLayers], sv[kMaxLayers];
-  int sh[kMaxHeads], ldh[kMaxHeads], shb[kMaxHeads], head_w[kMaxHeads];
+  int in[kTileDepth], w[kTileDepth], ln[kTileDepth];
+  int sw[kTileDepth], ldw[kTileDepth], sv[kTileDepth];
+  int sh[kTileHeads], ldh[kTileHeads], shb[kTileHeads], head_w[kTileHeads];
   int narrow_heads;  // every head narrower than kNarrow
   int n_seg;
   Seg seg[kMaxTileSegs];
-  float* out[kMaxHeads];
+  float* out[kTileHeads];
 };
 
 // The tiled forward: two buffers of x's tile [R, d_in] at 0 (rows ldx
 // apart; the next tile's lands while one is computed), then the activation
 // buffers [R, widest layer] (rows lda apart) at sa and sb (one buffer, sa ==
-// sb, where every layer is one pass), then the block's chain.
+// sb, where every layer is one pass), then the block's chain. A launch
+// holds n_chains chains (at most kTileChains).
 struct FwdTiled {
   long long N;
   int d_in, act, n_chains, groups;
   int ldx, lda, sa, sb;
   size_t smem;
-  FwdChain c[kMaxChains];
+  FwdChain c[kTileChains];
 };
 
-// Lays out the tiled forward of Lo's chains; false where a chain's
-// parameters and a row tile's two activation buffers do not fit a block's
-// shared memory (those chains take the staged route, chains_layer_kernel).
-bool make_fwd_tiled(const Layout& Lo, FwdTiled* F) {
+// Lays out the tiled forward of Lo's chains (every chain's in *chains; F
+// the launches' shared fields); false where a chain's parameters and a row
+// tile's two activation buffers do not fit a block's shared memory, or the
+// chain does not fit the tables (those chains take the staged route,
+// chains_layer_kernel).
+bool make_fwd_tiled(const Layout& Lo, FwdTiled* F, std::vector<FwdChain>* chains) {
   constexpr int R = kFwdTileRows;
   const Chains& d = Lo.d;
+  if (!tile_tables_fit(d)) return false;
   F->N = d.N;
   F->d_in = d.d_in;
   F->act = d.act;
-  F->n_chains = d.n_chains;
+  F->n_chains = d.n_chains < kTileChains ? d.n_chains : kTileChains;
+  chains->assign(d.n_chains, FwdChain{});
   F->ldx = rl8::tile_ld(d.d_in);
   F->lda = rl8::tile_ld(d.max_w);
   // Layers of one pass each (the thread's sums live in registers until the
@@ -425,7 +490,7 @@ bool make_fwd_tiled(const Layout& Lo, FwdTiled* F) {
   auto up4 = [](long long v) { return (v + 3) / 4 * 4; };
   long long most = 0;
   for (int c = 0; c < d.n_chains; ++c) {
-    FwdChain& t = F->c[c];
+    FwdChain& t = (*chains)[c];
     t.L = d.n_layers[c];
     t.n_heads = d.n_heads[c];
     long long off = sp;
@@ -954,7 +1019,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   float* xs = smem + t.sx;
   float* ds = smem + t.sd;
   float* svals = smem + t.ss;
-  float* dxo = dxc + (size_t)blockIdx.y * T.N * d_in;
+  float* dxo = dxc + (size_t)(T.base + blockIdx.y) * T.N * d_in;
 
   for (long long tile = blockIdx.x; tile * R < T.N; tile += gridDim.x) {
     const long long r0 = tile * R;
@@ -1088,23 +1153,23 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   }
 }
 
-// dx = sum over chains of dxc[c], in chain order.
-__global__ void sum_chain_dx_kernel(const float* __restrict__ dxc, int n_chains, long long n,
+// dx = sum over chains of dxc[c] (chain c's at c * stride), in chain order.
+__global__ void sum_chain_dx_kernel(const float* __restrict__ dxc, int n_chains, long long stride, long long n,
                                     float* __restrict__ dx) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     float s = dxc[i];
-    for (int c = 1; c < n_chains; ++c) s += dxc[(size_t)c * n + i];
+    for (int c = 1; c < n_chains; ++c) s += dxc[(size_t)c * stride + i];
     dx[i] = s;
   }
 }
 
 // ------------------------------------------------------------ staged route
 
-constexpr int kMaxStJobs = kMaxChains * kMaxHeads;  // products (or row jobs) a staged launch holds
-constexpr int kRowThreads = 256;                    // the row kernels: a warp per row
-constexpr int kRowRows = 32;                        // rows a block of chains_ln_kernel, chains_ln_bwd_kernel
-constexpr int kHeadRows = 8;                        // rows a block of chains_heads_kernel, chains_dx_kernel
+constexpr int kStJobs = 16;      // products (or row jobs) a staged launch's table holds; more take more launches
+constexpr int kRowThreads = 256;  // the row kernels: a warp per row
+constexpr int kRowRows = 32;      // rows a block of chains_ln_kernel, chains_ln_bwd_kernel
+constexpr int kHeadRows = 8;      // rows a block of chains_heads_kernel, chains_dx_kernel
 
 inline long long round4(long long v) { return (v + 3) / 4 * 4; }
 
@@ -1114,45 +1179,54 @@ inline long long round4(long long v) { return (v + 3) / 4 * 4; }
 // bwd_product's (big and small halves: W_l for dh_{l-1} where l >= 1, and
 // for dx at l = 0 where d_in >= kNarrow; at index L the heads' weights
 // stacked side by side, [w_last, chain_out], in `stack`); copies of the
-// heads at least kNarrow wide (forward); the activations h_l [N, ld_l]
+// heads at least kNarrow wide (forward); the activations h_l [rows, ld_l]
 // (forward: two buffers a chain, ld its widest layer, layer l in buffer l %
 // 2; backward: one a layer) and, backward, dpre_l, a LayerNorm layer's
-// xhat_l and da_l [N, ld_l] and s_l [N], and the heads' cotangents side by
-// side [N, ld_out]. Then, backward, each chain's dx [N, d_in] and the
-// weight products' partials [groups, P]; -1 where a slab is not used.
+// xhat_l and da_l [rows, ld_l] and s_l [rows], and the heads' cotangents
+// side by side [rows, ld_out]. Then, backward, each chain's dx [rows, d_in]
+// and the weight products' partials [groups, P]; -1 where a slab is not
+// used. The forward's rows are N; the backward's a chunk of `chunk` rows
+// (whole 128-row blocks, or N), which its passes walk in order.
 struct StagedChain {
-  long long fwd[kMaxLayers], big[kMaxLayers + 1], small[kMaxLayers + 1], head[kMaxHeads], stack;
-  long long h[kMaxLayers], dpre[kMaxLayers], xhat[kMaxLayers], da[kMaxLayers], s[kMaxLayers], dout;
-  int ld[kMaxLayers], ld_out;
+  std::vector<long long> fwd, big, small, head;  // big, small: L + 1 entries
+  long long stack, dout;
+  std::vector<long long> h, dpre, xhat, da, s;
+  std::vector<int> ld;
+  int ld_out;
 };
 
 struct Staged {
-  StagedChain c[kMaxChains];
-  long long dxc, partials, rows_per_group, floats;
-  int groups, depth;  // depth: the most layers of a chain
+  std::vector<StagedChain> c;
+  long long dxc, partials, chunk, floats;
+  int groups, depth;  // groups: the most groups of rows of a chunk's weight products; depth: the most layers of a chain
 };
 
-Staged make_staged(const Layout& Lo, bool backward) {
+// The staged route's layout; false (backward) where the weight copies and
+// the partials leave no room in kWorkspaceFloats for one 128-row block.
+bool make_staged(const Layout& Lo, bool backward, Staged* S) {
   const Chains& d = Lo.d;
   const long long N = d.N;
-  Staged S;
-  long long off = 0;
+  long long off = 0, slabs = 0;
   auto take = [&](long long floats) {
     const long long at = off;
     off += round4(floats);
     return at;
   };
-  S.depth = 0;
+  S->depth = d.depth;
+  S->c.assign(d.n_chains, StagedChain{});
+  long long per_row = backward ? (long long)d.n_chains * d.d_in : 0;
   for (int c = 0; c < d.n_chains; ++c) {
-    StagedChain& t = S.c[c];
+    StagedChain& t = S->c[c];
     const int L = d.n_layers[c];
-    S.depth = L > S.depth ? L : S.depth;
+    t.fwd.assign(L, -1);
+    t.big.assign(L + 1, -1);
+    t.small.assign(L + 1, -1);
+    t.head.assign(d.n_heads[c], -1);
     int in = d.d_in, widest = 0;
     for (int l = 0; l < L; ++l) {
       const int w = d.width[c][l];
       widest = w > widest ? w : widest;
       t.fwd[l] = take(rl8::fwd_copy_floats(in, w));
-      t.big[l] = t.small[l] = -1;
       if (backward && (l > 0 || in >= kNarrow)) {
         t.big[l] = take(rl8::bwd_copy_floats(w, in));
         t.small[l] = take(rl8::bwd_copy_floats(w, in));
@@ -1161,45 +1235,76 @@ Staged make_staged(const Layout& Lo, bool backward) {
     }
     for (int j = 0; j < d.n_heads[c]; ++j) {
       const int hw = d.head_w[c][j];
-      t.head[j] = !backward && hw >= kNarrow ? take(rl8::fwd_copy_floats(in, hw)) : -1;
+      if (!backward && hw >= kNarrow) t.head[j] = take(rl8::fwd_copy_floats(in, hw));
     }
-    t.stack = t.big[L] = t.small[L] = -1;
+    t.stack = -1;
     if (backward) {
       t.stack = take((long long)in * d.chain_out[c]);
       t.big[L] = take(rl8::bwd_copy_floats(d.chain_out[c], in));
       t.small[L] = take(rl8::bwd_copy_floats(d.chain_out[c], in));
     }
+    t.ld.resize(L);
     for (int l = 0; l < L; ++l) {
       t.ld[l] = (int)round4(backward ? d.width[c][l] : widest);
-      t.h[l] = backward || l < 2 ? take(N * t.ld[l]) : t.h[l - 2];
-      t.dpre[l] = t.xhat[l] = t.da[l] = t.s[l] = -1;
       if (backward) {
-        t.dpre[l] = take(N * t.ld[l]);
-        if (d.ln[c][l]) {
-          t.xhat[l] = take(N * t.ld[l]);
-          t.da[l] = take(N * t.ld[l]);
-          t.s[l] = take(N);
-        }
+        per_row += 2LL * t.ld[l] + (d.ln[c][l] ? 2LL * t.ld[l] + 1 : 0);
+        slabs += d.ln[c][l] ? 5 : 2;
       }
     }
     t.ld_out = (int)round4(d.chain_out[c]);
-    t.dout = backward ? take(N * t.ld_out) : -1;
+    if (backward) per_row += t.ld_out;
   }
-  S.dxc = S.partials = S.rows_per_group = -1;
-  S.groups = 0;
+  S->groups = 0;
+  S->chunk = N;
+  long long part = 0;
   if (backward) {
-    S.dxc = take((long long)d.n_chains * N * d.d_in);
     long long g = (N + kGroupRows - 1) / kGroupRows;
     const long long cap = kPartialFloats / Lo.P;
     g = g > kMaxChainGroups ? kMaxChainGroups : g;
     g = g > cap ? cap : g;
     g = g < 1 ? 1 : g;
-    S.groups = (int)g;
-    S.rows_per_group = (N + g - 1) / g;
-    S.partials = take(g * Lo.P);
+    S->groups = (int)g;
+    part = g * Lo.P;
+    // The copies, the partials and every slab's rounding to 16 bytes.
+    const long long fixed = off + part + 4 * (slabs + 2 * (long long)d.n_chains + 2);
+    if (fixed >= kWorkspaceFloats) return false;
+    const long long fit = (kWorkspaceFloats - fixed) / per_row / rl8::kStRows * rl8::kStRows;
+    if (fit < N) {
+      if (fit < rl8::kStRows) return false;
+      // As few chunks as fit, of equal rows (whole row blocks).
+      const long long chunks = (N + fit - 1) / fit;
+      S->chunk = ((N + chunks - 1) / chunks + rl8::kStRows - 1) / rl8::kStRows * rl8::kStRows;
+    }
   }
-  S.floats = off;
-  return S;
+  const long long R = S->chunk;
+  for (int c = 0; c < d.n_chains; ++c) {
+    StagedChain& t = S->c[c];
+    const int L = d.n_layers[c];
+    t.h.assign(L, -1);
+    t.dpre.assign(L, -1);
+    t.xhat.assign(L, -1);
+    t.da.assign(L, -1);
+    t.s.assign(L, -1);
+    for (int l = 0; l < L; ++l) {
+      t.h[l] = backward || l < 2 ? take(R * t.ld[l]) : t.h[l - 2];
+      if (backward) {
+        t.dpre[l] = take(R * t.ld[l]);
+        if (d.ln[c][l]) {
+          t.xhat[l] = take(R * t.ld[l]);
+          t.da[l] = take(R * t.ld[l]);
+          t.s[l] = take(R);
+        }
+      }
+    }
+    t.dout = backward ? take(R * t.ld_out) : -1;
+  }
+  S->dxc = S->partials = -1;
+  if (backward) {
+    S->dxc = take((long long)d.n_chains * R * d.d_in);
+    S->partials = take(part);
+  }
+  S->floats = off;
+  return true;
 }
 
 // The item of a launch's table at an index known only at run time,
@@ -1227,7 +1332,7 @@ struct StProduct {
 };
 
 struct StProducts {
-  StProduct p[kMaxStJobs];
+  StProduct p[kStJobs];
   long long rows;
 };
 
@@ -1282,7 +1387,7 @@ struct LnRows {
 };
 
 struct LnLaunch {
-  LnRows j[kMaxChains];
+  LnRows j[kStJobs];
   long long rows;
   int act;
 };
@@ -1331,7 +1436,7 @@ struct HeadRows {
 };
 
 struct HeadLaunch {
-  HeadRows j[kMaxStJobs];
+  HeadRows j[kStJobs];
   long long rows;
 };
 
@@ -1360,14 +1465,14 @@ struct DhProduct {
 };
 
 struct DhLaunch {
-  DhProduct j[kMaxChains];
+  DhProduct j[kStJobs];
   long long rows;
   int act;
 };
 
 // The staged backward's dh products: blockIdx.x the first 128-row block,
 // which steps by gridDim.x, blockIdx.y the product; stage.cuh's
-// bwd_product (3xTF32 wgmma, a fresh accumulator every 64 k), every unit of
+// bwd_product (3xTF32 wgmma, a fresh accumulator every 32 k), every unit of
 // the block's rows.
 __global__ void __launch_bounds__(rl8::kStThreads, 1) chains_dh_kernel(const __grid_constant__ DhLaunch ds) {
   constexpr int R = rl8::kStRows;
@@ -1400,7 +1505,7 @@ struct LnBwdRows {
 };
 
 struct LnBwdLaunch {
-  LnBwdRows j[kMaxChains];
+  LnBwdRows j[kStJobs];
   long long rows;
 };
 
@@ -1450,7 +1555,7 @@ struct DxRows {
 };
 
 struct DxLaunch {
-  DxRows j[kMaxChains];
+  DxRows j[kStJobs];
   long long rows;
   int d_in;
 };
@@ -1485,7 +1590,7 @@ struct Copy2d {
 };
 
 struct CopyLaunch {
-  Copy2d j[kMaxStJobs];
+  Copy2d j[kStJobs];
 };
 
 // The copies (blockIdx.y), a thread an element, grid-stride.
@@ -1498,11 +1603,50 @@ __global__ void __launch_bounds__(rl8::kWgThreads) chains_copy_kernel(const __gr
   }
 }
 
+// A launch's table filled item by item: whenever kStJobs items are in,
+// and at the end (flush), `fire(table, n)` launches them.
+template <class Table, class Item>
+struct Batch {
+  Table t;
+  int n = 0;
+  template <class Fire>
+  cudaError_t add(const Item& item, Fire fire) {
+    t.j[n++] = item;
+    return n == kStJobs ? flush(fire) : cudaSuccess;
+  }
+  template <class Fire>
+  cudaError_t flush(Fire fire) {
+    if (n == 0) return cudaSuccess;
+    const cudaError_t err = fire(t, n);
+    n = 0;
+    return err;
+  }
+};
+
 cudaError_t copy_2d(const CopyLaunch& cs, int n, long long most, cudaStream_t s) {
   if (n == 0) return cudaSuccess;
   chains_copy_kernel<<<dim3(rl8::grid_for(most), n), rl8::kWgThreads, 0, s>>>(cs);
   return cudaGetLastError();
 }
+
+// Copies items of Copy2d, kStJobs a launch.
+struct Copies {
+  Batch<CopyLaunch, Copy2d> b;
+  long long most = 0;
+  cudaStream_t s;
+  auto fire() {
+    return [this](const CopyLaunch& t, int n) {
+      const cudaError_t err = copy_2d(t, n, most, s);
+      most = 0;
+      return err;
+    };
+  }
+  cudaError_t add(const Copy2d& c) {
+    most = c.rows * c.cols > most ? c.rows * c.cols : most;
+    return b.add(c, fire());
+  }
+  cudaError_t flush() { return b.flush(fire()); }
+};
 
 // The staged kernels' shared memory (stage.cuh's rings).
 cudaError_t staged_attributes() {
@@ -1516,9 +1660,8 @@ cudaError_t staged_attributes() {
 // small; the heads' stack first).
 cudaError_t staged_copies(const float* params, float* ws, const Layout& Lo, const Staged& S, cudaStream_t s) {
   const Chains& d = Lo.d;
-  CopyLaunch stack;
-  int n_stack = 0;
-  long long most = 0;
+  Copies stack;
+  stack.s = s;
   cudaError_t err;
   for (int c = 0; c < d.n_chains; ++c) {
     const StagedChain& t = S.c[c];
@@ -1546,12 +1689,12 @@ cudaError_t staged_copies(const float* params, float* ws, const Layout& Lo, cons
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
       }
       if (t.stack >= 0) {
-        stack.j[n_stack++] = Copy2d{W, ws + t.stack + (d.head_col[c][j] - d.head_col[c][0]), in, d.chain_out[c], hw};
-        most = (long long)in * hw > most ? (long long)in * hw : most;
+        err = stack.add(Copy2d{W, ws + t.stack + (d.head_col[c][j] - d.head_col[c][0]), in, d.chain_out[c], hw});
+        if (err != cudaSuccess) return err;
       }
     }
   }
-  if ((err = copy_2d(stack, n_stack, most, s)) != cudaSuccess) return err;
+  if ((err = stack.flush()) != cudaSuccess) return err;
   for (int c = 0; c < d.n_chains; ++c) {
     const StagedChain& t = S.c[c];
     if (t.stack < 0) continue;
@@ -1563,46 +1706,68 @@ cudaError_t staged_copies(const float* params, float* ws, const Layout& Lo, cons
   return cudaSuccess;
 }
 
-cudaError_t launch_products(const StProducts& ps, int n, int widest, cudaStream_t s) {
-  if (n == 0) return cudaSuccess;
-  const dim3 grid((widest + rl8::kStFwdPass - 1) / rl8::kStFwdPass, rl8::st_row_grid(ps.rows), n);
-  chains_layer_kernel<<<grid, rl8::kStThreads, rl8::kStFwdSmem, s>>>(ps);
-  return cudaGetLastError();
-}
+// The products of a chains_layer_kernel launch, kStJobs a launch over
+// `rows` rows, each launch's grid over its widest product.
+struct Products {
+  StProducts t;
+  int n = 0, widest = 0;
+  cudaStream_t s;
+  cudaError_t flush() {
+    if (n == 0) return cudaSuccess;
+    const dim3 grid((widest + rl8::kStFwdPass - 1) / rl8::kStFwdPass, rl8::st_row_grid(t.rows), n);
+    chains_layer_kernel<<<grid, rl8::kStThreads, rl8::kStFwdSmem, s>>>(t);
+    n = widest = 0;
+    return cudaGetLastError();
+  }
+  cudaError_t add(const StProduct& p) {
+    t.p[n++] = p;
+    widest = p.N > widest ? p.N : widest;
+    return n == kStJobs ? flush() : cudaSuccess;
+  }
+};
 
-// The staged forward's layers, one depth at a time over the chains that
-// have that layer (keep: the backward's recompute, keeping each LayerNorm's
-// xhat and s).
-cudaError_t staged_layers(const float* x, const float* params, float* ws, const Layout& Lo, const Staged& S, bool keep,
-                          cudaStream_t s) {
+// The staged forward's layers on `rows` rows of x, one depth at a time over
+// the chains that have that layer (keep: the backward's recompute, keeping
+// each LayerNorm's xhat and s).
+cudaError_t staged_layers(const float* x, long long rows, const float* params, float* ws, const Layout& Lo,
+                          const Staged& S, bool keep, cudaStream_t s) {
   const Chains& d = Lo.d;
-  const long long N = d.N;
+  const unsigned ln_blocks = (unsigned)((rows + kRowRows - 1) / kRowRows);
+  auto fire_ln = [&](const LnLaunch& t, int n) {
+    chains_ln_kernel<<<dim3(ln_blocks, n), kRowThreads, 0, s>>>(t);
+    return cudaGetLastError();
+  };
   cudaError_t err;
   for (int l = 0; l < S.depth; ++l) {
-    StProducts ps;
-    ps.rows = N;
-    LnLaunch ls;
-    ls.rows = N;
-    ls.act = d.act;
-    int n = 0, n_ln = 0, widest = 0;
+    Products ps;
+    ps.t.rows = rows;
+    ps.s = s;
+    Batch<LnLaunch, LnRows> ls;
+    ls.t.rows = rows;
+    ls.t.act = d.act;
     for (int c = 0; c < d.n_chains; ++c) {
       if (l >= d.n_layers[c]) continue;
       const StagedChain& t = S.c[c];
       const int w = d.width[c][l], in_w = l == 0 ? d.d_in : d.width[c][l - 1];
       const float* b = params + d.woff[c][l] + (long long)in_w * w;
-      ps.p[n++] = StProduct{l == 0 ? x : ws + t.h[l - 1], ws + t.fwd[l], b, ws + t.h[l],
-                            l == 0 ? d.d_in : t.ld[l - 1], t.ld[l], in_w, w, d.ln[c][l] ? kIdentity : d.act};
-      widest = w > widest ? w : widest;
-      if (d.ln[c][l]) {
-        ls.j[n_ln++] = LnRows{ws + t.h[l], b + w, b + 2 * w, keep ? ws + t.xhat[l] : nullptr,
-                              keep ? ws + t.s[l] : nullptr, t.ld[l], w};
-      }
+      err = ps.add(StProduct{l == 0 ? x : ws + t.h[l - 1], ws + t.fwd[l], b, ws + t.h[l],
+                             l == 0 ? d.d_in : t.ld[l - 1], t.ld[l], in_w, w, d.ln[c][l] ? kIdentity : d.act});
+      if (err != cudaSuccess) return err;
     }
-    if ((err = launch_products(ps, n, widest, s)) != cudaSuccess) return err;
-    if (n_ln > 0) {
-      chains_ln_kernel<<<dim3((unsigned)((N + kRowRows - 1) / kRowRows), n_ln), kRowThreads, 0, s>>>(ls);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // Every product of the depth before its LayerNorms (chains_ln_kernel
+    // reads the products' outputs).
+    if ((err = ps.flush()) != cudaSuccess) return err;
+    for (int c = 0; c < d.n_chains; ++c) {
+      if (l >= d.n_layers[c] || !d.ln[c][l]) continue;
+      const StagedChain& t = S.c[c];
+      const int w = d.width[c][l], in_w = l == 0 ? d.d_in : d.width[c][l - 1];
+      const float* b = params + d.woff[c][l] + (long long)in_w * w;
+      err = ls.add(LnRows{ws + t.h[l], b + w, b + 2 * w, keep ? ws + t.xhat[l] : nullptr,
+                          keep ? ws + t.s[l] : nullptr, t.ld[l], w},
+                   fire_ln);
+      if (err != cudaSuccess) return err;
     }
+    if ((err = ls.flush(fire_ln)) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -1611,16 +1776,21 @@ cudaError_t staged_layers(const float* x, const float* params, float* ws, const 
 // false)'s floats).
 cudaError_t staged_forward(const float* x, const float* params, float* ws, const Layout& Lo, cudaStream_t s) {
   const Chains& d = Lo.d;
-  const Staged S = make_staged(Lo, false);
+  Staged S;
+  make_staged(Lo, false, &S);
   cudaError_t err;
   if ((err = staged_attributes()) != cudaSuccess) return err;
   if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
-  if ((err = staged_layers(x, params, ws, Lo, S, false, s)) != cudaSuccess) return err;
-  StProducts wide;
-  wide.rows = d.N;
-  HeadLaunch hl;
-  hl.rows = d.N;
-  int n_wide = 0, n_narrow = 0, widest = 0;
+  if ((err = staged_layers(x, d.N, params, ws, Lo, S, false, s)) != cudaSuccess) return err;
+  Products wide;
+  wide.t.rows = d.N;
+  wide.s = s;
+  Batch<HeadLaunch, HeadRows> hl;
+  hl.t.rows = d.N;
+  auto fire_heads = [&](const HeadLaunch& t, int n) {
+    chains_heads_kernel<<<dim3((unsigned)((d.N + kHeadRows - 1) / kHeadRows), n), rl8::kStThreads, 0, s>>>(t);
+    return cudaGetLastError();
+  };
   for (int c = 0; c < d.n_chains; ++c) {
     const StagedChain& t = S.c[c];
     const int L = d.n_layers[c], w = d.width[c][L - 1];
@@ -1628,221 +1798,217 @@ cudaError_t staged_forward(const float* x, const float* params, float* ws, const
       const int hw = d.head_w[c][j];
       const float* W = params + d.woff[c][L + j];
       if (hw >= kNarrow) {
-        wide.p[n_wide++] =
-            StProduct{ws + t.h[L - 1], ws + t.head[j], W + (long long)w * hw, d.out[c][j], t.ld[L - 1], hw, w, hw,
-                      kIdentity};
-        widest = hw > widest ? hw : widest;
+        err = wide.add(StProduct{ws + t.h[L - 1], ws + t.head[j], W + (long long)w * hw, d.out[c][j], t.ld[L - 1],
+                                 hw, w, hw, kIdentity});
       } else {
-        hl.j[n_narrow++] = HeadRows{ws + t.h[L - 1], W, d.out[c][j], t.ld[L - 1], w, hw};
+        err = hl.add(HeadRows{ws + t.h[L - 1], W, d.out[c][j], t.ld[L - 1], w, hw}, fire_heads);
       }
+      if (err != cudaSuccess) return err;
     }
   }
-  if ((err = launch_products(wide, n_wide, widest, s)) != cudaSuccess) return err;
-  if (n_narrow > 0) {
-    chains_heads_kernel<<<dim3((unsigned)((d.N + kHeadRows - 1) / kHeadRows), n_narrow), rl8::kStThreads, 0, s>>>(hl);
+  if ((err = wide.flush()) != cudaSuccess) return err;
+  return hl.flush(fire_heads);
+}
+
+// The staged backward (see the file's head) on `ws` (make_staged(Lo,
+// true)'s floats), over chunks of S.chunk rows in order: each chunk's
+// recompute, dh products and dx, then its weight products, whose partials
+// are summed into grads (the first chunk's written, the others added).
+cudaError_t staged_backward(const float* x, const float* params, float* dx, float* grads, float* ws, const Layout& Lo,
+                            cudaStream_t s) {
+  const Chains& d = Lo.d;
+  const long long N = d.N;
+  Staged S;
+  if (!make_staged(Lo, true, &S)) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = staged_attributes()) != cudaSuccess) return err;
+  if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
+  const long long R = S.chunk;
+  float* dxc = ws + S.dxc;
+  float* partials = ws + S.partials;
+  std::vector<Job> jobs;
+  for (long long c0 = 0; c0 < N; c0 += R) {
+    const long long n = N - c0 < R ? N - c0 : R;
+    const float* xc = x + c0 * d.d_in;
+    if ((err = staged_layers(xc, n, params, ws, Lo, S, true, s)) != cudaSuccess) return err;
+    // Each chain's head cotangents side by side.
+    Copies douts;
+    douts.s = s;
+    for (int c = 0; c < d.n_chains; ++c) {
+      for (int j = 0; j < d.n_heads[c]; ++j) {
+        const int hw = d.head_w[c][j];
+        err = douts.add(Copy2d{d.dout[c][j] + c0 * hw, ws + S.c[c].dout + (d.head_col[c][j] - d.head_col[c][0]), n,
+                               S.c[c].ld_out, hw});
+        if (err != cudaSuccess) return err;
+      }
+    }
+    if ((err = douts.flush()) != cudaSuccess) return err;
+    // Down the chains from the top, one step a launch (kStJobs chains
+    // each): step i takes chain c from layer L_c - i to layer l = L_c - 1 -
+    // i (at i = 0, from the heads).
+    const unsigned dh_blocks = rl8::st_row_grid(n);
+    auto fire_dh = [&](const DhLaunch& t, int m) {
+      chains_dh_kernel<<<dim3(dh_blocks, m), rl8::kStThreads, rl8::kStBwdSmem, s>>>(t);
+      return cudaGetLastError();
+    };
+    auto fire_ln = [&](const LnBwdLaunch& t, int m) {
+      chains_ln_bwd_kernel<<<dim3((unsigned)((n + kRowRows - 1) / kRowRows), m), kRowThreads, 0, s>>>(t);
+      return cudaGetLastError();
+    };
+    for (int i = 0; i < S.depth; ++i) {
+      Batch<DhLaunch, DhProduct> dh;
+      dh.t.rows = n;
+      dh.t.act = d.act;
+      Batch<LnBwdLaunch, LnBwdRows> lb;
+      lb.t.rows = n;
+      for (int c = 0; c < d.n_chains; ++c) {
+        const int L = d.n_layers[c], l = L - 1 - i;
+        if (l < 0) continue;
+        const StagedChain& t = S.c[c];
+        const int w = d.width[c][l], above = i == 0 ? L : l + 1;
+        const bool ln = d.ln[c][l];
+        err = dh.add(DhProduct{i == 0 ? ws + t.dout : ws + t.dpre[l + 1], ws + t.big[above], ws + t.small[above],
+                               ws + t.h[l], ws + (ln ? t.da[l] : t.dpre[l]), i == 0 ? t.ld_out : t.ld[l + 1], t.ld[l],
+                               t.ld[l], i == 0 ? d.chain_out[c] : d.width[c][l + 1], w},
+                     fire_dh);
+        if (err != cudaSuccess) return err;
+      }
+      // Every dh product of the step before its LayerNorms.
+      if ((err = dh.flush(fire_dh)) != cudaSuccess) return err;
+      for (int c = 0; c < d.n_chains; ++c) {
+        const int L = d.n_layers[c], l = L - 1 - i;
+        if (l < 0 || !d.ln[c][l]) continue;
+        const StagedChain& t = S.c[c];
+        const int w = d.width[c][l], in_w = l == 0 ? d.d_in : d.width[c][l - 1];
+        const float* scale = params + d.woff[c][l] + (long long)in_w * w + w;
+        err = lb.add(LnBwdRows{ws + t.da[l], ws + t.xhat[l], ws + t.s[l], scale, ws + t.dpre[l], t.ld[l], w},
+                     fire_ln);
+        if (err != cudaSuccess) return err;
+      }
+      if ((err = lb.flush(fire_ln)) != cudaSuccess) return err;
+    }
+    // Each chain's dx = dpre_0 W_0^T (chain c's at dxc + c R d_in), then
+    // their sum in chain order into the chunk's rows of dx.
+    if (d.d_in >= kNarrow) {
+      Batch<DhLaunch, DhProduct> dh;
+      dh.t.rows = n;
+      dh.t.act = d.act;
+      for (int c = 0; c < d.n_chains; ++c) {
+        const StagedChain& t = S.c[c];
+        err = dh.add(DhProduct{ws + t.dpre[0], ws + t.big[0], ws + t.small[0], nullptr, dxc + (long long)c * R * d.d_in,
+                               t.ld[0], 0, d.d_in, d.width[c][0], d.d_in},
+                     fire_dh);
+        if (err != cudaSuccess) return err;
+      }
+      if ((err = dh.flush(fire_dh)) != cudaSuccess) return err;
+    } else {
+      Batch<DxLaunch, DxRows> xl;
+      xl.t.rows = n;
+      xl.t.d_in = d.d_in;
+      auto fire_dx = [&](const DxLaunch& t, int m) {
+        chains_dx_kernel<<<dim3((unsigned)((n + kHeadRows - 1) / kHeadRows), m), rl8::kStThreads, 0, s>>>(t);
+        return cudaGetLastError();
+      };
+      for (int c = 0; c < d.n_chains; ++c) {
+        err = xl.add(DxRows{ws + S.c[c].dpre[0], params + d.woff[c][0], dxc + (long long)c * R * d.d_in,
+                            S.c[c].ld[0], d.width[c][0]},
+                     fire_dx);
+        if (err != cudaSuccess) return err;
+      }
+      if ((err = xl.flush(fire_dx)) != cudaSuccess) return err;
+    }
+    sum_chain_dx_kernel<<<rl8::grid_for(n * d.d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, R * d.d_in,
+                                                                              n * d.d_in, dx + c0 * d.d_in);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    // The weight products: dW = h_in^T dpre and db per layer (and a
+    // LayerNorm's dscale = sum(da xhat), dbias = sum(da) as bias-only column
+    // sums), and per head h_last^T dout.
+    jobs.clear();
+    for (int c = 0; c < d.n_chains; ++c) {
+      const StagedChain& t = S.c[c];
+      const int L = d.n_layers[c];
+      int in = d.d_in;
+      for (int l = 0; l < L; ++l) {
+        const int w = d.width[c][l];
+        const float* a = l == 0 ? xc : ws + t.h[l - 1];
+        const long long lda = l == 0 ? d.d_in : t.ld[l - 1];
+        jobs.push_back(rl8::make_job(a, lda, ws + t.dpre[l], t.ld[l], in, w, d.woff[c][l]));
+        if (d.ln[c][l]) {
+          const long long scale_off = d.woff[c][l] + (long long)in * w + w;
+          jobs.push_back(rl8::make_job(a, lda, ws + t.xhat[l], t.ld[l], 0, w, scale_off));
+          jobs.push_back(rl8::make_job(a, lda, ws + t.da[l], t.ld[l], 0, w, scale_off + w));
+        }
+        in = w;
+      }
+      for (int j = 0; j < d.n_heads[c]; ++j) {
+        const int hw = d.head_w[c][j];
+        jobs.push_back(rl8::make_job(ws + t.h[L - 1], t.ld[L - 1], d.dout[c][j] + c0 * hw, hw, in, hw,
+                                     d.woff[c][L + j]));
+      }
+    }
+    long long g = (n + kGroupRows - 1) / kGroupRows;
+    g = g > S.groups ? S.groups : g;
+    const long long rows_per_group = (n + g - 1) / g;
+    err = rl8::launch_jobs(jobs.data(), (long long)jobs.size(), n, (int)g, rows_per_group, Lo.P, partials, s);
+    if (err != cudaSuccess) return err;
+    rl8::sum_partials_kernel<<<rl8::grid_for(Lo.P), rl8::kWgThreads, 0, s>>>(partials, (int)g, Lo.P, grads, c0 > 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// Launches the weight products of jobs[0..n) in lists of at most
-// kMaxWgJobs over `groups` groups of rows, each writing its partial
-// gradient.
-cudaError_t launch_jobs(const Job* jobs, int n, long long rows, int groups, long long rows_per_group, long long P,
-                        float* partials, cudaStream_t s) {
-  Jobs tiled, bias;
-  auto reset = [&](Jobs* js) {
-    js->n = 0;
-    js->inner_rows = 1;
-    js->rows_per_group = rows_per_group;
-    js->rows = rows;
-    js->P = P;
-  };
-  reset(&tiled);
-  reset(&bias);
-  int tiles = 0, bias_tiles = 0;
-  cudaError_t err;
-  auto flush = [&](bool force) -> cudaError_t {
-    if (tiled.n > 0 && (force || tiled.n == rl8::kMaxWgJobs)) {
-      cudaError_t e = rl8::launch_tiled(tiled, tiles, groups, partials, s);
-      reset(&tiled);
-      tiles = 0;
-      if (e != cudaSuccess) return e;
-    }
-    if (bias.n > 0 && (force || bias.n == rl8::kMaxWgJobs)) {
-      cudaError_t e = rl8::launch_bias(bias, bias_tiles, groups, partials, s);
-      reset(&bias);
-      bias_tiles = 0;
-      return e;
-    }
-    return cudaSuccess;
-  };
-  for (int q = 0; q < n; ++q) {
-    rl8::add_job(jobs[q], &tiled, &bias, &tiles, &bias_tiles);
-    if ((err = flush(false)) != cudaSuccess) return err;
-  }
-  return flush(true);
-}
-
-Job make_job(const float* a, long long a_outer, const float* b, long long b_outer, int K, int J, long long off) {
-  Job jb;
-  jb.a = a;
-  jb.b = b;
-  jb.a_outer = a_outer;
-  jb.b_outer = b_outer;
-  jb.a_inner = jb.b_inner = 0;
-  jb.off = off;
-  jb.K = K;
-  jb.J = J;
-  jb.bias = 1;
-  jb.tiles_j = jb.tile0 = 0;
-  return jb;
-}
-
-// The staged backward (see the file's head) on `ws` (make_staged(Lo,
-// true)'s floats).
-cudaError_t staged_backward(const float* x, const float* params, float* dx, float* grads, float* ws, const Layout& Lo,
-                            cudaStream_t s) {
-  const Chains& d = Lo.d;
-  const long long N = d.N;
-  const Staged S = make_staged(Lo, true);
-  cudaError_t err;
-  if ((err = staged_attributes()) != cudaSuccess) return err;
-  if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
-  if ((err = staged_layers(x, params, ws, Lo, S, true, s)) != cudaSuccess) return err;
-  // Each chain's head cotangents side by side.
-  CopyLaunch douts;
-  int n_douts = 0;
-  long long most = 0;
-  for (int c = 0; c < d.n_chains; ++c) {
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      const int hw = d.head_w[c][j];
-      douts.j[n_douts++] =
-          Copy2d{d.dout[c][j], ws + S.c[c].dout + (d.head_col[c][j] - d.head_col[c][0]), N, S.c[c].ld_out, hw};
-      most = N * hw > most ? N * hw : most;
-    }
-  }
-  if ((err = copy_2d(douts, n_douts, most, s)) != cudaSuccess) return err;
-  // Down the chains from the top, one step a launch: step i takes chain c
-  // from layer L_c - i to layer l = L_c - 1 - i (at i = 0, from the heads).
-  const dim3 dh_grid(rl8::st_row_grid(N), 1);
-  for (int i = 0; i < S.depth; ++i) {
-    DhLaunch dh;
-    dh.rows = N;
-    dh.act = d.act;
-    LnBwdLaunch lb;
-    lb.rows = N;
-    int n = 0, n_ln = 0;
-    for (int c = 0; c < d.n_chains; ++c) {
-      const int L = d.n_layers[c], l = L - 1 - i;
-      if (l < 0) continue;
-      const StagedChain& t = S.c[c];
-      const int w = d.width[c][l], above = i == 0 ? L : l + 1;
-      const bool ln = d.ln[c][l];
-      dh.j[n++] = DhProduct{i == 0 ? ws + t.dout : ws + t.dpre[l + 1], ws + t.big[above], ws + t.small[above],
-                            ws + t.h[l], ws + (ln ? t.da[l] : t.dpre[l]), i == 0 ? t.ld_out : t.ld[l + 1], t.ld[l],
-                            t.ld[l], i == 0 ? d.chain_out[c] : d.width[c][l + 1], w};
-      if (ln) {
-        const int in_w = l == 0 ? d.d_in : d.width[c][l - 1];
-        const float* scale = params + d.woff[c][l] + (long long)in_w * w + w;
-        lb.j[n_ln++] = LnBwdRows{ws + t.da[l], ws + t.xhat[l], ws + t.s[l], scale, ws + t.dpre[l], t.ld[l], w};
-      }
-    }
-    chains_dh_kernel<<<dim3(dh_grid.x, n), rl8::kStThreads, rl8::kStBwdSmem, s>>>(dh);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if (n_ln > 0) {
-      chains_ln_bwd_kernel<<<dim3((unsigned)((N + kRowRows - 1) / kRowRows), n_ln), kRowThreads, 0, s>>>(lb);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-  }
-  // Each chain's dx = dpre_0 W_0^T, then their sum in chain order.
-  float* dxc = ws + S.dxc;
-  if (d.d_in >= kNarrow) {
-    DhLaunch dh;
-    dh.rows = N;
-    dh.act = d.act;
-    for (int c = 0; c < d.n_chains; ++c) {
-      const StagedChain& t = S.c[c];
-      dh.j[c] = DhProduct{ws + t.dpre[0], ws + t.big[0], ws + t.small[0], nullptr, dxc + (long long)c * N * d.d_in,
-                          t.ld[0], 0, d.d_in, d.width[c][0], d.d_in};
-    }
-    chains_dh_kernel<<<dim3(dh_grid.x, d.n_chains), rl8::kStThreads, rl8::kStBwdSmem, s>>>(dh);
-  } else {
-    DxLaunch xl;
-    xl.rows = N;
-    xl.d_in = d.d_in;
-    for (int c = 0; c < d.n_chains; ++c) {
-      xl.j[c] = DxRows{ws + S.c[c].dpre[0], params + d.woff[c][0], dxc + (long long)c * N * d.d_in, S.c[c].ld[0],
-                       d.width[c][0]};
-    }
-    chains_dx_kernel<<<dim3((unsigned)((N + kHeadRows - 1) / kHeadRows), d.n_chains), rl8::kStThreads, 0, s>>>(xl);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sum_chain_dx_kernel<<<rl8::grid_for(N * d.d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d.d_in, dx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // The weight products: dW = h_in^T dpre and db per layer (and a
-  // LayerNorm's dscale = sum(da xhat), dbias = sum(da) as bias-only column
-  // sums), and per head h_last^T dout.
-  Job jobs[kMaxJobs];
-  int n = 0;
-  for (int c = 0; c < d.n_chains; ++c) {
-    const StagedChain& t = S.c[c];
-    const int L = d.n_layers[c];
-    int in = d.d_in;
-    for (int l = 0; l < L; ++l) {
-      const int w = d.width[c][l];
-      const float* a = l == 0 ? x : ws + t.h[l - 1];
-      const long long lda = l == 0 ? d.d_in : t.ld[l - 1];
-      jobs[n++] = make_job(a, lda, ws + t.dpre[l], t.ld[l], in, w, d.woff[c][l]);
-      if (d.ln[c][l]) {
-        const long long scale_off = d.woff[c][l] + (long long)in * w + w;
-        jobs[n++] = make_job(a, lda, ws + t.xhat[l], t.ld[l], 0, w, scale_off);
-        jobs[n++] = make_job(a, lda, ws + t.da[l], t.ld[l], 0, w, scale_off + w);
-      }
-      in = w;
-    }
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      jobs[n++] = make_job(ws + t.h[L - 1], t.ld[L - 1], d.dout[c][j], d.head_w[c][j], in, d.head_w[c][j],
-                           d.woff[c][L + j]);
-    }
-  }
-  float* partials = ws + S.partials;
-  if ((err = launch_jobs(jobs, n, N, S.groups, S.rows_per_group, Lo.P, partials, s)) != cudaSuccess) return err;
-  rl8::sum_partials_kernel<<<rl8::grid_for(Lo.P), rl8::kWgThreads, 0, s>>>(partials, S.groups, Lo.P, grads);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Floats of workspace that rl8_chains_fwd (backward = 0) or rl8_chains_bwd
-// (backward != 0) needs, or -1 where the kernels do not take the chains
-// (their counts): 0 where the forward takes its tiled route; the tiled
-// backward's partials (at most kMaxTileBlocks / n_chains groups) and
-// per-chain dx; else the staged route's copies, row scratch and (backward)
-// partials (make_staged).
+// (backward != 0) needs, or -1 where the spec is malformed (or, backward,
+// the staged route's weight copies and partials leave no room in its
+// budget for one row block): 0 where the forward takes its tiled route; the
+// tiled backward's partials (at most kMaxTileBlocks / its launches' chains
+// groups) and per-chain dx; else the staged route's copies, row scratch and
+// (backward) partials (make_staged).
 extern "C" long long rl8_chains_workspace(long long N, int d_in, const int* spec, int spec_len, int backward) {
   Layout L = {};
   if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
+  Staged S;
   if (!backward) {
     FwdTiled F;
-    return make_fwd_tiled(L, &F) ? 0 : make_staged(L, false).floats;
+    std::vector<FwdChain> fc;
+    if (make_fwd_tiled(L, &F, &fc)) return 0;
+    make_staged(L, false, &S);
+    return S.floats;
   }
   Tiled T;
-  if (make_tiled(L, &T)) return (long long)T.groups * L.P + (long long)L.d.n_chains * N * d_in;
-  return make_staged(L, true).floats;
+  std::vector<TileChain> tc;
+  if (make_tiled(L, &T, &tc)) return (long long)T.groups * L.P + (long long)L.d.n_chains * N * d_in;
+  return make_staged(L, true, &S) ? S.floats : -1;
 }
 
 // Floats of the weight products' partials that rl8_chains_bwd writes on
 // these chains: the staged route's groups times the parameter count
 // (make_staged), or at most the tiled route's (its workspace's groups; a
-// launch takes fewer where the card holds fewer blocks at once); -1 where the
-// kernels do not take the chains.
+// launch takes fewer where the card holds fewer blocks at once); -1 where
+// rl8_chains_workspace answers -1.
 extern "C" long long rl8_chains_partials(long long N, int d_in, const int* spec, int spec_len) {
   Layout L = {};
   if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
   Tiled T;
-  if (make_tiled(L, &T)) return (long long)T.groups * L.P;
-  return (long long)make_staged(L, true).groups * L.P;
+  std::vector<TileChain> tc;
+  if (make_tiled(L, &T, &tc)) return (long long)T.groups * L.P;
+  Staged S;
+  return make_staged(L, true, &S) ? (long long)S.groups * L.P : -1;
+}
+
+// Rows of a chunk of rl8_chains_bwd's staged route (N where every row fits
+// its budget at once; 0 where the backward takes its tiled route), or -1
+// where rl8_chains_workspace answers -1.
+extern "C" long long rl8_chains_chunk_rows(long long N, int d_in, const int* spec, int spec_len) {
+  Layout L = {};
+  if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
+  Tiled T;
+  std::vector<TileChain> tc;
+  if (make_tiled(L, &T, &tc)) return 0;
+  Staged S;
+  return make_staged(L, true, &S) ? S.chunk : -1;
 }
 
 // outs: a host array of each head's output [N, hw], chain by chain;
@@ -1858,9 +2024,11 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   FwdTiled F;
-  if (make_fwd_tiled(L, &F)) {
+  std::vector<FwdChain> fc;
+  if (make_fwd_tiled(L, &F, &fc)) {
     // The tiled route: as many persistent blocks as the card holds at once
-    // (within the row tiles), split evenly over the chains.
+    // (within the row tiles), split evenly over a launch's chains; a launch
+    // for every kTileChains chains.
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
     // The activation is a template argument: chosen at run time, every
@@ -1872,10 +2040,16 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdTileThreads, F.smem);
     if (err != cudaSuccess) return (int)err;
-    const int fit = sms * per_sm / L.d.n_chains;
-    F.groups = fit < 1 ? 1 : (fit < F.groups ? fit : F.groups);
-    kernel<<<dim3(F.groups, L.d.n_chains), kFwdTileThreads, F.smem, (cudaStream_t)stream>>>(x, params, F);
-    return (int)cudaGetLastError();
+    const int tiles = F.groups;
+    for (int base = 0; base < L.d.n_chains; base += kTileChains) {
+      F.n_chains = L.d.n_chains - base < kTileChains ? L.d.n_chains - base : kTileChains;
+      for (int i = 0; i < F.n_chains; ++i) F.c[i] = fc[base + i];
+      const int fit = sms * per_sm / F.n_chains;
+      F.groups = fit < 1 ? 1 : (fit < tiles ? fit : tiles);
+      kernel<<<dim3(F.groups, F.n_chains), kFwdTileThreads, F.smem, (cudaStream_t)stream>>>(x, params, F);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
   }
   if (workspace == nullptr) return (int)cudaErrorInvalidValue;
   return (int)staged_forward(x, params, workspace, L, (cudaStream_t)stream);
@@ -1898,24 +2072,32 @@ extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* 
   cudaStream_t s = (cudaStream_t)stream;
 
   Tiled T;
-  if (make_tiled(L, &T)) {
+  std::vector<TileChain> tc;
+  if (make_tiled(L, &T, &tc)) {
     // The tiled route: as many persistent blocks as the card holds at once
-    // (within the workspace's groups), split evenly over the chains.
+    // (within the workspace's groups), split evenly over a launch's chains;
+    // a launch for every kTileChains chains, each writing its chains'
+    // columns of the same partial rows.
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(chains_bwd_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T.smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chains_bwd_tiles_kernel, kTileThreads, T.smem);
     if (err != cudaSuccess) return (int)err;
-    const int fit = sms * per_sm / d.n_chains;
+    const int fit = sms * per_sm / T.n_chains;
     T.groups = fit < 1 ? 1 : (fit < T.groups ? fit : T.groups);
     float* partials = workspace;
     float* dxc = partials + (long long)T.groups * L.P;
-    chains_bwd_tiles_kernel<<<dim3(T.groups, d.n_chains), kTileThreads, T.smem, s>>>(x, params, partials, dxc, T);
+    for (int base = 0; base < d.n_chains; base += kTileChains) {
+      T.base = base;
+      T.n_chains = d.n_chains - base < kTileChains ? d.n_chains - base : kTileChains;
+      for (int i = 0; i < T.n_chains; ++i) T.c[i] = tc[base + i];
+      chains_bwd_tiles_kernel<<<dim3(T.groups, T.n_chains), kTileThreads, T.smem, s>>>(x, params, partials, dxc, T);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    rl8::sum_partials_kernel<<<rl8::grid_for(L.P), rl8::kWgThreads, 0, s>>>(partials, T.groups, L.P, grads, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    rl8::sum_partials_kernel<<<rl8::grid_for(L.P), rl8::kWgThreads, 0, s>>>(partials, T.groups, L.P, grads);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    sum_chain_dx_kernel<<<rl8::grid_for(N * d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d_in, dx);
+    sum_chain_dx_kernel<<<rl8::grid_for(N * d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d_in, N * d_in, dx);
     return (int)cudaGetLastError();
   }
   return (int)staged_backward(x, params, dx, grads, workspace, L, s);

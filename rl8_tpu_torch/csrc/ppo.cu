@@ -87,7 +87,7 @@
 //      B operand over the output units, from big and small TF32 halves that
 //      the launch copies once in the stages' layout (no transposed copy),
 //      and the rows' dpre the A operand, split in registers; a fresh
-//      accumulator every 64 k keeps the tensor core's truncation near f32's
+//      accumulator every 32 k keeps the tensor core's truncation near f32's
 //      rounding. Shared memory is the stages, whatever the width and the
 //      heads, and each weight slab a block reads feeds 128 rows (32 on the
 //      narrow route).
@@ -111,6 +111,25 @@
 //      and each head is its own weight product.
 //   3. The partials are summed over groups, and the stats over row blocks,
 //      in a fixed order.
+// Depth. A model may have any number of layers (rl8_tpu's residency gate
+// admits 87 of 256 at the dummy envs' shapes, 1,306 of 64). The kernels
+// read each layer's width, slab offset and weight offsets from a table in
+// the workspace (PpoLayer, table.cuh), which the launch writes before them:
+// no table of fixed size in a kernel's parameters covers every depth. The
+// narrow route's shared memory does not grow with depth, so deep models of
+// up to 736 wide keep it. The row scratch does grow: it holds every h_l
+// and dpre_l of a row, 64 KiB a row at 16 layers of 256 (17.2 GB at
+// 262,144 rows, ~93 GB at 87 layers). So the row pass and the weight
+// products run over chunks of equal rows, as few as fit kWorkspaceFloats
+// (12 GiB) beside the table, the weight copies, the partials and the stats:
+// per chunk, the row pass over its rows, then the weight products over them
+// into the partials (at most kPartialFloats: fewer groups of rows for a
+// larger model), which sum_partials_kernel adds into the gradient, the
+// first chunk's written and the others added in chunk order, so that two
+// launches stay bit-identical. The main path (2.1 GB of row scratch) and
+// the wide cell (8.6 GB) are one chunk. The weight products' jobs, one a
+// layer and head of each chain, go to wgrad.cuh's launch_jobs, which
+// launches them in lists of kMaxWgJobs.
 // The per-row loss terms (policy_row, continuous_row, value_row) are
 // ppo_terms.cuh's, shared with rnn_ppo.cu.
 // Rows past N exist in no buffer: the last row block masks them with
@@ -123,13 +142,13 @@
 #include "mma.cuh"
 #include "ppo_terms.cuh"
 #include "stage.cuh"
+#include "table.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
 using rl8::dense_layer;
 using rl8::Job;
-using rl8::Jobs;
 using rl8::kCategorical;
 using rl8::kSquashed;
 using rl8::kRelu;
@@ -138,9 +157,6 @@ using rl8::narrow_head;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 32;  // rows per block of the row pass
-constexpr int kMaxLayers = 8;
-constexpr int kMaxHeads = 2;  // heads of a chain
-static_assert(2 * (kMaxLayers + kMaxHeads) <= rl8::kMaxWgJobs, "weight-product jobs");
 // tc_dense: rows of W per shared-memory stage, columns per pass, and a
 // staged row (8 floats of padding make the B fragments' loads
 // conflict-free).
@@ -149,36 +165,56 @@ constexpr int kWCols = 256;
 constexpr int kWLd = kWCols + 8;
 constexpr int kWFloats = 2 * kSlice * kWLd;
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may use on an H100
+// The workspace's budget (rl8_ppo_workspace): 12 GiB, the table, the
+// weight copies, the partials, the stats and the row scratch of one chunk
+// of rows together; the wide cell's whole-buffer minibatch (8.6 GB at 1024
+// wide x 262,144 rows) stays one chunk. The row scratch grows with depth
+// times rows (16 layers of 256 at 262,144 rows would take 17.2 GB, rl8_tpu's
+// deepest 256-wide model ~93 GB), so the row pass and the weight products
+// run over chunks of whole row blocks that fit the rest of the budget, as
+// few as fit and of equal rows (a short last chunk leaves most of the card
+// idle in its last wave), and the partials take at most kPartialFloats
+// (256 MiB) of it: fewer groups of rows for a larger model.
+constexpr long long kWorkspaceFloats = 3LL << 30;
+constexpr long long kPartialFloats = 64LL << 20;
+
+// One layer of a chain, entry c * n_layers + l of the launch's table in
+// device memory (table.cuh): its width, the offset of its slabs in the
+// chain's row scratch (prefix = sum of the widths below it), its W in
+// params, and its copies in the workspace: the narrow route's W^T (l >= 1),
+// the wide route's W in stage.cuh's forward layout and (l >= 1) its big and
+// small TF32 halves for the backward's dh products.
+struct PpoLayer {
+  long long woff, wtoff, cf, cb, cbs;
+  int hidden, prefix;
+};
 
 // The loss's columns and constants (LossDims), and the shapes.
 struct Dims : rl8::LossDims {
-  long long N;
-  long long NP;                        // rows of each scratch slab: N, or whole row blocks (wide route)
+  long long N;                         // rows of this chunk
+  long long NP;                        // rows of each scratch slab: the chunk's, or whole row blocks (wide route)
   long long xoff;                      // the wide route's input slab [NP, d_in] in the row scratch
-  // The wide route's weight copies (stage.cuh's layouts) in the workspace:
-  // each layer's W for the forward, and for layers >= 1 its big and small
-  // TF32 halves for the backward's dh products.
-  long long cf[2][kMaxLayers], cb[2][kMaxLayers], cbs[2][kMaxLayers];
+  const PpoLayer* tab;                 // [2][n_layers], in device memory
   int D, obs_col;
-  int d_in, n_layers, act, max_hidden, sum_hidden;
+  int d_in, n_layers, act, max_hidden;
+  long long sum_hidden;
   int ld;                              // row stride of the activation buffers in shared memory
-  int hidden[kMaxLayers];
-  int prefix[kMaxLayers];              // sum of hidden[:l]
-  int n_heads[2], head_w[2];           // per chain: its heads, all head_w wide
+  int n_heads[2], head_w[2];           // per chain: its heads (at most two: a mean and a log-std), all head_w wide
   int n_out[2];                        // per chain: n_heads * head_w
-  // Offset of each layer's W in params; index n_layers + j: head j's.
-  long long woff[2][kMaxLayers + kMaxHeads];
-  long long wtoff[2][kMaxLayers];      // offset of W^T in the transposed copy (layers >= 1)
+  long long hoff[2][2];                // offset of head j of chain c's W in params
   long long region[2];                 // each chain's offset in the row scratch
 };
 
 // Where everything lives: the parameter layout, and the workspace (floats):
-// [W^T copies; wide: the weight copies][row scratch: per chain h_l..., dpre_l..., dout; wide: the inputs]
-// [partials: groups x P][stats: blocks x 4].
+// [table][W^T copies; wide: the weight copies][row scratch of a chunk: per
+// chain h_l..., dpre_l..., dout; wide: the inputs][partials: groups x P]
+// [stats: blocks x 4].
 struct Layout {
   Dims d;
-  long long P, wt_floats, row_floats, part_floats, stat_floats, rows_per_group;
-  int groups, row_blocks;
+  std::vector<PpoLayer> tab;
+  long long P, tab_floats, wt_floats, row_floats, part_floats, stat_floats;
+  long long chunk;  // rows a chunk: whole row blocks, or N
+  int max_groups, row_blocks;
   bool wide;    // the wide route (ppo_wide_fwd_kernel, ppo_wide_bwd_kernel: activations and heads in the row scratch)
   size_t smem;  // the row pass's: the W stages, two activation buffers and the inputs, the heads, the row stats (narrow);
                 // the first wide kernel's: stage.cuh's forward stages and the row stats (its second: rl8::kStBwdSmem)
@@ -186,11 +222,14 @@ struct Layout {
 
 // The policy chain has one head of act_dim * n_cat logits (categorical)
 // or two of act_dim (mean, pre-tanh log-std); the value chain one of 1.
-// The narrow route where its row pass fits a block's shared memory, else
-// the wide one, which keeps nothing of a width in shared memory.
+// The narrow route where its row pass fits a block's shared memory (which
+// does not grow with depth), else the wide one, which keeps nothing of a
+// width in shared memory. False where the shapes are out of range, or where
+// the weight copies and the partials leave no room in kWorkspaceFloats for
+// one row block.
 bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int act_dim,
                  int n_cat, Layout* L) {
-  if (N <= 0 || d_in <= 0 || n_layers < 1 || n_layers > kMaxLayers || act_dim <= 0 ||
+  if (N <= 0 || d_in <= 0 || n_layers < 1 || act_dim <= 0 ||
       kind < kCategorical || kind > kSquashed || (kind == kCategorical && n_cat < 2)) {
     return false;
   }
@@ -206,28 +245,33 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   d.n_heads[1] = d.head_w[1] = 1;
   d.max_hidden = 0;
   d.sum_hidden = 0;
-  for (int l = 0; l < kMaxLayers; ++l) {
-    d.hidden[l] = l < n_layers ? hidden[l] : 0;
-    if (l < n_layers && d.hidden[l] <= 0) return false;
-    d.prefix[l] = d.sum_hidden;
-    d.sum_hidden += d.hidden[l];
-    if (d.hidden[l] > d.max_hidden) d.max_hidden = d.hidden[l];
+  L->tab.assign(2 * (size_t)n_layers, PpoLayer{});
+  for (int l = 0; l < n_layers; ++l) {
+    if (hidden[l] <= 0) return false;
+    for (int c = 0; c < 2; ++c) {
+      L->tab[c * n_layers + l].hidden = hidden[l];
+      L->tab[c * n_layers + l].prefix = (int)d.sum_hidden;
+    }
+    d.sum_hidden += hidden[l];
+    if (hidden[l] > d.max_hidden) d.max_hidden = hidden[l];
   }
+  if (d.sum_hidden > (1LL << 30)) return false;
   // A multiple of 32 plus 4: the A fragments' loads hit 32 banks.
   d.ld = (d.max_hidden + 31) / 32 * 32 + 4;
   long long off = 0, wt = 0;
   for (int c = 0; c < 2; ++c) {
     long long in = d_in;
     for (int l = 0; l < n_layers; ++l) {
-      d.woff[c][l] = off;
-      off += in * d.hidden[l] + d.hidden[l];
-      d.wtoff[c][l] = wt;
-      if (l > 0) wt += (in * d.hidden[l] + 3) / 4 * 4;  // 16-byte aligned copies
-      in = d.hidden[l];
+      PpoLayer& e = L->tab[c * n_layers + l];
+      e.woff = off;
+      off += in * hidden[l] + hidden[l];
+      e.wtoff = wt;
+      if (l > 0) wt += (in * hidden[l] + 3) / 4 * 4;  // 16-byte aligned copies
+      in = hidden[l];
     }
     d.n_out[c] = d.n_heads[c] * d.head_w[c];
     for (int j = 0; j < d.n_heads[c]; ++j) {
-      d.woff[c][n_layers + j] = off;
+      d.hoff[c][j] = off;
       off += in * d.head_w[c] + d.head_w[c];
     }
   }
@@ -235,7 +279,7 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (2 * d.ld + ((d_in + 3) / 4 * 4) + d.n_out[0] + 4));
   L->wide = L->smem > kMaxSmem;
   const int rows = L->wide ? rl8::kStRows : kRows;
-  L->row_blocks = (N + rows - 1) / rows;
+  L->row_blocks = (int)((N + rows - 1) / rows);
   L->stat_floats = 4LL * L->row_blocks;
   if (L->wide) {
     L->smem = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
@@ -243,36 +287,53 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
     for (int c = 0; c < 2; ++c) {
       int in = d_in;
       for (int l = 0; l < n_layers; ++l) {
-        d.cf[c][l] = wt;
-        wt += rl8::fwd_copy_floats(in, d.hidden[l]);
-        d.cb[c][l] = wt;
-        if (l > 0) wt += rl8::bwd_copy_floats(d.hidden[l], in);
-        d.cbs[c][l] = wt;
-        if (l > 0) wt += rl8::bwd_copy_floats(d.hidden[l], in);
-        in = d.hidden[l];
+        PpoLayer& e = L->tab[c * n_layers + l];
+        e.cf = wt;
+        wt += rl8::fwd_copy_floats(in, hidden[l]);
+        e.cb = wt;
+        if (l > 0) wt += rl8::bwd_copy_floats(hidden[l], in);
+        e.cbs = wt;
+        if (l > 0) wt += rl8::bwd_copy_floats(hidden[l], in);
+        in = hidden[l];
       }
     }
   }
   L->wt_floats = wt;
+  L->tab_floats = rl8::table_floats<PpoLayer>((long long)L->tab.size());
+  // The partials: up to kMaxGroups groups of rows, within kPartialFloats.
+  const long long most = kPartialFloats / L->P;
+  L->max_groups = (int)(most < 1 ? 1 : (most > rl8::kMaxGroups ? rl8::kMaxGroups : most));
+  L->part_floats = (long long)L->max_groups * L->P;
+  // The row scratch of a chunk: per row, each chain's h_l and dpre_l and its
+  // heads' cotangents, and (wide) the inputs.
+  const long long per_row = 4 * d.sum_hidden + d.n_out[0] + d.n_out[1] + (L->wide ? d_in : 0);
+  const long long fixed = L->tab_floats + L->wt_floats + L->part_floats + L->stat_floats;
+  if (fixed >= kWorkspaceFloats) return false;
+  const long long fit = (kWorkspaceFloats - fixed) / per_row / rows * rows;
+  if (fit < rows) return false;
   // Wide: every slab holds whole row blocks (a multiple of 128 rows, so
   // every slab starts 16-byte aligned), which the blocks' padding rows
-  // fill.
-  d.NP = L->wide ? (long long)L->row_blocks * rows : N;
+  // fill. Narrow: N rows where they fit, else chunks of whole blocks.
+  const long long all = L->wide ? (long long)L->row_blocks * rows : N;
+  const long long chunks = (all + fit - 1) / fit;
+  L->chunk = chunks == 1 ? all : ((all + chunks - 1) / chunks + rows - 1) / rows * rows;
+  d.NP = L->chunk;
   d.region[0] = 0;
   d.region[1] = d.NP * (2 * d.sum_hidden + d.n_out[0]);
   d.xoff = d.region[1] + d.NP * (2 * d.sum_hidden + d.n_out[1]);
   L->row_floats = d.xoff + (L->wide ? d.NP * d_in : 0);
-  rl8::split_rows(N, &L->groups, &L->rows_per_group);
-  L->part_floats = (long long)L->groups * L->P;
   return L->smem <= kMaxSmem;
 }
+
+// The layer entry of chain c's layer l.
+__device__ __forceinline__ PpoLayer layer(const Dims& d, int c, int l) { return d.tab[c * d.n_layers + l]; }
 
 // ---------------------------------------------------------------- row pass
 
 // The head weight of chain c for concatenated output column o and input k.
 __device__ __forceinline__ float head_weight(const float* params, const Dims& d, int c, int o, int k) {
   const int w = d.head_w[c];
-  return __ldg(params + d.woff[c][d.n_layers + o / w] + (size_t)k * w + o % w);
+  return __ldg(params + d.hoff[c][o / w] + (size_t)k * w + o % w);
 }
 
 // out[r, n] = sum_k in[r, k] W[k, n] for the block's kRows rows, on the
@@ -425,9 +486,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     int cur_w = d.d_in;
     int cur_ld = 0;
     for (int l = 0; l < d.n_layers; ++l) {
-      const int w = d.hidden[l];
-      float* hl = region + d.NP * d.prefix[l] + r0 * w;
-      const float* W = params + d.woff[c][l];
+      const PpoLayer e = layer(d, c, l);
+      const int w = e.hidden;
+      float* hl = region + d.NP * e.prefix + r0 * w;
+      const float* W = params + e.woff;
       float* dst = (l & 1) ? gb : ga;
       dense_layer<kRows>(cur, cur_w, W, W + (size_t)cur_w * w, dst, w, d.act, ld, l == 0 ? 0 : ld);
       __syncthreads();
@@ -438,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     for (int j = 0; j < d.n_heads[c]; ++j) {
       const int w = d.head_w[c];
-      const float* Wh = params + d.woff[c][d.n_layers + j];
+      const float* Wh = params + d.hoff[c][j];
       narrow_head<kRows>(cur, cur_w, Wh, Wh + (size_t)cur_w * w, w, head, n_out, j * w, cur_ld);
     }
     __syncthreads();
@@ -490,10 +552,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     // Down the chain: dpre_l = dh_l * act'(h_l), stored; dh_{l-1} = dpre_l W_l^T.
     for (int l = top; l >= 0; --l) {
-      const int w = d.hidden[l];
+      const PpoLayer e = layer(d, c, l);
+      const int w = e.hidden;
       // This block's h_l rows, written above and visible after the
       // barriers since; rows past N have no h, and a zero dh.
-      const float* h = region + d.NP * d.prefix[l] + r0 * w;
+      const float* h = region + d.NP * e.prefix + r0 * w;
       for (int k = threadIdx.x; k < w; k += blockDim.x) {
 #pragma unroll 8
         for (int r = 0; r < kRows; ++r) {
@@ -502,11 +565,11 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
       __syncthreads();
-      store_rows(dh, ld, nr, w, region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w);
+      store_rows(dh, ld, nr, w, region + d.NP * (d.sum_hidden + e.prefix) + r0 * w);
       if (l > 0) {
-        const int w_in = d.hidden[l - 1];
+        const int w_in = layer(d, c, l - 1).hidden;
         float* next = dh == ga ? gb : ga;
-        tc_dense(dh, w, ld, wt + d.wtoff[c][l], w_in, next, ld, ws);
+        tc_dense(dh, w, ld, wt + e.wtoff, w_in, next, ld, ws);
         __syncthreads();
         dh = next;
       }
@@ -560,11 +623,12 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     const float* cur = x;
     int cur_w = d.d_in;
     for (int l = 0; l < d.n_layers; ++l) {
-      const int w = d.hidden[l];
-      float* hl = region + d.NP * d.prefix[l] + r0 * w;
-      const float* b = params + d.woff[c][l] + (size_t)cur_w * w;
+      const PpoLayer e = layer(d, c, l);
+      const int w = e.hidden;
+      float* hl = region + d.NP * e.prefix + r0 * w;
+      const float* b = params + e.woff + (size_t)cur_w * w;
       const bool vec = rl8::st_vec(hl, w);
-      const rl8::FwdSeg seg{{cur, cur_w, cur_w, R, rl8::st_vec(cur, cur_w)}, wt + d.cf[c][l]};
+      const rl8::FwdSeg seg{{cur, cur_w, cur_w, R, rl8::st_vec(cur, cur_w)}, wt + e.cf};
       rl8::fwd_product(
           &seg, 1, w, st_smem, [](auto& acc, const int(&)[8]) { rl8::tile_zero(acc); },
           [&](auto& acc, int rg, const int(&n)[8]) {
@@ -601,7 +665,7 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     float* dout = region + d.NP * 2 * d.sum_hidden + r0 * n_out;
     for (int j = 0; j < d.n_heads[c]; ++j) {
       const int w = d.head_w[c];
-      const float* Wh = params + d.woff[c][d.n_layers + j];
+      const float* Wh = params + d.hoff[c][j];
       rl8::st_heads(cur, cur_w, cur_w, Wh, Wh + (size_t)cur_w * w, w, dout, n_out, j * w);
     }
     __syncthreads();
@@ -636,7 +700,7 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     const int top = d.n_layers - 1;
     {
       constexpr int RC = 32;
-      float* dp = region + d.NP * (d.sum_hidden + d.prefix[top]) + r0 * cur_w;
+      float* dp = region + d.NP * (d.sum_hidden + layer(d, c, top).prefix) + r0 * cur_w;
       for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
         for (int rc = 0; rc < R; rc += RC) {
           float acc[RC];
@@ -677,12 +741,13 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
   for (int c = 0; c < 2; ++c) {
     float* region = scratch + d.region[c];
     for (int l = d.n_layers - 1; l > 0; --l) {
-      const int w = d.hidden[l], w_in = d.hidden[l - 1];
-      const float* dp = region + d.NP * (d.sum_hidden + d.prefix[l]) + r0 * w;
-      float* next = region + d.NP * (d.sum_hidden + d.prefix[l - 1]) + r0 * w_in;
-      const float* h = region + d.NP * d.prefix[l - 1] + r0 * w_in;
+      const PpoLayer e = layer(d, c, l), below = layer(d, c, l - 1);
+      const int w = e.hidden, w_in = below.hidden;
+      const float* dp = region + d.NP * (d.sum_hidden + e.prefix) + r0 * w;
+      float* next = region + d.NP * (d.sum_hidden + below.prefix) + r0 * w_in;
+      const float* h = region + d.NP * below.prefix + r0 * w_in;
       const rl8::StRows a{dp, w, w, R, rl8::st_vec(dp, w)};
-      rl8::bwd_product(a, wt + d.cb[c][l], wt + d.cbs[c][l], w_in, st_smem, [&](int r, int u, float v) {
+      rl8::bwd_product(a, wt + e.cb, wt + e.cbs, w_in, st_smem, [&](int r, int u, float v) {
         const float hv = r < nr ? h[(size_t)r * w_in + u] : 0.0f;
         next[(size_t)r * w_in + u] = v * act_grad(hv, d.act);
       });
@@ -692,12 +757,22 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
 
 }  // namespace
 
-// Floats of workspace that rl8_ppo_grads needs for these shapes, or -1.
+// Floats of workspace that rl8_ppo_grads needs for these shapes (at most
+// kWorkspaceFloats), or -1 where it takes no launch of them.
 extern "C" long long rl8_ppo_workspace(int N, int d_in, int n_layers, const int* hidden, int kind,
                                        int act_dim, int n_cat) {
   Layout L;
   if (!make_layout(N, d_in, n_layers, hidden, kind, act_dim, n_cat, &L)) return -1;
-  return L.wt_floats + L.row_floats + L.part_floats + L.stat_floats;
+  return L.tab_floats + L.wt_floats + L.row_floats + L.part_floats + L.stat_floats;
+}
+
+// Rows of a chunk of the row pass and the weight products (N where the
+// whole minibatch fits the budget), or -1.
+extern "C" long long rl8_ppo_chunk_rows(int N, int d_in, int n_layers, const int* hidden, int kind, int act_dim,
+                                        int n_cat) {
+  Layout L;
+  if (!make_layout(N, d_in, n_layers, hidden, kind, act_dim, n_cat, &L)) return -1;
+  return L.chunk;
 }
 
 // cols: obs, actions, logp, advantages, returns (first column of each);
@@ -739,29 +814,32 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  float* wt = workspace;
+  float* wt = workspace + L.tab_floats;
   float* rows = wt + L.wt_floats;
   float* partials = rows + L.row_floats;
   float* stat_part = partials + L.part_floats;
+  if ((err = rl8::upload_table(L.tab, workspace, s)) != cudaSuccess) return (int)err;
+  d.tab = reinterpret_cast<const PpoLayer*>(workspace);
 
   for (int c = 0; c < 2; ++c) {
     int in = d_in;
     for (int l = 0; l < n_layers; ++l) {
-      const int J = d.hidden[l];
-      const float* W = params + d.woff[c][l];
+      const PpoLayer& e = L.tab[c * n_layers + l];
+      const int J = e.hidden;
+      const float* W = params + e.woff;
       if (L.wide) {
         // The wide route's copies: W for the forward, and (l >= 1) its
         // TF32 halves for the backward's dh products.
         rl8::tile_fwd_kernel<<<rl8::grid_for(rl8::fwd_copy_floats(in, J)), kThreads, 0, s>>>(W, J, in, J, 0,
-                                                                                           wt + d.cf[c][l]);
+                                                                                           wt + e.cf);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         if (l > 0) {
           rl8::tile_bwd_kernel<<<rl8::grid_for(rl8::bwd_copy_floats(J, in)), kThreads, 0, s>>>(
-              W, J, J, in, wt + d.cb[c][l], wt + d.cbs[c][l]);
+              W, J, J, in, wt + e.cb, wt + e.cbs);
           if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         }
       } else if (l > 0) {
-        rl8::transpose_kernel<<<rl8::grid_for((long long)in * J), kThreads, 0, s>>>(W, wt + d.wtoff[c][l], in, J);
+        rl8::transpose_kernel<<<rl8::grid_for((long long)in * J), kThreads, 0, s>>>(W, wt + e.wtoff, in, J);
         if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
       }
       in = J;
@@ -772,52 +850,62 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
                                                 : (L.wide ? ppo_wide_fwd_kernel<true> : ppo_rows_kernel<true>);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
   if (err != cudaSuccess) return (int)err;
-  rows_kernel<<<L.row_blocks, L.wide ? rl8::kStThreads : kThreads, L.smem, s>>>(packed, ec, params, wt, rows,
-                                                                                stat_part, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (L.wide && n_layers > 1) {
     err = cudaFuncSetAttribute(ppo_wide_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
     if (err != cudaSuccess) return (int)err;
-    ppo_wide_bwd_kernel<<<L.row_blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(wt, rows, d);
+  }
+  const int block_rows = L.wide ? rl8::kStRows : kRows;
+  std::vector<Job> jobs;
+  // The chunks of rows, in order: each chunk's row pass writes its row
+  // blocks' stats and its rows' scratch, and its weight products' partials
+  // are summed into grads (the first chunk's written, the others added), so
+  // the sums come in a fixed order and two launches give the same bits.
+  for (long long c0 = 0; c0 < N; c0 += L.chunk) {
+    const long long n = N - c0 < L.chunk ? N - c0 : L.chunk;
+    const int* pk = packed + c0 * D;
+    const int blocks = (int)((n + block_rows - 1) / block_rows);
+    d.N = n;
+    rows_kernel<<<blocks, L.wide ? rl8::kStThreads : kThreads, L.smem, s>>>(pk, ec, params, wt, rows,
+                                                                           stat_part + 4 * (c0 / block_rows), d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (L.wide && n_layers > 1) {
+      ppo_wide_bwd_kernel<<<blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(wt, rows, d);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    jobs.clear();
+    for (int c = 0; c < 2; ++c) {
+      const float* region = rows + d.region[c];
+      // Jobs l < n_layers are the layers, then one per head.
+      for (int l = 0; l < n_layers + d.n_heads[c]; ++l) {
+        const bool is_head = l >= n_layers;
+        const int in_l = is_head ? n_layers : l;  // the layer whose input this job reads
+        const PpoLayer* below = in_l == 0 ? nullptr : &L.tab[c * n_layers + in_l - 1];
+        const int K = below == nullptr ? d_in : below->hidden;
+        const float* a = below == nullptr ? reinterpret_cast<const float*>(pk) + d.obs_col : region + d.NP * below->prefix;
+        const long long a_outer = below == nullptr ? D : below->hidden;
+        if (is_head) {
+          const int j = l - n_layers;
+          jobs.push_back(rl8::make_job(a, a_outer, region + d.NP * 2 * d.sum_hidden + (size_t)j * d.head_w[c],
+                                       d.n_out[c], K, d.head_w[c], d.hoff[c][j]));
+        } else {
+          const PpoLayer& e = L.tab[c * n_layers + l];
+          jobs.push_back(rl8::make_job(a, a_outer, region + d.NP * (d.sum_hidden + e.prefix), e.hidden, K,
+                                       e.hidden, e.woff));
+        }
+      }
+    }
+    int groups = 0;
+    long long rows_per_group = 0;
+    rl8::split_rows(n, &groups, &rows_per_group);
+    if (groups > L.max_groups) {
+      groups = L.max_groups;
+      rows_per_group = (n + groups - 1) / groups;
+    }
+    err = rl8::launch_jobs(jobs.data(), (long long)jobs.size(), n, groups, rows_per_group, L.P, partials, s);
+    if (err != cudaSuccess) return (int)err;
+    rl8::sum_partials_kernel<<<rl8::grid_for(L.P), rl8::kWgThreads, 0, s>>>(partials, groups, L.P, grads, c0 > 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-
-  Jobs tiled;
-  tiled.n = 0;
-  tiled.inner_rows = 1;
-  tiled.rows_per_group = L.rows_per_group;
-  tiled.rows = N;
-  tiled.P = L.P;
-  int tiles = 0;
-  for (int c = 0; c < 2; ++c) {
-    const float* region = rows + d.region[c];
-    // Jobs l < n_layers are the layers, then one per head.
-    for (int l = 0; l < n_layers + d.n_heads[c]; ++l) {
-      Job jb;
-      const bool is_head = l >= n_layers;
-      const int in_l = is_head ? n_layers : l;  // the layer whose input this job reads
-      jb.K = in_l == 0 ? d_in : d.hidden[in_l - 1];
-      jb.J = is_head ? d.head_w[c] : d.hidden[l];
-      jb.bias = 1;
-      jb.a_inner = jb.b_inner = 0;
-      if (in_l == 0) {
-        jb.a = reinterpret_cast<const float*>(packed) + d.obs_col;
-        jb.a_outer = D;
-      } else {
-        jb.a = region + d.NP * d.prefix[in_l - 1];
-        jb.a_outer = d.hidden[in_l - 1];
-      }
-      if (is_head) {
-        jb.b = region + d.NP * 2 * d.sum_hidden + (size_t)(l - n_layers) * d.head_w[c];
-        jb.b_outer = d.n_out[c];
-      } else {
-        jb.b = region + d.NP * (d.sum_hidden + d.prefix[l]);
-        jb.b_outer = jb.J;
-      }
-      jb.off = d.woff[c][l];
-      rl8::add_tiled(jb, &tiled, &tiles);
-    }
-  }
-  return (int)rl8::launch_wgrad(tiled, tiles, L.groups, partials, grads, stat_part, L.row_blocks,
-                                stats, s);
+  rl8::sum_stats_kernel<<<1, rl8::kWgThreads, 0, s>>>(stat_part, L.row_blocks, stats);
+  return (int)cudaGetLastError();
 }

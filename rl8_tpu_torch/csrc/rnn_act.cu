@@ -52,7 +52,7 @@
 //     tile's 32-deep weight slabs, through a 3-stage cp.async ring in shared
 //     memory, and sums x Wi, then h Wh, on the tensor cores in 3xTF32
 //     wgmma (tc_product: each weight slab feeds all 128 rows; a fresh
-//     accumulator every 64 k folded into an f32 sum, so wgmma's truncation
+//     accumulator every 32 k folded into an f32 sum, so wgmma's truncation
 //     does not build up over the 1025- to 3234-deep sums), adds the bias
 //     and runs the cell update on the sums in registers, and writes h', c';
 //   - rnn_heads_kernel over blocks of 8 rows: the heads on the top layer's
@@ -285,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 // The staged route's layer l: blockIdx.x is a tile of 32 units
 // (tc_product's 128 gate columns, in tile_tc_kernel's order), blockIdx.y
 // the first 128-row tile, which steps by gridDim.y; each gate's sum is the
-// products' (x Wi, then h Wh, in 64-deep chunks) plus its bias. x [B, in_w]
+// products' (x Wi, then h Wh, in 32-deep chunks) plus its bias. x [B, in_w]
 // (rows ldx apart) is the layer's input (for l >= 1 layer l - 1's columns
 // of h_out), h0 and c0 the stored states; h' and c' go to layer l's columns
 // of h_out and c_out (rows KH apart).

@@ -86,7 +86,7 @@
 // tensor cores in 3xTF32 wgmma (bwd_product: Wh and Wi as stored, [H,
 // 4H], are the K-major B operand over the units, from big and small TF32
 // halves the launch copies once in the stages' layout, no transposed copy;
-// dz the A operand, split in registers; a fresh accumulator every 64 k).
+// dz the A operand, split in registers; a fresh accumulator every 32 k).
 // Shared memory is the stages, whatever H and the heads; each weight slab
 // a block reads feeds 128 sequences (16 on the narrow route), and offsets
 // are 64-bit. Bound at H 1024 x 65,536 sequences of 4 (wide_recurrent's

@@ -31,7 +31,11 @@
 //   each k step's result toward zero; over a whole K of 1024 to 6468 that
 //   bias reaches 1e-5 to 6e-5 of the outputs (tests/test_torch_tf32.py), so
 //   every kStChunk of k starts a fresh accumulator that a CUDA-core add
-//   (round to nearest) folds into the running f32 sum, in order.
+//   (round to nearest) folds into the running f32 sum, in order. The bias
+//   left in each chunk compounds down a deep chain's dh products: at 64 k a
+//   chunk, 324 layers of 128 put the chain backward's gradients 1.2e-4 off
+//   float64 (the plain f32 version 2.4e-5), so a chunk is one stage (32 k),
+//   whose wgmma results each stage waits for anyway.
 //
 // - tc_product: out[r, n] = sum_k A[r, k] W[k, n] for one tile of kStPass
 //   columns on the tensor cores, 3xTF32 wgmma with bwd_product's scheme, W
@@ -68,7 +72,7 @@ constexpr int kStK = 32;                       // k a stage
 constexpr int kStStages = 3;                   // stages of the ring
 constexpr int kStPass = 128;                   // output units a pass of bwd_product
 constexpr int kStFwdPass = 256;                // output columns a pass of fwd_product
-constexpr int kStChunk = 64;                   // k a wgmma accumulator holds
+constexpr int kStChunk = 32;                   // k a wgmma accumulator holds
 constexpr int kStLdA = kStK + 4;               // a staged row: A fragment loads hit 32 banks
 constexpr int kStAFloats = kStRows * kStLdA;   // a stage's A slab
 constexpr int kStWFloats = kStK * kStPass;     // a stage's weight slab (each of big and small)

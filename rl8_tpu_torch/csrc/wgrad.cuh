@@ -14,6 +14,10 @@
 // a block per kWgThreads columns and group of rows, a thread per column on
 // the CUDA cores.
 //
+// A launch holds at most kMaxWgJobs jobs a list; launch_jobs splits any
+// number of jobs into lists, a launch each (a deep model's layers, several
+// chains' heads).
+//
 // Row i of a job is (i / inner_rows, i % inner_rows): the feedforward
 // update's rows have inner_rows = 1; the recurrent update's rows are
 // (sequence, step) pairs, inner_rows = seq_len, so each operand is read in
@@ -267,14 +271,16 @@ __global__ void __launch_bounds__(kWgThreads) reduce_bias_kernel(Jobs js, float*
   partials[(size_t)blockIdx.y * js.P + jb.off + j] = s;
 }
 
-// grads[p] = sum over groups of partials[g, p], in order of g.
+// grads[p] = sum over groups of partials[g, p], in order of g; with
+// accumulate, added to grads[p] (a launch over chunks of rows: each chunk's
+// sum in chunk order).
 __global__ void sum_partials_kernel(const float* __restrict__ partials, int groups, long long P,
-                                    float* __restrict__ grads) {
+                                    float* __restrict__ grads, int accumulate) {
   for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < P;
        p += (long long)gridDim.x * blockDim.x) {
     float s = partials[p];
     for (int g = 1; g < groups; ++g) s += partials[(size_t)g * P + p];
-    grads[p] = s;
+    grads[p] = accumulate ? grads[p] + s : s;
   }
 }
 
@@ -340,10 +346,67 @@ __host__ inline cudaError_t launch_wgrad(const Jobs& tiled, int tiles, int group
                                          const float* stat_part, int blocks, float* stats, cudaStream_t s) {
   cudaError_t err;
   if ((err = launch_tiled(tiled, tiles, groups, partials, s)) != cudaSuccess) return err;
-  sum_partials_kernel<<<grid_for(tiled.P), kWgThreads, 0, s>>>(partials, groups, tiled.P, grads);
+  sum_partials_kernel<<<grid_for(tiled.P), kWgThreads, 0, s>>>(partials, groups, tiled.P, grads, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sum_stats_kernel<<<1, kWgThreads, 0, s>>>(stat_part, blocks, stats);
   return cudaGetLastError();
+}
+
+// A job with a bias over rows of one outer stride each (inner_rows = 1).
+__host__ inline Job make_job(const float* a, long long a_outer, const float* b, long long b_outer, int K, int J,
+                             long long off) {
+  Job jb;
+  jb.a = a;
+  jb.b = b;
+  jb.a_outer = a_outer;
+  jb.b_outer = b_outer;
+  jb.a_inner = jb.b_inner = 0;
+  jb.off = off;
+  jb.K = K;
+  jb.J = J;
+  jb.bias = 1;
+  jb.tiles_j = jb.tile0 = jb.vec_a = jb.vec_b = 0;
+  return jb;
+}
+
+// Launches the weight products of jobs[0..n) (rows with inner_rows = 1) in
+// lists of at most kMaxWgJobs, tiled and bias-only apart, over `groups`
+// groups of rows_per_group rows, each group writing its partial gradient
+// of every job's parameters: any number of jobs, a launch per full list.
+__host__ inline cudaError_t launch_jobs(const Job* jobs, long long n, long long rows, int groups,
+                                        long long rows_per_group, long long P, float* partials, cudaStream_t s) {
+  Jobs tiled, bias;
+  auto reset = [&](Jobs* js) {
+    js->n = 0;
+    js->inner_rows = 1;
+    js->rows_per_group = rows_per_group;
+    js->rows = rows;
+    js->P = P;
+  };
+  reset(&tiled);
+  reset(&bias);
+  int tiles = 0, bias_tiles = 0;
+  auto flush = [&](bool force) -> cudaError_t {
+    if (tiled.n > 0 && (force || tiled.n == kMaxWgJobs)) {
+      cudaError_t e = launch_tiled(tiled, tiles, groups, partials, s);
+      reset(&tiled);
+      tiles = 0;
+      if (e != cudaSuccess) return e;
+    }
+    if (bias.n > 0 && (force || bias.n == kMaxWgJobs)) {
+      cudaError_t e = launch_bias(bias, bias_tiles, groups, partials, s);
+      reset(&bias);
+      bias_tiles = 0;
+      return e;
+    }
+    return cudaSuccess;
+  };
+  for (long long q = 0; q < n; ++q) {
+    add_job(jobs[q], &tiled, &bias, &tiles, &bias_tiles);
+    cudaError_t err = flush(false);
+    if (err != cudaSuccess) return err;
+  }
+  return flush(true);
 }
 
 }  // namespace

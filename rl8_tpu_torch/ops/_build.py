@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
         # N, d_in, n_layers, hidden, kind, action_dim, n_cat
         lib.rl8_ppo_workspace.argtypes = [i32, i32, i32, ptr, i32, i32, i32]
         lib.rl8_ppo_workspace.restype = ctypes.c_longlong
+        lib.rl8_ppo_chunk_rows.argtypes = [i32, i32, i32, ptr, i32, i32, i32]  # as rl8_ppo_workspace
+        lib.rl8_ppo_chunk_rows.restype = ctypes.c_longlong
         lib.rl8_ppo_grads.argtypes = [
             ptr, i32, i32, ptr,  # packed, N, D, column starts (host int[5])
             ptr, ptr, ptr, ptr, ptr,  # entropy coeff, params, grads, stats, workspace
@@ -166,6 +168,8 @@ def load() -> ctypes.CDLL:
         # N, d_in, spec, spec length
         lib.rl8_chains_partials.argtypes = [i64, i32, ptr, i32]
         lib.rl8_chains_partials.restype = i64
+        lib.rl8_chains_chunk_rows.argtypes = [i64, i32, ptr, i32]  # as rl8_chains_partials
+        lib.rl8_chains_chunk_rows.restype = i64
         lib.rl8_chains_fwd.argtypes = [
             ptr, ptr, ptr, ptr,  # x, params, head outputs (host pointer array), workspace
             i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act

@@ -25,7 +25,6 @@ from .fused_mlp import ACT_FNS, Chain, default_chains, flatten_chains, forward_c
 
 __all__ = ["KINDS", "ActParams", "act_plain", "card_takes_act", "fused_act", "pack_act_params"]
 
-_MAX_LAYERS = 8
 #: Distribution kinds the kernels sample and score: ``Categorical``,
 #: ``Normal`` and ``SquashedNormal``.
 KINDS = ("categorical", "normal", "squashed")
@@ -96,8 +95,6 @@ def pack_act_params(model: Any, *, squashed: bool = False) -> ActParams:
             f"The act kernel supports activations {tuple(ACT_FNS)}, not"
             f" {model.activation_fn!r}."
         )
-    if len(model.hiddens) > _MAX_LAYERS:
-        raise ValueError(f"The act kernel supports at most {_MAX_LAYERS} hidden layers.")
     chains = default_chains(model)
     with torch.no_grad():
         flat = flatten_chains(chains)
@@ -113,8 +110,9 @@ def pack_act_params(model: Any, *, squashed: bool = False) -> ActParams:
 
 
 def _scratch_floats(params: ActParams, B: int, aligned: bool = True) -> int:
-    """``csrc/act.cu``'s scratch for a launch of ``B`` rows (0: none; -1:
-    no route takes these shapes)."""
+    """``csrc/act.cu``'s scratch for a launch of ``B`` rows: the wgmma or
+    the tiled route's table of layers, or the staged route's activations
+    and weight copies (-1: no route takes these shapes)."""
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
     return load().rl8_act_scratch(
         B, params.d_in, len(params.hiddens), hidden, int(params.continuous), params.action_dim, params.n, int(aligned)
@@ -122,11 +120,12 @@ def _scratch_floats(params: ActParams, B: int, aligned: bool = True) -> int:
 
 
 def card_takes_act(params: ActParams) -> bool:
-    """Whether ``csrc/act.cu`` takes these shapes on one of its routes: the
-    staged route takes any width, observation and heads (its activations,
-    heads and weight copies in a scratch allocated per launch). This
-    builds the kernels, if they are not built yet, and asks them; the
-    algorithms ask at build."""
+    """Whether ``csrc/act.cu`` takes these shapes on one of its routes: any
+    depth (each route reads its layers from a table in the scratch), and
+    the staged route takes any width, observation and heads (its
+    activations, heads and weight copies in a scratch allocated per
+    launch). This builds the kernels, if they are not built yet, and asks
+    them; the algorithms ask at build."""
     return _scratch_floats(params, 1) >= 0
 
 
@@ -190,12 +189,15 @@ def fused_act(
     (:func:`card_takes_act`). The shapes pick each kernel's route: the
     categorical kind takes the wgmma route (64-row blocks, products on the
     tensor cores in 3xTF32) where the observation and every hidden layer
-    are at most 256 wide and the parameters are 16-byte aligned; the
-    continuous kinds, and the categorical kind that the wgmma route does
-    not take, take the tiled route (64-row blocks, weights streamed through
-    shared memory, register-tiled f32 products) where every hidden layer is
-    at most 256 wide; the staged route takes wider layers (and inputs or
-    heads too wide for the tiled route): one launch a layer over both
+    are at most 256 wide, the parameters are 16-byte aligned and a chain
+    is at most 32 layers of 256 deep (its accumulators round toward zero
+    at every step of the sum); the continuous kinds, and the categorical
+    kind that the wgmma route does not take, take the tiled route (64-row
+    blocks, weights streamed through shared memory, register-tiled f32
+    products) where every hidden layer is at most 256 wide, at any depth;
+    both read their layers from a table that the launch writes into a
+    scratch allocated here. The staged route takes wider layers (and inputs
+    or heads too wide for the tiled route): one launch a layer over both
     chains, 128-row blocks, operands staged through shared memory, the
     categorical kind's layers in 3xTF32 ``wgmma``, the continuous kinds'
     in f32, then a heads and sampling launch, on a scratch allocated here
@@ -228,10 +230,10 @@ def fused_act(
     logp = torch.empty((B, 1), dtype=torch.float32, device=obs.device)
     values = torch.empty((B, 1), dtype=torch.float32, device=obs.device)
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
-    scratch = torch.empty(floats, dtype=torch.float32, device=obs.device) if floats else None
+    scratch = torch.empty(floats, dtype=torch.float32, device=obs.device)
     ptrs = (
         obs.data_ptr(), params.flat.data_ptr(), actions.data_ptr(), logp.data_ptr(), values.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
+        scratch.data_ptr(),
     )
     dims = (B, params.d_in, len(params.hiddens), hidden)
     act = list(ACT_FNS).index(params.activation)

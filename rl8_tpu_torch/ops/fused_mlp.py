@@ -421,12 +421,14 @@ def _spec(structure: Structure) -> Any:
 
 
 def card_takes_chains(chains: Sequence[Chain]) -> bool:
-    """Whether ``csrc/chains.cu`` takes these chains: at most 4 chains of
-    1 to 8 layers and 1 to 4 heads, of any width (chains too large for
-    the tiled routes take the staged ones, whose activations live in a
-    device scratch). The limit is the kernels' own; this builds them, if
-    they are not built yet, and asks them (the counterpart of
-    ``rl8_tpu``'s ``chains_fit_vmem``)."""
+    """Whether ``csrc/chains.cu`` takes these chains: any number of
+    chains, layers and heads, of any width (chains too large for the tiled
+    routes, or deeper than 8 layers or with more than 4 heads, take the
+    staged ones, whose activations live in a device scratch; the staged
+    backward runs over chunks of rows within a 4 GiB budget, so chains whose
+    weight copies and partials leave no room for one row block are
+    refused). This builds the kernels, if they are not built yet, and asks
+    them (the counterpart of ``rl8_tpu``'s ``chains_fit_vmem``)."""
     structure = chain_structure(chains)
     spec, n = _spec(structure)
     return load().rl8_chains_workspace(1, structure[0], spec, n, 1) >= 0
@@ -505,8 +507,8 @@ def _launch_args(x: torch.Tensor, flat: torch.Tensor, structure: Structure) -> t
     spec, n = _spec(structure)
     if load().rl8_chains_workspace(x.shape[0], structure[0], spec, n, 1) < 0:
         raise NotImplementedError(
-            "The card's chain kernels do not take these chains: they take at most 4 chains"
-            " of 1 to 8 layers and 1 to 4 heads."
+            "The card's chain kernels do not take these chains: their weight copies and partials"
+            " leave no room for one row block in the staged backward's workspace budget."
         )
     return spec, n
 

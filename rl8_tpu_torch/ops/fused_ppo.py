@@ -28,7 +28,7 @@ from ..data import DataKeys
 from ._build import check, load
 from .distmath import LOG_2PI, log_softmax_rows, normal_per_dim_logp, squashed_normal_logp
 from .fused_act import KINDS, ActParams
-from .fused_mlp import ACT_FNS, chains_backward_plain, flatten_chains, forward_chains
+from .fused_mlp import ACT_FNS, chains_backward_plain, flatten_chains, forward_chains, supports_fused_apply
 from .packing import RowUnpacker
 
 __all__ = [
@@ -40,8 +40,6 @@ __all__ = [
     "supports_distribution",
     "supports_fused_update",
 ]
-
-_MAX_LAYERS = 8
 
 
 @dataclass(frozen=True)
@@ -107,27 +105,26 @@ def supports_distribution(model: Any, distribution_cls: Any, *, zero_entropy: bo
 
 
 def supports_fused_update(model: Any, distribution_cls: Any, *, zero_entropy: bool = False) -> bool:
-    """Whether the kernels can evaluate this model/distribution pair: a
-    pair :func:`supports_distribution` takes, with relu or tanh, biased
-    layers, at most 8 of them, and no compute dtype (``rl8_tpu`` keeps an
-    AMP model, ``dtype=bfloat16``, off its kernels too)."""
-    return (
-        supports_distribution(model, distribution_cls, zero_entropy=zero_entropy)
-        and getattr(model, "dtype", None) is None
-        and model.activation_fn in ACT_FNS
-        and bool(model.bias)
-        and len(model.hiddens) <= _MAX_LAYERS
-    )
+    """Whether the kernels can evaluate this model/distribution pair:
+    ``rl8_tpu``'s gate, a model :func:`~rl8_tpu_torch.ops.fused_mlp.
+    supports_fused_apply` takes (relu or tanh, biased layers, float
+    observations, no compute dtype: ``rl8_tpu`` keeps an AMP model,
+    ``dtype=bfloat16``, off its kernels too) in a pair
+    :func:`supports_distribution` takes, at any depth."""
+    return supports_fused_apply(model) and supports_distribution(model, distribution_cls, zero_entropy=zero_entropy)
 
 
 def card_takes_update(params: ActParams) -> bool:
     """Whether ``csrc/ppo.cu`` takes these shapes: its narrow route keeps
     a row block's activations and heads in shared memory (layers up to 736
-    wide at the dummy envs' shapes), its wide route keeps them in the row
-    scratch and stages each product through shared memory (any width, any
-    heads). This builds the kernels, if they are not built yet, and asks
-    them; the algorithms ask at build, so that a shape the kernel does not
-    take raises there and never at a step."""
+    wide at the dummy envs' shapes, any depth), its wide route keeps them
+    in the row scratch and stages each product through shared memory (any
+    width, any heads); both read their layers from a table in the
+    workspace and run over chunks of rows within its 12 GiB budget, so a
+    model whose weight copies and partials leave no room for one row block
+    is refused. This builds the kernels, if they are not built yet, and
+    asks them; the algorithms ask at build, so that a shape the kernel does
+    not take raises there and never at a step."""
     hidden = (ctypes.c_int * len(params.hiddens))(*params.hiddens)
     kind = KINDS.index(params.kind)
     return load().rl8_ppo_workspace(1, params.d_in, len(params.hiddens), hidden, kind, params.action_dim, params.n) >= 0
@@ -238,11 +235,8 @@ def _check(
         raise ValueError("packed, the params and entropy_coeff must be on one device.")
     if cfg.n_rows <= 0 or cfg.accum <= 0:
         raise ValueError("cfg.n_rows and cfg.accum must be positive.")
-    if len(params.hiddens) > _MAX_LAYERS or params.activation not in ACT_FNS:
-        raise ValueError(
-            f"The update kernel supports at most {_MAX_LAYERS} layers and activations"
-            f" {tuple(ACT_FNS)}."
-        )
+    if params.activation not in ACT_FNS:
+        raise ValueError(f"The update kernel supports activations {tuple(ACT_FNS)}.")
 
 
 def ppo_grads_plain(

@@ -190,38 +190,59 @@ def test_swept_layouts_are_the_models_chains(name: str, width: int, d_in: int, l
 
 
 def test_chain_wrappers_refuse_counts_before_any_launch(monkeypatch) -> None:
-    """Chains past the kernels' counts (nine layers here) on tensors that
-    report ``cuda``: both wrappers raise ``NotImplementedError`` naming the
-    counts where the capacity query says -1, before any launch or count;
-    ``card_takes_chains`` is that query at one row (yes at every width)."""
+    """The wrappers refuse no count: chains past the kernels' former counts
+    (5 chains, one of 9 layers, one with 5 heads) on tensors that report
+    ``cuda`` reach the library whole, its capacity query and both launches
+    receiving the full spec (with the allocations and the stream stubbed on
+    this CPU-only build); where the query says -1 (the workspace budget),
+    both raise ``NotImplementedError`` before any launch or count.
+    ``card_takes_chains`` is that query at one row."""
     fused_mlp = importlib.import_module("rl8_tpu_torch.ops.fused_mlp")
-    asked = []
+    asked, launched = [], []
+    answer = {"floats": 7}
 
     class Library:
         def rl8_chains_workspace(self, N, d_in, spec, n, backward):
-            ints = list(spec)[:n]
-            asked.append((N, d_in, backward))
-            return -1 if ints[1] > 8 else 7
+            asked.append((N, d_in, backward, list(spec)[:n]))
+            return answer["floats"]
 
-        def rl8_chains_fwd(self, *args):
-            raise AssertionError("the kernel was launched")
+        def rl8_chains_fwd(self, x, params, outs, work, N, d_in, spec, n, act, device, stream):
+            launched.append(("fwd", N, d_in, list(spec)[:n]))
+            return 0
 
-        rl8_chains_bwd = rl8_chains_fwd
+        def rl8_chains_bwd(self, x, params, douts, dx, grads, work, N, d_in, spec, n, act, device, stream):
+            launched.append(("bwd", N, d_in, list(spec)[:n]))
+            return 0
 
+    layout = (([(16, False)] * 9, [2]), ([(8, True)], [1, 2, 3, 1, 4]), ([(4, False)], [1]), ([(4, True)], [1]),
+              ([(6, False), (6, True)], [2]))
+    chains = _to(_random_chains(22, 3, layout), torch.from_numpy)
+    structure = chain_structure(chains)
+    want = [5]
+    for layers, heads in structure[1]:
+        want += [len(layers), *[v for w, ln in layers for v in (w, int(ln))], len(heads), *heads]
+    real_empty = torch.empty
     monkeypatch.setattr(fused_mlp, "load", Library)
-    deep = _random_chains(22, 3, (([(16, False)] * 9, [2]),))
-    structure = chain_structure(_to(deep, torch.from_numpy))
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **k: real_empty(*a, **k))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})())
     x = _reports_cuda(torch.zeros((5, 3)))
-    flat = _reports_cuda(flatten_chains(_to(deep, torch.from_numpy)))
+    flat = _reports_cuda(flatten_chains(chains))
     launches = (fused_chains_fwd.launches, fused_chains_bwd.launches)
-    with pytest.raises(NotImplementedError, match="at most 4 chains of 1 to 8 layers and 1 to 4 heads"):
+    outs = fused_chains_fwd(x, flat, structure, "relu")
+    assert [tuple(o.shape) for o in outs] == [(5, w) for _, heads in structure[1] for w in heads]
+    douts = [_reports_cuda(torch.zeros(o.shape)) for o in outs]
+    fused_chains_bwd(x, flat, structure, "relu", douts)
+    assert launched == [("fwd", 5, 3, want), ("bwd", 5, 3, want)]
+    assert (fused_chains_fwd.launches, fused_chains_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    assert all(spec == want for *_, spec in asked)
+    assert card_takes_chains(chains) and asked[-1] == (1, 3, 1, want)
+    answer["floats"] = -1
+    with pytest.raises(NotImplementedError, match="workspace budget"):
         fused_chains_fwd(x, flat, structure, "relu")
-    with pytest.raises(NotImplementedError, match="at most 4 chains of 1 to 8 layers and 1 to 4 heads"):
-        fused_chains_bwd(x, flat, structure, "relu", [_reports_cuda(torch.zeros((5, 2)))])
-    assert (fused_chains_fwd.launches, fused_chains_bwd.launches) == launches
-    assert asked == [(5, 3, 1), (5, 3, 1)]
-    assert not card_takes_chains(_to(deep, torch.from_numpy)) and asked[-1] == (1, 3, 1)
-    assert card_takes_chains(_to(_random_chains(23, 7, mule_layout(4096)), torch.from_numpy))
+    with pytest.raises(NotImplementedError, match="workspace budget"):
+        fused_chains_bwd(x, flat, structure, "relu", douts)
+    assert len(launched) == 2
+    assert not card_takes_chains(chains)
 
 
 def test_wide_chains_autograd_through_fused_chains_on_cpu() -> None:

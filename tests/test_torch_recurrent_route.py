@@ -278,12 +278,14 @@ def test_route_flags_match_jax(name, recurrent, kind, jconfig, tconfig, monkeypa
 
 
 def test_nine_layer_feedforward_is_the_known_capacity_difference(monkeypatch) -> None:
-    """The one route the table leaves out, recorded in ROADMAP Queue 3:
-    ``rl8_tpu``'s kernels take a default feedforward model of 9 narrow
-    layers (its gate is their VMEM residency), the port's act and update
-    kernels at most 8, so the port takes the module rollout and the
-    autodiff update there."""
-    cfg = dict(FF, model_config={"hiddens": (8,) * 9})
-    assert _jax_flags(JAlgorithm, jenv.DiscreteDummyEnv, JAlgorithmConfig(**cfg), monkeypatch)[:2] == (True, True)
-    talgo = AlgorithmConfig(**cfg, device="cpu").build(tenv.DiscreteDummyEnv)
-    assert (talgo._fused_act, talgo._fused_update) == (False, False)
+    """The route the table once left out, now in agreement: ``rl8_tpu``'s
+    kernels take a default feedforward model of 9 or 16 narrow layers (its
+    gate is their VMEM residency), and so do the port's act and update
+    kernels, which take any depth; at 512 wide the first depth its gate
+    refuses (23 layers) takes the module rollout and the autodiff update in
+    both packages."""
+    for hiddens, want in (((8,) * 9, (True, True)), ((8,) * 16, (True, True)), ((512,) * 23, (False, False))):
+        cfg = dict(FF, model_config={"hiddens": hiddens})
+        assert _jax_flags(JAlgorithm, jenv.DiscreteDummyEnv, JAlgorithmConfig(**cfg), monkeypatch)[:2] == want
+        talgo = AlgorithmConfig(**cfg, device="cpu").build(tenv.DiscreteDummyEnv)
+        assert (talgo._fused_act, talgo._fused_update) == want

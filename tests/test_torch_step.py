@@ -223,7 +223,7 @@ def test_unported_configurations_raise(kw: dict, error: type) -> None:
     [
         ({"model_config": {"hiddens": HIDDENS, "activation_fn": "gelu"}}, (False, False)),
         ({"model_config": {"hiddens": HIDDENS, "bias": False}}, (False, False)),
-        ({"model_config": {"hiddens": (8,) * 9}}, (False, False)),
+        ({"model_config": {"hiddens": (8,) * 9}}, (True, True)),
         ({"fused_update": False, "fused_act": False}, (False, False)),
         ({"fused_act": False}, (False, True)),
     ],
@@ -234,7 +234,9 @@ def test_default_models_off_the_kernels_match_jax(extra: dict, fused: tuple) -> 
     train as ``rl8_tpu`` trains them (module rollout, autodiff update):
     one whole-buffer ``step()`` from the same numpy weights and buffer
     gives the same losses and parameters. ``fused_act=False`` alone keeps
-    the update kernel (its plain version here) behind the module rollout."""
+    the update kernel (its plain version here) behind the module rollout.
+    Nine layers, which the kernels once refused, now take both kernels'
+    routes, as in ``rl8_tpu`` (tests/test_torch_deep.py has more depths)."""
     config = dict(num_envs=NUM_ENVS, horizon=HORIZON, model_config={"hiddens": HIDDENS}, seed=3,
                   entropy_coeff=0.01)
     config.update(extra)

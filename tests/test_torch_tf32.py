@@ -33,7 +33,7 @@ the act checks' limits, and one TF32 product per f32 product does not.
 The act kernels' staged routes (``csrc/act.cu`` past 256 wide,
 ``csrc/rnn_act.cu`` past the 32-row tiles) run the LSTM's gate products
 and the discrete torso's layers on 3xTF32 ``wgmma`` (``csrc/stage.cuh``'s
-``tc_product``: ``bwd_product``'s fresh accumulator every 64 k, an f32
+``tc_product``: ``bwd_product``'s fresh accumulator every 32 k, an f32
 running sum, the bias added after; for the gates x Wi, its k padded to a
 whole stage of 32, then h Wh, in one run of chunks), and the continuous
 torso's layers in f32 on the CUDA cores (``fwd_product``: each output one
@@ -48,8 +48,8 @@ The update kernels' wide routes (``csrc/stage.cuh``'s ``bwd_product``, in
 staged route (``chains_dh_kernel``) run the backward's dh products on
 3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to 6468. ``wgmma``'s accumulator rounds each k step toward zero; held over the
 whole K, that bias passes a tenth of the update checks' limit from K ~
-2400 up, so the kernel starts a fresh accumulator every 64 k and adds it
-to an f32 running sum. The wide cases emulate exactly that and hold it ten
+2400 up, so the kernel starts a fresh accumulator every 32 k (one stage)
+and adds it to an f32 running sum. The wide cases emulate exactly that and hold it ten
 times inside the limit against float64, where one TF32 product per f32
 product misses the limit and one whole-K accumulator misses the margin.
 """
@@ -142,7 +142,7 @@ def products_3x_rz_whole_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def products_3x_rz_chunked(a: torch.Tensor, b: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+def products_3x_rz_chunked(a: torch.Tensor, b: torch.Tensor, chunk: int = 32) -> torch.Tensor:
     """``a @ b`` as the wide routes' ``bwd_product`` computes it on the
     card: per ``chunk`` of k, a fresh ``wgmma`` accumulator over its k steps
     of 8 (``products_3x_rz_whole_k``), added in order to an f32 running sum
@@ -314,7 +314,7 @@ def wide_dh_operands(K: int, kind: str, seed: int = 11) -> tuple[torch.Tensor, t
 @pytest.mark.parametrize("case", list(WIDE_DH))
 def test_wide_route_dh_products_in_64_deep_wgmma_chunks(case: str) -> None:
     """The wide routes' dh products as ``bwd_product`` sums them (fresh
-    truncating accumulators every 64 k, an f32 running sum) stay ten times
+    truncating accumulators every 32 k, an f32 running sum) stay ten times
     inside the update checks' norm-relative limit against float64; one
     TF32 product per f32 product breaks the limit itself."""
     K, kind = WIDE_DH[case]
@@ -326,7 +326,7 @@ def test_wide_route_dh_products_in_64_deep_wgmma_chunks(case: str) -> None:
 
 @pytest.mark.parametrize("case", ["ppo_2388", "rnn_4096", "rnn_6468", "chain_2382"])
 def test_whole_k_wgmma_accumulator_misses_the_margin_at_wide_depths(case: str) -> None:
-    """Why ``bwd_product`` folds its accumulator every 64 k: one truncating
+    """Why ``bwd_product`` folds its accumulator every 32 k: one truncating
     accumulator over the whole K (as the act kernel's ``wgmma`` route holds
     its 256-deep layers) biases the products past a tenth of the update
     checks' limit at these depths."""
@@ -334,6 +334,32 @@ def test_whole_k_wgmma_accumulator_misses_the_margin_at_wide_depths(case: str) -
     a, w = wide_dh_operands(K, kind)
     want = a.double() @ w.double()
     assert rel_err(products_3x_rz_whole_k(a, w), want) > PPO_GRAD_RTOL / 10
+
+
+def deep_dh_chain(layers: int, products) -> torch.Tensor:
+    """The chain backward's dh down ``layers`` relu layers of 128 units
+    over one 128-row block (MischievousMule's deepest admitted layout is 324
+    layers of 128): dh_{l-1} = (dh_l * mask_l) W_l^T by ``products``, W_l
+    at He's scale, masks half open, from normal cotangents."""
+    rng = np.random.default_rng(31)
+    dh = torch.from_numpy(rng.normal(size=(128, 128)).astype(np.float32))
+    for _ in range(layers):
+        w = torch.from_numpy((rng.normal(size=(128, 128)) * np.sqrt(2.0 / 128)).astype(np.float32))
+        mask = torch.from_numpy(rng.random(size=(128, 128)) > 0.5)
+        dh = products(dh * mask, w.T.contiguous()).float()
+    return dh
+
+
+def test_deep_chain_dh_products_in_32_deep_wgmma_chunks() -> None:
+    """Why ``bwd_product`` folds every 32 k, not 64: each fold leaves the
+    bias of its truncating accumulator, and down a deep chain's dh products
+    that bias compounds. At 324 layers of 128 (the card measured the chain
+    backward 1.2e-4 off float64 at 64 k a chunk, the plain f32 version
+    2.4e-5) 64-deep chunks pass the update checks' norm-relative limit and
+    32-deep ones stay inside it."""
+    want = deep_dh_chain(324, lambda a, b: a.double() @ b.double())
+    assert rel_err(deep_dh_chain(324, products_3x_rz_chunked), want) <= 0.8 * PPO_GRAD_RTOL
+    assert rel_err(deep_dh_chain(324, lambda a, b: products_3x_rz_chunked(a, b, 64)), want) > PPO_GRAD_RTOL
 
 
 def f32_fma_sum(a: torch.Tensor, w: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -404,7 +430,7 @@ def staged_gate_operands(d_x: int, H: int, seed: int = 23):
 @pytest.mark.parametrize("case", ["lstm_1024", "lstm_1617", "lstm_layer2_1024"])
 def test_staged_wgmma_gates_in_64_deep_chunks(case: str) -> None:
     """``rnn_gates_tc_kernel``'s sums (x Wi then h Wh through
-    ``tc_product``'s 64-deep chunks, then the bias) stay ten times inside
+    ``tc_product``'s 32-deep chunks, then the bias) stay ten times inside
     the act checks' limit against float64 at the gate depths of
     ``wide_recurrent`` (1 + 1024), the gate's widest LSTM (1 + 1617) and a
     second 1024-wide layer (1024 + 1024); one TF32 product per f32 product
@@ -430,7 +456,7 @@ def check_staged_wgmma_torso(width: int) -> None:
     """The discrete act kernel's staged route at twin torsos of ``width``
     (the second layer's k 1025 to 2388), as ``wide_sweep`` drives it: 256
     rows of observations 20 N(0, 1) through two relu layers whose products
-    are ``tc_product``'s (64-deep chunks; the first layer's k of 1 padded
+    are ``tc_product``'s (32-deep chunks; the first layer's k of 1 padded
     to a stage), then f32 heads (lecun-normal, as the checks draw them).
     What the act checks compare, the log-probs (A=1, n=2) and the value,
     stays within a quarter of their limit against float64 (torch's own f32

@@ -219,7 +219,8 @@ def test_supports_fused_update_gating() -> None:
     assert supports_fused_update(DefaultDiscreteModel(spec_o, spec_a, activation_fn="tanh"), Categorical)
     assert not supports_fused_update(DefaultDiscreteModel(spec_o, spec_a, activation_fn="gelu"), Categorical)
     assert not supports_fused_update(DefaultDiscreteModel(spec_o, spec_a, bias=False), Categorical)
-    assert not supports_fused_update(DefaultDiscreteModel(spec_o, spec_a, hiddens=(8,) * 9), Categorical)
+    # Any depth, as rl8_tpu's gate (the kernels once stopped at 8 layers).
+    assert supports_fused_update(DefaultDiscreteModel(spec_o, spec_a, hiddens=(8,) * 9), Categorical)
 
     class Custom(DefaultDiscreteModel):
         pass

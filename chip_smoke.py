@@ -132,6 +132,14 @@ non-zero:
    step, backward 16 a step, GAE 1, no act or update kernel) and in the
    bench's bf16 regime with ``fused_forward`` True and False; one warm-up
    and three timed iterations each, the rollout held against the module);
+   ``surface`` (run_surface: a custom model written with the arguments the
+   port gained from ``rl8_tpu``'s surface, a bf16 ``OneHotEmbed`` in its
+   input assembly and ``MLP(dropout=0.1)`` torsos called deterministically
+   under a ``FusedApplySpec``, at the Custom cell's shapes: one warm-up and
+   one timed iteration, chain forward 49, backward 16, GAE 1 launches an
+   iteration and both chain routes asserted, the rollout held against the
+   bf16 module; a seeded dropout draw on the card; the MLflow serving
+   aliases bit-identical to the serving classes);
    ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
    and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
    optimizer's state on the card). Between the squashed path and the
@@ -484,6 +492,7 @@ def main() -> int:
     run_recurrent_module_route(torch, dev)
     run_custom_amp(torch, dev)
     run_custom_models(torch, dev)
+    run_surface(torch, dev, card)
     run_optimizers(torch, dev)
     check_learning(torch, dev)
     check_learning(torch, dev, amp=True)
@@ -1945,6 +1954,78 @@ def custom_model(torch, name: str, seed: int):
     with torch.no_grad():
         lecun_normal_(model.feature_head.weight, gen)
     return model
+
+
+def surface_model_cls(torch):
+    """The ``surface`` phase's model class: a custom feedforward model for
+    ``AlgoTrading`` written as a user of ``rl8_tpu`` writes one with its
+    arguments, at MischievousMule's widths (d_in 7: a 2-wide embedding of
+    the invested flag, the position's log change and four interval sums of
+    a 4-step price window; twin (128, 128) LayerNorm torsos, heads of 3 and
+    1). Its input assembly embeds through ``OneHotEmbed(2, 2, dtype=dtype)``
+    (bf16 by default), its torsos are ``MLP(..., dropout=0.1)`` called
+    deterministically, and it declares a ``FusedApplySpec`` over the two
+    chains. ``tests/test_torch_surface.py`` holds it against a flax twin
+    built from ``rl8_tpu``'s modules."""
+    from torch import nn
+
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.examples.algotrading.models._common import action_mask_logits
+    from rl8_tpu_torch.models import GenericModel, lecun_normal_
+    from rl8_tpu_torch.nn import MLP, OneHotEmbed, dense
+    from rl8_tpu_torch.nn.modules.mlp import prefixed
+    from rl8_tpu_torch.ops.fused_mlp import FusedApplySpec
+    from rl8_tpu_torch.views import ViewRequirement
+
+    class SurfaceModel(GenericModel):
+        def __init__(self, observation_spec, action_spec, /, *, hiddens=(128, 128), dropout: float = 0.1,
+                     seq_len: int = 4, dtype=torch.bfloat16) -> None:
+            super().__init__(observation_spec, action_spec)
+            self.hiddens, self.seq_len, self.dtype, self.activation_fn = tuple(hiddens), seq_len, dtype, "relu"
+            self.invested_embedding = OneHotEmbed(2, 2, dtype=dtype)
+            torso = lambda: MLP(7, self.hiddens, layer_norm=True, dropout=dropout, dtype=dtype)  # noqa: E731
+            self.feature_model, self.vf_model = torso(), torso()
+            self.feature_head = nn.Linear(self.hiddens[-1], 3)
+            self.vf_head = nn.Linear(self.hiddens[-1], 1)
+
+        @property
+        def view_requirements(self) -> dict:
+            return {DataKeys.OBS: ViewRequirement(shift=0),
+                    (DataKeys.OBS, "LOG_CHANGE(price)"): ViewRequirement(shift=self.seq_len)}
+
+        def extra_jax_params(self) -> dict:
+            return prefixed(("invested_embedding",), self.invested_embedding.jax_leaves())
+
+        def reset_parameters(self, generator) -> None:
+            with torch.no_grad():
+                self.invested_embedding.reset_parameters(generator)
+                for layer in (*self.feature_model.layers, *self.vf_model.layers, self.feature_head, self.vf_head):
+                    lecun_normal_(layer.weight, generator)
+                    layer.bias.zero_()
+
+        def assemble(self, obs: dict):
+            price, L = obs["LOG_CHANGE(price)"][DataKeys.INPUTS], self.seq_len
+            sums = [price[:, : L // 4], price[:, : L // 2], price[:, -(L // 2):], price[:, -(L // 4):]]
+            x = torch.cat([self.invested_embedding(obs["invested"].reshape(-1)), obs["LOG_CHANGE(price, position)"],
+                           *(w.sum(dim=1) for w in sums)], dim=-1)
+            return x if self.dtype is None else x.to(self.dtype)
+
+        def forward(self, batch):
+            obs = batch[DataKeys.OBS]
+            x = self.assemble(obs)
+            logits = dense(self.feature_head, torch.relu(self.feature_model(x)), self.dtype)
+            values = dense(self.vf_head, torch.relu(self.vf_model(x)), self.dtype)
+            return {"logits": logits.float().reshape(-1, 1, 3) + action_mask_logits(obs)}, values.float()
+
+        def fused_apply_spec(self):
+            def finalize(batch, outs):
+                (logits,), (values,) = outs
+                return {"logits": logits.reshape(-1, 1, 3) + action_mask_logits(batch[DataKeys.OBS])}, values
+
+            return FusedApplySpec(assemble=lambda batch: self.assemble(batch[DataKeys.OBS]), finalize=finalize,
+                                  chain_names=(("feature_model", ("feature_head",)), ("vf_model", ("vf_head",))))
+
+    return SurfaceModel
 
 
 #: The custom-model cells' chains: AttentiveAlpaca's (d_in 11: the
@@ -4803,6 +4884,158 @@ def run_custom_amp(torch, dev) -> None:
         if fused:
             worst, _ = check_custom_rollout(torch, algo, AMP_RTOL, AMP_ATOL)
             emit({"phase": "custom_amp_rollout_vs_bf16_module", "max_abs_err": worst})
+
+
+#: The surface phase's dropout draw: its rate (the surface model's) and
+#: the allowed deviation of the zero share from it, in standard
+#: deviations of a share of independent Bernoulli draws.
+SURFACE_DROPOUT, SURFACE_SIGMAS = 0.1, 5.0
+
+
+def check_dropout_draws(torch, dev, rows: int = 4096) -> dict:
+    """An ``MLP(7, (128, 128), layer_norm=True, dropout=0.1)`` on the card,
+    its last layer the identity so that its output is the dropped-out
+    hidden activation, called with ``deterministic=False`` and a seeded
+    CUDA ``torch.Generator``: among the units the deterministic call
+    leaves nonzero (relu zeroes the rest), the share of zeros is within
+    SURFACE_SIGMAS of the rate, the survivors are the deterministic
+    output times 1 / (1 - rate), the same seed repeats the mask and another
+    seed draws another. The default call is the deterministic one."""
+    from rl8_tpu_torch.nn import MLP
+
+    p = SURFACE_DROPOUT
+    mlp = MLP(7, (128, 128), layer_norm=True, dropout=p).to(dev)
+    with torch.no_grad():
+        mlp.layers[-1].weight.copy_(torch.eye(128, device=dev))
+        mlp.layers[-1].bias.zero_()
+    x = torch.randn(rows, 7, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    draw = lambda seed: mlp(x, deterministic=False, generator=torch.Generator(device=dev).manual_seed(seed))  # noqa: E731
+    with torch.no_grad():
+        det, a, b, c = mlp(x, deterministic=True), draw(7), draw(7), draw(8)
+        check(torch.equal(mlp(x), det), "surface dropout: the default call is deterministic")
+    live = det != 0
+    n = int(live.sum())
+    share = float(((a == 0) & live).sum()) / n
+    sigma = math.sqrt(p * (1.0 - p) / n)
+    check(abs(share - p) <= SURFACE_SIGMAS * sigma, f"surface dropout: zero share {share} vs {p} (sigma {sigma})")
+    kept = a != 0
+    check(bool(torch.equal(kept, kept & live)), "surface dropout: a unit relu zeroed came back")
+    check(torch.allclose(a[kept], det[kept] / (1.0 - p), rtol=1e-6, atol=0.0), "surface dropout: survivors scaled")
+    check(torch.equal(a, b) and not torch.equal(a, c), "surface dropout: a seed repeats its mask, another does not")
+    return {"rate": p, "zero_share": share, "sigma": sigma, "units": n, "sigmas_allowed": SURFACE_SIGMAS}
+
+
+def check_serving_aliases(torch, dev, policy, obs: dict) -> dict:
+    """``MLflowPolicyModel`` serving ``policy`` (the surface model on the
+    card) on the composite observations ``obs`` (numpy ``[B, T, ...]``),
+    and ``MLflowRecurrentPolicyModel`` serving a default recurrent policy
+    on the card, each bit-identical to ``PolicyModel``'s and
+    ``RecurrentPolicyModel``'s predictions (outputs and new states)."""
+    import numpy as np
+
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.policies import RecurrentPolicy
+    from rl8_tpu_torch.policies.serving import (
+        MLflowPolicyModel,
+        MLflowRecurrentPolicyModel,
+        PolicyModel,
+        RecurrentPolicyModel,
+    )
+    from rl8_tpu_torch.specs import Discrete, Unbounded
+
+    check(MLflowPolicyModel is PolicyModel and MLflowRecurrentPolicyModel is RecurrentPolicyModel,
+          "surface serving: the MLflow names are the serving classes")
+    got, want = MLflowPolicyModel(policy)._predict_arrays(obs), PolicyModel(policy)._predict_arrays(obs)
+    rpolicy = RecurrentPolicy(Unbounded(1), Discrete(3, shape=(1,)))
+    rpolicy.init_params(torch.Generator().manual_seed(12))
+    rpolicy.model.to(dev)
+    robs = {DataKeys.OBS: np.random.default_rng(12).normal(size=(100, 4, 1)).astype(np.float32)}
+    (rgot, rgot_states), (rwant, rwant_states) = (cls(rpolicy)._predict_arrays(robs)
+                                                  for cls in (MLflowRecurrentPolicyModel, RecurrentPolicyModel))
+    check(all(p.is_cuda for m in (policy.model, rpolicy.model) for p in m.parameters()), "surface serving: on the card")
+    for what, g, w in (("feedforward", got, want), ("recurrent", rgot, rwant),
+                       ("recurrent states", rgot_states, rwant_states)):
+        check(sorted(g) == sorted(w) and all(np.array_equal(g[k], w[k]) for k in w),
+              f"surface serving: the MLflow alias's {what} differ")
+    for arrays in (got, rgot):
+        check(all(np.isfinite(v).all() for v in arrays.values()), "surface serving: finite")
+    return {"feedforward_rows": len(got[DataKeys.ACTIONS]), "recurrent_rows": len(rgot[DataKeys.ACTIONS]),
+            "bit_identical": True}
+
+
+def run_surface(torch, dev, card: str) -> None:
+    """The ``surface`` phase: the names of ``rl8_tpu``'s surface that the
+    port gained, on the card. The surface model (surface_model_cls: bf16
+    ``OneHotEmbed``, ``MLP(dropout=0.1)`` torsos called deterministically,
+    a ``FusedApplySpec``) at the custom cell's shapes (``AlgoTrading``, 4096
+    envs, horizon 32, minibatches of 32,768 rows, 4 epochs,
+    ``fused_forward=True``): one warm-up and one timed collect() + step(),
+    the counters set to 0 just before; an iteration launches the chain
+    forward 49 times, the backward 16 and GAE once, and nothing else of
+    ours. The chain kernels' routes on the rollout's rows, the rollout
+    against the bf16 module (AMP_RTOL, AMP_ATOL), a seeded dropout draw on
+    the card (check_dropout_draws), and the MLflow serving aliases
+    (check_serving_aliases). Emits one line with the timed iteration's
+    transitions/s beside the card's name and power limit."""
+    from rl8_tpu_torch import AlgorithmConfig
+    from rl8_tpu_torch.data import DataKeys
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading
+    from rl8_tpu_torch.ops import fused_custom_apply
+
+    t0 = time.perf_counter()
+    algo = AlgorithmConfig(model_cls=surface_model_cls(torch), fused_forward=True, num_envs=4096, horizon=32,
+                           sgd_minibatch_size=32768, device=dev).build(AlgoTrading)
+    h, model = algo.hparams, algo.policy.model
+    check(algo._fused_forward and not (algo._fused_act or algo._fused_update), "surface: the chain kernels' route")
+    check(model.hiddens == (128, 128) and model.dtype is torch.bfloat16 and model.feature_model.dropout == 0.1
+          and h.num_sgd_iters == 4 and h.num_minibatches == 4, "surface: the model and the cell's shape")
+    per_step = h.num_sgd_iters * h.num_minibatches
+    per_iteration = {"chains_fwd": h.horizon + 1 + per_step, "chains_bwd": per_step, "gae": 1}
+    check(per_iteration == {"chains_fwd": 49, "chains_bwd": 16, "gae": 1}, f"surface: launches {per_iteration}")
+    iters = 2
+    collect_ms, step_ms, steps = time_iterations(torch, algo, iters)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    check(launches == {k: iters * v for k, v in per_iteration.items()},
+          f"surface: launches {launches} in {iters} iterations, not {per_iteration} each")
+    for stats in steps:
+        check(all(math.isfinite(v) for v in stats.values()), f"surface: step stats finite: {stats}")
+    for name, param in model.named_parameters():
+        check(bool(torch.isfinite(param).all()), f"surface: parameter {name} finite")
+    check(not algo.state.buffered and int(algo.state.opt_state.count) == iters * per_step,
+          "surface: the buffer is spent and Adam counted every update")
+    worst, _ = check_custom_rollout(torch, algo, AMP_RTOL, AMP_ATOL)
+    views = algo._training_views(algo.state.buffer)
+    with torch.no_grad():
+        routes = {"chains_fwd": launched_route(
+            torch, "surface chain forward", lambda: fused_custom_apply(model, views),
+            {"chains_fwd_tiles_kernel": "tiled", "chains_layer_kernel": "staged"}, "tiled", calls=1)}
+
+    def forward_backward() -> None:
+        (feats, values) = fused_custom_apply(model, views)
+        (feats["logits"].clamp_min(-1e4).sum() + values.sum()).backward()
+
+    routes["chains_bwd"] = launched_route(torch, "surface chain backward", forward_backward,
+                                          {"chains_bwd_tiles_kernel": "tiled", "chains_dh_kernel": "staged"},
+                                          "tiled", calls=1)
+    model.zero_grad(set_to_none=True)
+    dropout = check_dropout_draws(torch, dev)
+    obs = {DataKeys.OBS: _time_major_numpy(algo.state.buffer[DataKeys.OBS], 8, 100)}
+    serving = check_serving_aliases(torch, dev, algo.policy, obs)
+    emit({"phase": "surface", "model": "SurfaceModel", "env": "AlgoTrading", "num_envs": h.num_envs,
+          "horizon": h.horizon, "sgd_minibatch_size": h.sgd_minibatch_size, "num_sgd_iters": h.num_sgd_iters,
+          "dtype": str(model.dtype), "launches_per_iteration": {k: v // iters for k, v in launches.items()},
+          "routes": routes, "rollout_vs_module_max_abs_err": worst, "rtol": AMP_RTOL, "atol": AMP_ATOL,
+          "dropout": dropout, "serving": serving, "collect_ms": collect_ms, "step_ms": step_ms,
+          "transitions_per_s_with_update": h.num_envs * h.horizon / ((collect_ms[0] + step_ms[0]) / 1e3),
+          "card": card, "seconds": time.perf_counter() - t0})
+
+
+def _time_major_numpy(tree, T: int, B: int):
+    """The first ``T`` steps of the first ``B`` envs of a time-major buffer
+    tree, batch-major ``[B, T, ...]``, as numpy."""
+    if isinstance(tree, dict):
+        return {k: _time_major_numpy(v, T, B) for k, v in tree.items()}
+    return tree[:T, :B].transpose(0, 1).cpu().numpy()
 
 
 def custom_cell(torch, name: str, fused: bool, amp: bool):

@@ -10,6 +10,7 @@ device to decide what to do next.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Literal, TypedDict
@@ -218,6 +219,13 @@ class AlgorithmState:
     #: The optimizer's state over the flat parameter vector (Adam's
     #: moments and step count, on the device); ``None`` until built.
     opt_state: Any = None
+
+    def replace(self, **changes: Any) -> "AlgorithmState":
+        """A new state of the same class with ``changes`` applied and the
+        other fields shared; ``self`` is left as it was (flax's
+        ``PyTreeNode.replace``, which ``rl8_tpu/data.py:202``'s state
+        inherits)."""
+        return dataclasses.replace(self, **changes)
 
 
 @dataclass

@@ -153,6 +153,11 @@ class Model(GenericModelBase):
         """Initialize every parameter from ``generator``."""
         raise NotImplementedError
 
+    def forward(self, batch: Any) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """``batch`` -> ``(features, values)``. Must be overridden by
+        subclasses."""
+        raise NotImplementedError
+
 
 class ModelFactory(Protocol):
     """Factory protocol describing how to create a model instance."""

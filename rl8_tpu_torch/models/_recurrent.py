@@ -71,8 +71,26 @@ class RecurrentModel(GenericModelBase):
             device = "cpu" if param is None else param.device
         return self.state_spec.zero((n,), device)
 
+    def fused_apply_spec(self) -> Any:
+        """Optional fused-kernel decomposition for custom recurrent models
+        (see :class:`rl8_tpu_torch.ops.fused_mlp.FusedRecurrentApplySpec`,
+        ``rl8_tpu/models/_recurrent.py:71``).
+
+        Return a ``FusedRecurrentApplySpec`` to run this model's post-RNN
+        torso/head chains through the chain kernels when
+        ``fused_forward=True`` (the recurrent front half and output
+        postprocessing stay in plain PyTorch, differentiably). The default
+        ``None`` keeps the module forward.
+        """
+        return None
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Initialize every parameter from ``generator``."""
+        raise NotImplementedError
+
+    def forward(self, batch: Any, states: Any) -> tuple[tuple[dict[str, torch.Tensor], torch.Tensor], Any]:
+        """``(batch, states)`` -> ``((features, values), new states)``.
+        Must be overridden by subclasses."""
         raise NotImplementedError
 
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -26,10 +27,15 @@ def sinusoidal_embedding(max_len: int, embed_dim: int) -> np.ndarray:
     return pe
 
 
-def one_hot_embed(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def one_hot_embed(table: torch.Tensor, idx: torch.Tensor, dtype: Any = None) -> torch.Tensor:
     """``one_hot(idx) @ table``: the rows of ``table [V, F]`` at ``idx``
     as a dense product, differentiable in ``table`` (the functional form
-    of :class:`OneHotEmbed`, for fused-apply ``assemble`` functions)."""
+    of :class:`OneHotEmbed`, for fused-apply ``assemble`` functions). With
+    a ``dtype`` the table is cast to it and the product runs and returns
+    in it (``rl8_tpu/nn/modules/embeddings.py:76-85``, the port's
+    :func:`~rl8_tpu_torch.nn.modules.mlp.dense` rule)."""
+    if dtype is not None:
+        table = table.to(dtype)
     onehot = torch.nn.functional.one_hot(idx.to(torch.int64), table.shape[0]).to(table.dtype)
     return onehot @ table
 
@@ -43,6 +49,10 @@ class OneHotEmbed(nn.Module):
         num_embeddings: Vocabulary size (the product does this many
             multiply-adds per output).
         features: Embedding feature dimension.
+        dtype: Compute dtype of the product (``rl8_tpu``'s ``dtype``,
+            ``embeddings.py:62,73``): the table stays an f32 parameter,
+            is cast to ``dtype`` and the one-hot product runs and returns
+            in it. ``None`` computes in the table's f32.
 
     Examples:
         >>> import torch
@@ -51,12 +61,15 @@ class OneHotEmbed(nn.Module):
         >>> embed.reset_parameters(torch.Generator().manual_seed(0))
         >>> torch.equal(embed(torch.tensor([1, 0])), embed.embedding.flip(0))
         True
+        >>> OneHotEmbed(2, 3, dtype=torch.bfloat16)(torch.tensor([1, 0])).dtype
+        torch.bfloat16
 
     """
 
-    def __init__(self, num_embeddings: int, features: int) -> None:
+    def __init__(self, num_embeddings: int, features: int, dtype: Any = None) -> None:
         super().__init__()
         self.embedding = nn.Parameter(torch.zeros(num_embeddings, features))
+        self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)``
@@ -69,7 +82,7 @@ class OneHotEmbed(nn.Module):
         return {("embedding",): JaxLeaf(self.embedding, tuple(self.embedding.shape))}
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return one_hot_embed(self.embedding, idx)
+        return one_hot_embed(self.embedding, idx, self.dtype)
 
 
 class PositionalEmbedding(nn.Module):

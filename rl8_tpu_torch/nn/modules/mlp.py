@@ -6,6 +6,9 @@ which is a plain projection, and with ``layer_norm`` flax's LayerNorm
 between each of those hidden layers and its activation. ``layers[i]``
 holds the flax ``Dense_i`` and ``norms[i]`` the flax ``LayerNorm_i``.
 
+A ``dropout`` acts after each hidden activation only when ``forward``
+is called with ``deterministic=False``.
+
 A ``dtype`` is flax's compute dtype (``nn.Dense(dtype=...)``): the
 parameters stay f32, and each layer casts its input and parameters to
 ``dtype`` and returns ``dtype`` (:func:`dense`).
@@ -17,6 +20,7 @@ import math
 from typing import Any, NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .activations import get_activation
@@ -104,6 +108,19 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: Any = None) -> torch.Tensor:
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: None | torch.Generator) -> torch.Tensor:
+    """Inverted dropout at ``rate``: each element is zeroed with
+    probability ``rate`` and the survivors are scaled by ``1 / (1 -
+    rate)``, as flax's ``nn.Dropout`` does. With a ``generator`` the keep
+    mask is ``torch.rand(..., generator=generator) >= rate`` (f32 draws on
+    ``x``'s device), so a seeded generator repeats its mask; without one,
+    ``F.dropout`` draws from the global stream."""
+    if generator is None:
+        return F.dropout(x, rate)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class MLP(nn.Module):
     """Simple multi-layer perceptron.
 
@@ -115,9 +132,22 @@ class MLP(nn.Module):
         layer_norm: Whether to apply layer norm after each hidden linear
             layer but the last, before its activation.
         bias: Whether to include biases.
+        dropout: Dropout rate after each hidden activation, never after
+            the last layer (``rl8_tpu/nn/modules/mlp.py:39,52-53``). It
+            acts only when :meth:`forward` is called with
+            ``deterministic=False``; the default ``0.0`` computes exactly
+            what an MLP without dropout does.
         dtype: Compute dtype (flax's ``dtype``; the parameters stay f32):
             each layer computes in it, each LayerNorm's statistics and
             normalization run in f32 and return it (:class:`LayerNorm`).
+
+    Examples:
+        >>> import torch
+        >>> from rl8_tpu_torch.nn import MLP
+        >>> mlp, x = MLP(3, (8, 2), dropout=0.5), torch.ones(4, 3)
+        >>> draw = lambda: mlp(x, deterministic=False, generator=torch.Generator().manual_seed(0))
+        >>> torch.equal(draw(), draw())  # a seeded generator repeats its mask
+        True
 
     """
 
@@ -129,6 +159,7 @@ class MLP(nn.Module):
         activation_fn: str = "relu",
         layer_norm: bool = False,
         bias: bool = True,
+        dropout: float = 0.0,
         dtype: Any = None,
     ) -> None:
         super().__init__()
@@ -138,6 +169,7 @@ class MLP(nn.Module):
         )
         self.norms = nn.ModuleList(LayerNorm(w, dtype=dtype) for w in hiddens[:-1]) if layer_norm else nn.ModuleList()
         self.activation_fn = activation_fn
+        self.dropout = dropout
         self.dtype = dtype
         self._act = get_activation(activation_fn)
 
@@ -154,10 +186,19 @@ class MLP(nn.Module):
             leaves.update(prefixed((f"LayerNorm_{i}",), norm.jax_leaves()))
         return leaves
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, *, deterministic: bool = True, generator: None | torch.Generator = None
+    ) -> torch.Tensor:
+        """``x [..., in_features]`` -> ``[..., hiddens[-1]]``. With
+        ``deterministic=False`` and a ``dropout``, each hidden activation
+        is dropped out, its mask drawn from ``generator`` when one is
+        given (``rl8_tpu``'s ``__call__(x, deterministic=...)``, whose
+        mask comes from the ``"dropout"`` RNG stream)."""
         for i, layer in enumerate(self.layers[:-1]):
             x = dense(layer, x, self.dtype)
             if self.layer_norm:
                 x = self.norms[i](x)
             x = self._act(x)
+            if self.dropout and not deterministic:
+                x = _dropout(x, self.dropout, generator)
         return dense(self.layers[-1], x, self.dtype)

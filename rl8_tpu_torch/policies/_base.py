@@ -44,6 +44,11 @@ class GenericPolicyBase(Generic[_Model]):
         """Spec defining the policy's model inputs."""
         return self.model.observation_spec  # type: ignore[attr-defined]
 
+    def init_params(self, generator: torch.Generator, /) -> None:
+        """Initialize the model's parameters in place from ``generator``
+        (``rl8_tpu``'s ``init_params(key)`` returns them instead)."""
+        raise NotImplementedError
+
     def save(self, path: str | PathLike[str], /) -> None:
         """Pickle the policy (its model config, distribution and
         parameters, moved to the CPU) to ``path``: the counterpart of

@@ -30,6 +30,8 @@ from ._recurrent import RecurrentPolicy
 __all__ = [
     "PolicyModel",
     "RecurrentPolicyModel",
+    "MLflowPolicyModel",
+    "MLflowRecurrentPolicyModel",
     "get_batch_size_from_model_input",
 ]
 
@@ -271,3 +273,9 @@ class RecurrentPolicyModel:
         outputs, states = self._predict_arrays(model_input)
         B = len(next(iter(states.values())))
         return _to_dataframe(outputs, len(outputs[DataKeys.ACTIONS])), _to_dataframe(states, B)
+
+
+#: ``rl8_tpu``'s aliases under the MLflow names
+#: (``rl8_tpu/policies/serving.py:341-342``).
+MLflowPolicyModel = PolicyModel
+MLflowRecurrentPolicyModel = RecurrentPolicyModel

@@ -23,7 +23,9 @@ non-zero:
    and a ragged 1000, two launches bit-identical, timed beside an empty
    launch of its grid; the discrete PPO update at
    262,144 rows, at a ragged 1,000 rows with entropy, dual clip and
-   accumulation, and at ragged weight tiles; the continuous act kernel
+   accumulation, and at ragged weight tiles, and on its staged route's
+   edges (20,001 rows, 736 wide; routes asserted) and at a 1,306-layer
+   64-wide torso over two chunks; the continuous act kernel
    at obs [8192, 1] (Normal and squashed, stochastic draw for draw and
    deterministic) and at a ragged B=1000, A=4 with tanh layers (its
    tiled route), and at 320/288-wide layers (its staged route), each
@@ -143,8 +145,9 @@ non-zero:
    ``optimizers`` (the discrete cell with Adam, ``torch.optim.AdamW`` flat
    and per leaf, in turns: act 32, GAE 1, update 4 an iteration, the
    optimizer's state on the card). Between the squashed path and the
-   repaired routes, the wide models, whose update kernels run their wide
-   routes (``ppo_wide_fwd_kernel`` and ``ppo_wide_bwd_kernel``,
+   repaired routes, the wide models, whose update kernels run their staged
+   and wide routes (``ppo_staged_fwd_kernel`` and ``ppo_staged_bwd_kernel``,
+   the main path's route too, and
    ``rnn_wide_fwd_kernel`` and ``rnn_wide_bwd_kernel``: 128 rows or
    sequences a block, each product staged through shared memory, the
    forward in f32 on the CUDA cores, the backward's dh products on 3xTF32
@@ -800,8 +803,16 @@ def check_ppo(torch, dev, record: dict) -> None:
     and accumulation, (c) ragged weight tiles (100- and 72-wide tanh
     layers) over three row groups, and the CartPole and MountainCar
     examples' launches (EXAMPLE_UPDATES, the default loss, example_rows
-    rows). Two launches must be bit-identical."""
-    from rl8_tpu_torch.ops import PPOLossConfig
+    rows); then the staged route's edges: ``ragged`` (20,001 rows, a
+    multiple of neither 128 nor 64, with (b)'s heads and loss) and
+    ``w736`` (736-wide layers, the narrow route's widest before the staged
+    route took the large minibatches, at 16,411 rows), each route asserted
+    and their clip ties cleared (clear_clip_ties);
+    and ``deep64``: rl8_tpu's deepest admitted 64-wide torso (1,306 tanh
+    layers) at 12,288 rows, whose row scratch takes two chunks, held to
+    float64 where the plain f32 version drifts off it (compare_ppo_f64).
+    Two launches must be bit-identical."""
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo_grads
     from rl8_tpu_torch.specs import Discrete
 
     configs = {
@@ -818,19 +829,62 @@ def check_ppo(torch, dev, record: dict) -> None:
         configs[example] = dict(N=example_rows(example), spec=Discrete(e["n"], shape=(e["A"],)), model={},
                                 obs_dim=e["obs_dim"], ec=0.0,
                                 loss=dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1))
+    configs["ragged"] = dict(configs["b"], N=20001, model={}, route="staged")
+    configs["w736"] = dict(configs["a"], N=16411, model={"hiddens": (736, 736)}, route="staged")
     for name, c in configs.items():
         seed = sum(map(ord, name))  # ord(name) for the one-letter cases
         model = make_model(torch, c["spec"], seed=40 + seed, obs_dim=c["obs_dim"], **c["model"])
         params, packed, unpack = ppo_inputs(torch, dev, model, c["N"], seed=seed)
         cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0, **c["loss"])
         ec = torch.tensor(c["ec"], device=dev)
+        route = launched_route(torch, f"ppo ({name})", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                               PPO_ROUTES[False], c.get("route"), calls=1)
+        ties = clear_clip_ties(torch, params, packed, unpack, cfg) if "route" in c else None
         result = compare_ppo(torch, f"ppo ({name})", params, packed, unpack, ec, cfg)
         emit({"phase": "kernel_check", "kernel": "ppo_update", "config": name, "N": c["N"],
               "hiddens": list(params.hiddens), "A": params.action_dim, "n": params.n,
-              "activation": params.activation, "entropy_coeff": c["ec"], **c["loss"],
-              **result["summary"]})
+              "activation": params.activation, "entropy_coeff": c["ec"], **c["loss"], "route": route,
+              **({"clip_ties_cleared": ties} if ties is not None else {}), **result["summary"]})
         if name == "a":
             time_ppo(torch, "ppo_update", record, result, params, packed, unpack, ec, cfg)
+    layers, N = GATE_DEEPEST[64], 12288
+    model = deep_model(torch, "categorical", layers, 64, seed=1370, activation="tanh")
+    params, packed, unpack, ec, cfg = deep_update_inputs(torch, dev, model, "categorical", N, seed=1371)
+    chunk = ppo_chunk_rows(params, N)
+    check(-(-N // chunk) == 2, f"ppo (deep64): {chunk}-row chunks, not two")
+    route = launched_route(torch, "ppo (deep64)", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
+                           PPO_ROUTES[False], None, calls=1)
+    result = compare_ppo_f64(torch, "ppo (deep64)", params, packed, unpack, ec, cfg, plain_first=True)
+    emit({"phase": "kernel_check", "kernel": "ppo_update", "config": "deep64", "N": N,
+          "hiddens": f"{layers}x64", "activation": "tanh", "chunk_rows": chunk, "route": route, **result})
+    del model, params, packed
+    torch.cuda.empty_cache()
+
+
+def clear_clip_ties(torch, params, packed, unpack, cfg, band: float = 1e-5) -> int:
+    """Zero (in place) the advantage of every categorical row whose float64
+    probability ratio lies within ``band`` (relative) of a clip boundary, 1
+    - clip or 1 + clip. The surrogate's cotangent jumps there (clipped: 0;
+    not: adv r), and two f32 forwards that sum in different orders (the
+    kernel's and the plain version's, ~1e-6 apart) can put such a row on
+    either side: a whole row's gradient apart, past the checks' limit on
+    the policy chain (one row of ``w736``'s 16,411 did). With a zero
+    advantage both sides give 0. Returns the rows cleared."""
+    from rl8_tpu_torch.ops.fused_act import ActParams
+    from rl8_tpu_torch.ops.fused_mlp import forward_chains
+    from rl8_tpu_torch.ops.fused_ppo import PackedColumns, _categorical_terms
+
+    cols = PackedColumns.from_unpacker(unpack)
+    as_f64 = lambda lo, hi: packed[:, lo:hi].contiguous().view(torch.float32).double()  # noqa: E731
+    chains = ActParams(**{**params.__dict__, "flat": params.flat.double()}).chains()
+    ((logits,), _), _ = forward_chains(as_f64(*cols.obs), chains, params.activation)
+    new_logp = _categorical_terms(packed[:, cols.actions[0]:cols.actions[1]], logits, params.n, cfg)[0]
+    r = torch.exp(new_logp - as_f64(cols.logp, cols.logp + 1)).flatten()
+    near = torch.zeros_like(r, dtype=torch.bool)
+    for edge in (1.0 - cfg.clip_param, 1.0 + cfg.clip_param):
+        near |= (r / edge - 1.0).abs() < band
+    packed[near, cols.advantages] = 0  # the bits of 0.0
+    return int(near.sum())
 
 
 def check_nan_routes(torch, dev) -> None:
@@ -983,11 +1037,21 @@ def time_ppo(torch, kernel: str, record: dict, result: dict, params, packed, unp
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
     )
+    # The yardstick of the weight products alone (no PyTorch call computes the
+    # whole update): one cuBLAS SGEMM a chain of h^T dpre at the top layer's
+    # shapes, [width, N] x [N, width], in f32 (TF32 off), on random operands.
+    gen = torch.Generator(device=packed.device).manual_seed(N)
+    width = params.hiddens[-1]
+    operands = [torch.randn((N, width), generator=gen, device=packed.device) for _ in range(4)]
+    record["library_ms"] = time_ms(torch, lambda: [torch.mm(h.t(), dp) for h, dp in zip(operands[:2], operands[2:])],
+                                   iters=10, warmup=2)[0]
+    del operands
     update_bounds(record, flops, bytes_moved)
     record["host_ms"] = host_ms
     emit({"phase": "kernel_time", "kernel": kernel, "N": N, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+          "library": "two cuBLAS SGEMMs (h^T dpre a chain, f32)",
+          **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")}})
 
 
 def update_bounds(record: dict, flops: int, bytes_moved: int) -> None:
@@ -2745,7 +2809,7 @@ def run_deep_memory(torch, dev, kernels: dict) -> None:
           f"deep_memory update: workspace {workspace}, peak {peak} over the budget")
     halves = check_halves(torch, "deep_memory update (halves)", params, packed, unpack, ec, cfg)
     ms, _ = time_ms(torch, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg), iters=1, warmup=0)
-    record = {"ms": ms, "plain_ms": None, "route": "narrow", "N": N, "chunk_rows": chunk, "workspace_bytes": workspace,
+    record = {"ms": ms, "plain_ms": None, "route": "staged", "N": N, "chunk_rows": chunk, "workspace_bytes": workspace,
               "peak_launch_bytes": peak, "budget_bytes": PPO_BUDGET_BYTES}
     update_bounds(record, *ppo_cost(params, packed))
     emit({"phase": "deep_memory", "kernel": "ppo_update", "hiddens": f"{layers}x256", "parameters": params.flat.numel(),
@@ -3034,7 +3098,7 @@ def run_deep_torso(torch, dev, kernels: dict) -> None:
     act_route = launched_route(torch, "deep_torso act", lambda: fused_act(params, act_obs, (1, 2)),
                                ACT_ROUTES["discrete"], "wgmma")
     ppo_route = launched_route(torch, "deep_torso update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
-                               PPO_ROUTES[False], "narrow", calls=1)
+                               PPO_ROUTES[False], "staged", calls=1)
     act_check = compare_act(torch, "deep_torso act", params, act_obs, f64_fallback=True)
     update_check = compare_ppo(torch, "deep_torso update", params, packed, unpack, ec, cfg)
     vs_float64 = compare_ppo_f64(torch, "deep_torso update", params, packed, unpack, ec, cfg, plain_first=True)
@@ -3185,6 +3249,10 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, squashed=True, **loss)
     out["continuous_ppo_ms"] = device_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
     out["continuous_ppo_split_ms"] = split_ms(lambda: ops.fused_ppo_grads(params, packed, unpack, ec, cfg))
+    for key in ("ppo", "continuous_ppo"):
+        split = out[f"{key}_split_ms"]
+        out[f"{key}_row_pass_ms"] = sum(v for k, v in split.items() if re.search(ROW_PASS_KERNELS, k))
+        out[f"{key}_weight_products_ms"] = sum(v for k, v in split.items() if re.search(WEIGHT_PRODUCT_KERNELS, k))
 
     N = 65536
     model = make_rnn_model(torch, "categorical", seed=110 + ord("a"))
@@ -3262,7 +3330,7 @@ def time_wide_updates(torch, dev, split_ms) -> dict:
         rec = {"ms": time_ms(torch, run, iters=iters, warmup=1)[0],
                "plain_ms": time_ms(torch, plain, iters=max(2, iters // 2), warmup=1)[0]}
         split = split_ms(run)
-        rec["row_pass_ms"] = sum(v for k, v in split.items() if re.search(r"rows_kernel|wide_\w+_kernel|transpose|tile_", k))
+        rec["row_pass_ms"] = sum(v for k, v in split.items() if re.search(ROW_PASS_KERNELS, k))
         rec["weight_products_ms"] = sum(split.values()) - rec["row_pass_ms"]
         rec["split_ms"] = split
         update_bounds(rec, *cost)
@@ -3583,11 +3651,17 @@ WIDE_RECORD = ("ms", "plain_ms", "bound_ms", "bound_tc_ms", "route", "launches_p
 #: last admitted width (2388).
 WIDE_WIDTHS = (737, 1024, 1813, 1814, 2048, 2388)
 #: The update kernel's row-pass routes per distribution family (continuous
-#: or not), by kernel name (for launched_route).
+#: or not), by kernel name (for launched_route): the narrow route (32-row
+#: blocks, small minibatches) and the staged one (128-row blocks).
 PPO_ROUTES = {
-    False: {"ppo_rows_kernel<false": "narrow", "ppo_wide_fwd_kernel<false": "wide"},
-    True: {"ppo_rows_kernel<true": "narrow", "ppo_wide_fwd_kernel<true": "wide"},
+    False: {"ppo_rows_kernel<false": "narrow", "ppo_staged_fwd_kernel<false": "staged"},
+    True: {"ppo_rows_kernel<true": "narrow", "ppo_staged_fwd_kernel<true": "staged"},
 }
+#: The update kernels' launches by part, by kernel name (the profiler's
+#: split): the row pass (the row kernels, and the copies of the weights they
+#: read) and the weight products with their fixed-order sum.
+ROW_PASS_KERNELS = r"rows_kernel|staged_\w+_kernel|wide_\w+_kernel|transpose|tile_"
+WEIGHT_PRODUCT_KERNELS = r"reduce_\w+_kernel|sum_partials_kernel"
 #: The recurrent kernels' routes per distribution family (continuous or
 #: not), by kernel name (for launched_route): the act kernel's 32-row tiles
 #: in shared memory and its staged route (named by its heads kernel); the
@@ -3950,7 +4024,7 @@ def run_wide_torso(torch, dev, kernels: dict) -> None:
     cfg = algo._loss_config(8192)
     ec = torch.tensor(0.0, device=dev)
     ppo_route = launched_route(torch, "wide_torso update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
-                               PPO_ROUTES[False], "wide")
+                               PPO_ROUTES[False], "staged")
     result = compare_ppo(torch, "wide_torso update", params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "wide_torso", "N": 8192, "act_route": act_route,
           "act_max_abs_err": act_err, "update_route": ppo_route, **result["summary"]})
@@ -4003,7 +4077,7 @@ def run_wide_torso(torch, dev, kernels: dict) -> None:
         time_kernel(torch, "continuous_ppo_update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
                     lambda: ppo_grads_plain(params, packed, unpack, ec, cfg), ppo_cost(params, packed),
                     iters=10 if N == 8192 else 3, plain_iters=5 if N == 8192 else 2, N=N, hiddens=[1024, 1024],
-                    kind="squashed", route="wide")
+                    kind="squashed", route="staged")
 
 
 def run_wide_sweep(torch, dev, kernels: dict) -> None:
@@ -4011,7 +4085,7 @@ def run_wide_sweep(torch, dev, kernels: dict) -> None:
     Categorical (DefaultDiscreteModel), Normal (with an entropy bonus) and
     SquashedNormal (DefaultContinuousModel, its mean head scaled to
     WIDE_MEAN_RMS), the act kernel (compare_act; its staged route) and the update
-    kernel (compare_ppo; its wide route) against their plain versions, each
+    kernel (compare_ppo; its staged route) against their plain versions, each
     route asserted; for SquashedNormal also the update on the mean head as
     drawn, deep in the tanh's saturation, against float64 over
     SATURATED_DRAWS input draws (compare_ppo_f64); at
@@ -4061,7 +4135,7 @@ def run_wide_sweep(torch, dev, kernels: dict) -> None:
             ec = torch.tensor(0.01 if kind == "normal" else 0.0, device=dev)
             ppo_route = launched_route(torch, f"{what} update",
                                        lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
-                                       PPO_ROUTES[params.continuous], "wide")
+                                       PPO_ROUTES[params.continuous], "staged")
             result = compare_ppo(torch, f"{what} update", params, packed, unpack, ec, cfg)
             if kind == "squashed":
                 # The same squashed update on the heads as drawn (saturated),
@@ -4117,7 +4191,7 @@ def run_wide_sweep(torch, dev, kernels: dict) -> None:
                             accum=2, use_entropy=True)
         ec = torch.tensor(0.01, device=dev)
         ppo_route = launched_route(torch, f"{what} update", lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
-                                   PPO_ROUTES[params.continuous], "wide")
+                                   PPO_ROUTES[params.continuous], "staged")
         result = compare_ppo(torch, f"{what} update", params, packed, unpack, ec, cfg)
         emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": list(params.hiddens), "kind": kind,
               "obs_dim": obs_dim, "activation": params.activation, "policy_heads": list(params.policy_heads), "N": N,
@@ -4131,7 +4205,7 @@ def run_wide_sweep(torch, dev, kernels: dict) -> None:
     ec = torch.tensor(0.0, device=dev)
     what = "wide_sweep 2000 logits update"
     ppo_route = launched_route(torch, what, lambda: fused_ppo_grads(params, packed, unpack, ec, cfg),
-                               PPO_ROUTES[False], "wide")
+                               PPO_ROUTES[False], "staged")
     result = compare_ppo(torch, what, params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "wide_sweep", "hiddens": [64, 64], "kind": "categorical",
           "policy_heads": list(params.policy_heads), "N": N, "update_route": ppo_route, **result["summary"]})

@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act,ppo_shapes] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -48,7 +48,10 @@ squashed, at 1024 x 8,192, 2388 and 384 x 4,096): ms (stochastic), split,
 the largest deterministic error against the plain version (log-probs,
 values, new states) with the count of differing actions, and bit
 identity; its variants ``heads_rows32``, ``staged_stages2`` and
-``wide_stages4`` are the staged design's ablations. The SASS counts include
+``wide_stages4`` are the staged design's ablations. With ``ppo_shapes``,
+the feedforward update's ms at the shapes the route rule decides between
+its narrow and staged routes (``PPO_SHAPES``; variants ``staged_at_256``
+and ``narrow_rule`` move the rule). The SASS counts include
 shared-memory loads (``LDS``) and warpgroup tensor-core products
 (``HGMMA``); the ptxas lines include its notes of serialized ``wgmma``.
 
@@ -108,6 +111,29 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     )],
     # 64 rows a feedforward row-pass block (32-row weight stages), one block to an SM.
     "ff_rows64": _ROWS64,
+    # The feedforward update's route rule: the staged route at every shape
+    # (staged_at_256), and the narrow route wherever its shared memory fits
+    # (narrow_rule: the rule before the staged route took the minibatches of
+    # 16,384 rows and more).
+    "staged_at_256": [("ppo.cu", "  L->staged = L->smem > kMaxSmem || (N >= kStagedMinRows && d.max_hidden >= kStagedMinWidth);", "  L->staged = true;")],
+    # The staged update kernels' weight slabs by every thread's cp.async
+    # instead of bulk copies.
+    "staged_cp_async": [("ppo.cu", "constexpr bool kBulkSlabs = true;", "constexpr bool kBulkSlabs = false;")],
+    "narrow_rule": [("ppo.cu", "  L->staged = L->smem > kMaxSmem || (N >= kStagedMinRows && d.max_hidden >= kStagedMinWidth);", "  L->staged = L->smem > kMaxSmem;")],
+    # Ablations of the staged row pass (ppo_staged_*_kernel; wrong results,
+    # times only): no forward FMAs, no heads, no top-layer dpre, no loss
+    # terms, no dh products; and of the wgmma weight products: no products,
+    # no conversion of the B chunks.
+    "staged_no_fwd_fma": [("stage.cuh", "        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,\n"
+                           "                     c1 + 128 * h);\n", "")],
+    "staged_no_heads": [("ppo.cu", "              if (lane == 0 && o0 + q < n_out) zs[r * n_out + o0 + q] = sq[q] + hb(o0 + q);\n", "")],
+    "staged_no_top_dpre": [("ppo.cu", "        for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {\n          for (int r8 = 0;",
+                            "        for (int k = threadIdx.x; k < cur_w && R < 0; k += blockDim.x) {\n          for (int r8 = 0;")],
+    "staged_no_loss": [("ppo.cu", "        if (threadIdx.x < er) {\n          const int r = rc + threadIdx.x;",
+                        "        if (threadIdx.x < er && R < 0) {\n          const int r = rc + threadIdx.x;")],
+    "staged_no_bwd_mma": [("stage.cuh", "        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, add);\n", "")],
+    "wgrad_no_mma": [("wgrad.cuh", "        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, ks > 0);", "")],
+    "wgrad_no_convert": [("wgrad.cuh", "      convert(c + 1);\n", ""), ("wgrad.cuh", "    convert(0);\n", "")],
     # The chain backward's forward recompute on the tensor cores (3xTF32)
     # instead of f32 FMAs.
     "chains_tc_forward": [(
@@ -253,9 +279,9 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # No weight slab copies, or no activation slab copies (the products
     # read what the ring held before).
     "wide_no_w_loads": [
-        ("stage.cuh", "      st_load_run(st + kStAFloats, seg[q].w + ((long long)p * Sq + sq) * kStFwdWFloats, kStFwdWFloats);\n", ""),
-        ("stage.cuh", "      st_load_run(st + kStAFloats, big + w, kStWFloats);\n"
-         "      st_load_run(st + kStAFloats + kStWFloats, small + w, kStWFloats);\n", ""),
+        ("stage.cuh", "    for (int i = 0; i < n; ++i) st_load_run(dst[i], src[i], floats);\n", ""),
+        ("stage.cuh", "    mbar_expect(&ring->bar[st], n * bytes);\n    for (int i = 0; i < n; ++i) bulk_copy(dst[i], src[i], bytes, &ring->bar[st]);\n",
+         "    mbar_expect(&ring->bar[st], 0u);\n"),
     ],
     "wide_no_a_loads": [
         ("stage.cuh", "      st_load_rows(st, seg[q].a, sq * kStK);\n", ""),
@@ -331,8 +357,8 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 
 
 def short(kernel: str) -> str | None:
-    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_wide_\w+_kernel<[^>]*>|ppo_wide_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
-                  r"tile_fwd_kernel|tile_bwd_kernel|reduce_\w+_kernel<\w+>|reduce_bias_kernel|"
+    m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_staged_fwd_kernel<[^>]*>|ppo_staged_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
+                  r"tile_fwd_kernel|tile_bwd_kernel|reduce_wgmma_kernel<\w+>|reduce_small_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel|"
                   r"rnn_gates_\w*kernel|rnn_heads_kernel<\w+>|act_layer_\w*kernel|act_heads_kernel<\w+>|tile_tc_kernel)", kernel)
@@ -351,7 +377,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         if m:
             fn = m.group(1)
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
-            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_wide_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_tiled_kernel|chains_bwd_\w+?_kernel|"
+            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_staged_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_wgmma_kernel|reduce_small_kernel|chains_bwd_\w+?_kernel|"
                                r"chains_fwd_\w*?kernel|chains_(?:layer|dh|ln|ln_bwd|heads|dx)_kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
                                r"rnn_act_kernel|gae_kernel|rnn_gates_\w*?kernel|rnn_heads_kernel|act_layer_\w*?kernel|"
                                r"act_heads_kernel)(I\w*)?", fn)
@@ -380,7 +406,7 @@ def ptxas_rows(logs: dict[str, str]) -> list[str]:
         for line in logs[stem].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if re.search("rows_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|"
+                fn = m.group(1) if re.search(r"rows_kernel|staged_\w+_kernel|wide_fwd_kernel|wide_bwd_kernel|tiles_kernel|act_kernel|wgmma_kernel|"
                                              r"chains_\w*kernel|gae_kernel|gates_\w*kernel|layer_\w*kernel|heads_kernel",
                                              m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
@@ -443,6 +469,8 @@ def main() -> int:
         measures.append(wide_measure(torch, dev, split))
     if "wide_act" in kinds:
         measures.append(wide_act_measure(torch, dev, split))
+    if "ppo_shapes" in kinds:
+        measures.append(ppo_shapes_measure(torch, dev))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -518,6 +546,69 @@ def ppo_measure(torch, dev, split):
             "rnn_worst_grad_vs_plain": rnn_error(r1),
             "bit_identical": bool(torch.equal(g1, g2) and torch.equal(r1, r2)),
         }
+
+    return measure
+
+
+#: ppo_shapes_measure's shapes: (name, hiddens, activation, rows, kind, A,
+#: categories, obs dim): check_ppo's configs a, b and c, the examples'
+#: launches (CartPole, MountainCar, Pendulum: example_rows rows), deep_torso's
+#: 16 x 256 and deep_sweep's deep shapes at 8,192 rows, and the route rule's
+#: edges (the staged route's smallest minibatch, ragged row blocks, 64 to
+#: 192 wide at the main path's rows, 736 wide).
+PPO_SHAPES = (
+    ("a", (256, 256), "relu", 8192 * 32, "categorical", 1, 2, 1),
+    ("b", (64, 32), "relu", 1000, "categorical", 2, 3, 3),
+    ("c", (100, 72), "tanh", 9001, "categorical", 3, 2, 5),
+    ("cartpole", (256, 256), "relu", 1024 * 64, "categorical", 1, 3, 5),
+    ("mountain_car", (256, 256), "relu", 1024 * 64, "categorical", 1, 3, 2),
+    ("pendulum", (256, 256), "relu", 1024 * 128, "normal", 1, 0, 3),
+    ("deep_16x256", (256,) * 16, "relu", 8192 * 32, "categorical", 1, 2, 1),
+    ("deep_16x256_8192", (256,) * 16, "relu", 8192, "categorical", 1, 2, 1),
+    ("deep_87x256_8192", (256,) * 87, "relu", 8192, "categorical", 1, 2, 1),
+    ("deep_1306x64_8192", (64,) * 1306, "tanh", 8192, "categorical", 1, 2, 1),
+    ("w256_8192", (256, 256), "relu", 8192, "categorical", 1, 2, 1),
+    ("w256_16384", (256, 256), "relu", 16384, "categorical", 1, 2, 1),
+    ("w256_20001", (256, 256), "relu", 20001, "categorical", 1, 2, 1),
+    ("w64_262144", (64, 64), "relu", 8192 * 32, "categorical", 1, 2, 1),
+    ("w128_262144", (128, 128), "relu", 8192 * 32, "categorical", 1, 2, 1),
+    ("w192_262144", (192, 192), "relu", 8192 * 32, "categorical", 1, 2, 1),
+    ("w736_16384", (736, 736), "relu", 16384, "categorical", 1, 2, 1),
+)
+
+
+def ppo_shapes_measure(torch, dev):
+    """The feedforward update's device ms per launch at PPO_SHAPES (the
+    route rule's evidence: run with the variants that change it)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_ppo_grads
+    from rl8_tpu_torch.specs import Discrete
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+
+    def inputs(name, hiddens, activation, N, kind, A, n, obs_dim):
+        seed = sum(map(ord, name))
+        if kind == "categorical":
+            model = cs.make_model(torch, Discrete(n, shape=(A,)), seed=seed, obs_dim=obs_dim, hiddens=hiddens,
+                                  activation_fn=activation)
+            params, packed, unpack = cs.ppo_inputs(torch, dev, model, N, seed=seed)
+        else:
+            model = cs.make_continuous_model(torch, A, seed=seed, obs_dim=obs_dim, hiddens=hiddens,
+                                             activation_fn=activation)
+            params, packed, unpack, _ = cs.continuous_ppo_inputs(torch, dev, model, N, seed=seed, squashed=False)
+        return params, packed, unpack, PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+
+    def measure() -> dict:
+        out = {}
+        for shape in PPO_SHAPES:
+            params, packed, unpack, cfg = inputs(*shape)
+            run = lambda: fused_ppo_grads(params, packed, unpack, ec, cfg)  # noqa: E731
+            deep = len(shape[1]) > 20
+            out[f"shape_{shape[0]}_ms"] = cs.time_ms(torch, run, iters=2 if deep else 10, warmup=1)[0]
+            del params, packed, unpack
+            torch.cuda.empty_cache()
+        return out
 
     return measure
 

@@ -110,8 +110,9 @@
 //     finally dx_c = dpre_0 W_0^T, a bwd_product where d_in is 8 or more and
 //     warp dot products on the CUDA cores (chains_dx_kernel) below that. One
 //     kind of product a kernel: one holding both spilled at 255 registers
-//     (ppo.cu's wide route). Then wgrad.cuh's split-K weight products (128x128
-//     tensor-core tiles; 256 columns a block for LayerNorm's column sums)
+//     (ppo.cu's earlier wide route). Then wgrad.cuh's split-K weight
+//     products (128x128 3xTF32 wgmma tiles; the CUDA cores for a first
+//     layer's K below 64, the narrow heads and LayerNorm's column sums)
 //     over groups of rows, each group writing its own partial of every
 //     parameter. The groups are bounded by rows and by a budget of
 //     kPartialFloats for all partials (at 2382 wide, 11.4 M parameters,

@@ -1,5 +1,8 @@
-// Warp-level 3xTF32 products on Hopper's tensor cores, shared by the PPO
-// update kernels (ppo.cu, rnn_ppo.cu, and wgrad.cuh's weight products).
+// Warp-level 3xTF32 products on Hopper's tensor cores, shared by the narrow
+// routes of the PPO update kernels (ppo.cu's ppo_rows_kernel, rnn_ppo.cu),
+// the tiled chain backward and the recurrent act kernel; and the TF32 split
+// and cp.async copies that the wgmma products (wgmma.cuh, stage.cuh,
+// wgrad.cuh) use too.
 //
 // mma.sync m16n8k8 with TF32 operands and f32 accumulators: a warp adds a
 // [16, 8] x [8, 8] product into a [16, 8] tile held four floats per lane.

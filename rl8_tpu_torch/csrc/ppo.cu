@@ -43,72 +43,76 @@
 // parallel, and one 256x256 f32 dW (256 KB) does not fit a block's shared
 // memory, so the work is split in passes, with no float atomics (the
 // result is bit-identical from launch to launch):
-//   1. ppo_rows_kernel: a block owns kRows = 32 rows, two blocks to an SM (64
-//      rows a block, one to an SM, made the launch 10.73 ms against 10.09 on
-//      an H100, kernel_variants.py's ff_rows64: the pass waits on latency,
-//      and a second block hides more of it than a weight read feeding 64 rows
-//      saves). It runs each chain's forward with the current layer's
-//      activations in shared memory (mlp.cuh's dense_layer on the CUDA
-//      cores), the per-row losses and head cotangents, and the backward of dh
-//      down the chain: dh_{l-1} = dpre_l W_l^T on the tensor cores (tc_dense:
-//      a transposed copy of W_l streams from L2 in 16-row slices through a
-//      two-stage cp.async ring in shared memory, small enough that two blocks
-//      fit an SM; the 8 warps split the rows 2 ways and the columns 4 ways).
-//      The forward stays on the CUDA cores because the tensor cores round
-//      toward zero (mma.cuh): their bias in h_l reaches the logits and
-//      values, and the loss's cotangents sum it over every row. With the
-//      forward's products on the tensor cores the gradients' error against
-//      the plain version was 4.9e-4 of their norm (the checks allow 1e-4)
-//      against 4.7e-6, and the launch was slower (kernel_variants.py's
-//      tc_forward). The backward's bias only scales each gradient by a
-//      fraction of an ulp. It writes each layer's output h_l and pre-
-//      activation cotangent dpre_l to a scratch in device memory (8 KB per
-//      row at the main path, 2.1 GB at N = 262,144), and its rows' stat sums.
-//      The backward's activation gate reads h_l back from that scratch (this
-//      block's own writes), which keeps two activation buffers in shared
-//      memory.
-//      Wide torsos (the wide route): where two [kRows, ld] activation
-//      buffers do not fit a block's shared memory beside the W stages (ld >
-//      ~771, layers wider than 736 at the dummy envs' shapes; or heads too
-//      wide for it), the row pass is two kernels over blocks of 128 rows
-//      (stage.cuh's kStRows), which keep every activation, head row and
-//      cotangent in the row scratch (its slabs padded to whole row blocks,
-//      NP rows; the block's input rows copied to a slab of their own) and
-//      stream each product's operands, the block's rows and a weight slab,
-//      through a 3-stage cp.async ring in shared memory, 32 deep in k.
-//      ppo_wide_fwd_kernel (one block an SM) runs each chain's forward on
-//      the CUDA cores in f32, register-tiled 8 rows x 16 columns a thread
-//      in 256-column passes (stage.cuh's fwd_product: each output summed in
-//      order of k, as dense_layer sums it), the heads (narrow_head's sums,
-//      stage.cuh's st_heads), the loss terms and the top layer's dpre.
-//      ppo_wide_bwd_kernel (one block an SM; layers >= 2) runs dpre_{l-1} =
-//      (dpre_l W_l^T) act'(h_{l-1}) down each chain on the tensor cores in
-//      3xTF32 wgmma (bwd_product): W_l as stored, [in, out], is the K-major
-//      B operand over the output units, from big and small TF32 halves that
-//      the launch copies once in the stages' layout (no transposed copy),
-//      and the rows' dpre the A operand, split in registers; a fresh
-//      accumulator every 32 k keeps the tensor core's truncation near f32's
-//      rounding. Shared memory is the stages, whatever the width and the
-//      heads, and each weight slab a block reads feeds 128 rows (32 on the
-//      narrow route).
-//      Bound at 1024 x 262,144 (wide_torso's update): the row pass's
-//      products are 2.2e12 FLOP, the forward's 1.1e12 at the CUDA cores'
-//      67 TFLOP/s (16.4 ms) and the dh products' 1.1e12 at 3xTF32 on the
-//      tensor cores' 495 (6.7 ms); the launch's 3.30e12 FLOP, 49.3 ms at
-//      f32. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
-//      chip_smoke.py --time-updates): the launch 90.0-90.7 ms (squashed
-//      92.3), of which the row pass 59.4 (the first kernel ~39, the second
-//      ~19) and the weight products ~31.7, against 171 ms for the earlier
-//      wide route (row pass 142: activations read in place from L1 and L2,
-//      32 rows a block) and 84.3 ms for the plain version (cuBLAS SGEMMs);
-//      at 2388 x 4,096 rows, 32 blocks, 21.4 ms against 34.0.
+//   1. The row pass, on one of two routes that the shapes fix at build
+//      (make_layout): each chain's forward, the per-row losses and head
+//      cotangents, and the backward of dh down the chain, writing each
+//      layer's output h_l and pre-activation cotangent dpre_l to a row
+//      scratch in device memory (8 KB a row at the main path, 2.1 GB at N =
+//      262,144) for the weight products, and its rows' stat sums. The
+//      forward stays in f32 on the CUDA cores, each output summed in order
+//      of k: the tensor cores round toward zero (mma.cuh), their bias in h_l
+//      reaches the logits and values, and the loss's cotangents sum it over
+//      every row (with the forward's products on the tensor cores the
+//      gradients' error against the plain version was 4.9e-4 of their norm,
+//      the checks allow 1e-4; kernel_variants.py's tc_forward). The dh
+//      products run on the tensor cores in 3xTF32; their bias only scales
+//      each gradient by a fraction of an ulp.
+//      The staged route (every minibatch of at least kStagedMinRows rows
+//      whose widest layer has kStagedMinWidth units or more, the main path
+//      among them, and every shape whose narrow row pass does not fit a
+//      block's shared memory: layers wider than 736 at the dummy envs'
+//      shapes, or heads too wide for it) runs two kernels over blocks of
+//      128 rows (stage.cuh's kStRows), one block an SM, which keep every
+//      activation, head row and cotangent in the row scratch (its slabs
+//      padded to whole row blocks, NP rows; the block's input rows copied to
+//      a slab of their own) and stream each product's operands through a
+//      3-stage ring in shared memory, 32 deep in k: the block's rows by
+//      cp.async, each weight slab by one bulk copy (the TMA unit) counted by
+//      the stage's mbarrier (stage.cuh's StRing), from copies of the weights
+//      in the stages' layout that the launch makes once.
+//      ppo_staged_fwd_kernel runs each chain's forward register-tiled, 8 rows
+//      x 16 columns a thread in 256-column passes (stage.cuh's fwd_product),
+//      then the top layer's epilogue through shared memory, as many rows a
+//      round as fit (all 128 at 256 wide): the rows of h_L, the chain's
+//      head weights, the heads (narrow_head's sums, a warp a row), the loss
+//      terms (a thread a row), the cotangents to the scratch and the top
+//      layer's dpre. ppo_staged_bwd_kernel (layers >= 2) runs dpre_{l-1} =
+//      (dpre_l W_l^T) act'(h_{l-1}) down each chain in 3xTF32 wgmma
+//      (stage.cuh's bwd_passes): W_l as stored, [in, out], is the K-major B
+//      operand over the output units, from big and small TF32 halves, and
+//      the rows' dpre the A operand, split in registers; a fresh accumulator
+//      every 32 k keeps the tensor core's truncation near f32's rounding;
+//      each pass's loads of h_{l-1} are all issued before its stores.
+//      This replaces, at the main path, the narrow route's design below,
+//      which waited on latency: 32-row blocks, each weight read from L2
+//      feeding 32 rows, a forward with one thread a column, and dh products
+//      on mma.sync, one instruction an m16n8k8 step (and the earlier wide
+//      kernels, whose epilogue read the row scratch one dependent load at a
+//      time). Each weight slab a stage holds now feeds 128 rows and costs no
+//      thread an instruction. Measured on an NVIDIA H100 80GB HBM3 at
+//      700.00 W (PERF.md §6, chip_smoke.py --time-updates; kernel_variants.py
+//      for the ablations): the launch at the main path 6.19 ms against 10.24
+//      (row pass 4.53 against 6.60: forward kernel 3.20, of which its FMAs
+//      ~1.6 against a 1.04 ms bound; dh kernel 1.33), the wide cell's 67.2
+//      against 90.1.
+//      The narrow route (ppo_rows_kernel) keeps the rest, where the staged
+//      route's 128-row blocks leave SMs idle (8,192 rows are 64 blocks for
+//      132 SMs) or its 256-column forward passes are mostly padding (64
+//      wide: 2.15 ms against 4.12 at 262,144 rows): a block owns kRows = 32
+//      rows, two blocks to an SM, the current layer's activations in shared
+//      memory, the forward on mlp.cuh's dense_layer, the dh products in
+//      tc_dense (3xTF32 mma.sync on a transposed copy of W_l streamed from
+//      L2 in 16-row slices through a two-stage cp.async ring); the
+//      backward's activation gate reads h_l back from the scratch (this
+//      block's own writes).
 //   2. The weight products dW = h_in^T dpre and db = sum(dpre) over rows,
 //      split over up to 64 groups of rows (wgrad.cuh, shared with
-//      rnn_ppo.cu): 128x128 tensor-core tiles for every layer and head, the
-//      first layer's K = d_in and the 2- and 1-wide heads included. Each
-//      group writes its own partial gradient. A chain's heads lie side by
-//      side in its cotangent scratch ([mean | pre] for the continuous policy)
-//      and each head is its own weight product.
+//      rnn_ppo.cu and chains.cu): 3xTF32 wgmma tiles of 128x128 for the
+//      layers' products, the first layer's K = d_in and the 2- and 1-wide
+//      heads on the CUDA cores. Each group writes its own partial gradient.
+//      A chain's heads lie side by side in its cotangent scratch ([mean |
+//      pre] for the continuous policy) and each head is its own weight
+//      product.
 //   3. The partials are summed over groups, and the stats over row blocks,
 //      in a fixed order.
 // Depth. A model may have any number of layers (rl8_tpu's residency gate
@@ -117,7 +121,7 @@
 // the workspace (PpoLayer, table.cuh), which the launch writes before them:
 // no table of fixed size in a kernel's parameters covers every depth. The
 // narrow route's shared memory does not grow with depth, so deep models of
-// up to 736 wide keep it. The row scratch does grow: it holds every h_l
+// up to 736 wide can take it. The row scratch does grow: it holds every h_l
 // and dpre_l of a row, 64 KiB a row at 16 layers of 256 (17.2 GB at
 // 262,144 rows, ~93 GB at 87 layers). So the row pass and the weight
 // products run over chunks of equal rows, as few as fit kWorkspaceFloats
@@ -132,8 +136,9 @@
 // launches them in lists of kMaxWgJobs.
 // The per-row loss terms (policy_row, continuous_row, value_row) are
 // ppo_terms.cuh's, shared with rnn_ppo.cu.
-// Rows past N exist in no buffer: the last row block masks them with
-// selects and stores none of them.
+// On the narrow route rows past N exist in no buffer: the last row block
+// masks them with selects and stores none of them; the staged route's
+// slabs hold whole row blocks, and its padding rows carry zero cotangents.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -177,12 +182,21 @@ constexpr size_t kMaxSmem = 232448;  // shared memory a block may use on an H100
 // (256 MiB) of it: fewer groups of rows for a larger model.
 constexpr long long kWorkspaceFloats = 3LL << 30;
 constexpr long long kPartialFloats = 64LL << 20;
+// The staged route takes every minibatch of at least kStagedMinRows rows
+// whose widest layer has at least kStagedMinWidth units, and whatever the
+// narrow route's shared memory does not fit; the narrow route the rest (see
+// the file's head).
+constexpr long long kStagedMinRows = 16384;
+constexpr int kStagedMinWidth = 128;
+// The staged kernels' weight slabs by bulk copies (stage.cuh's StRing), not
+// every thread's cp.async.
+constexpr bool kBulkSlabs = true;
 
 // One layer of a chain, entry c * n_layers + l of the launch's table in
 // device memory (table.cuh): its width, the offset of its slabs in the
 // chain's row scratch (prefix = sum of the widths below it), its W in
 // params, and its copies in the workspace: the narrow route's W^T (l >= 1),
-// the wide route's W in stage.cuh's forward layout and (l >= 1) its big and
+// the staged route's W in stage.cuh's forward layout and (l >= 1) its big and
 // small TF32 halves for the backward's dh products.
 struct PpoLayer {
   long long woff, wtoff, cf, cb, cbs;
@@ -192,13 +206,15 @@ struct PpoLayer {
 // The loss's columns and constants (LossDims), and the shapes.
 struct Dims : rl8::LossDims {
   long long N;                         // rows of this chunk
-  long long NP;                        // rows of each scratch slab: the chunk's, or whole row blocks (wide route)
-  long long xoff;                      // the wide route's input slab [NP, d_in] in the row scratch
+  long long NP;                        // rows of each scratch slab: the chunk's, or whole row blocks (staged)
+  long long xoff;                      // the staged route's input slab [NP, d_in] in the row scratch
   const PpoLayer* tab;                 // [2][n_layers], in device memory
   int D, obs_col;
   int d_in, n_layers, act, max_hidden;
   long long sum_hidden;
   int ld;                              // row stride of the activation buffers in shared memory
+  int ldh, erows, eout, wstaged;       // staged: the top layer's epilogue, erows rows of ldh floats a round, eout
+                                       // heads, whose weights are in shared memory where wstaged
   int n_heads[2], head_w[2];           // per chain: its heads (at most two: a mean and a log-std), all head_w wide
   int n_out[2];                        // per chain: n_heads * head_w
   long long hoff[2][2];                // offset of head j of chain c's W in params
@@ -215,9 +231,9 @@ struct Layout {
   long long P, tab_floats, wt_floats, row_floats, part_floats, stat_floats;
   long long chunk;  // rows a chunk: whole row blocks, or N
   int max_groups, row_blocks;
-  bool wide;    // the wide route (ppo_wide_fwd_kernel, ppo_wide_bwd_kernel: activations and heads in the row scratch)
+  bool staged;  // the staged route (ppo_staged_fwd_kernel, ppo_staged_bwd_kernel: activations and heads in the row scratch)
   size_t smem;  // the row pass's: the W stages, two activation buffers and the inputs, the heads, the row stats (narrow);
-                // the first wide kernel's: stage.cuh's forward stages and the row stats (its second: rl8::kStBwdSmem)
+                // stage.cuh's stages (both products' rings, and the epilogue's rows) and the row stats (staged)
 };
 
 // The policy chain has one head of act_dim * n_cat logits (categorical)
@@ -277,12 +293,24 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   }
   L->P = off;
   L->smem = sizeof(float) * ((size_t)kWFloats + (size_t)kRows * (2 * d.ld + ((d_in + 3) / 4 * 4) + d.n_out[0] + 4));
-  L->wide = L->smem > kMaxSmem;
-  const int rows = L->wide ? rl8::kStRows : kRows;
+  L->staged = L->smem > kMaxSmem || (N >= kStagedMinRows && d.max_hidden >= kStagedMinWidth);
+  const int rows = L->staged ? rl8::kStRows : kRows;
   L->row_blocks = (int)((N + rows - 1) / rows);
   L->stat_floats = 4LL * L->row_blocks;
-  if (L->wide) {
+  if (L->staged) {
     L->smem = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
+    // The top layer's epilogue: the head weights, and as many of the block's
+    // rows a round as fit the stages beside them and their head outputs.
+    // (Heads too wide for their weights to fit beside a row are read from
+    // L2 instead.)
+    d.ldh = (hidden[n_layers - 1] + 3) / 4 * 4;
+    d.eout = d.n_out[0] > d.n_out[1] ? d.n_out[0] : d.n_out[1];
+    const long long stage = (long long)(rl8::kStFwdSmem / sizeof(float));
+    long long fit = (stage - (long long)(d.ldh + 1) * d.eout) / (d.ldh + d.eout);
+    d.wstaged = fit >= 1;
+    if (!d.wstaged) fit = stage / (d.ldh + d.eout);
+    if (fit < 1) return false;
+    d.erows = (int)(fit < rl8::kStRows ? fit : rl8::kStRows);
     wt = 0;
     for (int c = 0; c < 2; ++c) {
       int in = d_in;
@@ -306,7 +334,7 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   L->part_floats = (long long)L->max_groups * L->P;
   // The row scratch of a chunk: per row, each chain's h_l and dpre_l and its
   // heads' cotangents, and (wide) the inputs.
-  const long long per_row = 4 * d.sum_hidden + d.n_out[0] + d.n_out[1] + (L->wide ? d_in : 0);
+  const long long per_row = 4 * d.sum_hidden + d.n_out[0] + d.n_out[1] + (L->staged ? d_in : 0);
   const long long fixed = L->tab_floats + L->wt_floats + L->part_floats + L->stat_floats;
   if (fixed >= kWorkspaceFloats) return false;
   const long long fit = (kWorkspaceFloats - fixed) / per_row / rows * rows;
@@ -314,14 +342,14 @@ bool make_layout(int N, int d_in, int n_layers, const int* hidden, int kind, int
   // Wide: every slab holds whole row blocks (a multiple of 128 rows, so
   // every slab starts 16-byte aligned), which the blocks' padding rows
   // fill. Narrow: N rows where they fit, else chunks of whole blocks.
-  const long long all = L->wide ? (long long)L->row_blocks * rows : N;
+  const long long all = L->staged ? (long long)L->row_blocks * rows : N;
   const long long chunks = (all + fit - 1) / fit;
   L->chunk = chunks == 1 ? all : ((all + chunks - 1) / chunks + rows - 1) / rows * rows;
   d.NP = L->chunk;
   d.region[0] = 0;
   d.region[1] = d.NP * (2 * d.sum_hidden + d.n_out[0]);
   d.xoff = d.region[1] + d.NP * (2 * d.sum_hidden + d.n_out[1]);
-  L->row_floats = d.xoff + (L->wide ? d.NP * d_in : 0);
+  L->row_floats = d.xoff + (L->staged ? d.NP * d_in : 0);
   return L->smem <= kMaxSmem;
 }
 
@@ -330,19 +358,23 @@ __device__ __forceinline__ PpoLayer layer(const Dims& d, int c, int l) { return 
 
 // ---------------------------------------------------------------- row pass
 
-// The head weight of chain c for concatenated output column o and input k.
+// The head weight of chain c for concatenated output column o and input k,
+// and the bias of output o (in_w: the top layer's width).
 __device__ __forceinline__ float head_weight(const float* params, const Dims& d, int c, int o, int k) {
   const int w = d.head_w[c];
   return __ldg(params + d.hoff[c][o / w] + (size_t)k * w + o % w);
 }
+__device__ __forceinline__ float head_bias(const float* params, const Dims& d, int c, int o, int in_w) {
+  const int w = d.head_w[c];
+  return __ldg(params + d.hoff[c][o / w] + (size_t)in_w * w + o % w);
+}
 
 // out[r, n] = sum_k in[r, k] W[k, n] for the block's kRows rows, on the
-// tensor cores (mma.cuh's 3xTF32). in [kRows, K], rows ld_in apart: in
-// shared memory (ld_in a multiple of 32 plus 4) or, on the wide route, the
-// row scratch; W [K, N] row-major in device memory, streamed kSlice rows at
-// a time through the two stages of ws with cp.async, the next slice's
-// copies in flight during this one's products; out [kRows, N], rows ld_out
-// apart, in shared memory or the row scratch. The 8 warps split the rows 2
+// tensor cores (mma.cuh's 3xTF32). in [kRows, K] in shared memory, rows
+// ld_in apart (a multiple of 32 plus 4); W [K, N] row-major in device
+// memory, streamed kSlice rows at a time through the two stages of ws with
+// cp.async, the next slice's copies in flight during this one's products;
+// out [kRows, N] in shared memory, rows ld_out apart. The 8 warps split the rows 2
 // ways (an m16 tile each) and the columns 4 ways (n tiles of 8
 // interleaved), over passes of kWCols columns.
 __device__ void tc_dense(const float* in, int K, int ld_in, const float* __restrict__ W, int N, float* out,
@@ -590,15 +622,15 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   return act == kRelu ? (h > 0.0f ? 1.0f : 0.0f) : 1.0f - h * h;
 }
 
-// The wide route's row pass, first kernel (see the file's head): kStRows
-// rows a block, one block an SM; both chains' forward, heads and loss
-// terms, and the top layer's dpre, every activation, head row and
-// cotangent in the row scratch.
+// The staged route's row pass, first kernel (see the file's head): kStRows
+// rows a block, one block an SM; per chain the forward, the heads, the loss
+// terms and the top layer's dpre, every activation and cotangent in the row
+// scratch.
 template <bool kContinuous>
 __global__ void __launch_bounds__(rl8::kStThreads, 1)
-    ppo_wide_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
-                        const float* __restrict__ params, const float* __restrict__ wt,
-                        float* __restrict__ scratch, float* __restrict__ stat_part, Dims d) {
+    ppo_staged_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
+                      const float* __restrict__ params, const float* __restrict__ wt,
+                      float* __restrict__ scratch, float* __restrict__ stat_part, Dims d) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
   float* rowv = st_smem + rl8::kStFwdSmem / sizeof(float);  // [R, 4]: pol, vf, ent, kl
@@ -612,7 +644,9 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     x[i] = r < nr ? packed_f[(r0 + r) * d.D + d.obs_col + i % d.d_in] : 0.0f;
   }
   const float ec_scale = d.use_entropy ? ec[0] * d.scale : 0.0f;
-  __syncthreads();
+  __shared__ uint64_t bars[rl8::kStStages];
+  rl8::StRing ring = rl8::st_ring_init(bars);  // its barrier also publishes the input rows
+  rl8::StRing* const slabs = kBulkSlabs ? &ring : nullptr;
 
   for (int c = 0; c < 2; ++c) {
     float* region = scratch + d.region[c];
@@ -655,72 +689,134 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
                 }
               }
             }
-          });
+          },
+          slabs);
       cur = hl;
       cur_w = w;
     }
-    // The heads (narrow_head's sums), into the block's rows of the chain's
-    // cotangent slab, where the loss terms turn them into their cotangents
-    // in place.
+    // The top layer's epilogue, d.erows rows at a time through shared
+    // memory (the stages are free between products): the chain's head
+    // weights, transposed (wsm [n_out][ldh], bsm [n_out]; from L2 where
+    // they do not fit), once; then per
+    // round the rows of h_L (hs), the heads into zs (a warp per row, lane l
+    // summing k = l, l + 32, ... of up to four outputs at once in order, then
+    // an xor butterfly: st_heads' sums, so its bits), the loss terms turning
+    // them into their cotangents in place (a thread per row; rows past N get
+    // zeros), the cotangents to the chain's slab, and dpre_L = (dout @
+    // Wh^T) * act'(h_L) (the heads are narrow: a loop over their outputs).
+    const int top = d.n_layers - 1, lane = threadIdx.x % 32;
+    float* hs = st_smem;                        // [erows][ldh]
+    float* zs = hs + d.erows * d.ldh;           // [erows][n_out]
+    float* wsm = zs + d.erows * d.eout;         // [n_out][ldh]
+    float* bsm = wsm + d.eout * d.ldh;          // [n_out]
     float* dout = region + d.NP * 2 * d.sum_hidden + r0 * n_out;
-    for (int j = 0; j < d.n_heads[c]; ++j) {
-      const int w = d.head_w[c];
-      const float* Wh = params + d.hoff[c][j];
-      rl8::st_heads(cur, cur_w, cur_w, Wh, Wh + (size_t)cur_w * w, w, dout, n_out, j * w);
+    float* dp = region + d.NP * (d.sum_hidden + layer(d, c, top).prefix) + r0 * cur_w;
+    if (d.wstaged) {
+      for (int i = threadIdx.x; i < n_out * cur_w; i += blockDim.x) {
+        const int o = i / cur_w, k = i % cur_w;
+        wsm[o * d.ldh + k] = head_weight(params, d, c, o, k);
+      }
+      for (int o = threadIdx.x; o < n_out; o += blockDim.x) bsm[o] = head_bias(params, d, c, o, cur_w);
     }
-    __syncthreads();
-    // Losses and head cotangents, a thread per row; rows past N get zeros.
-    if (threadIdx.x < R) {
-      const int r = threadIdx.x;
-      float* z = dout + (size_t)r * n_out;
-      float* v = rowv + r * 4;
-      if (r < nr) {
-        const int* row = packed + (r0 + r) * d.D;
-        if (c == 0) {
-          if constexpr (kContinuous) {
-            rl8::continuous_row(row, z, v, d, ec_scale);
+    // The rounds, over hw(o, k), head output o's weight of input k, and
+    // hb(o), its bias: from shared memory where they fit, else from L2 (a
+    // copy of the loop each, so that no product's load sits in a branch).
+    const bool vec = rl8::st_vec(cur, cur_w) && d.ldh % 4 == 0;
+    auto rounds = [&](auto hw, auto hb) {
+      for (int rc = 0; rc < R; rc += d.erows) {
+        const int er = min(d.erows, R - rc);
+        if (vec) {
+          const int q = cur_w / 4;
+          for (int i = threadIdx.x; i < er * q; i += blockDim.x) {
+            const int r = i / q, k = 4 * (i % q);
+            const bool in = rc + r < nr;
+            rl8::cp_async16(hs + r * d.ldh + k, in ? cur + (size_t)(rc + r) * cur_w + k : cur, in ? 16 : 0);
+          }
+        } else {
+          for (int i = threadIdx.x; i < er * cur_w; i += blockDim.x) {
+            const int r = i / cur_w, k = i % cur_w;
+            const bool in = rc + r < nr;
+            rl8::cp_async4(hs + r * d.ldh + k, in ? cur + (size_t)(rc + r) * cur_w + k : cur, in ? 4 : 0);
+          }
+        }
+        rl8::cp_async_commit();
+        rl8::cp_async_wait<0>();
+        __syncthreads();
+        for (int r = threadIdx.x / 32; r < er; r += blockDim.x / 32) {
+          const float* x = hs + r * d.ldh;
+          for (int o0 = 0; o0 < n_out; o0 += 4) {
+            float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+            for (int k = lane; k < cur_w; k += 32) {
+              const float xv = x[k];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                if (o0 + q < n_out) sq[q] = fmaf(xv, hw(o0 + q, k), sq[q]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) sq[q] += __shfl_xor_sync(0xffffffffu, sq[q], off);
+              if (lane == 0 && o0 + q < n_out) zs[r * n_out + o0 + q] = sq[q] + hb(o0 + q);
+            }
+          }
+        }
+        __syncthreads();
+        if (threadIdx.x < er) {
+          const int r = rc + threadIdx.x;
+          float* z = zs + threadIdx.x * n_out;
+          float* v = rowv + r * 4;
+          if (r < nr) {
+            const int* row = packed + (r0 + r) * d.D;
+            if (c == 0) {
+              if constexpr (kContinuous) {
+                rl8::continuous_row(row, z, v, d, ec_scale);
+              } else {
+                rl8::policy_row(row, z, v, d, ec_scale);
+              }
+            } else {
+              rl8::value_row(row, z, v, d);
+            }
           } else {
-            rl8::policy_row(row, z, v, d, ec_scale);
+            for (int o = 0; o < n_out; ++o) z[o] = 0.0f;
+            if (c == 0) {
+              v[0] = v[2] = v[3] = 0.0f;
+            } else {
+              v[1] = 0.0f;
+            }
           }
-        } else {
-          rl8::value_row(row, z, v, d);
         }
-      } else {
-        for (int o = 0; o < n_out; ++o) z[o] = 0.0f;
-        if (c == 0) {
-          v[0] = v[2] = v[3] = 0.0f;
-        } else {
-          v[1] = 0.0f;
+        __syncthreads();
+        for (int i = threadIdx.x; i < er * n_out; i += blockDim.x) dout[(size_t)rc * n_out + i] = zs[i];
+        for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
+          for (int r8 = 0; r8 < er; r8 += 8) {
+            float acc[8];
+            const float w0 = hw(0, k);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) acc[r] = r8 + r < er ? zs[(r8 + r) * n_out] * w0 : 0.0f;
+            for (int o = 1; o < n_out; ++o) {
+              const float w = hw(o, k);
+#pragma unroll
+              for (int r = 0; r < 8; ++r) acc[r] = fmaf(r8 + r < er ? zs[(r8 + r) * n_out + o] : 0.0f, w, acc[r]);
+            }
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              if (r8 + r < er) {
+                dp[(size_t)(rc + r8 + r) * cur_w + k] = acc[r] * act_grad(hs[(r8 + r) * d.ldh + k], d.act);
+              }
+            }
+          }
         }
+        __syncthreads();  // the next rows (or the next chain) reuse hs and zs
       }
+    };
+    if (d.wstaged) {
+      rounds([&](int o, int k) { return wsm[o * d.ldh + k]; }, [&](int o) { return bsm[o]; });
+    } else {
+      rounds([&](int o, int k) { return head_weight(params, d, c, o, k); },
+             [&](int o) { return head_bias(params, d, c, o, cur_w); });
     }
-    __syncthreads();
-    // dpre_L = (dout @ Wh^T) * act'(h_L) over the chain's heads (narrow: a
-    // loop over their outputs), 32 rows at a time.
-    const int top = d.n_layers - 1;
-    {
-      constexpr int RC = 32;
-      float* dp = region + d.NP * (d.sum_hidden + layer(d, c, top).prefix) + r0 * cur_w;
-      for (int k = threadIdx.x; k < cur_w; k += blockDim.x) {
-        for (int rc = 0; rc < R; rc += RC) {
-          float acc[RC];
-          const float w0 = head_weight(params, d, c, 0, k);
-#pragma unroll
-          for (int r = 0; r < RC; ++r) acc[r] = dout[(size_t)(rc + r) * n_out] * w0;
-          for (int o = 1; o < n_out; ++o) {
-            const float w = head_weight(params, d, c, o, k);
-#pragma unroll
-            for (int r = 0; r < RC; ++r) acc[r] = fmaf(dout[(size_t)(rc + r) * n_out + o], w, acc[r]);
-          }
-#pragma unroll
-          for (int r = 0; r < RC; ++r) {
-            const float hv = rc + r < nr ? cur[(size_t)(rc + r) * cur_w + k] : 0.0f;
-            dp[(size_t)(rc + r) * cur_w + k] = acc[r] * act_grad(hv, d.act);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next chain reuses the stages
   }
   if (threadIdx.x < 4) {
     float s = 0.0f;
@@ -729,28 +825,50 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
   }
 }
 
-// The wide route's row pass, second kernel (layers >= 2; see the file's
+
+// The staged route's row pass, second kernel (layers >= 2; see the file's
 // head): down each chain, dpre_{l-1} = (dpre_l W_l^T) * act'(h_{l-1}) on
-// the tensor cores, kStRows rows a block, one block an SM.
+// the tensor cores (bwd_passes), kStRows rows a block, one block an SM;
+// each pass's h_{l-1} loads all issued before its stores.
 __global__ void __launch_bounds__(rl8::kStThreads, 1)
-    ppo_wide_bwd_kernel(const float* __restrict__ wt, float* __restrict__ scratch, Dims d) {
+    ppo_staged_bwd_kernel(const float* __restrict__ wt, float* __restrict__ scratch, Dims d) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
   const long long r0 = (long long)blockIdx.x * R;
   const int nr = (int)min((long long)R, d.N - r0);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  __shared__ uint64_t bars[rl8::kStStages];
+  rl8::StRing ring = rl8::st_ring_init(bars);
+  rl8::StRing* const slabs = kBulkSlabs ? &ring : nullptr;
   for (int c = 0; c < 2; ++c) {
     float* region = scratch + d.region[c];
     for (int l = d.n_layers - 1; l > 0; --l) {
       const PpoLayer e = layer(d, c, l), below = layer(d, c, l - 1);
       const int w = e.hidden, w_in = below.hidden;
-      const float* dp = region + d.NP * (d.sum_hidden + e.prefix) + r0 * w;
+      const float* dpl = region + d.NP * (d.sum_hidden + e.prefix) + r0 * w;
       float* next = region + d.NP * (d.sum_hidden + below.prefix) + r0 * w_in;
       const float* h = region + d.NP * below.prefix + r0 * w_in;
-      const rl8::StRows a{dp, w, w, R, rl8::st_vec(dp, w)};
-      rl8::bwd_product(a, wt + e.cb, wt + e.cbs, w_in, st_smem, [&](int r, int u, float v) {
-        const float hv = r < nr ? h[(size_t)r * w_in + u] : 0.0f;
-        next[(size_t)r * w_in + u] = v * act_grad(hv, d.act);
-      });
+      const rl8::StRows a{dpl, w, w, R, rl8::st_vec(dpl, w)};
+      rl8::bwd_passes(a, wt + e.cb, wt + e.cbs, w_in, st_smem, [&](const float(&sum)[2][32], int u0) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float hv[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            // D [64, 64]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
+            const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+            const int u = u0 + 64 * hh + 8 * (i >> 2) + 2 * t + (i & 1);
+            hv[i] = r < nr && u < w_in ? h[(size_t)r * w_in + u] : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+            const int u = u0 + 64 * hh + 8 * (i >> 2) + 2 * t + (i & 1);
+            if (u < w_in) next[(size_t)r * w_in + u] = sum[hh][i] * act_grad(hv[i], d.act);
+          }
+        }
+      }, slabs);
     }
   }
 }
@@ -827,8 +945,8 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
       const PpoLayer& e = L.tab[c * n_layers + l];
       const int J = e.hidden;
       const float* W = params + e.woff;
-      if (L.wide) {
-        // The wide route's copies: W for the forward, and (l >= 1) its
+      if (L.staged) {
+        // The staged route's copies: W for the forward, and (l >= 1) its
         // TF32 halves for the backward's dh products.
         rl8::tile_fwd_kernel<<<rl8::grid_for(rl8::fwd_copy_floats(in, J)), kThreads, 0, s>>>(W, J, in, J, 0,
                                                                                            wt + e.cf);
@@ -846,15 +964,17 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
     }
   }
 
-  const auto rows_kernel = kind == kCategorical ? (L.wide ? ppo_wide_fwd_kernel<false> : ppo_rows_kernel<false>)
-                                                : (L.wide ? ppo_wide_fwd_kernel<true> : ppo_rows_kernel<true>);
+  const auto rows_kernel = kind == kCategorical
+                               ? (L.staged ? ppo_staged_fwd_kernel<false> : ppo_rows_kernel<false>)
+                               : (L.staged ? ppo_staged_fwd_kernel<true> : ppo_rows_kernel<true>);
   err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.smem);
   if (err != cudaSuccess) return (int)err;
-  if (L.wide && n_layers > 1) {
-    err = cudaFuncSetAttribute(ppo_wide_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
+  if (L.staged && n_layers > 1) {
+    err = cudaFuncSetAttribute(ppo_staged_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)rl8::kStBwdSmem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int block_rows = L.wide ? rl8::kStRows : kRows;
+  const int block_rows = L.staged ? rl8::kStRows : kRows;
   std::vector<Job> jobs;
   // The chunks of rows, in order: each chunk's row pass writes its row
   // blocks' stats and its rows' scratch, and its weight products' partials
@@ -865,11 +985,11 @@ extern "C" int rl8_ppo_grads(const int* packed, int N, int D, const int* cols, c
     const int* pk = packed + c0 * D;
     const int blocks = (int)((n + block_rows - 1) / block_rows);
     d.N = n;
-    rows_kernel<<<blocks, L.wide ? rl8::kStThreads : kThreads, L.smem, s>>>(pk, ec, params, wt, rows,
-                                                                           stat_part + 4 * (c0 / block_rows), d);
+    rows_kernel<<<blocks, L.staged ? rl8::kStThreads : kThreads, L.smem, s>>>(pk, ec, params, wt, rows,
+                                                                             stat_part + 4 * (c0 / block_rows), d);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (L.wide && n_layers > 1) {
-      ppo_wide_bwd_kernel<<<blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(wt, rows, d);
+    if (L.staged && n_layers > 1) {
+      ppo_staged_bwd_kernel<<<blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(wt, rows, d);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     jobs.clear();

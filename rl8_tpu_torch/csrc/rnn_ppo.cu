@@ -60,8 +60,9 @@
 //      outputs: a unit's dh_t, dc_t and gates pass through no barrier.
 //   2. wgrad.cuh's split-K weight products over the N L (sequence, step)
 //      rows, read in place from the scratch with an outer (sequence) and an
-//      inner (step) stride, on tensor-core tiles: dWh (H by 4H, db as its
-//      bias row), dWi and the heads.
+//      inner (step) stride: dWh (H by 4H, db as its bias row) and dWi past
+//      the first layer on 3xTF32 wgmma tiles, the first layer's dWi (K =
+//      d_in) and the heads on the CUDA cores.
 //   3. The fixed-order sums of the partials and of the blocks' stats.
 // Sequences past N are zeros in the last block: their states, inputs and
 // cotangents are 0, and the weight products read rows below N only.
@@ -103,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <vector>
+
 #include "distmath.cuh"
 #include "lstm.cuh"
 #include "mlp.cuh"
@@ -116,7 +119,6 @@ namespace {
 using rl8::FragA;
 using rl8::FragB;
 using rl8::Job;
-using rl8::Jobs;
 using rl8::kCategorical;
 using rl8::kSquashed;
 using rl8::narrow_head;
@@ -131,7 +133,6 @@ constexpr int kMaxHeads = 3;  // policy heads and the value head
 // wide route passes it too; rl8_rnn_ppo_workspace then returns -1 (which
 // ops/fused_rnn_ppo.py:card_takes_rnn_update asks).
 constexpr size_t kMaxSmem = 232448;
-static_assert(2 * kMaxLayers + kMaxHeads <= rl8::kMaxWgJobs, "weight-product jobs");
 
 // The loss's columns (of step 0) and constants (LossDims), and the shapes.
 struct Dims : rl8::LossDims {
@@ -878,13 +879,7 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
 
   // The weight products over the N L (sequence, step) rows: row (n, t) of
   // an operand lies at n * outer + t * inner.
-  Jobs tiled;
-  tiled.n = 0;
-  tiled.inner_rows = L;
-  tiled.rows_per_group = Lo.rows_per_group;
-  tiled.rows = (long long)N * L;
-  tiled.P = Lo.P;
-  int tiles = 0;
+  std::vector<Job> jobs;
   const long long KH = (long long)K * H;
   for (int l = 0; l < K; ++l) {
     Job jb;
@@ -905,7 +900,7 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
       jb.a_outer = d.hs;
       jb.a_inner = KH;
     }
-    rl8::add_tiled(jb, &tiled, &tiles);
+    jobs.push_back(jb);
     // dWh and db: the previous hidden state (slot t).
     jb.K = H;
     jb.bias = 1;
@@ -913,7 +908,7 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
     jb.a = hseq + (size_t)l * H;
     jb.a_outer = d.hs;
     jb.a_inner = KH;
-    rl8::add_tiled(jb, &tiled, &tiles);
+    jobs.push_back(jb);
   }
   for (int q = 0; q <= d.n_heads; ++q) {
     Job jb;
@@ -927,8 +922,13 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
     jb.b = dout + (q < d.n_heads ? q * d.head_w : d.n_out - 1);
     jb.b_outer = d.ds;
     jb.b_inner = d.n_out;
-    rl8::add_tiled(jb, &tiled, &tiles);
+    jobs.push_back(jb);
   }
-  return (int)rl8::launch_wgrad(tiled, tiles, Lo.groups, partials, grads, stat_part, Lo.row_blocks,
-                                stats, s);
+  err = rl8::launch_jobs(jobs.data(), (long long)jobs.size(), (long long)N * L, Lo.groups, Lo.rows_per_group, Lo.P,
+                         partials, s, L);
+  if (err != cudaSuccess) return (int)err;
+  rl8::sum_partials_kernel<<<rl8::grid_for(Lo.P), rl8::kWgThreads, 0, s>>>(partials, Lo.groups, Lo.P, grads, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  rl8::sum_stats_kernel<<<1, rl8::kWgThreads, 0, s>>>(stat_part, Lo.row_blocks, stats);
+  return (int)cudaGetLastError();
 }

@@ -1,14 +1,17 @@
-// Staged block products for the update kernels' wide routes (ppo.cu's
-// ppo_wide_fwd_kernel and ppo_wide_bwd_kernel, rnn_ppo.cu's
-// rnn_wide_fwd_kernel and rnn_wide_bwd_kernel) and the act kernels' staged
-// routes (act.cu's act_layer_kernel and act_layer_tc_kernel, rnn_act.cu's
-// rnn_gates_tc_kernel, and their heads kernels): a block of 256 threads
-// owns kStRows rows whose operands live in device memory (the kernels'
-// scratches, or the packed minibatch), and each product streams both of
-// its operands through a ring of kStStages shared-memory stages filled by
-// cp.async, kStK deep along the reduction axis, so that shared memory is
-// bounded by the stage depth and not by the layer's width, and each weight
-// slab that a stage holds feeds all kStRows rows.
+// Staged block products for the update kernels' staged and wide routes
+// (ppo.cu's ppo_staged_fwd_kernel and ppo_staged_bwd_kernel, the main
+// path's row pass; rnn_ppo.cu's rnn_wide_fwd_kernel and
+// rnn_wide_bwd_kernel), the chain kernels' staged routes and the act
+// kernels' staged routes (act.cu's act_layer_kernel and
+// act_layer_tc_kernel, rnn_act.cu's rnn_gates_tc_kernel, and their heads
+// kernels): a block of 256 threads owns kStRows rows whose operands live in
+// device memory (the kernels' scratches, or the packed minibatch), and each
+// product streams both of its operands through a ring of kStStages
+// shared-memory stages filled by cp.async (the weight slabs by one bulk
+// copy each where the caller passes an StRing), kStK deep along the
+// reduction axis, so that shared memory is bounded by the stage depth and
+// not by the layer's width, and each weight slab that a stage holds feeds
+// all kStRows rows.
 //
 // - fwd_product: out[r, n] = sum_k A[r, k] W[k, n] on the CUDA cores in
 //   f32, register-tiled as tile.cuh's tile_fma (thread (rg, cg) owns rows
@@ -188,11 +191,73 @@ __device__ __forceinline__ void st_load_run(float* dst, const float* __restrict_
   for (int i = 4 * threadIdx.x; i < floats; i += 4 * kStThreads) cp_async16(dst + i, src + i, 16);
 }
 
-// Waits for this thread's copies of the oldest stage in flight and makes
-// the block's copies of it visible to every thread (and, async, to wgmma).
+// A ring whose weight slabs come by bulk copies (the TMA unit: one
+// instruction a slab, its bytes counted by the stage's mbarrier) instead of
+// every thread's cp.async: bar[s] is stage s's mbarrier, bit s of phase the
+// parity of its next phase. st_ring_init sets it up once a kernel (every
+// thread calls it); a product given a ring leaves every phase complete when
+// it returns, so that the next product goes on from the same state.
+struct StRing {
+  uint64_t* bar;
+  uint32_t phase;
+};
+
+__device__ __forceinline__ StRing st_ring_init(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStStages; ++s) mbar_init(&bars[s]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return StRing{bars, 0u};
+}
+
+// Issues the weight runs of stage st: `floats` contiguous floats from each
+// src[i] to dst[i] (i < n): one bulk copy each from the first thread,
+// reporting their bytes to the ring's mbarrier of the stage, or (no ring)
+// every thread's cp.async (st_load_run).
+__device__ __forceinline__ void st_issue_runs(StRing* ring, int st, int n, float* const* dst,
+                                              const float* const* src, int floats) {
+  if (ring == nullptr) {
+    for (int i = 0; i < n; ++i) st_load_run(dst[i], src[i], floats);
+  } else if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)(floats * sizeof(float));
+    async_proxy_fence();  // the block's reads of the stage (before the caller's barrier) come first
+    mbar_expect(&ring->bar[st], n * bytes);
+    for (int i = 0; i < n; ++i) bulk_copy(dst[i], src[i], bytes, &ring->bar[st]);
+  }
+}
+
+// Waits until bar's phase of the given parity has completed; a phase that
+// has not completed after ~10 s of the SM's clock (a copy that never
+// arrives) traps, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void st_mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// Waits for this thread's copies of the oldest stage in flight (st), and for
+// the stage's bulk copies where there is a ring, and makes the block's
+// copies of it visible to every thread (and, async, to wgmma).
 template <bool kAsync>
-__device__ __forceinline__ void st_stage_ready() {
+__device__ __forceinline__ void st_stage_ready(StRing* ring = nullptr, int st = 0) {
   cp_async_wait<kStStages - 2>();
+  if (ring != nullptr) {
+    st_mbar_wait(&ring->bar[st], (ring->phase >> st) & 1u);
+    ring->phase ^= 1u << st;
+  }
   if constexpr (kAsync) async_proxy_fence();
   __syncthreads();
 }
@@ -243,7 +308,8 @@ struct FwdSeg {
 // store(acc, rg, n) takes them. Every thread of the block calls it; it
 // returns after a barrier, with the stores visible to the block.
 template <class Init, class Store>
-__device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, Init init, Store store) {
+__device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, Init init, Store store,
+                            StRing* ring = nullptr) {
   constexpr int RT = kStRows / 16;
   const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
   const int c0 = 4 * cg, c1 = c0 + 64;  // the first tile's columns; the second's are 128 on
@@ -262,7 +328,9 @@ __device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, In
       const int q = s < s1 ? 0 : 1, sq = q == 0 ? s : s - s1;
       const int Sq = (seg[q].a.K + kStK - 1) / kStK;
       st_load_rows(st, seg[q].a, sq * kStK);
-      st_load_run(st + kStAFloats, seg[q].w + ((long long)p * Sq + sq) * kStFwdWFloats, kStFwdWFloats);
+      float* dst = st + kStAFloats;
+      const float* src = seg[q].w + ((long long)p * Sq + sq) * kStFwdWFloats;
+      st_issue_runs(ring, it % kStStages, 1, &dst, &src, kStFwdWFloats);
     }
     cp_async_commit();
   };
@@ -285,7 +353,7 @@ __device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, In
         init(acc[h], n);
       }
     }
-    st_stage_ready<false>();
+    st_stage_ready<false>(ring, it % kStStages);
     issue(it + kStStages - 1);
     const float* st = smem + (it % kStStages) * kStFwdFloats;
     // The stage's k within its segment's K (past it the slabs hold zeros,
@@ -316,13 +384,16 @@ __device__ void fwd_product(const FwdSeg* seg, int n_seg, int N, float* smem, In
 }
 
 // out = A W^T (see the file's head) for `units` output units: rows `a` (K
-// = a.K) against big and small (tile_bwd_kernel's copies). store(r, u, v)
-// takes each output of the block's rows r < kStRows and units u < units,
-// once. Every thread of the block calls it; it returns after a barrier,
-// with the stores visible to the block.
-template <class Store>
-__device__ void bwd_product(const StRows& a, const float* __restrict__ big, const float* __restrict__ small,
-                            int units, float* smem, Store store) {
+// = a.K) against big and small (tile_bwd_kernel's copies). After each pass
+// of kStPass units from u0, done(sum, u0) takes the thread's sums of it
+// once: element i of n64 tile h is row 64 wg + 16 warp + g + 8 ((i >> 1) &
+// 1), unit u0 + 64 h + 8 (i >> 2) + 2 t + (i & 1) (units at or past `units`
+// hold zeros), so that a caller can issue every load its outputs need
+// before its first store. Every thread of the block calls it; it returns
+// after a barrier, with done's stores visible to the block.
+template <class Done>
+__device__ void bwd_passes(const StRows& a, const float* __restrict__ big, const float* __restrict__ small,
+                           int units, float* smem, Done done, StRing* ring = nullptr) {
   constexpr int KSteps = kStK / 8;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -334,8 +405,9 @@ __device__ void bwd_product(const StRows& a, const float* __restrict__ big, cons
       float* st = smem + (it % kStStages) * kStBwdFloats;
       const long long w = (long long)it * kStWFloats;  // pass p, stage s: (p S + s) slabs in
       st_load_rows(st, a, (it % S) * kStK);
-      st_load_run(st + kStAFloats, big + w, kStWFloats);
-      st_load_run(st + kStAFloats + kStWFloats, small + w, kStWFloats);
+      float* dst[2] = {st + kStAFloats, st + kStAFloats + kStWFloats};
+      const float* src[2] = {big + w, small + w};
+      st_issue_runs(ring, it % kStStages, 2, dst, src, kStWFloats);
     }
     cp_async_commit();
   };
@@ -344,7 +416,7 @@ __device__ void bwd_product(const StRows& a, const float* __restrict__ big, cons
   for (int s = 0; s < kStStages - 1; ++s) issue(s);
   for (int it = 0; it < iters; ++it) {
     const int s = it % S;
-    st_stage_ready<true>();
+    st_stage_ready<true>(ring, it % kStStages);
     issue(it + kStStages - 1);
     const float* st = smem + (it % kStStages) * kStBwdFloats;
     const float* As = st + (64 * wg + 16 * warp + g) * kStLdA + t;
@@ -386,21 +458,30 @@ __device__ void bwd_product(const StRows& a, const float* __restrict__ big, cons
 #pragma unroll
         for (int i = 0; i < 32; ++i) sum[h][i] = first ? acc[h][i] : sum[h][i] + acc[h][i];
     }
-    if (s == S - 1) {
-      const int u0 = (it / S) * kStPass;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          // D [64, 64]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
-          const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
-          const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * t + (i & 1);
-          if (u < units) store(r, u, sum[h][i]);
-        }
-    }
+    if (s == S - 1) done(sum, (it / S) * kStPass);
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// bwd_passes with store(r, u, v) taking each output of the block's rows r <
+// kStRows and units u < units, once.
+template <class Store>
+__device__ void bwd_product(const StRows& a, const float* __restrict__ big, const float* __restrict__ small,
+                            int units, float* smem, Store store) {
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  bwd_passes(a, big, small, units, smem, [&](const float(&sum)[2][32], int u0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        // D [64, 64]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
+        const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+        const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (u < units) store(r, u, sum[h][i]);
+      }
+  });
 }
 
 // tc_product's copies of W [K, N] (W[k, n] = src[k * ld + col(n)]; col(n)

@@ -39,7 +39,13 @@ non-zero:
    at two 1024-wide layers (its staged route); the recurrent update at 65,536 sequences of 4
    steps (categorical and squashed), at a ragged 1,000 sequences with two
    layers (entropy, dual clip, accumulation) and at samples that hit the
-   clamp, and at 1024 wide (its wide route, 16 sequences);
+   clamp, on its staged route at the rule's edges (16,384 sequences, and
+   16,383 on the narrow route), at a ragged 20,001 sequences of two layers
+   (entropy, dual clip, accumulation; categorical and Normal), at clamped
+   samples, at the ragged 1,000 sequences 768 wide, and at 1024 wide (16
+   sequences), every route asserted, the update's and the act's library
+   yardsticks (cuDNN ``torch.nn.LSTM`` forward and backward, one
+   ``torch.lstm_cell``) timed beside them in f32;
    the chain forward and backward kernels at MischievousMule's chains
    (4,096 and 32,768 rows), at ragged three-chain tanh LayerNorm mixes
    (1,000 rows, d_in 1 and 64), at zero-variance rows, at 160/136-wide
@@ -148,10 +154,11 @@ non-zero:
    repaired routes, the wide models, whose update kernels run their staged
    and wide routes (``ppo_staged_fwd_kernel`` and ``ppo_staged_bwd_kernel``,
    the main path's route too, and
-   ``rnn_wide_fwd_kernel`` and ``rnn_wide_bwd_kernel``: 128 rows or
-   sequences a block, each product staged through shared memory, the
-   forward in f32 on the CUDA cores, the backward's dh products on 3xTF32
-   ``wgmma``), each route asserted by its kernel's name, each update held
+   ``rnn_staged_fwd_kernel`` and ``rnn_staged_bwd_kernel``, the
+   recurrent main path's route too: 128 rows or sequences a block, each
+   product staged through shared memory, the forward in f32 on the CUDA
+   cores, the backward's dh products on 3xTF32 ``wgmma``), each route
+   asserted by its kernel's name, each update held
    to ``PPO_GRAD_*`` against its plain version and two launches
    bit-identical: ``wide_torso`` (``bench.py:366``'s
    line, a 1024-wide twin torso at 8192 envs, horizon 32: one warm-up,
@@ -252,6 +259,7 @@ non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -900,8 +908,9 @@ def check_nan_routes(torch, dev) -> None:
     (16 layers of 256 on the wgmma and the continuous tiled routes, 12 and
     200 of 64 on the discrete tiled route, 12 of 320 on the continuous
     staged route), each asserted; the
-    recurrent act kernel's 32-row tiles (one 256-wide LSTM layer) and its
-    staged route (1300 wide, and two 1024-wide layers), where the NaN
+    recurrent act kernel's 32-row tiles (one 64-wide LSTM layer) and its
+    staged route (256 wide, the main path's, whose input is folded into
+    the gates' epilogue; 1300 wide; two 1024-wide layers), where the NaN
     row's new states are NaN too; the chain forward's tiled route
     (MischievousMule's chains) and staged route (one 768-wide LayerNorm
     chain; MischievousMule's layout at 1024 wide with a 9-wide head, the
@@ -945,15 +954,16 @@ def check_nan_routes(torch, dev) -> None:
             check(bool(torch.isnan(k[bad]).all()), f"{what}: the kernel's {name} of the NaN row is {k[bad].tolist()}")
             check(torch.allclose(k[rest], p[rest], rtol=ACT_RTOL, atol=ACT_ATOL), f"{what}: the other rows' {name}")
         seen.append(f"{family}_act_{route}_obs{obs_dim}_{len(params.hiddens)}x{params.hiddens[0]}")
-    # The recurrent act kernel's routes: 32-row tiles (the main path's
-    # 256-wide LSTM) and the staged route (1300 wide; two 1024-wide layers).
-    for H, K in ((256, 1), (1300, 1), (1024, 2)):
+    # The recurrent act kernel's routes: 32-row tiles (a 64-wide LSTM) and
+    # the staged route (the main path's 256-wide LSTM, its input folded into
+    # the gates' epilogue; 1300 wide; two 1024-wide layers).
+    for H, K in ((64, 1), (256, 1), (1300, 1), (1024, 2)):
         params = pack_rnn_params(make_rnn_model(torch, "categorical", seed=H + K, hidden_size=H, num_layers=K))
         obs = torch.randn((B, 1), generator=gen, device=dev)
         obs[bad, 0] = float("nan")
         states = rnn_states(torch, dev, B, K, H, gen)
         route = launched_route(torch, "nan rnn act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
-                               RNN_ACT_ROUTES[False], rnn_routes(H)[0])
+                               RNN_ACT_ROUTES[False], rnn_routes(H, B)[0])
         _, kl, kv, ks = fused_rnn_act(params, obs, states, (1, 2), deterministic=True)
         _, pl, pv, ps = rnn_act_plain(params, obs, states, (1, 2), deterministic=True)
         torch.cuda.synchronize()
@@ -1415,17 +1425,22 @@ def compare_rnn_act(torch, what: str, params, obs, states, key=(24680, 1357)) ->
 
 def check_rnn_act(torch, dev, record: dict) -> None:
     """The recurrent act kernel against its plain version on the card, for
-    the categorical, Normal and squashed kinds (compare_rnn_act): at the
-    main path's shapes (obs [8192, 1], one 256-wide LSTM layer, A = 1), at a
-    ragged B = 1000 with obs dim 3, two 96-wide layers and A = 2 (n = 3),
-    at H = 720 and at two 1024-wide layers over 4,096 rows (the staged
-    route, one gate launch a layer)."""
+    the categorical, Normal and squashed kinds (compare_rnn_act), each on
+    the route ``rnn_routes`` gives (asserted): at the main path's shapes
+    (obs [8192, 1], one 256-wide LSTM layer, A = 1; the staged route), at a
+    ragged B = 1000 with obs dim 3 and A = 2 (n = 3) over two 96-wide
+    layers (the 32-row tiles) and two 256-wide ones (the staged route, its
+    three inputs folded into the first gates' epilogue), at H = 720 and at
+    two 1024-wide layers over 4,096 rows (the staged route, one gate launch
+    a layer). Then its library yardstick: one torch.lstm_cell at the main
+    path's shapes, f32."""
     from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params, rnn_act_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
     configs = {
         "main": dict(B=8192, obs_dim=1, A=1, n=2, H=256, K=1),
         "ragged": dict(B=1000, obs_dim=3, A=2, n=3, H=96, K=2),
+        "ragged_staged": dict(B=1000, obs_dim=3, A=2, n=3, H=256, K=2),
         # The staged route: 32 rows of a 720-wide layer do not fit two blocks an SM.
         "wide": dict(B=1000, obs_dim=3, A=1, n=2, H=720, K=1),
         # Two layers on the staged route: layer 2 reads layer 1's h' from h_out.
@@ -1439,9 +1454,12 @@ def check_rnn_act(torch, dev, record: dict) -> None:
             model = make_rnn_model(torch, kind, seed=90 + K, obs_dim=c["obs_dim"], A=A, n=n, hidden_size=H,
                                    num_layers=K, log_std_bias=-1.0)
             params = pack_rnn_params(model, squashed=kind == "squashed")
+            if kind == "categorical":
+                route = launched_route(torch, f"rnn act {name}", lambda: fused_rnn_act(params, obs, states, (1, 2)),
+                                       RNN_ACT_ROUTES[False], rnn_routes(H, B)[0])
             result = compare_rnn_act(torch, f"rnn act {name}", params, obs, states)
             for mode, r in result.items():
-                emit({"phase": "kernel_check", "kernel": "rnn_act", "config": name, "kind": kind,
+                emit({"phase": "kernel_check", "kernel": "rnn_act", "config": name, "kind": kind, "route": route,
                       "deterministic": mode == "deterministic", "B": B, "A": A, "n": n if kind == "categorical" else 0,
                       "H": H, "K": K, **r, "rtol": ACT_RTOL, "atol": ACT_ATOL})
                 if name == "main":
@@ -1458,10 +1476,19 @@ def check_rnn_act(torch, dev, record: dict) -> None:
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: rnn_act_plain(params, obs, states, (1, 2), deterministic=False), iters=20
     )
+    # The yardstick of the gate part alone (no PyTorch call computes the
+    # whole act step): one torch.lstm_cell on the same inputs, f32.
+    from rl8_tpu_torch.data import DataKeys
+
+    wi, wh, b = params.lstm()[0]
+    h0, c0 = (states[k][:, 0].contiguous() for k in (DataKeys.HIDDEN_STATES, DataKeys.CELL_STATES))
+    w_ih, w_hh, zero = wi.t().contiguous(), wh.t().contiguous(), torch.zeros_like(b)
+    with f32_library(torch):
+        record["library_ms"] = time_ms(torch, lambda: torch.lstm_cell(obs, (h0, c0), w_ih, w_hh, b, zero))[0]
     update_bounds(record, flops, bytes_moved)
     emit({"phase": "kernel_time", "kernel": "rnn_act", "B": B, "flops": flops, "bytes": bytes_moved,
-          "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+          "host_ms": host_ms, "plain_host_ms": plain_host_ms, "library": "torch.lstm_cell (the gate part alone, f32)",
+          **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")}})
 
 
 def rnn_act_cost(params, B: int) -> tuple[int, int]:
@@ -1525,17 +1552,25 @@ def rnn_ppo_inputs(torch, dev, model, kind: str, N: int, L: int, seed: int, clip
 
 def check_rnn_ppo(torch, dev, record: dict) -> None:
     """The recurrent update kernel against its plain version on the card
-    (compare_ppo's tolerances, two launches bit-identical): (a) the main
-    path's shapes, 65,536 sequences of L = 4 with one 256-wide layer,
-    categorical; (b) the same shapes squashed; (c) a ragged 1,000
-    sequences, two 64-wide layers, A = 2, n = 3, entropy, dual clip and
-    accumulation; (d) the same ragged shapes with Normal, entropy and dual
-    clip; (e) squashed samples with actions at +-1 and a small std, so that
-    the +-100 clamp cuts their gradients."""
-    from rl8_tpu_torch.ops import PPOLossConfig, pack_rnn_params
+    (compare_ppo's tolerances, two launches bit-identical), each on the
+    route ``rnn_routes`` gives (asserted): (a) the main path's shapes,
+    65,536 sequences of L = 4 with one 256-wide layer, categorical; (b) the
+    same shapes squashed; (c) a ragged 1,000 sequences, two 64-wide layers,
+    A = 2, n = 3, entropy, dual clip and accumulation; (d) the same ragged
+    shapes with Normal, entropy and dual clip; (e) squashed samples with
+    actions at +-1 and a small std, so that the +-100 clamp cuts their
+    gradients. Then the staged route's rule and options: (f) 16,384
+    sequences at 256, its first minibatch, and (g) 16,383, the narrow
+    route's last; (h) a ragged last block (20,001 sequences) of two 256-wide
+    layers, A = 2, n = 3, entropy, dual clip and accumulation, (i) the same
+    with Normal; (j) the clamp case at 16,384 sequences of a 128-wide LSTM;
+    (k) the ragged 1,000 sequences at 768 wide (past the narrow row pass),
+    Normal, entropy, dual clip and accumulation."""
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_rnn_ppo_grads, pack_rnn_params
 
     main_loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
     ragged_loss = dict(vf_clip_param=1.5, vf_coeff=0.9, dual_clip_param=3.0, accum=3)
+    clamp = dict(kind="squashed", ec=0.0, clip_share=0.3, loss=main_loss)
     configs = {
         "a": dict(N=65536, kind="categorical", model={}, ec=0.0, loss=main_loss),
         "b": dict(N=65536, kind="squashed", model={}, ec=0.0, loss=main_loss),
@@ -1543,11 +1578,18 @@ def check_rnn_ppo(torch, dev, record: dict) -> None:
                   ec=0.013, loss=ragged_loss),
         "d": dict(N=1000, kind="normal", model=dict(obs_dim=3, A=2, hidden_size=64, num_layers=2), ec=0.013,
                   loss=ragged_loss),
-        "e": dict(N=2048, kind="squashed", model=dict(obs_dim=2, A=2, hidden_size=32, head_scale=0.001,
-                                                         log_std_bias=-3.0), ec=0.0, clip_share=0.3,
-                  loss=main_loss),
+        "e": dict(N=2048, model=dict(obs_dim=2, A=2, hidden_size=32, head_scale=0.001, log_std_bias=-3.0), **clamp),
+        "f": dict(N=RNN_STAGED_MIN_ROWS, kind="categorical", model={}, ec=0.0, loss=main_loss),
+        "g": dict(N=RNN_STAGED_MIN_ROWS - 1, kind="categorical", model={}, ec=0.0, loss=main_loss),
+        "h": dict(N=20001, kind="categorical", model=dict(obs_dim=3, A=2, n=3, num_layers=2), ec=0.013,
+                  loss=ragged_loss),
+        "i": dict(N=20001, kind="normal", model=dict(obs_dim=3, A=2, num_layers=2), ec=0.013, loss=ragged_loss),
+        "j": dict(N=RNN_STAGED_MIN_ROWS, model=dict(obs_dim=2, A=2, hidden_size=128, head_scale=0.001,
+                                                    log_std_bias=-3.0), **clamp),
+        "k": dict(N=1000, kind="normal", model=dict(obs_dim=3, A=2, hidden_size=768), ec=0.013, loss=ragged_loss),
     }
     L = 4
+    routes = {}
     for name, c in configs.items():
         model = make_rnn_model(torch, c["kind"], seed=110 + ord(name), **c["model"])
         params = pack_rnn_params(model, squashed=c["kind"] == "squashed")
@@ -1558,17 +1600,22 @@ def check_rnn_ppo(torch, dev, record: dict) -> None:
         cfg = PPOLossConfig(clip_param=0.2, n_rows=c["N"], use_entropy=c["ec"] != 0.0,
                             squashed=c["kind"] == "squashed", **c["loss"])
         ec = torch.tensor(c["ec"], device=dev)
+        routes[name] = launched_route(torch, f"rnn ppo ({name})",
+                                      lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
+                                      RNN_PPO_ROUTES[params.continuous], rnn_routes(params.hidden, c["N"])[1])
         result = compare_rnn_ppo(torch, f"rnn ppo ({name})", params, packed, unpack, ec, cfg)
         emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "config": name, "N": c["N"], "L": L,
               "H": params.hidden, "K": params.num_layers, "A": params.action_dim, "kind": params.kind,
-              "entropy_coeff": c["ec"], **c["loss"], "samples_clamped": clamped, **result["summary"]})
+              "entropy_coeff": c["ec"], **c["loss"], "samples_clamped": clamped, "route": routes[name],
+              **result["summary"]})
         if name == "a":
             time_rnn_ppo(torch, record, result, params, packed, unpack, ec, cfg)
 
-    # The width limit: the main width takes the narrow row pass, and 1024
-    # (past its shared memory) is taken too, on the wide route, by the
-    # query and by the wrapper, whose result matches the plain version.
-    from rl8_tpu_torch.ops import card_takes_rnn_update, fused_rnn_ppo_grads
+    # The width limit: the main width takes the narrow row pass at 16
+    # sequences, and 1024 (past its shared memory) is taken too, on the
+    # staged route, by the query and by the wrapper, whose result matches
+    # the plain version.
+    from rl8_tpu_torch.ops import card_takes_rnn_update
 
     main_model, wide_model = (make_rnn_model(torch, "categorical", seed=0, hidden_size=h) for h in (256, 1024))
     main, wide = pack_rnn_params(main_model), pack_rnn_params(wide_model)
@@ -1581,10 +1628,10 @@ def check_rnn_ppo(torch, dev, record: dict) -> None:
         packed, unpack, _ = rnn_ppo_inputs(torch, dev, model, "categorical", 16, L, seed=0)
         routes[width] = launched_route(torch, f"rnn ppo {width}",
                                        lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg),
-                                       RNN_PPO_ROUTES[False], "narrow" if width == "256" else "wide")
+                                       RNN_PPO_ROUTES[False], "narrow" if width == "256" else "staged")
         result = compare_rnn_ppo(torch, f"rnn ppo ({width} wide, 16 sequences)", params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "rnn_ppo_update", "width_limit": {"256": True, "1024": True},
-          "routes": routes, **result["summary"]})
+          "width_routes": routes, **result["summary"]})
 
 
 def compare_rnn_ppo(torch, what: str, params, packed, unpack, ec, cfg) -> dict:
@@ -1645,11 +1692,46 @@ def time_rnn_ppo(torch, record: dict, result: dict, params, packed, unpack, ec, 
     record["plain_ms"], plain_host_ms = time_ms(
         torch, lambda: rnn_ppo_grads_plain(params, packed, unpack, ec, cfg), iters=3, warmup=1
     )
+    record["library_ms"] = lstm_library_ms(torch, packed.device, N, L, params.d_in, params.hidden,
+                                           params.num_layers)
     update_bounds(record, flops, bytes_moved)
     record["host_ms"] = host_ms
     emit({"phase": "kernel_time", "kernel": "rnn_ppo_update", "N": N, "L": L, "flops": flops,
           "bytes": bytes_moved, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
-          **{k: record[k] for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}})
+          "library": "cuDNN torch.nn.LSTM forward and backward (the LSTM part alone, f32)",
+          **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms")}})
+
+
+@contextlib.contextmanager
+def f32_library(torch):
+    """cuDNN's and cuBLAS's float32 in full f32 (TF32 off), for the library
+    yardsticks; the settings are restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def lstm_library_ms(torch, dev, N: int, L: int, d_in: int, H: int, K: int) -> float:
+    """The recurrent update's library yardstick of its LSTM part alone (no
+    PyTorch call computes the whole update): cuDNN's ``torch.nn.LSTM``
+    forward and backward over N sequences of L steps, K H-wide layers, from
+    given states, f32 (TF32 off), on random inputs and output cotangents.
+    Device ms a call."""
+    gen = torch.Generator(device=dev).manual_seed(N + H)
+    lstm = torch.nn.LSTM(d_in, H, num_layers=K, batch_first=True).to(dev)
+    x = torch.randn((N, L, d_in), generator=gen, device=dev)
+    h0, c0 = (torch.randn((K, N, H), generator=gen, device=dev) for _ in range(2))
+    g = torch.randn((N, L, H), generator=gen, device=dev)
+
+    def run():
+        out, _ = lstm(x, (h0, c0))
+        out.backward(g)
+
+    with f32_library(torch):
+        return time_ms(torch, run, iters=5, warmup=2)[0]
 
 
 def rnn_ppo_cost(params, packed, L: int) -> tuple[int, int]:
@@ -2150,21 +2232,22 @@ def launched_route(torch, what: str, fn, routes: dict, want: None | str, calls: 
     ``torch.profiler``), which must be ``want`` (``None``: one route,
     whichever it is). The profiler sometimes returns no record of a short
     launch at all (once, after a profiled window of ~2,000 kernels, three
-    windows in a row held only the host's calls): a window that saw none of the kernels is taken
-    again, up to five windows, each after the first held open half a second
-    past the launches for late device records; any kernel it does see
-    counts."""
+    windows in a row held only the host's calls; once five windows in a row
+    of a ragged recurrent act launch): a window that saw none of the kernels
+    is taken again, up to eight windows, each after the first with more
+    calls and held open longer past the launches for late device records;
+    any kernel it does see counts."""
     from torch.profiler import ProfilerActivity, profile
 
     took: list = []
-    for attempt in range(5):
+    for attempt in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(calls * (1 + attempt)):
                 fn()
             torch.cuda.synchronize()
             if attempt:
-                time.sleep(0.5)
+                time.sleep(0.5 * attempt)
         names = [e.key for e in prof.key_averages()]
         took = [route for kernel, route in routes.items() if any(re.search(rf"\b{kernel}\b", n) for n in names)]
         if took:
@@ -3261,6 +3344,9 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     cfg = ops.PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
     out["rnn_ppo_ms"] = device_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
     out["rnn_ppo_split_ms"] = split_ms(lambda: ops.fused_rnn_ppo_grads(params, packed, unpack, ec, cfg))
+    split = out["rnn_ppo_split_ms"]
+    out["rnn_ppo_row_pass_ms"] = sum(v for k, v in split.items() if re.search(ROW_PASS_KERNELS, k))
+    out["rnn_ppo_weight_products_ms"] = sum(v for k, v in split.items() if re.search(WEIGHT_PRODUCT_KERNELS, k))
     B, H = 8192, 256
     gen = torch.Generator(device=dev).manual_seed(5)
     obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
@@ -3665,13 +3751,13 @@ WEIGHT_PRODUCT_KERNELS = r"reduce_\w+_kernel|sum_partials_kernel"
 #: The recurrent kernels' routes per distribution family (continuous or
 #: not), by kernel name (for launched_route): the act kernel's 32-row tiles
 #: in shared memory and its staged route (named by its heads kernel); the
-#: update's narrow and wide row passes.
+#: update's narrow and staged row passes.
 RNN_ACT_ROUTES = {
     c: {f"rnn_act_kernel<{b}": "shared32", f"rnn_heads_kernel<{b}": "staged"}
     for c, b in ((False, "false"), (True, "true"))
 }
 RNN_PPO_ROUTES = {
-    c: {f"rnn_rows_kernel<{b}": "narrow", f"rnn_wide_fwd_kernel<{b}": "wide"}
+    c: {f"rnn_rows_kernel<{b}": "narrow", f"rnn_staged_fwd_kernel<{b}": "staged"}
     for c, b in ((False, "false"), (True, "true"))
 }
 
@@ -4368,21 +4454,31 @@ def check_recurrent_rollout(torch, algo, rtol: float, atol: float) -> float:
 
 
 #: The recurrent kernels' wide widths (one layer, the dummy envs' shapes):
-#: the update's last narrow width and its wide route (721, 768), the wide
+#: the update's last narrow width and its staged route (721, 768), the wide
 #: cell's (1024), the earlier act routes' last width with 16-row tiles in
 #: shared memory and first on their wide route (1209, 1210), and rl8_tpu's
 #: last admitted width (1617).
 RNN_WIDE_WIDTHS = (721, 768, 1024, 1209, 1210, 1300, 1617)
 
 
-def rnn_routes(H: int) -> tuple[str, str]:
+#: The recurrent update's route rule (csrc/rnn_ppo.cu's kStagedMinRows,
+#: kStagedMinWidth): the staged route from this many sequences at this
+#: width; the act kernel's (csrc/rnn_act.cu's kStagedMinWidth): its staged
+#: route from this width at any row count.
+RNN_STAGED_MIN_ROWS, RNN_STAGED_MIN_WIDTH, RNN_ACT_STAGED_MIN_WIDTH = 16384, 64, 128
+
+
+def rnn_routes(H: int, N: int) -> tuple[str, str]:
     """The routes the recurrent act and update kernels take at one or two
-    H-wide layers and the dummy envs' inputs and heads (three head
-    outputs): the act kernel's 32-row tiles up to 288, its staged route
-    from 289; the update's narrow row pass up to 724, its wide route from
-    725."""
-    act = "shared32" if H <= 288 else "staged"
-    return act, "narrow" if H <= 724 else "wide"
+    H-wide layers, N rows (sequences of the update) and the dummy envs'
+    inputs and heads (three head outputs): the act kernel's 32-row tiles
+    below RNN_ACT_STAGED_MIN_WIDTH, its staged route from there; the
+    update's staged route for N of RNN_STAGED_MIN_ROWS or more at H of
+    RNN_STAGED_MIN_WIDTH or more and past 724 (where the narrow row pass
+    does not fit), its narrow row pass for the rest."""
+    act = "shared32" if H < RNN_ACT_STAGED_MIN_WIDTH else "staged"
+    staged = H > 724 or (N >= RNN_STAGED_MIN_ROWS and H >= RNN_STAGED_MIN_WIDTH)
+    return act, "staged" if staged else "narrow"
 
 
 def recurrent_buffer_rows(torch, algo):
@@ -4447,7 +4543,7 @@ def run_wide_recurrent(torch, dev, kernels: dict) -> None:
     iteration (time_cell: recurrent act 32, GAE 1, recurrent update 4
     launches an iteration, no other kernel). Then one more collect, held
     against the module from the stored states; on its buffer, packed as the
-    update packs it, the update kernel (its wide route) against its plain
+    update packs it, the update kernel (its staged route) against its plain
     version over all 65,536 sequences and against its launches over the
     halves (check_rnn_halves), and both kernels timed beside their plain
     versions at the cell's shapes (the act kernel on its staged route).
@@ -4473,7 +4569,7 @@ def run_wide_recurrent(torch, dev, kernels: dict) -> None:
     obs = algo.state.buffer[DataKeys.OBS][0].float().contiguous()
     states = {k: v[0].contiguous() for k, v in algo.state.buffer[DataKeys.STATES].items()}
     act_route = launched_route(torch, "wide_recurrent act", lambda: fused_rnn_act(params, obs, states, (1, 2)),
-                               RNN_ACT_ROUTES[False], rnn_routes(H)[0])
+                               RNN_ACT_ROUTES[False], rnn_routes(H, B)[0])
     act = compare_rnn_act(torch, "wide_recurrent act", params, obs, states)
     packed, unpack = recurrent_buffer_rows(torch, algo)
     N = packed.shape[0]
@@ -4483,7 +4579,7 @@ def run_wide_recurrent(torch, dev, kernels: dict) -> None:
     ec = torch.tensor(0.0, device=dev)
     ppo_route = launched_route(torch, "wide_recurrent update",
                                lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg), RNN_PPO_ROUTES[False],
-                               rnn_routes(H)[1])
+                               rnn_routes(H, N)[1])
     result = compare_rnn_ppo(torch, "wide_recurrent update (whole buffer)", params, packed, unpack, ec, cfg)
     halves = check_rnn_halves(torch, "wide_recurrent update (halves)", params, packed, unpack, ec, cfg)
     emit({"phase": "kernel_check", "kernel": "wide_recurrent", "hidden_size": H, "sequences": N, "seq_len": h.seq_len,
@@ -4586,7 +4682,8 @@ def run_rnn_wide_sweep(torch, dev, kernels: dict) -> None:
     (compare_rnn_ppo, 2,048 sequences of 4 steps, dual clip) against their
     plain versions, each on its asserted route (rnn_routes), two launches
     bit-identical; the same for 4,096 categories on a 64-wide LSTM (the
-    act kernel's staged route and the update's wide route, for the heads). The policy heads are drawn at 0.3 sqrt(256 / H), so that
+    act kernel's staged route and the update's staged route, for the
+    heads). The policy heads are drawn at 0.3 sqrt(256 / H), so that
     their outputs have the main path's spread at every width (as drawn at
     0.3 the squashed means grow with the width into the tanh's saturation,
     where f32 itself is no reference: see F64_K). The act kernel is timed
@@ -4615,11 +4712,13 @@ def run_rnn_wide_sweep(torch, dev, kernels: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(16)
     limit2 = rnn_gate_limit(torch, 2)
     # (H, layers, kind, categories, routes): the dummy envs' two categories
-    # on rnn_routes, and 4,096 categories on a 64-wide LSTM, whose heads
-    # take the act kernel's staged route and the update's wide route.
-    cases = [(H, 1, kind, 2, rnn_routes(H)) for H in RNN_WIDE_WIDTHS for kind in ("categorical", "normal", "squashed")]
-    cases += [(H, 2, kind, 2, rnn_routes(H)) for H in (721, limit2) for kind in ("categorical", "normal")]
-    cases += [(64, 1, "categorical", 4096, ("staged", "wide"))]
+    # on rnn_routes (the act's at B rows, the update's at N sequences), and
+    # 4,096 categories on a 64-wide LSTM, whose heads take the act kernel's
+    # staged route and the update's staged route.
+    routes = lambda H: (rnn_routes(H, B)[0], rnn_routes(H, N)[1])  # noqa: E731
+    cases = [(H, 1, kind, 2, routes(H)) for H in RNN_WIDE_WIDTHS for kind in ("categorical", "normal", "squashed")]
+    cases += [(H, 2, kind, 2, routes(H)) for H in (721, limit2) for kind in ("categorical", "normal")]
+    cases += [(64, 1, "categorical", 4096, ("staged", "staged"))]
     for H, K, kind, n, (want_act, want_ppo) in cases:
         model = make_rnn_model(torch, kind, seed=H + K, n=n, hidden_size=H, num_layers=K,
                                head_scale=0.3 * math.sqrt(256 / H), log_std_bias=-1.0)

@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act,ppo_shapes] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act,ppo_shapes,rnn_ppo,rnn_shapes,rnn_act_shapes] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -51,7 +51,21 @@ identity; its variants ``heads_rows32``, ``staged_stages2`` and
 ``wide_stages4`` are the staged design's ablations. With ``ppo_shapes``,
 the feedforward update's ms at the shapes the route rule decides between
 its narrow and staged routes (``PPO_SHAPES``; variants ``staged_at_256``
-and ``narrow_rule`` move the rule). The SASS counts include
+and ``narrow_rule`` move the rule). With ``rnn_ppo``, the recurrent update
+at the main path's shapes, categorical and squashed: ms, split, the worst
+gradient tensor's error against the plain version and bit identity; with
+``rnn_shapes``, its ms over the ``RNN_SHAPES_*`` grid, and with
+``rnn_act_shapes`` the recurrent act kernel's over ``RNN_ACT_SHAPES_*``
+(``rnn_wide``: the update at H 1617 x 2,048 sequences, 16 blocks)
+(the route rules' evidence: variants ``rnn_staged_at_256``,
+``rnn_narrow_rule``, ``rnn_staged_everywhere``, ``rnn_act_staged_at_256``,
+``rnn_act_tiles_rule``); ``rnn_act`` also times 4,096 rows and a ragged
+1,000 of two layers, each split by kernel. ``rnn_fwd_no_*`` and
+``rnn_bwd_no_*`` ablate the recurrent staged route's two kernels' parts,
+``rnn_act_no_fold`` gives the act's staged gates their first layer as a
+stage of its own. ``rnn_wide_at_256`` and its
+ablations ``rnn_wide256_*`` apply to sources that still have the recurrent
+update's wide route (``Lo->wide``), where they force it at every width. The SASS counts include
 shared-memory loads (``LDS``) and warpgroup tensor-core products
 (``HGMMA``); the ptxas lines include its notes of serialized ``wgmma``.
 
@@ -295,6 +309,72 @@ VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     "heads_rows32": [("rnn_act.cu", "constexpr int kHeadRows = 8;", "constexpr int kHeadRows = 32;"),
                      ("act.cu", "constexpr int kHeadRows = 8;", "constexpr int kHeadRows = 32;")],
     "staged_stages2": [("stage.cuh", "constexpr int kStStages = 3; ", "constexpr int kStStages = 2; ")],
+    # The recurrent kernels' route rules: the update's 128-sequence route at
+    # every width (rnn_wide_at_256) and the act kernel's staged route at
+    # every shape (rnn_act_staged_at_256).
+    "rnn_wide_at_256": [("rnn_ppo.cu", "  Lo->wide = Lo->smem > kMaxSmem;", "  Lo->wide = true;")],
+    "rnn_act_staged_at_256": [("rnn_act.cu", "  return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;",
+                               "  return 1;")],
+    # The act kernel's 32-row tiles wherever they fit (the rule before the
+    # staged route took H from 128).
+    "rnn_act_tiles_rule": [("rnn_act.cu", "  if (H >= kStagedMinWidth) return 1;\n", "")],
+    # The staged gates' first layer as a 32-deep stage of its own (and a
+    # copy of its Wi), not summed in the epilogue.
+    "rnn_act_no_fold": [("rnn_act.cu", "    const int fold = l == 0 && in_w <= kFoldInputs;", "    const int fold = 0;")],
+
+    # Ablations of the 128-sequence route at 256 wide (wrong results; times
+    # only): no forward FMAs, no dh products.
+    "rnn_wide256_no_fwd_fma": [("rnn_ppo.cu", "  Lo->wide = Lo->smem > kMaxSmem;", "  Lo->wide = true;"),
+                               ("stage.cuh", "        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,\n"
+                                "                     c1 + 128 * h);\n", "")],
+    "rnn_wide256_no_bwd_mma": [("rnn_ppo.cu", "  Lo->wide = Lo->smem > kMaxSmem;", "  Lo->wide = true;"),
+                               ("stage.cuh", "        wgmma_3xtf32(acc[h], a_big[ks], a_small[ks], db, ds, add);\n", "")],
+    # The recurrent update's route rule on these sources: the staged route
+    # at every shape, and the narrow route wherever its shared memory fits;
+    # the staged kernels' weight slabs by every thread's cp.async.
+    "rnn_staged_at_256": [("rnn_ppo.cu", "  Lo->staged = Lo->smem > kMaxSmem || ((long long)N >= kStagedMinRows && H >= kStagedMinWidth);",
+                           "  Lo->staged = true;")],
+    "rnn_narrow_rule": [("rnn_ppo.cu", "  Lo->staged = Lo->smem > kMaxSmem || ((long long)N >= kStagedMinRows && H >= kStagedMinWidth);",
+                         "  Lo->staged = Lo->smem > kMaxSmem;")],
+    "rnn_staged_cp_async": [("rnn_ppo.cu", "constexpr bool kBulkSlabs = true;", "constexpr bool kBulkSlabs = false;")],
+    # The staged forward's head weights read from L2 instead of shared
+    # memory.
+    "rnn_no_wstaged": [("rnn_ppo.cu", "    d.wstaged = base + heads <= kMaxSmem;", "    d.wstaged = false;")],
+    # Both recurrent kernels' staged routes at every shape.
+    "rnn_staged_everywhere": [
+        ("rnn_ppo.cu", "  Lo->staged = Lo->smem > kMaxSmem || ((long long)N >= kStagedMinRows && H >= kStagedMinWidth);",
+         "  Lo->staged = true;"),
+        ("rnn_act.cu", "  return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;", "  return 1;")],
+    # Ablations of the staged route's forward kernel (wrong results; times
+    # only): no FMAs and no row (A) or weight loads; no heads and loss
+    # epilogue, no loss terms, no heads.
+    "rnn_fwd_no_fma_no_a": [
+        ("stage.cuh", "        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,\n"
+         "                     c1 + 128 * h);\n", ""),
+        ("stage.cuh", "      st_load_rows(st, seg[q].a, sq * kStK);\n", "")],
+    "rnn_fwd_no_fma_no_w": [
+        ("stage.cuh", "        tile_fma<RT>(acc[h], st + rg * kStLdA, 16 * kStLdA, st + kStAFloats, kStFwdPass, kStK, c0 + 128 * h,\n"
+         "                     c1 + 128 * h);\n", ""),
+        ("stage.cuh", "    for (int i = 0; i < n; ++i) st_load_run(dst[i], src[i], floats);\n", ""),
+        ("stage.cuh", "    mbar_expect(&ring->bar[st], n * bytes);\n    for (int i = 0; i < n; ++i) bulk_copy(dst[i], src[i], bytes, &ring->bar[st]);\n",
+         "    mbar_expect(&ring->bar[st], 0u);\n")],
+    "rnn_fwd_no_epilogue": [("rnn_ppo.cu", "      for (int rc = 0; rc < R; rc += d.erows) {", "      for (int rc = 0; rc < 0; rc += d.erows) {")],
+    "rnn_fwd_no_loss": [("rnn_ppo.cu", "        if (threadIdx.x < er) {\n          const int r = rc + threadIdx.x;",
+                         "        if (threadIdx.x < er && R < 0) {\n          const int r = rc + threadIdx.x;")],
+    "rnn_fwd_no_heads": [("rnn_ppo.cu", "              if (lane == 0 && o0 + q < n_out) zs[r * zld + o0 + q] = sq[q] + hb(o0 + q);\n", "")],
+    # Ablations of the staged route's backward kernel: no cell backward, no
+    # heads' cotangent.
+    "rnn_bwd_no_cell": [("rnn_ppo.cu", "        const int G = H / 4, n = R * G;", "        const int G = H / 4, n = 0;")],
+    "rnn_bwd_no_heads": [("rnn_ppo.cu", "      for (int j = threadIdx.x; j < H; j += blockDim.x) {\n        for (int rc = 0; rc < R; rc += 32) {",
+                          "      for (int j = threadIdx.x; j < 0; j += blockDim.x) {\n        for (int rc = 0; rc < R; rc += 32) {")],
+    # The recurrent act kernel's staged route at 256 wide with four stages,
+    # and with its weight slabs by every thread's cp.async.
+    "rnn_act_staged_256_stages4": [
+        ("rnn_act.cu", "  return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;", "  return 1;"),
+        ("stage.cuh", "constexpr int kStStages = 3; ", "constexpr int kStStages = 4; ")],
+    "rnn_act_staged_256_cp_async": [
+        ("rnn_act.cu", "  return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;", "  return 1;"),
+        ("rnn_act.cu", "constexpr bool kBulkSlabs = true;", "constexpr bool kBulkSlabs = false;")],
     # 32 sequences a recurrent row-pass block, one block to an SM.
     "rnn_rows32": [
         ("rnn_ppo.cu", "constexpr int kRows = 16;  // sequences", "constexpr int kRows = 32;  // sequences"),
@@ -358,6 +438,7 @@ def build_all(names: list[str]) -> dict[str, tuple[Path, dict[str, str]]]:
 
 def short(kernel: str) -> str | None:
     m = re.search(r"(ppo_rows_kernel<[^>]*>|rnn_rows_kernel<[^>]*>|ppo_staged_fwd_kernel<[^>]*>|ppo_staged_bwd_kernel|rnn_wide_fwd_kernel<[^>]*>|rnn_wide_bwd_kernel|"
+                  r"rnn_staged_fwd_kernel<[^>]*>|rnn_staged_bwd_kernel|"
                   r"tile_fwd_kernel|tile_bwd_kernel|reduce_wgmma_kernel<\w+>|reduce_small_kernel|"
                   r"sum_partials_kernel|sum_stats_kernel|transpose_kernel|chains_\w*kernel|"
                   r"sum_chain_dx_kernel|rnn_act_kernel<[^>]*>|continuous_act_\w*kernel|discrete_act_\w*kernel|gae_kernel|"
@@ -377,7 +458,7 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
         if m:
             fn = m.group(1)
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
-            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_staged_\w+?_kernel|rnn_wide_\w+?_kernel|reduce_wgmma_kernel|reduce_small_kernel|chains_bwd_\w+?_kernel|"
+            kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_staged_\w+?_kernel|rnn_wide_\w+?_kernel|rnn_staged_\w+?_kernel|reduce_wgmma_kernel|reduce_small_kernel|chains_bwd_\w+?_kernel|"
                                r"chains_fwd_\w*?kernel|chains_(?:layer|dh|ln|ln_bwd|heads|dx)_kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
                                r"rnn_act_kernel|gae_kernel|rnn_gates_\w*?kernel|rnn_heads_kernel|act_layer_\w*?kernel|"
                                r"act_heads_kernel)(I\w*)?", fn)
@@ -410,7 +491,8 @@ def ptxas_rows(logs: dict[str, str]) -> list[str]:
                                              r"chains_\w*kernel|gae_kernel|gates_\w*kernel|layer_\w*kernel|heads_kernel",
                                              m.group(1)) else None
             elif fn and ("registers" in line or "spill stores" in line):
-                name = re.search(r"(rnn_gates_tc_kernel|rnn_heads_kernel|act_layer_tc_kernel|"
+                name = re.search(r"(rnn_gates_tc_kernel|rnn_heads_kernel|rnn_staged_fwd_kernel(?:ILb[01])?|"
+                                 r"rnn_staged_bwd_kernel|rnn_rows_kernel(?:ILb[01])?|act_layer_tc_kernel|"
                                  r"act_layer_kernel|act_heads_kernel)", fn)
                 where = f"{stem}.cu {name.group(1)}" if name else f"{stem}.cu"
                 out.append(f"{where}: {line.strip().replace('ptxas info    : ', '')}")
@@ -441,16 +523,22 @@ def main() -> int:
     built = build_all(names)
 
     def split(fn) -> dict[str, float]:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+        """The device ms of one call of fn by kernel: the fullest of three
+        profiled calls (the profiler sometimes drops a window's records)."""
+        best: dict[str, float] = {}
+        for _ in range(3):
             torch.cuda.synchronize()
-        out: dict[str, float] = {}
-        for e in prof.key_averages():
-            name = short(e.key)
-            if name and e.self_device_time_total > 0:
-                out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
-        return out
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out: dict[str, float] = {}
+            for e in prof.key_averages():
+                name = short(e.key)
+                if name and e.self_device_time_total > 0:
+                    out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+            if sum(out.values()) > sum(best.values()):
+                best = out
+        return best
 
     measures = []
     if "ppo" in kinds:
@@ -458,7 +546,7 @@ def main() -> int:
     if "chains" in kinds:
         measures.append(chains_measure(torch, dev, split))
     if "rnn_act" in kinds:
-        measures.append(rnn_act_measure(torch, dev))
+        measures.append(rnn_act_measure(torch, dev, split))
     if "chains_fwd" in kinds:
         measures.append(chains_fwd_measure(torch, dev, split))
     if "act" in kinds:
@@ -471,6 +559,14 @@ def main() -> int:
         measures.append(wide_act_measure(torch, dev, split))
     if "ppo_shapes" in kinds:
         measures.append(ppo_shapes_measure(torch, dev))
+    if "rnn_ppo" in kinds:
+        measures.append(rnn_ppo_measure(torch, dev, split))
+    if "rnn_shapes" in kinds:
+        measures.append(rnn_shapes_measure(torch, dev))
+    if "rnn_act_shapes" in kinds:
+        measures.append(rnn_act_shapes_measure(torch, dev))
+    if "rnn_wide" in kinds:
+        measures.append(rnn_wide_measure(torch, dev, split))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -609,6 +705,136 @@ def ppo_shapes_measure(torch, dev):
             del params, packed, unpack
             torch.cuda.empty_cache()
         return out
+
+    return measure
+
+
+def rnn_ppo_measure(torch, dev, split):
+    """The recurrent update at the main path's shapes (65,536 sequences of 4
+    steps, one 256-wide layer, categorical), categorical and squashed: ms,
+    split by kernel, the worst gradient tensor's norm-relative error against
+    the plain version, and bit identity."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_rnn_ppo_grads, pack_rnn_params, rnn_ppo_grads_plain
+    from rl8_tpu_torch.ops.fused_rnn_act import RnnParams
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+    N = 65536
+    cases = []
+    for kind in ("categorical", "squashed"):
+        model = cs.make_rnn_model(torch, kind, seed=110 + ord("a"))
+        params = pack_rnn_params(model, squashed=kind == "squashed")
+        packed, unpack, _ = cs.rnn_ppo_inputs(torch, dev, model, kind, N, 4, seed=ord("a"))
+        cfg = PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, squashed=kind == "squashed", **loss)
+        plain = rnn_ppo_grads_plain(params, packed, unpack, ec, cfg)[2]
+        cases.append((kind, params, packed, unpack, cfg, plain))
+
+    def tensors(params, flat):
+        v = RnnParams(**{**params.__dict__, "flat": flat})
+        return [t for layer in v.lstm() for t in layer] + [t for head in v.heads() for t in head]
+
+    def measure() -> dict:
+        out = {}
+        for kind, params, packed, unpack, cfg, plain in cases:
+            run = lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)  # noqa: E731
+            g1, g2 = run()[2], run()[2]
+            torch.cuda.synchronize()
+            key = "rnn_ppo" if kind == "categorical" else f"rnn_ppo_{kind}"
+            out[f"{key}_ms"] = cs.time_ms(torch, run, iters=10, warmup=2)[0]
+            out[f"{key}_split_ms"] = split(run)
+            out[f"{key}_worst_grad_vs_plain"] = max(float((g - w).norm() / w.norm())
+                                                    for g, w in zip(tensors(params, g1), tensors(params, plain)))
+            out[f"{key}_bit_identical"] = bool(torch.equal(g1, g2))
+        return out
+
+    return measure
+
+
+#: rnn_shapes_measure's grid: sequences (the sharded cells' per-rank sizes
+#: among them), one or two H-wide layers; 4 steps, the dummy envs' input
+#: and heads.
+RNN_SHAPES_N = (1000, 16384, 32768, 65536)
+RNN_SHAPES_H = (64, 128, 256, 512, 724, 1024)
+RNN_SHAPES_K = (1, 2)
+
+
+def rnn_shapes_measure(torch, dev):
+    """The recurrent update's device ms per launch over the RNN_SHAPES_*
+    grid (the route rule's evidence: run with the variants that move it)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_rnn_ppo_grads, pack_rnn_params
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+
+    def measure() -> dict:
+        out = {}
+        for H in RNN_SHAPES_H:
+            for K in RNN_SHAPES_K:
+                model = cs.make_rnn_model(torch, "categorical", seed=H + K, hidden_size=H, num_layers=K)
+                params = pack_rnn_params(model)
+                for N in RNN_SHAPES_N:
+                    packed, unpack, _ = cs.rnn_ppo_inputs(torch, dev, model, "categorical", N, 4, seed=N + H)
+                    cfg = PPOLossConfig(clip_param=0.2, n_rows=N, use_entropy=False, **loss)
+                    run = lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)  # noqa: E731
+                    out[f"rnn_{N}x{H}x{K}_ms"] = cs.time_ms(torch, run, iters=3 if N * H * K > 2**24 else 10,
+                                                            warmup=1)[0]
+                    del packed, unpack
+                del model, params
+                torch.cuda.empty_cache()
+        return out
+
+    return measure
+
+
+def rnn_wide_measure(torch, dev, split):
+    """The recurrent update at the widest LSTM ``rl8_tpu``'s gate admits, H
+    1617 x 2,048 sequences of 4 (a grid of 16 blocks of 128 sequences):
+    ms and split by kernel."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import PPOLossConfig, fused_rnn_ppo_grads, pack_rnn_params
+
+    loss = dict(vf_clip_param=5.0, vf_coeff=1.0, dual_clip_param=None, accum=1)
+    ec = torch.tensor(0.0, device=dev)
+    model = cs.make_rnn_model(torch, "categorical", seed=110 + 1617, hidden_size=1617)
+    params = pack_rnn_params(model)
+    packed, unpack, _ = cs.rnn_ppo_inputs(torch, dev, model, "categorical", 2048, 4, seed=1617)
+    cfg = PPOLossConfig(clip_param=0.2, n_rows=2048, use_entropy=False, **loss)
+
+    def measure() -> dict:
+        run = lambda: fused_rnn_ppo_grads(params, packed, unpack, ec, cfg)  # noqa: E731
+        return {"rnn_1617x2048_ms": cs.time_ms(torch, run, iters=10, warmup=1)[0],
+                "rnn_1617x2048_split_ms": split(run)}
+
+    return measure
+
+
+#: rnn_act_shapes_measure's grid: rows (a served request's to the
+#: Recurrent cell's 8,192) and one or two H-wide layers.
+RNN_ACT_SHAPES_B = (1, 8, 64, 256, 1000, 4096, 8192)
+RNN_ACT_SHAPES_H = (64, 96, 128, 192, 256, 288)
+RNN_ACT_SHAPES_K = (1, 2)
+
+
+def rnn_act_shapes_measure(torch, dev):
+    """The recurrent act kernel's device ms per launch (stochastic) over the
+    RNN_ACT_SHAPES_* grid (its route rule's evidence)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import fused_rnn_act, pack_rnn_params
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = []
+    for H in RNN_ACT_SHAPES_H:
+        for K in RNN_ACT_SHAPES_K:
+            params = pack_rnn_params(cs.make_rnn_model(torch, "categorical", seed=H + K, hidden_size=H, num_layers=K))
+            for B in RNN_ACT_SHAPES_B:
+                obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
+                cases.append((f"rnn_act_{B}x{H}x{K}_ms", params, obs, cs.rnn_states(torch, dev, B, K, H, gen)))
+
+    def measure() -> dict:
+        return {name: cs.time_ms(torch, lambda p=p, o=o, s=s: fused_rnn_act(p, o, s, (1, 2)), iters=20)[0]
+                for name, p, o, s in cases}
 
     return measure
 
@@ -769,7 +995,7 @@ def chains_measure(torch, dev, split):
     return measure
 
 
-def rnn_act_measure(torch, dev):
+def rnn_act_measure(torch, dev, split):
     """The recurrent act kernel's measurement of a variant (see the
     module's docstring)."""
     import chip_smoke as cs
@@ -780,17 +1006,36 @@ def rnn_act_measure(torch, dev):
     obs = 3.0 * (2.0 * torch.rand((B, 1), generator=gen, device=dev) - 1.0)
     states = cs.rnn_states(torch, dev, B, 1, H, gen)
     params = pack_rnn_params(cs.make_rnn_model(torch, "categorical", seed=99))
+    # The other shapes: 4,096 rows, and a ragged 1,000 rows of two layers.
+    others = []
+    for name, B2, K in (("rnn_act_4096", 4096, 1), ("rnn_act_1000_2l", 1000, 2)):
+        others.append((name, pack_rnn_params(cs.make_rnn_model(torch, "categorical", seed=99 + K, num_layers=K)),
+                       3.0 * (2.0 * torch.rand((B2, 1), generator=gen, device=dev) - 1.0),
+                       cs.rnn_states(torch, dev, B2, K, H, gen)))
 
-    def measure() -> dict:
-        out = {"rnn_act_ms": cs.time_ms(torch, lambda: fused_rnn_act(params, obs, states, (1, 2)))[0]}
+    def errors(p, o, s) -> dict:
+        out = {}
         for det in (True, False):
-            ka, kl, kv, ks = fused_rnn_act(params, obs, states, (1, 2), deterministic=det)
-            pa, pl, pv, ps = rnn_act_plain(params, obs, states, (1, 2), deterministic=det)
+            ka, kl, kv, ks = fused_rnn_act(p, o, s, (1, 2), deterministic=det)
+            pa, pl, pv, ps = rnn_act_plain(p, o, s, (1, 2), deterministic=det)
             out["deterministic" if det else "stochastic"] = {
                 "actions_differ": int((ka != pa).sum()), "logp": float((kl - pl).abs().max()),
                 "values": float((kv - pv).abs().max()),
                 "states": max(float((ks[k] - ps[k]).abs().max()) for k in ks),
             }
+        k1, k2 = fused_rnn_act(p, o, s, (1, 2)), fused_rnn_act(p, o, s, (1, 2))
+        flat = lambda r: [r[0], r[1], r[2], *r[3].values()]  # noqa: E731
+        out["bit_identical"] = all(torch.equal(a, b) for a, b in zip(flat(k1), flat(k2)))
+        return out
+
+    def measure() -> dict:
+        run = lambda: fused_rnn_act(params, obs, states, (1, 2))  # noqa: E731
+        out = {"rnn_act_ms": cs.time_ms(torch, run)[0], "rnn_act_split_ms": split(run), **errors(params, obs, states)}
+        for name, p, o, s in others:
+            run = lambda p=p, o=o, s=s: fused_rnn_act(p, o, s, (1, 2))  # noqa: E731
+            out[f"{name}_ms"] = cs.time_ms(torch, run)[0]
+            out[f"{name}_split_ms"] = split(run)
+            out[name] = errors(p, o, s)
         return out
 
     return measure

@@ -1,5 +1,5 @@
 // Recurrent act kernel: one rollout step of a default recurrent model, in one
-// launch.
+// call (one launch on the 32-row tiles; the staged route's few, below).
 //
 // Replaces rl8_tpu/ops/fused_rnn_act.py:_kernel (the Pallas TPU kernel). For
 // every row of obs [B, d_in] with its states h, c [B, K * H] it computes:
@@ -24,50 +24,55 @@
 //
 // Two routes, picked by shape at launch (make_plan):
 //
-// The 32-row tiles (rnn_act_kernel, H up to 288 at the main path's shapes:
-// wherever a 32-row tile fits two blocks to an SM). A block of 256 threads
-// owns 32 rows. The gate products run on the tensor cores through
-// mma.cuh's 3xTF32 (f32-accurate per product; each k step of 8 in a fresh
-// accumulator, so the tensor core's truncation does not build up over the
-// 257-deep sums). Warp w owns hidden-unit tiles w, w + 8, ... of 8 units,
-// and for each computes the unit tile's four gate columns (i, f, g, o) for
-// every row of the block, so lane (g, tq) holds all four gates of its
-// (row, unit) pairs in its accumulator fragments and the cell update runs
-// there, with no pass through shared memory. Each weight is read from L2
-// once per block, as B fragments in place, two k steps ahead of the
-// products. The layer's input and previous hidden state lie in shared
-// memory, their rows padded to 4 past a multiple of 32 so that the A
-// fragment loads are free of bank conflicts. The narrow heads and the
-// sampling stay on the CUDA cores.
-//
-// The staged route (every other shape: wider layers, and heads too wide
-// for the 32-row tile) runs a launch as kernels on stage.cuh's parts:
+// The staged route (every LSTM at least kStagedMinWidth = 128 wide, the
+// main path's among them, and every other shape the 32-row tiles do not
+// fit) runs a launch as kernels on stage.cuh's parts:
 //   - per layer, TF32 big and small halves of Wi and Wh in the stages'
 //     K-major layout, the gate columns permuted so that the thread of a
 //     wgmma D fragment holds all four gates of its units (tile_tc_kernel,
-//     into the scratch the wrapper allocates, rl8_rnn_act_scratch);
+//     into the scratch the wrapper allocates, rl8_rnn_act_scratch); a first
+//     layer of at most kFoldInputs inputs needs no copy of Wi;
 //   - per layer, rnn_gates_tc_kernel over a grid of (32-unit tiles,
 //     128-row tiles): a block streams its rows of the layer input (the
-//     observations, or layer l - 1's h' from h_out) and of h0, and its unit
-//     tile's 32-deep weight slabs, through a 3-stage cp.async ring in shared
-//     memory, and sums x Wi, then h Wh, on the tensor cores in 3xTF32
-//     wgmma (tc_product: each weight slab feeds all 128 rows; a fresh
-//     accumulator every 32 k folded into an f32 sum, so wgmma's truncation
-//     does not build up over the 1025- to 3234-deep sums), adds the bias
-//     and runs the cell update on the sums in registers, and writes h', c';
+//     observations, or layer l - 1's h' from h_out) and of h0 through a
+//     3-stage ring in shared memory by cp.async, and its unit tile's 32-deep
+//     weight slabs by bulk copies (the TMA unit, counted by the stages'
+//     mbarriers, stage.cuh's StRing), and sums x Wi, then h Wh, on the
+//     tensor cores in 3xTF32 wgmma (tc_product: each weight slab feeds all
+//     128 rows; a fresh accumulator every 32 k folded into an f32 sum, so
+//     wgmma's truncation does not build up over the 257- to 3234-deep
+//     sums); a first layer of at most kFoldInputs inputs (the dummy envs'
+//     one) skips its 32-deep stage: the epilogue adds x Wi on the CUDA
+//     cores; then the bias and the cell update on the sums in registers
+//     (the previous cell states loaded before any store), h' and c' out;
 //   - rnn_heads_kernel over blocks of 8 rows: the heads on the top layer's
 //     h' in h_out (st_heads: narrow_head's sums), into the scratch, then
 //     sample.cuh's epilogue.
 // Its shared memory is the ring's, whatever H and the heads; offsets are
-// 64-bit. At H 1024 x 8,192 rows (wide_recurrent's act) the gate grid is 32
-// x 64 blocks, one to an SM, ~15.5 waves on 132 SMs; the products are 68.8
-// GFLOP, 1.03 ms at the CUDA cores' 67 TFLOP/s f32 and 0.42 ms at three
-// TF32 products per f32 product at the tensor cores' 495 TFLOP/s. On an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, one A/B) the launch took
-// 1.19-1.21 ms, the same route with f32 gates on the CUDA cores
-// (fwd_product, an ablation since removed) 1.94, the earlier 16-row tiles
-// (two layer inputs in 204 KB of shared memory, every weight read as scalar
-// B fragments from L2 once per 16 rows) 7.01, the plain version 3.6-4.1.
+// 64-bit. At the main path the gate grid is 8 x 64 blocks, one to an SM,
+// ~3.9 waves on 132 SMs. On an NVIDIA H100 80GB HBM3 at 700.00 W
+// (kernel_variants.py, PERF.md §6) the launch at the main path took 0.114
+// ms (gates 0.098, heads 0.0097, the Wh copy 0.0034) against the 32-row
+// tiles' 0.168, at H 1024 x 8,192 rows 1.19-1.21 ms (the same route with f32
+// gates on the CUDA cores, fwd_product, an ablation since removed, 1.94;
+// the earlier 16-row tiles 7.01), the plain version 3.6-4.1.
+//
+// The 32-row tiles (rnn_act_kernel: LSTMs narrower than 128 whose 32-row
+// tile fits two blocks to an SM; kernel_variants.py's rnn_act_shapes grid
+// measured them faster at 64 wide for 1 to 8,192 rows, and slower from 128
+// up at every row count). A block of 256 threads owns 32 rows. The gate
+// products run on the tensor cores through mma.cuh's 3xTF32 (f32-accurate
+// per product; each k step of 8 in a fresh accumulator, so the tensor
+// core's truncation does not build up). Warp w owns hidden-unit tiles w, w +
+// 8, ... of 8 units, and for each computes the unit tile's four gate
+// columns (i, f, g, o) for every row of the block, so lane (g, tq) holds
+// all four gates of its (row, unit) pairs in its accumulator fragments and
+// the cell update runs there, with no pass through shared memory. Each
+// weight is read from L2 once per block, as B fragments in place, two k
+// steps ahead of the products. The layer's input and previous hidden state
+// lie in shared memory, their rows padded to 4 past a multiple of 32 so
+// that the A fragment loads are free of bank conflicts. The narrow heads
+// and the sampling stay on the CUDA cores.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -94,6 +99,18 @@ constexpr int kRows = 32;                      // rows a block of the 32-row til
 constexpr size_t kTwoBlocksSmem = 113 * 1024;  // two blocks to an SM
 constexpr int kAhead = 2;  // k steps of weights in flight ahead of the products
 constexpr int kHeadRows = 8;  // rows a block of the staged route's heads kernel
+// The staged gates' weight slabs by bulk copies (stage.cuh's StRing), not
+// every thread's cp.async.
+constexpr bool kBulkSlabs = true;
+// A first layer of at most this many inputs (the dummy envs' one) adds x Wi
+// on the CUDA cores in the staged gates' epilogue, from the observations and
+// the parameters, instead of taking a 32-deep stage of its own (and a copy).
+constexpr int kFoldInputs = 4;
+// The staged route takes every LSTM at least this wide, and whatever the
+// 32-row tiles do not fit two blocks to an SM (kernel_variants.py's
+// rnn_act_shapes grid: the tiles win at 64 wide, the staged route from 128,
+// at every row count from 1 to 8,192).
+constexpr int kStagedMinWidth = 128;
 
 struct RnnActDims {
   int d_in, H, K, act_dim, n_cat;
@@ -288,13 +305,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 // products' (x Wi, then h Wh, in 32-deep chunks) plus its bias. x [B, in_w]
 // (rows ldx apart) is the layer's input (for l >= 1 layer l - 1's columns
 // of h_out), h0 and c0 the stored states; h' and c' go to layer l's columns
-// of h_out and c_out (rows KH apart).
+// of h_out and c_out (rows KH apart). Where fold, x Wi is not a product:
+// the epilogue adds x[r, k] wi_fold[k, gate column] over the in_w inputs
+// (the layer's Wi as stored, [in_w, 4H]) to the h Wh sums, then the bias.
 __global__ void __launch_bounds__(rl8::kStThreads, 1)
     rnn_gates_tc_kernel(const float* x, long long ldx, int in_w, const float* __restrict__ h0,
                         const float* __restrict__ c0, const float* __restrict__ wi_big,
                         const float* __restrict__ wi_small, const float* __restrict__ wh_big,
                         const float* __restrict__ wh_small, const float* __restrict__ b, float* __restrict__ h_out,
-                        float* __restrict__ c_out, int B, int H, int K, int l) {
+                        float* __restrict__ c_out, int B, int H, int K, int l, int fold,
+                        const float* __restrict__ wi_fold) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
   const long long KH = (long long)K * H;
@@ -302,6 +322,9 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
   const long long wi = blockIdx.x * si * rl8::kStWFloats, wh = blockIdx.x * sh * rl8::kStWFloats;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, g = (threadIdx.x % 32) / 4, tq = threadIdx.x % 4;
   const long long tiles = (B + R - 1) / R;
+  __shared__ uint64_t bars[rl8::kStStages];
+  rl8::StRing ring = rl8::st_ring_init(bars);
+  rl8::StRing* const slabs = kBulkSlabs ? &ring : nullptr;
   for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
     const long long r0 = t * R;
     const int nr = (int)min((long long)R, B - r0);
@@ -309,7 +332,23 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     const float* hp = h0 + r0 * KH + (long long)l * H;
     const rl8::TcSeg seg[2] = {{{xp, ldx, in_w, nr, rl8::st_vec(xp, ldx)}, wi_big + wi, wi_small + wi},
                                {{hp, KH, H, nr, rl8::st_vec(hp, KH)}, wh_big + wh, wh_small + wh}};
-    rl8::tc_product(seg, 2, st_smem, [&](const float(&sum)[2][32]) {
+    rl8::tc_product(fold ? seg + 1 : seg, fold ? 1 : 2, st_smem, [&](const float(&sum)[2][32]) {
+      // The thread's rows' folded inputs and previous cell states, loaded
+      // before any store.
+      float xr[2][kFoldInputs], cp[2][4][2];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int r = 64 * wg + 16 * warp + g + 8 * rh;
+#pragma unroll
+        for (int k = 0; k < kFoldInputs; ++k) xr[rh][k] = k < in_w && fold && r < nr ? x[(r0 + r) * ldx + k] : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int j = 32 * blockIdx.x + 16 * h + 4 * m + tq;
+            cp[h][m][rh] = r < nr && j < H ? c0[(r0 + r) * KH + (long long)l * H + j] : 0.0f;
+          }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -321,16 +360,30 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
           for (int rh = 0; rh < 2; ++rh) {
             const int r = 64 * wg + 16 * warp + g + 8 * rh;
             if (r >= nr) continue;
-            float zi = sum[h][8 * m + 2 * rh] + bi, zf = sum[h][8 * m + 2 * rh + 1] + bf;
-            float zg = sum[h][8 * m + 4 + 2 * rh] + bg, zo = sum[h][8 * m + 4 + 2 * rh + 1] + bo;
+            float zi = sum[h][8 * m + 2 * rh], zf = sum[h][8 * m + 2 * rh + 1];
+            float zg = sum[h][8 * m + 4 + 2 * rh], zo = sum[h][8 * m + 4 + 2 * rh + 1];
+#pragma unroll
+            for (int k = 0; k < kFoldInputs; ++k) {
+              if (fold && k < in_w) {
+                const float* w = wi_fold + (long long)k * 4 * H + j;
+                zi = fmaf(xr[rh][k], __ldg(w), zi);
+                zf = fmaf(xr[rh][k], __ldg(w + H), zf);
+                zg = fmaf(xr[rh][k], __ldg(w + 2 * H), zg);
+                zo = fmaf(xr[rh][k], __ldg(w + 3 * H), zo);
+              }
+            }
+            zi += bi;
+            zf += bf;
+            zg += bg;
+            zo += bo;
             rl8::gate_activations(zi, zf, zg, zo);
             const long long at = (r0 + r) * KH + (long long)l * H + j;
-            const float c = zf * c0[at] + zi * zg;
+            const float c = zf * cp[h][m][rh] + zi * zg;
             h_out[at] = zo * tanhf(c);
             c_out[at] = c;
           }
         }
-    });
+    }, slabs);
   }
 }
 
@@ -387,15 +440,18 @@ cudaError_t launch_staged(const RnnActDims& d, int kind, const float* obs, const
     const float* b = wh + (size_t)H * 4 * H;
     p = b + 4 * H;
     const float* x = l == 0 ? obs : h_out + (size_t)(l - 1) * H;
-    rl8::tile_tc_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(in_w, 4 * H)), rl8::kStThreads, 0, s>>>(
-        wi, 4 * H, in_w, 4 * H, H, scratch + S.wi[l], scratch + S.wis[l]);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int fold = l == 0 && in_w <= kFoldInputs;
+    if (!fold) {
+      rl8::tile_tc_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(in_w, 4 * H)), rl8::kStThreads, 0, s>>>(
+          wi, 4 * H, in_w, 4 * H, H, scratch + S.wi[l], scratch + S.wis[l]);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
     rl8::tile_tc_kernel<<<rl8::st_copy_grid(rl8::bwd_copy_floats(H, 4 * H)), rl8::kStThreads, 0, s>>>(
         wh, 4 * H, H, 4 * H, H, scratch + S.wh[l], scratch + S.whs[l]);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     rnn_gates_tc_kernel<<<grid, rl8::kStThreads, rl8::kStBwdSmem, s>>>(
         x, l == 0 ? d.d_in : KH, in_w, h0, c0, scratch + S.wi[l], scratch + S.wis[l], scratch + S.wh[l],
-        scratch + S.whs[l], b, h_out, c_out, B, H, d.K, l);
+        scratch + S.whs[l], b, h_out, c_out, B, H, d.K, l, fold, wi);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const auto heads = kind == kCategorical ? rnn_heads_kernel<false> : rnn_heads_kernel<true>;
@@ -424,6 +480,7 @@ int make_plan(int B, int d_in, int H, int K, int kind, int act_dim, int n_cat, R
   const int xw = d_in > H ? d_in : H;
   d->ldx = (xw + 31) / 32 * 32 + 4;
   d->ldh = (H + 31) / 32 * 32 + 4;
+  if (H >= kStagedMinWidth) return 1;
   return sizeof(float) * smem_floats(*d) <= kTwoBlocksSmem ? 2 : 1;
 }
 

@@ -32,32 +32,86 @@
 // 2 4H H of dh_t, ~1.45 MFLOP per sample, 3.8e11 FLOP per launch, against
 // ~140 MB of inputs and outputs, so the products bound it: ~5.7 ms at the
 // CUDA cores' 67 TFLOP/s, ~2.3 ms at three TF32 products per f32 product
-// at the tensor cores' 495 TFLOP/s.
+// at the tensor cores' 495 TFLOP/s. Of that the row pass's share: the
+// forward's 1.38e11 FLOP, 2.06 ms in f32, and the dh products' 1.03e11,
+// 0.62 ms at 3xTF32; its scratches move ~4.4 GB (~1.3 ms at 3.35 TB/s).
 //
 // Design. On the TPU the grid runs in order and every grid step adds its
 // tile's gradients into VMEM; CUDA blocks run in parallel, so, as in
 // ppo.cu, the work is split in passes with no float atomics (the result is
 // bit-identical from launch to launch):
-//   1. rnn_rows_kernel: a block of 256 threads owns kRows = 16 sequences, two
-//      blocks to an SM (32 sequences a block, one to an SM, so that each
-//      weight read from L2 feeds 32, made the launch 22.55 ms against 19.1
-//      on an H100, kernel_variants.py's rnn_rows32: the pass waits on
-//      latency). The forward runs on the CUDA cores, thread j owning hidden
-//      unit j (lstm.cuh): the tensor cores round toward zero (mma.cuh), and
-//      the forward's values feed the loss, whose cotangents sum any bias over
-//      every sample (ppo.cu says what that did to the feedforward update). It
-//      writes, per (sequence, step, layer), h' and c' (slot t + 1 of an [L +
+//   1. The row pass, on one of two routes that the shapes fix at launch
+//      (make_layout): the stacked-LSTM forward per step, the heads, the loss
+//      terms and the heads' cotangents, then the backward through time,
+//      writing per (sequence, step, layer) h' and c' (slot t + 1 of an [L +
 //      1] state scratch whose slot 0 holds the stored states) and the four
-//      gate activations to a scratch in device memory (26.7 KB per sequence
-//      at the main path, 1.75 GB at N = 65,536), and per step the heads'
-//      cotangents. The backward reads them back; the gate cotangents dz
-//      overwrite the gate activations in place and go to shared memory, the A
-//      operand of dh_t = dz Wh^T and dx = dz Wi^T, which run on the tensor
-//      cores (mma.cuh's 3xTF32) with the transposed weights read from L2 as B
-//      fragments in place, two k steps ahead. Warp w owns hidden-unit tiles
-//      w, w + 8, ... (8 units each), so lane (g, tq) holds the same
-//      (sequence, unit) pairs in the cell backward and in the products'
-//      outputs: a unit's dh_t, dc_t and gates pass through no barrier.
+//      gate activations, which the backward overwrites with the gate
+//      cotangents dz (26.7 KB per sequence at the main path, 1.75 GB at N =
+//      65,536), for the weight products. The forward stays in f32 on the
+//      CUDA cores (lstm.cuh's sums, each gate in order of k): the tensor
+//      cores round toward zero (mma.cuh), and the forward's values feed the
+//      loss, whose cotangents sum any bias over every sample (with the
+//      forward's gates on 3xTF32 wgmma, an ablation since removed, the
+//      forward kernel was 1.4 ms faster at the main path but its gradients
+//      sat 1.1e-5 off float64 against the f32 version's 1.4e-6, past a
+//      tenth of the checks' limit). The dh products run on the tensor
+//      cores in 3xTF32.
+//      The staged route (every minibatch of at least kStagedMinRows
+//      sequences whose LSTM is kStagedMinWidth wide or more, the main path
+//      among them, and every shape whose narrow row pass does not fit a
+//      block's shared memory: H past ~720 at the dummy envs' heads) runs two
+//      kernels over blocks of 128 sequences (stage.cuh's kStRows), one block
+//      an SM, every operand in the scratches, each product streamed through
+//      a 3-stage ring in shared memory, 32 deep in k: the block's rows by
+//      cp.async, each weight slab by one bulk copy (the TMA unit) counted by
+//      the stage's mbarrier (stage.cuh's StRing), from copies of the
+//      weights in the stages' layout that the launch makes once.
+//      rnn_staged_fwd_kernel runs, per step and layer, z = b + x Wi + h Wh
+//      as one product over the block's rows (stage.cuh's fwd_product,
+//      register-tiled, 8 rows x 16 columns a thread in 256-column passes;
+//      the layer's input, the packed obs columns or layer l - 1's h' in
+//      slot t + 1, then the previous state in slot t, against Wi and Wh
+//      whose gate columns the copy interleaves so that a thread's four
+//      adjacent columns are one unit's gates; each gate summed in order of k
+//      from its bias), the cell update on the sums in registers (a pass's
+//      previous cell states loaded before its stores), then the step's
+//      epilogue through shared memory, as many rows a round as fit (all
+//      128 at H 256): the rows of the top layer's h', the heads
+//      (narrow_head's sums, a warp a row, weights in shared memory), the
+//      loss terms (a thread a row) and the cotangents
+//      to the head-cotangent scratch. rnn_staged_bwd_kernel runs the
+//      backward through time, steps and layers in reverse: the cell
+//      backward elementwise, four adjacent units a thread by 16-byte loads
+//      (the top layer's dh plus the heads' cotangent dout W_heads^T from
+//      the head weights and the step's cotangents in shared memory), dz
+//      into the gate scratch; then dh_t = dz Wh^T into the layer's dh_t
+//      scratch and dx = dz Wi^T added into the dh_t of the layer below
+//      (bwd_passes: Wh and Wi as stored, [H, 4H], are the K-major B operand
+//      from big and small TF32 halves, no transposed copy; dz the A operand,
+//      split in registers; a fresh accumulator every 32 k). Offsets are
+//      64-bit. This replaces, at the main path, the narrow design below,
+//      which waited on latency (each weight read from L2 as scalar fragments
+//      feeding 16 sequences), and the earlier wide kernels (a cp.async ring, the
+//      epilogue and heads read from L2 one dependent load at a time, a dx
+//      scratch). Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+//      (kernel_variants.py, PERF.md §6): at the main path the row pass 8.9
+//      ms against the narrow route's 12.0 (the earlier wide kernels at 256:
+//      10.3), its forward kernel ~6 (its FMAs ~3.5 of that against their
+//      2.06 ms bound), its backward kernel ~2.8 (the cell backward ~1.0,
+//      at the rate of its ~3.2 GB; the dh products 0.6).
+//      The narrow route (rnn_rows_kernel) keeps the rest, where 128-sequence
+//      blocks leave SMs idle or narrow gates waste the passes: a block of 256
+//      threads owns kRows = 16 sequences, two blocks to an SM (32 sequences a
+//      block, one to an SM, made the launch 22.55 ms against 19.1,
+//      kernel_variants.py's rnn_rows32: the pass waits on latency). Thread j
+//      owns hidden unit j in the forward (lstm.cuh). The backward's gate
+//      cotangents go to shared memory, the A operand of dh_t = dz Wh^T and
+//      dx = dz Wi^T on the tensor cores (mma.cuh's 3xTF32) with the
+//      transposed weights read from L2 as B fragments in place, two k steps
+//      ahead. Warp w owns hidden-unit tiles w, w + 8, ... (8 units each), so
+//      lane (g, tq) holds the same (sequence, unit) pairs in the cell
+//      backward and in the products' outputs: a unit's dh_t, dc_t and gates
+//      pass through no barrier.
 //   2. wgrad.cuh's split-K weight products over the N L (sequence, step)
 //      rows, read in place from the scratch with an outer (sequence) and an
 //      inner (step) stride: dWh (H by 4H, db as its bias row) and dWi past
@@ -66,41 +120,11 @@
 //   3. The fixed-order sums of the partials and of the blocks' stats.
 // Sequences past N are zeros in the last block: their states, inputs and
 // cotangents are 0, and the weight products read rows below N only.
-//
-// The wide route takes the widths whose row pass does not fit a block's
-// shared memory (H past ~720 at the main path's heads; make_layout picks
-// it, and every narrower shape keeps the route above). It runs the row pass
-// as two kernels over blocks of 128 sequences (stage.cuh's kStRows), every
-// operand in the scratches: rnn_wide_fwd_kernel (one block an SM) runs the
-// forward, step by step and layer by layer, as one product z = b + x Wi +
-// h Wh over the block's rows (stage.cuh's fwd_product: the layer's input,
-// the packed obs columns or layer l - 1's h' in slot t + 1, then the
-// previous state in slot t, streamed with Wi and Wh, whose gate columns a
-// copy interleaves so that a thread's four adjacent columns are one unit's
-// gates, through a 3-stage cp.async ring in shared memory, 32 deep in k;
-// each gate summed in order of k from its bias, on the CUDA cores in f32,
-// as lstm_preact sums it), the cell update on the sums in registers, the
-// heads and the loss terms into the head-cotangent scratch;
-// rnn_wide_bwd_kernel (one block an SM) runs the backward through time:
-// the heads' cotangent dx (a scratch [Npad, H]), the cell backward into dz
-// in the gate scratch, elementwise, and dh_t = dz Wh^T, dx = dz Wi^T on the
-// tensor cores in 3xTF32 wgmma (bwd_product: Wh and Wi as stored, [H,
-// 4H], are the K-major B operand over the units, from big and small TF32
-// halves the launch copies once in the stages' layout, no transposed copy;
-// dz the A operand, split in registers; a fresh accumulator every 32 k).
-// Shared memory is the stages, whatever H and the heads; each weight slab
-// a block reads feeds 128 sequences (16 on the narrow route), and offsets
-// are 64-bit. Bound at H 1024 x 65,536 sequences of 4 (wide_recurrent's
-// update): the row pass's products are 3.85e12 FLOP, the forward's 2.20e12
-// at the CUDA cores' 67 TFLOP/s (32.8 ms) and the dh products' 1.65e12 at
-// 3xTF32 on the tensor cores' 495 (10.0 ms); the launch's 6.05e12 FLOP,
-// 90.4 ms at f32. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
-// (PERF.md §6, chip_smoke.py --time-updates): the launch 162.3-162.7 ms,
-// of which the row pass 94.0-94.5 (the first kernel ~61, the second ~30)
-// and the weight products ~70.5, against 289 ms for the earlier wide route
-// (row pass 222: operands read in place, 16 sequences a block) and 167.0
-// for the plain version; at H 1617 x 2,048 sequences, 16 blocks on 132
-// SMs, 66.6 ms against the earlier route's 53.6 (128 blocks of 16).
+// Workspace at the main path: 1.953 GB on the staged route (states 2 x 336
+// MB, gates 1.07 GB, head cotangents 3.1 MB, dh_t and dc_t 67 MB each,
+// weight copies 3.3 MB, partials 68 MB, stats), 2.2 MB past the narrow
+// route's 1.951 GB (whose transposed copy is 1 MB); the earlier wide
+// kernels' 67 MB dx scratch is gone (dx adds into the dh_t scratch).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -128,11 +152,20 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // sequences per block of the row pass
 constexpr int kMaxLayers = 8;
 constexpr int kMaxHeads = 3;  // policy heads and the value head
-// A block's shared memory on an H100 (227 KB). make_layout takes the wide
-// route where the row pass's buffers pass it, and refuses a shape whose
-// wide route passes it too; rl8_rnn_ppo_workspace then returns -1 (which
-// ops/fused_rnn_ppo.py:card_takes_rnn_update asks).
+// A block's shared memory on an H100 (227 KB). make_layout takes the staged
+// route where the narrow row pass's buffers pass it, and refuses a shape
+// whose staged route passes it too; rl8_rnn_ppo_workspace then returns -1
+// (which ops/fused_rnn_ppo.py:card_takes_rnn_update asks).
 constexpr size_t kMaxSmem = 232448;
+// The staged route takes every minibatch of at least kStagedMinRows
+// sequences whose LSTM is at least kStagedMinWidth wide, and whatever the
+// narrow row pass's shared memory does not fit; the narrow route the rest
+// (see the file's head).
+constexpr long long kStagedMinRows = 16384;
+constexpr int kStagedMinWidth = 64;
+// The staged kernels' weight slabs by bulk copies (stage.cuh's StRing), not
+// every thread's cp.async.
+constexpr bool kBulkSlabs = true;
 
 // The loss's columns (of step 0) and constants (LossDims), and the shapes.
 struct Dims : rl8::LossDims {
@@ -149,22 +182,30 @@ struct Dims : rl8::LossDims {
   long long wi_off[kMaxLayers], wh_off[kMaxLayers];  // in params; each layer's b follows its Wh
   long long head_off[kMaxHeads];
   long long whT_off[kMaxLayers], wiT_off[kMaxLayers];  // in the transposed copies (Wi^T: layers >= 1)
-  // The wide route's weight copies (stage.cuh's layouts): Wi and Wh for the
-  // forward, their gate columns interleaved; Wh's and (layers >= 1) Wi's
-  // big and small TF32 halves for the backward's products.
+  // The staged route's weight copies (stage.cuh's layouts): Wi and Wh for
+  // the forward, their gate columns interleaved; Wh's and (layers >= 1)
+  // Wi's big and small TF32 halves for the backward's products.
   long long cfi[kMaxLayers], cfh[kMaxLayers], cbh[kMaxLayers], cbhs[kMaxLayers], cbi[kMaxLayers], cbis[kMaxLayers];
+  // The staged forward's epilogue: a staged top-layer row's stride, rows a
+  // round, the head outputs in shared memory (else in the head-cotangent
+  // scratch) and the head weights in shared memory (else read from L2).
+  int eld, erows, zsm, wstaged;
+  // The staged backward: the heads' cotangent summed in the top layer's
+  // cell backward from shared memory (else a pass through its dh_t).
+  int hfuse;
 };
 
 // The parameter layout and the workspace (floats): [Wh^T, Wi^T copies;
-// wide: the weight copies][h scratch][c scratch][gates, then dz][head
-// cotangents][dh_t][dc_t][wide: dx][partials: groups x P][stats: blocks x 4].
+// staged: the weight copies][h scratch][c scratch][gates, then dz][head
+// cotangents][dh_t][dc_t][partials: groups x P][stats: blocks x 4].
 struct Layout {
   Dims d;
-  long long P, wt_floats, state_floats, gz_floats, dout_floats, time_floats, dx_floats, part_floats, stat_floats;
+  long long P, wt_floats, state_floats, gz_floats, dout_floats, time_floats, part_floats, stat_floats;
   long long rows_per_group;
   int groups, row_blocks;
-  size_t smem;  // the row pass's (wide: its first kernel's; the second's is rl8::kStBwdSmem)
-  bool wide;    // the wide route (rnn_wide_fwd_kernel, rnn_wide_bwd_kernel: every operand in the scratches)
+  size_t smem;   // the row pass's (staged: its first kernel's)
+  size_t bsmem;  // the staged route's second kernel's
+  bool staged;  // the staged route (rnn_staged_fwd_kernel, rnn_staged_bwd_kernel: every operand in the scratches)
 };
 
 // The row strides (padded to a multiple of 32 plus 4, which makes the
@@ -180,9 +221,10 @@ size_t set_strides(Dims& d, bool pad) {
   return sizeof(float) * (size_t)kRows * (d.u_floats + d.n_out + 4);
 }
 
-// The row pass's strides are padded where that fits shared memory, else
-// unpadded (as wide as the kernel took before the padding), else the wide
-// route, which keeps nothing of a width in shared memory.
+// The narrow row pass's strides are padded where that fits shared memory,
+// else unpadded (as wide as the kernel took before the padding). The staged
+// route, which keeps nothing of a width in shared memory, takes the shapes
+// where neither fits and the minibatches of the rule above.
 bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, int n_cat, Layout* Lo) {
   // The weight products divide a row index by L in 32 bits; a block's
   // offsets within a sequence's rows of the scratches are 32-bit.
@@ -225,9 +267,26 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
   Lo->P = off;
   Lo->smem = set_strides(d, true);
   if (Lo->smem > kMaxSmem) Lo->smem = set_strides(d, false);
-  Lo->wide = Lo->smem > kMaxSmem;
-  if (Lo->wide) {
-    Lo->smem = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
+  Lo->staged = Lo->smem > kMaxSmem || ((long long)N >= kStagedMinRows && H >= kStagedMinWidth);
+  if (Lo->staged) {
+    // The forward's epilogue: as many of the block's top-layer rows a round
+    // as fit the stages beside their head outputs (the outputs in the
+    // head-cotangent scratch where not one row's fit beside its inputs);
+    // the head weights, transposed, in shared memory past the stages and the
+    // row stats where they fit, else read from L2.
+    const long long stage = (long long)(rl8::kStFwdSmem / sizeof(float));
+    d.eld = (H + 3) / 4 * 4;
+    d.zsm = stage >= d.eld + d.n_out;
+    const long long fit = stage / (d.eld + (d.zsm ? d.n_out : 0));
+    if (fit < 1) return false;
+    d.erows = (int)(fit < rl8::kStRows ? fit : rl8::kStRows);
+    const size_t base = rl8::kStFwdSmem + sizeof(float) * rl8::kStRows * 4;
+    const size_t heads = sizeof(float) * (size_t)d.n_out * (d.eld + 1);
+    d.wstaged = base + heads <= kMaxSmem;
+    Lo->smem = base + (d.wstaged ? heads : 0);
+    const size_t hsmem = sizeof(float) * (size_t)d.n_out * (H + rl8::kStRows);
+    d.hfuse = H % 4 == 0 && rl8::kStBwdSmem + hsmem <= kMaxSmem;
+    Lo->bsmem = rl8::kStBwdSmem + (d.hfuse ? hsmem : 0);
     wt = 0;
     for (int l = 0; l < K; ++l) {
       d.cfi[l] = wt;
@@ -245,7 +304,7 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
     }
   }
   Lo->wt_floats = wt;
-  const int rows = Lo->wide ? rl8::kStRows : kRows;
+  const int rows = Lo->staged ? rl8::kStRows : kRows;
   Lo->row_blocks = (N + rows - 1) / rows;
   d.Npad = (long long)Lo->row_blocks * rows;
   d.hs = (long long)(L + 1) * K * H;
@@ -255,7 +314,6 @@ bool make_layout(int N, int d_in, int H, int L, int K, int kind, int act_dim, in
   Lo->gz_floats = d.Npad * d.gs;
   Lo->dout_floats = d.Npad * d.ds;
   Lo->time_floats = (long long)K * d.Npad * H;
-  Lo->dx_floats = Lo->wide ? d.Npad * H : 0;
   rl8::split_rows((long long)N * L, &Lo->groups, &Lo->rows_per_group);
   Lo->part_floats = (long long)Lo->groups * Lo->P;
   Lo->stat_floats = 4LL * Lo->row_blocks;
@@ -559,20 +617,37 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// The wide route's row pass (see the file's head), first kernel: the
+// The cell backward of one (sequence, unit) pair from its dh (the time
+// cotangent plus the cotangent from above), its dc_t (0 past the last step),
+// its four gates and its cell states: the gate cotangents dz (i, f, g, o),
+// and dc_t for the step before.
+__device__ __forceinline__ void cell_backward(float dh, float dcn, float gi, float gf, float gg, float go,
+                                              float c_prev, float c, float (&dz)[4], float& dc_prev) {
+  const float tc = tanhf(c);
+  const float dc = dh * go * (1.0f - tc * tc) + dcn;
+  dz[0] = dc * gg * gi * (1.0f - gi);
+  dz[1] = dc * c_prev * gf * (1.0f - gf);
+  dz[2] = dc * gi * (1.0f - gg * gg);
+  dz[3] = dh * tc * go * (1.0f - go);
+  dc_prev = dc * gf;
+}
+
+// The staged route's row pass (see the file's head), first kernel: the
 // forward over the steps, the heads and the loss terms, kStRows sequences
 // a block, one block an SM; the gates, states and head rows go to the
 // scratches. Offsets are 64-bit throughout.
 template <bool kContinuous>
 __global__ void __launch_bounds__(rl8::kStThreads, 1)
-    rnn_wide_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
-                        const float* __restrict__ params, const float* __restrict__ wt, float* __restrict__ hseq,
-                        float* __restrict__ cseq, float* __restrict__ gz, float* __restrict__ dout,
-                        float* __restrict__ stat_part, Dims d) {
+    rnn_staged_fwd_kernel(const int* __restrict__ packed, const float* __restrict__ ec,
+                          const float* __restrict__ params, const float* __restrict__ wt, float* __restrict__ hseq,
+                          float* __restrict__ cseq, float* __restrict__ gz, float* __restrict__ dout,
+                          float* __restrict__ stat_part, Dims d) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
   float* rowv = st_smem + rl8::kStFwdSmem / sizeof(float);  // [R, 4]: pol, vf, ent, kl over the steps
-  const int H = d.H, K = d.K, L = d.L;
+  float* wsm = rowv + R * 4;                                  // [n_out][eld]: the head weights, where wstaged
+  float* bsm = wsm + (long long)d.n_out * d.eld;              // [n_out]: their biases
+  const int H = d.H, K = d.K, L = d.L, n_out = d.n_out, lane = threadIdx.x % 32;
   const long long H4 = 4LL * H, KH = (long long)K * H;
   const long long r0 = (long long)blockIdx.x * R;
   const int nr = (int)min((long long)R, d.N - r0);
@@ -592,19 +667,33 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
     cseq_b[r * d.hs + k] = in ? packed_f[(r0 + r) * d.D + d.c_col + k] : 0.0f;
   }
   for (int i = threadIdx.x; i < R * 4; i += blockDim.x) rowv[i] = 0.0f;
+  if (d.wstaged) {
+    for (int i = threadIdx.x; i < n_out * H; i += blockDim.x) {
+      wsm[(i / H) * d.eld + i % H] = head_weight(params, d, i / H, i % H);
+    }
+    for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
+      const int q = o < d.n_heads * d.head_w ? o / d.head_w : d.n_heads;
+      const int w = q < d.n_heads ? d.head_w : 1;
+      bsm[o] = __ldg(params + d.head_off[q] + (size_t)H * w + (o - q * d.head_w));
+    }
+  }
+  __shared__ uint64_t bars[rl8::kStStages];
+  rl8::StRing ring = rl8::st_ring_init(bars);  // its barrier also publishes slot 0, the row stats and the head weights
+  rl8::StRing* const slabs = kBulkSlabs ? &ring : nullptr;
 
   // ---------------- forward: the LSTM, the heads and the loss terms per step
   for (int t = 0; t < L; ++t) {
     for (int l = 0; l < K; ++l) {
-      __syncthreads();  // the state scratch's slot t and layer l - 1's h' are stored
       // z = b + x Wi + h Wh over the block's rows: x the obs columns (rows
       // past N read as 0) or layer l - 1's h' (slot t + 1), h slot t; gate
       // columns interleaved, so a thread's four adjacent columns are one
-      // unit's gates.
+      // unit's gates. (fwd_product returns after a barrier, so the slots and
+      // h' it reads are stored.)
+      const long long slot = (long long)t * K + l;  // (step, layer) in the state scratch
       const float* xp = l == 0 ? packed_f + r0 * d.D + d.obs_col + (long long)t * d.d_in
-                               : hseq_b + ((long long)(t + 1) * K + l - 1) * H;
+                               : hseq_b + (slot + K - 1) * H;
       const long long ldx = l == 0 ? d.D : d.hs;
-      const float* hp = hseq_b + ((long long)t * K + l) * H;
+      const float* hp = hseq_b + slot * H;
       const rl8::FwdSeg seg[2] = {
           {{xp, ldx, l == 0 ? d.d_in : H, l == 0 ? nr : R, rl8::st_vec(xp, ldx)}, wt + d.cfi[l]},
           {{hp, d.hs, H, R, rl8::st_vec(hp, d.hs)}, wt + d.cfh[l]}};
@@ -620,6 +709,16 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
             }
           },
           [&](auto& acc, int rg, const int(&n)[8]) {
+            // The tile's two units' previous cell states, all loaded before
+            // any store.
+            float cp[R / 16][2];
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i)
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const int j = n[4 * q] / 4;
+                cp[i][q] = j < H ? cseq_b[(long long)(rg + 16 * i) * d.hs + slot * H + j] : 0.0f;
+              }
 #pragma unroll
             for (int i = 0; i < R / 16; ++i) {
               const long long r = rg + 16 * i;
@@ -629,59 +728,117 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
                 if (j < H) {
                   float zi = acc[i][4 * q], zf = acc[i][4 * q + 1], zg = acc[i][4 * q + 2], zo = acc[i][4 * q + 3];
                   rl8::gate_activations(zi, zf, zg, zo);
-                  float* gp = gz_b + r * d.gs + ((long long)t * K + l) * H4 + j;
+                  float* gp = gz_b + r * d.gs + slot * H4 + j;
                   gp[0] = zi;
                   gp[H] = zf;
                   gp[2 * H] = zg;
                   gp[3 * H] = zo;
-                  const float c_prev = cseq_b[r * d.hs + ((long long)t * K + l) * H + j];
-                  const float c = zf * c_prev + zi * zg;
-                  const float h = zo * tanhf(c);
-                  cseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + j] = c;
-                  hseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + j] = h;
+                  const float c = zf * cp[i][q] + zi * zg;
+                  cseq_b[r * d.hs + (slot + K) * H + j] = c;
+                  hseq_b[r * d.hs + (slot + K) * H + j] = zo * tanhf(c);
                 }
               }
             }
-          });
+          },
+          slabs);
     }
-    // The heads on the top layer's h' (slot t + 1) into the step's row of
-    // the head-cotangent scratch (narrow_head's sums).
+    // The step's epilogue, d.erows rows a round through shared memory (the
+    // stages are free between products): the rows of the top layer's h'
+    // (slot t + 1) into hs, the heads into zs (a warp a row, lane l summing
+    // k = l, l + 32, ... of up to four outputs at once in order, then an xor
+    // butterfly: st_heads' sums), the loss terms turning them into their
+    // cotangents in place (a thread a row; rows past N get zeros), and the
+    // cotangents to the step's row of the head-cotangent scratch (where zs
+    // is not that row itself).
     const float* top = hseq_b + ((long long)(t + 1) * K + K - 1) * H;
-    float* head_t = dout_b + (long long)t * d.n_out;
-    for (int q = 0; q <= d.n_heads; ++q) {
-      const int w = q < d.n_heads ? d.head_w : 1;
-      const float* Wq = params + d.head_off[q];
-      rl8::st_heads(top, d.hs, H, Wq, Wq + (size_t)H * w, w, head_t, d.ds, q < d.n_heads ? q * w : d.n_out - 1);
-    }
-    __syncthreads();
-    // The step's loss terms and head cotangents in place, a thread per
-    // sequence; sequences past N get zeros.
-    if (threadIdx.x < R) {
-      const int r = threadIdx.x;
-      float* z = head_t + r * d.ds;
-      if (r < nr) {
-        rl8::LossDims s = d;
-        s.act_col += t * d.act_dim;
-        s.logp_col += t;
-        s.adv_col += t;
-        s.ret_col += t;
-        const int* row = packed + (r0 + r) * d.D;
-        float v[4];
-        if constexpr (kContinuous) {
-          rl8::continuous_row(row, z, v, s, ec_scale);
+    float* dout_t = dout_b + (long long)t * n_out;
+    float* hs = st_smem;  // [erows][eld]
+    const bool vec = rl8::st_vec(top, d.hs) && H % 4 == 0;
+    auto rounds = [&](auto hw, auto hb) {
+      for (int rc = 0; rc < R; rc += d.erows) {
+        const int er = min(d.erows, R - rc);
+        float* zs = d.zsm ? hs + d.erows * d.eld : dout_t + rc * d.ds;  // [er][zld]
+        const long long zld = d.zsm ? n_out : d.ds;
+        if (vec) {
+          const int q = H / 4;
+          for (int i = threadIdx.x; i < er * q; i += blockDim.x) {
+            const int r = i / q, k = 4 * (i % q);
+            rl8::cp_async16(hs + r * d.eld + k, top + (rc + r) * d.hs + k, 16);
+          }
         } else {
-          rl8::policy_row(row, z, v, s, ec_scale);
+          for (int i = threadIdx.x; i < er * H; i += blockDim.x) {
+            const int r = i / H, k = i % H;
+            rl8::cp_async4(hs + r * d.eld + k, top + (rc + r) * d.hs + k, 4);
+          }
         }
-        rl8::value_row(row, z + d.n_out - 1, v, s);
+        rl8::cp_async_commit();
+        rl8::cp_async_wait<0>();
+        __syncthreads();
+        for (int r = threadIdx.x / 32; r < er; r += blockDim.x / 32) {
+          const float* x = hs + r * d.eld;
+          for (int o0 = 0; o0 < n_out; o0 += 4) {
+            float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+            for (int k = lane; k < H; k += 32) {
+              const float xv = x[k];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) rowv[r * 4 + i] += v[i];
-      } else {
-        for (int o = 0; o < d.n_out; ++o) z[o] = 0.0f;
+              for (int q = 0; q < 4; ++q) {
+                if (o0 + q < n_out) sq[q] = fmaf(xv, hw(o0 + q, k), sq[q]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) sq[q] += __shfl_xor_sync(0xffffffffu, sq[q], off);
+              if (lane == 0 && o0 + q < n_out) zs[r * zld + o0 + q] = sq[q] + hb(o0 + q);
+            }
+          }
+        }
+        __syncthreads();
+        if (threadIdx.x < er) {
+          const int r = rc + threadIdx.x;
+          float* z = zs + threadIdx.x * zld;
+          if (r < nr) {
+            rl8::LossDims s = d;
+            s.act_col += t * d.act_dim;
+            s.logp_col += t;
+            s.adv_col += t;
+            s.ret_col += t;
+            const int* row = packed + (r0 + r) * d.D;
+            float v[4];
+            if constexpr (kContinuous) {
+              rl8::continuous_row(row, z, v, s, ec_scale);
+            } else {
+              rl8::policy_row(row, z, v, s, ec_scale);
+            }
+            rl8::value_row(row, z + n_out - 1, v, s);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) rowv[r * 4 + i] += v[i];
+          } else {
+            for (int o = 0; o < n_out; ++o) z[o] = 0.0f;
+          }
+        }
+        __syncthreads();
+        if (d.zsm) {
+          for (int i = threadIdx.x; i < er * n_out; i += blockDim.x) {
+            dout_t[(long long)(rc + i / n_out) * d.ds + i % n_out] = zs[i];
+          }
+          __syncthreads();  // the next round, or the next product, reuses hs and zs
+        }
       }
+    };
+    if (d.wstaged) {
+      rounds([&](int o, int k) { return wsm[o * d.eld + k]; }, [&](int o) { return bsm[o]; });
+    } else {
+      rounds([&](int o, int k) { return head_weight(params, d, o, k); },
+             [&](int o) {
+               const int q = o < d.n_heads * d.head_w ? o / d.head_w : d.n_heads;
+               const int w = q < d.n_heads ? d.head_w : 1;
+               return __ldg(params + d.head_off[q] + (size_t)H * w + (o - q * d.head_w));
+             });
     }
   }
 
-  __syncthreads();
   if (threadIdx.x < 4) {
     float s = 0.0f;
     for (int r = 0; r < nr; ++r) s += rowv[r * 4 + threadIdx.x];
@@ -689,78 +846,192 @@ __global__ void __launch_bounds__(rl8::kStThreads, 1)
   }
 }
 
-// The wide route's row pass, second kernel: the backward through time, the
-// steps and layers in reverse, kStRows sequences a block, one block an SM;
-// dz overwrites the gates in the gate scratch, dh_t, dc_t and dx go to
-// their scratches.
+// The staged route's row pass, second kernel: the backward through time,
+// the steps and layers in reverse, kStRows sequences a block, one block an
+// SM. Layer l's dh lives in its dh_t scratch: the dh_t product of the step
+// after writes it, the heads' cotangent (top layer) or the dx product of
+// layer l + 1 adds into it (writes it past the last step), and the cell
+// backward reads it. dz overwrites the gates in the gate scratch; dc_t goes
+// to its scratch. kVec (H a multiple of 4) selects the cell backward's
+// 16-byte path; each width's kernel holds one path, so that the other's
+// registers do not spill the products' (the 16-byte path in a kernel at H
+// 1617, where it never runs, cost 0.7 ms of 19.3).
+template <bool kVec>
 __global__ void __launch_bounds__(rl8::kStThreads, 1)
-    rnn_wide_bwd_kernel(const float* __restrict__ params, const float* __restrict__ wt,
-                        const float* __restrict__ cseq, float* __restrict__ gz, const float* __restrict__ dout,
-                        float* __restrict__ dht, float* __restrict__ dct, float* __restrict__ dxs, Dims d) {
+    rnn_staged_bwd_kernel(const float* __restrict__ params, const float* __restrict__ wt,
+                          const float* __restrict__ cseq, float* __restrict__ gz, const float* __restrict__ dout,
+                          float* __restrict__ dht, float* __restrict__ dct, Dims d) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
-  const int H = d.H, K = d.K, L = d.L;
+  const int H = d.H, K = d.K, L = d.L, n_out = d.n_out;
   const long long H4 = 4LL * H;
   const long long r0 = (long long)blockIdx.x * R;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
   const float* cseq_b = cseq + r0 * d.hs;
   float* gz_b = gz + r0 * d.gs;
   const float* dout_b = dout + r0 * d.ds;
-  float* dx = dxs + r0 * H;  // [R, H]: the cotangent into the current layer's output
+  // Where hfuse: the head weights [n_out][H] and the step's head
+  // cotangents [R][n_out] in shared memory past the stages.
+  const bool hfuse = kVec && d.hfuse;
+  float* wsm = st_smem + rl8::kStBwdSmem / sizeof(float);
+  float* dsm = wsm + (long long)n_out * H;
+  if (hfuse) {
+    for (int i = threadIdx.x; i < n_out * H; i += blockDim.x) wsm[i] = head_weight(params, d, i / H, i % H);
+  }
+  __shared__ uint64_t bars[rl8::kStStages];
+  rl8::StRing ring = rl8::st_ring_init(bars);  // its barrier also publishes the head weights
+  rl8::StRing* const slabs = kBulkSlabs ? &ring : nullptr;
   for (int t = L - 1; t >= 0; --t) {
-    __syncthreads();  // the step's head cotangents are stored, and dx is free
-    // The heads' cotangent into the top layer's h': dx = dout W_heads^T (the
-    // heads are narrow, so a loop over their outputs), 32 rows at a time.
-    const float* dos = dout_b + (long long)t * d.n_out;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      for (int rc = 0; rc < R; rc += 32) {
-        float acc[32];
+    const bool last = t == L - 1;
+    // The heads' cotangent into the top layer's dh: dout W_heads^T (the
+    // heads are narrow, so a loop over their outputs). Where hfuse, the
+    // top layer's cell backward sums it from shared memory (the step's
+    // cotangents staged here); else a pass adds it into the layer's dh_t,
+    // 32 rows at a time, each row's old dh loaded before the stores.
+    if (hfuse) {
+      for (int i = threadIdx.x; i < R * n_out; i += blockDim.x) {
+        dsm[i] = dout_b[(long long)(i / n_out) * d.ds + (long long)t * n_out + i % n_out];
+      }
+    } else {
+      const float* dos = dout_b + (long long)t * n_out;
+      float* dh = dht + ((long long)(K - 1) * d.Npad + r0) * H;
+      for (int j = threadIdx.x; j < H; j += blockDim.x) {
+        for (int rc = 0; rc < R; rc += 32) {
+          float acc[32], old[32];
 #pragma unroll
-        for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
-        for (int o = 0; o < d.n_out; ++o) {
-          const float w = head_weight(params, d, o, j);
+          for (int r = 0; r < 32; ++r) {
+            acc[r] = 0.0f;
+            old[r] = last ? 0.0f : dh[(long long)(rc + r) * H + j];
+          }
+          for (int o = 0; o < n_out; ++o) {
+            const float w = head_weight(params, d, o, j);
 #pragma unroll
-          for (int r = 0; r < 32; ++r) acc[r] = fmaf(dos[(rc + r) * d.ds + o], w, acc[r]);
+            for (int r = 0; r < 32; ++r) acc[r] = fmaf(dos[(rc + r) * d.ds + o], w, acc[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < 32; ++r) dh[(long long)(rc + r) * H + j] = old[r] + acc[r];
         }
-#pragma unroll
-        for (int r = 0; r < 32; ++r) dx[(long long)(rc + r) * H + j] = acc[r];
       }
     }
-    __syncthreads();
     for (int l = K - 1; l >= 0; --l) {
-      // The cell backward, elementwise over the block's (row, unit) pairs,
-      // four at a time: its operands come from device memory, so each
-      // thread keeps several pairs' loads in flight.
-      const bool last = t == L - 1;
+      __syncthreads();  // layer l's dh is complete
+      // The cell backward, elementwise over the block's (row, unit) pairs:
+      // four adjacent units a thread by 16-byte loads where H allows, two
+      // groups' operands loaded before their stores; the top layer's dh
+      // plus the heads' cotangent where hfuse.
+      const long long slot = (long long)t * K + l;
+      const bool heads = hfuse && l == K - 1;
+      float* dh_l = dht + ((long long)l * d.Npad + r0) * H;
+      float* dc_l = dct + ((long long)l * d.Npad + r0) * H;
+      if constexpr (kVec) {
+        const int G = H / 4, n = R * G;
+        for (int i0 = threadIdx.x; i0 < n; i0 += 2 * blockDim.x) {
+          float4 v[2][8];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = min(i0 + e * (int)blockDim.x, n - 1);
+            const long long r = i / G, u = 4 * (i % G);
+            const float* gp = gz_b + r * d.gs + slot * H4 + u;
+            v[e][0] = heads && last ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                                    : *reinterpret_cast<const float4*>(dh_l + r * H + u);
+            v[e][1] = last ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : *reinterpret_cast<const float4*>(dc_l + r * H + u);
+            v[e][2] = *reinterpret_cast<const float4*>(gp);
+            v[e][3] = *reinterpret_cast<const float4*>(gp + H);
+            v[e][4] = *reinterpret_cast<const float4*>(gp + 2 * H);
+            v[e][5] = *reinterpret_cast<const float4*>(gp + 3 * H);
+            v[e][6] = *reinterpret_cast<const float4*>(cseq_b + r * d.hs + slot * H + u);
+            v[e][7] = *reinterpret_cast<const float4*>(cseq_b + r * d.hs + (slot + K) * H + u);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + e * (int)blockDim.x;
+            if (i >= n) break;
+            const long long r = i / G, u = 4 * (i % G);
+            if (heads) {
+              float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              for (int o = 0; o < n_out; ++o) {
+                const float dv = dsm[r * n_out + o];
+                const float4 w = *reinterpret_cast<const float4*>(wsm + (long long)o * H + u);
+                acc = make_float4(fmaf(dv, w.x, acc.x), fmaf(dv, w.y, acc.y), fmaf(dv, w.z, acc.z),
+                                  fmaf(dv, w.w, acc.w));
+              }
+              v[e][0] = make_float4(v[e][0].x + acc.x, v[e][0].y + acc.y, v[e][0].z + acc.z, v[e][0].w + acc.w);
+            }
+            float dz[4][4], dcp[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              float z[4], f[8];
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                f[q] = k == 0 ? v[e][q].x : k == 1 ? v[e][q].y : k == 2 ? v[e][q].z : v[e][q].w;
+              }
+              cell_backward(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], z, dcp[k]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) dz[q][k] = z[q];
+            }
+            float* gp = gz_b + r * d.gs + slot * H4 + u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              *reinterpret_cast<float4*>(gp + q * H) = make_float4(dz[q][0], dz[q][1], dz[q][2], dz[q][3]);
+            }
+            *reinterpret_cast<float4*>(dc_l + r * H + u) = make_float4(dcp[0], dcp[1], dcp[2], dcp[3]);
+          }
+        }
+      } else {
 #pragma unroll 4
-      for (long long i = threadIdx.x; i < R * (long long)H; i += blockDim.x) {
-        const long long r = i / H, u = i % H;
-        const long long ut = ((long long)l * d.Npad + r0 + r) * H + u;
-        const float dh = (last ? 0.0f : dht[ut]) + dx[i];
-        float* gp = gz_b + r * d.gs + ((long long)t * K + l) * H4 + u;
-        const float gi = gp[0], gf = gp[H], gg = gp[2 * H], go = gp[3 * H];
-        const float c_prev = cseq_b[r * d.hs + ((long long)t * K + l) * H + u];
-        const float tc = tanhf(cseq_b[r * d.hs + ((long long)(t + 1) * K + l) * H + u]);
-        const float dc = dh * go * (1.0f - tc * tc) + (last ? 0.0f : dct[ut]);
-        gp[0] = dc * gg * gi * (1.0f - gi);
-        gp[H] = dc * c_prev * gf * (1.0f - gf);
-        gp[2 * H] = dc * gi * (1.0f - gg * gg);
-        gp[3 * H] = dh * tc * go * (1.0f - go);
-        dct[ut] = dc * gf;
+        for (long long i = threadIdx.x; i < R * (long long)H; i += blockDim.x) {
+          const long long r = i / H, u = i % H;
+          float* gp = gz_b + r * d.gs + slot * H4 + u;
+          float z[4], dcp;
+          cell_backward(dh_l[r * H + u], last ? 0.0f : dc_l[r * H + u], gp[0], gp[H], gp[2 * H], gp[3 * H],
+                        cseq_b[r * d.hs + slot * H + u], cseq_b[r * d.hs + (slot + K) * H + u], z, dcp);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gp[q * H] = z[q];
+          dc_l[r * H + u] = dcp;
+        }
       }
       __syncthreads();
       // dh_t = dz Wh^T for the previous step (none before step 0: the
-      // stored initial states take no gradient); dx = dz Wi^T into the
-      // layer below. Both on the tensor cores, dz read from the gate scratch.
-      const float* dz = gz_b + ((long long)t * K + l) * H4;
+      // stored initial states take no gradient), into layer l's dh; dx = dz
+      // Wi^T into layer l - 1's dh (added to its dh_t, each pass's old
+      // values loaded before its stores). Both on the tensor cores, dz read
+      // from the gate scratch.
+      const float* dz = gz_b + slot * H4;
       const rl8::StRows a{dz, d.gs, 4 * H, R, rl8::st_vec(dz, d.gs)};
       if (t > 0) {
-        rl8::bwd_product(a, wt + d.cbh[l], wt + d.cbhs[l], H, st_smem, [&](int r, int u, float v) {
-          dht[((long long)l * d.Npad + r0 + r) * H + u] = v;
-        });
+        rl8::bwd_passes(a, wt + d.cbh[l], wt + d.cbhs[l], H, st_smem, [&](const float(&sum)[2][32], int u0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              // D [64, 64]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
+              const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+              const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * tq + (i & 1);
+              if (u < H) dh_l[(long long)r * H + u] = sum[h][i];
+            }
+        }, slabs);
       }
       if (l > 0) {
-        rl8::bwd_product(a, wt + d.cbi[l], wt + d.cbis[l], H, st_smem,
-                         [&](int r, int u, float v) { dx[(long long)r * H + u] = v; });
+        float* dh_b = dht + ((long long)(l - 1) * d.Npad + r0) * H;
+        rl8::bwd_passes(a, wt + d.cbi[l], wt + d.cbis[l], H, st_smem, [&](const float(&sum)[2][32], int u0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float old[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+              const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * tq + (i & 1);
+              old[i] = !last && u < H ? dh_b[(long long)r * H + u] : 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int r = 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+              const int u = u0 + 64 * h + 8 * (i >> 2) + 2 * tq + (i & 1);
+              if (u < H) dh_b[(long long)r * H + u] = old[i] + sum[h][i];
+            }
+          }
+        }, slabs);
       }
     }
   }
@@ -773,8 +1044,8 @@ extern "C" long long rl8_rnn_ppo_workspace(int N, int d_in, int H, int L, int K,
                                            int n_cat) {
   Layout Lo;
   if (!make_layout(N, d_in, H, L, K, kind, act_dim, n_cat, &Lo)) return -1;
-  return Lo.wt_floats + 2 * Lo.state_floats + Lo.gz_floats + Lo.dout_floats + 2 * Lo.time_floats + Lo.dx_floats +
-         Lo.part_floats + Lo.stat_floats;
+  return Lo.wt_floats + 2 * Lo.state_floats + Lo.gz_floats + Lo.dout_floats + 2 * Lo.time_floats + Lo.part_floats +
+         Lo.stat_floats;
 }
 
 // cols: obs, hidden states, cell states, actions, logp, advantages, returns
@@ -822,12 +1093,11 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
   float* dout = gz + Lo.gz_floats;
   float* dht = dout + Lo.dout_floats;
   float* dct = dht + Lo.time_floats;
-  float* dxs = dct + Lo.time_floats;
-  float* partials = dxs + Lo.dx_floats;
+  float* partials = dct + Lo.time_floats;
   float* stat_part = partials + Lo.part_floats;
 
-  for (int l = 0; l < K && Lo.wide; ++l) {
-    // The wide route's copies: Wi, Wh for the forward (gates interleaved),
+  for (int l = 0; l < K && Lo.staged; ++l) {
+    // The staged route's copies: Wi, Wh for the forward (gates interleaved),
     // the TF32 halves of Wh and (l >= 1) Wi for the backward.
     const int in = l == 0 ? d_in : H;
     const float* wi = params + d.wi_off[l];
@@ -844,7 +1114,7 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
   }
-  for (int l = 0; l < K && !Lo.wide; ++l) {
+  for (int l = 0; l < K && !Lo.staged; ++l) {
     const long long in = l == 0 ? d_in : H;
     rl8::transpose_kernel<<<rl8::grid_for(4LL * H * H), kThreads, 0, s>>>(params + d.wh_off[l],
                                                                           wt + d.whT_off[l], H, 4 * H);
@@ -856,18 +1126,17 @@ extern "C" int rl8_rnn_ppo_grads(const int* packed, int N, int D, const int* col
     }
   }
 
-  if (Lo.wide) {
-    const auto fwd_kernel = kind == kCategorical ? rnn_wide_fwd_kernel<false> : rnn_wide_fwd_kernel<true>;
+  if (Lo.staged) {
+    const auto fwd_kernel = kind == kCategorical ? rnn_staged_fwd_kernel<false> : rnn_staged_fwd_kernel<true>;
     err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);
     if (err != cudaSuccess) return (int)err;
     fwd_kernel<<<Lo.row_blocks, rl8::kStThreads, Lo.smem, s>>>(packed, ec, params, wt, hseq, cseq, gz, dout,
                                                                stat_part, d);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(rnn_wide_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)rl8::kStBwdSmem);
+    const auto bwd_kernel = H % 4 == 0 ? rnn_staged_bwd_kernel<true> : rnn_staged_bwd_kernel<false>;
+    err = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.bsmem);
     if (err != cudaSuccess) return (int)err;
-    rnn_wide_bwd_kernel<<<Lo.row_blocks, rl8::kStThreads, rl8::kStBwdSmem, s>>>(params, wt, cseq, gz, dout, dht,
-                                                                               dct, dxs, d);
+    bwd_kernel<<<Lo.row_blocks, rl8::kStThreads, Lo.bsmem, s>>>(params, wt, cseq, gz, dout, dht, dct, d);
   } else {
     const auto rows_kernel = kind == kCategorical ? rnn_rows_kernel<false> : rnn_rows_kernel<true>;
     err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Lo.smem);

@@ -1,11 +1,12 @@
-// Staged block products for the update kernels' staged and wide routes
-// (ppo.cu's ppo_staged_fwd_kernel and ppo_staged_bwd_kernel, the main
-// path's row pass; rnn_ppo.cu's rnn_wide_fwd_kernel and
-// rnn_wide_bwd_kernel), the chain kernels' staged routes and the act
+// Staged block products for the update kernels' staged routes (ppo.cu's
+// ppo_staged_fwd_kernel and ppo_staged_bwd_kernel, the main path's row
+// pass; rnn_ppo.cu's rnn_staged_fwd_kernel and rnn_staged_bwd_kernel, the
+// recurrent main path's), the chain kernels' staged routes and the act
 // kernels' staged routes (act.cu's act_layer_kernel and
-// act_layer_tc_kernel, rnn_act.cu's rnn_gates_tc_kernel, and their heads
-// kernels): a block of 256 threads owns kStRows rows whose operands live in
-// device memory (the kernels' scratches, or the packed minibatch), and each
+// act_layer_tc_kernel, rnn_act.cu's rnn_gates_tc_kernel, the recurrent
+// main path's, and their heads kernels): a block of 256 threads owns
+// kStRows rows whose operands live in device memory (the kernels'
+// scratches, or the packed minibatch), and each
 // product streams both of its operands through a ring of kStStages
 // shared-memory stages filled by cp.async (the weight slabs by one bulk
 // copy each where the caller passes an StRing), kStK deep along the
@@ -533,9 +534,10 @@ struct TcSeg {
 // accumulator folded into an f32 running sum in order. done(sum) takes the
 // thread's sums once: element i of n64 tile h is row 64 wg + 16 warp + g +
 // 8 ((i >> 1) & 1), column 64 h + 8 (i >> 2) + 2 t + (i & 1). Every thread
-// of the block calls it; it returns after a barrier.
+// of the block calls it; it returns after a barrier. The weight slabs come
+// by bulk copies where the caller passes a ring.
 template <class Done>
-__device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done) {
+__device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done, StRing* ring = nullptr) {
   constexpr int KSteps = kStK / 8;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -551,8 +553,9 @@ __device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done) 
       const int q = it < s1 ? 0 : 1, sq = q == 0 ? it : it - s1;
       const long long w = (long long)sq * kStWFloats;
       st_load_rows(st, seg[q].a, sq * kStK);
-      st_load_run(st + kStAFloats, seg[q].big + w, kStWFloats);
-      st_load_run(st + kStAFloats + kStWFloats, seg[q].small + w, kStWFloats);
+      float* dst[2] = {st + kStAFloats, st + kStAFloats + kStWFloats};
+      const float* src[2] = {seg[q].big + w, seg[q].small + w};
+      st_issue_runs(ring, it % kStStages, 2, dst, src, kStWFloats);
     }
     cp_async_commit();
   };
@@ -560,7 +563,7 @@ __device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done) 
 #pragma unroll
   for (int s = 0; s < kStStages - 1; ++s) issue(s);
   for (int it = 0; it < iters; ++it) {
-    st_stage_ready<true>();
+    st_stage_ready<true>(ring, it % kStStages);
     issue(it + kStStages - 1);
     const float* st = smem + (it % kStStages) * kStBwdFloats;
     const float* As = st + (64 * wg + 16 * warp + g) * kStLdA + t;

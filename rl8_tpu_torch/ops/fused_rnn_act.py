@@ -270,13 +270,13 @@ def _scratch_floats(params: RnnParams, B: int) -> int:
 
 def card_takes_rnn_act(params: RnnParams) -> bool:
     """Whether ``csrc/rnn_act.cu`` takes these shapes on one of its routes:
-    32-row tiles in shared memory where one fits two blocks to an SM
-    (``H`` up to 288 at the dummy envs' shapes), else the staged route,
-    which streams the rows and the weights through shared memory and keeps
-    its weight copies and the heads' rows in a scratch: any ``H`` and heads
-    (past every width ``rl8_tpu``'s residency gate admits). This builds the
-    kernels, if they are not built yet, and asks them; the recurrent
-    algorithm asks at build."""
+    the staged route from ``H`` 128 (the main path's among them), which
+    streams the rows and the weights through shared memory and keeps its
+    weight copies and the heads' rows in a scratch: any ``H`` and heads
+    (past every width ``rl8_tpu``'s residency gate admits); below 128,
+    32-row tiles in shared memory where one fits two blocks to an SM, else
+    the staged route too. This builds the kernels, if they are not built
+    yet, and asks them; the recurrent algorithm asks at build."""
     return _scratch_floats(params, 1) >= 0
 
 

@@ -161,15 +161,16 @@ def _kernel_dims(params: RnnParams, seq_len: int) -> tuple[int, ...]:
 
 
 def card_takes_rnn_update(params: RnnParams) -> bool:
-    """Whether ``csrc/rnn_ppo.cu`` takes the model's widths. Its row pass
-    keeps a block's 16 sequences' layer inputs, gate cotangents and head
-    rows in shared memory where they fit (``H`` up to ~720 at the dummy
-    envs' heads), else takes its wide route, which keeps every operand of
-    a block's 128 sequences in the scratches and stages each product
-    through shared memory (any ``H``, any heads: past every shape
-    ``rl8_tpu``'s residency gate admits, ``H`` up to 1617 there). The
-    limit is the kernel's own; this builds the kernels, if they are not
-    built yet, and asks them."""
+    """Whether ``csrc/rnn_ppo.cu`` takes the model's widths. Its staged
+    route keeps every operand of a block's 128 sequences in the scratches
+    and stages each product through shared memory (any ``H``, any heads:
+    past every shape ``rl8_tpu``'s residency gate admits, ``H`` up to 1617
+    there); it takes minibatches of 16,384 sequences or more at ``H`` 64 or
+    more (the main path's among them) and every shape whose narrow row pass
+    does not fit, whose blocks keep 16 sequences' layer inputs, gate
+    cotangents and head rows in shared memory (``H`` up to ~720 at the
+    dummy envs' heads). The limit is the kernel's own; this builds the
+    kernels, if they are not built yet, and asks them."""
     return load().rl8_rnn_ppo_workspace(1, *_kernel_dims(params, seq_len=1)) >= 0
 
 

@@ -44,7 +44,7 @@ the routes' depths against float64 as a share of the act checks' limit;
 one TF32 product per f32 product breaks the limit at every one of them.
 
 The update kernels' wide routes (``csrc/stage.cuh``'s ``bwd_product``, in
-``ppo_wide_kernel`` and ``rnn_wide_kernel``) and the chain backward's
+``ppo_staged_bwd_kernel`` and ``rnn_staged_bwd_kernel``) and the chain backward's
 staged route (``chains_dh_kernel``) run the backward's dh products on
 3xTF32 ``wgmma`` over a block's 128 rows, at depths of 1024 to 6468. ``wgmma``'s accumulator rounds each k step toward zero; held over the
 whole K, that bias passes a tenth of the update checks' limit from K ~

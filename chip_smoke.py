@@ -86,8 +86,10 @@ non-zero:
    rollout held against the module on its training views, and the same
    with ``fused_forward=False`` (no chain launch); after it the wide
    chains: ``chains_wide_sweep`` (both chain kernels on their staged
-   routes against their plain versions, routes asserted, timed beside the
-   plain versions with their bounds: MischievousMule's layout at 896, 1024,
+   routes against their plain versions, routes asserted, the saved
+   backward bit-identical to the recompute route's wherever the route rule
+   saves, ``backward_rule`` holding its Python mirror to the library, timed
+   beside the plain versions with their bounds: MischievousMule's layout at 896, 1024,
    1536, 2048 and 2382 wide, LazyLemur's at 2354, AttentiveAlpaca's at 1024, a
    default twin torso at 2388, 768- and 4096-wide LayerNorm chains, ragged
    chains; 4,096 and 32,768 rows and ragged counts), ``chain_gate_grid``
@@ -99,9 +101,12 @@ non-zero:
    (MischievousMule at ``hiddens=(2048, 2048)`` at the custom cell's
    shapes: one warm-up, three timed and one profiled iteration, chain
    forward 49 and backward 16 launches an iteration on their staged
-   routes, the rollout against the module forward, one minibatch's step
-   gradient against the module route's; its ``fused_forward=False`` twin
-   timed beside it); then the deep models: ``deep_sweep``
+   routes, the backward on its saved route, the rollout against the
+   module forward, one minibatch's step gradient against the module
+   route's, both kernels against their plain versions on the model's
+   chains with the saved backward bit-identical to the recompute, a
+   step's peak memory; its ``fused_forward=False`` twin timed beside it);
+   then the deep models: ``deep_sweep``
    (default models of 9, 16 and 32 layers of 256 and rl8_tpu's deepest
    admitted ones, 87 of 256 and 1,306 of 64, for Categorical, Normal and
    SquashedNormal, the act kernel at 4,096 rows and the update at 8,192
@@ -466,31 +471,34 @@ def main() -> int:
             "library_ms": None,
         },
     }
-    check_act(torch, dev, kernels["act"])
-    check_gae(torch, dev, kernels["gae"])
-    check_ppo(torch, dev, kernels["ppo"])
-    check_continuous_act(torch, dev, kernels["continuous_act"])
-    check_continuous_ppo(torch, dev, kernels["continuous_ppo"])
-    check_rnn_act(torch, dev, kernels["rnn_act"])
-    check_rnn_ppo(torch, dev, kernels["rnn_ppo"])
-    check_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
-    check_model_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])
-    check_nan_routes(torch, dev)
-    run_main_path(torch, dev)
-    run_update_path(torch, dev, kernels)
-    run_update_path(torch, dev, kernels, continuous=True)
-    run_wide_torso(torch, dev, kernels)
-    run_wide_sweep(torch, dev, kernels)
-    run_repaired_routes(torch, dev)
-    run_recurrent_path(torch, dev, kernels)
-    run_rnn_wide_sweep(torch, dev, kernels)
-    run_wide_recurrent(torch, dev, kernels)
-    run_custom_path(torch, dev, kernels)
-    run_chains_wide_sweep(torch, dev, kernels)
-    check_chain_gate_grid(torch)
-    run_wide_chain_builds(torch, dev)
-    run_wide_custom(torch, dev, kernels)
-    for name, fn in (("deep_sweep", lambda: run_deep_sweep(torch, dev, kernels)),
+    # Each phase's seconds on a line of its own (a check's cost beside the
+    # run's time limit).
+    for name, fn in (("act", lambda: check_act(torch, dev, kernels["act"])),
+                     ("gae", lambda: check_gae(torch, dev, kernels["gae"])),
+                     ("ppo", lambda: check_ppo(torch, dev, kernels["ppo"])),
+                     ("continuous_act", lambda: check_continuous_act(torch, dev, kernels["continuous_act"])),
+                     ("continuous_ppo", lambda: check_continuous_ppo(torch, dev, kernels["continuous_ppo"])),
+                     ("rnn_act", lambda: check_rnn_act(torch, dev, kernels["rnn_act"])),
+                     ("rnn_ppo", lambda: check_rnn_ppo(torch, dev, kernels["rnn_ppo"])),
+                     ("chains", lambda: check_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])),
+                     ("model_chains",
+                      lambda: check_model_chains(torch, dev, kernels["chains_fwd"], kernels["chains_bwd"])),
+                     ("nan_routes", lambda: check_nan_routes(torch, dev)),
+                     ("main_path", lambda: run_main_path(torch, dev)),
+                     ("update_path", lambda: run_update_path(torch, dev, kernels)),
+                     ("update_path_continuous", lambda: run_update_path(torch, dev, kernels, continuous=True)),
+                     ("wide_torso", lambda: run_wide_torso(torch, dev, kernels)),
+                     ("wide_sweep", lambda: run_wide_sweep(torch, dev, kernels)),
+                     ("repaired_routes", lambda: run_repaired_routes(torch, dev)),
+                     ("recurrent_path", lambda: run_recurrent_path(torch, dev, kernels)),
+                     ("rnn_wide_sweep", lambda: run_rnn_wide_sweep(torch, dev, kernels)),
+                     ("wide_recurrent", lambda: run_wide_recurrent(torch, dev, kernels)),
+                     ("custom_path", lambda: run_custom_path(torch, dev, kernels)),
+                     ("chains_wide_sweep", lambda: run_chains_wide_sweep(torch, dev, kernels)),
+                     ("chain_gate_grid", lambda: check_chain_gate_grid(torch)),
+                     ("wide_chain_builds", lambda: run_wide_chain_builds(torch, dev)),
+                     ("wide_custom", lambda: run_wide_custom(torch, dev, kernels)),
+                     ("deep_sweep", lambda: run_deep_sweep(torch, dev, kernels)),
                      ("deep_memory", lambda: run_deep_memory(torch, dev, kernels)),
                      ("deep_gate_grid", lambda: check_deep_gate_grid(torch)),
                      ("chains_count_sweep", lambda: run_chains_count_sweep(torch, dev, kernels)),
@@ -499,6 +507,7 @@ def main() -> int:
         t0 = time.perf_counter()
         fn()
         emit({"phase": "phase_seconds", "name": name, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     run_amp_paths(torch, dev)
     run_recurrent_module_route(torch, dev)
     run_custom_amp(torch, dev)
@@ -534,6 +543,9 @@ def main() -> int:
         run_serving(torch, dev, Path(tmp))
         run_parity_card(torch, dev, Path(tmp))
         run_sharded(torch, dev, Path(tmp))
+    emit({"phase": "phase_seconds", "name": "the other paths", "seconds": time.perf_counter() - t0})
+    emit({"phase": "phase_seconds", "name": "check_saved_backward (within the phases above)",
+          "seconds": SAVED_CHECK_SECONDS[0]})
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)
@@ -1834,6 +1846,62 @@ def chain_tensors(chains) -> list:
     return [t for layers, heads in chains for ts in (*layers, *heads) for t in ts]
 
 
+#: check_saved_backward's seconds over the run.
+SAVED_CHECK_SECONDS = [0.0]
+
+
+def backward_rule(torch, structure, N: int) -> str:
+    """The chain backward's route at N rows by the route rule:
+    ``staged_saved`` where the forward keeps the activations for it
+    (csrc/chains.cu's rl8_chains_workspace(..., 2) answers its saved
+    layout's floats: both take their staged routes and
+    rl8_chains_chunk_rows answers N), ``staged_recompute`` on the other
+    staged shapes (chunks of rows, or behind the tiled forward),
+    ``tiled`` on the tiled route. Checks that fused_mlp's pure-Python
+    mirrors of the rule (staged_chunk_rows, staged_saves) answer what the
+    library does."""
+    from rl8_tpu_torch.ops._build import load
+    from rl8_tpu_torch.ops.fused_mlp import _spec, staged_chunk_rows, staged_saves
+
+    spec, n = _spec(structure)
+    chunk = load().rl8_chains_chunk_rows(N, structure[0], spec, n)
+    saved = load().rl8_chains_workspace(N, structure[0], spec, n, 2)
+    check(staged_chunk_rows(structure, N) == chunk,
+          f"the route rule's mirror: {staged_chunk_rows(structure, N)} chunk rows, the library {chunk}")
+    check(saved >= 0 and (saved > 0) == staged_saves(structure, N) and (saved == 0 or chunk == N),
+          f"the saved layout: {saved} floats at chunk {chunk} of {N}, the mirror {staged_saves(structure, N)}")
+    return "tiled" if chunk == 0 else "staged_saved" if saved > 0 else "staged_recompute"
+
+
+def check_saved_backward(torch, what: str, x, chains, activation: str, douts, k_outs, k_dx, k_dflat) -> dict:
+    """Where the chain backward takes its saving route (backward_rule), a
+    saving forward's outputs bit-identical to the forward's ``k_outs`` and
+    the saved backward from the same cotangents bit-identical to the
+    recompute route's ``k_dx``, ``k_dflat`` (the same kernels and sums, so
+    also within the limits that those are held to). Returns the route and
+    what was checked."""
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    t0 = time.perf_counter()
+    structure, flat, N = chain_structure(chains), flatten_chains(chains), x.shape[0]
+    route = backward_rule(torch, structure, N)
+    if route != "staged_saved":
+        return {"backward_route": route}
+    s_outs, kept = fused_chains_fwd(x, flat, structure, activation, save=True)
+    check(kept is not None, f"{what}: the saving forward kept its workspace")
+    s_dx, s_dflat = fused_chains_bwd(x, flat, structure, activation, douts, saved=kept)
+    del kept
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(s_outs, k_outs)),
+          f"{what}: the saving forward's outputs bit-identical to the forward's")
+    check(torch.equal(s_dx, k_dx) and torch.equal(s_dflat, k_dflat),
+          f"{what}: the saved backward bit-identical to the recompute route's")
+    SAVED_CHECK_SECONDS[0] += time.perf_counter() - t0
+    return {"backward_route": route, "saving_forward_bit_identical": True,
+            "saved_bit_identical_to_recompute": True}
+
+
 def compare_chains(torch, what: str, x, chains, activation: str, seed: int, staged: bool = False,
                    f64_fallback: bool = False) -> dict:
     """The chain kernels against their plain versions on ``x``: the forward
@@ -1844,7 +1912,10 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int, stag
     all finite, every row. ``staged``: the backward takes its staged route,
     and the plain backward runs on the kernels' own activations
     (kernel_activations, each within CHAIN_RTOL/ATOL of the plain forward's),
-    so that both take the same relu masks. ``f64_fallback``: where the
+    so that both take the same relu masks; where the route rule saves the
+    activations (backward_rule), the saving forward and the saved backward
+    are held to the recompute route's (check_saved_backward: bit-identical,
+    so the saved gradients pass the same comparisons). ``f64_fallback``: where the
     plain f32 backward is no reference (its dx off the float64 backward's,
     run on the same activations, by CHAIN_RTOL/ATOL on some element, or a
     gradient by PPO_GRAD_RTOL / 2 of its norm: down deep LayerNorm chains
@@ -1889,6 +1960,9 @@ def compare_chains(torch, what: str, x, chains, activation: str, seed: int, stag
     check(torch.equal(k_dx, k2_dx) and torch.equal(k_dflat, k2_dflat), f"{what}: two backward launches bit-identical")
     check(bool(torch.isfinite(k_dx).all() and torch.isfinite(k_dflat).all()), f"{what}: gradients finite")
     record = {"fwd_max_abs_err": fwd_err, "hidden_max_abs_err": hidden_err, "bit_identical": True}
+    if staged:
+        del k2_dx, k2_dflat
+        record.update(check_saved_backward(torch, what, x, chains, activation, douts, k_outs, k_dx, k_dflat))
     k_tensors = [k_dx, *chain_tensors(unflatten_chains(k_dflat, structure))]
     p_tensors = [p_dx, *chain_tensors(p_dchains)]
     if f64_fallback:
@@ -1954,11 +2028,20 @@ def bound(flops: int, bytes_moved: int) -> tuple[float, str]:
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s > bytes_s else "bytes"
 
 
-def chain_bwd_bounds(record: dict, fwd_flops: int, bwd_flops: int, bwd_bytes: int) -> dict:
+def chain_bwd_bounds(record: dict, fwd_flops: int, bwd_flops: int, bwd_bytes: int, saved_bytes: int = 0) -> dict:
     """The chain backward's bounds, as its kernels run the products:
     bound_ms with the recompute (the forward's operations) at the f32 rate
     and the dh and weight products (the rest) in 3xTF32 on the tensor
-    cores; bound_tc_ms with all of it in 3xTF32 (update_bounds)."""
+    cores; bound_tc_ms with all of it in 3xTF32 (update_bounds). On the
+    saved route (``saved_bytes``: the saved activations it reads, an input
+    then), no recompute: both bounds are the products in 3xTF32, or those
+    bytes and the rest."""
+    if saved_bytes:
+        ops_s = TF32_PRODUCTS * (bwd_flops - fwd_flops) / PEAK_TF32_FLOPS
+        byte_s = (bwd_bytes + saved_bytes) / PEAK_BYTES_PER_S
+        record["bound_ms"] = record["bound_tc_ms"] = 1e3 * max(ops_s, byte_s)
+        record["bound_by"] = "operations" if ops_s > byte_s else "bytes"
+        return record
     update_bounds(record, bwd_flops, bwd_bytes)
     ops_s = fwd_flops / PEAK_F32_FLOPS + TF32_PRODUCTS * (bwd_flops - fwd_flops) / PEAK_TF32_FLOPS
     byte_s = bwd_bytes / PEAK_BYTES_PER_S
@@ -1981,8 +2064,10 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     tiled routes (chains_fwd_tiles_kernel, chains_bwd_tiles_kernel), (d) and
     (f) their staged routes (chains_layer_kernel: the tile buffers do not
     fit a block; chains_dh_kernel: the parameters and gradients do not), (e)
-    the tiled forward and the staged backward. Then each kernel timed
-    beside its plain version at the main path's shapes, with its bounds."""
+    the tiled forward and the staged backward; at (a) the route rule
+    (backward_rule, its mirror held to the library) answers tiled: the
+    backward recomputes. Then each kernel timed beside its plain version at
+    the main path's shapes, with its bounds."""
     from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
 
@@ -1992,8 +2077,10 @@ def check_chains(torch, dev, fwd_record: dict, bwd_record: dict) -> None:
     xs = {N: 0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)}
     for N, x in xs.items():
         result = compare_chains(torch, f"chains (a, N={N})", x, mule_chains, "relu", seed=N)
+        rule = backward_rule(torch, chain_structure(mule_chains), N)
+        check(rule == "tiled", f"chains (a, N={N}): the route rule answers {rule}")
         emit({"phase": "kernel_check", "kernel": "chains", "config": "a", "N": N, **result,
-              "route": backward_route(torch, x, mule_chains, "relu"),
+              "route": backward_route(torch, x, mule_chains, "relu"), "route_rule": rule,
               "forward_route": forward_route(torch, x, mule_chains, "relu")})
         if N == 32768:
             fwd_record["max_abs_err"] = result["fwd_max_abs_err"]
@@ -2347,7 +2434,10 @@ def run_chains_wide_sweep(torch, dev, kernels: dict) -> None:
     (launched_route: the staged kernels, chains_layer_kernel and
     chains_dh_kernel), and each timed beside its plain version with its
     bounds at CHAIN_TIMED_ROWS (the backward at the minibatch's rows, with
-    its workspace and partials' bytes, chain_backward_bytes). Adds the records to the chain
+    its workspace and partials' bytes, chain_backward_bytes; on its saved
+    route where the route rule saves, backward_rule). Where it saves, the
+    saved backward is held bit-identical to the recompute route's
+    (compare_chains' check_saved_backward). Adds the records to the chain
     kernels' under ``wide``."""
     from rl8_tpu_torch.ops.fused_mlp import chain_structure
 
@@ -2594,10 +2684,15 @@ def run_wide_custom(torch, dev, kernels: dict) -> None:
     (check_custom_rollout), and the step's gradient against the module
     route's on one minibatch of a collected buffer (check_step_gradients);
     both kernels timed on the model's chains (time_chain_kernel: the
-    forward at 4,096 and 32,768 rows, the backward at 32,768, with its
-    workspace's and partials' bytes, chain_backward_bytes);
-    then the same cell with ``fused_forward=False`` (module forward and
-    autograd on cuBLAS, no chain launch) timed beside it."""
+    forward at 4,096 and 32,768 rows, the backward at 32,768 on its saved
+    route, with its workspace's and partials' bytes, chain_backward_bytes)
+    and held to their plain versions on a minibatch's rows of the model's
+    chains (compare_chains, staged: the saved backward bit-identical to the
+    recompute route's); the peak device memory of one collect() and step()
+    (``torch.cuda.max_memory_allocated`` after a reset: the saving forward
+    holds the backward's workspace from the minibatch's forward to its
+    backward); then the same cell with ``fused_forward=False`` (module
+    forward and autograd on cuBLAS, no chain launch) timed beside it."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
     from rl8_tpu_torch.ops.fused_mlp import chain_names, chain_structure, named_chains
@@ -2620,6 +2715,14 @@ def run_wide_custom(torch, dev, kernels: dict) -> None:
                          route=backward_route(torch, x, chains, "relu", "staged"))
         record = time_cell(torch, algo, "wide_custom" if fused else "wide_custom_module", per_iteration, per_step,
                            iters=4, **extra)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        algo.collect()
+        algo.step()
+        torch.cuda.synchronize()
+        emit({"phase": "wide_custom_memory", "fused_forward": fused,
+              "step_peak_memory_bytes": torch.cuda.max_memory_allocated()})
         if fused:
             chains = tuple((tuple(tuple(t.detach() for t in layer) for layer in layers),
                             tuple(tuple(t.detach() for t in head) for head in heads)) for layers, heads in chains)
@@ -2634,6 +2737,10 @@ def run_wide_custom(torch, dev, kernels: dict) -> None:
                                                     "minibatch": times["fwd_minibatch"]}
             kernels["chains_bwd"]["wide_custom"] = {"launches_per_iteration": per_step, "route": "staged",
                                                     **times["bwd"]}
+            result = compare_chains(torch, "wide_custom chains", 0.5 * xs[32768], chains, "relu", seed=2048,
+                                    staged=True)
+            check(result["backward_route"] == "staged_saved", "wide_custom: the chain backward takes its saved route")
+            emit({"phase": "kernel_check", "kernel": "wide_custom_chains", **result})
             del xs
             worst, _ = check_custom_rollout(torch, algo, ACT_RTOL, ACT_ATOL)
             emit({"phase": "kernel_check", "kernel": "wide_custom", "rollout_vs_module_max_abs_err": worst,
@@ -3107,7 +3214,11 @@ def run_deep_custom(torch, dev, kernels: dict) -> None:
     backward 16, GAE 1 an iteration); its rollout held against its module
     forward (check_custom_rollout) and one minibatch's step gradient
     against the module route's (check_step_gradients: PPO_GRAD_*, or to
-    float64 where the module route's f32 gradient drifts off it)."""
+    float64 where the module route's f32 gradient drifts off it); both
+    kernels timed on the model's chains (the backward on its saved route)
+    and held to their plain versions on a minibatch's rows (compare_chains,
+    staged, held to float64 where the plain f32 backward drifts off it: the
+    saved backward bit-identical to the recompute route's)."""
     from rl8_tpu_torch import AlgorithmConfig
     from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
     from rl8_tpu_torch.ops.fused_mlp import chain_names, chain_structure, named_chains
@@ -3133,9 +3244,12 @@ def run_deep_custom(torch, dev, kernels: dict) -> None:
     times = {"fwd": time_chain_kernel(torch, xs[4096], chains, False, 10),
              "bwd": {**chain_backward_bytes(chain_structure(chains), 32768),
                      **time_chain_kernel(torch, xs[32768], chains, True, 5)}}
+    result = compare_chains(torch, "deep_custom chains", 0.5 * xs[32768], chains, "relu", seed=1212, staged=True,
+                            f64_fallback=True)
+    check(result["backward_route"] == "staged_saved", "deep_custom: the chain backward takes its saved route")
     emit({"phase": "kernel_check", "kernel": "deep_custom", "rollout_vs_module_max_abs_err": worst,
           "step_gradient": step, "transitions_per_s_with_update": record["transitions_per_s_with_update"],
-          "times": times})
+          "times": times, "chains": result})
     kernels["chains_fwd"]["deep_custom"] = {"launches_per_iteration": h.horizon + 1 + per_step, "route": "staged",
                                             **times["fwd"]}
     kernels["chains_bwd"]["deep_custom"] = {"launches_per_iteration": per_step, "route": "staged", **times["bwd"]}
@@ -3213,10 +3327,37 @@ def run_deep_torso(torch, dev, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def saved_activation_bytes(structure, N: int) -> int:
+    """Bytes of the activations that the saved chain backward reads on N
+    rows: every h_l, and each LayerNorm layer's xhat_l and s_l."""
+    return 4 * N * sum(w + (w + 1 if ln else 0) for layers, _ in structure[1] for w, ln in layers)
+
+
+def saved_bwd_ms(torch, x, flat, structure, activation: str, douts, iters: int) -> float:
+    """The saved chain backward's device ms per launch: each after a saving
+    forward, CUDA events around the backward alone (one warm-up)."""
+    from rl8_tpu_torch.ops import fused_chains_bwd, fused_chains_fwd
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for i in range(iters + 1):
+        _, kept = fused_chains_fwd(x, flat, structure, activation, save=True)
+        start.record()
+        fused_chains_bwd(x, flat, structure, activation, douts, saved=kept)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) if i else 0.0
+        del kept
+    return total / iters
+
+
 def time_chain_kernel(torch, x, chains, backward: bool, iters: int) -> dict:
     """A chain kernel's device ms per launch on ``x`` (the backward from
     normal head cotangents), beside its plain version's, with its bounds
-    (update_bounds of chain_counts)."""
+    (update_bounds of chain_counts). The backward on its route
+    (backward_rule): where it is ``staged_saved``, ``ms`` is the saved
+    backward's (saved_bwd_ms) with its bounds without the recompute, and
+    ``recompute_ms`` the recompute route's beside it."""
     from rl8_tpu_torch.ops import chains_vjp_plain, forward_chains, fused_chains_bwd, fused_chains_fwd
     from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
 
@@ -3230,11 +3371,17 @@ def time_chain_kernel(torch, x, chains, backward: bool, iters: int) -> dict:
         for _, heads in structure[1]:
             grouped.append(douts[q : q + len(heads)])
             q += len(heads)
+        record["route"] = backward_rule(torch, structure, N)
         record["ms"], _ = time_ms(torch, lambda: fused_chains_bwd(x, flat, structure, "relu", douts), iters=iters,
                                   warmup=1)
+        saved = record["route"] == "staged_saved"
+        if saved:
+            record["recompute_ms"] = record["ms"]
+            record["ms"] = saved_bwd_ms(torch, x, flat, structure, "relu", douts, iters)
         record["plain_ms"], _ = time_ms(torch, lambda: chains_vjp_plain(x, chains, "relu", grouped), iters=iters,
                                         warmup=1)
-        chain_bwd_bounds(record, fwd_flops, bwd_flops, bwd_bytes)
+        chain_bwd_bounds(record, fwd_flops, bwd_flops, bwd_bytes,
+                         saved_activation_bytes(structure, N) if saved else 0)
     else:
         record["ms"], _ = time_ms(torch, lambda: fused_chains_fwd(x, flat, structure, "relu"), iters=iters, warmup=2)
         record["plain_ms"], _ = time_ms(torch, lambda: forward_chains(x, chains, "relu"), iters=max(iters // 2, 3),
@@ -3300,7 +3447,8 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     archive``) and run each checkout's ``chip_smoke.py --time-updates`` in
     turns (A, B, B, A) in one command (a checkout older than the wide
     routes' timings runs a copy of the newer script). The wide act routes
-    are timed too (``time_wide_acts``)."""
+    are timed too (``time_wide_acts``), and the staged chain routes with
+    the ``wide_custom`` cell (``time_wide_chains``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rl8_tpu_torch import ops
@@ -3388,9 +3536,112 @@ def time_updates(torch, dev, label: str, card: str) -> None:
     out["chains_bwd_split_ms"] = split_ms(lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), 60)
     del x, douts
     out["chains_ab"] = time_chains_ab(torch, dev)
+    out.update(time_wide_chains(torch, dev, split_ms))
     out.update(time_wide_updates(torch, dev, split_ms))
     out.update(time_wide_acts(torch, dev, split_ms))
     emit(out)
+
+
+def time_wide_chains(torch, dev, split_ms) -> dict:
+    """``time_updates``' staged chain routes, on any checkout since the
+    staged routes: ``wide_custom``'s chains (MischievousMule at 2048 wide)
+    and ``deep_custom``'s (12 x 128), as ``make_mule`` initializes them. The
+    forward at 4,096 and 32,768 rows; the backward at 32,768 rows on the
+    route that training takes there (saved, after a saving forward, where
+    the checkout's ``fused_chains_fwd`` has ``save``: ``saved_bwd_ms``;
+    else recomputed); forward and backward through autograd
+    (``fused_chains``) at 32,768 rows; each split by kernel, and each
+    forward's and autograd pass's host ms (``time_ms``), with
+    ``deep_custom``'s split by host event (``host_split``). Then the
+    ``wide_custom`` cell and its module twin (``fused_forward=False``): one
+    warm-up and three timed collect() + step() iterations
+    (``time_iterations``), and the ``deep_custom`` cell (host-bound, so
+    seven timed): the median's transitions/s, and the peak device memory of
+    one more collect() and step() after a reset."""
+    import inspect
+
+    from rl8_tpu_torch import AlgorithmConfig, ops
+    from rl8_tpu_torch.examples.algotrading import AlgoTrading, MischievousMule
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, default_chains, flatten_chains
+
+    saving = "save" in inspect.signature(ops.fused_chains_fwd).parameters
+    out = {"chains_saving_api": saving}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = {N: 0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)}
+    for name, hiddens in (("wide_custom", (2048, 2048)), ("deep_custom", (128,) * 12)):
+        chains = default_chains(make_mule(torch, seed=5, hiddens=hiddens).to(dev))
+        structure, flat = chain_structure(chains), flatten_chains(chains)
+        for N, x in xs.items():
+            run = lambda: ops.fused_chains_fwd(x, flat, structure, "relu")  # noqa: E731
+            out[f"{name}_fwd_{N}_ms"], out[f"{name}_fwd_{N}_host_ms"] = time_ms(torch, run, iters=50, warmup=2)
+            out[f"{name}_fwd_{N}_split_ms"] = split_ms(run, 60)
+            if name == "deep_custom" and N == 4096:
+                out[f"{name}_fwd_{N}_host_split"] = host_split(torch, run)
+        x = xs[32768]
+        douts = [torch.randn((32768, w), generator=gen, device=dev) for _, heads in structure[1] for w in heads]
+        if saving:
+            out[f"{name}_bwd_32768_ms"] = saved_bwd_ms(torch, x, flat, structure, "relu", douts, 5)
+        else:
+            out[f"{name}_bwd_32768_ms"] = time_ms(
+                torch, lambda: ops.fused_chains_bwd(x, flat, structure, "relu", douts), iters=5, warmup=1)[0]
+        leaves = [[tuple(t.detach().requires_grad_() for t in tensors) for tensors in (*layers, *heads)]
+                  for layers, heads in chains]
+        grad_chains = tuple((tuple(ts[: len(layers)]), tuple(ts[len(layers):]))
+                            for ts, (layers, _) in zip(leaves, chains))
+
+        def train():
+            outs = ops.fused_chains("relu", x, grad_chains)
+            torch.autograd.backward([o for chain in outs for o in chain],
+                                    [d for d in douts])
+
+        out[f"{name}_fwd_bwd_32768_ms"], out[f"{name}_fwd_bwd_32768_host_ms"] = time_ms(torch, train, iters=20,
+                                                                                       warmup=1)
+        out[f"{name}_fwd_bwd_32768_split_ms"] = split_ms(train, 60)
+        if name == "deep_custom":
+            out[f"{name}_fwd_bwd_32768_host_split"] = host_split(torch, train)
+        del chains, leaves, grad_chains, douts
+        torch.cuda.empty_cache()
+    for key, fused, hiddens, iters in (("wide_custom", True, (2048, 2048), 4),
+                                       ("wide_custom_module", False, (2048, 2048), 4),
+                                       ("deep_custom", True, (128,) * 12, 8)):
+        algo = AlgorithmConfig(model_cls=MischievousMule, fused_forward=fused, num_envs=4096, horizon=32,
+                               sgd_minibatch_size=32768, model_config={"hiddens": hiddens},
+                               device=dev).build(AlgoTrading)
+        collect_ms, step_ms, _ = time_iterations(torch, algo, iters)
+        med_collect, med_step = sorted(collect_ms)[iters // 2 - 1], sorted(step_ms)[iters // 2 - 1]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        algo.collect()
+        algo.step()
+        torch.cuda.synchronize()
+        out[f"{key}_cell"] = {"collect_ms": collect_ms, "step_ms": step_ms,
+                              "transitions_per_s_with_update": 4096 * 32 / ((med_collect + med_step) / 1e3),
+                              "step_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del algo
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_split(torch, fn, calls: int = 20, top: int = 14) -> dict:
+    """Where the host's time goes in ``calls`` calls of ``fn``
+    (``torch.profiler``, CPU and CUDA activity): the wall µs a call with
+    the profiler on, and the ``top`` events by self CPU time, each with its
+    count and self CPU µs a call (time outside every event, such as a
+    kernel library's own host code between its launches, is the rest of
+    the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / calls * 1e6
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return {"wall_us": wall, **{e.key[:60]: [e.count / calls, e.self_cpu_time_total / calls] for e in rows}}
 
 
 def time_wide_updates(torch, dev, split_ms) -> dict:

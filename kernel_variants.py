@@ -2,7 +2,7 @@
 """Time and check design variants of the port's kernels on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
-``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act,ppo_shapes,rnn_ppo,rnn_shapes,rnn_act_shapes] [NAME ...]``
+``python3 kernel_variants.py [--kernels ppo,chains,rnn_act,chains_fwd,act,gae,wide,wide_act,ppo_shapes,rnn_ppo,rnn_shapes,rnn_act_shapes,chains_wide] [NAME ...]``
 (all variants when no name is given; ``--kernels`` picks what each
 variant is measured on, the PPO update kernels when it is not given). Each variant is the checkout's ``rl8_tpu_torch/csrc`` with a few
 text substitutions (``VARIANTS`` below), compiled into its own library
@@ -20,8 +20,18 @@ of 4 steps of the recurrent one), it prints one JSON line with
   the same bits;
 - per kernel, the tensor-core (``HMMA``, and of those ``TF32``), f32 FMA
   (``FFMA``) and local-memory (``LDL``, ``STL``) instructions in its SASS
-  (``cuobjdump -sass``);
+  (``cuobjdump -sass``), and its block barriers (``BAR``), mbarrier
+  operations (``SYNCS``) and TMA copies (``UTMALDG`` tensor-map loads,
+  ``UBLKCP`` bulk copies);
 - ``nvcc -Xptxas -v``'s registers and spills of the row passes.
+
+With ``chains_wide``, the staged chain routes at ``wide_custom``'s and
+``deep_custom``'s shapes (``chains_wide_measure``: the forward's product,
+the backward saved and recomputed, a cuBLAS yardstick, and the products of
+``fwd_product``'s other callers' shapes); its variants
+``chains_fwd_product``, ``chains_ws_stages3``, ``chains_ws_stages6``,
+``chains_ws_no_persist`` and ``chains_ws_no_fma`` ablate the forward's
+warp-specialised ring.
 
 With ``chains``, the chain backward at MischievousMule's 32,768 rows
 (``chip_smoke.py``'s check inputs): ms, split, dx and each gradient
@@ -92,9 +102,76 @@ _ROWS64 = [
     ("ppo.cu", "__global__ void __launch_bounds__(kThreads, 2)\n    ppo_rows_kernel(",
      "__global__ void __launch_bounds__(kThreads, 1)\n    ppo_rows_kernel("),
 ]
+# The staged chain forward's products on stage.cuh's fwd_product (the
+# design before the warp-specialised ring): a kernel of 256 threads, every
+# thread's cp.async and a block barrier a stage, blockIdx.x the 256-column
+# tile, blockIdx.y the first 128-row block (stepping by gridDim.y),
+# blockIdx.z the product.
+_CHAINS_ST_KERNEL = """__global__ void __launch_bounds__(rl8::kStThreads, 1) chains_layer_st_kernel(const __grid_constant__ StProducts ps) {
+  constexpr int R = rl8::kStRows;
+  extern __shared__ __align__(128) float st_smem[];
+  const StProduct p = select_item(ps.p, blockIdx.z);
+  const int n0 = blockIdx.x * rl8::kStFwdPass;
+  if (n0 >= p.N) return;
+  const long long stages = (p.K + rl8::kStK - 1) / rl8::kStK;
+  const float* w = p.w + blockIdx.x * stages * rl8::kStFwdWFloats;
+  const long long tiles = (ps.rows + R - 1) / R;
+  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
+    const long long r0 = t * R;
+    const int nr = (int)min((long long)R, ps.rows - r0);
+    const float* in = p.in + r0 * p.ld_in;
+    float* out = p.out + r0 * p.ld_out;
+    const rl8::FwdSeg seg = {{in, p.ld_in, p.K, nr, rl8::st_vec(in, p.ld_in)}, w};
+    rl8::fwd_product(
+        &seg, 1, min(rl8::kStFwdPass, p.N - n0), st_smem, [](auto& acc, const int(&)[8]) { rl8::tile_zero(acc); },
+        [&](auto& acc, int rg, const int(&n)[8]) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = n0 + n[j];
+            if (col >= p.N) continue;
+            const float bj = __ldg(p.b + col);
+#pragma unroll
+            for (int i = 0; i < R / 16; ++i) {
+              const int r = rg + 16 * i;
+              if (r < nr) out[r * p.ld_out + col] = activate(acc[i][j] + bj, p.act);
+            }
+          }
+        });
+  }
+}
+
+"""
+_CHAINS_FWD_PRODUCT = [
+    ("chains.cu", "// One chain's LayerNorm rows for chains_ln_kernel", _CHAINS_ST_KERNEL + "// One chain's LayerNorm rows for chains_ln_kernel"),
+    ("chains.cu", "    const long long blocks = tiles > sms ? sms : tiles;\n"
+                  "    chains_layer_kernel<<<(unsigned)blocks, rl8::kWsThreads, rl8::kWsSmem, s>>>(t);\n",
+     "    cudaFuncSetAttribute(chains_layer_st_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStFwdSmem);\n"
+     "    chains_layer_st_kernel<<<dim3(t.gx, rl8::st_row_grid(t.rows), t.n), rl8::kStThreads, rl8::kStFwdSmem, s>>>(t);\n"),
+]
 VARIANTS: dict[str, list[tuple[str, str, str]]] = {
     # The design as checked in.
     "as_is": [],
+    # (--kernels chains_wide) The staged chain forward's product: on
+    # stage.cuh's fwd_product (no producer warp: every thread's cp.async and
+    # a block barrier a stage, one tile a block), with a ring of 3 stages of
+    # 32 k or 6 of 16 k instead of 4 of 32, one block a tile instead of
+    # persistent blocks, without its FMAs (its copies, ring and stores
+    # alone), with a producer warp and no setmaxnreg (288 threads: the launch
+    # bound's 224 registers for all), 24/240 registers instead of 40/232,
+    # the FMA loop unrolled twice, and its FMAs ordered by weight value.
+    "chains_fwd_product": _CHAINS_FWD_PRODUCT,
+    "chains_ws_stages3": [("stage.cuh", "constexpr int kWsStages = 4; ", "constexpr int kWsStages = 3; ")],
+    "chains_ws_stages6": [("stage.cuh", "constexpr int kWsStages = 4; ", "constexpr int kWsStages = 6; "),
+                          ("stage.cuh", "constexpr int kWsK = 32; ", "constexpr int kWsK = 16; ")],
+    "chains_ws_no_persist": [("chains.cu", "    const long long blocks = tiles > sms ? sms : tiles;\n",
+                              "    const long long blocks = tiles;\n")],
+    "chains_ws_warp_producer": [("stage.cuh", "constexpr int kWsThreads = 384; ", "constexpr int kWsThreads = 288; ")],
+    "chains_ws_regs240": [("stage.cuh", "constexpr int kWsProducerRegs = 40;", "constexpr int kWsProducerRegs = 24;"),
+                          ("stage.cuh", "constexpr int kWsConsumerRegs = 232;", "constexpr int kWsConsumerRegs = 240;")],
+    "chains_ws_unroll2": [("stage.cuh", "#pragma unroll 1\n  for (; k + 4 <= K; k += 4) {", "#pragma unroll 2\n  for (; k + 4 <= K; k += 4) {")],
+    "chains_ws_w_reuse": [("stage.cuh", '#pragma unroll\n        for (int r = 0; r < RT; ++r) {\n          const float ak = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;\n          acc[h][r][0] = fmaf(ak, w0.x, acc[h][r][0]);\n          acc[h][r][1] = fmaf(ak, w0.y, acc[h][r][1]);\n          acc[h][r][2] = fmaf(ak, w0.z, acc[h][r][2]);\n          acc[h][r][3] = fmaf(ak, w0.w, acc[h][r][3]);\n          acc[h][r][4] = fmaf(ak, w1.x, acc[h][r][4]);\n          acc[h][r][5] = fmaf(ak, w1.y, acc[h][r][5]);\n          acc[h][r][6] = fmaf(ak, w1.z, acc[h][r][6]);\n          acc[h][r][7] = fmaf(ak, w1.w, acc[h][r][7]);\n        }',
+                          '        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};\n#pragma unroll\n        for (int j = 0; j < 8; ++j) {\n#pragma unroll\n          for (int r = 0; r < RT; ++r) {\n            const float ak = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;\n            acc[h][r][j] = fmaf(ak, wv[j], acc[h][r][j]);\n          }\n        }')],
+    "chains_ws_no_fma": [("stage.cuh", "      ws_fma<RT>(acc, rows + rg * kWsK, ws_swizzle(rg), rows + kWsAFloats, kWsK, c0, c1);\n", "")],
     # The feedforward forward's l >= 1 products on the tensor cores too.
     "tc_forward": [(
         "ppo.cu",
@@ -459,15 +536,24 @@ def sass_counts(lib: Path) -> dict[str, dict[str, int]]:
             fn = m.group(1)
             source = re.search(r"(ppo|rnn_ppo|chains|rnn_act|act|gae)_cu", fn)
             kernel = re.search(r"(ppo_rows_kernel|rnn_rows_kernel|ppo_staged_\w+?_kernel|rnn_wide_\w+?_kernel|rnn_staged_\w+?_kernel|reduce_wgmma_kernel|reduce_small_kernel|chains_bwd_\w+?_kernel|"
-                               r"chains_fwd_\w*?kernel|chains_(?:layer|dh|ln|ln_bwd|heads|dx)_kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
+                               r"chains_fwd_\w*?kernel|chains_(?:layer|layer_st|dh|ln|ln_bwd|heads|dx)_kernel|continuous_act_\w*?kernel|discrete_act_\w*?kernel|"
                                r"rnn_act_kernel|gae_kernel|rnn_gates_\w*?kernel|rnn_heads_kernel|act_layer_\w*?kernel|"
                                r"act_heads_kernel)(I\w*)?", fn)
             args = ",".join(re.findall(r"L[ib](\d+)E", kernel.group(2) or "")) if kernel else ""
             fn = f"{source.group(1)}.cu {kernel.group(1)}<{args}>" if source and kernel else None
             continue
-        if fn and re.search(r"HGMMA|HMMA|FFMA|LDL|STL|\bLDS\b", line):
-            c = counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "LDS": 0, "local": 0})
-            if "HGMMA" in line:
+        if fn and re.search(r"HGMMA|HMMA|FFMA|LDL|STL|\bLDS\b|\bBAR\.|UTMALDG|UBLKCP|SYNCS", line):
+            c = counts.setdefault(fn, {"HGMMA": 0, "HMMA": 0, "HMMA_TF32": 0, "FFMA": 0, "LDS": 0, "local": 0,
+                                       "BAR": 0, "UTMALDG": 0, "UBLKCP": 0, "SYNCS": 0})
+            if re.search(r"\bBAR\.", line):
+                c["BAR"] += 1
+            elif "UTMALDG" in line:
+                c["UTMALDG"] += 1
+            elif "UBLKCP" in line:
+                c["UBLKCP"] += 1
+            elif "SYNCS" in line:
+                c["SYNCS"] += 1
+            elif "HGMMA" in line:
                 c["HGMMA"] += 1
             elif "HMMA" in line:
                 c["HMMA"] += 1
@@ -567,6 +653,8 @@ def main() -> int:
         measures.append(rnn_act_shapes_measure(torch, dev))
     if "rnn_wide" in kinds:
         measures.append(rnn_wide_measure(torch, dev, split))
+    if "chains_wide" in kinds:
+        measures.append(chains_wide_measure(torch, dev, split))
     for name, (lib, logs) in built.items():
         _build._lib = None
         _build.build = lambda lib=lib: lib
@@ -1065,6 +1153,163 @@ def chains_fwd_measure(torch, dev, split):
             out[f"chains_fwd_{N}_split_ms"] = split(run)
             out[f"chains_fwd_{N}_vs_plain"] = max(float((k - p).abs().max()) for k, p in zip(k1, want))
             out[f"chains_fwd_{N}_bit_identical"] = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        return out
+
+    return measure
+
+
+#: ``chains_wide``'s stand-ins for the other callers of ``stage.cuh``'s
+#: ``fwd_product`` at their main paths' shapes, on the chain forward's
+#: staged route (forced by a fifth head: the tiled route holds four):
+#: ``(name, d_in, layout, rows)``. ``ppo_staged_fwd_kernel``'s forward
+#: products (twin 256-wide relu torsos, 262,144 rows), the act kernels'
+#: staged continuous forward (the same torsos, 8,192 rows) and
+#: ``rnn_staged_fwd_kernel``'s gate products (h Wh of one 256-wide LSTM, 256
+#: x 1024, 65,536 sequences of 4 steps; its 1-wide x Wi is folded into the
+#: epilogue there); and that product's shape from a 257-wide input, whose
+#: rows (1,028 bytes apart) no tensor map takes: the producer warp's
+#: cp.async route at a K of nine stages.
+CALLER_SHAPES = (
+    ("ppo_staged_fwd", 1, (([(256, False), (256, False)], [2, 1, 1, 1, 1]), ([(256, False), (256, False)], [1])),
+     262144),
+    ("act_staged_continuous", 1, (([(256, False), (256, False)], [1, 1, 1, 1, 1]),
+                                  ([(256, False), (256, False)], [1])), 8192),
+    ("rnn_staged_fwd_gates", 256, (([(1024, False)], [1, 1, 1, 1, 1]),), 262144),
+    ("unaligned_257", 257, (([(1024, False)], [1, 1, 1, 1, 1]),), 262144),
+)
+
+
+def sampled_clocks(torch, fn, seconds: float = 2.0) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads every
+    100 ms while ``fn`` runs back to back for ``seconds`` (medians of the
+    samples taken after the first half second)."""
+    import time
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        lines = proc.communicate()[0].strip().splitlines()
+    rows = [[float(v) for v in line.split(",")] for line in lines if line.count(",") == 1]
+    rows = rows[len(rows) // 4:] or rows
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None  # noqa: E731
+    return {"sm_mhz": med([r[0] for r in rows]), "power_w": med([r[1] for r in rows]), "samples": len(rows)}
+
+
+def chains_wide_measure(torch, dev, split):
+    """The staged chain routes' measurement of a variant at ``wide_custom``'s
+    shapes (MischievousMule at 2048 wide, ``chip_smoke.py``'s
+    ``mule_layout``): the forward at 4,096 and 32,768 rows (ms, split by
+    kernel, the largest error against the plain version, bit identity);
+    the backward at 32,768 rows saved (``chip_smoke.saved_bwd_ms``: after a
+    saving forward, events around the backward alone) and recomputed (ms, split; whether
+    the saved one launched ``chains_layer_kernel``; saved and recomputed
+    bit-identical), and ``deep_custom``'s (12 x 128) the same way; a
+    cuBLAS yardstick of the same layer products (``torch.addmm`` and
+    ``torch.mm``, f32, TF32 off, alone: the forward's products and heads,
+    and the backward's dh, dx and weight products); and the products of
+    ``CALLER_SHAPES`` (the chain forward's ``chains_layer_kernel`` ms
+    there)."""
+    import chip_smoke as cs
+    from rl8_tpu_torch.ops import forward_chains, fused_chains_bwd, fused_chains_fwd
+    from rl8_tpu_torch.ops.fused_mlp import chain_structure, flatten_chains
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    cases = {
+        "wide_custom": cs.random_chains(torch, dev, seed=62, d_in=7, layout=cs.mule_layout(2048)),
+        "deep_custom": cs.random_chains(torch, dev, seed=63, d_in=7,
+                                        layout=tuple(([(128, i == 0)] + [(128, False)] * 11, [w]) for i, w in
+                                                     ((0, 3), (0, 1)))),
+    }
+    xs = {N: 0.5 * torch.randn((N, 7), generator=gen, device=dev) for N in (4096, 32768)}
+
+    def library_ms(chains, x, douts, backward: bool) -> float:
+        """The layer products alone as cuBLAS calls (f32, TF32 off) on
+        activations of the products' shapes."""
+        _, hs = forward_chains(x, chains, "relu")
+        calls = []
+        for (layers, heads), h, chain_douts in zip(chains, hs, douts or [[None] * len(hd) for _, hd in chains]):
+            for layer, h_in, h_out in zip(layers, h[:-1], h[1:]):
+                if backward:
+                    calls.append(lambda a=h_out, w=layer[0]: torch.mm(a, w.t()))
+                    calls.append(lambda a=h_in, g=h_out: torch.mm(a.t(), g))
+                else:
+                    calls.append(lambda a=h_in, w=layer[0], b=layer[1]: torch.addmm(b, a, w))
+            for (w, b), dout in zip(heads, chain_douts):
+                if backward:
+                    calls.append(lambda a=h[-1], g=dout: torch.mm(a.t(), g))
+                    calls.append(lambda g=dout, w=w: torch.mm(g, w.t()))
+                else:
+                    calls.append(lambda a=h[-1], w=w, b=b: torch.addmm(b, a, w))
+        return cs.time_ms(torch, lambda: [f() for f in calls], iters=5, warmup=1)[0]
+
+    def measure() -> dict:
+        out = {}
+        for name, chains in cases.items():
+            structure, flat = chain_structure(chains), flatten_chains(chains)
+            rows = (4096, 32768) if name == "wide_custom" else (32768,)
+            for N in rows:
+                x = xs[N]
+                run = lambda: fused_chains_fwd(x, flat, structure, "relu")  # noqa: E731
+                k1, k2 = run(), run()
+                want = [o for chain in forward_chains(x, chains, "relu")[0] for o in chain]
+                torch.cuda.synchronize()
+                key = f"{name}_fwd_{N}"
+                out[f"{key}_ms"] = cs.time_ms(torch, run, iters=10 if N > 4096 else 20, warmup=2)[0]
+                out[f"{key}_split_ms"] = split(run)
+                out[f"{key}_vs_plain"] = max(float((k - p).abs().max()) for k, p in zip(k1, want))
+                out[f"{key}_bit_identical"] = all(torch.equal(a, b) for a, b in zip(k1, k2))
+            x = xs[32768]
+            douts = [torch.randn((32768, w), generator=gen, device=dev) for _, heads in structure[1] for w in heads]
+            recompute = lambda: fused_chains_bwd(x, flat, structure, "relu", douts)  # noqa: E731
+            dx_r, dflat_r = recompute()
+            _, kept = fused_chains_fwd(x, flat, structure, "relu", save=True)
+            dx_s, dflat_s = fused_chains_bwd(x, flat, structure, "relu", douts, saved=kept)
+            del kept
+            torch.cuda.synchronize()
+            key = f"{name}_bwd_32768"
+            out[f"{key}_saved_bit_identical_to_recompute"] = bool(torch.equal(dx_r, dx_s) and torch.equal(dflat_r, dflat_s))
+            out[f"{key}_recompute_ms"] = cs.time_ms(torch, recompute, iters=5, warmup=1)[0]
+            out[f"{key}_recompute_split_ms"] = split(recompute)
+            out[f"{key}_saved_ms"] = cs.saved_bwd_ms(torch, x, flat, structure, "relu", douts, 5)
+            saved_split = {}
+            for _ in range(3):
+                _, kept = fused_chains_fwd(x, flat, structure, "relu", save=True)
+                got = split(lambda: fused_chains_bwd(x, flat, structure, "relu", douts, saved=kept))
+                saved_split = got if sum(got.values()) > sum(saved_split.values()) else saved_split
+            del kept
+            out[f"{key}_saved_split_ms"] = saved_split
+            out[f"{key}_saved_launches_layer_kernel"] = any("chains_layer" in k for k in saved_split)
+            if name == "wide_custom":
+                grouped, q = [], 0
+                for _, heads in structure[1]:
+                    grouped.append(douts[q : q + len(heads)])
+                    q += len(heads)
+                out["wide_custom_fwd_4096_library_ms"] = library_ms(chains, xs[4096], None, False)
+                out["wide_custom_fwd_32768_library_ms"] = library_ms(chains, x, None, False)
+                flat_w = flatten_chains(chains)
+                out["wide_custom_fwd_32768_clocks"] = sampled_clocks(
+                    torch, lambda: fused_chains_fwd(x, flat_w, structure, "relu"))
+                w1 = chains[0][0][1][0]
+                h1 = torch.randn((32768, w1.shape[0]), generator=gen, device=dev)
+                out["cublas_2048_product_clocks"] = sampled_clocks(torch, lambda: torch.mm(h1, w1))
+                del h1
+                out[f"{key}_library_ms"] = library_ms(chains, x, grouped, True)
+            torch.cuda.empty_cache()
+        for name, d_in, layout, N in CALLER_SHAPES:
+            chains = cs.random_chains(torch, dev, seed=64, d_in=d_in, layout=layout)
+            structure, flat = chain_structure(chains), flatten_chains(chains)
+            x = 0.5 * torch.randn((N, d_in), generator=gen, device=dev)
+            run = lambda: fused_chains_fwd(x, flat, structure, "relu")  # noqa: E731
+            out[f"caller_{name}_{N}_fwd_ms"] = cs.time_ms(torch, run, iters=10, warmup=2)[0]
+            got = split(run)
+            out[f"caller_{name}_{N}_layer_kernel_ms"] = sum(v for k, v in got.items() if "chains_layer" in k)
+            del chains, x
         return out
 
     return measure

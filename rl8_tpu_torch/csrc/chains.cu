@@ -5,7 +5,9 @@
 // forward below) replaces rl8_tpu/ops/fused_mlp.py:_fwd_kernel (called by
 // _call_fwd, the forward of fused_chains); chains_bwd_tiles_kernel (and,
 // for chains too large for it, the staged backward) replaces
-// fused_mlp.py:_bwd_kernel (_fused_bwd, the recompute-based backward). Per
+// fused_mlp.py:_bwd_kernel (_fused_bwd, the TPU's recompute-based
+// backward; the staged backward reads the forward's saved activations
+// where they fit, below). Per
 // chain, layer l computes
 //   h_l = act(LN_l?(h_{l-1} @ W_l + b_l)),  h_{-1} = x,
 // with flax's fast-variance LayerNorm where the layer has one: mu = mean(z),
@@ -27,7 +29,9 @@
 // ms on the CUDA cores, 0.042 ms at three TF32 products per f32 product on
 // the tensor cores; its inputs and outputs are ~2.6 MB. At 2048 wide (the
 // same layout, 8,441,864 parameters) a 32,768-row minibatch's forward is 552
-// GFLOP (8.24 ms at 67 TFLOP/s) and its backward ~3x that.
+// GFLOP (8.24 ms at 67 TFLOP/s) and its backward ~3x that; the saved
+// backward (no recompute) 1,104 GFLOP of dh, dx and weight products, 6.69
+// ms at three TF32 products a product on 495 TFLOP/s.
 //
 // Design.
 // - Forward, f32 on the CUDA cores (a tensor-core forward flipped a relu
@@ -58,12 +62,19 @@
 //   - The staged route (every other chain, of any width: e.g. a 768-wide
 //     layer, whose tile buffers alone fill shared memory, or MischievousMule
 //     at 2382 wide): one launch per layer depth over (256-column tiles,
-//     128-row blocks, the chains that have that layer), chains_layer_kernel,
-//     each block stage.cuh's fwd_product (the block's rows and a weight slab
-//     streamed through a 3-stage cp.async ring, 8 rows x 16 columns a
-//     thread) from a copy of W_l laid out per stage (tile_fwd_kernel, made
-//     once a call), reading h_{l-1} in place and writing h_l (or, before a
-//     LayerNorm, z) to a device scratch of two buffers a chain; a LayerNorm
+//     128-row blocks, the chains that have that layer), chains_layer_kernel:
+//     one persistent block an SM walks the tiles, a producer thread feeding
+//     stage.cuh's warp-specialised ring (ws_produce: 4 stages of 32 k, each
+//     weight slab one bulk copy from a copy of W_l laid out per stage,
+//     tile_fwd_kernel, made once a call; each row slab one 2-D tensor-map
+//     copy, swizzled, zeros past the rows and K; x first copied with rows
+//     16-byte aligned where d_in is no multiple of 4)
+//     and two consumer warpgroups summing in f32 (ws_consume: 8 rows x 16
+//     columns a thread, fwd_product's sums; full and empty mbarriers a
+//     stage, no block barrier; setmaxnreg gives the consumers the
+//     producer's registers), reading h_{l-1} in place and writing h_l (or,
+//     before a LayerNorm, z) to a device scratch of two buffers a chain (the
+//     saving forward: one a layer, the backward's); a LayerNorm
 //     needs the whole row, so chains_ln_kernel then applies it and the
 //     activation in place, a warp per row. Heads narrower than 8 are warp
 //     dot products in narrow_head's order (chains_heads_kernel, stage.cuh's
@@ -97,9 +108,21 @@
 //     come in a fixed order. The block writes its gradients as one row of the
 //     partials, and its rows' dx of its chain to a per-chain dx.
 //   - The staged route (every other chain): a row pass through a device
-//     scratch, then the weight products. The row pass recomputes the forward
-//     with the staged forward's launches, keeping every h_l (and a
-//     LayerNorm's xhat and s) in the scratch; then, from the top, one launch
+//     scratch, then the weight products. Where the scratch holds every row
+//     at once (rl8_chains_chunk_rows answers N) and the forward takes its
+//     staged route too, the forward that autograd runs before it is a
+//     saving one (rl8_chains_fwd's save, the same products and bits as the
+//     forward without it, so a forward's outputs never depend on grad
+//     mode): it lays out
+//     the backward's workspace, makes the backward's weight copies too and
+//     keeps every h_l (and a LayerNorm's xhat and s) in it, and the saved
+//     backward starts from there: on this card the scratch is device memory
+//     that the backward allocates anyway, where the TPU kept it in VMEM,
+//     so a saved activation costs no memory and spares the forward's
+//     recompute (the same kernels and sums: the same bits). Elsewhere (a
+//     chunked scratch) the row pass recomputes the forward with the staged
+//     forward's launches, keeping every h_l (and a LayerNorm's xhat and s)
+//     in the scratch. Then, from the top, one launch
 //     per step down the chains, chains_dh_kernel: dh = cot W^T by stage.cuh's
 //     bwd_product (3xTF32 wgmma from big and small TF32 copies that
 //     tile_bwd_kernel lays out per stage, a fresh accumulator every 32 k;
@@ -136,7 +159,11 @@
 //   chunks of whole 128-row blocks that fit kWorkspaceFloats (4 GiB) beside
 //   the weight copies and the partials: per chunk the recompute, the dh
 //   products, dx and the weight products, whose partials are added into
-//   the gradient in chunk order.
+//   the gradient in chunk order. Only a single chunk is saved by the
+//   forward; a chunked backward, or one behind the tiled forward,
+//   recomputes (a route by shape, decided
+//   before any launch).
+#include <cuda.h>  // CUtensorMap and its encoder's types (the encoder is looked up at run time)
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -145,6 +172,7 @@
 #include "tile.cuh"
 #include "wgrad.cuh"
 
+#include <atomic>
 #include <vector>
 
 namespace {
@@ -1184,10 +1212,15 @@ inline long long round4(long long v) { return (v + 3) / 4 * 4; }
 // (forward: two buffers a chain, ld its widest layer, layer l in buffer l %
 // 2; backward: one a layer) and, backward, dpre_l, a LayerNorm layer's
 // xhat_l and da_l [rows, ld_l] and s_l [rows], and the heads' cotangents
-// side by side [rows, ld_out]. Then, backward, each chain's dx [rows, d_in]
-// and the weight products' partials [groups, P]; -1 where a slab is not
-// used. The forward's rows are N; the backward's a chunk of `chunk` rows
-// (whole 128-row blocks, or N), which its passes walk in order.
+// side by side [rows, ld_out]; x's rows with their stride rounded to 16
+// bytes, xpad [rows, round4(d_in)] (the first layers' tensor maps read
+// them there where x's own stride or address allows none). Then,
+// backward, each chain's dx [rows, d_in] and the weight products'
+// partials [groups, P]; -1 where a slab is not used. The forward's rows are N; the backward's a chunk of `chunk` rows
+// (whole 128-row blocks, or N), which its passes walk in order. The saved
+// layout (the saving forward's and the saved backward's, where the chunk
+// is N) is the backward's with the wide heads' forward copies after the
+// partials, so that every other slab lies where the backward's does.
 struct StagedChain {
   std::vector<long long> fwd, big, small, head;  // big, small: L + 1 entries
   long long stack, dout;
@@ -1198,13 +1231,14 @@ struct StagedChain {
 
 struct Staged {
   std::vector<StagedChain> c;
-  long long dxc, partials, chunk, floats;
+  long long xpad, dxc, partials, chunk, floats;
   int groups, depth;  // groups: the most groups of rows of a chunk's weight products; depth: the most layers of a chain
 };
 
-// The staged route's layout; false (backward) where the weight copies and
-// the partials leave no room in kWorkspaceFloats for one 128-row block.
-bool make_staged(const Layout& Lo, bool backward, Staged* S) {
+// The staged route's layout (saved: the saved layout, a backward one);
+// false (backward) where the weight copies and the partials leave no room
+// in kWorkspaceFloats for one 128-row block.
+bool make_staged(const Layout& Lo, bool backward, Staged* S, bool saved = false) {
   const Chains& d = Lo.d;
   const long long N = d.N;
   long long off = 0, slabs = 0;
@@ -1215,7 +1249,7 @@ bool make_staged(const Layout& Lo, bool backward, Staged* S) {
   };
   S->depth = d.depth;
   S->c.assign(d.n_chains, StagedChain{});
-  long long per_row = backward ? (long long)d.n_chains * d.d_in : 0;
+  long long per_row = round4(d.d_in) + (backward ? (long long)d.n_chains * d.d_in : 0);
   for (int c = 0; c < d.n_chains; ++c) {
     StagedChain& t = S->c[c];
     const int L = d.n_layers[c];
@@ -1299,10 +1333,17 @@ bool make_staged(const Layout& Lo, bool backward, Staged* S) {
     }
     t.dout = backward ? take(R * t.ld_out) : -1;
   }
+  S->xpad = take(R * round4(d.d_in));
   S->dxc = S->partials = -1;
   if (backward) {
     S->dxc = take((long long)d.n_chains * R * d.d_in);
     S->partials = take(part);
+  }
+  for (int c = 0; saved && c < d.n_chains; ++c) {
+    const int in = d.width[c][d.n_layers[c] - 1];
+    for (int j = 0; j < d.n_heads[c]; ++j) {
+      if (d.head_w[c][j] >= kNarrow) S->c[c].head[j] = take(rl8::fwd_copy_floats(in, d.head_w[c][j]));
+    }
   }
   S->floats = off;
   return true;
@@ -1322,7 +1363,9 @@ __device__ __forceinline__ T select_item(const T (&items)[M], int index) {
 
 // One product of chains_layer_kernel: out = act(in W + b), in [rows, K]
 // (rows ld_in apart), W a copy in fwd_product's layout, out [rows, N] (rows
-// ld_out apart); act is kIdentity before a LayerNorm and for a head.
+// ld_out apart); act is kIdentity before a LayerNorm and for a head. The
+// launch's map[] holds a tensor map of `in` (ld_in a multiple of 4, in
+// 16-byte aligned).
 struct StProduct {
   const float* in;
   const float* w;
@@ -1333,44 +1376,91 @@ struct StProduct {
 };
 
 struct StProducts {
+  CUtensorMap map[kStJobs];
   StProduct p[kStJobs];
   long long rows;
+  int gx, gy, n;  // column tiles, row blocks and products
 };
+static_assert(sizeof(StProducts) <= 4096, "a launch's table fits the kernel parameters");
 
-// The staged forward's products: blockIdx.x is the tile of columns 256 x ..
-// 256 x + 255, blockIdx.y the first 128-row block, which steps by
-// gridDim.y, blockIdx.z the product; each output summed in order of k from
-// 0 in f32 (fwd_product), then the bias and the activation.
-__global__ void __launch_bounds__(rl8::kStThreads, 1) chains_layer_kernel(const __grid_constant__ StProducts ps) {
+// out = act(acc + b) of a tile's outputs (acc[h][i][j]: row rg + 16 i,
+// column n0 + 128 h + c0 + j for j < 4, n0 + 128 h + c1 + j - 4 after),
+// rows below nr and columns below p.N; four adjacent columns as one
+// 16-byte store where out allows it.
+template <int RT>
+__device__ __forceinline__ void store_tile(const StProduct& p, float* out, int nr, int n0, const float (&acc)[2][RT][8],
+                                           int rg, int c0, int c1) {
+  const bool vec = p.ld_out % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + 128 * h + (q == 0 ? c0 : c1);
+      if (col >= p.N) continue;
+      float bj[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bj[j] = col + j < p.N ? __ldg(p.b + col + j) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = rg + 16 * i;
+        if (r >= nr) continue;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = activate(acc[h][i][4 * q + j] + bj[j], p.act);
+        float* o = out + (long long)r * p.ld_out + col;
+        if (vec && col + 4 <= p.N) {
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (col + j < p.N) o[j] = v[j];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The staged forward's products on stage.cuh's warp-specialised ring:
+// blocks walk the launch's tiles t = blockIdx.x, + gridDim.x, ... (one
+// block an SM, persistent, so that a tile's epilogue stores overlap the
+// next tile's copies); tile t is column tile t % gx (256 columns), row
+// block (t / gx) % gy (128 rows) of product t / (gx gy). One producer
+// thread fills the ring (ws_produce), the two consumer warpgroups sum each output
+// in order of k from 0 in f32 (ws_consume, fwd_product's sums), then add
+// the bias and apply the activation (store_tile).
+__global__ void __launch_bounds__(rl8::kWsThreads, 1) chains_layer_kernel(const __grid_constant__ StProducts ps) {
   constexpr int R = rl8::kStRows;
   extern __shared__ __align__(128) float st_smem[];
-  const StProduct p = select_item(ps.p, blockIdx.z);
-  const int n0 = blockIdx.x * rl8::kStFwdPass;
-  if (n0 >= p.N) return;
-  const long long stages = (p.K + rl8::kStK - 1) / rl8::kStK;
-  const float* w = p.w + blockIdx.x * stages * rl8::kStFwdWFloats;
-  const long long tiles = (ps.rows + R - 1) / R;
-  for (long long t = blockIdx.y; t < tiles; t += gridDim.y) {
-    const long long r0 = t * R;
+  rl8::WsRing ring = rl8::ws_ring_init(st_smem);
+  const long long per_product = (long long)ps.gx * ps.gy, tiles = per_product * ps.n;
+  // Each role walks the tiles in its own loop, so that its register budget
+  // (setmaxnreg) holds for all of its code.
+  if (threadIdx.x < rl8::kWsThreads - rl8::kWsConsumers) {
+    rl8::ws_producer_regs();
+    if (threadIdx.x != 0) return;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int z = (int)(t / per_product), x = (int)(t % per_product % ps.gx);
+      const long long r0 = t % per_product / ps.gx * R;
+      const StProduct p = select_item(ps.p, z);
+      if (x * rl8::kStFwdPass >= p.N) continue;
+      rl8::ws_produce(ring, &ps.map[z], p.K, (int)r0,
+                      p.w + (long long)x * ((p.K + rl8::kStK - 1) / rl8::kStK) * rl8::kStFwdWFloats);
+    }
+    return;
+  }
+  rl8::ws_consumer_regs();
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int z = (int)(t / per_product), x = (int)(t % per_product % ps.gx);
+    const long long r0 = t % per_product / ps.gx * R;
+    const StProduct p = select_item(ps.p, z);
+    const int n0 = x * rl8::kStFwdPass;
+    if (n0 >= p.N) continue;
     const int nr = (int)min((long long)R, ps.rows - r0);
-    const float* in = p.in + r0 * p.ld_in;
     float* out = p.out + r0 * p.ld_out;
-    const rl8::FwdSeg seg = {{in, p.ld_in, p.K, nr, rl8::st_vec(in, p.ld_in)}, w};
-    rl8::fwd_product(
-        &seg, 1, min(rl8::kStFwdPass, p.N - n0), st_smem, [](auto& acc, const int(&)[8]) { rl8::tile_zero(acc); },
-        [&](auto& acc, int rg, const int(&n)[8]) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = n0 + n[j];
-            if (col >= p.N) continue;
-            const float bj = __ldg(p.b + col);
-#pragma unroll
-            for (int i = 0; i < R / 16; ++i) {
-              const int r = rg + 16 * i;
-              if (r < nr) out[r * p.ld_out + col] = activate(acc[i][j] + bj, p.act);
-            }
-          }
-        });
+    rl8::ws_consume(ring, p.K, [&](const auto& acc, int rg, int c0, int c1) {
+      store_tile(p, out, nr, n0, acc, rg, c0, c1);
+    });
   }
 }
 
@@ -1649,12 +1739,88 @@ struct Copies {
   cudaError_t flush() { return b.flush(fire()); }
 };
 
-// The staged kernels' shared memory (stage.cuh's rings).
-cudaError_t staged_attributes() {
+// The staged kernels' shared memory (stage.cuh's rings), set once a
+// device (of the first 64; on every call past them).
+cudaError_t staged_attributes(int device) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (done.load() & bit) return cudaSuccess;
   cudaError_t err =
-      cudaFuncSetAttribute(chains_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStFwdSmem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(chains_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
+      cudaFuncSetAttribute(chains_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kWsSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(chains_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rl8::kStBwdSmem);
+  }
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// The SMs of a device, asked once a device (of the first 64).
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> known[64];
+  if (device >= 0 && device < 64 && (*sms = known[device].load()) > 0) return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device >= 0 && device < 64) known[device].store(*sms);
+  return err;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (so the library links nothing beyond the runtime), or null.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of rows [rows, K] at p (rows ld floats apart) in boxes of
+// kStRows rows x kWsK columns, reading zeros outside it, swizzled over each
+// box row's bytes (ws_produce's rows, stage.cuh's ws_swizzle); false where
+// it cannot be made (ld no multiple of 4, p not 16-byte aligned). The maps
+// a thread encoded last are kept (an encode costs microseconds of host
+// time, and the workspace and its activations come back at the same
+// addresses call after call), the oldest replaced first.
+bool rows_map(CUtensorMap* map, const float* p, long long rows, int K, long long ld) {
+  struct Key {
+    const float* p;
+    long long rows, ld;
+    int K;
+  };
+  constexpr int kKept = 64;
+  thread_local Key keys[kKept] = {};
+  thread_local CUtensorMap maps[kKept];
+  thread_local int next = 0;
+  for (int i = 0; i < kKept; ++i) {
+    if (keys[i].p == p && keys[i].rows == rows && keys[i].ld == ld && keys[i].K == K) {
+      *map = maps[i];
+      return true;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || ld % 4 != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)rl8::kWsK, (cuuint32_t)rl8::kStRows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, rl8::kWsK == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return false;
+  }
+  keys[next] = Key{p, rows, ld, K};
+  maps[next] = *map;
+  next = (next + 1) % kKept;
+  return true;
 }
 
 // The weight copies of the staged route (make_staged's fwd, head, big and
@@ -1708,19 +1874,27 @@ cudaError_t staged_copies(const float* params, float* ws, const Layout& Lo, cons
 }
 
 // The products of a chains_layer_kernel launch, kStJobs a launch over
-// `rows` rows, each launch's grid over its widest product.
+// `rows` rows, each launch's tiles over its widest product: one persistent
+// block an SM (at most one a tile). Each product's input gets its tensor
+// map here (its row stride a multiple of 16 bytes: staged_layers pads a
+// first layer's x that has none).
 struct Products {
   StProducts t;
-  int n = 0, widest = 0;
+  int n = 0, widest = 0, sms = 1;
   cudaStream_t s;
   cudaError_t flush() {
     if (n == 0) return cudaSuccess;
-    const dim3 grid((widest + rl8::kStFwdPass - 1) / rl8::kStFwdPass, rl8::st_row_grid(t.rows), n);
-    chains_layer_kernel<<<grid, rl8::kStThreads, rl8::kStFwdSmem, s>>>(t);
+    t.gx = (widest + rl8::kStFwdPass - 1) / rl8::kStFwdPass;
+    t.gy = (int)((t.rows + rl8::kStRows - 1) / rl8::kStRows);
+    t.n = n;
     n = widest = 0;
+    const long long tiles = (long long)t.gx * t.gy * t.n;
+    const long long blocks = tiles > sms ? sms : tiles;
+    chains_layer_kernel<<<(unsigned)blocks, rl8::kWsThreads, rl8::kWsSmem, s>>>(t);
     return cudaGetLastError();
   }
   cudaError_t add(const StProduct& p) {
+    if (!rows_map(&t.map[n], p.in, t.rows, p.K, p.ld_in)) return cudaErrorInvalidValue;
     t.p[n++] = p;
     widest = p.N > widest ? p.N : widest;
     return n == kStJobs ? flush() : cudaSuccess;
@@ -1731,8 +1905,19 @@ struct Products {
 // the chains that have that layer (keep: the backward's recompute, keeping
 // each LayerNorm's xhat and s).
 cudaError_t staged_layers(const float* x, long long rows, const float* params, float* ws, const Layout& Lo,
-                          const Staged& S, bool keep, cudaStream_t s) {
+                          const Staged& S, bool keep, int sms, cudaStream_t s) {
   const Chains& d = Lo.d;
+  long long ld_x = d.d_in;
+  if (d.d_in % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    // The first layers' tensor maps need a row stride of 16-byte multiples.
+    Copies pad;
+    pad.s = s;
+    ld_x = round4(d.d_in);
+    cudaError_t err = pad.add(Copy2d{x, ws + S.xpad, rows, ld_x, d.d_in});
+    if (err == cudaSuccess) err = pad.flush();
+    if (err != cudaSuccess) return err;
+    x = ws + S.xpad;
+  }
   const unsigned ln_blocks = (unsigned)((rows + kRowRows - 1) / kRowRows);
   auto fire_ln = [&](const LnLaunch& t, int n) {
     chains_ln_kernel<<<dim3(ln_blocks, n), kRowThreads, 0, s>>>(t);
@@ -1742,6 +1927,7 @@ cudaError_t staged_layers(const float* x, long long rows, const float* params, f
   for (int l = 0; l < S.depth; ++l) {
     Products ps;
     ps.t.rows = rows;
+    ps.sms = sms;
     ps.s = s;
     Batch<LnLaunch, LnRows> ls;
     ls.t.rows = rows;
@@ -1752,7 +1938,7 @@ cudaError_t staged_layers(const float* x, long long rows, const float* params, f
       const int w = d.width[c][l], in_w = l == 0 ? d.d_in : d.width[c][l - 1];
       const float* b = params + d.woff[c][l] + (long long)in_w * w;
       err = ps.add(StProduct{l == 0 ? x : ws + t.h[l - 1], ws + t.fwd[l], b, ws + t.h[l],
-                             l == 0 ? d.d_in : t.ld[l - 1], t.ld[l], in_w, w, d.ln[c][l] ? kIdentity : d.act});
+                             l == 0 ? ld_x : t.ld[l - 1], t.ld[l], in_w, w, d.ln[c][l] ? kIdentity : d.act});
       if (err != cudaSuccess) return err;
     }
     // Every product of the depth before its LayerNorms (chains_ln_kernel
@@ -1774,17 +1960,29 @@ cudaError_t staged_layers(const float* x, long long rows, const float* params, f
 }
 
 // The staged forward (see the file's head) on `ws` (make_staged(Lo,
-// false)'s floats).
-cudaError_t staged_forward(const float* x, const float* params, float* ws, const Layout& Lo, cudaStream_t s) {
+// false)'s floats); saving, on the saved layout (make_staged(Lo, true, ..,
+// true)'s floats, every row in one chunk): the backward's weight copies
+// too, and every h_l and each LayerNorm's xhat_l and s_l kept, which the
+// saved backward reads.
+cudaError_t staged_forward(const float* x, const float* params, float* ws, const Layout& Lo, bool saving,
+                           cudaStream_t s) {
   const Chains& d = Lo.d;
   Staged S;
-  make_staged(Lo, false, &S);
-  cudaError_t err;
-  if ((err = staged_attributes()) != cudaSuccess) return err;
+  if (!saving) {
+    make_staged(Lo, false, &S);
+  } else if (!make_staged(Lo, true, &S, true) || S.chunk != d.N) {
+    return cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = staged_attributes(device);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
   if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
-  if ((err = staged_layers(x, d.N, params, ws, Lo, S, false, s)) != cudaSuccess) return err;
+  if ((err = staged_layers(x, d.N, params, ws, Lo, S, saving, sms, s)) != cudaSuccess) return err;
   Products wide;
   wide.t.rows = d.N;
+  wide.sms = sms;
   wide.s = s;
   Batch<HeadLaunch, HeadRows> hl;
   hl.t.rows = d.N;
@@ -1815,15 +2013,21 @@ cudaError_t staged_forward(const float* x, const float* params, float* ws, const
 // true)'s floats), over chunks of S.chunk rows in order: each chunk's
 // recompute, dh products and dx, then its weight products, whose partials
 // are summed into grads (the first chunk's written, the others added).
+// saved: ws is the saving forward's (the saved layout, one chunk of every
+// row), whose weight copies and activations it reads in place of the
+// copies and the recompute.
 cudaError_t staged_backward(const float* x, const float* params, float* dx, float* grads, float* ws, const Layout& Lo,
-                            cudaStream_t s) {
+                            bool saved, cudaStream_t s) {
   const Chains& d = Lo.d;
   const long long N = d.N;
   Staged S;
-  if (!make_staged(Lo, true, &S)) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if ((err = staged_attributes()) != cudaSuccess) return err;
-  if ((err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
+  if (!make_staged(Lo, true, &S, saved) || (saved && S.chunk != N)) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = staged_attributes(device);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  if (!saved && (err = staged_copies(params, ws, Lo, S, s)) != cudaSuccess) return err;
   const long long R = S.chunk;
   float* dxc = ws + S.dxc;
   float* partials = ws + S.partials;
@@ -1831,7 +2035,7 @@ cudaError_t staged_backward(const float* x, const float* params, float* dx, floa
   for (long long c0 = 0; c0 < N; c0 += R) {
     const long long n = N - c0 < R ? N - c0 : R;
     const float* xc = x + c0 * d.d_in;
-    if ((err = staged_layers(xc, n, params, ws, Lo, S, true, s)) != cudaSuccess) return err;
+    if (!saved && (err = staged_layers(xc, n, params, ws, Lo, S, true, sms, s)) != cudaSuccess) return err;
     // Each chain's head cotangents side by side.
     Copies douts;
     douts.s = s;
@@ -1961,16 +2165,29 @@ cudaError_t staged_backward(const float* x, const float* params, float* dx, floa
 }  // namespace
 
 // Floats of workspace that rl8_chains_fwd (backward = 0) or rl8_chains_bwd
-// (backward != 0) needs, or -1 where the spec is malformed (or, backward,
+// (backward = 1) needs, or -1 where the spec is malformed (or, backward,
 // the staged route's weight copies and partials leave no room in its
 // budget for one row block): 0 where the forward takes its tiled route; the
 // tiled backward's partials (at most kMaxTileBlocks / its launches' chains
 // groups) and per-chain dx; else the staged route's copies, row scratch and
-// (backward) partials (make_staged).
+// (backward) partials (make_staged). backward = 2: the saved layout's
+// floats, which a saving rl8_chains_fwd fills and a saved rl8_chains_bwd
+// reads, where the backward takes its staged route with every row in one
+// chunk (rl8_chains_chunk_rows answers N) and the forward its staged route;
+// else 0 (the backward recomputes).
 extern "C" long long rl8_chains_workspace(long long N, int d_in, const int* spec, int spec_len, int backward) {
   Layout L = {};
   if (!make_layout(N, d_in, kRelu, spec, spec_len, &L)) return -1;
   Staged S;
+  if (backward == 2) {
+    Tiled T;
+    std::vector<TileChain> tc;
+    FwdTiled F;
+    std::vector<FwdChain> fc;
+    if (make_tiled(L, &T, &tc) || make_fwd_tiled(L, &F, &fc)) return 0;
+    if (!make_staged(L, true, &S, true)) return -1;
+    return S.chunk == N ? S.floats : 0;
+  }
   if (!backward) {
     FwdTiled F;
     std::vector<FwdChain> fc;
@@ -2014,9 +2231,11 @@ extern "C" long long rl8_chains_chunk_rows(long long N, int d_in, const int* spe
 
 // outs: a host array of each head's output [N, hw], chain by chain;
 // workspace holds rl8_chains_workspace(..., 0) floats (null where that is
-// 0).
+// 0). save: the saving forward, on rl8_chains_workspace(..., 2) floats
+// (invalid where that is not positive: the same staged route and bits as
+// without save).
 extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const* outs, float* workspace, long long N,
-                              int d_in, const int* spec, int spec_len, int act, int device, void* stream) {
+                              int d_in, const int* spec, int spec_len, int act, int save, int device, void* stream) {
   Layout L = {};
   if (!make_layout(N, d_in, act, spec, spec_len, &L)) return (int)cudaErrorInvalidValue;
   for (int c = 0, q = 0; c < L.d.n_chains; ++c) {
@@ -2026,6 +2245,14 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
   if (err != cudaSuccess) return (int)err;
   FwdTiled F;
   std::vector<FwdChain> fc;
+  if (save) {
+    Tiled T;
+    std::vector<TileChain> tc;
+    if (workspace == nullptr || make_tiled(L, &T, &tc) || make_fwd_tiled(L, &F, &fc)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)staged_forward(x, params, workspace, L, true, (cudaStream_t)stream);
+  }
   if (make_fwd_tiled(L, &F, &fc)) {
     // The tiled route: as many persistent blocks as the card holds at once
     // (within the row tiles), split evenly over a launch's chains; a launch
@@ -2053,15 +2280,17 @@ extern "C" int rl8_chains_fwd(const float* x, const float* params, float* const*
     return (int)cudaSuccess;
   }
   if (workspace == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)staged_forward(x, params, workspace, L, (cudaStream_t)stream);
+  return (int)staged_forward(x, params, workspace, L, false, (cudaStream_t)stream);
 }
 
 // douts: a host array of each head's cotangent [N, hw], chain by chain; dx
 // [N, d_in] and grads [P] (the flat parameter layout) are outputs; workspace
-// holds rl8_chains_workspace(..., 1) floats.
+// holds rl8_chains_workspace(..., 1) floats, or (saved) the workspace of a
+// saving rl8_chains_fwd on the same x and params, whose activations and
+// weight copies it reads (and overwrites: one saved backward a forward).
 extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* const* douts, float* dx,
                               float* grads, float* workspace, long long N, int d_in, const int* spec, int spec_len,
-                              int act, int device, void* stream) {
+                              int act, int saved, int device, void* stream) {
   Layout L = {};
   if (!make_layout(N, d_in, act, spec, spec_len, &L)) return (int)cudaErrorInvalidValue;
   for (int c = 0, q = 0; c < L.d.n_chains; ++c) {
@@ -2074,7 +2303,9 @@ extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* 
 
   Tiled T;
   std::vector<TileChain> tc;
-  if (make_tiled(L, &T, &tc)) {
+  const bool tiled = make_tiled(L, &T, &tc);
+  if (saved && tiled) return (int)cudaErrorInvalidValue;
+  if (tiled) {
     // The tiled route: as many persistent blocks as the card holds at once
     // (within the workspace's groups), split evenly over a launch's chains;
     // a launch for every kTileChains chains, each writing its chains'
@@ -2101,5 +2332,5 @@ extern "C" int rl8_chains_bwd(const float* x, const float* params, const float* 
     sum_chain_dx_kernel<<<rl8::grid_for(N * d_in), rl8::kWgThreads, 0, s>>>(dxc, d.n_chains, N * d_in, N * d_in, dx);
     return (int)cudaGetLastError();
   }
-  return (int)staged_backward(x, params, dx, grads, workspace, L, s);
+  return (int)staged_backward(x, params, dx, grads, workspace, L, saved != 0, s);
 }

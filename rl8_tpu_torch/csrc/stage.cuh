@@ -49,6 +49,29 @@
 //   all four gates of its units), over one or two operands one after the
 //   other (x Wi, then h Wh), a fresh accumulator every kStChunk of k.
 //
+// - ws_produce / ws_consume: fwd_product's arithmetic (each output summed
+//   in order of k from 0 into one f32 accumulator with fmaf; the same
+//   16 x 16 thread tiles, 128 accumulators a thread) on a warp-specialised
+//   ring (chains.cu's chains_layer_kernel): a block of kWsThreads is a
+//   producer warpgroup, of which one thread issues every copy, and two
+//   consumer warpgroups that run the FMAs; setmaxnreg moves the producer's
+//   registers to the consumers. The ring holds kWsStages stages of kWsK k,
+//   each with a full mbarrier (the copies have landed) and an empty one
+//   (every consumer has read it): no block-wide barrier a stage, so the
+//   consumers' FMAs run while the next stages' copies are in flight. A
+//   weight slab comes by one bulk copy from tile_fwd_kernel's layout, a
+//   row slab by one 2-D tensor-map copy (TMA: rows and columns outside the
+//   operand read as zeros; its row stride must be a multiple of 16 bytes,
+//   so chains.cu pads a first layer's d_in of 7 once a launch) into a
+//   [kStRows][kWsK] box. A warp's row loads are broadcasts of two rows, 128
+//   bytes apart in a dense box, so the same banks: the box is swizzled
+//   instead of padded (TMA's 128-byte swizzle: row r's 16-byte chunk q lies
+//   at chunk q ^ (r % 8), ws_swizzle). The weight loads are 16 adjacent
+//   16-byte runs a warp. Each row load feeds both 128-column halves. (A
+//   producer warp's cp.async of an unaligned first layer lost to
+//   fwd_product at a K of 257, PERF.md: it shares a scheduler with two
+//   consumer warps.)
+//
 // Each kernel of a wide route holds one kind of product, one block an SM:
 // fwd_product's 128 accumulators a thread, and bwd_product's running sums
 // and fragments, take most of its registers.
@@ -605,6 +628,193 @@ __device__ void tc_product(const TcSeg* seg, int n_seg, float* smem, Done done, 
   cp_async_wait<0>();
   __syncthreads();
   done(sum);
+}
+
+// ------------------------------------------------ warp-specialised product
+
+constexpr int kWsThreads = 384;    // a producer warpgroup, then two consumer warpgroups
+constexpr int kWsConsumers = 256;   // fwd_product's 16 x 16 thread tiles
+constexpr int kWsK = 32;            // k a stage
+constexpr int kWsStages = 4;        // stages of the ring
+constexpr int kWsProducerRegs = 40;
+constexpr int kWsConsumerRegs = 232;
+constexpr int kWsAFloats = kStRows * kWsK;      // a stage's rows, dense [kStRows][kWsK]
+constexpr int kWsWFloats = kWsK * kStFwdPass;   // a stage's weight slab [kWsK][kStFwdPass]
+constexpr int kWsStageFloats = kWsAFloats + kWsWFloats;
+// A block's shared memory: 1024 bytes to align the ring, the ring, and its
+// 2 kWsStages mbarriers.
+constexpr size_t kWsSmem = 1024 + sizeof(float) * kWsStages * kWsStageFloats + 2 * sizeof(uint64_t) * kWsStages;
+static_assert((kWsThreads - kWsConsumers == 128 || kWsThreads - kWsConsumers == 32) && kWsConsumers == 256 &&
+                  kStFwdPass == 256,
+              "a producer warpgroup (or warp); the consumers' tiles cover 128 rows x 256 columns");
+static_assert(kStK % kWsK == 0 && kWsK % 4 == 0, "a stage is a run of a copy's 32-k stage");
+static_assert((kWsStageFloats * 4) % 1024 == 0 && (kWsAFloats * 4) % 1024 == 0,
+              "swizzled TMA boxes at 1024-byte boundaries");
+static_assert(kWsK == 32 || kWsK == 16, "rows of 128 or 64 bytes: TMA's swizzle of the same span");
+static_assert(kWsSmem <= 232448, "the ring fits a block's shared memory");
+static_assert(kWsProducerRegs * 128 + kWsConsumerRegs * 256 <= 65536, "the SM's registers");
+
+// The ring of ws_produce and ws_consume: slabs [kWsStages][kWsStageFloats]
+// (rows, then the weight slab), full[s] (one arrival with the stage's bytes)
+// and empty[s] (kWsConsumers arrivals);
+// g counts the stages so far, the same in the producer and the consumers.
+struct WsRing {
+  float* slabs;
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t g;
+};
+
+// Sets up the ring in `smem` (the kernel's dynamic shared memory, kWsSmem
+// bytes); every thread of the block calls it, before the roles split. The
+// ring is an offset of smem (not an address rounded as an integer), so
+// that the compiler keeps its loads in the shared space (LDS, not generic
+// loads).
+__device__ __forceinline__ WsRing ws_ring_init(float* smem) {
+  float* slabs = smem + ((1024 - (shared_addr(smem) & 1023)) & 1023) / sizeof(float);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slabs + kWsStages * kWsStageFloats);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWsStages; ++s) {
+      mbar_init(&bars[s]);
+      mbar_init_count(&bars[kWsStages + s], kWsConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return WsRing{slabs, bars, bars + kWsStages, 0u};
+}
+
+// What a swizzled row slab XORs into row r's 16-byte chunk indices (TMA's
+// 128-byte swizzle for rows of 128 bytes, its 64-byte one for rows of 64:
+// address bits 7 and up): chunk q of row r lies at chunk q ^ ws_swizzle(r).
+__device__ __forceinline__ int ws_swizzle(int r) { return ((r * kWsK * 4) >> 7) & (kWsK / 4 - 1); }
+
+// The roles' register budgets (every thread of a warpgroup executes its
+// own; with a producer warp alone, not a warpgroup, the launch bound sets
+// one budget for all).
+__device__ __forceinline__ void ws_producer_regs() {
+  if constexpr (kWsThreads - kWsConsumers == 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWsProducerRegs));
+  }
+}
+__device__ __forceinline__ void ws_consumer_regs() {
+  if constexpr (kWsThreads - kWsConsumers == 128) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWsConsumerRegs));
+  }
+}
+
+// A 2-D tensor-map copy of the box at (k0, r0) (columns, rows) of `map` to
+// dst, reporting its bytes to bar.
+__device__ __forceinline__ void tma_load_2d(float* dst, const void* map, int k0, int r0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], "
+      "[%4];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(r0), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// The producer's side of one tile: every stage of its K, the weight slab
+// from w (tile_fwd_kernel's layout, the tile's pass) by one bulk copy and
+// the kStRows rows from row r0 by a tensor-map copy of `map` (the operand
+// [rows, K]), each into the next free stage of the ring. One thread of the
+// block calls it.
+__device__ void ws_produce(WsRing& ring, const void* map, int K, int r0, const float* __restrict__ w) {
+  const int S = (K + kWsK - 1) / kWsK;
+  for (int s = 0; s < S; ++s, ++ring.g) {
+    const int slot = ring.g % kWsStages;
+    float* rows = ring.slabs + slot * kWsStageFloats;
+    st_mbar_wait(&ring.empty[slot], ((ring.g / kWsStages) & 1u) ^ 1u);  // the consumers' release of its last use
+    async_proxy_fence();
+    mbar_expect(&ring.full[slot], kWsStageFloats * sizeof(float));
+    bulk_copy(rows + kWsAFloats, w + (long long)s * kWsK * kStFwdPass, kWsWFloats * sizeof(float), &ring.full[slot]);
+    tma_load_2d(rows, map, s * kWsK, r0, &ring.full[slot]);
+  }
+}
+
+// acc[h][i][j] += sum over k < K of A(i, k) W[k kStFwdPass + 128 h + c(j)]
+// in order of k (c(j) = c0 + j for j < 4, c1 + j - 4 after), A(i, k) the
+// thread's row i (row 16 i of a swizzled slab from A, all with swizzle sw,
+// ws_swizzle), each row load shared by both halves.
+template <int RT>
+__device__ __forceinline__ void ws_fma(float (&acc)[2][RT][8], const float* A, int sw, const float* W, int K, int c0,
+                                       int c1) {
+  int k = 0;
+#pragma unroll 1
+  for (; k + 4 <= K; k += 4) {
+    float4 a[RT];
+    const int kc = ((k >> 2) ^ sw) << 2;
+#pragma unroll
+    for (int r = 0; r < RT; ++r) a[r] = *reinterpret_cast<const float4*>(A + r * 16 * kWsK + kc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 w0 = *reinterpret_cast<const float4*>(W + (k + kk) * kStFwdPass + 128 * h + c0);
+        const float4 w1 = *reinterpret_cast<const float4*>(W + (k + kk) * kStFwdPass + 128 * h + c1);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float ak = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
+          acc[h][r][0] = fmaf(ak, w0.x, acc[h][r][0]);
+          acc[h][r][1] = fmaf(ak, w0.y, acc[h][r][1]);
+          acc[h][r][2] = fmaf(ak, w0.z, acc[h][r][2]);
+          acc[h][r][3] = fmaf(ak, w0.w, acc[h][r][3]);
+          acc[h][r][4] = fmaf(ak, w1.x, acc[h][r][4]);
+          acc[h][r][5] = fmaf(ak, w1.y, acc[h][r][5]);
+          acc[h][r][6] = fmaf(ak, w1.z, acc[h][r][6]);
+          acc[h][r][7] = fmaf(ak, w1.w, acc[h][r][7]);
+        }
+      }
+    }
+  }
+  for (; k < K; ++k) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 w0 = *reinterpret_cast<const float4*>(W + k * kStFwdPass + 128 * h + c0);
+      const float4 w1 = *reinterpret_cast<const float4*>(W + k * kStFwdPass + 128 * h + c1);
+      const int kc = (((k >> 2) ^ sw) << 2) + (k & 3);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float ak = A[r * 16 * kWsK + kc];
+        acc[h][r][0] = fmaf(ak, w0.x, acc[h][r][0]);
+        acc[h][r][1] = fmaf(ak, w0.y, acc[h][r][1]);
+        acc[h][r][2] = fmaf(ak, w0.z, acc[h][r][2]);
+        acc[h][r][3] = fmaf(ak, w0.w, acc[h][r][3]);
+        acc[h][r][4] = fmaf(ak, w1.x, acc[h][r][4]);
+        acc[h][r][5] = fmaf(ak, w1.y, acc[h][r][5]);
+        acc[h][r][6] = fmaf(ak, w1.z, acc[h][r][6]);
+        acc[h][r][7] = fmaf(ak, w1.w, acc[h][r][7]);
+      }
+    }
+  }
+}
+
+// The consumers' side of one tile of K: the products of every stage as it
+// lands (fwd_product's sums, from zero), each stage released to the
+// producer once read; then store(acc, rg, c0, c1) takes the thread's
+// outputs (acc[h][i][j]: row rg + 16 i, column 128 h + c0 + j for j < 4,
+// 128 h + c1 + j - 4 after). Every consumer thread calls it.
+template <class Store>
+__device__ void ws_consume(WsRing& ring, int K, Store store) {
+  constexpr int RT = kStRows / 16;
+  const int ct = threadIdx.x - (kWsThreads - kWsConsumers);
+  const int rg = ct / 16, c0 = 4 * (ct % 16), c1 = c0 + 64;
+  float acc[2][RT][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) tile_zero(acc[h]);
+  const int S = (K + kWsK - 1) / kWsK;
+  for (int s = 0; s < S; ++s, ++ring.g) {
+    const int slot = ring.g % kWsStages;
+    st_mbar_wait(&ring.full[slot], (ring.g / kWsStages) & 1u);
+    const float* rows = ring.slabs + slot * kWsStageFloats;
+    const int kq = K - s * kWsK;
+    if (kq >= kWsK) {
+      ws_fma<RT>(acc, rows + rg * kWsK, ws_swizzle(rg), rows + kWsAFloats, kWsK, c0, c1);
+    } else {
+      ws_fma<RT>(acc, rows + rg * kWsK, ws_swizzle(rg), rows + kWsAFloats, kq, c0, c1);
+    }
+    mbar_arrive(&ring.empty[slot]);
+  }
+  store(acc, rg, c0, c1);
 }
 
 }  // namespace

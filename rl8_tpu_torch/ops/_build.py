@@ -172,13 +172,13 @@ def load() -> ctypes.CDLL:
         lib.rl8_chains_chunk_rows.restype = i64
         lib.rl8_chains_fwd.argtypes = [
             ptr, ptr, ptr, ptr,  # x, params, head outputs (host pointer array), workspace
-            i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act
+            i64, i32, ptr, i32, i32, i32,  # N, d_in, spec, spec length, act, save
             i32, ptr,  # device, stream
         ]
         lib.rl8_chains_fwd.restype = i32
         lib.rl8_chains_bwd.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,  # x, params, head cotangents (host pointer array), dx, grads, workspace
-            i64, i32, ptr, i32, i32,  # N, d_in, spec, spec length, act
+            i64, i32, ptr, i32, i32, i32,  # N, d_in, spec, spec length, act, saved
             i32, ptr,  # device, stream
         ]
         lib.rl8_chains_bwd.restype = i32

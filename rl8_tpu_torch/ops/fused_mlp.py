@@ -17,9 +17,14 @@ each head is a linear ``(W, b)``. Several chains share one input.
   ``_fwd_kernel`` and ``_bwd_kernel``); :func:`fused_chains_fwd` and
   :func:`fused_chains_bwd` launch them for CUDA tensors or raise, and run
   the plain versions for CPU tensors. :func:`fused_chains` is the
-  differentiable op over them, a ``torch.autograd.Function`` whose
-  backward recomputes the activations from ``x``, as the TPU's custom
-  VJP does.
+  differentiable op over them, a ``torch.autograd.Function``. Where its
+  backward will run, its forward keeps the activations for it: on the
+  card where both take their staged routes and the backward holds every
+  row at once (the kernels' row scratch, which that backward allocates
+  anyway), on the CPU always. Elsewhere (the tiled routes, chunked staged
+  backwards) the backward recomputes the activations from ``x``, as the
+  TPU's custom VJP does. Either way a forward's outputs are the same bits
+  with and without grad mode.
 - :func:`model_fits_vmem` and :func:`chains_fit_vmem`: ``rl8_tpu``'s
   residency gates, which send a model too wide for its TPU kernels' VMEM
   to the module forward and the autodiff update; the algorithms AND them
@@ -434,6 +439,128 @@ def card_takes_chains(chains: Sequence[Chain]) -> bool:
     return load().rl8_chains_workspace(1, structure[0], spec, n, 1) >= 0
 
 
+#: ``csrc/chains.cu``'s constants that decide the routes and the staged
+#: backward's chunk (:func:`staged_saves` mirrors them): the tiled routes'
+#: tables, rows a tile (backward, forward) and shared memory a block (with
+#: a ``TileChain`` of 984 bytes, a ``FwdChain`` of 880); the staged
+#: route's rows a block, stage depth and passes (``stage.cuh``), its
+#: narrow-product width, its weight products' groups and partials, and its
+#: workspace budget (4 GiB).
+_TILE_DEPTH, _TILE_HEADS, _TILE_ROWS, _TILE_SMEM, _TILE_CHAIN_BYTES = 8, 4, 32, 232448, 984
+_FWD_TILE_ROWS, _FWD_PASS, _FWD_CHAIN_BYTES = 64, 128, 880
+_ST_ROWS, _ST_K, _ST_PASS, _ST_FWD_PASS, _NARROW = 128, 32, 128, 256, 8
+_GROUP_ROWS, _MAX_CHAIN_GROUPS, _PARTIAL_FLOATS, _WORKSPACE_FLOATS = 128, 256, 64 << 20, 1 << 30
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _tiled_backward_fits(structure: Structure) -> bool:
+    """``chains.cu``'s ``make_tiled``: whether every chain fits the tiled
+    backward's tables and its parameters, gradients and 32-row tile fit
+    one block's shared memory."""
+    d_in, shapes = structure
+
+    def act_ld(w: int) -> int:
+        return _round_up(w, 32) + 4
+
+    def weight_ld(w: int) -> int:
+        ld = _round_up(w, 8)
+        return ld + 8 if ld % 16 == 0 else ld
+
+    for layers, heads in shapes:
+        if len(layers) > _TILE_DEPTH or len(heads) > _TILE_HEADS:
+            return False
+        off, k = 0, d_in
+        for width, has_ln in layers:
+            off += k * weight_ld(width) + (3 * width if has_ln else width)
+            k = width
+        off = _round_up(off + k * weight_ld(sum(heads)) + sum(heads), 4)
+        rows = act_ld(d_in) + sum(act_ld(w) * (2 if ln else 1) for w, ln in layers) + act_ld(sum(heads))
+        floats = 2 * off + _TILE_ROWS * rows + len(layers) * _TILE_ROWS
+        if 4 * floats + _TILE_CHAIN_BYTES > _TILE_SMEM:
+            return False
+    return True
+
+
+def _tiled_forward_fits(structure: Structure) -> bool:
+    """``chains.cu``'s ``make_fwd_tiled``: whether every chain fits the
+    tiled forward's tables and its parameters, with two 64-row tiles of
+    ``x`` and the activation buffers, fit one block's shared memory."""
+    d_in, shapes = structure
+    if any(len(layers) > _TILE_DEPTH or len(heads) > _TILE_HEADS for layers, heads in shapes):
+        return False
+
+    def tile_ld(w: int) -> int:
+        ld = _round_up(w, 4)
+        return ld + 4 if ld % 8 == 0 else ld
+
+    widest = max(width for layers, _ in shapes for width, _ in layers)
+    lda = tile_ld(max(widest, d_in))
+    sa = 2 * _FWD_TILE_ROWS * tile_ld(d_in)
+    base = (sa if widest <= _FWD_PASS else sa + _FWD_TILE_ROWS * lda) + _FWD_TILE_ROWS * lda
+    for layers, heads in shapes:
+        off, k = base, d_in
+        for width, has_ln in layers:
+            off = _round_up(off + k * _round_up(width, 4), 4)
+            off = _round_up(off + (3 * width if has_ln else width), 4)
+            k = width
+        for hw in heads:
+            off = _round_up(off + k * _round_up(hw, 4), 4)
+            off = _round_up(off + hw, 4)
+        if 4 * off + _FWD_CHAIN_BYTES > _TILE_SMEM:
+            return False
+    return True
+
+
+def staged_saves(structure: Structure, N: int) -> bool:
+    """Whether the forward keeps its activations for the chain backward on
+    the card (``csrc/chains.cu``'s ``rl8_chains_workspace(..., 2)`` is
+    positive): both take their staged routes and the backward's chunk is
+    every row (:func:`staged_chunk_rows` answers ``N``). A pure-Python
+    mirror, for the tests."""
+    return not _tiled_forward_fits(structure) and staged_chunk_rows(structure, N) == N
+
+
+def staged_chunk_rows(structure: Structure, N: int) -> int:
+    """A pure-Python mirror of ``csrc/chains.cu``'s
+    ``rl8_chains_chunk_rows``: the rows of a chunk of the chain backward's
+    staged route on ``N`` rows (``N`` where its weight copies, partials
+    and every row's activations fit its 4 GiB budget at once), 0 where the
+    backward takes its tiled route, -1 where the copies and partials leave
+    no room for one 128-row block."""
+    if _tiled_backward_fits(structure):
+        return 0
+    d_in, shapes = structure
+    n_params = sum(torch.Size(shape).numel() for shape in _param_shapes(structure))
+    copies, per_row, slabs = 0, _round_up(d_in, 4) + len(shapes) * d_in, 0
+    for layers, heads in shapes:
+        k = d_in
+        for i, (width, has_ln) in enumerate(layers):
+            copies += _round_up(k, _ST_K) * _round_up(width, _ST_FWD_PASS)
+            if i > 0 or k >= _NARROW:
+                copies += 2 * _round_up(width, _ST_K) * _round_up(k, _ST_PASS)
+            ld = _round_up(width, 4)
+            per_row += 2 * ld + (2 * ld + 1 if has_ln else 0)
+            slabs += 5 if has_ln else 2
+            k = width
+        n_out = sum(heads)
+        copies += _round_up(k * n_out, 4) + 2 * _round_up(n_out, _ST_K) * _round_up(k, _ST_PASS)
+        per_row += _round_up(n_out, 4)
+    groups = max(min(-(-N // _GROUP_ROWS), _MAX_CHAIN_GROUPS, _PARTIAL_FLOATS // n_params), 1)
+    fixed = copies + groups * n_params + 4 * (slabs + 2 * len(shapes) + 2)
+    if fixed >= _WORKSPACE_FLOATS:
+        return -1
+    fit = (_WORKSPACE_FLOATS - fixed) // per_row // _ST_ROWS * _ST_ROWS
+    if fit >= N:
+        return N
+    if fit < _ST_ROWS:
+        return -1
+    chunks = -(-N // fit)
+    return _round_up(-(-N // chunks), _ST_ROWS)
+
+
 def _chain_mem(structure: Structure) -> tuple[int, int]:
     """``rl8_tpu``'s VMEM footprint model of its chain backward (the
     bigger of its two chain kernels), over a :data:`Structure`:
@@ -513,7 +640,9 @@ def _launch_args(x: torch.Tensor, flat: torch.Tensor, structure: Structure) -> t
     return spec, n
 
 
-def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, activation: str) -> list[torch.Tensor]:
+def fused_chains_fwd(
+    x: torch.Tensor, flat: torch.Tensor, structure: Structure, activation: str, save: bool = False
+) -> Any:
     """Every head's output ``[N, hw]``, chain by chain, of the chains of
     ``structure`` with parameters ``flat`` (:func:`flatten_chains` order)
     on ``x [N, d_in]``.
@@ -525,26 +654,39 @@ def fused_chains_fwd(x: torch.Tensor, flat: torch.Tensor, structure: Structure, 
     the activations in a workspace this allocates; the route is picked by
     the chains' shapes; counting one launch in
     ``fused_chains_fwd.launches``) or raise; CPU tensors run
-    :func:`forward_chains`."""
+    :func:`forward_chains`.
+
+    ``save``: returns ``(outs, saved)``, where ``saved`` is what
+    :func:`fused_chains_bwd` reads instead of recomputing the forward: on
+    the card, where both take their staged routes and the backward holds
+    every row at once, the staged forward's workspace in the backward's
+    layout (every ``h_l``, each LayerNorm's ``xhat_l`` and ``s_l``, and
+    the backward's weight copies), else ``None``; on the CPU the
+    activation stacks and LayerNorm aux. The outputs are the same bits as
+    without ``save``."""
     _check(x, flat, structure, activation)
     if x.device.type == "cpu":
-        outs, _ = forward_chains(x, unflatten_chains(flat, structure), activation)
-        return [o for chain in outs for o in chain]
+        outs, hs, aux = _forward_block(x, unflatten_chains(flat, structure), activation)
+        flat_outs = [o for chain in outs for o in chain]
+        return (flat_outs, (hs, aux)) if save else flat_outs
     spec, n = _launch_args(x, flat, structure)
     lib = load()
     N = x.shape[0]
     dev = x.device
     outs = [torch.empty((N, w), dtype=torch.float32, device=dev) for _, heads in structure[1] for w in heads]
     ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
-    floats = lib.rl8_chains_workspace(N, structure[0], spec, n, 0)
+    floats = lib.rl8_chains_workspace(N, structure[0], spec, n, 2) if save else 0
+    saving = floats > 0
+    if not saving:
+        floats = lib.rl8_chains_workspace(N, structure[0], spec, n, 0)
     work = torch.empty(floats, dtype=torch.float32, device=dev) if floats > 0 else None
     code = lib.rl8_chains_fwd(
         x.data_ptr(), flat.data_ptr(), ptrs, None if work is None else work.data_ptr(), N, structure[0], spec, n,
-        list(ACT_FNS).index(activation), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        list(ACT_FNS).index(activation), int(saving), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     check(code, "The chain forward kernel", outs)
     fused_chains_fwd.launches += 1
-    return outs
+    return (outs, work if saving else None) if save else outs
 
 
 def fused_chains_bwd(
@@ -553,6 +695,7 @@ def fused_chains_bwd(
     structure: Structure,
     activation: str,
     douts: Sequence[torch.Tensor],
+    saved: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx [N, d_in], dflat)``: the cotangents of the input and of the
     flat parameters from every head's output cotangent ``douts`` (chain
@@ -566,7 +709,12 @@ def fused_chains_bwd(
     partials a fixed budget bounds; then fixed-order sums, bit-identical
     from launch to launch;
     counting one launch in ``fused_chains_bwd.launches``) or raise; CPU
-    tensors run :func:`chains_vjp_plain`."""
+    tensors run :func:`chains_vjp_plain`. ``saved``: what a saving
+    :func:`fused_chains_fwd` on the same ``x`` and ``flat`` returned; the
+    staged row pass then reads its activations and weight copies instead
+    of recomputing them, with the same kernels and sums (the same bits),
+    and overwrites them (one backward a saving forward); on the CPU
+    :func:`chains_vjp_plain`'s backward on the saved stacks."""
     _check(x, flat, structure, activation)
     widths = [w for _, heads in structure[1] for w in heads]
     if len(douts) != len(widths) or any(
@@ -579,20 +727,31 @@ def fused_chains_bwd(
         for _, heads in structure[1]:
             grouped.append(list(douts[i : i + len(heads)]))
             i += len(heads)
-        dx, dchains = chains_vjp_plain(x, unflatten_chains(flat, structure), activation, grouped)
+        chains = unflatten_chains(flat, structure)
+        if saved is None:
+            dx, dchains = chains_vjp_plain(x, chains, activation, grouped)
+        else:
+            dchains, dx = _backward(chains, activation, saved[0], saved[1], grouped, need_dx=True)
         return dx, flatten_chains(dchains)
     spec, n = _launch_args(x, flat, structure)
     lib = load()
     N = x.shape[0]
     douts = [d.contiguous() for d in douts]
     dev = x.device
-    work = torch.empty(lib.rl8_chains_workspace(N, structure[0], spec, n, 1), dtype=torch.float32, device=dev)
+    if saved is None:
+        work = torch.empty(lib.rl8_chains_workspace(N, structure[0], spec, n, 1), dtype=torch.float32, device=dev)
+    else:
+        floats = lib.rl8_chains_workspace(N, structure[0], spec, n, 2)
+        if floats <= 0 or saved.numel() != floats or saved.device != dev:
+            raise ValueError("saved is not the workspace of a saving chain forward on these chains and rows.")
+        work = saved
     dx = torch.empty_like(x)
     dflat = torch.empty_like(flat)
     ptrs = (ctypes.c_void_p * len(douts))(*(d.data_ptr() for d in douts))
     code = lib.rl8_chains_bwd(
         x.data_ptr(), flat.data_ptr(), ptrs, dx.data_ptr(), dflat.data_ptr(), work.data_ptr(), N, structure[0],
-        spec, n, list(ACT_FNS).index(activation), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        spec, n, list(ACT_FNS).index(activation), int(saved is not None), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(code, "The chain backward kernel", dx, dflat)
     fused_chains_bwd.launches += 1
@@ -605,27 +764,37 @@ fused_chains_bwd.launches = 0
 
 
 class _FusedChains(torch.autograd.Function):
-    """:func:`fused_chains` as an autograd op: it saves only ``x`` and the
-    packed parameters, and its backward recomputes the activations."""
+    """:func:`fused_chains` as an autograd op: it saves ``x``, the packed
+    parameters and, where ``save`` (autograd will run its backward), what
+    :func:`fused_chains_fwd` keeps for the backward; its backward reads
+    that, once, or recomputes the activations where nothing was kept
+    (or a second backward runs after the first consumed it)."""
 
     @staticmethod
-    def forward(ctx: Any, activation: str, structure: Structure, x: torch.Tensor, *params: torch.Tensor) -> Any:
+    def forward(
+        ctx: Any, activation: str, structure: Structure, save: bool, x: torch.Tensor, *params: torch.Tensor
+    ) -> Any:
         flat = torch.cat([p.reshape(-1) for p in params]).to(torch.float32)
         ctx.activation, ctx.structure = activation, structure
         ctx.shapes = [p.shape for p in params]
         ctx.save_for_backward(x, flat)
-        return tuple(fused_chains_fwd(x, flat, structure, activation))
+        if not (save and any(ctx.needs_input_grad)):
+            ctx.kept = None
+            return tuple(fused_chains_fwd(x, flat, structure, activation))
+        outs, ctx.kept = fused_chains_fwd(x, flat, structure, activation, save=True)
+        return tuple(outs)
 
     @staticmethod
     def backward(ctx: Any, *douts: torch.Tensor) -> Any:
         x, flat = ctx.saved_tensors
-        dx, dflat = fused_chains_bwd(x, flat, ctx.structure, ctx.activation, douts)
+        kept, ctx.kept = ctx.kept, None
+        dx, dflat = fused_chains_bwd(x, flat, ctx.structure, ctx.activation, douts, saved=kept)
         grads, off = [], 0
         for shape in ctx.shapes:
             n = shape.numel()
             grads.append(dflat[off : off + n].view(shape))
             off += n
-        return (None, None, dx, *grads)
+        return (None, None, None, dx, *grads)
 
 
 def fused_chains(activation: str, x: torch.Tensor, chains: Sequence[Chain]) -> tuple[tuple[torch.Tensor, ...], ...]:
@@ -634,13 +803,17 @@ def fused_chains(activation: str, x: torch.Tensor, chains: Sequence[Chain]) -> t
     f32 ``[N, d_out]`` (``rl8_tpu``'s ``fused_chains``).
 
     Differentiable in ``x`` and every parameter: the backward is the
-    recompute-based chain kernel (or its plain version on the CPU),
-    which returns ``dx`` and the gradients in the layout of the
-    parameters given (``[in, out]`` views of ``nn.Linear`` weights carry
-    their gradients back to the weights)."""
+    chain backward kernel (or its plain version on the CPU), which returns
+    ``dx`` and the gradients in the layout of the parameters given
+    (``[in, out]`` views of ``nn.Linear`` weights carry their gradients
+    back to the weights). Where grad mode is on and an input requires a
+    gradient, the forward keeps the activations for the backward where
+    the route allows (:func:`fused_chains_fwd`'s ``save``); under
+    ``torch.no_grad`` it keeps nothing."""
     structure = chain_structure(chains)
     params = [p for layers, heads in chains for tensors in (*layers, *heads) for p in tensors]
-    flat_outs = _FusedChains.apply(activation, structure, x.to(torch.float32).contiguous(), *params)
+    save = torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
+    flat_outs = _FusedChains.apply(activation, structure, save, x.to(torch.float32).contiguous(), *params)
     grouped, i = [], 0
     for _, heads in structure[1]:
         grouped.append(tuple(flat_outs[i : i + len(heads)]))
